@@ -1,0 +1,330 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch + CUDA port (`fa2_triton_tpu_torch`) on one GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with an NVIDIA Hopper card and
+the CUDA toolkit. Phases (any failure raises, and the script exits nonzero):
+
+1. Build the CUDA kernels from `fa2_triton_tpu_torch/csrc/` with nvcc for
+   sm_90a (ptxas register / shared-memory report printed).
+2. Hold each kernel against its plain PyTorch twin at the serving slice's
+   shapes, in bf16 and fp32, and time both with CUDA events.
+3. Serve 16 requests through `runtime.serving.Engine` at the published
+   widths of Mistral-7B-v0.3 (random bf16 weights from a seed), with the
+   launch counters reset just before; every prefill dispatch and decode step
+   must have gone through the kernels on every layer.
+4. Recompute the served log-probs of two requests with the port's plain
+   fp32 forward and compare.
+
+The last line of stdout is a JSON object {"ok": true, "device": {...}}; the
+line before it lists each kernel's launches, error and times. Without a CUDA
+device, or without the package beside this script, it exits nonzero.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+N_REQUESTS = 16
+NEW_TOKENS = 32
+# Prompt lengths are drawn log-uniformly in this range: serving traffic is
+# heavy-tailed, and with seed 0 the 16 prompts land in buckets 128 (the TPU's
+# B1 schedule) and 512-2048 (its B9 tri-square schedule).
+PROMPT_RANGE = (100, 1800)
+ATTN_SEQ = (128, 1024, 2048)
+DECODE_LENS = (1, 17, 300, 1024, 2048, 3000, 4000, 4096)
+FP32_TOL = 1e-4                  # fp32 kernel vs fp32 plain, max abs
+LSE_TOL = 1e-4                   # base-2 lse, fp32 math on both sides
+# FA tolerance rule (tests/utils.py:19-20): a low-precision kernel may be off
+# from the fp32 truth by at most 2x the low-precision plain version's own
+# error, + 5e-5.
+OUT_ERROR_MUL, OUT_ERROR_BIAS = 2.0, 5e-5
+
+
+def mistral_7b_v03_config(torch):
+    """Published widths of Mistral-7B-v0.3, from
+    https://huggingface.co/mistralai/Mistral-7B-v0.3/blob/main/config.json:
+    hidden 4096, 32 layers, 32 heads, 8 KV heads, head_dim 128, intermediate
+    14336, vocab 32768, rope_theta 1e6, rms_norm_eps 1e-5, untied lm_head,
+    sliding_window null (full causal). Full depth: 7.25 B parameters,
+    14.5 GB in bf16."""
+    from fa2_triton_tpu_torch.models import LlamaConfig
+
+    return LlamaConfig(
+        vocab_size=32768, dim=4096, n_layers=32, n_heads=32, n_kv_heads=8,
+        hidden_dim=14336, head_dim=128, rope_theta=1e6, norm_eps=1e-5,
+        max_seq_len=32768, dtype=torch.bfloat16, sliding_window=-1,
+    )
+
+
+def cuda_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def max_abs(torch, a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def check_lse(torch, lse, lse_ref, what):
+    if not torch.equal(torch.isinf(lse), torch.isinf(lse_ref)):
+        raise AssertionError(f"{what}: lse -inf pattern differs from the plain version")
+    fin = torch.isfinite(lse_ref)
+    err = max_abs(torch, lse[fin], lse_ref[fin])
+    if not err <= LSE_TOL:
+        raise AssertionError(f"{what}: lse max abs err {err:.3e} > {LSE_TOL}")
+    return err
+
+
+def phase_build():
+    from fa2_triton_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    path = _build.build(verbose=True)
+    _build.load()
+    print(f"[build] {path.relative_to(HERE)} in {time.perf_counter() - t0:.1f} s "
+          f"(nvcc {_build.build_seconds:.1f} s)")
+
+
+def phase_kernels(torch):
+    """Each kernel vs its plain twin at the slice's shapes. Returns
+    {kernel: {"max_abs_err", "ms", "plain_ms"}} at the served dtype (bf16)
+    and the largest served shape."""
+    from fa2_triton_tpu_torch.ops import flash_fwd, decode
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    result = {}
+    B, Hq, Hkv, D = 2, 32, 8, 128
+    scale = D ** -0.5
+    bf16_errs = []
+    for S in ATTN_SEQ:
+        shape_q, shape_kv = (B, S, Hq, D), (B, S, Hkv, D)
+        q32 = torch.randn(shape_q, generator=gen, device=dev) * 0.5
+        k32 = torch.randn(shape_kv, generator=gen, device=dev) * 0.5
+        v32 = torch.randn(shape_kv, generator=gen, device=dev) * 0.5
+        # Right-padding like a bucketed prompt: one full row, one ~60%.
+        n2 = int(S * 0.6) + 1
+        lens = torch.tensor([[S, S], [n2, n2]], dtype=torch.int32, device=dev)
+        kw = dict(causal=True, softmax_scale=scale)
+        bhsd = lambda x: x.transpose(1, 2)  # the BSHD->BHSD view the API hands over
+        o_ref, lse_ref = flash_fwd.flash_attn_forward_plain(bhsd(q32), bhsd(k32), bhsd(v32), lens, **kw)
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = (bhsd(x.to(dt)) for x in (q32, k32, v32))
+            o, lse = flash_fwd.flash_attn_forward(q, k, v, lens, **kw)
+            torch.cuda.synchronize()
+            err = max_abs(torch, o, o_ref)
+            # lse: both sides compute it in fp32 from the same (rounded) inputs.
+            o_pl, lse_pl = flash_fwd.flash_attn_forward_plain(q, k, v, lens, **kw)
+            lse_err = check_lse(torch, lse, lse_pl, f"flash_fwd S={S} {dt}")
+            if dt == torch.float32:
+                bound, rule = FP32_TOL, f"<= {FP32_TOL}"
+            else:
+                pl_err = max_abs(torch, o_pl, o_ref)
+                bound = OUT_ERROR_MUL * pl_err + OUT_ERROR_BIAS
+                rule = f"<= 2 x plain bf16 err {pl_err:.3e} + 5e-5"
+                bf16_errs.append(err)
+            ms = cuda_ms(torch, lambda: flash_fwd.flash_attn_forward(q, k, v, lens, **kw))
+            pms = cuda_ms(torch, lambda: flash_fwd.flash_attn_forward_plain(q, k, v, lens, **kw))
+            print(f"[kernels] flash_fwd B={B} Hq={Hq} Hkv={Hkv} D={D} S={S} {str(dt)[6:]}: "
+                  f"max abs err {err:.3e} ({rule}), lse err {lse_err:.3e}; "
+                  f"kernel {ms:.3f} ms, plain {pms:.3f} ms")
+            if not err <= bound:
+                raise AssertionError(f"flash_fwd S={S} {dt}: err {err:.3e} > {bound:.3e}")
+        result["flash_fwd"] = {"max_abs_err": max(bf16_errs), "ms": ms, "plain_ms": pms}
+        del q32, k32, v32, o_ref, lse_ref, q, k, v, o, lse, o_pl, lse_pl
+
+    slots, S_max = 8, 4096
+    q32 = torch.randn((slots, Hq, D), generator=gen, device=dev) * 0.5
+    k32 = torch.randn((slots, Hkv, S_max, D), generator=gen, device=dev) * 0.5
+    v32 = torch.randn((slots, Hkv, S_max, D), generator=gen, device=dev) * 0.5
+    kv_lens = torch.tensor(DECODE_LENS, dtype=torch.int32, device=dev)
+    o_ref = decode.decode_attention_plain(q32, k32, v32, kv_lens, softmax_scale=scale)
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = (x.to(dt) for x in (q32, k32, v32))
+        o = decode.decode_attention(q, k, v, kv_lens, softmax_scale=scale)
+        torch.cuda.synchronize()
+        err = max_abs(torch, o, o_ref)
+        if dt == torch.float32:
+            bound, rule = FP32_TOL, f"<= {FP32_TOL}"
+        else:
+            pl_err = max_abs(torch, decode.decode_attention_plain(q, k, v, kv_lens, softmax_scale=scale), o_ref)
+            bound = OUT_ERROR_MUL * pl_err + OUT_ERROR_BIAS
+            rule = f"<= 2 x plain bf16 err {pl_err:.3e} + 5e-5"
+        ms = cuda_ms(torch, lambda: decode.decode_attention(q, k, v, kv_lens, softmax_scale=scale))
+        pms = cuda_ms(torch, lambda: decode.decode_attention_plain(q, k, v, kv_lens, softmax_scale=scale))
+        live = sum(DECODE_LENS) * Hkv * D * 2 * q.element_size()   # K and V bytes read
+        print(f"[kernels] decode slots={slots} Hq={Hq} Hkv={Hkv} D={D} S_max={S_max} "
+              f"kv_lens={list(DECODE_LENS)} {str(dt)[6:]}: max abs err {err:.3e} ({rule}); "
+              f"kernel {ms:.3f} ms ({live / (ms * 1e-3) / 1e9:.0f} GB/s of live K/V), "
+              f"plain {pms:.3f} ms")
+        if not err <= bound:
+            raise AssertionError(f"decode {dt}: err {err:.3e} > {bound:.3e}")
+    result["decode"] = {"max_abs_err": err, "ms": ms, "plain_ms": pms}
+    return result
+
+
+def phase_serve(torch, card: str):
+    from fa2_triton_tpu_torch.models import init_params
+    from fa2_triton_tpu_torch.ops import decode, flash_fwd
+    from fa2_triton_tpu_torch.runtime import Engine
+
+    cfg = mistral_7b_v03_config(torch)
+    t0 = time.perf_counter()
+    model = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[serve] Mistral-7B-v0.3 widths, {n_params / 1e9:.2f} B params bf16, random "
+          f"(seed 0), init {time.perf_counter() - t0:.1f} s")
+    engine = Engine(model, cfg, n_slots=8, max_seq=4096)
+    rng = np.random.RandomState(0)
+    lens = np.exp(rng.uniform(*np.log(PROMPT_RANGE), size=N_REQUESTS)).astype(int)
+    prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist() for n in lens]
+    reqs = [engine.submit(p, NEW_TOKENS) for p in prompts]
+    flash_fwd.LAUNCHES = 0
+    decode.LAUNCHES = 0
+    stats = engine.run()
+    launches = {"flash_fwd": flash_fwd.LAUNCHES, "decode": decode.LAUNCHES}
+    print(f"[serve] {N_REQUESTS} requests, prompts {int(lens.min())}-{int(lens.max())} tokens: "
+          f"prefill tokens {stats.prefill_tokens}, prefill dispatches {stats.prefill_dispatches}, "
+          f"decode tokens {stats.decode_tokens}, decode steps {stats.decode_steps}, "
+          f"wall {stats.wall_s:.3f} s, decode {stats.decode_tokens_per_s:.1f} tokens/s "
+          f"[{card}]; peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    print(f"[serve] launches: {launches}")
+    if not all(r.done and len(r.out_tokens) == NEW_TOKENS for r in reqs):
+        raise AssertionError("not every request finished with its tokens")
+    if launches["flash_fwd"] != cfg.n_layers * stats.prefill_dispatches or stats.prefill_dispatches == 0:
+        raise AssertionError(f"flash_fwd launches {launches['flash_fwd']} != "
+                             f"{cfg.n_layers} x {stats.prefill_dispatches} prefill dispatches")
+    if launches["decode"] != cfg.n_layers * stats.decode_steps or stats.decode_steps == 0:
+        raise AssertionError(f"decode launches {launches['decode']} != "
+                             f"{cfg.n_layers} x {stats.decode_steps} decode steps")
+    lps = np.array([r.out_logprobs for r in reqs])
+    if not np.isfinite(lps).all():
+        raise AssertionError("non-finite served log-probs")
+    return model, cfg, reqs, prompts, launches
+
+
+def fp32_logprobs(torch, model, cfg, prompt, out_tokens):
+    """Log-probs of `out_tokens` after `prompt` from the port's plain
+    forward in fp32: the plain attention oracle, weights upcast one layer at
+    a time (the whole model in fp32 would need 29 GB more)."""
+    from fa2_triton_tpu_torch.models import llama as L
+    from fa2_triton_tpu_torch.ops import flash_attn_reference
+
+    c32 = dataclasses.replace(cfg, dtype=torch.float32)
+    toks = torch.tensor([prompt + out_tokens[:-1]], device="cuda")
+    x = model.embed[toks].float()
+    positions = torch.arange(toks.shape[1], device="cuda")[None]
+    cos, sin = L.rope_cos_sin(positions, cfg.hd, cfg.rope_theta, cfg.rope_factors)
+
+    def attn(q, k, v):
+        return flash_attn_reference(q, k, v, causal=True, softmax_scale=cfg.scale)
+
+    for layer in model.layers:
+        l32 = L.LlamaLayer(c32, device="cuda")
+        l32.load_state_dict(layer.state_dict())
+        x = L.attention_block(l32, x, c32, cos, sin, attn)
+        x = L._mlp_block(l32, x, c32)
+        del l32
+    x = L.rms_norm(x, model.final_norm, cfg.norm_eps)
+    logits = x[0, len(prompt) - 1:] @ model.lm_head.float()
+    logp = torch.log_softmax(logits, dim=-1)
+    return logp.gather(-1, torch.tensor(out_tokens, device="cuda")[:, None])[:, 0].cpu().numpy()
+
+
+# Served (bf16 weights, activations and KV cache; kernels) vs the fp32
+# plain forward. bf16 keeps 8 mantissa bits: each of the 32 layers rounds
+# the residual stream and every matmul input, and the served path rounds the
+# cached k/v too. The bounds are ~2x the bf16 plain forward's own error
+# against the same fp32 forward, measured on an NVIDIA H100 80GB HBM3 at
+# 700 W (mean 0.011-0.017, max 0.024-0.068 over the five shortest requests):
+# the FA rule applied to
+# log-probs. A decode kv_len off by one fails them: one key short (kv_len =
+# lens) gives mean errors of 0.05-0.06, one stale row too many gives max
+# errors of 0.15-0.19 on these requests.
+LOGPROB_MEAN_TOL = 0.03
+LOGPROB_MAX_TOL = 0.1
+
+
+def phase_check(torch, model, cfg, reqs, prompts):
+    # The two shortest prompts: a wrong decode kv_len changes one key of the
+    # fewest, so these requests show it most.
+    for i in sorted(range(len(prompts)), key=lambda j: len(prompts[j]))[:2]:
+        ref = fp32_logprobs(torch, model, cfg, prompts[i], reqs[i].out_tokens)
+        err = np.abs(np.array(reqs[i].out_logprobs) - ref)
+        print(f"[check] request {i} (prompt {len(prompts[i])}, {len(err)} tokens): served vs fp32 "
+              f"plain forward log-probs: mean abs err {err.mean():.4f} (tol {LOGPROB_MEAN_TOL}), "
+              f"max {err.max():.4f} (tol {LOGPROB_MAX_TOL})")
+        if not (np.isfinite(ref).all() and err.mean() <= LOGPROB_MEAN_TOL
+                and err.max() <= LOGPROB_MAX_TOL):
+            raise AssertionError(f"request {i}: served log-probs disagree with the fp32 forward")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    import fa2_triton_tpu_torch  # noqa: F401  (raises beside a lone chip_smoke.py)
+
+    if not os.path.abspath(fa2_triton_tpu_torch.__file__).startswith(HERE + os.sep):
+        raise RuntimeError(f"fa2_triton_tpu_torch imported from {fa2_triton_tpu_torch.__file__}, "
+                           f"not from this checkout")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
+          "torch.backends.cudnn.allow_tf32 = False")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}")
+    print(card)
+
+    phase_build()
+    with torch.inference_mode():
+        kernels = phase_kernels(torch)
+        torch.cuda.empty_cache()
+        model, cfg, reqs, prompts, launches = phase_serve(torch, card)
+        phase_check(torch, model, cfg, reqs, prompts)
+
+    if any(name == "jax" or name.startswith(("jax.", "fa2_triton_tpu.")) for name in sys.modules):
+        raise RuntimeError("the port imported jax or the JAX package")
+    table = {"kernels": [
+        {"name": "flash_fwd", "route": "cuda", "source": "fa2_triton_tpu_torch/csrc/flash_fwd.cu",
+         "replaces": "fa2_triton_tpu/ops/flash_fwd.py:56",
+         "also_replaces": "fa2_triton_tpu/ops/flash_fwd.py:454",
+         "launches": launches["flash_fwd"], **kernels["flash_fwd"]},
+        {"name": "decode", "route": "cuda", "source": "fa2_triton_tpu_torch/csrc/decode.cu",
+         "replaces": "fa2_triton_tpu/ops/decode.py:158",
+         "launches": launches["decode"], **kernels["decode"]},
+    ]}
+    print(card)
+    print(json.dumps(table))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,75 @@
+// Shared helpers for the hand-written Hopper kernels of fa2_triton_tpu_torch.
+// Built by ops/_build.py with nvcc for sm_90a into one shared library with a
+// plain C interface (loaded through ctypes; no PyTorch headers).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace fa2 {
+
+// Finite mask floor for the running max, in the log2 domain: exp2 of
+// (anything masked) - m underflows to 0, and (m - m) is never NaN. Masked
+// scores themselves are -inf so their probability is exactly 0 even in a
+// row that has seen no valid column yet.
+constexpr float MASK_LOG2 = -1e30f;
+constexpr float LOG2E = 1.44269504088896340736f;
+
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000u); }
+
+// dtype codes shared with the Python wrappers.
+enum DType : int { kF32 = 0, kF16 = 1, kBF16 = 2 };
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __half from_f<__half>(float x) { return __float2half_rn(x); }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// Load N consecutive elements of T (N * sizeof(T) bytes, a power of two) as
+// one or more vector loads and widen them to fp32. `ptr` must be aligned to
+// min(N * sizeof(T), 16) bytes; the wrappers check base pointers and strides.
+template <typename T, int N>
+__device__ __forceinline__ void load_vec(const T* ptr, float (&out)[N]) {
+  constexpr int BYTES = N * (int)sizeof(T);
+  const char* p = reinterpret_cast<const char*>(ptr);
+  if constexpr (BYTES >= 16) {
+    static_assert(BYTES % 16 == 0, "vector width");
+    constexpr int PER = 16 / (int)sizeof(T);
+#pragma unroll
+    for (int c = 0; c < BYTES / 16; ++c) {
+      uint4 raw = *reinterpret_cast<const uint4*>(p + 16 * c);
+      const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int i = 0; i < PER; ++i) out[c * PER + i] = to_f(e[i]);
+    }
+  } else if constexpr (BYTES == 8) {
+    uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = to_f(e[i]);
+  } else if constexpr (BYTES == 4) {
+    uint32_t raw = *reinterpret_cast<const uint32_t*>(p);
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = to_f(e[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = to_f(ptr[i]);
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+}  // namespace fa2

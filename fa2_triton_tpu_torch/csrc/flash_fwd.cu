@@ -1,0 +1,290 @@
+// FlashAttention-2 forward for Hopper (sm_90a), written by hand in CUDA C++.
+//
+// Replaces: fa2_triton_tpu/ops/flash_fwd.py:_fwd_kernel (B1) and
+// fa2_triton_tpu/ops/flash_fwd.py:_fwd_tri_square_kernel (B9) as the serving
+// prefill reaches them (padded prompts, causal, GQA). The two TPU kernels
+// compute the same function and differ only in how they fit VMEM and the
+// per-grid-step cost of a sequential grid; on the GPU one kernel serves both.
+//
+// Function: o = softmax(q k^T * scale [softcapped, masked]) v with a base-2
+// online softmax and fp32 accumulators. Per batch row b, lens[b] = (q_len,
+// kv_len) are GLOBAL actual lengths; q_off / kv_off place this call's rows
+// and columns in that global frame. Causal and window masks are
+// bottom-right aligned on (q_len, kv_len): keep iff
+//   row + shift - left <= col <= row + shift + right,  shift = kv_len - q_len.
+// Rows that see no valid column (beyond q_len, or masked out entirely) get
+// o = 0 and lse = -inf. lse is stored in log2 units, [B, Hq, Sq] fp32.
+//
+// Bound on the H100: at prefill lengths (S >= 128, D = 128) attention is
+// compute-bound (4*S*D flops per 2*D*2 bytes of K/V per query row), so the
+// roof is the tensor cores (989 TFLOP/s bf16). This first kernel is the
+// simple, correct version: fp32 FMAs on the CUDA cores from shared memory
+// tiles, the same code for fp32/fp16/bf16. Its design against the bound:
+//   * one block per (64-row q tile, q head, batch); a loop over 32-row KV
+//     tiles stands in for the TPU's sequential grid dimension;
+//   * q is staged once per block with scale*log2(e) folded in; each thread
+//     holds a 4x2 score tile and a 4x(D/16) output tile in registers, so
+//     every shared-memory load feeds 2-4 FMAs;
+//   * KV tiles beyond the causal limit or kv_len are never loaded;
+//   * shared rows are padded by one float so the 16 threads that read 16
+//     different K rows hit 16 different banks.
+// wgmma + TMA (the route to the tensor-core roof) is later work.
+#include "common.cuh"
+
+namespace fa2 {
+namespace {
+
+constexpr int BQ = 64;        // query rows per block
+constexpr int BK = 32;        // key/value rows per KV tile
+constexpr int THREADS = 256;  // a 16 x 16 grid of threads
+
+struct FwdParams {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  float* lse;
+  const int* lens;  // [B, 2] (q_len, kv_len)
+  long long q_sb, q_sh, q_ss;
+  long long k_sb, k_sh, k_ss;
+  long long v_sb, v_sh, v_ss;
+  long long o_sb, o_sh, o_ss;
+  int Hq, Hkv, Sq, Sk;
+  int q_off, kv_off, causal, wl, wr;
+  float scale_log2;  // softmax_scale * log2(e)
+  float softcap;     // natural units; 0 = off
+};
+
+template <int D>
+constexpr int smem_floats() {
+  return BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1) + 2 * BQ;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FwdParams p) {
+  extern __shared__ float smem[];
+  float* Qs = smem;                     // [BQ][D+1]  q * scale * log2e
+  float* Ks = Qs + BQ * (D + 1);        // [BK][D+1]
+  float* Vs = Ks + BK * (D + 1);        // [BK][D]
+  float* Ss = Vs + BK * D;              // [BQ][BK+1] scores, then probabilities
+  float* alpha_s = Ss + BQ * (BK + 1);  // [BQ] per-row rescale of this tile
+  float* l_s = alpha_s + BQ;            // [BQ] final row sums
+
+  constexpr int D4 = D / 4;
+  constexpr int DJ = D / 16;  // output columns per thread
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (p.Hq / p.Hkv);
+  const int q_len = p.lens[2 * b], kv_len = p.lens[2 * b + 1];
+  const int shift = kv_len - q_len;
+
+  const T* qp = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* kp = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const T* vp = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+
+  for (int i = tid; i < BQ * D4; i += THREADS) {
+    const int r = i / D4, d = (i % D4) * 4;
+    float x[4] = {0.f, 0.f, 0.f, 0.f};
+    if (q0 + r < p.Sq) load_vec<T, 4>(qp + (q0 + r) * p.q_ss + d, x);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) Qs[r * (D + 1) + d + j] = x[j] * p.scale_log2;
+  }
+
+  // Global rows of this tile that can attend, and the local key range
+  // [lo, hi) they need: past the causal/right limit of the last live row,
+  // past kv_len, or left of the first row's window nothing is loaded.
+  const int row_lo = p.q_off + q0;
+  const int row_hi = min(p.q_off + min(q0 + BQ, p.Sq), q_len) - 1;  // inclusive
+  const int kv_valid = min(p.Sk, kv_len - p.kv_off);  // local rows with real keys
+  int hi = kv_valid;
+  if (p.causal) {
+    hi = min(hi, row_hi + shift + 1 - p.kv_off);
+  } else if (p.wr >= 0) {
+    hi = min(hi, row_hi + shift + p.wr + 1 - p.kv_off);
+  }
+  if (row_hi < row_lo) hi = 0;
+  const int lo = p.wl >= 0 ? max(0, row_lo + shift - p.wl - p.kv_off) : 0;
+
+  // Softmax mapping: 4 neighbouring lanes own one row, 8 columns each.
+  const int srow = tid / 4, scol = (tid % 4) * 8;
+  float m_run = MASK_LOG2, l_run = 0.f;
+  float acc[4][DJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = (lo / BK) * BK; k0 < hi; k0 += BK) {
+    __syncthreads();  // Q staged / previous tile fully consumed
+    for (int i = tid; i < BK * D4; i += THREADS) {
+      const int r = i / D4, d = (i % D4) * 4;
+      float kx[4] = {0.f, 0.f, 0.f, 0.f}, vx[4] = {0.f, 0.f, 0.f, 0.f};
+      // Rows past the real keys stay zero: cache rows beyond kv_len may
+      // hold anything, and 0 * NaN would poison the P V product.
+      if (k0 + r < kv_valid) {
+        load_vec<T, 4>(kp + (k0 + r) * p.k_ss + d, kx);
+        load_vec<T, 4>(vp + (k0 + r) * p.v_ss + d, vx);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        Ks[r * (D + 1) + d + j] = kx[j];
+        Vs[r * D + d + j] = vx[j];
+      }
+    }
+    __syncthreads();
+
+    float s[4][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float a[4], c[2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = Qs[(ty + 16 * i) * (D + 1) + d];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) c[j] = Ks[(tx + 16 * j) * (D + 1) + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) s[i][j] = fmaf(a[i], c[j], s[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int r = ty + 16 * i, c = tx + 16 * j;
+        const int rg = row_lo + r, cg = p.kv_off + k0 + c;
+        bool keep = (q0 + r < p.Sq) && (rg < q_len) && (k0 + c < kv_valid);
+        if (p.causal) {
+          keep = keep && (cg <= rg + shift);
+        } else if (p.wr >= 0) {
+          keep = keep && (cg <= rg + shift + p.wr);
+        }
+        if (p.wl >= 0) keep = keep && (cg >= rg + shift - p.wl);
+        float x = s[i][j];
+        if (p.softcap > 0.f) {
+          // Cap in natural units, then back to the log2 domain.
+          x = p.softcap * tanhf(x * (1.f / LOG2E) / p.softcap) * LOG2E;
+        }
+        Ss[r * (BK + 1) + c] = keep ? x : neg_inf();
+      }
+    }
+    __syncthreads();
+
+    {
+      float* row = Ss + srow * (BK + 1) + scol;
+      float mx = MASK_LOG2;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) mx = fmaxf(mx, row[c]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run, mx);
+      const float alpha = exp2f(m_run - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const float pr = exp2f(row[c] - m_new);  // masked: exp2(-inf) = 0
+        row[c] = pr;
+        sum += pr;
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l_run = l_run * alpha + sum;
+      m_run = m_new;
+      if ((tid % 4) == 0) alpha_s[srow] = alpha;
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float al = alpha_s[ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) acc[i][j] *= al;
+    }
+#pragma unroll 4
+    for (int c = 0; c < BK; ++c) {
+      float pr[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pr[i] = Ss[(ty + 16 * i) * (BK + 1) + c];
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) {
+        const float vv = Vs[c * D + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pr[i], vv, acc[i][j]);
+      }
+    }
+  }
+
+  if ((tid % 4) == 0) {
+    l_s[srow] = l_run;
+    if (q0 + srow < p.Sq) {
+      p.lse[((long long)b * p.Hq + h) * p.Sq + q0 + srow] =
+          l_run > 0.f ? m_run + log2f(l_run) : neg_inf();
+    }
+  }
+  __syncthreads();
+  T* op = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+    if (q0 + r >= p.Sq) continue;
+    const float l = l_s[r];
+    const float inv = l > 0.f ? 1.f / l : 0.f;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) op[(q0 + r) * p.o_ss + tx + 16 * j] = from_f<T>(acc[i][j] * inv);
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch(const FwdParams& p, int B, cudaStream_t stream) {
+  const int smem = smem_floats<D>() * (int)sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((p.Sq + BQ - 1) / BQ, p.Hq, B);
+  flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_d(const FwdParams& p, int B, int D, cudaStream_t stream) {
+  switch (D) {
+    case 64: return launch<T, 64>(p, B, stream);
+    case 128: return launch<T, 128>(p, B, stream);
+    case 256: return launch<T, 256>(p, B, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+}  // namespace fa2
+
+extern "C" int fa2_flash_fwd(
+    int dtype, int B, int Hq, int Hkv, int Sq, int Sk, int D,
+    const void* q, const void* k, const void* v, void* o, float* lse, const int* lens,
+    long long q_sb, long long q_sh, long long q_ss,
+    long long k_sb, long long k_sh, long long k_ss,
+    long long v_sb, long long v_sh, long long v_ss,
+    long long o_sb, long long o_sh, long long o_ss,
+    int q_off, int kv_off, int causal, int wl, int wr,
+    float softmax_scale, float softcap, void* stream) {
+  fa2::FwdParams p;
+  p.q = q; p.k = k; p.v = v; p.o = o; p.lse = lse; p.lens = lens;
+  p.q_sb = q_sb; p.q_sh = q_sh; p.q_ss = q_ss;
+  p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;
+  p.v_sb = v_sb; p.v_sh = v_sh; p.v_ss = v_ss;
+  p.o_sb = o_sb; p.o_sh = o_sh; p.o_ss = o_ss;
+  p.Hq = Hq; p.Hkv = Hkv; p.Sq = Sq; p.Sk = Sk;
+  p.q_off = q_off; p.kv_off = kv_off; p.causal = causal; p.wl = wl; p.wr = wr;
+  p.scale_log2 = softmax_scale * fa2::LOG2E;
+  p.softcap = softcap;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case fa2::kF32: return (int)fa2::launch_d<float>(p, B, D, s);
+    case fa2::kF16: return (int)fa2::launch_d<__half>(p, B, D, s);
+    case fa2::kBF16: return (int)fa2::launch_d<__nv_bfloat16>(p, B, D, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+extern "C" const char* fa2_error_string(int status) {
+  return cudaGetErrorString(static_cast<cudaError_t>(status));
+}

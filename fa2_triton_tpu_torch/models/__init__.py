@@ -1,0 +1,14 @@
+from fa2_triton_tpu_torch.models import convert
+from fa2_triton_tpu_torch.models.llama import (
+    LlamaConfig,
+    LlamaModel,
+    decode_step,
+    forward,
+    init_params,
+    prefill_forward,
+)
+
+__all__ = [
+    "LlamaConfig", "LlamaModel", "init_params", "forward", "prefill_forward",
+    "decode_step", "convert",
+]

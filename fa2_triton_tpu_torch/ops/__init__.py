@@ -1,0 +1,14 @@
+from fa2_triton_tpu_torch.ops.attention import flash_attn_func
+from fa2_triton_tpu_torch.ops.decode import decode_attention, decode_attention_plain
+from fa2_triton_tpu_torch.ops.flash_fwd import flash_attn_forward, flash_attn_forward_plain
+from fa2_triton_tpu_torch.ops.reference import construct_local_mask, flash_attn_reference
+
+__all__ = [
+    "flash_attn_func",
+    "flash_attn_reference",
+    "construct_local_mask",
+    "flash_attn_forward",
+    "flash_attn_forward_plain",
+    "decode_attention",
+    "decode_attention_plain",
+]

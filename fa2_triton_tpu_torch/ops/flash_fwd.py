@@ -1,0 +1,157 @@
+"""FlashAttention-2 forward: the CUDA kernel's wrapper and its plain twin.
+
+Port of `fa2_triton_tpu/ops/flash_fwd.py:flash_attn_forward` as the serving
+prefill reaches it: the TPU's `_fwd_kernel` (B1) and
+`_fwd_tri_square_kernel` (B9) both become `csrc/flash_fwd.cu`. Tensors are
+BHSD views with any strides (the head dim contiguous), so the BSHD public API
+hands them over without a copy. Per batch row, `lens[b] = (q_len, kv_len)`
+are global actual lengths and `q_off` / `kv_off` place this call's rows and
+columns in the global frame; causal and window masks are bottom-right
+aligned on (q_len, kv_len).
+
+CPU tensors take `flash_attn_forward_plain`; CUDA tensors always launch the
+kernel or raise.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from fa2_triton_tpu_torch.ops import _build
+from fa2_triton_tpu_torch.utils import LOG2E
+
+# Kernel launches since the last reset (the smoke test reads this to show the
+# served path went through the kernel).
+LAUNCHES = 0
+
+HEAD_DIMS = (64, 128, 256)
+
+_c_fn = None
+
+
+def _entry():
+    global _c_fn
+    if _c_fn is None:
+        fn = _build.load().fa2_flash_fwd
+        P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+        fn.argtypes = ([I] * 7 + [P] * 6 + [L] * 12 + [I] * 5 + [F, F, P])
+        fn.restype = I
+        _c_fn = fn
+    return _c_fn
+
+
+def _masks(lens, q_off, kv_off, Sq, Sk, causal, window, device):
+    """keep [B, 1, Sq, Sk]: the kernel's positional mask."""
+    B = lens.shape[0]
+    q_len = lens[:, 0].to(device=device, dtype=torch.int64).view(B, 1, 1, 1)
+    kv_len = lens[:, 1].to(device=device, dtype=torch.int64).view(B, 1, 1, 1)
+    row = (q_off + torch.arange(Sq, device=device)).view(1, 1, Sq, 1)
+    col = (kv_off + torch.arange(Sk, device=device)).view(1, 1, 1, Sk)
+    shift = kv_len - q_len
+    keep = (col < kv_len) & (row < q_len)
+    if causal:
+        keep = keep & (col <= row + shift)
+    elif window[1] >= 0:
+        keep = keep & (col <= row + shift + window[1])
+    if window[0] >= 0:
+        keep = keep & (col >= row + shift - window[0])
+    return keep
+
+
+def flash_attn_forward_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lens: torch.Tensor,
+    q_off: int = 0, kv_off: int = 0, *, causal: bool, softmax_scale: float,
+    window: Tuple[int, int] = (-1, -1), softcap: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's function in plain PyTorch, computed in fp32.
+
+    q [B, Hq, Sq, D], k/v [B, Hkv, Sk, D], lens [B, 2] int. Returns o like q
+    and lse [B, Hq, Sq] fp32 in log2 units (-inf and o = 0 on dead rows)."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    s = torch.matmul(q.float(), kf.transpose(-1, -2)) * softmax_scale
+    if softcap > 0.0:
+        s = softcap * torch.tanh(s / softcap)
+    keep = _masks(lens, q_off, kv_off, Sq, Sk, causal, window, q.device)
+    s2 = torch.where(keep, s * LOG2E, torch.tensor(float("-inf"), device=q.device))
+    m = s2.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp2(s2 - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.matmul(p, vf) / torch.where(l > 0, l, torch.ones_like(l))
+    lse = torch.where(l > 0, m + torch.log2(l), torch.tensor(float("-inf"), device=q.device))
+    return o.to(q.dtype), lse[..., 0]
+
+
+def _check_cuda_args(q, k, v, lens):
+    if q.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"flash_fwd kernel takes fp32/fp16/bf16, got {q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("q, k and v must share one dtype")
+    for name, t in (("k", k), ("v", v), ("lens", lens)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    B, Hq, Sq, D = q.shape
+    if k.dim() != 4 or k.shape[0] != B or k.shape[3] != D or v.shape != k.shape:
+        raise ValueError(f"bad k/v shapes {tuple(k.shape)} / {tuple(v.shape)} for q {tuple(q.shape)}")
+    if Hq % k.shape[1] != 0:
+        raise ValueError("num_heads_q must be a multiple of num_heads_kv")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_fwd kernel takes head_dim in {HEAD_DIMS}, got {D}")
+    if lens.shape != (B, 2) or lens.dtype != torch.int32 or not lens.is_contiguous():
+        raise ValueError("lens must be a contiguous int32 [B, 2] tensor")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        # 4-element vector loads: last dim contiguous, the other strides and
+        # the base address aligned.
+        if t.stride(3) != 1 or any(s % 4 for s in t.stride()[:3]) or t.data_ptr() % 16:
+            raise ValueError(f"{name}: head dim must be contiguous, strides a multiple "
+                             f"of 4 elements and the base 16-byte aligned; got strides {t.stride()}")
+
+
+def flash_attn_forward(
+    q: torch.Tensor,      # [B, Hq, Sq, D] (any strides, head dim contiguous)
+    k: torch.Tensor,      # [B, Hkv, Sk, D]
+    v: torch.Tensor,      # [B, Hkv, Sk, D]
+    lens: torch.Tensor,   # [B, 2] int32 (q_len, kv_len) global actual lengths
+    q_off: int = 0,
+    kv_off: int = 0,
+    *,
+    causal: bool,
+    softmax_scale: float,
+    window: Tuple[int, int] = (-1, -1),
+    softcap: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (o [B, Hq, Sq, D] in q's dtype, lse [B, Hq, Sq] fp32, log2).
+
+    `o` is a BHSD view of BSHD-contiguous memory, so `o.transpose(1, 2)` is
+    the contiguous BSHD output."""
+    global LAUNCHES
+    if q.device.type == "cpu":
+        return flash_attn_forward_plain(
+            q, k, v, lens, q_off, kv_off, causal=causal,
+            softmax_scale=softmax_scale, window=window, softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_fwd takes CPU or CUDA tensors, got {q.device}")
+    _check_cuda_args(q, k, v, lens)
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    o = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    if B == 0 or Sq == 0 or Hq == 0:
+        return o, lse
+    status = _entry()(
+        _build.DTYPE_CODES[q.dtype], B, Hq, Hkv, Sq, Sk, D,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        lens.data_ptr(),
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+        int(q_off), int(kv_off), int(bool(causal)), int(window[0]), int(window[1]),
+        float(softmax_scale), float(softcap), _build.stream_ptr(q.device),
+    )
+    _build.check(status, "flash_fwd launch")
+    LAUNCHES += 1
+    return o, lse

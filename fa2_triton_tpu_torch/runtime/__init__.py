@@ -1,0 +1,6 @@
+from fa2_triton_tpu_torch.runtime.kv_cache import KVCacheConfig, init_cache, write_kv
+from fa2_triton_tpu_torch.runtime.sampling import SamplingParams
+from fa2_triton_tpu_torch.runtime.serving import Engine, EngineStats, Request
+
+__all__ = ["KVCacheConfig", "init_cache", "write_kv", "Engine", "Request", "EngineStats",
+           "SamplingParams"]
