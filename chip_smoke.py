@@ -16,6 +16,19 @@ the CUDA toolkit. Phases (any failure raises, and the script exits nonzero):
    must have gone through the kernels on every layer.
 4. Recompute the served log-probs of two requests with the port's plain
    fp32 forward and compare.
+5. Hold each backward kernel (dq, dk/dv) against its plain twin at the
+   training shape (B 2, 32 / 8 heads, D 128, S 2047, causal), in bf16 and
+   fp32, under the FA gradient contract, and time both.
+6. The bias path: `flash_attn_func` with a trainable per-head bias at the
+   training shape, launch counts reset just before; the forward-with-bias,
+   dq, dk/dv and dbias kernels must all have run, and out / dq / dk / dv /
+   dbias are held against the plain twins.
+7. Training at Mistral-7B-v0.3 widths: (i) 2 layers, every parameter
+   gradient through the kernels and through the plain attention, both held
+   to an fp32 plain run; (ii) full depth, `examples/train.py` with remat,
+   AdamW and clipping for a few steps on one repeated batch, launch counts
+   reset after its warm-up: every loss finite, the last below the first,
+   and layers x steps dq / dk/dv launches, twice that of flash_fwd.
 
 The last line of stdout is a JSON object {"ok": true, "device": {...}}; the
 line before it lists each kernel's launches, error and times. Without a CUDA
@@ -24,6 +37,7 @@ device, or without the package beside this script, it exits nonzero.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -48,22 +62,19 @@ LSE_TOL = 1e-4                   # base-2 lse, fp32 math on both sides
 # from the fp32 truth by at most 2x the low-precision plain version's own
 # error, + 5e-5.
 OUT_ERROR_MUL, OUT_ERROR_BIAS = 2.0, 5e-5
-
-
-def mistral_7b_v03_config(torch):
-    """Published widths of Mistral-7B-v0.3, from
-    https://huggingface.co/mistralai/Mistral-7B-v0.3/blob/main/config.json:
-    hidden 4096, 32 layers, 32 heads, 8 KV heads, head_dim 128, intermediate
-    14336, vocab 32768, rope_theta 1e6, rms_norm_eps 1e-5, untied lm_head,
-    sliding_window null (full causal). Full depth: 7.25 B parameters,
-    14.5 GB in bf16."""
-    from fa2_triton_tpu_torch.models import LlamaConfig
-
-    return LlamaConfig(
-        vocab_size=32768, dim=4096, n_layers=32, n_heads=32, n_kv_heads=8,
-        hidden_dim=14336, head_dim=128, rope_theta=1e6, norm_eps=1e-5,
-        max_seq_len=32768, dtype=torch.bfloat16, sliding_window=-1,
-    )
+# FA gradient contract (tests/utils.py:21-23): at most 3x the low-precision
+# plain version's error + 1e-5, and the dV waiver (summed error < 1e-4).
+GRAD_ERROR_MUL, GRAD_ERROR_BIAS, DV_SUM_WAIVER = 3.0, 1e-5, 1e-4
+# fp32 kernel vs fp32 plain gradients: sums of ~2000 fp32 products taken in
+# another order.
+FP32_GRAD_RTOL = 1e-4
+# The training path's attention length: loss_fn feeds tokens[:, :-1] of
+# --seq 2048 (the TPU's B9 forward / B12 backward route).
+TRAIN_SEQ = 2048
+BWD_SEQ = TRAIN_SEQ - 1
+TRAIN_ARGV = ["--config", "mistral-7b-v0.3", "--steps", "4", "--batch", "2",
+              "--seq", str(TRAIN_SEQ), "--remat", "--repeat-batch", "--lr", "3e-4",
+              "--grad-clip", "1.0"]
 
 
 def cuda_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
@@ -79,7 +90,7 @@ def cuda_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
 
 
 def max_abs(torch, a, b) -> float:
-    return float((a.float() - b.float()).abs().max())
+    return float((a.detach().float() - b.detach().float()).abs().max())
 
 
 def check_lse(torch, lse, lse_ref, what):
@@ -181,11 +192,14 @@ def phase_kernels(torch):
 
 
 def phase_serve(torch, card: str):
+    from fa2_triton_tpu_torch.examples.train import preset_config
     from fa2_triton_tpu_torch.models import init_params
     from fa2_triton_tpu_torch.ops import decode, flash_fwd
     from fa2_triton_tpu_torch.runtime import Engine
 
-    cfg = mistral_7b_v03_config(torch)
+    # Published widths of Mistral-7B-v0.3 (the trainer's preset names its
+    # source), full depth: 7.25 B parameters, 14.5 GB in bf16.
+    cfg = preset_config("mistral-7b-v0.3", torch.bfloat16)
     t0 = time.perf_counter()
     model = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
     torch.cuda.synchronize()
@@ -277,6 +291,243 @@ def phase_check(torch, model, cfg, reqs, prompts):
             raise AssertionError(f"request {i}: served log-probs disagree with the fp32 forward")
 
 
+def check_grad(torch, name, g, ref, plain, what):
+    """The FA gradient contract for one gradient against the fp32 truth
+    `ref`, with the low-precision plain twin's error as the yardstick."""
+    err, yard = max_abs(torch, g, ref), max_abs(torch, plain, ref)
+    ok = err <= GRAD_ERROR_MUL * yard + GRAD_ERROR_BIAS
+    if not ok and name in ("dv", "dbias"):
+        ok = float((g.float() - ref.float()).abs().sum()) < DV_SUM_WAIVER
+    if not ok:
+        raise AssertionError(f"{what} {name}: err {err:.3e} > 3 x plain err {yard:.3e} + 1e-5")
+    return err, yard
+
+
+def check_fp32_grad(torch, name, g, plain, what):
+    err = max_abs(torch, g, plain)
+    bound = FP32_GRAD_RTOL * (1.0 + float(plain.float().abs().max()))
+    if not err <= bound:
+        raise AssertionError(f"{what} {name}: fp32 err {err:.3e} > {bound:.3e}")
+    return err
+
+
+def kernel_ms(torch, fn, names, iters=5):
+    """Device time per call of each named kernel over `iters` calls of
+    `fn`, from torch.profiler (kernel names contain `names`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    out = {}
+    for name in names:
+        us = 0.0
+        for e in events:
+            if name in e.key:
+                us += getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        if not us > 0:
+            raise AssertionError(f"the profiler recorded no device time for {name}")
+        out[name] = us / iters / 1e3
+    return out
+
+
+def attn_inputs(torch, gen, dev, S):
+    B, Hq, Hkv, D = 2, 32, 8, 128
+    q32 = torch.randn((B, S, Hq, D), generator=gen, device=dev) * 0.5
+    k32 = torch.randn((B, S, Hkv, D), generator=gen, device=dev) * 0.5
+    v32 = torch.randn((B, S, Hkv, D), generator=gen, device=dev) * 0.5
+    do32 = torch.randn((B, S, Hq, D), generator=gen, device=dev)
+    lens = torch.tensor([[S, S]] * B, dtype=torch.int32, device=dev)
+    return q32, k32, v32, do32, lens
+
+
+def phase_bwd_kernels(torch):
+    """dq and dk/dv kernels vs the plain backward at the training shape
+    (no padding, causal), fp32 and bf16; times at bf16."""
+    from fa2_triton_tpu_torch.ops import flash_bwd, flash_fwd
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    S, D = BWD_SEQ, 128
+    bhsd = lambda x: x.transpose(1, 2)
+    q32, k32, v32, do32, lens = (x if x.dtype == torch.int32 else bhsd(x)
+                                 for x in attn_inputs(torch, gen, dev, S))
+    kw = dict(causal=True, softmax_scale=D ** -0.5)
+    o32, lse32 = flash_fwd.flash_attn_forward_plain(q32, k32, v32, lens, **kw)
+    refs = flash_bwd.flash_attn_backward_plain(q32, k32, v32, do32, o32, lse32, lens, **kw)
+    names = ("dq", "dk", "dv")
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v, do = (x.to(dt) for x in (q32, k32, v32, do32))
+        o, lse = flash_fwd.flash_attn_forward(q, k, v, lens, **kw)
+        grads = flash_bwd.flash_attn_backward(q, k, v, do, o, lse, lens, **kw)
+        plains = flash_bwd.flash_attn_backward_plain(q, k, v, do, o, lse, lens, **kw)
+        torch.cuda.synchronize()
+        if dt == torch.float32:
+            errs = {n: check_fp32_grad(torch, n, g, pl, "flash_bwd fp32")
+                    for n, g, pl in zip(names, grads, plains)}
+            rule = f"vs fp32 plain, <= {FP32_GRAD_RTOL} x (1 + max|grad|)"
+        else:
+            errs = {}
+            for n, g, r, pl in zip(names, grads, refs, plains):
+                errs[n], yard = check_grad(torch, n, g, r, pl, "flash_bwd bf16")
+                errs[n + " plain"] = yard
+            rule = "vs fp32 truth, FA gradient contract (<= 3 x plain bf16 err + 1e-5)"
+        print(f"[bwd] B=2 Hq=32 Hkv=8 D={D} S={S} causal {str(dt)[6:]}: max abs errs "
+              + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()) + f" ({rule})")
+    fwd_ms = cuda_ms(torch, lambda: flash_fwd.flash_attn_forward(q, k, v, lens, **kw))
+    fwd_pms = cuda_ms(torch, lambda: flash_fwd.flash_attn_forward_plain(q, k, v, lens, **kw))
+    print(f"[bwd] bf16 forward at the training shape (both rows full): kernel {fwd_ms:.3f} ms, "
+          f"plain {fwd_pms:.3f} ms")
+    run = lambda: flash_bwd.flash_attn_backward(q, k, v, do, o, lse, lens, **kw)
+    split = kernel_ms(torch, run, ("dq_kernel", "dkdv_kernel"))
+    ms = cuda_ms(torch, run, iters=5)
+    pms = cuda_ms(torch, lambda: flash_bwd.flash_attn_backward_plain(q, k, v, do, o, lse, lens, **kw),
+                  iters=3, warmup=1)
+    flops = 2 * 2 * 32 * (S * (S + 1) // 2) * D * 7   # 7 causal S x S x D products per head
+    print(f"[bwd] bf16 backward {ms:.3f} ms ({flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s): dq kernel "
+          f"{split['dq_kernel']:.3f} ms, dk/dv kernel {split['dkdv_kernel']:.3f} ms (profiler); "
+          f"plain backward {pms:.3f} ms")
+    return {
+        "flash_bwd_dq": {"max_abs_err": errs["dq"], "ms": split["dq_kernel"], "plain_ms": pms},
+        "flash_bwd_dkdv": {"max_abs_err": max(errs["dk"], errs["dv"]), "ms": split["dkdv_kernel"],
+                           "plain_ms": pms},
+    }
+
+
+def phase_bias(torch):
+    """The bias path through `flash_attn_func` at the training shape: a
+    trainable per-head bias [1, 32, S, S] (ALiBi-style), bf16."""
+    from fa2_triton_tpu_torch.ops import flash_attn_func, flash_bwd, flash_fwd
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    S, D = BWD_SEQ, 128
+    q32, k32, v32, do32, lens = attn_inputs(torch, gen, dev, S)
+    b32 = torch.randn((1, 32, S, S), generator=gen, device=dev)
+    leaves = [x.to(torch.bfloat16).requires_grad_() for x in (q32, k32, v32, b32)]
+    flash_fwd.LAUNCHES = 0
+    flash_bwd.reset_launches()
+    out, lse = flash_attn_func(*leaves[:3], attention_bias=leaves[3], causal=True, return_lse=True)
+    out.backward(do32.to(torch.bfloat16))
+    torch.cuda.synchronize()
+    launches = {"flash_fwd": flash_fwd.LAUNCHES, **flash_bwd.LAUNCHES}
+    print(f"[bias] flash_attn_func + backward with a trainable [1, 32, {S}, {S}] bias: launches {launches}")
+    if any(n != 1 for n in launches.values()):
+        raise AssertionError(f"the bias path did not launch every kernel once: {launches}")
+
+    bhsd = lambda x: x.transpose(1, 2)
+    kw = dict(causal=True, softmax_scale=D ** -0.5)
+    q, k, v, b = (x.detach() for x in leaves)
+    do = do32.to(torch.bfloat16)
+    o32, lse32 = flash_fwd.flash_attn_forward_plain(bhsd(q32), bhsd(k32), bhsd(v32), lens, 0, 0, b32, **kw)
+    o_pl, _ = flash_fwd.flash_attn_forward_plain(bhsd(q), bhsd(k), bhsd(v), lens, 0, 0, b, **kw)
+    out_err, pl_err = max_abs(torch, bhsd(out), o32), max_abs(torch, o_pl, o32)
+    if not out_err <= OUT_ERROR_MUL * pl_err + OUT_ERROR_BIAS:
+        raise AssertionError(f"bias forward: err {out_err:.3e} > 2 x plain {pl_err:.3e} + 5e-5")
+    refs = flash_bwd.flash_attn_backward_plain(
+        bhsd(q32), bhsd(k32), bhsd(v32), bhsd(do32), o32, lse32, lens, 0, 0, b32,
+        compute_dbias=True, **kw)
+    plains = flash_bwd.flash_attn_backward_plain(
+        bhsd(q), bhsd(k), bhsd(v), bhsd(do), bhsd(out.detach()), lse.detach(), lens, 0, 0, b,
+        compute_dbias=True, **kw)
+    grads = [bhsd(x.grad) for x in leaves[:3]] + [leaves[3].grad]
+    errs = {}
+    for n, g, r, pl in zip(("dq", "dk", "dv", "dbias"), grads, refs, plains):
+        errs[n], _ = check_grad(torch, n, g, r, pl, "bias path")
+    print(f"[bias] out err {out_err:.3e} (<= 2 x plain {pl_err:.3e} + 5e-5); grad errs vs fp32 "
+          + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()) + " (FA gradient contract)")
+    args = (bhsd(q), bhsd(k), bhsd(v), bhsd(do), bhsd(out.detach()), lse.detach(), lens, 0, 0, b)
+    run = lambda: flash_bwd.flash_attn_backward(*args, compute_dbias=True, **kw)
+    split = kernel_ms(torch, run, ("dbias_kernel",))
+    pms = cuda_ms(torch, lambda: flash_bwd.flash_attn_backward_plain(*args, compute_dbias=True, **kw),
+                  iters=3, warmup=1)
+    print(f"[bias] dbias kernel {split['dbias_kernel']:.3f} ms (profiler); plain backward with "
+          f"dbias {pms:.3f} ms")
+    return launches, {"max_abs_err": errs["dbias"], "ms": split["dbias_kernel"], "plain_ms": pms}
+
+
+def phase_train_grads(torch):
+    """Mistral-7B-v0.3 widths, 2 layers, bf16: every parameter gradient of
+    loss_fn through the kernels and through the plain attention (the fp32
+    oracle, output in bf16), both held to an fp32 plain run."""
+    from fa2_triton_tpu_torch.examples.train import preset_config
+    from fa2_triton_tpu_torch.models import LlamaModel, init_params, loss_fn
+    from fa2_triton_tpu_torch.ops import flash_attn_reference, flash_bwd, flash_fwd
+
+    cfg = preset_config("mistral-7b-v0.3", torch.bfloat16, n_layers=2)
+    model = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, size=(2, TRAIN_SEQ))).cuda()
+
+    def plain_attn(q, k, v):
+        return flash_attn_reference(q, k, v, causal=True, softmax_scale=cfg.scale)
+
+    def grads_of(m, attention_fn=None):
+        m.zero_grad(set_to_none=True)
+        loss = loss_fn(m, tokens, attention_fn)
+        loss.backward()
+        grads = {n: p.grad.detach().clone() for n, p in m.named_parameters()}
+        m.zero_grad(set_to_none=True)
+        return loss.item(), grads
+
+    flash_fwd.LAUNCHES = 0
+    flash_bwd.reset_launches()
+    loss_k, g_k = grads_of(model)
+    launches = {"flash_fwd": flash_fwd.LAUNCHES, **flash_bwd.LAUNCHES}
+    if launches != {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkdv": 2, "flash_bwd_dbias": 0}:
+        raise AssertionError(f"2-layer loss_fn backward launches {launches}")
+    loss_p, g_p = grads_of(model, plain_attn)
+    m32 = LlamaModel(dataclasses.replace(cfg, dtype=torch.float32), device="cuda")
+    m32.load_state_dict(model.state_dict())
+    del model
+    loss_32, g_32 = grads_of(m32, plain_attn)
+    del m32
+    worst, worst_name = 0.0, None
+    for name in g_32:
+        err, yard = check_grad(torch, name, g_k[name], g_32[name], g_p[name], "2-layer grads")
+        ratio = err / (GRAD_ERROR_MUL * yard + GRAD_ERROR_BIAS)
+        if ratio >= worst:
+            worst, worst_name = ratio, name
+    print(f"[train] Mistral-7B-v0.3 widths, 2 layers, bf16, batch 2 x {TRAIN_SEQ}: loss kernels "
+          f"{loss_k:.5f}, plain {loss_p:.5f}, fp32 {loss_32:.5f}; all {len(g_32)} parameter "
+          f"gradients within the FA contract vs fp32 (worst {worst_name}: {worst:.2f} of the bound); "
+          f"launches {launches}")
+
+
+def phase_train(torch, card: str):
+    """Full-depth training steps through `examples/train.py`."""
+    from fa2_triton_tpu_torch.examples import train
+    from fa2_triton_tpu_torch.ops import flash_bwd, flash_fwd
+
+    args = train.parse_args(TRAIN_ARGV)
+
+    def reset():
+        flash_fwd.LAUNCHES = 0
+        flash_bwd.reset_launches()
+
+    res = train.run(args, on_warm=reset)
+    launches = {"flash_fwd": flash_fwd.LAUNCHES, **flash_bwd.LAUNCHES}
+    cfg, losses = res["config"], res["losses"]
+    L, steps = cfg.n_layers, args.steps
+    print(f"[train] Mistral-7B-v0.3 widths, {L} layers, {res['n_params'] / 1e9:.2f} B params bf16, "
+          f"remat, AdamW(lr {args.lr}, wd 0.01) + clip {args.grad_clip}, {steps} steps of "
+          f"{args.batch} x {args.seq} on one repeated batch: losses {[round(x, 4) for x in losses]}; "
+          f"step s {[round(x, 3) for x in res['step_s']]}, {res['tokens_per_s']:.0f} tokens/s "
+          f"(median step), peak memory {res['peak_bytes'] / 2**30:.2f} GiB [{card}]")
+    print(f"[train] launches: {launches}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"losses not finite or not falling: {losses}")
+    want = {"flash_fwd": 2 * L * steps, "flash_bwd_dq": L * steps, "flash_bwd_dkdv": L * steps,
+            "flash_bwd_dbias": 0}
+    if launches != want:
+        raise AssertionError(f"training launches {launches} != {want} (layers x steps, x2 for remat)")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -306,6 +557,17 @@ def main() -> int:
         torch.cuda.empty_cache()
         model, cfg, reqs, prompts, launches = phase_serve(torch, card)
         phase_check(torch, model, cfg, reqs, prompts)
+    del model, reqs  # the served model and its cache make way for training
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels.update(phase_bwd_kernels(torch))
+    torch.cuda.empty_cache()
+    bias_launches, kernels["flash_bwd_dbias"] = phase_bias(torch)
+    torch.cuda.empty_cache()
+    phase_train_grads(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_launches = phase_train(torch, card)
 
     if any(name == "jax" or name.startswith(("jax.", "fa2_triton_tpu.")) for name in sys.modules):
         raise RuntimeError("the port imported jax or the JAX package")
@@ -313,10 +575,22 @@ def main() -> int:
         {"name": "flash_fwd", "route": "cuda", "source": "fa2_triton_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "fa2_triton_tpu/ops/flash_fwd.py:56",
          "also_replaces": "fa2_triton_tpu/ops/flash_fwd.py:454",
-         "launches": launches["flash_fwd"], **kernels["flash_fwd"]},
+         "launches": launches["flash_fwd"], "launches_train": train_launches["flash_fwd"],
+         "launches_bias_path": bias_launches["flash_fwd"], **kernels["flash_fwd"]},
         {"name": "decode", "route": "cuda", "source": "fa2_triton_tpu_torch/csrc/decode.cu",
          "replaces": "fa2_triton_tpu/ops/decode.py:158",
          "launches": launches["decode"], **kernels["decode"]},
+        {"name": "flash_bwd_dq", "route": "cuda", "source": "fa2_triton_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": "fa2_triton_tpu/ops/flash_bwd.py:159",
+         "also_replaces": "fa2_triton_tpu/ops/flash_bwd.py:602 (B12), fa2_triton_tpu/ops/flash_bwd.py:376 (B2)",
+         "launches": train_launches["flash_bwd_dq"], **kernels["flash_bwd_dq"]},
+        {"name": "flash_bwd_dkdv", "route": "cuda", "source": "fa2_triton_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": "fa2_triton_tpu/ops/flash_bwd.py:263",
+         "also_replaces": "fa2_triton_tpu/ops/flash_bwd.py:602 (B12), fa2_triton_tpu/ops/flash_bwd.py:376 (B2)",
+         "launches": train_launches["flash_bwd_dkdv"], **kernels["flash_bwd_dkdv"]},
+        {"name": "flash_bwd_dbias", "route": "cuda", "source": "fa2_triton_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": "fa2_triton_tpu/ops/flash_bwd.py:1357",
+         "launches": bias_launches["flash_bwd_dbias"], **kernels["flash_bwd_dbias"]},
     ]}
     print(card)
     print(json.dumps(table))

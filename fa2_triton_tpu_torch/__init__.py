@@ -4,9 +4,11 @@ Same module layout as the JAX package, so every ported module has one named
 counterpart (`fa2_triton_tpu_torch.ops.decode` <-> `fa2_triton_tpu.ops.decode`).
 Plain tensor code is PyTorch; the Pallas TPU kernels on the ported path are
 CUDA C++ kernels for Hopper (sm_90a) in `csrc/`, built with nvcc at first use
-(`ops/_build.py`). This first slice is the serving path: prefill attention
-(`ops/flash_fwd.py`), decode attention (`ops/decode.py`), the LLaMA model
-and the continuous-batching `Engine`. This package never imports JAX.
+(`ops/_build.py`). Ported so far: the serving path (prefill attention
+`ops/flash_fwd.py`, decode attention `ops/decode.py`, the LLaMA model and
+the continuous-batching `Engine`) and the training path (the backward
+kernels `ops/flash_bwd.py` behind `flash_attn_func`'s autograd, `loss_fn`,
+remat and `examples/train.py`). This package never imports JAX.
 """
 
 from fa2_triton_tpu_torch.ops import flash_attn_func, flash_attn_reference

@@ -66,6 +66,41 @@ __device__ __forceinline__ void load_vec(const T* ptr, float (&out)[N]) {
   }
 }
 
+// One element of a tensor whose dtype is known only at run time (the
+// additive bias and its gradient may differ in dtype from q/k/v).
+__device__ __forceinline__ float load_any(const void* p, int dtype, long long i) {
+  switch (dtype) {
+    case kF16: return __half2float(static_cast<const __half*>(p)[i]);
+    case kBF16: return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
+    default: return static_cast<const float*>(p)[i];
+  }
+}
+
+__device__ __forceinline__ void store_any(void* p, int dtype, long long i, float x) {
+  switch (dtype) {
+    case kF16: static_cast<__half*>(p)[i] = __float2half_rn(x); break;
+    case kBF16: static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(x); break;
+    default: static_cast<float*>(p)[i] = x; break;
+  }
+}
+
+// Positional mask shared by the forward and backward kernels. r / c are
+// local row / column indices of this call; lens are global, q_off / kv_off
+// place the call in the global frame, and causal / window masks are
+// bottom-right aligned on (q_len, kv_len).
+__device__ __forceinline__ bool keep_at(int r, int c, int Sq, int Sk, int q_off, int kv_off,
+                                        int q_len, int kv_len, int causal, int wl, int wr) {
+  const int rg = q_off + r, cg = kv_off + c, shift = kv_len - q_len;
+  bool keep = r < Sq && c < Sk && rg < q_len && cg < kv_len;
+  if (causal) {
+    keep = keep && (cg <= rg + shift);
+  } else if (wr >= 0) {
+    keep = keep && (cg <= rg + shift + wr);
+  }
+  if (wl >= 0) keep = keep && (cg >= rg + shift - wl);
+  return keep;
+}
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);

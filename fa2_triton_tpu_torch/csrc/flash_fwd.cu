@@ -2,11 +2,12 @@
 //
 // Replaces: fa2_triton_tpu/ops/flash_fwd.py:_fwd_kernel (B1) and
 // fa2_triton_tpu/ops/flash_fwd.py:_fwd_tri_square_kernel (B9) as the serving
-// prefill reaches them (padded prompts, causal, GQA). The two TPU kernels
+// prefill and the training forward reach them (padded prompts, causal, GQA,
+// and B1's additive bias, indexed by q head as in the JAX package). The two TPU kernels
 // compute the same function and differ only in how they fit VMEM and the
 // per-grid-step cost of a sequential grid; on the GPU one kernel serves both.
 //
-// Function: o = softmax(q k^T * scale [softcapped, masked]) v with a base-2
+// Function: o = softmax(q k^T * scale [softcapped, + bias, masked]) v with a base-2
 // online softmax and fp32 accumulators. Per batch row b, lens[b] = (q_len,
 // kv_len) are GLOBAL actual lengths; q_off / kv_off place this call's rows
 // and columns in that global frame. Causal and window masks are
@@ -49,6 +50,9 @@ struct FwdParams {
   long long k_sb, k_sh, k_ss;
   long long v_sb, v_sh, v_ss;
   long long o_sb, o_sh, o_ss;
+  const void* bias;  // nullptr = none; else read as bias[b][h][row][col] through
+  int bias_dtype;    // its strides (0 on broadcast dims), dtype code below
+  long long bias_sb, bias_sh, bias_sq, bias_sk;
   int Hq, Hkv, Sq, Sk;
   int q_off, kv_off, causal, wl, wr;
   float scale_log2;  // softmax_scale * log2(e)
@@ -151,18 +155,18 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FwdParams p) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int r = ty + 16 * i, c = tx + 16 * j;
-        const int rg = row_lo + r, cg = p.kv_off + k0 + c;
-        bool keep = (q0 + r < p.Sq) && (rg < q_len) && (k0 + c < kv_valid);
-        if (p.causal) {
-          keep = keep && (cg <= rg + shift);
-        } else if (p.wr >= 0) {
-          keep = keep && (cg <= rg + shift + p.wr);
-        }
-        if (p.wl >= 0) keep = keep && (cg >= rg + shift - p.wl);
+        const bool keep = keep_at(q0 + r, k0 + c, p.Sq, p.Sk, p.q_off, p.kv_off, q_len, kv_len,
+                                  p.causal, p.wl, p.wr);
         float x = s[i][j];
-        if (p.softcap > 0.f) {
-          // Cap in natural units, then back to the log2 domain.
-          x = p.softcap * tanhf(x * (1.f / LOG2E) / p.softcap) * LOG2E;
+        if (p.softcap > 0.f || p.bias != nullptr) {
+          // Cap in natural units, add the bias there, then back to log2.
+          x *= 1.f / LOG2E;
+          if (p.softcap > 0.f) x = p.softcap * tanhf(x / p.softcap);
+          if (p.bias != nullptr && keep) {
+            x += load_any(p.bias, p.bias_dtype, b * p.bias_sb + h * p.bias_sh +
+                                                    (q0 + r) * p.bias_sq + (k0 + c) * p.bias_sk);
+          }
+          x *= LOG2E;
         }
         Ss[r * (BK + 1) + c] = keep ? x : neg_inf();
       }
@@ -264,6 +268,8 @@ extern "C" int fa2_flash_fwd(
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss,
+    const void* bias, int bias_dtype,
+    long long bias_sb, long long bias_sh, long long bias_sq, long long bias_sk,
     int q_off, int kv_off, int causal, int wl, int wr,
     float softmax_scale, float softcap, void* stream) {
   fa2::FwdParams p;
@@ -272,6 +278,8 @@ extern "C" int fa2_flash_fwd(
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;
   p.v_sb = v_sb; p.v_sh = v_sh; p.v_ss = v_ss;
   p.o_sb = o_sb; p.o_sh = o_sh; p.o_ss = o_ss;
+  p.bias = bias; p.bias_dtype = bias_dtype;
+  p.bias_sb = bias_sb; p.bias_sh = bias_sh; p.bias_sq = bias_sq; p.bias_sk = bias_sk;
   p.Hq = Hq; p.Hkv = Hkv; p.Sq = Sq; p.Sk = Sk;
   p.q_off = q_off; p.kv_off = kv_off; p.causal = causal; p.wl = wl; p.wr = wr;
   p.scale_log2 = softmax_scale * fa2::LOG2E;

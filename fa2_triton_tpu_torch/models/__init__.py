@@ -5,10 +5,11 @@ from fa2_triton_tpu_torch.models.llama import (
     decode_step,
     forward,
     init_params,
+    loss_fn,
     prefill_forward,
 )
 
 __all__ = [
     "LlamaConfig", "LlamaModel", "init_params", "forward", "prefill_forward",
-    "decode_step", "convert",
+    "decode_step", "loss_fn", "convert",
 ]

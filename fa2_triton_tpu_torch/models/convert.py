@@ -1,14 +1,16 @@
 """Conversion into the port's models (port of `fa2_triton_tpu.models.convert`).
 
 `llama_from_jax_params` takes the JAX package's LLaMA parameter tree as
-numpy arrays and returns the port's `LlamaModel`. Parameter names and
-orientation are the same on both sides, so this is a copy. The Hugging Face
-loaders of the JAX module are not ported yet.
+numpy arrays and returns the port's `LlamaModel`; `llama_to_jax_params` is
+the reverse mapping, of the parameters or of their gradients, so the two
+sides can be compared leaf by leaf. Parameter names and orientation are the
+same on both sides (`layers.3.wq` is `tree["layers"][3]["wq"]`), so both are
+copies. The Hugging Face loaders of the JAX module are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Tuple, Union
 
 import numpy as np
 import torch
@@ -63,3 +65,33 @@ def llama_from_jax_params(params_np: Dict[str, Any], cfg: LlamaConfig,
             else:
                 getattr(layer, key).copy_(t)
     return model
+
+
+def jax_path(name: str) -> Tuple[Union[str, int], ...]:
+    """A port parameter name as a path into the JAX tree:
+    "layers.3.wq" -> ("layers", 3, "wq"), "embed" -> ("embed",)."""
+    return tuple(int(p) if p.isdigit() else p for p in name.split("."))
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    # numpy has no bfloat16 of its own: widen (exactly) to fp32.
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+
+@torch.no_grad()
+def llama_to_jax_params(model: LlamaModel, grads: bool = False) -> Dict[str, Any]:
+    """The JAX tree {"embed", "layers": [...], "final_norm", "lm_head"} of a
+    `LlamaModel`'s parameters as numpy arrays (bf16 widened to fp32), or of
+    their `.grad`s with `grads=True` (a parameter without a grad raises)."""
+    tree: Dict[str, Any] = {"layers": [{} for _ in model.layers]}
+    for name, p in model.named_parameters():
+        t = p.grad if grads else p
+        if t is None:
+            raise ValueError(f"{name} has no gradient")
+        path = jax_path(name)
+        if path[0] == "layers":
+            tree["layers"][path[1]][path[2]] = _to_numpy(t)
+        else:
+            tree[path[0]] = _to_numpy(t)
+    return tree

@@ -6,9 +6,10 @@ JAX names and orientation (`wq` is [dim, Hq * hd], applied as `x @ wq`;
 norms are fp32), so converting a JAX parameter tree is a copy
 (`models/convert.py:llama_from_jax_params`).
 
-Ported: `forward`, `prefill_forward` and `decode_step`. Not yet ported:
-`chunk_prefill_step`, `paged_decode_step`, `forward_with_cache`, `loss_fn`,
-remat, and MoE layers (a "router" layer raises).
+Ported: `forward` (differentiable; `cfg.remat` checkpoints each layer),
+`loss_fn`, `prefill_forward` and `decode_step`. Not yet ported:
+`chunk_prefill_step`, `paged_decode_step`, `forward_with_cache`, and MoE
+layers (a "router" layer raises).
 
 Layout convention: activations [batch, seq, dim]; attention tensors BSHD.
 """
@@ -21,6 +22,7 @@ from typing import Any, Callable, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from fa2_triton_tpu_torch.ops import flash_attn_func
 from fa2_triton_tpu_torch.ops.decode import decode_attention
@@ -53,8 +55,8 @@ class LlamaConfig:
     # Llama-3.x RoPE scaling: (factor, low_freq_factor, high_freq_factor,
     # original_max_position_embeddings); None = vanilla RoPE.
     rope_factors: Optional[Tuple[float, float, float, float]] = None
-    # Training-only (gradient checkpointing); the training slice is not
-    # ported, so True raises.
+    # Training: per-layer gradient checkpointing (torch.utils.checkpoint),
+    # so the backward recomputes each layer's forward.
     remat: bool = False
 
     @property
@@ -117,8 +119,6 @@ class LlamaModel(nn.Module):
 
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
-        if cfg.remat:
-            raise NotImplementedError("remat is a training feature; the training slice is not ported")
         self.cfg = cfg
         self.embed = _param(cfg.vocab_size, cfg.dim, dtype=cfg.dtype, device=device)
         self.layers = nn.ModuleList(LlamaLayer(cfg, device) for _ in range(cfg.n_layers))
@@ -266,16 +266,22 @@ def attention_block(layer: LlamaLayer, x, cfg: LlamaConfig, cos, sin,
     return _attn_out(layer, x, attention_fn(q, k, v), cfg)
 
 
+def _layer(layer: LlamaLayer, x, cfg: LlamaConfig, cos, sin, attention_fn: Callable):
+    return _mlp_block(layer, attention_block(layer, x, cfg, cos, sin, attention_fn), cfg)
+
+
 def forward(
     model: LlamaModel,
     tokens: torch.Tensor,                 # [B, S] int
     attention_fn: Optional[Callable] = None,
     positions: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Full causal forward -> logits [B, S, vocab] (fp32).
+    """Full causal forward -> logits [B, S, vocab] (fp32), differentiable.
 
     `attention_fn(q, k, v)` (BSHD) overrides the config-driven per-layer
-    attention for every layer."""
+    attention for every layer. With `cfg.remat` and grad enabled, each layer
+    keeps only its input and is recomputed in the backward (the JAX
+    `jax.checkpoint` per layer, `fa2_triton_tpu/models/llama.py:343-344`)."""
     cfg = model.cfg
     B, S = tokens.shape
     x = model.embed[tokens]
@@ -284,10 +290,21 @@ def forward(
     cos, sin = rope_cos_sin(positions, cfg.hd, cfg.rope_theta, cfg.rope_factors)
     for li, layer in enumerate(model.layers):
         fn = attention_fn if attention_fn is not None else make_attention_fn(cfg, li)
-        x = attention_block(layer, x, cfg, cos, sin, fn)
-        x = _mlp_block(layer, x, cfg)
+        if cfg.remat and torch.is_grad_enabled():
+            x = checkpoint(_layer, layer, x, cfg, cos, sin, fn, use_reentrant=False)
+        else:
+            x = _layer(layer, x, cfg, cos, sin, fn)
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
     return _logits(x, model, cfg)
+
+
+def loss_fn(model: LlamaModel, tokens: torch.Tensor,
+            attention_fn: Optional[Callable] = None) -> torch.Tensor:
+    """Next-token cross-entropy on fp32 logits, mean over positions
+    (`fa2_triton_tpu/models/llama.py:loss_fn`)."""
+    logits = forward(model, tokens[:, :-1], attention_fn)
+    targets = tokens[:, 1:]
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1))
 
 
 def prefill_forward(

@@ -1,5 +1,6 @@
 from fa2_triton_tpu_torch.ops.attention import flash_attn_func
 from fa2_triton_tpu_torch.ops.decode import decode_attention, decode_attention_plain
+from fa2_triton_tpu_torch.ops.flash_bwd import flash_attn_backward, flash_attn_backward_plain
 from fa2_triton_tpu_torch.ops.flash_fwd import flash_attn_forward, flash_attn_forward_plain
 from fa2_triton_tpu_torch.ops.reference import construct_local_mask, flash_attn_reference
 
@@ -9,6 +10,8 @@ __all__ = [
     "construct_local_mask",
     "flash_attn_forward",
     "flash_attn_forward_plain",
+    "flash_attn_backward",
+    "flash_attn_backward_plain",
     "decode_attention",
     "decode_attention_plain",
 ]

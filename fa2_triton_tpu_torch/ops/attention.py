@@ -1,14 +1,20 @@
-"""Public flash-attention API: `flash_attn_func` (forward only).
+"""Public flash-attention API: `flash_attn_func`, differentiable.
 
 Port of `fa2_triton_tpu/ops/attention.py:flash_attn_func`, BSHD in and out.
 The TPU layout rules of the JAX version (the 128-lane head-dim pad, padding
 sequences to tuned blocks, the fp16 -> fp32 upcast because Mosaic has no
-fp16) do not carry over: the CUDA kernel masks its own ragged edges and
-computes fp16/bf16 natively, so q/k/v reach it as transposed views, uncopied.
+fp16) do not carry over: the CUDA kernels mask their own ragged edges and
+compute fp16/bf16 natively, so q/k/v reach them as transposed views, uncopied.
 
-Not ported yet (each raises NotImplementedError, see ROADMAP.md queue A):
-attention bias, dropout, and gradients through CUDA tensors (the backward
-kernels B2-B4). On the CPU the plain path is differentiable by autograd.
+`_AttnCore` is the counterpart of the JAX `jax.custom_vjp` core
+(`fa2_triton_tpu/ops/attention.py:57-116`): the forward saves
+(q, k, v, bias, o, lse) and the backward recomputes attention from the
+base-2 LSE through `ops/flash_bwd.py`, taking both cotangents (do, dlse) and
+returning a real dbias when the bias requires grad. CPU tensors run the
+plain twins of the kernels on both passes; CUDA tensors run the kernels.
+
+Not ported yet: dropout (counter-hash dropout, `utils/rng.py`; ROADMAP.md
+queue A.6); `dropout_p > 0` raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -16,8 +22,31 @@ from typing import Optional, Tuple
 
 import torch
 
+from fa2_triton_tpu_torch.ops.flash_bwd import flash_attn_backward
 from fa2_triton_tpu_torch.ops.flash_fwd import flash_attn_forward
 from fa2_triton_tpu_torch.utils import default_softmax_scale
+
+
+class _AttnCore(torch.autograd.Function):
+    """o, lse = attention(q, k, v, bias) on BHSD views; lens and the
+    static config are not differentiated."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, lens, causal, scale, window, softcap):
+        o, lse = flash_attn_forward(q, k, v, lens, 0, 0, bias, causal=causal,
+                                    softmax_scale=scale, window=window, softcap=softcap)
+        ctx.save_for_backward(q, k, v, bias, o, lse, lens)
+        ctx.cfg = dict(causal=causal, softmax_scale=scale, window=window, softcap=softcap)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, bias, o, lse, lens = ctx.saved_tensors
+        want_dbias = bias is not None and ctx.needs_input_grad[3]
+        grads = flash_attn_backward(q, k, v, do, o, lse, lens, 0, 0, bias, dlse=dlse,
+                                    compute_dbias=want_dbias, **ctx.cfg)
+        dbias = grads[3] if want_dbias else None
+        return grads[0], grads[1], grads[2], dbias, None, None, None, None, None
 
 
 def flash_attn_func(
@@ -34,7 +63,7 @@ def flash_attn_func(
     softcap: float = 0.0,
     return_lse: bool = False,
 ):
-    """FlashAttention-2 forward.
+    """FlashAttention-2, differentiable through `_AttnCore`.
 
     Args:
         q: [batch, seqlen_q, num_heads_q, head_dim].
@@ -43,8 +72,11 @@ def flash_attn_func(
         attention_mask: optional bool [batch, seqlen_q] right-padding mask
             (True = valid). Requires seqlen_q == seqlen_k; applied to both
             queries and keys.
-        attention_bias, dropout_p, dropout_seed: not ported yet; a bias or
-            dropout_p > 0 raises NotImplementedError.
+        attention_bias: optional additive bias broadcastable to
+            [batch, num_heads_q, seqlen_q, seqlen_k] (indexed by q head);
+            it gets a gradient when it requires one.
+        dropout_p, dropout_seed: not ported yet; dropout_p > 0 raises
+            NotImplementedError.
         causal: bottom-right-aligned causal masking.
         softmax_scale: defaults to 1/sqrt(head_dim).
         window_size: (left, right) sliding window, -1 = infinite.
@@ -53,21 +85,13 @@ def flash_attn_func(
             in log-base-2 units, fp32.
 
     Returns:
-        output [batch, seqlen_q, num_heads_q, head_dim] (and lse if requested).
+        output [batch, seqlen_q, num_heads_q, head_dim] (and lse if requested),
+        differentiable in q, k, v, the bias and the lse.
     """
-    if attention_bias is not None:
-        raise NotImplementedError(
-            "attention_bias is not ported yet (forward bias + dbias kernels, "
-            "ROADMAP.md queue A: training slice)")
     if dropout_p > 0.0:
         raise NotImplementedError(
-            "dropout is not ported yet (counter-hash dropout, ROADMAP.md queue "
-            "A: training slice)")
-    if q.device.type == "cuda" and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "gradients through the CUDA kernel need the backward kernels "
-            "(B2-B4, ROADMAP.md queue A: training slice); run under "
-            "torch.no_grad() / torch.inference_mode()")
+            "dropout is not ported yet (counter-hash dropout and utils/rng.py, "
+            "ROADMAP.md queue A.6)")
     B, Sq, Hq, D = q.shape
     Bk, Sk, Hkv, Dk = k.shape
     if D != Dk or v.shape != k.shape or Bk != B:
@@ -83,11 +107,17 @@ def flash_attn_func(
     else:
         lens = torch.tensor([[Sq, Sk]], dtype=torch.int32).expand(B, 2)
     lens = lens.to(device=q.device, dtype=torch.int32).contiguous()
-    o, lse = flash_attn_forward(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), lens, 0, 0,
-        causal=causal, softmax_scale=scale, window=tuple(window_size),
-        softcap=float(softcap),
-    )
+    bias = None
+    if attention_bias is not None:
+        bias = attention_bias.reshape((1,) * (4 - attention_bias.dim()) + tuple(attention_bias.shape))
+        if bias.dim() != 4 or bias.shape[0] not in (1, B) or bias.shape[1] not in (1, Hq):
+            raise ValueError(f"attention_bias {tuple(attention_bias.shape)} does not broadcast "
+                             f"to [{B}, {Hq}, {Sq}, {Sk}]")
+        # Seq dims broadcast as a view; autograd of expand sums dbias back.
+        bias = bias.expand(bias.shape[0], bias.shape[1], Sq, Sk)
+    o, lse = _AttnCore.apply(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), bias, lens,
+        causal, scale, tuple(window_size), float(softcap))
     out = o.transpose(1, 2)
     if return_lse:
         return out, lse

@@ -1,13 +1,16 @@
 """FlashAttention-2 forward: the CUDA kernel's wrapper and its plain twin.
 
 Port of `fa2_triton_tpu/ops/flash_fwd.py:flash_attn_forward` as the serving
-prefill reaches it: the TPU's `_fwd_kernel` (B1) and
-`_fwd_tri_square_kernel` (B9) both become `csrc/flash_fwd.cu`. Tensors are
+prefill and the training forward reach it: the TPU's `_fwd_kernel` (B1, with
+its additive bias) and `_fwd_tri_square_kernel` (B9) both become
+`csrc/flash_fwd.cu`. Tensors are
 BHSD views with any strides (the head dim contiguous), so the BSHD public API
 hands them over without a copy. Per batch row, `lens[b] = (q_len, kv_len)`
 are global actual lengths and `q_off` / `kv_off` place this call's rows and
 columns in the global frame; causal and window masks are bottom-right
-aligned on (q_len, kv_len).
+aligned on (q_len, kv_len). An additive bias broadcastable to
+[B, Hq, Sq, Sk] is indexed by q head and read through the strides of its
+broadcast view (zero on broadcast dims), never materialised.
 
 CPU tensors take `flash_attn_forward_plain`; CUDA tensors always launch the
 kernel or raise.
@@ -15,7 +18,7 @@ kernel or raise.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -36,7 +39,7 @@ def _entry():
     if _c_fn is None:
         fn = _build.load().fa2_flash_fwd
         P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        fn.argtypes = ([I] * 7 + [P] * 6 + [L] * 12 + [I] * 5 + [F, F, P])
+        fn.argtypes = ([I] * 7 + [P] * 6 + [L] * 12 + [P, I] + [L] * 4 + [I] * 5 + [F, F, P])
         fn.restype = I
         _c_fn = fn
     return _c_fn
@@ -60,15 +63,31 @@ def _masks(lens, q_off, kv_off, Sq, Sk, causal, window, device):
     return keep
 
 
+def bias_view(bias: torch.Tensor, q: torch.Tensor, Sk: int) -> torch.Tensor:
+    """The [B, Hq, Sq, Sk] broadcast view of an additive bias (no copy), as
+    the kernels read it. The bias must be 4-D and on q's device."""
+    B, Hq, Sq, _ = q.shape
+    if bias.dim() != 4:
+        raise ValueError(f"attention bias must be 4-D [1|B, 1|Hq, 1|Sq, 1|Sk], got {tuple(bias.shape)}")
+    if bias.device != q.device:
+        raise ValueError(f"bias is on {bias.device}, q on {q.device}")
+    if bias.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"attention bias must be fp32/fp16/bf16, got {bias.dtype}")
+    return bias.expand(B, Hq, Sq, Sk)
+
+
 def flash_attn_forward_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, lens: torch.Tensor,
-    q_off: int = 0, kv_off: int = 0, *, causal: bool, softmax_scale: float,
+    q_off: int = 0, kv_off: int = 0, bias: Optional[torch.Tensor] = None, *,
+    causal: bool, softmax_scale: float,
     window: Tuple[int, int] = (-1, -1), softcap: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch, computed in fp32.
 
-    q [B, Hq, Sq, D], k/v [B, Hkv, Sk, D], lens [B, 2] int. Returns o like q
-    and lse [B, Hq, Sq] fp32 in log2 units (-inf and o = 0 on dead rows)."""
+    q [B, Hq, Sq, D], k/v [B, Hkv, Sk, D], lens [B, 2] int, bias
+    broadcastable to [B, Hq, Sq, Sk] (added after the softcap). Returns o
+    like q and lse [B, Hq, Sq] fp32 in log2 units (-inf and o = 0 on dead
+    rows)."""
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     g = Hq // Hkv
@@ -77,6 +96,8 @@ def flash_attn_forward_plain(
     s = torch.matmul(q.float(), kf.transpose(-1, -2)) * softmax_scale
     if softcap > 0.0:
         s = softcap * torch.tanh(s / softcap)
+    if bias is not None:
+        s = s + bias.float()
     keep = _masks(lens, q_off, kv_off, Sq, Sk, causal, window, q.device)
     s2 = torch.where(keep, s * LOG2E, torch.tensor(float("-inf"), device=q.device))
     m = s2.amax(dim=-1, keepdim=True)
@@ -120,6 +141,7 @@ def flash_attn_forward(
     lens: torch.Tensor,   # [B, 2] int32 (q_len, kv_len) global actual lengths
     q_off: int = 0,
     kv_off: int = 0,
+    bias: Optional[torch.Tensor] = None,  # broadcastable to [B, Hq, Sq, Sk]
     *,
     causal: bool,
     softmax_scale: float,
@@ -133,13 +155,14 @@ def flash_attn_forward(
     global LAUNCHES
     if q.device.type == "cpu":
         return flash_attn_forward_plain(
-            q, k, v, lens, q_off, kv_off, causal=causal,
+            q, k, v, lens, q_off, kv_off, bias, causal=causal,
             softmax_scale=softmax_scale, window=window, softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd takes CPU or CUDA tensors, got {q.device}")
     _check_cuda_args(q, k, v, lens)
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
+    bv = bias_view(bias, q, Sk) if bias is not None else None
     o = torch.empty((B, Sq, Hq, D), dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     if B == 0 or Sq == 0 or Hq == 0:
@@ -149,6 +172,9 @@ def flash_attn_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         lens.data_ptr(),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+        bv.data_ptr() if bv is not None else None,
+        _build.DTYPE_CODES[bv.dtype] if bv is not None else 0,
+        *(bv.stride() if bv is not None else (0, 0, 0, 0)),
         int(q_off), int(kv_off), int(bool(causal)), int(window[0]), int(window[1]),
         float(softmax_scale), float(softcap), _build.stream_ptr(q.device),
     )

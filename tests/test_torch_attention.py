@@ -90,11 +90,13 @@ def test_forward_offsets_match_reference():
 
 
 def test_not_ported_features_raise():
+    """Dropout is still to port (it raises, naming the roadmap item); a
+    bias is ported, and one that does not broadcast raises."""
     q = torch.zeros(1, 8, 2, 64)
-    with pytest.raises(NotImplementedError, match="bias"):
-        flash_attn_func(q, q, q, attention_bias=torch.zeros(1, 2, 8, 8))
-    with pytest.raises(NotImplementedError, match="dropout"):
+    with pytest.raises(NotImplementedError, match="dropout.*A.6"):
         flash_attn_func(q, q, q, dropout_p=0.1, dropout_seed=0)
+    with pytest.raises(ValueError, match="broadcast"):
+        flash_attn_func(q, q, q, attention_bias=torch.zeros(1, 3, 8, 8))
 
 
 def test_non_cpu_tensors_never_take_the_plain_path():

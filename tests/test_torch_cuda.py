@@ -7,12 +7,16 @@ with one (no JAX needed):
 Tolerances: fp32 kernel vs fp32 plain 1e-4 max abs (summation order only);
 fp16/bf16 kernel error vs the fp32 plain at most 2x the low-precision plain
 version's own error + 5e-5 (the FA rule of tests/utils.py:19-20); base-2
-lse 1e-4 (fp32 math on both sides).
+lse 1e-4 (fp32 math on both sides). Gradients: fp32 kernel vs fp32 plain
+1e-4 x (1 + max |grad|) (sums of a few hundred fp32 products in another
+order); fp16/bf16 the FA gradient contract of
+tests/utils.py:compare_results_fa: at most 3x the low-precision plain
+version's error + 1e-5, with its dV waiver (summed dV error < 1e-4).
 """
 import pytest
 
 torch = pytest.importorskip("torch")
-from fa2_triton_tpu_torch.ops import decode, flash_fwd  # noqa: E402
+from fa2_triton_tpu_torch.ops import decode, flash_bwd, flash_fwd  # noqa: E402
 from fa2_triton_tpu_torch.ops.attention import flash_attn_func  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -124,8 +128,12 @@ def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(TypeError):
         flash_attn_func(q, q, q, causal=True)
     q = torch.zeros(1, 8, 2, 64, device=dev, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        flash_attn_func(q, q, q, causal=True)
+    with pytest.raises(NotImplementedError, match="dropout"):
+        flash_attn_func(q, q, q, causal=True, dropout_p=0.1, dropout_seed=0)
+    lse = torch.zeros(1, 2, 8, device=dev)
+    with pytest.raises(ValueError, match="compute_dbias"):
+        flash_bwd.flash_attn_backward(q, q, q, q, q, lse, torch.ones(1, 2, dtype=torch.int32, device=dev),
+                                      causal=True, softmax_scale=0.125, compute_dbias=True)
     qd = torch.zeros(2, 6, 64, device=dev)
     cache = torch.zeros(2, 2, 128, 64, device=dev)
     with pytest.raises(ValueError, match="Hq / Hkv"):
@@ -151,3 +159,186 @@ def test_engine_on_cuda_matches_engine_on_cpu(dev):
         assert a.out_tokens == b.out_tokens
         torch.testing.assert_close(torch.tensor(b.out_logprobs), torch.tensor(a.out_logprobs),
                                    rtol=0, atol=1e-3)
+
+
+def _check_grads(grads, refs, plains, dtype):
+    """FA gradient contract per gradient (dV / dbias with the dV waiver)."""
+    for name, g, r, pl in zip(("dq", "dk", "dv", "dbias"), grads, refs, plains):
+        err = (g.float() - r.float()).abs().max().item()
+        if dtype == torch.float32:
+            assert err <= 1e-4 * (1 + r.float().abs().max().item()), (name, err)
+            continue
+        yard = (pl.float() - r.float()).abs().max().item()
+        if err <= 3 * yard + 1e-5:
+            continue
+        assert name in ("dv", "dbias") and (g.float() - r.float()).abs().sum().item() < 1e-4, \
+            (name, err, yard)
+
+
+BWD_CASES = [
+    dict(),                                                   # padded causal GQA (group 4)
+    dict(causal=False),
+    dict(window=(17, 0)),
+    dict(causal=False, window=(9, 5)),
+    dict(softcap=4.0),
+    dict(sk=300),                                             # Sq < Sk, causal with offset
+    dict(sq=300),                                             # Sq > Sk: the first 100 rows dead
+    dict(q_off=40, sq=60, sk=100),                            # a query chunk at a global offset
+    dict(hkv=8),                                              # group 1
+    dict(hkv=4),                                              # group 2
+    dict(hkv=1),                                              # group 8
+]
+
+
+def _bwd_inputs(dev, c, D, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B, Hq, Hkv = 2, 8, c.get("hkv", 2)
+    Sq, Sk = c.get("sq", 200), c.get("sk", 200)
+    q = torch.randn(B, Sq, Hq, D, generator=g, device=dev) * 0.5
+    k = torch.randn(B, Sk, Hkv, D, generator=g, device=dev) * 0.5
+    v = torch.randn(B, Sk, Hkv, D, generator=g, device=dev) * 0.5
+    do = torch.randn(B, Sq, Hq, D, generator=g, device=dev)
+    q_off = c.get("q_off", 0)
+    if "q_off" in c:
+        lens = [[q_off + Sq, Sk]] * B
+    elif Sq == Sk:
+        lens = [[Sq, Sk], [Sq - 77, Sk - 77]]
+    else:
+        lens = [[Sq, Sk]] * B
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    kw = dict(causal=c.get("causal", True), softmax_scale=D ** -0.5,
+              window=c.get("window", (-1, -1)), softcap=c.get("softcap", 0.0))
+    return [x.transpose(1, 2) for x in (q, k, v, do)], lens, q_off, kw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("case", range(len(BWD_CASES)))
+def test_flash_bwd_kernels_match_plain(dev, dtype, D, case):
+    c = BWD_CASES[case]
+    (q32, k32, v32, do32), lens, q_off, kw = _bwd_inputs(dev, c, D, case * 11 + D)
+    o32, lse32 = flash_fwd.flash_attn_forward_plain(q32, k32, v32, lens, q_off, 0, **kw)
+    refs = flash_bwd.flash_attn_backward_plain(q32, k32, v32, do32, o32, lse32, lens, q_off, 0, **kw)
+    q, k, v, do = (x.to(dtype) for x in (q32, k32, v32, do32))
+    o, lse = flash_fwd.flash_attn_forward(q, k, v, lens, q_off, 0, **kw)
+    before = dict(flash_bwd.LAUNCHES)
+    grads = flash_bwd.flash_attn_backward(q, k, v, do, o, lse, lens, q_off, 0, **kw)
+    assert flash_bwd.LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert flash_bwd.LAUNCHES["flash_bwd_dkdv"] == before["flash_bwd_dkdv"] + 1
+    assert flash_bwd.LAUNCHES["flash_bwd_dbias"] == before["flash_bwd_dbias"]
+    plains = flash_bwd.flash_attn_backward_plain(q, k, v, do, o, lse, lens, q_off, 0, **kw)
+    torch.cuda.synchronize()
+    for g, x in zip(grads, (q, k, v)):
+        assert g.shape == x.shape and g.dtype == x.dtype and torch.isfinite(g).all()
+    _check_grads(grads, refs, plains, dtype)
+    assert not grads[0][~torch.isfinite(lse)].any()   # rows with no valid column: exactly 0
+
+
+BIAS_SHAPES = [(1, 1, 200, 200), (2, 1, 200, 200), (1, 8, 200, 200), (2, 8, 200, 200),
+               (2, 1, 1, 200)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("shape", BIAS_SHAPES)
+@pytest.mark.parametrize("bias_fp32", [False, True])
+def test_bias_forward_and_dbias_kernels_match_plain(dev, dtype, shape, bias_fp32):
+    (q32, k32, v32, do32), lens, _, kw = _bwd_inputs(dev, dict(), 64, 5)
+    g = torch.Generator(device=dev).manual_seed(9)
+    b32 = torch.randn(*shape, generator=g, device=dev)
+    bfull = b32.expand(shape[0], shape[1], 200, 200)   # a zero-stride seq dim when shape[2] == 1
+    o32, lse32 = flash_fwd.flash_attn_forward_plain(q32, k32, v32, lens, 0, 0, bfull, **kw)
+    refs = flash_bwd.flash_attn_backward_plain(q32, k32, v32, do32, o32, lse32, lens, 0, 0, bfull,
+                                               compute_dbias=True, **kw)
+    q, k, v, do = (x.to(dtype) for x in (q32, k32, v32, do32))
+    bias = bfull if bias_fp32 else bfull.to(dtype)
+    o, lse = flash_fwd.flash_attn_forward(q, k, v, lens, 0, 0, bias, **kw)
+    o_pl, _ = flash_fwd.flash_attn_forward_plain(q, k, v, lens, 0, 0, bias, **kw)
+    before = flash_bwd.LAUNCHES["flash_bwd_dbias"]
+    grads = flash_bwd.flash_attn_backward(q, k, v, do, o, lse, lens, 0, 0, bias,
+                                          compute_dbias=True, **kw)
+    assert flash_bwd.LAUNCHES["flash_bwd_dbias"] == before + 1
+    plains = flash_bwd.flash_attn_backward_plain(q, k, v, do, o, lse, lens, 0, 0, bias,
+                                                 compute_dbias=True, **kw)
+    torch.cuda.synchronize()
+    _check(o, o32, o_pl, dtype)
+    assert grads[3].shape == (shape[0], shape[1], 200, 200) and grads[3].dtype == bias.dtype
+    _check_grads(grads, refs, plains, dtype)
+
+
+def test_bwd_kernels_ignore_nan_padding(dev):
+    """Rows past q_len and columns past kv_len may hold NaN (padding): the
+    kernels zero-fill them on load, so the gradients equal those of
+    zero-filled padding bit for bit, and padded rows get exactly zero."""
+    (q, k, v, do), lens, _, kw = _bwd_inputs(dev, dict(), 128, 3)
+    q, k, v, do = (x.to(torch.bfloat16) for x in (q, k, v, do))
+    o, lse = flash_fwd.flash_attn_forward(q, k, v, lens, **kw)
+    base = flash_bwd.flash_attn_backward(q, k, v, do, o, lse, lens, **kw)
+    qn, kn, vn, don = (x.clone() for x in (q, k, v, do))
+    for x in (qn, kn, vn, don):
+        x[1, :, 123:] = float("nan")            # batch row 1 has 123 valid rows
+    o, lse = flash_fwd.flash_attn_forward(qn, kn, vn, lens, **kw)
+    grads = flash_bwd.flash_attn_backward(qn, kn, vn, don, o, lse, lens, **kw)
+    torch.cuda.synchronize()
+    for g, ref in zip(grads, base):
+        assert torch.isfinite(g).all()
+        assert torch.equal(g[0], ref[0]) and torch.equal(g[1, :, :123], ref[1, :, :123])
+        assert not g[1, :, 123:].any()
+
+
+def test_bwd_kernels_are_bitwise_repeatable(dev):
+    """5 runs, identical dq / dk / dv / dbias (no atomics; the JAX side pins
+    the same in tests/test_repeatability.py)."""
+    (q, k, v, do), lens, _, kw = _bwd_inputs(dev, dict(hkv=1), 128, 4)
+    q, k, v, do = (x.to(torch.bfloat16) for x in (q, k, v, do))
+    bias = torch.randn(1, 8, 200, 200, device=dev, dtype=torch.bfloat16)
+    o, lse = flash_fwd.flash_attn_forward(q, k, v, lens, 0, 0, bias, **kw)
+    runs = [flash_bwd.flash_attn_backward(q, k, v, do, o, lse, lens, 0, 0, bias,
+                                          compute_dbias=True, **kw) for _ in range(5)]
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        for a, b in zip(run, runs[0]):
+            assert torch.equal(a, b)
+
+
+def test_flash_attn_func_grads_go_through_the_kernels(dev):
+    """The public API on CUDA tensors that require grad: the forward and
+    backward kernels launch, and q / k / v / bias / lse gradients match the
+    same call on the CPU (the plain twins), fp32."""
+    rng = torch.Generator().manual_seed(0)
+    q = torch.randn(2, 150, 8, 64, generator=rng) * 0.5
+    k = torch.randn(2, 150, 2, 64, generator=rng) * 0.5
+    v = torch.randn(2, 150, 2, 64, generator=rng) * 0.5
+    bias = torch.randn(1, 8, 150, 150, generator=rng)
+    mask = torch.arange(150)[None] < torch.tensor([150, 99])[:, None]
+    do = torch.randn(2, 150, 8, 64, generator=rng)
+    dl = torch.randn(2, 8, 150, generator=rng)
+    grads = []
+    for device in ("cpu", dev):
+        leaves = [x.detach().to(device).requires_grad_() for x in (q, k, v, bias)]
+        fwd0 = flash_fwd.LAUNCHES
+        bwd0 = dict(flash_bwd.LAUNCHES)
+        out, lse = flash_attn_func(*leaves[:3], attention_mask=mask.to(device),
+                                   attention_bias=leaves[3], causal=True, return_lse=True)
+        lse_term = torch.where(torch.isfinite(lse), lse, 0) * dl.to(device)
+        ((out * do.to(device)).sum() + lse_term.sum()).backward()
+        launched = (flash_fwd.LAUNCHES - fwd0,
+                    *(flash_bwd.LAUNCHES[n] - bwd0[n] for n in sorted(bwd0)))
+        assert launched == ((0, 0, 0, 0) if device == "cpu" else (1, 1, 1, 1)), launched
+        grads.append([x.grad.cpu() for x in leaves])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(b, a, rtol=0, atol=1e-4)
+
+
+def test_expanded_output_cotangent_is_relaid_for_the_kernels(dev):
+    """`out.sum().backward()` hands the backward an expanded do (zero
+    strides), which the kernels cannot read as it is: the wrapper copies it
+    into their layout, and the gradients match the CPU's."""
+    rng = torch.Generator().manual_seed(1)
+    x = [torch.randn(2, 70, h, 64, generator=rng) * 0.5 for h in (4, 2, 2)]
+    grads = []
+    for device in ("cpu", dev):
+        leaves = [t.detach().to(device).requires_grad_() for t in x]
+        flash_attn_func(*leaves, causal=True).sum().backward()
+        grads.append([t.grad.cpu() for t in leaves])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(b, a, rtol=0, atol=1e-4)

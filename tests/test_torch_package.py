@@ -19,6 +19,7 @@ def test_port_never_imports_jax():
         "import fa2_triton_tpu_torch, fa2_triton_tpu_torch.ops, fa2_triton_tpu_torch.models\n"
         "import fa2_triton_tpu_torch.runtime, fa2_triton_tpu_torch.models.convert\n"
         "import fa2_triton_tpu_torch.ops.quant, fa2_triton_tpu_torch.utils\n"
+        "import fa2_triton_tpu_torch.ops.flash_bwd, fa2_triton_tpu_torch.examples.train\n"
         "from fa2_triton_tpu_torch.models import LlamaConfig, init_params\n"
         "from fa2_triton_tpu_torch.runtime import Engine\n"
         "cfg = LlamaConfig(vocab_size=64, dim=64, n_layers=1, n_heads=2, n_kv_heads=1,\n"
@@ -49,5 +50,5 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 def test_kernel_sources_are_hashed():
     names = {p.name for p in _build.sources()}
-    assert {"flash_fwd.cu", "decode.cu", "common.cuh"} <= names
+    assert {"flash_fwd.cu", "flash_bwd.cu", "decode.cu", "common.cuh"} <= names
     assert len(_build.source_hash()) == 16
