@@ -29,10 +29,24 @@ the CUDA toolkit. Phases (any failure raises, and the script exits nonzero):
    AdamW and clipping for a few steps on one repeated batch, launch counts
    reset after its warm-up: every loss finite, the last below the first,
    and layers x steps dq / dk/dv launches, twice that of flash_fwd.
+8. Packed varlen at Mistral-7B-v0.3 attention widths (32 / 8 heads, D 128,
+   bf16, causal): documents of log-uniform length packed into T <= 16384,
+   forward and backward through `flash_attn_varlen_func` with the launch
+   counts reset just before (one launch of each varlen kernel); out, lse and
+   gradients held against the fp32 and bf16 plain twins, dead positions
+   exactly 0; kernel, plain and library times; packed against the same
+   documents right-padded through `flash_attn_func(attention_mask=...)`.
+9. Block-sparse at the same widths (B 2, S 4096, a local band plus an
+   attention sink) through `flash_attn_blocksparse_func`, checked and timed
+   the same way, with flex_attention as the library yardstick.
 
-The last line of stdout is a JSON object {"ok": true, "device": {...}}; the
-line before it lists each kernel's launches, error and times. Without a CUDA
-device, or without the package beside this script, it exits nonzero.
+Every kernel is also timed against PyTorch's own call for the same function
+(`library_ms`, where one exists) and its bound on the H100 (`bound_ms`: the
+larger of its operations over the bf16 tensor-core peak and its bytes over
+the HBM rate). The last line of stdout is a JSON object {"ok": true,
+"device": {...}}; the line before it lists each kernel's launches, error,
+times and bound. Without a CUDA device, or without the package beside this
+script, it exits nonzero.
 """
 from __future__ import annotations
 
@@ -75,6 +89,23 @@ BWD_SEQ = TRAIN_SEQ - 1
 TRAIN_ARGV = ["--config", "mistral-7b-v0.3", "--steps", "4", "--batch", "2",
               "--seq", str(TRAIN_SEQ), "--remat", "--repeat-batch", "--lr", "3e-4",
               "--grad-clip", "1.0"]
+# Packed varlen traffic (packed SFT / pretraining batches): document lengths
+# log-uniform in this range from numpy.random.default_rng(0), drawn until the
+# next one would push the packed total past VARLEN_T_MAX; starts aligned to
+# the user blocks (block_q = block_kv = VARLEN_BLOCK).
+VARLEN_DOC_RANGE = (64, 4096)
+VARLEN_T_MAX = 16384
+VARLEN_BLOCK = 128
+# Block-sparse traffic: a local band of BS_BAND blocks below the diagonal plus
+# the first column (an attention sink), causal, B x S.
+BS_BATCH, BS_SEQ, BS_BAND = 2, 4096, 3
+# Published peaks of one NVIDIA H100 SXM (data sheet; dense): each kernel's
+# bound is the larger of operations / bf16 tensor-core rate and bytes / HBM rate.
+PEAK_BF16_FLOPS = 989e12
+PEAK_HBM_BYTES_S = 3.35e12
+# A library yardstick whose bf16 error vs the fp32 truth exceeds this many
+# times the bf16 plain twin's (+ bias) computes another function.
+LIBRARY_ERROR_MUL, LIBRARY_ERROR_BIAS = 10.0, 1e-3
 
 
 def cuda_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
@@ -100,6 +131,72 @@ def check_lse(torch, lse, lse_ref, what):
     err = max_abs(torch, lse[fin], lse_ref[fin])
     if not err <= LSE_TOL:
         raise AssertionError(f"{what}: lse max abs err {err:.3e} > {LSE_TOL}")
+    return err
+
+
+def roofline(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the operations
+    over the bf16 tensor-core rate and the bytes over the HBM rate."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def attn_bound(kernel: str, pairs: int, tokens: int, Hq: int, Hkv: int, D: int, elt: int) -> dict:
+    """Bound of one attention kernel over `pairs` kept (query, key) pairs
+    per q head and `tokens` live rows: 2 D operations per pair, head and
+    S x S x D product (forward: q k^T, p v; dq: + do v^T, ds k; dk/dv:
+    q k^T, do v^T, p^T do, ds^T q), and each live row of each input read
+    once and of each output written once."""
+    q_like = tokens * Hq * D * elt     # q, o, do, dq
+    kv_like = tokens * Hkv * D * elt   # k, v, dk, dv
+    row_vec = tokens * Hq * 4          # fp32 lse, delta
+    products, nbytes = {
+        "fwd": (2, 2 * q_like + 2 * kv_like + row_vec),
+        "dq": (3, 3 * q_like + 2 * kv_like + 2 * row_vec),
+        "dkdv": (4, 2 * q_like + 4 * kv_like + 2 * row_vec),
+    }[kernel]
+    return roofline(2 * D * products * pairs * Hq, nbytes)
+
+
+def causal_pairs(lens) -> int:
+    return sum(n * (n + 1) // 2 for n in lens)
+
+
+def tight(torch, x, lens):
+    """[B, S, H, D] right-padded rows -> the live rows back to back
+    [sum(lens), H, D], the layout of PyTorch's varlen attention."""
+    return torch.cat([x[b, :n] for b, n in enumerate(lens)]).contiguous()
+
+
+def library_attention(torch, q, k, v, lens_q, lens_k, causal, scale):
+    """PyTorch's own varlen FlashAttention-2 (`aten._flash_attention_forward`
+    / `_backward`) on tight-packed bf16 rows: the `library_ms` yardstick of
+    the attention kernels, timed beside them and called nowhere in the port.
+    Returns (forward call, its outputs, backward call given do)."""
+    cu = lambda lens: torch.tensor(np.cumsum([0, *lens]), dtype=torch.int32, device=q.device)
+    cq, ck, mq, mk = cu(lens_q), cu(lens_k), max(lens_q), max(lens_k)
+
+    def fwd():
+        return torch.ops.aten._flash_attention_forward(q, k, v, cq, ck, mq, mk, 0.0, causal, False,
+                                                       scale=scale)
+    out = fwd()
+
+    def bwd(do):
+        o, lse, rng, unused, _ = out
+        return lambda: torch.ops.aten._flash_attention_backward(
+            do, q, k, v, o, lse, cq, ck, mq, mk, 0.0, causal, rng, unused, scale=scale)
+    return fwd, out, bwd
+
+
+def check_library(torch, what, got, ref32, plain_err):
+    """The yardstick must compute the kernel's function: its bf16 error
+    against the fp32 truth stays near the bf16 plain twin's (a wrong mask
+    or length gives errors of order 0.1-1)."""
+    err = max_abs(torch, got, ref32)
+    if not err <= LIBRARY_ERROR_MUL * plain_err + LIBRARY_ERROR_BIAS:
+        raise AssertionError(f"{what}: library err {err:.3e} vs plain {plain_err:.3e}: "
+                             f"not the kernel's function")
     return err
 
 
@@ -153,12 +250,24 @@ def phase_kernels(torch):
                 bf16_errs.append(err)
             ms = cuda_ms(torch, lambda: flash_fwd.flash_attn_forward(q, k, v, lens, **kw))
             pms = cuda_ms(torch, lambda: flash_fwd.flash_attn_forward_plain(q, k, v, lens, **kw))
+            if dt == torch.bfloat16:
+                seq = [S, n2]
+                lib_fwd, lib_out, _ = library_attention(
+                    torch, *(tight(torch, x.to(dt), seq) for x in (q32, k32, v32)), seq, seq, True,
+                    scale)
+                lib_err = check_library(torch, f"flash_fwd S={S}", lib_out[0],
+                                        tight(torch, bhsd(o_ref), seq), pl_err)
+                fwd_extra = {"library_ms": cuda_ms(torch, lib_fwd),
+                             **attn_bound("fwd", causal_pairs(seq), sum(seq), Hq, Hkv, D, 2)}
+                print(f"[kernels] flash_fwd S={S} bf16: library (aten varlen flash) "
+                      f"{fwd_extra['library_ms']:.3f} ms, err {lib_err:.3e}; bound "
+                      f"{fwd_extra['bound_ms']:.3f} ms ({fwd_extra['bound_by']})")
             print(f"[kernels] flash_fwd B={B} Hq={Hq} Hkv={Hkv} D={D} S={S} {str(dt)[6:]}: "
                   f"max abs err {err:.3e} ({rule}), lse err {lse_err:.3e}; "
                   f"kernel {ms:.3f} ms, plain {pms:.3f} ms")
             if not err <= bound:
                 raise AssertionError(f"flash_fwd S={S} {dt}: err {err:.3e} > {bound:.3e}")
-        result["flash_fwd"] = {"max_abs_err": max(bf16_errs), "ms": ms, "plain_ms": pms}
+        result["flash_fwd"] = {"max_abs_err": max(bf16_errs), "ms": ms, "plain_ms": pms, **fwd_extra}
         del q32, k32, v32, o_ref, lse_ref, q, k, v, o, lse, o_pl, lse_pl
 
     slots, S_max = 8, 4096
@@ -187,7 +296,18 @@ def phase_kernels(torch):
               f"plain {pms:.3f} ms")
         if not err <= bound:
             raise AssertionError(f"decode {dt}: err {err:.3e} > {bound:.3e}")
-    result["decode"] = {"max_abs_err": err, "ms": ms, "plain_ms": pms}
+    # The library yardstick: each slot as a varlen sequence of one query.
+    lib_fwd, lib_out, _ = library_attention(
+        torch, q, *(tight(torch, x.transpose(1, 2), DECODE_LENS) for x in (k, v)),
+        [1] * slots, list(DECODE_LENS), False, scale)
+    lib_err = check_library(torch, "decode", lib_out[0], o_ref, pl_err)
+    nbytes = 2 * slots * Hq * D * q.element_size() + live
+    extra = {"library_ms": cuda_ms(torch, lib_fwd),
+             **roofline(4 * D * Hq * sum(DECODE_LENS), nbytes)}
+    print(f"[kernels] decode bf16: library (aten varlen flash, one query per slot) "
+          f"{extra['library_ms']:.3f} ms, err {lib_err:.3e}; bound {extra['bound_ms']:.4f} ms "
+          f"({extra['bound_by']})")
+    result["decode"] = {"max_abs_err": err, "ms": ms, "plain_ms": pms, **extra}
     return result
 
 
@@ -378,10 +498,16 @@ def phase_bwd_kernels(torch):
             rule = "vs fp32 truth, FA gradient contract (<= 3 x plain bf16 err + 1e-5)"
         print(f"[bwd] B=2 Hq=32 Hkv=8 D={D} S={S} causal {str(dt)[6:]}: max abs errs "
               + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()) + f" ({rule})")
+    seq = [S, S]
+    pairs = causal_pairs(seq)
+    lib_fwd, _, lib_bwd = library_attention(torch, *(tight(torch, bhsd(x), seq) for x in (q, k, v)),
+                                            seq, seq, True, kw["softmax_scale"])
     fwd_ms = cuda_ms(torch, lambda: flash_fwd.flash_attn_forward(q, k, v, lens, **kw))
     fwd_pms = cuda_ms(torch, lambda: flash_fwd.flash_attn_forward_plain(q, k, v, lens, **kw))
+    fwd_bound = attn_bound("fwd", pairs, 2 * S, 32, 8, D, 2)
     print(f"[bwd] bf16 forward at the training shape (both rows full): kernel {fwd_ms:.3f} ms, "
-          f"plain {fwd_pms:.3f} ms")
+          f"plain {fwd_pms:.3f} ms, library {cuda_ms(torch, lib_fwd):.3f} ms, bound "
+          f"{fwd_bound['bound_ms']:.3f} ms ({fwd_bound['bound_by']})")
     run = lambda: flash_bwd.flash_attn_backward(q, k, v, do, o, lse, lens, **kw)
     split = kernel_ms(torch, run, ("dq_kernel", "dkdv_kernel"))
     ms = cuda_ms(torch, run, iters=5)
@@ -391,10 +517,18 @@ def phase_bwd_kernels(torch):
     print(f"[bwd] bf16 backward {ms:.3f} ms ({flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s): dq kernel "
           f"{split['dq_kernel']:.3f} ms, dk/dv kernel {split['dkdv_kernel']:.3f} ms (profiler); "
           f"plain backward {pms:.3f} ms")
+    lib_run = lib_bwd(tight(torch, bhsd(do), seq))
+    lib_errs = [check_library(torch, f"flash_bwd {n}", g, tight(torch, bhsd(r), seq), errs[n + " plain"])
+                for n, g, r in zip(names, lib_run(), refs)]
+    lib_ms = cuda_ms(torch, lib_run, iters=5)
+    print(f"[bwd] library backward (aten varlen flash: dq, dk, dv in one call) {lib_ms:.3f} ms, "
+          f"errs {', '.join(f'{e:.3e}' for e in lib_errs)}")
     return {
-        "flash_bwd_dq": {"max_abs_err": errs["dq"], "ms": split["dq_kernel"], "plain_ms": pms},
+        "flash_bwd_dq": {"max_abs_err": errs["dq"], "ms": split["dq_kernel"], "plain_ms": pms,
+                         "library_ms": lib_ms, **attn_bound("dq", pairs, 2 * S, 32, 8, D, 2)},
         "flash_bwd_dkdv": {"max_abs_err": max(errs["dk"], errs["dv"]), "ms": split["dkdv_kernel"],
-                           "plain_ms": pms},
+                           "plain_ms": pms, "library_ms": lib_ms,
+                           **attn_bound("dkdv", pairs, 2 * S, 32, 8, D, 2)},
     }
 
 
@@ -445,9 +579,18 @@ def phase_bias(torch):
     split = kernel_ms(torch, run, ("dbias_kernel",))
     pms = cuda_ms(torch, lambda: flash_bwd.flash_attn_backward_plain(*args, compute_dbias=True, **kw),
                   iters=3, warmup=1)
+    # Bound: q k^T and do v^T over the causal pairs of both batch rows; reads
+    # q, k, v, do, lse, delta and the bias's causal part, writes all of dbias.
+    B, H, elt = 2, 32, 2
+    pairs = B * causal_pairs([S])
+    nbytes = (B * S * (2 * H + 2 * 8) * D * elt + 2 * B * H * S * 4
+              + H * causal_pairs([S]) * elt + H * S * S * elt)
+    extra = {"library_ms": None, **roofline(2 * D * 2 * pairs * H, nbytes)}
     print(f"[bias] dbias kernel {split['dbias_kernel']:.3f} ms (profiler); plain backward with "
-          f"dbias {pms:.3f} ms")
-    return launches, {"max_abs_err": errs["dbias"], "ms": split["dbias_kernel"], "plain_ms": pms}
+          f"dbias {pms:.3f} ms; bound {extra['bound_ms']:.3f} ms ({extra['bound_by']}); library: "
+          f"none (no PyTorch call computes a bias gradient alone)")
+    return launches, {"max_abs_err": errs["dbias"], "ms": split["dbias_kernel"], "plain_ms": pms,
+                      **extra}
 
 
 def phase_train_grads(torch):
@@ -528,6 +671,271 @@ def phase_train(torch, card: str):
     return launches
 
 
+def varlen_docs():
+    """Document lengths of the packed batch (see VARLEN_DOC_RANGE)."""
+    rng = np.random.default_rng(0)
+    lens, T = [], 0
+    while True:
+        n = int(np.exp(rng.uniform(*np.log(VARLEN_DOC_RANGE))))
+        ext = -(-n // VARLEN_BLOCK) * VARLEN_BLOCK
+        if T + ext > VARLEN_T_MAX:
+            return lens
+        lens.append(n)
+        T += ext
+
+
+def blocksparse_mask():
+    """Block (i, j) is kept when i - BS_BAND <= j <= i, or j = 0."""
+    n = BS_SEQ // VARLEN_BLOCK
+    i, j = np.arange(n)[:, None], np.arange(n)[None]
+    return ((j >= i - BS_BAND) & (j <= i)) | (j == 0)
+
+
+def check_packed_path(torch, what, inputs, grads, out, lse, do32, packed32, seg, keep_block, live):
+    """The kernels' output, lse and gradients of one packed run against the
+    plain twins: the fp32 truth and the bf16 plain yardstick (FA rules),
+    and exact zeros at the dead positions. The bf16 `inputs` (q, k, v),
+    their `grads`, `out` and the fp32 `packed32` / `do32` are [1, T, H, D],
+    lse [1, Hq, T]; `seg` is (starts, lens). Returns the errors, the fp32
+    output and the fp32 gradients."""
+    from fa2_triton_tpu_torch.ops import varlen
+
+    bhsd = lambda x: x.transpose(1, 2)
+    pkw = dict(causal=True, softmax_scale=inputs[0].shape[-1] ** -0.5, block_q=VARLEN_BLOCK,
+               block_kv=VARLEN_BLOCK, keep_block=keep_block)
+    args = (seg[0], seg[1], seg[1])
+    with torch.no_grad():
+        q32, k32, v32 = (bhsd(x) for x in packed32)
+        o32, lse32 = varlen.flash_attn_varlen_forward_plain(q32, k32, v32, *args, **pkw)
+        refs = varlen.flash_attn_varlen_backward_plain(q32, k32, v32, bhsd(do32), o32, lse32,
+                                                       *args, **pkw)
+        del q32, k32, v32
+        q, k, v, do = (bhsd(x) for x in (*inputs, do32.to(torch.bfloat16)))
+        o_pl, lse_pl = varlen.flash_attn_varlen_forward_plain(q, k, v, *args, **pkw)
+        plains = varlen.flash_attn_varlen_backward_plain(q, k, v, do, o_pl, lse_pl, *args, **pkw)
+    err, pl_err = max_abs(torch, bhsd(out), o32), max_abs(torch, o_pl, o32)
+    if not err <= OUT_ERROR_MUL * pl_err + OUT_ERROR_BIAS:
+        raise AssertionError(f"{what} forward: err {err:.3e} > 2 x plain {pl_err:.3e} + 5e-5")
+    lse_err = check_lse(torch, lse, lse_pl, what)
+    errs = {"o": err, "o plain": pl_err, "lse": lse_err}
+    for n, g, r, pl in zip(("dq", "dk", "dv"), (bhsd(x) for x in grads), refs, plains):
+        errs[n], errs[n + " plain"] = check_grad(torch, n, g, r, pl, what)
+    dead = ~live
+    if out[0, dead].any() or not torch.all(lse[0][:, dead] == float("-inf")):
+        raise AssertionError(f"{what}: dead positions hold a nonzero output or a finite lse")
+    if any(g[0, dead].any() for g in grads):
+        raise AssertionError(f"{what}: dead positions hold a nonzero gradient")
+    print(f"[{what}] max abs errs vs fp32 plain: " + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+          + " (FA rules; lse vs the bf16 plain twin); dead positions exactly 0")
+    return errs, o32, refs
+
+
+def time_packed_kernels(torch, inputs, do, seg, keep_block):
+    """Device time of each varlen kernel (profiler), the whole wrapper calls
+    (CUDA events, host work lists included) and the plain twins, bf16."""
+    from fa2_triton_tpu_torch.ops import varlen
+
+    bhsd = lambda x: x.transpose(1, 2)
+    pkw = dict(causal=True, softmax_scale=inputs[0].shape[-1] ** -0.5, block_q=VARLEN_BLOCK,
+               block_kv=VARLEN_BLOCK, keep_block=keep_block)
+    args = (seg[0], seg[1], seg[1])
+    q, k, v, do = (bhsd(x) for x in (*inputs, do))
+    with torch.no_grad():
+        o, lse = varlen.flash_attn_varlen_forward(q, k, v, *args, **pkw)
+        fwd = lambda: varlen.flash_attn_varlen_forward(q, k, v, *args, **pkw)
+        bwd = lambda: varlen.flash_attn_varlen_backward(q, k, v, do, o, lse, *args, **pkw)
+        t = kernel_ms(torch, fwd, ("varlen_fwd_kernel",))
+        t.update(kernel_ms(torch, bwd, ("varlen_dq_kernel", "varlen_dkdv_kernel")))
+        t["fwd call"], t["bwd call"] = cuda_ms(torch, fwd, iters=5), cuda_ms(torch, bwd, iters=5)
+        t["plain fwd"] = cuda_ms(torch, lambda: varlen.flash_attn_varlen_forward_plain(
+            q, k, v, *args, **pkw), iters=2, warmup=1)
+        t["plain bwd"] = cuda_ms(torch, lambda: varlen.flash_attn_varlen_backward_plain(
+            q, k, v, do, o, lse, *args, **pkw), iters=2, warmup=1)
+    return t
+
+
+def varlen_entries(t, errs, lib, pairs, tokens):
+    """The kernels-line entries of the three varlen kernels."""
+    b = lambda kernel: attn_bound(kernel, pairs, tokens, 32, 8, 128, 2)
+    return {
+        "varlen_fwd": {"max_abs_err": errs["o"], "ms": t["varlen_fwd_kernel"],
+                       "plain_ms": t["plain fwd"], "library_ms": lib["fwd"], **b("fwd")},
+        "varlen_dq": {"max_abs_err": errs["dq"], "ms": t["varlen_dq_kernel"],
+                      "plain_ms": t["plain bwd"], "library_ms": lib["bwd"], **b("dq")},
+        "varlen_dkdv": {"max_abs_err": max(errs["dk"], errs["dv"]), "ms": t["varlen_dkdv_kernel"],
+                        "plain_ms": t["plain bwd"], "library_ms": lib["bwd"], **b("dkdv")},
+    }
+
+
+def print_packed_times(what, t, lib, entries):
+    print(f"[{what}] bf16 kernels (profiler): " + ", ".join(
+        f"{n} {e['ms']:.3f} ms (bound {e['bound_ms']:.3f} ms, {e['bound_by']})"
+        for n, e in entries.items())
+        + f"; whole calls (CUDA events, host work lists included): forward {t['fwd call']:.3f} ms, "
+          f"backward {t['bwd call']:.3f} ms; plain forward {t['plain fwd']:.3f} ms, plain backward "
+          f"{t['plain bwd']:.3f} ms; library ({lib['name']}) forward {lib['fwd']:.3f} ms, "
+          f"backward {lib['bwd']:.3f} ms")
+
+
+def phase_varlen(torch, card: str):
+    """Packed varlen at Mistral-7B-v0.3 attention widths: the documents of
+    `varlen_docs` packed with `pack_padded_batch`, forward and backward
+    through `flash_attn_varlen_func` (launch counts reset just before),
+    checked, timed, and compared with the same documents right-padded to
+    [n_docs, 4096] through `flash_attn_func(attention_mask=...)`."""
+    from fa2_triton_tpu_torch.ops import flash_attn_func, varlen
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    lens = varlen_docs()
+    n, S_pad, Hq, Hkv, D, blk = len(lens), VARLEN_DOC_RANGE[1], 32, 8, 128, VARLEN_BLOCK
+    padded = [torch.randn((n, S_pad, h, D), generator=gen, device=dev) * sd
+              for h, sd in ((Hq, 0.5), (Hkv, 0.5), (Hkv, 0.5), (Hq, 1.0))]
+    packed32, starts, T = varlen.pack_padded_batch(padded, lens, align=blk)
+    starts = [int(s) for s in starts]
+    cu = starts + [T]
+    live = torch.zeros(T, dtype=torch.bool, device=dev)
+    for s0, l in zip(starts, lens):
+        live[s0:s0 + l] = True
+    bf = lambda x: x.to(torch.bfloat16)
+    leaves = [bf(x).requires_grad_() for x in packed32[:3]]
+    do = bf(packed32[3])
+    print(f"[varlen] {n} documents, lengths {lens} (log-uniform in {VARLEN_DOC_RANGE}, seed 0): "
+          f"{sum(lens)} tokens packed into T = {T} (starts aligned to {blk}); Hq {Hq}, Hkv {Hkv}, "
+          f"D {D}, bf16, causal, block_q = block_kv = {blk}")
+
+    varlen.reset_launches()
+    out, lse = varlen.flash_attn_varlen_func(*leaves, cu, seqlens=lens, causal=True, block_q=blk,
+                                             block_kv=blk, return_lse=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    launches = dict(varlen.LAUNCHES)
+    print(f"[varlen] flash_attn_varlen_func + backward: launches {launches}")
+    if launches != {"varlen_fwd": 1, "varlen_dq": 1, "varlen_dkdv": 1}:
+        raise AssertionError(f"the packed path did not launch each varlen kernel once: {launches}")
+    inputs = [x.detach() for x in leaves]
+    errs, o32, refs = check_packed_path(torch, "varlen", inputs, [x.grad for x in leaves], out, lse,
+                                        packed32[3], packed32[:3], (starts, lens), None, live)
+    del out, lse
+    t = time_packed_kernels(torch, inputs, do, (starts, lens), None)
+
+    # Library yardstick: PyTorch's varlen flash attention on the same
+    # documents packed back to back.
+    tq, tk, tv, tdo = (tight(torch, bf(x), lens) for x in padded)
+    lib_fwd, lib_out, lib_bwd = library_attention(torch, tq, tk, tv, lens, lens, True, D ** -0.5)
+    live_rows = lambda x: x.transpose(1, 2)[0][live]      # [1, H, T, D] -> [sum(lens), H, D]
+    check_library(torch, "varlen fwd", lib_out[0], live_rows(o32), errs["o plain"])
+    lib_run = lib_bwd(tdo)
+    for name, g, r in zip(("dq", "dk", "dv"), lib_run(), refs):
+        check_library(torch, f"varlen {name}", g, live_rows(r), errs[name + " plain"])
+    lib = {"name": "aten varlen flash attention", "fwd": cuda_ms(torch, lib_fwd),
+           "bwd": cuda_ms(torch, lib_run, iters=5)}
+    del tq, tk, tv, tdo, lib_out, o32, refs
+    entries = varlen_entries(t, errs, lib, causal_pairs(lens), sum(lens))
+    print_packed_times("varlen", t, lib, entries)
+
+    # The same documents right-padded to [n_docs, S_pad] through the dense
+    # kernels with a padding mask: what packing saves (bench.py --mode varlen).
+    mask = torch.arange(S_pad, device=dev)[None] < torch.tensor(lens, device=dev)[:, None]
+    pad_leaves = [bf(x).requires_grad_() for x in padded[:3]]
+    pad_do = bf(padded[3])
+    del padded
+
+    def padded_step():
+        o = flash_attn_func(*pad_leaves, attention_mask=mask, causal=True)
+        torch.autograd.grad(o, pad_leaves, pad_do)
+
+    def packed_step():
+        o = varlen.flash_attn_varlen_func(*leaves, cu, seqlens=lens, causal=True, block_q=blk,
+                                          block_kv=blk)
+        torch.autograd.grad(o, leaves, do)
+
+    pad_ms, pack_ms = cuda_ms(torch, padded_step, iters=3), cuda_ms(torch, packed_step, iters=3)
+    pad_ms2, pack_ms2 = cuda_ms(torch, padded_step, iters=3), cuda_ms(torch, packed_step, iters=3)
+    print(f"[varlen] forward + backward, bf16 [{card}]: packed (T = {T}) {pack_ms:.3f} / "
+          f"{pack_ms2:.3f} ms vs right-padded [{n}, {S_pad}] through flash_attn_func "
+          f"{pad_ms:.3f} / {pad_ms2:.3f} ms: padded / packed = {pad_ms / pack_ms:.2f} / "
+          f"{pad_ms2 / pack_ms2:.2f}")
+    return launches, entries
+
+
+def phase_blocksparse(torch):
+    """Block-sparse attention at Mistral-7B-v0.3 attention widths: a local
+    band plus an attention sink, through `flash_attn_blocksparse_func`
+    (launch counts reset just before), checked and timed like phase_varlen;
+    the library yardstick is flex_attention (compiled) with the same
+    block mask."""
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    from fa2_triton_tpu_torch.ops import varlen
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    B, S, Hq, Hkv, D, blk = BS_BATCH, BS_SEQ, 32, 8, 128, VARLEN_BLOCK
+    mask = blocksparse_mask()
+    x32 = [torch.randn((B, S, h, D), generator=gen, device=dev) * sd
+           for h, sd in ((Hq, 0.5), (Hkv, 0.5), (Hkv, 0.5), (Hq, 1.0))]
+    bf = lambda x: x.to(torch.bfloat16)
+    leaves = [bf(x).requires_grad_() for x in x32[:3]]
+    do = bf(x32[3])
+    n_kept = int(np.tril(mask).sum())
+    print(f"[blocksparse] B {B}, S {S}, Hq {Hq}, Hkv {Hkv}, D {D}, bf16, causal, block {blk}: "
+          f"band of {BS_BAND} blocks below the diagonal + column 0, {n_kept} of "
+          f"{mask.shape[0] * (mask.shape[0] + 1) // 2} causal blocks kept")
+
+    varlen.reset_launches()
+    out, lse = varlen.flash_attn_blocksparse_func(*leaves, mask, causal=True, block_q=blk,
+                                                  block_kv=blk, return_lse=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    launches = dict(varlen.LAUNCHES)
+    print(f"[blocksparse] flash_attn_blocksparse_func + backward: launches {launches}")
+    if launches != {"varlen_fwd": 1, "varlen_dq": 1, "varlen_dkdv": 1}:
+        raise AssertionError(f"the block-sparse path did not launch each kernel once: {launches}")
+
+    # The packed view the entry point hands the kernels: [1, B * S, H, D].
+    flat = lambda x: x.reshape(1, B * S, *x.shape[2:])
+    seg = ([b * S for b in range(B)], [S] * B)
+    keep = varlen._mask_keep_fn(varlen.encode_block_mask(mask))
+    inputs = [flat(x.detach()) for x in leaves]
+    lse_packed = lse.transpose(0, 1).reshape(1, Hq, B * S)
+    errs, o32, refs = check_packed_path(
+        torch, "blocksparse", inputs, [flat(x.grad) for x in leaves], flat(out), lse_packed,
+        flat(x32[3]), [flat(x) for x in x32[:3]], seg, keep,
+        torch.ones(B * S, dtype=torch.bool, device=dev))
+    del out, lse
+    t = time_packed_kernels(torch, inputs, flat(do), seg, keep)
+
+    def mask_mod(b, h, qi, ki):
+        return (ki <= qi) & ((qi // blk - ki // blk <= BS_BAND) | (ki < blk))
+
+    block_mask = create_block_mask(mask_mod, None, None, S, S, device=dev, BLOCK_SIZE=blk)
+    flex = torch.compile(flex_attention, dynamic=False)
+    qh, kh, vh = (x.detach().transpose(1, 2).contiguous().requires_grad_() for x in leaves)
+    doh = do.transpose(1, 2).contiguous()
+    t0 = time.perf_counter()
+    lib_o = flex(qh, kh, vh, block_mask=block_mask, scale=D ** -0.5, enable_gqa=True)
+    lib_grads = torch.autograd.grad(lib_o, (qh, kh, vh), doh, retain_graph=True)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    bhsd_flat = lambda x: x.transpose(1, 2).reshape(1, B * S, *x.shape[1:2], D).transpose(1, 2)
+    check_library(torch, "blocksparse fwd", bhsd_flat(lib_o), o32, errs["o plain"])
+    for name, g, r in zip(("dq", "dk", "dv"), lib_grads, refs):
+        check_library(torch, f"blocksparse {name}", bhsd_flat(g), r, errs[name + " plain"])
+    with torch.no_grad():
+        lib_fwd_ms = cuda_ms(torch, lambda: flex(qh, kh, vh, block_mask=block_mask,
+                                                 scale=D ** -0.5, enable_gqa=True), iters=5)
+    lib_bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(lib_o, (qh, kh, vh), doh,
+                                                            retain_graph=True), iters=5)
+    lib = {"name": f"flex_attention with the block mask, compiled in {compile_s:.1f} s",
+           "fwd": lib_fwd_ms, "bwd": lib_bwd_ms}
+    pairs = B * sum(blk * blk if j < i else blk * (blk + 1) // 2
+                    for i in range(mask.shape[0]) for j in range(i + 1) if mask[i, j])
+    entries = varlen_entries(t, errs, lib, pairs, B * S)
+    print_packed_times("blocksparse", t, lib, entries)
+    return launches, entries
+
+
 def main() -> int:
     import torch
 
@@ -568,6 +976,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train_launches = phase_train(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    varlen_launches, varlen_kernels = phase_varlen(torch, card)
+    torch.cuda.empty_cache()
+    bs_launches, bs_kernels = phase_blocksparse(torch)
 
     if any(name == "jax" or name.startswith(("jax.", "fa2_triton_tpu.")) for name in sys.modules):
         raise RuntimeError("the port imported jax or the JAX package")
@@ -592,6 +1005,14 @@ def main() -> int:
          "replaces": "fa2_triton_tpu/ops/flash_bwd.py:1357",
          "launches": bias_launches["flash_bwd_dbias"], **kernels["flash_bwd_dbias"]},
     ]}
+    for name, line in (("varlen_fwd", 233), ("varlen_dq", 385), ("varlen_dkdv", 454)):
+        table["kernels"].append({
+            "name": name, "route": "cuda", "source": "fa2_triton_tpu_torch/csrc/varlen.cu",
+            "replaces": f"fa2_triton_tpu/ops/varlen.py:{line}",
+            "launches": varlen_launches[name], "launches_blocksparse": bs_launches[name],
+            **varlen_kernels[name],
+            "blocksparse": {k: bs_kernels[name][k] for k in
+                            ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms")}})
     print(card)
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {

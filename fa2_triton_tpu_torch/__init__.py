@@ -8,10 +8,26 @@ CUDA C++ kernels for Hopper (sm_90a) in `csrc/`, built with nvcc at first use
 `ops/flash_fwd.py`, decode attention `ops/decode.py`, the LLaMA model and
 the continuous-batching `Engine`) and the training path (the backward
 kernels `ops/flash_bwd.py` behind `flash_attn_func`'s autograd, `loss_fn`,
-remat and `examples/train.py`). This package never imports JAX.
+remat and `examples/train.py`), and packed varlen / block-sparse attention
+(`ops/varlen.py`, forward and backward kernels). This package never imports
+JAX.
 """
 
-from fa2_triton_tpu_torch.ops import flash_attn_func, flash_attn_reference
+from fa2_triton_tpu_torch.ops import (
+    flash_attn_blocksparse_func,
+    flash_attn_func,
+    flash_attn_reference,
+    flash_attn_varlen_func,
+    pack_padded_batch,
+    unpack_padded_batch,
+)
 
-__all__ = ["flash_attn_func", "flash_attn_reference"]
+__all__ = [
+    "flash_attn_func",
+    "flash_attn_reference",
+    "flash_attn_varlen_func",
+    "flash_attn_blocksparse_func",
+    "pack_padded_batch",
+    "unpack_padded_batch",
+]
 __version__ = "0.1.0"

@@ -44,15 +44,12 @@
 // CUDA cores from shared-memory tiles, each thread holding a 4x2
 // score tile and 4 x (D/16) accumulator columns in registers, shared rows
 // padded by one float against bank conflicts, tiles beyond the causal /
-// window / length limits never loaded. wgmma + TMA is later work.
-#include "common.cuh"
+// window / length limits never loaded. wgmma + TMA is later work. The tile
+// math lives in attn_tiles.cuh, shared with the forward and varlen kernels.
+#include "attn_tiles.cuh"
 
 namespace fa2 {
 namespace {
-
-constexpr int THREADS = 256;             // a 16 x 16 grid of threads
-constexpr int QB = 64, QK = 32;          // dq / dbias tiles: 64 q rows x 32 kv cols
-constexpr int KB = 64, KQ = 32;          // dk/dv tiles: 64 kv rows x 32 q rows
 
 struct BwdParams {
   const void* q;
@@ -111,28 +108,13 @@ __device__ __forceinline__ float bias_at(const BwdParams& p, int b, int h, int r
                   b * p.bias_sb + h * p.bias_sh + r * p.bias_sq + c * p.bias_sk);
 }
 
-// Stage `rows` rows of a [*, D] operand (row stride `ss`) into shared memory
-// with row pitch D + 1, times `mul`; rows at or past `valid` are zero.
-template <typename T, int D>
-__device__ __forceinline__ void stage(float* dst, const T* src, long long ss, int row0, int rows,
-                                      int valid, float mul) {
-  constexpr int D4 = D / 4;
-  for (int i = threadIdx.x; i < rows * D4; i += THREADS) {
-    const int r = i / D4, d = (i % D4) * 4;
-    float x[4] = {0.f, 0.f, 0.f, 0.f};
-    if (row0 + r < valid) load_vec<T, 4>(src + (long long)(row0 + r) * ss + d, x);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dst[r * (D + 1) + d + j] = x[j] * mul;
-  }
-}
-
 // The local KV columns [lo, hi) that the live rows of the q tile at q0 can
 // see (the forward kernel's rule).
 __device__ __forceinline__ void kv_range(const BwdParams& p, int q0, int q_len, int kv_len,
                                          int& lo, int& hi) {
   const int shift = kv_len - q_len;
   const int row_lo = p.q_off + q0;
-  const int row_hi = min(p.q_off + min(q0 + QB, p.Sq), q_len) - 1;  // inclusive
+  const int row_hi = min(p.q_off + min(q0 + TM, p.Sq), q_len) - 1;  // inclusive
   hi = min(p.Sk, kv_len - p.kv_off);
   if (p.causal) {
     hi = min(hi, row_hi + shift + 1 - p.kv_off);
@@ -143,60 +125,14 @@ __device__ __forceinline__ void kv_range(const BwdParams& p, int q0, int q_len, 
   lo = p.wl >= 0 ? max(0, row_lo + shift - p.wl - p.kv_off) : 0;
 }
 
-template <int D>
-constexpr int dq_smem_floats() {
-  return 2 * QB * (D + 1) + 2 * QK * (D + 1) + QB * (QK + 1) + 2 * QB;
-}
-
-// Scores and dp of a 64 x 32 (q rows x kv cols) tile: thread (tx, ty) owns
-// rows ty + 16 i and columns tx + 16 j.
-template <int D>
-__device__ __forceinline__ void qk_tile(const float* Qs, const float* dOs, const float* Ks,
-                                        const float* Vs, float (&s)[4][2], float (&dp)[4][2]) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float a[4], o[4], c[2], w[2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a[i] = Qs[(ty + 16 * i) * (D + 1) + d];
-      o[i] = dOs[(ty + 16 * i) * (D + 1) + d];
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      c[j] = Ks[(tx + 16 * j) * (D + 1) + d];
-      w[j] = Vs[(tx + 16 * j) * (D + 1) + d];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        s[i][j] = fmaf(a[i], c[j], s[i][j]);
-        dp[i][j] = fmaf(o[i], w[j], dp[i][j]);
-      }
-  }
-}
-
-// Stage the q-side operands of the dq / dbias kernels: q * scale * log2e,
-// do, and the rows' lse and delta (-inf / 0 past the valid rows).
+// Stage the q side of the dq / dbias kernels for (b, h) and the q tile at q0.
 template <typename T, int D>
-__device__ __forceinline__ void stage_q_side(const BwdParams& p, int b, int h, int q0,
-                                             int q_valid, float* Qs, float* dOs, float* lse_s,
-                                             float* delta_s) {
-  const T* qp = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* dop = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  stage<T, D>(Qs, qp, p.q_ss, q0, QB, q_valid, p.scale_log2);
-  stage<T, D>(dOs, dop, p.do_ss, q0, QB, q_valid, 1.f);
-  for (int r = threadIdx.x; r < QB; r += THREADS) {
-    const long long i = ((long long)b * p.Hq + h) * p.Sq + q0 + r;
-    const bool ok = q0 + r < q_valid;
-    lse_s[r] = ok ? p.lse[i] : neg_inf();
-    delta_s[r] = ok ? p.delta[i] : 0.f;
-  }
+__device__ __forceinline__ void stage_q_side(const BwdParams& p, const DqSmem& s, int b, int h,
+                                             int q0, int q_valid) {
+  const long long row0 = ((long long)b * p.Hq + h) * p.Sq;
+  dq_stage_q<T, D>(s, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_ss,
+                   static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh, p.do_ss,
+                   p.lse + row0, p.delta + row0, q0, q_valid, p.scale_log2);
 }
 
 // dq: one block per (64-row q tile, q head, batch row); loops over the KV
@@ -204,17 +140,8 @@ __device__ __forceinline__ void stage_q_side(const BwdParams& p, int b, int h, i
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) dq_kernel(const BwdParams p) {
   extern __shared__ float smem[];
-  float* Qs = smem;                    // [QB][D+1] q * scale * log2e
-  float* dOs = Qs + QB * (D + 1);      // [QB][D+1]
-  float* Ks = dOs + QB * (D + 1);      // [QK][D+1]
-  float* Vs = Ks + QK * (D + 1);       // [QK][D+1]
-  float* Ss = Vs + QK * (D + 1);       // [QB][QK+1] ds
-  float* lse_s = Ss + QB * (QK + 1);   // [QB]
-  float* delta_s = lse_s + QB;         // [QB]
-
-  constexpr int DJ = D / 16;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int q0 = blockIdx.x * QB, h = blockIdx.y, b = blockIdx.z;
+  const DqSmem s = dq_smem<D>(smem);
+  const int q0 = blockIdx.x * TM, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (p.Hq / p.Hkv);
   const int q_len = p.lens[2 * b], kv_len = p.lens[2 * b + 1];
   const int q_valid = min(p.Sq, q_len - p.q_off);
@@ -222,64 +149,25 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(const BwdParams p) {
   const T* kp = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const T* vp = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
 
-  stage_q_side<T, D>(p, b, h, q0, q_valid, Qs, dOs, lse_s, delta_s);
+  stage_q_side<T, D>(p, s, b, h, q0, q_valid);
   int lo, hi;
   kv_range(p, q0, q_len, kv_len, lo, hi);
 
-  float acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = (lo / QK) * QK; k0 < hi; k0 += QK) {
-    __syncthreads();  // q side staged / previous tile fully consumed
-    stage<T, D>(Ks, kp, p.k_ss, k0, QK, kv_valid, 1.f);
-    stage<T, D>(Vs, vp, p.v_ss, k0, QK, kv_valid, 1.f);
-    __syncthreads();
-    float s[4][2], dp[4][2];
-    qk_tile<D>(Qs, dOs, Ks, Vs, s, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j;
-        const bool keep = keep_at(q0 + r, k0 + c, p.Sq, p.Sk, p.q_off, p.kv_off, q_len, kv_len,
-                                  p.causal, p.wl, p.wr);
-        float pr, ds, ds_pre;
-        grad_elem(p, s[i][j], dp[i][j], lse_s[r], delta_s[r],
-                  bias_at(p, b, h, q0 + r, k0 + c, keep), keep, pr, ds, ds_pre);
-        Ss[r * (QK + 1) + c] = ds;
-      }
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < QK; ++c) {
-      float dsv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = Ss[(ty + 16 * i) * (QK + 1) + c];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const float kk = Ks[c * (D + 1) + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(dsv[i], kk, acc[i][j]);
-      }
-    }
+  float acc[4][D / 16];
+  zero_acc<D>(acc);
+  for (int k0 = (lo / TN) * TN; k0 < hi; k0 += TN) {
+    auto ds_of = [&](int r, int c, float s2, float dp) {
+      const bool keep = keep_at(q0 + r, k0 + c, p.Sq, p.Sk, p.q_off, p.kv_off, q_len, kv_len,
+                                p.causal, p.wl, p.wr);
+      float pr, ds, ds_pre;
+      grad_elem(p, s2, dp, s.lse_s[r], s.delta_s[r], bias_at(p, b, h, q0 + r, k0 + c, keep),
+                keep, pr, ds, ds_pre);
+      return ds;
+    };
+    dq_kv_step<T, D>(s, kp, p.k_ss, vp, p.v_ss, k0, kv_valid, ds_of, acc);
   }
-
-  T* dqp = static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= p.Sq) continue;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) dqp[r * p.dq_ss + tx + 16 * j] = from_f<T>(acc[i][j] * p.scale);
-  }
-}
-
-template <int D>
-constexpr int dkdv_smem_floats() {
-  return 2 * KB * (D + 1) + 2 * KQ * (D + 1) + 2 * KB * (KQ + 1) + 2 * KQ;
+  store_tile<T, D>(acc, static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh + q0 * p.dq_ss,
+                   p.dq_ss, min(TM, p.Sq - q0), p.scale);
 }
 
 // dk/dv: one block per (64-row KV tile, KV head, batch row); loops over the
@@ -287,32 +175,22 @@ constexpr int dkdv_smem_floats() {
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) dkdv_kernel(const BwdParams p) {
   extern __shared__ float smem[];
-  float* Ks = smem;                    // [KB][D+1] k * scale * log2e
-  float* Vs = Ks + KB * (D + 1);       // [KB][D+1]
-  float* Qs = Vs + KB * (D + 1);       // [KQ][D+1]
-  float* dOs = Qs + KQ * (D + 1);      // [KQ][D+1]
-  float* Ps = dOs + KQ * (D + 1);      // [KB][KQ+1] p^T
-  float* dSs = Ps + KB * (KQ + 1);     // [KB][KQ+1] ds^T
-  float* lse_s = dSs + KB * (KQ + 1);  // [KQ]
-  float* delta_s = lse_s + KQ;         // [KQ]
-
-  constexpr int DJ = D / 16;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int k0 = blockIdx.x * KB, hk = blockIdx.y, b = blockIdx.z;
+  const DkdvSmem s = dkdv_smem<D>(smem);
+  const int k0 = blockIdx.x * TM, hk = blockIdx.y, b = blockIdx.z;
   const int group = p.Hq / p.Hkv;
   const int q_len = p.lens[2 * b], kv_len = p.lens[2 * b + 1];
   const int shift = kv_len - q_len;
   const int q_valid = min(p.Sq, q_len - p.q_off);
   const int kv_valid = min(p.Sk, kv_len - p.kv_off);
 
-  stage<T, D>(Ks, static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh, p.k_ss, k0, KB,
+  stage<T, D>(s.Ks, static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh, p.k_ss, k0, TM,
               kv_valid, p.scale_log2);
-  stage<T, D>(Vs, static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh, p.v_ss, k0, KB,
+  stage<T, D>(s.Vs, static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh, p.v_ss, k0, TM,
               kv_valid, 1.f);
 
   // Local q rows [r_lo, r_hi) that can see a live column of this tile.
   const int col_lo = p.kv_off + k0;
-  const int col_hi = p.kv_off + min(k0 + KB, kv_valid) - 1;  // inclusive
+  const int col_hi = p.kv_off + min(k0 + TM, kv_valid) - 1;  // inclusive
   int r_lo = 0, r_hi = q_valid;
   if (p.causal) {
     r_lo = max(0, col_lo - shift - p.q_off);
@@ -322,127 +200,45 @@ __global__ void __launch_bounds__(THREADS) dkdv_kernel(const BwdParams p) {
   if (p.wl >= 0) r_hi = min(r_hi, col_hi - shift + p.wl - p.q_off + 1);
   if (col_hi < col_lo) r_hi = 0;
 
-  float dk_acc[4][DJ], dv_acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
-
+  float dk_acc[4][D / 16], dv_acc[4][D / 16];
+  zero_acc<D>(dk_acc);
+  zero_acc<D>(dv_acc);
   for (int g = 0; g < group; ++g) {
     const int h = hk * group + g;
+    const long long row0 = ((long long)b * p.Hq + h) * p.Sq;
     const T* qp = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
     const T* dop = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
-    for (int r0 = (r_lo / KQ) * KQ; r0 < r_hi; r0 += KQ) {
-      __syncthreads();  // K/V staged / previous q tile fully consumed
-      stage<T, D>(Qs, qp, p.q_ss, r0, KQ, q_valid, 1.f);
-      stage<T, D>(dOs, dop, p.do_ss, r0, KQ, q_valid, 1.f);
-      for (int r = threadIdx.x; r < KQ; r += THREADS) {
-        const long long i = ((long long)b * p.Hq + h) * p.Sq + r0 + r;
-        const bool ok = r0 + r < q_valid;
-        lse_s[r] = ok ? p.lse[i] : neg_inf();
-        delta_s[r] = ok ? p.delta[i] : 0.f;
-      }
-      __syncthreads();
-
-      // s^T and dp^T of the 64 x 32 (kv rows x q rows) tile: thread (tx,
-      // ty) owns kv rows ty + 16 i and q rows tx + 16 j.
-      float s[4][2], dp[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        float a[4], w[4], c[2], o[2];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          a[i] = Ks[(ty + 16 * i) * (D + 1) + d];
-          w[i] = Vs[(ty + 16 * i) * (D + 1) + d];
-        }
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          c[j] = Qs[(tx + 16 * j) * (D + 1) + d];
-          o[j] = dOs[(tx + 16 * j) * (D + 1) + d];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            s[i][j] = fmaf(a[i], c[j], s[i][j]);
-            dp[i][j] = fmaf(w[i], o[j], dp[i][j]);
-          }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int kr = ty + 16 * i, qr = tx + 16 * j;
-          const bool keep = keep_at(r0 + qr, k0 + kr, p.Sq, p.Sk, p.q_off, p.kv_off, q_len,
-                                    kv_len, p.causal, p.wl, p.wr);
-          float pr, ds, ds_pre;
-          grad_elem(p, s[i][j], dp[i][j], lse_s[qr], delta_s[qr],
-                    bias_at(p, b, h, r0 + qr, k0 + kr, keep), keep, pr, ds, ds_pre);
-          Ps[kr * (KQ + 1) + qr] = pr;
-          dSs[kr * (KQ + 1) + qr] = ds;
-        }
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int c = 0; c < KQ; ++c) {
-        float pv[4], dsv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pv[i] = Ps[(ty + 16 * i) * (KQ + 1) + c];
-          dsv[i] = dSs[(ty + 16 * i) * (KQ + 1) + c];
-        }
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) {
-          const float qq = Qs[c * (D + 1) + tx + 16 * j];
-          const float oo = dOs[c * (D + 1) + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            dk_acc[i][j] = fmaf(dsv[i], qq, dk_acc[i][j]);
-            dv_acc[i][j] = fmaf(pv[i], oo, dv_acc[i][j]);
-          }
-        }
-      }
+    for (int r0 = (r_lo / TN) * TN; r0 < r_hi; r0 += TN) {
+      auto pds_of = [&](int kr, int qr, float s2, float dp, float& pr, float& ds) {
+        const bool keep = keep_at(r0 + qr, k0 + kr, p.Sq, p.Sk, p.q_off, p.kv_off, q_len,
+                                  kv_len, p.causal, p.wl, p.wr);
+        float ds_pre;
+        grad_elem(p, s2, dp, s.lse_s[qr], s.delta_s[qr], bias_at(p, b, h, r0 + qr, k0 + kr, keep),
+                  keep, pr, ds, ds_pre);
+      };
+      dkdv_q_step<T, D>(s, qp, p.q_ss, dop, p.do_ss, p.lse + row0, p.delta + row0, r0, q_valid,
+                        pds_of, dk_acc, dv_acc);
     }
   }
 
-  T* dkp = static_cast<T*>(p.dk) + b * p.dk_sb + hk * p.dk_sh;
-  T* dvp = static_cast<T*>(p.dv) + b * p.dv_sb + hk * p.dv_sh;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = k0 + ty + 16 * i;
-    if (r >= p.Sk) continue;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      dkp[r * p.dk_ss + tx + 16 * j] = from_f<T>(dk_acc[i][j] * p.scale);
-      dvp[r * p.dv_ss + tx + 16 * j] = from_f<T>(dv_acc[i][j]);
-    }
-  }
-}
-
-template <int D>
-constexpr int dbias_smem_floats() {
-  return 2 * QB * (D + 1) + 2 * QK * (D + 1) + 2 * QB;
+  const int rows = min(TM, p.Sk - k0);
+  store_tile<T, D>(dk_acc, static_cast<T*>(p.dk) + b * p.dk_sb + hk * p.dk_sh + k0 * p.dk_ss,
+                   p.dk_ss, rows, p.scale);
+  store_tile<T, D>(dv_acc, static_cast<T*>(p.dv) + b * p.dv_sb + hk * p.dv_sh + k0 * p.dv_ss,
+                   p.dv_ss, rows, 1.f);
 }
 
 // dbias: one block per (64 x 32 bias tile, bias batch x head index). Loops
 // over the batch rows and q heads that the bias broadcasts to (all of them
 // on a broadcast dim, its own index otherwise) and sums ds_pre in registers.
+// Shared memory is the dq kernel's layout (its ds tile unused).
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) dbias_kernel(const BwdParams p) {
   extern __shared__ float smem[];
-  float* Qs = smem;                    // [QB][D+1] q * scale * log2e
-  float* dOs = Qs + QB * (D + 1);      // [QB][D+1]
-  float* Ks = dOs + QB * (D + 1);      // [QK][D+1]
-  float* Vs = Ks + QK * (D + 1);       // [QK][D+1]
-  float* lse_s = Vs + QK * (D + 1);    // [QB]
-  float* delta_s = lse_s + QB;         // [QB]
+  const DqSmem s = dq_smem<D>(smem);
 
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int q0 = blockIdx.x * QB, k0 = blockIdx.y * QK;
+  const int q0 = blockIdx.x * TM, k0 = blockIdx.y * TN;
   const int bb = blockIdx.z / p.Hb, hb = blockIdx.z % p.Hb;
   const int b_lo = p.Bb == 1 ? 0 : bb, b_hi = p.Bb == 1 ? p.B : bb + 1;
   const int h_lo = p.Hb == 1 ? 0 : hb, h_hi = p.Hb == 1 ? p.Hq : hb + 1;
@@ -452,20 +248,20 @@ __global__ void __launch_bounds__(THREADS) dbias_kernel(const BwdParams p) {
     const int q_len = p.lens[2 * b], kv_len = p.lens[2 * b + 1];
     int lo, hi;
     kv_range(p, q0, q_len, kv_len, lo, hi);
-    if (k0 >= hi || k0 + QK <= lo) continue;  // no live element for this row
+    if (k0 >= hi || k0 + TN <= lo) continue;  // no live element for this row
     const int q_valid = min(p.Sq, q_len - p.q_off);
     const int kv_valid = min(p.Sk, kv_len - p.kv_off);
     for (int h = h_lo; h < h_hi; ++h) {
       const int hk = h / (p.Hq / p.Hkv);
       __syncthreads();  // previous (b, h) fully consumed
-      stage_q_side<T, D>(p, b, h, q0, q_valid, Qs, dOs, lse_s, delta_s);
-      stage<T, D>(Ks, static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh, p.k_ss, k0, QK,
+      stage_q_side<T, D>(p, s, b, h, q0, q_valid);
+      stage<T, D>(s.Ks, static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh, p.k_ss, k0, TN,
                   kv_valid, 1.f);
-      stage<T, D>(Vs, static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh, p.v_ss, k0, QK,
+      stage<T, D>(s.Vs, static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh, p.v_ss, k0, TN,
                   kv_valid, 1.f);
       __syncthreads();
-      float s[4][2], dp[4][2];
-      qk_tile<D>(Qs, dOs, Ks, Vs, s, dp);
+      float sc[4][2], dp[4][2];
+      dot_tile2<D>(s.Qs, s.Ks, s.dOs, s.Vs, sc, dp);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
 #pragma unroll
@@ -474,7 +270,7 @@ __global__ void __launch_bounds__(THREADS) dbias_kernel(const BwdParams p) {
           const bool keep = keep_at(q0 + r, k0 + c, p.Sq, p.Sk, p.q_off, p.kv_off, q_len,
                                     kv_len, p.causal, p.wl, p.wr);
           float pr, ds, ds_pre;
-          grad_elem(p, s[i][j], dp[i][j], lse_s[r], delta_s[r],
+          grad_elem(p, sc[i][j], dp[i][j], s.lse_s[r], s.delta_s[r],
                     bias_at(p, b, h, q0 + r, k0 + c, keep), keep, pr, ds, ds_pre);
           acc[i][j] += ds_pre;
         }
@@ -508,7 +304,7 @@ cudaError_t launch(const BwdParams& p, int which, cudaStream_t stream) {
       smem = dq_smem_floats<D>() * (int)sizeof(float);
       e = cudaFuncSetAttribute(dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (e != cudaSuccess) return e;
-      grid = dim3((p.Sq + QB - 1) / QB, p.Hq, p.B);
+      grid = dim3((p.Sq + TM - 1) / TM, p.Hq, p.B);
       dq_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
       break;
     case kDkDv:
@@ -516,15 +312,15 @@ cudaError_t launch(const BwdParams& p, int which, cudaStream_t stream) {
       e = cudaFuncSetAttribute(dkdv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
       if (e != cudaSuccess) return e;
-      grid = dim3((p.Sk + KB - 1) / KB, p.Hkv, p.B);
+      grid = dim3((p.Sk + TM - 1) / TM, p.Hkv, p.B);
       dkdv_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
       break;
     case kDbias:
-      smem = dbias_smem_floats<D>() * (int)sizeof(float);
+      smem = dq_smem_floats<D>() * (int)sizeof(float);
       e = cudaFuncSetAttribute(dbias_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
       if (e != cudaSuccess) return e;
-      grid = dim3((p.Sq + QB - 1) / QB, (p.Sk + QK - 1) / QK, p.Bb * p.Hb);
+      grid = dim3((p.Sq + TM - 1) / TM, (p.Sk + TN - 1) / TN, p.Bb * p.Hb);
       dbias_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
       break;
     default:

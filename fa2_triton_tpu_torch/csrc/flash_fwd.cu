@@ -29,15 +29,12 @@
 //   * KV tiles beyond the causal limit or kv_len are never loaded;
 //   * shared rows are padded by one float so the 16 threads that read 16
 //     different K rows hit 16 different banks.
-// wgmma + TMA (the route to the tensor-core roof) is later work.
-#include "common.cuh"
+// wgmma + TMA (the route to the tensor-core roof) is later work. The tile
+// math lives in attn_tiles.cuh, shared with the backward and varlen kernels.
+#include "attn_tiles.cuh"
 
 namespace fa2 {
 namespace {
-
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 32;        // key/value rows per KV tile
-constexpr int THREADS = 256;  // a 16 x 16 grid of threads
 
 struct FwdParams {
   const void* q;
@@ -59,25 +56,13 @@ struct FwdParams {
   float softcap;     // natural units; 0 = off
 };
 
-template <int D>
-constexpr int smem_floats() {
-  return BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1) + 2 * BQ;
-}
-
+// One block per (64-row q tile, q head, batch row); the tile math is
+// attn_tiles.cuh's forward.
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FwdParams p) {
   extern __shared__ float smem[];
-  float* Qs = smem;                     // [BQ][D+1]  q * scale * log2e
-  float* Ks = Qs + BQ * (D + 1);        // [BK][D+1]
-  float* Vs = Ks + BK * (D + 1);        // [BK][D]
-  float* Ss = Vs + BK * D;              // [BQ][BK+1] scores, then probabilities
-  float* alpha_s = Ss + BQ * (BK + 1);  // [BQ] per-row rescale of this tile
-  float* l_s = alpha_s + BQ;            // [BQ] final row sums
-
-  constexpr int D4 = D / 4;
-  constexpr int DJ = D / 16;  // output columns per thread
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const FwdSmem s = fwd_smem<D>(smem);
+  const int q0 = blockIdx.x * TM, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (p.Hq / p.Hkv);
   const int q_len = p.lens[2 * b], kv_len = p.lens[2 * b + 1];
   const int shift = kv_len - q_len;
@@ -85,20 +70,13 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FwdParams p) {
   const T* qp = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* kp = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const T* vp = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
-
-  for (int i = tid; i < BQ * D4; i += THREADS) {
-    const int r = i / D4, d = (i % D4) * 4;
-    float x[4] = {0.f, 0.f, 0.f, 0.f};
-    if (q0 + r < p.Sq) load_vec<T, 4>(qp + (q0 + r) * p.q_ss + d, x);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) Qs[r * (D + 1) + d + j] = x[j] * p.scale_log2;
-  }
+  stage<T, D>(s.Qs, qp, p.q_ss, q0, TM, p.Sq, p.scale_log2);
 
   // Global rows of this tile that can attend, and the local key range
   // [lo, hi) they need: past the causal/right limit of the last live row,
   // past kv_len, or left of the first row's window nothing is loaded.
   const int row_lo = p.q_off + q0;
-  const int row_hi = min(p.q_off + min(q0 + BQ, p.Sq), q_len) - 1;  // inclusive
+  const int row_hi = min(p.q_off + min(q0 + TM, p.Sq), q_len) - 1;  // inclusive
   const int kv_valid = min(p.Sk, kv_len - p.kv_off);  // local rows with real keys
   int hi = kv_valid;
   if (p.causal) {
@@ -109,141 +87,41 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FwdParams p) {
   if (row_hi < row_lo) hi = 0;
   const int lo = p.wl >= 0 ? max(0, row_lo + shift - p.wl - p.kv_off) : 0;
 
-  // Softmax mapping: 4 neighbouring lanes own one row, 8 columns each.
-  const int srow = tid / 4, scol = (tid % 4) * 8;
   float m_run = MASK_LOG2, l_run = 0.f;
-  float acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = (lo / BK) * BK; k0 < hi; k0 += BK) {
-    __syncthreads();  // Q staged / previous tile fully consumed
-    for (int i = tid; i < BK * D4; i += THREADS) {
-      const int r = i / D4, d = (i % D4) * 4;
-      float kx[4] = {0.f, 0.f, 0.f, 0.f}, vx[4] = {0.f, 0.f, 0.f, 0.f};
-      // Rows past the real keys stay zero: cache rows beyond kv_len may
-      // hold anything, and 0 * NaN would poison the P V product.
-      if (k0 + r < kv_valid) {
-        load_vec<T, 4>(kp + (k0 + r) * p.k_ss + d, kx);
-        load_vec<T, 4>(vp + (k0 + r) * p.v_ss + d, vx);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        Ks[r * (D + 1) + d + j] = kx[j];
-        Vs[r * D + d + j] = vx[j];
-      }
-    }
-    __syncthreads();
-
-    float s[4][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[4], c[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qs[(ty + 16 * i) * (D + 1) + d];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) c[j] = Ks[(tx + 16 * j) * (D + 1) + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) s[i][j] = fmaf(a[i], c[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j;
-        const bool keep = keep_at(q0 + r, k0 + c, p.Sq, p.Sk, p.q_off, p.kv_off, q_len, kv_len,
-                                  p.causal, p.wl, p.wr);
-        float x = s[i][j];
-        if (p.softcap > 0.f || p.bias != nullptr) {
-          // Cap in natural units, add the bias there, then back to log2.
-          x *= 1.f / LOG2E;
-          if (p.softcap > 0.f) x = p.softcap * tanhf(x / p.softcap);
-          if (p.bias != nullptr && keep) {
-            x += load_any(p.bias, p.bias_dtype, b * p.bias_sb + h * p.bias_sh +
-                                                    (q0 + r) * p.bias_sq + (k0 + c) * p.bias_sk);
-          }
-          x *= LOG2E;
+  float acc[4][D / 16];
+  zero_acc<D>(acc);
+  for (int k0 = (lo / TN) * TN; k0 < hi; k0 += TN) {
+    auto score = [&](int r, int c, float x) {
+      const bool keep = keep_at(q0 + r, k0 + c, p.Sq, p.Sk, p.q_off, p.kv_off, q_len, kv_len,
+                                p.causal, p.wl, p.wr);
+      if (p.softcap > 0.f || p.bias != nullptr) {
+        // Cap in natural units, add the bias there, then back to log2.
+        x *= 1.f / LOG2E;
+        if (p.softcap > 0.f) x = p.softcap * tanhf(x / p.softcap);
+        if (p.bias != nullptr && keep) {
+          x += load_any(p.bias, p.bias_dtype, b * p.bias_sb + h * p.bias_sh +
+                                                  (q0 + r) * p.bias_sq + (k0 + c) * p.bias_sk);
         }
-        Ss[r * (BK + 1) + c] = keep ? x : neg_inf();
+        x *= LOG2E;
       }
-    }
-    __syncthreads();
-
-    {
-      float* row = Ss + srow * (BK + 1) + scol;
-      float mx = MASK_LOG2;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) mx = fmaxf(mx, row[c]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_run, mx);
-      const float alpha = exp2f(m_run - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const float pr = exp2f(row[c] - m_new);  // masked: exp2(-inf) = 0
-        row[c] = pr;
-        sum += pr;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      l_run = l_run * alpha + sum;
-      m_run = m_new;
-      if ((tid % 4) == 0) alpha_s[srow] = alpha;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float al = alpha_s[ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= al;
-    }
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float pr[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pr[i] = Ss[(ty + 16 * i) * (BK + 1) + c];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const float vv = Vs[c * D + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pr[i], vv, acc[i][j]);
-      }
-    }
+      return keep ? x : neg_inf();
+    };
+    // Rows past the real keys stay zero: cache rows beyond kv_len may hold
+    // anything, and 0 * NaN would poison the P V product.
+    fwd_kv_step<T, D>(s, kp, p.k_ss, vp, p.v_ss, k0, kv_valid, score, m_run, l_run, acc);
   }
-
-  if ((tid % 4) == 0) {
-    l_s[srow] = l_run;
-    if (q0 + srow < p.Sq) {
-      p.lse[((long long)b * p.Hq + h) * p.Sq + q0 + srow] =
-          l_run > 0.f ? m_run + log2f(l_run) : neg_inf();
-    }
-  }
-  __syncthreads();
-  T* op = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (q0 + r >= p.Sq) continue;
-    const float l = l_s[r];
-    const float inv = l > 0.f ? 1.f / l : 0.f;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) op[(q0 + r) * p.o_ss + tx + 16 * j] = from_f<T>(acc[i][j] * inv);
-  }
+  fwd_store<T, D>(s, m_run, l_run, acc, p.lse + ((long long)b * p.Hq + h) * p.Sq + q0,
+                  static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh + q0 * p.o_ss, p.o_ss,
+                  min(TM, p.Sq - q0));
 }
 
 template <typename T, int D>
 cudaError_t launch(const FwdParams& p, int B, cudaStream_t stream) {
-  const int smem = smem_floats<D>() * (int)sizeof(float);
+  const int smem = fwd_smem_floats<D>() * (int)sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((p.Sq + BQ - 1) / BQ, p.Hq, B);
+  dim3 grid((p.Sq + TM - 1) / TM, p.Hq, B);
   flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }

@@ -1,0 +1,289 @@
+// Packed variable-length and block-sparse attention for Hopper (sm_90a),
+// written by hand in CUDA C++: forward, dq and dk/dv.
+//
+// Replaces:
+//   * varlen_fwd:  fa2_triton_tpu/ops/varlen.py:_varlen_fwd_kernel (B7),
+//   * varlen_dq:   fa2_triton_tpu/ops/varlen.py:_varlen_dq_kernel (B8),
+//   * varlen_dkdv: fa2_triton_tpu/ops/varlen.py:_varlen_dkdv_kernel (B8),
+// as `flash_attn_varlen_func` and `flash_attn_blocksparse_func` reach them.
+//
+// Function: documents are packed back to back in one [1, H, T, D] stream,
+// each starting at a multiple of the user blocks (block_q, block_kv). A
+// host work list (ops/varlen.py:_build_schedule) holds exactly the (q
+// block, kv block) pairs that carry work, after causal skipping and the
+// optional block mask. Per segment: causal masking bottom-right aligned on
+// the true lengths (shift = kv_len - q_len), base-2 lse, o = 0 and lse =
+// -inf on rows that keep no column, dq = dk = dv = 0 exactly outside live
+// rows. The TPU walks the list as a sequential grid and carries (m, l,
+// acc) in scratch between steps. Here the list is a launch table: sorted by
+// packed q block (q-major) or kv block (kv-major), with a CSR row pointer
+// over it, so each block finds the entries of its user block and loops over
+// them itself:
+//   * varlen_fwd / varlen_dq: one block per (64-row q tile, q head); for
+//     each entry of its user q block, a loop over that kv block's 32-row KV
+//     tiles, up to kv_len and the causal edge of the tile's last live row;
+//   * varlen_dkdv: one block per (64-row kv tile, kv head); for each entry
+//     of its user kv block (column 7 is the GQA group index), a loop over
+//     that q block's 32-row q tiles, from the causal edge to q_len. dk and
+//     dv are summed over the whole group inside the block: no atomics, and
+//     every run is bitwise repeatable.
+// Each CUDA tile nests in one user block (the wrapper checks block_q and
+// block_kv are multiples of 64), so the block mask and the alignment stay
+// defined at the user's blocks. Every tile of the stream is written: a tile
+// whose rows are all dead (a padded tail, a block the mask filtered out
+// entirely, a dummy entry whose length was clamped) writes zeros and -inf
+// without loading anything. Masked scores are -inf under a finite running
+// max floor, and elements are kept by row < q_len, col < kv_len and the
+// causal rule, so a row whose surviving blocks hold no causal column ends
+// with o = 0 and lse = -inf (the TPU kernel's finite -1e30 mask averages v
+// there). Rows past q_len and columns past kv_len are zero-filled when
+// loaded: the gaps of the packed stream may hold NaN.
+//
+// Bound on the H100: at document lengths of hundreds to thousands of
+// tokens, compute (4 D flops per kept (row, column) pair and head forward,
+// 6 D for dq, 8 D for dk/dv, against 2-4 bytes per element moved), so the
+// roof is the tensor cores. This first version runs the same fp32 CUDA-core
+// tile math as flash_fwd.cu and flash_bwd.cu (attn_tiles.cuh) and, like
+// them, loads no tile past kv_len, q_len or the causal edge; the work list
+// keeps filtered and causally dead blocks out of the loops altogether.
+// wgmma + TMA is later work.
+#include "attn_tiles.cuh"
+
+namespace fa2 {
+namespace {
+
+struct VarlenParams {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
+  void* o;
+  float* lse;          // [1, Hq, T] fp32, base 2 (written by fwd, read by dq / dk/dv)
+  const float* delta;  // [1, Hq, T] fp32
+  void* dq;
+  void* dk;
+  void* dv;
+  const int* work;     // [n, 8] int32 work list (ops/varlen.py)
+  const int* rowptr;   // [T / block + 1] CSR row pointer over it
+  long long q_sh, q_ss, k_sh, k_ss, v_sh, v_ss, do_sh, do_ss;
+  long long o_sh, o_ss, dq_sh, dq_ss, dk_sh, dk_ss, dv_sh, dv_ss;
+  int Hq, Hkv, T, block_q, block_kv, causal;
+  float scale;       // softmax scale (natural)
+  float scale_log2;  // scale * log2(e)
+};
+
+// The segment a 64-row output tile at packed row t0 belongs to, from the
+// first entry of its user block (every entry of a block shares it): the
+// block's entries [e_lo, e_hi), the tile's first row in segment
+// coordinates, the segment's length along the tile's axis (q_len for a q
+// tile, kv_len for a kv tile) and the tile's live rows.
+struct TileSeg {
+  int e_lo, e_hi, first, len, live;
+};
+
+__device__ __forceinline__ TileSeg tile_seg(const VarlenParams& p, int t0, int block, int lo_col,
+                                            int len_col) {
+  TileSeg t;
+  const int ub = t0 / block;
+  t.e_lo = p.rowptr[ub];
+  t.e_hi = p.rowptr[ub + 1];
+  const int* w = p.work + 8 * t.e_lo;
+  t.first = (t.e_lo < t.e_hi ? w[lo_col] : 0) + t0 - ub * block;
+  t.len = t.e_lo < t.e_hi ? w[len_col] : 0;
+  t.live = max(0, min(TM, t.len - t.first));
+  return t;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS) varlen_fwd_kernel(const VarlenParams p) {
+  extern __shared__ float smem[];
+  const FwdSmem s = fwd_smem<D>(smem);
+  const int q0 = blockIdx.x * TM, h = blockIdx.y, hk = h / (p.Hq / p.Hkv);
+  const TileSeg t = tile_seg(p, q0, p.block_q, 2, 4);
+  const int qlen = t.len;
+
+  stage<T, D>(s.Qs, static_cast<const T*>(p.q) + h * p.q_sh, p.q_ss, q0, TM, q0 + t.live,
+              p.scale_log2);
+  float m_run = MASK_LOG2, l_run = 0.f;
+  float acc[4][D / 16];
+  zero_acc<D>(acc);
+  for (int e = t.live > 0 ? t.e_lo : t.e_hi; e < t.e_hi; ++e) {
+    const int* w = p.work + 8 * e;
+    const int kv_lo = w[3], kvlen = w[5], shift = kvlen - qlen;
+    const long long kb0 = (long long)w[1] * p.block_kv;  // packed row of the block's first key
+    const int kv_valid = min(p.block_kv, kvlen - kv_lo);
+    int hi = kv_valid;
+    if (p.causal) hi = min(hi, t.first + t.live - 1 + shift + 1 - kv_lo);
+    const T* kp = static_cast<const T*>(p.k) + hk * p.k_sh + kb0 * p.k_ss;
+    const T* vp = static_cast<const T*>(p.v) + hk * p.v_sh + kb0 * p.v_ss;
+    for (int k0 = 0; k0 < hi; k0 += TN) {
+      auto score = [&](int r, int c, float x) {
+        const int row = t.first + r, col = kv_lo + k0 + c;
+        const bool keep = r < t.live && col < kvlen && (!p.causal || col <= row + shift);
+        return keep ? x : neg_inf();
+      };
+      fwd_kv_step<T, D>(s, kp, p.k_ss, vp, p.v_ss, k0, kv_valid, score, m_run, l_run, acc);
+    }
+  }
+  fwd_store<T, D>(s, m_run, l_run, acc, p.lse + (long long)h * p.T + q0,
+                  static_cast<T*>(p.o) + h * p.o_sh + q0 * p.o_ss, p.o_ss, TM);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS) varlen_dq_kernel(const VarlenParams p) {
+  extern __shared__ float smem[];
+  const DqSmem s = dq_smem<D>(smem);
+  const int q0 = blockIdx.x * TM, h = blockIdx.y, hk = h / (p.Hq / p.Hkv);
+  const TileSeg t = tile_seg(p, q0, p.block_q, 2, 4);
+  const int qlen = t.len;
+  const long long row0 = (long long)h * p.T;
+
+  dq_stage_q<T, D>(s, static_cast<const T*>(p.q) + h * p.q_sh, p.q_ss,
+                   static_cast<const T*>(p.dout) + h * p.do_sh, p.do_ss, p.lse + row0,
+                   p.delta + row0, q0, q0 + t.live, p.scale_log2);
+  float acc[4][D / 16];
+  zero_acc<D>(acc);
+  for (int e = t.live > 0 ? t.e_lo : t.e_hi; e < t.e_hi; ++e) {
+    const int* w = p.work + 8 * e;
+    const int kv_lo = w[3], kvlen = w[5], shift = kvlen - qlen;
+    const long long kb0 = (long long)w[1] * p.block_kv;
+    const int kv_valid = min(p.block_kv, kvlen - kv_lo);
+    int hi = kv_valid;
+    if (p.causal) hi = min(hi, t.first + t.live - 1 + shift + 1 - kv_lo);
+    const T* kp = static_cast<const T*>(p.k) + hk * p.k_sh + kb0 * p.k_ss;
+    const T* vp = static_cast<const T*>(p.v) + hk * p.v_sh + kb0 * p.v_ss;
+    for (int k0 = 0; k0 < hi; k0 += TN) {
+      auto ds_of = [&](int r, int c, float s2, float dp) {
+        const int row = t.first + r, col = kv_lo + k0 + c;
+        const bool keep = r < t.live && col < kvlen && (!p.causal || col <= row + shift);
+        float pr, ds;
+        grad_plain(s2, dp, s.lse_s[r], s.delta_s[r], keep, pr, ds);
+        return ds;
+      };
+      dq_kv_step<T, D>(s, kp, p.k_ss, vp, p.v_ss, k0, kv_valid, ds_of, acc);
+    }
+  }
+  store_tile<T, D>(acc, static_cast<T*>(p.dq) + h * p.dq_sh + q0 * p.dq_ss, p.dq_ss, TM,
+                   p.scale);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS) varlen_dkdv_kernel(const VarlenParams p) {
+  extern __shared__ float smem[];
+  const DkdvSmem s = dkdv_smem<D>(smem);
+  const int k0 = blockIdx.x * TM, hk = blockIdx.y, group = p.Hq / p.Hkv;
+  const TileSeg t = tile_seg(p, k0, p.block_kv, 3, 5);
+  const int kvlen = t.len;
+
+  stage<T, D>(s.Ks, static_cast<const T*>(p.k) + hk * p.k_sh, p.k_ss, k0, TM, k0 + t.live,
+              p.scale_log2);
+  stage<T, D>(s.Vs, static_cast<const T*>(p.v) + hk * p.v_sh, p.v_ss, k0, TM, k0 + t.live, 1.f);
+  float dk_acc[4][D / 16], dv_acc[4][D / 16];
+  zero_acc<D>(dk_acc);
+  zero_acc<D>(dv_acc);
+  for (int e = t.live > 0 ? t.e_lo : t.e_hi; e < t.e_hi; ++e) {
+    const int* w = p.work + 8 * e;
+    const int q_lo = w[2], qlen = w[4], shift = kvlen - qlen;
+    const int h = hk * group + w[7];
+    const long long qb0 = (long long)w[0] * p.block_q;  // packed row of the block's first query
+    // Rows [r_lo, r_hi) of the q block that can see a live column of this tile.
+    const int r_hi = min(p.block_q, qlen - q_lo);
+    const int r_lo = p.causal ? max(0, t.first - shift - q_lo) : 0;
+    const T* qp = static_cast<const T*>(p.q) + h * p.q_sh + qb0 * p.q_ss;
+    const T* dop = static_cast<const T*>(p.dout) + h * p.do_sh + qb0 * p.do_ss;
+    const float* lse = p.lse + (long long)h * p.T + qb0;
+    const float* delta = p.delta + (long long)h * p.T + qb0;
+    for (int r0 = (r_lo / TN) * TN; r0 < r_hi; r0 += TN) {
+      auto pds_of = [&](int kr, int qr, float s2, float dp, float& pr, float& ds) {
+        const int row = q_lo + r0 + qr, col = t.first + kr;
+        const bool keep = kr < t.live && row < qlen && (!p.causal || col <= row + shift);
+        grad_plain(s2, dp, s.lse_s[qr], s.delta_s[qr], keep, pr, ds);
+      };
+      dkdv_q_step<T, D>(s, qp, p.q_ss, dop, p.do_ss, lse, delta, r0, r_hi, pds_of, dk_acc,
+                        dv_acc);
+    }
+  }
+  store_tile<T, D>(dk_acc, static_cast<T*>(p.dk) + hk * p.dk_sh + k0 * p.dk_ss, p.dk_ss, TM,
+                   p.scale);
+  store_tile<T, D>(dv_acc, static_cast<T*>(p.dv) + hk * p.dv_sh + k0 * p.dv_ss, p.dv_ss, TM, 1.f);
+}
+
+enum Kernel : int { kFwd = 0, kDq = 1, kDkDv = 2 };
+
+template <typename K>
+cudaError_t launch_kernel(K kernel, int smem_floats, dim3 grid, const VarlenParams& p,
+                          cudaStream_t stream) {
+  const int smem = smem_floats * (int)sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch(const VarlenParams& p, int which, cudaStream_t stream) {
+  const int tiles = p.T / TM;
+  switch (which) {
+    case kFwd:
+      return launch_kernel(varlen_fwd_kernel<T, D>, fwd_smem_floats<D>(), dim3(tiles, p.Hq), p,
+                           stream);
+    case kDq:
+      return launch_kernel(varlen_dq_kernel<T, D>, dq_smem_floats<D>(), dim3(tiles, p.Hq), p,
+                           stream);
+    case kDkDv:
+      return launch_kernel(varlen_dkdv_kernel<T, D>, dkdv_smem_floats<D>(), dim3(tiles, p.Hkv),
+                           p, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t launch_d(const VarlenParams& p, int which, int D, cudaStream_t stream) {
+  switch (D) {
+    case 64: return launch<T, 64>(p, which, stream);
+    case 128: return launch<T, 128>(p, which, stream);
+    case 256: return launch<T, 256>(p, which, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+}  // namespace fa2
+
+// One entry for the three kernels (`which`: 0 forward, 1 dq, 2 dk/dv; the
+// forward reads q, k, v and writes o, lse; the backward kernels read q, k,
+// v, do, lse, delta and write dq or dk / dv). `work` / `rowptr` are the
+// q-major table for 0 and 1, the kv-major one for 2. `strides` holds, in
+// elements, the head and row strides of q, k, v, do, o, dq, dk, dv (16
+// values; the batch dim is 1). T must be a multiple of 64, block_q and
+// block_kv multiples of 64 that divide T.
+extern "C" int fa2_varlen(
+    int which, int dtype, int Hq, int Hkv, int T, int D,
+    const void* q, const void* k, const void* v, const void* dout, void* o, float* lse,
+    const float* delta, void* dq, void* dk, void* dv,
+    const int* work, const int* rowptr, const long long* strides,
+    int block_q, int block_kv, int causal, float softmax_scale, void* stream) {
+  fa2::VarlenParams p;
+  p.q = q; p.k = k; p.v = v; p.dout = dout; p.o = o; p.lse = lse; p.delta = delta;
+  p.dq = dq; p.dk = dk; p.dv = dv; p.work = work; p.rowptr = rowptr;
+  const long long* s = strides;
+  p.q_sh = s[0]; p.q_ss = s[1]; p.k_sh = s[2]; p.k_ss = s[3];
+  p.v_sh = s[4]; p.v_ss = s[5]; p.do_sh = s[6]; p.do_ss = s[7];
+  p.o_sh = s[8]; p.o_ss = s[9]; p.dq_sh = s[10]; p.dq_ss = s[11];
+  p.dk_sh = s[12]; p.dk_ss = s[13]; p.dv_sh = s[14]; p.dv_ss = s[15];
+  p.Hq = Hq; p.Hkv = Hkv; p.T = T; p.block_q = block_q; p.block_kv = block_kv;
+  p.causal = causal;
+  p.scale = softmax_scale;
+  p.scale_log2 = softmax_scale * fa2::LOG2E;
+  if (T % fa2::TM || block_q % fa2::TM || block_kv % fa2::TM || T % block_q || T % block_kv) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case fa2::kF32: return (int)fa2::launch_d<float>(p, which, D, st);
+    case fa2::kF16: return (int)fa2::launch_d<__half>(p, which, D, st);
+    case fa2::kBF16: return (int)fa2::launch_d<__nv_bfloat16>(p, which, D, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels in `fa2_triton_tpu_torch/csrc/`.
 
-All `csrc/*.cu` files are compiled by `nvcc` for `sm_90a` into one shared
-library with a plain C interface, which is loaded with `ctypes`. The library
+Each `csrc/*.cu` file is compiled by its own `nvcc` for `sm_90a`, all at
+once, and the objects are linked into one shared library with a plain C
+interface, which is loaded with `ctypes`. The library
 lands in `build/fa2_triton_tpu_torch/<hash of the sources>/` at the root of
 the checkout, so an edited source builds anew and an unchanged one is built
 once. Nothing is built at import: the first kernel launch calls `load()`.
@@ -28,7 +29,7 @@ LIB_NAME = "libfa2kernels.so"
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")  # the CUDA toolkit's default prefix
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 # dtype codes of the C entry points (`enum DType` in csrc/common.cuh).
@@ -77,7 +78,8 @@ def find_nvcc() -> str:
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile the kernels unless the library for these sources exists.
+    """Compile the kernels unless the library for these sources exists: one
+    nvcc per source file, all started together, then one link.
     `verbose=True` adds `-Xptxas -v` and prints nvcc's output (registers,
     shared memory and spills of each kernel). Returns the library path."""
     global build_seconds
@@ -87,19 +89,39 @@ def build(verbose: bool = False) -> Path:
         return lib_path
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu_files = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-I", str(CSRC), "-o", str(tmp), *cu_files]
+    tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for cu in sorted(CSRC.glob("*.cu")):
+        obj, log = out_dir / f"{cu.stem}.{tag}.o", out_dir / f"{cu.stem}.{tag}.log"
+        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-I", str(CSRC), "-c", "-o", str(obj), str(cu)]
+        with open(log, "w") as fh:
+            jobs.append((cmd, obj, log, subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT)))
+    reports, failed = [], []
+    for cmd, obj, log, proc in jobs:
+        proc.wait()
+        reports.append(log.read_text())
+        log.unlink()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{reports[-1]}")
+    objs = [obj for _, obj, _, _ in jobs]
+    tmp = out_dir / f"{LIB_NAME}.{tag}"
+    try:
+        if failed:
+            raise KernelBuildError("\n".join(failed))
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp),
+               *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise KernelBuildError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                                   f"{proc.stdout}\n{proc.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise KernelBuildError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
     if verbose:
-        print(proc.stdout + proc.stderr)
+        print("\n".join(reports))
     os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all or nothing
     return lib_path
 

@@ -109,13 +109,15 @@ def flash_attn_forward_plain(
     return o.to(q.dtype), lse[..., 0]
 
 
-def _check_cuda_args(q, k, v, lens):
+def _check_cuda_args(q, k, v, lens=None):
+    """Raise on BHSD q / k / v (and [B, 2] lens, when given) that the
+    attention kernels do not take."""
     if q.dtype not in _build.DTYPE_CODES:
-        raise TypeError(f"flash_fwd kernel takes fp32/fp16/bf16, got {q.dtype}")
+        raise TypeError(f"the attention kernels take fp32/fp16/bf16, got {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("q, k and v must share one dtype")
     for name, t in (("k", k), ("v", v), ("lens", lens)):
-        if t.device != q.device:
+        if t is not None and t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
     B, Hq, Sq, D = q.shape
     if k.dim() != 4 or k.shape[0] != B or k.shape[3] != D or v.shape != k.shape:
@@ -123,8 +125,9 @@ def _check_cuda_args(q, k, v, lens):
     if Hq % k.shape[1] != 0:
         raise ValueError("num_heads_q must be a multiple of num_heads_kv")
     if D not in HEAD_DIMS:
-        raise ValueError(f"flash_fwd kernel takes head_dim in {HEAD_DIMS}, got {D}")
-    if lens.shape != (B, 2) or lens.dtype != torch.int32 or not lens.is_contiguous():
+        raise ValueError(f"the attention kernels take head_dim in {HEAD_DIMS}, got {D}")
+    if lens is not None and (lens.shape != (B, 2) or lens.dtype != torch.int32
+                             or not lens.is_contiguous()):
         raise ValueError("lens must be a contiguous int32 [B, 2] tensor")
     for name, t in (("q", q), ("k", k), ("v", v)):
         # 4-element vector loads: last dim contiguous, the other strides and

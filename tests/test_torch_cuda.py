@@ -342,3 +342,201 @@ def test_expanded_output_cotangent_is_relaid_for_the_kernels(dev):
         grads.append([t.grad.cpu() for t in leaves])
     for a, b in zip(*grads):
         torch.testing.assert_close(b, a, rtol=0, atol=1e-4)
+
+
+# ------------------- packed varlen / block-sparse (B7, B8) -------------------
+
+def _varlen_layout(lens, blocks):
+    align = max(blocks)
+    starts = [0]
+    for l in lens[:-1]:
+        starts.append(starts[-1] + -(-max(l, 1) // align) * align)
+    return starts, starts[-1] + -(-max(lens[-1], 1) // align) * align
+
+
+def _varlen_inputs(dev, T, Hq, Hkv, D, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(1, T, Hq, D, generator=g, device=dev) * 0.5
+    k = torch.randn(1, T, Hkv, D, generator=g, device=dev) * 0.5
+    v = torch.randn(1, T, Hkv, D, generator=g, device=dev) * 0.5
+    do = torch.randn(1, T, Hq, D, generator=g, device=dev)
+    return [x.transpose(1, 2) for x in (q, k, v, do)]
+
+
+def _live_mask(starts, lens, T, dev):
+    live = torch.zeros(T, dtype=torch.bool, device=dev)
+    for s0, l in zip(starts, lens):
+        live[s0:s0 + l] = True
+    return live
+
+
+def _varlen_check(dev, dtype, starts, qlens, kvlens, T, Hq, Hkv, D, seed, **kw):
+    """Forward and backward kernels vs the plain twins (FA rule), launch
+    counts, and exact zeros outside the live rows."""
+    from fa2_triton_tpu_torch.ops import varlen
+
+    q32, k32, v32, do32 = _varlen_inputs(dev, T, Hq, Hkv, D, seed)
+    args = (starts, qlens, kvlens)
+    o32, lse32 = varlen.flash_attn_varlen_forward_plain(q32, k32, v32, *args, **kw)
+    refs = varlen.flash_attn_varlen_backward_plain(q32, k32, v32, do32, o32, lse32, *args, **kw)
+    q, k, v, do = (x.to(dtype) for x in (q32, k32, v32, do32))
+    before = dict(varlen.LAUNCHES)
+    o, lse = varlen.flash_attn_varlen_forward(q, k, v, *args, **kw)
+    o_pl, lse_pl = varlen.flash_attn_varlen_forward_plain(q, k, v, *args, **kw)
+    grads = varlen.flash_attn_varlen_backward(q, k, v, do, o, lse, *args, **kw)
+    plains = varlen.flash_attn_varlen_backward_plain(q, k, v, do, o, lse, *args, **kw)
+    torch.cuda.synchronize()
+    assert {n: varlen.LAUNCHES[n] - before[n] for n in before} == \
+        {"varlen_fwd": 1, "varlen_dq": 1, "varlen_dkdv": 1}
+    _check(o, o32, o_pl, dtype)
+    assert torch.equal(torch.isinf(lse), torch.isinf(lse_pl))
+    fin = torch.isfinite(lse_pl)
+    if fin.any():
+        assert (lse[fin] - lse_pl[fin]).abs().max().item() <= 1e-4
+    _check_grads(grads, refs, plains, dtype)
+    q_live = _live_mask(starts, qlens, T, dev)
+    kv_live = _live_mask(starts, kvlens, T, dev)
+    assert not o[:, :, ~q_live].any() and torch.all(lse[:, :, ~q_live] == float("-inf"))
+    assert not grads[0][:, :, ~q_live].any()
+    assert not grads[1][:, :, ~kv_live].any() and not grads[2][:, :, ~kv_live].any()
+    for gr in grads:
+        assert torch.isfinite(gr).all()
+    return o, lse, grads
+
+
+# Rectangular blocks both ways: the 64-row tiles nest in either.
+VARLEN_BLOCKS = {64: (64, 128), 128: (128, 128), 256: (128, 64)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("G", [1, 4, 8])
+def test_varlen_kernels_match_plain(dev, dtype, D, causal, G):
+    lens = (300, 1, 128, 77)          # ragged, length 1, a block multiple
+    blocks = VARLEN_BLOCKS[D]
+    starts, T = _varlen_layout(lens, blocks)
+    _varlen_check(dev, dtype, starts, lens, lens, T, 8, 8 // G, D, seed=D + G + causal,
+                  causal=causal, softmax_scale=D ** -0.5, block_q=blocks[0], block_kv=blocks[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_varlen_kernels_with_q_len_ne_kv_len(dev, dtype, causal):
+    """Bottom-right causal alignment on each segment's own shift, negative
+    (first rows see nothing) and positive."""
+    starts, T = [0, 512, 768], 1280
+    _varlen_check(dev, dtype, starts, (300, 1, 200), (200, 64, 449), T, 4, 2, 128, seed=5,
+                  causal=causal, softmax_scale=0.1, block_q=128, block_kv=256)
+
+
+BLOCKSPARSE_CASES = [
+    # (block_q, block_kv, causal, mask over a 512-token segment)
+    (128, 128, True, "random"),
+    (256, 128, True, [[False, True, False, False], [True, True, True, False]]),   # rows with no kept causal column
+    (128, 256, False, [[True, False], [False, False], [True, False], [True, False]]),  # a filtered row and kv block
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("case", range(len(BLOCKSPARSE_CASES)))
+def test_blocksparse_kernels_match_plain(dev, dtype, case):
+    import numpy as np
+    from fa2_triton_tpu_torch.ops import varlen
+
+    bq, bkv, causal, mask = BLOCKSPARSE_CASES[case]
+    if mask == "random":
+        mask = np.random.RandomState(0).rand(4, 4) < 0.6
+    keep = varlen._mask_keep_fn(varlen.encode_block_mask(mask))
+    starts, T = [0, 512], 1024
+    _varlen_check(dev, dtype, starts, (512, 400), (512, 400), T, 8, 2, 128, seed=case,
+                  causal=causal, softmax_scale=0.09, block_q=bq, block_kv=bkv, keep_block=keep)
+
+
+def _varlen_run(q, k, v, do, starts, lens, **kw):
+    from fa2_triton_tpu_torch.ops import varlen
+
+    o, lse = varlen.flash_attn_varlen_forward(q, k, v, starts, lens, lens, **kw)
+    return (o, lse) + tuple(varlen.flash_attn_varlen_backward(q, k, v, do, o, lse, starts, lens,
+                                                              lens, **kw))
+
+
+def test_varlen_kernels_ignore_nan_in_the_gaps(dev):
+    """The gaps of the packed stream may hold NaN: every output equals that
+    of zero gaps bit for bit, and dead positions are exactly 0."""
+    lens = (300, 1, 128, 77)
+    starts, T = _varlen_layout(lens, (128, 128))
+    q, k, v, do = (x.to(torch.bfloat16) for x in _varlen_inputs(dev, T, 8, 2, 128, 3))
+    live = _live_mask(starts, lens, T, dev)
+    clean = [x.clone() for x in (q, k, v, do)]
+    nan = [x.clone() for x in (q, k, v, do)]
+    for c, n in zip(clean, nan):
+        c[:, :, ~live] = 0
+        n[:, :, ~live] = float("nan")
+    kw = dict(causal=True, softmax_scale=0.088, block_q=128, block_kv=128)
+    base = _varlen_run(*clean, starts, lens, **kw)
+    got = _varlen_run(*nan, starts, lens, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, base):
+        assert torch.equal(a, b)
+
+
+def test_varlen_kernels_are_bitwise_repeatable(dev):
+    lens = (300, 1, 128, 77)
+    starts, T = _varlen_layout(lens, (128, 128))
+    q, k, v, do = (x.to(torch.bfloat16) for x in _varlen_inputs(dev, T, 8, 1, 128, 4))
+    kw = dict(causal=True, softmax_scale=0.088, block_q=128, block_kv=128)
+    runs = [_varlen_run(q, k, v, do, starts, lens, **kw) for _ in range(5)]
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        for a, b in zip(run, runs[0]):
+            assert torch.equal(a, b)
+
+
+def test_varlen_public_api_grads_on_cuda_match_the_cpu(dev):
+    """flash_attn_varlen_func and flash_attn_blocksparse_func on CUDA tensors
+    that require grad (the kernels) against the same calls on the CPU (the
+    plain twins), fp32, with an lse cotangent."""
+    from fa2_triton_tpu_torch.ops import varlen
+
+    rng = torch.Generator().manual_seed(0)
+    lens = (200, 1, 128)
+    starts, T = _varlen_layout(lens, (128, 128))
+    cu = starts + [T]
+    x = [torch.randn(T, h, 64, generator=rng) * 0.5 for h in (8, 2, 2)]
+    do = torch.randn(T, 8, 64, generator=rng)
+    dl = torch.randn(8, T, generator=rng)
+    xb = [torch.randn(2, 256, h, 64, generator=rng) * 0.5 for h in (4, 4, 4)]
+    dob = torch.randn(2, 256, 4, 64, generator=rng)
+    mask = [[True, False], [False, True]]
+    results = []
+    for device in ("cpu", dev):
+        leaves = [t.detach().to(device).requires_grad_() for t in x]
+        before = dict(varlen.LAUNCHES)
+        out, lse = varlen.flash_attn_varlen_func(*leaves, cu, seqlens=lens, causal=True,
+                                                 block_q=128, block_kv=128, return_lse=True)
+        lse_term = torch.where(torch.isfinite(lse), lse, 0) * dl.to(device)
+        ((out * do.to(device)).sum() + lse_term.sum()).backward()
+        bleaves = [t.detach().to(device).requires_grad_() for t in xb]
+        outb = varlen.flash_attn_blocksparse_func(*bleaves, mask, causal=True, block_q=128,
+                                                  block_kv=128)
+        (outb * dob.to(device)).sum().backward()
+        launched = {n: varlen.LAUNCHES[n] - before[n] for n in before}
+        assert set(launched.values()) == ({0} if device == "cpu" else {2}), launched
+        results.append([t.detach().cpu() for t in (out, lse, outb)]
+                       + [t.grad.cpu() for t in leaves + bleaves])
+    for a, b in zip(*results):
+        torch.testing.assert_close(b, a, rtol=0, atol=1e-4)
+
+
+def test_varlen_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    from fa2_triton_tpu_torch.ops import varlen
+
+    x = torch.zeros(256, 2, 64, device=dev)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        varlen.flash_attn_varlen_func(x, x, x, [0, 256], block_q=32, block_kv=32)
+    x = torch.zeros(256, 2, 96, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        varlen.flash_attn_varlen_func(x, x, x, [0, 256], block_q=128, block_kv=128)
+    with pytest.raises(NotImplementedError, match="dropout"):
+        varlen.flash_attn_varlen_func(x, x, x, [0, 256], dropout_p=0.1)
