@@ -5,10 +5,12 @@ counterpart (`fa2_triton_tpu_torch.ops.decode` <-> `fa2_triton_tpu.ops.decode`).
 Plain tensor code is PyTorch; the Pallas TPU kernels on the ported path are
 CUDA C++ kernels for Hopper (sm_90a) in `csrc/`, built with nvcc at first use
 (`ops/_build.py`). Ported so far: the serving path (prefill attention
-`ops/flash_fwd.py`, decode attention `ops/decode.py`, the LLaMA model and
-the continuous-batching `Engine`) and the training path (the backward
-kernels `ops/flash_bwd.py` behind `flash_attn_func`'s autograd, `loss_fn`,
-remat and `examples/train.py`), and packed varlen / block-sparse attention
+`ops/flash_fwd.py`, decode attention `ops/decode.py` over a contiguous or
+paged KV cache stored in the compute dtype, int8 or fp8, the LLaMA model
+and the continuous-batching `Engine` with its `paged` / `qdtype` modes and
+preemption), the training path (the backward kernels `ops/flash_bwd.py`
+behind `flash_attn_func`'s autograd, `loss_fn`, remat and
+`examples/train.py`), and packed varlen / block-sparse attention
 (`ops/varlen.py`, forward and backward kernels). This package never imports
 JAX.
 """

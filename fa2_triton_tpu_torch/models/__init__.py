@@ -6,10 +6,11 @@ from fa2_triton_tpu_torch.models.llama import (
     forward,
     init_params,
     loss_fn,
+    paged_decode_step,
     prefill_forward,
 )
 
 __all__ = [
     "LlamaConfig", "LlamaModel", "init_params", "forward", "prefill_forward",
-    "decode_step", "loss_fn", "convert",
+    "decode_step", "paged_decode_step", "loss_fn", "convert",
 ]

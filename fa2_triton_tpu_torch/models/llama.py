@@ -7,9 +7,10 @@ norms are fp32), so converting a JAX parameter tree is a copy
 (`models/convert.py:llama_from_jax_params`).
 
 Ported: `forward` (differentiable; `cfg.remat` checkpoints each layer),
-`loss_fn`, `prefill_forward` and `decode_step`. Not yet ported:
-`chunk_prefill_step`, `paged_decode_step`, `forward_with_cache`, and MoE
-layers (a "router" layer raises).
+`loss_fn`, `prefill_forward`, `decode_step` (contiguous cache, stored in
+the compute dtype or int8 / fp8) and `paged_decode_step` (page pool and
+block tables). Not yet ported: `chunk_prefill_step`, `forward_with_cache`,
+and MoE layers (a "router" layer raises).
 
 Layout convention: activations [batch, seq, dim]; attention tensors BSHD.
 """
@@ -25,7 +26,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from fa2_triton_tpu_torch.ops import flash_attn_func
-from fa2_triton_tpu_torch.ops.decode import decode_attention
+from fa2_triton_tpu_torch.ops.decode import decode_attention, paged_decode_attention
 from fa2_triton_tpu_torch.ops.quant import qmatmul as _mm
 
 
@@ -338,6 +339,26 @@ def prefill_forward(
     return _logits(x, model, cfg), kvs
 
 
+def _decode_layers(model: LlamaModel, tokens: torch.Tensor, lens: torch.Tensor,
+                   write_and_attend: Callable) -> torch.Tensor:
+    """The layer loop of one batched decode step: `write_and_attend(li, q,
+    k, v)` stores the new k/v of layer `li` and returns its attention
+    output [B, Hq, D]. Returns logits [B, V]."""
+    cfg = model.cfg
+    x = model.embed[tokens][:, None, :]        # [B, 1, dim]
+    cos, sin = rope_cos_sin(lens[:, None], cfg.hd, cfg.rope_theta, cfg.rope_factors)
+    cs, sn = cos[:, :, None, :], sin[:, :, None, :]
+    for li, layer in enumerate(model.layers):
+        h = rms_norm(x, layer.attn_norm, cfg.norm_eps)
+        q, k, v = _qkv(layer, h, cfg)
+        q, k = apply_rope(q, cs, sn), apply_rope(k, cs, sn)
+        attn = write_and_attend(li, q[:, 0].contiguous(), k, v)
+        x = _attn_out(layer, x, attn[:, None], cfg)
+        x = _mlp_block(layer, x, cfg)
+    x = rms_norm(x, model.final_norm, cfg.norm_eps)
+    return _logits(x[:, 0], model, cfg)
+
+
 def decode_step(
     model: LlamaModel,
     tokens: torch.Tensor,       # [B] int — one token per slot
@@ -346,27 +367,46 @@ def decode_step(
     kv_cfg,                     # runtime.kv_cache.KVCacheConfig
 ):
     """One batched decode step over the serving KV cache. Writes each slot's
-    new k/v at `lens` IN PLACE (saves a full cache copy per layer per step)
-    and attends over lens + 1 rows. Returns (logits [B, V], caches)."""
+    new k/v at `lens` IN PLACE (quantized when the cache is; saves a full
+    cache copy per layer per step) and attends over lens + 1 rows. Returns
+    (logits [B, V], caches)."""
     from fa2_triton_tpu_torch.runtime.kv_cache import write_kv
 
     cfg = model.cfg
-    B = tokens.shape[0]
-    x = model.embed[tokens][:, None, :]        # [B, 1, dim]
-    cos, sin = rope_cos_sin(lens[:, None], cfg.hd, cfg.rope_theta, cfg.rope_factors)
-    cs, sn = cos[:, :, None, :], sin[:, :, None, :]
     kv_lens = (lens + 1).to(torch.int32)
-    for li, (layer, cache) in enumerate(zip(model.layers, caches)):
-        h = rms_norm(x, layer.attn_norm, cfg.norm_eps)
-        q, k, v = _qkv(layer, h, cfg)
-        q, k = apply_rope(q, cs, sn), apply_rope(k, cs, sn)
+
+    def write_and_attend(li, q, k, v):
+        cache = caches[li]
         write_kv(cache, k, v, lens, kv_cfg)
-        attn = decode_attention(
-            q[:, 0].contiguous(), cache["k"], cache["v"], kv_lens,
-            softmax_scale=cfg.scale, window_left=cfg.window_for(li),
-            softcap=cfg.attn_softcap,
-        )
-        x = _attn_out(layer, x, attn[:, None], cfg)
-        x = _mlp_block(layer, x, cfg)
-    x = rms_norm(x, model.final_norm, cfg.norm_eps)
-    return _logits(x[:, 0], model, cfg), caches
+        return decode_attention(
+            q, cache["k"], cache["v"], kv_lens, cache.get("k_scale"), cache.get("v_scale"),
+            softmax_scale=cfg.scale, window_left=cfg.window_for(li), softcap=cfg.attn_softcap)
+
+    return _decode_layers(model, tokens, lens, write_and_attend), caches
+
+
+def paged_decode_step(
+    model: LlamaModel,
+    tokens: torch.Tensor,       # [B] int — one token per slot
+    pools,                      # per-layer page-pool dicts (shared pages)
+    tables: torch.Tensor,       # [n_slots, max_pages] int32 block tables
+    lens: torch.Tensor,         # [B] int32 — tokens already in each slot
+    pcfg,                       # runtime.paged_cache.PagedCacheConfig
+):
+    """One batched decode step over the paged KV cache
+    (`fa2_triton_tpu/models/llama.py:paged_decode_step`): scatters each
+    slot's new k/v through its table row at `lens`, IN PLACE, and attends
+    over lens + 1 rows. Returns (logits [B, V], pools)."""
+    from fa2_triton_tpu_torch.runtime.paged_cache import write_tokens_paged
+
+    cfg = model.cfg
+    kv_lens = (lens + 1).to(torch.int32)
+
+    def write_and_attend(li, q, k, v):
+        pool = pools[li]
+        write_tokens_paged(pool, tables, k, v, lens, pcfg)
+        return paged_decode_attention(
+            q, pool["k"], pool["v"], tables, kv_lens, pool.get("k_scale"), pool.get("v_scale"),
+            softmax_scale=cfg.scale, window_left=cfg.window_for(li), softcap=cfg.attn_softcap)
+
+    return _decode_layers(model, tokens, lens, write_and_attend), pools

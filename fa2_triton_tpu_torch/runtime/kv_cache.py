@@ -2,11 +2,16 @@
 
 Caches live in the decode kernel's layout [slots, Hkv, S_max, D] (BHSD, the
 sequence padded to 128 as in the JAX package, the head dim unpadded), so a
-decode step reads each (slot, head) as one contiguous stripe. Writes update
-the cache tensors IN PLACE: a functional update would copy the whole cache
-(4.3 GB at Mistral-7B widths, 8 slots x 4096) per layer per step.
+decode step reads each (slot, head) as one contiguous stripe. Values are
+stored in the compute dtype, or quantized (`qdtype` int8 / float8_e4m3fn)
+at insert with per-(token, head) fp32 scales laid out [slots, Hkv, 1,
+S_max]; the decode kernel folds the scales in. JAX pads D to 128 with zeros,
+which leave amax and so the scales unchanged: values and scales here equal
+the first D columns of JAX's bit for bit.
 
-Quantized storage (`qdtype`) waits for the quantized decode kernel and raises.
+Writes update the cache tensors IN PLACE: a functional update would copy the
+whole cache (4.3 GB in bf16 at Mistral-7B widths, 8 slots x 4096) per layer
+per step.
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ from typing import Any, List, Optional
 
 import torch
 
+from fa2_triton_tpu_torch.ops.quant import QDTYPES, quantize_tensor
 from fa2_triton_tpu_torch.utils import round_up_to_multiple
 
 
@@ -25,13 +31,13 @@ class KVCacheConfig:
     head_dim: int
     max_seq: int
     n_slots: int
-    qdtype: Optional[Any] = None  # None only; int8/fp8 storage is not ported
+    qdtype: Optional[Any] = None  # None (compute dtype), torch.int8 or torch.float8_e4m3fn
     compute_dtype: Any = torch.bfloat16
 
     def __post_init__(self):
-        if self.qdtype is not None:
-            raise NotImplementedError(
-                "quantized KV cache (int8/fp8) is not ported yet; see ROADMAP.md queue A")
+        if self.qdtype is not None and self.qdtype not in QDTYPES:
+            raise ValueError(f"qdtype must be None, torch.int8 or torch.float8_e4m3fn, "
+                             f"got {self.qdtype}")
 
     @property
     def max_seq_padded(self) -> int:
@@ -39,13 +45,20 @@ class KVCacheConfig:
 
 
 def init_cache(cfg: KVCacheConfig, device=None) -> List[dict]:
-    """One dict per layer: k, v [slots, Hkv, S_max_padded, D], zero-filled."""
+    """One dict per layer: k, v [slots, Hkv, S_max_padded, D], zero-filled,
+    and with `qdtype` k_scale, v_scale [slots, Hkv, 1, S_max_padded] of ones."""
     shape = (cfg.n_slots, cfg.n_kv_heads, cfg.max_seq_padded, cfg.head_dim)
-    return [
-        {"k": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
-         "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=device)}
-        for _ in range(cfg.n_layers)
-    ]
+    sshape = (cfg.n_slots, cfg.n_kv_heads, 1, cfg.max_seq_padded)
+    vdtype = cfg.qdtype if cfg.qdtype is not None else cfg.compute_dtype
+    layers = []
+    for _ in range(cfg.n_layers):
+        layer = {"k": torch.zeros(shape, dtype=vdtype, device=device),
+                 "v": torch.zeros(shape, dtype=vdtype, device=device)}
+        if cfg.qdtype is not None:
+            layer["k_scale"] = torch.ones(sshape, dtype=torch.float32, device=device)
+            layer["v_scale"] = torch.ones(sshape, dtype=torch.float32, device=device)
+        layers.append(layer)
+    return layers
 
 
 def write_kv(
@@ -55,18 +68,26 @@ def write_kv(
     offsets: torch.Tensor,  # [B] int — write position per slot
     cfg: KVCacheConfig,
 ) -> dict:
-    """Write new_k/new_v at per-slot offsets, in place; returns the dict."""
-    k, v = layer_cache["k"], layer_cache["v"]
+    """Write new_k/new_v at per-slot offsets (quantizing if configured), in
+    place; returns the dict."""
     B, S = new_k.shape[:2]
-    kT = new_k.to(cfg.compute_dtype).transpose(1, 2)   # [B, Hkv, S, D]
-    vT = new_v.to(cfg.compute_dtype).transpose(1, 2)
+    names = ("k", "v")
+    vals = [x.to(cfg.compute_dtype).transpose(1, 2) for x in (new_k, new_v)]   # [B, Hkv, S, D]
+    scales = None
+    if cfg.qdtype is not None:
+        vals, scales = zip(*(quantize_tensor(x, cfg.qdtype) for x in vals))    # + [B, Hkv, S, 1]
+    dev = layer_cache["k"].device
     if S == 1:
-        idx = offsets.to(device=k.device, dtype=torch.long)
-        rows = torch.arange(B, device=k.device)
-        k[rows, :, idx] = kT[:, :, 0]
-        v[rows, :, idx] = vT[:, :, 0]
+        idx = offsets.to(device=dev, dtype=torch.long)
+        rows = torch.arange(B, device=dev)
+        for i, name in enumerate(names):
+            layer_cache[name][rows, :, idx] = vals[i][:, :, 0]
+            if scales is not None:
+                layer_cache[name + "_scale"][rows, :, 0, idx] = scales[i][:, :, 0, 0]
     else:
         for b, off in enumerate(offsets.tolist()):
-            k[b, :, off:off + S] = kT[b]
-            v[b, :, off:off + S] = vT[b]
+            for i, name in enumerate(names):
+                layer_cache[name][b, :, off:off + S] = vals[i][b]
+                if scales is not None:
+                    layer_cache[name + "_scale"][b, :, 0, off:off + S] = scales[i][b, :, :, 0]
     return layer_cache

@@ -540,3 +540,151 @@ def test_varlen_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         varlen.flash_attn_varlen_func(x, x, x, [0, 256], block_q=128, block_kv=128)
     with pytest.raises(NotImplementedError, match="dropout"):
         varlen.flash_attn_varlen_func(x, x, x, [0, 256], dropout_p=0.1)
+
+
+# ------------------------------------- quantized and paged decode (B5, B6) --
+
+DECODE_LENS = [1, 2, 63, 64, 65, 700, 1000]
+QDTYPE_IDS = {None: "none", torch.int8: "int8", torch.float8_e4m3fn: "fp8"}
+
+
+def _stored_caches(k32, v32, qdtype, dtype):
+    """The cache as the engine stores it: (k, v, k_scale, v_scale), scales
+    in the [B, Hkv, 1, S] layout, or None for a cache in `dtype`."""
+    if qdtype is None:
+        return k32.to(dtype), v32.to(dtype), None, None
+    from fa2_triton_tpu_torch.ops.quant import quantize_tensor
+
+    (kq, ks), (vq, vs) = (quantize_tensor(x, qdtype) for x in (k32, v32))
+    return kq, vq, ks.transpose(-1, -2).contiguous(), vs.transpose(-1, -2).contiguous()
+
+
+def _to_pool(caches, lens, page, seed, fill=float("nan")):
+    """Contiguous caches [B, Hkv, S, D] (+ scales [B, Hkv, 1, S]) -> a
+    shuffled page pool and its tables. Page 0 is reserved and filled with
+    `fill`; so are the rows past each slot's length, and table entries past
+    its last live page point at page 0."""
+    k, v, ks, vs = caches
+    B, Hkv, S, D = k.shape
+    M = S // page
+    perm = torch.randperm(B * M, generator=torch.Generator().manual_seed(seed)) + 1
+    tables = torch.zeros(B, M, dtype=torch.int32)
+    empty = lambda shape, dtype: torch.full(shape, fill, device=k.device).to(dtype)
+    pools = [empty((B * M + 1, Hkv, page, D), k.dtype), empty((B * M + 1, Hkv, page, D), v.dtype)]
+    pools += [None if s is None else empty((B * M + 1, Hkv, 1, page), s.dtype) for s in (ks, vs)]
+    for b, n in enumerate(lens):
+        for i in range(-(-n // page)):
+            p, r0, r1 = int(perm[b * M + i]), i * page, min((i + 1) * page, n)
+            tables[b, i] = p
+            for pool, x in zip(pools, caches):
+                if x is None:
+                    continue
+                if x.shape[2] == 1:      # scales [B, Hkv, 1, S]
+                    pool[p, :, :, :r1 - r0] = x[b, :, :, r0:r1]
+                else:
+                    pool[p, :, :r1 - r0] = x[b, :, r0:r1]
+    return pools, tables.to(k.device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("qdtype", list(QDTYPE_IDS), ids=list(QDTYPE_IDS.values()))
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("page", [128, 512])
+@pytest.mark.parametrize("kw", [dict(), dict(window_left=300, softcap=3.0)])
+def test_quant_and_paged_decode_kernels_match_plain(dev, dtype, qdtype, D, G, page, kw):
+    """B5 quant vs its plain twin at matched bit-width (the plain twin
+    dequantizes the same stored values: the bf16 rule), and B6 on a
+    shuffled, NaN-padded pool equal to B5 on the same rows bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(D + G + page)
+    B, Hkv, S_max = len(DECODE_LENS), 2, 1024
+    q32 = torch.randn(B, Hkv * G, D, generator=g, device=dev) * 0.5
+    k32 = torch.randn(B, Hkv, S_max, D, generator=g, device=dev) * 0.5
+    v32 = torch.randn(B, Hkv, S_max, D, generator=g, device=dev) * 0.5
+    kv_lens = torch.tensor(DECODE_LENS, dtype=torch.int32, device=dev)
+    caches = _stored_caches(k32, v32, qdtype, dtype)
+    ref = decode.decode_attention_plain(q32, *(k32, v32) if qdtype is None else caches[:2], kv_lens,
+                                        *caches[2:], **kw)
+    q = q32.to(dtype)
+    decode.reset_launches()
+    o = decode.decode_attention(q, caches[0], caches[1], kv_lens, *caches[2:], **kw)
+    torch.cuda.synchronize()
+    _check(o, ref, decode.decode_attention_plain(q, *caches[:2], kv_lens, *caches[2:], **kw), dtype)
+    pools, tables = _to_pool(caches, DECODE_LENS, page, seed=D + G)
+    o_paged = decode.paged_decode_attention(q, pools[0], pools[1], tables, kv_lens, *pools[2:], **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o_paged, o)
+    assert decode.LAUNCHES == 2
+    assert decode.VARIANT_LAUNCHES == {decode.variant(False, caches[0].dtype): 1,
+                                       decode.variant(True, caches[0].dtype): 1}
+
+
+@pytest.mark.parametrize("qdtype", list(QDTYPE_IDS), ids=list(QDTYPE_IDS.values()))
+def test_paged_decode_never_reads_dead_or_released_pages(dev, qdtype):
+    """NaN in page 0 (the target of released entries behind the window and
+    of entries past the last live page) and in rows past each length never
+    reaches the output: it equals a run on a zero-filled pool bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    B, Hkv, G, D, S_max, page = 3, 2, 4, 128, 1024, 128
+    lens = [1000, 300, 5]
+    q = torch.randn(B, Hkv * G, D, generator=g, device=dev, dtype=torch.bfloat16)
+    k32, v32 = (torch.randn(B, Hkv, S_max, D, generator=g, device=dev) for _ in range(2))
+    caches = _stored_caches(k32, v32, qdtype, torch.bfloat16)
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    outs = []
+    for fill in (0.0, float("nan")):
+        pools, tables = _to_pool(caches, lens, page, seed=3, fill=fill)
+        # Release the pages behind the window (window_left 200): the first
+        # read row of slot 0 is 799, so logical pages 0-5 point at page 0.
+        tables[0, :6] = 0
+        outs.append(decode.paged_decode_attention(q, pools[0], pools[1], tables, kv_lens, *pools[2:],
+                                                  window_left=200))
+    torch.cuda.synchronize()
+    assert torch.isfinite(outs[1]).all()
+    assert torch.equal(outs[1], outs[0])
+
+
+def test_decode_wrappers_raise_on_what_the_quant_and_paged_kernels_do_not_take(dev):
+    q = torch.zeros(2, 4, 128, device=dev, dtype=torch.bfloat16)
+    cache8 = torch.zeros(2, 2, 256, 128, device=dev).to(torch.float8_e4m3fn)
+    lens = torch.ones(2, dtype=torch.int32, device=dev)
+    scale = torch.ones(2, 2, 1, 256, device=dev)
+    with pytest.raises(ValueError, match="queue C"):
+        decode.decode_attention(q, cache8, cache8, lens)
+    with pytest.raises(ValueError, match="fp32"):
+        decode.decode_attention(q, cache8, cache8, lens, scale.half(), scale)
+    with pytest.raises(ValueError, match=r"\[2, 2, 1, 256\]"):
+        decode.decode_attention(q, cache8, cache8, lens, scale.transpose(-1, -2).contiguous(), scale)
+    pool = torch.zeros(5, 2, 128, 128, device=dev, dtype=torch.bfloat16)
+    tables = torch.zeros(2, 2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        decode.paged_decode_attention(q, pool, pool, tables.long(), lens)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        decode.paged_decode_attention(q, pool[:, :, :64].contiguous(), pool[:, :, :64].contiguous(),
+                                      tables, lens)
+    with pytest.raises(ValueError, match="is on"):
+        decode.paged_decode_attention(q, pool, pool, tables.cpu(), lens)
+
+
+def test_paged_engine_on_cuda_matches_engine_on_cpu(dev):
+    from fa2_triton_tpu_torch.models import LlamaConfig, init_params
+    from fa2_triton_tpu_torch.runtime import Engine
+
+    cfg = LlamaConfig(vocab_size=256, dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                      hidden_dim=512, dtype=torch.float32)
+    cpu = init_params(torch.Generator().manual_seed(0), cfg)
+    gpu = init_params(torch.Generator().manual_seed(0), cfg).to(dev)
+    prompts = [[(7 * i + 3 * j) % 256 for j in range(n)] for i, n in enumerate((5, 40, 130))]
+    outs = []
+    for model in (cpu, gpu):
+        decode.reset_launches()
+        eng = Engine(model, cfg, n_slots=2, max_seq=512, paged=True, page_size=128)
+        reqs = [eng.submit(p, 6) for p in prompts]
+        eng.run()
+        outs.append(reqs)
+        assert decode.VARIANT_LAUNCHES == ({} if model is cpu else
+                                           {"paged fp32": cfg.n_layers * eng.stats.decode_steps})
+    for a, b in zip(*outs):
+        assert a.out_tokens == b.out_tokens
+        torch.testing.assert_close(torch.tensor(b.out_logprobs), torch.tensor(a.out_logprobs),
+                                   rtol=0, atol=1e-3)

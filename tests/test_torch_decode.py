@@ -1,15 +1,21 @@
 """The port's `decode_attention` (plain path on the CPU) against the JAX
-`decode_attention` (Pallas `_decode_kernel_noquant` in interpret mode): one
-query token per slot over a contiguous cache with ragged lengths, including
-1. Max abs <= 1e-5: fp32 on both sides."""
+`decode_attention` (Pallas `_decode_kernel_noquant` / `_decode_kernel` in
+interpret mode): one query token per slot over a contiguous cache with
+ragged lengths, including 1, stored in fp32 or quantized (int8 / fp8 with
+the same stored values and scales on both sides). Max abs <= 1e-5: fp32 on
+both sides. `quantize_tensor` is bitwise equal to JAX's."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from fa2_triton_tpu.ops import decode as jdec
+from fa2_triton_tpu.ops import quant as jquant
 
 torch = pytest.importorskip("torch")
 from fa2_triton_tpu_torch.ops import decode as tdec  # noqa: E402
+from fa2_triton_tpu_torch.ops import quant as tquant  # noqa: E402
+
+QDTYPES = [(jnp.int8, torch.int8), (jnp.float8_e4m3fn, torch.float8_e4m3fn)]
 
 TOL = 1e-5
 KV_LENS = np.array([1, 5, 130, 256], np.int32)
@@ -60,9 +66,79 @@ def test_decode_ignores_garbage_past_kv_len():
     torch.testing.assert_close(out, base, rtol=0, atol=0)
 
 
-def test_quantized_cache_raises():
+def _bits(x) -> np.ndarray:
+    """A numpy or torch int8 / fp8 array as its int8 bit pattern."""
+    if isinstance(x, torch.Tensor):
+        return x.view(torch.int8).numpy()
+    return np.asarray(x).view(np.int8)
+
+
+@pytest.mark.parametrize("qd", QDTYPES, ids=["int8", "fp8"])
+@pytest.mark.parametrize("D", [32, 128])
+def test_quantize_tensor_matches_jax_bitwise(qd, D):
+    """Values (by bit pattern) and scales equal JAX's, an all-zero row and
+    rows of very different magnitude included."""
+    rng = np.random.RandomState(D)
+    x = (rng.normal(0, 1, (2, 3, 40, D)) * rng.uniform(1e-3, 1e3, (2, 3, 40, 1))).astype(np.float32)
+    x[1, 2, 5] = 0.0
+    jv, js = jquant.quantize_tensor(jnp.asarray(x), qd[0])
+    tv, ts = tquant.quantize_tensor(torch.from_numpy(x), qd[1])
+    assert tv.dtype == qd[1] and ts.dtype == torch.float32 and ts.shape == (2, 3, 40, 1)
+    np.testing.assert_array_equal(_bits(tv), _bits(jv))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(
+        tquant.dequantize_tensor(tv, ts).numpy(),
+        np.asarray(jquant.dequantize_tensor(jv, js)))
+
+
+def _quantized(k, v, qd):
+    """Quantize [B, Hkv, S, D] caches on the JAX side; the scales go to the
+    kernels' [B, Hkv, 1, S] layout. Returns the JAX and the torch operands."""
+    (kq, ks), (vq, vs) = jquant.quantize_kv(jnp.asarray(k), jnp.asarray(v), qd[0])
+    ks, vs = jnp.swapaxes(ks, 2, 3), jnp.swapaxes(vs, 2, 3)
+    as_torch = lambda a: torch.from_numpy(_bits(a).copy()).view(qd[1])
+    t = (as_torch(kq), as_torch(vq), torch.from_numpy(np.array(ks)), torch.from_numpy(np.array(vs)))
+    return (kq, vq, ks, vs), t
+
+
+@pytest.mark.parametrize("qd", QDTYPES, ids=["int8", "fp8"])
+@pytest.mark.parametrize("kw", [
+    dict(), dict(window_left=7), dict(softcap=3.0), dict(window_left=100, softcap=2.0),
+    dict(softmax_scale=0.05),
+])
+def test_quantized_decode_matches_jax(qd, kw):
+    q, k, v = _inputs(seed=20 + len(kw))
+    j_ops, t_ops = _quantized(k, v, qd)
+    kq, vq, ks, vs = j_ops
+    j = jdec.decode_attention(jnp.asarray(q), kq, vq, jnp.asarray(KV_LENS), ks, vs, **kw)
+    t = tdec.decode_attention(torch.from_numpy(q), t_ops[0], t_ops[1], torch.from_numpy(KV_LENS),
+                              t_ops[2], t_ops[3], **kw)
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=0, atol=TOL)
+
+
+def test_fp8_cache_without_scales_raises():
+    """The reference bitcasts an fp8 cache without scales to int8 and reads
+    garbage (ROADMAP queue C); the port refuses it. No JAX output is pinned."""
     q, k, v = _inputs(seed=13)
-    scale = torch.ones(len(KV_LENS), 2, 1, 256)
-    with pytest.raises(NotImplementedError, match="quantized"):
-        tdec.decode_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
-                              torch.from_numpy(KV_LENS), scale, scale)
+    k8, v8 = (torch.from_numpy(x).to(torch.float8_e4m3fn) for x in (k, v))
+    with pytest.raises(ValueError, match="queue C"):
+        tdec.decode_attention(torch.from_numpy(q), k8, v8, torch.from_numpy(KV_LENS))
+    with pytest.raises(ValueError, match="queue C"):
+        tdec.decode_attention(torch.from_numpy(q), k8, v8, torch.from_numpy(KV_LENS),
+                              torch.ones(len(KV_LENS), 2, 1, 256))
+
+
+def test_scale_layout_rules_raise():
+    q, k, v = _inputs(seed=14)
+    _, (kq, vq, ks, vs) = _quantized(k, v, QDTYPES[0])
+    qt, lens = torch.from_numpy(q), torch.from_numpy(KV_LENS)
+    bad = {
+        "fp32": (ks.double(), vs),
+        "contiguous": (torch.stack([ks, ks], -1)[..., 0], vs),
+        "\\[4, 2, 1, 256\\]": (ks.transpose(-1, -2).contiguous(), vs),   # [B, Hkv, S, 1]
+    }
+    for match, (a, b) in bad.items():
+        with pytest.raises(ValueError, match=match):
+            tdec.decode_attention(qt, kq, vq, lens, a, b)
+    with pytest.raises(ValueError, match="only int8"):
+        tdec.decode_attention(qt, torch.from_numpy(k), torch.from_numpy(v), lens, ks, vs)

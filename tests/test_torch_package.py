@@ -26,6 +26,8 @@ def test_port_never_imports_jax():
         "                  hidden_dim=64, dtype=__import__('torch').float32)\n"
         "m = init_params(__import__('torch').Generator().manual_seed(0), cfg)\n"
         "e = Engine(m, cfg, n_slots=1, max_seq=128); e.submit([1, 2, 3], 2); e.run()\n"
+        "e = Engine(m, cfg, n_slots=1, max_seq=256, paged=True, page_size=128,\n"
+        "           qdtype=__import__('torch').int8); e.submit([1, 2, 3], 2); e.run()\n"
         "import fa2_triton_tpu_torch.ops.varlen\n"
         "from fa2_triton_tpu_torch import flash_attn_blocksparse_func, flash_attn_varlen_func\n"
         "x = __import__('torch').ones(256, 2, 64, requires_grad=True)\n"
@@ -57,6 +59,6 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 def test_kernel_sources_are_hashed():
     names = {p.name for p in _build.sources()}
-    assert {"flash_fwd.cu", "flash_bwd.cu", "decode.cu", "varlen.cu", "common.cuh",
-            "attn_tiles.cuh"} <= names
+    assert {"flash_fwd.cu", "flash_bwd.cu", "decode.cu", "decode_int8.cu", "decode_fp8.cu",
+            "varlen.cu", "common.cuh", "attn_tiles.cuh", "decode.cuh"} <= names
     assert len(_build.source_hash()) == 16

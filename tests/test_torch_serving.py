@@ -108,8 +108,7 @@ def test_eos_and_stop_ids(setup):
     assert r_stop.out_tokens == out[:out.index(out[1]) + 1]
 
 
-@pytest.mark.parametrize("kw", [dict(paged=True), dict(prefill_chunk=128), dict(prefix_cache=True),
-                                dict(qdtype=torch.int8), dict(mesh=object())])
+@pytest.mark.parametrize("kw", [dict(prefill_chunk=128), dict(prefix_cache=True), dict(mesh=object())])
 def test_unported_engine_options_raise(setup, kw):
     _, tm, _ = setup
     with pytest.raises(NotImplementedError):
