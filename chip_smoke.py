@@ -47,14 +47,25 @@ the CUDA toolkit. Phases (any failure raises, and the script exits nonzero):
 9. Block-sparse at the same widths (B 2, S 4096, a local band plus an
    attention sink) through `flash_attn_blocksparse_func`, checked and timed
    the same way, with flex_attention as the library yardstick.
+10. Attention dropout (p 0.1, bf16, 32 / 8 heads, D 128): mask probes that
+   read every kernel's applied mask bit for bit (`utils/mask_probes.py`:
+   forward, dq, dk/dv, dbias, varlen forward / dq / dk/dv; D 64/128/256,
+   GQA 1 and 4, global offsets); `flash_attn_func` with dropout at B 2 x
+   S 2048 (launch counts reset just before) against the fp32 oracle fed the
+   same mask, the drop share over the whole mask grid, determinism in the
+   seed, the bias path with dropout, phase 8's packed batch with dropout,
+   and a full-width `FlashSelfAttention` trained for 3 AdamW steps (launch
+   counts reset just before; eval equal to `flash_attn_func` without
+   dropout; remat gradients equal bit for bit); times with and without
+   dropout.
 
 Every kernel is also timed against PyTorch's own call for the same function
 (`library_ms`, where one exists) and its bound on the H100 (`bound_ms`: the
 larger of its operations over the tensor-core peak of its inputs' type —
 bf16, or int8/fp8 for the quantized decode — and its bytes over the HBM
 rate). The last line of stdout is a JSON object {"ok": true, "device":
-{...}}; the line before it lists each kernel's (ten) launches, error, times
-and bound. Without a CUDA device, or without the package beside this
+{...}}; the line before it lists each kernel's (ten, and six dropout
+entries) launches, error, times and bound. Without a CUDA device, or without the package beside this
 script, it exits nonzero.
 """
 from __future__ import annotations
@@ -183,23 +194,24 @@ def tight(torch, x, lens):
     return torch.cat([x[b, :n] for b, n in enumerate(lens)]).contiguous()
 
 
-def library_attention(torch, q, k, v, lens_q, lens_k, causal, scale):
+def library_attention(torch, q, k, v, lens_q, lens_k, causal, scale, dropout_p=0.0):
     """PyTorch's own varlen FlashAttention-2 (`aten._flash_attention_forward`
     / `_backward`) on tight-packed bf16 rows: the `library_ms` yardstick of
     the attention kernels, timed beside them and called nowhere in the port.
+    With `dropout_p` it draws its own Philox mask (a timing yardstick only).
     Returns (forward call, its outputs, backward call given do)."""
     cu = lambda lens: torch.tensor(np.cumsum([0, *lens]), dtype=torch.int32, device=q.device)
     cq, ck, mq, mk = cu(lens_q), cu(lens_k), max(lens_q), max(lens_k)
 
     def fwd():
-        return torch.ops.aten._flash_attention_forward(q, k, v, cq, ck, mq, mk, 0.0, causal, False,
-                                                       scale=scale)
+        return torch.ops.aten._flash_attention_forward(q, k, v, cq, ck, mq, mk, dropout_p, causal,
+                                                       False, scale=scale)
     out = fwd()
 
     def bwd(do):
         o, lse, rng, unused, _ = out
         return lambda: torch.ops.aten._flash_attention_backward(
-            do, q, k, v, o, lse, cq, ck, mq, mk, 0.0, causal, rng, unused, scale=scale)
+            do, q, k, v, o, lse, cq, ck, mq, mk, dropout_p, causal, rng, unused, scale=scale)
     return fwd, out, bwd
 
 
@@ -927,18 +939,19 @@ def blocksparse_mask():
     return ((j >= i - BS_BAND) & (j <= i)) | (j == 0)
 
 
-def check_packed_path(torch, what, inputs, grads, out, lse, do32, packed32, seg, keep_block, live):
+def check_packed_path(torch, what, inputs, grads, out, lse, do32, packed32, seg, keep_block, live,
+                      **drop):
     """The kernels' output, lse and gradients of one packed run against the
     plain twins: the fp32 truth and the bf16 plain yardstick (FA rules),
     and exact zeros at the dead positions. The bf16 `inputs` (q, k, v),
     their `grads`, `out` and the fp32 `packed32` / `do32` are [1, T, H, D],
-    lse [1, Hq, T]; `seg` is (starts, lens). Returns the errors, the fp32
-    output and the fp32 gradients."""
+    lse [1, Hq, T]; `seg` is (starts, lens); `drop` the dropout arguments
+    of the run. Returns the errors, the fp32 output and the fp32 gradients."""
     from fa2_triton_tpu_torch.ops import varlen
 
     bhsd = lambda x: x.transpose(1, 2)
     pkw = dict(causal=True, softmax_scale=inputs[0].shape[-1] ** -0.5, block_q=VARLEN_BLOCK,
-               block_kv=VARLEN_BLOCK, keep_block=keep_block)
+               block_kv=VARLEN_BLOCK, keep_block=keep_block, **drop)
     args = (seg[0], seg[1], seg[1])
     with torch.no_grad():
         q32, k32, v32 = (bhsd(x) for x in packed32)
@@ -966,14 +979,14 @@ def check_packed_path(torch, what, inputs, grads, out, lse, do32, packed32, seg,
     return errs, o32, refs
 
 
-def time_packed_kernels(torch, inputs, do, seg, keep_block):
+def time_packed_kernels(torch, inputs, do, seg, keep_block, **drop):
     """Device time of each varlen kernel (profiler), the whole wrapper calls
     (CUDA events, host work lists included) and the plain twins, bf16."""
     from fa2_triton_tpu_torch.ops import varlen
 
     bhsd = lambda x: x.transpose(1, 2)
     pkw = dict(causal=True, softmax_scale=inputs[0].shape[-1] ** -0.5, block_q=VARLEN_BLOCK,
-               block_kv=VARLEN_BLOCK, keep_block=keep_block)
+               block_kv=VARLEN_BLOCK, keep_block=keep_block, **drop)
     args = (seg[0], seg[1], seg[1])
     q, k, v, do = (bhsd(x) for x in (*inputs, do))
     with torch.no_grad():
@@ -1172,7 +1185,352 @@ def phase_blocksparse(torch):
     return launches, entries
 
 
+# Phase 10: attention dropout at Mistral-7B-v0.3 attention widths (bf16).
+DROPOUT_P = 0.1
+DROPOUT_SEED = 1234567
+# The drop share over the 2 x 32 x 2048^2 mask grid: the binomial sigma is
+# sqrt(p (1 - p) / n) = 1.8e-5 at p = 0.1, so 1e-4 is ~5.5 sigma.
+DROP_SHARE_TOL = 1e-4
+# The dense probes sit at q_off 37 / kv_off 11 of sequences whose real
+# lengths (the dropout counter's) are 4096.
+PROBE_Q_OFF, PROBE_KV_OFF, PROBE_REAL = 37, 11, 4096
+LAYER_STEPS = 3
+
+
+def dropout_probes(torch, dev):
+    """Every kernel's applied mask read by `utils/mask_probes.py`, held to
+    the rng mask bit for bit, at D 64 / 128 / 256 and GQA groups 1 and 4."""
+    from fa2_triton_tpu_torch.utils import mask_probes
+
+    worst, bits = 0.0, 0
+    for D in (64, 128, 256):
+        for G in (1, 4):
+            got = mask_probes.dense_probes(
+                2, 8, 8 // G, D, DROPOUT_P, DROPOUT_SEED + D + G, device=dev, q_off=PROBE_Q_OFF,
+                kv_off=PROBE_KV_OFF, seqlen_q_real=PROBE_REAL, seqlen_k_real=PROBE_REAL)
+            got.update(mask_probes.packed_probes(8, 8 // G, D, DROPOUT_P, -DROPOUT_SEED - D - G,
+                                                 device=dev))
+            for name, (read, want, resid) in got.items():
+                if not torch.equal(read, want):
+                    raise AssertionError(f"dropout probe {name} D={D} G={G}: "
+                                         f"{int((read != want).sum())} bits differ from the rng mask")
+                if not resid <= mask_probes.RESIDUAL_TOL:
+                    raise AssertionError(f"dropout probe {name} D={D} G={G}: residual {resid:.3e} > "
+                                         f"{mask_probes.RESIDUAL_TOL} (the mask is right, its scale not)")
+                worst, bits = max(worst, resid), bits + read.numel()
+    print(f"[dropout] mask probes (fwd, dq, dk/dv, dbias at q_off {PROBE_Q_OFF} / kv_off "
+          f"{PROBE_KV_OFF} of real lengths {PROBE_REAL}; varlen fwd, dq, dk/dv on 3 documents at "
+          f"packed offsets; D 64/128/256 x GQA group 1/4; B 2, 8 q heads; bf16): {bits} bits equal "
+          f"to utils/rng.py's mask, largest residual {worst:.2e} (tol {mask_probes.RESIDUAL_TOL})")
+
+
+def dense_dropout(torch, card):
+    """flash_attn_func(causal, dropout) forward + backward at B 2 x S 2048,
+    32 / 8 heads, D 128, bf16: launches, errors against the fp32 oracle fed
+    the same mask (FA rules, the bf16 plain twin as yardstick), the drop
+    share, determinism in the seed, the bias path with dropout, and times
+    with and without dropout."""
+    from fa2_triton_tpu_torch.ops import flash_attn_func, flash_attn_reference, flash_bwd, flash_fwd
+    from fa2_triton_tpu_torch.utils import dropout_keep_mask_reference
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    S, D, Hq, Hkv, B = TRAIN_SEQ, 128, 32, 8, 2
+    scale = D ** -0.5
+    drop = dict(dropout_p=DROPOUT_P, dropout_seed=DROPOUT_SEED)
+    q32, k32, v32, do32, lens = attn_inputs(torch, gen, dev, S)
+    bf = lambda x: x.to(torch.bfloat16)
+    bhsd = lambda x: x.transpose(1, 2)
+    leaves = [bf(x).requires_grad_() for x in (q32, k32, v32)]
+    do = bf(do32)
+    flash_fwd.LAUNCHES = 0
+    flash_bwd.reset_launches()
+    out, lse = flash_attn_func(*leaves, causal=True, return_lse=True, **drop)
+    out.backward(do)
+    torch.cuda.synchronize()
+    launches = {"flash_fwd": flash_fwd.LAUNCHES, **flash_bwd.LAUNCHES}
+    print(f"[dropout] flash_attn_func(causal, dropout_p {DROPOUT_P}, seed {DROPOUT_SEED}) + backward, "
+          f"B {B} x S {S}, Hq {Hq}, Hkv {Hkv}, D {D}, bf16: launches {launches}")
+    if launches != {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkdv": 1, "flash_bwd_dbias": 0}:
+        raise AssertionError(f"the dropout path did not launch each kernel once: {launches}")
+
+    keep = dropout_keep_mask_reference(DROPOUT_SEED, DROPOUT_P, B, Hq, S, S, device=dev)
+    share = 1.0 - float(keep.float().mean())
+    print(f"[dropout] drop share over the {keep.numel()} elements of the mask grid: {share:.7f} "
+          f"(p {DROPOUT_P}, tol {DROP_SHARE_TOL})")
+    if not abs(share - DROPOUT_P) <= DROP_SHARE_TOL:
+        raise AssertionError(f"drop share {share} is not within {DROP_SHARE_TOL} of p")
+    ref_leaves = [x.clone().requires_grad_() for x in (q32, k32, v32)]
+    o_ref = flash_attn_reference(*ref_leaves, causal=True, dropout_p=DROPOUT_P, dropout_mask=keep)
+    o_ref.backward(do32)
+    refs = [x.grad for x in ref_leaves]
+    del keep, ref_leaves
+    kw = dict(causal=True, softmax_scale=scale, **drop)
+    q, k, v = (bhsd(x.detach()) for x in leaves)
+    with torch.no_grad():
+        o_pl, _ = flash_fwd.flash_attn_forward_plain(q, k, v, lens, **kw)
+        plains = flash_bwd.flash_attn_backward_plain(q, k, v, bhsd(do), bhsd(out.detach()),
+                                                     lse.detach(), lens, **kw)
+    out_err, pl_err = max_abs(torch, out, o_ref), max_abs(torch, bhsd(o_pl), o_ref)
+    if not out_err <= OUT_ERROR_MUL * pl_err + OUT_ERROR_BIAS:
+        raise AssertionError(f"dropout forward: err {out_err:.3e} > 2 x plain {pl_err:.3e} + 5e-5")
+    errs = {"o": out_err, "o plain": pl_err}
+    for n, x, r, pl in zip(("dq", "dk", "dv"), leaves, refs, plains):
+        errs[n], errs[n + " plain"] = check_grad(torch, n, x.grad, r, bhsd(pl), "dropout")
+    print("[dropout] errors vs the fp32 oracle (flash_attn_reference, dropout_mask = the rng mask): "
+          + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()) + " (FA rules)")
+    del o_ref, refs, plains, o_pl
+
+    def run(seed):
+        ls = [x.detach().requires_grad_() for x in leaves]
+        o = flash_attn_func(*ls, causal=True, dropout_p=DROPOUT_P, dropout_seed=seed)
+        o.backward(do)
+        return [o.detach()] + [x.grad for x in ls]
+
+    first = [out.detach()] + [x.grad for x in leaves]
+    again, other = run(DROPOUT_SEED), run(DROPOUT_SEED + 1)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise AssertionError("dropout: the same seed gave different o / dq / dk / dv")
+    if any(torch.equal(a, b) for a, b in zip(first, other)):
+        raise AssertionError("dropout: seed + 1 left o, dq, dk or dv unchanged")
+    print("[dropout] the same seed gives bitwise-equal o, dq, dk, dv; seed + 1 changes each")
+    del again, other
+
+    # Times: no dropout, dropout, dropout, no dropout, in turns.
+    with torch.no_grad():
+        o_nd, lse_nd = flash_fwd.flash_attn_forward(q, k, v, lens, causal=True, softmax_scale=scale)
+        o_d, lse_d = flash_fwd.flash_attn_forward(q, k, v, lens, **kw)
+        fwd = {False: lambda: flash_fwd.flash_attn_forward(q, k, v, lens, causal=True,
+                                                           softmax_scale=scale),
+               True: lambda: flash_fwd.flash_attn_forward(q, k, v, lens, **kw)}
+        bwd = {False: lambda: flash_bwd.flash_attn_backward(q, k, v, bhsd(do), o_nd, lse_nd, lens,
+                                                            causal=True, softmax_scale=scale),
+               True: lambda: flash_bwd.flash_attn_backward(q, k, v, bhsd(do), o_d, lse_d, lens, **kw)}
+        t = {False: [], True: []}
+        for d in (False, True, True, False):
+            t[d].append({"fwd": cuda_ms(torch, fwd[d]),
+                         **kernel_ms(torch, bwd[d], ("dq_kernel", "dkdv_kernel"))})
+        plain_fwd = cuda_ms(torch, lambda: flash_fwd.flash_attn_forward_plain(q, k, v, lens, **kw),
+                            iters=2, warmup=1)
+        plain_bwd = cuda_ms(torch, lambda: flash_bwd.flash_attn_backward_plain(
+            q, k, v, bhsd(do), o_d, lse_d, lens, **kw), iters=2, warmup=1)
+    seq = [S, S]
+    lib = {}
+    for name, dp in (("no dropout", 0.0), ("dropout", DROPOUT_P)):
+        lib_fwd, _, lib_bwd = library_attention(torch, *(tight(torch, bhsd(x), seq) for x in (q, k, v)),
+                                                seq, seq, True, scale, dropout_p=dp)
+        lib[name] = (cuda_ms(torch, lib_fwd), cuda_ms(torch, lib_bwd(tight(torch, do, seq)), iters=5))
+    pairs = causal_pairs(seq)
+    mean = lambda d, n: sum(x[n] for x in t[d]) / len(t[d])
+    for n, label in (("fwd", "forward"), ("dq_kernel", "dq"), ("dkdv_kernel", "dk/dv")):
+        print(f"[dropout] {label} kernel at S {S} [{card}]: no dropout "
+              f"{' / '.join(f'{x[n]:.3f}' for x in t[False])} ms, dropout "
+              f"{' / '.join(f'{x[n]:.3f}' for x in t[True])} ms "
+              f"({100 * (mean(True, n) / mean(False, n) - 1):+.1f} %)")
+    print(f"[dropout] plain twins with dropout: forward {plain_fwd:.3f} ms, backward {plain_bwd:.3f} ms; "
+          f"library (aten varlen flash, its own Philox mask): forward {lib['no dropout'][0]:.3f} ms "
+          f"-> {lib['dropout'][0]:.3f} ms with dropout, backward {lib['no dropout'][1]:.3f} -> "
+          f"{lib['dropout'][1]:.3f} ms")
+    entries = {}
+    for name, n, kernel, err in (("flash_fwd_dropout", "fwd", "fwd", errs["o"]),
+                                 ("flash_bwd_dropout_dq", "dq_kernel", "dq", errs["dq"]),
+                                 ("flash_bwd_dropout_dkdv", "dkdv_kernel", "dkdv",
+                                  max(errs["dk"], errs["dv"]))):
+        entries[name] = {
+            "max_abs_err": err, "ms": t[True][0][n], "ms_runs": [x[n] for x in t[True]],
+            "ms_without_dropout": [x[n] for x in t[False]],
+            "plain_ms": plain_fwd if n == "fwd" else plain_bwd,
+            "library_ms": lib["dropout"][0 if n == "fwd" else 1],
+            **attn_bound(kernel, pairs, 2 * S, Hq, Hkv, D, 2)}
+    del q, k, v, o_nd, o_d, lse_nd, lse_d, first, out, lse
+
+    # The bias path with dropout: the dbias kernel regenerates the mask.
+    b32 = torch.randn((1, Hq, S, S), generator=gen, device=dev)
+    leaves = [bf(x).requires_grad_() for x in (q32, k32, v32, b32)]
+    flash_fwd.LAUNCHES = 0
+    flash_bwd.reset_launches()
+    out, lse = flash_attn_func(*leaves[:3], attention_bias=leaves[3], causal=True, return_lse=True,
+                               **drop)
+    out.backward(do)
+    torch.cuda.synchronize()
+    bias_launches = {"flash_fwd": flash_fwd.LAUNCHES, **flash_bwd.LAUNCHES}
+    if any(n != 1 for n in bias_launches.values()):
+        raise AssertionError(f"the bias + dropout path did not launch every kernel once: {bias_launches}")
+    with torch.no_grad():
+        o32, lse32 = flash_fwd.flash_attn_forward_plain(bhsd(q32), bhsd(k32), bhsd(v32), lens, 0, 0,
+                                                        b32, **kw)
+        refs = flash_bwd.flash_attn_backward_plain(bhsd(q32), bhsd(k32), bhsd(v32), bhsd(do32), o32,
+                                                   lse32, lens, 0, 0, b32, compute_dbias=True, **kw)
+        del o32, lse32
+        qb, kb, vb, bb = (x.detach() for x in leaves)
+        args = (bhsd(qb), bhsd(kb), bhsd(vb), bhsd(do), bhsd(out.detach()), lse.detach(), lens, 0, 0, bb)
+        plains = flash_bwd.flash_attn_backward_plain(*args, compute_dbias=True, **kw)
+    grads = [bhsd(x.grad) for x in leaves[:3]] + [leaves[3].grad]
+    berrs = {n: check_grad(torch, n, g, r, pl, "bias + dropout")[0]
+             for n, g, r, pl in zip(("dq", "dk", "dv", "dbias"), grads, refs, plains)}
+    del refs, plains, grads
+    split = kernel_ms(torch, lambda: flash_bwd.flash_attn_backward(*args, compute_dbias=True, **kw),
+                      ("dbias_kernel",))
+    print(f"[dropout] bias path (a trainable [1, {Hq}, {S}, {S}] bias) with dropout: launches "
+          f"{bias_launches}; grad errs vs the fp32 plain twin " + ", ".join(
+              f"{n} {e:.3e}" for n, e in berrs.items()) + f" (FA gradient contract); dbias kernel "
+          f"{split['dbias_kernel']:.3f} ms (profiler)")
+    return {"flash_attn_func": launches, "bias path": bias_launches}, entries
+
+
+def packed_dropout(torch, card):
+    """Phase 8's packed batch through flash_attn_varlen_func with dropout:
+    launches, FA rules against the plain twins with the same seed, dead
+    positions exactly 0, times with and without dropout."""
+    from fa2_triton_tpu_torch.ops import varlen
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    lens = varlen_docs()
+    n, S_pad, Hq, Hkv, D, blk = len(lens), VARLEN_DOC_RANGE[1], 32, 8, 128, VARLEN_BLOCK
+    padded = [torch.randn((n, S_pad, h, D), generator=gen, device=dev) * sd
+              for h, sd in ((Hq, 0.5), (Hkv, 0.5), (Hkv, 0.5), (Hq, 1.0))]
+    packed32, starts, T = varlen.pack_padded_batch(padded, lens, align=blk)
+    starts = [int(s) for s in starts]
+    live = torch.zeros(T, dtype=torch.bool, device=dev)
+    for s0, l in zip(starts, lens):
+        live[s0:s0 + l] = True
+    bf = lambda x: x.to(torch.bfloat16)
+    leaves = [bf(x).requires_grad_() for x in packed32[:3]]
+    do = bf(packed32[3])
+    drop = dict(dropout_p=DROPOUT_P, dropout_seed=DROPOUT_SEED)
+    varlen.reset_launches()
+    out, lse = varlen.flash_attn_varlen_func(*leaves, starts + [T], seqlens=lens, causal=True,
+                                             block_q=blk, block_kv=blk, return_lse=True, **drop)
+    out.backward(do)
+    torch.cuda.synchronize()
+    launches = dict(varlen.LAUNCHES)
+    print(f"[dropout varlen] phase 8's {n} documents (T = {T}) through flash_attn_varlen_func with "
+          f"dropout: launches {launches}")
+    if launches != {"varlen_fwd": 1, "varlen_dq": 1, "varlen_dkdv": 1}:
+        raise AssertionError(f"the packed dropout path did not launch each kernel once: {launches}")
+    inputs = [x.detach() for x in leaves]
+    errs, _, _ = check_packed_path(torch, "dropout varlen", inputs, [x.grad for x in leaves], out,
+                                   lse, packed32[3], packed32[:3], (starts, lens), None, live, **drop)
+    del out, lse, packed32
+    t_nd = time_packed_kernels(torch, inputs, do, (starts, lens), None)
+    t_d = time_packed_kernels(torch, inputs, do, (starts, lens), None, **drop)
+    t_d2 = time_packed_kernels(torch, inputs, do, (starts, lens), None, **drop)
+    t_nd2 = time_packed_kernels(torch, inputs, do, (starts, lens), None)
+    tq, tk, tv, tdo = (tight(torch, bf(x), lens) for x in padded)
+    lib_fwd, _, lib_bwd = library_attention(torch, tq, tk, tv, lens, lens, True, D ** -0.5,
+                                            dropout_p=DROPOUT_P)
+    lib = {"name": "aten varlen flash attention with dropout (its own Philox mask)",
+           "fwd": cuda_ms(torch, lib_fwd), "bwd": cuda_ms(torch, lib_bwd(tdo), iters=5)}
+    del tq, tk, tv, tdo, padded
+    entries = varlen_entries(t_d, errs, lib, causal_pairs(lens), sum(lens))
+    for name, key in (("varlen_fwd", "varlen_fwd_kernel"), ("varlen_dq", "varlen_dq_kernel"),
+                      ("varlen_dkdv", "varlen_dkdv_kernel")):
+        entries[name]["ms_runs"] = [t_d[key], t_d2[key]]
+        entries[name]["ms_without_dropout"] = [t_nd[key], t_nd2[key]]
+        print(f"[dropout varlen] {name} [{card}]: no dropout {t_nd[key]:.3f} / {t_nd2[key]:.3f} ms, "
+              f"dropout {t_d[key]:.3f} / {t_d2[key]:.3f} ms "
+              f"({100 * ((t_d[key] + t_d2[key]) / (t_nd[key] + t_nd2[key]) - 1):+.1f} %)")
+    print_packed_times("dropout varlen", t_d, lib, entries)
+    return launches, {f"{k}_dropout": e for k, e in entries.items()}
+
+
+def layer_dropout(torch, card):
+    """`FlashSelfAttention` at Mistral-7B-v0.3 attention widths (4096 -> 32 /
+    8 heads, head_dim 128, RoPE theta 1e6, causal, dropout 0.1; bf16 compute,
+    fp32 params), B 2 x S 2048: LAYER_STEPS AdamW steps in training mode with
+    the launch counts reset just before; eval equal to flash_attn_func
+    without dropout bit for bit; one step's gradients equal under
+    torch.utils.checkpoint bit for bit."""
+    from torch.utils.checkpoint import checkpoint
+
+    from fa2_triton_tpu_torch import FlashSelfAttention
+    from fa2_triton_tpu_torch.models.llama import apply_rope, rope_cos_sin
+    from fa2_triton_tpu_torch.ops import flash_attn_func, flash_bwd, flash_fwd
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    B, S, F = 2, TRAIN_SEQ, 4096
+    torch.manual_seed(0)     # the layer's init and its per-call dropout seeds
+    layer = FlashSelfAttention(F, 32, num_kv_heads=8, head_dim=128, causal=True,
+                               dropout_p=DROPOUT_P, use_rope=True, rope_theta=1e6,
+                               dtype=torch.bfloat16, dropout_rng=torch.default_generator, device=dev)
+    opt = torch.optim.AdamW(layer.parameters(), lr=1e-4, weight_decay=0.01)
+    x = torch.randn((B, S, F), generator=gen, device=dev).to(torch.bfloat16)
+    target = torch.randn((B, S, F), generator=gen, device=dev)
+    loss_of = lambda out: (out.float() - target).square().mean()
+    layer.train()
+    flash_fwd.LAUNCHES = 0
+    flash_bwd.reset_launches()
+    losses, step_ms = [], []
+    for _ in range(LAYER_STEPS):
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = loss_of(layer(x))
+        loss.backward()
+        if not all(torch.isfinite(p.grad).all() for p in layer.parameters()):
+            raise AssertionError("layer: a non-finite gradient")
+        opt.step()
+        losses.append(loss.item())
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    launches = {"flash_fwd": flash_fwd.LAUNCHES, **flash_bwd.LAUNCHES}
+    n_params = sum(p.numel() for p in layer.parameters())
+    print(f"[dropout layer] FlashSelfAttention {F} -> 32 / 8 heads x 128, RoPE 1e6, causal, dropout "
+          f"{DROPOUT_P}, bf16 compute / fp32 params ({n_params / 1e6:.1f} M), B {B} x S {S}, "
+          f"{LAYER_STEPS} AdamW steps: losses {[round(v, 5) for v in losses]}, step ms "
+          f"{[round(v, 2) for v in step_ms]} [{card}]; launches {launches}")
+    want = {"flash_fwd": LAYER_STEPS, "flash_bwd_dq": LAYER_STEPS, "flash_bwd_dkdv": LAYER_STEPS,
+            "flash_bwd_dbias": 0}
+    if not np.isfinite(losses).all() or launches != want:
+        raise AssertionError(f"layer steps: losses {losses}, launches {launches} != {want}")
+
+    layer.eval()
+    with torch.no_grad():
+        got = layer(x)
+        q, k, v = layer.q_proj(x), layer.k_proj(x), layer.v_proj(x)
+        cos, sin = rope_cos_sin(torch.arange(S, device=dev), 128, 1e6)
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+        att = flash_attn_func(apply_rope(q, cos, sin), apply_rope(k, cos, sin), v, causal=True)
+        want_out = layer.o_proj(att.reshape(B, S, F))
+    if not torch.equal(got, want_out):
+        raise AssertionError("layer eval differs from flash_attn_func without dropout")
+    del got, want_out, q, k, v, att
+
+    layer.train()
+
+    def grads(remat):
+        layer.zero_grad(set_to_none=True)
+        torch.manual_seed(11)
+        out = checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
+        loss_of(out).backward()
+        return [p.grad.clone() for p in layer.parameters()]
+
+    plain, remat = grads(False), grads(True)
+    if not all(torch.equal(a, b) for a, b in zip(plain, remat)):
+        raise AssertionError("layer: gradients under checkpoint differ from those without it")
+    print("[dropout layer] eval output equal to flash_attn_func without dropout bit for bit; one "
+          "step's gradients under torch.utils.checkpoint equal to those without it bit for bit")
+    return launches
+
+
+def phase_dropout(torch, card):
+    """Phase 10: the mask probes, the dense and packed dropout paths and the
+    full-width FlashSelfAttention. Returns (launches by run, entries)."""
+    t0 = time.perf_counter()
+    dropout_probes(torch, torch.device("cuda"))
+    runs, entries = dense_dropout(torch, card)
+    torch.cuda.empty_cache()
+    runs["varlen"], packed = packed_dropout(torch, card)
+    entries.update(packed)
+    torch.cuda.empty_cache()
+    runs["layer"] = layer_dropout(torch, card)
+    print(f"[dropout] phase 10 took {time.perf_counter() - t0:.1f} s")
+    return runs, entries
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -1219,6 +1577,9 @@ def main() -> int:
     varlen_launches, varlen_kernels = phase_varlen(torch, card)
     torch.cuda.empty_cache()
     bs_launches, bs_kernels = phase_blocksparse(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dropout_runs, dropout_kernels = phase_dropout(torch, card)
 
     if any(name == "jax" or name.startswith(("jax.", "fa2_triton_tpu.")) for name in sys.modules):
         raise RuntimeError("the port imported jax or the JAX package")
@@ -1262,6 +1623,28 @@ def main() -> int:
             **varlen_kernels[name],
             "blocksparse": {k: bs_kernels[name][k] for k in
                             ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms")}})
+    layer, dense = dropout_runs["layer"], dropout_runs["flash_attn_func"]
+    for name, source, replaces, key in (
+            ("flash_fwd_dropout", "flash_fwd.cu", "flash_fwd.py:56", "flash_fwd"),
+            ("flash_bwd_dropout_dq", "flash_bwd.cu", "flash_bwd.py:159", "flash_bwd_dq"),
+            ("flash_bwd_dropout_dkdv", "flash_bwd.cu", "flash_bwd.py:263", "flash_bwd_dkdv")):
+        table["kernels"].append({
+            "name": name, "route": "cuda", "source": f"fa2_triton_tpu_torch/csrc/{source}",
+            "replaces": f"fa2_triton_tpu/ops/{replaces}",
+            "also_replaces": ("fa2_triton_tpu/ops/flash_fwd.py:454 (B9, dropout l.546-554)"
+                              if key == "flash_fwd" else
+                              "fa2_triton_tpu/ops/flash_bwd.py:45 (_recompute_p_and_ds, dropout "
+                              "l.133-156, in B2 / B3 / B12)"),
+            "launches": layer[key], "launches_flash_attn_func": dense[key],
+            "launches_bias_path": dropout_runs["bias path"][key], **dropout_kernels[name]})
+    for name, line in (("varlen_fwd", 233), ("varlen_dq", 385), ("varlen_dkdv", 454)):
+        table["kernels"].append({
+            "name": f"{name}_dropout", "route": "cuda",
+            "source": "fa2_triton_tpu_torch/csrc/varlen.cu",
+            "replaces": f"fa2_triton_tpu/ops/varlen.py:{line}",
+            "also_replaces": "fa2_triton_tpu/ops/varlen.py:214 (_packed_dropout_bits)",
+            "launches": dropout_runs["varlen"][name], **dropout_kernels[f"{name}_dropout"]})
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {

@@ -10,9 +10,11 @@ paged KV cache stored in the compute dtype, int8 or fp8, the LLaMA model
 and the continuous-batching `Engine` with its `paged` / `qdtype` modes and
 preemption), the training path (the backward kernels `ops/flash_bwd.py`
 behind `flash_attn_func`'s autograd, `loss_fn`, remat and
-`examples/train.py`), and packed varlen / block-sparse attention
-(`ops/varlen.py`, forward and backward kernels). This package never imports
-JAX.
+`examples/train.py`), packed varlen / block-sparse attention
+(`ops/varlen.py`, forward and backward kernels), and attention dropout in
+every attention kernel (the JAX package's counter-hash stream,
+`utils/rng.py`, bit for bit) with the `FlashSelfAttention` module
+(`layers.py`). This package never imports JAX.
 """
 
 from fa2_triton_tpu_torch.ops import (
@@ -23,8 +25,10 @@ from fa2_triton_tpu_torch.ops import (
     pack_padded_batch,
     unpack_padded_batch,
 )
+from fa2_triton_tpu_torch.layers import FlashSelfAttention
 
 __all__ = [
+    "FlashSelfAttention",
     "flash_attn_func",
     "flash_attn_reference",
     "flash_attn_varlen_func",

@@ -158,12 +158,16 @@ __device__ __forceinline__ void acc_tile2(const float* S, const float* B, const 
 
 // p and ds of one backward element without softcap or bias: s2 is the
 // score in log2 units, lse the row's base-2 lse. Masked elements, and rows
-// with lse = -inf (no valid column), get exactly 0.
+// with lse = -inf (no valid column), get exactly 0. `drop` is the element's
+// dropout factor (1 without dropout, 1 / (1 - p) kept, 0 dropped): dp and
+// the returned p (dv's operand) are scaled by it, and ds = p (dp - delta)
+// keeps the undropped p.
 __device__ __forceinline__ void grad_plain(float s2, float dp, float lse, float delta, bool keep,
-                                           float& pr, float& ds) {
+                                           float drop, float& pr, float& ds) {
   keep = keep && isfinite(lse);
-  pr = keep ? exp2f(s2 - lse) : 0.f;
-  ds = keep ? pr * (dp - delta) : 0.f;
+  const float pu = keep ? exp2f(s2 - lse) : 0.f;
+  ds = keep ? pu * (dp * drop - delta) : 0.f;
+  pr = pu * drop;
 }
 
 // ----------------------------------------------------------------------------
@@ -203,12 +207,14 @@ __device__ __forceinline__ FwdSmem fwd_smem(float* smem) {
 // (log2 units) of local row r, column c through score(r, c, x) (which
 // returns -inf to drop it), and fold the tile into (m_run, l_run, acc).
 // 4 neighbouring lanes own one softmax row, 8 columns each: m_run and
-// l_run are the running max and sum of row tid / 4.
-template <typename T, int D, typename ScoreFn>
+// l_run are the running max and sum of row tid / 4. Dropout: l sums the
+// undropped p, and only the P V product sees drop(r, c, p) (p, or 0 where
+// the element is dropped); fwd_store applies 1 / (1 - p_drop).
+template <typename T, int D, typename ScoreFn, typename DropFn>
 __device__ __forceinline__ void fwd_kv_step(const FwdSmem& s, const T* kp, long long k_ss,
                                             const T* vp, long long v_ss, int k0, int kv_valid,
-                                            ScoreFn score, float& m_run, float& l_run,
-                                            float (&acc)[4][D / 16]) {
+                                            ScoreFn score, DropFn drop, float& m_run,
+                                            float& l_run, float (&acc)[4][D / 16]) {
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   __syncthreads();  // q staged / previous tile fully consumed
   stage<T, D>(s.Ks, kp, k_ss, k0, TN, kv_valid, 1.f);
@@ -240,8 +246,8 @@ __device__ __forceinline__ void fwd_kv_step(const FwdSmem& s, const T* kp, long 
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
       const float pr = exp2f(row[c] - m_new);  // masked: exp2(-inf) = 0
-      row[c] = pr;
       sum += pr;
+      row[c] = drop(srow, scol + c, pr);
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
@@ -261,12 +267,12 @@ __device__ __forceinline__ void fwd_kv_step(const FwdSmem& s, const T* kp, long 
 }
 
 // Write the tile's base-2 lse (lse[r] for local rows r < rows) and
-// o = acc / l (row r at op + r * o_ss); rows that kept nothing get lse =
-// -inf and o = 0.
+// o = acc / l * out_scale (row r at op + r * o_ss; out_scale is dropout's
+// 1 / (1 - p), else 1); rows that kept nothing get lse = -inf and o = 0.
 template <typename T, int D>
 __device__ __forceinline__ void fwd_store(const FwdSmem& s, float m_run, float l_run,
                                           const float (&acc)[4][D / 16], float* lse, T* op,
-                                          long long o_ss, int rows) {
+                                          long long o_ss, int rows, float out_scale) {
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16, srow = tid / 4;
   if ((tid % 4) == 0) {
     s.l_s[srow] = l_run;
@@ -278,7 +284,7 @@ __device__ __forceinline__ void fwd_store(const FwdSmem& s, float m_run, float l
     const int r = ty + 16 * i;
     if (r >= rows) continue;
     const float l = s.l_s[r];
-    const float inv = l > 0.f ? 1.f / l : 0.f;
+    const float inv = l > 0.f ? 1.f / l * out_scale : 0.f;
 #pragma unroll
     for (int j = 0; j < D / 16; ++j) op[r * o_ss + tx + 16 * j] = from_f<T>(acc[i][j] * inv);
   }

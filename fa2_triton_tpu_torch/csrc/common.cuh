@@ -105,6 +105,51 @@ __device__ __forceinline__ bool keep_at(int r, int c, int Sq, int Sk, int q_off,
   return keep;
 }
 
+// Counter-hash dropout (utils/rng.py; JAX fa2_triton_tpu/utils/rng.py): a
+// lowbias32-style mixer of a uint32 counter and the seed, in native uint32
+// arithmetic (wrapping mod 2^32). Every kernel draws its bits through the
+// helpers below, and an element is kept iff its bits >= the threshold
+// min(p * 2^32, 2^32 - 1).
+__device__ __forceinline__ uint32_t counter_hash_u32(uint32_t seed, uint32_t counter) {
+  uint32_t x = counter * 0x9E3779B9u;
+  x += seed;
+  x ^= x >> 16;
+  x *= 0x21F0AAADu;
+  x ^= x >> 15;
+  x *= 0x735A2D97u;
+  x ^= x >> 15;
+  return x;
+}
+
+// Dense stream: counter ((b * Hq + h) * Sq_real + row_g) * Sk_real + col_g
+// mod 2^32, with h the q head and row_g / col_g global positions.
+__device__ __forceinline__ bool dropout_keep(uint32_t seed, uint32_t threshold, int b, int h,
+                                             int row_g, int col_g, int Hq, int Sq_real,
+                                             int Sk_real) {
+  const uint32_t flat =
+      (((uint32_t)b * (uint32_t)Hq + (uint32_t)h) * (uint32_t)Sq_real + (uint32_t)row_g) *
+          (uint32_t)Sk_real +
+      (uint32_t)col_g;
+  return counter_hash_u32(seed, flat) >= threshold;
+}
+
+// Packed stream (varlen / block-sparse): hash(hash(hash(seed, h), row), col)
+// over GLOBAL packed row and column; `seed_h` is hash(seed, h), hoisted
+// out of the tile loops by the caller.
+__device__ __forceinline__ bool packed_dropout_keep(uint32_t seed_h, uint32_t threshold, int row,
+                                                    int col) {
+  return counter_hash_u32(counter_hash_u32(seed_h, (uint32_t)row), (uint32_t)col) >= threshold;
+}
+
+// Dropout arguments shared by every attention kernel. `on` is 0 when
+// dropout_p == 0 (the bits are then never drawn), `scale` = 1 / (1 - p).
+struct Dropout {
+  int on;
+  uint32_t seed;
+  uint32_t threshold;
+  float scale;
+};
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);

@@ -20,6 +20,13 @@
 //   dq = scale * ds k;  dk = scale * ds^T q (summed over the GQA group);
 //   dv = p^T do (summed over the group);  dbias = ds_pre summed over the
 //   bias's broadcast batch / head dims.
+// With dropout (flash_bwd.py:_recompute_p_and_ds, l.133-156) every kernel
+// regenerates the forward's keep mask from the same counter (common.cuh:
+// dropout_keep, the q head h and global row / column): dp becomes
+// keep ? dp / (1 - p) : 0 in ds_pre, and dv's operand p becomes
+// keep ? p / (1 - p) : 0; p itself stays undropped. Each kernel is built
+// with and without dropout (the DROP template flag): without, the factor is
+// the constant 1 and no hash code is compiled in.
 // delta = rowsum(o * do) - dlse * log2e is computed by the wrapper. The
 // softmax scale is folded as in B2 (flash_bwd.py:1586-1595): scale * log2e
 // rides on q (dq, dbias kernels) or k (dk/dv kernel) for the recompute, and
@@ -79,13 +86,30 @@ struct BwdParams {
   float scale;       // softmax scale (natural)
   float scale_log2;  // scale * log2(e)
   float softcap;     // natural units; 0 = off
+  Dropout drop;
+  int Sq_real, Sk_real;  // the dropout counter's lengths
 };
 
-// p, ds and ds_pre of one score element (see the function above). s2 is the
-// raw product q.k * scale * log2e.
+// The dropout factor of element (local row r, local column c) of (b, h): 1
+// without dropout, 1 / (1 - p) where kept, 0 where dropped.
+template <bool DROP>
+__device__ __forceinline__ float drop_at(const BwdParams& p, int b, int h, int r, int c) {
+  if constexpr (DROP) {
+    return dropout_keep(p.drop.seed, p.drop.threshold, b, h, p.q_off + r, p.kv_off + c, p.Hq,
+                        p.Sq_real, p.Sk_real)
+               ? p.drop.scale
+               : 0.f;
+  } else {
+    return 1.f;
+  }
+}
+
+// p (times the dropout factor `drop`: dv's operand), ds and ds_pre of one
+// score element (see the function above). s2 is the raw product
+// q.k * scale * log2e.
 __device__ __forceinline__ void grad_elem(const BwdParams& p, float s2, float dp, float lse,
-                                          float delta, float bias, bool keep, float& pr,
-                                          float& ds, float& ds_pre) {
+                                          float delta, float bias, bool keep, float drop,
+                                          float& pr, float& ds, float& ds_pre) {
   float t = 0.f;
   if (p.softcap > 0.f || p.bias != nullptr) {
     float x = s2 * (1.f / LOG2E);
@@ -96,9 +120,10 @@ __device__ __forceinline__ void grad_elem(const BwdParams& p, float s2, float dp
     s2 = (x + bias) * LOG2E;
   }
   keep = keep && isfinite(lse);
-  pr = keep ? exp2f(s2 - lse) : 0.f;
-  ds_pre = keep ? pr * (dp - delta) : 0.f;
+  const float pu = keep ? exp2f(s2 - lse) : 0.f;
+  ds_pre = keep ? pu * (dp * drop - delta) : 0.f;
   ds = p.softcap > 0.f ? ds_pre * (1.f - t * t) : ds_pre;
+  pr = pu * drop;
 }
 
 __device__ __forceinline__ float bias_at(const BwdParams& p, int b, int h, int r, int c,
@@ -137,7 +162,7 @@ __device__ __forceinline__ void stage_q_side(const BwdParams& p, const DqSmem& s
 
 // dq: one block per (64-row q tile, q head, batch row); loops over the KV
 // tiles up to the causal / window / length edge.
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(THREADS) dq_kernel(const BwdParams p) {
   extern __shared__ float smem[];
   const DqSmem s = dq_smem<D>(smem);
@@ -161,7 +186,7 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(const BwdParams p) {
                                 p.causal, p.wl, p.wr);
       float pr, ds, ds_pre;
       grad_elem(p, s2, dp, s.lse_s[r], s.delta_s[r], bias_at(p, b, h, q0 + r, k0 + c, keep),
-                keep, pr, ds, ds_pre);
+                keep, drop_at<DROP>(p, b, h, q0 + r, k0 + c), pr, ds, ds_pre);
       return ds;
     };
     dq_kv_step<T, D>(s, kp, p.k_ss, vp, p.v_ss, k0, kv_valid, ds_of, acc);
@@ -172,7 +197,7 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(const BwdParams p) {
 
 // dk/dv: one block per (64-row KV tile, KV head, batch row); loops over the
 // group's q heads and, for each, the q tiles that can see this KV tile.
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(THREADS) dkdv_kernel(const BwdParams p) {
   extern __shared__ float smem[];
   const DkdvSmem s = dkdv_smem<D>(smem);
@@ -213,8 +238,10 @@ __global__ void __launch_bounds__(THREADS) dkdv_kernel(const BwdParams p) {
         const bool keep = keep_at(r0 + qr, k0 + kr, p.Sq, p.Sk, p.q_off, p.kv_off, q_len,
                                   kv_len, p.causal, p.wl, p.wr);
         float ds_pre;
+        // h is the q head of this group member, r0 + qr the q row: the
+        // forward's counter, not the kv head's or the kv tile's.
         grad_elem(p, s2, dp, s.lse_s[qr], s.delta_s[qr], bias_at(p, b, h, r0 + qr, k0 + kr, keep),
-                  keep, pr, ds, ds_pre);
+                  keep, drop_at<DROP>(p, b, h, r0 + qr, k0 + kr), pr, ds, ds_pre);
       };
       dkdv_q_step<T, D>(s, qp, p.q_ss, dop, p.do_ss, p.lse + row0, p.delta + row0, r0, q_valid,
                         pds_of, dk_acc, dv_acc);
@@ -232,7 +259,7 @@ __global__ void __launch_bounds__(THREADS) dkdv_kernel(const BwdParams p) {
 // over the batch rows and q heads that the bias broadcasts to (all of them
 // on a broadcast dim, its own index otherwise) and sums ds_pre in registers.
 // Shared memory is the dq kernel's layout (its ds tile unused).
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(THREADS) dbias_kernel(const BwdParams p) {
   extern __shared__ float smem[];
   const DqSmem s = dq_smem<D>(smem);
@@ -271,7 +298,8 @@ __global__ void __launch_bounds__(THREADS) dbias_kernel(const BwdParams p) {
                                     kv_len, p.causal, p.wl, p.wr);
           float pr, ds, ds_pre;
           grad_elem(p, sc[i][j], dp[i][j], s.lse_s[r], s.delta_s[r],
-                    bias_at(p, b, h, q0 + r, k0 + c, keep), keep, pr, ds, ds_pre);
+                    bias_at(p, b, h, q0 + r, k0 + c, keep), keep,
+                    drop_at<DROP>(p, b, h, q0 + r, k0 + c), pr, ds, ds_pre);
           acc[i][j] += ds_pre;
         }
       }
@@ -294,39 +322,46 @@ __global__ void __launch_bounds__(THREADS) dbias_kernel(const BwdParams p) {
 
 enum Kernel : int { kDq = 0, kDkDv = 1, kDbias = 2 };
 
-template <typename T, int D>
-cudaError_t launch(const BwdParams& p, int which, cudaStream_t stream) {
+template <typename T, int D, bool DROP>
+cudaError_t launch_kernel(const BwdParams& p, int which, cudaStream_t stream) {
   cudaError_t e;
   int smem;
   dim3 grid;
   switch (which) {
     case kDq:
       smem = dq_smem_floats<D>() * (int)sizeof(float);
-      e = cudaFuncSetAttribute(dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      e = cudaFuncSetAttribute(dq_kernel<T, D, DROP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (e != cudaSuccess) return e;
       grid = dim3((p.Sq + TM - 1) / TM, p.Hq, p.B);
-      dq_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
+      dq_kernel<T, D, DROP><<<grid, THREADS, smem, stream>>>(p);
       break;
     case kDkDv:
       smem = dkdv_smem_floats<D>() * (int)sizeof(float);
-      e = cudaFuncSetAttribute(dkdv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
+      e = cudaFuncSetAttribute(dkdv_kernel<T, D, DROP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (e != cudaSuccess) return e;
       grid = dim3((p.Sk + TM - 1) / TM, p.Hkv, p.B);
-      dkdv_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
+      dkdv_kernel<T, D, DROP><<<grid, THREADS, smem, stream>>>(p);
       break;
     case kDbias:
       smem = dq_smem_floats<D>() * (int)sizeof(float);
-      e = cudaFuncSetAttribute(dbias_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
+      e = cudaFuncSetAttribute(dbias_kernel<T, D, DROP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (e != cudaSuccess) return e;
       grid = dim3((p.Sq + TM - 1) / TM, (p.Sk + TN - 1) / TN, p.Bb * p.Hb);
-      dbias_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
+      dbias_kernel<T, D, DROP><<<grid, THREADS, smem, stream>>>(p);
       break;
     default:
       return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch(const BwdParams& p, int which, cudaStream_t stream) {
+  return p.drop.on ? launch_kernel<T, D, true>(p, which, stream)
+                   : launch_kernel<T, D, false>(p, which, stream);
 }
 
 template <typename T>
@@ -354,7 +389,9 @@ extern "C" int fa2_flash_bwd(
     void* dq, void* dk, void* dv, void* dbias,
     const int* lens, const long long* strides,
     int q_off, int kv_off, int causal, int wl, int wr,
-    float softmax_scale, float softcap, void* stream) {
+    float softmax_scale, float softcap,
+    int dropout, unsigned int drop_seed, unsigned int drop_threshold, float drop_scale,
+    int Sq_real, int Sk_real, void* stream) {
   fa2::BwdParams p;
   p.q = q; p.k = k; p.v = v; p.dout = dout; p.lse = lse; p.delta = delta;
   p.bias = bias; p.bias_dtype = bias_dtype;
@@ -374,6 +411,9 @@ extern "C" int fa2_flash_bwd(
   p.scale = softmax_scale;
   p.scale_log2 = softmax_scale * fa2::LOG2E;
   p.softcap = softcap;
+  p.drop.on = dropout; p.drop.seed = drop_seed; p.drop.threshold = drop_threshold;
+  p.drop.scale = drop_scale;
+  p.Sq_real = Sq_real; p.Sk_real = Sk_real;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case fa2::kF32: return (int)fa2::launch_d<float>(p, which, D, st);

@@ -8,9 +8,15 @@
 // per-grid-step cost of a sequential grid; on the GPU one kernel serves both.
 //
 // Function: o = softmax(q k^T * scale [softcapped, + bias, masked]) v with a base-2
-// online softmax and fp32 accumulators. Per batch row b, lens[b] = (q_len,
-// kv_len) are GLOBAL actual lengths; q_off / kv_off place this call's rows
-// and columns in that global frame. Causal and window masks are
+// online softmax and fp32 accumulators, and the dropout branch of both TPU
+// kernels (flash_fwd.py:320-348, 546-554): with dropout_p > 0 an element is
+// kept iff counter_hash(seed, ((b * Hq + h) * Sq_real + row) * Sk_real +
+// col) >= threshold (common.cuh), l sums the undropped p, only the P V
+// product sees the mask, and o = acc / l / (1 - p); lse does not change.
+// The kernel is built with and without dropout (the DROP template flag), so
+// the dropout-free instantiation carries none of the hash code.
+// Per batch row b, lens[b] = (q_len, kv_len) are GLOBAL actual lengths;
+// q_off / kv_off place this call's rows and columns in that global frame. Causal and window masks are
 // bottom-right aligned on (q_len, kv_len): keep iff
 //   row + shift - left <= col <= row + shift + right,  shift = kv_len - q_len.
 // Rows that see no valid column (beyond q_len, or masked out entirely) get
@@ -54,11 +60,13 @@ struct FwdParams {
   int q_off, kv_off, causal, wl, wr;
   float scale_log2;  // softmax_scale * log2(e)
   float softcap;     // natural units; 0 = off
+  Dropout drop;
+  int Sq_real, Sk_real;  // the dropout counter's lengths
 };
 
 // One block per (64-row q tile, q head, batch row); the tile math is
 // attn_tiles.cuh's forward.
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FwdParams p) {
   extern __shared__ float smem[];
   const FwdSmem s = fwd_smem<D>(smem);
@@ -106,24 +114,40 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FwdParams p) {
       }
       return keep ? x : neg_inf();
     };
+    auto drop = [&](int r, int c, float pr) {
+      if constexpr (DROP) {
+        return dropout_keep(p.drop.seed, p.drop.threshold, b, h, p.q_off + q0 + r,
+                            p.kv_off + k0 + c, p.Hq, p.Sq_real, p.Sk_real)
+                   ? pr
+                   : 0.f;
+      } else {
+        return pr;
+      }
+    };
     // Rows past the real keys stay zero: cache rows beyond kv_len may hold
     // anything, and 0 * NaN would poison the P V product.
-    fwd_kv_step<T, D>(s, kp, p.k_ss, vp, p.v_ss, k0, kv_valid, score, m_run, l_run, acc);
+    fwd_kv_step<T, D>(s, kp, p.k_ss, vp, p.v_ss, k0, kv_valid, score, drop, m_run, l_run, acc);
   }
   fwd_store<T, D>(s, m_run, l_run, acc, p.lse + ((long long)b * p.Hq + h) * p.Sq + q0,
                   static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh + q0 * p.o_ss, p.o_ss,
-                  min(TM, p.Sq - q0));
+                  min(TM, p.Sq - q0), DROP ? p.drop.scale : 1.f);
+}
+
+template <typename T, int D, bool DROP>
+cudaError_t launch_kernel(const FwdParams& p, int B, cudaStream_t stream) {
+  const int smem = fwd_smem_floats<D>() * (int)sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<T, D, DROP>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((p.Sq + TM - 1) / TM, p.Hq, B);
+  flash_fwd_kernel<T, D, DROP><<<grid, THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch(const FwdParams& p, int B, cudaStream_t stream) {
-  const int smem = fwd_smem_floats<D>() * (int)sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((p.Sq + TM - 1) / TM, p.Hq, B);
-  flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
-  return cudaGetLastError();
+  return p.drop.on ? launch_kernel<T, D, true>(p, B, stream)
+                   : launch_kernel<T, D, false>(p, B, stream);
 }
 
 template <typename T>
@@ -149,7 +173,9 @@ extern "C" int fa2_flash_fwd(
     const void* bias, int bias_dtype,
     long long bias_sb, long long bias_sh, long long bias_sq, long long bias_sk,
     int q_off, int kv_off, int causal, int wl, int wr,
-    float softmax_scale, float softcap, void* stream) {
+    float softmax_scale, float softcap,
+    int dropout, unsigned int drop_seed, unsigned int drop_threshold, float drop_scale,
+    int Sq_real, int Sk_real, void* stream) {
   fa2::FwdParams p;
   p.q = q; p.k = k; p.v = v; p.o = o; p.lse = lse; p.lens = lens;
   p.q_sb = q_sb; p.q_sh = q_sh; p.q_ss = q_ss;
@@ -162,6 +188,9 @@ extern "C" int fa2_flash_fwd(
   p.q_off = q_off; p.kv_off = kv_off; p.causal = causal; p.wl = wl; p.wr = wr;
   p.scale_log2 = softmax_scale * fa2::LOG2E;
   p.softcap = softcap;
+  p.drop.on = dropout; p.drop.seed = drop_seed; p.drop.threshold = drop_threshold;
+  p.drop.scale = drop_scale;
+  p.Sq_real = Sq_real; p.Sk_real = Sk_real;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case fa2::kF32: return (int)fa2::launch_d<float>(p, B, D, s);

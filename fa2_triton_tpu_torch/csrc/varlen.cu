@@ -39,6 +39,14 @@
 // there). Rows past q_len and columns past kv_len are zero-filled when
 // loaded: the gaps of the packed stream may hold NaN.
 //
+// Dropout (varlen.py:_packed_dropout_bits, l.214-230): an element of q head
+// h at GLOBAL packed row / column is kept iff hash(hash(hash(seed, h), row),
+// col) >= threshold (common.cuh:packed_dropout_keep); the forward drops p
+// from P V only (l sums the undropped p) and scales o by 1 / (1 - p), and
+// dq / dk/dv regenerate the mask as the dense backward does (grad_plain's
+// dropout factor). Each kernel is built with and without dropout (the DROP
+// template flag), so the dropout-free instantiations carry no hash code.
+//
 // Bound on the H100: at document lengths of hundreds to thousands of
 // tokens, compute (4 D flops per kept (row, column) pair and head forward,
 // 6 D for dq, 8 D for dk/dv, against 2-4 bytes per element moved), so the
@@ -70,7 +78,21 @@ struct VarlenParams {
   int Hq, Hkv, T, block_q, block_kv, causal;
   float scale;       // softmax scale (natural)
   float scale_log2;  // scale * log2(e)
+  Dropout drop;
 };
+
+// The dropout factor of the element of q head stream `seed_h` (= hash(seed,
+// h)) at packed row / column: 1 without dropout, 1 / (1 - p) where kept, 0
+// where dropped.
+template <bool DROP>
+__device__ __forceinline__ float packed_drop_at(const VarlenParams& p, uint32_t seed_h, int row,
+                                                int col) {
+  if constexpr (DROP) {
+    return packed_dropout_keep(seed_h, p.drop.threshold, row, col) ? p.drop.scale : 0.f;
+  } else {
+    return 1.f;
+  }
+}
 
 // The segment a 64-row output tile at packed row t0 belongs to, from the
 // first entry of its user block (every entry of a block shares it): the
@@ -94,13 +116,14 @@ __device__ __forceinline__ TileSeg tile_seg(const VarlenParams& p, int t0, int b
   return t;
 }
 
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(THREADS) varlen_fwd_kernel(const VarlenParams p) {
   extern __shared__ float smem[];
   const FwdSmem s = fwd_smem<D>(smem);
   const int q0 = blockIdx.x * TM, h = blockIdx.y, hk = h / (p.Hq / p.Hkv);
   const TileSeg t = tile_seg(p, q0, p.block_q, 2, 4);
   const int qlen = t.len;
+  const uint32_t seed_h = counter_hash_u32(p.drop.seed, (uint32_t)h);
 
   stage<T, D>(s.Qs, static_cast<const T*>(p.q) + h * p.q_sh, p.q_ss, q0, TM, q0 + t.live,
               p.scale_log2);
@@ -122,14 +145,18 @@ __global__ void __launch_bounds__(THREADS) varlen_fwd_kernel(const VarlenParams 
         const bool keep = r < t.live && col < kvlen && (!p.causal || col <= row + shift);
         return keep ? x : neg_inf();
       };
-      fwd_kv_step<T, D>(s, kp, p.k_ss, vp, p.v_ss, k0, kv_valid, score, m_run, l_run, acc);
+      auto drop = [&](int r, int c, float pr) {
+        return packed_drop_at<DROP>(p, seed_h, q0 + r, (int)kb0 + k0 + c) != 0.f ? pr : 0.f;
+      };
+      fwd_kv_step<T, D>(s, kp, p.k_ss, vp, p.v_ss, k0, kv_valid, score, drop, m_run, l_run, acc);
     }
   }
   fwd_store<T, D>(s, m_run, l_run, acc, p.lse + (long long)h * p.T + q0,
-                  static_cast<T*>(p.o) + h * p.o_sh + q0 * p.o_ss, p.o_ss, TM);
+                  static_cast<T*>(p.o) + h * p.o_sh + q0 * p.o_ss, p.o_ss, TM,
+                  DROP ? p.drop.scale : 1.f);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(THREADS) varlen_dq_kernel(const VarlenParams p) {
   extern __shared__ float smem[];
   const DqSmem s = dq_smem<D>(smem);
@@ -137,6 +164,7 @@ __global__ void __launch_bounds__(THREADS) varlen_dq_kernel(const VarlenParams p
   const TileSeg t = tile_seg(p, q0, p.block_q, 2, 4);
   const int qlen = t.len;
   const long long row0 = (long long)h * p.T;
+  const uint32_t seed_h = counter_hash_u32(p.drop.seed, (uint32_t)h);
 
   dq_stage_q<T, D>(s, static_cast<const T*>(p.q) + h * p.q_sh, p.q_ss,
                    static_cast<const T*>(p.dout) + h * p.do_sh, p.do_ss, p.lse + row0,
@@ -157,7 +185,8 @@ __global__ void __launch_bounds__(THREADS) varlen_dq_kernel(const VarlenParams p
         const int row = t.first + r, col = kv_lo + k0 + c;
         const bool keep = r < t.live && col < kvlen && (!p.causal || col <= row + shift);
         float pr, ds;
-        grad_plain(s2, dp, s.lse_s[r], s.delta_s[r], keep, pr, ds);
+        grad_plain(s2, dp, s.lse_s[r], s.delta_s[r], keep,
+                   packed_drop_at<DROP>(p, seed_h, q0 + r, (int)kb0 + k0 + c), pr, ds);
         return ds;
       };
       dq_kv_step<T, D>(s, kp, p.k_ss, vp, p.v_ss, k0, kv_valid, ds_of, acc);
@@ -167,7 +196,7 @@ __global__ void __launch_bounds__(THREADS) varlen_dq_kernel(const VarlenParams p
                    p.scale);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(THREADS) varlen_dkdv_kernel(const VarlenParams p) {
   extern __shared__ float smem[];
   const DkdvSmem s = dkdv_smem<D>(smem);
@@ -184,7 +213,8 @@ __global__ void __launch_bounds__(THREADS) varlen_dkdv_kernel(const VarlenParams
   for (int e = t.live > 0 ? t.e_lo : t.e_hi; e < t.e_hi; ++e) {
     const int* w = p.work + 8 * e;
     const int q_lo = w[2], qlen = w[4], shift = kvlen - qlen;
-    const int h = hk * group + w[7];
+    const int h = hk * group + w[7];  // the q head: the forward's stream
+    const uint32_t seed_h = counter_hash_u32(p.drop.seed, (uint32_t)h);
     const long long qb0 = (long long)w[0] * p.block_q;  // packed row of the block's first query
     // Rows [r_lo, r_hi) of the q block that can see a live column of this tile.
     const int r_hi = min(p.block_q, qlen - q_lo);
@@ -197,7 +227,8 @@ __global__ void __launch_bounds__(THREADS) varlen_dkdv_kernel(const VarlenParams
       auto pds_of = [&](int kr, int qr, float s2, float dp, float& pr, float& ds) {
         const int row = q_lo + r0 + qr, col = t.first + kr;
         const bool keep = kr < t.live && row < qlen && (!p.causal || col <= row + shift);
-        grad_plain(s2, dp, s.lse_s[qr], s.delta_s[qr], keep, pr, ds);
+        grad_plain(s2, dp, s.lse_s[qr], s.delta_s[qr], keep,
+                   packed_drop_at<DROP>(p, seed_h, (int)qb0 + r0 + qr, k0 + kr), pr, ds);
       };
       dkdv_q_step<T, D>(s, qp, p.q_ss, dop, p.do_ss, lse, delta, r0, r_hi, pds_of, dk_acc,
                         dv_acc);
@@ -220,22 +251,28 @@ cudaError_t launch_kernel(K kernel, int smem_floats, dim3 grid, const VarlenPara
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch(const VarlenParams& p, int which, cudaStream_t stream) {
+template <typename T, int D, bool DROP>
+cudaError_t launch_kernels(const VarlenParams& p, int which, cudaStream_t stream) {
   const int tiles = p.T / TM;
   switch (which) {
     case kFwd:
-      return launch_kernel(varlen_fwd_kernel<T, D>, fwd_smem_floats<D>(), dim3(tiles, p.Hq), p,
-                           stream);
+      return launch_kernel(varlen_fwd_kernel<T, D, DROP>, fwd_smem_floats<D>(),
+                           dim3(tiles, p.Hq), p, stream);
     case kDq:
-      return launch_kernel(varlen_dq_kernel<T, D>, dq_smem_floats<D>(), dim3(tiles, p.Hq), p,
-                           stream);
+      return launch_kernel(varlen_dq_kernel<T, D, DROP>, dq_smem_floats<D>(),
+                           dim3(tiles, p.Hq), p, stream);
     case kDkDv:
-      return launch_kernel(varlen_dkdv_kernel<T, D>, dkdv_smem_floats<D>(), dim3(tiles, p.Hkv),
-                           p, stream);
+      return launch_kernel(varlen_dkdv_kernel<T, D, DROP>, dkdv_smem_floats<D>(),
+                           dim3(tiles, p.Hkv), p, stream);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+template <typename T, int D>
+cudaError_t launch(const VarlenParams& p, int which, cudaStream_t stream) {
+  return p.drop.on ? launch_kernels<T, D, true>(p, which, stream)
+                   : launch_kernels<T, D, false>(p, which, stream);
 }
 
 template <typename T>
@@ -263,7 +300,9 @@ extern "C" int fa2_varlen(
     const void* q, const void* k, const void* v, const void* dout, void* o, float* lse,
     const float* delta, void* dq, void* dk, void* dv,
     const int* work, const int* rowptr, const long long* strides,
-    int block_q, int block_kv, int causal, float softmax_scale, void* stream) {
+    int block_q, int block_kv, int causal, float softmax_scale,
+    int dropout, unsigned int drop_seed, unsigned int drop_threshold, float drop_scale,
+    void* stream) {
   fa2::VarlenParams p;
   p.q = q; p.k = k; p.v = v; p.dout = dout; p.o = o; p.lse = lse; p.delta = delta;
   p.dq = dq; p.dk = dk; p.dv = dv; p.work = work; p.rowptr = rowptr;
@@ -276,6 +315,8 @@ extern "C" int fa2_varlen(
   p.causal = causal;
   p.scale = softmax_scale;
   p.scale_log2 = softmax_scale * fa2::LOG2E;
+  p.drop.on = dropout; p.drop.seed = drop_seed; p.drop.threshold = drop_threshold;
+  p.drop.scale = drop_scale;
   if (T % fa2::TM || block_q % fa2::TM || block_kv % fa2::TM || T % block_q || T % block_kv) {
     return (int)cudaErrorInvalidValue;
   }

@@ -5,6 +5,10 @@ The TPU layout rules of the JAX version (the 128-lane head-dim pad, padding
 sequences to tuned blocks, the fp16 -> fp32 upcast because Mosaic has no
 fp16) do not carry over: the CUDA kernels mask their own ragged edges and
 compute fp16/bf16 natively, so q/k/v reach them as transposed views, uncopied.
+A head dim the kernels are not built for (any D <= 256 but 64, 128, 256) is
+zero-padded to the next one they are, which is exact: the scale comes from
+the true D, zero columns add nothing to q.k, and the padded output columns
+are sliced off (their gradients with them).
 
 `_AttnCore` is the counterpart of the JAX `jax.custom_vjp` core
 (`fa2_triton_tpu/ops/attention.py:57-116`): the forward saves
@@ -13,18 +17,71 @@ base-2 LSE through `ops/flash_bwd.py`, taking both cotangents (do, dlse) and
 returning a real dbias when the bias requires grad. CPU tensors run the
 plain twins of the kernels on both passes; CUDA tensors run the kernels.
 
-Not ported yet: dropout (counter-hash dropout, `utils/rng.py`; ROADMAP.md
-queue A.6); `dropout_p > 0` raises NotImplementedError.
+Dropout is the JAX package's counter-hash stream (`utils/rng.py`), seeded
+by the seed contract of JAX `attention.py:240-256`: with `dropout_p > 0`,
+exactly one of `dropout_seed` (an int32) or `dropout_rng` (a CPU
+`torch.Generator`, from which one seed is drawn without touching the
+device) must be given. `_AttnCore` keeps the seed as a host int in `ctx`:
+the backward regenerates the forward's mask and never draws again.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from fa2_triton_tpu_torch.ops.flash_bwd import flash_attn_backward
-from fa2_triton_tpu_torch.ops.flash_fwd import flash_attn_forward
+from fa2_triton_tpu_torch.ops.flash_fwd import HEAD_DIMS, MAX_HEAD_DIM, flash_attn_forward
 from fa2_triton_tpu_torch.utils import default_softmax_scale
+
+_INT32_MAX = 2**31 - 1
+
+
+def resolve_dropout_seed(dropout_p: float, dropout_seed: Optional[int],
+                         dropout_rng: Optional[torch.Generator]) -> int:
+    """The seed contract of the dropout entry points: `dropout_p` in [0, 1);
+    with `dropout_p > 0` exactly one of `dropout_seed` (an int32; negative
+    seeds are legal) or `dropout_rng` (a CPU torch.Generator, from which a
+    seed in [0, 2**31 - 1) is drawn, as JAX draws one from its key). Returns
+    the seed (0 without dropout)."""
+    if not 0.0 <= dropout_p < 1.0:
+        # JAX divides by 1 - p and returns inf / NaN at p = 1 (ROADMAP.md queue C).
+        raise ValueError(f"dropout_p must be in [0, 1), got {dropout_p}")
+    if dropout_seed is not None and not -2**31 <= int(dropout_seed) <= _INT32_MAX:
+        raise ValueError(f"dropout_seed must be an int32, got {dropout_seed}")
+    if dropout_p == 0.0:
+        return int(dropout_seed) if dropout_seed is not None else 0
+    if (dropout_seed is None) == (dropout_rng is None):
+        raise ValueError(
+            "dropout_p > 0 requires dropout_seed or dropout_rng (exactly one): a per-call seed "
+            "cannot be drawn silently, and a fixed default would reuse one dropout mask across "
+            "every layer and step")
+    if dropout_seed is not None:
+        return int(dropout_seed)
+    if not isinstance(dropout_rng, torch.Generator) or dropout_rng.device.type != "cpu":
+        raise ValueError("dropout_rng must be a CPU torch.Generator")
+    return int(torch.randint(0, _INT32_MAX, (), generator=dropout_rng))
+
+
+def pad_head_dim(D: int, device: torch.device) -> int:
+    """The head dim the kernels compute at: D itself, or the next of
+    HEAD_DIMS (zero padding). CUDA tensors past MAX_HEAD_DIM raise."""
+    if D in HEAD_DIMS:
+        return D
+    if D > MAX_HEAD_DIM:
+        if device.type == "cuda":
+            raise ValueError(
+                f"head_dim {D} > {MAX_HEAD_DIM}: the dq and dk/dv tiles would need ~305-313 KB "
+                f"of shared memory at 384, above the H100's 227 KB; a new tiling is ROADMAP.md "
+                f"queue C 'Head dims'")
+        return D   # the plain twins take any D
+    return next(d for d in HEAD_DIMS if d >= D)
+
+
+def pad_last(x: torch.Tensor, Dp: int) -> torch.Tensor:
+    """x zero-padded on its last dim to Dp (x itself when it is Dp wide)."""
+    return x if x.shape[-1] == Dp else F.pad(x, (0, Dp - x.shape[-1]))
 
 
 class _AttnCore(torch.autograd.Function):
@@ -32,11 +89,12 @@ class _AttnCore(torch.autograd.Function):
     static config are not differentiated."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, lens, causal, scale, window, softcap):
-        o, lse = flash_attn_forward(q, k, v, lens, 0, 0, bias, causal=causal,
-                                    softmax_scale=scale, window=window, softcap=softcap)
+    def forward(ctx, q, k, v, bias, lens, causal, scale, window, softcap, dropout_p, seed):
+        cfg = dict(causal=causal, softmax_scale=scale, window=window, softcap=softcap,
+                   dropout_p=dropout_p, dropout_seed=seed)
+        o, lse = flash_attn_forward(q, k, v, lens, 0, 0, bias, **cfg)
         ctx.save_for_backward(q, k, v, bias, o, lse, lens)
-        ctx.cfg = dict(causal=causal, softmax_scale=scale, window=window, softcap=softcap)
+        ctx.cfg = cfg
         return o, lse
 
     @staticmethod
@@ -46,7 +104,7 @@ class _AttnCore(torch.autograd.Function):
         grads = flash_attn_backward(q, k, v, do, o, lse, lens, 0, 0, bias, dlse=dlse,
                                     compute_dbias=want_dbias, **ctx.cfg)
         dbias = grads[3] if want_dbias else None
-        return grads[0], grads[1], grads[2], dbias, None, None, None, None, None
+        return (grads[0], grads[1], grads[2], dbias) + (None,) * 7
 
 
 def flash_attn_func(
@@ -62,36 +120,39 @@ def flash_attn_func(
     window_size: Tuple[int, int] = (-1, -1),
     softcap: float = 0.0,
     return_lse: bool = False,
+    dropout_rng: Optional[torch.Generator] = None,
 ):
     """FlashAttention-2, differentiable through `_AttnCore`.
 
     Args:
         q: [batch, seqlen_q, num_heads_q, head_dim].
         k, v: [batch, seqlen_k, num_heads_kv, head_dim]; num_heads_q must be
-            a multiple of num_heads_kv (GQA/MQA).
+            a multiple of num_heads_kv (GQA/MQA). CUDA tensors take any
+            head_dim <= 256 (zero-padded to 64 / 128 / 256 for the kernels).
         attention_mask: optional bool [batch, seqlen_q] right-padding mask
             (True = valid). Requires seqlen_q == seqlen_k; applied to both
             queries and keys.
         attention_bias: optional additive bias broadcastable to
             [batch, num_heads_q, seqlen_q, seqlen_k] (indexed by q head);
             it gets a gradient when it requires one.
-        dropout_p, dropout_seed: not ported yet; dropout_p > 0 raises
-            NotImplementedError.
+        dropout_p: attention dropout probability, in [0, 1): counter-hash
+            dropout (`utils/rng.py`), bit for bit the JAX package's mask.
+        dropout_seed: int32 seed of the dropout stream. With dropout_p > 0
+            exactly one of dropout_seed / dropout_rng must be given.
         causal: bottom-right-aligned causal masking.
         softmax_scale: defaults to 1/sqrt(head_dim).
         window_size: (left, right) sliding window, -1 = infinite.
         softcap: if > 0, scores are softcap * tanh(scores / softcap).
         return_lse: also return the logsumexp [batch, num_heads_q, seqlen_q]
             in log-base-2 units, fp32.
+        dropout_rng: alternatively, a CPU torch.Generator from which the
+            seed is drawn (no device sync).
 
     Returns:
         output [batch, seqlen_q, num_heads_q, head_dim] (and lse if requested),
         differentiable in q, k, v, the bias and the lse.
     """
-    if dropout_p > 0.0:
-        raise NotImplementedError(
-            "dropout is not ported yet (counter-hash dropout and utils/rng.py, "
-            "ROADMAP.md queue A.6)")
+    seed = resolve_dropout_seed(dropout_p, dropout_seed, dropout_rng)
     B, Sq, Hq, D = q.shape
     Bk, Sk, Hkv, Dk = k.shape
     if D != Dk or v.shape != k.shape or Bk != B:
@@ -115,10 +176,11 @@ def flash_attn_func(
                              f"to [{B}, {Hq}, {Sq}, {Sk}]")
         # Seq dims broadcast as a view; autograd of expand sums dbias back.
         bias = bias.expand(bias.shape[0], bias.shape[1], Sq, Sk)
+    Dp = pad_head_dim(D, q.device)
     o, lse = _AttnCore.apply(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), bias, lens,
-        causal, scale, tuple(window_size), float(softcap))
-    out = o.transpose(1, 2)
+        *(pad_last(x, Dp).transpose(1, 2) for x in (q, k, v)), bias, lens,
+        causal, scale, tuple(window_size), float(softcap), float(dropout_p), seed)
+    out = o.transpose(1, 2)[..., :D]
     if return_lse:
         return out, lse
     return out

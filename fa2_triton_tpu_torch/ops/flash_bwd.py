@@ -14,6 +14,11 @@ delta = rowsum(o * do) - dlse * log2e is plain PyTorch here, as it is plain
 jnp in the JAX package (`flash_bwd.py:2321-2329`): the fold of the
 logsumexp cotangent, gated on finite lse and dlse so dead rows stay zero.
 
+Dropout (`dropout_p > 0`, `flash_bwd.py:_recompute_p_and_ds` l.133-156):
+the kernels regenerate the forward's keep mask from the same seed and
+counter; p stays undropped, dp becomes keep ? dp / (1 - p) : 0 inside
+ds = p (dp - delta), and dv's operand becomes keep ? p / (1 - p) : 0.
+
 CPU tensors take `flash_attn_backward_plain`; CUDA tensors always launch
 the kernels or raise.
 """
@@ -25,7 +30,8 @@ from typing import Optional, Tuple
 import torch
 
 from fa2_triton_tpu_torch.ops import _build
-from fa2_triton_tpu_torch.ops.flash_fwd import _check_cuda_args, _masks, bias_view
+from fa2_triton_tpu_torch.ops.flash_fwd import (
+    _check_cuda_args, _masks, bias_view, dropout_c_args, dropout_mask)
 from fa2_triton_tpu_torch.utils import LOG2E
 
 # Kernel launches since the last reset, per kernel (the smoke test reads
@@ -46,7 +52,9 @@ def _entry():
     if _c_fn is None:
         fn = _build.load().fa2_flash_bwd
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = ([I] * 8 + [P] * 6 + [P, I, I, I] + [P] * 4 + [P, P] + [I] * 5 + [F, F, P])
+        U = ctypes.c_uint
+        fn.argtypes = ([I] * 8 + [P] * 6 + [P, I, I, I] + [P] * 4 + [P, P] + [I] * 5 + [F, F]
+                       + [I, U, U, F, I, I, P])
         fn.restype = I
         _c_fn = fn
     return _c_fn
@@ -75,6 +83,8 @@ def flash_attn_backward_plain(
     q_off: int = 0, kv_off: int = 0, bias: Optional[torch.Tensor] = None, *,
     causal: bool, softmax_scale: float, window: Tuple[int, int] = (-1, -1),
     softcap: float = 0.0, dlse: Optional[torch.Tensor] = None, compute_dbias: bool = False,
+    dropout_p: float = 0.0, dropout_seed: int = 0,
+    seqlen_q_real: Optional[int] = None, seqlen_k_real: Optional[int] = None,
 ):
     """The kernels' function in plain PyTorch, computed in fp32.
 
@@ -83,7 +93,8 @@ def flash_attn_backward_plain(
     dq = scale ds k, dk = scale ds^T q, dv = p^T do, with dk / dv summed
     over the GQA group and dbias = p (dp - delta) summed over the bias's
     broadcast batch / head dims. Rows past q_len and columns past kv_len
-    are zeroed first, so padding that holds NaN cannot leak in."""
+    are zeroed first, so padding that holds NaN cannot leak in. With
+    dropout, dp and dv's p carry the forward's mask times 1 / (1 - p)."""
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     g = Hq // Hkv
@@ -108,11 +119,19 @@ def flash_attn_backward_plain(
     lse_safe = torch.where(finite, lse, zero)
     p = torch.where(keep, torch.exp2(s * LOG2E - lse_safe[..., None]), zero)
     dp = torch.matmul(dof, vf.transpose(-1, -2))
+    p_dv = p
+    if dropout_p > 0.0:
+        keep_d = dropout_mask(B, Hq, Sq, Sk, q_off, kv_off, dropout_p, dropout_seed,
+                              seqlen_q_real or Sq, seqlen_k_real or Sk, dev)
+        drop = torch.where(keep_d, torch.tensor(1.0 / (1.0 - dropout_p), device=dev), zero)
+        del keep_d
+        dp = dp * drop
+        p_dv = p * drop
     ds_pre = torch.where(keep, p * (dp - delta[..., None]), zero)
     ds = ds_pre * (1.0 - t * t) if softcap > 0.0 else ds_pre
     dq = torch.matmul(ds, kf) * softmax_scale
     dk = (torch.matmul(ds.transpose(-1, -2), qf) * softmax_scale).view(B, Hkv, g, Sk, D).sum(2)
-    dv = torch.matmul(p.transpose(-1, -2), dof).view(B, Hkv, g, Sk, D).sum(2)
+    dv = torch.matmul(p_dv.transpose(-1, -2), dof).view(B, Hkv, g, Sk, D).sum(2)
     grads = (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
     if compute_dbias:
         return grads + (_reduce_to_bias(ds_pre, bias).to(bias.dtype),)
@@ -151,14 +170,20 @@ def flash_attn_backward(
     softcap: float = 0.0,
     dlse: Optional[torch.Tensor] = None,  # [B, Hq, Sq] cotangent of lse
     compute_dbias: bool = False,
+    dropout_p: float = 0.0,
+    dropout_seed: int = 0,
+    seqlen_q_real: Optional[int] = None,   # dropout counter lengths (default: Sq, Sk)
+    seqlen_k_real: Optional[int] = None,
 ):
     """Returns (dq, dk, dv) in the input dtypes, plus dbias
     [bias.shape[0], bias.shape[1], Sq, Sk] in the bias dtype when
     `compute_dbias`. Bitwise repeatable (no atomics)."""
     if compute_dbias and bias is None:
         raise ValueError("compute_dbias needs a bias")
+    drop = dropout_c_args(dropout_p, dropout_seed)
     kw = dict(causal=causal, softmax_scale=softmax_scale, window=window, softcap=softcap,
-              dlse=dlse, compute_dbias=compute_dbias)
+              dlse=dlse, compute_dbias=compute_dbias, dropout_p=dropout_p,
+              dropout_seed=dropout_seed, seqlen_q_real=seqlen_q_real, seqlen_k_real=seqlen_k_real)
     if q.device.type == "cpu":
         return flash_attn_backward_plain(q, k, v, do, o, lse, lens, q_off, kv_off, bias, **kw)
     if q.device.type != "cuda":
@@ -204,7 +229,8 @@ def flash_attn_backward(
         dbias.data_ptr() if dbias is not None else None,
         lens.data_ptr(), ctypes.cast(strides, ctypes.c_void_p),
         int(q_off), int(kv_off), int(bool(causal)), int(window[0]), int(window[1]),
-        float(softmax_scale), float(softcap), _build.stream_ptr(q.device),
+        float(softmax_scale), float(softcap), *drop,
+        int(seqlen_q_real or Sq), int(seqlen_k_real or Sk), _build.stream_ptr(q.device),
     )
     _launch("flash_bwd_dq", args)
     _launch("flash_bwd_dkdv", args)

@@ -12,6 +12,13 @@ aligned on (q_len, kv_len). An additive bias broadcastable to
 [B, Hq, Sq, Sk] is indexed by q head and read through the strides of its
 broadcast view (zero on broadcast dims), never materialised.
 
+Dropout (`dropout_p > 0`) is the JAX package's counter-hash stream
+(`utils/rng.py`): element (b, h, row, col) of the call, at global row
+q_off + i and column kv_off + j, is kept iff
+counter_hash(seed, ((b * Hq + h) * seqlen_q_real + row) * seqlen_k_real +
+col) >= dropout_threshold(p). The softmax sum and lse stay undropped; only
+the P V product sees the mask, and o is scaled by 1 / (1 - p).
+
 CPU tensors take `flash_attn_forward_plain`; CUDA tensors always launch the
 kernel or raise.
 """
@@ -23,13 +30,17 @@ from typing import Optional, Tuple
 import torch
 
 from fa2_triton_tpu_torch.ops import _build
-from fa2_triton_tpu_torch.utils import LOG2E
+from fa2_triton_tpu_torch.utils import LOG2E, dropout_keep_mask, dropout_threshold
 
 # Kernel launches since the last reset (the smoke test reads this to show the
 # served path went through the kernel).
 LAUNCHES = 0
 
 HEAD_DIMS = (64, 128, 256)
+# The attention entry points zero-pad other head dims up to the next of
+# HEAD_DIMS; past the last, the dq and dk/dv tiles need more shared memory
+# than a Hopper block has (ROADMAP.md queue C, "Head dims").
+MAX_HEAD_DIM = HEAD_DIMS[-1]
 
 _c_fn = None
 
@@ -39,10 +50,32 @@ def _entry():
     if _c_fn is None:
         fn = _build.load().fa2_flash_fwd
         P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        fn.argtypes = ([I] * 7 + [P] * 6 + [L] * 12 + [P, I] + [L] * 4 + [I] * 5 + [F, F, P])
+        U = ctypes.c_uint
+        fn.argtypes = ([I] * 7 + [P] * 6 + [L] * 12 + [P, I] + [L] * 4 + [I] * 5 + [F, F]
+                       + [I, U, U, F, I, I, P])
         fn.restype = I
         _c_fn = fn
     return _c_fn
+
+
+def dropout_c_args(dropout_p: float, dropout_seed: int):
+    """(on, seed as uint32, threshold, 1 / (1 - p)): the kernels' dropout
+    arguments."""
+    if not 0.0 <= dropout_p < 1.0:
+        raise ValueError(f"dropout_p must be in [0, 1), got {dropout_p}")
+    if dropout_p == 0.0:
+        return 0, 0, 0, 1.0
+    return 1, int(dropout_seed) & 0xFFFFFFFF, dropout_threshold(dropout_p), 1.0 / (1.0 - dropout_p)
+
+
+def dropout_mask(B, Hq, Sq, Sk, q_off, kv_off, dropout_p, dropout_seed, seqlen_q_real,
+                 seqlen_k_real, device):
+    """keep [B, Hq, Sq, Sk]: the kernels' dropout mask of a call whose rows
+    and columns sit at q_off / kv_off."""
+    rows = q_off + torch.arange(Sq, device=device)
+    cols = kv_off + torch.arange(Sk, device=device)
+    return dropout_keep_mask(dropout_seed, dropout_p, B, Hq, rows, cols, seqlen_q_real,
+                             seqlen_k_real)
 
 
 def _masks(lens, q_off, kv_off, Sq, Sk, causal, window, device):
@@ -81,13 +114,16 @@ def flash_attn_forward_plain(
     q_off: int = 0, kv_off: int = 0, bias: Optional[torch.Tensor] = None, *,
     causal: bool, softmax_scale: float,
     window: Tuple[int, int] = (-1, -1), softcap: float = 0.0,
+    dropout_p: float = 0.0, dropout_seed: int = 0,
+    seqlen_q_real: Optional[int] = None, seqlen_k_real: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch, computed in fp32.
 
     q [B, Hq, Sq, D], k/v [B, Hkv, Sk, D], lens [B, 2] int, bias
     broadcastable to [B, Hq, Sq, Sk] (added after the softcap). Returns o
     like q and lse [B, Hq, Sq] fp32 in log2 units (-inf and o = 0 on dead
-    rows)."""
+    rows). Dropout's mask comes from `utils/rng.py` (`dropout_mask`), with
+    the real lengths defaulting to the call's Sq, Sk."""
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     g = Hq // Hkv
@@ -104,7 +140,13 @@ def flash_attn_forward_plain(
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp2(s2 - m)
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.matmul(p, vf) / torch.where(l > 0, l, torch.ones_like(l))
+    denom = torch.where(l > 0, l, torch.ones_like(l))
+    if dropout_p > 0.0:
+        keep_d = dropout_mask(B, Hq, Sq, Sk, q_off, kv_off, dropout_p, dropout_seed,
+                              seqlen_q_real or Sq, seqlen_k_real or Sk, q.device)
+        p = torch.where(keep_d, p, torch.zeros((), device=q.device))
+        denom = denom * (1.0 - dropout_p)
+    o = torch.matmul(p, vf) / denom
     lse = torch.where(l > 0, m + torch.log2(l), torch.tensor(float("-inf"), device=q.device))
     return o.to(q.dtype), lse[..., 0]
 
@@ -125,7 +167,9 @@ def _check_cuda_args(q, k, v, lens=None):
     if Hq % k.shape[1] != 0:
         raise ValueError("num_heads_q must be a multiple of num_heads_kv")
     if D not in HEAD_DIMS:
-        raise ValueError(f"the attention kernels take head_dim in {HEAD_DIMS}, got {D}")
+        raise ValueError(f"the attention kernels take head_dim in {HEAD_DIMS} (the entry points "
+                         f"zero-pad any head_dim <= {MAX_HEAD_DIM} to one of them; larger ones "
+                         f"wait for a new tiling, ROADMAP.md queue C 'Head dims'), got {D}")
     if lens is not None and (lens.shape != (B, 2) or lens.dtype != torch.int32
                              or not lens.is_contiguous()):
         raise ValueError("lens must be a contiguous int32 [B, 2] tensor")
@@ -150,16 +194,22 @@ def flash_attn_forward(
     softmax_scale: float,
     window: Tuple[int, int] = (-1, -1),
     softcap: float = 0.0,
+    dropout_p: float = 0.0,
+    dropout_seed: int = 0,
+    seqlen_q_real: Optional[int] = None,   # dropout counter lengths (default: Sq, Sk)
+    seqlen_k_real: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (o [B, Hq, Sq, D] in q's dtype, lse [B, Hq, Sq] fp32, log2).
 
     `o` is a BHSD view of BSHD-contiguous memory, so `o.transpose(1, 2)` is
     the contiguous BSHD output."""
     global LAUNCHES
+    drop = dropout_c_args(dropout_p, dropout_seed)
     if q.device.type == "cpu":
         return flash_attn_forward_plain(
             q, k, v, lens, q_off, kv_off, bias, causal=causal,
-            softmax_scale=softmax_scale, window=window, softcap=softcap)
+            softmax_scale=softmax_scale, window=window, softcap=softcap, dropout_p=dropout_p,
+            dropout_seed=dropout_seed, seqlen_q_real=seqlen_q_real, seqlen_k_real=seqlen_k_real)
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd takes CPU or CUDA tensors, got {q.device}")
     _check_cuda_args(q, k, v, lens)
@@ -179,7 +229,8 @@ def flash_attn_forward(
         _build.DTYPE_CODES[bv.dtype] if bv is not None else 0,
         *(bv.stride() if bv is not None else (0, 0, 0, 0)),
         int(q_off), int(kv_off), int(bool(causal)), int(window[0]), int(window[1]),
-        float(softmax_scale), float(softcap), _build.stream_ptr(q.device),
+        float(softmax_scale), float(softcap), *drop,
+        int(seqlen_q_real or Sq), int(seqlen_k_real or Sk), _build.stream_ptr(q.device),
     )
     _build.check(status, "flash_fwd launch")
     LAUNCHES += 1

@@ -31,9 +31,14 @@ floor, so a row with no kept column ends with o = 0 and lse = -inf even
 when its block survives the block mask (the JAX kernel's finite -1e30 mask
 averages v there instead: ROADMAP.md queue C).
 
+Dropout is the JAX package's packed stream (`_packed_dropout_bits`,
+`utils/rng.py:packed_dropout_keep_mask`): an element of q head h at GLOBAL
+packed row / column is kept iff hash(hash(hash(seed, h), row), col) >=
+dropout_threshold(p), with `flash_attn_func`'s seed contract; block-sparse
+attention packs B x S into T and uses the same stream.
+
 CPU tensors take the `*_plain` twins (per segment, dense fp32, never a
-T x T matrix); CUDA tensors always launch the kernels or raise. Not ported:
-dropout (ROADMAP.md queue A.6); `dropout_p > 0` raises NotImplementedError.
+T x T matrix); CUDA tensors always launch the kernels or raise.
 """
 from __future__ import annotations
 
@@ -45,9 +50,11 @@ import torch
 import torch.nn.functional as F
 
 from fa2_triton_tpu_torch.ops import _build
+from fa2_triton_tpu_torch.ops.attention import pad_head_dim, pad_last, resolve_dropout_seed
 from fa2_triton_tpu_torch.ops.flash_bwd import _kernel_layout, compute_delta
-from fa2_triton_tpu_torch.ops.flash_fwd import _check_cuda_args
-from fa2_triton_tpu_torch.utils import LOG2E, default_softmax_scale, round_up_to_multiple
+from fa2_triton_tpu_torch.ops.flash_fwd import _check_cuda_args, dropout_c_args
+from fa2_triton_tpu_torch.utils import (
+    LOG2E, default_softmax_scale, packed_dropout_keep_mask, round_up_to_multiple)
 
 F_INIT, F_FINAL, F_MASKED = 1, 2, 4
 
@@ -277,6 +284,15 @@ def _segment_keep(seg, ext, qlen, kvlen, causal, block_q, block_kv, keep_block, 
     return keep
 
 
+def _segment_drop(a, ext, Hq, dropout_p, seed, device):
+    """[Hq, ext, ext] dropout factors of the segment at packed row a: 1 /
+    (1 - p) where the packed stream keeps the element, else 0."""
+    idx = a + torch.arange(ext, device=device)
+    keep = packed_dropout_keep_mask(seed, dropout_p, torch.arange(Hq, device=device), idx, idx)
+    return torch.where(keep, torch.tensor(1.0 / (1.0 - dropout_p), device=device),
+                       torch.zeros((), device=device))
+
+
 def _live_rows(x: torch.Tensor, n: int) -> torch.Tensor:
     """x [H, ext, D] as fp32 with rows at or past n zeroed (gaps may hold
     NaN, and 0 * NaN would leak)."""
@@ -287,11 +303,12 @@ def _live_rows(x: torch.Tensor, n: int) -> torch.Tensor:
 def flash_attn_varlen_forward_plain(
     q, k, v, seg_starts, seg_qlens, seg_kvlens, *, causal: bool, softmax_scale: float,
     block_q: int = 512, block_kv: int = 512, keep_block=None,
+    dropout_p: float = 0.0, dropout_seed: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel's function in plain PyTorch: each segment dense
     in fp32 with its element mask. Returns (o [1, Hq, T, D] in q's dtype,
     lse [1, Hq, T] fp32 base 2; o = 0 and lse = -inf where a row keeps no
-    column)."""
+    column). Dropout drops p from P V only and scales o by 1 / (1 - p)."""
     _, Hq, T, D = q.shape
     g = Hq // k.shape[1]
     dev = q.device
@@ -311,6 +328,8 @@ def flash_attn_varlen_forward_plain(
         p = torch.exp2(s2 - m)
         del s2
         l = p.sum(dim=-1, keepdim=True)
+        if dropout_p > 0.0:
+            p = p * _segment_drop(a, ext, Hq, dropout_p, dropout_seed, dev)
         o[0, :, a:a + ext] = torch.matmul(p, vs) / torch.where(l > 0, l, torch.ones_like(l))
         lse[0, :, a:a + ext] = torch.where(l > 0, m + torch.log2(l), neg_inf)[..., 0]
     return o.to(q.dtype), lse
@@ -320,12 +339,14 @@ def flash_attn_varlen_backward_plain(
     q, k, v, do, o, lse, seg_starts, seg_qlens, seg_kvlens, *, causal: bool,
     softmax_scale: float, block_q: int = 512, block_kv: int = 512,
     dlse: Optional[torch.Tensor] = None, keep_block=None,
+    dropout_p: float = 0.0, dropout_seed: int = 0,
 ):
     """The backward kernels' function in plain PyTorch, per segment in fp32:
     p = exp2(s * log2e - lse) on kept elements, ds = p (do v^T - delta),
     dq = scale ds k, dk = scale ds^T q and dv = p^T do summed over the GQA
-    group. Returns (dq, dk, dv) in the input dtypes, exactly 0 outside the
-    segments' live rows."""
+    group; with dropout, do v^T and dv's p carry the packed mask times
+    1 / (1 - p). Returns (dq, dk, dv) in the input dtypes, exactly 0 outside
+    the segments' live rows."""
     _, Hq, T, D = q.shape
     Hkv = k.shape[1]
     g = Hq // Hkv
@@ -347,12 +368,18 @@ def flash_attn_varlen_backward_plain(
         p = torch.where(keep, torch.exp2(sc - torch.where(finite, lse_s, zero)[..., None]), zero)
         del sc
         dp = torch.matmul(dos, vs.transpose(-1, -2))
+        p_dv = p
+        if dropout_p > 0.0:
+            drop = _segment_drop(a, ext, Hq, dropout_p, dropout_seed, dev)
+            dp = dp * drop
+            p_dv = p * drop
+            del drop
         ds = torch.where(keep, p * (dp - delta[0, :, a:a + ext, None]), zero)
         del dp, keep
         dq[0, :, a:a + ext] = torch.matmul(ds, ks) * softmax_scale
         dk[0, :, a:a + ext] = (torch.matmul(ds.transpose(-1, -2), qs) * softmax_scale).view(
             Hkv, g, ext, D).sum(1)
-        dv[0, :, a:a + ext] = torch.matmul(p.transpose(-1, -2), dos).view(Hkv, g, ext, D).sum(1)
+        dv[0, :, a:a + ext] = torch.matmul(p_dv.transpose(-1, -2), dos).view(Hkv, g, ext, D).sum(1)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -361,7 +388,8 @@ def _entry():
     if _c_fn is None:
         fn = _build.load().fa2_varlen
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [I] * 6 + [P] * 10 + [P, P, P] + [I] * 3 + [F, P]
+        U = ctypes.c_uint
+        fn.argtypes = [I] * 6 + [P] * 10 + [P, P, P] + [I] * 3 + [F] + [I, U, U, F, P]
         fn.restype = I
         _c_fn = fn
     return _c_fn
@@ -416,12 +444,13 @@ def flash_attn_varlen_forward(
     v: torch.Tensor,          # [1, Hkv, T, D]
     seg_starts, seg_qlens: Sequence[int], seg_kvlens: Sequence[int],
     *, causal: bool, softmax_scale: float, block_q: int = 512, block_kv: int = 512,
-    keep_block=None,
+    keep_block=None, dropout_p: float = 0.0, dropout_seed: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (o [1, Hq, T, D] in q's dtype, a BHSD view of BSHD memory;
     lse [1, Hq, T] fp32, base 2)."""
+    drop = dropout_c_args(dropout_p, dropout_seed)
     kw = dict(causal=causal, softmax_scale=softmax_scale, block_q=block_q, block_kv=block_kv,
-              keep_block=keep_block)
+              keep_block=keep_block, dropout_p=dropout_p, dropout_seed=dropout_seed)
     if q.device.type == "cpu":
         return flash_attn_varlen_forward_plain(q, k, v, seg_starts, seg_qlens, seg_kvlens, **kw)
     if q.device.type != "cuda":
@@ -440,7 +469,8 @@ def flash_attn_varlen_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None, o.data_ptr(), lse.data_ptr(), None,
         None, None, None, work.data_ptr(), rowptr.data_ptr(),
         ctypes.cast(_strides(q, k, v, None, o, None, None, None), ctypes.c_void_p),
-        block_q, block_kv, int(bool(causal)), float(softmax_scale), _build.stream_ptr(q.device)))
+        block_q, block_kv, int(bool(causal)), float(softmax_scale), *drop,
+        _build.stream_ptr(q.device)))
     return o, lse
 
 
@@ -449,12 +479,14 @@ def flash_attn_varlen_backward(
     seg_starts, seg_qlens: Sequence[int], seg_kvlens: Sequence[int],
     *, causal: bool, softmax_scale: float, block_q: int = 512, block_kv: int = 512,
     dlse: Optional[torch.Tensor] = None, keep_block=None,
+    dropout_p: float = 0.0, dropout_seed: int = 0,
 ):
     """Returns (dq, dk, dv) in the input dtypes, BHSD views of BSHD memory,
     exactly 0 outside the segments' live rows. Bitwise repeatable (no
     atomics)."""
+    drop = dropout_c_args(dropout_p, dropout_seed)
     kw = dict(causal=causal, softmax_scale=softmax_scale, block_q=block_q, block_kv=block_kv,
-              dlse=dlse, keep_block=keep_block)
+              dlse=dlse, keep_block=keep_block, dropout_p=dropout_p, dropout_seed=dropout_seed)
     if q.device.type == "cpu":
         return flash_attn_varlen_backward_plain(q, k, v, do, o, lse, seg_starts, seg_qlens,
                                                 seg_kvlens, **kw)
@@ -483,7 +515,7 @@ def flash_attn_varlen_backward(
     common = (_build.DTYPE_CODES[q.dtype], Hq, Hkv, T, D,
               q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), None, lse.data_ptr(),
               delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
-    tail = (block_q, block_kv, int(bool(causal)), float(softmax_scale),
+    tail = (block_q, block_kv, int(bool(causal)), float(softmax_scale), *drop,
             _build.stream_ptr(q.device))
     work, rowptr = _launch_table(segs, block_q, block_kv, causal, keep_block, T, q.device)
     _launch("varlen_dq", common + (work.data_ptr(), rowptr.data_ptr(), strides) + tail)
@@ -498,14 +530,17 @@ def flash_attn_varlen_backward(
 class _VarlenCore(torch.autograd.Function):
     """o, lse = packed attention(q, k, v) on [1, H, T, D] views; the static
     layout `meta` = (starts, q_lens, kv_lens, causal, scale, block_q,
-    block_kv, encoded block mask or None) is not differentiated."""
+    block_kv, dropout_p, dropout seed, encoded block mask or None) is not
+    differentiated (the backward regenerates the forward's dropout mask from
+    the same seed)."""
 
     @staticmethod
     def forward(ctx, q, k, v, meta):
-        starts, qlens, kvlens, causal, scale, bq, bkv, mask = meta
+        starts, qlens, kvlens, causal, scale, bq, bkv, p, seed, mask = meta
         o, lse = flash_attn_varlen_forward(
             q, k, v, starts, qlens, kvlens, causal=causal, softmax_scale=scale,
-            block_q=bq, block_kv=bkv, keep_block=_mask_keep_fn(mask))
+            block_q=bq, block_kv=bkv, keep_block=_mask_keep_fn(mask), dropout_p=p,
+            dropout_seed=seed)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.meta = meta
         return o, lse
@@ -513,18 +548,12 @@ class _VarlenCore(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do, dlse):
         q, k, v, o, lse = ctx.saved_tensors
-        starts, qlens, kvlens, causal, scale, bq, bkv, mask = ctx.meta
+        starts, qlens, kvlens, causal, scale, bq, bkv, p, seed, mask = ctx.meta
         dq, dk, dv = flash_attn_varlen_backward(
             q, k, v, do, o, lse, starts, qlens, kvlens, causal=causal, softmax_scale=scale,
-            block_q=bq, block_kv=bkv, dlse=dlse, keep_block=_mask_keep_fn(mask))
+            block_q=bq, block_kv=bkv, dlse=dlse, keep_block=_mask_keep_fn(mask), dropout_p=p,
+            dropout_seed=seed)
         return dq, dk, dv, None
-
-
-def _no_dropout(dropout_p: float) -> None:
-    if dropout_p > 0.0:
-        raise NotImplementedError(
-            "dropout is not ported yet (counter-hash dropout and utils/rng.py, "
-            "ROADMAP.md queue A.6)")
 
 
 def flash_attn_varlen_func(
@@ -540,6 +569,7 @@ def flash_attn_varlen_func(
     return_lse: bool = False,
     dropout_p: float = 0.0,
     dropout_seed: Optional[int] = None,
+    dropout_rng: Optional[torch.Generator] = None,
 ):
     """Zero-waste varlen attention over a packed token stream, differentiable.
 
@@ -548,10 +578,11 @@ def flash_attn_varlen_func(
     `seqlens` give each segment's true length (default: the full aligned
     extent). Segments attend only within themselves, causally if requested.
     Returns the output like q, and with `return_lse` the base-2 lse
-    [1, Hq, T] ([Hq, T] for 3-D q). `dropout_p > 0` raises
-    NotImplementedError (ROADMAP.md queue A.6); `dropout_seed` is accepted
-    for the JAX signature and unused."""
-    _no_dropout(dropout_p)
+    [1, Hq, T] ([Hq, T] for 3-D q). Dropout takes `flash_attn_func`'s seed
+    contract (exactly one of `dropout_seed` / `dropout_rng` when
+    `dropout_p > 0`) and the packed stream of the module docstring. CUDA
+    tensors take any head_dim <= 256 (zero-padded for the kernels)."""
+    seed = resolve_dropout_seed(dropout_p, dropout_seed, dropout_rng)
     squeeze = q.dim() == 3
     if squeeze:
         q, k, v = (x[None] for x in (q, k, v))
@@ -569,9 +600,12 @@ def flash_attn_varlen_func(
     if any(s % align for s in starts) or T % align:
         raise ValueError("packed segment starts must be aligned to max(block_q, block_kv); "
                          "use pack_padded_batch")
-    meta = (starts, seqlens, seqlens, bool(causal), scale, block_q, block_kv, None)
-    o, lse = _VarlenCore.apply(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), meta)
-    out = o.transpose(1, 2)
+    meta = (starts, seqlens, seqlens, bool(causal), scale, block_q, block_kv, float(dropout_p),
+            seed, None)
+    D = q.shape[-1]
+    Dp = pad_head_dim(D, q.device)
+    o, lse = _VarlenCore.apply(*(pad_last(x, Dp).transpose(1, 2) for x in (q, k, v)), meta)
+    out = o.transpose(1, 2)[..., :D]
     if squeeze:
         out, lse = out[0], lse[0]
     if return_lse:
@@ -591,6 +625,7 @@ def flash_attn_blocksparse_func(
     return_lse: bool = False,
     dropout_p: float = 0.0,
     dropout_seed: Optional[int] = None,
+    dropout_rng: Optional[torch.Generator] = None,
 ):
     """Block-sparse attention (BigBird / Longformer style): the softmax runs
     over exactly the (q block, kv block) pairs whose `block_mask` entry is
@@ -598,9 +633,9 @@ def flash_attn_blocksparse_func(
     filtered pairs never enter the work list. Rows that keep no column
     return zeros with lse = -inf and get zero gradients. Differentiable,
     deterministic, GQA via Hq % Hkv == 0. Returns [B, S, Hq, D], and with
-    `return_lse` the base-2 lse [B, Hq, S]. `dropout_p > 0` raises
-    NotImplementedError (ROADMAP.md queue A.6)."""
-    _no_dropout(dropout_p)
+    `return_lse` the base-2 lse [B, Hq, S]. Dropout as in
+    `flash_attn_varlen_func`, on the packed stream of [1, B * S_pad]."""
+    seed = resolve_dropout_seed(dropout_p, dropout_seed, dropout_rng)
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     if k.shape != (B, S, Hkv, D) or v.shape != k.shape:
@@ -620,17 +655,20 @@ def flash_attn_blocksparse_func(
         m = mm
     scale = float(softmax_scale) if softmax_scale is not None else default_softmax_scale(D)
 
+    Dp = pad_head_dim(D, q.device)
+
     def pack(x):
-        # [B, S, H, D] -> [1, H, B*S_pad, D], a view when S_pad == S
-        if S_pad != S:
-            x = F.pad(x, (0, 0, 0, 0, 0, S_pad - S))
-        return x.reshape(1, B * S_pad, x.shape[2], D).transpose(1, 2)
+        # [B, S, H, D] -> [1, H, B*S_pad, Dp], a view when S_pad == S and Dp == D
+        if S_pad != S or Dp != D:
+            x = F.pad(x, (0, Dp - D, 0, 0, 0, S_pad - S))
+        return x.reshape(1, B * S_pad, x.shape[2], Dp).transpose(1, 2)
 
     starts = tuple(b * S_pad for b in range(B))
     lens = (S,) * B
-    meta = (starts, lens, lens, bool(causal), scale, block_q, block_kv, encode_block_mask(m))
+    meta = (starts, lens, lens, bool(causal), scale, block_q, block_kv, float(dropout_p), seed,
+            encode_block_mask(m))
     o, lse = _VarlenCore.apply(pack(q), pack(k), pack(v), meta)
-    out = o.transpose(1, 2).reshape(B, S_pad, Hq, D)[:, :S]
+    out = o.transpose(1, 2).reshape(B, S_pad, Hq, Dp)[:, :S, :, :D]
     if return_lse:
         return out, lse.reshape(Hq, B, S_pad)[:, :, :S].transpose(0, 1)
     return out

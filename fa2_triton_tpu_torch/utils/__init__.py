@@ -5,6 +5,14 @@ from fa2_triton_tpu_torch.utils.common import (
     next_power_of_2,
     round_up_to_multiple,
 )
+from fa2_triton_tpu_torch.utils.rng import (
+    counter_hash_uint32,
+    dropout_keep_mask,
+    dropout_keep_mask_reference,
+    dropout_offsets,
+    dropout_threshold,
+    packed_dropout_keep_mask,
+)
 
 __all__ = [
     "cdiv",
@@ -12,4 +20,10 @@ __all__ = [
     "next_power_of_2",
     "default_softmax_scale",
     "LOG2E",
+    "counter_hash_uint32",
+    "dropout_threshold",
+    "dropout_offsets",
+    "dropout_keep_mask",
+    "dropout_keep_mask_reference",
+    "packed_dropout_keep_mask",
 ]

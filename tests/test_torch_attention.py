@@ -90,11 +90,16 @@ def test_forward_offsets_match_reference():
 
 
 def test_not_ported_features_raise():
-    """Dropout is still to port (it raises, naming the roadmap item); a
-    bias is ported, and one that does not broadcast raises."""
+    """Dropout without a seed (or with both a seed and a generator, or with
+    p outside [0, 1)) raises the seed contract's ValueError; a bias is
+    ported, and one that does not broadcast raises."""
     q = torch.zeros(1, 8, 2, 64)
-    with pytest.raises(NotImplementedError, match="dropout.*A.6"):
-        flash_attn_func(q, q, q, dropout_p=0.1, dropout_seed=0)
+    with pytest.raises(ValueError, match="dropout_seed or dropout_rng"):
+        flash_attn_func(q, q, q, dropout_p=0.1)
+    with pytest.raises(ValueError, match="dropout_seed or dropout_rng"):
+        flash_attn_func(q, q, q, dropout_p=0.1, dropout_seed=0, dropout_rng=torch.Generator())
+    with pytest.raises(ValueError, match=r"\[0, 1\)"):
+        flash_attn_func(q, q, q, dropout_p=1.0, dropout_seed=0)
     with pytest.raises(ValueError, match="broadcast"):
         flash_attn_func(q, q, q, attention_bias=torch.zeros(1, 3, 8, 8))
 
@@ -113,3 +118,29 @@ def test_plain_path_is_differentiable_on_cpu():
     out = flash_attn_func(q, q.detach(), q.detach(), causal=True)
     out.sum().backward()
     assert q.grad is not None and torch.isfinite(q.grad).all()
+
+
+@pytest.mark.parametrize("D", [32, 96, 160])
+def test_head_dims_off_the_kernel_widths_match_jax(D):
+    """A head dim the kernels are not built for is zero-padded to the next
+    of 64 / 128 / 256 with the scale of the true D (exact): output and
+    gradients against the JAX flash_attn_func, which pads to 128 lanes."""
+    import jax
+
+    q, k, v, mask = _inputs(70, D, seed=D)
+    do = np.random.RandomState(D + 1).normal(0, 1.0, q.shape).astype(np.float32)
+
+    def jloss(q, k, v):
+        out = jfa.flash_attn_func(q, k, v, attention_mask=jnp.asarray(mask), causal=True)
+        return jnp.sum(out * jnp.asarray(do)), out
+
+    (_, j_out), j_grads = jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = flash_attn_func(*leaves, attention_mask=torch.from_numpy(mask), causal=True)
+    (out * torch.from_numpy(do)).sum().backward()
+    assert out.shape == q.shape
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(j_out), rtol=0, atol=TOL)
+    for name, x, g in zip(("dq", "dk", "dv"), leaves, j_grads):
+        assert x.grad.shape == x.shape
+        np.testing.assert_allclose(x.grad.numpy(), np.asarray(g), rtol=0, atol=TOL, err_msg=name)

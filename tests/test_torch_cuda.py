@@ -121,15 +121,15 @@ def test_decode_kernel_ignores_nan_past_kv_len(dev):
 
 
 def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(dev):
-    q = torch.zeros(1, 8, 2, 96, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim"):
+    q = torch.zeros(1, 8, 2, 384, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 384.*queue C"):
         flash_attn_func(q, q, q, causal=True)
     q = torch.zeros(1, 8, 2, 64, device=dev, dtype=torch.float64)
     with pytest.raises(TypeError):
         flash_attn_func(q, q, q, causal=True)
     q = torch.zeros(1, 8, 2, 64, device=dev, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        flash_attn_func(q, q, q, causal=True, dropout_p=0.1, dropout_seed=0)
+    with pytest.raises(ValueError, match="dropout_seed or dropout_rng"):
+        flash_attn_func(q, q, q, causal=True, dropout_p=0.1)
     lse = torch.zeros(1, 2, 8, device=dev)
     with pytest.raises(ValueError, match="compute_dbias"):
         flash_bwd.flash_attn_backward(q, q, q, q, q, lse, torch.ones(1, 2, dtype=torch.int32, device=dev),
@@ -535,11 +535,12 @@ def test_varlen_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     x = torch.zeros(256, 2, 64, device=dev)
     with pytest.raises(ValueError, match="multiples of 64"):
         varlen.flash_attn_varlen_func(x, x, x, [0, 256], block_q=32, block_kv=32)
-    x = torch.zeros(256, 2, 96, device=dev)
-    with pytest.raises(ValueError, match="head_dim"):
+    x = torch.zeros(256, 2, 320, device=dev)
+    with pytest.raises(ValueError, match="head_dim 320.*queue C"):
         varlen.flash_attn_varlen_func(x, x, x, [0, 256], block_q=128, block_kv=128)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        varlen.flash_attn_varlen_func(x, x, x, [0, 256], dropout_p=0.1)
+    with pytest.raises(ValueError, match="dropout_seed or dropout_rng"):
+        varlen.flash_attn_varlen_func(x[..., :64], x[..., :64], x[..., :64], [0, 256],
+                                      dropout_p=0.1)
 
 
 # ------------------------------------- quantized and paged decode (B5, B6) --
@@ -688,3 +689,174 @@ def test_paged_engine_on_cuda_matches_engine_on_cpu(dev):
         assert a.out_tokens == b.out_tokens
         torch.testing.assert_close(torch.tensor(b.out_logprobs), torch.tensor(a.out_logprobs),
                                    rtol=0, atol=1e-3)
+
+
+# ------------------------- dropout (B1, B7/B8 dropout) -------------------------
+
+DROPOUT_CASES = [
+    dict(),                                                   # padded causal
+    dict(window=(17, 0)),
+    dict(softcap=4.0),
+    dict(bias=True),                                          # dq / dk/dv with a bias, and dbias
+    dict(q_off=40, sq=60, sk=100),                            # a chunk at a global offset
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("case", range(len(DROPOUT_CASES)))
+def test_dropout_kernels_match_plain(dev, dtype, D, G, case):
+    """Forward, dq, dk/dv (and dbias) with dropout against the plain twins
+    fed the same seed (FA rules); the chunk case sits at q_off 40 with real
+    lengths past the call, so the counter uses seqlen_*_real."""
+    c = dict(DROPOUT_CASES[case])
+    with_bias = c.pop("bias", False)
+    (q32, k32, v32, do32), lens, q_off, kw = _bwd_inputs(dev, dict(c, hkv=8 // G), D,
+                                                         case * 13 + D + G)
+    kw.update(dropout_p=0.17, dropout_seed=(case - 2) * 1000 + D + G)
+    if "q_off" in c:
+        kw.update(seqlen_q_real=q_off + q32.shape[2] + 5, seqlen_k_real=k32.shape[2] + 9)
+    b32 = None
+    if with_bias:
+        b32 = torch.randn(1, 8, q32.shape[2], k32.shape[2],
+                          generator=torch.Generator(device=dev).manual_seed(D), device=dev)
+    dbias = dict(compute_dbias=with_bias)
+    o32, lse32 = flash_fwd.flash_attn_forward_plain(q32, k32, v32, lens, q_off, 0, b32, **kw)
+    refs = flash_bwd.flash_attn_backward_plain(q32, k32, v32, do32, o32, lse32, lens, q_off, 0, b32,
+                                               **dbias, **kw)
+    q, k, v, do = (x.to(dtype) for x in (q32, k32, v32, do32))
+    bias = None if b32 is None else b32.to(dtype)
+    fwd0, bwd0 = flash_fwd.LAUNCHES, dict(flash_bwd.LAUNCHES)
+    o, lse = flash_fwd.flash_attn_forward(q, k, v, lens, q_off, 0, bias, **kw)
+    grads = flash_bwd.flash_attn_backward(q, k, v, do, o, lse, lens, q_off, 0, bias, **dbias, **kw)
+    launched = (flash_fwd.LAUNCHES - fwd0,
+                *(flash_bwd.LAUNCHES[n] - bwd0[n] for n in sorted(bwd0)))
+    assert launched == (1, int(with_bias), 1, 1), launched     # fwd, dbias, dq, dk/dv
+    o_pl, lse_pl = flash_fwd.flash_attn_forward_plain(q, k, v, lens, q_off, 0, bias, **kw)
+    plains = flash_bwd.flash_attn_backward_plain(q, k, v, do, o, lse, lens, q_off, 0, bias,
+                                                 **dbias, **kw)
+    torch.cuda.synchronize()
+    _check(o, o32, o_pl, dtype)
+    assert torch.equal(torch.isinf(lse), torch.isinf(lse_pl))
+    fin = torch.isfinite(lse_pl)
+    assert (lse[fin] - lse_pl[fin]).abs().max().item() <= 1e-4
+    _check_grads(grads, refs, plains, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 4])
+def test_dropout_mask_probes_are_bitwise_the_rng_mask(dev, dtype, D, G):
+    """Each kernel's applied mask, read by `utils/mask_probes.py`, equals the
+    rng mask bit for bit: dense at q_off 37 / kv_off 11 with real lengths
+    500 x 700, and packed documents at nonzero packed offsets."""
+    from fa2_triton_tpu_torch.utils import mask_probes
+
+    seed = -(D * 7 + G)
+    got = mask_probes.dense_probes(2, 8, 8 // G, D, 0.3, seed, device=dev, dtype=dtype, q_off=37,
+                                   kv_off=11, rows=96, seqlen_q_real=500, seqlen_k_real=700)
+    got.update(mask_probes.packed_probes(8, 8 // G, D, 0.3, seed, device=dev, dtype=dtype))
+    torch.cuda.synchronize()
+    for name, (read, want, resid) in got.items():
+        assert torch.equal(read, want), (name, (read != want).sum().item())
+        assert resid <= mask_probes.RESIDUAL_TOL, (name, resid)
+
+
+def test_dropout_kernels_are_deterministic_in_the_seed(dev):
+    """The same seed gives bitwise-equal o / dq / dk / dv, seed + 1 others."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = [(torch.randn(2, 300, h, 128, generator=g, device=dev) * 0.5).to(torch.bfloat16)
+         for h in (8, 2, 2)]
+    do = torch.randn(2, 300, 8, 128, generator=g, device=dev).to(torch.bfloat16)
+
+    def run(seed):
+        leaves = [t.detach().requires_grad_() for t in x]
+        out = flash_attn_func(*leaves, causal=True, dropout_p=0.1, dropout_seed=seed)
+        out.backward(do)
+        return [out.detach()] + [t.grad for t in leaves]
+
+    a, a2, b = run(5), run(5), run(6)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, w) for u, w in zip(a, a2))
+    assert not any(torch.equal(u, w) for u, w in zip(a, b))
+
+
+def test_dropout_on_cuda_launches_the_kernels(dev):
+    """flash_attn_func and flash_attn_varlen_func with dropout on CUDA
+    tensors that require grad launch every kernel once (no plain twin stands
+    in), and their gradients match the same calls on the CPU, fp32."""
+    from fa2_triton_tpu_torch.ops import varlen
+
+    rng = torch.Generator().manual_seed(3)
+    x = [torch.randn(2, 150, h, 64, generator=rng) * 0.5 for h in (8, 2, 2)]
+    do = torch.randn(2, 150, 8, 64, generator=rng)
+    lens = (200, 1, 128)
+    starts, T = _varlen_layout(lens, (128, 128))
+    xv = [torch.randn(T, h, 64, generator=rng) * 0.5 for h in (8, 2, 2)]
+    dov = torch.randn(T, 8, 64, generator=rng)
+    results = []
+    for device in ("cpu", dev):
+        leaves = [t.detach().to(device).requires_grad_() for t in x + xv]
+        fwd0, bwd0, var0 = flash_fwd.LAUNCHES, dict(flash_bwd.LAUNCHES), dict(varlen.LAUNCHES)
+        out = flash_attn_func(*leaves[:3], causal=True, dropout_p=0.2, dropout_seed=-11)
+        (out * do.to(device)).sum().backward()
+        outv = varlen.flash_attn_varlen_func(*leaves[3:], starts + [T], seqlens=lens, causal=True,
+                                             block_q=128, block_kv=128, dropout_p=0.2,
+                                             dropout_seed=12)
+        (outv * dov.to(device)).sum().backward()
+        launched = (flash_fwd.LAUNCHES - fwd0, flash_bwd.LAUNCHES["flash_bwd_dq"] - bwd0["flash_bwd_dq"],
+                    flash_bwd.LAUNCHES["flash_bwd_dkdv"] - bwd0["flash_bwd_dkdv"],
+                    *(varlen.LAUNCHES[n] - var0[n] for n in sorted(var0)))
+        assert launched == ((0,) * 6 if device == "cpu" else (1,) * 6), launched
+        results.append([out.detach().cpu(), outv.detach().cpu()] + [t.grad.cpu() for t in leaves])
+    for a, b in zip(*results):
+        torch.testing.assert_close(b, a, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 4])
+def test_varlen_dropout_kernels_match_plain(dev, dtype, D, G):
+    lens = (300, 1, 128, 77)
+    blocks = VARLEN_BLOCKS[D]
+    starts, T = _varlen_layout(lens, blocks)
+    _varlen_check(dev, dtype, starts, lens, lens, T, 8, 8 // G, D, seed=D + G + 1,
+                  causal=True, softmax_scale=D ** -0.5, block_q=blocks[0], block_kv=blocks[1],
+                  dropout_p=0.2, dropout_seed=D - 3 * G)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_blocksparse_dropout_kernels_match_plain(dev, dtype):
+    import numpy as np
+    from fa2_triton_tpu_torch.ops import varlen
+
+    keep = varlen._mask_keep_fn(varlen.encode_block_mask(np.random.RandomState(0).rand(4, 4) < 0.6))
+    _varlen_check(dev, dtype, [0, 512], (512, 400), (512, 400), 1024, 8, 2, 128, seed=9,
+                  causal=True, softmax_scale=0.09, block_q=128, block_kv=128, keep_block=keep,
+                  dropout_p=0.3, dropout_seed=-1)
+
+
+@pytest.mark.parametrize("D", [32, 96, 160])
+def test_head_dims_off_the_kernel_widths_are_padded(dev, D):
+    """flash_attn_func, flash_attn_varlen_func and flash_attn_blocksparse_func
+    take any head_dim <= 256 on CUDA (zero-padded to 64 / 128 / 256 for the
+    kernels): outputs and gradients match the same calls on the CPU, fp32."""
+    from fa2_triton_tpu_torch.ops import varlen
+
+    rng = torch.Generator().manual_seed(D)
+    x = [torch.randn(2, 130, h, D, generator=rng) * 0.5 for h in (4, 2, 2)]
+    xv = [torch.randn(256, h, D, generator=rng) * 0.5 for h in (4, 2, 2)]
+    results = []
+    for device in ("cpu", dev):
+        leaves = [t.detach().to(device).requires_grad_() for t in x + xv]
+        outs = [flash_attn_func(*leaves[:3], causal=True, dropout_p=0.1, dropout_seed=D),
+                varlen.flash_attn_varlen_func(*leaves[3:], [0, 128, 256], seqlens=[100, 77],
+                                              causal=True, block_q=128, block_kv=128),
+                varlen.flash_attn_blocksparse_func(*leaves[:3], [[True, False], [True, True]],
+                                                   causal=True, block_q=128, block_kv=128)]
+        sum(o.float().square().sum() for o in outs).backward()
+        assert all(o.shape[-1] == D for o in outs)
+        results.append([o.detach().cpu() for o in outs] + [t.grad.cpu() for t in leaves])
+    for a, b in zip(*results):
+        torch.testing.assert_close(b, a, rtol=0, atol=1e-4)

@@ -35,6 +35,13 @@ def test_port_never_imports_jax():
         "                       block_q=128, block_kv=128).sum().backward()\n"
         "flash_attn_blocksparse_func(x[None], x[None], x[None], [[True, False], [True, True]],\n"
         "                            causal=True, block_q=128, block_kv=128).sum().backward()\n"
+        "import fa2_triton_tpu_torch.layers, fa2_triton_tpu_torch.utils.rng\n"
+        "import fa2_triton_tpu_torch.utils.mask_probes, fa2_triton_tpu_torch.examples.kernel_times\n"
+        "from fa2_triton_tpu_torch import FlashSelfAttention, flash_attn_func\n"
+        "layer = FlashSelfAttention(64, 2, num_kv_heads=1, causal=True, use_rope=True,\n"
+        "                           dropout_p=0.1, dropout_rng=__import__('torch').default_generator)\n"
+        "layer(__import__('torch').ones(1, 8, 64)).sum().backward()\n"
+        "flash_attn_func(x[None], x[None], x[None], dropout_p=0.2, dropout_seed=-3).sum().backward()\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith(('jax.', 'jaxlib', 'fa2_triton_tpu.')))\n"
         "assert not bad, bad\n"
         "print('ok')\n"

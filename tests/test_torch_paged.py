@@ -362,6 +362,37 @@ def test_sliding_window_releases_pages_like_jax(models):
     assert seen[1][1][-1] == total
 
 
+def test_per_layer_window_keeps_pages_like_the_contiguous_engine():
+    """window_pattern=(False, True): only layer 1 slides, so layer 0 still
+    reads the pages behind the window and none may be released. The JAX
+    paged Engine releases them anyway (ROADMAP.md queue C,
+    `runtime/serving.py:854-860`), so the port's paged Engine is held to
+    the JAX CONTIGUOUS Engine: tokens equal, log-probs within 1e-4, and no
+    page comes back before the request ends."""
+    kw = dict(vocab_size=128, dim=64, n_layers=2, n_heads=4, n_kv_heads=2, hidden_dim=128,
+              max_seq_len=512, sliding_window=64, window_pattern=(False, True))
+    jcfg = jl.LlamaConfig(dtype=jnp.float32, **kw)
+    tcfg = tl.LlamaConfig(dtype=torch.float32, **kw)
+    jp = jl.init_params(jax.random.PRNGKey(1), jcfg)
+    tm = llama_from_jax_params(jax.tree.map(np.asarray, jp), tcfg)
+    prompt = np.random.RandomState(10).randint(0, 128, size=250).tolist()
+    eng = Engine(tm, tcfg, n_slots=1, max_seq=512, paged=True, page_size=128)
+    req = eng.submit(prompt, max_new_tokens=10)
+    free = []
+    while not req.done:
+        eng.step()
+        free.append(eng.pcache.free_pages)
+    total = eng.pcache.cfg.n_pages - 1
+    # Prefill takes 2 pages and the 257th token a third; none returns early.
+    assert free[0] == total - 2 and free[-1] == total, free
+    assert all(a >= b for a, b in zip(free[:-1], free[1:-1])), free
+    j_engine = JaxEngine(jp, jcfg, n_slots=1, max_seq=512)
+    j_req = j_engine.submit(prompt, max_new_tokens=10)
+    j_engine.run()
+    assert req.out_tokens == j_req.out_tokens
+    np.testing.assert_allclose(req.out_logprobs, j_req.out_logprobs, rtol=0, atol=LP_TOL)
+
+
 
 def test_failed_admission_keeps_no_pages(models):
     """Two 200-token prompts on 3 usable pages of 128: the second admission

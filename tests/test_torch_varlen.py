@@ -259,11 +259,13 @@ def test_blocksparse_rows_with_no_kept_causal_column_match_the_oracle():
 
 def test_dropout_and_bad_layouts_raise():
     x = torch.zeros(256, 2, 64)
-    with pytest.raises(NotImplementedError, match="dropout.*A.6"):
-        varlen.flash_attn_varlen_func(x, x, x, [0, 256], dropout_p=0.1, dropout_seed=0)
-    with pytest.raises(NotImplementedError, match="dropout.*A.6"):
+    with pytest.raises(ValueError, match="dropout_seed or dropout_rng"):
+        varlen.flash_attn_varlen_func(x, x, x, [0, 256], dropout_p=0.1)
+    with pytest.raises(ValueError, match="dropout_seed or dropout_rng"):
         varlen.flash_attn_blocksparse_func(x[None], x[None], x[None], np.ones((1, 1), bool),
                                            block_q=256, block_kv=256, dropout_p=0.1)
+    with pytest.raises(ValueError, match=r"\[0, 1\)"):
+        varlen.flash_attn_varlen_func(x, x, x, [0, 256], dropout_p=1.0, dropout_seed=3)
     with pytest.raises(ValueError, match="aligned"):
         varlen.flash_attn_varlen_func(x, x, x, [0, 100, 256], block_q=128, block_kv=128)
     with pytest.raises(ValueError, match="block_mask"):
