@@ -58,19 +58,34 @@ the CUDA toolkit. Phases (any failure raises, and the script exits nonzero):
    counts reset just before; eval equal to `flash_attn_func` without
    dropout; remat gradients equal bit for bit); times with and without
    dropout.
+11. Long-context causal schedules at the same widths (B 1, bf16, causal, no
+   mask): the split (one diag launch over leaves of 2048, one rectangle
+   merged in place) at S 4096 and 4095, with split_leaf 1024 (three merged
+   rectangles), the diag and a 2048 x 2048 rectangle alone and merged, and
+   the strip at S 6144 and at 2048 queries against 4096 keys: launches of
+   each default route, every kernel against its plain twin (fp32, bf16, and
+   fp32 with dropout fed the same mask), the strip equal to the generic
+   kernel bit for bit, times against the generic kernel, the plain twins,
+   the library and the bound; `flash_attn_func` forward + backward at S 4096
+   through the split (FA rules against fp32; each of its four kernels'
+   device time); and `examples/train.py` at
+   full depth, batch 1 x seq 4096 (attention over 4095 tokens: the split),
+   with finite, falling losses and 2 x layers x steps diag and merged-rect
+   launches, none of the generic forward.
 
 Every kernel is also timed against PyTorch's own call for the same function
 (`library_ms`, where one exists) and its bound on the H100 (`bound_ms`: the
 larger of its operations over the tensor-core peak of its inputs' type —
 bf16, or int8/fp8 for the quantized decode — and its bytes over the HBM
 rate). The last line of stdout is a JSON object {"ok": true, "device":
-{...}}; the line before it lists each kernel's (ten, and six dropout
+{...}}; the line before it lists each kernel's (fourteen, and six dropout
 entries) launches, error, times and bound. Without a CUDA device, or without the package beside this
 script, it exits nonzero.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -680,26 +695,33 @@ def check_fp32_grad(torch, name, g, plain, what):
 
 
 def kernel_ms(torch, fn, names, iters=5):
-    """Device time per call of each named kernel over `iters` calls of
-    `fn`, from torch.profiler (kernel names contain `names`)."""
+    """Device time per launch of each named kernel (kernel names contain
+    `names`; each launches once per call of `fn`), from torch.profiler over
+    `iters` calls: the mean over the launches it recorded, printed with
+    their count. In this long process it can miss a launch that ran (the
+    packed forward with dropout: 4 of 5, while CUDA events time every call
+    at one launch); `acc_events` does not bring it back."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
     events = prof.key_averages()
     out = {}
     for name in names:
-        us = 0.0
-        for e in events:
-            if name in e.key:
-                us += getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-        if not us > 0:
-            raise AssertionError(f"the profiler recorded no device time for {name}")
-        out[name] = us / iters / 1e3
+        hits = [e for e in events if name in e.key]
+        us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+                 for e in hits)
+        n = sum(e.count for e in hits)
+        if not (us > 0 and 0 < n <= iters):
+            raise AssertionError(f"the profiler recorded {n} launches of {name} in {iters} calls, "
+                                 f"{us:.1f} us of device time")
+        out[name] = us / n / 1e3
+        print(f"[profiler] {name}: {out[name]:.3f} ms per launch over {n} of {iters} launches "
+              f"recorded")
     return out
 
 
@@ -889,29 +911,38 @@ def phase_train_grads(torch):
           f"launches {launches}")
 
 
+def run_trainer(torch, card: str, argv, reset, tag: str):
+    """Full-depth training steps through `examples/train.py` with the launch
+    counts reset (`reset`) after its warm-up: every loss finite and the last
+    below the first. Returns (the parsed args, train.run's result)."""
+    from fa2_triton_tpu_torch.examples import train
+
+    args = train.parse_args(argv)
+    res = train.run(args, on_warm=reset)
+    cfg, losses = res["config"], res["losses"]
+    print(f"[{tag}] Mistral-7B-v0.3 widths, {cfg.n_layers} layers, {res['n_params'] / 1e9:.2f} B "
+          f"params bf16, remat, AdamW(lr {args.lr}, wd 0.01) + clip {args.grad_clip}, {args.steps} "
+          f"steps of {args.batch} x {args.seq} on one repeated batch: losses "
+          f"{[round(x, 4) for x in losses]}; step s {[round(x, 3) for x in res['step_s']]}, "
+          f"{res['tokens_per_s']:.0f} tokens/s (median step), peak memory "
+          f"{res['peak_bytes'] / 2**30:.2f} GiB [{card}]")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"losses not finite or not falling: {losses}")
+    return args, res
+
+
 def phase_train(torch, card: str):
     """Full-depth training steps through `examples/train.py`."""
-    from fa2_triton_tpu_torch.examples import train
     from fa2_triton_tpu_torch.ops import flash_bwd, flash_fwd
-
-    args = train.parse_args(TRAIN_ARGV)
 
     def reset():
         flash_fwd.LAUNCHES = 0
         flash_bwd.reset_launches()
 
-    res = train.run(args, on_warm=reset)
+    args, res = run_trainer(torch, card, TRAIN_ARGV, reset, "train")
     launches = {"flash_fwd": flash_fwd.LAUNCHES, **flash_bwd.LAUNCHES}
-    cfg, losses = res["config"], res["losses"]
-    L, steps = cfg.n_layers, args.steps
-    print(f"[train] Mistral-7B-v0.3 widths, {L} layers, {res['n_params'] / 1e9:.2f} B params bf16, "
-          f"remat, AdamW(lr {args.lr}, wd 0.01) + clip {args.grad_clip}, {steps} steps of "
-          f"{args.batch} x {args.seq} on one repeated batch: losses {[round(x, 4) for x in losses]}; "
-          f"step s {[round(x, 3) for x in res['step_s']]}, {res['tokens_per_s']:.0f} tokens/s "
-          f"(median step), peak memory {res['peak_bytes'] / 2**30:.2f} GiB [{card}]")
+    L, steps = res["config"].n_layers, args.steps
     print(f"[train] launches: {launches}")
-    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
-        raise AssertionError(f"losses not finite or not falling: {losses}")
     want = {"flash_fwd": 2 * L * steps, "flash_bwd_dq": L * steps, "flash_bwd_dkdv": L * steps,
             "flash_bwd_dbias": 0}
     if launches != want:
@@ -1529,6 +1560,431 @@ def phase_dropout(torch, card):
     return runs, entries
 
 
+# Phase 11: long-context causal schedules at Mistral-7B-v0.3 attention widths
+# (32 / 8 heads, D 128, bf16, causal, no mask), B 1.
+LONG_SEQ = 4096                  # the 1 x 4096 trainer feeds attention 4095 tokens: the split
+STRIP_SEQ = 6144                 # the strip's default route (S 2049-3072 and 4097-7168)
+SHIFT_SQ, SHIFT_SK = 2048, 4096  # a 2048-token chunk against a 4096-token context: the strip
+LEAF = 2048                      # split_leaf_t(128, 2): the diag leaves at S 4096
+LONG_TRAIN_ARGV = ["--config", "mistral-7b-v0.3", "--steps", "3", "--batch", "1",
+                   "--seq", str(LONG_SEQ), "--remat", "--repeat-batch", "--lr", "3e-4",
+                   "--grad-clip", "1.0"]
+
+
+def sched_bound(pairs: int, rows: int, cols: int, extra_bytes: int = 0, Hq: int = 32,
+                Hkv: int = 8, D: int = 128, elt: int = 2) -> dict:
+    """Bound of a forward over `pairs` kept (query, key) pairs per q head (B
+    1): 4 D operations per pair and head; q / o of `rows` rows, k / v of
+    `cols` columns and the fp32 lse read or written once, + `extra_bytes`."""
+    nbytes = 2 * rows * Hq * D * elt + 2 * cols * Hkv * D * elt + rows * Hq * 4 + extra_bytes
+    return roofline(4 * D * pairs * Hq, nbytes)
+
+
+def shifted_pairs(Sq: int, Sk: int) -> int:
+    """Kept pairs of a bottom-right causal Sq x Sk problem (Sq <= Sk)."""
+    return sum(Sk - Sq + i + 1 for i in range(Sq))
+
+
+def hold_to_plain(torch, what, kernel, plain, x32, dtypes=None):
+    """kernel(q, k, v) against plain(q, k, v), each -> (o, lse), on the BHSD
+    views x32 cast to each dtype: fp32 within FP32_TOL of the plain twin,
+    bf16 within 2 x the bf16 plain twin's error + 5e-5 of the fp32 truth;
+    lse within LSE_TOL of the plain twin's, with its -inf pattern. Returns
+    {"err", "plain_err"} at bf16 (at fp32 when only fp32 is asked)."""
+    dtypes = dtypes or (torch.float32, torch.bfloat16)
+    o_ref = plain(*x32)[0]
+    res = {}
+    for dt in dtypes:
+        x = [t.to(dt) for t in x32]
+        o, lse = kernel(*x)
+        o_pl, lse_pl = plain(*x)
+        torch.cuda.synchronize()
+        lse_err = check_lse(torch, lse, lse_pl, f"{what} {dt}")
+        if dt == torch.float32:
+            pl_err, err = 0.0, max_abs(torch, o, o_pl)
+            bound, rule = FP32_TOL, "vs the fp32 plain twin"
+        else:
+            pl_err, err = max_abs(torch, o_pl, o_ref), max_abs(torch, o, o_ref)
+            bound = OUT_ERROR_MUL * pl_err + OUT_ERROR_BIAS
+            rule = f"vs fp32 truth, <= 2 x plain bf16 err {pl_err:.3e} + 5e-5"
+        print(f"[schedules] {what} {str(dt)[6:]}: max abs err {err:.3e} ({rule}), lse err "
+              f"{lse_err:.3e}")
+        if not err <= bound:
+            raise AssertionError(f"{what} {dt}: err {err:.3e} > {bound:.3e}")
+        res = {"err": err, "plain_err": pl_err}
+        del x, o, lse, o_pl, lse_pl
+    return res
+
+
+def sched_launches(flash_fwd):
+    return {"flash_fwd": flash_fwd.LAUNCHES, **flash_fwd.SCHEDULE_LAUNCHES}
+
+
+def expect_launches(flash_fwd, what, run, **want):
+    """Reset the counts, run, and require exactly `want` (0 for the rest)."""
+    flash_fwd.reset_launches()
+    out = run()
+    got = sched_launches(flash_fwd)
+    want = {n: want.get(n, 0) for n in got}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got} != {want}")
+    return out, got
+
+
+def turns(torch, fns, order, iters=5):
+    """CUDA-event ms of each named call, measured in the given order."""
+    t = {name: [] for name in fns}
+    for name in order:
+        t[name].append(cuda_ms(torch, fns[name], iters=iters, warmup=1))
+    return t
+
+
+def schedule_kernels(torch, card):
+    """Each schedule kernel held against its plain twin (fp32 and bf16, and
+    fp32 with dropout fed the same mask), the strip against the generic
+    kernel bit for bit, launches of each default route, and times: kernel,
+    plain, library, the generic kernel at the same shape, bound."""
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    from fa2_triton_tpu_torch.ops import flash_fwd as ff
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    Hq, Hkv, D = 32, 8, 128
+    scale = D ** -0.5
+    kw = dict(softmax_scale=scale)
+    drop = dict(dropout_p=DROPOUT_P, dropout_seed=DROPOUT_SEED)
+    bhsd = lambda x: x.transpose(1, 2)
+    bf = lambda x: x.to(torch.bfloat16)
+
+    def inputs(Sq, Sk):
+        x = [bhsd(torch.randn((1, s, h, D), generator=gen, device=dev) * 0.5)
+             for s, h in ((Sq, Hq), (Sk, Hkv), (Sk, Hkv))]
+        return x, torch.tensor([[Sq, Sk]], dtype=torch.int32, device=dev)
+
+    def library(x, Sq, Sk, causal):
+        fwd, out, _ = library_attention(torch, *(bhsd(t)[0].contiguous() for t in x), [Sq], [Sk],
+                                        causal, scale)
+        return fwd, out[0]
+
+    entries = {}
+    # -- the split at S 4095 and 4096: flash_attn_forward's default route ----
+    for S in (LONG_SEQ - 1, LONG_SEQ):
+        x32, lens = inputs(S, S)
+        route = ff.forward_route(S, S, D, 2, causal=True, static_skip=True)
+        if route != "split":
+            raise AssertionError(f"S {S}: route {route}, not the split")
+        split = lambda q, k, v, **d: ff.flash_attn_forward(q, k, v, lens, causal=True,
+                                                           static_skip=True, **kw, **d)
+        causal_plain = lambda q, k, v, **d: ff.flash_attn_forward_plain(q, k, v, lens, causal=True,
+                                                                        **kw, **d)
+        xb = [bf(t) for t in x32]
+        _, got = expect_launches(ff, f"split S {S}", lambda: split(*xb), causal_diag=1,
+                                 rect_merge=1)
+        print(f"[schedules] flash_attn_forward(causal, static_skip) B 1 x S {S}, Hq {Hq}, Hkv {Hkv}, "
+              f"D {D}, bf16: route {route}, launches {got}")
+        split_err = hold_to_plain(torch, f"split S {S}", split, causal_plain, x32)
+    # S 4096 from here on: times of the split against the generic kernel.
+    generic = lambda q, k, v: ff.flash_attn_forward(q, k, v, lens, causal=True, **kw)
+    t = turns(torch, {"generic": lambda: generic(*xb), "split": lambda: split(*xb)},
+              ("generic", "split", "split", "generic"))
+    per = kernel_ms(torch, lambda: split(*xb), ("causal_diag_kernel", "rect_kernel"))
+    split_plain = cuda_ms(torch, lambda: causal_plain(*xb), iters=2, warmup=1)
+    lib_fwd, lib_o = library(xb, S, S, True)
+    o_ref = causal_plain(*x32)[0]
+    check_library(torch, "split S 4096", lib_o, bhsd(o_ref)[0], split_err["plain_err"])
+    split_lib = cuda_ms(torch, lib_fwd)
+    split_bound = sched_bound(causal_pairs([S]), S, S)
+    print(f"[schedules] split S {S} bf16 [{card}]: {' / '.join(f'{v:.3f}' for v in t['split'])} ms "
+          f"(diag {per['causal_diag_kernel']:.3f} + rect_merge {per['rect_kernel']:.3f}, profiler); "
+          f"generic kernel {' / '.join(f'{v:.3f}' for v in t['generic'])} ms; plain {split_plain:.3f} "
+          f"ms; library (aten flash, causal) {split_lib:.3f} ms; bound {split_bound['bound_ms']:.3f} "
+          f"ms ({split_bound['bound_by']})")
+    del o_ref, lib_o
+
+    # -- the diag leaves alone (T 2048 on the S 4096 inputs) -----------------
+    diag = lambda q, k, v, **d: ff.flash_attn_forward_causal_diag(q, k, v, lens, T=LEAF, **kw, **d)
+    diag_plain = lambda q, k, v, **d: ff.flash_attn_forward_causal_diag_plain(q, k, v, lens, T=LEAF,
+                                                                              **kw, **d)
+    diag_err = hold_to_plain(torch, f"diag T {LEAF}", diag, diag_plain, x32)
+    diag_ms = cuda_ms(torch, lambda: diag(*xb))
+    diag_pms = cuda_ms(torch, lambda: diag_plain(*xb), iters=2, warmup=1)
+
+    def leaf_mask(b, h, qi, ki):
+        return (ki <= qi) & (qi // LEAF == ki // LEAF)
+
+    block_mask = create_block_mask(leaf_mask, None, None, S, S, device=dev, BLOCK_SIZE=128)
+    flex = torch.compile(flex_attention, dynamic=False)
+    qh, kh, vh = (t.contiguous() for t in xb)
+    t0 = time.perf_counter()
+    lib_o = flex(qh, kh, vh, block_mask=block_mask, scale=scale, enable_gqa=True)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    check_library(torch, "diag", lib_o, diag_plain(*x32)[0], diag_err["plain_err"])
+    diag_lib = cuda_ms(torch, lambda: flex(qh, kh, vh, block_mask=block_mask, scale=scale,
+                                           enable_gqa=True))
+    diag_bound = sched_bound(causal_pairs([LEAF] * (S // LEAF)), S, S)
+    print(f"[schedules] diag T {LEAF}, S {S} bf16 [{card}]: kernel {diag_ms:.3f} ms, plain "
+          f"{diag_pms:.3f} ms, library (flex_attention, block-diagonal causal mask, compiled in "
+          f"{compile_s:.1f} s) {diag_lib:.3f} ms, bound {diag_bound['bound_ms']:.4f} ms "
+          f"({diag_bound['bound_by']})")
+    entries["flash_fwd_causal_diag"] = {
+        "max_abs_err": diag_err["err"], "ms": diag_ms, "plain_ms": diag_pms,
+        "library_ms": diag_lib, **diag_bound,
+        "split_S4096": {"max_abs_err": split_err["err"], "ms": min(t["split"]),
+                        "ms_runs": t["split"], "generic_kernel_ms_runs": t["generic"],
+                        "diag_kernel_ms": per["causal_diag_kernel"],
+                        "rect_merge_kernel_ms": per["rect_kernel"], "plain_ms": split_plain,
+                        "library_ms": split_lib, "bound_ms": split_bound["bound_ms"]}}
+    del lib_o, qh, kh, vh
+
+    # -- the split with split_leaf 1024: four leaves, three rectangles -------
+    split4 = lambda q, k, v: ff.flash_attn_forward(q, k, v, lens, causal=True, static_skip=True,
+                                                   split_leaf=1024, **kw)
+    expect_launches(ff, "split_leaf 1024", lambda: split4(*xb), causal_diag=1, rect_merge=3)
+    hold_to_plain(torch, "split split_leaf 1024", split4, causal_plain, x32)
+    split4_ms = cuda_ms(torch, lambda: split4(*xb))
+    print(f"[schedules] split with split_leaf 1024 (1 diag + 3 merged rects): {split4_ms:.3f} ms "
+          f"[{card}]")
+
+    # -- one rectangle: rows [2048, 4096) x columns [0, 2048) ---------------
+    region = dict(row0=LEAF, col0=0, nrows=LEAF, ncols=LEAF)
+    rect = lambda q, k, v, **d: ff.flash_attn_forward_rect(q, k, v, lens, **region, **kw, **d)
+    rect_plain = lambda q, k, v, **d: ff.flash_attn_forward_rect_plain(q, k, v, lens, **region,
+                                                                       **kw, **d)
+    rect_err = hold_to_plain(torch, "rect", rect, rect_plain, x32)
+    rect_ms = cuda_ms(torch, lambda: rect(*xb))
+    rect_pms = cuda_ms(torch, lambda: rect_plain(*xb), iters=2, warmup=1)
+    lib_fwd, lib_o = library([xb[0][:, :, LEAF:], xb[1][:, :, :LEAF], xb[2][:, :, :LEAF]], LEAF,
+                             LEAF, False)
+    check_library(torch, "rect", lib_o, bhsd(rect_plain(*x32)[0])[0], rect_err["plain_err"])
+    rect_lib = cuda_ms(torch, lib_fwd)
+    rect_bound = sched_bound(LEAF * LEAF, LEAF, LEAF)
+    print(f"[schedules] rect {LEAF} x {LEAF} bf16 [{card}]: kernel {rect_ms:.3f} ms, plain "
+          f"{rect_pms:.3f} ms, library (aten flash on the region, not causal) {rect_lib:.3f} ms, "
+          f"bound {rect_bound['bound_ms']:.4f} ms ({rect_bound['bound_by']})")
+    entries["flash_fwd_rect"] = {"max_abs_err": rect_err["err"], "ms": rect_ms, "plain_ms": rect_pms,
+                                 "library_ms": rect_lib, **rect_bound}
+    del lib_o
+
+    # -- the same rectangle merged into the diag leaves' (o, lse) -----------
+    def merged(rect_fn):
+        """The rectangle merged into the diag kernel's (o, lse), made anew."""
+        def run(q, k, v, **d):
+            return rect_fn(q, k, v, lens, **region, merge_prev=diag(q, k, v, **d), **kw, **d)
+        return run
+    merge, merge_plain = merged(ff.flash_attn_forward_rect), merged(ff.flash_attn_forward_rect_plain)
+    merge_err = hold_to_plain(torch, "rect_merge", merge, merge_plain, x32)
+    prev = diag(*xb)
+    merge_ms = cuda_ms(torch, lambda: ff.flash_attn_forward_rect(*xb, lens, **region, merge_prev=prev,
+                                                                 **kw))
+    merge_pms = cuda_ms(torch, lambda: ff.flash_attn_forward_rect_plain(
+        *xb, lens, **region, merge_prev=prev, **kw), iters=2, warmup=1)
+    # + the previous o and lse of the region's rows, read once.
+    merge_bound = sched_bound(LEAF * LEAF, LEAF, LEAF, extra_bytes=LEAF * Hq * (D * 2 + 4))
+    print(f"[schedules] rect_merge {LEAF} x {LEAF} bf16 [{card}]: kernel {merge_ms:.3f} ms, plain "
+          f"{merge_pms:.3f} ms, library none (no PyTorch call merges two (o, lse) partials), bound "
+          f"{merge_bound['bound_ms']:.4f} ms ({merge_bound['bound_by']})")
+    entries["flash_fwd_rect_merge"] = {"max_abs_err": merge_err["err"], "ms": merge_ms,
+                                       "plain_ms": merge_pms, "library_ms": None, **merge_bound}
+
+    # -- dropout: fp32 against the plain twins fed the same mask -----------
+    for what, k_fn, p_fn in (("split", split, causal_plain), ("diag", diag, diag_plain),
+                             ("rect", rect, rect_plain), ("rect_merge", merge, merge_plain)):
+        hold_to_plain(torch, f"{what} dropout p {DROPOUT_P} (the same mask)",
+                      functools.partial(k_fn, **drop), functools.partial(p_fn, **drop), x32,
+                      (torch.float32,))
+    del x32, xb, prev
+
+    # -- the strip: S 6144, and Sq 2048 against Sk 4096 ---------------------
+    strip_entry = {}
+    for Sq, Sk in ((STRIP_SEQ, STRIP_SEQ), (SHIFT_SQ, SHIFT_SK)):
+        x32, lens = inputs(Sq, Sk)
+        route = ff.forward_route(Sq, Sk, D, 2, causal=True, static_skip=True)
+        if route != "strip":
+            raise AssertionError(f"Sq {Sq} / Sk {Sk}: route {route}, not the strip")
+        strip = lambda q, k, v, **d: ff.flash_attn_forward(q, k, v, lens, causal=True,
+                                                           static_skip=True, **kw, **d)
+        generic = lambda q, k, v, **d: ff.flash_attn_forward(q, k, v, lens, causal=True, **kw, **d)
+        causal_plain = lambda q, k, v, **d: ff.flash_attn_forward_plain(q, k, v, lens, causal=True,
+                                                                        **kw, **d)
+        xb = [bf(t) for t in x32]
+        expect_launches(ff, f"strip {Sq} / {Sk}", lambda: strip(*xb), causal_strip=1)
+        err = hold_to_plain(torch, f"strip {Sq} / {Sk}", strip, causal_plain, x32)
+        if Sq == SHIFT_SQ:
+            hold_to_plain(torch, f"strip {Sq} / {Sk} dropout p {DROPOUT_P} (the same mask)",
+                          functools.partial(strip, **drop), functools.partial(causal_plain, **drop),
+                          x32, (torch.float32,))
+        for extra in ({}, drop):
+            for dt in (torch.float32, torch.bfloat16):
+                x = [t.to(dt) for t in x32]
+                o_s, l_s = strip(*x, **extra)
+                o_g, l_g = generic(*x, **extra)
+                torch.cuda.synchronize()
+                if not (torch.equal(o_s, o_g) and torch.equal(l_s, l_g)):
+                    raise AssertionError(f"strip {Sq} / {Sk} {dt} {extra}: not the generic kernel's "
+                                         f"o / lse bit for bit")
+                del x, o_s, l_s, o_g, l_g
+        t = turns(torch, {"generic": lambda: generic(*xb), "strip": lambda: strip(*xb)},
+                  ("generic", "strip", "strip", "generic"))
+        pms = cuda_ms(torch, lambda: causal_plain(*xb), iters=2, warmup=1)
+        lib_fwd, lib_o = library(xb, Sq, Sk, True)
+        check_library(torch, f"strip {Sq} / {Sk}", lib_o, bhsd(causal_plain(*x32)[0])[0],
+                      err["plain_err"])
+        lib_ms = cuda_ms(torch, lib_fwd)
+        bound = sched_bound(shifted_pairs(Sq, Sk), Sq, Sk)
+        print(f"[schedules] strip Sq {Sq} / Sk {Sk} bf16 [{card}]: o and lse equal to the generic "
+              f"kernel's bit for bit (fp32, bf16, with and without dropout); strip "
+              f"{' / '.join(f'{v:.3f}' for v in t['strip'])} ms, generic "
+              f"{' / '.join(f'{v:.3f}' for v in t['generic'])} ms, plain {pms:.3f} ms, library "
+              f"(aten flash, causal) {lib_ms:.3f} ms, bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']})")
+        strip_entry[(Sq, Sk)] = {"max_abs_err": err["err"], "ms": min(t["strip"]),
+                                 "ms_runs": t["strip"], "generic_kernel_ms_runs": t["generic"],
+                                 "plain_ms": pms, "library_ms": lib_ms, **bound}
+        del x32, xb, lib_o
+    entries["flash_fwd_causal_strip"] = dict(strip_entry[(STRIP_SEQ, STRIP_SEQ)],
+                                             shifted_2048_4096=strip_entry[(SHIFT_SQ, SHIFT_SK)])
+    return entries
+
+
+def long_flash_attn_func(torch):
+    """flash_attn_func forward + backward at B 1 x S 4096 (bf16, causal, no
+    mask), launch counts reset just before: the split forward, then the
+    ported dq and dk/dv kernels on its o and lse; output and gradients meet
+    the FA rules against the fp32 plain twins."""
+    from fa2_triton_tpu_torch.ops import flash_attn_func, flash_bwd, flash_fwd
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    S, D = LONG_SEQ, 128
+    x32 = [torch.randn((1, S, h, D), generator=gen, device=dev) * 0.5 for h in (32, 8, 8)]
+    do32 = torch.randn((1, S, 32, D), generator=gen, device=dev)
+    leaves = [x.to(torch.bfloat16).requires_grad_() for x in x32]
+    do = do32.to(torch.bfloat16)
+    flash_fwd.reset_launches()
+    flash_bwd.reset_launches()
+    out, lse = flash_attn_func(*leaves, causal=True, return_lse=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    launches = {**sched_launches(flash_fwd), **flash_bwd.LAUNCHES}
+    print(f"[schedules] flash_attn_func(causal) + backward, B 1 x S {S}, Hq 32, Hkv 8, D {D}, "
+          f"bf16: launches {launches}")
+    want = {"flash_fwd": 0, "causal_strip": 0, "causal_diag": 1, "rect": 0, "rect_merge": 1,
+            "flash_bwd_dq": 1, "flash_bwd_dkdv": 1, "flash_bwd_dbias": 0}
+    if launches != want:
+        raise AssertionError(f"flash_attn_func at S {S}: launches {launches} != {want}")
+    bhsd = lambda x: x.transpose(1, 2)
+    lens = torch.tensor([[S, S]], dtype=torch.int32, device=dev)
+    kw = dict(causal=True, softmax_scale=D ** -0.5)
+    with torch.no_grad():
+        o32, lse32 = flash_fwd.flash_attn_forward_plain(*(bhsd(x) for x in x32), lens, **kw)
+        q, k, v = (bhsd(x.detach()) for x in leaves)
+        o_pl, _ = flash_fwd.flash_attn_forward_plain(q, k, v, lens, **kw)
+        out_err, pl_err = max_abs(torch, bhsd(out), o32), max_abs(torch, o_pl, o32)
+        if not out_err <= OUT_ERROR_MUL * pl_err + OUT_ERROR_BIAS:
+            raise AssertionError(f"S {S} forward: err {out_err:.3e} > 2 x plain {pl_err:.3e} + 5e-5")
+        refs = flash_bwd.flash_attn_backward_plain(*(bhsd(x) for x in x32), bhsd(do32), o32, lse32,
+                                                   lens, **kw)
+        del o32, lse32, o_pl
+        plains = flash_bwd.flash_attn_backward_plain(q, k, v, bhsd(do), bhsd(out.detach()),
+                                                     lse.detach(), lens, **kw)
+    errs = {n: check_grad(torch, n, bhsd(x.grad), r, pl, f"S {S}")[0]
+            for n, x, r, pl in zip(("dq", "dk", "dv"), leaves, refs, plains)}
+    print(f"[schedules] S {S} through the split: out err {out_err:.3e} (<= 2 x plain {pl_err:.3e} + "
+          f"5e-5); grad errs vs fp32 " + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+          + " (FA gradient contract)")
+    del refs, plains
+    # The attention of one layer of the 1 x 4096 trainer: device time of
+    # each kernel of a forward + backward (PERF.md's step breakdown).
+    per = kernel_ms(torch, lambda: flash_attn_func(*leaves, causal=True).backward(do),
+                    ("causal_diag_kernel", "rect_kernel", "dq_kernel", "dkdv_kernel"))
+    print(f"[schedules] flash_attn_func fwd + bwd B 1 x S {S} bf16 kernels (profiler, per launch): "
+          + ", ".join(f"{n} {ms:.3f} ms" for n, ms in per.items())
+          + f"; attention of one layer {sum(per.values()):.3f} ms")
+    return launches
+
+
+def strip_and_rect_paths(torch):
+    """The strip's default routes through flash_attn_func (forward, S 6144
+    and a 2048-query chunk against 4096 keys) and the rectangle through its
+    own entry point (the split always merges, as in JAX), each with the
+    launch counts reset just before. Returns their launches."""
+    from fa2_triton_tpu_torch.ops import flash_attn_func, flash_fwd
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(10)
+    D, runs = 128, {}
+    for Sq, Sk in ((STRIP_SEQ, STRIP_SEQ), (SHIFT_SQ, SHIFT_SK)):
+        q, k, v = (torch.randn((1, s, h, D), generator=gen, device=dev).to(torch.bfloat16)
+                   for s, h in ((Sq, 32), (Sk, 8), (Sk, 8)))
+        with torch.no_grad():
+            out, got = expect_launches(flash_fwd, f"flash_attn_func {Sq} / {Sk}",
+                                       lambda: flash_attn_func(q, k, v, causal=True),
+                                       causal_strip=1)
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"flash_attn_func {Sq} / {Sk}: non-finite output")
+        runs[f"flash_attn_func {Sq} / {Sk}"] = got
+        del q, k, v, out
+    q, k, v = (torch.randn((1, h, LONG_SEQ, D), generator=gen, device=dev).to(torch.bfloat16)
+               for h in (32, 8, 8))
+    lens = torch.tensor([[LONG_SEQ, LONG_SEQ]], dtype=torch.int32, device=dev)
+    (o, lse), got = expect_launches(flash_fwd, "flash_attn_forward_rect", lambda: (
+        flash_fwd.flash_attn_forward_rect(q, k, v, lens, row0=LEAF, col0=0, nrows=LEAF, ncols=LEAF,
+                                          softmax_scale=D ** -0.5)), rect=1)
+    if o.shape != (1, 32, LEAF, D) or not torch.isfinite(lse).all():
+        raise AssertionError("flash_attn_forward_rect: bad region output")
+    runs["flash_attn_forward_rect"] = got
+    print(f"[schedules] launches by run: {runs}")
+    return runs
+
+
+def long_train(torch, card: str):
+    """The trainer at batch 1 x seq 4096, full depth: attention over 4095
+    tokens takes the split (diag + one merged rectangle per layer call)."""
+    from fa2_triton_tpu_torch.ops import flash_bwd, flash_fwd
+
+    def reset():
+        flash_fwd.reset_launches()
+        flash_bwd.reset_launches()
+
+    args, res = run_trainer(torch, card, LONG_TRAIN_ARGV, reset, "schedules train")
+    launches = {**sched_launches(flash_fwd), **flash_bwd.LAUNCHES}
+    L, steps = res["config"].n_layers, args.steps
+    print(f"[schedules train] launches: {launches}")
+    want = {"flash_fwd": 0, "causal_strip": 0, "causal_diag": 2 * L * steps, "rect": 0,
+            "rect_merge": 2 * L * steps, "flash_bwd_dq": L * steps, "flash_bwd_dkdv": L * steps,
+            "flash_bwd_dbias": 0}
+    if launches != want:
+        raise AssertionError(f"1 x {LONG_SEQ} training launches {launches} != {want} (layers x "
+                             f"steps, x2 for remat)")
+    return launches
+
+
+def phase_schedules(torch, card: str):
+    """Phase 11: the causal forward schedules. Returns (launches by run,
+    kernel entries)."""
+    from fa2_triton_tpu_torch.ops import flash_fwd
+
+    t0 = time.perf_counter()
+    if any(flash_fwd.SCHEDULE_LAUNCHES.values()):
+        raise AssertionError(f"phases 1-10 launched a schedule kernel: {flash_fwd.SCHEDULE_LAUNCHES}")
+    print("[schedules] phases 1-10 launched no schedule kernel: "
+          f"{dict(flash_fwd.SCHEDULE_LAUNCHES)}")
+    entries = schedule_kernels(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs = {"flash_attn_func S 4096": long_flash_attn_func(torch)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs.update(strip_and_rect_paths(torch))
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs["train"] = long_train(torch, card)
+    print(f"[schedules] phase 11 took {time.perf_counter() - t0:.1f} s")
+    return runs, entries
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1580,6 +2036,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     dropout_runs, dropout_kernels = phase_dropout(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sched_runs, sched_kernels = phase_schedules(torch, card)
 
     if any(name == "jax" or name.startswith(("jax.", "fa2_triton_tpu.")) for name in sys.modules):
         raise RuntimeError("the port imported jax or the JAX package")
@@ -1644,6 +2103,27 @@ def main() -> int:
             "replaces": f"fa2_triton_tpu/ops/varlen.py:{line}",
             "also_replaces": "fa2_triton_tpu/ops/varlen.py:214 (_packed_dropout_bits)",
             "launches": dropout_runs["varlen"][name], **dropout_kernels[f"{name}_dropout"]})
+    for name, source, replaces, also, launches, extra in (
+            ("flash_fwd_causal_strip", "flash_fwd_causal.cu", "flash_fwd.py:640",
+             "fa2_triton_tpu/ops/flash_fwd.py:779 (flash_attn_forward_causal_strip)",
+             sched_runs[f"flash_attn_func {STRIP_SEQ} / {STRIP_SEQ}"]["causal_strip"],
+             {"launches_shifted_2048_4096":
+              sched_runs[f"flash_attn_func {SHIFT_SQ} / {SHIFT_SK}"]["causal_strip"]}),
+            ("flash_fwd_causal_diag", "flash_fwd_causal.cu", "flash_fwd.py:454",
+             "diag_stride / leaf_subs mode of fa2_triton_tpu/ops/flash_fwd.py:969 "
+             "(flash_attn_forward_causal_diag)", sched_runs["train"]["causal_diag"],
+             {"launches_flash_attn_func": sched_runs["flash_attn_func S 4096"]["causal_diag"]}),
+            ("flash_fwd_rect", "flash_fwd_rect.cu", "flash_fwd.py:1041",
+             "fa2_triton_tpu/ops/flash_fwd.py:434 (_fwd_kernel_nobias on a rectangle)",
+             sched_runs["flash_attn_forward_rect"]["rect"], {}),
+            ("flash_fwd_rect_merge", "flash_fwd_rect.cu", "flash_fwd.py:447",
+             "fa2_triton_tpu/ops/flash_fwd.py:367-381 (the merge finaliser), driven by "
+             "_causal_split_forward l.1165", sched_runs["train"]["rect_merge"],
+             {"launches_flash_attn_func": sched_runs["flash_attn_func S 4096"]["rect_merge"]})):
+        table["kernels"].append({
+            "name": name, "route": "cuda", "source": f"fa2_triton_tpu_torch/csrc/{source}",
+            "replaces": f"fa2_triton_tpu/ops/{replaces}", "also_replaces": also,
+            "launches": launches, **extra, **sched_kernels[name]})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps(table))

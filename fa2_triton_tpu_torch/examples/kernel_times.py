@@ -37,21 +37,25 @@ def parse_args(argv=None):
 
 def device_ms(torch, fn, names, iters):
     """Profiler device time per call of each kernel whose name contains one
-    of `names`."""
+    of `names` (each launches once per call of `fn`); each kernel must show
+    exactly `iters` launches, or the time would be a partial record's."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
     out = {}
     for name in names:
+        hits = [e for e in prof.key_averages() if name in e.key]
         us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-                 for e in prof.key_averages() if name in e.key)
-        if not us > 0:
-            raise RuntimeError(f"the profiler recorded no device time for {name}")
+                 for e in hits)
+        n = sum(e.count for e in hits)
+        if not (us > 0 and n == iters):
+            raise RuntimeError(f"the profiler recorded {n} launches of {name} in {iters} calls, "
+                               f"{us:.1f} us of device time")
         out[name] = us / iters / 1e3
     return out
 

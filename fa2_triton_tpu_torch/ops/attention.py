@@ -16,6 +16,9 @@ are sliced off (their gradients with them).
 base-2 LSE through `ops/flash_bwd.py`, taking both cotangents (do, dlse) and
 returning a real dbias when the bias requires grad. CPU tensors run the
 plain twins of the kernels on both passes; CUDA tensors run the kernels.
+The forward takes `flash_fwd.flash_attn_forward`'s causal routing (the
+split or strip schedule for long causal calls without a mask, as JAX
+routes them); the backward is the same for every route.
 
 Dropout is the JAX package's counter-hash stream (`utils/rng.py`), seeded
 by the seed contract of JAX `attention.py:240-256`: with `dropout_p > 0`,
@@ -89,10 +92,13 @@ class _AttnCore(torch.autograd.Function):
     static config are not differentiated."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, lens, causal, scale, window, softcap, dropout_p, seed):
+    def forward(ctx, q, k, v, bias, lens, causal, scale, window, softcap, dropout_p, seed, varlen):
         cfg = dict(causal=causal, softmax_scale=scale, window=window, softcap=softcap,
                    dropout_p=dropout_p, dropout_seed=seed)
-        o, lse = flash_attn_forward(q, k, v, lens, 0, 0, bias, **cfg)
+        # JAX attention.py:258-271: the shift is static (Sk - Sq, or 0 under
+        # a shared padding mask), so the causal schedules may route.
+        o, lse = flash_attn_forward(q, k, v, lens, 0, 0, bias, static_skip=True, varlen=varlen,
+                                    **cfg)
         ctx.save_for_backward(q, k, v, bias, o, lse, lens)
         ctx.cfg = cfg
         return o, lse
@@ -104,7 +110,7 @@ class _AttnCore(torch.autograd.Function):
         grads = flash_attn_backward(q, k, v, do, o, lse, lens, 0, 0, bias, dlse=dlse,
                                     compute_dbias=want_dbias, **ctx.cfg)
         dbias = grads[3] if want_dbias else None
-        return (grads[0], grads[1], grads[2], dbias) + (None,) * 7
+        return (grads[0], grads[1], grads[2], dbias) + (None,) * 8
 
 
 def flash_attn_func(
@@ -179,7 +185,8 @@ def flash_attn_func(
     Dp = pad_head_dim(D, q.device)
     o, lse = _AttnCore.apply(
         *(pad_last(x, Dp).transpose(1, 2) for x in (q, k, v)), bias, lens,
-        causal, scale, tuple(window_size), float(softcap), float(dropout_p), seed)
+        causal, scale, tuple(window_size), float(softcap), float(dropout_p), seed,
+        attention_mask is not None)
     out = o.transpose(1, 2)[..., :D]
     if return_lse:
         return out, lse

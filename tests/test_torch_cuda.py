@@ -860,3 +860,130 @@ def test_head_dims_off_the_kernel_widths_are_padded(dev, D):
         results.append([o.detach().cpu() for o in outs] + [t.grad.cpu() for t in leaves])
     for a, b in zip(*results):
         torch.testing.assert_close(b, a, rtol=0, atol=1e-4)
+
+
+# ------------- causal forward schedules (B10, B9 diag, B11, B1 merge) -------------
+
+# Each case: (Sq, Sk, lens, the call). S 300 with leaves of 128: the last leaf
+# is short, batch row 1 has a dead tail past 211 rows; the shifted strip has
+# Sk - Sq = 128. The rectangle is the split's first: rows [128, 300) against
+# columns [0, 128).
+RECT = dict(row0=128, col0=0, nrows=256, ncols=128)
+SCHEDULE_CASES = {
+    "strip": (300, 300, [[300, 300], [211, 211]],
+              lambda f, q, k, v, lens, prev, **kw: f.flash_attn_forward_causal_strip(q, k, v, lens, **kw)),
+    "strip_shifted": (172, 300, [[172, 300]] * 2,
+                      lambda f, q, k, v, lens, prev, **kw: f.flash_attn_forward_causal_strip(q, k, v, lens, **kw)),
+    "diag": (300, 300, [[300, 300], [211, 211]],
+             lambda f, q, k, v, lens, prev, **kw: f.flash_attn_forward_causal_diag(q, k, v, lens, T=128, **kw)),
+    "rect": (300, 300, [[300, 300], [211, 211]],
+             lambda f, q, k, v, lens, prev, **kw: f.flash_attn_forward_rect(q, k, v, lens, **RECT, **kw)),
+    "rect_merge": (300, 300, [[300, 300], [211, 211]],
+                   lambda f, q, k, v, lens, prev, **kw: f.flash_attn_forward_rect(
+                       q, k, v, lens, **RECT, merge_prev=prev, **kw)),
+    "split": (300, 300, [[300, 300], [211, 211]],
+              lambda f, q, k, v, lens, prev, **kw: f.flash_attn_forward(
+                  q, k, v, lens, causal=True, static_skip=True, tri_square=False, causal_split=True,
+                  split_leaf=128, **kw)),
+}
+SCHEDULE_LAUNCH_DELTAS = {
+    "strip": {"causal_strip": 1}, "strip_shifted": {"causal_strip": 1},
+    "diag": {"causal_diag": 1}, "rect": {"rect": 1}, "rect_merge": {"rect_merge": 1},
+    "split": {"causal_diag": 1, "rect_merge": 2},   # three leaves: causal_split_rects(3)
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("case", list(SCHEDULE_CASES))
+@pytest.mark.parametrize("dropout_p", [0.0, 0.2])
+def test_schedule_kernels_match_plain(dev, dtype, D, case, dropout_p):
+    """Each schedule kernel against its plain twin (the same entry point on
+    CPU copies): fp32 1e-4, fp16 / bf16 the FA rule against the fp32 plain;
+    lse 1e-4 with the same -inf pattern; the launches each call makes, and
+    none of csrc/flash_fwd.cu. The merge starts from the diag kernel's
+    (o, lse), copied to each side."""
+    Sq, Sk, lens, call = SCHEDULE_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(D + len(case))
+    x32 = [(torch.randn(2, s, h, D, generator=g, device=dev) * 0.5).transpose(1, 2)
+           for s, h in ((Sq, 4), (Sk, 2), (Sk, 2))]
+    lens = torch.tensor(lens, dtype=torch.int32)
+    kw = dict(softmax_scale=D ** -0.5, dropout_p=dropout_p, dropout_seed=D - 7 * len(case))
+    x = [t.to(dtype) for t in x32]
+    prev = prev32 = prev_lp = None
+    if case == "rect_merge":
+        prev = flash_fwd.flash_attn_forward_causal_diag(*x, lens.to(dev), T=128, **kw)
+        prev32 = (prev[0].float().cpu(), prev[1].cpu())
+        prev_lp = tuple(t.cpu() for t in prev)
+    ref = call(flash_fwd, *(t.cpu() for t in x32), lens, prev32, **kw)
+    plain = call(flash_fwd, *(t.cpu() for t in x), lens, prev_lp, **kw)
+    before, fwd0 = dict(flash_fwd.SCHEDULE_LAUNCHES), flash_fwd.LAUNCHES
+    o, lse = call(flash_fwd, *x, lens.to(dev), prev, **kw)
+    torch.cuda.synchronize()
+    delta = {n: c - before[n] for n, c in flash_fwd.SCHEDULE_LAUNCHES.items() if c != before[n]}
+    assert delta == SCHEDULE_LAUNCH_DELTAS[case] and flash_fwd.LAUNCHES == fwd0, delta
+    assert o.shape == plain[0].shape and o.dtype == dtype
+    _check(o.cpu(), ref[0], plain[0], dtype)
+    lse, lse_pl = lse.cpu(), plain[1]
+    assert torch.equal(torch.isinf(lse), torch.isinf(lse_pl))
+    fin = torch.isfinite(lse_pl)
+    assert (lse[fin] - lse_pl[fin]).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("Sq,Sk", [(300, 300), (172, 300), (700, 700)])
+@pytest.mark.parametrize("dropout_p", [0.0, 0.2])
+def test_strip_equals_the_generic_kernel_bit_for_bit(dev, dtype, D, Sq, Sk, dropout_p):
+    """The strip keeps flash_fwd.cu's tile order and arithmetic and only
+    drops the mask test below the diagonal: o and lse are equal bit for bit,
+    dead rows included."""
+    g = torch.Generator(device=dev).manual_seed(D + Sq)
+    q, k, v = ((torch.randn(2, s, h, D, generator=g, device=dev) * 0.5).to(dtype).transpose(1, 2)
+               for s, h in ((Sq, 4), (Sk, 2), (Sk, 2)))
+    lens = torch.tensor([[Sq, Sk], [Sq - 57, Sk - 57]], dtype=torch.int32, device=dev)
+    kw = dict(softmax_scale=D ** -0.5, dropout_p=dropout_p, dropout_seed=Sq)
+    o_s, lse_s = flash_fwd.flash_attn_forward_causal_strip(q, k, v, lens, **kw)
+    o_g, lse_g = flash_fwd.flash_attn_forward(q, k, v, lens, causal=True, **kw)
+    torch.cuda.synchronize()
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(o_s.contiguous().view(bits), o_g.contiguous().view(bits))
+    assert torch.equal(lse_s.view(torch.int32), lse_g.view(torch.int32))
+
+
+@pytest.mark.parametrize("D,S,route", [(64, 2560, "strip"), (128, 4095, "split"),
+                                       (256, 2048, "split")])
+def test_flash_attn_func_routes_long_causal_calls(dev, D, S, route):
+    """The public call, bf16, B 1, 4 / 2 heads: D 64 at S 2560 takes the
+    strip, D 128 at S 4095 and D 256 at S 2048 (split_leaf_t 1024) the split;
+    the launches follow, the generic forward launches none, and output and
+    gradients (dq / dk/dv kernels on the schedule's o and lse) meet the FA
+    rules against the fp32 plain twins."""
+    from fa2_triton_tpu_torch.ops import flash_bwd
+
+    assert flash_fwd.forward_route(S, S, D, 2, causal=True, static_skip=True) == route
+    g = torch.Generator(device=dev).manual_seed(D)
+    x32 = [torch.randn(1, S, h, D, generator=g, device=dev) * 0.5 for h in (4, 2, 2)]
+    do32 = torch.randn(1, S, 4, D, generator=g, device=dev)
+    leaves = [t.to(torch.bfloat16).requires_grad_() for t in x32]
+    before, fwd0, bwd0 = dict(flash_fwd.SCHEDULE_LAUNCHES), flash_fwd.LAUNCHES, dict(flash_bwd.LAUNCHES)
+    out, lse = flash_attn_func(*leaves, causal=True, return_lse=True)
+    out.backward(do32.to(torch.bfloat16))
+    torch.cuda.synchronize()
+    delta = {n: c - before[n] for n, c in flash_fwd.SCHEDULE_LAUNCHES.items() if c != before[n]}
+    want = {"causal_strip": 1} if route == "strip" else {"causal_diag": 1, "rect_merge": 1}
+    assert delta == want and flash_fwd.LAUNCHES == fwd0, delta
+    assert {n: flash_bwd.LAUNCHES[n] - bwd0[n] for n in bwd0} == {
+        "flash_bwd_dq": 1, "flash_bwd_dkdv": 1, "flash_bwd_dbias": 0}
+    t = lambda x: x.transpose(1, 2)
+    lens = torch.tensor([[S, S]], dtype=torch.int32, device=dev)
+    kw = dict(causal=True, softmax_scale=D ** -0.5)
+    o32, lse32 = flash_fwd.flash_attn_forward_plain(*(t(x) for x in x32), lens, **kw)
+    q, k, v = (t(x.detach()) for x in leaves)
+    o_pl, lse_pl = flash_fwd.flash_attn_forward_plain(q, k, v, lens, **kw)
+    _check(t(out), o32, o_pl, torch.bfloat16)
+    assert (lse - lse_pl).abs().max().item() <= 1e-4
+    refs = flash_bwd.flash_attn_backward_plain(*(t(x) for x in x32), t(do32), o32, lse32, lens, **kw)
+    plains = flash_bwd.flash_attn_backward_plain(q, k, v, t(do32.to(torch.bfloat16)),
+                                                 t(out.detach()), lse.detach(), lens, **kw)
+    _check_grads([t(x.grad) for x in leaves], refs, plains, torch.bfloat16)
