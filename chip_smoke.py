@@ -72,13 +72,27 @@ the CUDA toolkit. Phases (any failure raises, and the script exits nonzero):
    full depth, batch 1 x seq 4096 (attention over 4095 tokens: the split),
    with finite, falling losses and 2 x layers x steps diag and merged-rect
    launches, none of the generic forward.
+12. The causal backward schedules at Qwen1.5-7B attention widths (32 / 32
+   heads, D 128, bf16, causal, no mask): the tri-square (B13) at B 2 x S
+   2047, the work list (B14) at B 1 x S 8191 (four strips of 2048) and the
+   split forced with split_leaf 2048 at S 4096 (one diag launch over two
+   leaves, one rect), each reached through `flash_attn_backward`'s routing
+   with its launches counted, each kernel held against its plain twin
+   (fp32, bf16 under the FA gradient contract, fp32 with dropout fed the
+   same mask, two runs equal bit for bit) and timed against the generic
+   dq + dk/dv pair, its plain twin, the library and its bound; then
+   `examples/train.py --config qwen1.5-7b` at full depth, 2 x 2048
+   (attention over 2047 tokens: the tri-square backward) and 1 x 8192 (the
+   work list; 1 x 6144, the same route, only if 8192 runs out of memory),
+   with finite, falling losses and layers x steps launches of the
+   schedule's kernel, none of the dq / dk/dv pair.
 
 Every kernel is also timed against PyTorch's own call for the same function
 (`library_ms`, where one exists) and its bound on the H100 (`bound_ms`: the
 larger of its operations over the tensor-core peak of its inputs' type —
 bf16, or int8/fp8 for the quantized decode — and its bytes over the HBM
 rate). The last line of stdout is a JSON object {"ok": true, "device":
-{...}}; the line before it lists each kernel's (fourteen, and six dropout
+{...}}; the line before it lists each kernel's (eighteen, and six dropout
 entries) launches, error, times and bound. Without a CUDA device, or without the package beside this
 script, it exits nonzero.
 """
@@ -920,7 +934,7 @@ def run_trainer(torch, card: str, argv, reset, tag: str):
     args = train.parse_args(argv)
     res = train.run(args, on_warm=reset)
     cfg, losses = res["config"], res["losses"]
-    print(f"[{tag}] Mistral-7B-v0.3 widths, {cfg.n_layers} layers, {res['n_params'] / 1e9:.2f} B "
+    print(f"[{tag}] {args.config} widths, {cfg.n_layers} layers, {res['n_params'] / 1e9:.2f} B "
           f"params bf16, remat, AdamW(lr {args.lr}, wd 0.01) + clip {args.grad_clip}, {args.steps} "
           f"steps of {args.batch} x {args.seq} on one repeated batch: losses "
           f"{[round(x, 4) for x in losses]}; step s {[round(x, 3) for x in res['step_s']]}, "
@@ -1985,6 +1999,428 @@ def phase_schedules(torch, card: str):
     return runs, entries
 
 
+# Phase 12: the causal backward schedules at Qwen1.5-7B attention widths (32 /
+# 32 heads, D 128, bf16, causal, no mask). The trainer feeds attention seq - 1
+# tokens: 2 x 2047 takes the tri-square backward (B13), 1 x 8191 (padded 8192)
+# the work list (B14) with four strips of 2048.
+QWEN_H, QWEN_D = 32, 128
+TRI_B, TRI_S = 2, 2047
+WL_S = 8191
+SPLIT_S, SPLIT_LEAF = 4096, 2048  # the split forced: one diag launch over two leaves, one rect
+QWEN_STEPS = 3
+# Batch x seq of the two Qwen training runs; if 1 x 8192 runs out of memory,
+# 1 x 6144 (6143 tokens pad to 6144: the same work-list route, three strips).
+QWEN_SHAPES = ((2, 2048), (1, 8192))
+QWEN_FALLBACK_SEQ = 6144
+BWD_NAMES = ("dq", "dk", "dv")
+
+
+def qwen_train_argv(batch: int, seq: int):
+    return ["--config", "qwen1.5-7b", "--steps", str(QWEN_STEPS), "--batch", str(batch), "--seq",
+            str(seq), "--remat", "--repeat-batch", "--lr", "3e-4", "--grad-clip", "1.0"]
+
+
+def fused_bound(pairs: int, q_rows: int, kv_rows: int, Hq: int = QWEN_H, Hkv: int = QWEN_H,
+                D: int = QWEN_D, elt: int = 2) -> dict:
+    """Bound of a fused backward over `pairs` kept (query, key) pairs per q
+    head: 10 D operations per pair and head (s, dp, dv, dk, dq); q, o, do,
+    dq of `q_rows` rows and k, v, dk, dv of `kv_rows` rows read or written
+    once, with the fp32 lse and delta of the q rows."""
+    nbytes = 4 * q_rows * Hq * D * elt + 4 * kv_rows * Hkv * D * elt + 2 * q_rows * Hq * 4
+    return roofline(10 * D * pairs * Hq, nbytes)
+
+
+def bwd_launches(flash_fwd, flash_bwd):
+    """Every launch count; the backward schedules' under "bwd_<name>" (the
+    forward's have a causal_diag and a rect too)."""
+    return {"flash_fwd": flash_fwd.LAUNCHES, **flash_fwd.SCHEDULE_LAUNCHES, **flash_bwd.LAUNCHES,
+            **{f"bwd_{n}": c for n, c in flash_bwd.SCHEDULE_LAUNCHES.items()}}
+
+
+def hold_bwd(torch, what, kernel, plain, inputs):
+    """kernel(*inputs(dtype), **drop) and plain(...) -> (dq, dk, dv): fp32
+    within FP32_GRAD_RTOL x (1 + max|g|) of the plain twin, bf16 within the
+    FA gradient contract of the fp32 plain (the truth, dV waiver), fp32 with
+    dropout p DROPOUT_P against the plain twin fed the same mask, and two
+    bf16 runs equal bit for bit. Returns the bf16 errors by gradient."""
+    drop = dict(dropout_p=DROPOUT_P, dropout_seed=DROPOUT_SEED)
+    x32 = inputs(torch.float32)
+    truth = plain(*x32)
+    errs = {}
+    for extra in ({}, drop):
+        got = kernel(*x32, **extra)
+        ref = truth if not extra else plain(*x32, **extra)
+        torch.cuda.synchronize()
+        errs32 = [check_fp32_grad(torch, n, g, r, f"{what} fp32{' dropout' if extra else ''}")
+                  for n, g, r in zip(BWD_NAMES, got, ref)]
+        del got, ref
+        print(f"[causal bwd] {what} fp32{f' dropout p {DROPOUT_P} (the same mask)' if extra else ''}"
+              f": max abs errs vs the plain twin "
+              + ", ".join(f"{n} {e:.3e}" for n, e in zip(BWD_NAMES, errs32))
+              + f" (<= {FP32_GRAD_RTOL} x (1 + max|grad|))")
+    xb = inputs(torch.bfloat16)
+    got, again = kernel(*xb), kernel(*xb)
+    pl = plain(*xb)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{what}: two bf16 runs differ")
+    for n, g, r, p in zip(BWD_NAMES, got, truth, pl):
+        errs[n], errs[n + " plain"] = check_grad(torch, n, g, r, p, f"{what} bf16")
+    print(f"[causal bwd] {what} bf16: errs vs fp32 truth " + ", ".join(
+        f"{n} {errs[n]:.3e} (plain {errs[n + ' plain']:.3e})" for n in BWD_NAMES)
+        + " (FA gradient contract); two runs equal bit for bit")
+    return errs, truth
+
+
+def profiler_split(torch, fn, names):
+    """Device ms per launch of each named kernel from torch.profiler, or
+    None where it recorded no launch: late in this long process it can drop
+    every launch of a call (0 of 3 of the tri-square's, once), so phase 12's
+    kernel times are CUDA events over whole calls and this split is extra."""
+    try:
+        return kernel_ms(torch, fn, names, iters=3)
+    except AssertionError as e:
+        print(f"[causal bwd] no profiler split: {e}")
+        return None
+
+
+def forward_ms(torch, x, card):
+    """CUDA-event ms of the forward the trainer runs at these inputs' shape
+    (the generic kernel, `flash_attn_forward`'s route for 2047 and 8191
+    tokens): with the backward's time, one layer's attention per step."""
+    from fa2_triton_tpu_torch.ops import flash_fwd
+
+    q, k, v, _, _, _, lens = x
+    B, _, S, _ = q.shape
+    if flash_fwd.forward_route(S, S, QWEN_D, 2, causal=True, static_skip=True) not in (
+            "tri_square", "generic"):
+        raise AssertionError(f"S {S}: the trainer's forward is not the generic kernel")
+    ms = cuda_ms(torch, lambda: flash_fwd.flash_attn_forward(q, k, v, lens, causal=True,
+                                                             softmax_scale=QWEN_D ** -0.5), iters=3)
+    print(f"[causal bwd] generic forward kernel B {B} x S {S} bf16 [{card}]: {ms:.3f} ms")
+    return ms
+
+
+def bwd_kernel_inputs(torch, gen, B, S, Hq=QWEN_H, Hkv=QWEN_H):
+    """inputs(dtype) -> (q, k, v, do, o, lse, lens) BHSD at the given
+    widths: fp32 randoms cast to dtype, o and lse from the generic forward
+    kernel in that dtype."""
+    from fa2_triton_tpu_torch.ops import flash_fwd
+
+    dev = torch.device("cuda")
+    bhsd = lambda x: x.transpose(1, 2)
+    x32 = [bhsd(torch.randn((B, S, h, QWEN_D), generator=gen, device=dev) * 0.5)
+           for h in (Hq, Hkv, Hkv)]
+    do32 = bhsd(torch.randn((B, S, Hq, QWEN_D), generator=gen, device=dev))
+    lens = torch.tensor([[S, S]] * B, dtype=torch.int32, device=dev)
+    cache = {}
+
+    def inputs(dt):
+        if dt not in cache:
+            q, k, v, do = (x.to(dt) for x in (*x32, do32))
+            o, lse = flash_fwd.flash_attn_forward(q, k, v, lens, causal=True,
+                                                  softmax_scale=QWEN_D ** -0.5)
+            cache[dt] = (q, k, v, do, o, lse, lens)
+        return cache[dt]
+    return inputs
+
+
+def library_bwd(torch, what, x, seq_q, seq_k, causal, truth, errs, rows=None, cols=None):
+    """aten's flash backward (`aten._flash_attention_backward`, after its
+    own forward) on the same bf16 tensors (tight-packed rows), checked to
+    compute the fp32 `truth` (its error near the bf16 plain twin's):
+    CUDA-event ms of one call."""
+    q, k, v, do = x[:4]
+    rows, cols = rows or slice(None), cols or slice(None)
+    bshd = lambda t, sl: t[:, :, sl].transpose(1, 2)
+    pack = lambda t, sl, lens: tight(torch, bshd(t, sl), lens)
+    B = q.shape[0]
+    lq, lk = [seq_q] * B, [seq_k] * B
+    _, _, lib = library_attention(torch, pack(q, rows, lq), pack(k, cols, lk), pack(v, cols, lk),
+                                  lq, lk, causal, QWEN_D ** -0.5)
+    run = lib(pack(do, rows, lq))
+    for n, g, r in zip(BWD_NAMES, run(), truth):
+        check_library(torch, f"{what} {n}", g, tight(torch, r.transpose(1, 2), lq if n == "dq"
+                                                     else lk), errs[n + " plain"])
+    return cuda_ms(torch, run, iters=5)
+
+
+def causal_bwd_kernels(torch, card):
+    """Each backward schedule kernel held against its plain twin, with
+    launches through `flash_attn_backward`'s routing, times (kernel, plain,
+    library, the generic dq + dk/dv pair at the same shape) and bounds.
+    Returns (launches by run, kernel entries)."""
+    from fa2_triton_tpu_torch.ops import flash_bwd as fb, flash_fwd as ff
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    scale = QWEN_D ** -0.5
+    kw = dict(softmax_scale=scale)
+    entries, runs = {}, {}
+
+    def routed(x, **extra):
+        return fb.flash_attn_backward(*x, causal=True, static_skip=True, **kw, **extra)
+
+    def generic(x):
+        return fb.flash_attn_backward(*x, causal=True, **kw)
+
+    def launches_of(what, run, **want):
+        ff.reset_launches()
+        fb.reset_launches()
+        run()
+        torch.cuda.synchronize()
+        got = bwd_launches(ff, fb)
+        want = {n: want.get(n, 0) for n in got}
+        print(f"[causal bwd] {what}: launches {got}")
+        if got != want:
+            raise AssertionError(f"{what}: launches {got} != {want}")
+        return got
+
+    # -- B13 tri-square at the 2 x 2048 trainer's shape ------------------------
+    inputs = bwd_kernel_inputs(torch, gen, TRI_B, TRI_S)
+    if fb.backward_route(TRI_S, TRI_S, QWEN_D, 2, causal=True, static_skip=True) != "tri_square":
+        raise AssertionError("B 2 x S 2047 MHA does not route to the tri-square")
+    tri = lambda q, k, v, do, o, lse, lens, **d: fb.flash_attn_backward_tri_square(
+        q, k, v, do, o, lse, lens, **kw, **d)
+    tri_plain = lambda q, k, v, do, o, lse, lens, **d: fb.flash_attn_backward_plain(
+        q, k, v, do, o, lse, lens, causal=True, **kw, **d)
+    errs, truth = hold_bwd(torch, f"tri_square B {TRI_B} x S {TRI_S}", tri, tri_plain, inputs)
+    xb = inputs(torch.bfloat16)
+    runs["tri_square"] = launches_of(f"flash_attn_backward(causal, static_skip) B {TRI_B} x S "
+                                     f"{TRI_S}", lambda: routed(xb), bwd_tri_square=1)
+    t = turns(torch, {"generic": lambda: generic(xb), "tri": lambda: tri(*xb)},
+              ("generic", "tri", "tri", "generic"), iters=3)
+    fwd_ms = forward_ms(torch, xb, card)
+    pms = cuda_ms(torch, lambda: tri_plain(*xb), iters=2, warmup=1)
+    lib_ms = library_bwd(torch, "tri_square", xb, TRI_S, TRI_S, True, truth, errs)
+    bound = fused_bound(TRI_B * causal_pairs([TRI_S]), TRI_B * TRI_S, TRI_B * TRI_S)
+    print(f"[causal bwd] tri_square B {TRI_B} x S {TRI_S} bf16 [{card}]: kernel (one launch per "
+          f"call, CUDA events) {' / '.join(f'{v:.3f}' for v in t['tri'])} ms, generic dq + dk/dv "
+          f"pair {' / '.join(f'{v:.3f}' for v in t['generic'])} ms, plain {pms:.3f} ms, library "
+          f"(aten flash backward, causal) {lib_ms:.3f} ms, bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bound_by']})")
+    entries["flash_bwd_tri_square"] = {
+        "max_abs_err": max(errs[n] for n in BWD_NAMES), "ms": min(t["tri"]),
+        "ms_runs": t["tri"], "generic_pair_ms_runs": t["generic"], "plain_ms": pms,
+        "library_ms": lib_ms, "forward_kernel_ms": fwd_ms, **bound}
+    del inputs, xb, truth
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- B14 work list at the 1 x 8192 trainer's shape: four strips ------------
+    inputs = bwd_kernel_inputs(torch, gen, 1, WL_S)
+    if fb.backward_route(WL_S, WL_S, QWEN_D, 2, causal=True, static_skip=True) != "worklist":
+        raise AssertionError("B 1 x S 8191 MHA does not route to the work list")
+    wl_kw = dict(sub=512, block_kv=2048)
+    wl = lambda q, k, v, do, o, lse, lens, **d: fb.flash_attn_backward_fused_wl(
+        q, k, v, do, o, lse, lens, **wl_kw, **kw, **d)
+    key = fb._wl_geometry(WL_S, WL_S, 1, 0, 512, 2048)
+    schedule = (key[0], 512, key[1], key[2], 1, 0, (-1, -1), True, key[3], key[4])
+    table, starts = fb._worklist(*schedule)
+    print(f"[causal bwd] work list at S {WL_S}: {len(table)} steps per head in {len(starts) - 1} "
+          f"strips of {[int(b - a) for a, b in zip(starts[:-1], starts[1:])]} steps, dq_whole "
+          f"{key[4]}")
+    wl_plain = lambda q, k, v, do, o, lse, lens, **d: fb.flash_attn_backward_fused_wl_plain(
+        q, k, v, do, o, lse, lens, schedule=schedule, **kw, **d)
+    errs, truth = hold_bwd(torch, f"worklist B 1 x S {WL_S}", wl, wl_plain, inputs)
+    xb = inputs(torch.bfloat16)
+    runs["worklist"] = launches_of(f"flash_attn_backward(causal, static_skip) B 1 x S {WL_S}",
+                                   lambda: routed(xb), bwd_worklist=1)
+    t = turns(torch, {"generic": lambda: generic(xb), "wl": lambda: wl(*xb)},
+              ("generic", "wl", "wl", "generic"), iters=2)
+    fwd_ms = forward_ms(torch, xb, card)
+    per = profiler_split(torch, lambda: wl(*xb), ("bwd_wl_kernel", "wl_dq_reduce"))
+    pms = cuda_ms(torch, lambda: wl_plain(*xb), iters=1, warmup=1)
+    lib_ms = library_bwd(torch, "worklist", xb, WL_S, WL_S, True, truth, errs)
+    bound = fused_bound(causal_pairs([WL_S]), WL_S, WL_S)
+    print(f"[causal bwd] worklist B 1 x S {WL_S} bf16 [{card}]: call (the host's k prescale and "
+          f"delta, the kernel, the dq reduction; CUDA events) "
+          f"{' / '.join(f'{v:.3f}' for v in t['wl'])} ms"
+          + (f" (profiler: kernel {per['bwd_wl_kernel']:.3f}, dq reduction "
+             f"{per['wl_dq_reduce']:.3f} ms)" if per else "")
+          + f", generic dq + dk/dv pair {' / '.join(f'{v:.3f}' for v in t['generic'])} ms, plain "
+          f"(the table walk) {pms:.3f} ms, library (aten flash backward, causal) {lib_ms:.3f} ms, "
+          f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+    entries["flash_bwd_worklist"] = {
+        "max_abs_err": max(errs[n] for n in BWD_NAMES), "ms": min(t["wl"]), "ms_runs": t["wl"],
+        "profiler_ms": per, "generic_pair_ms_runs": t["generic"], "plain_ms": pms,
+        "library_ms": lib_ms, "forward_kernel_ms": fwd_ms, **bound}
+    del inputs, xb, truth
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- B13 split forced with split_leaf 2048 at B 1 x S 4096 -----------------
+    inputs = bwd_kernel_inputs(torch, gen, 1, SPLIT_S)
+    split = lambda q, k, v, do, o, lse, lens, **d: routed((q, k, v, do, o, lse, lens),
+                                                          causal_split=True, split_leaf=SPLIT_LEAF,
+                                                          **d)
+    xb = inputs(torch.bfloat16)
+    runs["split"] = launches_of(f"flash_attn_backward(causal_split, split_leaf {SPLIT_LEAF}) B 1 x "
+                                f"S {SPLIT_S}", lambda: split(*xb), bwd_causal_diag=1,
+                                bwd_rect=1)
+    hold_bwd(torch, f"split S {SPLIT_S}", split, tri_plain, inputs)
+    split_ms = cuda_ms(torch, lambda: split(*xb), iters=3)
+
+    def prescaled(x):
+        q, k, v, do, o, lse, lens = x
+        return q, fb._prescale_k(k, scale), v, do, lse, fb.compute_delta(o, do, lse), lens
+
+    region = dict(row0=SPLIT_LEAF, col0=0, nrows=SPLIT_LEAF, ncols=SPLIT_LEAF)
+    diag = lambda *x, **d: fb.flash_attn_backward_causal_diag(*prescaled(x), T=SPLIT_LEAF,
+                                                              **kw, **d)
+    diag_plain = lambda *x, **d: fb.flash_attn_backward_causal_diag_plain(
+        *prescaled(x), T=SPLIT_LEAF, **kw, **d)
+    rect = lambda *x, **d: fb.flash_attn_backward_rect(*prescaled(x), **region, **kw, **d)
+    rect_plain = lambda *x, **d: fb.flash_attn_backward_rect_plain(*prescaled(x), **region,
+                                                                   **kw, **d)
+    pb = prescaled(xb)
+    for name, kern, plain_fn, lib in (("causal_diag", diag, diag_plain, "flex"),
+                                      ("rect", rect, rect_plain, "aten")):
+        errs, truth = hold_bwd(torch, f"{name} S {SPLIT_S}", kern, plain_fn, inputs)
+        if name == "causal_diag":
+            run = lambda: fb.flash_attn_backward_causal_diag(*pb, T=SPLIT_LEAF, **kw)
+            ms = cuda_ms(torch, run, iters=3)
+            pms = cuda_ms(torch, lambda: fb.flash_attn_backward_causal_diag_plain(
+                *pb, T=SPLIT_LEAF, **kw), iters=2, warmup=1)
+            lib_ms = flex_diag_bwd(torch, xb, local_truth(torch, "diag", inputs), errs)
+            bound = fused_bound(causal_pairs([SPLIT_LEAF] * (SPLIT_S // SPLIT_LEAF)), SPLIT_S,
+                                SPLIT_S)
+        else:
+            run = lambda: fb.flash_attn_backward_rect(*pb, **region, **kw)
+            ms = cuda_ms(torch, run, iters=3)
+            pms = cuda_ms(torch, lambda: fb.flash_attn_backward_rect_plain(
+                *pb, **region, **kw), iters=2, warmup=1)
+            lib_ms = library_bwd(torch, "rect", xb, SPLIT_LEAF, SPLIT_LEAF, False,
+                                 local_truth(torch, "rect", inputs), errs,
+                                 rows=slice(SPLIT_LEAF, SPLIT_S), cols=slice(0, SPLIT_LEAF))
+            bound = fused_bound(SPLIT_LEAF * SPLIT_LEAF, SPLIT_LEAF, SPLIT_LEAF)
+        how = "" if name == "causal_diag" else ": its dq and dk/dv kernels"
+        print(f"[causal bwd] {name} (split_leaf {SPLIT_LEAF}, S {SPLIT_S}) bf16 [{card}]: kernel "
+              f"{ms:.3f} ms (CUDA events over whole calls{how}), plain {pms:.3f} ms, library "
+              f"({lib}) {lib_ms:.3f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+        entries[f"flash_bwd_{name}"] = {"max_abs_err": max(errs[n] for n in BWD_NAMES), "ms": ms,
+                                       "plain_ms": pms, "library_ms": lib_ms, **bound}
+        del truth
+    entries["flash_bwd_causal_diag"]["split_S4096_call_ms"] = split_ms
+    print(f"[causal bwd] the whole split backward at S {SPLIT_S}: {split_ms:.3f} ms [{card}]")
+    del inputs, xb, pb
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs, entries
+
+
+def local_truth(torch, kind, inputs):
+    """The fp32 gradients of the function the diag's and the rect's library
+    yardsticks compute: attention over the leaves alone (flex's
+    block-diagonal mask) or over the region alone (aten on the sliced
+    tensors), each normalised by its own softmax. The split's kernels take
+    the global lse and delta instead (their share of the whole causal
+    gradient), which no PyTorch call accepts; the work is the same, so the
+    yardstick is held to the twin fed its own statistics."""
+    from fa2_triton_tpu_torch.ops import flash_bwd as fb, flash_fwd as ff
+
+    q, k, v, do, _, lse, lens = inputs(torch.float32)
+    kw = dict(softmax_scale=QWEN_D ** -0.5)
+    k_p = fb._prescale_k(k, kw["softmax_scale"])
+    if kind == "diag":
+        o_d, lse_d = ff.flash_attn_forward_causal_diag_plain(q, k, v, lens, T=SPLIT_LEAF, **kw)
+        return fb.flash_attn_backward_causal_diag_plain(
+            q, k_p, v, do, lse_d, fb.compute_delta(o_d, do, lse_d), lens, T=SPLIT_LEAF, **kw)
+    region = dict(row0=SPLIT_LEAF, col0=0, nrows=SPLIT_LEAF, ncols=SPLIT_LEAF)
+    rows = slice(SPLIT_LEAF, SPLIT_S)
+    o_r, lse_r = ff.flash_attn_forward_rect_plain(q, k, v, lens, **region, **kw)
+    lse_full, delta_full = lse.clone(), torch.zeros_like(lse)
+    lse_full[:, :, rows] = lse_r
+    delta_full[:, :, rows] = fb.compute_delta(o_r, do[:, :, rows], lse_r)
+    return fb.flash_attn_backward_rect_plain(q, k_p, v, do, lse_full, delta_full, lens, **region,
+                                             **kw)
+
+
+def flex_diag_bwd(torch, xb, truth, errs):
+    """Compiled flex_attention's backward with a block-diagonal causal
+    mask_mod (the diag leaves) on the same bf16 tensors: checked against
+    `local_truth`, CUDA-event ms of one backward."""
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    q, k, v, do = (t.contiguous() for t in xb[:4])
+
+    def leaf_mask(b, h, qi, ki):
+        return (ki <= qi) & (qi // SPLIT_LEAF == ki // SPLIT_LEAF)
+
+    block_mask = create_block_mask(leaf_mask, None, None, SPLIT_S, SPLIT_S, device=q.device,
+                                   BLOCK_SIZE=128)
+    flex = torch.compile(flex_attention, dynamic=False)
+    qh, kh, vh = (t.detach().requires_grad_() for t in (q, k, v))
+    out = flex(qh, kh, vh, block_mask=block_mask, scale=QWEN_D ** -0.5)
+    grads = torch.autograd.grad(out, (qh, kh, vh), do, retain_graph=True)
+    for n, g, r in zip(BWD_NAMES, grads, truth):
+        check_library(torch, f"diag {n}", g, r, errs[n + " plain"])
+    return cuda_ms(torch, lambda: torch.autograd.grad(out, (qh, kh, vh), do, retain_graph=True),
+                   iters=5)
+
+
+def qwen_train(torch, card: str):
+    """The full-depth Qwen1.5-7B-width trainer at 2 x 2048 (attention over
+    2047 tokens: the tri-square backward) and 1 x 8192 (8191: the work
+    list), launch counts reset after each warm-up. Returns the launches by
+    shape."""
+    from fa2_triton_tpu_torch.ops import flash_bwd, flash_fwd
+
+    def reset():
+        flash_fwd.reset_launches()
+        flash_bwd.reset_launches()
+
+    runs = {}
+    for batch, seq in QWEN_SHAPES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        oom = None
+        try:
+            args, res = run_trainer(torch, card, qwen_train_argv(batch, seq), reset,
+                                    f"qwen train {batch} x {seq}")
+        except torch.cuda.OutOfMemoryError as e:
+            if seq != 8192:
+                raise
+            oom = (torch.cuda.max_memory_allocated() / 2**30, str(e).splitlines()[0])
+        if oom is not None:
+            # The memory rule: the same work-list route at 1 x 6144.
+            print(f"[qwen train] 1 x {seq} ran out of memory (peak {oom[0]:.2f} GiB [{card}]): "
+                  f"{oom[1]}; running 1 x {QWEN_FALLBACK_SEQ}")
+            gc.collect()
+            torch.cuda.empty_cache()
+            seq = QWEN_FALLBACK_SEQ
+            args, res = run_trainer(torch, card, qwen_train_argv(batch, seq), reset,
+                                    f"qwen train {batch} x {seq}")
+        got = bwd_launches(flash_fwd, flash_bwd)
+        L, steps = res["config"].n_layers, args.steps
+        fwd_route = flash_fwd.forward_route(seq - 1, seq - 1, QWEN_D, 2, causal=True,
+                                            static_skip=True)
+        want = dict.fromkeys(got, 0)
+        want["causal_strip" if fwd_route == "strip" else "flash_fwd"] = 2 * L * steps
+        want["bwd_tri_square" if seq == 2048 else "bwd_worklist"] = L * steps
+        print(f"[qwen train] {batch} x {seq} launches: {got}")
+        if got != want:
+            raise AssertionError(f"qwen {batch} x {seq} training launches {got} != {want}")
+        runs[f"{batch} x {seq}"] = got
+    return runs
+
+
+def phase_causal_bwd(torch, card: str):
+    """Phase 12: the causal backward schedules. Returns (launches by run,
+    kernel entries)."""
+    from fa2_triton_tpu_torch.ops import flash_bwd
+
+    t0 = time.perf_counter()
+    if any(flash_bwd.SCHEDULE_LAUNCHES.values()):
+        raise AssertionError(f"phases 1-11 launched a backward schedule kernel: "
+                             f"{flash_bwd.SCHEDULE_LAUNCHES}")
+    print("[causal bwd] phases 1-11 (Mistral-7B-v0.3 widths) launched no backward schedule "
+          f"kernel: {dict(flash_bwd.SCHEDULE_LAUNCHES)}")
+    runs, entries = causal_bwd_kernels(torch, card)
+    runs["train"] = qwen_train(torch, card)
+    print(f"[causal bwd] phase 12 took {time.perf_counter() - t0:.1f} s")
+    return runs, entries
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2039,6 +2475,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     sched_runs, sched_kernels = phase_schedules(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bwd_runs, bwd_kernels = phase_causal_bwd(torch, card)
 
     if any(name == "jax" or name.startswith(("jax.", "fa2_triton_tpu.")) for name in sys.modules):
         raise RuntimeError("the port imported jax or the JAX package")
@@ -2124,6 +2563,28 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"fa2_triton_tpu_torch/csrc/{source}",
             "replaces": f"fa2_triton_tpu/ops/{replaces}", "also_replaces": also,
             "launches": launches, **extra, **sched_kernels[name]})
+    train_runs = bwd_runs["train"]
+    long_run = next(r for name, r in train_runs.items() if name.startswith("1 x"))
+    for name, source, replaces, also, launches, extra in (
+            ("flash_bwd_tri_square", "flash_bwd_tri.cu", "flash_bwd.py:845",
+             "fa2_triton_tpu/ops/flash_bwd.py:985 (flash_attn_backward_tri_square)",
+             train_runs["2 x 2048"]["bwd_tri_square"],
+             {"launches_flash_attn_backward": bwd_runs["tri_square"]["bwd_tri_square"]}),
+            ("flash_bwd_causal_diag", "flash_bwd_tri.cu", "flash_bwd.py:1060",
+             "the diag_stride / leaf_subs mode of fa2_triton_tpu/ops/flash_bwd.py:845, driven by "
+             "_causal_split_backward l.1278", bwd_runs["split"]["bwd_causal_diag"], {}),
+            ("flash_bwd_rect", "flash_bwd.cu", "flash_bwd.py:1138",
+             "fa2_triton_tpu/ops/flash_bwd.py:376 (_bwd_fused_kernel on a rectangle), driven by "
+             "_causal_split_backward l.1278", bwd_runs["split"]["bwd_rect"], {}),
+            ("flash_bwd_worklist", "flash_bwd_wl.cu", "flash_bwd.py:1849",
+             "fa2_triton_tpu/ops/flash_bwd.py:1986 (flash_attn_backward_fused_wl), schedule "
+             "build_causal_bwd_worklist l.1779", long_run["bwd_worklist"],
+             {"launches_flash_attn_backward": bwd_runs["worklist"]["bwd_worklist"],
+              "train_shape": next(n for n in train_runs if n.startswith("1 x"))})):
+        table["kernels"].append({
+            "name": name, "route": "cuda", "source": f"fa2_triton_tpu_torch/csrc/{source}",
+            "replaces": f"fa2_triton_tpu/ops/{replaces}", "also_replaces": also,
+            "launches": launches, **extra, **bwd_kernels[name]})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps(table))

@@ -33,6 +33,15 @@
 // the ds * scale factor is applied once to the dq / dk accumulators, so
 // v, do and delta stay unscaled and dp - delta cancels exactly.
 //
+// Region mode (`k_prescaled`, the split schedule's rectangles, B13 rect:
+// fa2_triton_tpu/ops/flash_bwd.py:flash_attn_backward_rect l.1138, the TPU's
+// _bwd_fused_kernel on a rectangle): the wrapper hands the dq and dk/dv
+// kernels views of the region's rows and columns, with q_off / kv_off
+// moved by the region's origin so masks and dropout counters stay global,
+// causal off, k already multiplied by scale * log2e and delta the global
+// one; then q and k are staged as given and dq = acc / log2e. A flag at
+// run time, not a template: it only changes three factors per block.
+//
 // Determinism: no atomics anywhere. The dq kernel owns q-row tiles (KV
 // loop inside the block), the dk/dv kernel owns KV-row tiles (a loop over
 // the whole GQA group's q heads and q tiles inside the block), the dbias
@@ -85,6 +94,9 @@ struct BwdParams {
   int q_off, kv_off, causal, wl, wr;
   float scale;       // softmax scale (natural)
   float scale_log2;  // scale * log2(e)
+  float q_mul;       // q's factor when staged for s: scale * log2(e), or 1 (region mode)
+  float k_mul;       // k's factor when staged for s: scale * log2(e), or 1 (region mode)
+  float dq_mul;      // dq = dq_mul * sum ds k: scale, or 1 / log2(e) (region mode)
   float softcap;     // natural units; 0 = off
   Dropout drop;
   int Sq_real, Sk_real;  // the dropout counter's lengths
@@ -157,7 +169,7 @@ __device__ __forceinline__ void stage_q_side(const BwdParams& p, const DqSmem& s
   const long long row0 = ((long long)b * p.Hq + h) * p.Sq;
   dq_stage_q<T, D>(s, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_ss,
                    static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh, p.do_ss,
-                   p.lse + row0, p.delta + row0, q0, q_valid, p.scale_log2);
+                   p.lse + row0, p.delta + row0, q0, q_valid, p.q_mul);
 }
 
 // dq: one block per (64-row q tile, q head, batch row); loops over the KV
@@ -192,7 +204,7 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(const BwdParams p) {
     dq_kv_step<T, D>(s, kp, p.k_ss, vp, p.v_ss, k0, kv_valid, ds_of, acc);
   }
   store_tile<T, D>(acc, static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh + q0 * p.dq_ss,
-                   p.dq_ss, min(TM, p.Sq - q0), p.scale);
+                   p.dq_ss, min(TM, p.Sq - q0), p.dq_mul);
 }
 
 // dk/dv: one block per (64-row KV tile, KV head, batch row); loops over the
@@ -209,7 +221,7 @@ __global__ void __launch_bounds__(THREADS) dkdv_kernel(const BwdParams p) {
   const int kv_valid = min(p.Sk, kv_len - p.kv_off);
 
   stage<T, D>(s.Ks, static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh, p.k_ss, k0, TM,
-              kv_valid, p.scale_log2);
+              kv_valid, p.k_mul);
   stage<T, D>(s.Vs, static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh, p.v_ss, k0, TM,
               kv_valid, 1.f);
 
@@ -380,7 +392,8 @@ cudaError_t launch_d(const BwdParams& p, int which, int D, cudaStream_t stream) 
 // One entry for the three kernels (`which`: 0 dq, 1 dk/dv, 2 dbias).
 // `strides` holds, in elements: q, k, v, do, dq, dk, dv (batch, head, row
 // each), bias (batch, head, row, col; 0 on broadcast dims) and dbias (batch,
-// head, row): 28 values.
+// head, row): 28 values. `k_prescaled` is the region mode (k * scale * log2e
+// given; no bias, no softcap).
 extern "C" int fa2_flash_bwd(
     int which, int dtype, int B, int Hq, int Hkv, int Sq, int Sk, int D,
     const void* q, const void* k, const void* v, const void* dout,
@@ -391,7 +404,10 @@ extern "C" int fa2_flash_bwd(
     int q_off, int kv_off, int causal, int wl, int wr,
     float softmax_scale, float softcap,
     int dropout, unsigned int drop_seed, unsigned int drop_threshold, float drop_scale,
-    int Sq_real, int Sk_real, void* stream) {
+    int Sq_real, int Sk_real, int k_prescaled, void* stream) {
+  if (k_prescaled && (bias != nullptr || softcap > 0.f || which == 2)) {
+    return (int)cudaErrorInvalidValue;
+  }
   fa2::BwdParams p;
   p.q = q; p.k = k; p.v = v; p.dout = dout; p.lse = lse; p.delta = delta;
   p.bias = bias; p.bias_dtype = bias_dtype;
@@ -410,6 +426,8 @@ extern "C" int fa2_flash_bwd(
   p.q_off = q_off; p.kv_off = kv_off; p.causal = causal; p.wl = wl; p.wr = wr;
   p.scale = softmax_scale;
   p.scale_log2 = softmax_scale * fa2::LOG2E;
+  p.q_mul = p.k_mul = k_prescaled ? 1.f : p.scale_log2;
+  p.dq_mul = k_prescaled ? 1.f / fa2::LOG2E : softmax_scale;
   p.softcap = softcap;
   p.drop.on = dropout; p.drop.seed = drop_seed; p.drop.threshold = drop_threshold;
   p.drop.scale = drop_scale;

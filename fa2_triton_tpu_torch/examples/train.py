@@ -2,6 +2,8 @@
 
     python -m fa2_triton_tpu_torch.examples.train --config mistral-7b-v0.3 \\
         --steps 4 --batch 2 --seq 2048 --remat
+    python -m fa2_triton_tpu_torch.examples.train --config qwen1.5-7b \\
+        --steps 3 --batch 1 --seq 8192 --remat
 
 One process on one device: the first CUDA device, or the CPU with an
 explicit `--device cpu` (the kernels' plain twins; tiny sizes only). There
@@ -38,11 +40,23 @@ from fa2_triton_tpu_torch.models import LlamaConfig, init_params, loss_fn
 # hidden 4096, 32 layers, 32 heads, 8 KV heads, head_dim 128, intermediate
 # 14336, vocab 32768, rope_theta 1e6, rms_norm_eps 1e-5, untied lm_head,
 # sliding_window null (full causal). 7.25 B parameters, 14.5 GB in bf16.
+#
+# Qwen1.5-7B, from https://huggingface.co/Qwen/Qwen1.5-7B/blob/main/config.json
+# (the Qwen2 architecture): hidden 4096, 32 layers, 32 heads and 32 KV heads
+# (MHA), head_dim 128, intermediate 11008, vocab 151936, rope_theta 1e6,
+# rms_norm_eps 1e-6, max_position_embeddings 32768, untied lm_head,
+# use_sliding_window false, and q/k/v projection biases. 7.72 B parameters,
+# 15.4 GB in bf16. Its MHA takes the causal backward schedules of
+# ops/flash_bwd.py: the tri-square at seq 2048, the work list at seq 8192.
 PRESETS = {
     "mistral-7b-v0.3": dict(
         vocab_size=32768, dim=4096, n_layers=32, n_heads=32, n_kv_heads=8,
         hidden_dim=14336, head_dim=128, rope_theta=1e6, norm_eps=1e-5,
         max_seq_len=32768, sliding_window=-1),
+    "qwen1.5-7b": dict(
+        vocab_size=151936, dim=4096, n_layers=32, n_heads=32, n_kv_heads=32,
+        hidden_dim=11008, head_dim=128, rope_theta=1e6, norm_eps=1e-6,
+        max_seq_len=32768, sliding_window=-1, qkv_bias=True),
 }
 
 NOT_PORTED = {

@@ -18,7 +18,9 @@ returning a real dbias when the bias requires grad. CPU tensors run the
 plain twins of the kernels on both passes; CUDA tensors run the kernels.
 The forward takes `flash_fwd.flash_attn_forward`'s causal routing (the
 split or strip schedule for long causal calls without a mask, as JAX
-routes them); the backward is the same for every route.
+routes them), and the backward `flash_bwd.flash_attn_backward`'s (the
+tri-square for short causal calls whose GQA group fits JAX's budget, the
+work list for long MHA ones), both on the same static shift.
 
 Dropout is the JAX package's counter-hash stream (`utils/rng.py`), seeded
 by the seed contract of JAX `attention.py:240-256`: with `dropout_p > 0`,
@@ -101,14 +103,18 @@ class _AttnCore(torch.autograd.Function):
                                     **cfg)
         ctx.save_for_backward(q, k, v, bias, o, lse, lens)
         ctx.cfg = cfg
+        ctx.varlen = varlen
         return o, lse
 
     @staticmethod
     def backward(ctx, do, dlse):
         q, k, v, bias, o, lse, lens = ctx.saved_tensors
         want_dbias = bias is not None and ctx.needs_input_grad[3]
+        # JAX attention.py:88-104: the backward routes on the same static
+        # shift (the causal backward schedules).
         grads = flash_attn_backward(q, k, v, do, o, lse, lens, 0, 0, bias, dlse=dlse,
-                                    compute_dbias=want_dbias, **ctx.cfg)
+                                    compute_dbias=want_dbias, static_skip=True,
+                                    varlen=ctx.varlen, **ctx.cfg)
         dbias = grads[3] if want_dbias else None
         return (grads[0], grads[1], grads[2], dbias) + (None,) * 8
 

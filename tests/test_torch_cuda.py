@@ -785,7 +785,10 @@ def test_dropout_kernels_are_deterministic_in_the_seed(dev):
 def test_dropout_on_cuda_launches_the_kernels(dev):
     """flash_attn_func and flash_attn_varlen_func with dropout on CUDA
     tensors that require grad launch every kernel once (no plain twin stands
-    in), and their gradients match the same calls on the CPU, fp32."""
+    in), and their gradients match the same calls on the CPU, fp32. The
+    dense call's backward is the tri-square (B13): JAX pads S 150 / D 64 in
+    fp32 to S 256 / D 128, inside its gate for a GQA group of 4, so it takes
+    that route as JAX does and the dq / dk/dv pair stays at 0."""
     from fa2_triton_tpu_torch.ops import varlen
 
     rng = torch.Generator().manual_seed(3)
@@ -799,6 +802,7 @@ def test_dropout_on_cuda_launches_the_kernels(dev):
     for device in ("cpu", dev):
         leaves = [t.detach().to(device).requires_grad_() for t in x + xv]
         fwd0, bwd0, var0 = flash_fwd.LAUNCHES, dict(flash_bwd.LAUNCHES), dict(varlen.LAUNCHES)
+        tri0 = flash_bwd.SCHEDULE_LAUNCHES["tri_square"]
         out = flash_attn_func(*leaves[:3], causal=True, dropout_p=0.2, dropout_seed=-11)
         (out * do.to(device)).sum().backward()
         outv = varlen.flash_attn_varlen_func(*leaves[3:], starts + [T], seqlens=lens, causal=True,
@@ -807,8 +811,9 @@ def test_dropout_on_cuda_launches_the_kernels(dev):
         (outv * dov.to(device)).sum().backward()
         launched = (flash_fwd.LAUNCHES - fwd0, flash_bwd.LAUNCHES["flash_bwd_dq"] - bwd0["flash_bwd_dq"],
                     flash_bwd.LAUNCHES["flash_bwd_dkdv"] - bwd0["flash_bwd_dkdv"],
+                    flash_bwd.SCHEDULE_LAUNCHES["tri_square"] - tri0,
                     *(varlen.LAUNCHES[n] - var0[n] for n in sorted(var0)))
-        assert launched == ((0,) * 6 if device == "cpu" else (1,) * 6), launched
+        assert launched == ((0,) * 7 if device == "cpu" else (1, 0, 0, 1, 1, 1, 1)), launched
         results.append([out.detach().cpu(), outv.detach().cpu()] + [t.grad.cpu() for t in leaves])
     for a, b in zip(*results):
         torch.testing.assert_close(b, a, rtol=0, atol=1e-4)
@@ -984,6 +989,156 @@ def test_flash_attn_func_routes_long_causal_calls(dev, D, S, route):
     _check(t(out), o32, o_pl, torch.bfloat16)
     assert (lse - lse_pl).abs().max().item() <= 1e-4
     refs = flash_bwd.flash_attn_backward_plain(*(t(x) for x in x32), t(do32), o32, lse32, lens, **kw)
+    plains = flash_bwd.flash_attn_backward_plain(q, k, v, t(do32.to(torch.bfloat16)),
+                                                 t(out.detach()), lse.detach(), lens, **kw)
+    _check_grads([t(x.grad) for x in leaves], refs, plains, torch.bfloat16)
+
+
+# ------- causal backward schedules (B13 tri-square, diag, rect; B14 work list) -------
+
+def _sched_bwd_inputs(dev, D, Hkv, seed, S=300):
+    """B 2 x S, Hq 8, D; batch row 1 has a dead tail past S - 89 rows. The
+    forward's (o, lse) come from the plain twin in fp32."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x32 = [(torch.randn(2, S, h, D, generator=g, device=dev) * 0.5).transpose(1, 2)
+           for h in (8, Hkv, Hkv)]
+    do32 = torch.randn(2, S, 8, D, generator=g, device=dev).transpose(1, 2)
+    dl32 = torch.randn(2, 8, S, generator=g, device=dev) * 0.1
+    lens = torch.tensor([[S, S], [S - 89, S - 89]], dtype=torch.int32, device=dev)
+    return x32, do32, dl32, lens
+
+
+# Each case: (Hkv, the call as f(flash_bwd, q, k, v, do, o, lse, lens, dlse, **kw), the
+# SCHEDULE_LAUNCHES it adds). The diag and the rect take k prescaled and the
+# global delta, as the split hands them over; the split is called directly (at
+# these lengths flash_attn_backward's routing takes the tri-square first).
+def _tri(f, q, k, v, do, o, lse, lens, dl, **kw):
+    return f.flash_attn_backward_tri_square(q, k, v, do, o, lse, lens, dlse=dl, **kw)
+
+
+def _diag(f, q, k, v, do, o, lse, lens, dl, **kw):
+    k_p, delta = f._prescale_k(k, kw["softmax_scale"]), f.compute_delta(o, do, lse, dl)
+    return f.flash_attn_backward_causal_diag(q, k_p, v, do, lse, delta, lens, T=128, **kw)
+
+
+def _rect(f, q, k, v, do, o, lse, lens, dl, **kw):
+    k_p, delta = f._prescale_k(k, kw["softmax_scale"]), f.compute_delta(o, do, lse, dl)
+    return f.flash_attn_backward_rect(q, k_p, v, do, lse, delta, lens, row0=128, col0=0,
+                                      nrows=256, ncols=128, **kw)
+
+
+def _split(f, q, k, v, do, o, lse, lens, dl, **kw):
+    return f._causal_split_backward(q, k, v, do, o, lse, lens, dlse=dl, leaf_t=128, **kw)
+
+
+def _worklist(**extra):
+    def run(f, q, k, v, do, o, lse, lens, dl, **kw):
+        return f.flash_attn_backward_fused_wl(q, k, v, do, o, lse, lens, dlse=dl, **extra, **kw)
+    return run
+
+
+SCHED_BWD_CASES = {
+    "tri_square": (8, _tri, {"tri_square": 1}),
+    "tri_square_gqa": (2, _tri, {"tri_square": 1}),
+    "diag": (2, _diag, {"causal_diag": 1}),
+    "rect": (2, _rect, {"rect": 1}),
+    "split": (2, _split, {"causal_diag": 1, "rect": 2}),     # three leaves: causal_split_rects(3)
+    "worklist": (8, _worklist(sub=128), {"worklist": 1}),    # one strip: the fold in the kernel
+    "worklist_gqa": (2, _worklist(sub=64), {"worklist": 1}),
+    "worklist_strips": (8, _worklist(sub=64, block_kv=128), {"worklist": 1}),   # three strips
+    "worklist_window": (8, _worklist(sub=64, block_kv=128, window=(100, -1)), {"worklist": 1}),
+}
+
+
+def _sched_bwd_run(case, dev, dtype, D, dropout_p):
+    Hkv, call, _ = SCHED_BWD_CASES[case]
+    x32, do32, dl32, lens = _sched_bwd_inputs(dev, D, Hkv, D + len(case))
+    kw = dict(softmax_scale=D ** -0.5, dropout_p=dropout_p, dropout_seed=D - 3 * len(case))
+    window = (100, -1) if case == "worklist_window" else (-1, -1)
+    o32, lse32 = flash_fwd.flash_attn_forward_plain(*x32, lens, causal=True, window=window, **kw)
+    x, do, o = [t.to(dtype) for t in x32], do32.to(dtype), o32.to(dtype)
+    return call, x32, do32, dl32, lens, kw, x, do, o, o32, lse32
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("case", list(SCHED_BWD_CASES))
+@pytest.mark.parametrize("dropout_p", [0.0, 0.2])
+def test_causal_bwd_schedule_kernels_match_plain(dev, dtype, D, case, dropout_p):
+    """Each backward schedule kernel against its plain twin (the same entry
+    point on CPU copies), MHA and GQA 4, a dead tail, a dlse cotangent:
+    fp32 1e-4 x (1 + max |grad|), bf16 the FA gradient contract against the
+    fp32 plain; the launches each call adds, none of the dq / dk/dv pair's
+    counts; two runs equal bit for bit."""
+    call, x32, do32, dl32, lens, kw, x, do, o, o32, lse32 = _sched_bwd_run(case, dev, dtype, D,
+                                                                             dropout_p)
+    cpu = lambda ts: [t.cpu() for t in ts]
+    refs = call(flash_bwd, *cpu(x32), do32.cpu(), o32.cpu(), lse32.cpu(), lens.cpu(), dl32.cpu(),
+                **kw)
+    plains = call(flash_bwd, *cpu(x), do.cpu(), o.cpu(), lse32.cpu(), lens.cpu(), dl32.cpu(), **kw)
+    before, pair0 = dict(flash_bwd.SCHEDULE_LAUNCHES), dict(flash_bwd.LAUNCHES)
+    grads = call(flash_bwd, *x, do, o, lse32, lens, dl32, **kw)
+    again = call(flash_bwd, *x, do, o, lse32, lens, dl32, **kw)
+    torch.cuda.synchronize()
+    delta = {n: c - before[n] for n, c in flash_bwd.SCHEDULE_LAUNCHES.items() if c != before[n]}
+    assert delta == {n: 2 * c for n, c in SCHED_BWD_CASES[case][2].items()}, delta
+    assert flash_bwd.LAUNCHES == pair0
+    for g, a, pl in zip(grads, again, plains):
+        assert g.shape == pl.shape and g.dtype == dtype and torch.isfinite(g).all()
+        assert torch.equal(a, g)
+    _check_grads(cpu(grads), refs, plains, dtype)
+
+
+def test_causal_bwd_schedule_kernels_ignore_nan_padding(dev):
+    """Rows and columns past the lengths may hold NaN: the tri-square and
+    the work list zero-fill them on load, so the gradients equal those of
+    zero padding bit for bit, and the padded rows get exactly zero."""
+    x32, do32, dl32, lens = _sched_bwd_inputs(dev, 128, 8, 5)
+    x = [t.to(torch.bfloat16) for t in x32] + [do32.to(torch.bfloat16)]
+    kw = dict(softmax_scale=128 ** -0.5)
+    o, lse = flash_fwd.flash_attn_forward(*x[:3], lens, causal=True, **kw)
+    nan = [t.clone() for t in x]
+    for t in nan:
+        t[1, :, 211:] = float("nan")
+    o_n, lse_n = flash_fwd.flash_attn_forward(*nan[:3], lens, causal=True, **kw)
+    for run in (lambda a, o, lse: flash_bwd.flash_attn_backward_tri_square(*a, o, lse, lens, **kw),
+                lambda a, o, lse: flash_bwd.flash_attn_backward_fused_wl(*a, o, lse, lens, sub=64,
+                                                                         block_kv=128, **kw)):
+        base, got = run(x, o, lse), run(nan, o_n, lse_n)
+        torch.cuda.synchronize()
+        for g, ref in zip(got, base):
+            assert torch.isfinite(g).all()
+            assert torch.equal(g[0], ref[0]) and torch.equal(g[1, :, :211], ref[1, :, :211])
+            assert not g[1, :, 211:].any()
+
+
+@pytest.mark.parametrize("S,Hkv,route", [(250, 4, "tri_square"), (500, 1, "tri_square"),
+                                         (4200, 4, "worklist")])
+def test_flash_attn_func_routes_causal_backward(dev, S, Hkv, route):
+    """The public call, bf16, B 1, D 128: MHA 4 / 4 heads at S 250 (padded
+    256) and GQA 4 / 1 at S 500 (padded 512) take the tri-square backward,
+    MHA at S 4200 (padded 5120, past the TPU's single strip) the work list; each launches its kernel
+    once and none of the dq / dk/dv pair, and the gradients meet the FA rule
+    against the fp32 plain twins."""
+    D = 128
+    assert flash_bwd.backward_route(S, S, D, 2, causal=True, group=4 // Hkv,
+                                    static_skip=True) == route
+    g = torch.Generator(device=dev).manual_seed(S)
+    x32 = [torch.randn(1, S, h, D, generator=g, device=dev) * 0.5 for h in (4, Hkv, Hkv)]
+    do32 = torch.randn(1, S, 4, D, generator=g, device=dev)
+    leaves = [t.to(torch.bfloat16).requires_grad_() for t in x32]
+    before, pair0 = dict(flash_bwd.SCHEDULE_LAUNCHES), dict(flash_bwd.LAUNCHES)
+    out, lse = flash_attn_func(*leaves, causal=True, return_lse=True)
+    out.backward(do32.to(torch.bfloat16))
+    torch.cuda.synchronize()
+    delta = {n: c - before[n] for n, c in flash_bwd.SCHEDULE_LAUNCHES.items() if c != before[n]}
+    assert delta == {route: 1} and flash_bwd.LAUNCHES == pair0, delta
+    t = lambda x: x.transpose(1, 2)
+    lens = torch.tensor([[S, S]], dtype=torch.int32, device=dev)
+    kw = dict(causal=True, softmax_scale=D ** -0.5)
+    o32, lse32 = flash_fwd.flash_attn_forward_plain(*(t(x) for x in x32), lens, **kw)
+    refs = flash_bwd.flash_attn_backward_plain(*(t(x) for x in x32), t(do32), o32, lse32, lens, **kw)
+    q, k, v = (t(x.detach()) for x in leaves)
     plains = flash_bwd.flash_attn_backward_plain(q, k, v, t(do32.to(torch.bfloat16)),
                                                  t(out.detach()), lse.detach(), lens, **kw)
     _check_grads([t(x.grad) for x in leaves], refs, plains, torch.bfloat16)
