@@ -73,14 +73,22 @@ the CUDA toolkit. Phases (any failure raises, and the script exits nonzero):
    with finite, falling losses and 2 x layers x steps diag and merged-rect
    launches, none of the generic forward.
 12. The causal backward schedules at Qwen1.5-7B attention widths (32 / 32
-   heads, D 128, bf16, causal, no mask): the tri-square (B13) at B 2 x S
-   2047, the work list (B14) at B 1 x S 8191 (four strips of 2048) and the
-   split forced with split_leaf 2048 at S 4096 (one diag launch over two
-   leaves, one rect), each reached through `flash_attn_backward`'s routing
-   with its launches counted, each kernel held against its plain twin
-   (fp32, bf16 under the FA gradient contract, fp32 with dropout fed the
-   same mask, two runs equal bit for bit) and timed against the generic
-   dq + dk/dv pair, its plain twin, the library and its bound; then
+   heads, D 128, bf16, causal, no mask). First the 16-bit instantiations of
+   the tensor-core fused kernels (tri-square / diag and work list; bf16 and
+   fp16, D 64 / 128 / 256, with and without dropout): ptxas registers and
+   spills, and the HMMA instructions in their SASS (cuobjdump -sass of the
+   built library); it fails where one has no tensor-core instruction or a
+   bf16 D 128 one spills. Then the tri-square (B13) at B 2 x S 2047, the
+   work list (B14) at B 1 x S 8191 (four strips of 2048) and the split
+   forced with split_leaf 2048 at S 4096 (one diag launch over two leaves,
+   one rect), each reached through `flash_attn_backward`'s routing with its
+   launches counted, the block partitions printed (blocks, per kv head,
+   largest / mean work: at least one block per SM and at most 1.25), each
+   kernel held against its plain twin (fp32, bf16 under the FA gradient
+   contract, fp32 with dropout fed the same mask, two runs equal bit for
+   bit) and timed against the generic dq + dk/dv pair (the tri-square and
+   the work list must beat it), the earlier FMA design's times, its plain
+   twin, the library and its bound; then
    `examples/train.py --config qwen1.5-7b` at full depth, 2 x 2048
    (attention over 2047 tokens: the tri-square backward) and 1 x 8192 (the
    work list; 1 x 6144, the same route, only if 8192 runs out of memory),
@@ -103,6 +111,7 @@ import functools
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -2145,6 +2154,106 @@ def library_bwd(torch, what, x, seq_q, seq_k, causal, truth, errs, rows=None, co
     return cuda_ms(torch, run, iters=5)
 
 
+# The bf16 times of these kernels' earlier design (fp32 FMA tiles, one block
+# per batch row and kv head or per strip) at these shapes, measured by this
+# phase on an NVIDIA H100 80GB HBM3 at 700.00 W (CUDA events, four runs),
+# printed beside this run's in the log only: the kernels line holds numbers
+# this run measured.
+FMA_DESIGN_MS = {"tri_square": "20.331-20.379", "causal_diag": "19.939-20.105",
+          "worklist": "138.520-139.322"}
+# The 16-bit fused kernels (csrc/bwd_mma.cuh's tensor-core tiles).
+MMA_KERNELS = ("bwd_tri_mma_kernel", "bwd_wl_mma_kernel")
+_MMA_NAME = re.compile(r"(bwd_tri_mma_kernel|bwd_wl_mma_kernel)I(13__nv_bfloat16|6__half)"
+                       r"Li(\d+)ELb([01])E")
+
+
+def mma_instance(mangled: str):
+    """(kernel, dtype, D, dropout) of a fused kernel's mangled name, else None."""
+    m = _MMA_NAME.search(mangled)
+    return (m[1], "bf16" if "bfloat" in m[2] else "fp16", int(m[3]), m[4] == "1") if m else None
+
+
+def ptxas_table(report: str) -> dict:
+    """{instance: (registers, spill store bytes, spill load bytes)} of the
+    16-bit fused kernels, from nvcc -Xptxas -v's report."""
+    regs, spills, cur, prop = {}, {}, None, None
+    for line in report.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            cur = m[1]
+        elif m := re.search(r"Function properties for (\S+)", line):
+            prop = m[1]
+        elif (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)) and prop:
+            spills[prop] = (int(m[1]), int(m[2]))
+        elif (m := re.search(r"Used (\d+) registers", line)) and cur:
+            regs[cur] = int(m[1])
+    return {mma_instance(n): (r, *spills.get(n, (0, 0))) for n, r in regs.items()
+            if mma_instance(n)}
+
+
+def hmma_counts(lib_path) -> dict:
+    """{instance: HMMA instructions} of the 16-bit fused kernels in the
+    SASS of the built library (cuobjdump -sass)."""
+    from fa2_triton_tpu_torch.ops import _build
+
+    tool = _build.find_cuobjdump()
+    if tool is None:
+        raise AssertionError("no cuobjdump beside nvcc or in Triton's package")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        if m := re.search(r"Function : (\S+)", line):
+            cur = mma_instance(m[1])
+            if cur:
+                counts[cur] = 0
+        elif cur and "HMMA" in line:
+            counts[cur] += 1
+    return counts
+
+
+def mma_build_report() -> dict:
+    """Registers, spills and tensor-core instructions of every 16-bit
+    instantiation of the two fused kernels (bf16 / fp16 x D 64 / 128 / 256
+    x dropout); fails where one has no HMMA, or a bf16 D 128 one (the Qwen
+    shapes') spills. Returns {kernel: {instance: numbers}}."""
+    from fa2_triton_tpu_torch.ops import _build
+
+    table = ptxas_table(_build.ptxas_report or "")
+    hmma = hmma_counts(_build.build())
+    out = {k: {} for k in MMA_KERNELS}
+    for kernel in MMA_KERNELS:
+        for dt in ("bf16", "fp16"):
+            for D in (64, 128, 256):
+                for drop in (False, True):
+                    inst = (kernel, dt, D, drop)
+                    if inst not in table or inst not in hmma:
+                        raise AssertionError(f"{inst}: not in the ptxas report / the SASS")
+                    regs, st, ld = table[inst]
+                    n = hmma[inst]
+                    print(f"[causal bwd] {kernel} {dt} D {D}{' dropout' if drop else ''}: {regs} "
+                          f"registers, spill stores {st} B / loads {ld} B, {n} HMMA in the SASS")
+                    if n == 0:
+                        raise AssertionError(f"{inst}: no tensor-core instruction")
+                    if dt == "bf16" and D == 128 and (st or ld):
+                        raise AssertionError(f"{inst}: spills {st} / {ld} bytes")
+                    out[kernel][f"{dt} D{D}{' drop' if drop else ''}"] = {
+                        "registers": regs, "spill_store_bytes": st, "spill_load_bytes": ld,
+                        "hmma": n}
+    return out
+
+
+def print_partition(what, loads, heads_x_batch, sms):
+    """Blocks launched, blocks per (leaf, kv head, batch row) and the
+    largest / mean work of a partition."""
+    blocks = len(loads) * heads_x_batch
+    ratio = max(loads) * len(loads) / sum(loads)
+    print(f"[causal bwd] {what}: {blocks} blocks ({len(loads)} per kv head and batch row; "
+          f"{sms} SMs), largest / mean work {ratio:.3f} (work per block {list(loads)})")
+    if blocks < sms or ratio > 1.25:
+        raise AssertionError(f"{what}: {blocks} blocks, largest / mean {ratio:.3f}")
+    return {"blocks": blocks, "blocks_per_head": len(loads), "largest_over_mean": ratio}
+
+
 def causal_bwd_kernels(torch, card):
     """Each backward schedule kernel held against its plain twin, with
     launches through `flash_attn_backward`'s routing, times (kernel, plain,
@@ -2187,21 +2296,33 @@ def causal_bwd_kernels(torch, card):
     xb = inputs(torch.bfloat16)
     runs["tri_square"] = launches_of(f"flash_attn_backward(causal, static_skip) B {TRI_B} x S "
                                      f"{TRI_S}", lambda: routed(xb), bwd_tri_square=1)
+    sms = fb.sm_count(xb[0].device)
+    P, _, _, loads = fb.tri_partition(TRI_S, TRI_S, 0, 0, 1, TRI_B, QWEN_H, QWEN_D, sms)
+    part = print_partition(f"tri_square B {TRI_B} x S {TRI_S} partition (P {P})", loads,
+                           TRI_B * QWEN_H, sms)
     t = turns(torch, {"generic": lambda: generic(xb), "tri": lambda: tri(*xb)},
               ("generic", "tri", "tri", "generic"), iters=3)
+    per = profiler_split(torch, lambda: tri(*xb), ("fused_delta", "bwd_tri_mma_kernel",
+                                                   "tri_dq_reduce"))
     fwd_ms = forward_ms(torch, xb, card)
     pms = cuda_ms(torch, lambda: tri_plain(*xb), iters=2, warmup=1)
     lib_ms = library_bwd(torch, "tri_square", xb, TRI_S, TRI_S, True, truth, errs)
     bound = fused_bound(TRI_B * causal_pairs([TRI_S]), TRI_B * TRI_S, TRI_B * TRI_S)
-    print(f"[causal bwd] tri_square B {TRI_B} x S {TRI_S} bf16 [{card}]: kernel (one launch per "
-          f"call, CUDA events) {' / '.join(f'{v:.3f}' for v in t['tri'])} ms, generic dq + dk/dv "
+    print(f"[causal bwd] tri_square B {TRI_B} x S {TRI_S} bf16 [{card}]: call (delta prologue, "
+          f"kernel, dq reduction; CUDA events) {' / '.join(f'{v:.3f}' for v in t['tri'])} ms"
+          + (f" (profiler: delta {per['fused_delta']:.3f}, kernel {per['bwd_tri_mma_kernel']:.3f}, "
+             f"dq reduction {per['tri_dq_reduce']:.3f} ms)" if per else "")
+          + f" (the FMA design: {FMA_DESIGN_MS['tri_square']} ms), generic dq + dk/dv "
           f"pair {' / '.join(f'{v:.3f}' for v in t['generic'])} ms, plain {pms:.3f} ms, library "
           f"(aten flash backward, causal) {lib_ms:.3f} ms, bound {bound['bound_ms']:.4f} ms "
           f"({bound['bound_by']})")
+    if not max(t["tri"]) < min(t["generic"]):
+        raise AssertionError(f"tri_square {t['tri']} ms is not faster than the pair {t['generic']}")
     entries["flash_bwd_tri_square"] = {
         "max_abs_err": max(errs[n] for n in BWD_NAMES), "ms": min(t["tri"]),
-        "ms_runs": t["tri"], "generic_pair_ms_runs": t["generic"], "plain_ms": pms,
-        "library_ms": lib_ms, "forward_kernel_ms": fwd_ms, **bound}
+        "ms_runs": t["tri"], "profiler_ms": per, "generic_pair_ms_runs": t["generic"],
+        "plain_ms": pms, "library_ms": lib_ms, "forward_kernel_ms": fwd_ms, "partition": part,
+        **bound}
     del inputs, xb, truth
     gc.collect()
     torch.cuda.empty_cache()
@@ -2219,6 +2340,10 @@ def causal_bwd_kernels(torch, card):
     print(f"[causal bwd] work list at S {WL_S}: {len(table)} steps per head in {len(starts) - 1} "
           f"strips of {[int(b - a) for a, b in zip(starts[:-1], starts[1:])]} steps, dq_whole "
           f"{key[4]}")
+    sms = fb.sm_count(torch.device("cuda"))
+    chunk_starts, _, _, loads = fb.wl_partition(schedule, WL_S, WL_S, 1, QWEN_H, QWEN_D, sms)
+    part = print_partition(f"worklist B 1 x S {WL_S} chunks (at most "
+                           f"{int(max(np.diff(chunk_starts)))} steps)", loads, QWEN_H, sms)
     wl_plain = lambda q, k, v, do, o, lse, lens, **d: fb.flash_attn_backward_fused_wl_plain(
         q, k, v, do, o, lse, lens, schedule=schedule, **kw, **d)
     errs, truth = hold_bwd(torch, f"worklist B 1 x S {WL_S}", wl, wl_plain, inputs)
@@ -2228,22 +2353,24 @@ def causal_bwd_kernels(torch, card):
     t = turns(torch, {"generic": lambda: generic(xb), "wl": lambda: wl(*xb)},
               ("generic", "wl", "wl", "generic"), iters=2)
     fwd_ms = forward_ms(torch, xb, card)
-    per = profiler_split(torch, lambda: wl(*xb), ("bwd_wl_kernel", "wl_dq_reduce"))
+    per = profiler_split(torch, lambda: wl(*xb), ("bwd_wl_mma_kernel", "wl_mma_reduce"))
     pms = cuda_ms(torch, lambda: wl_plain(*xb), iters=1, warmup=1)
     lib_ms = library_bwd(torch, "worklist", xb, WL_S, WL_S, True, truth, errs)
     bound = fused_bound(causal_pairs([WL_S]), WL_S, WL_S)
     print(f"[causal bwd] worklist B 1 x S {WL_S} bf16 [{card}]: call (the host's k prescale and "
-          f"delta, the kernel, the dq reduction; CUDA events) "
+          f"delta, the kernel, the dk / dv / dq reduction; CUDA events) "
           f"{' / '.join(f'{v:.3f}' for v in t['wl'])} ms"
-          + (f" (profiler: kernel {per['bwd_wl_kernel']:.3f}, dq reduction "
-             f"{per['wl_dq_reduce']:.3f} ms)" if per else "")
-          + f", generic dq + dk/dv pair {' / '.join(f'{v:.3f}' for v in t['generic'])} ms, plain "
+          + (f" (profiler: kernel {per['bwd_wl_mma_kernel']:.3f}, reduction "
+             f"{per['wl_mma_reduce']:.3f} ms)" if per else "")
+          + f" (the FMA design: {FMA_DESIGN_MS['worklist']} ms), generic dq + dk/dv pair {' / '.join(f'{v:.3f}' for v in t['generic'])} ms, plain "
           f"(the table walk) {pms:.3f} ms, library (aten flash backward, causal) {lib_ms:.3f} ms, "
           f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+    if not max(t["wl"]) < min(t["generic"]):
+        raise AssertionError(f"worklist {t['wl']} ms is not faster than the pair {t['generic']}")
     entries["flash_bwd_worklist"] = {
         "max_abs_err": max(errs[n] for n in BWD_NAMES), "ms": min(t["wl"]), "ms_runs": t["wl"],
         "profiler_ms": per, "generic_pair_ms_runs": t["generic"], "plain_ms": pms,
-        "library_ms": lib_ms, "forward_kernel_ms": fwd_ms, **bound}
+        "library_ms": lib_ms, "forward_kernel_ms": fwd_ms, "partition": part, **bound}
     del inputs, xb, truth
     gc.collect()
     torch.cuda.empty_cache()
@@ -2273,6 +2400,10 @@ def causal_bwd_kernels(torch, card):
     rect_plain = lambda *x, **d: fb.flash_attn_backward_rect_plain(*prescaled(x), **region,
                                                                    **kw, **d)
     pb = prescaled(xb)
+    P, _, _, loads = fb.tri_partition(SPLIT_S, SPLIT_S, 0, SPLIT_LEAF, 1, 1, QWEN_H, QWEN_D,
+                                      fb.sm_count(xb[0].device))
+    diag_part = print_partition(f"causal_diag S {SPLIT_S} leaves {SPLIT_LEAF} partition (P {P} "
+                                f"per leaf)", loads, QWEN_H, fb.sm_count(xb[0].device))
     for name, kern, plain_fn, lib in (("causal_diag", diag, diag_plain, "flex"),
                                       ("rect", rect, rect_plain, "aten")):
         errs, truth = hold_bwd(torch, f"{name} S {SPLIT_S}", kern, plain_fn, inputs)
@@ -2293,14 +2424,15 @@ def causal_bwd_kernels(torch, card):
                                  local_truth(torch, "rect", inputs), errs,
                                  rows=slice(SPLIT_LEAF, SPLIT_S), cols=slice(0, SPLIT_LEAF))
             bound = fused_bound(SPLIT_LEAF * SPLIT_LEAF, SPLIT_LEAF, SPLIT_LEAF)
-        how = "" if name == "causal_diag" else ": its dq and dk/dv kernels"
+        how = (f"; the FMA design: {FMA_DESIGN_MS['causal_diag']} ms" if name == "causal_diag"
+               else ": its dq and dk/dv kernels")
         print(f"[causal bwd] {name} (split_leaf {SPLIT_LEAF}, S {SPLIT_S}) bf16 [{card}]: kernel "
               f"{ms:.3f} ms (CUDA events over whole calls{how}), plain {pms:.3f} ms, library "
               f"({lib}) {lib_ms:.3f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})")
         entries[f"flash_bwd_{name}"] = {"max_abs_err": max(errs[n] for n in BWD_NAMES), "ms": ms,
                                        "plain_ms": pms, "library_ms": lib_ms, **bound}
         del truth
-    entries["flash_bwd_causal_diag"]["split_S4096_call_ms"] = split_ms
+    entries["flash_bwd_causal_diag"].update(split_S4096_call_ms=split_ms, partition=diag_part)
     print(f"[causal bwd] the whole split backward at S {SPLIT_S}: {split_ms:.3f} ms [{card}]")
     del inputs, xb, pb
     gc.collect()
@@ -2415,7 +2547,10 @@ def phase_causal_bwd(torch, card: str):
                              f"{flash_bwd.SCHEDULE_LAUNCHES}")
     print("[causal bwd] phases 1-11 (Mistral-7B-v0.3 widths) launched no backward schedule "
           f"kernel: {dict(flash_bwd.SCHEDULE_LAUNCHES)}")
+    mma = mma_build_report()
     runs, entries = causal_bwd_kernels(torch, card)
+    entries["flash_bwd_tri_square"]["build"] = mma["bwd_tri_mma_kernel"]
+    entries["flash_bwd_worklist"]["build"] = mma["bwd_wl_mma_kernel"]
     runs["train"] = qwen_train(torch, card)
     print(f"[causal bwd] phase 12 took {time.perf_counter() - t0:.1f} s")
     return runs, entries

@@ -1,6 +1,7 @@
 // The fused 5-product backward shared by flash_bwd_tri.cu (B13 tri-square
-// and its diag leaves) and flash_bwd_wl.cu (B14 work list), on
-// attn_tiles.cuh's tile math.
+// and its diag leaves) and flash_bwd_wl.cu (B14 work list): their
+// parameters, numerics and, for fp32 inputs, the steps on attn_tiles.cuh's
+// FMA tile math (16-bit inputs take bwd_mma.cuh's tensor-core tiles).
 //
 // The TPU kernels (fa2_triton_tpu/ops/flash_bwd.py:_bwd_tri_square_kernel
 // l.845, _bwd_fused_wl_kernel l.1849) recompute each (q tile, kv tile) pair
@@ -63,6 +64,13 @@ struct FusedBwdParams {
   const int* table;     // work list: [nsteps][8] (g, iq, ws, flags, strip, 0, 0, 0)
   const int* starts;    // work list: first step of each strip, then nsteps
   int sub, strip_cols, dq_whole;
+  // 16-bit kernels' block partition (ops/flash_bwd.py): tri: [leaves * nparts
+  // + 1] tile starts per block, then the tiles' first kv rows; work list:
+  // [nparts + 1] chunk step starts, [strips + 1] first chunk per strip, then
+  // [strips][nq] flags of the q-row blocks each strip's steps cover.
+  const int* part;
+  int nparts;
+  int tile_q, tile_kv;  // the q and kv tile rows the host partition assumes
 };
 
 // The 24 strides of an entry point, in elements: q, k, v, do, o, dq, dk, dv
@@ -196,12 +204,13 @@ __device__ __forceinline__ void dq_tile_write(const float* acc, T* out, long lon
   }
 }
 
-// Local q rows [r_lo, r_hi) that can see a live column of the 64-row kv tile
-// at k0 (flash_bwd.cu's dk/dv rule: causal, window, lengths).
-__device__ __forceinline__ void kv_tile_rows(const FusedBwdParams& p, int k0, int shift,
-                                             int q_valid, int kv_valid, int& r_lo, int& r_hi) {
+// Local q rows [r_lo, r_hi) that can see a live column of the kv tile at k0
+// whose live columns end at c_lim (flash_bwd.cu's dk/dv rule: causal,
+// window, lengths); r_hi = 0 when it has none.
+__device__ __forceinline__ void kv_tile_rows(const FusedBwdParams& p, int k0, int c_lim, int shift,
+                                             int q_valid, int& r_lo, int& r_hi) {
   const int col_lo = p.kv_off + k0;
-  const int col_hi = p.kv_off + min(k0 + TM, kv_valid) - 1;  // inclusive
+  const int col_hi = p.kv_off + c_lim - 1;  // inclusive
   r_lo = 0;
   r_hi = q_valid;
   if (p.causal) {

@@ -37,6 +37,9 @@ DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None
+# nvcc's output of the last `build(verbose=True)`: ptxas registers, shared
+# memory and spills of every kernel.
+ptxas_report: Optional[str] = None
 
 
 class KernelBuildError(RuntimeError):
@@ -82,7 +85,7 @@ def build(verbose: bool = False) -> Path:
     nvcc per source file, all started together, then one link.
     `verbose=True` adds `-Xptxas -v` and prints nvcc's output (registers,
     shared memory and spills of each kernel). Returns the library path."""
-    global build_seconds
+    global build_seconds, ptxas_report
     out_dir = BUILD_ROOT / source_hash()
     lib_path = out_dir / LIB_NAME
     if lib_path.is_file() and not verbose:
@@ -121,9 +124,30 @@ def build(verbose: bool = False) -> Path:
             obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
     if verbose:
-        print("\n".join(reports))
+        ptxas_report = "\n".join(reports)
+        print(ptxas_report)
     os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all or nothing
     return lib_path
+
+
+def find_cuobjdump() -> Optional[str]:
+    """cuobjdump beside nvcc (the CUDA toolkit), else the copy in Triton's
+    package (`triton/backends/nvidia/bin/`), else None."""
+    try:
+        candidates = [Path(find_nvcc()).parent / "cuobjdump"]
+    except KernelBuildError:
+        candidates = []
+    try:
+        import importlib.util
+        spec = importlib.util.find_spec("triton")
+        if spec is not None and spec.origin:
+            candidates.append(Path(spec.origin).parent / "backends" / "nvidia" / "bin" / "cuobjdump")
+    except (ImportError, ValueError):
+        pass
+    for c in candidates:
+        if c.is_file() and os.access(c, os.X_OK):
+            return str(c)
+    return None
 
 
 def load() -> ctypes.CDLL:

@@ -32,15 +32,23 @@ work list (B14, `csrc/flash_bwd_wl.cu` over the host table of
 `build_causal_bwd_worklist`), else the fused / two-pass backward (B2, B3).
 The strip, fused and two-pass routes launch the dq and dk/dv pair.
 
+For bf16 / fp16 inputs the tri-square, diag and work-list kernels run on
+tensor cores (`csrc/bwd_mma.cuh`) over host block partitions
+(`tri_partition`, `wl_partition`: enough blocks of equal causal work to
+fill the card, from the shape and its SM count), each block summing into
+its own fp32 partials and a reduce kernel adding them in a fixed order;
+fp32 inputs keep their FMA kernels.
+
 CPU tensors take the plain twins (`flash_attn_backward_plain`, and for the
 schedules the same function on leaves, rectangles or the work list's
-steps) through the same routing; CUDA tensors always launch the kernels or
-raise.
+steps, walking the same partitions) through the same routing; CUDA tensors
+always launch the kernels or raise.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import heapq
 from typing import Optional, Tuple
 
 import numpy as np
@@ -65,8 +73,9 @@ SCHEDULE_LAUNCHES = dict.fromkeys(("tri_square", "causal_diag", "rect", "worklis
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 # The fused kernels' argtypes share a tail: the lens and strides pointers,
 # then (q_off, kv_off, [causal, wl, wr,] scale, k_mul, 4 dropout args,
-# Sq_real, Sk_real, stream).
-_DROP_TAIL = [_I, _U, _U, _F, _I, _I, _P]
+# Sq_real, Sk_real, the 16-bit kernels' partition table, its block count
+# and the q and kv tile rows it was built for, stream).
+_DROP_TAIL = [_I, _U, _U, _F, _I, _I, _P, _I, _I, _I, _P]
 _ARGTYPES = {
     "fa2_flash_bwd": ([_I] * 8 + [_P] * 6 + [_P, _I, _I, _I] + [_P] * 4 + [_P, _P] + [_I] * 5
                       + [_F, _F] + [_I, _U, _U, _F, _I, _I, _I, _P]),
@@ -180,13 +189,28 @@ def flash_attn_backward_plain(
     return grads
 
 
-def _kernel_layout(x: torch.Tensor) -> torch.Tensor:
+def _kernel_layout(x: torch.Tensor, multiple: int = 4) -> torch.Tensor:
     """x itself if the kernels can read it (head dim contiguous, strides a
-    multiple of 4 elements, 16-byte aligned base), else a BHSD view of a
-    BSHD-contiguous copy (autograd may hand over e.g. an expanded do)."""
-    if x.stride(3) == 1 and not any(s % 4 for s in x.stride()[:3]) and x.data_ptr() % 16 == 0:
+    multiple of `multiple` elements, 16-byte aligned base), else a BHSD view
+    of a BSHD-contiguous copy (autograd may hand over e.g. an expanded do)."""
+    if _aligned(x, multiple):
         return x
     return x.transpose(1, 2).contiguous().transpose(1, 2)
+
+
+def _aligned(x: torch.Tensor, multiple: int) -> bool:
+    return (x.stride(3) == 1 and not any(s % multiple for s in x.stride()[:3])
+            and x.data_ptr() % 16 == 0)
+
+
+def _check_mma_rows(**tensors):
+    """The 16-bit fused kernels copy rows of q, k, v and do 16 bytes at a
+    time (cp.async): raise unless each has 16-byte aligned rows and base."""
+    for name, t in tensors.items():
+        if t.element_size() == 2 and not _aligned(t, 8):
+            raise ValueError(f"the 16-bit fused backward kernels need {name} with a contiguous head "
+                             f"dim, strides a multiple of 8 elements and a 16-byte aligned base; "
+                             f"got strides {tuple(t.stride())}")
 
 
 def _new_grads(q, k, zero=False):
@@ -479,6 +503,197 @@ def backward_route(Sq: int, Sk: int, head_dim: int, dtype_bytes: int, *, causal:
 
 
 # ---------------------------------------------------------------------------
+# Block partitions of the 16-bit fused kernels (csrc/bwd_mma.cuh): built on
+# the host from shapes only, cached, and handed to the kernels as device
+# int32 tables. The plain twins walk the same partitions. The number of
+# blocks follows the shape and the card's SM count; CPU tensors take the
+# H100's, so a twin walks what the card's kernel walks.
+
+H100_SMS = 132          # streaming multiprocessors of the H100 SXM
+FUSED_BQ = 64           # q rows of a streamed tile (bwd_mma.cuh MmaCfg::BQ; the
+                        # kernels refuse a partition built for other tiles)
+BALANCE = 1.25          # the largest block's work over the mean, at most
+
+
+def fused_kv_tile(head_dim: int) -> int:
+    """kv rows of a 16-bit fused block's tile (bwd_mma.cuh MmaCfg::BKV)."""
+    return 128 if head_dim <= 128 else 64
+
+
+def sm_count(device) -> int:
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).multi_processor_count
+    return H100_SMS
+
+
+def _q_tiles(r_lo: int, r_hi: int) -> int:
+    """FUSED_BQ-row q tiles the kernels walk for rows [r_lo, r_hi)."""
+    if r_hi <= r_lo:
+        return 0
+    return -(-(r_hi - r_lo // FUSED_BQ * FUSED_BQ) // FUSED_BQ)
+
+
+def _tile_rows(k0, c_lim, shift, q_valid, causal=True, window=(-1, -1)):
+    """The q rows [r_lo, r_hi) that kv columns [k0, c_lim) meet
+    (bwd_fused.cuh:kv_tile_rows at offset 0)."""
+    r_lo, r_hi = 0, q_valid
+    if causal:
+        r_lo = max(0, k0 - shift)
+    elif window[1] >= 0:
+        r_lo = max(0, k0 - shift - window[1])
+    if window[0] >= 0:
+        r_hi = min(r_hi, c_lim - 1 - shift + window[0] + 1)
+    return (r_lo, r_hi) if c_lim > k0 else (r_lo, 0)
+
+
+def _ratio(loads) -> float:
+    """Largest over mean block work (1 for no work)."""
+    total = sum(loads)
+    return max(loads) * len(loads) / total if total else 1.0
+
+
+def _makespan(loads, copies, sms):
+    """Work of the busiest SM when the blocks (`loads`, launched `copies`
+    times in order) go to `sms` SMs as each frees up, one block at a time:
+    the 16-bit fused kernels fit one block per SM."""
+    free = [0] * sms
+    for _ in range(copies):
+        for ld in loads:
+            heapq.heapreplace(free, free[0] + ld)
+    return max(free)
+
+
+def _pick(candidates, copies, sms):
+    """The candidate (loads, payload) that finishes first on `sms` SMs, among
+    those within BALANCE when any is; ties go to one that fills the card,
+    then to fewer blocks (less fp32 partial memory)."""
+    ok = [c for c in candidates if _ratio(c[0]) <= BALANCE] or candidates
+    return min(ok, key=lambda c: (_makespan(c[0], copies, sms), len(c[0]) * copies < sms,
+                                  len(c[0])))
+
+
+def _lpt(weights, bins):
+    """Largest weight first into the least loaded bin (ties: the lowest
+    index): the item indices of each bin and its load."""
+    lists, loads = [[] for _ in range(bins)], [0] * bins
+    for i in sorted(range(len(weights)), key=lambda i: (-weights[i], i)):
+        j = min(range(bins), key=lambda b: (loads[b], b))
+        lists[j].append(i)
+        loads[j] += weights[i]
+    return lists, loads
+
+
+@functools.lru_cache(maxsize=64)
+def tri_partition(Sq, Sk, shift, leaf, group, B, Hkv, head_dim, sms):
+    """B13's blocks: for each leaf (one span when `leaf` is 0), P blocks per
+    (kv head, batch row), each a list of kv tile starts (tiles of
+    `fused_kv_tile` rows) in ascending order. Tile t goes with tile n - 1 - t
+    (together one full row of causal work) and the pairs are dealt largest
+    first to the least loaded block. Work is counted in (q tile, kv tile)
+    pairs over the GQA group at the static shift; P is `_pick`'s choice.
+    Returns (P, starts int32 [leaves * P + 1], tiles int32, work per
+    block)."""
+    bkv = fused_kv_tile(head_dim)
+    spans = ([(0, Sq, Sk)] if leaf == 0 else
+             [(l0, min(l0 + leaf, Sq), min(l0 + leaf, Sk)) for l0 in range(0, Sq, leaf)])
+    leaves = []
+    for R0, R1, C1 in spans:
+        tiles = list(range(R0, C1, bkv))
+        work = []
+        for k0 in tiles:
+            r_lo, r_hi = _tile_rows(k0, min(k0 + bkv, C1), shift, Sq)
+            work.append(group * _q_tiles(max(r_lo, R0), min(r_hi, R1)))
+        n = len(tiles)
+        items = [sorted({t, n - 1 - t}) for t in range((n + 1) // 2)]
+        leaves.append((tiles, items, [sum(work[i] for i in it) for it in items]))
+    candidates = []
+    for P in range(1, max(len(x[1]) for x in leaves) + 1):
+        blocks = []
+        for tiles, items, weights in leaves:
+            lists, loads = _lpt(weights, P)
+            blocks += [(sorted(tiles[t] for it in l for t in items[it]), ld)
+                       for l, ld in zip(lists, loads)]
+        candidates.append(([ld for _, ld in blocks], (P, blocks)))
+    P, blocks = _pick(candidates, B * Hkv, sms)[1]
+    starts = np.cumsum([0] + [len(t) for t, _ in blocks]).astype(np.int32)
+    tiles = np.asarray([k0 for t, _ in blocks for k0 in t], np.int32)
+    return P, starts, tiles, tuple(ld for _, ld in blocks)
+
+
+def _cuts(weights, k):
+    """k contiguous runs of `weights`: boundaries 0 < b_1 < ... < n, b_j the
+    row boundary whose prefix sum is nearest j / k of the total."""
+    pre = np.cumsum(weights)
+    n, total = len(weights), pre[-1]
+    cuts = [0]
+    for j in range(1, k):
+        target = j * total / k
+        cuts.append(min(range(cuts[-1] + 1, n - (k - j) + 1),
+                        key=lambda b: (abs(pre[b - 1] - target), b)))
+    return cuts + [n]
+
+
+@functools.lru_cache(maxsize=64)
+def wl_partition(schedule, Sq, Sk, B, Hkv, head_dim, sms):
+    """B14's chunks: each strip's steps cut at row boundaries (a row: the
+    run of steps of one (g, iq)) into chunks of about equal work, K chunks
+    in all spread over the strips by their work, one block per (chunk, kv
+    head, batch row). Work is counted in (q tile, kv tile) pairs at the
+    static shift; K is `_pick`'s choice. Returns (chunk step starts int32 [C + 1], first chunk of each
+    strip int32 [strips + 1], cover int32 [strips, nq]: 1 where the strip's
+    steps hold q-row block iq, work per chunk)."""
+    table, _ = _worklist(*schedule)
+    nq, sub, nws, nsub_strip, _, shift, window, causal = schedule[:8]
+    bkv = fused_kv_tile(head_dim)
+    strips = -(-nws // nsub_strip)
+    rows = {}  # strip -> [[first step, end step, work, (g, iq)], ...]
+    for i, (g, iq, ws, _, strip, *_) in enumerate(table.tolist()):
+        w_end = min((ws + 1) * sub, Sk)
+        work = 0
+        for k0 in range(ws * sub, w_end, bkv):
+            r_lo, r_hi = _tile_rows(k0, min(k0 + bkv, w_end), shift, Sq, causal, window)
+            work += _q_tiles(max(iq * sub, r_lo), min((iq + 1) * sub, Sq, r_hi))
+        runs = rows.setdefault(strip, [])
+        if runs and runs[-1][3] == (g, iq):
+            runs[-1][1] = i + 1
+            runs[-1][2] += work
+        else:
+            runs.append([i, i + 1, work, (g, iq)])
+    total = sum(r[2] for runs in rows.values() for r in runs)
+    candidates = []
+    for K in range(1, sum(len(r) for r in rows.values()) + 1):
+        chunks = []
+        for strip in sorted(rows):
+            runs = rows[strip]
+            k = min(len(runs), max(1, int(sum(r[2] for r in runs) * K / max(total, 1) + 0.5)))
+            cuts = _cuts([r[2] for r in runs], k)
+            chunks += [(strip, runs[a][0], runs[b - 1][1], sum(r[2] for r in runs[a:b]))
+                       for a, b in zip(cuts[:-1], cuts[1:])]
+        if not candidates or len(chunks) != len(candidates[-1][0]):
+            candidates.append(([c[3] for c in chunks], chunks))
+    chunks = _pick(candidates, B * Hkv, sms)[1]
+    starts = np.asarray([c[1] for c in chunks] + [chunks[-1][2]], np.int32)
+    firsts = np.searchsorted([c[0] for c in chunks], np.arange(strips + 1)).astype(np.int32)
+    cover = np.zeros((strips, nq), np.int32)
+    for g, iq, ws, _, strip, *_ in table.tolist():
+        cover[strip, iq] = 1
+    return starts, firsts, cover, tuple(c[3] for c in chunks)
+
+
+_DEVICE_TABLES = {}
+
+
+def _device_int32(key, arrays, device):
+    """The int32 arrays concatenated into one device tensor, copied once per
+    key and device."""
+    if (key, device) not in _DEVICE_TABLES:
+        _DEVICE_TABLES[(key, device)] = torch.from_numpy(
+            np.concatenate([np.asarray(a, np.int32).ravel() for a in arrays])).to(device)
+    return _DEVICE_TABLES[(key, device)]
+
+
+# ---------------------------------------------------------------------------
 # The schedules and their plain twins.
 
 
@@ -545,20 +760,31 @@ def _prescale_k(k, softmax_scale):
 def _tri_launch(kernel, q, k, v, do, o, lse, delta, lens, q_off, kv_off, *, leaf, softmax_scale,
                 dropout_p, dropout_seed, seqlen_q_real, seqlen_k_real):
     """Launch csrc/flash_bwd_tri.cu: "tri_square" (o given: k folded and
-    delta = rowsum(o * do) - delta in the kernel, delta the dlse adjustment
-    or None) or "causal_diag" (leaf T, k prescaled, delta given). Returns
-    (dq, dk, dv) in the input dtypes."""
+    delta = rowsum(o * do) - delta in the kernels, delta the dlse adjustment
+    or None) or "causal_diag" (leaf T, k prescaled, delta given). 16-bit
+    inputs take the tensor-core kernel on `tri_partition`'s blocks (a delta
+    prologue, the main kernel, the dq reduction), fp32 ones the FMA kernel.
+    Returns (dq, dk, dv) in the input dtypes."""
     _check_bwd_args(q, k, v, do, lens, lse, o)
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     sq_real, sk_real = _reals(q, k, seqlen_q_real, seqlen_k_real)
-    do = _kernel_layout(do)
-    o = _kernel_layout(o) if o is not None else None
+    mma = q.element_size() == 2
+    do = _kernel_layout(do, 8 if mma else 4)
+    o = _kernel_layout(o, 8 if mma else 4) if o is not None else None
+    if mma:
+        _check_mma_rows(q=q, k=k, v=v)
     dq, dk, dv = _new_grads(q, k)
     if B == 0 or Hq == 0 or Sq == 0 or Sk == 0:
         return tuple(t.zero_() for t in (dq, dk, dv))
     lse = lse.contiguous()
-    dq_acc = torch.empty((B, Hq, Sq, D), dtype=torch.float32, device=q.device)
+    part, nparts = None, 0
+    if mma:
+        key = (Sq, Sk, sk_real - sq_real, int(leaf), Hq // Hkv, B, Hkv, D, sm_count(q.device))
+        nparts, starts, tiles, _ = tri_partition(*key)
+        part = _device_int32(("tri", key), (starts, tiles), q.device)
+    dq_acc = torch.empty(((nparts,) if mma else ()) + (B, Hq, Sq, D), dtype=torch.float32,
+                         device=q.device)
     delta_buf = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device) if o is not None else None
     strides = _fused_strides(q, k, v, do, o, dq, dk, dv)
     ptr = lambda t: t.data_ptr() if t is not None else None
@@ -568,24 +794,60 @@ def _tri_launch(kernel, q, k, v, do, o, lse, delta, lens, q_off, kv_off, *, leaf
         ptr(delta), ptr(delta_buf), dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         lens.data_ptr(), ctypes.cast(strides, ctypes.c_void_p), int(q_off), int(kv_off),
         float(softmax_scale), float(softmax_scale * LOG2E) if o is not None else 0.0,
-        *dropout_c_args(dropout_p, dropout_seed), int(sq_real), int(sk_real),
-        _build.stream_ptr(q.device))
+        *dropout_c_args(dropout_p, dropout_seed), int(sq_real), int(sk_real), ptr(part),
+        int(nparts), FUSED_BQ, fused_kv_tile(D), _build.stream_ptr(q.device))
     _build.check(status, f"flash_bwd {kernel} launch")
     SCHEDULE_LAUNCHES[kernel] += 1
     return dq, dk, dv
 
 
+def _tri_plain(q, k_p, v, do, lse, delta, lens, q_off=0, kv_off=0, *, leaf, softmax_scale,
+               dropout_p=0.0, dropout_seed=0, seqlen_q_real=None, seqlen_k_real=None):
+    """The tri kernel's plain twin, in fp32: `tri_partition`'s blocks in
+    order, each adding its tiles' fused sums (causal, over its leaf's rows)
+    into its own dq partial and writing their dk / dv, then the partials
+    added in block order. k_p is k * scale * log2e (any dtype)."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k_p.shape[1], k_p.shape[2]
+    sq_real, sk_real = _reals(q, k_p, seqlen_q_real, seqlen_k_real)
+    P, starts, tiles, _ = tri_partition(Sq, Sk, sk_real - sq_real, int(leaf), Hq // Hkv, B, Hkv, D,
+                                        sm_count(q.device))
+    bkv = fused_kv_tile(D)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    parts = torch.zeros((P, B, Hq, Sq, D), **f32)
+    dk, dv = torch.zeros((B, Hkv, Sk, D), **f32), torch.zeros((B, Hkv, Sk, D), **f32)
+    for x in range(len(starts) - 1):
+        l0 = (x // P) * leaf
+        rows = slice(l0, min(l0 + leaf, Sq) if leaf else Sq)
+        c1 = min(l0 + leaf, Sk) if leaf else Sk
+        for k0 in tiles[starts[x]:starts[x + 1]].tolist():
+            cols = slice(k0, min(k0 + bkv, c1))
+            dqr, dkr, dvr = _fused_region_plain(
+                q, k_p, v, do, lse, delta, lens, q_off, kv_off, rows=rows, cols=cols, causal=True,
+                dropout_p=dropout_p, dropout_seed=dropout_seed, seqlen_q_real=sq_real,
+                seqlen_k_real=sk_real)
+            parts[x % P][:, :, rows] += dqr
+            dk[:, :, cols] = dkr
+            dv[:, :, cols] = dvr
+    dq = parts[0]
+    for j in range(1, P):
+        dq = dq + parts[j]
+    return (dq / LOG2E).to(q.dtype), (dk * softmax_scale).to(v.dtype), dv.to(v.dtype)
+
+
 def flash_attn_backward_tri_square(q, k, v, do, o, lse, lens, q_off=0, kv_off=0, *,
                                    softmax_scale, dropout_p=0.0, dropout_seed=0,
                                    seqlen_q_real=None, seqlen_k_real=None, dlse=None):
-    """B13, the short causal fused backward (JAX l.985): one block per
-    (batch row, kv head) over the whole sequence and GQA group
-    (csrc/flash_bwd_tri.cu), the k fold and delta in the kernel and only
-    the dlse adjustment on the host (l.1006-1011). JAX's precondition
-    (l.1001) with the row tile TILE_ROWS in place of the TPU's sub-tile: a
-    shift sk_real - sq_real that is a multiple of it (the port does not pad,
-    so the lengths are free). CPU tensors take `flash_attn_backward_plain`,
-    causal."""
+    """B13, the short causal fused backward (JAX l.985; csrc/flash_bwd_tri.cu),
+    the k fold and delta in the kernels and only the dlse adjustment on the
+    host (l.1006-1011): 16-bit inputs on `tri_partition`'s blocks (enough
+    per (batch row, kv head) to fill the card), fp32 ones one block per
+    (batch row, kv head) over the whole sequence and GQA group. JAX's
+    precondition (l.1001) with the row tile TILE_ROWS in place of the TPU's
+    sub-tile: a shift sk_real - sq_real that is a multiple of it (the port
+    does not pad, so the lengths are free). CPU tensors take `_tri_plain`
+    on k * scale * log2e in fp32 (the function of
+    `flash_attn_backward_plain`, summed as the partition sums it)."""
     sq_real, sk_real = _reals(q, k, seqlen_q_real, seqlen_k_real)
     if (sk_real - sq_real) % TILE_ROWS:
         raise ValueError(f"tri_square needs a shift that is a multiple of {TILE_ROWS}, got "
@@ -593,8 +855,8 @@ def flash_attn_backward_tri_square(q, k, v, do, o, lse, lens, q_off=0, kv_off=0,
     kw = dict(softmax_scale=softmax_scale, dropout_p=dropout_p, dropout_seed=dropout_seed,
               seqlen_q_real=sq_real, seqlen_k_real=sk_real)
     if q.device.type == "cpu":
-        return flash_attn_backward_plain(q, k, v, do, o, lse, lens, q_off, kv_off, causal=True,
-                                         dlse=dlse, **kw)
+        return _tri_plain(q, k.float() * (softmax_scale * LOG2E), v, do, lse,
+                          compute_delta(o, do, lse, dlse), lens, q_off, kv_off, leaf=0, **kw)
     return _tri_launch("tri_square", q, k, v, do, o, lse, _dlse_adjustment(lse, dlse), lens,
                        q_off, kv_off, leaf=0, **kw)
 
@@ -603,7 +865,8 @@ def flash_attn_backward_causal_diag(q, k_p, v, do, lse, delta, lens, q_off=0, kv
                                     softmax_scale, dropout_p=0.0, dropout_seed=0,
                                     seqlen_q_real=None, seqlen_k_real=None):
     """B13 diag (JAX l.1060): the backward of every diagonal T x T causal
-    leaf in one launch (csrc/flash_bwd_tri.cu, one block per leaf, batch row
+    leaf in one launch (csrc/flash_bwd_tri.cu: 16-bit inputs on
+    `tri_partition`'s blocks per leaf, fp32 one block per leaf, batch row
     and kv head), from the prescaled k_p (k * scale * log2e in k's dtype) and
     the global delta. Full-size outputs in the input dtypes; local row r
     meets only the columns of its own leaf. Needs Sq == Sk and T a multiple
@@ -626,21 +889,11 @@ def flash_attn_backward_causal_diag(q, k_p, v, do, lse, delta, lens, q_off=0, kv
 def flash_attn_backward_causal_diag_plain(q, k_p, v, do, lse, delta, lens, q_off=0, kv_off=0, *,
                                           T, softmax_scale, dropout_p=0.0, dropout_seed=0,
                                           seqlen_q_real=None, seqlen_k_real=None):
-    """The diag kernel's plain twin: the fused sums, causal, on each leaf's
-    rows and columns at their global offsets."""
-    sq_real, sk_real = _reals(q, k_p, seqlen_q_real, seqlen_k_real)
-    Sq = q.shape[2]
-    dq, dk, dv = (torch.empty_like(x) for x in (q, k_p, v))
-    for l0 in range(0, Sq, T):
-        leaf = slice(l0, min(l0 + T, Sq))
-        dqr, dkr, dvr = _fused_region_plain(
-            q, k_p, v, do, lse, delta, lens, q_off, kv_off, rows=leaf, cols=leaf, causal=True,
-            dropout_p=dropout_p, dropout_seed=dropout_seed, seqlen_q_real=sq_real,
-            seqlen_k_real=sk_real)
-        dq[:, :, leaf] = (dqr / LOG2E).to(dq.dtype)
-        dk[:, :, leaf] = (dkr * softmax_scale).to(dk.dtype)
-        dv[:, :, leaf] = dvr.to(dv.dtype)
-    return dq, dk, dv
+    """The diag kernel's plain twin: `_tri_plain` on the T x T leaves."""
+    return _tri_plain(q, k_p, v, do, lse, delta, lens, q_off, kv_off, leaf=T,
+                      softmax_scale=softmax_scale, dropout_p=dropout_p,
+                      dropout_seed=dropout_seed, seqlen_q_real=seqlen_q_real,
+                      seqlen_k_real=seqlen_k_real)
 
 
 def _region(q, k, row0, col0, nrows, ncols):
@@ -758,33 +1011,29 @@ def _worklist(nq, sub, nws, nsub_strip, group, shift, window, causal, tri_ok, dq
     return table, np.r_[starts, len(table)].astype(np.int32)
 
 
-_DEVICE_TABLES = {}
-
-
 def _device_worklist(key, device):
-    """The table and its strip starts as one device int32 tensor (copied to
-    the device once per schedule)."""
-    if (key, device) not in _DEVICE_TABLES:
-        table, starts = _worklist(*key)
-        _DEVICE_TABLES[(key, device)] = torch.from_numpy(
-            np.concatenate([table.ravel(), starts])).to(device)
-    return _DEVICE_TABLES[(key, device)]
+    """The table and its strip starts as one device int32 tensor."""
+    return _device_int32(("worklist", key), _worklist(*key), device)
 
 
 def flash_attn_backward_fused_wl(q, k, v, do, o, lse, lens, q_off=0, kv_off=0, *,
                                  causal=True, softmax_scale, window=(-1, -1), dropout_p=0.0,
                                  dropout_seed=0, sub=512, block_kv=None, seqlen_q_real=None,
                                  seqlen_k_real=None, dlse=None):
-    """B14, the work-list fused backward (JAX l.1986): one launch over the
+    """B14, the work-list fused backward (JAX l.1986): one call over the
     host schedule `build_causal_bwd_worklist` (block_q == sub; strips of
     `block_kv` columns, None = one strip), as csrc/flash_bwd_wl.cu. With one
     strip the k fold and delta are in the kernel and each row's dq is
     initialised and written at its table flags; with several (dq_whole, MHA
     only) k is prescaled and delta computed on the host (l.2033-2048), each
-    strip sums into its own fp32 dq partial and a reduction writes dq. The
-    table covers the port's tensors (their lengths rounded up to `sub`).
-    CPU tensors take `flash_attn_backward_fused_wl_plain`, which walks the
-    same table. Softcap is not taken (the routing never passes it)."""
+    strip sums into its own fp32 dq partial and a reduction writes dq.
+    16-bit inputs take the tensor-core kernel on `wl_partition`'s chunks
+    (each strip's steps cut at row boundaries; fp32 dk / dv partials per
+    chunk, added by the reduction), fp32 ones the FMA kernel with one block
+    per strip. The table covers the port's tensors (their lengths rounded up
+    to `sub`). CPU tensors take `flash_attn_backward_fused_wl_plain`, which
+    walks the same table and chunks. Softcap is not taken (the routing
+    never passes it)."""
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     group = Hq // Hkv
@@ -801,7 +1050,8 @@ def flash_attn_backward_fused_wl(q, k, v, do, o, lse, lens, q_off=0, kv_off=0, *
                                                   schedule=key, causal=causal, window=window,
                                                   dlse=dlse, **kw)
     _check_bwd_args(q, k, v, do, lens, lse, o)
-    do = _kernel_layout(do)
+    mma = q.element_size() == 2
+    do = _kernel_layout(do, 8 if mma else 4)
     dq, dk, dv = _new_grads(q, k, zero=True)
     if B == 0 or Hq == 0 or Sq == 0 or Sk == 0:
         return dq, dk, dv
@@ -810,12 +1060,22 @@ def flash_attn_backward_fused_wl(q, k, v, do, o, lse, lens, q_off=0, kv_off=0, *
     else:
         k_in, o_in = k, _kernel_layout(o)
         delta, k_mul = _dlse_adjustment(lse, dlse), softmax_scale * LOG2E
+    strip_cols = nsub_strip * sub
+    f32 = dict(dtype=torch.float32, device=q.device)
     tbl = _device_worklist(key, q.device)
     nsteps = len(_worklist(*key)[0])
     parts = tbl.numel() - 8 * nsteps - 1
-    f32 = dict(dtype=torch.float32, device=q.device)
-    dq_acc = torch.empty(((parts if dq_whole else 1), B, Hq, Sq, D), **f32)
-    dk_acc, dv_acc = (torch.empty((B, Hkv, Sk, D), **f32) for _ in range(2))
+    if mma:
+        _check_mma_rows(q=q, k=k_in, v=v)
+        pkey = (key, Sq, Sk, B, Hkv, D, sm_count(q.device))
+        starts, firsts, cover, _ = wl_partition(*pkey)
+        part, nparts = _device_int32(("wl", pkey), (starts, firsts, cover), q.device), len(starts) - 1
+        dq_acc = torch.empty(((len(firsts) - 1) if dq_whole else 1, B, Hq, Sq, D), **f32)
+        dk_acc, dv_acc = (torch.empty((nparts, B, Hkv, strip_cols, D), **f32) for _ in range(2))
+    else:
+        part, nparts = None, 0
+        dq_acc = torch.empty(((parts if dq_whole else 1), B, Hq, Sq, D), **f32)
+        dk_acc, dv_acc = (torch.empty((B, Hkv, Sk, D), **f32) for _ in range(2))
     delta_buf = torch.empty((B, Hq, Sq), **f32) if o_in is not None else None
     lse = lse.contiguous()
     strides = _fused_strides(q, k_in, v, do, o_in, dq, dk, dv)
@@ -825,11 +1085,11 @@ def flash_attn_backward_fused_wl(q, k, v, do, o, lse, lens, q_off=0, kv_off=0, *
         q.data_ptr(), k_in.data_ptr(), v.data_ptr(), do.data_ptr(), ptr(o_in), lse.data_ptr(),
         ptr(delta), ptr(delta_buf), dq_acc.data_ptr(), dk_acc.data_ptr(), dv_acc.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), tbl.data_ptr(),
-        tbl.data_ptr() + 4 * 8 * nsteps, parts, sub, nsub_strip * sub, int(dq_whole),
+        tbl.data_ptr() + 4 * 8 * nsteps, parts, sub, strip_cols, int(dq_whole),
         lens.data_ptr(), ctypes.cast(strides, ctypes.c_void_p), int(q_off), int(kv_off),
         int(bool(causal)), window[0], window[1], float(softmax_scale), float(k_mul),
-        *dropout_c_args(dropout_p, dropout_seed), int(sq_real), int(sk_real),
-        _build.stream_ptr(q.device))
+        *dropout_c_args(dropout_p, dropout_seed), int(sq_real), int(sk_real), ptr(part),
+        int(nparts), FUSED_BQ, fused_kv_tile(D), _build.stream_ptr(q.device))
     _build.check(status, "flash_bwd worklist launch")
     SCHEDULE_LAUNCHES["worklist"] += 1
     return dq, dk, dv
@@ -839,54 +1099,64 @@ def flash_attn_backward_fused_wl_plain(q, k, v, do, o, lse, lens, q_off=0, kv_of
                                        schedule, causal=True, softmax_scale, window=(-1, -1),
                                        dropout_p=0.0, dropout_seed=0, seqlen_q_real=None,
                                        seqlen_k_real=None, dlse=None):
-    """The work-list kernel's plain twin: walks the table of `schedule` (the
-    `_worklist` key) step by step in fp32, vectorised over the kv heads,
-    honouring its flags as the TPU kernel does: masked steps apply the
-    causal / window mask and unmasked ones only the lengths, the strip's
-    dk / dv accumulators are zeroed and written at WL_INIT_KV / WL_WRITE_KV,
-    dq at WL_INIT_DQ / WL_WRITE_DQ (per row, or the whole sequence once)."""
+    """The work-list kernel's plain twin, in fp32: walks the table of
+    `schedule` (the `_worklist` key) chunk by chunk (`wl_partition`),
+    vectorised over the kv heads, honouring each step's flags as the TPU
+    kernel does: masked steps apply the causal / window mask and unmasked
+    ones only the lengths; with one strip each row's dq is zeroed at
+    WL_INIT_DQ and written at WL_WRITE_DQ. Each chunk sums dk / dv into its
+    own partial and its rows' dq into its strip's; then the chunk partials
+    of each strip are added in chunk order (dk, dv) and, with several
+    strips, the strip partials in strip order (dq)."""
     table, _ = _worklist(*schedule)
     sub, nsub_strip, dq_whole = schedule[1], schedule[3], schedule[-1]
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     group = Hq // Hkv
     sq_real, sk_real = _reals(q, k, seqlen_q_real, seqlen_k_real)
+    starts, firsts, _, _ = wl_partition(schedule, Sq, Sk, B, Hkv, D, sm_count(q.device))
+    strip_cols = nsub_strip * sub
     k_p = _prescale_k(k, softmax_scale)
     delta = compute_delta(o, do, lse, dlse)
     f32 = dict(dtype=torch.float32, device=q.device)
-    dq_acc = torch.zeros((B, Hq, Sq, D), **f32)
-    dk_acc, dv_acc = torch.zeros((B, Hkv, Sk, D), **f32), torch.zeros((B, Hkv, Sk, D), **f32)
+    dq_acc = torch.zeros(((len(firsts) - 1) if dq_whole else 1, B, Hq, Sq, D), **f32)
+    dk_part, dv_part = (torch.zeros((len(starts) - 1, B, Hkv, strip_cols, D), **f32)
+                        for _ in range(2))
     dq, dk, dv = (torch.zeros_like(x) for x in (q, k, v))
-    for g, iq, ws, flags, strip, *_ in table.tolist():
-        heads = slice(g, None, group)
-        strip_cols = slice(strip * nsub_strip * sub, min((strip + 1) * nsub_strip * sub, Sk))
-        rows = slice(iq * sub, min((iq + 1) * sub, Sq))
-        cols = slice(ws * sub, min((ws + 1) * sub, Sk))
-        if flags & WL_INIT_KV:
-            dk_acc[:, :, strip_cols] = 0.0
-            dv_acc[:, :, strip_cols] = 0.0
-        if flags & WL_INIT_DQ:
-            if dq_whole:
-                dq_acc.zero_()
-            else:
-                dq_acc[:, heads, rows] = 0.0
-        if rows.start < rows.stop and cols.start < cols.stop:
-            dqr, dkr, dvr = _fused_region_plain(
-                q, k_p, v, do, lse, delta, lens, q_off, kv_off, rows=rows, cols=cols,
-                causal=causal, window=window, masked=bool(flags & (WL_MASK_GEN | WL_MASK_TRI)),
-                g=g, dropout_p=dropout_p, dropout_seed=dropout_seed, seqlen_q_real=sq_real,
-                seqlen_k_real=sk_real)
-            dq_acc[:, heads, rows] += dqr
-            dk_acc[:, :, cols] += dkr
-            dv_acc[:, :, cols] += dvr
-        if flags & WL_WRITE_KV:
-            dk[:, :, strip_cols] = (dk_acc[:, :, strip_cols] * softmax_scale).to(dk.dtype)
-            dv[:, :, strip_cols] = dv_acc[:, :, strip_cols].to(dv.dtype)
-        if flags & WL_WRITE_DQ:
-            if dq_whole:
-                dq[:] = (dq_acc / LOG2E).to(dq.dtype)
-            else:
-                dq[:, heads, rows] = (dq_acc[:, heads, rows] / LOG2E).to(dq.dtype)
+    for c in range(len(starts) - 1):
+        for g, iq, ws, flags, strip, *_ in table[starts[c]:starts[c + 1]].tolist():
+            heads = slice(g, None, group)
+            acc = dq_acc[strip if dq_whole else 0]
+            rows = slice(iq * sub, min((iq + 1) * sub, Sq))
+            cols = slice(ws * sub, min((ws + 1) * sub, Sk))
+            if flags & WL_INIT_DQ and not dq_whole:
+                acc[:, heads, rows] = 0.0
+            if rows.start < rows.stop and cols.start < cols.stop:
+                dqr, dkr, dvr = _fused_region_plain(
+                    q, k_p, v, do, lse, delta, lens, q_off, kv_off, rows=rows, cols=cols,
+                    causal=causal, window=window, masked=bool(flags & (WL_MASK_GEN | WL_MASK_TRI)),
+                    g=g, dropout_p=dropout_p, dropout_seed=dropout_seed, seqlen_q_real=sq_real,
+                    seqlen_k_real=sk_real)
+                acc[:, heads, rows] += dqr
+                local = slice(cols.start - strip * strip_cols, cols.stop - strip * strip_cols)
+                dk_part[c][:, :, local] += dkr
+                dv_part[c][:, :, local] += dvr
+            if flags & WL_WRITE_DQ and not dq_whole:
+                dq[:, heads, rows] = (acc[:, heads, rows] / LOG2E).to(dq.dtype)
+    for st in range(len(firsts) - 1):
+        if firsts[st] == firsts[st + 1]:
+            continue
+        cols = slice(st * strip_cols, min((st + 1) * strip_cols, Sk))
+        dk_s, dv_s = dk_part[firsts[st]], dv_part[firsts[st]]
+        for c in range(firsts[st] + 1, firsts[st + 1]):
+            dk_s, dv_s = dk_s + dk_part[c], dv_s + dv_part[c]
+        dk[:, :, cols] = (dk_s[:, :, :cols.stop - cols.start] * softmax_scale).to(dk.dtype)
+        dv[:, :, cols] = dv_s[:, :, :cols.stop - cols.start].to(dv.dtype)
+    if dq_whole:
+        acc = dq_acc[0]
+        for st in range(1, len(dq_acc)):
+            acc = acc + dq_acc[st]
+        dq[:] = (acc / LOG2E).to(dq.dtype)
     return dq, dk, dv
 
 

@@ -13,6 +13,8 @@ own test allows it (tests/test_worklist_bwd.py:45); the table bit for bit.
 """
 import dataclasses
 import itertools
+import pathlib
+import re
 import types
 
 import jax
@@ -157,6 +159,131 @@ def test_worklist_table_matches_jax_bit_for_bit():
             flash_bwd.WL_INIT_KV, flash_bwd.WL_WRITE_KV, flash_bwd.WL_MASK_TRI) == (
         jb.WL_INIT_DQ, jb.WL_WRITE_DQ, jb.WL_COMPUTE, jb.WL_MASK_GEN, jb.WL_INIT_KV,
         jb.WL_WRITE_KV, jb.WL_MASK_TRI)
+
+
+# ------------------------------ block partitions ----------------------------
+
+# (Sq, Sk, shift, leaf, group, B, Hkv, head_dim): the Qwen trainer's 2 x 2047,
+# the forced split's leaves of 2048 at S 4096, GQA, ragged last tiles and
+# leaves, D 256's 64-row tiles, a small card-test shape.
+TRI_SHAPES = [(2047, 2047, 0, 0, 1, 2, 32, 128), (4096, 4096, 0, 2048, 1, 1, 32, 128),
+              (512, 512, 0, 0, 4, 2, 2, 128), (1000, 1000, 0, 384, 4, 2, 2, 64),
+              (2047, 2047, 0, 0, 1, 1, 8, 256), (300, 300, 0, 0, 1, 2, 8, 128),
+              (1024, 1536, 512, 0, 2, 1, 4, 64)]
+
+
+def _wl_schedule(S, sub, block_kv, group=1, window=(-1, -1)):
+    nq, nws, nsub_strip, tri_ok, dq_whole = flash_bwd._wl_geometry(S, S, group, 0, sub, block_kv)
+    return (nq, sub, nws, nsub_strip, group, 0, window, True, tri_ok, dq_whole)
+
+
+@pytest.mark.parametrize("shape", TRI_SHAPES)
+def test_tri_partition_holds_every_kv_tile_once(shape):
+    """B13's partition: for each leaf, P blocks whose ascending tile lists
+    hold every kv tile of the leaf exactly once, paired t with n - 1 - t;
+    the work per block is the (q tile, kv tile) pairs of its tiles."""
+    Sq, Sk, shift, leaf, group, B, Hkv, D = shape
+    P, starts, tiles, work = flash_bwd.tri_partition(*shape, flash_bwd.H100_SMS)
+    bkv = flash_bwd.fused_kv_tile(D)
+    spans = [(0, Sk)] if leaf == 0 else [(l0, min(l0 + leaf, Sk)) for l0 in range(0, Sq, leaf)]
+    assert len(starts) == len(spans) * P + 1 and starts[0] == 0 and starts[-1] == len(tiles)
+    for li, (c0, c1) in enumerate(spans):
+        lists = [tiles[starts[x]:starts[x + 1]].tolist() for x in range(li * P, (li + 1) * P)]
+        assert all(t == sorted(t) for t in lists)
+        assert sorted(k0 for t in lists for k0 in t) == list(range(c0, c1, bkv))
+        n = len(range(c0, c1, bkv))
+        for t in lists:   # tiles come in mirrored pairs
+            idx = sorted((k0 - c0) // bkv for k0 in t)
+            assert sorted(n - 1 - i for i in idx) == sorted(idx)
+    assert len(work) == len(spans) * P and sum(work) > 0
+
+
+@pytest.mark.parametrize("schedule", [_wl_schedule(8191, 512, 2048), _wl_schedule(512, 128, None),
+                                      _wl_schedule(1000, 128, 256),
+                                      _wl_schedule(512, 64, 128, window=(200, -1)),
+                                      _wl_schedule(512, 128, None, group=2)])
+def test_wl_partition_holds_every_step_once(schedule):
+    """B14's chunks: contiguous step ranges that cover the table once, each
+    inside one strip, cut only between rows (a row's steps stay together);
+    `firsts` gives each strip's chunks and `cover` its q-row blocks."""
+    table, _ = flash_bwd._worklist(*schedule)
+    S = schedule[0] * schedule[1]
+    starts, firsts, cover, work = flash_bwd.wl_partition(schedule, S, S, 1, 2, 128,
+                                                         flash_bwd.H100_SMS)
+    assert starts[0] == 0 and starts[-1] == len(table) and np.all(np.diff(starts) > 0)
+    rows = [tuple(r) for r in table[:, [4, 0, 1]].tolist()]   # (strip, g, iq)
+    for a, b in zip(starts[:-1], starts[1:]):
+        assert len({r[0] for r in rows[a:b]}) == 1
+        assert a == 0 or rows[a] != rows[a - 1]
+    strips = cover.shape[0]
+    assert firsts[0] == 0 and firsts[-1] == len(starts) - 1 and len(firsts) == strips + 1
+    for st in range(strips):
+        chunk_strips = {int(table[starts[c], 4]) for c in range(firsts[st], firsts[st + 1])}
+        assert chunk_strips <= {st}
+        assert set(np.flatnonzero(cover[st])) == {r[2] for r in rows if r[0] == st}
+    assert len(work) == len(starts) - 1
+
+
+def test_partitions_fill_the_card_at_the_qwen_shapes():
+    """At the Qwen1.5-7B trainer's shapes (32 / 32 heads, D 128) both
+    kernels launch at least one block per SM of the H100 (132) and the
+    largest block's work is within 1.25x the mean: the tri-square at 2 x
+    2047, the forced split's diag leaves (2048) at 1 x 4096, the work list
+    at 1 x 8191 (strips of 58 / 42 / 26 / 10 steps per head)."""
+    sms = flash_bwd.H100_SMS
+    for Sq, leaf, B in ((2047, 0, 2), (4096, 2048, 1)):
+        P, starts, tiles, work = flash_bwd.tri_partition(Sq, Sq, 0, leaf, 1, B, 32, 128, sms)
+        assert (len(starts) - 1) * 32 * B >= sms
+        assert max(work) <= 1.25 * np.mean(work), work
+    schedule = _wl_schedule(8191, 512, 2048)
+    table, strip_starts = flash_bwd._worklist(*schedule)
+    assert np.diff(strip_starts).tolist() == [58, 42, 26, 10]
+    starts, _, _, work = flash_bwd.wl_partition(schedule, 8191, 8191, 1, 32, 128, sms)
+    assert (len(starts) - 1) * 32 >= sms
+    assert max(work) <= 1.25 * np.mean(work), work
+    assert max(np.diff(starts)) < 58 / 2
+
+
+@pytest.mark.parametrize("head_dim", [64, 128, 256])
+def test_partition_tiles_match_the_kernels(head_dim):
+    """The partitions count in the 16-bit kernels' tiles: FUSED_BQ and
+    fused_kv_tile are MmaCfg's BQ and BKV in csrc/bwd_mma.cuh, and both
+    entry points take them as arguments (they refuse a partition built for
+    other tiles)."""
+    csrc = pathlib.Path(flash_bwd.__file__).resolve().parent.parent / "csrc"
+    cfg = (csrc / "bwd_mma.cuh").read_text()
+    lim, small_d, large_d = map(int, re.search(
+        r"int BKV = D <= (\d+) \? (\d+) : (\d+);", cfg).groups())
+    assert flash_bwd.fused_kv_tile(head_dim) == (small_d if head_dim <= lim else large_d)
+    assert flash_bwd.FUSED_BQ == int(re.search(r"int BQ = (\d+);", cfg)[1])
+    for name in ("flash_bwd_tri.cu", "flash_bwd_wl.cu"):
+        src = (csrc / name).read_text()
+        assert "int nparts, int tile_q, int tile_kv," in src
+        assert "p.tile_q != C::BQ || p.tile_kv != C::BKV" in src
+
+
+def test_twins_walk_the_partitions(monkeypatch):
+    """The CPU twins take their block order from the partitions: a spy sees
+    the tri-square twin ask `tri_partition` and the work-list twin ask
+    `wl_partition`, at the shapes of the call and the H100's SM count."""
+    seen = []
+    for name in ("tri_partition", "wl_partition"):
+        real = getattr(flash_bwd, name)
+        monkeypatch.setattr(flash_bwd, name,
+                            lambda *a, _real=real, _n=name: seen.append((_n, a)) or _real(*a))
+    arrays = _inputs(1, 2, 2, 256, seed=4)
+    q, k, v, do = (torch.from_numpy(x) for x in arrays[:4])
+    lens = torch.tensor([[256, 256]], dtype=torch.int32)
+    o, lse = flash_fwd.flash_attn_forward_plain(q, k, v, lens, causal=True, softmax_scale=SCALE)
+    want = flash_bwd.flash_attn_backward_plain(q, k, v, do, o, lse, lens, causal=True,
+                                               softmax_scale=SCALE)
+    _close(flash_bwd.flash_attn_backward_tri_square(q, k, v, do, o, lse, lens,
+                                                    softmax_scale=SCALE), want)
+    _close(flash_bwd.flash_attn_backward_fused_wl(q, k, v, do, o, lse, lens, softmax_scale=SCALE,
+                                                  sub=64, block_kv=128), want, WL_TOL)
+    assert [n for n, _ in seen] == ["tri_partition", "wl_partition"]
+    assert seen[0][1] == (256, 256, 0, 0, 1, 1, 2, D, flash_bwd.H100_SMS)
+    assert seen[1][1][1:] == (256, 256, 1, 2, D, flash_bwd.H100_SMS)
 
 
 class _Routed(Exception):

@@ -1016,9 +1016,15 @@ def _tri(f, q, k, v, do, o, lse, lens, dl, **kw):
     return f.flash_attn_backward_tri_square(q, k, v, do, o, lse, lens, dlse=dl, **kw)
 
 
-def _diag(f, q, k, v, do, o, lse, lens, dl, **kw):
+def _diag(f, q, k, v, do, o, lse, lens, dl, T=128, **kw):
     k_p, delta = f._prescale_k(k, kw["softmax_scale"]), f.compute_delta(o, do, lse, dl)
-    return f.flash_attn_backward_causal_diag(q, k_p, v, do, lse, delta, lens, T=128, **kw)
+    return f.flash_attn_backward_causal_diag(q, k_p, v, do, lse, delta, lens, T=T, **kw)
+
+
+def _diag_leaves(T):
+    def run(f, *args, **kw):
+        return _diag(f, *args, T=T, **kw)
+    return run
 
 
 def _rect(f, q, k, v, do, o, lse, lens, dl, **kw):
@@ -1037,8 +1043,14 @@ def _worklist(**extra):
     return run
 
 
+# A fourth entry is the sequence length (default 300). At S 1000 the 16-bit
+# kernels' partitions give several blocks per (leaf, kv head, batch row) or
+# per strip, with a ragged last kv tile, leaf or chunk.
 SCHED_BWD_CASES = {
     "tri_square": (8, _tri, {"tri_square": 1}),
+    "tri_square_parts": (2, _tri, {"tri_square": 1}, 1000),
+    "diag_ragged_leaf": (2, _diag_leaves(384), {"causal_diag": 1}, 1000),   # leaves 384 / 384 / 232
+    "worklist_chunks": (8, _worklist(sub=128, block_kv=256), {"worklist": 1}, 1000),
     "tri_square_gqa": (2, _tri, {"tri_square": 1}),
     "diag": (2, _diag, {"causal_diag": 1}),
     "rect": (2, _rect, {"rect": 1}),
@@ -1051,8 +1063,8 @@ SCHED_BWD_CASES = {
 
 
 def _sched_bwd_run(case, dev, dtype, D, dropout_p):
-    Hkv, call, _ = SCHED_BWD_CASES[case]
-    x32, do32, dl32, lens = _sched_bwd_inputs(dev, D, Hkv, D + len(case))
+    Hkv, call, _, *S = SCHED_BWD_CASES[case]
+    x32, do32, dl32, lens = _sched_bwd_inputs(dev, D, Hkv, D + len(case), *S)
     kw = dict(softmax_scale=D ** -0.5, dropout_p=dropout_p, dropout_seed=D - 3 * len(case))
     window = (100, -1) if case == "worklist_window" else (-1, -1)
     o32, lse32 = flash_fwd.flash_attn_forward_plain(*x32, lens, causal=True, window=window, **kw)
@@ -1060,15 +1072,16 @@ def _sched_bwd_run(case, dev, dtype, D, dropout_p):
     return call, x32, do32, dl32, lens, kw, x, do, o, o32, lse32
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
 @pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("case", list(SCHED_BWD_CASES))
 @pytest.mark.parametrize("dropout_p", [0.0, 0.2])
 def test_causal_bwd_schedule_kernels_match_plain(dev, dtype, D, case, dropout_p):
     """Each backward schedule kernel against its plain twin (the same entry
-    point on CPU copies), MHA and GQA 4, a dead tail, a dlse cotangent:
-    fp32 1e-4 x (1 + max |grad|), bf16 the FA gradient contract against the
-    fp32 plain; the launches each call adds, none of the dq / dk/dv pair's
+    point on CPU copies, which walk the same block partition), MHA and GQA
+    4, a dead tail, a dlse cotangent: fp32 1e-4 x (1 + max |grad|), fp16 /
+    bf16 (the tensor-core kernels) the FA gradient contract against the fp32
+    plain; the launches each call adds, none of the dq / dk/dv pair's
     counts; two runs equal bit for bit."""
     call, x32, do32, dl32, lens, kw, x, do, o, o32, lse32 = _sched_bwd_run(case, dev, dtype, D,
                                                                              dropout_p)
@@ -1111,6 +1124,31 @@ def test_causal_bwd_schedule_kernels_ignore_nan_padding(dev):
             assert torch.equal(g[0], ref[0]) and torch.equal(g[1, :, :211], ref[1, :, :211])
             assert not g[1, :, 211:].any()
 
+
+
+@pytest.mark.parametrize("tile", ["q", "kv"])
+def test_causal_bwd_kernels_refuse_a_partition_of_other_tiles(dev, monkeypatch, tile):
+    """The 16-bit tri-square and work list take the tile rows the host
+    partition was built for and raise when they are not the kernels' own
+    (MmaCfg's BQ / BKV), rather than skip or repeat tiles. Each runs once
+    with the host's tiles first, which also caches its partition."""
+    x32, do32, dl32, lens = _sched_bwd_inputs(dev, 128, 8, 5)
+    x = [t.to(torch.bfloat16) for t in x32] + [do32.to(torch.bfloat16)]
+    kw = dict(softmax_scale=128 ** -0.5)
+    o, lse = flash_fwd.flash_attn_forward(*x[:3], lens, causal=True, **kw)
+    runs = (lambda: flash_bwd.flash_attn_backward_tri_square(*x, o, lse, lens, **kw),
+            lambda: flash_bwd.flash_attn_backward_fused_wl(*x, o, lse, lens, sub=64,
+                                                           block_kv=128, **kw))
+    for run in runs:
+        run()
+    torch.cuda.synchronize()
+    if tile == "q":
+        monkeypatch.setattr(flash_bwd, "FUSED_BQ", flash_bwd.FUSED_BQ // 2)
+    else:
+        monkeypatch.setattr(flash_bwd, "fused_kv_tile", lambda head_dim: 64)
+    for run in runs:
+        with pytest.raises(RuntimeError, match="launch"):
+            run()
 
 @pytest.mark.parametrize("S,Hkv,route", [(250, 4, "tri_square"), (500, 1, "tri_square"),
                                          (4200, 4, "worklist")])

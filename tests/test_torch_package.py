@@ -68,5 +68,6 @@ def test_kernel_sources_are_hashed():
     names = {p.name for p in _build.sources()}
     assert {"flash_fwd.cu", "flash_bwd.cu", "decode.cu", "decode_int8.cu", "decode_fp8.cu",
             "varlen.cu", "common.cuh", "attn_tiles.cuh", "decode.cuh", "flash_fwd_causal.cu",
-            "flash_fwd_rect.cu", "flash_bwd_tri.cu", "flash_bwd_wl.cu", "bwd_fused.cuh"} <= names
+            "flash_fwd_rect.cu", "flash_bwd_tri.cu", "flash_bwd_wl.cu", "bwd_fused.cuh",
+            "bwd_mma.cuh"} <= names
     assert len(_build.source_hash()) == 16
