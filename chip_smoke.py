@@ -7,7 +7,13 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper card and
 the CUDA toolkit. Phases (any failure raises, and the script exits nonzero):
 
 1. Build the CUDA kernels from `fa2_triton_tpu_torch/csrc/` with nvcc for
-   sm_90a (ptxas register / shared-memory report printed).
+   sm_90a (ptxas register / shared-memory report printed). Then a line per
+   16-bit instantiation of the tensor-core kernels (the forward, with and
+   without bias / softcap; the tri-square / diag and work-list backward;
+   bf16 and fp16, D 64 / 128 / 256, with and without dropout): ptxas
+   registers and spills, and the HMMA instructions in its SASS (cuobjdump
+   -sass of the built library); it fails where one has no tensor-core
+   instruction or a bf16 D 128 one of the trainers' spills.
 2. Hold each kernel against its plain PyTorch twin at the serving slice's
    shapes, in bf16 and fp32, and time both with CUDA events. The decode
    kernel also runs over int8 and fp8 caches (B5 quant) and over shuffled
@@ -64,22 +70,18 @@ the CUDA toolkit. Phases (any failure raises, and the script exits nonzero):
    rectangles), the diag and a 2048 x 2048 rectangle alone and merged, and
    the strip at S 6144 and at 2048 queries against 4096 keys: launches of
    each default route, every kernel against its plain twin (fp32, bf16, and
-   fp32 with dropout fed the same mask), the strip equal to the generic
-   kernel bit for bit, times against the generic kernel, the plain twins,
-   the library and the bound; `flash_attn_func` forward + backward at S 4096
+   fp32 with dropout fed the same mask), the strip (the generic kernel's
+   causal call) equal to the generic kernel bit for bit, times against the
+   generic kernel (which must beat the FMA split at S 4096), the plain
+   twins, the library and the bound; `flash_attn_func` forward + backward at S 4096
    through the split (FA rules against fp32; each of its four kernels'
    device time); and `examples/train.py` at
    full depth, batch 1 x seq 4096 (attention over 4095 tokens: the split),
    with finite, falling losses and 2 x layers x steps diag and merged-rect
    launches, none of the generic forward.
 12. The causal backward schedules at Qwen1.5-7B attention widths (32 / 32
-   heads, D 128, bf16, causal, no mask). First the 16-bit instantiations of
-   the tensor-core fused kernels (tri-square / diag and work list; bf16 and
-   fp16, D 64 / 128 / 256, with and without dropout): ptxas registers and
-   spills, and the HMMA instructions in their SASS (cuobjdump -sass of the
-   built library); it fails where one has no tensor-core instruction or a
-   bf16 D 128 one spills. Then the tri-square (B13) at B 2 x S 2047, the
-   work list (B14) at B 1 x S 8191 (four strips of 2048) and the split
+   heads, D 128, bf16, causal, no mask): the tri-square (B13) at B 2 x S
+   2047, the work list (B14) at B 1 x S 8191 (four strips of 2048) and the split
    forced with split_leaf 2048 at S 4096 (one diag launch over two leaves,
    one rect), each reached through `flash_attn_backward`'s routing with its
    launches counted, the block partitions printed (blocks, per kv head,
@@ -88,7 +90,9 @@ the CUDA toolkit. Phases (any failure raises, and the script exits nonzero):
    contract, fp32 with dropout fed the same mask, two runs equal bit for
    bit) and timed against the generic dq + dk/dv pair (the tri-square and
    the work list must beat it), the earlier FMA design's times, its plain
-   twin, the library and its bound; then
+   twin, the library and its bound; the trainers' forward at both Qwen
+   shapes (the generic kernel: its time, the FMA design's, aten flash's
+   causal forward on the same inputs, its bound and the share of it); then
    `examples/train.py --config qwen1.5-7b` at full depth, 2 x 2048
    (attention over 2047 tokens: the tri-square backward) and 1 x 8192 (the
    work list; 1 x 6144, the same route, only if 8192 runs out of memory),
@@ -109,6 +113,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import gc
+import itertools
 import json
 import os
 import re
@@ -253,6 +258,24 @@ def library_attention(torch, q, k, v, lens_q, lens_k, causal, scale, dropout_p=0
     return fwd, out, bwd
 
 
+def rounded_p_attention(torch, q, k, v, lens, scale):
+    """Causal attention with p rounded to q's dtype before P V and fp32
+    everywhere else (`compare_results_fa`'s upcast=False reference): the
+    arithmetic of the 16-bit forward, as a second yardstick beside the
+    plain twin, which rounds only o. BHSD in, o in q's dtype out."""
+    from fa2_triton_tpu_torch.ops import flash_fwd
+
+    B, Hq, Sq, D = q.shape
+    g = Hq // k.shape[1]
+    s = torch.matmul(q.float(), k.float().repeat_interleave(g, 1).transpose(-1, -2))
+    keep = flash_fwd._masks(lens, 0, 0, Sq, k.shape[2], True, (-1, -1), q.device)
+    s = torch.where(keep, s * (scale * 1.4426950408889634), float("-inf"))
+    p = torch.exp2(s - s.amax(-1, keepdim=True).clamp(min=-1e30))
+    l = p.sum(-1, keepdim=True)
+    o = torch.matmul(p.to(q.dtype).float(), v.float().repeat_interleave(g, 1))
+    return (o / torch.where(l > 0, l, torch.ones_like(l))).to(q.dtype)
+
+
 def check_library(torch, what, got, ref32, plain_err):
     """The yardstick must compute the kernel's function: its bf16 error
     against the fp32 truth stays near the bf16 plain twin's (a wrong mask
@@ -310,7 +333,9 @@ def phase_kernels(torch):
             else:
                 pl_err = max_abs(torch, o_pl, o_ref)
                 bound = OUT_ERROR_MUL * pl_err + OUT_ERROR_BIAS
-                rule = f"<= 2 x plain bf16 err {pl_err:.3e} + 5e-5"
+                rp_err = max_abs(torch, rounded_p_attention(torch, q, k, v, lens, scale), o_ref)
+                rule = (f"<= 2 x plain bf16 err {pl_err:.3e} + 5e-5; {err / pl_err:.2f} x plain, "
+                        f"{err / rp_err:.2f} x the bf16-p reference's {rp_err:.3e}")
                 bf16_errs.append(err)
             ms = cuda_ms(torch, lambda: flash_fwd.flash_attn_forward(q, k, v, lens, **kw))
             pms = cuda_ms(torch, lambda: flash_fwd.flash_attn_forward_plain(q, k, v, lens, **kw))
@@ -1707,10 +1732,16 @@ def schedule_kernels(torch, card):
         print(f"[schedules] flash_attn_forward(causal, static_skip) B 1 x S {S}, Hq {Hq}, Hkv {Hkv}, "
               f"D {D}, bf16: route {route}, launches {got}")
         split_err = hold_to_plain(torch, f"split S {S}", split, causal_plain, x32)
-    # S 4096 from here on: times of the split against the generic kernel.
+    # S 4096 from here on: times of the split against the generic kernel,
+    # which for 16-bit inputs runs on tensor cores while the split's two
+    # kernels are still FMA tiles (ROADMAP queue B item 3): the generic
+    # kernel must win.
     generic = lambda q, k, v: ff.flash_attn_forward(q, k, v, lens, causal=True, **kw)
     t = turns(torch, {"generic": lambda: generic(*xb), "split": lambda: split(*xb)},
               ("generic", "split", "split", "generic"))
+    if not max(t["generic"]) < min(t["split"]):
+        raise AssertionError(f"S {S}: the generic kernel {t['generic']} ms is not faster than the "
+                             f"split {t['split']}")
     per = kernel_ms(torch, lambda: split(*xb), ("causal_diag_kernel", "rect_kernel"))
     split_plain = cuda_ms(torch, lambda: causal_plain(*xb), iters=2, warmup=1)
     lib_fwd, lib_o = library(xb, S, S, True)
@@ -2094,20 +2125,34 @@ def profiler_split(torch, fn, names):
 
 
 def forward_ms(torch, x, card):
-    """CUDA-event ms of the forward the trainer runs at these inputs' shape
-    (the generic kernel, `flash_attn_forward`'s route for 2047 and 8191
-    tokens): with the backward's time, one layer's attention per step."""
+    """The forward the trainer runs at these inputs' shape (the generic
+    kernel, `flash_attn_forward`'s route for 2047 and 8191 tokens): its
+    CUDA-event ms (with the backward's time, one layer's attention per
+    step), its bound, aten flash's causal forward on the same inputs and the
+    share of the bound. Returns those numbers."""
     from fa2_triton_tpu_torch.ops import flash_fwd
 
     q, k, v, _, _, _, lens = x
-    B, _, S, _ = q.shape
+    B, Hq, S, _ = q.shape
     if flash_fwd.forward_route(S, S, QWEN_D, 2, causal=True, static_skip=True) not in (
             "tri_square", "generic"):
         raise AssertionError(f"S {S}: the trainer's forward is not the generic kernel")
-    ms = cuda_ms(torch, lambda: flash_fwd.flash_attn_forward(q, k, v, lens, causal=True,
-                                                             softmax_scale=QWEN_D ** -0.5), iters=3)
-    print(f"[causal bwd] generic forward kernel B {B} x S {S} bf16 [{card}]: {ms:.3f} ms")
-    return ms
+    run = lambda: flash_fwd.flash_attn_forward(q, k, v, lens, causal=True,  # noqa: E731
+                                               softmax_scale=QWEN_D ** -0.5)
+    t = turns(torch, {"kernel": run}, ("kernel",) * 3, iters=3)["kernel"]
+    seq = [S] * B
+    lib_fwd, _, _ = library_attention(torch, *(tight(torch, t_.transpose(1, 2), seq)
+                                               for t_ in (q, k, v)), seq, seq, True,
+                                      QWEN_D ** -0.5)
+    lib_ms = cuda_ms(torch, lib_fwd, iters=3)
+    bound = attn_bound("fwd", causal_pairs(seq), sum(seq), Hq, k.shape[1], QWEN_D, 2)
+    share = bound["bound_ms"] / min(t)
+    print(f"[causal bwd] generic forward kernel B {B} x S {S} bf16 [{card}]: "
+          f"{' / '.join(f'{v:.3f}' for v in t)} ms (the FMA design: "
+          f"{FWD_FMA_DESIGN_MS.get((B, S), 'not measured')} ms), library (aten flash, causal) "
+          f"{lib_ms:.3f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}): "
+          f"{100 * share:.1f} % of the bound")
+    return {"ms": min(t), "ms_runs": t, "library_ms": lib_ms, **bound, "bound_share": share}
 
 
 def bwd_kernel_inputs(torch, gen, B, S, Hq=QWEN_H, Hkv=QWEN_H):
@@ -2161,21 +2206,29 @@ def library_bwd(torch, what, x, seq_q, seq_k, causal, truth, errs, rows=None, co
 # this run measured.
 FMA_DESIGN_MS = {"tri_square": "20.331-20.379", "causal_diag": "19.939-20.105",
           "worklist": "138.520-139.322"}
-# The 16-bit fused kernels (csrc/bwd_mma.cuh's tensor-core tiles).
-MMA_KERNELS = ("bwd_tri_mma_kernel", "bwd_wl_mma_kernel")
-_MMA_NAME = re.compile(r"(bwd_tri_mma_kernel|bwd_wl_mma_kernel)I(13__nv_bfloat16|6__half)"
-                       r"Li(\d+)ELb([01])E")
+# The 16-bit tensor-core kernels: the fused backward (csrc/bwd_mma.cuh's
+# tiles) and the forward (csrc/flash_fwd.cu; its last template flag puts
+# bias and softcap in their own instantiations).
+MMA_KERNELS = ("bwd_tri_mma_kernel", "bwd_wl_mma_kernel", "flash_fwd_mma_kernel")
+_MMA_NAME = re.compile(r"(bwd_tri_mma_kernel|bwd_wl_mma_kernel|flash_fwd_mma_kernel)"
+                       r"I(13__nv_bfloat16|6__half)Li(\d+)ELb([01])E(?:Lb([01])E)?")
+# The forward's times at the Qwen shapes in its earlier design (fp32 FMA
+# tiles for every input type), measured by this phase on an NVIDIA H100 80GB
+# HBM3 at 700.00 W (CUDA events, four runs), for the log line only.
+FWD_FMA_DESIGN_MS = {(2, 2047): "3.462-3.509", (1, 8191): "25.271-25.795"}
 
 
 def mma_instance(mangled: str):
-    """(kernel, dtype, D, dropout) of a fused kernel's mangled name, else None."""
+    """(kernel, dtype, D, dropout, bias / softcap) of a 16-bit kernel's
+    mangled name (the last False for the backward), else None."""
     m = _MMA_NAME.search(mangled)
-    return (m[1], "bf16" if "bfloat" in m[2] else "fp16", int(m[3]), m[4] == "1") if m else None
+    return (m[1], "bf16" if "bfloat" in m[2] else "fp16", int(m[3]), m[4] == "1",
+            m[5] == "1") if m else None
 
 
 def ptxas_table(report: str) -> dict:
     """{instance: (registers, spill store bytes, spill load bytes)} of the
-    16-bit fused kernels, from nvcc -Xptxas -v's report."""
+    16-bit tensor-core kernels, from nvcc -Xptxas -v's report."""
     regs, spills, cur, prop = {}, {}, None, None
     for line in report.splitlines():
         if m := re.search(r"Compiling entry function '([^']+)'", line):
@@ -2191,8 +2244,8 @@ def ptxas_table(report: str) -> dict:
 
 
 def hmma_counts(lib_path) -> dict:
-    """{instance: HMMA instructions} of the 16-bit fused kernels in the
-    SASS of the built library (cuobjdump -sass)."""
+    """{instance: HMMA instructions} of the 16-bit tensor-core kernels in
+    the SASS of the built library (cuobjdump -sass)."""
     from fa2_triton_tpu_torch.ops import _build
 
     tool = _build.find_cuobjdump()
@@ -2213,32 +2266,34 @@ def hmma_counts(lib_path) -> dict:
 
 def mma_build_report() -> dict:
     """Registers, spills and tensor-core instructions of every 16-bit
-    instantiation of the two fused kernels (bf16 / fp16 x D 64 / 128 / 256
-    x dropout); fails where one has no HMMA, or a bf16 D 128 one (the Qwen
-    shapes') spills. Returns {kernel: {instance: numbers}}."""
+    instantiation of the two fused backward kernels and the forward (bf16 /
+    fp16 x D 64 / 128 / 256 x dropout, and for the forward with and without
+    bias / softcap); fails where one has no HMMA, or a bf16 D 128 one of the
+    trainers' (the Qwen and Mistral shapes': no bias, no softcap) spills.
+    Returns {kernel: {instance: numbers}}."""
     from fa2_triton_tpu_torch.ops import _build
 
     table = ptxas_table(_build.ptxas_report or "")
     hmma = hmma_counts(_build.build())
     out = {k: {} for k in MMA_KERNELS}
     for kernel in MMA_KERNELS:
-        for dt in ("bf16", "fp16"):
-            for D in (64, 128, 256):
-                for drop in (False, True):
-                    inst = (kernel, dt, D, drop)
-                    if inst not in table or inst not in hmma:
-                        raise AssertionError(f"{inst}: not in the ptxas report / the SASS")
-                    regs, st, ld = table[inst]
-                    n = hmma[inst]
-                    print(f"[causal bwd] {kernel} {dt} D {D}{' dropout' if drop else ''}: {regs} "
-                          f"registers, spill stores {st} B / loads {ld} B, {n} HMMA in the SASS")
-                    if n == 0:
-                        raise AssertionError(f"{inst}: no tensor-core instruction")
-                    if dt == "bf16" and D == 128 and (st or ld):
-                        raise AssertionError(f"{inst}: spills {st} / {ld} bytes")
-                    out[kernel][f"{dt} D{D}{' drop' if drop else ''}"] = {
-                        "registers": regs, "spill_store_bytes": st, "spill_load_bytes": ld,
-                        "hmma": n}
+        extras = (False, True) if kernel == "flash_fwd_mma_kernel" else (False,)
+        for dt, D, drop, extra in itertools.product(("bf16", "fp16"), (64, 128, 256),
+                                                    (False, True), extras):
+            inst = (kernel, dt, D, drop, extra)
+            if inst not in table or inst not in hmma:
+                raise AssertionError(f"{inst}: not in the ptxas report / the SASS")
+            regs, st, ld = table[inst]
+            n = hmma[inst]
+            what = f"{dt} D {D}{' dropout' if drop else ''}{' bias / softcap' if extra else ''}"
+            print(f"[tensor cores] {kernel} {what}: {regs} registers, spill stores {st} B / "
+                  f"loads {ld} B, {n} HMMA in the SASS")
+            if n == 0:
+                raise AssertionError(f"{inst}: no tensor-core instruction")
+            if dt == "bf16" and D == 128 and not extra and (st or ld):
+                raise AssertionError(f"{inst}: spills {st} / {ld} bytes")
+            out[kernel][f"{dt} D{D}{' drop' if drop else ''}{' extra' if extra else ''}"] = {
+                "registers": regs, "spill_store_bytes": st, "spill_load_bytes": ld, "hmma": n}
     return out
 
 
@@ -2304,7 +2359,7 @@ def causal_bwd_kernels(torch, card):
               ("generic", "tri", "tri", "generic"), iters=3)
     per = profiler_split(torch, lambda: tri(*xb), ("fused_delta", "bwd_tri_mma_kernel",
                                                    "tri_dq_reduce"))
-    fwd_ms = forward_ms(torch, xb, card)
+    fwd = forward_ms(torch, xb, card)
     pms = cuda_ms(torch, lambda: tri_plain(*xb), iters=2, warmup=1)
     lib_ms = library_bwd(torch, "tri_square", xb, TRI_S, TRI_S, True, truth, errs)
     bound = fused_bound(TRI_B * causal_pairs([TRI_S]), TRI_B * TRI_S, TRI_B * TRI_S)
@@ -2321,7 +2376,7 @@ def causal_bwd_kernels(torch, card):
     entries["flash_bwd_tri_square"] = {
         "max_abs_err": max(errs[n] for n in BWD_NAMES), "ms": min(t["tri"]),
         "ms_runs": t["tri"], "profiler_ms": per, "generic_pair_ms_runs": t["generic"],
-        "plain_ms": pms, "library_ms": lib_ms, "forward_kernel_ms": fwd_ms, "partition": part,
+        "plain_ms": pms, "library_ms": lib_ms, "forward_kernel": fwd, "partition": part,
         **bound}
     del inputs, xb, truth
     gc.collect()
@@ -2352,7 +2407,7 @@ def causal_bwd_kernels(torch, card):
                                    lambda: routed(xb), bwd_worklist=1)
     t = turns(torch, {"generic": lambda: generic(xb), "wl": lambda: wl(*xb)},
               ("generic", "wl", "wl", "generic"), iters=2)
-    fwd_ms = forward_ms(torch, xb, card)
+    fwd = forward_ms(torch, xb, card)
     per = profiler_split(torch, lambda: wl(*xb), ("bwd_wl_mma_kernel", "wl_mma_reduce"))
     pms = cuda_ms(torch, lambda: wl_plain(*xb), iters=1, warmup=1)
     lib_ms = library_bwd(torch, "worklist", xb, WL_S, WL_S, True, truth, errs)
@@ -2370,7 +2425,7 @@ def causal_bwd_kernels(torch, card):
     entries["flash_bwd_worklist"] = {
         "max_abs_err": max(errs[n] for n in BWD_NAMES), "ms": min(t["wl"]), "ms_runs": t["wl"],
         "profiler_ms": per, "generic_pair_ms_runs": t["generic"], "plain_ms": pms,
-        "library_ms": lib_ms, "forward_kernel_ms": fwd_ms, "partition": part, **bound}
+        "library_ms": lib_ms, "forward_kernel": fwd, "partition": part, **bound}
     del inputs, xb, truth
     gc.collect()
     torch.cuda.empty_cache()
@@ -2536,9 +2591,10 @@ def qwen_train(torch, card: str):
     return runs
 
 
-def phase_causal_bwd(torch, card: str):
-    """Phase 12: the causal backward schedules. Returns (launches by run,
-    kernel entries)."""
+def phase_causal_bwd(torch, card: str, mma=None):
+    """Phase 12: the causal backward schedules (`mma`: mma_build_report's
+    table, made here when not given). Returns (launches by run, kernel
+    entries)."""
     from fa2_triton_tpu_torch.ops import flash_bwd
 
     t0 = time.perf_counter()
@@ -2547,7 +2603,7 @@ def phase_causal_bwd(torch, card: str):
                              f"{flash_bwd.SCHEDULE_LAUNCHES}")
     print("[causal bwd] phases 1-11 (Mistral-7B-v0.3 widths) launched no backward schedule "
           f"kernel: {dict(flash_bwd.SCHEDULE_LAUNCHES)}")
-    mma = mma_build_report()
+    mma = mma or mma_build_report()
     runs, entries = causal_bwd_kernels(torch, card)
     entries["flash_bwd_tri_square"]["build"] = mma["bwd_tri_mma_kernel"]
     entries["flash_bwd_worklist"]["build"] = mma["bwd_wl_mma_kernel"]
@@ -2581,8 +2637,10 @@ def main() -> int:
     print(card)
 
     phase_build()
+    mma = mma_build_report()
     with torch.inference_mode():
         kernels = phase_kernels(torch)
+        kernels["flash_fwd"]["build"] = mma["flash_fwd_mma_kernel"]
         torch.cuda.empty_cache()
         model, cfg, reqs, prompts, launches = phase_serve(torch, card)
         phase_check(torch, model, cfg, reqs, prompts)
@@ -2612,7 +2670,7 @@ def main() -> int:
     sched_runs, sched_kernels = phase_schedules(torch, card)
     gc.collect()
     torch.cuda.empty_cache()
-    bwd_runs, bwd_kernels = phase_causal_bwd(torch, card)
+    bwd_runs, bwd_kernels = phase_causal_bwd(torch, card, mma)
 
     if any(name == "jax" or name.startswith(("jax.", "fa2_triton_tpu.")) for name in sys.modules):
         raise RuntimeError("the port imported jax or the JAX package")
@@ -2678,7 +2736,7 @@ def main() -> int:
             "also_replaces": "fa2_triton_tpu/ops/varlen.py:214 (_packed_dropout_bits)",
             "launches": dropout_runs["varlen"][name], **dropout_kernels[f"{name}_dropout"]})
     for name, source, replaces, also, launches, extra in (
-            ("flash_fwd_causal_strip", "flash_fwd_causal.cu", "flash_fwd.py:640",
+            ("flash_fwd_causal_strip", "flash_fwd.cu", "flash_fwd.py:640",
              "fa2_triton_tpu/ops/flash_fwd.py:779 (flash_attn_forward_causal_strip)",
              sched_runs[f"flash_attn_func {STRIP_SEQ} / {STRIP_SEQ}"]["causal_strip"],
              {"launches_shifted_2048_4096":

@@ -1,20 +1,22 @@
 // FlashAttention-2 forward for Hopper (sm_90a), written by hand in CUDA C++.
 //
-// Replaces: fa2_triton_tpu/ops/flash_fwd.py:_fwd_kernel (B1) and
-// fa2_triton_tpu/ops/flash_fwd.py:_fwd_tri_square_kernel (B9) as the serving
-// prefill and the training forward reach them (padded prompts, causal, GQA,
-// and B1's additive bias, indexed by q head as in the JAX package). The two TPU kernels
-// compute the same function and differ only in how they fit VMEM and the
-// per-grid-step cost of a sequential grid; on the GPU one kernel serves both.
+// Replaces: fa2_triton_tpu/ops/flash_fwd.py:_fwd_kernel (B1),
+// _fwd_tri_square_kernel (B9) and _fwd_causal_strip_kernel (B10, l.640) as
+// the serving prefill, the training forward and flash_attn_forward_causal_strip
+// reach them (padded prompts, causal, GQA, and B1's additive bias, indexed by
+// q head as in the JAX package). The three TPU kernels compute the same
+// function and differ only in how they fit VMEM, the per-grid-step cost of a
+// sequential grid and which tiles skip the mask; on the GPU one kernel serves
+// all three (the strip is a causal call of it).
 //
 // Function: o = softmax(q k^T * scale [softcapped, + bias, masked]) v with a base-2
-// online softmax and fp32 accumulators, and the dropout branch of both TPU
+// online softmax and fp32 accumulators, and the dropout branch of the TPU
 // kernels (flash_fwd.py:320-348, 546-554): with dropout_p > 0 an element is
 // kept iff counter_hash(seed, ((b * Hq + h) * Sq_real + row) * Sk_real +
 // col) >= threshold (common.cuh), l sums the undropped p, only the P V
 // product sees the mask, and o = acc / l / (1 - p); lse does not change.
-// The kernel is built with and without dropout (the DROP template flag), so
-// the dropout-free instantiation carries none of the hash code.
+// The kernels are built with and without dropout (the DROP template flag), so
+// the dropout-free instantiations carry none of the hash code.
 // Per batch row b, lens[b] = (q_len, kv_len) are GLOBAL actual lengths;
 // q_off / kv_off place this call's rows and columns in that global frame. Causal and window masks are
 // bottom-right aligned on (q_len, kv_len): keep iff
@@ -24,20 +26,48 @@
 //
 // Bound on the H100: at prefill lengths (S >= 128, D = 128) attention is
 // compute-bound (4*S*D flops per 2*D*2 bytes of K/V per query row), so the
-// roof is the tensor cores (989 TFLOP/s bf16). This first kernel is the
-// simple, correct version: fp32 FMAs on the CUDA cores from shared memory
-// tiles, the same code for fp32/fp16/bf16. Its design against the bound:
-//   * one block per (64-row q tile, q head, batch); a loop over 32-row KV
-//     tiles stands in for the TPU's sequential grid dimension;
-//   * q is staged once per block with scale*log2(e) folded in; each thread
-//     holds a 4x2 score tile and a 4x(D/16) output tile in registers, so
-//     every shared-memory load feeds 2-4 FMAs;
-//   * KV tiles beyond the causal limit or kv_len are never loaded;
-//   * shared rows are padded by one float so the 16 threads that read 16
-//     different K rows hit 16 different banks.
-// wgmma + TMA (the route to the tensor-core roof) is later work. The tile
-// math lives in attn_tiles.cuh, shared with the backward and varlen kernels.
+// roof is the tensor cores (989 TFLOP/s bf16). Two kernels, one per input
+// type, both one block per (64-row q tile, q head, batch row):
+//
+// flash_fwd_mma_kernel, bf16 / fp16 inputs: 16-bit mma.sync tiles.
+//   * 4 warps, each owning 16 q rows for the whole kv loop, so a row's
+//     softmax state (m, l) stays in one warp's registers: row max and row sum
+//     are quad shuffles, with no shared memory and no barrier.
+//   * q, k and v stay 16-bit in shared memory (rows padded by 8 elements, so
+//     the 8 row addresses of every ldmatrix fall in distinct bank groups).
+//     Q's A fragments are loaded once and kept in registers at D 64 / 128
+//     (reloaded from shared memory per kv tile at D 256, where O alone takes
+//     128 registers a thread). K / V tiles of 64 rows (32 at D 256) arrive
+//     by 16-byte cp.async copies, double-buffered: one barrier per tile, and
+//     the next tile loads while this one computes. Rows past kv_valid and q
+//     rows past q_len are zero-filled on load (0 x NaN = NaN in an mma).
+//   * S = Q K^T with m16n8k16 (fp32 accumulation); scale * log2(e) is
+//     applied to the fp32 accumulator, not folded into a rounded q (the TPU
+//     kernels' fold, flash_fwd.py:240, would move lse by far more than the
+//     1e-4 it is held to). Then the score epilogue at each accumulator
+//     element's (row, column): mask, softcap in natural units, bias. Bias and
+//     softcap live in their own instantiation (EXTRA), out of the trainer's
+//     loop.
+//   * A kv tile that every live row keeps whole (at or below the diagonal
+//     of the q tile's first row, inside the real keys and the window: the
+//     B10 strip's rule, flash_fwd.py:640) skips the mask test. The store
+//     then applies JAX's dead-row rule (rows past q_len: o = 0, lse = -inf).
+//   * P is rounded to the input dtype, as the TPU kernels round p to v's
+//     dtype before P V (flash_fwd.py:334-338), and repacked from S's
+//     accumulators into A fragments in registers; O += P V with V by
+//     ldmatrix.trans. o goes out through the warp's own q rows of shared
+//     memory as 16-byte stores.
+//   * Causal calls launch the longest q tiles first (reverse blockIdx.x);
+//     the q heads of one GQA group are adjacent in blockIdx.y, so their K/V
+//     stay in L2.
+//
+// flash_fwd_kernel, fp32 inputs: fp32 FMAs on the CUDA cores from shared
+// memory tiles (attn_tiles.cuh, shared with the backward and varlen
+// kernels), no TF32: q staged once with scale*log2(e) folded in, 32-row K/V
+// tiles, a 4x2 score tile and a 4x(D/16) output tile per thread; KV tiles
+// beyond the causal limit or kv_len are never loaded.
 #include "attn_tiles.cuh"
+#include "mma_tiles.cuh"
 
 namespace fa2 {
 namespace {
@@ -62,7 +92,42 @@ struct FwdParams {
   float softcap;     // natural units; 0 = off
   Dropout drop;
   int Sq_real, Sk_real;  // the dropout counter's lengths
+  int tile_rows;         // the q rows of a block the host counts in
 };
+
+// Keys of the q tile at local row q0 (rows of it, global lengths q_len /
+// kv_len), in local key indices: [lo, hi) is what its live rows need (past
+// the causal / right limit of the last live row, past kv_len, or left of
+// the first row's window nothing is loaded); [free_lo, free_hi) is what
+// every live row keeps (inside the real keys, at or below the first row's
+// diagonal or right window edge, at or right of the last row's left window
+// edge); kv_valid counts the local keys that are real.
+struct KeyRange {
+  int lo, hi, free_lo, free_hi, kv_valid;
+};
+
+__device__ __forceinline__ KeyRange key_range(const FwdParams& p, int q0, int rows, int q_len,
+                                              int kv_len) {
+  const int shift = kv_len - q_len;
+  const int row_lo = p.q_off + q0;
+  const int row_hi = min(p.q_off + min(q0 + rows, p.Sq), q_len) - 1;  // inclusive
+  KeyRange r;
+  r.kv_valid = min(p.Sk, kv_len - p.kv_off);
+  r.hi = r.free_hi = r.kv_valid;
+  if (p.causal) {
+    r.hi = min(r.hi, row_hi + shift + 1 - p.kv_off);
+    r.free_hi = min(r.free_hi, row_lo + shift + 1 - p.kv_off);
+  } else if (p.wr >= 0) {
+    r.hi = min(r.hi, row_hi + shift + p.wr + 1 - p.kv_off);
+    r.free_hi = min(r.free_hi, row_lo + shift + p.wr + 1 - p.kv_off);
+  }
+  if (row_hi < row_lo) r.hi = 0;
+  r.lo = p.wl >= 0 ? max(0, row_lo + shift - p.wl - p.kv_off) : 0;
+  r.free_lo = p.wl >= 0 ? row_hi + shift - p.wl - p.kv_off : 0;
+  return r;
+}
+
+// ---- fp32 inputs: FMA tiles -------------------------------------------------
 
 // One block per (64-row q tile, q head, batch row); the tile math is
 // attn_tiles.cuh's forward.
@@ -73,32 +138,17 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FwdParams p) {
   const int q0 = blockIdx.x * TM, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (p.Hq / p.Hkv);
   const int q_len = p.lens[2 * b], kv_len = p.lens[2 * b + 1];
-  const int shift = kv_len - q_len;
 
   const T* qp = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* kp = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const T* vp = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
   stage<T, D>(s.Qs, qp, p.q_ss, q0, TM, p.Sq, p.scale_log2);
 
-  // Global rows of this tile that can attend, and the local key range
-  // [lo, hi) they need: past the causal/right limit of the last live row,
-  // past kv_len, or left of the first row's window nothing is loaded.
-  const int row_lo = p.q_off + q0;
-  const int row_hi = min(p.q_off + min(q0 + TM, p.Sq), q_len) - 1;  // inclusive
-  const int kv_valid = min(p.Sk, kv_len - p.kv_off);  // local rows with real keys
-  int hi = kv_valid;
-  if (p.causal) {
-    hi = min(hi, row_hi + shift + 1 - p.kv_off);
-  } else if (p.wr >= 0) {
-    hi = min(hi, row_hi + shift + p.wr + 1 - p.kv_off);
-  }
-  if (row_hi < row_lo) hi = 0;
-  const int lo = p.wl >= 0 ? max(0, row_lo + shift - p.wl - p.kv_off) : 0;
-
+  const KeyRange kr = key_range(p, q0, TM, q_len, kv_len);
   float m_run = MASK_LOG2, l_run = 0.f;
   float acc[4][D / 16];
   zero_acc<D>(acc);
-  for (int k0 = (lo / TN) * TN; k0 < hi; k0 += TN) {
+  for (int k0 = (kr.lo / TN) * TN; k0 < kr.hi; k0 += TN) {
     auto score = [&](int r, int c, float x) {
       const bool keep = keep_at(q0 + r, k0 + c, p.Sq, p.Sk, p.q_off, p.kv_off, q_len, kv_len,
                                 p.causal, p.wl, p.wr);
@@ -126,15 +176,246 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FwdParams p) {
     };
     // Rows past the real keys stay zero: cache rows beyond kv_len may hold
     // anything, and 0 * NaN would poison the P V product.
-    fwd_kv_step<T, D>(s, kp, p.k_ss, vp, p.v_ss, k0, kv_valid, score, drop, m_run, l_run, acc);
+    fwd_kv_step<T, D>(s, kp, p.k_ss, vp, p.v_ss, k0, kr.kv_valid, score, drop, m_run, l_run,
+                      acc);
   }
   fwd_store<T, D>(s, m_run, l_run, acc, p.lse + ((long long)b * p.Hq + h) * p.Sq + q0,
                   static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh + q0 * p.o_ss, p.o_ss,
                   min(TM, p.Sq - q0), DROP ? p.drop.scale : 1.f);
 }
 
+// ---- 16-bit inputs: tensor-core tiles ---------------------------------------
+
+template <int D_>
+struct FwdMmaCfg {
+  static constexpr int D = D_;
+  static constexpr int BQ = TM;                   // q rows of a block, 16 per warp
+  static constexpr int NW = BQ / 16;              // 4 warps
+  static constexpr int BKV = D <= 128 ? 64 : 32;  // kv rows of a streamed K / V tile
+  static constexpr int P = D + 8;                 // shared row pitch, elements
+  static constexpr int NT_S = BKV / 8;            // n-tiles of a warp's S
+  static constexpr int NT_O = D / 8;              // n-tiles of a warp's O
+  static constexpr int KQ = D / 16;               // k-steps of Q K^T
+  static constexpr bool Q_REGS = D <= 128;        // Q's A fragments held in registers
+  static constexpr int SMEM_BYTES = (BQ + 4 * BKV) * P * 2;  // Q; K and V double-buffered
+};
+
+// K and V rows [k0, k0 + BKV) into one buffer (K, then V BKV rows on);
+// rows at or past `valid` are zero. Issues cp.async copies (not committed).
+template <class C, typename T>
+__device__ __forceinline__ void fwd_load_kv(T* dst, const T* kp, long long k_ss, const T* vp,
+                                            long long v_ss, int k0, int valid) {
+  cp_rows<C>(dst, kp, k_ss, k0, C::BKV, valid);
+  cp_rows<C>(dst + C::BKV * C::P, vp, v_ss, k0, C::BKV, valid);
+}
+
+template <typename T, int D, bool DROP, bool EXTRA>
+__global__ void __launch_bounds__(FwdMmaCfg<D>::NW * 32) flash_fwd_mma_kernel(const FwdParams p) {
+  using C = FwdMmaCfg<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);  // [BQ][P]
+  T* kv_s = Qs + C::BQ * C::P;             // buffer j: K at 2 j BKV rows, V BKV rows on
+  const int q0 = (p.causal ? (int)(gridDim.x - 1 - blockIdx.x) : (int)blockIdx.x) * C::BQ;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (p.Hq / p.Hkv);
+  const int q_len = p.lens[2 * b], kv_len = p.lens[2 * b + 1];
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32, g = lane / 4, t = lane % 4;
+
+  const T* qp = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* kp = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const T* vp = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+
+  const KeyRange kr = key_range(p, q0, C::BQ, q_len, kv_len);
+  const int kv_valid = kr.kv_valid;
+  const int k_begin = (kr.lo / C::BKV) * C::BKV;
+  const int n_tiles = kr.hi > k_begin ? (kr.hi - k_begin + C::BKV - 1) / C::BKV : 0;
+
+  float o[C::NT_O][4];
+#pragma unroll
+  for (int n = 0; n < C::NT_O; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  // Rows g and g + 8 of the warp's 16: running max (log2) and sum.
+  float m_run[2] = {MASK_LOG2, MASK_LOG2}, l_run[2] = {0.f, 0.f};
+  uint32_t qf[C::Q_REGS ? C::KQ : 1][4];
+
+  if (n_tiles > 0) {
+    cp_rows<C>(Qs, qp, p.q_ss, q0, C::BQ, min(p.Sq, q_len - p.q_off));
+    cp_async_commit();
+    fwd_load_kv<C>(kv_s, kp, p.k_ss, vp, p.v_ss, k_begin, kv_valid);
+    cp_async_commit();
+    if constexpr (C::Q_REGS) {
+      cp_async_wait<1>();
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < C::KQ; ++kk) {
+        ldsm_x4(qf[kk], Qs + (w * 16 + lane % 16) * C::P + kk * 16 + (lane / 16) * 8);
+      }
+    }
+  }
+#pragma unroll 1
+  for (int i = 0; i < n_tiles; ++i) {
+    const int k0 = k_begin + i * C::BKV;
+    cp_async_wait<0>();
+    __syncthreads();  // tile i has landed; every warp is done with tile i - 1
+    if (i + 1 < n_tiles) {
+      fwd_load_kv<C>(kv_s + ((i + 1) & 1) * 2 * C::BKV * C::P, kp, p.k_ss, vp, p.v_ss,
+                     k0 + C::BKV, kv_valid);
+      cp_async_commit();
+    }
+    const T* Ks = kv_s + (i & 1) * 2 * C::BKV * C::P;
+    const T* Vs = Ks + C::BKV * C::P;
+
+    // S = Q K^T: the warp's 16 rows x BKV keys.
+    float s[C::NT_S][4];
+#pragma unroll
+    for (int n = 0; n < C::NT_S; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < C::KQ; ++kk) {
+      uint32_t a[4];
+      if constexpr (C::Q_REGS) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) a[j] = qf[kk][j];
+      } else {
+        ldsm_x4(a, Qs + (w * 16 + lane % 16) * C::P + kk * 16 + (lane / 16) * 8);
+      }
+#pragma unroll
+      for (int np = 0; np < C::NT_S / 2; ++np) {
+        uint32_t bk[4];
+        ldsm_x4(bk, Ks + (np * 16 + lane % 8 + (lane / 16) * 8) * C::P + kk * 16 +
+                        ((lane / 8) % 2) * 8);
+        mma16816<T>(s[2 * np], a, bk[0], bk[1]);
+        mma16816<T>(s[2 * np + 1], a, bk[2], bk[3]);
+      }
+    }
+
+    // The score epilogue at each element's (row r, column c) of the tile
+    // (accumulator element e: row g + 8 (e / 2), column 2 t + e % 2).
+    const bool free_tile = !EXTRA && k0 >= kr.free_lo && k0 + C::BKV <= kr.free_hi;
+    float mx[2] = {MASK_LOG2, MASK_LOG2};
+#pragma unroll
+    for (int n = 0; n < C::NT_S; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = w * 16 + g + (e / 2) * 8, c = n * 8 + 2 * t + (e % 2);
+        float x = s[n][e] * p.scale_log2;
+        if constexpr (EXTRA) {
+          const bool keep = keep_at(q0 + r, k0 + c, p.Sq, p.Sk, p.q_off, p.kv_off, q_len,
+                                    kv_len, p.causal, p.wl, p.wr);
+          // Cap in natural units, add the bias there, then back to log2.
+          x *= 1.f / LOG2E;
+          if (p.softcap > 0.f) x = p.softcap * tanhf(x / p.softcap);
+          if (p.bias != nullptr && keep) {
+            x += load_any(p.bias, p.bias_dtype, b * p.bias_sb + h * p.bias_sh +
+                                                    (q0 + r) * p.bias_sq + (k0 + c) * p.bias_sk);
+          }
+          x *= LOG2E;
+          x = keep ? x : neg_inf();
+        } else if (!free_tile) {
+          x = keep_at(q0 + r, k0 + c, p.Sq, p.Sk, p.q_off, p.kv_off, q_len, kv_len, p.causal,
+                      p.wl, p.wr)
+                  ? x
+                  : neg_inf();
+        }
+        s[n][e] = x;
+        mx[e / 2] = fmaxf(mx[e / 2], x);
+      }
+
+    // Online softmax of rows g and g + 8: the quad of lanes 4 g .. 4 g + 3
+    // holds a row's columns.
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
+      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
+      const float m_new = fmaxf(m_run[hr], mx[hr]);
+      alpha[hr] = exp2f(m_run[hr] - m_new);
+      m_run[hr] = m_new;
+    }
+#pragma unroll
+    for (int n = 0; n < C::NT_S; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pr = exp2f(s[n][e] - m_run[e / 2]);  // masked: exp2(-inf) = 0
+        rs[e / 2] += pr;
+        if constexpr (DROP) {
+          const int r = w * 16 + g + (e / 2) * 8, c = n * 8 + 2 * t + (e % 2);
+          s[n][e] = dropout_keep(p.drop.seed, p.drop.threshold, b, h, p.q_off + q0 + r,
+                                 p.kv_off + k0 + c, p.Hq, p.Sq_real, p.Sk_real)
+                        ? pr
+                        : 0.f;
+        } else {
+          s[n][e] = pr;
+        }
+      }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      rs[hr] += __shfl_xor_sync(0xffffffffu, rs[hr], 1);
+      rs[hr] += __shfl_xor_sync(0xffffffffu, rs[hr], 2);
+      l_run[hr] = l_run[hr] * alpha[hr] + rs[hr];
+    }
+#pragma unroll
+    for (int n = 0; n < C::NT_O; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e / 2];
+
+    // O += P V: P rounded to T and repacked from S's accumulators into A
+    // fragments, V by ldmatrix.trans.
+#pragma unroll
+    for (int kk = 0; kk < C::BKV / 16; ++kk) {
+      const uint32_t a[4] = {pack2<T>(s[2 * kk][0], s[2 * kk][1]),
+                             pack2<T>(s[2 * kk][2], s[2 * kk][3]),
+                             pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int np = 0; np < C::NT_O / 2; ++np) {
+        uint32_t bv[4];
+        ldsm_x4_t(bv, Vs + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * C::P + np * 16 +
+                          (lane / 16) * 8);
+        mma16816<T>(o[2 * np], a, bv[0], bv[1]);
+        mma16816<T>(o[2 * np + 1], a, bv[2], bv[3]);
+      }
+    }
+  }
+
+  // Store: o = acc / l * (1 / (1 - p_drop)) and lse = m + log2 l; rows past
+  // q_len (free tiles gave them a sum) or that kept nothing get o = 0 and
+  // lse = -inf. A warp's o rows go through its own q rows of shared memory,
+  // which no other warp reads, then out as 16-byte stores.
+  const float out_scale = DROP ? p.drop.scale : 1.f;
+  float* lse = p.lse + ((long long)b * p.Hq + h) * p.Sq + q0;
+  __syncwarp();
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = w * 16 + g + 8 * hr;
+    const bool live = p.q_off + q0 + r < q_len && l_run[hr] > 0.f;
+    const float inv = live ? 1.f / l_run[hr] * out_scale : 0.f;
+#pragma unroll
+    for (int n = 0; n < C::NT_O; ++n) {
+      *reinterpret_cast<uint32_t*>(Qs + r * C::P + n * 8 + 2 * t) =
+          pack2<T>(o[n][2 * hr] * inv, o[n][2 * hr + 1] * inv);
+    }
+    if (t == 0 && q0 + r < p.Sq) lse[r] = live ? m_run[hr] + log2f(l_run[hr]) : neg_inf();
+  }
+  __syncwarp();
+  T* op = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  constexpr int CH = D / 8;
+  for (int i = lane; i < 16 * CH; i += 32) {
+    const int r = w * 16 + i / CH, c = (i % CH) * 8;
+    if (q0 + r < p.Sq) {
+      *reinterpret_cast<uint4*>(op + (long long)(q0 + r) * p.o_ss + c) =
+          *reinterpret_cast<const uint4*>(Qs + r * C::P + c);
+    }
+  }
+}
+
+// ---- launch -----------------------------------------------------------------
+
 template <typename T, int D, bool DROP>
-cudaError_t launch_kernel(const FwdParams& p, int B, cudaStream_t stream) {
+cudaError_t launch_fma(const FwdParams& p, int B, cudaStream_t stream) {
+  if (p.tile_rows != TM) return cudaErrorInvalidValue;
   const int smem = fwd_smem_floats<D>() * (int)sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<T, D, DROP>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -142,6 +423,31 @@ cudaError_t launch_kernel(const FwdParams& p, int B, cudaStream_t stream) {
   dim3 grid((p.Sq + TM - 1) / TM, p.Hq, B);
   flash_fwd_kernel<T, D, DROP><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename T, int D, bool DROP, bool EXTRA>
+cudaError_t launch_mma(const FwdParams& p, int B, cudaStream_t stream) {
+  using C = FwdMmaCfg<D>;
+  // The host counts q tiles (TILE_ROWS, and the schedules' alignment) in these rows.
+  if (p.tile_rows != C::BQ) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_mma_kernel<T, D, DROP, EXTRA>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
+  if (e != cudaSuccess) return e;
+  dim3 grid((p.Sq + C::BQ - 1) / C::BQ, p.Hq, B);
+  flash_fwd_mma_kernel<T, D, DROP, EXTRA><<<grid, C::NW * 32, C::SMEM_BYTES, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// fp32 takes the FMA kernel, bf16 / fp16 the tensor-core kernel (no path
+// back to the FMA one).
+template <typename T, int D, bool DROP>
+cudaError_t launch_kernel(const FwdParams& p, int B, cudaStream_t stream) {
+  if constexpr (std::is_same<T, float>::value) {
+    return launch_fma<T, D, DROP>(p, B, stream);
+  } else {
+    return p.bias != nullptr || p.softcap > 0.f ? launch_mma<T, D, DROP, true>(p, B, stream)
+                                                : launch_mma<T, D, DROP, false>(p, B, stream);
+  }
 }
 
 template <typename T, int D>
@@ -163,6 +469,9 @@ cudaError_t launch_d(const FwdParams& p, int B, int D, cudaStream_t stream) {
 }  // namespace
 }  // namespace fa2
 
+// tile_rows: the q rows of a block the host counts in (ops/flash_fwd.py
+// TILE_ROWS); the call fails unless it is the kernels' (64). 16-bit q / k / v
+// / o: rows, strides and base pointers 16-byte aligned.
 extern "C" int fa2_flash_fwd(
     int dtype, int B, int Hq, int Hkv, int Sq, int Sk, int D,
     const void* q, const void* k, const void* v, void* o, float* lse, const int* lens,
@@ -175,7 +484,7 @@ extern "C" int fa2_flash_fwd(
     int q_off, int kv_off, int causal, int wl, int wr,
     float softmax_scale, float softcap,
     int dropout, unsigned int drop_seed, unsigned int drop_threshold, float drop_scale,
-    int Sq_real, int Sk_real, void* stream) {
+    int Sq_real, int Sk_real, int tile_rows, void* stream) {
   fa2::FwdParams p;
   p.q = q; p.k = k; p.v = v; p.o = o; p.lse = lse; p.lens = lens;
   p.q_sb = q_sb; p.q_sh = q_sh; p.q_ss = q_ss;
@@ -191,6 +500,7 @@ extern "C" int fa2_flash_fwd(
   p.drop.on = dropout; p.drop.seed = drop_seed; p.drop.threshold = drop_threshold;
   p.drop.scale = drop_scale;
   p.Sq_real = Sq_real; p.Sk_real = Sk_real;
+  p.tile_rows = tile_rows;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case fa2::kF32: return (int)fa2::launch_d<float>(p, B, D, s);

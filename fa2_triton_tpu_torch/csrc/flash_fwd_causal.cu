@@ -1,41 +1,38 @@
-// Causal forward schedules for Hopper (sm_90a), written by hand in CUDA C++:
-// the whole-strip causal forward (B10) and the split schedule's diagonal
-// leaf triangles (B9 diag).
+// The split schedule's diagonal leaf triangles (B9 diag) for Hopper
+// (sm_90a), written by hand in CUDA C++. The whole-strip causal forward (B10)
+// that this file also held is now a causal call of csrc/flash_fwd.cu.
 //
-// Replaces: fa2_triton_tpu/ops/flash_fwd.py:_fwd_causal_strip_kernel (l.640,
-// launched by flash_attn_forward_causal_strip l.779 -> l.802) and
-// _fwd_tri_square_kernel (l.454) in its diag_stride / leaf_subs mode
-// (flash_attn_forward_causal_diag l.969 -> l.1012).
+// Replaces: fa2_triton_tpu/ops/flash_fwd.py:_fwd_tri_square_kernel (l.454) in
+// its diag_stride / leaf_subs mode (flash_attn_forward_causal_diag l.969 ->
+// l.1012).
 //
-// Function: causal attention exactly as csrc/flash_fwd.cu computes it (base-2
-// online softmax, fp32 accumulators, the causal mask bottom-right aligned on
-// lens[b] = (q_len, kv_len) in the global frame that q_off / kv_off place the
-// call in, counter-hash dropout on global rows and columns with the real
-// lengths Sq_real / Sk_real, o = acc / l / (1 - p)). The diag kernel adds one
-// restriction: with leaf length T, local row r attends only local columns of
-// its own leaf, [T * (r / T), T * (r / T + 1)); the split schedule's rectangles
-// (flash_fwd_rect.cu) supply the columns below it. Rows at or past q_len, or
-// above a negative shift's diagonal, get o = 0 and lse = -inf (JAX
-// flash_fwd.py:771-776); lse is base-2, [B, Hq, Sq] fp32.
+// Function: causal attention exactly as csrc/flash_fwd.cu's FMA kernel
+// (flash_fwd_kernel) computes it (base-2 online softmax, fp32 accumulators, the causal mask
+// bottom-right aligned on lens[b] = (q_len, kv_len) in the global frame that
+// q_off / kv_off place the call in, counter-hash dropout on global rows and
+// columns with the real lengths Sq_real / Sk_real, o = acc / l / (1 - p)),
+// restricted to leaves: with leaf length T, local row r attends only local
+// columns of its own leaf, [T * (r / T), T * (r / T + 1)); the split
+// schedule's rectangles (flash_fwd_rect.cu) supply the columns below it. Rows
+// at or past q_len, or above a negative shift's diagonal, get o = 0 and lse =
+// -inf (JAX flash_fwd.py:771-776); lse is base-2, [B, Hq, Sq] fp32.
 //
 // Bound on the H100: at these lengths (S >= 1024, D = 128) attention is
-// compute-bound, so the roof is the tensor cores (989 TFLOP/s bf16). Like
-// flash_fwd.cu this first version does fp32 FMAs on the CUDA cores on
+// compute-bound, so the roof is the tensor cores (989 TFLOP/s bf16). This
+// kernel still does fp32 FMAs on the CUDA cores for every input type, on
 // attn_tiles.cuh's tile math (one block per 64-row q tile, q head and batch
-// row, 32-row K/V tiles streamed through shared memory); wgmma + TMA is later
-// work. Its design against the bound:
-//   * the TPU strip's gain is that a tile strictly below the diagonal is
-//     never masked; here too a K/V tile that ends at or below the diagonal of
-//     the q tile's FIRST row, inside the real keys, runs a score step with no
-//     mask test (every live row of the tile keeps every column of it), and
-//     only the two or three tiles that cross the diagonal keep the test;
-//   * the tile order and the arithmetic are flash_fwd.cu's, so the strip's o
-//     and lse equal the generic kernel's bit for bit (the smoke test holds
-//     it to that); the mask-free steps give rows past q_len a sum, so the
-//     store applies JAX's dead-row rule itself;
+// row, 32-row K/V tiles streamed through shared memory); moving it to
+// flash_fwd.cu's tensor-core tile is ROADMAP queue B's next forward item.
+// Its design against the bound:
+//   * a K/V tile that ends at or below the diagonal of the q tile's FIRST
+//     row, inside the real keys, runs a score step with no mask test (every
+//     live row of the tile keeps every column of it), and only the two or
+//     three tiles that cross the diagonal keep the test; the mask-free steps
+//     give rows past q_len a sum, so the store applies JAX's dead-row rule
+//     itself;
 //   * blocks launch longest rows first (reverse blockIdx.x): the last q tile
-//     walks the most K/V tiles, and the short ones fill the tail; the q heads
-//     of one GQA group are adjacent in blockIdx.y, so their K/V stay in L2.
+//     of a leaf walks the most K/V tiles; the q heads of one GQA group are
+//     adjacent in blockIdx.y, so their K/V stay in L2.
 #include "attn_tiles.cuh"
 
 namespace fa2 {
@@ -57,7 +54,7 @@ struct CausalParams {
   float scale_log2;  // softmax_scale * log2(e)
   Dropout drop;
   int Sq_real, Sk_real;  // the dropout counter's lengths
-  int leaf;              // diag: the leaf length T (a multiple of TM); 0 = strip
+  int leaf;              // the leaf length T (a multiple of TM)
 };
 
 // The 64-row q tile at local row q0 of head h, batch row b.
@@ -78,11 +75,8 @@ __device__ __forceinline__ void causal_tile(const CausalParams& p, float* smem, 
   const int row_lo = p.q_off + q0;
   const int row_hi = min(p.q_off + min(q0 + TM, p.Sq), q_len) - 1;  // inclusive
   const int kv_valid = min(p.Sk, kv_len - p.kv_off);
-  int lo = 0, hi = min(kv_valid, row_hi + shift + 1 - p.kv_off);
-  if (p.leaf > 0) {
-    lo = (q0 / p.leaf) * p.leaf;
-    hi = min(hi, lo + p.leaf);
-  }
+  const int lo = (q0 / p.leaf) * p.leaf;
+  int hi = min(min(kv_valid, row_hi + shift + 1 - p.kv_off), lo + p.leaf);
   if (row_hi < row_lo) hi = 0;
   // Local columns below this bound sit at or below the first row's diagonal
   // and inside the real keys: every live row of the tile keeps them.
@@ -135,12 +129,6 @@ __device__ __forceinline__ void causal_tile(const CausalParams& p, float* smem, 
 }
 
 template <typename T, int D, bool DROP>
-__global__ void __launch_bounds__(THREADS) causal_strip_kernel(const CausalParams p) {
-  extern __shared__ float smem[];
-  causal_tile<T, D, DROP>(p, smem, (gridDim.x - 1 - blockIdx.x) * TM, blockIdx.y, blockIdx.z);
-}
-
-template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(THREADS) causal_diag_kernel(const CausalParams p) {
   extern __shared__ float smem[];
   causal_tile<T, D, DROP>(p, smem, (gridDim.x - 1 - blockIdx.x) * TM, blockIdx.y, blockIdx.z);
@@ -148,8 +136,7 @@ __global__ void __launch_bounds__(THREADS) causal_diag_kernel(const CausalParams
 
 template <typename T, int D, bool DROP>
 cudaError_t launch_kernel(const CausalParams& p, int B, cudaStream_t stream) {
-  void (*kernel)(const CausalParams) =
-      p.leaf > 0 ? causal_diag_kernel<T, D, DROP> : causal_strip_kernel<T, D, DROP>;
+  void (*kernel)(const CausalParams) = causal_diag_kernel<T, D, DROP>;
   const int smem = fwd_smem_floats<D>() * (int)sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
@@ -172,7 +159,8 @@ cudaError_t launch_d(const CausalParams& p, int B, int D, cudaStream_t stream) {
 }  // namespace
 }  // namespace fa2
 
-// leaf = 0: the strip (B10); leaf = T > 0, a multiple of 64: the diag leaves (B9 diag).
+// leaf = T > 0, a multiple of 64: the diag leaves (B9 diag). leaf = 0, once the
+// strip (B10), is refused: the strip is fa2_flash_fwd with causal = 1.
 extern "C" int fa2_flash_fwd_causal(
     int dtype, int leaf, int B, int Hq, int Hkv, int Sq, int Sk, int D,
     const void* q, const void* k, const void* v, void* o, float* lse, const int* lens,
@@ -183,7 +171,7 @@ extern "C" int fa2_flash_fwd_causal(
     int q_off, int kv_off, float softmax_scale,
     int dropout, unsigned int drop_seed, unsigned int drop_threshold, float drop_scale,
     int Sq_real, int Sk_real, void* stream) {
-  if (leaf < 0 || leaf % fa2::TM != 0) return (int)cudaErrorInvalidValue;
+  if (leaf <= 0 || leaf % fa2::TM != 0) return (int)cudaErrorInvalidValue;
   fa2::CausalParams p;
   p.q = q; p.k = k; p.v = v; p.o = o; p.lse = lse; p.lens = lens;
   p.q_sb = q_sb; p.q_sh = q_sh; p.q_ss = q_ss;

@@ -99,7 +99,7 @@ def main(argv=None) -> int:
     out = {"package": os.path.dirname(flash_fwd.__file__), "dropout_p": args.dropout,
            "device": torch.cuda.get_device_name(0)}
     out.update(device_ms(torch, lambda: flash_fwd.flash_attn_forward(q, k, v, lens, **kw),
-                         ("flash_fwd_kernel",), args.iters))
+                         ("flash_fwd",), args.iters))   # flash_fwd_kernel or flash_fwd_mma_kernel
     out.update(device_ms(torch, lambda: flash_bwd.flash_attn_backward(q, k, v, do, o, lse, lens, **kw),
                          ("dq_kernel", "dkdv_kernel"), args.iters))
     del q, k, v, do, o, lse

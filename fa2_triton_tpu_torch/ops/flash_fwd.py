@@ -2,8 +2,10 @@
 
 Port of `fa2_triton_tpu/ops/flash_fwd.py:flash_attn_forward` as the serving
 prefill and the training forward reach it: the TPU's `_fwd_kernel` (B1, with
-its additive bias) and `_fwd_tri_square_kernel` (B9) both become
-`csrc/flash_fwd.cu`. Tensors are
+its additive bias), `_fwd_tri_square_kernel` (B9) and
+`_fwd_causal_strip_kernel` (B10) all become `csrc/flash_fwd.cu`: 16-bit
+inputs run its tensor-core kernel (`mma.sync` tiles), fp32 inputs its FMA
+kernel. Tensors are
 BHSD views with any strides (the head dim contiguous), so the BSHD public API
 hands them over without a copy. Per batch row, `lens[b] = (q_len, kv_len)`
 are global actual lengths and `q_off` / `kv_off` place this call's rows and
@@ -26,10 +28,11 @@ dim to 128 lanes, lengths to its blocks: `jax_padded_shape`) and the real
 lengths: the short tri-square range
 (B9, here the generic kernel), the split schedule (B9 diag leaves, then B11
 rectangles merged in place into the running (o, lse): B1 merge) and the
-whole-strip causal forward (B10), else the generic kernel. The port pads
-nothing: its kernels clip to the tensors' lengths. The schedules' kernels
-are `csrc/flash_fwd_causal.cu` (strip, diag) and `csrc/flash_fwd_rect.cu`
-(rect, with and without its merge epilogue).
+whole-strip causal forward (B10: the generic kernel's causal call, counted
+apart), else the generic kernel. The port pads nothing: its kernels clip to
+the tensors' lengths. The split's kernels are `csrc/flash_fwd_causal.cu`
+(diag) and `csrc/flash_fwd_rect.cu` (rect, with and without its merge
+epilogue).
 
 CPU tensors take the plain twins (`flash_attn_forward_plain`, and for the
 schedules `flash_attn_forward_causal_diag_plain` / `_rect_plain`: the same
@@ -50,14 +53,16 @@ from fa2_triton_tpu_torch.utils import LOG2E, dropout_keep_mask, dropout_thresho
 # Launches of csrc/flash_fwd.cu since the last reset (the smoke test reads
 # this to show the served path went through the kernel).
 LAUNCHES = 0
-# Launches of the causal schedules' kernels: csrc/flash_fwd_causal.cu's strip
-# (B10) and diag (B9 diag), csrc/flash_fwd_rect.cu's rectangle without and
-# with its merge epilogue (B11, B1 merge).
+# Launches of the causal schedules: the strip (B10, csrc/flash_fwd.cu's
+# kernel, counted here and not in LAUNCHES), csrc/flash_fwd_causal.cu's diag
+# (B9 diag), csrc/flash_fwd_rect.cu's rectangle without and with its merge
+# epilogue (B11, B1 merge).
 SCHEDULE_LAUNCHES = dict.fromkeys(("causal_strip", "causal_diag", "rect", "rect_merge"), 0)
 
-# The row tile of the Hopper kernels (attn_tiles.cuh's TM). It stands in for
-# the TPU's sub-tile in the schedules' alignment preconditions; a diag leaf is
-# a whole number of tiles.
+# The row tile of the Hopper kernels (attn_tiles.cuh's TM, flash_fwd.cu's
+# FwdMmaCfg::BQ), passed to fa2_flash_fwd, which refuses other values. It
+# stands in for the TPU's sub-tile in the schedules' alignment
+# preconditions; a diag leaf is a whole number of tiles.
 TILE_ROWS = 64
 
 HEAD_DIMS = (64, 128, 256)
@@ -67,13 +72,13 @@ HEAD_DIMS = (64, 128, 256)
 MAX_HEAD_DIM = HEAD_DIMS[-1]
 
 _P, _I, _L, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_uint
-# argtypes of each C entry point. The schedules' two share a head: (dtype,
+# argtypes of each C entry point. The split's two share a head: (dtype,
 # leaf or merge, B, Hq, Hkv, Sq, Sk, D, 6 pointers, 12 strides, q_off, kv_off,
 # scale, 4 dropout args, Sq_real, Sk_real).
 _SCHED_HEAD = [_I] * 8 + [_P] * 6 + [_L] * 12 + [_I, _I, _F, _I, _U, _U, _F, _I, _I]
 _ARGTYPES = {
     "fa2_flash_fwd": ([_I] * 7 + [_P] * 6 + [_L] * 12 + [_P, _I] + [_L] * 4 + [_I] * 5 + [_F, _F]
-                      + [_I, _U, _U, _F, _I, _I, _P]),
+                      + [_I, _U, _U, _F, _I, _I, _I, _P]),
     "fa2_flash_fwd_causal": _SCHED_HEAD + [_P],
     "fa2_flash_fwd_rect": _SCHED_HEAD + [_I] * 6 + [_P],
 }
@@ -190,9 +195,11 @@ def flash_attn_forward_plain(
     return o.to(q.dtype), lse[..., 0]
 
 
-def _check_cuda_args(q, k, v, lens=None):
+def _check_cuda_args(q, k, v, lens=None, vec=4):
     """Raise on BHSD q / k / v (and [B, 2] lens, when given) that the
-    attention kernels do not take."""
+    attention kernels do not take: `vec`-element vector loads (4 for the
+    FMA kernels; 8, i.e. 16-byte cp.async rows, for the 16-bit tensor-core
+    forward)."""
     if q.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"the attention kernels take fp32/fp16/bf16, got {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -213,11 +220,12 @@ def _check_cuda_args(q, k, v, lens=None):
                              or not lens.is_contiguous()):
         raise ValueError("lens must be a contiguous int32 [B, 2] tensor")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        # 4-element vector loads: last dim contiguous, the other strides and
-        # the base address aligned.
-        if t.stride(3) != 1 or any(s % 4 for s in t.stride()[:3]) or t.data_ptr() % 16:
+        # Vector loads: last dim contiguous, the other strides and the base
+        # address aligned.
+        if t.stride(3) != 1 or any(s % vec for s in t.stride()[:3]) or t.data_ptr() % 16:
             raise ValueError(f"{name}: head dim must be contiguous, strides a multiple "
-                             f"of 4 elements and the base 16-byte aligned; got strides {t.stride()}")
+                             f"of {vec} elements and the base 16-byte aligned; got strides "
+                             f"{t.stride()}")
 
 
 def _generic_forward(q, k, v, lens, q_off, kv_off, bias, *, causal, softmax_scale, window,
@@ -225,15 +233,29 @@ def _generic_forward(q, k, v, lens, q_off, kv_off, bias, *, causal, softmax_scal
     """csrc/flash_fwd.cu (B1, B9) on CUDA tensors, its plain twin on CPU
     ones."""
     global LAUNCHES
-    drop = dropout_c_args(dropout_p, dropout_seed)
+    dropout_c_args(dropout_p, dropout_seed)   # raises on a p outside [0, 1)
     if q.device.type == "cpu":
         return flash_attn_forward_plain(
             q, k, v, lens, q_off, kv_off, bias, causal=causal,
             softmax_scale=softmax_scale, window=window, softcap=softcap, dropout_p=dropout_p,
             dropout_seed=dropout_seed, seqlen_q_real=seqlen_q_real, seqlen_k_real=seqlen_k_real)
+    out = _flash_fwd_launch(q, k, v, lens, q_off, kv_off, bias, causal=causal,
+                            softmax_scale=softmax_scale, window=window, softcap=softcap,
+                            dropout_p=dropout_p, dropout_seed=dropout_seed,
+                            seqlen_q_real=seqlen_q_real, seqlen_k_real=seqlen_k_real)
+    if out[1].numel():
+        LAUNCHES += 1
+    return out
+
+
+def _flash_fwd_launch(q, k, v, lens, q_off, kv_off, bias, *, causal, softmax_scale, window,
+                      softcap, dropout_p, dropout_seed, seqlen_q_real, seqlen_k_real):
+    """One launch of csrc/flash_fwd.cu (none for an empty output): the
+    tensor-core kernel for 16-bit inputs, the FMA kernel for fp32."""
+    drop = dropout_c_args(dropout_p, dropout_seed)
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd takes CPU or CUDA tensors, got {q.device}")
-    _check_cuda_args(q, k, v, lens)
+    _check_cuda_args(q, k, v, lens, vec=8 if q.element_size() == 2 else 4)
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     bv = bias_view(bias, q, Sk) if bias is not None else None
@@ -250,10 +272,10 @@ def _generic_forward(q, k, v, lens, q_off, kv_off, bias, *, causal, softmax_scal
         *(bv.stride() if bv is not None else (0, 0, 0, 0)),
         int(q_off), int(kv_off), int(bool(causal)), int(window[0]), int(window[1]),
         float(softmax_scale), float(softcap), *drop,
-        int(seqlen_q_real or Sq), int(seqlen_k_real or Sk), _build.stream_ptr(q.device),
+        int(seqlen_q_real or Sq), int(seqlen_k_real or Sk), TILE_ROWS,
+        _build.stream_ptr(q.device),
     )
     _build.check(status, "flash_fwd launch")
-    LAUNCHES += 1
     return o, lse
 
 
@@ -505,10 +527,10 @@ def _reals(q, k, seqlen_q_real, seqlen_k_real):
 
 def _schedule_launch(kernel: str, q, k, v, lens, q_off, kv_off, o, lse, *, softmax_scale,
                      dropout_p, dropout_seed, seqlen_q_real, seqlen_k_real, tail: List[int]):
-    """Launch a schedule kernel of csrc/flash_fwd_causal.cu ("causal_strip",
-    "causal_diag": tail = [leaf]) or csrc/flash_fwd_rect.cu ("rect",
-    "rect_merge": tail = [lse_rows, row0, row_end, col0, col_end, out_row0])
-    writing o / lse, and count it."""
+    """Launch a split kernel of csrc/flash_fwd_causal.cu ("causal_diag":
+    tail = [leaf]) or csrc/flash_fwd_rect.cu ("rect", "rect_merge": tail =
+    [lse_rows, row0, row_end, col0, col_end, out_row0]) writing o / lse, and
+    count it."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd takes CPU or CUDA tensors, got {q.device}")
     _check_cuda_args(q, k, v, lens)
@@ -558,12 +580,14 @@ def flash_attn_forward_tri_square(q, k, v, lens, q_off=0, kv_off=0, *, softmax_s
 def flash_attn_forward_causal_strip(q, k, v, lens, q_off=0, kv_off=0, *, softmax_scale,
                                     dropout_p=0.0, dropout_seed=0, seqlen_q_real=None,
                                     seqlen_k_real=None):
-    """B10, the whole-strip causal forward (JAX l.779), as
-    csrc/flash_fwd_causal.cu's `causal_strip_kernel`: the same function as
-    the generic kernel's causal forward, bit for bit. JAX's preconditions
-    (l.792-793), with the row tile TILE_ROWS in place of the TPU's sub-tile:
-    a static shift sk_real - sq_real >= 0, a multiple of it, with the last
-    row's diagonal inside the keys (Sq + shift <= Sk)."""
+    """B10, the whole-strip causal forward (JAX l.779): csrc/flash_fwd.cu's
+    kernel, causal, counted under SCHEDULE_LAUNCHES["causal_strip"]. It is
+    the generic kernel's causal call, so their o and lse are equal bit for
+    bit; the strip's gain (no mask test on tiles below the diagonal, longest
+    rows first) is that kernel's own. JAX's preconditions (l.792-793), with
+    the row tile TILE_ROWS in place of the TPU's sub-tile: a static shift
+    sk_real - sq_real >= 0, a multiple of it, with the last row's diagonal
+    inside the keys (Sq + shift <= Sk)."""
     sq_real, sk_real = _reals(q, k, seqlen_q_real, seqlen_k_real)
     shift = sk_real - sq_real
     if not (shift >= 0 and shift % TILE_ROWS == 0 and q.shape[2] + shift <= k.shape[2]):
@@ -574,8 +598,11 @@ def flash_attn_forward_causal_strip(q, k, v, lens, q_off=0, kv_off=0, *, softmax
               seqlen_q_real=seqlen_q_real, seqlen_k_real=seqlen_k_real)
     if q.device.type == "cpu":
         return flash_attn_forward_plain(q, k, v, lens, q_off, kv_off, causal=True, **kw)
-    return _schedule_launch("causal_strip", q, k, v, lens, q_off, kv_off, *_new_out(q, q.shape[2]),
-                            tail=[0], **kw)
+    out = _flash_fwd_launch(q, k, v, lens, q_off, kv_off, None, causal=True, window=(-1, -1),
+                            softcap=0.0, **kw)
+    if out[1].numel():
+        SCHEDULE_LAUNCHES["causal_strip"] += 1
+    return out
 
 
 def flash_attn_forward_causal_diag(q, k, v, lens, q_off=0, kv_off=0, *, T, softmax_scale,

@@ -50,6 +50,7 @@ FWD_CASES = [
     dict(q_off=40, sq=60, sk=100),                            # a query chunk at a global offset
     dict(hkv=4),
     dict(hkv=1),
+    dict(sq=333, sk=333, lens=(333, 256)),                    # several kv tiles, a ragged last q tile
 ]
 
 
@@ -67,6 +68,8 @@ def test_flash_fwd_kernel_matches_plain(dev, dtype, D, case):
     q_off = c.get("q_off", 0)
     if "q_off" in c:
         lens = torch.tensor([[q_off + Sq, Sk]] * B, dtype=torch.int32, device=dev)
+    elif "lens" in c:
+        lens = torch.tensor([[n, n] for n in c["lens"]], dtype=torch.int32, device=dev)
     elif Sq == Sk:
         lens = torch.tensor([[Sq, Sk], [Sq - 77, Sk - 77]], dtype=torch.int32, device=dev)
     else:
@@ -85,6 +88,51 @@ def test_flash_fwd_kernel_matches_plain(dev, dtype, D, case):
     assert torch.equal(torch.isinf(lse), torch.isinf(lse_pl))
     fin = torch.isfinite(lse_pl)
     assert (lse[fin] - lse_pl[fin]).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("route", ["generic", "strip"])
+def test_flash_fwd_kernel_ignores_nan_padding(dev, dtype, D, route):
+    """Rows past q_len / kv_len may hold NaN (padding), and the tensor cores
+    give 0 x NaN = NaN: the 16-bit forward zero-fills them on load, so o and
+    lse equal those of zero-filled padding bit for bit, with o = 0 and
+    lse = -inf on the padded rows (the generic call and the strip)."""
+    g = torch.Generator(device=dev).manual_seed(D)
+    q, k, v = ((torch.randn(2, 300, h, D, generator=g, device=dev) * 0.5).to(dtype).transpose(1, 2)
+               for h in (4, 2, 2))
+    lens = torch.tensor([[300, 300], [211, 211]], dtype=torch.int32, device=dev)
+    kw = dict(softmax_scale=D ** -0.5)
+    if route == "generic":
+        run = lambda *x: flash_fwd.flash_attn_forward(*x, lens, causal=True, **kw)  # noqa: E731
+    else:
+        run = lambda *x: flash_fwd.flash_attn_forward_causal_strip(*x, lens, **kw)  # noqa: E731
+    for x in (q, k, v):
+        x[1, :, 211:] = 0
+    o0, lse0 = run(q, k, v)
+    for x in (q, k, v):
+        x[1, :, 211:] = float("nan")
+    o1, lse1 = run(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(o1.contiguous().view(torch.int16), o0.contiguous().view(torch.int16))
+    assert torch.equal(lse1.view(torch.int32), lse0.view(torch.int32))
+    assert torch.isfinite(o1).all() and not o1[1, :, 211:].any()
+    assert torch.isneginf(lse1[1, :, 211:]).all() and torch.isfinite(lse1[:, :, :211]).all()
+
+
+def test_flash_fwd_kernel_is_bitwise_repeatable(dev):
+    """5 runs of the 16-bit forward with dropout, identical o and lse (no
+    atomics; each accumulator has one owner and a fixed order)."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    q, k, v = ((torch.randn(2, 333, h, 128, generator=g, device=dev) * 0.5)
+               .to(torch.bfloat16).transpose(1, 2) for h in (8, 2, 2))
+    lens = torch.tensor([[333, 333], [256, 256]], dtype=torch.int32, device=dev)
+    runs = [flash_fwd.flash_attn_forward(q, k, v, lens, causal=True, softmax_scale=128 ** -0.5,
+                                         dropout_p=0.1, dropout_seed=7) for _ in range(5)]
+    torch.cuda.synchronize()
+    for o, lse in runs[1:]:
+        assert torch.equal(o.contiguous().view(torch.int16), runs[0][0].contiguous().view(torch.int16))
+        assert torch.equal(lse.view(torch.int32), runs[0][1].view(torch.int32))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
@@ -138,6 +186,14 @@ def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     cache = torch.zeros(2, 2, 128, 64, device=dev)
     with pytest.raises(ValueError, match="Hq / Hkv"):
         decode.decode_attention(qd, cache, cache, torch.ones(2, dtype=torch.int32, device=dev))
+    # The 16-bit forward copies 16-byte rows (cp.async): a row stride of 68
+    # elements is refused, where the FMA kernels' 4-element loads take it.
+    x = torch.zeros(1, 2, 8, 68, device=dev, dtype=torch.bfloat16)[..., :64]
+    lens = torch.tensor([[8, 8]], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="multiple of 8 elements"):
+        flash_fwd.flash_attn_forward(x, x, x, lens, causal=True, softmax_scale=0.125)
+    with pytest.raises(ValueError, match="multiple of 8 elements"):
+        flash_fwd.flash_attn_forward_causal_strip(x, x, x, lens, softmax_scale=0.125)
 
 
 def test_engine_on_cuda_matches_engine_on_cpu(dev):

@@ -69,5 +69,5 @@ def test_kernel_sources_are_hashed():
     assert {"flash_fwd.cu", "flash_bwd.cu", "decode.cu", "decode_int8.cu", "decode_fp8.cu",
             "varlen.cu", "common.cuh", "attn_tiles.cuh", "decode.cuh", "flash_fwd_causal.cu",
             "flash_fwd_rect.cu", "flash_bwd_tri.cu", "flash_bwd_wl.cu", "bwd_fused.cuh",
-            "bwd_mma.cuh"} <= names
+            "bwd_mma.cuh", "mma_tiles.cuh"} <= names
     assert len(_build.source_hash()) == 16
