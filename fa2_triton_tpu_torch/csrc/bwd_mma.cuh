@@ -1,6 +1,8 @@
 // Tensor-core tile math of the fused 5-product backward for 16-bit inputs
 // (bf16, fp16), shared by flash_bwd_tri.cu (B13 tri-square and diag) and
-// flash_bwd_wl.cu (B14 work list). fp32 inputs keep bwd_fused.cuh's FMA
+// flash_bwd_wl.cu (B14 work list); flash_bwd.cu's dkdv_mma_kernel runs the
+// same q step without dS^T and dQ (its own element rule: the scale on the
+// fp32 scores, bias and softcap). fp32 inputs keep bwd_fused.cuh's FMA
 // tiles.
 //
 // A block of 8 warps owns a kv tile of BKV rows (128 at D 64 / 128, 64 at
@@ -127,8 +129,8 @@ __device__ __forceinline__ void mma_load_kv(const FusedBwdParams& p, const MmaSm
 
 // q tile rows [r0, r0 + BQ) of head h into buffer `buf`: q, do, lse and
 // delta (lse_h / delta_h: the head's first row), zero at or past `valid`.
-template <class C, typename T>
-__device__ __forceinline__ void mma_load_q(const FusedBwdParams& p, const MmaSmem<T>& s, int buf,
+template <class C, typename T, class Params>
+__device__ __forceinline__ void mma_load_q(const Params& p, const MmaSmem<T>& s, int buf,
                                            int b, int h, int r0, int valid, const float* lse_h,
                                            const float* delta_h) {
   cp_rows<C>(s.Q + buf * C::BQ * C::P, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh,
@@ -143,17 +145,32 @@ __device__ __forceinline__ void mma_load_q(const FusedBwdParams& p, const MmaSme
   }
 }
 
-// One q tile (rows r0.., in buffer `buf`) against the staged kv tile at k0:
-// dk += ds^T q and dv += p^T do in registers, and ds^T (rounded to T) into
-// s.dS for mma_dq_step. Elements at kv column >= c_lim or outside
-// keep_at's mask get p = ds = 0; a `free_tile` keeps every element. The q
-// columns go in passes of QH, each ending in its dV / dK products, so that
-// only one pass's S^T and dP^T occupy registers beside dK and dV.
-template <class C, typename T, bool DROP>
-__device__ __forceinline__ void mma_q_step(const FusedBwdParams& p, const MmaSmem<T>& s, int buf,
-                                           int b, int h, int r0, int k0, int c_lim, bool free_tile,
-                                           int q_len, int kv_len, float (&dk)[C::NT_KV][4],
-                                           float (&dv)[C::NT_KV][4]) {
+// The fused kernels' element rule for mma_q_step: the scores come in log2
+// units (k prescaled); elements at kv column >= c_lim or outside keep_at's
+// mask get p = ds = 0, a `free_tile` keeps every element.
+template <bool DROP>
+__device__ __forceinline__ auto fused_elem(const FusedBwdParams& p, int b, int h, int r0, int k0,
+                                           int c_lim, bool free_tile, int q_len, int kv_len) {
+  return [=, &p](int kr, int qr, float lse, float delta, float& sc, float& dp) {
+    const int r = r0 + qr, c = k0 + kr;
+    const bool keep = free_tile || (c < c_lim && keep_at(r, c, p.Sq, p.Sk, p.q_off, p.kv_off,
+                                                         q_len, kv_len, p.causal, p.wl, p.wr));
+    float pr, ds;
+    grad_plain(sc, dp, lse, delta, keep, fused_drop<DROP>(p, b, h, r, c), pr, ds);
+    sc = pr;
+    dp = ds;
+  };
+}
+
+// One q tile (in buffer `buf`) against the staged kv tile: dk += ds^T q and
+// dv += p^T do in registers, and with DQ ds^T (rounded to T) into s.dS for
+// mma_dq_step. elem(kv row, q row, lse, delta, s, dp) of the tile turns each
+// accumulator element's score s and dp into dv's operand p and ds in place.
+// The q columns go in passes of QH, each ending in its dV / dK products, so
+// that only one pass's S^T and dP^T occupy registers beside dK and dV.
+template <class C, typename T, bool DQ, class Elem>
+__device__ __forceinline__ void mma_q_step(const MmaSmem<T>& s, int buf, const Elem& elem,
+                                           float (&dk)[C::NT_KV][4], float (&dv)[C::NT_KV][4]) {
   const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
   const int wr = (w % C::KW) * 16, wd = w / C::KW;
   const int g = lane / 4, t = lane % 4;
@@ -192,16 +209,9 @@ __device__ __forceinline__ void mma_q_step(const FusedBwdParams& p, const MmaSme
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int kr = wr + g + (e / 2) * 8, qr = qh + n * 8 + 2 * t + (e % 2);
-        const int r = r0 + qr, c = k0 + kr;
-        const bool keep = free_tile || (c < c_lim && keep_at(r, c, p.Sq, p.Sk, p.q_off, p.kv_off,
-                                                             q_len, kv_len, p.causal, p.wl, p.wr));
-        float pr, ds;
-        grad_plain(sc[n][e], dp[n][e], lse_s[qr], delta_s[qr], keep,
-                   fused_drop<DROP>(p, b, h, r, c), pr, ds);
-        sc[n][e] = pr;
-        dp[n][e] = ds;
+        elem(kr, qr, lse_s[qr], delta_s[qr], sc[n][e], dp[n][e]);
       }
-    if (wd == 0) {
+    if (DQ && wd == 0) {
 #pragma unroll
       for (int n = 0; n < C::NT_S; ++n) {
         T* row = s.dS + (wr + g) * C::SP + qh + n * 8 + 2 * t;

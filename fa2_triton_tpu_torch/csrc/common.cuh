@@ -105,6 +105,39 @@ __device__ __forceinline__ bool keep_at(int r, int c, int Sq, int Sk, int q_off,
   return keep;
 }
 
+// Keys of the q tile at local row q0 (rows of it, global lengths q_len /
+// kv_len), in local key indices: [lo, hi) is what its live rows need (past
+// the causal / right limit of the last live row, past kv_len, or left of
+// the first row's window nothing is loaded); [free_lo, free_hi) is what
+// every live row keeps (inside the real keys, at or below the first row's
+// diagonal or right window edge, at or right of the last row's left window
+// edge); kv_valid counts the local keys that are real.
+struct KeyRange {
+  int lo, hi, free_lo, free_hi, kv_valid;
+};
+
+template <class Params>
+__device__ __forceinline__ KeyRange key_range(const Params& p, int q0, int rows, int q_len,
+                                              int kv_len) {
+  const int shift = kv_len - q_len;
+  const int row_lo = p.q_off + q0;
+  const int row_hi = min(p.q_off + min(q0 + rows, p.Sq), q_len) - 1;  // inclusive
+  KeyRange r;
+  r.kv_valid = min(p.Sk, kv_len - p.kv_off);
+  r.hi = r.free_hi = r.kv_valid;
+  if (p.causal) {
+    r.hi = min(r.hi, row_hi + shift + 1 - p.kv_off);
+    r.free_hi = min(r.free_hi, row_lo + shift + 1 - p.kv_off);
+  } else if (p.wr >= 0) {
+    r.hi = min(r.hi, row_hi + shift + p.wr + 1 - p.kv_off);
+    r.free_hi = min(r.free_hi, row_lo + shift + p.wr + 1 - p.kv_off);
+  }
+  if (row_hi < row_lo) r.hi = 0;
+  r.lo = p.wl >= 0 ? max(0, row_lo + shift - p.wl - p.kv_off) : 0;
+  r.free_lo = p.wl >= 0 ? row_hi + shift - p.wl - p.kv_off : 0;
+  return r;
+}
+
 // Counter-hash dropout (utils/rng.py; JAX fa2_triton_tpu/utils/rng.py): a
 // lowbias32-style mixer of a uint32 counter and the seed, in native uint32
 // arithmetic (wrapping mod 2^32). Every kernel draws its bits through the

@@ -29,9 +29,10 @@
 // the constant 1 and no hash code is compiled in.
 // delta = rowsum(o * do) - dlse * log2e is computed by the wrapper. The
 // softmax scale is folded as in B2 (flash_bwd.py:1586-1595): scale * log2e
-// rides on q (dq, dbias kernels) or k (dk/dv kernel) for the recompute, and
-// the ds * scale factor is applied once to the dq / dk accumulators, so
-// v, do and delta stay unscaled and dp - delta cancels exactly.
+// rides on the scores (the FMA kernels fold it into the staged fp32 q or k,
+// the tensor-core kernels apply it to the fp32 score accumulator), and the
+// ds * scale factor is applied once to the dq / dk accumulators, so v, do
+// and delta stay unscaled and dp - delta cancels exactly.
 //
 // Region mode (`k_prescaled`, the split schedule's rectangles, B13 rect:
 // fa2_triton_tpu/ops/flash_bwd.py:flash_attn_backward_rect l.1138, the TPU's
@@ -54,15 +55,33 @@
 // element's p and ds are selected to 0, never multiplied. A row with no valid
 // column has lse = -inf and gets exactly zero gradient.
 //
-// Bound on the H100: the two kernels together do 7 S*S*D products per head
-// (dk/dv: s, dp, dv, dk; dq: s, dp, dq), compute-bound at training
-// lengths. This first version is the simple, correct one: fp32 FMAs on the
-// CUDA cores from shared-memory tiles, each thread holding a 4x2
-// score tile and 4 x (D/16) accumulator columns in registers, shared rows
-// padded by one float against bank conflicts, tiles beyond the causal /
-// window / length limits never loaded. wgmma + TMA is later work. The tile
-// math lives in attn_tiles.cuh, shared with the forward and varlen kernels.
-#include "attn_tiles.cuh"
+// Bound on the H100: the dq and dk/dv kernels together do 7 S*S*D products
+// per head (dk/dv: s, dp, dv, dk; dq: s, dp, dq), compute-bound at training
+// lengths. Two designs, by input type:
+//
+// bf16 / fp16 inputs: mma.sync.m16n8k16 tiles with fp32 accumulation
+// (mma_tiles.cuh), operands 16-bit in shared memory, the products' operands
+// rounded to the input dtype as JAX rounds them (ds before ds k,
+// flash_bwd.py:229; p and ds before p^T do and ds^T q, l.328, l.333).
+//   * dq_mma_kernel has the forward's shape: 4 warps x 16 q rows of a 64-row
+//     q tile, K / V tiles of 64 rows (32 at D 256) double-buffered by
+//     cp.async; S = Q K^T and dP = dO V^T, ds per accumulator element, ds
+//     repacked into A fragments in registers, dQ += dS K with K by
+//     ldmatrix.trans; dQ stays in registers and goes out once, as 16-byte
+//     stores.
+//   * dkdv_mma_kernel has the fused kernels' shape without dQ: 8 warps own
+//     MmaCfg::BKV kv rows and stream the group's q tiles through
+//     bwd_mma.cuh's mma_q_step (S^T, dP^T, dV += P^T dO, dK += dS^T Q).
+//   * The scale goes on the fp32 score accumulator (s_mul), not into a
+//     rounded q or k. Bias and softcap live in their own instantiations
+//     (EXTRA); a tile that every element keeps skips the mask test.
+// fp32 inputs (no TF32): fp32 FMAs on the CUDA cores from shared-memory
+// tiles (attn_tiles.cuh, shared with the forward and varlen kernels), each
+// thread holding a 4x2 score tile and 4 x (D/16) accumulator columns in
+// registers, shared rows padded by one float against bank conflicts, tiles
+// beyond the causal / window / length limits never loaded. The dbias kernel
+// stays on these FMA tiles for every input type.
+#include "bwd_mma.cuh"
 
 namespace fa2 {
 namespace {
@@ -93,13 +112,14 @@ struct BwdParams {
   int B, Hq, Hkv, Sq, Sk, Bb, Hb;
   int q_off, kv_off, causal, wl, wr;
   float scale;       // softmax scale (natural)
-  float scale_log2;  // scale * log2(e)
-  float q_mul;       // q's factor when staged for s: scale * log2(e), or 1 (region mode)
-  float k_mul;       // k's factor when staged for s: scale * log2(e), or 1 (region mode)
+  float s_mul;       // the score's factor to log2 units: scale * log2(e), or 1 (region mode);
+                     // folded into the staged q (FMA dq, dbias) or k (FMA dk/dv), applied to
+                     // the fp32 score accumulator (tensor-core kernels)
   float dq_mul;      // dq = dq_mul * sum ds k: scale, or 1 / log2(e) (region mode)
   float softcap;     // natural units; 0 = off
   Dropout drop;
   int Sq_real, Sk_real;  // the dropout counter's lengths
+  int tile_rows;         // the q rows of a dq block the host counts in
 };
 
 // The dropout factor of element (local row r, local column c) of (b, h): 1
@@ -145,23 +165,6 @@ __device__ __forceinline__ float bias_at(const BwdParams& p, int b, int h, int r
                   b * p.bias_sb + h * p.bias_sh + r * p.bias_sq + c * p.bias_sk);
 }
 
-// The local KV columns [lo, hi) that the live rows of the q tile at q0 can
-// see (the forward kernel's rule).
-__device__ __forceinline__ void kv_range(const BwdParams& p, int q0, int q_len, int kv_len,
-                                         int& lo, int& hi) {
-  const int shift = kv_len - q_len;
-  const int row_lo = p.q_off + q0;
-  const int row_hi = min(p.q_off + min(q0 + TM, p.Sq), q_len) - 1;  // inclusive
-  hi = min(p.Sk, kv_len - p.kv_off);
-  if (p.causal) {
-    hi = min(hi, row_hi + shift + 1 - p.kv_off);
-  } else if (p.wr >= 0) {
-    hi = min(hi, row_hi + shift + p.wr + 1 - p.kv_off);
-  }
-  if (row_hi < row_lo) hi = 0;
-  lo = p.wl >= 0 ? max(0, row_lo + shift - p.wl - p.kv_off) : 0;
-}
-
 // Stage the q side of the dq / dbias kernels for (b, h) and the q tile at q0.
 template <typename T, int D>
 __device__ __forceinline__ void stage_q_side(const BwdParams& p, const DqSmem& s, int b, int h,
@@ -169,7 +172,7 @@ __device__ __forceinline__ void stage_q_side(const BwdParams& p, const DqSmem& s
   const long long row0 = ((long long)b * p.Hq + h) * p.Sq;
   dq_stage_q<T, D>(s, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_ss,
                    static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh, p.do_ss,
-                   p.lse + row0, p.delta + row0, q0, q_valid, p.q_mul);
+                   p.lse + row0, p.delta + row0, q0, q_valid, p.s_mul);
 }
 
 // dq: one block per (64-row q tile, q head, batch row); loops over the KV
@@ -187,12 +190,11 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(const BwdParams p) {
   const T* vp = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
 
   stage_q_side<T, D>(p, s, b, h, q0, q_valid);
-  int lo, hi;
-  kv_range(p, q0, q_len, kv_len, lo, hi);
+  const KeyRange kr = key_range(p, q0, TM, q_len, kv_len);
 
   float acc[4][D / 16];
   zero_acc<D>(acc);
-  for (int k0 = (lo / TN) * TN; k0 < hi; k0 += TN) {
+  for (int k0 = (kr.lo / TN) * TN; k0 < kr.hi; k0 += TN) {
     auto ds_of = [&](int r, int c, float s2, float dp) {
       const bool keep = keep_at(q0 + r, k0 + c, p.Sq, p.Sk, p.q_off, p.kv_off, q_len, kv_len,
                                 p.causal, p.wl, p.wr);
@@ -221,7 +223,7 @@ __global__ void __launch_bounds__(THREADS) dkdv_kernel(const BwdParams p) {
   const int kv_valid = min(p.Sk, kv_len - p.kv_off);
 
   stage<T, D>(s.Ks, static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh, p.k_ss, k0, TM,
-              kv_valid, p.k_mul);
+              kv_valid, p.s_mul);
   stage<T, D>(s.Vs, static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh, p.v_ss, k0, TM,
               kv_valid, 1.f);
 
@@ -285,9 +287,8 @@ __global__ void __launch_bounds__(THREADS) dbias_kernel(const BwdParams p) {
   float acc[4][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
   for (int b = b_lo; b < b_hi; ++b) {
     const int q_len = p.lens[2 * b], kv_len = p.lens[2 * b + 1];
-    int lo, hi;
-    kv_range(p, q0, q_len, kv_len, lo, hi);
-    if (k0 >= hi || k0 + TN <= lo) continue;  // no live element for this row
+    const KeyRange kr = key_range(p, q0, TM, q_len, kv_len);
+    if (k0 >= kr.hi || k0 + TN <= kr.lo) continue;  // no live element for this row
     const int q_valid = min(p.Sq, q_len - p.q_off);
     const int kv_valid = min(p.Sk, kv_len - p.kv_off);
     for (int h = h_lo; h < h_hi; ++h) {
@@ -332,42 +333,347 @@ __global__ void __launch_bounds__(THREADS) dbias_kernel(const BwdParams p) {
   }
 }
 
+// ---- 16-bit inputs: tensor-core tiles ---------------------------------------
+
+// The element rule of the tensor-core kernels at (local row r, column c) of
+// (b, h): s comes in as the raw score accumulator (q . k) and leaves as dv's
+// operand p, dp comes in as do . v and leaves as ds. The score is scaled to
+// log2 units on the fp32 accumulator (s_mul), never folded into a rounded q
+// or k. Without EXTRA, grad_plain (grad_elem without bias and softcap) and
+// no mask test on a `free_tile`; with EXTRA, grad_elem.
+template <bool DROP, bool EXTRA>
+__device__ __forceinline__ void pair_elem(const BwdParams& p, int b, int h, int r, int c,
+                                          int q_len, int kv_len, bool free_tile, float lse,
+                                          float delta, float& s, float& dp) {
+  const bool keep = free_tile || keep_at(r, c, p.Sq, p.Sk, p.q_off, p.kv_off, q_len, kv_len,
+                                         p.causal, p.wl, p.wr);
+  const float drop = drop_at<DROP>(p, b, h, r, c);
+  float pr, ds;
+  if constexpr (EXTRA) {
+    float ds_pre;
+    grad_elem(p, s * p.s_mul, dp, lse, delta, bias_at(p, b, h, r, c, keep), keep, drop, pr, ds,
+              ds_pre);
+  } else {
+    grad_plain(s * p.s_mul, dp, lse, delta, keep, drop, pr, ds);
+  }
+  s = pr;
+  dp = ds;
+}
+
+template <int D_>
+struct DqMmaCfg {
+  static constexpr int D = D_;
+  static constexpr int BQ = TM;                   // q rows of a block, 16 per warp
+  static constexpr int NW = BQ / 16;              // 4 warps
+  static constexpr int BKV = D <= 128 ? 64 : 32;  // kv rows of a streamed K / V tile
+  static constexpr int P = D + 8;                 // shared row pitch, elements
+  static constexpr int NT_S = BKV / 8;            // n-tiles of a warp's S and dP
+  static constexpr int NT_D = D / 8;              // n-tiles of a warp's dQ
+  static constexpr int SMEM_BYTES = (2 * BQ + 4 * BKV) * P * 2;  // Q, dO; K and V double-buffered
+};
+
+// dq, 16-bit inputs: one block of 4 warps per (64-row q tile, q head, batch
+// row), each warp owning 16 q rows for the whole kv loop (the forward's
+// shape). Q and dO are staged once and read by ldmatrix per k-step (held in
+// registers they would leave no room beside dQ, S and dP at D 128); K / V
+// tiles arrive double-buffered by cp.async, zero past kv_valid.
+template <typename T, int D, bool DROP, bool EXTRA>
+__global__ void __launch_bounds__(DqMmaCfg<D>::NW * 32) dq_mma_kernel(const BwdParams p) {
+  using C = DqMmaCfg<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);  // [BQ][P]
+  T* dOs = Qs + C::BQ * C::P;              // [BQ][P]
+  T* kv_s = dOs + C::BQ * C::P;            // buffer j: K at 2 j BKV rows, V BKV rows on
+  const int h = blockIdx.x % p.Hq, b = blockIdx.x / p.Hq;
+  const int q0 = (p.causal ? (int)(gridDim.y - 1 - blockIdx.y) : (int)blockIdx.y) * C::BQ;
+  const int hk = h / (p.Hq / p.Hkv);
+  const int q_len = p.lens[2 * b], kv_len = p.lens[2 * b + 1];
+  const int q_valid = min(p.Sq, q_len - p.q_off);
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32, g = lane / 4, t = lane % 4;
+
+  const T* kp = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const T* vp = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  const KeyRange kr = key_range(p, q0, C::BQ, q_len, kv_len);
+  const int k_begin = (kr.lo / C::BKV) * C::BKV;
+  const int n_tiles = kr.hi > k_begin ? (kr.hi - k_begin + C::BKV - 1) / C::BKV : 0;
+
+  // lse and delta of rows g and g + 8 of the warp's 16; rows past q_valid
+  // get lse = -inf, so a mask-free tile gives them p = ds = 0.
+  float lse[2], delta[2];
+  const long long row0 = ((long long)b * p.Hq + h) * p.Sq + q0;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = w * 16 + g + 8 * hr;
+    const bool ok = q0 + r < q_valid;
+    lse[hr] = ok ? p.lse[row0 + r] : neg_inf();
+    delta[hr] = ok ? p.delta[row0 + r] : 0.f;
+  }
+  float dq[C::NT_D][4];
+#pragma unroll
+  for (int n = 0; n < C::NT_D; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+
+  if (n_tiles > 0) {
+    cp_rows<C>(Qs, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_ss, q0, C::BQ,
+               q_valid);
+    cp_rows<C>(dOs, static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh, p.do_ss, q0,
+               C::BQ, q_valid);
+    cp_rows<C>(kv_s, kp, p.k_ss, k_begin, C::BKV, kr.kv_valid);
+    cp_rows<C>(kv_s + C::BKV * C::P, vp, p.v_ss, k_begin, C::BKV, kr.kv_valid);
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int i = 0; i < n_tiles; ++i) {
+    const int k0 = k_begin + i * C::BKV;
+    cp_async_wait<0>();
+    __syncthreads();  // tile i has landed; every warp is done with tile i - 1
+    if (i + 1 < n_tiles) {
+      T* nxt = kv_s + ((i + 1) & 1) * 2 * C::BKV * C::P;
+      cp_rows<C>(nxt, kp, p.k_ss, k0 + C::BKV, C::BKV, kr.kv_valid);
+      cp_rows<C>(nxt + C::BKV * C::P, vp, p.v_ss, k0 + C::BKV, C::BKV, kr.kv_valid);
+      cp_async_commit();
+    }
+    const T* Ks = kv_s + (i & 1) * 2 * C::BKV * C::P;
+    const T* Vs = Ks + C::BKV * C::P;
+
+    // S = Q K^T and dP = dO V^T: the warp's 16 rows x BKV keys.
+    float sc[C::NT_S][4], dp[C::NT_S][4];
+#pragma unroll
+    for (int n = 0; n < C::NT_S; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t aq[4], ao[4];
+      const int a_off = (w * 16 + lane % 16) * C::P + kk * 16 + (lane / 16) * 8;
+      ldsm_x4(aq, Qs + a_off);
+      ldsm_x4(ao, dOs + a_off);
+#pragma unroll
+      for (int np = 0; np < C::NT_S / 2; ++np) {
+        const int off = (np * 16 + lane % 8 + (lane / 16) * 8) * C::P + kk * 16 +
+                        ((lane / 8) % 2) * 8;
+        uint32_t bk[4], bv[4];
+        ldsm_x4(bk, Ks + off);
+        ldsm_x4(bv, Vs + off);
+        mma16816<T>(sc[2 * np], aq, bk[0], bk[1]);
+        mma16816<T>(sc[2 * np + 1], aq, bk[2], bk[3]);
+        mma16816<T>(dp[2 * np], ao, bv[0], bv[1]);
+        mma16816<T>(dp[2 * np + 1], ao, bv[2], bv[3]);
+      }
+    }
+
+    // ds at each accumulator element's (row, column) (element e: row
+    // g + 8 (e / 2), column 2 t + e % 2), in place of dp.
+    const bool free_tile = !EXTRA && k0 >= kr.free_lo && k0 + C::BKV <= kr.free_hi;
+#pragma unroll
+    for (int n = 0; n < C::NT_S; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = q0 + w * 16 + g + (e / 2) * 8, c = k0 + n * 8 + 2 * t + (e % 2);
+        pair_elem<DROP, EXTRA>(p, b, h, r, c, q_len, kv_len, free_tile, lse[e / 2], delta[e / 2],
+                               sc[n][e], dp[n][e]);
+      }
+
+    // dQ += dS K: dS rounded to T and repacked from the accumulators into A
+    // fragments, K by ldmatrix.trans.
+#pragma unroll
+    for (int kk = 0; kk < C::BKV / 16; ++kk) {
+      const uint32_t a[4] = {pack2<T>(dp[2 * kk][0], dp[2 * kk][1]),
+                             pack2<T>(dp[2 * kk][2], dp[2 * kk][3]),
+                             pack2<T>(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
+                             pack2<T>(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+#pragma unroll
+      for (int np = 0; np < C::NT_D / 2; ++np) {
+        uint32_t bk[4];
+        ldsm_x4_t(bk, Ks + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * C::P + np * 16 +
+                          (lane / 16) * 8);
+        mma16816<T>(dq[2 * np], a, bk[0], bk[1]);
+        mma16816<T>(dq[2 * np + 1], a, bk[2], bk[3]);
+      }
+    }
+  }
+
+  // dq = dq_mul * acc in T: a warp's rows go through its own q rows of
+  // shared memory, which no other warp reads, then out as 16-byte stores.
+  __syncwarp();
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = w * 16 + g + 8 * hr;
+#pragma unroll
+    for (int n = 0; n < C::NT_D; ++n) {
+      *reinterpret_cast<uint32_t*>(Qs + r * C::P + n * 8 + 2 * t) =
+          pack2<T>(dq[n][2 * hr] * p.dq_mul, dq[n][2 * hr + 1] * p.dq_mul);
+    }
+  }
+  __syncwarp();
+  T* out = static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+  constexpr int CH = D / 8;
+  for (int i = lane; i < 16 * CH; i += 32) {
+    const int r = w * 16 + i / CH, c = (i % CH) * 8;
+    if (q0 + r < p.Sq) {
+      *reinterpret_cast<uint4*>(out + (long long)(q0 + r) * p.dq_ss + c) =
+          *reinterpret_cast<const uint4*>(Qs + r * C::P + c);
+    }
+  }
+}
+
+// dk/dv, 16-bit inputs: one block of 8 warps per (MmaCfg::BKV kv rows, kv
+// head, batch row) walks every q tile of every q head of the GQA group that
+// can see them (dkdv_kernel's rows), with bwd_mma.cuh's tiles: dK and dV
+// stay in registers, q / dO / lse / delta tiles are double-buffered, and no
+// dS^T is kept (the dq kernel computes dQ).
+template <typename T, int D, bool DROP, bool EXTRA>
+__global__ void __launch_bounds__(THREADS, 1) dkdv_mma_kernel(const BwdParams p) {
+  using C = MmaCfg<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const MmaSmem<T> s = mma_smem<C, T>(smem_raw);
+  const int hk = blockIdx.x % p.Hkv, b = blockIdx.x / p.Hkv, k0 = blockIdx.y * C::BKV;
+  const int group = p.Hq / p.Hkv;
+  const int q_len = p.lens[2 * b], kv_len = p.lens[2 * b + 1];
+  const int shift = kv_len - q_len;
+  const int q_valid = min(p.Sq, q_len - p.q_off);
+  const int kv_valid = min(p.Sk, kv_len - p.kv_off);
+
+  // Local q rows [r_lo, r_hi) that can see a live column of this tile, and
+  // whether every element of a q tile [r0, r0 + BQ) inside them is kept.
+  const int col_lo = p.kv_off + k0;
+  const int col_hi = p.kv_off + min(k0 + C::BKV, kv_valid) - 1;  // inclusive
+  int r_lo = 0, r_hi = q_valid;
+  if (p.causal) {
+    r_lo = max(0, col_lo - shift - p.q_off);
+  } else if (p.wr >= 0) {
+    r_lo = max(0, col_lo - shift - p.wr - p.q_off);
+  }
+  if (p.wl >= 0) r_hi = min(r_hi, col_hi - shift + p.wl - p.q_off + 1);
+  if (col_hi < col_lo) r_hi = 0;
+  auto all_kept = [&](int r0) {
+    const int row_lo = p.q_off + r0 + shift, row_hi = row_lo + C::BQ - 1;
+    return !EXTRA && r0 + C::BQ <= q_valid && k0 + C::BKV <= kv_valid &&
+           (p.causal ? col_hi <= row_lo : p.wr < 0 || col_hi <= row_lo + p.wr) &&
+           (p.wl < 0 || col_lo >= row_hi - p.wl);
+  };
+
+  const int ra = (r_lo / C::BQ) * C::BQ;
+  const int nqt = r_hi > r_lo ? (r_hi - ra + C::BQ - 1) / C::BQ : 0;
+  const int total = group * nqt;
+  float dk[C::NT_KV][4], dv[C::NT_KV][4];
+  mma_zero_kv<C>(dk, dv);
+  if (total > 0) {
+    cp_rows<C>(s.K, static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh, p.k_ss, k0, C::BKV,
+               kv_valid);
+    cp_rows<C>(s.V, static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh, p.v_ss, k0, C::BKV,
+               kv_valid);
+    auto issue = [&](int i) {
+      const int h = hk * group + i / nqt, r0 = ra + (i % nqt) * C::BQ;
+      const long long row0 = ((long long)b * p.Hq + h) * p.Sq;
+      mma_load_q<C, T>(p, s, i & 1, b, h, r0, q_valid, p.lse + row0, p.delta + row0);
+    };
+    issue(0);
+    cp_async_commit();
+    for (int i = 0; i < total; ++i) {
+      if (i + 1 < total) {
+        issue(i + 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const int h = hk * group + i / nqt, r0 = ra + (i % nqt) * C::BQ;
+      const bool free_tile = all_kept(r0);
+      // h is the q head of this group member, r0 + qr the q row: the
+      // forward's counter and the bias's (row, column), at the transposed
+      // accumulator position.
+      auto elem = [&](int kr, int qr, float lse, float delta, float& sc, float& dp) {
+        pair_elem<DROP, EXTRA>(p, b, h, r0 + qr, k0 + kr, q_len, kv_len, free_tile, lse, delta,
+                               sc, dp);
+      };
+      mma_q_step<C, T, false>(s, i & 1, elem, dk, dv);
+      __syncthreads();  // buffer i & 1 fully consumed before tile i + 2 lands in it
+    }
+  }
+  const int rows = min(C::BKV, p.Sk - k0);
+  mma_store_kv<C, T>(dk, static_cast<T*>(p.dk) + b * p.dk_sb + hk * p.dk_sh + k0 * p.dk_ss,
+                     p.dk_ss, rows, p.scale);
+  mma_store_kv<C, T>(dv, static_cast<T*>(p.dv) + b * p.dv_sb + hk * p.dv_sh + k0 * p.dv_ss,
+                     p.dv_ss, rows, 1.f);
+}
+
 enum Kernel : int { kDq = 0, kDkDv = 1, kDbias = 2 };
 
-template <typename T, int D, bool DROP>
-cudaError_t launch_kernel(const BwdParams& p, int which, cudaStream_t stream) {
+// fp32 inputs: the FMA dq (`which` 0) or dk/dv (1) kernel.
+template <int D, bool DROP>
+cudaError_t launch_fma(const BwdParams& p, int which, cudaStream_t stream) {
+  const int smem =
+      (which == kDq ? dq_smem_floats<D>() : dkdv_smem_floats<D>()) * (int)sizeof(float);
   cudaError_t e;
-  int smem;
-  dim3 grid;
-  switch (which) {
-    case kDq:
-      smem = dq_smem_floats<D>() * (int)sizeof(float);
-      e = cudaFuncSetAttribute(dq_kernel<T, D, DROP>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (e != cudaSuccess) return e;
-      grid = dim3((p.Sq + TM - 1) / TM, p.Hq, p.B);
-      dq_kernel<T, D, DROP><<<grid, THREADS, smem, stream>>>(p);
-      break;
-    case kDkDv:
-      smem = dkdv_smem_floats<D>() * (int)sizeof(float);
-      e = cudaFuncSetAttribute(dkdv_kernel<T, D, DROP>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (e != cudaSuccess) return e;
-      grid = dim3((p.Sk + TM - 1) / TM, p.Hkv, p.B);
-      dkdv_kernel<T, D, DROP><<<grid, THREADS, smem, stream>>>(p);
-      break;
-    case kDbias:
-      smem = dq_smem_floats<D>() * (int)sizeof(float);
-      e = cudaFuncSetAttribute(dbias_kernel<T, D, DROP>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (e != cudaSuccess) return e;
-      grid = dim3((p.Sq + TM - 1) / TM, (p.Sk + TN - 1) / TN, p.Bb * p.Hb);
-      dbias_kernel<T, D, DROP><<<grid, THREADS, smem, stream>>>(p);
-      break;
-    default:
-      return cudaErrorInvalidValue;
+  if (which == kDq) {
+    e = cudaFuncSetAttribute(dq_kernel<float, D, DROP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    dq_kernel<float, D, DROP><<<dim3((p.Sq + TM - 1) / TM, p.Hq, p.B), THREADS, smem, stream>>>(p);
+  } else {
+    e = cudaFuncSetAttribute(dkdv_kernel<float, D, DROP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    dkdv_kernel<float, D, DROP>
+        <<<dim3((p.Sk + TM - 1) / TM, p.Hkv, p.B), THREADS, smem, stream>>>(p);
   }
   return cudaGetLastError();
+}
+
+// Every input type: the dbias kernel (FMA tiles).
+template <typename T, int D, bool DROP>
+cudaError_t launch_dbias(const BwdParams& p, cudaStream_t stream) {
+  const int smem = dq_smem_floats<D>() * (int)sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(dbias_kernel<T, D, DROP>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((p.Sq + TM - 1) / TM, (p.Sk + TN - 1) / TN, p.Bb * p.Hb);
+  dbias_kernel<T, D, DROP><<<grid, THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// The tensor-core dq and dk/dv kernels. Grid x runs over (head, batch row),
+// y over the tiles, longest first under causal masks (the dq kernel's last q
+// tiles, the dk/dv kernel's first kv tiles), so the short ones fill the tail.
+template <typename T, int D, bool DROP, bool EXTRA>
+cudaError_t launch_mma(const BwdParams& p, int which, cudaStream_t stream) {
+  cudaError_t e;
+  if (which == kDq) {
+    using C = DqMmaCfg<D>;
+    e = cudaFuncSetAttribute(dq_mma_kernel<T, D, DROP, EXTRA>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
+    if (e != cudaSuccess) return e;
+    dq_mma_kernel<T, D, DROP, EXTRA><<<dim3(p.Hq * p.B, (p.Sq + C::BQ - 1) / C::BQ), C::NW * 32,
+                                       C::SMEM_BYTES, stream>>>(p);
+  } else {
+    using C = MmaCfg<D>;
+    e = cudaFuncSetAttribute(dkdv_mma_kernel<T, D, DROP, EXTRA>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
+    if (e != cudaSuccess) return e;
+    dkdv_mma_kernel<T, D, DROP, EXTRA><<<dim3(p.Hkv * p.B, (p.Sk + C::BKV - 1) / C::BKV), THREADS,
+                                         C::SMEM_BYTES, stream>>>(p);
+  }
+  return cudaGetLastError();
+}
+
+// fp32 inputs take the FMA dq and dk/dv kernels; bf16 / fp16 the tensor-core
+// ones (no path back to the FMA ones). dbias is the FMA kernel for both.
+template <typename T, int D, bool DROP>
+cudaError_t launch_kernel(const BwdParams& p, int which, cudaStream_t stream) {
+  // The host counts q tiles (TILE_ROWS) in the dq kernels' rows (TM, DqMmaCfg::BQ).
+  if (p.tile_rows != TM || (which != kDq && which != kDkDv && which != kDbias)) {
+    return cudaErrorInvalidValue;
+  }
+  if (which == kDbias) return launch_dbias<T, D, DROP>(p, stream);
+  if constexpr (std::is_same<T, float>::value) {
+    return launch_fma<D, DROP>(p, which, stream);
+  } else {
+    return p.bias != nullptr || p.softcap > 0.f ? launch_mma<T, D, DROP, true>(p, which, stream)
+                                                : launch_mma<T, D, DROP, false>(p, which, stream);
+  }
 }
 
 template <typename T, int D>
@@ -393,7 +699,10 @@ cudaError_t launch_d(const BwdParams& p, int which, int D, cudaStream_t stream) 
 // `strides` holds, in elements: q, k, v, do, dq, dk, dv (batch, head, row
 // each), bias (batch, head, row, col; 0 on broadcast dims) and dbias (batch,
 // head, row): 28 values. `k_prescaled` is the region mode (k * scale * log2e
-// given; no bias, no softcap).
+// given; no bias, no softcap). `tile_rows`: the q rows of a dq block the
+// host counts in (ops/flash_fwd.py TILE_ROWS); the call fails unless it is
+// the kernels' (64). 16-bit q / k / v / do: rows, strides and base pointers
+// 16-byte aligned.
 extern "C" int fa2_flash_bwd(
     int which, int dtype, int B, int Hq, int Hkv, int Sq, int Sk, int D,
     const void* q, const void* k, const void* v, const void* dout,
@@ -404,7 +713,7 @@ extern "C" int fa2_flash_bwd(
     int q_off, int kv_off, int causal, int wl, int wr,
     float softmax_scale, float softcap,
     int dropout, unsigned int drop_seed, unsigned int drop_threshold, float drop_scale,
-    int Sq_real, int Sk_real, int k_prescaled, void* stream) {
+    int Sq_real, int Sk_real, int k_prescaled, int tile_rows, void* stream) {
   if (k_prescaled && (bias != nullptr || softcap > 0.f || which == 2)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -425,13 +734,13 @@ extern "C" int fa2_flash_bwd(
   p.B = B; p.Hq = Hq; p.Hkv = Hkv; p.Sq = Sq; p.Sk = Sk; p.Bb = Bb; p.Hb = Hb;
   p.q_off = q_off; p.kv_off = kv_off; p.causal = causal; p.wl = wl; p.wr = wr;
   p.scale = softmax_scale;
-  p.scale_log2 = softmax_scale * fa2::LOG2E;
-  p.q_mul = p.k_mul = k_prescaled ? 1.f : p.scale_log2;
+  p.s_mul = k_prescaled ? 1.f : softmax_scale * fa2::LOG2E;
   p.dq_mul = k_prescaled ? 1.f / fa2::LOG2E : softmax_scale;
   p.softcap = softcap;
   p.drop.on = dropout; p.drop.seed = drop_seed; p.drop.threshold = drop_threshold;
   p.drop.scale = drop_scale;
   p.Sq_real = Sq_real; p.Sk_real = Sk_real;
+  p.tile_rows = tile_rows;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case fa2::kF32: return (int)fa2::launch_d<float>(p, which, D, st);

@@ -217,8 +217,8 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_tri_mma_kernel(const FusedBwdP
         // the diagonal of the q tile's first row, inside the lengths.
         const bool free_tile = r0 + C::BQ <= qv && c_lim == k0 + C::BKV &&
                                p.kv_off + k0 + C::BKV - 1 <= p.q_off + r0 + shift;
-        mma_q_step<C, T, DROP>(p, s, i & 1, b, h, r0, k0, c_lim, free_tile, q_len, kv_len, dk,
-                               dv);
+        mma_q_step<C, T, true>(
+            s, i & 1, fused_elem<DROP>(p, b, h, r0, k0, c_lim, free_tile, q_len, kv_len), dk, dv);
         __syncthreads();
         mma_dq_step<C, T>(s, dq_part + ((long long)b * p.Hq + h) * p.Sq * D, r0, p.Sq, ti == t0);
       }

@@ -281,8 +281,9 @@ __global__ void __launch_bounds__(THREADS, 1) bwd_wl_mma_kernel(const FusedBwdPa
           const int h = hk * group + e[0];
           const bool masked = (e[3] & (WL_MASK_GEN | WL_MASK_TRI)) != 0;
           const bool free_tile = !masked && it.r0 + C::BQ <= q_valid && c_lim == k0 + C::BKV;
-          mma_q_step<C, T, DROP>(p, s, i & 1, b, h, it.r0, k0, c_lim, free_tile, q_len, kv_len, dk,
-                                 dv);
+          mma_q_step<C, T, true>(
+              s, i & 1, fused_elem<DROP>(p, b, h, it.r0, k0, c_lim, free_tile, q_len, kv_len), dk,
+              dv);
           __syncthreads();
           mma_dq_step<C, T>(s, dq_head<D>(p, dq_base, b, h), it.r0, p.Sq, false);
           it = nx;

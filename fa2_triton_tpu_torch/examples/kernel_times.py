@@ -101,7 +101,7 @@ def main(argv=None) -> int:
     out.update(device_ms(torch, lambda: flash_fwd.flash_attn_forward(q, k, v, lens, **kw),
                          ("flash_fwd",), args.iters))   # flash_fwd_kernel or flash_fwd_mma_kernel
     out.update(device_ms(torch, lambda: flash_bwd.flash_attn_backward(q, k, v, do, o, lse, lens, **kw),
-                         ("dq_kernel", "dkdv_kernel"), args.iters))
+                         ("dq_", "dkdv_"), args.iters))   # dq_kernel / dq_mma_kernel, dk/dv alike
     del q, k, v, do, o, lse
 
     docs = doc_lengths()

@@ -32,8 +32,11 @@ work list (B14, `csrc/flash_bwd_wl.cu` over the host table of
 `build_causal_bwd_worklist`), else the fused / two-pass backward (B2, B3).
 The strip, fused and two-pass routes launch the dq and dk/dv pair.
 
-For bf16 / fp16 inputs the tri-square, diag and work-list kernels run on
-tensor cores (`csrc/bwd_mma.cuh`) over host block partitions
+For bf16 / fp16 inputs the dq and dk/dv pair runs on tensor cores
+(`csrc/flash_bwd.cu`'s `dq_mma_kernel`, and `dkdv_mma_kernel` on
+`csrc/bwd_mma.cuh`'s tiles; one owner per output element, no partials),
+as do the tri-square, diag and work-list kernels (`csrc/bwd_mma.cuh`) over
+host block partitions
 (`tri_partition`, `wl_partition`: enough blocks of equal causal work to
 fill the card, from the shape and its SM count), each block summing into
 its own fp32 partials and a reduce kernel adding them in a fixed order;
@@ -78,7 +81,7 @@ _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 _DROP_TAIL = [_I, _U, _U, _F, _I, _I, _P, _I, _I, _I, _P]
 _ARGTYPES = {
     "fa2_flash_bwd": ([_I] * 8 + [_P] * 6 + [_P, _I, _I, _I] + [_P] * 4 + [_P, _P] + [_I] * 5
-                      + [_F, _F] + [_I, _U, _U, _F, _I, _I, _I, _P]),
+                      + [_F, _F] + [_I, _U, _U, _F, _I, _I, _I, _I, _P]),
     "fa2_flash_bwd_tri": [_I] * 8 + [_P] * 12 + [_P, _P] + [_I, _I, _F, _F] + _DROP_TAIL,
     "fa2_flash_bwd_wl": ([_I] * 7 + [_P] * 14 + [_P, _P, _I, _I, _I, _I] + [_P, _P]
                          + [_I] * 5 + [_F, _F] + _DROP_TAIL),
@@ -198,17 +201,23 @@ def _kernel_layout(x: torch.Tensor, multiple: int = 4) -> torch.Tensor:
     return x.transpose(1, 2).contiguous().transpose(1, 2)
 
 
+def _mma_layout(x: torch.Tensor) -> torch.Tensor:
+    """`_kernel_layout` at the strides the kernels of x's dtype read: 8
+    elements (16-byte rows) for the 16-bit tensor-core kernels, 4 for fp32."""
+    return _kernel_layout(x, 8 if x.element_size() == 2 else 4)
+
+
 def _aligned(x: torch.Tensor, multiple: int) -> bool:
     return (x.stride(3) == 1 and not any(s % multiple for s in x.stride()[:3])
             and x.data_ptr() % 16 == 0)
 
 
 def _check_mma_rows(**tensors):
-    """The 16-bit fused kernels copy rows of q, k, v and do 16 bytes at a
+    """The 16-bit backward kernels copy rows of q, k, v and do 16 bytes at a
     time (cp.async): raise unless each has 16-byte aligned rows and base."""
     for name, t in tensors.items():
         if t.element_size() == 2 and not _aligned(t, 8):
-            raise ValueError(f"the 16-bit fused backward kernels need {name} with a contiguous head "
+            raise ValueError(f"the 16-bit backward kernels need {name} with a contiguous head "
                              f"dim, strides a multiple of 8 elements and a 16-byte aligned base; "
                              f"got strides {tuple(t.stride())}")
 
@@ -242,9 +251,10 @@ def _pair_backward(q, k, v, do, lse, delta, lens, q_off, kv_off, bias, *, causal
                    window, softcap, compute_dbias, dropout_p, dropout_seed, seqlen_q_real,
                    seqlen_k_real, k_prescaled=False):
     """Launch csrc/flash_bwd.cu's dq and dk/dv kernels (and dbias) on CUDA
-    tensors, with delta given. `k_prescaled` is the region mode: k comes
-    multiplied by scale * log2e, and the launches are not counted in
-    LAUNCHES (the caller counts them)."""
+    tensors, with delta given (do in `_mma_layout`). `k_prescaled` is the
+    region mode: k comes multiplied by scale * log2e, and the launches are
+    not counted in LAUNCHES (the caller counts them)."""
+    _check_mma_rows(q=q, k=k, v=v, do=do)
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     dq, dk, dv = _new_grads(q, k)
@@ -274,7 +284,7 @@ def _pair_backward(q, k, v, do, lse, delta, lens, q_off, kv_off, bias, *, causal
         lens.data_ptr(), ctypes.cast(strides, ctypes.c_void_p),
         int(q_off), int(kv_off), int(bool(causal)), int(window[0]), int(window[1]),
         float(softmax_scale), float(softcap), *dropout_c_args(dropout_p, dropout_seed),
-        int(seqlen_q_real or Sq), int(seqlen_k_real or Sk), int(k_prescaled),
+        int(seqlen_q_real or Sq), int(seqlen_k_real or Sk), int(k_prescaled), TILE_ROWS,
         _build.stream_ptr(q.device),
     )
     names = ("flash_bwd_dq", "flash_bwd_dkdv") + (("flash_bwd_dbias",) if dbias is not None else ())
@@ -292,7 +302,7 @@ def _generic_backward(q, k, v, do, o, lse, lens, q_off, kv_off, bias, *, dlse, *
         return flash_attn_backward_plain(q, k, v, do, o, lse, lens, q_off, kv_off, bias,
                                          dlse=dlse, **kw)
     _check_bwd_args(q, k, v, do, lens, lse, o)
-    do = _kernel_layout(do)
+    do = _mma_layout(do)
     return _pair_backward(q, k, v, do, lse.contiguous(), compute_delta(o, do, lse, dlse), lens,
                           q_off, kv_off, bias, **kw)
 
@@ -770,8 +780,8 @@ def _tri_launch(kernel, q, k, v, do, o, lse, delta, lens, q_off, kv_off, *, leaf
     Hkv, Sk = k.shape[1], k.shape[2]
     sq_real, sk_real = _reals(q, k, seqlen_q_real, seqlen_k_real)
     mma = q.element_size() == 2
-    do = _kernel_layout(do, 8 if mma else 4)
-    o = _kernel_layout(o, 8 if mma else 4) if o is not None else None
+    do = _mma_layout(do)
+    o = _mma_layout(o) if o is not None else None
     if mma:
         _check_mma_rows(q=q, k=k, v=v)
     dq, dk, dv = _new_grads(q, k)
@@ -924,7 +934,7 @@ def flash_attn_backward_rect(q, k_p, v, do, lse, delta, lens, q_off=0, kv_off=0,
         return flash_attn_backward_rect_plain(q, k_p, v, do, lse, delta, lens, q_off, kv_off,
                                               row0=row0, col0=col0, nrows=nrows, ncols=ncols, **kw)
     _check_bwd_args(q, k_p, v, do, lens, lse)
-    do = _kernel_layout(do)
+    do = _mma_layout(do)
     grads = _pair_backward(
         q[:, :, rows], k_p[:, :, cols], v[:, :, cols], do[:, :, rows],
         lse[:, :, rows].contiguous(), delta[:, :, rows].contiguous(), lens, q_off + rows.start,
@@ -1051,7 +1061,7 @@ def flash_attn_backward_fused_wl(q, k, v, do, o, lse, lens, q_off=0, kv_off=0, *
                                                   dlse=dlse, **kw)
     _check_bwd_args(q, k, v, do, lens, lse, o)
     mma = q.element_size() == 2
-    do = _kernel_layout(do, 8 if mma else 4)
+    do = _mma_layout(do)
     dq, dk, dv = _new_grads(q, k, zero=True)
     if B == 0 or Hq == 0 or Sq == 0 or Sk == 0:
         return dq, dk, dv

@@ -194,6 +194,10 @@ def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         flash_fwd.flash_attn_forward(x, x, x, lens, causal=True, softmax_scale=0.125)
     with pytest.raises(ValueError, match="multiple of 8 elements"):
         flash_fwd.flash_attn_forward_causal_strip(x, x, x, lens, softmax_scale=0.125)
+    # So does the 16-bit dq + dk/dv pair (the do it is handed is re-laid).
+    lse = torch.zeros(1, 2, 8, device=dev)
+    with pytest.raises(ValueError, match="multiple of 8 elements"):
+        flash_bwd.flash_attn_backward(x, x, x, x, x, lse, lens, causal=True, softmax_scale=0.125)
 
 
 def test_engine_on_cuda_matches_engine_on_cpu(dev):
@@ -243,6 +247,7 @@ BWD_CASES = [
     dict(hkv=8),                                              # group 1
     dict(hkv=4),                                              # group 2
     dict(hkv=1),                                              # group 8
+    dict(sq=333, sk=333, lens=(333, 256)),                    # several kv / q tiles, ragged last
 ]
 
 
@@ -257,6 +262,8 @@ def _bwd_inputs(dev, c, D, seed):
     q_off = c.get("q_off", 0)
     if "q_off" in c:
         lens = [[q_off + Sq, Sk]] * B
+    elif "lens" in c:
+        lens = [[n, n] for n in c["lens"]]
     elif Sq == Sk:
         lens = [[Sq, Sk], [Sq - 77, Sk - 77]]
     else:
@@ -321,39 +328,62 @@ def test_bias_forward_and_dbias_kernels_match_plain(dev, dtype, shape, bias_fp32
     _check_grads(grads, refs, plains, dtype)
 
 
-def test_bwd_kernels_ignore_nan_padding(dev):
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_bwd_kernels_ignore_nan_padding(dev, dtype, D):
     """Rows past q_len and columns past kv_len may hold NaN (padding): the
     kernels zero-fill them on load, so the gradients equal those of
-    zero-filled padding bit for bit, and padded rows get exactly zero."""
-    (q, k, v, do), lens, _, kw = _bwd_inputs(dev, dict(), 128, 3)
-    q, k, v, do = (x.to(torch.bfloat16) for x in (q, k, v, do))
-    o, lse = flash_fwd.flash_attn_forward(q, k, v, lens, **kw)
-    base = flash_bwd.flash_attn_backward(q, k, v, do, o, lse, lens, **kw)
+    zero-filled padding bit for bit, and padded rows get exactly zero; the
+    same for one region-mode call (`flash_attn_backward_rect`) whose rows
+    and columns reach into the padding."""
+    (q, k, v, do), lens, _, kw = _bwd_inputs(dev, dict(), D, 3)
+    q, k, v, do = (x.to(dtype) for x in (q, k, v, do))
+    region = dict(row0=64, col0=0, nrows=136, ncols=128)
+
+    def run(q, k, v, do):
+        o, lse = flash_fwd.flash_attn_forward(q, k, v, lens, **kw)
+        k_p = flash_bwd._prescale_k(k, kw["softmax_scale"])
+        delta = flash_bwd.compute_delta(o, do, lse)
+        rect = flash_bwd.flash_attn_backward_rect(q, k_p, v, do, lse, delta, lens, **region,
+                                                  softmax_scale=kw["softmax_scale"])
+        return flash_bwd.flash_attn_backward(q, k, v, do, o, lse, lens, **kw), rect
+
+    base, base_rect = run(q, k, v, do)
     qn, kn, vn, don = (x.clone() for x in (q, k, v, do))
     for x in (qn, kn, vn, don):
         x[1, :, 123:] = float("nan")            # batch row 1 has 123 valid rows
-    o, lse = flash_fwd.flash_attn_forward(qn, kn, vn, lens, **kw)
-    grads = flash_bwd.flash_attn_backward(qn, kn, vn, don, o, lse, lens, **kw)
+    grads, rect = run(qn, kn, vn, don)
     torch.cuda.synchronize()
     for g, ref in zip(grads, base):
         assert torch.isfinite(g).all()
         assert torch.equal(g[0], ref[0]) and torch.equal(g[1, :, :123], ref[1, :, :123])
         assert not g[1, :, 123:].any()
+    # The region's rows 64.. and columns 0..127: batch row 1 is live up to
+    # region row 123 - 64 and column 123.
+    for g, ref, live in zip(rect, base_rect, (123 - 64, 123, 123)):
+        assert torch.isfinite(g).all()
+        assert torch.equal(g[0], ref[0]) and torch.equal(g[1, :, :live], ref[1, :, :live])
+        assert not g[1, :, live:].any()
 
 
 def test_bwd_kernels_are_bitwise_repeatable(dev):
     """5 runs, identical dq / dk / dv / dbias (no atomics; the JAX side pins
-    the same in tests/test_repeatability.py)."""
+    the same in tests/test_repeatability.py), and 5 runs with dropout."""
     (q, k, v, do), lens, _, kw = _bwd_inputs(dev, dict(hkv=1), 128, 4)
     q, k, v, do = (x.to(torch.bfloat16) for x in (q, k, v, do))
     bias = torch.randn(1, 8, 200, 200, device=dev, dtype=torch.bfloat16)
     o, lse = flash_fwd.flash_attn_forward(q, k, v, lens, 0, 0, bias, **kw)
     runs = [flash_bwd.flash_attn_backward(q, k, v, do, o, lse, lens, 0, 0, bias,
                                           compute_dbias=True, **kw) for _ in range(5)]
+    drop = dict(dropout_p=0.1, dropout_seed=7)
+    o, lse = flash_fwd.flash_attn_forward(q, k, v, lens, **kw, **drop)
+    drop_runs = [flash_bwd.flash_attn_backward(q, k, v, do, o, lse, lens, **kw, **drop)
+                 for _ in range(5)]
     torch.cuda.synchronize()
-    for run in runs[1:]:
-        for a, b in zip(run, runs[0]):
-            assert torch.equal(a, b)
+    for rs in (runs, drop_runs):
+        for run in rs[1:]:
+            for a, b in zip(run, rs[0]):
+                assert torch.equal(a, b)
 
 
 def test_flash_attn_func_grads_go_through_the_kernels(dev):

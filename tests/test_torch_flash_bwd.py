@@ -143,3 +143,41 @@ def test_backward_plain_gives_dead_rows_zero_gradient():
         assert torch.isfinite(g).all()
         assert not g[1, :, 25:].any()
         torch.testing.assert_close(g, ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pair_wrapper_passes_the_kernels_tile_rows(monkeypatch, dtype):
+    """The dq kernels (FMA `dq_kernel`, tensor-core `dq_mma_kernel`) own q
+    tiles of TM rows (csrc/attn_tiles.cuh), the count the host's TILE_ROWS
+    assumes: the wrapper hands TILE_ROWS to `fa2_flash_bwd` just before the
+    stream, for the dq and the dk/dv launch, and the entry point refuses any
+    other value. Recorded through a stand-in entry point (no build, no
+    GPU), with one argument per argtype."""
+    import pathlib
+    import re
+
+    csrc = pathlib.Path(flash_bwd.__file__).resolve().parent.parent / "csrc"
+    tm = int(re.search(r"constexpr int TM = (\d+);", (csrc / "attn_tiles.cuh").read_text())[1])
+    src = (csrc / "flash_bwd.cu").read_text()
+    dq_cfg = src[src.index("struct DqMmaCfg"):src.index("};", src.index("struct DqMmaCfg"))]
+    assert "static constexpr int BQ = TM;" in dq_cfg
+    assert "int k_prescaled, int tile_rows, void* stream)" in src
+    assert "if (p.tile_rows != TM ||" in src
+    assert flash_fwd.TILE_ROWS == tm
+
+    calls = []
+    monkeypatch.setattr(flash_bwd, "_entry", lambda name="fa2_flash_bwd": lambda *a: calls.append(a) or 0)
+    monkeypatch.setattr(flash_bwd._build, "stream_ptr", lambda device: 0)
+    monkeypatch.setattr(flash_bwd, "LAUNCHES", dict.fromkeys(flash_bwd.LAUNCHES, 0))
+    _, q, k, v, do = _data(70, 5)
+    q, k, v, do = (torch.from_numpy(x).to(dtype).transpose(1, 2) for x in (q, k, v, do))
+    lse = torch.zeros(q.shape[:3])
+    lens = torch.tensor([[70, 70], [70, 70]], dtype=torch.int32)
+    flash_bwd._pair_backward(q, k, v, do, lse, lse, lens, 0, 0, None, causal=True,
+                             softmax_scale=0.125, window=(-1, -1), softcap=0.0,
+                             compute_dbias=False, dropout_p=0.0, dropout_seed=0,
+                             seqlen_q_real=None, seqlen_k_real=None)
+    assert [c[0] for c in calls] == [0, 1]    # dq, then dk/dv
+    for c in calls:
+        assert len(c) == len(flash_bwd._ARGTYPES["fa2_flash_bwd"])
+        assert c[-2] == tm
