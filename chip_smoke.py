@@ -1744,36 +1744,46 @@ def schedule_kernels(torch, card):
         print(f"[schedules] flash_attn_forward(causal, static_skip) B 1 x S {S}, Hq {Hq}, Hkv {Hkv}, "
               f"D {D}, bf16: route {route}, launches {got}")
         split_err = hold_to_plain(torch, f"split S {S}", split, causal_plain, x32)
-    # S 4096 from here on: times of the split against the generic kernel,
-    # which for 16-bit inputs runs on tensor cores while the split's two
-    # kernels are still FMA tiles (ROADMAP queue B item 3): the generic
-    # kernel must win.
+    # S 4096 from here on: the split against the generic kernel, and its two
+    # launches (the diag, the rectangle merged into the diag's (o, lse)),
+    # each timed on its own call by CUDA events: all three run flash_fwd.cu's
+    # tensor-core kernel, under one name in a profile. Every split run must
+    # beat its FMA design SPLIT_SPEEDUP times.
     generic = lambda q, k, v: ff.flash_attn_forward(q, k, v, lens, causal=True, **kw)
-    t = turns(torch, {"generic": lambda: generic(*xb), "split": lambda: split(*xb)},
-              ("generic", "split", "split", "generic"))
-    if not max(t["generic"]) < min(t["split"]):
-        raise AssertionError(f"S {S}: the generic kernel {t['generic']} ms is not faster than the "
-                             f"split {t['split']}")
-    per = kernel_ms(torch, lambda: split(*xb), ("causal_diag_kernel", "rect_kernel"))
+    diag = lambda q, k, v, **d: ff.flash_attn_forward_causal_diag(q, k, v, lens, T=LEAF, **kw, **d)
+    region = dict(row0=LEAF, col0=0, nrows=LEAF, ncols=LEAF)
+    prev = diag(*xb)
+    t = turns(torch, {"generic": lambda: generic(*xb), "split": lambda: split(*xb),
+                      "diag": lambda: diag(*xb),
+                      "rect_merge": lambda: ff.flash_attn_forward_rect(*xb, lens, **region,
+                                                                       merge_prev=prev, **kw)},
+              ("generic", "split", "diag", "rect_merge", "rect_merge", "diag", "split", "generic"))
+    split_over_generic = min(t["split"]) / min(t["generic"])
+    print(f"[schedules] split S {S} bf16 [{card}]: "
+          f"{' / '.join(f'{v:.3f}' for v in t['split'])} ms (the FMA design: "
+          f"{FMA_DESIGN_MS['split_fwd']} ms, to beat {SPLIT_SPEEDUP}x): diag "
+          f"{' / '.join(f'{v:.3f}' for v in t['diag'])} ms (FMA {FMA_DESIGN_MS['diag_fwd']}), "
+          f"rect_merge {' / '.join(f'{v:.3f}' for v in t['rect_merge'])} ms (FMA "
+          f"{FMA_DESIGN_MS['rect_merge_fwd']}); generic kernel "
+          f"{' / '.join(f'{v:.3f}' for v in t['generic'])} ms; split / generic "
+          f"{split_over_generic:.3f} (CUDA events, one call each)")
+    beats_fma_design("split_fwd", t["split"], by=SPLIT_SPEEDUP)
     split_plain = cuda_ms(torch, lambda: causal_plain(*xb), iters=2, warmup=1)
     lib_fwd, lib_o = library(xb, S, S, True)
     o_ref = causal_plain(*x32)[0]
     check_library(torch, "split S 4096", lib_o, bhsd(o_ref)[0], split_err["plain_err"])
     split_lib = cuda_ms(torch, lib_fwd)
     split_bound = sched_bound(causal_pairs([S]), S, S)
-    print(f"[schedules] split S {S} bf16 [{card}]: {' / '.join(f'{v:.3f}' for v in t['split'])} ms "
-          f"(diag {per['causal_diag_kernel']:.3f} + rect_merge {per['rect_kernel']:.3f}, profiler); "
-          f"generic kernel {' / '.join(f'{v:.3f}' for v in t['generic'])} ms; plain {split_plain:.3f} "
-          f"ms; library (aten flash, causal) {split_lib:.3f} ms; bound {split_bound['bound_ms']:.3f} "
-          f"ms ({split_bound['bound_by']})")
+    print(f"[schedules] split S {S} bf16: plain {split_plain:.3f} ms; library (aten flash, causal) "
+          f"{split_lib:.3f} ms; bound {split_bound['bound_ms']:.3f} ms ({split_bound['bound_by']}): "
+          f"{100 * split_bound['bound_ms'] / min(t['split']):.1f} % of the bound")
     del o_ref, lib_o
 
     # -- the diag leaves alone (T 2048 on the S 4096 inputs) -----------------
-    diag = lambda q, k, v, **d: ff.flash_attn_forward_causal_diag(q, k, v, lens, T=LEAF, **kw, **d)
     diag_plain = lambda q, k, v, **d: ff.flash_attn_forward_causal_diag_plain(q, k, v, lens, T=LEAF,
                                                                               **kw, **d)
     diag_err = hold_to_plain(torch, f"diag T {LEAF}", diag, diag_plain, x32)
-    diag_ms = cuda_ms(torch, lambda: diag(*xb))
+    diag_ms = min(t["diag"])
     diag_pms = cuda_ms(torch, lambda: diag_plain(*xb), iters=2, warmup=1)
 
     def leaf_mask(b, h, qi, ki):
@@ -1799,8 +1809,8 @@ def schedule_kernels(torch, card):
         "library_ms": diag_lib, **diag_bound,
         "split_S4096": {"max_abs_err": split_err["err"], "ms": min(t["split"]),
                         "ms_runs": t["split"], "generic_kernel_ms_runs": t["generic"],
-                        "diag_kernel_ms": per["causal_diag_kernel"],
-                        "rect_merge_kernel_ms": per["rect_kernel"], "plain_ms": split_plain,
+                        "split_over_generic": split_over_generic, "diag_ms_runs": t["diag"],
+                        "rect_merge_ms_runs": t["rect_merge"], "plain_ms": split_plain,
                         "library_ms": split_lib, "bound_ms": split_bound["bound_ms"]}}
     del lib_o, qh, kh, vh
 
@@ -1814,7 +1824,6 @@ def schedule_kernels(torch, card):
           f"[{card}]")
 
     # -- one rectangle: rows [2048, 4096) x columns [0, 2048) ---------------
-    region = dict(row0=LEAF, col0=0, nrows=LEAF, ncols=LEAF)
     rect = lambda q, k, v, **d: ff.flash_attn_forward_rect(q, k, v, lens, **region, **kw, **d)
     rect_plain = lambda q, k, v, **d: ff.flash_attn_forward_rect_plain(q, k, v, lens, **region,
                                                                        **kw, **d)
@@ -1842,8 +1851,7 @@ def schedule_kernels(torch, card):
     merge, merge_plain = merged(ff.flash_attn_forward_rect), merged(ff.flash_attn_forward_rect_plain)
     merge_err = hold_to_plain(torch, "rect_merge", merge, merge_plain, x32)
     prev = diag(*xb)
-    merge_ms = cuda_ms(torch, lambda: ff.flash_attn_forward_rect(*xb, lens, **region, merge_prev=prev,
-                                                                 **kw))
+    merge_ms = min(t["rect_merge"])
     merge_pms = cuda_ms(torch, lambda: ff.flash_attn_forward_rect_plain(
         *xb, lens, **region, merge_prev=prev, **kw), iters=2, warmup=1)
     # + the previous o and lse of the region's rows, read once.
@@ -1961,13 +1969,21 @@ def long_flash_attn_func(torch):
           f"5e-5); grad errs vs fp32 " + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
           + " (FA gradient contract)")
     del refs, plains
-    # The attention of one layer of the 1 x 4096 trainer: device time of
-    # each kernel of a forward + backward (PERF.md's step breakdown).
-    per = kernel_ms(torch, lambda: flash_attn_func(*leaves, causal=True).backward(do),
-                    ("causal_diag_kernel", "rect_kernel", "dq_mma_kernel", "dkdv_mma_kernel"))
-    fwd_ms = per["causal_diag_kernel"] + per["rect_kernel"]
+    # The attention of one layer of the 1 x 4096 trainer (PERF.md's step
+    # breakdown): the split's diag and merged rectangle by CUDA events, one
+    # call each (both are flash_fwd.cu's kernel, one name in a profile), and
+    # the backward's dq and dk/dv kernels by the profiler.
+    scale = dict(softmax_scale=D ** -0.5)
+    prev = flash_fwd.flash_attn_forward_causal_diag(q, k, v, lens, T=LEAF, **scale)
+    per = {"diag": cuda_ms(torch, lambda: flash_fwd.flash_attn_forward_causal_diag(
+               q, k, v, lens, T=LEAF, **scale)),
+           "rect_merge": cuda_ms(torch, lambda: flash_fwd.flash_attn_forward_rect(
+               q, k, v, lens, row0=LEAF, col0=0, nrows=LEAF, ncols=LEAF, merge_prev=prev, **scale))}
+    per.update(kernel_ms(torch, lambda: flash_attn_func(*leaves, causal=True).backward(do),
+                         ("dq_mma_kernel", "dkdv_mma_kernel")))
+    fwd_ms = per["diag"] + per["rect_merge"]
     pair_ms = per["dq_mma_kernel"] + per["dkdv_mma_kernel"]
-    print(f"[schedules] flash_attn_func fwd + bwd B 1 x S {S} bf16 kernels (profiler, per launch): "
+    print(f"[schedules] flash_attn_func fwd + bwd B 1 x S {S} bf16 kernels (per launch): "
           + ", ".join(f"{n} {ms:.3f} ms" for n, ms in per.items())
           + f"; attention of one layer {sum(per.values()):.3f} ms; of a remat step of the 32-layer "
           f"trainer 32 x (2 x {fwd_ms:.3f} (split forward) + {pair_ms:.3f} (dq + dk/dv)) = "
@@ -2225,15 +2241,28 @@ def library_bwd(torch, what, x, seq_q, seq_k, causal, truth, errs, rows=None, co
 FMA_DESIGN_MS = {"tri_square": "20.331-20.379", "causal_diag": "19.939-20.105",
                  "worklist": "138.520-139.322", "rect": "11.696-11.819", "dq": "5.399",
                  "dkdv": "8.425"}
+# The split forward's FMA design (B9 diag + B11 / B1 merge as fp32 FMA tiles)
+# at B 1 x S 4096, 32 / 8 heads, D 128, bf16, measured by phase 11 on an
+# NVIDIA H100 80GB HBM3 at 700.00 W (CUDA events over whole calls; the two
+# kernels by the profiler inside the split). Every split run on tensor cores
+# must beat the top of its range SPLIT_SPEEDUP times.
+FMA_DESIGN_MS.update({"split_fwd": "6.576-6.607", "diag_fwd": "3.388-3.445",
+                      "rect_merge_fwd": "3.152-3.185"})
+SPLIT_SPEEDUP = 3
+
 # The 16-bit tensor-core kernels: the fused backward (csrc/bwd_mma.cuh's
 # tiles), the forward (csrc/flash_fwd.cu) and the dq + dk/dv pair
-# (csrc/flash_bwd.cu); the last template flag of the forward's and the
-# pair's puts bias and softcap in their own instantiations.
+# (csrc/flash_bwd.cu); the template flag after DROP of the forward's and
+# the pair's puts bias and softcap in their own instantiations, and the
+# forward's last one (MERGE) the split's merged rectangle.
 MMA_KERNELS = ("bwd_tri_mma_kernel", "bwd_wl_mma_kernel", "flash_fwd_mma_kernel", "dq_mma_kernel",
                "dkdv_mma_kernel")
 MMA_EXTRA = ("flash_fwd_mma_kernel", "dq_mma_kernel", "dkdv_mma_kernel")
 _MMA_NAME = re.compile(r"(bwd_tri_mma_kernel|bwd_wl_mma_kernel|flash_fwd_mma_kernel|dq_mma_kernel|"
-                       r"dkdv_mma_kernel)I(13__nv_bfloat16|6__half)Li(\d+)ELb([01])E(?:Lb([01])E)?")
+                       r"dkdv_mma_kernel)I(13__nv_bfloat16|6__half)Li(\d+)ELb([01])E(?:Lb([01])E)?"
+                       r"(?:Lb([01])E)?")
+# The forward's (bias / softcap, merge) instantiations: a merge has neither.
+FWD_FLAGS = ((False, False), (True, False), (False, True))
 # The forward's times at the Qwen shapes in its earlier design (fp32 FMA
 # tiles for every input type), measured by this phase on an NVIDIA H100 80GB
 # HBM3 at 700.00 W (CUDA events, four runs), for the log line only.
@@ -2241,11 +2270,12 @@ FWD_FMA_DESIGN_MS = {(2, 2047): "3.462-3.509", (1, 8191): "25.271-25.795"}
 
 
 def mma_instance(mangled: str):
-    """(kernel, dtype, D, dropout, bias / softcap) of a 16-bit kernel's
-    mangled name (the last False for the fused backward), else None."""
+    """(kernel, dtype, D, dropout, bias / softcap, merge) of a 16-bit
+    kernel's mangled name (False for a flag the kernel does not have), else
+    None."""
     m = _MMA_NAME.search(mangled)
     return (m[1], "bf16" if "bfloat" in m[2] else "fp16", int(m[3]), m[4] == "1",
-            m[5] == "1") if m else None
+            m[5] == "1", m[6] == "1") if m else None
 
 
 def ptxas_table(report: str) -> dict:
@@ -2290,9 +2320,10 @@ def mma_build_report() -> dict:
     """Registers, spills and tensor-core instructions of every 16-bit
     instantiation of the two fused backward kernels, the forward and the dq
     + dk/dv pair (bf16 / fp16 x D 64 / 128 / 256 x dropout, and for the
-    forward and the pair with and without bias / softcap); fails where one
-    has no HMMA, or a bf16 D 128 one of the trainers' (the Qwen and Mistral
-    shapes': no bias, no softcap) spills.
+    forward and the pair with and without bias / softcap, for the forward
+    also the split's merge); fails where one has no HMMA, or a bf16 D 128
+    one of the trainers' (the Qwen and Mistral shapes': no bias, no softcap;
+    the merge included) spills.
     Returns {kernel: {instance: numbers}}."""
     from fa2_triton_tpu_torch.ops import _build
 
@@ -2300,22 +2331,25 @@ def mma_build_report() -> dict:
     hmma = hmma_counts(_build.build())
     out = {k: {} for k in MMA_KERNELS}
     for kernel in MMA_KERNELS:
-        extras = (False, True) if kernel in MMA_EXTRA else (False,)
-        for dt, D, drop, extra in itertools.product(("bf16", "fp16"), (64, 128, 256),
-                                                    (False, True), extras):
-            inst = (kernel, dt, D, drop, extra)
+        flags = (FWD_FLAGS if kernel == "flash_fwd_mma_kernel" else
+                 ((False, False), (True, False)) if kernel in MMA_EXTRA else ((False, False),))
+        for dt, D, drop, (extra, merge) in itertools.product(("bf16", "fp16"), (64, 128, 256),
+                                                             (False, True), flags):
+            inst = (kernel, dt, D, drop, extra, merge)
             if inst not in table or inst not in hmma:
                 raise AssertionError(f"{inst}: not in the ptxas report / the SASS")
             regs, st, ld = table[inst]
             n = hmma[inst]
-            what = f"{dt} D {D}{' dropout' if drop else ''}{' bias / softcap' if extra else ''}"
+            what = (f"{dt} D {D}{' dropout' if drop else ''}{' bias / softcap' if extra else ''}"
+                    f"{' merge' if merge else ''}")
             print(f"[tensor cores] {kernel} {what}: {regs} registers, spill stores {st} B / "
                   f"loads {ld} B, {n} HMMA in the SASS")
             if n == 0:
                 raise AssertionError(f"{inst}: no tensor-core instruction")
             if dt == "bf16" and D == 128 and not extra and (st or ld):
                 raise AssertionError(f"{inst}: spills {st} / {ld} bytes")
-            out[kernel][f"{dt} D{D}{' drop' if drop else ''}{' extra' if extra else ''}"] = {
+            out[kernel][f"{dt} D{D}{' drop' if drop else ''}{' extra' if extra else ''}"
+                        f"{' merge' if merge else ''}"] = {
                 "registers": regs, "spill_store_bytes": st, "spill_load_bytes": ld, "hmma": n}
     return out
 
@@ -2325,13 +2359,14 @@ def fused_over_pair(fused_runs, pair_runs) -> float:
     return min(fused_runs) / min(pair_runs)
 
 
-def beats_fma_design(name, runs):
-    """Fail unless every run beats the kernel's FMA design (the top of its
-    FMA_DESIGN_MS range): what the fused tensor-core kernels must hold now
-    that the pair runs on tensor cores as well and may rightly beat them."""
+def beats_fma_design(name, runs, by=1):
+    """Fail unless every run is `by` times faster than the kernel's FMA
+    design (the top of its FMA_DESIGN_MS range): what the fused tensor-core
+    kernels must hold now that the pair runs on tensor cores as well and may
+    rightly beat them, and the split forward (by SPLIT_SPEEDUP)."""
     fma = float(FMA_DESIGN_MS[name].split("-")[-1])
-    if not max(runs) < fma:
-        raise AssertionError(f"{name} {runs} ms is not faster than its FMA design's {fma} ms")
+    if not max(runs) * by < fma:
+        raise AssertionError(f"{name} {runs} ms is not {by}x faster than its FMA design's {fma} ms")
 
 
 def print_partition(what, loads, heads_x_batch, sms):
@@ -2782,14 +2817,14 @@ def main() -> int:
              sched_runs[f"flash_attn_func {STRIP_SEQ} / {STRIP_SEQ}"]["causal_strip"],
              {"launches_shifted_2048_4096":
               sched_runs[f"flash_attn_func {SHIFT_SQ} / {SHIFT_SK}"]["causal_strip"]}),
-            ("flash_fwd_causal_diag", "flash_fwd_causal.cu", "flash_fwd.py:454",
+            ("flash_fwd_causal_diag", "flash_fwd.cu", "flash_fwd.py:454",
              "diag_stride / leaf_subs mode of fa2_triton_tpu/ops/flash_fwd.py:969 "
              "(flash_attn_forward_causal_diag)", sched_runs["train"]["causal_diag"],
              {"launches_flash_attn_func": sched_runs["flash_attn_func S 4096"]["causal_diag"]}),
-            ("flash_fwd_rect", "flash_fwd_rect.cu", "flash_fwd.py:1041",
+            ("flash_fwd_rect", "flash_fwd.cu", "flash_fwd.py:1041",
              "fa2_triton_tpu/ops/flash_fwd.py:434 (_fwd_kernel_nobias on a rectangle)",
              sched_runs["flash_attn_forward_rect"]["rect"], {}),
-            ("flash_fwd_rect_merge", "flash_fwd_rect.cu", "flash_fwd.py:447",
+            ("flash_fwd_rect_merge", "flash_fwd.cu", "flash_fwd.py:447",
              "fa2_triton_tpu/ops/flash_fwd.py:367-381 (the merge finaliser), driven by "
              "_causal_split_forward l.1165", sched_runs["train"]["rect_merge"],
              {"launches_flash_attn_func": sched_runs["flash_attn_func S 4096"]["rect_merge"]})):

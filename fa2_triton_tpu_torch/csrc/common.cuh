@@ -111,14 +111,18 @@ __device__ __forceinline__ bool keep_at(int r, int c, int Sq, int Sk, int q_off,
 // the first row's window nothing is loaded); [free_lo, free_hi) is what
 // every live row keeps (inside the real keys, at or below the first row's
 // diagonal or right window edge, at or right of the last row's left window
-// edge); kv_valid counts the local keys that are real.
+// edge); kv_valid counts the local keys that are real. With leaf = T > 0
+// (the split schedule's diag) both ranges are also cut to the tile's own
+// leaf, local keys [T * (q0 / T), + T): the tile must lie in one leaf, and
+// key tiles that are a divisor of T never straddle a leaf edge, so the
+// leaf needs no mask test of its own.
 struct KeyRange {
   int lo, hi, free_lo, free_hi, kv_valid;
 };
 
 template <class Params>
 __device__ __forceinline__ KeyRange key_range(const Params& p, int q0, int rows, int q_len,
-                                              int kv_len) {
+                                              int kv_len, int leaf = 0) {
   const int shift = kv_len - q_len;
   const int row_lo = p.q_off + q0;
   const int row_hi = min(p.q_off + min(q0 + rows, p.Sq), q_len) - 1;  // inclusive
@@ -135,6 +139,12 @@ __device__ __forceinline__ KeyRange key_range(const Params& p, int q0, int rows,
   if (row_hi < row_lo) r.hi = 0;
   r.lo = p.wl >= 0 ? max(0, row_lo + shift - p.wl - p.kv_off) : 0;
   r.free_lo = p.wl >= 0 ? row_hi + shift - p.wl - p.kv_off : 0;
+  if (leaf > 0) {
+    const int l0 = (q0 / leaf) * leaf;
+    r.lo = max(r.lo, l0);
+    r.hi = min(r.hi, l0 + leaf);
+    r.free_hi = min(r.free_hi, l0 + leaf);
+  }
   return r;
 }
 

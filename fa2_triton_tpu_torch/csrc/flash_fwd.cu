@@ -4,10 +4,29 @@
 // _fwd_tri_square_kernel (B9) and _fwd_causal_strip_kernel (B10, l.640) as
 // the serving prefill, the training forward and flash_attn_forward_causal_strip
 // reach them (padded prompts, causal, GQA, and B1's additive bias, indexed by
-// q head as in the JAX package). The three TPU kernels compute the same
-// function and differ only in how they fit VMEM, the per-grid-step cost of a
-// sequential grid and which tiles skip the mask; on the GPU one kernel serves
-// all three (the strip is a causal call of it).
+// q head as in the JAX package), and the split causal schedule's kernels: B9
+// in its diag_stride mode (flash_attn_forward_causal_diag, l.969 -> l.1012),
+// _fwd_kernel_nobias on a rectangle (B11, flash_attn_forward_rect, l.1041 ->
+// l.1141) and its merge mode _fwd_kernel_merge (B1 merge, l.447; the
+// finaliser at l.367-381). The TPU kernels compute the same function and
+// differ only in how they fit VMEM, the per-grid-step cost of a sequential
+// grid and which tiles skip the mask; on the GPU one kernel serves them all:
+//   * the strip is a causal call;
+//   * the diag is a causal call with a leaf length T (FwdParams::leaf): local
+//     row r attends only local columns of its own leaf [T (r / T), + T),
+//     which key_range cuts the key range to;
+//   * a rectangle, local rows [row0, row_end) against columns [col0,
+//     col_end), is a non-causal call on the region: fa2_flash_fwd_rect moves
+//     the q / k / v / o / lse pointers to it and q_off / kv_off by row0 /
+//     col0, so the mask, the validity in the global frame and the dropout
+//     counters are the generic call's;
+//   * the merge is the MERGE instantiation: its store reads the previous o
+//     (q's dtype) and lse of its own rows, applies the associative merge
+//       m = max(lse_p, lse), w1 = 2^(lse_p - m), w2 = 2^(lse - m),
+//       o = (o_p w1 + o w2) / (w1 + w2), lse = m + log2(w1 + w2)
+//     (both dead: weights 0, o = 0, lse = -inf, no NaN) and writes both back
+//     in place. Each block owns its rows, so nothing races; the merged o is
+//     stored in q's dtype between launches, as in JAX.
 //
 // Function: o = softmax(q k^T * scale [softcapped, + bias, masked]) v with a base-2
 // online softmax and fp32 accumulators, and the dropout branch of the TPU
@@ -57,9 +76,13 @@
 //     accumulators into A fragments in registers; O += P V with V by
 //     ldmatrix.trans. o goes out through the warp's own q rows of shared
 //     memory as 16-byte stores.
-//   * Causal calls launch the longest q tiles first (reverse blockIdx.x);
-//     the q heads of one GQA group are adjacent in blockIdx.y, so their K/V
-//     stay in L2.
+//   * Causal calls launch the longest q tiles first: by position inside the
+//     leaf (the whole call is one leaf without one), descending, the leaves
+//     interleaved; the q heads of one GQA group are adjacent in blockIdx.y,
+//     so their K/V stay in L2.
+//   * The merge reads the previous o through the warp's own q rows of shared
+//     memory (16-byte loads, as the store writes), so it holds no registers
+//     across the kv loop.
 //
 // flash_fwd_kernel, fp32 inputs: fp32 FMAs on the CUDA cores from shared
 // memory tiles (attn_tiles.cuh, shared with the backward and varlen
@@ -93,17 +116,73 @@ struct FwdParams {
   Dropout drop;
   int Sq_real, Sk_real;  // the dropout counter's lengths
   int tile_rows;         // the q rows of a block the host counts in
+  int leaf;              // the diag's leaf length T (a multiple of 64), 0 = none
+  int lse_rows;          // rows of lse per (b, h): Sq, or the full tensor's in a merge
 };
+
+// Blocks in x: one per 64-row q tile, per leaf position with a leaf (the
+// last leaf may be short: its missing tiles exit at once).
+dim3 fwd_grid(const FwdParams& p, int bq, int B) {
+  const int x = p.leaf > 0 ? (p.Sq + p.leaf - 1) / p.leaf * (p.leaf / bq) : (p.Sq + bq - 1) / bq;
+  return dim3(x, p.Hq, B);
+}
+
+// The first local row of block x's q tile: in order when not causal; when
+// causal the longest tiles first, by position inside the leaf (one leaf of
+// gridDim.x tiles without one), descending, the leaves interleaved.
+__device__ __forceinline__ int tile_row0(const FwdParams& p, int bq) {
+  const int x = blockIdx.x;
+  if (!p.causal) return x * bq;
+  const int per_leaf = p.leaf > 0 ? p.leaf / bq : (int)gridDim.x;
+  const int n_leaves = gridDim.x / per_leaf;
+  return ((x % n_leaves) * per_leaf + per_leaf - 1 - x / n_leaves) * bq;
+}
 
 // ---- fp32 inputs: FMA tiles -------------------------------------------------
 
+// fwd_store's merge form: o / lse point at the tile's first row of the
+// running (o, lse), which hold the previous partial on entry.
+template <typename T, int D>
+__device__ __forceinline__ void fwd_store_merge(const FwdSmem& s, float m_run, float l_run,
+                                                const float (&acc)[4][D / 16], float* lse, T* op,
+                                                long long o_ss, int rows, float out_scale) {
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16, srow = tid / 4;
+  float* w = s.Ss;  // [TM][4]: this partial's 1 / l, then w1, w2 and 1 / (w1 + w2)
+  __syncthreads();  // every thread is done with the last tile's Ss
+  if ((tid % 4) == 0) {
+    const float lse_new = l_run > 0.f ? m_run + log2f(l_run) : neg_inf();
+    const float lse_p = srow < rows ? lse[srow] : neg_inf();
+    const float m_t = fmaxf(lse_p, lse_new);
+    const float m_safe = isfinite(m_t) ? m_t : 0.f;
+    const float w1 = exp2f(lse_p - m_safe), w2 = exp2f(lse_new - m_safe), l_t = w1 + w2;
+    w[srow * 4 + 0] = l_run > 0.f ? 1.f / l_run * out_scale : 0.f;
+    w[srow * 4 + 1] = w1;
+    w[srow * 4 + 2] = w2;
+    w[srow * 4 + 3] = l_t > 0.f ? 1.f / l_t : 0.f;
+    if (srow < rows) lse[srow] = l_t > 0.f ? m_safe + log2f(l_t) : neg_inf();
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+    if (r >= rows) continue;
+    const float l_inv = w[r * 4 + 0], w1 = w[r * 4 + 1], w2 = w[r * 4 + 2], inv = w[r * 4 + 3];
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) {
+      T* dst = op + r * o_ss + tx + 16 * j;
+      *dst = from_f<T>((to_f(*dst) * w1 + acc[i][j] * l_inv * w2) * inv);
+    }
+  }
+}
+
 // One block per (64-row q tile, q head, batch row); the tile math is
 // attn_tiles.cuh's forward.
-template <typename T, int D, bool DROP>
+template <typename T, int D, bool DROP, bool MERGE>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FwdParams p) {
   extern __shared__ float smem[];
   const FwdSmem s = fwd_smem<D>(smem);
-  const int q0 = blockIdx.x * TM, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = tile_row0(p, TM), h = blockIdx.y, b = blockIdx.z;
+  if (q0 >= p.Sq) return;
   const int hk = h / (p.Hq / p.Hkv);
   const int q_len = p.lens[2 * b], kv_len = p.lens[2 * b + 1];
 
@@ -112,7 +191,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FwdParams p) {
   const T* vp = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
   stage<T, D>(s.Qs, qp, p.q_ss, q0, TM, p.Sq, p.scale_log2);
 
-  const KeyRange kr = key_range(p, q0, TM, q_len, kv_len);
+  const KeyRange kr = key_range(p, q0, TM, q_len, kv_len, p.leaf);
   float m_run = MASK_LOG2, l_run = 0.f;
   float acc[4][D / 16];
   zero_acc<D>(acc);
@@ -120,7 +199,9 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FwdParams p) {
     auto score = [&](int r, int c, float x) {
       const bool keep = keep_at(q0 + r, k0 + c, p.Sq, p.Sk, p.q_off, p.kv_off, q_len, kv_len,
                                 p.causal, p.wl, p.wr);
-      if (p.softcap > 0.f || p.bias != nullptr) {
+      // A merge (the split's rectangle) has neither, so its build carries
+      // no bias or softcap code.
+      if (!MERGE && (p.softcap > 0.f || p.bias != nullptr)) {
         // Cap in natural units, add the bias there, then back to log2.
         x *= 1.f / LOG2E;
         if (p.softcap > 0.f) x = p.softcap * tanhf(x / p.softcap);
@@ -147,9 +228,15 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FwdParams p) {
     fwd_kv_step<T, D>(s, kp, p.k_ss, vp, p.v_ss, k0, kr.kv_valid, score, drop, m_run, l_run,
                       acc);
   }
-  fwd_store<T, D>(s, m_run, l_run, acc, p.lse + ((long long)b * p.Hq + h) * p.Sq + q0,
-                  static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh + q0 * p.o_ss, p.o_ss,
-                  min(TM, p.Sq - q0), DROP ? p.drop.scale : 1.f);
+  float* lse = p.lse + ((long long)b * p.Hq + h) * p.lse_rows + q0;
+  T* op = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh + q0 * p.o_ss;
+  const int rows = min(TM, p.Sq - q0);
+  const float out_scale = DROP ? p.drop.scale : 1.f;
+  if constexpr (MERGE) {
+    fwd_store_merge<T, D>(s, m_run, l_run, acc, lse, op, p.o_ss, rows, out_scale);
+  } else {
+    fwd_store<T, D>(s, m_run, l_run, acc, lse, op, p.o_ss, rows, out_scale);
+  }
 }
 
 // ---- 16-bit inputs: tensor-core tiles ---------------------------------------
@@ -177,13 +264,14 @@ __device__ __forceinline__ void fwd_load_kv(T* dst, const T* kp, long long k_ss,
   cp_rows<C>(dst + C::BKV * C::P, vp, v_ss, k0, C::BKV, valid);
 }
 
-template <typename T, int D, bool DROP, bool EXTRA>
+template <typename T, int D, bool DROP, bool EXTRA, bool MERGE>
 __global__ void __launch_bounds__(FwdMmaCfg<D>::NW * 32) flash_fwd_mma_kernel(const FwdParams p) {
   using C = FwdMmaCfg<D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Qs = reinterpret_cast<T*>(smem_raw);  // [BQ][P]
   T* kv_s = Qs + C::BQ * C::P;             // buffer j: K at 2 j BKV rows, V BKV rows on
-  const int q0 = (p.causal ? (int)(gridDim.x - 1 - blockIdx.x) : (int)blockIdx.x) * C::BQ;
+  const int q0 = tile_row0(p, C::BQ);
+  if (q0 >= p.Sq) return;
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (p.Hq / p.Hkv);
   const int q_len = p.lens[2 * b], kv_len = p.lens[2 * b + 1];
@@ -193,7 +281,7 @@ __global__ void __launch_bounds__(FwdMmaCfg<D>::NW * 32) flash_fwd_mma_kernel(co
   const T* kp = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const T* vp = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
 
-  const KeyRange kr = key_range(p, q0, C::BQ, q_len, kv_len);
+  const KeyRange kr = key_range(p, q0, C::BQ, q_len, kv_len, p.leaf);
   const int kv_valid = kr.kv_valid;
   const int k_begin = (kr.lo / C::BKV) * C::BKV;
   const int n_tiles = kr.hi > k_begin ? (kr.hi - k_begin + C::BKV - 1) / C::BKV : 0;
@@ -351,25 +439,58 @@ __global__ void __launch_bounds__(FwdMmaCfg<D>::NW * 32) flash_fwd_mma_kernel(co
   // Store: o = acc / l * (1 / (1 - p_drop)) and lse = m + log2 l; rows past
   // q_len (free tiles gave them a sum) or that kept nothing get o = 0 and
   // lse = -inf. A warp's o rows go through its own q rows of shared memory,
-  // which no other warp reads, then out as 16-byte stores.
+  // which no other warp reads, then out as 16-byte stores; MERGE first reads
+  // the previous o of those rows into the same place, then merges.
   const float out_scale = DROP ? p.drop.scale : 1.f;
-  float* lse = p.lse + ((long long)b * p.Hq + h) * p.Sq + q0;
+  float* lse = p.lse + ((long long)b * p.Hq + h) * p.lse_rows + q0;
+  T* op = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  constexpr int CH = D / 8;
+  float lse_p[2] = {0.f, 0.f};  // the previous lse of rows g and g + 8 (MERGE)
   __syncwarp();
+  if constexpr (MERGE) {
+    for (int i = lane; i < 16 * CH; i += 32) {
+      const int r = w * 16 + i / CH, c = (i % CH) * 8;
+      if (q0 + r < p.Sq) {
+        *reinterpret_cast<uint4*>(Qs + r * C::P + c) =
+            *reinterpret_cast<const uint4*>(op + (long long)(q0 + r) * p.o_ss + c);
+      }
+    }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = w * 16 + g + 8 * hr;
+      lse_p[hr] = q0 + r < p.Sq ? lse[r] : neg_inf();
+    }
+    __syncwarp();  // every lane has read its previous o and lse before any is written
+  }
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int r = w * 16 + g + 8 * hr;
     const bool live = p.q_off + q0 + r < q_len && l_run[hr] > 0.f;
     const float inv = live ? 1.f / l_run[hr] * out_scale : 0.f;
+    float lse_r = live ? m_run[hr] + log2f(l_run[hr]) : neg_inf();
+    float w1 = 0.f, w2 = 1.f, inv_t = 1.f;  // the merge's weights (none without MERGE)
+    if constexpr (MERGE) {
+      const float m_t = fmaxf(lse_p[hr], lse_r);
+      const float m_safe = isfinite(m_t) ? m_t : 0.f;
+      w1 = exp2f(lse_p[hr] - m_safe);
+      w2 = exp2f(lse_r - m_safe);
+      const float l_t = w1 + w2;
+      inv_t = l_t > 0.f ? 1.f / l_t : 0.f;
+      lse_r = l_t > 0.f ? m_safe + log2f(l_t) : neg_inf();
+    }
 #pragma unroll
     for (int n = 0; n < C::NT_O; ++n) {
-      *reinterpret_cast<uint32_t*>(Qs + r * C::P + n * 8 + 2 * t) =
-          pack2<T>(o[n][2 * hr] * inv, o[n][2 * hr + 1] * inv);
+      T* dst = Qs + r * C::P + n * 8 + 2 * t;
+      float o0 = o[n][2 * hr] * inv, o1 = o[n][2 * hr + 1] * inv;
+      if constexpr (MERGE) {
+        o0 = (to_f(dst[0]) * w1 + o0 * w2) * inv_t;
+        o1 = (to_f(dst[1]) * w1 + o1 * w2) * inv_t;
+      }
+      *reinterpret_cast<uint32_t*>(dst) = pack2<T>(o0, o1);
     }
-    if (t == 0 && q0 + r < p.Sq) lse[r] = live ? m_run[hr] + log2f(l_run[hr]) : neg_inf();
+    if (t == 0 && q0 + r < p.Sq) lse[r] = lse_r;
   }
   __syncwarp();
-  T* op = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
-  constexpr int CH = D / 8;
   for (int i = lane; i < 16 * CH; i += 32) {
     const int r = w * 16 + i / CH, c = (i % CH) * 8;
     if (q0 + r < p.Sq) {
@@ -381,57 +502,100 @@ __global__ void __launch_bounds__(FwdMmaCfg<D>::NW * 32) flash_fwd_mma_kernel(co
 
 // ---- launch -----------------------------------------------------------------
 
-template <typename T, int D, bool DROP>
+template <typename T, int D, bool DROP, bool MERGE>
 cudaError_t launch_fma(const FwdParams& p, int B, cudaStream_t stream) {
   if (p.tile_rows != TM) return cudaErrorInvalidValue;
   const int smem = fwd_smem_floats<D>() * (int)sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<T, D, DROP>,
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<T, D, DROP, MERGE>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((p.Sq + TM - 1) / TM, p.Hq, B);
-  flash_fwd_kernel<T, D, DROP><<<grid, THREADS, smem, stream>>>(p);
+  flash_fwd_kernel<T, D, DROP, MERGE><<<fwd_grid(p, TM, B), THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool DROP, bool EXTRA>
+template <typename T, int D, bool DROP, bool EXTRA, bool MERGE>
 cudaError_t launch_mma(const FwdParams& p, int B, cudaStream_t stream) {
   using C = FwdMmaCfg<D>;
   // The host counts q tiles (TILE_ROWS, and the schedules' alignment) in these rows.
   if (p.tile_rows != C::BQ) return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_mma_kernel<T, D, DROP, EXTRA>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
+  void (*kernel)(const FwdParams) = flash_fwd_mma_kernel<T, D, DROP, EXTRA, MERGE>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
   if (e != cudaSuccess) return e;
-  dim3 grid((p.Sq + C::BQ - 1) / C::BQ, p.Hq, B);
-  flash_fwd_mma_kernel<T, D, DROP, EXTRA><<<grid, C::NW * 32, C::SMEM_BYTES, stream>>>(p);
+  kernel<<<fwd_grid(p, C::BQ, B), C::NW * 32, C::SMEM_BYTES, stream>>>(p);
   return cudaGetLastError();
 }
 
 // fp32 takes the FMA kernel, bf16 / fp16 the tensor-core kernel (no path
-// back to the FMA one).
+// back to the FMA one). A merge has no bias or softcap (the split's calls).
 template <typename T, int D, bool DROP>
-cudaError_t launch_kernel(const FwdParams& p, int B, cudaStream_t stream) {
+cudaError_t launch_kernel(const FwdParams& p, bool merge, int B, cudaStream_t stream) {
   if constexpr (std::is_same<T, float>::value) {
-    return launch_fma<T, D, DROP>(p, B, stream);
+    return merge ? launch_fma<T, D, DROP, true>(p, B, stream)
+                 : launch_fma<T, D, DROP, false>(p, B, stream);
   } else {
-    return p.bias != nullptr || p.softcap > 0.f ? launch_mma<T, D, DROP, true>(p, B, stream)
-                                                : launch_mma<T, D, DROP, false>(p, B, stream);
+    const bool extra = p.bias != nullptr || p.softcap > 0.f;
+    if (merge) return launch_mma<T, D, DROP, false, true>(p, B, stream);
+    return extra ? launch_mma<T, D, DROP, true, false>(p, B, stream)
+                 : launch_mma<T, D, DROP, false, false>(p, B, stream);
   }
 }
 
 template <typename T, int D>
-cudaError_t launch(const FwdParams& p, int B, cudaStream_t stream) {
-  return p.drop.on ? launch_kernel<T, D, true>(p, B, stream)
-                   : launch_kernel<T, D, false>(p, B, stream);
+cudaError_t launch(const FwdParams& p, bool merge, int B, cudaStream_t stream) {
+  return p.drop.on ? launch_kernel<T, D, true>(p, merge, B, stream)
+                   : launch_kernel<T, D, false>(p, merge, B, stream);
 }
 
 template <typename T>
-cudaError_t launch_d(const FwdParams& p, int B, int D, cudaStream_t stream) {
+cudaError_t launch_d(const FwdParams& p, bool merge, int B, int D, cudaStream_t stream) {
   switch (D) {
-    case 64: return launch<T, 64>(p, B, stream);
-    case 128: return launch<T, 128>(p, B, stream);
-    case 256: return launch<T, 256>(p, B, stream);
+    case 64: return launch<T, 64>(p, merge, B, stream);
+    case 128: return launch<T, 128>(p, merge, B, stream);
+    case 256: return launch<T, 256>(p, merge, B, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+int launch_dtype(const FwdParams& p, int dtype, bool merge, int B, int D, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kF32: return (int)launch_d<float>(p, merge, B, D, s);
+    case kF16: return (int)launch_d<__half>(p, merge, B, D, s);
+    case kBF16: return (int)launch_d<__nv_bfloat16>(p, merge, B, D, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// A call's params as the split schedule's entries make them (not causal, no
+// bias, window, softcap or leaf, the kernels' own tile rows, lse_rows = Sq);
+// each entry then sets what differs.
+FwdParams call_params(int Hq, int Hkv, int Sq, int Sk, const void* q, const void* k,
+                       const void* v, void* o, float* lse, const int* lens, long long q_sb,
+                       long long q_sh, long long q_ss, long long k_sb, long long k_sh,
+                       long long k_ss, long long v_sb, long long v_sh, long long v_ss,
+                       long long o_sb, long long o_sh, long long o_ss, int q_off, int kv_off,
+                       float softmax_scale, int dropout, unsigned int drop_seed,
+                       unsigned int drop_threshold, float drop_scale, int Sq_real, int Sk_real) {
+  FwdParams p;
+  p.q = q; p.k = k; p.v = v; p.o = o; p.lse = lse; p.lens = lens;
+  p.q_sb = q_sb; p.q_sh = q_sh; p.q_ss = q_ss;
+  p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;
+  p.v_sb = v_sb; p.v_sh = v_sh; p.v_ss = v_ss;
+  p.o_sb = o_sb; p.o_sh = o_sh; p.o_ss = o_ss;
+  p.bias = nullptr; p.bias_dtype = 0;
+  p.bias_sb = p.bias_sh = p.bias_sq = p.bias_sk = 0;
+  p.Hq = Hq; p.Hkv = Hkv; p.Sq = Sq; p.Sk = Sk;
+  p.q_off = q_off; p.kv_off = kv_off; p.causal = 0; p.wl = -1; p.wr = -1;
+  p.scale_log2 = softmax_scale * LOG2E;
+  p.softcap = 0.f;
+  p.drop.on = dropout; p.drop.seed = drop_seed; p.drop.threshold = drop_threshold;
+  p.drop.scale = drop_scale;
+  p.Sq_real = Sq_real; p.Sk_real = Sk_real;
+  p.tile_rows = TM;
+  p.leaf = 0;
+  p.lse_rows = Sq;
+  return p;
 }
 
 }  // namespace
@@ -453,29 +617,74 @@ extern "C" int fa2_flash_fwd(
     float softmax_scale, float softcap,
     int dropout, unsigned int drop_seed, unsigned int drop_threshold, float drop_scale,
     int Sq_real, int Sk_real, int tile_rows, void* stream) {
-  fa2::FwdParams p;
-  p.q = q; p.k = k; p.v = v; p.o = o; p.lse = lse; p.lens = lens;
-  p.q_sb = q_sb; p.q_sh = q_sh; p.q_ss = q_ss;
-  p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;
-  p.v_sb = v_sb; p.v_sh = v_sh; p.v_ss = v_ss;
-  p.o_sb = o_sb; p.o_sh = o_sh; p.o_ss = o_ss;
+  fa2::FwdParams p = fa2::call_params(
+      Hq, Hkv, Sq, Sk, q, k, v, o, lse, lens, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,
+      v_ss, o_sb, o_sh, o_ss, q_off, kv_off, softmax_scale, dropout, drop_seed, drop_threshold,
+      drop_scale, Sq_real, Sk_real);
   p.bias = bias; p.bias_dtype = bias_dtype;
   p.bias_sb = bias_sb; p.bias_sh = bias_sh; p.bias_sq = bias_sq; p.bias_sk = bias_sk;
-  p.Hq = Hq; p.Hkv = Hkv; p.Sq = Sq; p.Sk = Sk;
-  p.q_off = q_off; p.kv_off = kv_off; p.causal = causal; p.wl = wl; p.wr = wr;
-  p.scale_log2 = softmax_scale * fa2::LOG2E;
+  p.causal = causal; p.wl = wl; p.wr = wr;
   p.softcap = softcap;
-  p.drop.on = dropout; p.drop.seed = drop_seed; p.drop.threshold = drop_threshold;
-  p.drop.scale = drop_scale;
-  p.Sq_real = Sq_real; p.Sk_real = Sk_real;
   p.tile_rows = tile_rows;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case fa2::kF32: return (int)fa2::launch_d<float>(p, B, D, s);
-    case fa2::kF16: return (int)fa2::launch_d<__half>(p, B, D, s);
-    case fa2::kBF16: return (int)fa2::launch_d<__nv_bfloat16>(p, B, D, s);
-    default: return (int)cudaErrorInvalidValue;
+  return fa2::launch_dtype(p, dtype, false, B, D, stream);
+}
+
+// The split's diag (B9 diag): every T x T causal leaf of the call in one
+// launch, leaf = T > 0 a multiple of 64 (Sq == Sk, checked by the wrapper).
+extern "C" int fa2_flash_fwd_causal(
+    int dtype, int leaf, int B, int Hq, int Hkv, int Sq, int Sk, int D,
+    const void* q, const void* k, const void* v, void* o, float* lse, const int* lens,
+    long long q_sb, long long q_sh, long long q_ss,
+    long long k_sb, long long k_sh, long long k_ss,
+    long long v_sb, long long v_sh, long long v_ss,
+    long long o_sb, long long o_sh, long long o_ss,
+    int q_off, int kv_off, float softmax_scale,
+    int dropout, unsigned int drop_seed, unsigned int drop_threshold, float drop_scale,
+    int Sq_real, int Sk_real, void* stream) {
+  if (leaf <= 0 || leaf % fa2::TM != 0) return (int)cudaErrorInvalidValue;
+  fa2::FwdParams p = fa2::call_params(
+      Hq, Hkv, Sq, Sk, q, k, v, o, lse, lens, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,
+      v_ss, o_sb, o_sh, o_ss, q_off, kv_off, softmax_scale, dropout, drop_seed, drop_threshold,
+      drop_scale, Sq_real, Sk_real);
+  p.causal = 1;
+  p.leaf = leaf;
+  return fa2::launch_dtype(p, dtype, false, B, D, stream);
+}
+
+// A rectangle of the split (B11; merge = 1: B1 merge): local q rows [row0,
+// row_end) against K / V columns [col0, col_end) of the whole tensors, not
+// causal. Its o / lse row of local row r is r - out_row0 (lse_rows rows of
+// lse per (b, h)): region-sized with out_row0 = row0, the full-size running
+// (o, lse) with out_row0 = 0 in a merge.
+extern "C" int fa2_flash_fwd_rect(
+    int dtype, int merge, int B, int Hq, int Hkv, int Sq, int Sk, int D,
+    const void* q, const void* k, const void* v, void* o, float* lse, const int* lens,
+    long long q_sb, long long q_sh, long long q_ss,
+    long long k_sb, long long k_sh, long long k_ss,
+    long long v_sb, long long v_sh, long long v_ss,
+    long long o_sb, long long o_sh, long long o_ss,
+    int q_off, int kv_off, float softmax_scale,
+    int dropout, unsigned int drop_seed, unsigned int drop_threshold, float drop_scale,
+    int Sq_real, int Sk_real, int lse_rows, int row0, int row_end, int col0, int col_end,
+    int out_row0, void* stream) {
+  if (!(0 <= row0 && row0 < row_end && row_end <= Sq && 0 <= col0 && col0 < col_end &&
+        col_end <= Sk && 0 <= out_row0 && out_row0 <= row0)) {
+    return (int)cudaErrorInvalidValue;
   }
+  // The region as a call of its own: pointers moved to its first row and
+  // column, and q_off / kv_off with them, so validity and dropout stay in
+  // the global frame.
+  const long long es = dtype == fa2::kF32 ? 4 : 2;
+  const long long out = row0 - out_row0;
+  fa2::FwdParams p = fa2::call_params(
+      Hq, Hkv, row_end - row0, col_end - col0, static_cast<const char*>(q) + row0 * q_ss * es,
+      static_cast<const char*>(k) + col0 * k_ss * es,
+      static_cast<const char*>(v) + col0 * v_ss * es, static_cast<char*>(o) + out * o_ss * es,
+      lse + out, lens, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
+      q_off + row0, kv_off + col0, softmax_scale, dropout, drop_seed, drop_threshold, drop_scale,
+      Sq_real, Sk_real);
+  p.lse_rows = lse_rows;
+  return fa2::launch_dtype(p, dtype, merge != 0, B, D, stream);
 }
 
 extern "C" const char* fa2_error_string(int status) {

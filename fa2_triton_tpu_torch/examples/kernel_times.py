@@ -2,6 +2,8 @@
 (32 / 8 heads, head_dim 128, bf16), one JSON line on stdout:
 
   * the dense forward, dq and dk/dv kernels at B 2 x S 2048, causal;
+  * the causal forward at B 1 x S 4096 by its default route (the split
+    schedule: the diag and one merged rectangle) and by the generic kernel;
   * the packed varlen forward, dq and dk/dv kernels on the packed batch of
     `chip_smoke.py`'s phase 8 (documents of log-uniform length 64-4096 from
     `numpy.random.default_rng(0)`, packed into T <= 16384 at block 128).
@@ -9,12 +11,13 @@
     python fa2_triton_tpu_torch/examples/kernel_times.py [--dropout P] [--root DIR]
 
 Times come from torch.profiler (device time per launch, averaged over
---iters calls after a warm-up). `--root` times the package of another
-checkout instead of the one holding this file (for example a parent commit
-unpacked with `git archive`), so that two versions can be run in turns
-within one machine allocation; `--dropout` is then only for versions that
-take it. Run it by its path, not with -m, so that the package is imported
-from the root. Needs a CUDA device.
+--iters calls after a warm-up), the S 4096 forwards' from CUDA events over
+whole calls (the split's two launches may share one kernel name). `--root`
+times the package of another checkout instead of the one holding this file
+(for example a parent commit unpacked with `git archive`), so that two
+versions can be run in turns within one machine allocation; `--dropout` is
+then only for versions that take it. Run it by its path, not with -m, so
+that the package is imported from the root. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -60,6 +63,18 @@ def device_ms(torch, fn, names, iters):
     return out
 
 
+def events_ms(torch, fn, iters):
+    """CUDA-event ms per call of `fn` over `iters` calls after one warm-up."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def doc_lengths(lo=64, hi=4096, t_max=16384, block=128):
     rng = np.random.default_rng(0)
     lens, T = [], 0
@@ -103,6 +118,16 @@ def main(argv=None) -> int:
     out.update(device_ms(torch, lambda: flash_bwd.flash_attn_backward(q, k, v, do, o, lse, lens, **kw),
                          ("dq_", "dkdv_"), args.iters))   # dq_kernel / dq_mma_kernel, dk/dv alike
     del q, k, v, do, o, lse
+
+    S1 = 4096
+    g3 = torch.Generator(device=dev).manual_seed(3)
+    q1 = bf(torch.randn((1, S1, Hq, D), generator=g3, device=dev) * 0.5)
+    k1, v1 = (bf(torch.randn((1, S1, Hkv, D), generator=g3, device=dev) * 0.5) for _ in range(2))
+    lens1 = torch.tensor([[S1, S1]], dtype=torch.int32, device=dev)
+    for name, skip in (("split_fwd_1x4096", True), ("generic_fwd_1x4096", False)):
+        out[f"{name}_ms"] = events_ms(torch, lambda: flash_fwd.flash_attn_forward(
+            q1, k1, v1, lens1, static_skip=skip, **kw), args.iters)
+    del q1, k1, v1
 
     docs = doc_lengths()
     g2 = torch.Generator(device=dev).manual_seed(4)

@@ -33,6 +33,7 @@ from torch import nn
 
 from fa2_triton_tpu_torch.models.llama import apply_rope, rope_cos_sin
 from fa2_triton_tpu_torch.ops.attention import flash_attn_func
+from fa2_triton_tpu_torch.utils import resolve_device
 
 # flax's lecun_normal: a normal of variance 1 / fan_in truncated at two
 # standard deviations, rescaled by the truncated normal's own std.
@@ -89,9 +90,10 @@ class FlashSelfAttention(nn.Module):
         param_dtype: torch.dtype = torch.float32,
         use_bias: bool = False,                  # bias on the projections
         dropout_rng: Optional[torch.Generator] = None,
-        device=None,
+        device=None,                             # default: the GPU (resolve_device)
     ):
         super().__init__()
+        device = resolve_device(device)
         n_kv = num_kv_heads or num_heads
         if num_heads % n_kv:
             raise ValueError(f"num_heads {num_heads} is not a multiple of num_kv_heads {n_kv}")

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from fa2_triton_tpu_torch.models.llama import LlamaConfig, LlamaModel
+from fa2_triton_tpu_torch.utils import resolve_device
 
 _MATMUL_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 _FP32_KEYS = ("attn_norm", "mlp_norm", "bq", "bk", "bv", "q_norm", "k_norm",
@@ -38,7 +39,9 @@ def llama_from_jax_params(params_np: Dict[str, Any], cfg: LlamaConfig,
     """Copy a JAX LLaMA parameter tree ({"embed", "layers": [...],
     "final_norm", "lm_head"}, leaves numpy arrays) into a `LlamaModel`.
     Matmul weights and the embedding take `dtype` (default `cfg.dtype`);
-    norms and biases stay fp32."""
+    norms and biases stay fp32. `device` defaults to the GPU
+    (`resolve_device`)."""
+    device = resolve_device(device)
     dtype = cfg.dtype if dtype is None else dtype
     if dtype != cfg.dtype:
         cfg = dataclasses.replace(cfg, dtype=dtype)

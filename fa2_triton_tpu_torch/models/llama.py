@@ -28,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 from fa2_triton_tpu_torch.ops import flash_attn_func
 from fa2_triton_tpu_torch.ops.decode import decode_attention, paged_decode_attention
 from fa2_triton_tpu_torch.ops.quant import qmatmul as _mm
+from fa2_triton_tpu_torch.utils import resolve_device
 
 
 @dataclass(frozen=True)
@@ -89,10 +90,12 @@ def _param(*shape, dtype, device, fill=None):
 class LlamaLayer(nn.Module):
     """One decoder layer's parameters, named as in the JAX layer dict.
     Optional JAX keys (bq/bk/bv, q_norm/k_norm, post_attn_norm/post_mlp_norm)
-    are attributes set to None when absent."""
+    are attributes set to None when absent. `device` defaults to the GPU
+    (`resolve_device`)."""
 
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
+        device = resolve_device(device)
         d, hd, dt = cfg.dim, cfg.hd, cfg.dtype
         f32 = torch.float32
         self.attn_norm = _param(d, dtype=f32, device=device, fill=1.0)
@@ -116,10 +119,12 @@ class LlamaLayer(nn.Module):
 
 class LlamaModel(nn.Module):
     """Parameters of the decoder LM: embed [V, dim], layers, final_norm,
-    lm_head [dim, V] (untied). `model(tokens)` runs `forward`."""
+    lm_head [dim, V] (untied). `model(tokens)` runs `forward`. `device`
+    defaults to the GPU (`resolve_device`)."""
 
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
+        device = resolve_device(device)
         self.cfg = cfg
         self.embed = _param(cfg.vocab_size, cfg.dim, dtype=cfg.dtype, device=device)
         self.layers = nn.ModuleList(LlamaLayer(cfg, device) for _ in range(cfg.n_layers))

@@ -3,9 +3,10 @@
 Port of `fa2_triton_tpu/ops/flash_fwd.py:flash_attn_forward` as the serving
 prefill and the training forward reach it: the TPU's `_fwd_kernel` (B1, with
 its additive bias), `_fwd_tri_square_kernel` (B9) and
-`_fwd_causal_strip_kernel` (B10) all become `csrc/flash_fwd.cu`: 16-bit
-inputs run its tensor-core kernel (`mma.sync` tiles), fp32 inputs its FMA
-kernel. Tensors are
+`_fwd_causal_strip_kernel` (B10), and the split schedule's B9 diag, B11
+rectangle and B1 merge, all become `csrc/flash_fwd.cu`: 16-bit inputs run
+its tensor-core kernel (`mma.sync` tiles), fp32 inputs its FMA kernel.
+Tensors are
 BHSD views with any strides (the head dim contiguous), so the BSHD public API
 hands them over without a copy. Per batch row, `lens[b] = (q_len, kv_len)`
 are global actual lengths and `q_off` / `kv_off` place this call's rows and
@@ -30,9 +31,10 @@ lengths: the short tri-square range
 rectangles merged in place into the running (o, lse): B1 merge) and the
 whole-strip causal forward (B10: the generic kernel's causal call, counted
 apart), else the generic kernel. The port pads nothing: its kernels clip to
-the tensors' lengths. The split's kernels are `csrc/flash_fwd_causal.cu`
-(diag) and `csrc/flash_fwd_rect.cu` (rect, with and without its merge
-epilogue).
+the tensors' lengths. The split's launches are calls of the same kernels
+through their own C entry points: the diag a causal call with a leaf length
+(`fa2_flash_fwd_causal`), a rectangle a call on the region, with and
+without the merge epilogue (`fa2_flash_fwd_rect`).
 
 CPU tensors take the plain twins (`flash_attn_forward_plain`, and for the
 schedules `flash_attn_forward_causal_diag_plain` / `_rect_plain`: the same
@@ -53,10 +55,9 @@ from fa2_triton_tpu_torch.utils import LOG2E, dropout_keep_mask, dropout_thresho
 # Launches of csrc/flash_fwd.cu since the last reset (the smoke test reads
 # this to show the served path went through the kernel).
 LAUNCHES = 0
-# Launches of the causal schedules: the strip (B10, csrc/flash_fwd.cu's
-# kernel, counted here and not in LAUNCHES), csrc/flash_fwd_causal.cu's diag
-# (B9 diag), csrc/flash_fwd_rect.cu's rectangle without and with its merge
-# epilogue (B11, B1 merge).
+# Launches of the causal schedules, csrc/flash_fwd.cu's kernels all, counted
+# here and not in LAUNCHES: the strip (B10), the diag (B9 diag), the
+# rectangle without and with its merge epilogue (B11, B1 merge).
 SCHEDULE_LAUNCHES = dict.fromkeys(("causal_strip", "causal_diag", "rect", "rect_merge"), 0)
 
 # The row tile of the Hopper kernels (attn_tiles.cuh's TM, flash_fwd.cu's
@@ -228,6 +229,13 @@ def _check_cuda_args(q, k, v, lens=None, vec=4):
                              f"{t.stride()}")
 
 
+def _vec(q) -> int:
+    """The vector width in elements `_check_cuda_args` holds q / k / v / o
+    to: 8 (16-byte cp.async rows) for the 16-bit tensor-core kernel, 4 for
+    the fp32 FMA kernel."""
+    return 8 if q.element_size() == 2 else 4
+
+
 def _generic_forward(q, k, v, lens, q_off, kv_off, bias, *, causal, softmax_scale, window,
                      softcap, dropout_p, dropout_seed, seqlen_q_real, seqlen_k_real):
     """csrc/flash_fwd.cu (B1, B9) on CUDA tensors, its plain twin on CPU
@@ -255,7 +263,7 @@ def _flash_fwd_launch(q, k, v, lens, q_off, kv_off, bias, *, causal, softmax_sca
     drop = dropout_c_args(dropout_p, dropout_seed)
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd takes CPU or CUDA tensors, got {q.device}")
-    _check_cuda_args(q, k, v, lens, vec=8 if q.element_size() == 2 else 4)
+    _check_cuda_args(q, k, v, lens, vec=_vec(q))
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     bv = bias_view(bias, q, Sk) if bias is not None else None
@@ -527,13 +535,15 @@ def _reals(q, k, seqlen_q_real, seqlen_k_real):
 
 def _schedule_launch(kernel: str, q, k, v, lens, q_off, kv_off, o, lse, *, softmax_scale,
                      dropout_p, dropout_seed, seqlen_q_real, seqlen_k_real, tail: List[int]):
-    """Launch a split kernel of csrc/flash_fwd_causal.cu ("causal_diag":
-    tail = [leaf]) or csrc/flash_fwd_rect.cu ("rect", "rect_merge": tail =
-    [lse_rows, row0, row_end, col0, col_end, out_row0]) writing o / lse, and
-    count it."""
+    """Launch a split call of csrc/flash_fwd.cu, the diag through
+    `fa2_flash_fwd_causal` ("causal_diag": tail = [leaf]) or a rectangle
+    through `fa2_flash_fwd_rect` ("rect", "rect_merge": tail = [lse_rows,
+    row0, row_end, col0, col_end, out_row0]), writing o / lse, and count
+    it. 16-bit q / k / v (and a merge's o) need 16-byte rows, as
+    `_flash_fwd_launch`'s."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd takes CPU or CUDA tensors, got {q.device}")
-    _check_cuda_args(q, k, v, lens)
+    _check_cuda_args(q, k, v, lens, vec=_vec(q))
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     sq_real, sk_real = _reals(q, k, seqlen_q_real, seqlen_k_real)
@@ -609,7 +619,8 @@ def flash_attn_forward_causal_diag(q, k, v, lens, q_off=0, kv_off=0, *, T, softm
                                    dropout_p=0.0, dropout_seed=0, seqlen_q_real=None,
                                    seqlen_k_real=None):
     """B9 diag (JAX l.969): every diagonal T x T causal leaf in one launch,
-    as csrc/flash_fwd_causal.cu's `causal_diag_kernel`. Local row r attends
+    csrc/flash_fwd.cu's kernel called causal with a leaf length (the longest
+    tiles of every leaf first). Local row r attends
     only columns of its own leaf [T * (r // T), T * (r // T + 1)); global
     offsets and real lengths keep validity and dropout those of the whole
     problem. Full-size (o, lse). Needs Sq == Sk and T a multiple of the
@@ -651,7 +662,8 @@ def flash_attn_forward_rect(q, k, v, lens, q_off=0, kv_off=0, *, row0, col0, nro
     """B11 (JAX l.1041): non-causal attention of q rows [row0, row0 + nrows)
     against K/V columns [col0, col0 + ncols) of the full tensors, cut to
     their lengths, with global offsets for validity and dropout
-    (csrc/flash_fwd_rect.cu). Returns region-sized (o, lse).
+    (csrc/flash_fwd.cu's kernel, not causal, on the region). Returns
+    region-sized (o, lse).
 
     `merge_prev=(o_prev, lse_prev)`, full-size like this call's output and
     holding a normalized partial over disjoint columns, is merge mode (B1
@@ -680,7 +692,7 @@ def flash_attn_forward_rect(q, k, v, lens, q_off=0, kv_off=0, *, row0, col0, nro
         tail, kernel = [row_end - row0, row0, row_end, col0, col_end, row0], "rect"
     else:
         o, lse = merge_prev
-        _check_cuda_args(o, k, v)   # the epilogue reads and writes o like q
+        _check_cuda_args(o, k, v, vec=_vec(q))   # the epilogue reads and writes o like q
         if not lse.is_contiguous():
             raise ValueError("merge_prev's lse must be contiguous")
         tail, kernel = [Sq, row0, row_end, col0, col_end, 0], "rect_merge"

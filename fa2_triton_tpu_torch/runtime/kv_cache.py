@@ -21,7 +21,7 @@ from typing import Any, List, Optional
 import torch
 
 from fa2_triton_tpu_torch.ops.quant import QDTYPES, quantize_tensor
-from fa2_triton_tpu_torch.utils import round_up_to_multiple
+from fa2_triton_tpu_torch.utils import resolve_device, round_up_to_multiple
 
 
 @dataclass(frozen=True)
@@ -46,7 +46,9 @@ class KVCacheConfig:
 
 def init_cache(cfg: KVCacheConfig, device=None) -> List[dict]:
     """One dict per layer: k, v [slots, Hkv, S_max_padded, D], zero-filled,
-    and with `qdtype` k_scale, v_scale [slots, Hkv, 1, S_max_padded] of ones."""
+    and with `qdtype` k_scale, v_scale [slots, Hkv, 1, S_max_padded] of ones,
+    on `device` (default the GPU: `resolve_device`)."""
+    device = resolve_device(device)
     shape = (cfg.n_slots, cfg.n_kv_heads, cfg.max_seq_padded, cfg.head_dim)
     sshape = (cfg.n_slots, cfg.n_kv_heads, 1, cfg.max_seq_padded)
     vdtype = cfg.qdtype if cfg.qdtype is not None else cfg.compute_dtype

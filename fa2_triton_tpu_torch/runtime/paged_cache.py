@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from fa2_triton_tpu_torch.ops.quant import QDTYPES, quantize_tensor
+from fa2_triton_tpu_torch.utils import resolve_device
 
 
 @dataclass(frozen=True)
@@ -55,7 +56,7 @@ class PagedKVCache:
 
     def __init__(self, cfg: PagedCacheConfig, device=None):
         self.cfg = cfg
-        self.device = torch.device("cpu") if device is None else torch.device(device)
+        self.device = resolve_device(device)
         shape = (cfg.n_pages, cfg.n_kv_heads, cfg.page_size, cfg.head_dim)
         sshape = (cfg.n_pages, cfg.n_kv_heads, 1, cfg.page_size)
         vdtype = cfg.qdtype if cfg.qdtype is not None else cfg.compute_dtype

@@ -3,6 +3,7 @@ from fa2_triton_tpu_torch.utils.common import (
     cdiv,
     default_softmax_scale,
     next_power_of_2,
+    resolve_device,
     round_up_to_multiple,
 )
 from fa2_triton_tpu_torch.utils.rng import (
@@ -20,6 +21,7 @@ __all__ = [
     "next_power_of_2",
     "default_softmax_scale",
     "LOG2E",
+    "resolve_device",
     "counter_hash_uint32",
     "dropout_threshold",
     "dropout_offsets",

@@ -592,7 +592,8 @@ def test_qwen_shaped_model_loss_and_grads_match_jax():
     tokens = rng.randint(0, 128, size=(2, 41)).astype(np.int32)
     j_loss, j_grads = jax.value_and_grad(jl.loss_fn)(jax.tree.map(jnp.asarray, params),
                                                      jnp.asarray(tokens), jcfg)
-    model = llama_from_jax_params(params, tl.LlamaConfig(dtype=torch.float32, **widths))
+    model = llama_from_jax_params(params, tl.LlamaConfig(dtype=torch.float32, **widths),
+                                  device="cpu")
     loss = tl.loss_fn(model, torch.from_numpy(tokens).long())
     loss.backward()
     assert abs(loss.item() - float(j_loss)) <= TOL

@@ -194,6 +194,11 @@ def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         flash_fwd.flash_attn_forward(x, x, x, lens, causal=True, softmax_scale=0.125)
     with pytest.raises(ValueError, match="multiple of 8 elements"):
         flash_fwd.flash_attn_forward_causal_strip(x, x, x, lens, softmax_scale=0.125)
+    with pytest.raises(ValueError, match="multiple of 8 elements"):   # the split's calls too
+        flash_fwd.flash_attn_forward_causal_diag(x, x, x, lens, T=64, softmax_scale=0.125)
+    with pytest.raises(ValueError, match="multiple of 8 elements"):
+        flash_fwd.flash_attn_forward_rect(x, x, x, lens, row0=0, col0=0, nrows=8, ncols=8,
+                                          softmax_scale=0.125)
     # So does the 16-bit dq + dk/dv pair (the do it is handed is re-laid).
     lse = torch.zeros(1, 2, 8, device=dev)
     with pytest.raises(ValueError, match="multiple of 8 elements"):
@@ -958,8 +963,11 @@ def test_head_dims_off_the_kernel_widths_are_padded(dev, D):
 # Each case: (Sq, Sk, lens, the call). S 300 with leaves of 128: the last leaf
 # is short, batch row 1 has a dead tail past 211 rows; the shifted strip has
 # Sk - Sq = 128. The rectangle is the split's first: rows [128, 300) against
-# columns [0, 128).
+# columns [0, 128). The unaligned one starts inside a 64-row q tile and a
+# key tile, rows [100, 250) against columns [36, 136); the ragged diag's
+# second leaf of 192 holds 108 rows.
 RECT = dict(row0=128, col0=0, nrows=256, ncols=128)
+RECT_UNALIGNED = dict(row0=100, col0=36, nrows=150, ncols=100)
 SCHEDULE_CASES = {
     "strip": (300, 300, [[300, 300], [211, 211]],
               lambda f, q, k, v, lens, prev, **kw: f.flash_attn_forward_causal_strip(q, k, v, lens, **kw)),
@@ -972,6 +980,15 @@ SCHEDULE_CASES = {
     "rect_merge": (300, 300, [[300, 300], [211, 211]],
                    lambda f, q, k, v, lens, prev, **kw: f.flash_attn_forward_rect(
                        q, k, v, lens, **RECT, merge_prev=prev, **kw)),
+    "rect_unaligned": (300, 300, [[300, 300], [211, 211]],
+                       lambda f, q, k, v, lens, prev, **kw: f.flash_attn_forward_rect(
+                           q, k, v, lens, **RECT_UNALIGNED, **kw)),
+    "rect_merge_unaligned": (300, 300, [[300, 300], [211, 211]],
+                             lambda f, q, k, v, lens, prev, **kw: f.flash_attn_forward_rect(
+                                 q, k, v, lens, **RECT_UNALIGNED, merge_prev=prev, **kw)),
+    "diag_ragged": (300, 300, [[300, 300], [211, 211]],
+                    lambda f, q, k, v, lens, prev, **kw: f.flash_attn_forward_causal_diag(
+                        q, k, v, lens, T=192, **kw)),
     "split": (300, 300, [[300, 300], [211, 211]],
               lambda f, q, k, v, lens, prev, **kw: f.flash_attn_forward(
                   q, k, v, lens, causal=True, static_skip=True, tri_square=False, causal_split=True,
@@ -980,6 +997,8 @@ SCHEDULE_CASES = {
 SCHEDULE_LAUNCH_DELTAS = {
     "strip": {"causal_strip": 1}, "strip_shifted": {"causal_strip": 1},
     "diag": {"causal_diag": 1}, "rect": {"rect": 1}, "rect_merge": {"rect_merge": 1},
+    "rect_unaligned": {"rect": 1}, "rect_merge_unaligned": {"rect_merge": 1},
+    "diag_ragged": {"causal_diag": 1},
     "split": {"causal_diag": 1, "rect_merge": 2},   # three leaves: causal_split_rects(3)
 }
 
@@ -1002,7 +1021,7 @@ def test_schedule_kernels_match_plain(dev, dtype, D, case, dropout_p):
     kw = dict(softmax_scale=D ** -0.5, dropout_p=dropout_p, dropout_seed=D - 7 * len(case))
     x = [t.to(dtype) for t in x32]
     prev = prev32 = prev_lp = None
-    if case == "rect_merge":
+    if case.startswith("rect_merge"):
         prev = flash_fwd.flash_attn_forward_causal_diag(*x, lens.to(dev), T=128, **kw)
         prev32 = (prev[0].float().cpu(), prev[1].cpu())
         prev_lp = tuple(t.cpu() for t in prev)
@@ -1036,6 +1055,40 @@ def test_strip_equals_the_generic_kernel_bit_for_bit(dev, dtype, D, Sq, Sk, drop
     kw = dict(softmax_scale=D ** -0.5, dropout_p=dropout_p, dropout_seed=Sq)
     o_s, lse_s = flash_fwd.flash_attn_forward_causal_strip(q, k, v, lens, **kw)
     o_g, lse_g = flash_fwd.flash_attn_forward(q, k, v, lens, causal=True, **kw)
+    torch.cuda.synchronize()
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(o_s.contiguous().view(bits), o_g.contiguous().view(bits))
+    assert torch.equal(lse_s.view(torch.int32), lse_g.view(torch.int32))
+
+
+# The split's calls reduce to the generic kernel's: a diag whose leaf holds
+# the whole call (T >= Sq) is its causal call, a rectangle over every row and
+# column its non-causal call.
+SPLIT_AS_GENERIC = {
+    "diag": (lambda q, k, v, lens, **kw: flash_fwd.flash_attn_forward_causal_diag(
+        q, k, v, lens, T=320, **kw), True),
+    "rect": (lambda q, k, v, lens, **kw: flash_fwd.flash_attn_forward_rect(
+        q, k, v, lens, row0=0, col0=0, nrows=q.shape[2], ncols=k.shape[2], **kw), False),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("call", list(SPLIT_AS_GENERIC))
+@pytest.mark.parametrize("dropout_p", [0.0, 0.2])
+def test_split_calls_equal_the_generic_kernel_bit_for_bit(dev, dtype, D, call, dropout_p):
+    """The diag and the rectangle are calls of flash_fwd.cu's kernels: cut
+    to the whole problem, their o and lse equal the generic call's bit for
+    bit, dead rows included (S 300, a ragged last tile, batch row 1 dead past
+    211 rows)."""
+    run, causal = SPLIT_AS_GENERIC[call]
+    g = torch.Generator(device=dev).manual_seed(D + len(call))
+    q, k, v = ((torch.randn(2, 300, h, D, generator=g, device=dev) * 0.5).to(dtype).transpose(1, 2)
+               for h in (4, 2, 2))
+    lens = torch.tensor([[300, 300], [211, 211]], dtype=torch.int32, device=dev)
+    kw = dict(softmax_scale=D ** -0.5, dropout_p=dropout_p, dropout_seed=D + 11)
+    o_s, lse_s = run(q, k, v, lens, **kw)
+    o_g, lse_g = flash_fwd.flash_attn_forward(q, k, v, lens, causal=causal, **kw)
     torch.cuda.synchronize()
     bits = torch.int32 if dtype == torch.float32 else torch.int16
     assert torch.equal(o_s.contiguous().view(bits), o_g.contiguous().view(bits))

@@ -39,7 +39,7 @@ def _make(seed=0, **kw):
     params = jax.tree_util.tree_map_with_path(
         lambda path, a: (rng.normal(0, 0.1, a.shape).astype(np.float32)
                          if path[-1].key == "bias" else np.asarray(a)), params)
-    layer = flash_self_attention_from_flax(params, F, num_heads=4, **kw)
+    layer = flash_self_attention_from_flax(params, F, num_heads=4, device="cpu", **kw)
     return linen, params, layer, x
 
 
@@ -70,7 +70,7 @@ def test_parameter_names_and_shapes_are_flax():
     assert {k: tuple(v.shape) for k, v in layer.state_dict().items()} == {
         f"{n}.{leaf}": tuple(p[n][leaf].shape) for n in p for leaf in p[n]}
     with pytest.raises(ValueError, match="do not match"):
-        flash_self_attention_from_flax(params, F, num_heads=4, num_kv_heads=2)
+        flash_self_attention_from_flax(params, F, num_heads=4, num_kv_heads=2, device="cpu")
 
 
 def test_training_mode_dropout_matches_jax_flash_attn_func():

@@ -26,7 +26,7 @@ T_CFG = tl.LlamaConfig(vocab_size=128, dim=128, n_layers=2, n_heads=4, n_kv_head
 @pytest.fixture(scope="module")
 def models():
     jp = jl.init_params(jax.random.PRNGKey(0), J_CFG)
-    tm = llama_from_jax_params(jax.tree.map(np.asarray, jp), T_CFG)
+    tm = llama_from_jax_params(jax.tree.map(np.asarray, jp), T_CFG, device="cpu")
     return jp, tm
 
 
@@ -68,7 +68,7 @@ def test_prefill_and_decode_match_jax(models):
     j_caches = [jkv.write_kv(c, k, v, jnp.zeros((2,), jnp.int32), j_kv)
                 for c, (k, v) in zip(jkv.init_cache(j_kv), j_kvs)]
     t_caches = [tkv.write_kv(c, k, v, torch.zeros(2, dtype=torch.int32), t_kv)
-                for c, (k, v) in zip(tkv.init_cache(t_kv), t_kvs)]
+                for c, (k, v) in zip(tkv.init_cache(t_kv, device="cpu"), t_kvs)]
     lens = true_len.copy()
     toks = rng.randint(0, 128, size=(2,)).astype(np.int32)
     for _ in range(3):
@@ -110,7 +110,7 @@ def test_qkv_bias_and_qk_norm_keys_convert(models):
         layer["k_norm"] = jnp.asarray(1 + rng.normal(0, 0.1, (32,)), jnp.float32)
         layers.append(layer)
     jp2 = dict(jp, layers=layers)
-    tm2 = llama_from_jax_params(jax.tree.map(np.asarray, jp2), T_CFG)
+    tm2 = llama_from_jax_params(jax.tree.map(np.asarray, jp2), T_CFG, device="cpu")
     tokens = rng.randint(0, 128, size=(1, 20))
     j = np.asarray(jl.forward(jp2, jnp.asarray(tokens, jnp.int32), J_CFG))
     with torch.no_grad():
@@ -123,7 +123,7 @@ def test_moe_layers_raise(models):
     tree = jax.tree.map(np.asarray, jp)
     tree["layers"][0]["router"] = np.zeros((128, 4), np.float32)
     with pytest.raises(NotImplementedError, match="MoE"):
-        llama_from_jax_params(tree, T_CFG)
+        llama_from_jax_params(tree, T_CFG, device="cpu")
 
 
 @pytest.mark.parametrize("qname", ["int8", "float8_e4m3fn"])

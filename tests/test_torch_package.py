@@ -39,7 +39,8 @@ def test_port_never_imports_jax():
         "import fa2_triton_tpu_torch.utils.mask_probes, fa2_triton_tpu_torch.examples.kernel_times\n"
         "from fa2_triton_tpu_torch import FlashSelfAttention, flash_attn_func\n"
         "layer = FlashSelfAttention(64, 2, num_kv_heads=1, causal=True, use_rope=True,\n"
-        "                           dropout_p=0.1, dropout_rng=__import__('torch').default_generator)\n"
+        "                           dropout_p=0.1, dropout_rng=__import__('torch').default_generator,\n"
+        "                           device='cpu')\n"
         "layer(__import__('torch').ones(1, 8, 64)).sum().backward()\n"
         "flash_attn_func(x[None], x[None], x[None], dropout_p=0.2, dropout_seed=-3).sum().backward()\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith(('jax.', 'jaxlib', 'fa2_triton_tpu.')))\n"
@@ -67,7 +68,6 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 def test_kernel_sources_are_hashed():
     names = {p.name for p in _build.sources()}
     assert {"flash_fwd.cu", "flash_bwd.cu", "decode.cu", "decode_int8.cu", "decode_fp8.cu",
-            "varlen.cu", "common.cuh", "attn_tiles.cuh", "decode.cuh", "flash_fwd_causal.cu",
-            "flash_fwd_rect.cu", "flash_bwd_tri.cu", "flash_bwd_wl.cu", "bwd_fused.cuh",
+            "varlen.cu", "common.cuh", "attn_tiles.cuh", "decode.cuh", "flash_bwd_tri.cu", "flash_bwd_wl.cu", "bwd_fused.cuh",
             "bwd_mma.cuh", "mma_tiles.cuh"} <= names
     assert len(_build.source_hash()) == 16

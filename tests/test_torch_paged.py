@@ -178,7 +178,8 @@ def test_paged_cache_state_matches_jax_bitwise(qname):
     kw = dict(n_layers=2, n_kv_heads=2, head_dim=48, page_size=128, n_pages=12, n_slots=3,
               max_seq=640)
     jc = jpc.PagedKVCache(jpc.PagedCacheConfig(**kw, qdtype=jq, compute_dtype=jnp.float32))
-    tc = tpc.PagedKVCache(tpc.PagedCacheConfig(**kw, qdtype=tq, compute_dtype=torch.float32))
+    tc = tpc.PagedKVCache(tpc.PagedCacheConfig(**kw, qdtype=tq, compute_dtype=torch.float32),
+                          device="cpu")
     # Slots 0 and 1 write inside their pages; slot 2's writes at 0 land on
     # the reserved page 0 through its released table entries.
     _scripted(jc, lambda li, k, v, pos: jc.write_tokens(li, jnp.asarray(k), jnp.asarray(v),
@@ -213,7 +214,7 @@ def test_paged_cache_state_matches_jax_bitwise(qname):
 def test_paged_cache_exhaustion_raises():
     cfg = tpc.PagedCacheConfig(n_layers=1, n_kv_heads=1, head_dim=64, page_size=128, n_pages=4,
                                n_slots=2, max_seq=256, compute_dtype=torch.float32)
-    cache = tpc.PagedKVCache(cfg)
+    cache = tpc.PagedKVCache(cfg, device="cpu")
     assert cache.free_pages == 3          # page 0 reserved
     cache.ensure_capacity(0, 200)
     cache.ensure_capacity(1, 100)
@@ -231,7 +232,7 @@ def test_write_kv_quantized_matches_jax_bitwise(qname):
     kw = dict(n_layers=1, n_kv_heads=2, head_dim=48, max_seq=200, n_slots=3)
     jcfg = jkv.KVCacheConfig(**kw, qdtype=jq, compute_dtype=jnp.float32)
     tcfg = tkv.KVCacheConfig(**kw, qdtype=tq, compute_dtype=torch.float32)
-    jc, tc = jkv.init_cache(jcfg)[0], tkv.init_cache(tcfg)[0]
+    jc, tc = jkv.init_cache(jcfg)[0], tkv.init_cache(tcfg, device="cpu")[0]
     rng = np.random.RandomState(5)
     for S, offs in ((7, [0, 100, 193]), (1, [7, 0, 199])):
         k, v = (rng.normal(0, 1, (3, S, 2, 48)).astype(np.float32) for _ in range(2))
@@ -248,7 +249,7 @@ def test_write_kv_quantized_matches_jax_bitwise(qname):
 @pytest.fixture(scope="module")
 def models():
     jp = jl.init_params(jax.random.PRNGKey(0), J_CFG)
-    return jp, llama_from_jax_params(jax.tree.map(np.asarray, jp), T_CFG)
+    return jp, llama_from_jax_params(jax.tree.map(np.asarray, jp), T_CFG, device="cpu")
 
 
 class _Margins:
@@ -342,7 +343,7 @@ def test_sliding_window_releases_pages_like_jax(models):
     jp, _ = models
     jcfg = dataclasses.replace(J_CFG, sliding_window=64)
     tcfg = dataclasses.replace(T_CFG, sliding_window=64)
-    tm = llama_from_jax_params(jax.tree.map(np.asarray, jp), tcfg)
+    tm = llama_from_jax_params(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
     prompt = np.random.RandomState(10).randint(0, 128, size=250).tolist()
     seen, engines = [], []
     for eng in (JaxEngine(jp, jcfg, n_slots=1, max_seq=512, paged=True, page_size=128),
@@ -374,7 +375,7 @@ def test_per_layer_window_keeps_pages_like_the_contiguous_engine():
     jcfg = jl.LlamaConfig(dtype=jnp.float32, **kw)
     tcfg = tl.LlamaConfig(dtype=torch.float32, **kw)
     jp = jl.init_params(jax.random.PRNGKey(1), jcfg)
-    tm = llama_from_jax_params(jax.tree.map(np.asarray, jp), tcfg)
+    tm = llama_from_jax_params(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
     prompt = np.random.RandomState(10).randint(0, 128, size=250).tolist()
     eng = Engine(tm, tcfg, n_slots=1, max_seq=512, paged=True, page_size=128)
     req = eng.submit(prompt, max_new_tokens=10)

@@ -34,7 +34,7 @@ NEW = (5, 6, 4)
 @pytest.fixture(scope="module")
 def setup():
     jp = jl.init_params(jax.random.PRNGKey(0), J_CFG)
-    tm = llama_from_jax_params(jax.tree.map(np.asarray, jp), T_CFG)
+    tm = llama_from_jax_params(jax.tree.map(np.asarray, jp), T_CFG, device="cpu")
     rng = np.random.RandomState(0)
     prompts = [rng.randint(0, 128, size=n).tolist() for n in PROMPT_LENS]
     return jp, tm, prompts

@@ -46,7 +46,7 @@ def _model(params, **cfg_over):
     import dataclasses
 
     return llama_from_jax_params(jax.tree.map(np.asarray, params),
-                                 dataclasses.replace(T_CFG, **cfg_over))
+                                 dataclasses.replace(T_CFG, **cfg_over), device="cpu")
 
 
 def _assert_trees_close(t_tree, j_tree, atol):
