@@ -10,8 +10,8 @@ the CUDA toolkit. Phases (any failure raises, and the script exits nonzero):
    sm_90a (ptxas register / shared-memory report printed). Then a line per
    16-bit instantiation of the tensor-core kernels (the forward and the dq
    + dk/dv pair, with and without bias / softcap; the tri-square / diag and
-   work-list backward; bf16 and fp16, D 64 / 128 / 256, with and without
-   dropout): ptxas
+   work-list backward; the packed backward's dq and dk/dv; bf16 and fp16,
+   D 64 / 128 / 256, with and without dropout): ptxas
    registers and spills, and the HMMA instructions in its SASS (cuobjdump
    -sass of the built library); it fails where one has no tensor-core
    instruction or a bf16 D 128 one of the trainers' spills.
@@ -51,8 +51,10 @@ the CUDA toolkit. Phases (any failure raises, and the script exits nonzero):
    forward and backward through `flash_attn_varlen_func` with the launch
    counts reset just before (one launch of each varlen kernel); out, lse and
    gradients held against the fp32 and bf16 plain twins, dead positions
-   exactly 0; kernel, plain and library times; packed against the same
-   documents right-padded through `flash_attn_func(attention_mask=...)`.
+   exactly 0; kernel, plain and library times, each kernel's share of its
+   bound and its time over the library's, the backward's tensor-core
+   kernels at least 3x faster than their FMA design; packed against the
+   same documents right-padded through `flash_attn_func(attention_mask=...)`.
 9. Block-sparse at the same widths (B 2, S 4096, a local band plus an
    attention sink) through `flash_attn_blocksparse_func`, checked and timed
    the same way, with flex_attention as the library yardstick.
@@ -1070,9 +1072,17 @@ def check_packed_path(torch, what, inputs, grads, out, lse, do32, packed32, seg,
     return errs, o32, refs
 
 
+# The packed kernels' names in the profiler for bf16 inputs: the forward's
+# FMA kernel and the backward's tensor-core pair (fp32 inputs keep the FMA
+# varlen_dq_kernel / varlen_dkdv_kernel).
+VARLEN_KERNEL_NAMES = {"varlen_fwd": "varlen_fwd_kernel", "varlen_dq": "varlen_mma_dq_kernel",
+                       "varlen_dkdv": "varlen_mma_dkdv_kernel"}
+
+
 def time_packed_kernels(torch, inputs, do, seg, keep_block, **drop):
-    """Device time of each varlen kernel (profiler), the whole wrapper calls
-    (CUDA events, host work lists included) and the plain twins, bf16."""
+    """Device time of each varlen kernel (profiler, keyed by the names of
+    VARLEN_KERNEL_NAMES), the whole wrapper calls (CUDA events, host work
+    lists included) and the plain twins, bf16."""
     from fa2_triton_tpu_torch.ops import varlen
 
     bhsd = lambda x: x.transpose(1, 2)
@@ -1084,8 +1094,9 @@ def time_packed_kernels(torch, inputs, do, seg, keep_block, **drop):
         o, lse = varlen.flash_attn_varlen_forward(q, k, v, *args, **pkw)
         fwd = lambda: varlen.flash_attn_varlen_forward(q, k, v, *args, **pkw)
         bwd = lambda: varlen.flash_attn_varlen_backward(q, k, v, do, o, lse, *args, **pkw)
-        t = kernel_ms(torch, fwd, ("varlen_fwd_kernel",))
-        t.update(kernel_ms(torch, bwd, ("varlen_dq_kernel", "varlen_dkdv_kernel")))
+        t = kernel_ms(torch, fwd, (VARLEN_KERNEL_NAMES["varlen_fwd"],))
+        t.update(kernel_ms(torch, bwd, (VARLEN_KERNEL_NAMES["varlen_dq"],
+                                        VARLEN_KERNEL_NAMES["varlen_dkdv"])))
         t["fwd call"], t["bwd call"] = cuda_ms(torch, fwd, iters=5), cuda_ms(torch, bwd, iters=5)
         t["plain fwd"] = cuda_ms(torch, lambda: varlen.flash_attn_varlen_forward_plain(
             q, k, v, *args, **pkw), iters=2, warmup=1)
@@ -1095,26 +1106,48 @@ def time_packed_kernels(torch, inputs, do, seg, keep_block, **drop):
 
 
 def varlen_entries(t, errs, lib, pairs, tokens):
-    """The kernels-line entries of the three varlen kernels."""
+    """The kernels-line entries of the three varlen kernels, each with its
+    share of the bound and its time over the library's (the whole backward
+    for dq and dk/dv)."""
     b = lambda kernel: attn_bound(kernel, pairs, tokens, 32, 8, 128, 2)
-    return {
-        "varlen_fwd": {"max_abs_err": errs["o"], "ms": t["varlen_fwd_kernel"],
-                       "plain_ms": t["plain fwd"], "library_ms": lib["fwd"], **b("fwd")},
-        "varlen_dq": {"max_abs_err": errs["dq"], "ms": t["varlen_dq_kernel"],
-                      "plain_ms": t["plain bwd"], "library_ms": lib["bwd"], **b("dq")},
-        "varlen_dkdv": {"max_abs_err": max(errs["dk"], errs["dv"]), "ms": t["varlen_dkdv_kernel"],
-                        "plain_ms": t["plain bwd"], "library_ms": lib["bwd"], **b("dkdv")},
+    out = {
+        "varlen_fwd": {"max_abs_err": errs["o"], "plain_ms": t["plain fwd"],
+                       "library_ms": lib["fwd"], **b("fwd")},
+        "varlen_dq": {"max_abs_err": errs["dq"], "plain_ms": t["plain bwd"],
+                      "library_ms": lib["bwd"], **b("dq")},
+        "varlen_dkdv": {"max_abs_err": max(errs["dk"], errs["dv"]), "plain_ms": t["plain bwd"],
+                        "library_ms": lib["bwd"], **b("dkdv")},
     }
+    for name, e in out.items():
+        e["ms"] = ms = t[VARLEN_KERNEL_NAMES[name]]
+        e["kernel"] = VARLEN_KERNEL_NAMES[name]
+        e["bound_share"] = e["bound_ms"] / ms
+        e["over_library"] = ms / e["library_ms"]
+    return out
 
 
 def print_packed_times(what, t, lib, entries):
+    bwd = entries["varlen_dq"]["ms"] + entries["varlen_dkdv"]["ms"]
     print(f"[{what}] bf16 kernels (profiler): " + ", ".join(
-        f"{n} {e['ms']:.3f} ms (bound {e['bound_ms']:.3f} ms, {e['bound_by']})"
-        for n, e in entries.items())
+        f"{e['kernel']} {e['ms']:.3f} ms (bound {e['bound_ms']:.3f} ms, {e['bound_by']}: "
+        f"{100 * e['bound_share']:.1f} % of it; {e['over_library']:.2f}x the library)"
+        for e in entries.values())
+        + f"; dq + dk/dv {bwd:.3f} ms = {bwd / lib['bwd']:.2f}x the library's whole backward"
         + f"; whole calls (CUDA events, host work lists included): forward {t['fwd call']:.3f} ms, "
           f"backward {t['bwd call']:.3f} ms; plain forward {t['plain fwd']:.3f} ms, plain backward "
           f"{t['plain bwd']:.3f} ms; library ({lib['name']}) forward {lib['fwd']:.3f} ms, "
           f"backward {lib['bwd']:.3f} ms")
+
+
+def beats_packed_fma(what, entries):
+    """Fail unless the packed backward's tensor-core kernels are
+    VARLEN_SPEEDUP times faster than their FMA design at this phase's shape
+    (the log line gives both)."""
+    for name in ("varlen_dq", "varlen_dkdv"):
+        key = f"{what}_{name.split('_')[1]}"
+        print(f"[{what}] {VARLEN_KERNEL_NAMES[name]}: {entries[name]['ms']:.3f} ms (the FMA design: "
+              f"{FMA_DESIGN_MS[key]} ms, to beat {VARLEN_SPEEDUP}x)")
+        beats_fma_design(key, [entries[name]["ms"]], by=VARLEN_SPEEDUP)
 
 
 def phase_varlen(torch, card: str):
@@ -1173,6 +1206,7 @@ def phase_varlen(torch, card: str):
     del tq, tk, tv, tdo, lib_out, o32, refs
     entries = varlen_entries(t, errs, lib, causal_pairs(lens), sum(lens))
     print_packed_times("varlen", t, lib, entries)
+    beats_packed_fma("varlen", entries)
 
     # The same documents right-padded to [n_docs, S_pad] through the dense
     # kernels with a padding mask: what packing saves (bench.py --mode varlen).
@@ -1273,6 +1307,7 @@ def phase_blocksparse(torch):
                     for i in range(mask.shape[0]) for j in range(i + 1) if mask[i, j])
     entries = varlen_entries(t, errs, lib, pairs, B * S)
     print_packed_times("blocksparse", t, lib, entries)
+    beats_packed_fma("blocksparse", entries)
     return launches, entries
 
 
@@ -1516,8 +1551,7 @@ def packed_dropout(torch, card):
            "fwd": cuda_ms(torch, lib_fwd), "bwd": cuda_ms(torch, lib_bwd(tdo), iters=5)}
     del tq, tk, tv, tdo, padded
     entries = varlen_entries(t_d, errs, lib, causal_pairs(lens), sum(lens))
-    for name, key in (("varlen_fwd", "varlen_fwd_kernel"), ("varlen_dq", "varlen_dq_kernel"),
-                      ("varlen_dkdv", "varlen_dkdv_kernel")):
+    for name, key in VARLEN_KERNEL_NAMES.items():
         entries[name]["ms_runs"] = [t_d[key], t_d2[key]]
         entries[name]["ms_without_dropout"] = [t_nd[key], t_nd2[key]]
         print(f"[dropout varlen] {name} [{card}]: no dropout {t_nd[key]:.3f} / {t_nd2[key]:.3f} ms, "
@@ -2249,18 +2283,28 @@ FMA_DESIGN_MS = {"tri_square": "20.331-20.379", "causal_diag": "19.939-20.105",
 FMA_DESIGN_MS.update({"split_fwd": "6.576-6.607", "diag_fwd": "3.388-3.445",
                       "rect_merge_fwd": "3.152-3.185"})
 SPLIT_SPEEDUP = 3
+# The packed backward's FMA design (fp32 FMA tiles for every input type) on
+# phase 8's packed batch (T 14592) and phase 9's block-sparse batch, bf16,
+# 32 / 8 heads, D 128, measured by those phases on an NVIDIA H100 80GB HBM3
+# at 700.00 W (profiler, two to four runs). Every tensor-core run must beat
+# the top of its range VARLEN_SPEEDUP times.
+FMA_DESIGN_MS.update({"varlen_dq": "17.334-17.387", "varlen_dkdv": "41.094-41.138",
+                      "blocksparse_dq": "5.176-5.204", "blocksparse_dkdv": "15.3-19.7"})
+VARLEN_SPEEDUP = 3
 
 # The 16-bit tensor-core kernels: the fused backward (csrc/bwd_mma.cuh's
-# tiles), the forward (csrc/flash_fwd.cu) and the dq + dk/dv pair
-# (csrc/flash_bwd.cu); the template flag after DROP of the forward's and
-# the pair's puts bias and softcap in their own instantiations, and the
-# forward's last one (MERGE) the split's merged rectangle.
+# tiles), the forward (csrc/flash_fwd.cu), the dq + dk/dv pair
+# (csrc/flash_bwd.cu) and the packed backward (csrc/varlen.cu); the template
+# flag after DROP of the forward's and the pair's puts bias and softcap in
+# their own instantiations, and the forward's last one (MERGE) the split's
+# merged rectangle. A mangled name gives each name its length just before
+# it, so the pattern asks for a digit there: the pair's names are not read
+# inside a longer one.
 MMA_KERNELS = ("bwd_tri_mma_kernel", "bwd_wl_mma_kernel", "flash_fwd_mma_kernel", "dq_mma_kernel",
-               "dkdv_mma_kernel")
+               "dkdv_mma_kernel", "varlen_mma_dq_kernel", "varlen_mma_dkdv_kernel")
 MMA_EXTRA = ("flash_fwd_mma_kernel", "dq_mma_kernel", "dkdv_mma_kernel")
-_MMA_NAME = re.compile(r"(bwd_tri_mma_kernel|bwd_wl_mma_kernel|flash_fwd_mma_kernel|dq_mma_kernel|"
-                       r"dkdv_mma_kernel)I(13__nv_bfloat16|6__half)Li(\d+)ELb([01])E(?:Lb([01])E)?"
-                       r"(?:Lb([01])E)?")
+_MMA_NAME = re.compile(r"\d(" + "|".join(MMA_KERNELS) + r")I(13__nv_bfloat16|6__half)Li(\d+)ELb([01])E"
+                       r"(?:Lb([01])E)?(?:Lb([01])E)?")
 # The forward's (bias / softcap, merge) instantiations: a merge has neither.
 FWD_FLAGS = ((False, False), (True, False), (False, True))
 # The forward's times at the Qwen shapes in its earlier design (fp32 FMA
@@ -2736,6 +2780,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     varlen_launches, varlen_kernels = phase_varlen(torch, card)
+    for name in ("varlen_dq", "varlen_dkdv"):
+        varlen_kernels[name]["build"] = mma[VARLEN_KERNEL_NAMES[name]]
     torch.cuda.empty_cache()
     bs_launches, bs_kernels = phase_blocksparse(torch)
     gc.collect()

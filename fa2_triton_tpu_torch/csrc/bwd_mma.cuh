@@ -1,9 +1,12 @@
-// Tensor-core tile math of the fused 5-product backward for 16-bit inputs
-// (bf16, fp16), shared by flash_bwd_tri.cu (B13 tri-square and diag) and
-// flash_bwd_wl.cu (B14 work list); flash_bwd.cu's dkdv_mma_kernel runs the
-// same q step without dS^T and dQ (its own element rule: the scale on the
-// fp32 scores, bias and softcap). fp32 inputs keep bwd_fused.cuh's FMA
-// tiles.
+// Tensor-core tile math of the backward for 16-bit inputs (bf16, fp16): the
+// fused 5-product q step, shared by flash_bwd_tri.cu (B13 tri-square and
+// diag) and flash_bwd_wl.cu (B14 work list); flash_bwd.cu's dkdv_mma_kernel
+// and varlen.cu's varlen_mma_dkdv_kernel run the same q step without dS^T
+// and dQ (each with its own element rule: the scale on the fp32 scores, and
+// bias and softcap, or the packed masks), on the q loop `mma_q_loop`. The
+// dq kernels' tiles (flash_bwd.cu's dq_mma_kernel, varlen.cu's
+// varlen_mma_dq_kernel) close the file. fp32 inputs keep bwd_fused.cuh's
+// and attn_tiles.cuh's FMA tiles.
 //
 // A block of 8 warps owns a kv tile of BKV rows (128 at D 64 / 128, 64 at
 // D 256) and streams q tiles of BQ = 64 rows through shared memory. At D
@@ -48,12 +51,22 @@
 
 namespace fa2 {
 
-template <int D_>
+// The fused kernels' (and the dense dk/dv kernel's) kv rows of a block:
+// what ops/flash_bwd.py:fused_kv_tile counts the partitions in.
+template <int D>
+struct FusedKv {
+  static constexpr int BKV = D <= 128 ? 128 : 64;
+};
+
+// BKV_, NW_ and DS_ default to the fused kernels' and the dense dk/dv
+// kernel's layout; varlen.cu's dk/dv kernel takes 64 kv rows (4 warps at D
+// <= 128) and keeps no dS^T (DS_ false: no shared memory for it).
+template <int D_, int BKV_ = FusedKv<D_>::BKV, int NW_ = THREADS / 32, bool DS_ = true>
 struct MmaCfg {
   static constexpr int D = D_;
-  static constexpr int BKV = D <= 128 ? 128 : 64;  // kv rows of a block's tile
+  static constexpr int BKV = BKV_;                 // kv rows of a block's tile
   static constexpr int BQ = 64;                    // q rows of a streamed tile
-  static constexpr int NW = THREADS / 32;          // 8 warps
+  static constexpr int NW = NW_;                   // warps of a block
   static constexpr int KW = BKV / 16;              // warps along the kv rows
   static constexpr int WD = NW / KW;               // warps along D for dK / dV
   static constexpr int DKV = D / WD;               // dK / dV columns of a warp
@@ -66,7 +79,8 @@ struct MmaCfg {
   static constexpr int NT_Q = QP / 8;
   static constexpr int P = D + 8;                  // shared row pitch, elements
   static constexpr int SP = BQ + 8;                // dS^T row pitch
-  static constexpr int SMEM_BYTES = (2 * BKV * P + 4 * BQ * P + BKV * SP) * 2 + 4 * BQ * 4;
+  static constexpr int DS_ROWS = DS_ ? BKV : 0;    // dS^T rows in shared memory
+  static constexpr int SMEM_BYTES = (2 * BKV * P + 4 * BQ * P + DS_ROWS * SP) * 2 + 4 * BQ * 4;
   static_assert(KW * WD == NW && NT_KV % 2 == 0 && NT_Q % 2 == 0 && QH % 16 == 0 &&
                 DQ % QP == 0, "warp layout");
 };
@@ -93,7 +107,7 @@ __device__ __forceinline__ MmaSmem<T> mma_smem(unsigned char* raw) {
   s.V = t; t += C::BKV * C::P;
   s.Q = t; t += 2 * C::BQ * C::P;
   s.dO = t; t += 2 * C::BQ * C::P;
-  s.dS = t; t += C::BKV * C::SP;
+  s.dS = t; t += C::DS_ROWS * C::SP;
   s.lse = reinterpret_cast<float*>(t);
   s.delta = s.lse + 2 * C::BQ;
   return s;
@@ -127,21 +141,53 @@ __device__ __forceinline__ void mma_load_kv(const FusedBwdParams& p, const MmaSm
   }
 }
 
-// q tile rows [r0, r0 + BQ) of head h into buffer `buf`: q, do, lse and
-// delta (lse_h / delta_h: the head's first row), zero at or past `valid`.
+// q tile rows [r0, r0 + BQ) into buffer `buf`: q, do (row strides q_ss,
+// do_ss), lse and delta (q, dout, lse, delta: the head's first row), zero
+// at or past `valid`.
+template <class C, typename T>
+__device__ __forceinline__ void mma_load_q_rows(const MmaSmem<T>& s, int buf, const T* q,
+                                                long long q_ss, const T* dout, long long do_ss,
+                                                const float* lse, const float* delta, int r0,
+                                                int valid) {
+  cp_rows<C>(s.Q + buf * C::BQ * C::P, q, q_ss, r0, C::BQ, valid);
+  cp_rows<C>(s.dO + buf * C::BQ * C::P, dout, do_ss, r0, C::BQ, valid);
+  for (int i = threadIdx.x; i < 2 * C::BQ; i += C::NW * 32) {
+    const int r = i % C::BQ;
+    const bool ok = r0 + r < valid;
+    const float* src = (i < C::BQ ? lse : delta) + (ok ? r0 + r : 0);
+    cp_async4((i < C::BQ ? s.lse : s.delta) + buf * C::BQ + r, src, ok);
+  }
+}
+
+// The same for batch row b and head h of a [B, H, S, D] call.
 template <class C, typename T, class Params>
 __device__ __forceinline__ void mma_load_q(const Params& p, const MmaSmem<T>& s, int buf,
                                            int b, int h, int r0, int valid, const float* lse_h,
                                            const float* delta_h) {
-  cp_rows<C>(s.Q + buf * C::BQ * C::P, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh,
-             p.q_ss, r0, C::BQ, valid);
-  cp_rows<C>(s.dO + buf * C::BQ * C::P,
-             static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh, p.do_ss, r0, C::BQ, valid);
-  for (int i = threadIdx.x; i < 2 * C::BQ; i += THREADS) {
-    const int r = i % C::BQ;
-    const bool ok = r0 + r < valid;
-    const float* src = (i < C::BQ ? lse_h : delta_h) + (ok ? r0 + r : 0);
-    cp_async4((i < C::BQ ? s.lse : s.delta) + buf * C::BQ + r, src, ok);
+  mma_load_q_rows<C, T>(s, buf, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_ss,
+                        static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh, p.do_ss,
+                        lse_h, delta_h, r0, valid);
+}
+
+// The dk/dv kernels' q loop over n tiles, double-buffered: issue(i) copies
+// q tile i into buffer i & 1 (not committed; the first call joins whatever
+// the caller issued before the loop), step(i) consumes buffer i & 1.
+template <class Issue, class Step>
+__device__ __forceinline__ void mma_q_loop(int n, const Issue& issue, const Step& step) {
+  issue(0);
+  cp_async_commit();
+#pragma unroll 1
+  for (int i = 0; i < n; ++i) {
+    if (i + 1 < n) {
+      issue(i + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    step(i);
+    __syncthreads();  // buffer i & 1 fully consumed before tile i + 2 lands in it
   }
 }
 
@@ -336,6 +382,131 @@ __device__ __forceinline__ void mma_zero_kv(float (&dk)[C::NT_KV][4], float (&dv
   for (int n = 0; n < C::NT_KV; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+}
+
+// ---- the dq kernels' tiles (flash_bwd.cu dq_mma_kernel, varlen.cu) ------
+//
+// One block of 4 warps owns a 64-row q tile for the whole kv loop, each
+// warp 16 q rows (the forward's shape). Q and dO are staged once and read by
+// ldmatrix per k-step (held in registers they would leave no room beside dQ,
+// S and dP at D 128); K / V tiles of BKV rows arrive double-buffered by
+// cp.async, zero past the valid keys.
+
+template <int D_>
+struct DqMmaCfg {
+  static constexpr int D = D_;
+  static constexpr int BQ = TM;                   // q rows of a block, 16 per warp
+  static constexpr int NW = BQ / 16;              // 4 warps
+  static constexpr int BKV = D <= 128 ? 64 : 32;  // kv rows of a streamed K / V tile
+  static constexpr int P = D + 8;                 // shared row pitch, elements
+  static constexpr int NT_S = BKV / 8;            // n-tiles of a warp's S and dP
+  static constexpr int NT_D = D / 8;              // n-tiles of a warp's dQ
+  static constexpr int SMEM_BYTES = (2 * BQ + 4 * BKV) * P * 2;  // Q, dO; K and V double-buffered
+};
+
+// The K / V loop over n tiles in kv_s (buffer j: K at 2 j BKV rows, V BKV
+// rows on): load(i, K, V) issues tile i's copies (not committed), step(i,
+// Ks, Vs) consumes them. The caller has issued and committed tile 0, with
+// Q and dO.
+template <class C, typename T, class Load, class Step>
+__device__ __forceinline__ void dq_kv_loop(T* kv_s, int n, const Load& load, const Step& step) {
+#pragma unroll 1
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile i has landed; every warp is done with tile i - 1
+    if (i + 1 < n) {
+      T* nxt = kv_s + ((i + 1) & 1) * 2 * C::BKV * C::P;
+      load(i + 1, nxt, nxt + C::BKV * C::P);
+      cp_async_commit();
+    }
+    const T* Ks = kv_s + (i & 1) * 2 * C::BKV * C::P;
+    step(i, Ks, Ks + C::BKV * C::P);
+  }
+}
+
+// One K / V tile against the staged Q and dO: S = Q K^T and dP = dO V^T
+// for the warp's 16 rows x BKV keys; elem(row, key, half, s, dp) turns each
+// accumulator element (tile row w * 16 + g + 8 half, key 2 t + e % 2 of
+// n-tile n) into ds in place of dp; dQ += dS K, dS rounded to T and
+// repacked from the accumulators into A fragments, K by ldmatrix.trans.
+template <class C, typename T, class Elem>
+__device__ __forceinline__ void dq_mma_tile(const T* Qs, const T* dOs, const T* Ks, const T* Vs,
+                                            const Elem& elem, float (&dq)[C::NT_D][4]) {
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32, g = lane / 4, t = lane % 4;
+  float sc[C::NT_S][4], dp[C::NT_S][4];
+#pragma unroll
+  for (int n = 0; n < C::NT_S; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < C::D / 16; ++kk) {
+    uint32_t aq[4], ao[4];
+    const int a_off = (w * 16 + lane % 16) * C::P + kk * 16 + (lane / 16) * 8;
+    ldsm_x4(aq, Qs + a_off);
+    ldsm_x4(ao, dOs + a_off);
+#pragma unroll
+    for (int np = 0; np < C::NT_S / 2; ++np) {
+      const int off = (np * 16 + lane % 8 + (lane / 16) * 8) * C::P + kk * 16 +
+                      ((lane / 8) % 2) * 8;
+      uint32_t bk[4], bv[4];
+      ldsm_x4(bk, Ks + off);
+      ldsm_x4(bv, Vs + off);
+      mma16816<T>(sc[2 * np], aq, bk[0], bk[1]);
+      mma16816<T>(sc[2 * np + 1], aq, bk[2], bk[3]);
+      mma16816<T>(dp[2 * np], ao, bv[0], bv[1]);
+      mma16816<T>(dp[2 * np + 1], ao, bv[2], bv[3]);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < C::NT_S; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      elem(w * 16 + g + (e / 2) * 8, n * 8 + 2 * t + (e % 2), e / 2, sc[n][e], dp[n][e]);
+    }
+#pragma unroll
+  for (int kk = 0; kk < C::BKV / 16; ++kk) {
+    const uint32_t a[4] = {pack2<T>(dp[2 * kk][0], dp[2 * kk][1]),
+                           pack2<T>(dp[2 * kk][2], dp[2 * kk][3]),
+                           pack2<T>(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
+                           pack2<T>(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+#pragma unroll
+    for (int np = 0; np < C::NT_D / 2; ++np) {
+      uint32_t bk[4];
+      ldsm_x4_t(bk, Ks + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * C::P + np * 16 +
+                        (lane / 16) * 8);
+      mma16816<T>(dq[2 * np], a, bk[0], bk[1]);
+      mma16816<T>(dq[2 * np + 1], a, bk[2], bk[3]);
+    }
+  }
+}
+
+// dq = mul * acc in T for the tile's first `rows` rows of `out` (row 0 of
+// the tile, row stride ss): a warp's rows go through its own 16 rows of
+// `stage` (shared, pitch P; no other warp reads them), then out as 16-byte
+// stores.
+template <class C, typename T>
+__device__ __forceinline__ void dq_mma_store(const float (&dq)[C::NT_D][4], T* stage, T* out,
+                                             long long ss, int rows, float mul) {
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32, g = lane / 4, t = lane % 4;
+  __syncwarp();
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = w * 16 + g + 8 * hr;
+#pragma unroll
+    for (int n = 0; n < C::NT_D; ++n) {
+      *reinterpret_cast<uint32_t*>(stage + r * C::P + n * 8 + 2 * t) =
+          pack2<T>(dq[n][2 * hr] * mul, dq[n][2 * hr + 1] * mul);
+    }
+  }
+  __syncwarp();
+  constexpr int CH = C::D / 8;
+  for (int i = lane; i < 16 * CH; i += 32) {
+    const int r = w * 16 + i / CH, c = (i % CH) * 8;
+    if (r < rows) {
+      *reinterpret_cast<uint4*>(out + (long long)r * ss + c) =
+          *reinterpret_cast<const uint4*>(stage + r * C::P + c);
+    }
+  }
 }
 
 // Grid of a grid-stride kernel over n work items, THREADS per block.

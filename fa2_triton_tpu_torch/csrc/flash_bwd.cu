@@ -360,23 +360,9 @@ __device__ __forceinline__ void pair_elem(const BwdParams& p, int b, int h, int 
   dp = ds;
 }
 
-template <int D_>
-struct DqMmaCfg {
-  static constexpr int D = D_;
-  static constexpr int BQ = TM;                   // q rows of a block, 16 per warp
-  static constexpr int NW = BQ / 16;              // 4 warps
-  static constexpr int BKV = D <= 128 ? 64 : 32;  // kv rows of a streamed K / V tile
-  static constexpr int P = D + 8;                 // shared row pitch, elements
-  static constexpr int NT_S = BKV / 8;            // n-tiles of a warp's S and dP
-  static constexpr int NT_D = D / 8;              // n-tiles of a warp's dQ
-  static constexpr int SMEM_BYTES = (2 * BQ + 4 * BKV) * P * 2;  // Q, dO; K and V double-buffered
-};
-
 // dq, 16-bit inputs: one block of 4 warps per (64-row q tile, q head, batch
-// row), each warp owning 16 q rows for the whole kv loop (the forward's
-// shape). Q and dO are staged once and read by ldmatrix per k-step (held in
-// registers they would leave no room beside dQ, S and dP at D 128); K / V
-// tiles arrive double-buffered by cp.async, zero past kv_valid.
+// row), on bwd_mma.cuh's dq tiles (DqMmaCfg: Q and dO staged once, K / V
+// tiles double-buffered, zero past kv_valid).
 template <typename T, int D, bool DROP, bool EXTRA>
 __global__ void __launch_bounds__(DqMmaCfg<D>::NW * 32) dq_mma_kernel(const BwdParams p) {
   using C = DqMmaCfg<D>;
@@ -389,7 +375,7 @@ __global__ void __launch_bounds__(DqMmaCfg<D>::NW * 32) dq_mma_kernel(const BwdP
   const int hk = h / (p.Hq / p.Hkv);
   const int q_len = p.lens[2 * b], kv_len = p.lens[2 * b + 1];
   const int q_valid = min(p.Sq, q_len - p.q_off);
-  const int lane = threadIdx.x % 32, w = threadIdx.x / 32, g = lane / 4, t = lane % 4;
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32, g = lane / 4;
 
   const T* kp = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const T* vp = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
@@ -414,108 +400,29 @@ __global__ void __launch_bounds__(DqMmaCfg<D>::NW * 32) dq_mma_kernel(const BwdP
 #pragma unroll
     for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
 
+  auto load = [&](int i, T* K, T* V) {
+    cp_rows<C>(K, kp, p.k_ss, k_begin + i * C::BKV, C::BKV, kr.kv_valid);
+    cp_rows<C>(V, vp, p.v_ss, k_begin + i * C::BKV, C::BKV, kr.kv_valid);
+  };
   if (n_tiles > 0) {
     cp_rows<C>(Qs, static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_ss, q0, C::BQ,
                q_valid);
     cp_rows<C>(dOs, static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh, p.do_ss, q0,
                C::BQ, q_valid);
-    cp_rows<C>(kv_s, kp, p.k_ss, k_begin, C::BKV, kr.kv_valid);
-    cp_rows<C>(kv_s + C::BKV * C::P, vp, p.v_ss, k_begin, C::BKV, kr.kv_valid);
+    load(0, kv_s, kv_s + C::BKV * C::P);
     cp_async_commit();
   }
-#pragma unroll 1
-  for (int i = 0; i < n_tiles; ++i) {
+  dq_kv_loop<C, T>(kv_s, n_tiles, load, [&](int i, const T* Ks, const T* Vs) {
     const int k0 = k_begin + i * C::BKV;
-    cp_async_wait<0>();
-    __syncthreads();  // tile i has landed; every warp is done with tile i - 1
-    if (i + 1 < n_tiles) {
-      T* nxt = kv_s + ((i + 1) & 1) * 2 * C::BKV * C::P;
-      cp_rows<C>(nxt, kp, p.k_ss, k0 + C::BKV, C::BKV, kr.kv_valid);
-      cp_rows<C>(nxt + C::BKV * C::P, vp, p.v_ss, k0 + C::BKV, C::BKV, kr.kv_valid);
-      cp_async_commit();
-    }
-    const T* Ks = kv_s + (i & 1) * 2 * C::BKV * C::P;
-    const T* Vs = Ks + C::BKV * C::P;
-
-    // S = Q K^T and dP = dO V^T: the warp's 16 rows x BKV keys.
-    float sc[C::NT_S][4], dp[C::NT_S][4];
-#pragma unroll
-    for (int n = 0; n < C::NT_S; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t aq[4], ao[4];
-      const int a_off = (w * 16 + lane % 16) * C::P + kk * 16 + (lane / 16) * 8;
-      ldsm_x4(aq, Qs + a_off);
-      ldsm_x4(ao, dOs + a_off);
-#pragma unroll
-      for (int np = 0; np < C::NT_S / 2; ++np) {
-        const int off = (np * 16 + lane % 8 + (lane / 16) * 8) * C::P + kk * 16 +
-                        ((lane / 8) % 2) * 8;
-        uint32_t bk[4], bv[4];
-        ldsm_x4(bk, Ks + off);
-        ldsm_x4(bv, Vs + off);
-        mma16816<T>(sc[2 * np], aq, bk[0], bk[1]);
-        mma16816<T>(sc[2 * np + 1], aq, bk[2], bk[3]);
-        mma16816<T>(dp[2 * np], ao, bv[0], bv[1]);
-        mma16816<T>(dp[2 * np + 1], ao, bv[2], bv[3]);
-      }
-    }
-
-    // ds at each accumulator element's (row, column) (element e: row
-    // g + 8 (e / 2), column 2 t + e % 2), in place of dp.
     const bool free_tile = !EXTRA && k0 >= kr.free_lo && k0 + C::BKV <= kr.free_hi;
-#pragma unroll
-    for (int n = 0; n < C::NT_S; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = q0 + w * 16 + g + (e / 2) * 8, c = k0 + n * 8 + 2 * t + (e % 2);
-        pair_elem<DROP, EXTRA>(p, b, h, r, c, q_len, kv_len, free_tile, lse[e / 2], delta[e / 2],
-                               sc[n][e], dp[n][e]);
-      }
-
-    // dQ += dS K: dS rounded to T and repacked from the accumulators into A
-    // fragments, K by ldmatrix.trans.
-#pragma unroll
-    for (int kk = 0; kk < C::BKV / 16; ++kk) {
-      const uint32_t a[4] = {pack2<T>(dp[2 * kk][0], dp[2 * kk][1]),
-                             pack2<T>(dp[2 * kk][2], dp[2 * kk][3]),
-                             pack2<T>(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-                             pack2<T>(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
-#pragma unroll
-      for (int np = 0; np < C::NT_D / 2; ++np) {
-        uint32_t bk[4];
-        ldsm_x4_t(bk, Ks + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * C::P + np * 16 +
-                          (lane / 16) * 8);
-        mma16816<T>(dq[2 * np], a, bk[0], bk[1]);
-        mma16816<T>(dq[2 * np + 1], a, bk[2], bk[3]);
-      }
-    }
-  }
-
-  // dq = dq_mul * acc in T: a warp's rows go through its own q rows of
-  // shared memory, which no other warp reads, then out as 16-byte stores.
-  __syncwarp();
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int r = w * 16 + g + 8 * hr;
-#pragma unroll
-    for (int n = 0; n < C::NT_D; ++n) {
-      *reinterpret_cast<uint32_t*>(Qs + r * C::P + n * 8 + 2 * t) =
-          pack2<T>(dq[n][2 * hr] * p.dq_mul, dq[n][2 * hr + 1] * p.dq_mul);
-    }
-  }
-  __syncwarp();
-  T* out = static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
-  constexpr int CH = D / 8;
-  for (int i = lane; i < 16 * CH; i += 32) {
-    const int r = w * 16 + i / CH, c = (i % CH) * 8;
-    if (q0 + r < p.Sq) {
-      *reinterpret_cast<uint4*>(out + (long long)(q0 + r) * p.dq_ss + c) =
-          *reinterpret_cast<const uint4*>(Qs + r * C::P + c);
-    }
-  }
+    auto elem = [&](int r, int c, int hr, float& sc, float& dp) {
+      pair_elem<DROP, EXTRA>(p, b, h, q0 + r, k0 + c, q_len, kv_len, free_tile, lse[hr],
+                             delta[hr], sc, dp);
+    };
+    dq_mma_tile<C, T>(Qs, dOs, Ks, Vs, elem, dq);
+  });
+  dq_mma_store<C, T>(dq, Qs, static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh + q0 * p.dq_ss,
+                     p.dq_ss, p.Sq - q0, p.dq_mul);
 }
 
 // dk/dv, 16-bit inputs: one block of 8 warps per (MmaCfg::BKV kv rows, kv
@@ -569,17 +476,7 @@ __global__ void __launch_bounds__(THREADS, 1) dkdv_mma_kernel(const BwdParams p)
       const long long row0 = ((long long)b * p.Hq + h) * p.Sq;
       mma_load_q<C, T>(p, s, i & 1, b, h, r0, q_valid, p.lse + row0, p.delta + row0);
     };
-    issue(0);
-    cp_async_commit();
-    for (int i = 0; i < total; ++i) {
-      if (i + 1 < total) {
-        issue(i + 1);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
+    mma_q_loop(total, issue, [&](int i) {
       const int h = hk * group + i / nqt, r0 = ra + (i % nqt) * C::BQ;
       const bool free_tile = all_kept(r0);
       // h is the q head of this group member, r0 + qr the q row: the
@@ -590,8 +487,7 @@ __global__ void __launch_bounds__(THREADS, 1) dkdv_mma_kernel(const BwdParams p)
                                sc, dp);
       };
       mma_q_step<C, T, false>(s, i & 1, elem, dk, dv);
-      __syncthreads();  // buffer i & 1 fully consumed before tile i + 2 lands in it
-    }
+    });
   }
   const int rows = min(C::BKV, p.Sk - k0);
   mma_store_kv<C, T>(dk, static_cast<T*>(p.dk) + b * p.dk_sb + hk * p.dk_sh + k0 * p.dk_ss,

@@ -20,13 +20,13 @@
 // over it, so each block finds the entries of its user block and loops over
 // them itself:
 //   * varlen_fwd / varlen_dq: one block per (64-row q tile, q head); for
-//     each entry of its user q block, a loop over that kv block's 32-row KV
-//     tiles, up to kv_len and the causal edge of the tile's last live row;
+//     each entry of its user q block, a loop over that kv block's KV tiles,
+//     up to kv_len and the causal edge of the tile's last live row;
 //   * varlen_dkdv: one block per (64-row kv tile, kv head); for each entry
 //     of its user kv block (column 7 is the GQA group index), a loop over
-//     that q block's 32-row q tiles, from the causal edge to q_len. dk and
-//     dv are summed over the whole group inside the block: no atomics, and
-//     every run is bitwise repeatable.
+//     that q block's q tiles, from the causal edge to q_len. dk and dv are
+//     summed over the whole group inside the block: no atomics, and every
+//     run is bitwise repeatable.
 // Each CUDA tile nests in one user block (the wrapper checks block_q and
 // block_kv are multiples of 64), so the block mask and the alignment stay
 // defined at the user's blocks. Every tile of the stream is written: a tile
@@ -50,12 +50,43 @@
 // Bound on the H100: at document lengths of hundreds to thousands of
 // tokens, compute (4 D flops per kept (row, column) pair and head forward,
 // 6 D for dq, 8 D for dk/dv, against 2-4 bytes per element moved), so the
-// roof is the tensor cores. This first version runs the same fp32 CUDA-core
-// tile math as flash_fwd.cu and flash_bwd.cu (attn_tiles.cuh) and, like
-// them, loads no tile past kv_len, q_len or the causal edge; the work list
-// keeps filtered and causally dead blocks out of the loops altogether.
-// wgmma + TMA is later work.
-#include "attn_tiles.cuh"
+// roof is the tensor cores. Two designs, by input type:
+//
+// bf16 / fp16 inputs, dq and dk/dv: mma.sync.m16n8k16 tiles with fp32
+// accumulation, the dense pair's (flash_bwd.cu, bwd_mma.cuh) with the
+// varlen key and q ranges. JAX rounds ds before ds k (varlen.py:439) and p
+// and ds before p^T do and ds^T q (l.519, l.524): so do these kernels.
+//   * varlen_mma_dq_kernel: one block of 4 warps per (64-row q tile, q
+//     head) on bwd_mma.cuh's dq tiles (Q and dO staged once, K / V tiles of
+//     64 rows, 32 at D 256, double-buffered by cp.async). The block walks
+//     the (entry, kv tile) pairs of its user q block as one flat loop, so
+//     the next tile's copies always overlap this one's products: a cursor
+//     per stream (the copies run one tile ahead of the products) steps over
+//     entries whose key range is empty for this tile.
+//   * varlen_mma_dkdv_kernel: one block per (64-row kv tile, kv head) on
+//     bwd_mma.cuh's mma_q_step (dK and dV in registers; q / do / lse /
+//     delta tiles double-buffered), walking the (entry, 64-row q tile)
+//     pairs of its user kv block the same way. 64 kv rows (4 warps at D <=
+//     128, 8 at D 256, two splitting D), not the dense kernel's 128: the
+//     user blocks are multiples of 64, so a 64-row tile never straddles two
+//     of them (two documents), whatever block_kv the caller picked.
+//   * The scale rides on the fp32 score accumulator (never folded into a
+//     rounded q or k), dq and dk take it once at the store; an element is
+//     kept by row < q_len, col < kv_len and the causal rule, and masked
+//     elements are selected to 0; a tile whose elements are all kept skips
+//     the test. Rows past q_len and keys past kv_len are zero-filled by
+//     cp.async (the tensor cores give 0 x NaN = NaN), dead q rows get lse =
+//     -inf (p = ds = 0).
+//   * Heaviest tiles first: causal documents of 64-4096 tokens give tiles
+//     whose work differs by up to 64x, so the host hands each grid its
+//     tiles sorted by the work their loops cover (ops/varlen.py:_tile_order,
+//     ties by index), all heads of a tile next to each other.
+// fp32 inputs (no TF32), and the forward for every type: the fp32 CUDA-core
+// tile math of flash_fwd.cu's and flash_bwd.cu's FMA kernels
+// (attn_tiles.cuh), which, like them, loads no tile past kv_len, q_len or
+// the causal edge; the work list keeps filtered and causally dead blocks
+// out of the loops altogether.
+#include "bwd_mma.cuh"
 
 namespace fa2 {
 namespace {
@@ -73,6 +104,7 @@ struct VarlenParams {
   void* dv;
   const int* work;     // [n, 8] int32 work list (ops/varlen.py)
   const int* rowptr;   // [T / block + 1] CSR row pointer over it
+  const int* order;    // [T / 64] the 64-row tiles, heaviest first (16-bit dq, dk/dv)
   long long q_sh, q_ss, k_sh, k_ss, v_sh, v_ss, do_sh, do_ss;
   long long o_sh, o_ss, dq_sh, dq_ss, dk_sh, dk_ss, dv_sh, dv_ss;
   int Hq, Hkv, T, block_q, block_kv, causal;
@@ -239,33 +271,241 @@ __global__ void __launch_bounds__(THREADS) varlen_dkdv_kernel(const VarlenParams
   store_tile<T, D>(dv_acc, static_cast<T*>(p.dv) + hk * p.dv_sh + k0 * p.dv_ss, p.dv_ss, TM, 1.f);
 }
 
+// A cursor over the flat (entry, tile) loop of a 16-bit backward block: the
+// entry e of the block's user block and the tile j of n in it. walk_from /
+// walk_next skip entries with no tile (count(e) == 0).
+struct Walk {
+  int e, j, n;
+};
+
+template <class Count>
+__device__ __forceinline__ void walk_from(Walk& c, int e, int e_hi, const Count& count) {
+  c.j = 0;
+  for (c.e = e; c.e < e_hi && (c.n = count(c.e)) == 0; ++c.e) {
+  }
+}
+
+template <class Count>
+__device__ __forceinline__ void walk_next(Walk& c, int e_hi, const Count& count) {
+  if (++c.j < c.n) return;
+  walk_from(c, c.e + 1, e_hi, count);
+}
+
+// dq, 16-bit inputs: one block of 4 warps per (64-row q tile p.order[y], q
+// head x) on bwd_mma.cuh's dq tiles. Entry e covers the keys [0, hi) of its
+// kv block, hi cut at kv_len and at the causal edge of the tile's last live
+// row; its tiles of BKV keys and those of the next entries form one
+// double-buffered loop.
+template <typename T, int D, bool DROP>
+__global__ void __launch_bounds__(DqMmaCfg<D>::NW * 32) varlen_mma_dq_kernel(const VarlenParams p) {
+  using C = DqMmaCfg<D>;
+  static_assert(C::BQ == TM, "the host's 64-row tiles");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);  // [BQ][P]
+  T* dOs = Qs + C::BQ * C::P;              // [BQ][P]
+  T* kv_s = dOs + C::BQ * C::P;            // buffer j: K at 2 j BKV rows, V BKV rows on
+  const int h = blockIdx.x, q0 = p.order[blockIdx.y] * C::BQ, hk = h / (p.Hq / p.Hkv);
+  const TileSeg t = tile_seg(p, q0, p.block_q, 2, 4);
+  const int qlen = t.len;
+  const uint32_t seed_h = counter_hash_u32(p.drop.seed, (uint32_t)h);
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32, g = lane / 4;
+
+  auto count = [&](int e) {
+    const int* we = p.work + 8 * e;
+    int hi = min(p.block_kv, we[5] - we[3]);
+    if (p.causal) hi = min(hi, t.first + t.live - 1 + (we[5] - qlen) + 1 - we[3]);
+    return hi > 0 ? (hi + C::BKV - 1) / C::BKV : 0;
+  };
+  int n_tiles = 0;
+  for (int e = t.live > 0 ? t.e_lo : t.e_hi; e < t.e_hi; ++e) n_tiles += count(e);
+
+  // lse and delta of rows g and g + 8 of the warp's 16; dead rows get lse =
+  // -inf, so every element of theirs gives p = ds = 0.
+  float lse[2], delta[2];
+  const long long row0 = (long long)h * p.T + q0;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = w * 16 + g + 8 * hr;
+    const bool ok = r < t.live;
+    lse[hr] = ok ? p.lse[row0 + r] : neg_inf();
+    delta[hr] = ok ? p.delta[row0 + r] : 0.f;
+  }
+  float dq[C::NT_D][4];
+#pragma unroll
+  for (int n = 0; n < C::NT_D; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+
+  const T* kbase = static_cast<const T*>(p.k) + hk * p.k_sh;
+  const T* vbase = static_cast<const T*>(p.v) + hk * p.v_sh;
+  Walk nxt, cur;  // the tile whose copies go out next; the tile computed next
+  walk_from(nxt, t.e_lo, t.e_hi, count);
+  cur = nxt;
+  auto load = [&](int, T* K, T* V) {
+    const int* we = p.work + 8 * nxt.e;
+    const long long kb0 = (long long)we[1] * p.block_kv;  // packed row of the block's first key
+    const int kv_valid = min(p.block_kv, we[5] - we[3]);
+    cp_rows<C>(K, kbase + kb0 * p.k_ss, p.k_ss, nxt.j * C::BKV, C::BKV, kv_valid);
+    cp_rows<C>(V, vbase + kb0 * p.v_ss, p.v_ss, nxt.j * C::BKV, C::BKV, kv_valid);
+    walk_next(nxt, t.e_hi, count);
+  };
+  if (n_tiles > 0) {
+    cp_rows<C>(Qs, static_cast<const T*>(p.q) + h * p.q_sh, p.q_ss, q0, C::BQ, q0 + t.live);
+    cp_rows<C>(dOs, static_cast<const T*>(p.dout) + h * p.do_sh, p.do_ss, q0, C::BQ,
+               q0 + t.live);
+    load(0, kv_s, kv_s + C::BKV * C::P);
+    cp_async_commit();
+  }
+  dq_kv_loop<C, T>(kv_s, n_tiles, load, [&](int, const T* Ks, const T* Vs) {
+    const int* we = p.work + 8 * cur.e;
+    const int kv_lo = we[3], kv_valid = min(p.block_kv, we[5] - we[3]), shift = we[5] - qlen;
+    const int k0 = cur.j * C::BKV, col0 = we[1] * p.block_kv + k0;  // packed column of key 0
+    // Real keys, all at or left of the first row's diagonal: every live row
+    // keeps every key.
+    const bool free_tile =
+        k0 + C::BKV <= kv_valid && (!p.causal || kv_lo + k0 + C::BKV - 1 <= t.first + shift);
+    auto elem = [&](int r, int c, int hr, float& sc, float& dp) {
+      const bool keep = free_tile || (k0 + c < kv_valid &&
+                                      (!p.causal || kv_lo + k0 + c <= t.first + r + shift));
+      float pr, ds;
+      grad_plain(sc * p.scale_log2, dp, lse[hr], delta[hr], keep,
+                 packed_drop_at<DROP>(p, seed_h, q0 + r, col0 + c), pr, ds);
+      sc = pr;
+      dp = ds;
+    };
+    dq_mma_tile<C, T>(Qs, dOs, Ks, Vs, elem, dq);
+    walk_next(cur, t.e_hi, count);
+  });
+  dq_mma_store<C, T>(dq, Qs, static_cast<T*>(p.dq) + h * p.dq_sh + (long long)q0 * p.dq_ss,
+                     p.dq_ss, C::BQ, p.scale);
+}
+
+// The 16-bit dk/dv kernel's tiles: 64 kv rows, 4 warps at D <= 128 (each 16
+// kv rows, all of D), 8 at D 256 (two per 16 rows, each half of D); no dS^T.
+template <int D>
+using VarlenKvCfg = MmaCfg<D, 64, (D <= 128 ? 4 : 8), false>;
+
+// dk/dv, 16-bit inputs: one block per (64-row kv tile p.order[y], kv head
+// x). Entry e (a q block of group member w[7]) covers its q rows [r_lo,
+// r_hi): from the first that sees the tile's first live column to q_len;
+// its 64-row q tiles from r_lo rounded down and those of the next entries
+// form one double-buffered loop through mma_q_step.
+template <typename T, int D, bool DROP>
+__global__ void __launch_bounds__(VarlenKvCfg<D>::NW * 32, 1)
+    varlen_mma_dkdv_kernel(const VarlenParams p) {
+  using C = VarlenKvCfg<D>;
+  static_assert(C::BKV == TM && C::BQ == TM, "the host's 64-row tiles");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const MmaSmem<T> s = mma_smem<C, T>(smem_raw);
+  const int hk = blockIdx.x, k0 = p.order[blockIdx.y] * C::BKV, group = p.Hq / p.Hkv;
+  const TileSeg t = tile_seg(p, k0, p.block_kv, 3, 5);
+  const int kvlen = t.len;
+
+  // The q rows of entry e: [ra, r_hi) in q tiles of BQ (returned: their
+  // count), ra = r_lo rounded down to a tile.
+  auto rows = [&](int e, int& ra, int& r_hi) {
+    const int* we = p.work + 8 * e;
+    r_hi = min(p.block_q, we[4] - we[2]);
+    const int r_lo = p.causal ? max(0, t.first - (kvlen - we[4]) - we[2]) : 0;
+    ra = (r_lo / C::BQ) * C::BQ;
+    return r_hi > r_lo ? (r_hi - ra + C::BQ - 1) / C::BQ : 0;
+  };
+  auto count = [&](int e) {
+    int ra, r_hi;
+    return rows(e, ra, r_hi);
+  };
+  int n_tiles = 0;
+  for (int e = t.live > 0 ? t.e_lo : t.e_hi; e < t.e_hi; ++e) n_tiles += count(e);
+
+  float dk[C::NT_KV][4], dv[C::NT_KV][4];
+  mma_zero_kv<C>(dk, dv);
+  if (n_tiles > 0) {
+    cp_rows<C>(s.K, static_cast<const T*>(p.k) + hk * p.k_sh, p.k_ss, k0, C::BKV, k0 + t.live);
+    cp_rows<C>(s.V, static_cast<const T*>(p.v) + hk * p.v_sh, p.v_ss, k0, C::BKV, k0 + t.live);
+    Walk nxt, cur;  // the q tile whose copies go out next; the q tile computed next
+    walk_from(nxt, t.e_lo, t.e_hi, count);
+    cur = nxt;
+    auto issue = [&](int i) {
+      const int* we = p.work + 8 * nxt.e;
+      int ra, r_hi;
+      rows(nxt.e, ra, r_hi);
+      const int h = hk * group + we[7];  // the q head: the forward's stream
+      const long long qb0 = (long long)we[0] * p.block_q;  // packed row of the block's first query
+      const long long row0 = (long long)h * p.T + qb0;
+      mma_load_q_rows<C, T>(s, i & 1, static_cast<const T*>(p.q) + h * p.q_sh + qb0 * p.q_ss,
+                            p.q_ss, static_cast<const T*>(p.dout) + h * p.do_sh + qb0 * p.do_ss,
+                            p.do_ss, p.lse + row0, p.delta + row0, ra + nxt.j * C::BQ, r_hi);
+      walk_next(nxt, t.e_hi, count);
+    };
+    mma_q_loop(n_tiles, issue, [&](int i) {
+      const int* we = p.work + 8 * cur.e;
+      int ra, r_hi;
+      rows(cur.e, ra, r_hi);
+      const int q_lo = we[2], qlen = we[4], shift = kvlen - qlen, r0 = ra + cur.j * C::BQ;
+      const int row0 = we[0] * p.block_q + r0;  // packed row of the q tile's first row
+      const uint32_t seed_h = counter_hash_u32(p.drop.seed, (uint32_t)(hk * group + we[7]));
+      // Live kv rows and q rows, the tile's last column at or left of the
+      // first q row's diagonal: every element kept.
+      const bool free_tile = t.live == C::BKV && r0 + C::BQ <= r_hi &&
+                             (!p.causal || t.first + C::BKV - 1 <= q_lo + r0 + shift);
+      auto elem = [&](int kr, int qr, float lse, float delta, float& sc, float& dp) {
+        const int row = q_lo + r0 + qr, col = t.first + kr;
+        const bool keep =
+            free_tile || (kr < t.live && row < qlen && (!p.causal || col <= row + shift));
+        float pr, ds;
+        grad_plain(sc * p.scale_log2, dp, lse, delta, keep,
+                   packed_drop_at<DROP>(p, seed_h, row0 + qr, k0 + kr), pr, ds);
+        sc = pr;
+        dp = ds;
+      };
+      mma_q_step<C, T, false>(s, i & 1, elem, dk, dv);
+      walk_next(cur, t.e_hi, count);
+    });
+  }
+  mma_store_kv<C, T>(dk, static_cast<T*>(p.dk) + hk * p.dk_sh + (long long)k0 * p.dk_ss, p.dk_ss,
+                     C::BKV, p.scale);
+  mma_store_kv<C, T>(dv, static_cast<T*>(p.dv) + hk * p.dv_sh + (long long)k0 * p.dv_ss, p.dv_ss,
+                     C::BKV, 1.f);
+}
+
 enum Kernel : int { kFwd = 0, kDq = 1, kDkDv = 2 };
 
 template <typename K>
-cudaError_t launch_kernel(K kernel, int smem_floats, dim3 grid, const VarlenParams& p,
+cudaError_t launch_kernel(K kernel, int smem_bytes, dim3 grid, int threads, const VarlenParams& p,
                           cudaStream_t stream) {
-  const int smem = smem_floats * (int)sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (e != cudaSuccess) return e;
-  kernel<<<grid, THREADS, smem, stream>>>(p);
+  kernel<<<grid, threads, smem_bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
+// The forward: the FMA kernel for every input type. The backward: the FMA
+// kernels for fp32, the tensor-core ones for bf16 / fp16 (no path back to
+// the FMA ones); grid x the head, y the tile (in p.order for the latter).
 template <typename T, int D, bool DROP>
 cudaError_t launch_kernels(const VarlenParams& p, int which, cudaStream_t stream) {
   const int tiles = p.T / TM;
-  switch (which) {
-    case kFwd:
-      return launch_kernel(varlen_fwd_kernel<T, D, DROP>, fwd_smem_floats<D>(),
-                           dim3(tiles, p.Hq), p, stream);
-    case kDq:
-      return launch_kernel(varlen_dq_kernel<T, D, DROP>, dq_smem_floats<D>(),
-                           dim3(tiles, p.Hq), p, stream);
-    case kDkDv:
-      return launch_kernel(varlen_dkdv_kernel<T, D, DROP>, dkdv_smem_floats<D>(),
-                           dim3(tiles, p.Hkv), p, stream);
-    default:
-      return cudaErrorInvalidValue;
+  const int f = (int)sizeof(float);
+  if (which == kFwd) {
+    return launch_kernel(varlen_fwd_kernel<T, D, DROP>, fwd_smem_floats<D>() * f,
+                         dim3(tiles, p.Hq), THREADS, p, stream);
+  }
+  if (which != kDq && which != kDkDv) return cudaErrorInvalidValue;
+  if constexpr (std::is_same<T, float>::value) {
+    return which == kDq ? launch_kernel(varlen_dq_kernel<T, D, DROP>, dq_smem_floats<D>() * f,
+                                        dim3(tiles, p.Hq), THREADS, p, stream)
+                        : launch_kernel(varlen_dkdv_kernel<T, D, DROP>,
+                                        dkdv_smem_floats<D>() * f, dim3(tiles, p.Hkv), THREADS,
+                                        p, stream);
+  } else {
+    if (p.order == nullptr) return cudaErrorInvalidValue;
+    using QC = DqMmaCfg<D>;
+    using KC = VarlenKvCfg<D>;
+    return which == kDq ? launch_kernel(varlen_mma_dq_kernel<T, D, DROP>, QC::SMEM_BYTES,
+                                        dim3(p.Hq, tiles), QC::NW * 32, p, stream)
+                        : launch_kernel(varlen_mma_dkdv_kernel<T, D, DROP>, KC::SMEM_BYTES,
+                                        dim3(p.Hkv, tiles), KC::NW * 32, p, stream);
   }
 }
 
@@ -291,21 +531,25 @@ cudaError_t launch_d(const VarlenParams& p, int which, int D, cudaStream_t strea
 // One entry for the three kernels (`which`: 0 forward, 1 dq, 2 dk/dv; the
 // forward reads q, k, v and writes o, lse; the backward kernels read q, k,
 // v, do, lse, delta and write dq or dk / dv). `work` / `rowptr` are the
-// q-major table for 0 and 1, the kv-major one for 2. `strides` holds, in
-// elements, the head and row strides of q, k, v, do, o, dq, dk, dv (16
-// values; the batch dim is 1). T must be a multiple of 64, block_q and
-// block_kv multiples of 64 that divide T.
+// q-major table for 0 and 1, the kv-major one for 2; `order` the T / 64
+// tiles of 64 rows, heaviest first (read by the 16-bit backward kernels,
+// which fail the launch without it; may be null otherwise). `strides`
+// holds, in elements, the head and row strides of q, k, v, do, o, dq, dk,
+// dv (16 values; the batch dim is 1). T must be a multiple of 64, block_q
+// and block_kv multiples of 64 that divide T. 16-bit q / k / v / do of the
+// backward: rows, strides and base pointers 16-byte aligned.
 extern "C" int fa2_varlen(
     int which, int dtype, int Hq, int Hkv, int T, int D,
     const void* q, const void* k, const void* v, const void* dout, void* o, float* lse,
     const float* delta, void* dq, void* dk, void* dv,
-    const int* work, const int* rowptr, const long long* strides,
+    const int* work, const int* rowptr, const int* order, const long long* strides,
     int block_q, int block_kv, int causal, float softmax_scale,
     int dropout, unsigned int drop_seed, unsigned int drop_threshold, float drop_scale,
     void* stream) {
   fa2::VarlenParams p;
   p.q = q; p.k = k; p.v = v; p.dout = dout; p.o = o; p.lse = lse; p.delta = delta;
   p.dq = dq; p.dk = dk; p.dv = dv; p.work = work; p.rowptr = rowptr;
+  p.order = order;
   const long long* s = strides;
   p.q_sh = s[0]; p.q_ss = s[1]; p.k_sh = s[2]; p.k_ss = s[3];
   p.v_sh = s[4]; p.v_ss = s[5]; p.do_sh = s[6]; p.do_ss = s[7];

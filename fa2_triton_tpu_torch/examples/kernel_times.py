@@ -6,7 +6,8 @@
     schedule: the diag and one merged rectangle) and by the generic kernel;
   * the packed varlen forward, dq and dk/dv kernels on the packed batch of
     `chip_smoke.py`'s phase 8 (documents of log-uniform length 64-4096 from
-    `numpy.random.default_rng(0)`, packed into T <= 16384 at block 128).
+    `numpy.random.default_rng(0)`, packed into T <= 16384 at block 128), and
+    the whole packed backward call by CUDA events.
 
     python fa2_triton_tpu_torch/examples/kernel_times.py [--dropout P] [--root DIR]
 
@@ -29,6 +30,13 @@ import sys
 import numpy as np
 
 
+# The packed backward's kernels under their names in either version: the
+# FMA kernels (every input type before the tensor-core ones; fp32 since) and
+# the tensor-core ones of bf16 / fp16 inputs. Times are filed under the first.
+VARLEN_BWD_NAMES = (("varlen_dq_kernel", "varlen_mma_dq_kernel"),
+                    ("varlen_dkdv_kernel", "varlen_mma_dkdv_kernel"))
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dropout", type=float, default=0.0, help="dropout_p (seed 1234567)")
@@ -41,7 +49,9 @@ def parse_args(argv=None):
 def device_ms(torch, fn, names, iters):
     """Profiler device time per call of each kernel whose name contains one
     of `names` (each launches once per call of `fn`); each kernel must show
-    exactly `iters` launches, or the time would be a partial record's."""
+    exactly `iters` launches, or the time would be a partial record's. A
+    name may be a tuple of the names one kernel has in different versions
+    (the time is filed under its first)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -52,7 +62,9 @@ def device_ms(torch, fn, names, iters):
         torch.cuda.synchronize()
     out = {}
     for name in names:
-        hits = [e for e in prof.key_averages() if name in e.key]
+        alts = name if isinstance(name, tuple) else (name,)
+        name = alts[0]
+        hits = [e for e in prof.key_averages() if any(a in e.key for a in alts)]
         us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
                  for e in hits)
         n = sum(e.count for e in hits)
@@ -143,7 +155,9 @@ def main(argv=None) -> int:
                          ("varlen_fwd_kernel",), args.iters))
     out.update(device_ms(
         torch, lambda: varlen.flash_attn_varlen_backward(qp, kp, vp, dop, op, lsep, *seg, **pkw),
-        ("varlen_dq_kernel", "varlen_dkdv_kernel"), args.iters))
+        VARLEN_BWD_NAMES, args.iters))
+    out["varlen_bwd_call_ms"] = events_ms(torch, lambda: varlen.flash_attn_varlen_backward(
+        qp, kp, vp, dop, op, lsep, *seg, **pkw), args.iters)
     print(json.dumps(out))
     return 0
 

@@ -13,7 +13,10 @@ On the GPU the kernels of `csrc/varlen.cu` read it as a launch table: the
 q-major list is sorted by packed q block, so a CSR row pointer over it gives
 each 64-row q tile (forward, dq) the entries of its user block; the
 kv-major list, with the GQA group index in column 7, does the same for each
-64-row kv tile (dk/dv).
+64-row kv tile (dk/dv). The backward's 16-bit (tensor-core) kernels also
+take the tiles heaviest first (`_tile_order`): causal documents of mixed
+length give tiles whose loops differ by up to 64x, and the long ones must
+not start last.
 
 Work-list row layout (int32, [n_steps, 8]):
   0: packed q block   1: packed kv block
@@ -51,15 +54,15 @@ import torch.nn.functional as F
 
 from fa2_triton_tpu_torch.ops import _build
 from fa2_triton_tpu_torch.ops.attention import pad_head_dim, pad_last, resolve_dropout_seed
-from fa2_triton_tpu_torch.ops.flash_bwd import _kernel_layout, compute_delta
+from fa2_triton_tpu_torch.ops.flash_bwd import _check_mma_rows, _mma_layout, compute_delta
 from fa2_triton_tpu_torch.ops.flash_fwd import _check_cuda_args, dropout_c_args
 from fa2_triton_tpu_torch.utils import (
     LOG2E, default_softmax_scale, packed_dropout_keep_mask, round_up_to_multiple)
 
 F_INIT, F_FINAL, F_MASKED = 1, 2, 4
 
-# The CUDA kernels' tiles (csrc/attn_tiles.cuh): 64-row output tiles
-# against 32-row streamed tiles; each must nest inside one user block.
+# The CUDA kernels' output tiles (csrc/varlen.cu): 64 rows, each nested in
+# one user block.
 TILE_ROWS = 64
 
 # Kernel launches since the last reset, per kernel (the smoke test reads
@@ -389,7 +392,7 @@ def _entry():
         fn = _build.load().fa2_varlen
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         U = ctypes.c_uint
-        fn.argtypes = [I] * 6 + [P] * 10 + [P, P, P] + [I] * 3 + [F] + [I, U, U, F, P]
+        fn.argtypes = [I] * 6 + [P] * 10 + [P] * 4 + [I] * 3 + [F] + [I, U, U, F, P]
         fn.restype = I
         _c_fn = fn
     return _c_fn
@@ -406,11 +409,47 @@ def _check_cuda_layout(q, k, v, block_q, block_kv):
                          f"got ({block_q}, {block_kv})")
 
 
+def _tile_work(work, T, block_q, block_kv, causal, kv_major=False) -> np.ndarray:
+    """[T // TILE_ROWS] int64: what the loops of the 16-bit backward kernel
+    cover for each 64-row tile, summed over the entries of its user block.
+    A q tile (dq) counts the keys [0, hi) of each entry's kv block that its
+    live rows need: up to kv_len and the causal edge of its last live row. A
+    kv tile (dk/dv, `kv_major`) counts the q rows of each entry's q block
+    that keep its first live column: from the causal edge to q_len. A tile
+    with no live row counts 0."""
+    w = np.asarray(work, np.int64).reshape(-1, 8)
+    block = block_kv if kv_major else block_q
+    sub = TILE_ROWS * np.arange(block // TILE_ROWS)
+    first = w[:, 3 if kv_major else 2, None] + sub          # the tile's first row in the segment
+    live = np.clip(w[:, 5 if kv_major else 4, None] - first, 0, TILE_ROWS)
+    shift = (w[:, 5] - w[:, 4])[:, None]
+    if kv_major:
+        rows_lo = np.maximum(0, first - shift - w[:, 2, None]) if causal else 0
+        amount = np.minimum(block_q, w[:, 4] - w[:, 2])[:, None] - rows_lo
+    else:
+        amount = np.minimum(block_kv, w[:, 5] - w[:, 3])[:, None]
+        if causal:
+            amount = np.minimum(amount, first + live + shift - w[:, 3, None])
+    amount = np.where(live > 0, np.maximum(amount, 0), 0)
+    tile = (w[:, 1 if kv_major else 0, None] * block + sub) // TILE_ROWS
+    return np.bincount(tile.ravel(), weights=amount.ravel(),
+                       minlength=T // TILE_ROWS).astype(np.int64)
+
+
+def _tile_order(work, T, block_q, block_kv, causal, kv_major=False) -> np.ndarray:
+    """The 64-row tiles of the packed stream heaviest first by `_tile_work`,
+    ties by index: a permutation of range(T // TILE_ROWS), int32."""
+    load = _tile_work(work, T, block_q, block_kv, causal, kv_major)
+    return np.argsort(-load, kind="stable").astype(np.int32)
+
+
 def _launch_table(segs, block_q, block_kv, causal, keep_block, T, device, kv_major=False,
-                  group=1):
-    """The work list on the device, and a CSR row pointer over it: the
-    entries of packed q block (kv block, when kv_major) u are rows
-    [rowptr[u], rowptr[u + 1])."""
+                  group=1, order=False):
+    """The work list, a CSR row pointer over it (the entries of packed q
+    block (kv block, when kv_major) u are rows [rowptr[u], rowptr[u + 1]))
+    and, with `order`, the tiles heaviest first (`_tile_order`), in one
+    int32 tensor on the device. Returns it and the addresses of the three
+    arrays (None for an order not asked for)."""
     starts = [s[0] for s in segs]
     work = _build_schedule(starts, [s[1] for s in segs], [s[2] for s in segs],
                            [s[3] for s in segs], block_q, block_kv, causal,
@@ -420,8 +459,12 @@ def _launch_table(segs, block_q, block_kv, causal, keep_block, T, device, kv_maj
         raise AssertionError("work list not sorted by its output block")
     n_blocks = T // (block_kv if kv_major else block_q)
     rowptr = np.searchsorted(keys, np.arange(n_blocks + 1), side="left").astype(np.int32)
-    return (torch.from_numpy(np.ascontiguousarray(work)).to(device),
-            torch.from_numpy(rowptr).to(device))
+    parts = [work.ravel(), rowptr]
+    if order:
+        parts.append(_tile_order(work, T, block_q, block_kv, causal, kv_major))
+    table = torch.from_numpy(np.concatenate(parts)).to(device)
+    base, n_work = table.data_ptr(), work.size
+    return table, (base, base + 4 * n_work, base + 4 * (n_work + rowptr.size) if order else None)
 
 
 def _launch(name: str, args) -> None:
@@ -463,11 +506,11 @@ def flash_attn_varlen_forward(
     lse = torch.empty((1, Hq, T), dtype=torch.float32, device=q.device)
     if T == 0 or Hq == 0:
         return o, lse
-    work, rowptr = _launch_table(segs, block_q, block_kv, causal, keep_block, T, q.device)
+    table, ptrs = _launch_table(segs, block_q, block_kv, causal, keep_block, T, q.device)
     _launch("varlen_fwd", (
         _build.DTYPE_CODES[q.dtype], Hq, Hkv, T, D,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None, o.data_ptr(), lse.data_ptr(), None,
-        None, None, None, work.data_ptr(), rowptr.data_ptr(),
+        None, None, None, *ptrs,
         ctypes.cast(_strides(q, k, v, None, o, None, None, None), ctypes.c_void_p),
         block_q, block_kv, int(bool(causal)), float(softmax_scale), *drop,
         _build.stream_ptr(q.device)))
@@ -503,7 +546,8 @@ def flash_attn_varlen_backward(
     if lse.shape != (1, Hq, T) or lse.dtype != torch.float32 or lse.device != q.device:
         raise ValueError("lse must be an fp32 [1, Hq, T] tensor on q's device")
     segs = _segments(seg_starts, T, seg_qlens, seg_kvlens, block_q, block_kv)
-    do = _kernel_layout(do)
+    do = _mma_layout(do)
+    _check_mma_rows(q=q, k=k, v=v)
     delta = compute_delta(o, do, lse, dlse)
     lse = lse.contiguous()
     dq = torch.empty((1, T, Hq, D), dtype=q.dtype, device=q.device).transpose(1, 2)
@@ -511,18 +555,29 @@ def flash_attn_varlen_backward(
     dv = torch.empty((1, T, Hkv, D), dtype=v.dtype, device=q.device).transpose(1, 2)
     if T == 0 or Hq == 0:
         return dq, dk, dv
+    _backward_launches(q, k, v, do, lse, delta, dq, dk, dv, segs, causal=causal,
+                       softmax_scale=softmax_scale, block_q=block_q, block_kv=block_kv,
+                       keep_block=keep_block, drop=drop)
+    return dq, dk, dv
+
+
+def _backward_launches(q, k, v, do, lse, delta, dq, dk, dv, segs, *, causal, softmax_scale,
+                       block_q, block_kv, keep_block, drop) -> None:
+    """The dq launch on the q-major table, then the dk/dv launch on the
+    kv-major one, each with its tiles heaviest first."""
+    _, Hq, T, D = q.shape
+    Hkv = k.shape[1]
     strides = ctypes.cast(_strides(q, k, v, do, None, dq, dk, dv), ctypes.c_void_p)
     common = (_build.DTYPE_CODES[q.dtype], Hq, Hkv, T, D,
               q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), None, lse.data_ptr(),
               delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
     tail = (block_q, block_kv, int(bool(causal)), float(softmax_scale), *drop,
             _build.stream_ptr(q.device))
-    work, rowptr = _launch_table(segs, block_q, block_kv, causal, keep_block, T, q.device)
-    _launch("varlen_dq", common + (work.data_ptr(), rowptr.data_ptr(), strides) + tail)
-    work, rowptr = _launch_table(segs, block_q, block_kv, causal, keep_block, T, q.device,
-                                 kv_major=True, group=Hq // Hkv)
-    _launch("varlen_dkdv", common + (work.data_ptr(), rowptr.data_ptr(), strides) + tail)
-    return dq, dk, dv
+    for name, kv_major in (("varlen_dq", False), ("varlen_dkdv", True)):
+        table, ptrs = _launch_table(segs, block_q, block_kv, causal, keep_block, T, q.device,
+                                    kv_major=kv_major, group=Hq // Hkv if kv_major else 1,
+                                    order=True)
+        _launch(name, common + (*ptrs, strides) + tail)
 
 
 # ---------------------------- public wrapper ------------------------------

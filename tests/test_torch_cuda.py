@@ -521,6 +521,32 @@ def test_varlen_kernels_with_q_len_ne_kv_len(dev, dtype, causal):
                   causal=causal, softmax_scale=0.1, block_q=128, block_kv=256)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("blocks", [(128, 64), (64, 64)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("G", [1, 4])
+def test_varlen_kernels_with_block_kv_64(dev, dtype, blocks, causal, G):
+    """block_kv 64 at D 128: every 64-row kv tile of the 16-bit dk/dv kernel
+    nests in one user block, and with starts aligned to 64 a 128-row tile
+    would straddle two documents."""
+    lens = (300, 1, 128, 77, 64)
+    starts, T = _varlen_layout(lens, blocks)
+    _varlen_check(dev, dtype, starts, lens, lens, T, 8, 8 // G, 128, seed=G + 2 * causal + 31,
+                  causal=causal, softmax_scale=128 ** -0.5, block_q=blocks[0], block_kv=blocks[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("dropout_p", [0.0, 0.1])
+def test_varlen_kernels_on_a_heavy_tailed_layout(dev, dtype, dropout_p):
+    """One causal document of 4096 tokens among many of 64 (and one of 37):
+    tiles whose loops differ by up to 64x, launched heaviest first."""
+    lens = (64, 64, 64, 4096, 64, 64, 37, 64, 64, 64, 64, 64)
+    starts, T = _varlen_layout(lens, (128, 128))
+    drop = dict(dropout_p=dropout_p, dropout_seed=77) if dropout_p else {}
+    _varlen_check(dev, dtype, starts, lens, lens, T, 8, 2, 128, seed=21, causal=True,
+                  softmax_scale=0.088, block_q=128, block_kv=128, **drop)
+
+
 BLOCKSPARSE_CASES = [
     # (block_q, block_kv, causal, mask over a 512-token segment)
     (128, 128, True, "random"),
@@ -910,7 +936,7 @@ def test_dropout_on_cuda_launches_the_kernels(dev):
         torch.testing.assert_close(b, a, rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("G", [1, 4])
 def test_varlen_dropout_kernels_match_plain(dev, dtype, D, G):
@@ -922,7 +948,7 @@ def test_varlen_dropout_kernels_match_plain(dev, dtype, D, G):
                   dropout_p=0.2, dropout_seed=D - 3 * G)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_blocksparse_dropout_kernels_match_plain(dev, dtype):
     import numpy as np
     from fa2_triton_tpu_torch.ops import varlen

@@ -159,7 +159,8 @@ def test_pair_wrapper_passes_the_kernels_tile_rows(monkeypatch, dtype):
     csrc = pathlib.Path(flash_bwd.__file__).resolve().parent.parent / "csrc"
     tm = int(re.search(r"constexpr int TM = (\d+);", (csrc / "attn_tiles.cuh").read_text())[1])
     src = (csrc / "flash_bwd.cu").read_text()
-    dq_cfg = src[src.index("struct DqMmaCfg"):src.index("};", src.index("struct DqMmaCfg"))]
+    tiles = (csrc / "bwd_mma.cuh").read_text()    # DqMmaCfg: the dq kernels' tiles
+    dq_cfg = tiles[tiles.index("struct DqMmaCfg"):tiles.index("};", tiles.index("struct DqMmaCfg"))]
     assert "static constexpr int BQ = TM;" in dq_cfg
     assert "int k_prescaled, int tile_rows, void* stream)" in src
     assert "if (p.tile_rows != TM ||" in src
