@@ -10,11 +10,12 @@ the CUDA toolkit. Phases (any failure raises, and the script exits nonzero):
    sm_90a (ptxas register / shared-memory report printed). Then a line per
    16-bit instantiation of the tensor-core kernels (the forward and the dq
    + dk/dv pair, with and without bias / softcap; the tri-square / diag and
-   work-list backward; the packed backward's dq and dk/dv; bf16 and fp16,
+   work-list backward; the packed forward, dq and dk/dv; bf16 and fp16,
    D 64 / 128 / 256, with and without dropout): ptxas
    registers and spills, and the HMMA instructions in its SASS (cuobjdump
    -sass of the built library); it fails where one has no tensor-core
-   instruction or a bf16 D 128 one of the trainers' spills.
+   instruction, a bf16 D 128 one of the trainers' spills, or any packed
+   forward spills.
 2. Hold each kernel against its plain PyTorch twin at the serving slice's
    shapes, in bf16 and fp32, and time both with CUDA events. The decode
    kernel also runs over int8 and fp8 caches (B5 quant) and over shuffled
@@ -52,9 +53,10 @@ the CUDA toolkit. Phases (any failure raises, and the script exits nonzero):
    counts reset just before (one launch of each varlen kernel); out, lse and
    gradients held against the fp32 and bf16 plain twins, dead positions
    exactly 0; kernel, plain and library times, each kernel's share of its
-   bound and its time over the library's, the backward's tensor-core
-   kernels at least 3x faster than their FMA design; packed against the
-   same documents right-padded through `flash_attn_func(attention_mask=...)`.
+   bound and its time over the library's, each tensor-core kernel at least
+   3x faster than its FMA design; the host time of the q-major and the
+   kv-major launch table apart; packed against the same documents
+   right-padded through `flash_attn_func(attention_mask=...)`.
 9. Block-sparse at the same widths (B 2, S 4096, a local band plus an
    attention sink) through `flash_attn_blocksparse_func`, checked and timed
    the same way, with flex_attention as the library yardstick.
@@ -1072,10 +1074,10 @@ def check_packed_path(torch, what, inputs, grads, out, lse, do32, packed32, seg,
     return errs, o32, refs
 
 
-# The packed kernels' names in the profiler for bf16 inputs: the forward's
-# FMA kernel and the backward's tensor-core pair (fp32 inputs keep the FMA
+# The packed kernels' names in the profiler for bf16 inputs: the tensor-core
+# forward, dq and dk/dv (fp32 inputs keep the FMA varlen_fwd_kernel /
 # varlen_dq_kernel / varlen_dkdv_kernel).
-VARLEN_KERNEL_NAMES = {"varlen_fwd": "varlen_fwd_kernel", "varlen_dq": "varlen_mma_dq_kernel",
+VARLEN_KERNEL_NAMES = {"varlen_fwd": "varlen_mma_fwd_kernel", "varlen_dq": "varlen_mma_dq_kernel",
                        "varlen_dkdv": "varlen_mma_dkdv_kernel"}
 
 
@@ -1140,14 +1142,37 @@ def print_packed_times(what, t, lib, entries):
 
 
 def beats_packed_fma(what, entries):
-    """Fail unless the packed backward's tensor-core kernels are
+    """Fail unless the packed tensor-core kernels (forward, dq, dk/dv) are
     VARLEN_SPEEDUP times faster than their FMA design at this phase's shape
     (the log line gives both)."""
-    for name in ("varlen_dq", "varlen_dkdv"):
+    for name in VARLEN_KERNEL_NAMES:
         key = f"{what}_{name.split('_')[1]}"
         print(f"[{what}] {VARLEN_KERNEL_NAMES[name]}: {entries[name]['ms']:.3f} ms (the FMA design: "
               f"{FMA_DESIGN_MS[key]} ms, to beat {VARLEN_SPEEDUP}x)")
         beats_fma_design(key, [entries[name]["ms"]], by=VARLEN_SPEEDUP)
+
+
+def launch_table_ms(torch, starts, lens, T, Hq, Hkv, reps=3):
+    """Host ms of the packed layout's q-major launch table (the forward's,
+    which dq takes) and of the kv-major one (dk/dv's), each built `reps`
+    times: `_build_schedule`, the row pointer, `_tile_order` and the copy
+    to the card, synchronized."""
+    from fa2_triton_tpu_torch.ops import varlen
+
+    blk, dev = VARLEN_BLOCK, torch.device("cuda")
+    segs = varlen._segments(starts, T, lens, lens, blk, blk)
+    out = {}
+    for name, kv_major in (("q-major", False), ("kv-major", True)):
+        runs = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            varlen._launch_table(segs, blk, blk, True, None, T, dev, kv_major=kv_major,
+                                 group=Hq // Hkv if kv_major else 1, order=True)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        out[name] = runs
+    return out
 
 
 def phase_varlen(torch, card: str):
@@ -1207,6 +1232,12 @@ def phase_varlen(torch, card: str):
     entries = varlen_entries(t, errs, lib, causal_pairs(lens), sum(lens))
     print_packed_times("varlen", t, lib, entries)
     beats_packed_fma("varlen", entries)
+    tables = launch_table_ms(torch, starts, lens, T, Hq, Hkv)
+    print(f"[varlen] host launch tables (host clock, 3 builds each): q-major (the forward's, "
+          f"which dq takes) {' / '.join(f'{x:.3f}' for x in tables['q-major'])} ms, kv-major "
+          f"(dk/dv's, built in the backward) {' / '.join(f'{x:.3f}' for x in tables['kv-major'])} ms")
+    entries["varlen_fwd"]["host_table_ms"] = tables["q-major"]
+    entries["varlen_dkdv"]["host_table_ms"] = tables["kv-major"]
 
     # The same documents right-padded to [n_docs, S_pad] through the dense
     # kernels with a padding mask: what packing saves (bench.py --mode varlen).
@@ -1508,7 +1539,9 @@ def dense_dropout(torch, card):
 def packed_dropout(torch, card):
     """Phase 8's packed batch through flash_attn_varlen_func with dropout:
     launches, FA rules against the plain twins with the same seed, dead
-    positions exactly 0, times with and without dropout."""
+    positions exactly 0, times with and without dropout, and each
+    tensor-core kernel VARLEN_SPEEDUP times faster than its FMA design with
+    dropout."""
     from fa2_triton_tpu_torch.ops import varlen
 
     dev = torch.device("cuda")
@@ -1558,6 +1591,7 @@ def packed_dropout(torch, card):
               f"dropout {t_d[key]:.3f} / {t_d2[key]:.3f} ms "
               f"({100 * ((t_d[key] + t_d2[key]) / (t_nd[key] + t_nd2[key]) - 1):+.1f} %)")
     print_packed_times("dropout varlen", t_d, lib, entries)
+    beats_packed_fma("varlen_dropout", entries)
     return launches, {f"{k}_dropout": e for k, e in entries.items()}
 
 
@@ -2290,18 +2324,28 @@ SPLIT_SPEEDUP = 3
 # the top of its range VARLEN_SPEEDUP times.
 FMA_DESIGN_MS.update({"varlen_dq": "17.334-17.387", "varlen_dkdv": "41.094-41.138",
                       "blocksparse_dq": "5.176-5.204", "blocksparse_dkdv": "15.3-19.7"})
+# The packed forward's FMA design (B7 as fp32 FMA tiles for every input
+# type), measured the same way by the earlier builds' runs of phases 8 and 9.
+FMA_DESIGN_MS.update({"varlen_fwd": "10.898-11.412", "blocksparse_fwd": "3.315-3.353"})
+# The same on phase 10's packed batch with dropout p 0.1 (the earlier builds' runs).
+FMA_DESIGN_MS.update({"varlen_dropout_fwd": "11.174-11.336", "varlen_dropout_dq": "17.29-17.53",
+                      "varlen_dropout_dkdv": "26.35-27.59"})
 VARLEN_SPEEDUP = 3
 
 # The 16-bit tensor-core kernels: the fused backward (csrc/bwd_mma.cuh's
 # tiles), the forward (csrc/flash_fwd.cu), the dq + dk/dv pair
-# (csrc/flash_bwd.cu) and the packed backward (csrc/varlen.cu); the template
+# (csrc/flash_bwd.cu) and the packed forward and backward (csrc/varlen.cu,
+# the forward on csrc/fwd_mma.cuh's tiles like flash_fwd.cu's); the template
 # flag after DROP of the forward's and the pair's puts bias and softcap in
 # their own instantiations, and the forward's last one (MERGE) the split's
 # merged rectangle. A mangled name gives each name its length just before
 # it, so the pattern asks for a digit there: the pair's names are not read
 # inside a longer one.
 MMA_KERNELS = ("bwd_tri_mma_kernel", "bwd_wl_mma_kernel", "flash_fwd_mma_kernel", "dq_mma_kernel",
-               "dkdv_mma_kernel", "varlen_mma_dq_kernel", "varlen_mma_dkdv_kernel")
+               "dkdv_mma_kernel", "varlen_mma_fwd_kernel", "varlen_mma_dq_kernel",
+               "varlen_mma_dkdv_kernel")
+# Kernels none of whose instantiations may spill.
+NO_SPILL_KERNELS = ("varlen_mma_fwd_kernel",)
 MMA_EXTRA = ("flash_fwd_mma_kernel", "dq_mma_kernel", "dkdv_mma_kernel")
 _MMA_NAME = re.compile(r"\d(" + "|".join(MMA_KERNELS) + r")I(13__nv_bfloat16|6__half)Li(\d+)ELb([01])E"
                        r"(?:Lb([01])E)?(?:Lb([01])E)?")
@@ -2365,9 +2409,10 @@ def mma_build_report() -> dict:
     instantiation of the two fused backward kernels, the forward and the dq
     + dk/dv pair (bf16 / fp16 x D 64 / 128 / 256 x dropout, and for the
     forward and the pair with and without bias / softcap, for the forward
-    also the split's merge); fails where one has no HMMA, or a bf16 D 128
-    one of the trainers' (the Qwen and Mistral shapes': no bias, no softcap;
-    the merge included) spills.
+    also the split's merge; the packed forward, dq and dk/dv); fails where
+    one has no HMMA, or a bf16 D 128 one of the trainers' (the Qwen and
+    Mistral shapes': no bias, no softcap; the merge included) or any one of
+    NO_SPILL_KERNELS spills.
     Returns {kernel: {instance: numbers}}."""
     from fa2_triton_tpu_torch.ops import _build
 
@@ -2390,7 +2435,8 @@ def mma_build_report() -> dict:
                   f"loads {ld} B, {n} HMMA in the SASS")
             if n == 0:
                 raise AssertionError(f"{inst}: no tensor-core instruction")
-            if dt == "bf16" and D == 128 and not extra and (st or ld):
+            if (st or ld) and (kernel in NO_SPILL_KERNELS or (dt == "bf16" and D == 128
+                                                               and not extra)):
                 raise AssertionError(f"{inst}: spills {st} / {ld} bytes")
             out[kernel][f"{dt} D{D}{' drop' if drop else ''}{' extra' if extra else ''}"
                         f"{' merge' if merge else ''}"] = {
@@ -2780,7 +2826,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     varlen_launches, varlen_kernels = phase_varlen(torch, card)
-    for name in ("varlen_dq", "varlen_dkdv"):
+    for name in VARLEN_KERNEL_NAMES:
         varlen_kernels[name]["build"] = mma[VARLEN_KERNEL_NAMES[name]]
     torch.cuda.empty_cache()
     bs_launches, bs_kernels = phase_blocksparse(torch)

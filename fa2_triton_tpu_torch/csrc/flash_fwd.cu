@@ -48,7 +48,8 @@
 // roof is the tensor cores (989 TFLOP/s bf16). Two kernels, one per input
 // type, both one block per (64-row q tile, q head, batch row):
 //
-// flash_fwd_mma_kernel, bf16 / fp16 inputs: 16-bit mma.sync tiles.
+// flash_fwd_mma_kernel, bf16 / fp16 inputs: 16-bit mma.sync tiles (the tile
+// step and the store in fwd_mma.cuh, shared with varlen.cu's packed forward).
 //   * 4 warps, each owning 16 q rows for the whole kv loop, so a row's
 //     softmax state (m, l) stays in one warp's registers: row max and row sum
 //     are quad shuffles, with no shared memory and no barrier.
@@ -90,7 +91,7 @@
 // tiles, a 4x2 score tile and a 4x(D/16) output tile per thread; KV tiles
 // beyond the causal limit or kv_len are never loaded.
 #include "attn_tiles.cuh"
-#include "mma_tiles.cuh"
+#include "fwd_mma.cuh"
 
 namespace fa2 {
 namespace {
@@ -241,29 +242,9 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FwdParams p) {
 
 // ---- 16-bit inputs: tensor-core tiles ---------------------------------------
 
-template <int D_>
-struct FwdMmaCfg {
-  static constexpr int D = D_;
-  static constexpr int BQ = TM;                   // q rows of a block, 16 per warp
-  static constexpr int NW = BQ / 16;              // 4 warps
-  static constexpr int BKV = D <= 128 ? 64 : 32;  // kv rows of a streamed K / V tile
-  static constexpr int P = D + 8;                 // shared row pitch, elements
-  static constexpr int NT_S = BKV / 8;            // n-tiles of a warp's S
-  static constexpr int NT_O = D / 8;              // n-tiles of a warp's O
-  static constexpr int KQ = D / 16;               // k-steps of Q K^T
-  static constexpr bool Q_REGS = D <= 128;        // Q's A fragments held in registers
-  static constexpr int SMEM_BYTES = (BQ + 4 * BKV) * P * 2;  // Q; K and V double-buffered
-};
-
-// K and V rows [k0, k0 + BKV) into one buffer (K, then V BKV rows on);
-// rows at or past `valid` are zero. Issues cp.async copies (not committed).
-template <class C, typename T>
-__device__ __forceinline__ void fwd_load_kv(T* dst, const T* kp, long long k_ss, const T* vp,
-                                            long long v_ss, int k0, int valid) {
-  cp_rows<C>(dst, kp, k_ss, k0, C::BKV, valid);
-  cp_rows<C>(dst + C::BKV * C::P, vp, v_ss, k0, C::BKV, valid);
-}
-
+// The tile step and the store are fwd_mma.cuh's; this kernel walks the
+// dense call's kv tiles [k_begin, kr.hi) with keep_at's mask (and bias /
+// softcap in the EXTRA instantiation).
 template <typename T, int D, bool DROP, bool EXTRA, bool MERGE>
 __global__ void __launch_bounds__(FwdMmaCfg<D>::NW * 32) flash_fwd_mma_kernel(const FwdParams p) {
   using C = FwdMmaCfg<D>;
@@ -275,7 +256,6 @@ __global__ void __launch_bounds__(FwdMmaCfg<D>::NW * 32) flash_fwd_mma_kernel(co
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (p.Hq / p.Hkv);
   const int q_len = p.lens[2 * b], kv_len = p.lens[2 * b + 1];
-  const int lane = threadIdx.x % 32, w = threadIdx.x / 32, g = lane / 4, t = lane % 4;
 
   const T* qp = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* kp = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
@@ -286,14 +266,9 @@ __global__ void __launch_bounds__(FwdMmaCfg<D>::NW * 32) flash_fwd_mma_kernel(co
   const int k_begin = (kr.lo / C::BKV) * C::BKV;
   const int n_tiles = kr.hi > k_begin ? (kr.hi - k_begin + C::BKV - 1) / C::BKV : 0;
 
-  float o[C::NT_O][4];
-#pragma unroll
-  for (int n = 0; n < C::NT_O; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-  // Rows g and g + 8 of the warp's 16: running max (log2) and sum.
-  float m_run[2] = {MASK_LOG2, MASK_LOG2}, l_run[2] = {0.f, 0.f};
-  uint32_t qf[C::Q_REGS ? C::KQ : 1][4];
+  float o[C::NT_O][4], m_run[2], l_run[2];
+  fwd_mma_init<C>(o, m_run, l_run);
+  QFrags<C> qf;
 
   if (n_tiles > 0) {
     cp_rows<C>(Qs, qp, p.q_ss, q0, C::BQ, min(p.Sq, q_len - p.q_off));
@@ -303,10 +278,7 @@ __global__ void __launch_bounds__(FwdMmaCfg<D>::NW * 32) flash_fwd_mma_kernel(co
     if constexpr (C::Q_REGS) {
       cp_async_wait<1>();
       __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < C::KQ; ++kk) {
-        ldsm_x4(qf[kk], Qs + (w * 16 + lane % 16) * C::P + kk * 16 + (lane / 16) * 8);
-      }
+      fwd_mma_load_q<C>(qf, Qs);
     }
   }
 #pragma unroll 1
@@ -320,184 +292,39 @@ __global__ void __launch_bounds__(FwdMmaCfg<D>::NW * 32) flash_fwd_mma_kernel(co
       cp_async_commit();
     }
     const T* Ks = kv_s + (i & 1) * 2 * C::BKV * C::P;
-    const T* Vs = Ks + C::BKV * C::P;
-
-    // S = Q K^T: the warp's 16 rows x BKV keys.
-    float s[C::NT_S][4];
-#pragma unroll
-    for (int n = 0; n < C::NT_S; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < C::KQ; ++kk) {
-      uint32_t a[4];
-      if constexpr (C::Q_REGS) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) a[j] = qf[kk][j];
-      } else {
-        ldsm_x4(a, Qs + (w * 16 + lane % 16) * C::P + kk * 16 + (lane / 16) * 8);
+    // keep_at's mask, and in EXTRA the cap in natural units and the bias
+    // there, then back to log2.
+    auto score = [&](int r, int c, float x) {
+      const bool keep = keep_at(q0 + r, k0 + c, p.Sq, p.Sk, p.q_off, p.kv_off, q_len, kv_len,
+                                p.causal, p.wl, p.wr);
+      if constexpr (EXTRA) {
+        x *= 1.f / LOG2E;
+        if (p.softcap > 0.f) x = p.softcap * tanhf(x / p.softcap);
+        if (p.bias != nullptr && keep) {
+          x += load_any(p.bias, p.bias_dtype, b * p.bias_sb + h * p.bias_sh +
+                                                  (q0 + r) * p.bias_sq + (k0 + c) * p.bias_sk);
+        }
+        x *= LOG2E;
       }
-#pragma unroll
-      for (int np = 0; np < C::NT_S / 2; ++np) {
-        uint32_t bk[4];
-        ldsm_x4(bk, Ks + (np * 16 + lane % 8 + (lane / 16) * 8) * C::P + kk * 16 +
-                        ((lane / 8) % 2) * 8);
-        mma16816<T>(s[2 * np], a, bk[0], bk[1]);
-        mma16816<T>(s[2 * np + 1], a, bk[2], bk[3]);
-      }
-    }
-
-    // The score epilogue at each element's (row r, column c) of the tile
-    // (accumulator element e: row g + 8 (e / 2), column 2 t + e % 2).
+      return keep ? x : neg_inf();
+    };
+    auto undropped = [&](int r, int c, int) {
+      return dropout_keep(p.drop.seed, p.drop.threshold, b, h, p.q_off + q0 + r,
+                          p.kv_off + k0 + c, p.Hq, p.Sq_real, p.Sk_real);
+    };
+    // A tile every live row keeps whole skips the mask test (never with
+    // bias / softcap, which every element needs).
     const bool free_tile = !EXTRA && k0 >= kr.free_lo && k0 + C::BKV <= kr.free_hi;
-    float mx[2] = {MASK_LOG2, MASK_LOG2};
-#pragma unroll
-    for (int n = 0; n < C::NT_S; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = w * 16 + g + (e / 2) * 8, c = n * 8 + 2 * t + (e % 2);
-        float x = s[n][e] * p.scale_log2;
-        if constexpr (EXTRA) {
-          const bool keep = keep_at(q0 + r, k0 + c, p.Sq, p.Sk, p.q_off, p.kv_off, q_len,
-                                    kv_len, p.causal, p.wl, p.wr);
-          // Cap in natural units, add the bias there, then back to log2.
-          x *= 1.f / LOG2E;
-          if (p.softcap > 0.f) x = p.softcap * tanhf(x / p.softcap);
-          if (p.bias != nullptr && keep) {
-            x += load_any(p.bias, p.bias_dtype, b * p.bias_sb + h * p.bias_sh +
-                                                    (q0 + r) * p.bias_sq + (k0 + c) * p.bias_sk);
-          }
-          x *= LOG2E;
-          x = keep ? x : neg_inf();
-        } else if (!free_tile) {
-          x = keep_at(q0 + r, k0 + c, p.Sq, p.Sk, p.q_off, p.kv_off, q_len, kv_len, p.causal,
-                      p.wl, p.wr)
-                  ? x
-                  : neg_inf();
-        }
-        s[n][e] = x;
-        mx[e / 2] = fmaxf(mx[e / 2], x);
-      }
-
-    // Online softmax of rows g and g + 8: the quad of lanes 4 g .. 4 g + 3
-    // holds a row's columns.
-    float alpha[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
-      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
-      const float m_new = fmaxf(m_run[hr], mx[hr]);
-      alpha[hr] = exp2f(m_run[hr] - m_new);
-      m_run[hr] = m_new;
-    }
-#pragma unroll
-    for (int n = 0; n < C::NT_S; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pr = exp2f(s[n][e] - m_run[e / 2]);  // masked: exp2(-inf) = 0
-        rs[e / 2] += pr;
-        if constexpr (DROP) {
-          const int r = w * 16 + g + (e / 2) * 8, c = n * 8 + 2 * t + (e % 2);
-          s[n][e] = dropout_keep(p.drop.seed, p.drop.threshold, b, h, p.q_off + q0 + r,
-                                 p.kv_off + k0 + c, p.Hq, p.Sq_real, p.Sk_real)
-                        ? pr
-                        : 0.f;
-        } else {
-          s[n][e] = pr;
-        }
-      }
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      rs[hr] += __shfl_xor_sync(0xffffffffu, rs[hr], 1);
-      rs[hr] += __shfl_xor_sync(0xffffffffu, rs[hr], 2);
-      l_run[hr] = l_run[hr] * alpha[hr] + rs[hr];
-    }
-#pragma unroll
-    for (int n = 0; n < C::NT_O; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e / 2];
-
-    // O += P V: P rounded to T and repacked from S's accumulators into A
-    // fragments, V by ldmatrix.trans.
-#pragma unroll
-    for (int kk = 0; kk < C::BKV / 16; ++kk) {
-      const uint32_t a[4] = {pack2<T>(s[2 * kk][0], s[2 * kk][1]),
-                             pack2<T>(s[2 * kk][2], s[2 * kk][3]),
-                             pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int np = 0; np < C::NT_O / 2; ++np) {
-        uint32_t bv[4];
-        ldsm_x4_t(bv, Vs + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * C::P + np * 16 +
-                          (lane / 16) * 8);
-        mma16816<T>(o[2 * np], a, bv[0], bv[1]);
-        mma16816<T>(o[2 * np + 1], a, bv[2], bv[3]);
-      }
-    }
+    fwd_mma_tile<C, T, DROP>(qf, Qs, Ks, Ks + C::BKV * C::P, p.scale_log2, free_tile, score,
+                             undropped, o, m_run, l_run);
   }
 
-  // Store: o = acc / l * (1 / (1 - p_drop)) and lse = m + log2 l; rows past
-  // q_len (free tiles gave them a sum) or that kept nothing get o = 0 and
-  // lse = -inf. A warp's o rows go through its own q rows of shared memory,
-  // which no other warp reads, then out as 16-byte stores; MERGE first reads
-  // the previous o of those rows into the same place, then merges.
-  const float out_scale = DROP ? p.drop.scale : 1.f;
-  float* lse = p.lse + ((long long)b * p.Hq + h) * p.lse_rows + q0;
-  T* op = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
-  constexpr int CH = D / 8;
-  float lse_p[2] = {0.f, 0.f};  // the previous lse of rows g and g + 8 (MERGE)
-  __syncwarp();
-  if constexpr (MERGE) {
-    for (int i = lane; i < 16 * CH; i += 32) {
-      const int r = w * 16 + i / CH, c = (i % CH) * 8;
-      if (q0 + r < p.Sq) {
-        *reinterpret_cast<uint4*>(Qs + r * C::P + c) =
-            *reinterpret_cast<const uint4*>(op + (long long)(q0 + r) * p.o_ss + c);
-      }
-    }
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int r = w * 16 + g + 8 * hr;
-      lse_p[hr] = q0 + r < p.Sq ? lse[r] : neg_inf();
-    }
-    __syncwarp();  // every lane has read its previous o and lse before any is written
-  }
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int r = w * 16 + g + 8 * hr;
-    const bool live = p.q_off + q0 + r < q_len && l_run[hr] > 0.f;
-    const float inv = live ? 1.f / l_run[hr] * out_scale : 0.f;
-    float lse_r = live ? m_run[hr] + log2f(l_run[hr]) : neg_inf();
-    float w1 = 0.f, w2 = 1.f, inv_t = 1.f;  // the merge's weights (none without MERGE)
-    if constexpr (MERGE) {
-      const float m_t = fmaxf(lse_p[hr], lse_r);
-      const float m_safe = isfinite(m_t) ? m_t : 0.f;
-      w1 = exp2f(lse_p[hr] - m_safe);
-      w2 = exp2f(lse_r - m_safe);
-      const float l_t = w1 + w2;
-      inv_t = l_t > 0.f ? 1.f / l_t : 0.f;
-      lse_r = l_t > 0.f ? m_safe + log2f(l_t) : neg_inf();
-    }
-#pragma unroll
-    for (int n = 0; n < C::NT_O; ++n) {
-      T* dst = Qs + r * C::P + n * 8 + 2 * t;
-      float o0 = o[n][2 * hr] * inv, o1 = o[n][2 * hr + 1] * inv;
-      if constexpr (MERGE) {
-        o0 = (to_f(dst[0]) * w1 + o0 * w2) * inv_t;
-        o1 = (to_f(dst[1]) * w1 + o1 * w2) * inv_t;
-      }
-      *reinterpret_cast<uint32_t*>(dst) = pack2<T>(o0, o1);
-    }
-    if (t == 0 && q0 + r < p.Sq) lse[r] = lse_r;
-  }
-  __syncwarp();
-  for (int i = lane; i < 16 * CH; i += 32) {
-    const int r = w * 16 + i / CH, c = (i % CH) * 8;
-    if (q0 + r < p.Sq) {
-      *reinterpret_cast<uint4*>(op + (long long)(q0 + r) * p.o_ss + c) =
-          *reinterpret_cast<const uint4*>(Qs + r * C::P + c);
-    }
-  }
+  // Rows past q_len (free tiles gave them a sum) get o = 0 and lse = -inf;
+  // the store writes the rows inside Sq.
+  fwd_mma_store<C, T, MERGE>(
+      o, m_run, l_run, Qs, static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh + (long long)q0 * p.o_ss,
+      p.o_ss, p.lse + ((long long)b * p.Hq + h) * p.lse_rows + q0, q_len - p.q_off - q0,
+      p.Sq - q0, DROP ? p.drop.scale : 1.f);
 }
 
 // ---- launch -----------------------------------------------------------------

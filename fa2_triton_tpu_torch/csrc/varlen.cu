@@ -52,17 +52,21 @@
 // 6 D for dq, 8 D for dk/dv, against 2-4 bytes per element moved), so the
 // roof is the tensor cores. Two designs, by input type:
 //
-// bf16 / fp16 inputs, dq and dk/dv: mma.sync.m16n8k16 tiles with fp32
-// accumulation, the dense pair's (flash_bwd.cu, bwd_mma.cuh) with the
-// varlen key and q ranges. JAX rounds ds before ds k (varlen.py:439) and p
-// and ds before p^T do and ds^T q (l.519, l.524): so do these kernels.
-//   * varlen_mma_dq_kernel: one block of 4 warps per (64-row q tile, q
-//     head) on bwd_mma.cuh's dq tiles (Q and dO staged once, K / V tiles of
-//     64 rows, 32 at D 256, double-buffered by cp.async). The block walks
-//     the (entry, kv tile) pairs of its user q block as one flat loop, so
-//     the next tile's copies always overlap this one's products: a cursor
-//     per stream (the copies run one tile ahead of the products) steps over
-//     entries whose key range is empty for this tile.
+// bf16 / fp16 inputs: mma.sync.m16n8k16 tiles with fp32 accumulation, the
+// dense kernels' (flash_fwd.cu and fwd_mma.cuh; flash_bwd.cu and
+// bwd_mma.cuh) with the varlen key and q ranges. JAX rounds p before p v
+// (varlen.py:291), ds before ds k (l.439) and p and ds before p^T do and
+// ds^T q (l.519, l.524): so do these kernels.
+//   * varlen_mma_fwd_kernel / varlen_mma_dq_kernel: one block of 4 warps
+//     per (64-row q tile, q head), each warp 16 q rows, on fwd_mma.cuh's
+//     tile step (Q staged once, in registers at D <= 128) or bwd_mma.cuh's
+//     dq tiles (Q and dO staged once); K / V tiles of 64 rows, 32 at D 256,
+//     double-buffered by cp.async. The block walks the (entry, kv tile)
+//     pairs of its user q block as one flat loop, so the next tile's copies
+//     always overlap this one's products: a cursor per stream (the copies
+//     run one tile ahead of the products) steps over entries whose key
+//     range is empty for this tile. The forward's store writes o through
+//     the warp's own shared-memory rows as 16-byte stores.
 //   * varlen_mma_dkdv_kernel: one block per (64-row kv tile, kv head) on
 //     bwd_mma.cuh's mma_q_step (dK and dV in registers; q / do / lse /
 //     delta tiles double-buffered), walking the (entry, 64-row q tile)
@@ -73,20 +77,22 @@
 //   * The scale rides on the fp32 score accumulator (never folded into a
 //     rounded q or k), dq and dk take it once at the store; an element is
 //     kept by row < q_len, col < kv_len and the causal rule, and masked
-//     elements are selected to 0; a tile whose elements are all kept skips
-//     the test. Rows past q_len and keys past kv_len are zero-filled by
-//     cp.async (the tensor cores give 0 x NaN = NaN), dead q rows get lse =
-//     -inf (p = ds = 0).
+//     elements are selected to -inf (forward) or 0 (p, ds); a tile whose
+//     elements are all kept skips the test. Rows past q_len and keys past
+//     kv_len are zero-filled by cp.async (the tensor cores give 0 x NaN =
+//     NaN), dead q rows get lse = -inf (p = ds = 0 in the backward).
 //   * Heaviest tiles first: causal documents of 64-4096 tokens give tiles
 //     whose work differs by up to 64x, so the host hands each grid its
 //     tiles sorted by the work their loops cover (ops/varlen.py:_tile_order,
-//     ties by index), all heads of a tile next to each other.
-// fp32 inputs (no TF32), and the forward for every type: the fp32 CUDA-core
-// tile math of flash_fwd.cu's and flash_bwd.cu's FMA kernels
-// (attn_tiles.cuh), which, like them, loads no tile past kv_len, q_len or
-// the causal edge; the work list keeps filtered and causally dead blocks
-// out of the loops altogether.
+//     ties by index), all heads of a tile next to each other. The forward
+//     and dq cover the same keys, so they share the order (and the host
+//     hands dq the forward's table).
+// fp32 inputs (no TF32): the fp32 CUDA-core tile math of flash_fwd.cu's and
+// flash_bwd.cu's FMA kernels (attn_tiles.cuh), which, like them, loads no
+// tile past kv_len, q_len or the causal edge; the work list keeps filtered
+// and causally dead blocks out of the loops altogether.
 #include "bwd_mma.cuh"
+#include "fwd_mma.cuh"
 
 namespace fa2 {
 namespace {
@@ -104,7 +110,7 @@ struct VarlenParams {
   void* dv;
   const int* work;     // [n, 8] int32 work list (ops/varlen.py)
   const int* rowptr;   // [T / block + 1] CSR row pointer over it
-  const int* order;    // [T / 64] the 64-row tiles, heaviest first (16-bit dq, dk/dv)
+  const int* order;    // [T / 64] the 64-row tiles, heaviest first (16-bit kernels)
   long long q_sh, q_ss, k_sh, k_ss, v_sh, v_ss, do_sh, do_ss;
   long long o_sh, o_ss, dq_sh, dq_ss, dk_sh, dk_ss, dv_sh, dv_ss;
   int Hq, Hkv, T, block_q, block_kv, causal;
@@ -291,11 +297,118 @@ __device__ __forceinline__ void walk_next(Walk& c, int e_hi, const Count& count)
   walk_from(c, c.e + 1, e_hi, count);
 }
 
+// The K and V rows of the kv tile at cursor c (rows [j BKV, + BKV) of
+// entry c.e's kv block, zero past its valid keys) into K / V: cp.async
+// copies, not committed. kbase / vbase: the kv head's first row.
+template <class C, typename T>
+__device__ __forceinline__ void load_walk_kv(const VarlenParams& p, const Walk& c, const T* kbase,
+                                             const T* vbase, T* K, T* V) {
+  const int* we = p.work + 8 * c.e;
+  const long long kb0 = (long long)we[1] * p.block_kv;  // packed row of the block's first key
+  const int kv_valid = min(p.block_kv, we[5] - we[3]);
+  cp_rows<C>(K, kbase + kb0 * p.k_ss, p.k_ss, c.j * C::BKV, C::BKV, kv_valid);
+  cp_rows<C>(V, vbase + kb0 * p.v_ss, p.v_ss, c.j * C::BKV, C::BKV, kv_valid);
+}
+
+// The keys [0, hi) of entry e's kv block that the live rows of a q tile
+// (TileSeg t, segment q_len qlen) need: hi cut at kv_len and at the causal
+// edge of the tile's last live row. Returns its tiles of bkv keys.
+__device__ __forceinline__ int q_tile_count(const VarlenParams& p, const TileSeg& t, int qlen,
+                                            int e, int bkv) {
+  const int* we = p.work + 8 * e;
+  int hi = min(p.block_kv, we[5] - we[3]);
+  if (p.causal) hi = min(hi, t.first + t.live - 1 + (we[5] - qlen) + 1 - we[3]);
+  return hi > 0 ? (hi + bkv - 1) / bkv : 0;
+}
+
+// The forward, 16-bit inputs: one block of 4 warps per (64-row q tile
+// p.order[y], q head x) on fwd_mma.cuh's tile step. Q is staged once (its
+// A fragments in registers at D <= 128); entry e covers the keys [0, hi) of
+// its kv block (q_tile_count), and its tiles of BKV keys and those of the
+// next entries form one double-buffered loop. An element is kept by row <
+// live, col < kv_len and (causal) col <= row + shift; with dropout at its
+// GLOBAL packed row / column (the row's hash taken once per thread), and o
+// scaled by 1 / (1 - p) at the store. A tile with no live row, or whose
+// rows keep nothing, stores o = 0 and lse = -inf.
+template <typename T, int D, bool DROP>
+__global__ void __launch_bounds__(FwdMmaCfg<D>::NW * 32)
+    varlen_mma_fwd_kernel(const VarlenParams p) {
+  using C = FwdMmaCfg<D>;
+  static_assert(C::BQ == TM, "the host's 64-row tiles");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);  // [BQ][P]
+  T* kv_s = Qs + C::BQ * C::P;             // buffer j: K at 2 j BKV rows, V BKV rows on
+  const int h = blockIdx.x, q0 = p.order[blockIdx.y] * C::BQ, hk = h / (p.Hq / p.Hkv);
+  const TileSeg t = tile_seg(p, q0, p.block_q, 2, 4);
+  const int qlen = t.len;
+
+  auto count = [&](int e) { return q_tile_count(p, t, qlen, e, C::BKV); };
+  int n_tiles = 0;
+  for (int e = t.live > 0 ? t.e_lo : t.e_hi; e < t.e_hi; ++e) n_tiles += count(e);
+
+  float o[C::NT_O][4], m_run[2], l_run[2];
+  fwd_mma_init<C>(o, m_run, l_run);
+  QFrags<C> qf;
+  // hash(hash(seed, h), row) of the thread's rows g and g + 8: the packed
+  // stream's first two hashes, constant over the kv loop.
+  uint32_t row_h[2] = {0u, 0u};
+  if constexpr (DROP) {
+    const uint32_t seed_h = counter_hash_u32(p.drop.seed, (uint32_t)h);
+    const int r = threadIdx.x / 32 * 16 + threadIdx.x % 32 / 4;
+    row_h[0] = counter_hash_u32(seed_h, (uint32_t)(q0 + r));
+    row_h[1] = counter_hash_u32(seed_h, (uint32_t)(q0 + r + 8));
+  }
+
+  const T* kbase = static_cast<const T*>(p.k) + hk * p.k_sh;
+  const T* vbase = static_cast<const T*>(p.v) + hk * p.v_sh;
+  Walk nxt, cur;  // the tile whose copies go out next; the tile computed next
+  walk_from(nxt, t.e_lo, t.e_hi, count);
+  cur = nxt;
+  auto load = [&](int, T* K, T* V) {
+    load_walk_kv<C>(p, nxt, kbase, vbase, K, V);
+    walk_next(nxt, t.e_hi, count);
+  };
+  if (n_tiles > 0) {
+    cp_rows<C>(Qs, static_cast<const T*>(p.q) + h * p.q_sh, p.q_ss, q0, C::BQ, q0 + t.live);
+    cp_async_commit();
+    load(0, kv_s, kv_s + C::BKV * C::P);
+    cp_async_commit();
+    if constexpr (C::Q_REGS) {
+      cp_async_wait<1>();
+      __syncthreads();
+      fwd_mma_load_q<C>(qf, Qs);
+    }
+  }
+  dq_kv_loop<C, T>(kv_s, n_tiles, load, [&](int, const T* Ks, const T* Vs) {
+    const int* we = p.work + 8 * cur.e;
+    const int kv_lo = we[3], kv_valid = min(p.block_kv, we[5] - we[3]), shift = we[5] - qlen;
+    const int k0 = cur.j * C::BKV, col0 = we[1] * p.block_kv + k0;  // packed column of key 0
+    // Real keys, all at or left of the first row's diagonal: every live row
+    // keeps every key (the store zeroes the dead rows).
+    const bool free_tile =
+        k0 + C::BKV <= kv_valid && (!p.causal || kv_lo + k0 + C::BKV - 1 <= t.first + shift);
+    auto score = [&](int r, int c, float x) {
+      const bool keep = r < t.live && k0 + c < kv_valid &&
+                        (!p.causal || kv_lo + k0 + c <= t.first + r + shift);
+      return keep ? x : neg_inf();
+    };
+    auto undropped = [&](int, int c, int hr) {
+      return counter_hash_u32(row_h[hr], (uint32_t)(col0 + c)) >= p.drop.threshold;
+    };
+    fwd_mma_tile<C, T, DROP>(qf, Qs, Ks, Vs, p.scale_log2, free_tile, score, undropped, o, m_run,
+                             l_run);
+    walk_next(cur, t.e_hi, count);
+  });
+  fwd_mma_store<C, T, false>(o, m_run, l_run, Qs,
+                             static_cast<T*>(p.o) + h * p.o_sh + (long long)q0 * p.o_ss, p.o_ss,
+                             p.lse + (long long)h * p.T + q0, t.live, C::BQ,
+                             DROP ? p.drop.scale : 1.f);
+}
+
 // dq, 16-bit inputs: one block of 4 warps per (64-row q tile p.order[y], q
 // head x) on bwd_mma.cuh's dq tiles. Entry e covers the keys [0, hi) of its
-// kv block, hi cut at kv_len and at the causal edge of the tile's last live
-// row; its tiles of BKV keys and those of the next entries form one
-// double-buffered loop.
+// kv block (q_tile_count, the forward's); its tiles of BKV keys and those
+// of the next entries form one double-buffered loop.
 template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(DqMmaCfg<D>::NW * 32) varlen_mma_dq_kernel(const VarlenParams p) {
   using C = DqMmaCfg<D>;
@@ -310,12 +423,7 @@ __global__ void __launch_bounds__(DqMmaCfg<D>::NW * 32) varlen_mma_dq_kernel(con
   const uint32_t seed_h = counter_hash_u32(p.drop.seed, (uint32_t)h);
   const int lane = threadIdx.x % 32, w = threadIdx.x / 32, g = lane / 4;
 
-  auto count = [&](int e) {
-    const int* we = p.work + 8 * e;
-    int hi = min(p.block_kv, we[5] - we[3]);
-    if (p.causal) hi = min(hi, t.first + t.live - 1 + (we[5] - qlen) + 1 - we[3]);
-    return hi > 0 ? (hi + C::BKV - 1) / C::BKV : 0;
-  };
+  auto count = [&](int e) { return q_tile_count(p, t, qlen, e, C::BKV); };
   int n_tiles = 0;
   for (int e = t.live > 0 ? t.e_lo : t.e_hi; e < t.e_hi; ++e) n_tiles += count(e);
 
@@ -342,11 +450,7 @@ __global__ void __launch_bounds__(DqMmaCfg<D>::NW * 32) varlen_mma_dq_kernel(con
   walk_from(nxt, t.e_lo, t.e_hi, count);
   cur = nxt;
   auto load = [&](int, T* K, T* V) {
-    const int* we = p.work + 8 * nxt.e;
-    const long long kb0 = (long long)we[1] * p.block_kv;  // packed row of the block's first key
-    const int kv_valid = min(p.block_kv, we[5] - we[3]);
-    cp_rows<C>(K, kbase + kb0 * p.k_ss, p.k_ss, nxt.j * C::BKV, C::BKV, kv_valid);
-    cp_rows<C>(V, vbase + kb0 * p.v_ss, p.v_ss, nxt.j * C::BKV, C::BKV, kv_valid);
+    load_walk_kv<C>(p, nxt, kbase, vbase, K, V);
     walk_next(nxt, t.e_hi, count);
   };
   if (n_tiles > 0) {
@@ -480,19 +584,19 @@ cudaError_t launch_kernel(K kernel, int smem_bytes, dim3 grid, int threads, cons
   return cudaGetLastError();
 }
 
-// The forward: the FMA kernel for every input type. The backward: the FMA
-// kernels for fp32, the tensor-core ones for bf16 / fp16 (no path back to
-// the FMA ones); grid x the head, y the tile (in p.order for the latter).
+// fp32 takes the FMA kernels (grid x the tile, y the head), bf16 / fp16 the
+// tensor-core ones (no path back to the FMA ones; grid x the head, y the
+// tile in p.order).
 template <typename T, int D, bool DROP>
 cudaError_t launch_kernels(const VarlenParams& p, int which, cudaStream_t stream) {
   const int tiles = p.T / TM;
   const int f = (int)sizeof(float);
-  if (which == kFwd) {
-    return launch_kernel(varlen_fwd_kernel<T, D, DROP>, fwd_smem_floats<D>() * f,
-                         dim3(tiles, p.Hq), THREADS, p, stream);
-  }
-  if (which != kDq && which != kDkDv) return cudaErrorInvalidValue;
+  if (which != kFwd && which != kDq && which != kDkDv) return cudaErrorInvalidValue;
   if constexpr (std::is_same<T, float>::value) {
+    if (which == kFwd) {
+      return launch_kernel(varlen_fwd_kernel<T, D, DROP>, fwd_smem_floats<D>() * f,
+                           dim3(tiles, p.Hq), THREADS, p, stream);
+    }
     return which == kDq ? launch_kernel(varlen_dq_kernel<T, D, DROP>, dq_smem_floats<D>() * f,
                                         dim3(tiles, p.Hq), THREADS, p, stream)
                         : launch_kernel(varlen_dkdv_kernel<T, D, DROP>,
@@ -500,8 +604,13 @@ cudaError_t launch_kernels(const VarlenParams& p, int which, cudaStream_t stream
                                         p, stream);
   } else {
     if (p.order == nullptr) return cudaErrorInvalidValue;
+    using FC = FwdMmaCfg<D>;
     using QC = DqMmaCfg<D>;
     using KC = VarlenKvCfg<D>;
+    if (which == kFwd) {
+      return launch_kernel(varlen_mma_fwd_kernel<T, D, DROP>, FC::SMEM_BYTES, dim3(p.Hq, tiles),
+                           FC::NW * 32, p, stream);
+    }
     return which == kDq ? launch_kernel(varlen_mma_dq_kernel<T, D, DROP>, QC::SMEM_BYTES,
                                         dim3(p.Hq, tiles), QC::NW * 32, p, stream)
                         : launch_kernel(varlen_mma_dkdv_kernel<T, D, DROP>, KC::SMEM_BYTES,
@@ -532,12 +641,12 @@ cudaError_t launch_d(const VarlenParams& p, int which, int D, cudaStream_t strea
 // forward reads q, k, v and writes o, lse; the backward kernels read q, k,
 // v, do, lse, delta and write dq or dk / dv). `work` / `rowptr` are the
 // q-major table for 0 and 1, the kv-major one for 2; `order` the T / 64
-// tiles of 64 rows, heaviest first (read by the 16-bit backward kernels,
-// which fail the launch without it; may be null otherwise). `strides`
-// holds, in elements, the head and row strides of q, k, v, do, o, dq, dk,
-// dv (16 values; the batch dim is 1). T must be a multiple of 64, block_q
-// and block_kv multiples of 64 that divide T. 16-bit q / k / v / do of the
-// backward: rows, strides and base pointers 16-byte aligned.
+// tiles of 64 rows, heaviest first (read by the 16-bit kernels, which fail
+// the launch without it; may be null for fp32). `strides` holds, in
+// elements, the head and row strides of q, k, v, do, o, dq, dk, dv (16
+// values; the batch dim is 1). T must be a multiple of 64, block_q and
+// block_kv multiples of 64 that divide T. 16-bit q / k / v / do / o: rows,
+// strides and base pointers 16-byte aligned.
 extern "C" int fa2_varlen(
     int which, int dtype, int Hq, int Hkv, int T, int D,
     const void* q, const void* k, const void* v, const void* dout, void* o, float* lse,

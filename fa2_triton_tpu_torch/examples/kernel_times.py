@@ -30,9 +30,10 @@ import sys
 import numpy as np
 
 
-# The packed backward's kernels under their names in either version: the
-# FMA kernels (every input type before the tensor-core ones; fp32 since) and
-# the tensor-core ones of bf16 / fp16 inputs. Times are filed under the first.
+# The packed kernels under their names in either version: the FMA kernels
+# (every input type before the tensor-core ones; fp32 since) and the
+# tensor-core ones of bf16 / fp16 inputs. Times are filed under the first.
+VARLEN_FWD_NAMES = (("varlen_fwd_kernel", "varlen_mma_fwd_kernel"),)
 VARLEN_BWD_NAMES = (("varlen_dq_kernel", "varlen_mma_dq_kernel"),
                     ("varlen_dkdv_kernel", "varlen_mma_dkdv_kernel"))
 
@@ -152,7 +153,7 @@ def main(argv=None) -> int:
     seg = ([int(s) for s in starts], docs, docs)
     op, lsep = varlen.flash_attn_varlen_forward(qp, kp, vp, *seg, **pkw)
     out.update(device_ms(torch, lambda: varlen.flash_attn_varlen_forward(qp, kp, vp, *seg, **pkw),
-                         ("varlen_fwd_kernel",), args.iters))
+                         VARLEN_FWD_NAMES, args.iters))
     out.update(device_ms(
         torch, lambda: varlen.flash_attn_varlen_backward(qp, kp, vp, dop, op, lsep, *seg, **pkw),
         VARLEN_BWD_NAMES, args.iters))

@@ -13,10 +13,12 @@ On the GPU the kernels of `csrc/varlen.cu` read it as a launch table: the
 q-major list is sorted by packed q block, so a CSR row pointer over it gives
 each 64-row q tile (forward, dq) the entries of its user block; the
 kv-major list, with the GQA group index in column 7, does the same for each
-64-row kv tile (dk/dv). The backward's 16-bit (tensor-core) kernels also
-take the tiles heaviest first (`_tile_order`): causal documents of mixed
-length give tiles whose loops differ by up to 64x, and the long ones must
-not start last.
+64-row kv tile (dk/dv). The 16-bit (tensor-core) kernels also take the
+tiles heaviest first (`_tile_order`): causal documents of mixed length give
+tiles whose loops differ by up to 64x, and the long ones must not start
+last. The forward and dq cover the same keys of the same entries, so dq
+takes the forward's q-major table (`_VarlenCore` keeps it) and only the
+kv-major one is built in the backward.
 
 Work-list row layout (int32, [n_steps, 8]):
   0: packed q block   1: packed kv block
@@ -54,8 +56,8 @@ import torch.nn.functional as F
 
 from fa2_triton_tpu_torch.ops import _build
 from fa2_triton_tpu_torch.ops.attention import pad_head_dim, pad_last, resolve_dropout_seed
-from fa2_triton_tpu_torch.ops.flash_bwd import _check_mma_rows, _mma_layout, compute_delta
-from fa2_triton_tpu_torch.ops.flash_fwd import _check_cuda_args, dropout_c_args
+from fa2_triton_tpu_torch.ops.flash_bwd import _mma_layout, compute_delta
+from fa2_triton_tpu_torch.ops.flash_fwd import _check_cuda_args, _vec, dropout_c_args
 from fa2_triton_tpu_torch.utils import (
     LOG2E, default_softmax_scale, packed_dropout_keep_mask, round_up_to_multiple)
 
@@ -398,8 +400,18 @@ def _entry():
     return _c_fn
 
 
+def _uses_kernels(q: torch.Tensor) -> bool:
+    """True for CUDA tensors (the kernels), False for CPU ones (the plain
+    twins); raises on any other device."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"varlen takes CPU or CUDA tensors, got {q.device}")
+    return q.device.type == "cuda"
+
+
 def _check_cuda_layout(q, k, v, block_q, block_kv):
-    _check_cuda_args(q, k, v)
+    """Raise on what the kernels do not take; 16-bit q / k / v need 16-byte
+    rows (the tensor-core kernels' cp.async copies)."""
+    _check_cuda_args(q, k, v, vec=_vec(q))
     if q.shape[0] != 1 or k.shape[2] != q.shape[2]:
         raise ValueError(f"packed q / k / v must be [1, H, T, D] with one T, got "
                          f"{tuple(q.shape)} / {tuple(k.shape)}")
@@ -410,9 +422,9 @@ def _check_cuda_layout(q, k, v, block_q, block_kv):
 
 
 def _tile_work(work, T, block_q, block_kv, causal, kv_major=False) -> np.ndarray:
-    """[T // TILE_ROWS] int64: what the loops of the 16-bit backward kernel
-    cover for each 64-row tile, summed over the entries of its user block.
-    A q tile (dq) counts the keys [0, hi) of each entry's kv block that its
+    """[T // TILE_ROWS] int64: what the loops of the 16-bit kernels cover for
+    each 64-row tile, summed over the entries of its user block. A q tile
+    (forward, dq) counts the keys [0, hi) of each entry's kv block that its
     live rows need: up to kv_len and the causal edge of its last live row. A
     kv tile (dk/dv, `kv_major`) counts the q rows of each entry's q block
     that keep its first live column: from the causal edge to q_len. A tile
@@ -491,30 +503,53 @@ def flash_attn_varlen_forward(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (o [1, Hq, T, D] in q's dtype, a BHSD view of BSHD memory;
     lse [1, Hq, T] fp32, base 2)."""
+    o, lse, _ = _varlen_forward(q, k, v, seg_starts, seg_qlens, seg_kvlens, causal=causal,
+                                softmax_scale=softmax_scale, block_q=block_q, block_kv=block_kv,
+                                keep_block=keep_block, dropout_p=dropout_p,
+                                dropout_seed=dropout_seed)
+    return o, lse
+
+
+def _varlen_forward(q, k, v, seg_starts, seg_qlens, seg_kvlens, *, causal, softmax_scale,
+                    block_q, block_kv, keep_block, dropout_p, dropout_seed):
+    """`flash_attn_varlen_forward`, also returning the q-major launch table
+    the kernel ran on (`_forward_launch`'s; None for CPU tensors or an empty
+    stream), which the backward's dq launch can take."""
     drop = dropout_c_args(dropout_p, dropout_seed)
-    kw = dict(causal=causal, softmax_scale=softmax_scale, block_q=block_q, block_kv=block_kv,
-              keep_block=keep_block, dropout_p=dropout_p, dropout_seed=dropout_seed)
-    if q.device.type == "cpu":
-        return flash_attn_varlen_forward_plain(q, k, v, seg_starts, seg_qlens, seg_kvlens, **kw)
-    if q.device.type != "cuda":
-        raise ValueError(f"varlen takes CPU or CUDA tensors, got {q.device}")
+    if not _uses_kernels(q):
+        return (*flash_attn_varlen_forward_plain(
+            q, k, v, seg_starts, seg_qlens, seg_kvlens, causal=causal,
+            softmax_scale=softmax_scale, block_q=block_q, block_kv=block_kv,
+            keep_block=keep_block, dropout_p=dropout_p, dropout_seed=dropout_seed), None)
     _check_cuda_layout(q, k, v, block_q, block_kv)
     _, Hq, T, D = q.shape
-    Hkv = k.shape[1]
     segs = _segments(seg_starts, T, seg_qlens, seg_kvlens, block_q, block_kv)
     o = torch.empty((1, T, Hq, D), dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = torch.empty((1, Hq, T), dtype=torch.float32, device=q.device)
     if T == 0 or Hq == 0:
-        return o, lse
-    table, ptrs = _launch_table(segs, block_q, block_kv, causal, keep_block, T, q.device)
+        return o, lse, None
+    q_table = _forward_launch(q, k, v, o, lse, segs, causal=causal, softmax_scale=softmax_scale,
+                              block_q=block_q, block_kv=block_kv, keep_block=keep_block,
+                              drop=drop)
+    return o, lse, q_table
+
+
+def _forward_launch(q, k, v, o, lse, segs, *, causal, softmax_scale, block_q, block_kv,
+                    keep_block, drop):
+    """The forward's launch on the q-major table with its tiles heaviest
+    first (the 16-bit kernel reads the order; the fp32 one ignores it).
+    Returns the table (`_launch_table`'s tensor and addresses): dq's loops
+    cover the same keys, so it is bitwise the table dq would build."""
+    _, Hq, T, D = q.shape
+    table = _launch_table(segs, block_q, block_kv, causal, keep_block, T, q.device, order=True)
     _launch("varlen_fwd", (
-        _build.DTYPE_CODES[q.dtype], Hq, Hkv, T, D,
+        _build.DTYPE_CODES[q.dtype], Hq, k.shape[1], T, D,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None, o.data_ptr(), lse.data_ptr(), None,
-        None, None, None, *ptrs,
+        None, None, None, *table[1],
         ctypes.cast(_strides(q, k, v, None, o, None, None, None), ctypes.c_void_p),
         block_q, block_kv, int(bool(causal)), float(softmax_scale), *drop,
         _build.stream_ptr(q.device)))
-    return o, lse
+    return table
 
 
 def flash_attn_varlen_backward(
@@ -522,19 +557,19 @@ def flash_attn_varlen_backward(
     seg_starts, seg_qlens: Sequence[int], seg_kvlens: Sequence[int],
     *, causal: bool, softmax_scale: float, block_q: int = 512, block_kv: int = 512,
     dlse: Optional[torch.Tensor] = None, keep_block=None,
-    dropout_p: float = 0.0, dropout_seed: int = 0,
+    dropout_p: float = 0.0, dropout_seed: int = 0, q_table=None,
 ):
     """Returns (dq, dk, dv) in the input dtypes, BHSD views of BSHD memory,
     exactly 0 outside the segments' live rows. Bitwise repeatable (no
-    atomics)."""
+    atomics). `q_table`: the forward's q-major launch table for this layout
+    (`_varlen_forward`'s third result), which dq then takes instead of
+    building it anew."""
     drop = dropout_c_args(dropout_p, dropout_seed)
     kw = dict(causal=causal, softmax_scale=softmax_scale, block_q=block_q, block_kv=block_kv,
               dlse=dlse, keep_block=keep_block, dropout_p=dropout_p, dropout_seed=dropout_seed)
-    if q.device.type == "cpu":
+    if not _uses_kernels(q):
         return flash_attn_varlen_backward_plain(q, k, v, do, o, lse, seg_starts, seg_qlens,
                                                 seg_kvlens, **kw)
-    if q.device.type != "cuda":
-        raise ValueError(f"varlen takes CPU or CUDA tensors, got {q.device}")
     _check_cuda_layout(q, k, v, block_q, block_kv)
     _, Hq, T, D = q.shape
     Hkv = k.shape[1]
@@ -547,7 +582,6 @@ def flash_attn_varlen_backward(
         raise ValueError("lse must be an fp32 [1, Hq, T] tensor on q's device")
     segs = _segments(seg_starts, T, seg_qlens, seg_kvlens, block_q, block_kv)
     do = _mma_layout(do)
-    _check_mma_rows(q=q, k=k, v=v)
     delta = compute_delta(o, do, lse, dlse)
     lse = lse.contiguous()
     dq = torch.empty((1, T, Hq, D), dtype=q.dtype, device=q.device).transpose(1, 2)
@@ -557,14 +591,15 @@ def flash_attn_varlen_backward(
         return dq, dk, dv
     _backward_launches(q, k, v, do, lse, delta, dq, dk, dv, segs, causal=causal,
                        softmax_scale=softmax_scale, block_q=block_q, block_kv=block_kv,
-                       keep_block=keep_block, drop=drop)
+                       keep_block=keep_block, drop=drop, q_table=q_table)
     return dq, dk, dv
 
 
 def _backward_launches(q, k, v, do, lse, delta, dq, dk, dv, segs, *, causal, softmax_scale,
-                       block_q, block_kv, keep_block, drop) -> None:
-    """The dq launch on the q-major table, then the dk/dv launch on the
-    kv-major one, each with its tiles heaviest first."""
+                       block_q, block_kv, keep_block, drop, q_table=None) -> None:
+    """The dq launch on the q-major table (`q_table`, the forward's, else
+    built here), then the dk/dv launch on the kv-major one, each with its
+    tiles heaviest first."""
     _, Hq, T, D = q.shape
     Hkv = k.shape[1]
     strides = ctypes.cast(_strides(q, k, v, do, None, dq, dk, dv), ctypes.c_void_p)
@@ -574,9 +609,9 @@ def _backward_launches(q, k, v, do, lse, delta, dq, dk, dv, segs, *, causal, sof
     tail = (block_q, block_kv, int(bool(causal)), float(softmax_scale), *drop,
             _build.stream_ptr(q.device))
     for name, kv_major in (("varlen_dq", False), ("varlen_dkdv", True)):
-        table, ptrs = _launch_table(segs, block_q, block_kv, causal, keep_block, T, q.device,
-                                    kv_major=kv_major, group=Hq // Hkv if kv_major else 1,
-                                    order=True)
+        table, ptrs = (q_table if q_table is not None and not kv_major else _launch_table(
+            segs, block_q, block_kv, causal, keep_block, T, q.device, kv_major=kv_major,
+            group=Hq // Hkv if kv_major else 1, order=True))
         _launch(name, common + (*ptrs, strides) + tail)
 
 
@@ -587,12 +622,12 @@ class _VarlenCore(torch.autograd.Function):
     layout `meta` = (starts, q_lens, kv_lens, causal, scale, block_q,
     block_kv, dropout_p, dropout seed, encoded block mask or None) is not
     differentiated (the backward regenerates the forward's dropout mask from
-    the same seed)."""
+    the same seed, and its dq launch takes the forward's q-major table)."""
 
     @staticmethod
     def forward(ctx, q, k, v, meta):
         starts, qlens, kvlens, causal, scale, bq, bkv, p, seed, mask = meta
-        o, lse = flash_attn_varlen_forward(
+        o, lse, ctx.q_table = _varlen_forward(
             q, k, v, starts, qlens, kvlens, causal=causal, softmax_scale=scale,
             block_q=bq, block_kv=bkv, keep_block=_mask_keep_fn(mask), dropout_p=p,
             dropout_seed=seed)
@@ -607,7 +642,7 @@ class _VarlenCore(torch.autograd.Function):
         dq, dk, dv = flash_attn_varlen_backward(
             q, k, v, do, o, lse, starts, qlens, kvlens, causal=causal, softmax_scale=scale,
             block_q=bq, block_kv=bkv, dlse=dlse, keep_block=_mask_keep_fn(mask), dropout_p=p,
-            dropout_seed=seed)
+            dropout_seed=seed, q_table=ctx.q_table)
         return dq, dk, dv, None
 
 

@@ -84,10 +84,11 @@ def test_the_parse_sees_each_kind():
 def test_tile_rows_match_the_forward_kernels():
     """The host counts q tiles in TILE_ROWS (the schedules' alignment, the
     strip's shift rule); both forward kernels of csrc/flash_fwd.cu take it as
-    an argument and refuse the launch unless it is their block's rows."""
+    an argument and refuse the launch unless it is their block's rows (the
+    tensor-core kernel's `FwdMmaCfg`, in csrc/fwd_mma.cuh)."""
     tm = int(re.search(r"constexpr int TM = (\d+);", (_build.CSRC / "attn_tiles.cuh").read_text())[1])
     src = (_build.CSRC / "flash_fwd.cu").read_text()
     assert flash_fwd.TILE_ROWS == tm
-    assert "static constexpr int BQ = TM;" in src
+    assert "static constexpr int BQ = TM;" in (_build.CSRC / "fwd_mma.cuh").read_text()
     assert "if (p.tile_rows != TM) return cudaErrorInvalidValue;" in src
     assert "if (p.tile_rows != C::BQ) return cudaErrorInvalidValue;" in src

@@ -463,7 +463,9 @@ def _live_mask(starts, lens, T, dev):
 
 def _varlen_check(dev, dtype, starts, qlens, kvlens, T, Hq, Hkv, D, seed, **kw):
     """Forward and backward kernels vs the plain twins (FA rule), launch
-    counts, and exact zeros outside the live rows."""
+    counts, and exact zeros outside the live rows and on live rows that keep
+    no column (o = 0, lse = -inf: a negative causal shift, a block-sparse
+    row whose blocks hold no causal column)."""
     from fa2_triton_tpu_torch.ops import varlen
 
     q32, k32, v32, do32 = _varlen_inputs(dev, T, Hq, Hkv, D, seed)
@@ -484,6 +486,7 @@ def _varlen_check(dev, dtype, starts, qlens, kvlens, T, Hq, Hkv, D, seed, **kw):
     fin = torch.isfinite(lse_pl)
     if fin.any():
         assert (lse[fin] - lse_pl[fin]).abs().max().item() <= 1e-4
+    assert torch.all(lse[~fin] == float("-inf")) and not o[~fin].any()
     _check_grads(grads, refs, plains, dtype)
     q_live = _live_mask(starts, qlens, T, dev)
     kv_live = _live_mask(starts, kvlens, T, dev)
@@ -578,12 +581,14 @@ def _varlen_run(q, k, v, do, starts, lens, **kw):
                                                               lens, **kw))
 
 
-def test_varlen_kernels_ignore_nan_in_the_gaps(dev):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_varlen_kernels_ignore_nan_in_the_gaps(dev, dtype, D):
     """The gaps of the packed stream may hold NaN: every output equals that
     of zero gaps bit for bit, and dead positions are exactly 0."""
     lens = (300, 1, 128, 77)
     starts, T = _varlen_layout(lens, (128, 128))
-    q, k, v, do = (x.to(torch.bfloat16) for x in _varlen_inputs(dev, T, 8, 2, 128, 3))
+    q, k, v, do = (x.to(dtype) for x in _varlen_inputs(dev, T, 8, 2, D, 3))
     live = _live_mask(starts, lens, T, dev)
     clean = [x.clone() for x in (q, k, v, do)]
     nan = [x.clone() for x in (q, k, v, do)]
@@ -598,11 +603,15 @@ def test_varlen_kernels_ignore_nan_in_the_gaps(dev):
         assert torch.equal(a, b)
 
 
-def test_varlen_kernels_are_bitwise_repeatable(dev):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dropout_p", [0.0, 0.1])
+def test_varlen_kernels_are_bitwise_repeatable(dev, dtype, dropout_p):
+    """Five runs of the forward (o, lse) and backward give equal bits."""
     lens = (300, 1, 128, 77)
     starts, T = _varlen_layout(lens, (128, 128))
-    q, k, v, do = (x.to(torch.bfloat16) for x in _varlen_inputs(dev, T, 8, 1, 128, 4))
-    kw = dict(causal=True, softmax_scale=0.088, block_q=128, block_kv=128)
+    q, k, v, do = (x.to(dtype) for x in _varlen_inputs(dev, T, 8, 1, 128, 4))
+    kw = dict(causal=True, softmax_scale=0.088, block_q=128, block_kv=128,
+              **(dict(dropout_p=dropout_p, dropout_seed=41) if dropout_p else {}))
     runs = [_varlen_run(q, k, v, do, starts, lens, **kw) for _ in range(5)]
     torch.cuda.synchronize()
     for run in runs[1:]:
@@ -946,6 +955,24 @@ def test_varlen_dropout_kernels_match_plain(dev, dtype, D, G):
     _varlen_check(dev, dtype, starts, lens, lens, T, 8, 8 // G, D, seed=D + G + 1,
                   causal=True, softmax_scale=D ** -0.5, block_q=blocks[0], block_kv=blocks[1],
                   dropout_p=0.2, dropout_seed=D - 3 * G)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("G", [1, 4])
+def test_varlen_forward_drops_what_the_fma_kernel_drops(dev, dtype, D, G):
+    """At p 0.1 the 16-bit forward (tensor cores) drops the same elements
+    as the fp32 one (FMA tiles): the mask probe reads both bit for bit, and
+    both equal the rng mask."""
+    from fa2_triton_tpu_torch.utils import mask_probes
+
+    seed = 1234 + D + G
+    fma = mask_probes.packed_probes(8, 8 // G, D, 0.1, seed, device=dev, dtype=torch.float32)
+    mma = mask_probes.packed_probes(8, 8 // G, D, 0.1, seed, device=dev, dtype=dtype)
+    torch.cuda.synchronize()
+    (read_fma, want, _), (read_mma, _, resid) = fma["varlen_fwd"], mma["varlen_fwd"]
+    assert torch.equal(read_mma, read_fma), (read_mma != read_fma).sum().item()
+    assert torch.equal(read_mma, want) and resid <= mask_probes.RESIDUAL_TOL, resid
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])

@@ -1,8 +1,10 @@
-"""The host table of the packed backward's 16-bit kernels (`ops/varlen.py`):
+"""The host table of the packed kernels' 16-bit versions (`ops/varlen.py`):
 the 64-row tiles heaviest first (`_tile_order`), the work behind that order
 (`_tile_work`) against the element mask of each work-list entry, and what
-the dq and dk/dv launches hand the kernels, read through a stand-in entry
-point (no build, no GPU). Small layouts, CPU only."""
+the forward, dq and dk/dv launches hand the kernels, read through a
+stand-in entry point (no build, no GPU), including the forward's q-major
+table that `_VarlenCore` hands the backward's dq launch. Small layouts, CPU
+only."""
 import ctypes
 
 import numpy as np
@@ -148,3 +150,100 @@ def test_backward_launches_hand_the_kernels_their_tables(monkeypatch, case):
                               drop=varlen.dropout_c_args(0.0, 0))
     assert seen == [1, 2]
     assert varlen.LAUNCHES == {"varlen_fwd": 0, "varlen_dq": 1, "varlen_dkdv": 1}
+
+
+def _read(ptr, n):
+    return np.ctypeslib.as_array((ctypes.c_int * n).from_address(ptr)).copy()
+
+
+def _tables_of(args, T, n_blocks):
+    """(work, rowptr, order) of a stand-in launch's arguments."""
+    work_p, rowptr_p, order_p = args[15:18]
+    rowptr = _read(rowptr_p, n_blocks + 1)
+    return _read(work_p, 8 * int(rowptr[-1])).reshape(-1, 8), rowptr, _read(order_p, T // 64)
+
+
+def _stand_in(monkeypatch, entry):
+    monkeypatch.setattr(varlen, "_entry", lambda: entry)
+    monkeypatch.setattr(varlen._build, "stream_ptr", lambda device: 0)
+    monkeypatch.setattr(varlen, "LAUNCHES", dict.fromkeys(varlen.LAUNCHES, 0))
+
+
+def _q_major(case, causal):
+    """The q-major work list, row pointer and tile order of a case, built
+    afresh."""
+    starts, T, qlens, kvlens, (bq, bkv), mask = CASES[case]
+    keep = None if mask is None else varlen._mask_keep_fn(varlen.encode_block_mask(mask))
+    segs = varlen._segments(starts, T, qlens, kvlens, bq, bkv)
+    work = varlen._build_schedule(starts, [s[1] for s in segs], qlens, kvlens, bq, bkv, causal,
+                                  keep_block=keep)
+    return (work, np.searchsorted(work[:, 0], np.arange(T // bq + 1)),
+            varlen._tile_order(work, T, bq, bkv, causal))
+
+
+@pytest.mark.parametrize("case", ["ragged", "block_kv_64", "block_sparse"])
+def test_forward_launch_hands_the_kernel_its_table(monkeypatch, case):
+    """The forward (0) carries the q-major work list, the CSR row pointer
+    over it and the tiles heaviest first by `_tile_order(kv_major=False)`,
+    and returns that table (tensor and addresses) for dq."""
+    starts, T, qlens, kvlens, (bq, bkv), mask = CASES[case]
+    causal, Hq, Hkv, D = True, 4, 2, 64
+    keep = None if mask is None else varlen._mask_keep_fn(varlen.encode_block_mask(mask))
+    segs = varlen._segments(starts, T, qlens, kvlens, bq, bkv)
+    seen = []
+
+    def entry(which, *args):
+        seen.append((which, args[15:18], _tables_of(args, T, T // bq)))
+        return 0
+
+    _stand_in(monkeypatch, entry)
+    x = lambda h: torch.zeros(1, T, h, D, dtype=torch.bfloat16).transpose(1, 2)  # noqa: E731
+    q, k, v, o = x(Hq), x(Hkv), x(Hkv), x(Hq)
+    lse = torch.zeros(1, Hq, T)
+    table, ptrs = varlen._forward_launch(q, k, v, o, lse, segs, causal=causal, softmax_scale=0.125,
+                                         block_q=bq, block_kv=bkv, keep_block=keep,
+                                         drop=varlen.dropout_c_args(0.0, 0))
+    assert [w for w, _, _ in seen] == [0]
+    assert seen[0][1] == ptrs and ptrs[0] == table.data_ptr()
+    for got, want in zip(seen[0][2], _q_major(case, causal)):
+        np.testing.assert_array_equal(got, want)
+    assert varlen.LAUNCHES == {"varlen_fwd": 1, "varlen_dq": 0, "varlen_dkdv": 0}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", ["ragged", "block_kv_64", "block_sparse"])
+def test_varlen_core_hands_dq_the_forwards_table(monkeypatch, case, dtype):
+    """Through `_VarlenCore` (forward, then backward on the kernels' path):
+    dq (1) runs on the forward's (0) table at the same addresses, bitwise
+    equal to a fresh build, so `_build_schedule` runs twice (q-major, then
+    kv-major for dk/dv (2)), not three times."""
+    starts, T, qlens, kvlens, (bq, bkv), mask = CASES[case]
+    causal, Hq, Hkv, D = True, 4, 2, 64
+    enc = None if mask is None else varlen.encode_block_mask(mask)
+    seen, builds = [], []
+
+    def entry(which, *args):
+        seen.append((which, args[15:18], _tables_of(args, T, T // (bkv if which == 2 else bq))))
+        return 0
+
+    build = varlen._build_schedule
+
+    def counted(*a, **kw):
+        builds.append(kw.get("kv_major", False))
+        return build(*a, **kw)
+
+    _stand_in(monkeypatch, entry)
+    monkeypatch.setattr(varlen, "_uses_kernels", lambda q: True)
+    monkeypatch.setattr(varlen, "_build_schedule", counted)
+    x = lambda h: torch.zeros(1, T, h, D, dtype=dtype).transpose(1, 2).requires_grad_()  # noqa: E731
+    q, k, v = x(Hq), x(Hkv), x(Hkv)
+    meta = (tuple(starts), tuple(qlens), tuple(kvlens), causal, 0.125, bq, bkv, 0.0, 0, enc)
+    o, _ = varlen._VarlenCore.apply(q, k, v, meta)
+    o.backward(torch.zeros_like(o))
+    assert [w for w, _, _ in seen] == [0, 1, 2]
+    assert builds == [False, True]
+    assert seen[1][1] == seen[0][1]
+    for fwd, dq, want in zip(seen[0][2], seen[1][2], _q_major(case, causal)):
+        np.testing.assert_array_equal(fwd, want)
+        np.testing.assert_array_equal(dq, want)
+    assert varlen.LAUNCHES == {"varlen_fwd": 1, "varlen_dq": 1, "varlen_dkdv": 1}
