@@ -21,7 +21,12 @@ the CUDA toolkit. Phases (any failure raises, and the script exits nonzero):
    kernel also runs over int8 and fp8 caches (B5 quant) and over shuffled
    page pools at page 128 and 512 (B6), each variant once per call: paged
    must equal contiguous bit for bit, and NaN in unused pages and rows must
-   not change the output.
+   not change the output. Decode is timed by its kernel's device time
+   (torch.profiler; at ~0.03 ms a call's CUDA-event time is the host's,
+   printed beside it), with its split-KV grid: chunks per (slot, KV head)
+   and the blocks whose chunk holds a live row. Before it, right after the
+   build, a line sums up the 216 decode instantiations' ptxas registers
+   and spills and the HMMA of the 16-bit ones; any spill fails.
 3. Serve 16 requests through `runtime.serving.Engine` at the published
    widths of Mistral-7B-v0.3 (random bf16 weights from a seed), with the
    launch counters reset just before; every prefill dispatch and decode step
@@ -138,6 +143,12 @@ NEW_TOKENS = 32
 # heavy-tailed, and with seed 0 the 16 prompts land in buckets 128 (the TPU's
 # B1 schedule) and 512-2048 (its B9 tri-square schedule).
 PROMPT_RANGE = (100, 1800)
+# The serve runs of phases 3-4, by name: each Engine's cache options
+# (qdtype by torch dtype name).
+SERVE_MODES = {"serve": {}, "serve paged bf16": {"paged": True},
+               "serve paged int8": {"paged": True, "page_size": 128, "n_pages": 57,
+                                    "qdtype": "int8"},
+               "serve contiguous fp8": {"qdtype": "float8_e4m3fn"}}
 ATTN_SEQ = (128, 1024, 2048)
 DECODE_LENS = (1, 17, 300, 1024, 2048, 3000, 4000, 4096)
 FP32_TOL = 1e-4                  # fp32 kernel vs fp32 plain, max abs
@@ -383,13 +394,17 @@ def phase_kernels(torch):
             pl_err = max_abs(torch, decode.decode_attention_plain(q, k, v, kv_lens, softmax_scale=scale), o_ref)
             bound = OUT_ERROR_MUL * pl_err + OUT_ERROR_BIAS
             rule = f"<= 2 x plain bf16 err {pl_err:.3e} + 5e-5"
-        ms = cuda_ms(torch, lambda: decode.decode_attention(q, k, v, kv_lens, softmax_scale=scale))
+        run = lambda: decode.decode_attention(q, k, v, kv_lens, softmax_scale=scale)
+        ms, call_ms = decode_kernel_ms(torch, run), cuda_ms(torch, run)
         pms = cuda_ms(torch, lambda: decode.decode_attention_plain(q, k, v, kv_lens, softmax_scale=scale))
         live = sum(DECODE_LENS) * Hkv * D * 2 * q.element_size()   # K and V bytes read
+        grid = split_kv_counts(decode, S_max, Hkv)
         print(f"[kernels] decode slots={slots} Hq={Hq} Hkv={Hkv} D={D} S_max={S_max} "
               f"kv_lens={list(DECODE_LENS)} {str(dt)[6:]}: max abs err {err:.3e} ({rule}); "
-              f"kernel {ms:.3f} ms ({live / (ms * 1e-3) / 1e9:.0f} GB/s of live K/V), "
-              f"plain {pms:.3f} ms")
+              f"kernel {ms:.4f} ms ({live / (ms * 1e-3) / 1e9:.0f} GB/s of live K/V; the call "
+              f"{call_ms:.4f} ms), split-KV grid {grid['n_chunks']} chunks of {grid['chunk']} "
+              f"rows x {Hkv} KV heads x {slots} slots = {grid['grid_blocks']} blocks, "
+              f"{grid['working_blocks']} working, plain {pms:.3f} ms")
         if not err <= bound:
             raise AssertionError(f"decode {dt}: err {err:.3e} > {bound:.3e}")
     # The library yardstick: each slot as a varlen sequence of one query.
@@ -398,14 +413,55 @@ def phase_kernels(torch):
         [1] * slots, list(DECODE_LENS), False, scale)
     lib_err = check_library(torch, "decode", lib_out[0], o_ref, pl_err)
     nbytes = 2 * slots * Hq * D * q.element_size() + live
-    extra = {"library_ms": cuda_ms(torch, lib_fwd),
+    extra = {"library_ms": library_device_ms(torch, lib_fwd),
+             "library_call_ms": cuda_ms(torch, lib_fwd),
              **roofline(4 * D * Hq * sum(DECODE_LENS), nbytes)}
     print(f"[kernels] decode bf16: library (aten varlen flash, one query per slot) "
-          f"{extra['library_ms']:.3f} ms, err {lib_err:.3e}; bound {extra['bound_ms']:.4f} ms "
-          f"({extra['bound_by']})")
-    result["decode"] = {"max_abs_err": err, "ms": ms, "plain_ms": pms, **extra}
+          f"{extra['library_ms']:.4f} ms of device time (the call {extra['library_call_ms']:.4f} "
+          f"ms), err {lib_err:.3e}; bound {extra['bound_ms']:.4f} ms ({extra['bound_by']})")
+    result["decode"] = {"max_abs_err": err, "ms": ms, "call_ms": call_ms, "plain_ms": pms, **extra,
+                        **grid}
     result.update(decode_variants(torch, q32, k32, v32, kv_lens, scale))
     return result
+
+
+def decode_kernel_ms(torch, fn) -> float:
+    """Device time of one decode launch (torch.profiler): at some 0.03 ms
+    the whole call's CUDA-event time is the host's, not the kernel's."""
+    return kernel_ms(torch, fn, ["decode_kernel"], iters=10)["decode_kernel"]
+
+
+def library_device_ms(torch, fn, iters: int = 10) -> float:
+    """Device time per call of a library yardstick: every kernel it
+    launches, summed (torch.profiler), so that it stands beside the decode
+    kernel's own device time; its CUDA-event call time is the host's too."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    hits = [(e.key, e.count, getattr(e, "self_device_time_total", None) or e.self_cuda_time_total)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    hits = [h for h in hits if h[2] > 0]
+    if sum(n for _, n, _ in hits) < iters:
+        raise AssertionError(f"the profiler recorded {hits} in {iters} library calls")
+    ms = sum(us for _, _, us in hits) / iters / 1e3
+    print(f"[profiler] library: {ms:.4f} ms of device time per call over {iters} calls, "
+          f"kernels (name, launches): {[(k[:80], n) for k, n, _ in hits]}")
+    return ms
+
+
+def split_kv_counts(decode, cap: int, Hkv: int) -> dict:
+    """The decode grid at phase 2's lengths: chunks per (slot, KV head)
+    from the cap alone, and the blocks whose chunk holds a live row."""
+    live = sum(decode.live_chunks(n, cap) for n in DECODE_LENS)
+    return {"chunk": decode.CHUNK, "n_chunks": decode.chunk_count(cap),
+            "grid_blocks": decode.chunk_count(cap) * Hkv * len(DECODE_LENS),
+            "working_blocks": live * Hkv}
 
 
 def page_pool(torch, caches, lens, page, seed, fill):
@@ -449,7 +505,7 @@ def decode_variants(torch, q32, k32, v32, kv_lens, scale):
 
     lens = [int(n) for n in kv_lens.tolist()]
     slots, Hq, D = q32.shape
-    Hkv = k32.shape[1]
+    Hkv, S = k32.shape[1], k32.shape[2]
     q = q32.to(torch.bfloat16)
     kw = dict(softmax_scale=scale)
     stored = {"bf16": (k32.to(torch.bfloat16), v32.to(torch.bfloat16), None, None)}
@@ -461,7 +517,7 @@ def decode_variants(torch, q32, k32, v32, kv_lens, scale):
     lib_fwd, _, _ = library_attention(
         torch, q, *(tight(torch, x.transpose(1, 2), lens) for x in stored["bf16"][:2]),
         [1] * slots, lens, False, scale)
-    lib_ms = cuda_ms(torch, lib_fwd)
+    lib_ms, lib_call_ms = library_device_ms(torch, lib_fwd), cuda_ms(torch, lib_fwd)
     flops = 4 * D * Hq * sum(lens)
     qo_bytes = 2 * slots * Hq * D * q.element_size()
     no_lib = ("none: no PyTorch call reads an int8/fp8 cache with per-token scales or a paged pool")
@@ -492,8 +548,10 @@ def decode_variants(torch, q32, k32, v32, kv_lens, scale):
         peak = PEAK_8BIT_OPS if quant else PEAK_BF16_FLOPS
         if quant:
             variants[f"contiguous {name}"] = {
-                "max_abs_err": err, "ms": cuda_ms(torch, run), "plain_ms": cuda_ms(torch, plain),
-                "library_ms": None, **roofline(flops, kv_bytes + qo_bytes, peak)}
+                "max_abs_err": err, "ms": decode_kernel_ms(torch, run),
+                "call_ms": cuda_ms(torch, run),
+                "plain_ms": cuda_ms(torch, plain), "library_ms": None, "library_call_ms": None,
+                **roofline(flops, kv_bytes + qo_bytes, peak), **split_kv_counts(decode, S, Hkv)}
         for page in DECODE_PAGES:
             pools, tables = page_pool(torch, caches, lens, page, seed=page, fill=0.0)
             prun = lambda: decode.paged_decode_attention(q, pools[0], pools[1], tables, kv_lens,
@@ -513,17 +571,24 @@ def decode_variants(torch, q32, k32, v32, kv_lens, scale):
             del nan_pools, op_nan
             table_bytes = 4 * sum(-(-n // page) for n in lens)
             variants[f"paged {name} page {page}"] = {
-                "max_abs_err": err, "ms": cuda_ms(torch, prun),
-                "plain_ms": cuda_ms(torch, pplain), "library_ms": None if quant else lib_ms,
-                **roofline(flops, kv_bytes + qo_bytes + table_bytes, peak)}
+                "max_abs_err": err, "ms": decode_kernel_ms(torch, prun),
+                "call_ms": cuda_ms(torch, prun), "plain_ms": cuda_ms(torch, pplain),
+                "library_ms": None if quant else lib_ms,
+                "library_call_ms": None if quant else lib_call_ms,
+                **roofline(flops, kv_bytes + qo_bytes + table_bytes, peak),
+                **split_kv_counts(decode, tables.shape[1] * page, Hkv)}
             del pools
         print(f"[kernels] decode {name} cache (contiguous and paged at {DECODE_PAGES}): max abs err "
               f"{err:.3e} (<= 2 x plain {pl_err:.3e} + 5e-5); paged == contiguous bit for bit; "
               f"NaN in unused pages and rows: output unchanged")
     for v, e in variants.items():
-        print(f"[kernels] {v}: kernel {e['ms']:.4f} ms ({e['ms'] / e['bound_ms']:.1f}x its bound "
-              f"{e['bound_ms']:.4f} ms, {e['bound_by']}), plain {e['plain_ms']:.3f} ms, library "
-              + (f"{e['library_ms']:.4f} ms (aten varlen flash on the gathered rows)"
+        share = 100 * e["bound_ms"] / e["ms"]
+        print(f"[kernels] {v}: kernel {e['ms']:.4f} ms ({share:.1f} % of its "
+              f"bound {e['bound_ms']:.4f} ms, {e['bound_by']}; the call {e['call_ms']:.4f} ms), "
+              f"{e['n_chunks']} chunks of {e['chunk']} rows, {e['working_blocks']} working blocks "
+              f"of {e['grid_blocks']}, plain {e['plain_ms']:.3f} ms, library "
+              + (f"{e['library_ms']:.4f} ms of device time, the call {e['library_call_ms']:.4f} "
+                 "ms (aten varlen flash on the gathered rows)"
                  if e["library_ms"] is not None else no_lib))
     worst = lambda keys: max(variants[k]["max_abs_err"] for k in keys)
     return {
@@ -538,20 +603,31 @@ def decode_variants(torch, q32, k32, v32, kv_lens, scale):
 
 
 def variants_of(variants, prefix):
-    return {k: {n: e[n] for n in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms")}
+    return {k: {n: e[n] for n in ("max_abs_err", "ms", "call_ms", "plain_ms", "library_ms",
+                                  "library_call_ms", "bound_ms", "n_chunks", "working_blocks")}
             for k, e in variants.items() if k.startswith(prefix)}
 
 
-def serve(torch, model, cfg, prompts, card: str, what: str, **engine_kw):
-    """Serve `prompts` (NEW_TOKENS each) through a fresh `Engine(**engine_kw)`
-    with the launch counts reset just before, and check that every prefill
-    dispatch and decode step went through the kernels on every layer, with
-    the one decode variant the cache calls for. Returns the requests, the
-    stats, the launches and the engine."""
+def served_prompts(cfg):
+    """Phase 3's traffic: N_REQUESTS prompts of log-uniform length in
+    PROMPT_RANGE, random tokens, from numpy.random.RandomState(0)."""
+    rng = np.random.RandomState(0)
+    lens = np.exp(rng.uniform(*np.log(PROMPT_RANGE), size=N_REQUESTS)).astype(int)
+    return [rng.randint(0, cfg.vocab_size, size=n).tolist() for n in lens]
+
+
+def serve(torch, model, cfg, prompts, card: str, what: str):
+    """Serve `prompts` (NEW_TOKENS each) through a fresh Engine with the
+    cache options of SERVE_MODES[what], the launch counts reset just before,
+    and check that every prefill dispatch and decode step went through the
+    kernels on every layer, with the one decode variant the cache calls for.
+    Returns the requests, the stats, the launches and the seconds of each
+    decode step (host clock to the device's end)."""
     from fa2_triton_tpu_torch.ops import decode, flash_fwd
     from fa2_triton_tpu_torch.runtime import Engine
 
     torch.cuda.reset_peak_memory_stats()
+    engine_kw = {k: getattr(torch, v) if k == "qdtype" else v for k, v in SERVE_MODES[what].items()}
     engine = Engine(model, cfg, n_slots=8, max_seq=4096, **engine_kw)
     store = engine.pcache.pools if engine.paged else engine.caches
     kv_bytes = sum(t.numel() * t.element_size() for layer in store for t in layer.values())
@@ -597,7 +673,7 @@ def serve(torch, model, cfg, prompts, card: str, what: str, **engine_kw):
     lps = np.array([r.out_logprobs for r in reqs])
     if not np.isfinite(lps).all():
         raise AssertionError(f"{what}: non-finite served log-probs")
-    return reqs, stats, launches
+    return reqs, stats, launches, step_s
 
 
 def phase_serve(torch, card: str):
@@ -613,10 +689,8 @@ def phase_serve(torch, card: str):
     n_params = sum(p.numel() for p in model.parameters())
     print(f"[serve] Mistral-7B-v0.3 widths, {n_params / 1e9:.2f} B params bf16, random "
           f"(seed 0), init {time.perf_counter() - t0:.1f} s")
-    rng = np.random.RandomState(0)
-    lens = np.exp(rng.uniform(*np.log(PROMPT_RANGE), size=N_REQUESTS)).astype(int)
-    prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist() for n in lens]
-    reqs, _, launches = serve(torch, model, cfg, prompts, card, "serve")
+    prompts = served_prompts(cfg)
+    reqs, _, launches, _ = serve(torch, model, cfg, prompts, card, "serve")
     return model, cfg, reqs, prompts, launches
 
 
@@ -705,7 +779,7 @@ def phase_serve_modes(torch, card, model, cfg, reqs, prompts):
     pages of 128 (the first wave reserves 56), so the pool runs dry
     mid-generation and a request must be preempted; (3) contiguous fp8.
     Returns the decode launches of each run by variant."""
-    base = serve(torch, model, cfg, prompts, card, "serve paged bf16", paged=True)
+    base = serve(torch, model, cfg, prompts, card, "serve paged bf16")
     for r, b in zip(base[0], reqs):
         if r.out_tokens != b.out_tokens:
             raise AssertionError(f"paged bf16: request {r.rid} tokens differ from contiguous")
@@ -716,13 +790,12 @@ def phase_serve_modes(torch, card, model, cfg, reqs, prompts):
     if not delta <= PAGED_LOGPROB_TOL:
         raise AssertionError(f"paged bf16: log-probs differ from contiguous by {delta:.3e}")
     runs = {"paged bf16": base[2]["decode_variants"]}
-    for name, qd, kw in (("int8", torch.int8, dict(paged=True, page_size=128, n_pages=57)),
-                         ("fp8", torch.float8_e4m3fn, {})):
-        what = f"serve {'paged' if kw else 'contiguous'} {name}"
-        q_reqs, _, launches = serve(torch, model, cfg, prompts, card, what, qdtype=qd, **kw)
+    for what in ("serve paged int8", "serve contiguous fp8"):
+        name = what.split()[-1]
+        q_reqs, _, launches, _ = serve(torch, model, cfg, prompts, card, what)
         folded = {r.rid: r.folded for r in q_reqs if r.folded}
         print(f"[{what}] preempted requests (rid: tokens folded into the prompt): {folded}")
-        if kw and not folded:
+        if SERVE_MODES[what].get("paged") and not folded:
             raise AssertionError(f"{what}: the 57-page pool never ran dry; nothing was preempted")
         check_logprobs(torch, model, cfg, q_reqs, prompts, what, *QUANT_LOGPROB_TOL[name])
         runs[what[6:]] = launches["decode_variants"]
@@ -2444,6 +2517,55 @@ def mma_build_report() -> dict:
     return out
 
 
+def decode_build_report() -> dict:
+    """Registers and spills of every `decode_kernel` instantiation (T x
+    cache x layout x D x G: 216) from nvcc -Xptxas -v's report, and the HMMA
+    count of the 16-bit ones in the SASS; fails on any spill, on a count
+    other than 216 or on a 16-bit instantiation without tensor-core
+    instructions. Returns the summary."""
+    from fa2_triton_tpu_torch.ops import _build
+
+    regs, spills, cur, prop = {}, {}, None, None
+    for line in (_build.ptxas_report or "").splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            cur = m[1] if "decode_kernel" in m[1] else None
+        elif m := re.search(r"Function properties for (\S+)", line):
+            prop = m[1] if "decode_kernel" in m[1] else None
+        elif (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)) and prop:
+            spills[prop] = int(m[1]) + int(m[2])
+        elif (m := re.search(r"Used (\d+) registers", line)) and cur:
+            regs[cur] = int(m[1])
+    sass = subprocess.run([_build.find_cuobjdump(), "-sass", str(_build.build())],
+                          capture_output=True, text=True, check=True).stdout
+    hmma, fn = {}, None
+    for line in sass.splitlines():
+        if m := re.search(r"Function : (\S+)", line):
+            fn = m[1] if "decode_kernel" in m[1] else None
+            if fn:
+                hmma[fn] = 0
+        elif fn and "HMMA" in line:
+            hmma[fn] += 1
+    sixteen = [n for n in regs if "decode_kernelIf" not in n]   # q bf16 / fp16
+    spilled = {n: b for n, b in spills.items() if b}
+    no_mma = [n for n in sixteen if not hmma.get(n)]
+    # bf16 q over a bf16 contiguous cache, D 128, G 4 (the served shape).
+    bf16 = next((n for n in regs
+                 if re.search(r"decode_kernelI13__nv_bfloat16S\d*_Lb0ELi128ELi4E", n)), None)
+    summary = {"instantiations": len(regs), "registers_min": min(regs.values(), default=0),
+               "registers_max": max(regs.values(), default=0), "spilled": len(spilled),
+               "sixteen_bit": len(sixteen), "sixteen_bit_without_hmma": len(no_mma),
+               "bf16_D128_G4_registers": regs.get(bf16), "bf16_D128_G4_hmma": hmma.get(bf16)}
+    print(f"[decode build] {summary['instantiations']} decode_kernel instantiations: "
+          f"{summary['registers_min']}-{summary['registers_max']} registers, "
+          f"{len(spilled)} spill; {len(sixteen)} 16-bit, each with HMMA in the SASS "
+          f"({len(no_mma)} without); bf16 contiguous D 128 G 4: {regs.get(bf16)} registers, "
+          f"{hmma.get(bf16)} HMMA")
+    if len(regs) != 216 or spilled or no_mma or not sixteen:
+        raise AssertionError(f"decode build: {len(regs)} instantiations, spills {spilled}, "
+                             f"16-bit without HMMA {no_mma[:4]}")
+    return summary
+
+
 def fused_over_pair(fused_runs, pair_runs) -> float:
     """The fused schedule's best time over the dq + dk/dv pair's best."""
     return min(fused_runs) / min(pair_runs)
@@ -2804,6 +2926,7 @@ def main() -> int:
 
     phase_build()
     mma = mma_build_report()
+    decode_build = decode_build_report()
     with torch.inference_mode():
         kernels = phase_kernels(torch)
         kernels["flash_fwd"]["build"] = mma["flash_fwd_mma_kernel"]
@@ -2850,7 +2973,7 @@ def main() -> int:
          "launches_bias_path": bias_launches["flash_fwd"], **kernels["flash_fwd"]},
         {"name": "decode", "route": "cuda", "source": "fa2_triton_tpu_torch/csrc/decode.cuh",
          "replaces": "fa2_triton_tpu/ops/decode.py:158",
-         "launches": launches["decode"], **kernels["decode"]},
+         "launches": launches["decode"], **kernels["decode"], "build": decode_build},
         {"name": "decode_quant", "route": "cuda", "source": "fa2_triton_tpu_torch/csrc/decode.cuh",
          "replaces": "fa2_triton_tpu/ops/decode.py:74",
          "launches": sum(n for run in served.values() for v, n in run.items() if "contiguous" in v),

@@ -5,8 +5,9 @@
 namespace fa2 {
 namespace dec {
 
-cudaError_t run_fp8(int dtype, const DecParams& p, int B, int D, int G, cudaStream_t s) {
-  return run<__nv_fp8_e4m3>(dtype, p, B, D, G, s);
+cudaError_t run_fp8(int dtype, const DecParams& p, int B, int n_chunks, int D, int G,
+                    cudaStream_t s) {
+  return run<__nv_fp8_e4m3>(dtype, p, B, n_chunks, D, G, s);
 }
 
 }  // namespace dec

@@ -1,7 +1,8 @@
 // Tensor-core building blocks shared by the 16-bit kernels: the forward
-// (flash_fwd.cu) and the fused backward (bwd_mma.cuh). PTX wrappers for
-// cp.async (16- and 4-byte global -> shared copies that zero-fill without
-// reading), ldmatrix (plain and transposed), mma.sync.m16n8k16 with fp32
+// (flash_fwd.cu), the backward (bwd_mma.cuh) and decode (decode.cuh). PTX
+// wrappers for cp.async (16- and 4-byte global -> shared copies that
+// zero-fill without reading), ldmatrix (plain and transposed), movmatrix
+// (an 8 x 8 fragment transposed in registers), mma.sync.m16n8k16 with fp32
 // accumulation (bf16 or fp16 operands), the fp32 -> 16-bit pair pack that
 // turns accumulators into A fragments, and the tile loader on top of them.
 #pragma once
@@ -44,6 +45,14 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
                : "r"(smem_u32(p)));
 }
 
+// The 8 x 8 matrix of 16-bit elements whose fragment (lane 4 i + t: row i,
+// columns 2 t, 2 t + 1) is x, transposed: the same fragment of its transpose.
+__device__ __forceinline__ uint32_t movmatrix_t(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
 // c += a (16 x 16, row) . b (16 x 8, col), fp32 accumulation.
 template <typename T>
 __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -72,6 +81,16 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   } else {
     __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&h);
+  }
+}
+
+// The two T of a packed pair, as floats (low half first).
+template <typename T>
+__device__ __forceinline__ float2 unpack2(uint32_t x) {
+  if constexpr (std::is_same<T, __half>::value) {
+    return __half22float2(*reinterpret_cast<__half2*>(&x));
+  } else {
+    return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&x));
   }
 }
 

@@ -17,12 +17,18 @@ both scales. An fp8 cache without scales raises: the JAX package bitcasts it
 to int8 and reads the bits as integers (ROADMAP queue C).
 
 CPU tensors take the plain twins; CUDA tensors always launch the kernel or
-raise.
+raise. The kernel splits each (slot, KV head) into chunks of `CHUNK` logical
+rows on a grid sized from shapes alone (`chunk_count`): the wrapper never
+reads `kv_lens` on the host. Its scratch, fp32 partials (`partials_shape`)
+and an int32 arrival counter per (slot, KV head), is kept per device and
+stream and grown as needed, so a call allocates none (the kernel leaves the
+counters 0).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -38,6 +44,9 @@ VARIANT_LAUNCHES: Dict[str, int] = {}
 HEAD_DIMS = (64, 128, 256)
 GROUPS = (1, 2, 4, 8)
 PAGE_MULTIPLE = 128  # the JAX package's page rule (decode.py:314)
+# Logical cache rows per block of the kernel's grid: a mirror of CHUNK in
+# csrc/decode.cuh (the C entry point refuses a grid of another chunk count).
+CHUNK = 512
 
 # Cache kinds of the C entry point (`enum CacheKind` in csrc/decode.cuh).
 _CACHE_KINDS = {torch.int8: 1, torch.float8_e4m3fn: 2}
@@ -45,6 +54,10 @@ _DTYPE_NAMES = {torch.float32: "fp32", torch.float16: "fp16", torch.bfloat16: "b
                 torch.int8: "int8", torch.float8_e4m3fn: "fp8"}
 
 _c_fn = None
+# Scratch of the split-KV merge by (device index, stream): the fp32 partials
+# (flat) and the int32 arrival counters, zero between launches. Launches on
+# one stream run in order, so they share it.
+_SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def reset_launches() -> None:
@@ -62,10 +75,47 @@ def _entry():
     if _c_fn is None:
         lib = _build.load()
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.fa2_decode.argtypes = [I] * 6 + [P] * 8 + [I] * 3 + [F, F, P]
+        lib.fa2_decode.argtypes = [I] * 6 + [P] * 8 + [I] * 3 + [F, F] + [I] + [P] * 3
         lib.fa2_decode.restype = I
         _c_fn = lib.fa2_decode
     return _c_fn
+
+
+def chunk_count(cap: int) -> int:
+    """Blocks of the kernel's grid per (slot, KV head): chunks of CHUNK
+    logical rows covering cap = S_max (contiguous) or max_pages * page_size
+    (paged). From shapes alone; at least 1."""
+    return max(1, -(-cap // CHUNK))
+
+
+def partials_shape(B: int, Hkv: int, n_chunks: int, G: int, D: int) -> Tuple[int, ...]:
+    """The fp32 scratch of the split-KV merge: per (slot, KV head, chunk,
+    query head of the group) the unnormalized output [D], then m and l."""
+    return (B, Hkv, n_chunks, G, D + 2)
+
+
+def live_chunks(kv_len: int, cap: int, window_left: int = -1) -> int:
+    """How many chunks of one slot hold a row of [first, kv_len), the
+    kernel's rule: its working blocks per KV head. For reports on the host
+    (the wrapper never calls it)."""
+    kv_len = min(max(kv_len, 0), cap)
+    first = max(0, kv_len - 1 - window_left) if window_left >= 0 else 0
+    return (kv_len - 1) // CHUNK - first // CHUNK + 1 if kv_len > first else 0
+
+
+def _scratch(device: torch.device, stream: int, n_part: int,
+             n_counters: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """At least n_part fp32 partials and n_counters zeroed int32 arrival
+    counters for launches on `stream`, reused from the last call when they
+    are large enough."""
+    key = (device.index, stream)
+    bufs = _SCRATCH.get(key)
+    if bufs is None or bufs[0].numel() < n_part or bufs[1].numel() < n_counters:
+        old = (0, 0) if bufs is None else (bufs[0].numel(), bufs[1].numel())
+        bufs = (torch.empty(max(n_part, old[0]), dtype=torch.float32, device=device),
+                torch.zeros(max(n_counters, old[1], 64), dtype=torch.int32, device=device))
+        _SCRATCH[key] = bufs
+    return bufs
 
 
 def _check_scales(cache: torch.Tensor, k_scale, v_scale, shape) -> None:
@@ -201,13 +251,20 @@ def _launch(q, k_cache, v_cache, kv_lens, k_scale, v_scale, block_tables, *,
     if B == 0:
         return o
     scale = softmax_scale if softmax_scale is not None else default_softmax_scale(D)
+    max_pages = block_tables.shape[1] if paged else 0
+    n_chunks = chunk_count(max_pages * rows if paged else rows)
+    stream = _build.stream_ptr(q.device)
+    part = counters = None
+    if n_chunks > 1:
+        part, counters = _scratch(q.device, stream,
+                                  math.prod(partials_shape(B, Hkv, n_chunks, Hq // Hkv, D)), B * Hkv)
     ptr = lambda t: 0 if t is None else t.data_ptr()
     status = _entry()(
         _build.DTYPE_CODES[q.dtype], _CACHE_KINDS.get(k_cache.dtype, 0), B, Hq, Hkv, D,
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), o.data_ptr(), kv_lens.data_ptr(),
         ptr(k_scale), ptr(v_scale), ptr(block_tables),
-        block_tables.shape[1] if paged else 0, rows, int(window_left), float(scale),
-        float(softcap), _build.stream_ptr(q.device),
+        max_pages, rows, int(window_left), float(scale), float(softcap),
+        n_chunks, ptr(part), ptr(counters), stream,
     )
     _build.check(status, "decode launch")
     LAUNCHES += 1

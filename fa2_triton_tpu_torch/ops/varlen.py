@@ -42,6 +42,14 @@ packed row / column is kept iff hash(hash(hash(seed, h), row), col) >=
 dropout_threshold(p), with `flash_attn_func`'s seed contract; block-sparse
 attention packs B x S into T and uses the same stream.
 
+fp16 runs at 16 bits on the card: the tensor-core kernels (forward, dq,
+dk/dv) take fp16 q / k / v as they are and round P and dS to fp16 before
+their products, as they do bf16. JAX's `flash_attn_varlen_func` and
+`flash_attn_blocksparse_func` upcast fp16 to fp32 first
+(`fa2_triton_tpu/ops/varlen.py:751-752, 832-833`), so an fp16 call here
+meets the FA tolerance against the fp32 truth, not JAX's fp16 result bit
+for bit (ROADMAP.md queue C; the dense path likewise, `ops/attention.py`).
+
 CPU tensors take the `*_plain` twins (per segment, dense fp32, never a
 T x T matrix); CUDA tensors always launch the kernels or raise.
 """

@@ -817,6 +817,177 @@ def test_paged_engine_on_cuda_matches_engine_on_cpu(dev):
                                    rtol=0, atol=1e-3)
 
 
+
+# ----------------------------- split-KV decode (B5, B6) -----------------------------
+# The kernel cuts each (slot, KV head) into chunks of decode.CHUNK logical rows
+# on a grid sized from shapes alone; the last block of a slot's live chunks
+# merges their partials in chunk order.
+
+SPLIT_S_MAX = 4096
+
+
+def _split_lens(chunk):
+    """kv lengths around the chunk edges, and the whole cap (S_max 4096 is 8
+    or more chunks), and a slot with no key."""
+    return [chunk - 1, chunk, chunk + 1, 2 * chunk + 77, SPLIT_S_MAX, 0]
+
+
+@pytest.mark.parametrize("dtype,qdtype", [(torch.float32, None), (torch.bfloat16, None),
+                                          (torch.float16, None), (torch.bfloat16, torch.int8),
+                                          (torch.float16, torch.float8_e4m3fn)],
+                         ids=["fp32", "bf16", "fp16", "bf16-int8", "fp16-fp8"])
+@pytest.mark.parametrize("kw", [dict(), dict(window_left=300), dict(window_left=1000),
+                                dict(softcap=3.0)],
+                         ids=["full", "window-mid-chunk", "window-empty-leading-chunks", "softcap"])
+def test_split_kv_decode_matches_plain(dev, dtype, qdtype, kw):
+    """Lengths at chunk - 1, chunk, chunk + 1 and the cap, kv_len 0, a
+    window whose first row falls mid-chunk and one that leaves whole leading
+    chunks empty: each against the plain twin (kv_len 0 gives o = 0), and
+    paged (page 128) equal to contiguous bit for bit."""
+    chunk = decode.CHUNK
+    assert decode.chunk_count(SPLIT_S_MAX) == SPLIT_S_MAX // chunk >= 8
+    lens = _split_lens(chunk)
+    g = torch.Generator(device=dev).manual_seed(chunk + len(kw))
+    B, Hkv, G, D = len(lens), 2, 4, 128
+    q32 = torch.randn(B, Hkv * G, D, generator=g, device=dev) * 0.5
+    k32, v32 = (torch.randn(B, Hkv, SPLIT_S_MAX, D, generator=g, device=dev) * 0.5
+                for _ in range(2))
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    caches = _stored_caches(k32, v32, qdtype, dtype)
+    ref = decode.decode_attention_plain(q32, *(k32, v32) if qdtype is None else caches[:2], kv_lens,
+                                        *caches[2:], **kw)
+    q = q32.to(dtype)
+    o = decode.decode_attention(q, caches[0], caches[1], kv_lens, *caches[2:], **kw)
+    torch.cuda.synchronize()
+    _check(o, ref, decode.decode_attention_plain(q, *caches[:2], kv_lens, *caches[2:], **kw), dtype)
+    assert not o[lens.index(0)].any()
+    pools, tables = _to_pool(caches, lens, 128, seed=chunk)
+    o_paged = decode.paged_decode_attention(q, pools[0], pools[1], tables, kv_lens, *pools[2:],
+                                            **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o_paged, o)
+
+
+def _longer_tables(tables, extra):
+    """Tables with `extra` more entries per slot, each at the reserved page 0
+    (NaN there): the pool's cap grows to (max_pages + extra) x page."""
+    pad = torch.zeros(tables.shape[0], extra, dtype=torch.int32, device=tables.device)
+    return torch.cat([tables, pad], dim=1).contiguous()
+
+
+@pytest.mark.parametrize("qdtype", list(QDTYPE_IDS), ids=list(QDTYPE_IDS.values()))
+@pytest.mark.parametrize("page", [128, 512])
+def test_paged_decode_equals_contiguous_when_the_pool_is_longer_than_s_max(dev, qdtype, page):
+    """max_pages x page > S_max: the pool's cap has more chunks than the
+    contiguous cache's, all past every slot's length, and paged still equals
+    contiguous bit for bit (a window included)."""
+    g = torch.Generator(device=dev).manual_seed(page)
+    lens = _split_lens(decode.CHUNK)
+    B, Hkv, G, D = len(lens), 2, 8, 128
+    q = torch.randn(B, Hkv * G, D, generator=g, device=dev).to(torch.bfloat16)
+    k32, v32 = (torch.randn(B, Hkv, SPLIT_S_MAX, D, generator=g, device=dev) for _ in range(2))
+    caches = _stored_caches(k32, v32, qdtype, torch.bfloat16)
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    pools, tables = _to_pool(caches, lens, page, seed=page)
+    longer = _longer_tables(tables, extra=3 * 1024 // page)
+    assert decode.chunk_count(longer.shape[1] * page) > decode.chunk_count(SPLIT_S_MAX)
+    for kw in (dict(), dict(window_left=700)):
+        o = decode.decode_attention(q, caches[0], caches[1], kv_lens, *caches[2:], **kw)
+        o_paged = decode.paged_decode_attention(q, pools[0], pools[1], longer, kv_lens, *pools[2:],
+                                                **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(o_paged, o), kw
+
+
+@pytest.mark.parametrize("dtype,qdtype", [(torch.float32, None), (torch.bfloat16, None),
+                                          (torch.bfloat16, torch.int8),
+                                          (torch.float16, torch.float8_e4m3fn)],
+                         ids=["fp32", "bf16", "bf16-int8", "fp16-fp8"])
+def test_split_kv_decode_is_bitwise_repeatable(dev, dtype, qdtype):
+    """Five runs of one call, contiguous and paged, equal bit for bit: the
+    chunks' partials merge in chunk order whichever block arrives last."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    lens = [4096, 3000, 1, 2048, 513, 4000, 17, 1024]
+    B, Hkv, G, D = len(lens), 8, 4, 128
+    q = torch.randn(B, Hkv * G, D, generator=g, device=dev).to(dtype)
+    k32, v32 = (torch.randn(B, Hkv, SPLIT_S_MAX, D, generator=g, device=dev) for _ in range(2))
+    caches = _stored_caches(k32, v32, qdtype, dtype)
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    pools, tables = _to_pool(caches, lens, 512, seed=5)
+    runs = [(decode.decode_attention(q, caches[0], caches[1], kv_lens, *caches[2:]),
+             decode.paged_decode_attention(q, pools[0], pools[1], tables, kv_lens, *pools[2:]))
+            for _ in range(5)]
+    torch.cuda.synchronize()
+    bits = lambda x: x.view(torch.int32 if x.dtype == torch.float32 else torch.int16)  # noqa: E731
+    for o, o_paged in runs:
+        assert torch.equal(bits(o), bits(runs[0][0]))
+        assert torch.equal(bits(o_paged), bits(runs[0][0]))
+
+
+@pytest.mark.parametrize("qdtype", list(QDTYPE_IDS), ids=list(QDTYPE_IDS.values()))
+def test_split_kv_decode_ignores_nan_in_every_unused_row_page_and_table_entry(dev, qdtype):
+    """NaN (-128 in an int8 cache) in every row outside [first, kv_len) of
+    the contiguous cache, in every page no live row uses (page 0 included),
+    and table entries that no live row needs (behind the window, past the
+    last live page) set to an index far past the pool: the output equals a
+    clean run bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    lens, wl, page = [4096, 1000, 300, 1, 0], 700, 128
+    B, Hkv, G, D = len(lens), 2, 4, 128
+    q = torch.randn(B, Hkv * G, D, generator=g, device=dev).to(torch.bfloat16)
+    k32, v32 = (torch.randn(B, Hkv, SPLIT_S_MAX, D, generator=g, device=dev) for _ in range(2))
+    caches = _stored_caches(k32, v32, qdtype, torch.bfloat16)
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    base = decode.decode_attention(q, caches[0], caches[1], kv_lens, *caches[2:], window_left=wl)
+    dirty = [None if x is None else x.clone() for x in caches]
+    for b, n in enumerate(lens):
+        first = max(0, n - 1 - wl)
+        for x in dirty:
+            junk = -128 if x is not None and x.dtype == torch.int8 else float("nan")
+            if x is not None and x.shape[2] == 1:
+                x[b, :, :, :first] = junk
+                x[b, :, :, n:] = junk
+            elif x is not None:
+                x[b, :, :first] = junk
+                x[b, :, n:] = junk
+    o = decode.decode_attention(q, dirty[0], dirty[1], kv_lens, *dirty[2:], window_left=wl)
+    pools, tables = _to_pool(caches, lens, page, seed=4)          # unused pages: NaN
+    for b, n in enumerate(lens):
+        first = max(0, n - 1 - wl)
+        live = set(range(first // page, -(-n // page))) if n > first else set()
+        for i in range(tables.shape[1]):
+            if i not in live:
+                tables[b, i] = 2 ** 30                             # far past the pool
+    o_paged = decode.paged_decode_attention(q, pools[0], pools[1], tables, kv_lens, *pools[2:],
+                                            window_left=wl)
+    torch.cuda.synchronize()
+    assert torch.isfinite(base).all()
+    assert torch.equal(o, base)
+    assert torch.equal(o_paged, base)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("qdtype", [torch.int8, torch.float8_e4m3fn], ids=["int8", "fp8"])
+def test_decode_widens_every_8bit_value_exactly(dev, dtype, qdtype):
+    """The tensor-core path widens 8-bit rows to 16 bits by bit operations:
+    with one key and a v scale of 1, o is the stored V row itself, so every
+    int8 value and every finite e4m3 value (subnormals too) must come out
+    exactly."""
+    D = 256
+    codes = torch.arange(256, dtype=torch.int32)
+    if qdtype == torch.float8_e4m3fn:
+        codes = torch.where((codes & 0x7F) == 0x7F, torch.zeros_like(codes), codes)  # NaN codes
+    row = codes.to(torch.uint8).view(torch.int8).view(qdtype)
+    v = row.view(1, 1, 1, D).to(dev).contiguous()
+    k = torch.zeros_like(v)
+    scale = torch.ones(1, 1, 1, 1, device=dev)
+    q = torch.zeros(1, 1, D, device=dev, dtype=dtype)
+    kv_lens = torch.ones(1, dtype=torch.int32, device=dev)
+    o = decode.decode_attention(q, k, v, kv_lens, scale, scale)
+    torch.cuda.synchronize()
+    want = row.float().to(dtype).to(dev)
+    assert torch.equal(o.view(D), want)
+
 # ------------------------- dropout (B1, B7/B8 dropout) -------------------------
 
 DROPOUT_CASES = [

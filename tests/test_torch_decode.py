@@ -4,6 +4,9 @@ interpret mode): one query token per slot over a contiguous cache with
 ragged lengths, including 1, stored in fp32 or quantized (int8 / fp8 with
 the same stored values and scales on both sides). Max abs <= 1e-5: fp32 on
 both sides. `quantize_tensor` is bitwise equal to JAX's."""
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -142,3 +145,84 @@ def test_scale_layout_rules_raise():
             tdec.decode_attention(qt, kq, vq, lens, a, b)
     with pytest.raises(ValueError, match="only int8"):
         tdec.decode_attention(qt, torch.from_numpy(k), torch.from_numpy(v), lens, ks, vs)
+
+
+# The CUDA kernel's split-KV plan (csrc/decode.cuh): chunks of CHUNK logical
+# rows on a grid sized from the cap alone; a chunk's live rows are
+# [max(first, c CHUNK), min(kv_len, (c + 1) CHUNK)).
+
+def _chunk_rows(kv_len, cap, window_left):
+    """{chunk index: (lo, hi)} of the chunks holding a row of [first, kv_len)."""
+    chunk = tdec.CHUNK
+    kv_len = min(max(kv_len, 0), cap)
+    first = max(0, kv_len - 1 - window_left) if window_left >= 0 else 0
+    out = {}
+    for c in range(tdec.chunk_count(cap)):
+        lo, hi = max(first, c * chunk), min(kv_len, (c + 1) * chunk)
+        if lo < hi:
+            out[c] = (lo, hi)
+    return first, kv_len, out
+
+
+def test_chunk_mirrors_the_kernel():
+    """ops/decode.py's CHUNK is the kernel's constexpr CHUNK, a multiple of
+    its 128-row page run (the page-size multiple)."""
+    src = (Path(tdec.__file__).parents[1] / "csrc" / "decode.cuh").read_text()
+    run = int(re.search(r"constexpr int RUN = (\d+);", src)[1])
+    chunk = int(re.search(r"constexpr int CHUNK = (\d+);", src)[1])
+    assert chunk == tdec.CHUNK and run == tdec.PAGE_MULTIPLE and chunk % run == 0
+
+
+@pytest.mark.parametrize("page", [None, 128, 512])
+def test_split_kv_plan_covers_each_slots_rows_once(page):
+    """Every cap (S_max, or max_pages x page), length and window: the live
+    chunks are consecutive from first // CHUNK, inside the grid, their row
+    ranges tile [first, kv_len) exactly, and `live_chunks` counts them (0
+    for no key). A chunk's table holds its 128-row runs, each in one page. The grid and
+    the scratch depend on shapes alone."""
+    chunk = tdec.CHUNK
+    caps = (1, 100, 128, 300, 4096, 4096 + 3 * 128) if page is None else \
+        tuple(m * page for m in (1, 3, 8, 33))
+    for cap in caps:
+        assert tdec.chunk_count(cap) == max(1, -(-cap // chunk))
+        assert tdec.chunk_count(cap) * chunk >= cap
+        for kv_len in (0, 1, chunk - 1, chunk, chunk + 1, cap - 1, cap, cap + 50):
+            for wl in (-1, 0, 5, chunk, 3 * chunk + 7):
+                first, n, rows = _chunk_rows(kv_len, cap, wl)
+                assert tdec.live_chunks(kv_len, cap, wl) == len(rows)
+                if not rows:
+                    assert n <= first
+                    continue
+                assert list(rows) == list(range(first // chunk, first // chunk + len(rows)))
+                assert max(rows) < tdec.chunk_count(cap)
+                covered = [r for lo, hi in rows.values() for r in range(lo, hi)]
+                assert covered == list(range(first, n))
+                run = tdec.PAGE_MULTIPLE
+                for lo, hi in rows.values():
+                    # The kernel's run table of a chunk: runs lo // 128 .. (hi - 1) // 128,
+                    # at most CHUNK / 128 of them, each inside one page.
+                    assert (hi - 1) // run - lo // run + 1 <= chunk // run
+                    if page is not None:
+                        assert all(r * run // page == (r * run + run - 1) // page
+                                   for r in range(lo // run, (hi - 1) // run + 1))
+    assert tdec.partials_shape(8, 8, 16, 4, 128) == (8, 8, 16, 4, 130)
+
+
+@pytest.mark.parametrize("first", [(64, 8), (64, 100), (10, 300)])
+def test_split_kv_scratch_is_reused_per_stream(monkeypatch, first):
+    """The wrapper's scratch (partials, zeroed counters) is kept per (device,
+    stream): a call that fits reuses it, a larger one grows both without
+    shrinking either, and another stream gets its own."""
+    monkeypatch.setattr(tdec, "_SCRATCH", {})
+    dev = torch.device("cpu")
+    part, cnt = tdec._scratch(dev, 1, *first)
+    assert part.dtype == torch.float32 and cnt.dtype == torch.int32
+    assert part.numel() >= first[0] and cnt.numel() >= first[1] and not cnt.any()
+    again = tdec._scratch(dev, 1, first[0] // 2, 1)
+    assert again[0] is part and again[1] is cnt
+    grown = tdec._scratch(dev, 1, 2 * part.numel(), cnt.numel() + 1)
+    assert grown[0].numel() == 2 * part.numel() and grown[1].numel() == cnt.numel() + 1
+    assert not grown[1].any()
+    assert tdec._scratch(dev, 1, 1, 1)[0] is grown[0]
+    other = tdec._scratch(dev, 2, *first)
+    assert other[0] is not grown[0] and set(tdec._SCRATCH) == {(None, 1), (None, 2)}
