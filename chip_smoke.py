@@ -9,7 +9,7 @@ the CUDA toolkit. Phases (any failure raises, and the script exits nonzero):
 1. Build the CUDA kernels from `fa2_triton_tpu_torch/csrc/` with nvcc for
    sm_90a (ptxas register / shared-memory report printed). Then a line per
    16-bit instantiation of the tensor-core kernels (the forward and the dq
-   + dk/dv pair, with and without bias / softcap; the tri-square / diag and
+   + dk/dv pair, with and without bias / softcap; dbias; the tri-square / diag and
    work-list backward; the packed forward, dq and dk/dv; bf16 and fp16,
    D 64 / 128 / 256, with and without dropout): ptxas
    registers and spills, and the HMMA instructions in its SASS (cuobjdump
@@ -45,7 +45,9 @@ the CUDA toolkit. Phases (any failure raises, and the script exits nonzero):
 6. The bias path: `flash_attn_func` with a trainable per-head bias at the
    training shape, launch counts reset just before; the forward-with-bias,
    dq, dk/dv and dbias kernels must all have run, and out / dq / dk / dv /
-   dbias are held against the plain twins.
+   dbias are held against the plain twins. The tensor-core dbias kernel's
+   profiler time, with its share of the bound, must be 3x faster than its
+   FMA design's (phase 10 holds the bias path with dropout to the same).
 7. Training at Mistral-7B-v0.3 widths: (i) 2 layers, every parameter
    gradient through the kernels and through the plain attention, both held
    to an fp32 plain run; (ii) full depth, `examples/train.py` with remat,
@@ -247,6 +249,28 @@ def attn_bound(kernel: str, pairs: int, tokens: int, Hq: int, Hkv: int, D: int, 
 
 def causal_pairs(lens) -> int:
     return sum(n * (n + 1) // 2 for n in lens)
+
+
+def dbias_bound(B: int, Hq: int, Hkv: int, S: int, D: int, elt: int = 2) -> dict:
+    """Bound of the dbias kernel on a causal call with a [1, Hq, S, S] bias:
+    q k^T and do v^T over the causal pairs of every batch row; reads q, k,
+    v, do, lse, delta and the bias's causal part, writes all of dbias."""
+    pairs = B * causal_pairs([S])
+    nbytes = (B * S * (2 * Hq + 2 * Hkv) * D * elt + 2 * B * Hq * S * 4
+              + Hq * causal_pairs([S]) * elt + Hq * S * S * elt)
+    return roofline(2 * D * 2 * pairs * Hq, nbytes)
+
+
+def check_dbias_ms(ms: float, bound: dict, fma_key: str, what: str) -> float:
+    """Print the tensor-core dbias kernel's share of its bound beside its
+    FMA design's time, and fail unless it is DBIAS_SPEEDUP times faster
+    than the top of that time. Returns the share in percent."""
+    share = 100 * bound["bound_ms"] / ms
+    print(f"[{what}] dbias_mma_kernel {ms:.3f} ms (profiler; the FMA design: "
+          f"{FMA_DESIGN_MS[fma_key]} ms), bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}): "
+          f"{share:.1f} % of the bound")
+    beats_fma_design(fma_key, [ms], by=DBIAS_SPEEDUP)
+    return share
 
 
 def tight(torch, x, lens):
@@ -982,21 +1006,16 @@ def phase_bias(torch):
           + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()) + " (FA gradient contract)")
     args = (bhsd(q), bhsd(k), bhsd(v), bhsd(do), bhsd(out.detach()), lse.detach(), lens, 0, 0, b)
     run = lambda: flash_bwd.flash_attn_backward(*args, compute_dbias=True, **kw)
-    split = kernel_ms(torch, run, ("dbias_kernel", "dq_mma_kernel", "dkdv_mma_kernel"))
+    split = kernel_ms(torch, run, ("dbias_mma_kernel", "dq_mma_kernel", "dkdv_mma_kernel"))
     pms = cuda_ms(torch, lambda: flash_bwd.flash_attn_backward_plain(*args, compute_dbias=True, **kw),
                   iters=3, warmup=1)
-    # Bound: q k^T and do v^T over the causal pairs of both batch rows; reads
-    # q, k, v, do, lse, delta and the bias's causal part, writes all of dbias.
-    B, H, elt = 2, 32, 2
-    pairs = B * causal_pairs([S])
-    nbytes = (B * S * (2 * H + 2 * 8) * D * elt + 2 * B * H * S * 4
-              + H * causal_pairs([S]) * elt + H * S * S * elt)
-    extra = {"library_ms": None, **roofline(2 * D * 2 * pairs * H, nbytes)}
-    print(f"[bias] dbias kernel {split['dbias_kernel']:.3f} ms (profiler); plain backward with "
-          f"dbias {pms:.3f} ms; bound {extra['bound_ms']:.3f} ms ({extra['bound_by']}); library: "
-          f"none (no PyTorch call computes a bias gradient alone); the dq and dk/dv kernels' "
-          f"bias instantiations {split['dq_mma_kernel']:.3f} + {split['dkdv_mma_kernel']:.3f} ms")
-    return launches, {"max_abs_err": errs["dbias"], "ms": split["dbias_kernel"], "plain_ms": pms,
+    extra = {"library_ms": None, **dbias_bound(2, 32, 8, S, D)}
+    share = check_dbias_ms(split["dbias_mma_kernel"], extra, "dbias", "bias")
+    print(f"[bias] plain backward with dbias {pms:.3f} ms; library: none (no PyTorch call "
+          f"computes a bias gradient alone); the dq and dk/dv kernels' bias instantiations "
+          f"{split['dq_mma_kernel']:.3f} + {split['dkdv_mma_kernel']:.3f} ms")
+    return launches, {"max_abs_err": errs["dbias"], "ms": split["dbias_mma_kernel"],
+                      "plain_ms": pms, "bound_share_pct": share,
                       "pair_bias_ms": [split["dq_mma_kernel"], split["dkdv_mma_kernel"]], **extra}
 
 
@@ -1601,11 +1620,15 @@ def dense_dropout(torch, card):
              for n, g, r, pl in zip(("dq", "dk", "dv", "dbias"), grads, refs, plains)}
     del refs, plains, grads
     split = kernel_ms(torch, lambda: flash_bwd.flash_attn_backward(*args, compute_dbias=True, **kw),
-                      ("dbias_kernel",))
+                      ("dbias_mma_kernel",))
     print(f"[dropout] bias path (a trainable [1, {Hq}, {S}, {S}] bias) with dropout: launches "
           f"{bias_launches}; grad errs vs the fp32 plain twin " + ", ".join(
-              f"{n} {e:.3e}" for n, e in berrs.items()) + f" (FA gradient contract); dbias kernel "
-          f"{split['dbias_kernel']:.3f} ms (profiler)")
+              f"{n} {e:.3e}" for n, e in berrs.items()) + " (FA gradient contract)")
+    bound = dbias_bound(B, Hq, Hkv, S, D)
+    share = check_dbias_ms(split["dbias_mma_kernel"], bound, "dbias_dropout", "dropout")
+    entries["flash_bwd_dbias_dropout"] = {"max_abs_err": berrs["dbias"],
+                                          "ms": split["dbias_mma_kernel"],
+                                          "bound_share_pct": share, **bound}
     return {"flash_attn_func": launches, "bias path": bias_launches}, entries
 
 
@@ -2404,9 +2427,16 @@ FMA_DESIGN_MS.update({"varlen_fwd": "10.898-11.412", "blocksparse_fwd": "3.315-3
 FMA_DESIGN_MS.update({"varlen_dropout_fwd": "11.174-11.336", "varlen_dropout_dq": "17.29-17.53",
                       "varlen_dropout_dkdv": "26.35-27.59"})
 VARLEN_SPEEDUP = 3
+# The dbias kernel's FMA design (fp32 FMA tiles for every input type, 64 x 32
+# bias tiles), bf16, measured by phase 6 (B 2 x S 2047) and by phase 10's
+# bias path with dropout (B 2 x S 2048) on an NVIDIA H100 80GB HBM3 at
+# 700.00 W (profiler). The tensor-core kernel must beat the top of each
+# DBIAS_SPEEDUP times.
+FMA_DESIGN_MS.update({"dbias": "5.268", "dbias_dropout": "5.404-5.475"})
+DBIAS_SPEEDUP = 3
 
 # The 16-bit tensor-core kernels: the fused backward (csrc/bwd_mma.cuh's
-# tiles), the forward (csrc/flash_fwd.cu), the dq + dk/dv pair
+# tiles), the forward (csrc/flash_fwd.cu), the dq + dk/dv pair and dbias
 # (csrc/flash_bwd.cu) and the packed forward and backward (csrc/varlen.cu,
 # the forward on csrc/fwd_mma.cuh's tiles like flash_fwd.cu's); the template
 # flag after DROP of the forward's and the pair's puts bias and softcap in
@@ -2415,8 +2445,8 @@ VARLEN_SPEEDUP = 3
 # it, so the pattern asks for a digit there: the pair's names are not read
 # inside a longer one.
 MMA_KERNELS = ("bwd_tri_mma_kernel", "bwd_wl_mma_kernel", "flash_fwd_mma_kernel", "dq_mma_kernel",
-               "dkdv_mma_kernel", "varlen_mma_fwd_kernel", "varlen_mma_dq_kernel",
-               "varlen_mma_dkdv_kernel")
+               "dkdv_mma_kernel", "dbias_mma_kernel", "varlen_mma_fwd_kernel",
+               "varlen_mma_dq_kernel", "varlen_mma_dkdv_kernel")
 # Kernels none of whose instantiations may spill.
 NO_SPILL_KERNELS = ("varlen_mma_fwd_kernel",)
 MMA_EXTRA = ("flash_fwd_mma_kernel", "dq_mma_kernel", "dkdv_mma_kernel")
@@ -2479,8 +2509,8 @@ def hmma_counts(lib_path) -> dict:
 
 def mma_build_report() -> dict:
     """Registers, spills and tensor-core instructions of every 16-bit
-    instantiation of the two fused backward kernels, the forward and the dq
-    + dk/dv pair (bf16 / fp16 x D 64 / 128 / 256 x dropout, and for the
+    instantiation of the two fused backward kernels, the forward, the dq
+    + dk/dv pair and dbias (bf16 / fp16 x D 64 / 128 / 256 x dropout, and for the
     forward and the pair with and without bias / softcap, for the forward
     also the split's merge; the packed forward, dq and dk/dv); fails where
     one has no HMMA, or a bf16 D 128 one of the trainers' (the Qwen and
@@ -2995,7 +3025,8 @@ def main() -> int:
          "launches": train_launches["flash_bwd_dkdv"], **kernels["flash_bwd_dkdv"]},
         {"name": "flash_bwd_dbias", "route": "cuda", "source": "fa2_triton_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "fa2_triton_tpu/ops/flash_bwd.py:1357",
-         "launches": bias_launches["flash_bwd_dbias"], **kernels["flash_bwd_dbias"]},
+         "launches": bias_launches["flash_bwd_dbias"], **kernels["flash_bwd_dbias"],
+         "dropout": dropout_kernels["flash_bwd_dbias_dropout"], "build": mma["dbias_mma_kernel"]},
     ]}
     for name, line in (("varlen_fwd", 233), ("varlen_dq", 385), ("varlen_dkdv", 454)):
         table["kernels"].append({

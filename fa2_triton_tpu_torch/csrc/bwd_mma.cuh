@@ -5,7 +5,8 @@
 // and dQ (each with its own element rule: the scale on the fp32 scores, and
 // bias and softcap, or the packed masks), on the q loop `mma_q_loop`. The
 // dq kernels' tiles (flash_bwd.cu's dq_mma_kernel, varlen.cu's
-// varlen_mma_dq_kernel) close the file. fp32 inputs keep bwd_fused.cuh's
+// varlen_mma_dq_kernel) close the file; their S / dP half (sdp_mma_tile) is
+// also flash_bwd.cu's dbias_mma_kernel's. fp32 inputs keep bwd_fused.cuh's
 // and attn_tiles.cuh's FMA tiles.
 //
 // A block of 8 warps owns a kv tile of BKV rows (128 at D 64 / 128, 64 at
@@ -424,39 +425,51 @@ __device__ __forceinline__ void dq_kv_loop(T* kv_s, int n, const Load& load, con
   }
 }
 
-// One K / V tile against the staged Q and dO: S = Q K^T and dP = dO V^T
-// for the warp's 16 rows x BKV keys; elem(row, key, half, s, dp) turns each
-// accumulator element (tile row w * 16 + g + 8 half, key 2 t + e % 2 of
-// n-tile n) into ds in place of dp; dQ += dS K, dS rounded to T and
-// repacked from the accumulators into A fragments, K by ldmatrix.trans.
-template <class C, typename T, class Elem>
-__device__ __forceinline__ void dq_mma_tile(const T* Qs, const T* dOs, const T* Ks, const T* Vs,
-                                            const Elem& elem, float (&dq)[C::NT_D][4]) {
-  const int lane = threadIdx.x % 32, w = threadIdx.x / 32, g = lane / 4, t = lane % 4;
-  float sc[C::NT_S][4], dp[C::NT_S][4];
+// S = Q K^T and dP = dO V^T of one warp's 16 rows (Qw, dOw: its first
+// row of the staged Q and dO) against NT * 8 keys (Kw, Vw: its first key of
+// the staged K and V), pitch C::P: accumulator element e of n-tile n is row
+// g + 8 (e / 2), key n * 8 + 2 t + e % 2. Shared by the dq kernels and
+// flash_bwd.cu's dbias_mma_kernel.
+template <class C, typename T, int NT>
+__device__ __forceinline__ void sdp_mma_tile(const T* Qw, const T* dOw, const T* Kw, const T* Vw,
+                                             float (&sc)[NT][4], float (&dp)[NT][4]) {
+  const int lane = threadIdx.x % 32;
 #pragma unroll
-  for (int n = 0; n < C::NT_S; ++n)
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < C::D / 16; ++kk) {
     uint32_t aq[4], ao[4];
-    const int a_off = (w * 16 + lane % 16) * C::P + kk * 16 + (lane / 16) * 8;
-    ldsm_x4(aq, Qs + a_off);
-    ldsm_x4(ao, dOs + a_off);
+    const int a_off = (lane % 16) * C::P + kk * 16 + (lane / 16) * 8;
+    ldsm_x4(aq, Qw + a_off);
+    ldsm_x4(ao, dOw + a_off);
 #pragma unroll
-    for (int np = 0; np < C::NT_S / 2; ++np) {
+    for (int np = 0; np < NT / 2; ++np) {
       const int off = (np * 16 + lane % 8 + (lane / 16) * 8) * C::P + kk * 16 +
                       ((lane / 8) % 2) * 8;
       uint32_t bk[4], bv[4];
-      ldsm_x4(bk, Ks + off);
-      ldsm_x4(bv, Vs + off);
+      ldsm_x4(bk, Kw + off);
+      ldsm_x4(bv, Vw + off);
       mma16816<T>(sc[2 * np], aq, bk[0], bk[1]);
       mma16816<T>(sc[2 * np + 1], aq, bk[2], bk[3]);
       mma16816<T>(dp[2 * np], ao, bv[0], bv[1]);
       mma16816<T>(dp[2 * np + 1], ao, bv[2], bv[3]);
     }
   }
+}
+
+// One K / V tile against the staged Q and dO: S and dP (sdp_mma_tile);
+// elem(row, key, half, s, dp) turns each accumulator element (tile row
+// w * 16 + g + 8 half, key 2 t + e % 2 of n-tile n) into ds in place of dp;
+// dQ += dS K, dS rounded to T and repacked from the accumulators into A
+// fragments, K by ldmatrix.trans.
+template <class C, typename T, class Elem>
+__device__ __forceinline__ void dq_mma_tile(const T* Qs, const T* dOs, const T* Ks, const T* Vs,
+                                            const Elem& elem, float (&dq)[C::NT_D][4]) {
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32, g = lane / 4, t = lane % 4;
+  float sc[C::NT_S][4], dp[C::NT_S][4];
+  sdp_mma_tile<C, T>(Qs + w * 16 * C::P, dOs + w * 16 * C::P, Ks, Vs, sc, dp);
 #pragma unroll
   for (int n = 0; n < C::NT_S; ++n)
 #pragma unroll

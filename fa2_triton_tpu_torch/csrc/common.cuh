@@ -105,6 +105,22 @@ __device__ __forceinline__ bool keep_at(int r, int c, int Sq, int Sk, int q_off,
   return keep;
 }
 
+// keep_at's mask of one row: keep_at(r, c, ...) iff lo <= c < hi (x = lo,
+// y = hi; empty when lo >= hi), for local columns c >= 0.
+__device__ __forceinline__ int2 keep_span(int r, int Sq, int Sk, int q_off, int kv_off, int q_len,
+                                          int kv_len, int causal, int wl, int wr) {
+  const int rg = q_off + r, shift = kv_len - q_len;
+  int lo = 0, hi = min(Sk, kv_len - kv_off);
+  if (r >= Sq || rg >= q_len) hi = 0;
+  if (causal) {
+    hi = min(hi, rg + shift + 1 - kv_off);
+  } else if (wr >= 0) {
+    hi = min(hi, rg + shift + wr + 1 - kv_off);
+  }
+  if (wl >= 0) lo = max(lo, rg + shift - wl - kv_off);
+  return make_int2(lo, hi);
+}
+
 // Keys of the q tile at local row q0 (rows of it, global lengths q_len /
 // kv_len), in local key indices: [lo, hi) is what its live rows need (past
 // the causal / right limit of the last live row, past kv_len, or left of

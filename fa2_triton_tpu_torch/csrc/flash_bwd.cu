@@ -57,7 +57,11 @@
 //
 // Bound on the H100: the dq and dk/dv kernels together do 7 S*S*D products
 // per head (dk/dv: s, dp, dv, dk; dq: s, dp, dq), compute-bound at training
-// lengths. Two designs, by input type:
+// lengths. The dbias kernel does 2 (s, dp) per reduced (b, h) and writes the
+// whole [Bb, Hb, Sq, Sk] gradient: bound by bytes (the write, and the bias
+// read); on the card its short steps leave it bound by instruction issue
+// and ldmatrix traffic (the dbias section below). Two designs, by input
+// type:
 //
 // bf16 / fp16 inputs: mma.sync.m16n8k16 tiles with fp32 accumulation
 // (mma_tiles.cuh), operands 16-bit in shared memory, the products' operands
@@ -72,6 +76,15 @@
 //   * dkdv_mma_kernel has the fused kernels' shape without dQ: 8 warps own
 //     MmaCfg::BKV kv rows and stream the group's q tiles through
 //     bwd_mma.cuh's mma_q_step (S^T, dP^T, dV += P^T dO, dK += dS^T Q).
+//   * dbias_mma_kernel owns dbias tiles of 64 q rows x 64 keys (32 at D
+//     256) for one (bias batch, bias head), 16 warps at D 64 / 128 (8 at D
+//     256) each on 16 rows x a quarter (half) of the keys (bwd_mma.cuh's
+//     sdp_mma_tile, the dq kernels' S / dP half):
+//     persistent blocks walk their tiles' reduced (b, h) steps as one
+//     cp.async stream, double-buffered, the next step's tiles (and the next
+//     tile's bias) landing during this step's products; ds_pre is summed
+//     unrounded in fp32 registers; the bias tile comes in, and the dbias
+//     tile goes out, as 16-byte chunks through shared memory.
 //   * The scale goes on the fp32 score accumulator (s_mul), not into a
 //     rounded q or k. Bias and softcap live in their own instantiations
 //     (EXTRA); a tile that every element keeps skips the mask test.
@@ -79,8 +92,11 @@
 // tiles (attn_tiles.cuh, shared with the forward and varlen kernels), each
 // thread holding a 4x2 score tile and 4 x (D/16) accumulator columns in
 // registers, shared rows padded by one float against bank conflicts, tiles
-// beyond the causal / window / length limits never loaded. The dbias kernel
-// stays on these FMA tiles for every input type.
+// beyond the causal / window / length limits never loaded (dq_kernel,
+// dkdv_kernel, dbias_kernel).
+#include <algorithm>
+#include <climits>
+
 #include "bwd_mma.cuh"
 
 namespace fa2 {
@@ -269,10 +285,11 @@ __global__ void __launch_bounds__(THREADS) dkdv_kernel(const BwdParams p) {
                    p.dv_ss, rows, 1.f);
 }
 
-// dbias: one block per (64 x 32 bias tile, bias batch x head index). Loops
-// over the batch rows and q heads that the bias broadcasts to (all of them
-// on a broadcast dim, its own index otherwise) and sums ds_pre in registers.
-// Shared memory is the dq kernel's layout (its ds tile unused).
+// dbias, fp32 inputs: one block per (64 x 32 bias tile, bias batch x head
+// index). Loops over the batch rows and q heads that the bias broadcasts to
+// (all of them on a broadcast dim, its own index otherwise) and sums ds_pre
+// in registers. Shared memory is the dq kernel's layout (its ds tile
+// unused).
 template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(THREADS) dbias_kernel(const BwdParams p) {
   extern __shared__ float smem[];
@@ -496,6 +513,407 @@ __global__ void __launch_bounds__(THREADS, 1) dkdv_mma_kernel(const BwdParams p)
                      p.dv_ss, rows, 1.f);
 }
 
+// ---- dbias, 16-bit inputs ---------------------------------------------------
+//
+// A block owns a dbias tile of BQ = 64 q rows x BKV keys (64, 32 at D 256);
+// warp w computes rows 16 (w % 4) and keys WK (w / 4) of it (sdp_mma_tile).
+// The step is short (two 64 x 64 x D products), so what bounds it on the
+// H100 is issue and latency, not the tensor cores: 16 warps at D <= 128 (4
+// per SM sub-partition), the chunks a thread copies fixed at compile time, the
+// tile decode by multiply and shift, the bias read once a tile, the mask a
+// column span per row. Shared memory:
+// Q, dO, K, V ([2][rows][P], 16-bit) and lse, delta, double-buffered by step;
+// the bias tile as it arrives and the dbias tile on its way out ([BQ][BT]
+// bytes each, in the bias's dtype). A bias or dbias row is kept as the
+// 16-byte aligned chunks that cover it in device memory (`row_shift`: its
+// address mod 16), so rows of any alignment move as 16-byte copies (S 2047
+// rows are 4094 bytes); a chunk past the row's ends is never touched, and
+// its bytes in shared memory are never read as values of kept elements.
+template <int D_>
+struct DbiasMmaCfg {
+  static constexpr int D = D_;
+  static constexpr int BQ = 64;                   // q rows of a tile
+  static constexpr int BKV = D <= 128 ? 64 : 32;  // keys of a tile
+  static constexpr int NW = D <= 128 ? 16 : 8;    // warps: 4 along the rows x NW / 4 along the keys
+  static constexpr int WK = BKV / (NW / 4);       // keys of a warp
+  static constexpr int NT = WK / 8;               // its n-tiles
+  static constexpr int P = D + 8;                 // operand row pitch, elements
+  static constexpr int BT = BKV * 4 + 16;         // bias / dbias row pitch, bytes: fp32 + a shift
+  static constexpr int SMEM_BYTES = 2 * (2 * BQ + 2 * BKV) * P * 2 + 2 * BQ * BT + 4 * BQ * 4;
+  static_assert(NT % 2 == 0, "sdp_mma_tile takes n-tiles in pairs");
+};
+
+// n / d for 0 <= n < 2^31 by a multiply and a shift, d >= 1 fixed for the
+// kernel (Granlund and Montgomery's round-up method, as CUTLASS's
+// FastDivmod): the tile decode runs several times a tile, and a division by
+// a run-time int is a long chain of dependent instructions.
+struct FastDiv {
+  int d;
+  uint32_t m, s;
+  __device__ explicit FastDiv(int d_) : d(d_), m(0), s(0) {
+    if (d > 1) {
+      const int l = 32 - __clz(d - 1);  // ceil(log2 d)
+      m = (uint32_t)(((1ull << (31 + l)) + d - 1) / d);
+      s = l - 1;
+    }
+  }
+  __device__ int div(int n) const { return d > 1 ? (int)(__umulhi((uint32_t)n, m) >> s) : n; }
+};
+
+// The dbias tiles of a launch: index t = ((bb * Hb + hb) * nq + q tile) * nk
+// + kv tile.
+struct DbGrid {
+  int n_tiles;
+  FastDiv nk, nqk, hb;  // kv tiles; q x kv tiles; Hb
+};
+
+template <class C>
+__device__ __forceinline__ DbGrid db_grid(const BwdParams& p) {
+  const int nq = (p.Sq + C::BQ - 1) / C::BQ, nk = (p.Sk + C::BKV - 1) / C::BKV;
+  return {nq * nk * p.Bb * p.Hb, FastDiv(nk), FastDiv(nq * nk), FastDiv(p.Hb)};
+}
+
+// A dbias tile, and the batch rows / q heads it sums over (all of them on a
+// broadcast dim).
+struct DbTile {
+  int q0, k0, bb, hb, b_lo, b_hi, h_lo, h_hi;
+};
+
+template <class C>
+__device__ __forceinline__ DbTile db_tile(const BwdParams& p, const DbGrid& g, int t) {
+  const int z = g.nqk.div(t), qk = t - z * g.nqk.d, qt = g.nk.div(qk);
+  DbTile d;
+  d.k0 = (qk - qt * g.nk.d) * C::BKV;
+  d.q0 = qt * C::BQ;
+  d.bb = g.hb.div(z);
+  d.hb = z - d.bb * p.Hb;
+  d.b_lo = p.Bb == 1 ? 0 : d.bb;
+  d.b_hi = p.Bb == 1 ? p.B : d.bb + 1;
+  d.h_lo = p.Hb == 1 ? 0 : d.hb;
+  d.h_hi = p.Hb == 1 ? p.Hq : d.hb + 1;
+  return d;
+}
+
+// One reduced step (b, h) of tile t; t >= the tile count: none left.
+struct DbStep {
+  int t, b, h;
+};
+
+// The first step at or after batch row b_from (b_lo when < 0) of tile t, or
+// of the block's later tiles t + k gridDim.x, whose batch row keeps an
+// element of the tile (dbias_kernel's skip: key_range of its lengths).
+template <class C>
+__device__ __forceinline__ DbStep db_seek(const BwdParams& p, const DbGrid& g, int t, int b_from) {
+  for (; t < g.n_tiles; t += gridDim.x, b_from = -1) {
+    const DbTile d = db_tile<C>(p, g, t);
+    for (int b = b_from < 0 ? d.b_lo : b_from; b < d.b_hi; ++b) {
+      const KeyRange kr = key_range(p, d.q0, C::BQ, p.lens[2 * b], p.lens[2 * b + 1]);
+      if (d.k0 < kr.hi && d.k0 + C::BKV > kr.lo) return {t, b, d.h_lo};
+    }
+  }
+  return {t, 0, 0};
+}
+
+// The step after s (of tile d): the next q head (h inner), else the next
+// live batch row.
+template <class C>
+__device__ __forceinline__ DbStep db_next(const BwdParams& p, const DbGrid& g, DbStep s,
+                                          const DbTile& d) {
+  if (s.h + 1 < d.h_hi) return {s.t, s.b, s.h + 1};
+  return db_seek<C>(p, g, s.t, s.b + 1);
+}
+
+__device__ __forceinline__ int dtype_bytes(int dtype) { return dtype == kF32 ? 4 : 2; }
+
+__device__ __forceinline__ int row_shift(const void* row) {
+  return static_cast<int>(reinterpret_cast<uintptr_t>(row) & 15);
+}
+
+// Element (tile row 0, tile key 0) of d's bias.
+__device__ __forceinline__ const char* db_bias_base(const BwdParams& p, const DbTile& d) {
+  return static_cast<const char*>(p.bias) +
+         ((long long)d.bb * p.bias_sb + (long long)d.hb * p.bias_sh + (long long)d.q0 * p.bias_sq +
+          (long long)d.k0 * p.bias_sk) * dtype_bytes(p.bias_dtype);
+}
+
+// The bias tile of d into `dst` (not committed), a warp per row: 16-byte
+// cp.async chunks (lane j the row's j-th) where the bias's last dim is
+// contiguous, else element loads (a broadcast or strided last dim). Rows
+// past Sq and chunks past Sk are not read.
+template <class C>
+__device__ __forceinline__ void db_load_bias(const BwdParams& p, const DbTile& d,
+                                             unsigned char* dst) {
+  const int lane = threadIdx.x % 32, es = dtype_bytes(p.bias_dtype);
+  const int rows = min(C::BQ, p.Sq - d.q0), ncols = min(C::BKV, p.Sk - d.k0);
+  const long long pitch = p.bias_sq * es, col = p.bias_sk * es;
+  const char* row = db_bias_base(p, d) + (threadIdx.x / 32) * pitch;
+  unsigned char* to = dst + (threadIdx.x / 32) * C::BT;
+  for (int r = threadIdx.x / 32; r < rows; r += C::NW, row += C::NW * pitch, to += C::NW * C::BT) {
+    if (p.bias_sk == 1) {
+      const int sh = row_shift(row);
+      if (16 * lane < sh + ncols * es) cp_async16(to + 16 * lane, row - sh + 16 * lane, true);
+      continue;
+    }
+    for (int c = lane; c < ncols; c += 32) {
+      const char* src = row + c * col;
+      if (es == 4) {
+        *reinterpret_cast<uint32_t*>(to + 4 * c) = *reinterpret_cast<const uint32_t*>(src);
+      } else {
+        *reinterpret_cast<uint16_t*>(to + 2 * c) = *reinterpret_cast<const uint16_t*>(src);
+      }
+    }
+  }
+}
+
+// Row r of d's dbias tile in device memory.
+__device__ __forceinline__ char* db_out_row(const BwdParams& p, const DbTile& d, int r) {
+  const long long at = (long long)d.bb * p.dbias_sb + (long long)d.hb * p.dbias_sh +
+                       (long long)(d.q0 + r) * p.dbias_sq + d.k0;
+  return static_cast<char*>(p.dbias) + at * dtype_bytes(p.bias_dtype);
+}
+
+// d's dbias tile out to device memory, a warp per row: from `stage` (rows
+// laid out at their row_shift) or zeros (stage == nullptr). Of a row's
+// bytes, the aligned 16-byte chunks inside it go out one per lane, and the
+// elements before and after them one per lane.
+template <class C>
+__device__ __forceinline__ void db_store(const BwdParams& p, const DbTile& d,
+                                         const unsigned char* stage) {
+  const int lane = threadIdx.x % 32, es = dtype_bytes(p.bias_dtype), lg = es == 4 ? 2 : 1;
+  const int rows = min(C::BQ, p.Sq - d.q0), nbytes = min(C::BKV, p.Sk - d.k0) * es;
+  const long long pitch = p.dbias_sq * es;
+  char* row = db_out_row(p, d, threadIdx.x / 32);
+  for (int r = threadIdx.x / 32; r < rows; r += C::NW, row += C::NW * pitch) {
+    const int sh = row_shift(row);
+    const int head = min((16 - sh) & 15, nbytes);  // bytes before the first aligned chunk
+    const int nfull = (nbytes - head) >> 4, tail = nbytes - head - (nfull << 4);
+    const unsigned char* src = stage + r * C::BT + sh;  // row byte x at src[x]
+    if (lane < nfull) {
+      const int at = head + 16 * lane;
+      *reinterpret_cast<uint4*>(row + at) =
+          stage ? *reinterpret_cast<const uint4*>(src + at) : make_uint4(0u, 0u, 0u, 0u);
+      continue;
+    }
+    // The head's elements, then the tail's past the full chunks.
+    const int k = lane - nfull;
+    if (k >= (head + tail) >> lg) continue;
+    const int x = k < (head >> lg) ? k << lg : (nfull << 4) + (k << lg);
+    if (es == 4) {
+      *reinterpret_cast<uint32_t*>(row + x) =
+          stage ? *reinterpret_cast<const uint32_t*>(src + x) : 0u;
+    } else {
+      *reinterpret_cast<uint16_t*>(row + x) =
+          stage ? *reinterpret_cast<const uint16_t*>(src + x) : uint16_t(0);
+    }
+  }
+}
+
+// Rows [row0, row0 + ROWS) of a [*, D] operand (row stride ss) into dst
+// (pitch C::P) by the block's C::NW warps, rows at or past `valid` zero: as
+// cp_rows copies them, but each thread's chunks are fixed at compile time
+// (a column and rows RS apart), so a copy costs one 64-bit add, not a row
+// address of its own; at a run-time trip count cp_rows' loop compiled to
+// over a thousand instructions a step.
+template <class C, int ROWS, typename T>
+__device__ __forceinline__ void db_rows(T* dst, const T* src, long long ss, int row0, int valid) {
+  constexpr int CH = C::D / 8, NT = C::NW * 32, RS = NT / CH, K = ROWS * CH / NT;
+  static_assert(NT % CH == 0 && ROWS * CH % NT == 0, "chunks per thread");
+  const int r = threadIdx.x / CH, c = (threadIdx.x % CH) * 8;
+  const T* from = src + (long long)(row0 + r) * ss + c;
+#pragma unroll
+  for (int k = 0; k < K; ++k, from += RS * ss) {
+    const bool ok = row0 + r + k * RS < valid;
+    cp_async16(dst + (r + k * RS) * C::P + c, ok ? from : src, ok);
+  }
+}
+
+// f(B()) with B the C++ type of dtype code `dtype` (the bias's).
+template <class F>
+__device__ __forceinline__ void with_dtype(int dtype, const F& f) {
+  if (dtype == kF32) {
+    f(0.f);
+  } else if (dtype == kBF16) {
+    f(__nv_bfloat16());
+  } else {
+    f(__half());
+  }
+}
+
+// dbias, 16-bit inputs: persistent blocks; block i owns the tiles i,
+// i + gridDim.x, ... and walks their reduced (b, h) steps in dbias_kernel's
+// order (b outer, h inner; a batch row that keeps nothing of the tile is
+// skipped) as one stream: each step waits for its own copies, then issues
+// the next step's Q / dO / K / V / lse / delta (and the next tile's bias),
+// which land while this step's S = Q K^T and dP = dO V^T run on mma.sync.
+// The bias of a tile is read into registers once, at its first step; the
+// mask is a column span per row (keep_span). ds_pre (grad_elem, unrounded)
+// is summed in fp32 in the accumulator layout, in the fixed step order: no
+// atomics, no second pass. A tile no step keeps is stored as zeros, and
+// loads nothing.
+template <typename T, int D, bool DROP>
+__global__ void __launch_bounds__(DbiasMmaCfg<D>::NW * 32, 1) dbias_mma_kernel(const BwdParams p) {
+  using C = DbiasMmaCfg<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qb = reinterpret_cast<T*>(smem_raw);  // [2][BQ][P]
+  T* dOb = Qb + 2 * C::BQ * C::P;          // [2][BQ][P]
+  T* Kb = dOb + 2 * C::BQ * C::P;          // [2][BKV][P]
+  T* Vb = Kb + 2 * C::BKV * C::P;          // [2][BKV][P]
+  unsigned char* bias_in = reinterpret_cast<unsigned char*>(Vb + 2 * C::BKV * C::P);  // [BQ][BT]
+  unsigned char* out_s = bias_in + C::BQ * C::BT;                                      // [BQ][BT]
+  float* lse_s = reinterpret_cast<float*>(out_s + C::BQ * C::BT);                      // [2][BQ]
+  float* delta_s = lse_s + 2 * C::BQ;                                                  // [2][BQ]
+
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32, g = lane / 4, tq = lane % 4;
+  const int wq = (w % 4) * 16, wk = (w / 4) * C::WK;  // the warp's first row and key in the tile
+  const DbGrid grid = db_grid<C>(p);
+  const int group = p.Hq / p.Hkv;
+
+  // Step st's copies (of tile d) into operand buffer `buf`, and the tile's
+  // bias into bias_in when it is the tile's first step.
+  auto issue = [&](const DbStep& st, const DbTile& d, int buf, bool bias) {
+    const int q_valid = min(p.Sq, p.lens[2 * st.b] - p.q_off);
+    const int kv_valid = min(p.Sk, p.lens[2 * st.b + 1] - p.kv_off);
+    const int hk = st.h / group;
+    db_rows<C, C::BQ>(Qb + buf * C::BQ * C::P,
+                      static_cast<const T*>(p.q) + st.b * p.q_sb + st.h * p.q_sh, p.q_ss, d.q0,
+                      q_valid);
+    db_rows<C, C::BQ>(dOb + buf * C::BQ * C::P,
+                      static_cast<const T*>(p.dout) + st.b * p.do_sb + st.h * p.do_sh, p.do_ss,
+                      d.q0, q_valid);
+    db_rows<C, C::BKV>(Kb + buf * C::BKV * C::P,
+                       static_cast<const T*>(p.k) + st.b * p.k_sb + hk * p.k_sh, p.k_ss, d.k0,
+                       kv_valid);
+    db_rows<C, C::BKV>(Vb + buf * C::BKV * C::P,
+                       static_cast<const T*>(p.v) + st.b * p.v_sb + hk * p.v_sh, p.v_ss, d.k0,
+                       kv_valid);
+    if (threadIdx.x < 2 * C::BQ) {  // lse and delta of the q rows, 0 at or past q_valid
+      const int r = threadIdx.x % C::BQ;
+      const bool ok = d.q0 + r < q_valid;
+      const long long at = ((long long)st.b * p.Hq + st.h) * p.Sq + (ok ? d.q0 + r : 0);
+      const bool is_lse = threadIdx.x < C::BQ;
+      cp_async4((is_lse ? lse_s : delta_s) + buf * C::BQ + r, (is_lse ? p.lse : p.delta) + at, ok);
+    }
+    if (bias) db_load_bias<C>(p, d, bias_in);
+  };
+
+  // Tiles t_st, t_st + gridDim.x, ... before the current one are not stored
+  // yet: a tile no step keeps (zeros) and, when `staged`, the last live tile
+  // (t_st itself, from out_s). They go out after the next step's copies are
+  // issued, so that its products run while the stores drain.
+  int t_st = blockIdx.x;
+  bool staged = false;
+  auto flush = [&](int upto) {
+    for (; t_st < upto; t_st += gridDim.x) {
+      db_store<C>(p, db_tile<C>(p, grid, t_st), staged ? out_s : nullptr);
+      staged = false;
+    }
+  };
+
+  DbStep cur = db_seek<C>(p, grid, blockIdx.x, -1);
+  if (cur.t < grid.n_tiles) issue(cur, db_tile<C>(p, grid, cur.t), 0, true);
+  cp_async_commit();
+  int buf = 0;  // cur's operand buffer
+#pragma unroll 1
+  while (cur.t < grid.n_tiles) {
+    const int t = cur.t;
+    const DbTile d = db_tile<C>(p, grid, t);
+    float bz[C::NT][4], acc[C::NT][4];
+#pragma unroll
+    for (int n = 0; n < C::NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    bool first = true;
+#pragma unroll 1
+    while (cur.t == t) {
+      const DbStep nxt = db_next<C>(p, grid, cur, d);
+      cp_async_wait<0>();
+      __syncthreads();  // cur's copies have landed; every warp is done with buffer buf ^ 1
+      if (first) {
+        const char* base = db_bias_base(p, d);
+        const long long pitch = p.bias_sq * dtype_bytes(p.bias_dtype);
+        with_dtype(p.bias_dtype, [&](auto zero) {
+          using B = decltype(zero);
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int rl = wq + g + 8 * hr;
+            const B* row = reinterpret_cast<const B*>(
+                bias_in + rl * C::BT + (p.bias_sk == 1 ? row_shift(base + rl * pitch) : 0));
+#pragma unroll
+            for (int n = 0; n < C::NT; ++n)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) bz[n][2 * hr + e] = to_f(row[wk + n * 8 + 2 * tq + e]);
+          }
+        });
+        if (nxt.t != t) __syncthreads();  // read before the next tile's bias lands
+      }
+      if (nxt.t == t) {
+        issue(nxt, d, buf ^ 1, false);
+      } else if (nxt.t < grid.n_tiles) {
+        issue(nxt, db_tile<C>(p, grid, nxt.t), buf ^ 1, true);
+      }
+      cp_async_commit();
+      if (first) flush(t);
+      first = false;
+
+      const int b = cur.b, h = cur.h;
+      const int q_len = p.lens[2 * b], kv_len = p.lens[2 * b + 1];
+      int2 span[2];
+      float lse[2], delta[2];
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int rl = wq + g + 8 * hr;
+        span[hr] = keep_span(d.q0 + rl, p.Sq, p.Sk, p.q_off, p.kv_off, q_len, kv_len, p.causal,
+                             p.wl, p.wr);
+        lse[hr] = lse_s[buf * C::BQ + rl];
+        delta[hr] = delta_s[buf * C::BQ + rl];
+      }
+      float sc[C::NT][4], dp[C::NT][4];
+      sdp_mma_tile<C, T>(Qb + (buf * C::BQ + wq) * C::P, dOb + (buf * C::BQ + wq) * C::P,
+                         Kb + (buf * C::BKV + wk) * C::P, Vb + (buf * C::BKV + wk) * C::P, sc, dp);
+      auto elems = [&]() {
+#pragma unroll
+        for (int n = 0; n < C::NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int hr = e / 2, c = d.k0 + wk + n * 8 + 2 * tq + (e % 2);
+            const bool keep = c >= span[hr].x && c < span[hr].y;
+            float pr, ds, ds_pre;
+            grad_elem(p, sc[n][e] * p.s_mul, dp[n][e], lse[hr], delta[hr], bz[n][e], keep,
+                      drop_at<DROP>(p, b, h, d.q0 + wq + g + 8 * hr, c), pr, ds, ds_pre);
+            acc[n][e] += ds_pre;
+          }
+      };
+      // One copy of the element loop per softcap case, so that grad_elem's
+      // test folds away and the loop has no branch.
+      if (p.softcap > 0.f) {
+        elems();
+      } else {
+        elems();
+      }
+      cur = nxt;
+      buf ^= 1;
+    }
+    // The dbias tile into out_s, at dbias's shifts, once the flush above has
+    // read the previous one out.
+    __syncthreads();
+    with_dtype(p.bias_dtype, [&](auto zero) {
+      using B = decltype(zero);
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int rl = wq + g + 8 * hr;
+        B* row = reinterpret_cast<B*>(out_s + rl * C::BT + row_shift(db_out_row(p, d, rl)));
+#pragma unroll
+        for (int n = 0; n < C::NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) row[wk + n * 8 + 2 * tq + e] = from_f<B>(acc[n][2 * hr + e]);
+      }
+    });
+    staged = true;
+  }
+  __syncthreads();
+  flush(grid.n_tiles);
+}
+
 enum Kernel : int { kDq = 0, kDkDv = 1, kDbias = 2 };
 
 // fp32 inputs: the FMA dq (`which` 0) or dk/dv (1) kernel.
@@ -519,15 +937,38 @@ cudaError_t launch_fma(const BwdParams& p, int which, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Every input type: the dbias kernel (FMA tiles).
-template <typename T, int D, bool DROP>
+// fp32 inputs: the FMA dbias kernel.
+template <int D, bool DROP>
 cudaError_t launch_dbias(const BwdParams& p, cudaStream_t stream) {
   const int smem = dq_smem_floats<D>() * (int)sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(dbias_kernel<T, D, DROP>,
+  cudaError_t e = cudaFuncSetAttribute(dbias_kernel<float, D, DROP>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((p.Sq + TM - 1) / TM, (p.Sk + TN - 1) / TN, p.Bb * p.Hb);
-  dbias_kernel<T, D, DROP><<<grid, THREADS, smem, stream>>>(p);
+  dbias_kernel<float, D, DROP><<<grid, THREADS, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// 16-bit inputs: the tensor-core dbias kernel, as many persistent blocks as
+// the card holds at once (fewer when there are fewer tiles).
+template <typename T, int D, bool DROP>
+cudaError_t launch_dbias_mma(const BwdParams& p, cudaStream_t stream) {
+  using C = DbiasMmaCfg<D>;
+  auto kernel = dbias_mma_kernel<T, D, DROP>;
+  const long long tiles = (long long)((p.Sq + C::BQ - 1) / C::BQ) * ((p.Sk + C::BKV - 1) / C::BKV) *
+                          p.Bb * p.Hb;
+  if (tiles > INT_MAX) return cudaErrorInvalidValue;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, C::NW * 32, C::SMEM_BYTES);
+  }
+  if (e != cudaSuccess) return e;
+  const long long grid = std::min(tiles, (long long)sms * std::max(per_sm, 1));
+  kernel<<<(int)grid, C::NW * 32, C::SMEM_BYTES, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -555,18 +996,19 @@ cudaError_t launch_mma(const BwdParams& p, int which, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// fp32 inputs take the FMA dq and dk/dv kernels; bf16 / fp16 the tensor-core
-// ones (no path back to the FMA ones). dbias is the FMA kernel for both.
+// fp32 inputs take the FMA dq, dk/dv and dbias kernels; bf16 / fp16 the
+// tensor-core ones (no path back to the FMA ones).
 template <typename T, int D, bool DROP>
 cudaError_t launch_kernel(const BwdParams& p, int which, cudaStream_t stream) {
   // The host counts q tiles (TILE_ROWS) in the dq kernels' rows (TM, DqMmaCfg::BQ).
   if (p.tile_rows != TM || (which != kDq && which != kDkDv && which != kDbias)) {
     return cudaErrorInvalidValue;
   }
-  if (which == kDbias) return launch_dbias<T, D, DROP>(p, stream);
   if constexpr (std::is_same<T, float>::value) {
-    return launch_fma<D, DROP>(p, which, stream);
+    return which == kDbias ? launch_dbias<D, DROP>(p, stream)
+                           : launch_fma<D, DROP>(p, which, stream);
   } else {
+    if (which == kDbias) return launch_dbias_mma<T, D, DROP>(p, stream);
     return p.bias != nullptr || p.softcap > 0.f ? launch_mma<T, D, DROP, true>(p, which, stream)
                                                 : launch_mma<T, D, DROP, false>(p, which, stream);
   }

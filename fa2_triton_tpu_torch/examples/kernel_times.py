@@ -15,6 +15,10 @@
     N]`): its device time and the whole call's (`..._call_ms`, CUDA
     events); aten varlen flash on the gathered bf16 rows the same two ways
     (`decode_aten`);
+  * with `--only dbias`: the bias gradient kernel (B4; `dbias_kernel`, FMA,
+    or `dbias_mma_kernel`, tensor cores) and the dq / dk/dv kernels' bias
+    instantiations at `chip_smoke.py`'s phase 6 shape (B 2 x S 2047, a
+    trainable [1, 32, S, S] bf16 bias, causal);
   * with `--only serve`: `chip_smoke.py`'s serve phase (its 16 requests,
     its four serve modes, Mistral-7B-v0.3 widths, random bf16 weights from
     seed 0), with the mean and median ms per decode step (host clock to the
@@ -22,7 +26,7 @@
     (`decode_host_us`).
 
     python fa2_triton_tpu_torch/examples/kernel_times.py [--dropout P] [--root DIR]
-        [--only decode|serve]
+        [--only decode|dbias|serve]
 
 Times come from torch.profiler (device time per launch, averaged over
 --iters calls after a warm-up), the S 4096 forwards' from CUDA events over
@@ -33,9 +37,10 @@ versions can be run in turns within one machine allocation; `--dropout` is
 then only for versions that take it. The decode shape, the pools and the
 served traffic come from the `chip_smoke.py` beside this checkout's
 package, whichever package is timed. `--only decode` times the decode
-variants alone, `--only serve` the serve modes. Run it by its path, not
-with -m, so that the package is imported from the root. Needs a CUDA
-device.
+variants alone, `--only dbias` the bias path's backward kernels (its shape
+from `chip_smoke.py` too), `--only serve` the serve modes. Run it by its
+path, not with -m, so that the package is imported from the root. Needs a
+CUDA device.
 """
 from __future__ import annotations
 
@@ -56,6 +61,9 @@ REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..")
 VARLEN_FWD_NAMES = (("varlen_fwd_kernel", "varlen_mma_fwd_kernel"),)
 VARLEN_BWD_NAMES = (("varlen_dq_kernel", "varlen_mma_dq_kernel"),
                     ("varlen_dkdv_kernel", "varlen_mma_dkdv_kernel"))
+# The bias path's backward kernels, filed as `bias_<first name>`.
+DBIAS_NAMES = (("dbias_kernel", "dbias_mma_kernel"), ("dq_kernel", "dq_mma_kernel"),
+               ("dkdv_kernel", "dkdv_mma_kernel"))
 
 
 def parse_args(argv=None):
@@ -64,7 +72,7 @@ def parse_args(argv=None):
     ap.add_argument("--root", default=REPO,
                     help="checkout whose package is timed (default: this one)")
     ap.add_argument("--iters", type=int, default=10)
-    ap.add_argument("--only", choices=("decode", "serve"), help="time only these")
+    ap.add_argument("--only", choices=("decode", "dbias", "serve"), help="time only these")
     return ap.parse_args(argv)
 
 
@@ -179,6 +187,29 @@ def decode_times(torch, iters):
     return out
 
 
+def dbias_times(torch, iters, drop):
+    """Device ms per call of the bias path's backward kernels (DBIAS_NAMES)
+    at phase 6's shape and inputs (`chip_smoke.attn_inputs`, seed 3), with
+    `drop`'s dropout; the bound of the dbias kernel beside them."""
+    from fa2_triton_tpu_torch.ops import flash_bwd, flash_fwd
+
+    smoke = smoke_module()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    S, D = smoke.BWD_SEQ, 128
+    bf = lambda x: x.to(torch.bfloat16).transpose(1, 2)  # noqa: E731
+    q32, k32, v32, do32, lens = smoke.attn_inputs(torch, gen, dev, S)
+    q, k, v, do = (bf(x) for x in (q32, k32, v32, do32))
+    B, Hq, Hkv = q.shape[0], q.shape[1], k.shape[1]
+    bias = torch.randn((1, Hq, S, S), generator=gen, device=dev).to(torch.bfloat16)
+    kw = dict(causal=True, softmax_scale=D ** -0.5, **drop)
+    o, lse = flash_fwd.flash_attn_forward(q, k, v, lens, 0, 0, bias, **kw)
+    ms = device_ms(torch, lambda: flash_bwd.flash_attn_backward(
+        q, k, v, do, o, lse, lens, 0, 0, bias, compute_dbias=True, **kw), DBIAS_NAMES, iters)
+    return {**{f"bias_{n}": t for n, t in ms.items()},
+            "dbias_bound": smoke.dbias_bound(B, Hq, Hkv, S, D)}
+
+
 def serve_times(torch):
     """ms per decode step of each serve mode of `chip_smoke.py` (its serve
     phase, checks included; its lines go to stderr), and the decode
@@ -231,11 +262,13 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {"package": os.path.dirname(flash_fwd.__file__), "dropout_p": args.dropout,
            "device": torch.cuda.get_device_name(0)}
+    drop = dict(dropout_p=args.dropout, dropout_seed=1234567) if args.dropout > 0 else {}
     if args.only:
-        out.update(decode_times(torch, args.iters) if args.only == "decode" else serve_times(torch))
+        out.update(decode_times(torch, args.iters) if args.only == "decode" else
+                   dbias_times(torch, args.iters, drop) if args.only == "dbias" else
+                   serve_times(torch))
         print(json.dumps(out))
         return 0
-    drop = dict(dropout_p=args.dropout, dropout_seed=1234567) if args.dropout > 0 else {}
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
     B, S, Hq, Hkv, D = 2, 2048, 32, 8, 128

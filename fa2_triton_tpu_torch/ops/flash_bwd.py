@@ -35,7 +35,9 @@ The strip, fused and two-pass routes launch the dq and dk/dv pair.
 For bf16 / fp16 inputs the dq and dk/dv pair runs on tensor cores
 (`csrc/flash_bwd.cu`'s `dq_mma_kernel`, and `dkdv_mma_kernel` on
 `csrc/bwd_mma.cuh`'s tiles; one owner per output element, no partials),
-as do the tri-square, diag and work-list kernels (`csrc/bwd_mma.cuh`) over
+and so does dbias (`dbias_mma_kernel`: persistent blocks, each dbias tile
+summed over the bias's broadcast batch / head dims in a fixed order). So
+do the tri-square, diag and work-list kernels (`csrc/bwd_mma.cuh`) over
 host block partitions
 (`tri_partition`, `wl_partition`: enough blocks of equal causal work to
 fill the card, from the shape and its SM count), each block summing into

@@ -304,13 +304,17 @@ def test_flash_bwd_kernels_match_plain(dev, dtype, D, case):
 
 BIAS_SHAPES = [(1, 1, 200, 200), (2, 1, 200, 200), (1, 8, 200, 200), (2, 8, 200, 200),
                (2, 1, 1, 200)]
+# fp32 takes the FMA dbias kernel, fp16 / bf16 the tensor-core one (its
+# tiles: 64 keys at D 64 / 128, 32 at D 256).
+BIAS_DTYPE_DIMS = [(torch.float32, 64)] + [(dt, D) for dt in (torch.float16, torch.bfloat16)
+                                           for D in (64, 128, 256)]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("dtype,D", BIAS_DTYPE_DIMS)
 @pytest.mark.parametrize("shape", BIAS_SHAPES)
 @pytest.mark.parametrize("bias_fp32", [False, True])
-def test_bias_forward_and_dbias_kernels_match_plain(dev, dtype, shape, bias_fp32):
-    (q32, k32, v32, do32), lens, _, kw = _bwd_inputs(dev, dict(), 64, 5)
+def test_bias_forward_and_dbias_kernels_match_plain(dev, dtype, D, shape, bias_fp32):
+    (q32, k32, v32, do32), lens, _, kw = _bwd_inputs(dev, dict(), D, 5)
     g = torch.Generator(device=dev).manual_seed(9)
     b32 = torch.randn(*shape, generator=g, device=dev)
     bfull = b32.expand(shape[0], shape[1], 200, 200)   # a zero-stride seq dim when shape[2] == 1
@@ -331,6 +335,94 @@ def test_bias_forward_and_dbias_kernels_match_plain(dev, dtype, shape, bias_fp32
     _check(o, o32, o_pl, dtype)
     assert grads[3].shape == (shape[0], shape[1], 200, 200) and grads[3].dtype == bias.dtype
     _check_grads(grads, refs, plains, dtype)
+
+
+DBIAS_CASES = [
+    dict(hkv=8),                                              # group 1
+    dict(hkv=2, bias=(2, 1)),                                 # group 4, a [B, 1, S, S] bias
+    dict(causal=False),
+    dict(window=(17, 0)),                                     # whole tiles left of the window
+    dict(causal=False, window=(9, 5)),
+    dict(softcap=4.0),
+    dict(q_off=40, sq=60, sk=100),                            # a query chunk at a global offset
+    dict(kv_off=36, sk=164),                                  # a key chunk: rows 0-35 see nothing
+    dict(sk=300),                                             # Sq < Sk
+    dict(sq=300),                                             # Sq > Sk: the first 100 rows dead
+]
+
+
+def _live(lens, q_off, kv_off, Sq, Sk, kw, bias_batch, dev):
+    """Where some batch row the bias serves keeps the element: [1 or B, 1, Sq, Sk]."""
+    keep = flash_fwd._masks(lens, q_off, kv_off, Sq, Sk, kw["causal"], kw["window"], dev)
+    return keep if bias_batch > 1 else keep.any(0, keepdim=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("case", range(len(DBIAS_CASES)))
+def test_dbias_kernel_cases_match_plain(dev, dtype, D, case):
+    """The tensor-core dbias kernel under GQA, masks, softcap and offsets
+    (FA gradient contract, dbias with the dV waiver), one launch per call;
+    every element that no batch row keeps is exactly 0, whole dead tiles
+    included (the causal corner, left of the window, dead rows)."""
+    c = dict(DBIAS_CASES[case])
+    bias_b, bias_h = c.pop("bias", (1, 8))
+    kv_off = c.pop("kv_off", 0)
+    (q32, k32, v32, do32), lens, q_off, kw = _bwd_inputs(dev, c, D, case * 17 + D)
+    Sq, Sk = q32.shape[2], k32.shape[2]
+    if kv_off:
+        lens = torch.tensor([[Sq, kv_off + Sk], [Sq - 77, kv_off + Sk - 77]], dtype=torch.int32,
+                            device=dev)
+    b32 = torch.randn(bias_b, bias_h, Sq, Sk, generator=torch.Generator(device=dev).manual_seed(D),
+                      device=dev)
+    o32, lse32 = flash_fwd.flash_attn_forward_plain(q32, k32, v32, lens, q_off, kv_off, b32, **kw)
+    refs = flash_bwd.flash_attn_backward_plain(q32, k32, v32, do32, o32, lse32, lens, q_off, kv_off,
+                                               b32, compute_dbias=True, **kw)
+    q, k, v, do, bias = (x.to(dtype) for x in (q32, k32, v32, do32, b32))
+    o, lse = flash_fwd.flash_attn_forward(q, k, v, lens, q_off, kv_off, bias, **kw)
+    before = flash_bwd.LAUNCHES["flash_bwd_dbias"]
+    grads = flash_bwd.flash_attn_backward(q, k, v, do, o, lse, lens, q_off, kv_off, bias,
+                                          compute_dbias=True, **kw)
+    assert flash_bwd.LAUNCHES["flash_bwd_dbias"] == before + 1
+    plains = flash_bwd.flash_attn_backward_plain(q, k, v, do, o, lse, lens, q_off, kv_off, bias,
+                                                 compute_dbias=True, **kw)
+    torch.cuda.synchronize()
+    dbias = grads[3]
+    assert dbias.shape == bias.shape and dbias.dtype == dtype and torch.isfinite(dbias).all()
+    _check_grads(grads, refs, plains, dtype)
+    dead = ~_live(lens, q_off, kv_off, Sq, Sk, kw, bias_b, dev).expand_as(dbias)
+    assert not dbias[dead].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_dbias_kernel_ignores_nan_padding(dev, dtype, D):
+    """NaN in the rows past q_len / kv_len of q, k, v and do, and in every
+    bias element that no batch row keeps: all four gradients (dbias of a
+    per-head bias summed over the batch, and of a per-batch bias summed over
+    the heads) equal those of zero-filled padding bit for bit."""
+    (q, k, v, do), lens, _, kw = _bwd_inputs(dev, dict(), D, 3)
+    q, k, v, do = (x.to(dtype) for x in (q, k, v, do))
+    for x in (q, k, v, do):
+        x[1, :, 123:] = 0                       # batch row 1 has 123 valid rows
+    qn, kn, vn, don = (x.clone() for x in (q, k, v, do))
+    for x in (qn, kn, vn, don):
+        x[1, :, 123:] = float("nan")
+    g = torch.Generator(device=dev).manual_seed(D)
+    for bias_b, bias_h in ((1, 8), (2, 1)):
+        bias = torch.randn(bias_b, bias_h, 200, 200, generator=g, device=dev).to(dtype)
+        bias_n = bias.masked_fill(~_live(lens, 0, 0, 200, 200, kw, bias_b, dev), float("nan"))
+
+        def run(q, k, v, do, bias):
+            o, lse = flash_fwd.flash_attn_forward(q, k, v, lens, 0, 0, bias, **kw)
+            return flash_bwd.flash_attn_backward(q, k, v, do, o, lse, lens, 0, 0, bias,
+                                                 compute_dbias=True, **kw)
+
+        base, got = run(q, k, v, do, bias), run(qn, kn, vn, don, bias_n)
+        torch.cuda.synchronize()
+        assert torch.isnan(bias_n).any()
+        for a, b in zip(got, base):
+            assert torch.isfinite(a).all() and torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])

@@ -93,6 +93,22 @@ def test_bias_grads_and_dbias_match_jax(shape):
     _assert_close(jg, tg)
 
 
+@pytest.mark.parametrize("shape,hkv,kw", [
+    ((1, 4, 96, 96), 2, dict(causal=True, window_size=(16, 0))),   # a window: dead tiles left of it
+    ((1, 4, 96, 96), 2, dict(causal=False, softcap=5.0)),          # ds before softcap's chain rule
+    ((2, 1, 96, 96), 1, dict(causal=True)),                        # summed over a GQA group of 4
+])
+def test_dbias_element_rules_match_jax(shape, hkv, kw):
+    """The element rules the dbias kernels keep (B4 `_dbias_kernel`): a bias
+    under a sliding window, a bias beside softcap, and a [B, 1, S, S] bias
+    summed over the q heads of a GQA group of 4."""
+    rng, q, k, v, do = _data(96, 6, Hkv=hkv)
+    bias = rng.normal(0, 1.0, shape).astype(np.float32)
+    jg, tg = _grads_both(q, k, v, do, bias=bias, **kw)
+    assert len(tg) == 4 and tg[3].shape == shape
+    _assert_close(jg, tg)
+
+
 def test_lse_cotangent_folds_into_delta():
     rng, q, k, v, do = _data(130, 3)
     dlse = rng.normal(0, 1.0, (2, 4, 130)).astype(np.float32)
