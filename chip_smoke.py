@@ -112,6 +112,22 @@ the CUDA toolkit. Phases (any failure raises, and the script exits nonzero):
    work list; 1 x 6144, the same route, only if 8192 runs out of memory),
    with finite, falling losses and layers x steps launches of the
    schedule's kernel, none of the dq / dk/dv pair.
+13. (Run right after phase 4, on its model.) Chunked prefill and the
+   prefix cache: (a) phase 3's requests with `prefill_chunk=512` on the
+   contiguous bf16 cache: every request finishes, a decode step runs while
+   a slot is mid-prefill, launches are layers x (prefill dispatches,
+   chunks included) and layers x decode steps, and the log-probs pass
+   phase 4's check; (b) a 1024-token shared prefix plus log-uniform tails
+   of 64-1024 tokens, two waves of 8 on one paged engine (page 128,
+   prefix cache, chunks of 512), requests 0-3 of a wave greedy and 4-7
+   sampled (temperature 0.8, top-k 50, top-p 0.95): wave B reuses exactly
+   8 x 1024 cached tokens, every page comes back, wave B's log-probs pass
+   the check, and the first sampled decode step's logits rows, copied to
+   the CPU, draw the card's tokens there (random bits equal bit for bit,
+   tokens wherever the top-two gap exceeds 1e-4); (c) the chunk's kernel
+   call (C 512 at q_off 1024 over 1536 rows) against its plain twin under
+   the FA rule, timed beside aten flash and its bound. Prints ms per
+   greedy-only and per sampled decode step and per chunk dispatch.
 
 Every kernel is also timed against PyTorch's own call for the same function
 (`library_ms`, where one exists) and its bound on the H100 (`bound_ms`: the
@@ -150,7 +166,11 @@ PROMPT_RANGE = (100, 1800)
 SERVE_MODES = {"serve": {}, "serve paged bf16": {"paged": True},
                "serve paged int8": {"paged": True, "page_size": 128, "n_pages": 57,
                                     "qdtype": "int8"},
-               "serve contiguous fp8": {"qdtype": "float8_e4m3fn"}}
+               "serve contiguous fp8": {"qdtype": "float8_e4m3fn"},
+               # Phase 13: chunked prefill, then the prefix cache with it.
+               "serve chunked": {"prefill_chunk": 512},
+               "serve prefix": {"paged": True, "page_size": 128, "prefix_cache": True,
+                                "prefill_chunk": 512}}
 ATTN_SEQ = (128, 1024, 2048)
 DECODE_LENS = (1, 17, 300, 1024, 2048, 3000, 4000, 4096)
 FP32_TOL = 1e-4                  # fp32 kernel vs fp32 plain, max abs
@@ -640,13 +660,19 @@ def served_prompts(cfg):
     return [rng.randint(0, cfg.vocab_size, size=n).tolist() for n in lens]
 
 
-def serve(torch, model, cfg, prompts, card: str, what: str):
-    """Serve `prompts` (NEW_TOKENS each) through a fresh Engine with the
-    cache options of SERVE_MODES[what], the launch counts reset just before,
-    and check that every prefill dispatch and decode step went through the
-    kernels on every layer, with the one decode variant the cache calls for.
-    Returns the requests, the stats, the launches and the seconds of each
-    decode step (host clock to the device's end)."""
+def serve(torch, model, cfg, prompts, card: str, what: str, samplings=None, waves=None):
+    """Serve `prompts` (NEW_TOKENS each; `samplings`: a SamplingParams or
+    None per prompt) through a fresh Engine with the cache options of
+    SERVE_MODES[what], the launch counts reset just before, and check that
+    every prefill dispatch and decode step went through the kernels on
+    every layer, with the one decode variant the cache calls for. `waves`
+    (a count of prompts per wave) serves the prompts in turn on the same
+    engine, each wave to completion. Returns the requests, the stats, the
+    launches, the seconds of each decode step (host clock to the device's
+    end) and `info`: per decode step whether it sampled and whether a slot
+    was mid-prefill, the seconds of each chunk or suffix dispatch, the
+    prefix-cached tokens of each wave, and the inputs and tokens of the
+    first sampled decode step (on the CPU)."""
     from fa2_triton_tpu_torch.ops import decode, flash_fwd
     from fa2_triton_tpu_torch.runtime import Engine
 
@@ -657,21 +683,48 @@ def serve(torch, model, cfg, prompts, card: str, what: str):
     kv_bytes = sum(t.numel() * t.element_size() for layer in store for t in layer.values())
     want = decode.variant(engine.paged, store[0]["k"].dtype)
     free0 = engine.pcache.free_pages if engine.paged else None
-    reqs = [engine.submit(p, NEW_TOKENS) for p in prompts]
-    # Host clock around each decode step, to the device's end: the step
-    # reads its tokens back right after anyway.
-    step_s, inner = [], engine._decode
+    samplings = samplings or [None] * len(prompts)
+    info = {"sampled": [], "mixed": [], "chunk_s": [], "cached": [], "draw": None}
+    # Host clock around each decode step and chunk dispatch, to the
+    # device's end: the step reads its tokens back right after anyway.
+    step_s, decode_step, chunk, select = [], engine._decode, engine._chunk, engine._select
 
-    def timed_decode():
+    def timed_decode(active):
+        info["mixed"].append(bool(engine._prefilling))
+        info["sampled"].append(not all(engine.temp_np[s] <= 0.0 for s in active))
         t0 = time.perf_counter()
-        out = inner()
+        out = decode_step(active)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         return out
-    engine._decode = timed_decode
+
+    def timed_chunk(*args):
+        t0 = time.perf_counter()
+        out = chunk(*args)   # reads its token back
+        info["chunk_s"].append(time.perf_counter() - t0)
+        return out
+
+    def kept_select(logits, samp, greedy):
+        out = select(logits, samp, greedy)
+        if not greedy and info["draw"] is None and logits.shape[0] == len(engine.slot_req):
+            live = [s for s, r in enumerate(engine.slot_req)
+                    if r is not None and s not in engine._prefilling]
+            info["draw"] = {"logits": logits.float().cpu(), "samp": [np.array(a) for a in samp],
+                            "tokens": out[0].cpu(), "live": live}
+        return out
+    engine._decode, engine._chunk, engine._select = timed_decode, timed_chunk, kept_select
     flash_fwd.LAUNCHES = 0
     decode.reset_launches()
-    stats = engine.run()
+    reqs, wall, done = [], 0.0, 0
+    for n in waves or [len(prompts)]:
+        before = engine.stats.prefix_cached_tokens
+        reqs += [engine.submit(p, NEW_TOKENS, sampling=sp)
+                 for p, sp in zip(prompts[done:done + n], samplings[done:done + n])]
+        done += n
+        stats = engine.run()
+        wall += stats.wall_s
+        info["cached"].append(stats.prefix_cached_tokens - before)
+    stats.wall_s = wall
     launches = {"flash_fwd": flash_fwd.LAUNCHES, "decode": decode.LAUNCHES,
                 "decode_variants": dict(decode.VARIANT_LAUNCHES)}
     lens = [len(p) for p in prompts]
@@ -691,13 +744,13 @@ def serve(torch, model, cfg, prompts, card: str, what: str):
     if launches["decode_variants"] != {want: cfg.n_layers * stats.decode_steps} or stats.decode_steps == 0:
         raise AssertionError(f"{what}: decode launches {launches['decode_variants']} != "
                              f"{{{want!r}: {cfg.n_layers} x {stats.decode_steps} decode steps}}")
-    if engine.paged and engine.pcache.free_pages != free0:
+    if engine.paged and (engine.pcache.free_pages != free0 or engine.pcache._refs.any()):
         raise AssertionError(f"{what}: {engine.pcache.free_pages} pages free after the run, "
                              f"{free0} before")
     lps = np.array([r.out_logprobs for r in reqs])
     if not np.isfinite(lps).all():
         raise AssertionError(f"{what}: non-finite served log-probs")
-    return reqs, stats, launches, step_s
+    return reqs, stats, launches, step_s, info
 
 
 def phase_serve(torch, card: str):
@@ -714,7 +767,7 @@ def phase_serve(torch, card: str):
     print(f"[serve] Mistral-7B-v0.3 widths, {n_params / 1e9:.2f} B params bf16, random "
           f"(seed 0), init {time.perf_counter() - t0:.1f} s")
     prompts = served_prompts(cfg)
-    reqs, _, launches, _ = serve(torch, model, cfg, prompts, card, "serve")
+    reqs, _, launches = serve(torch, model, cfg, prompts, card, "serve")[:3]
     return model, cfg, reqs, prompts, launches
 
 
@@ -816,7 +869,7 @@ def phase_serve_modes(torch, card, model, cfg, reqs, prompts):
     runs = {"paged bf16": base[2]["decode_variants"]}
     for what in ("serve paged int8", "serve contiguous fp8"):
         name = what.split()[-1]
-        q_reqs, _, launches, _ = serve(torch, model, cfg, prompts, card, what)
+        q_reqs, _, launches = serve(torch, model, cfg, prompts, card, what)[:3]
         folded = {r.rid: r.folded for r in q_reqs if r.folded}
         print(f"[{what}] preempted requests (rid: tokens folded into the prompt): {folded}")
         if SERVE_MODES[what].get("paged") and not folded:
@@ -824,6 +877,191 @@ def phase_serve_modes(torch, card, model, cfg, reqs, prompts):
         check_logprobs(torch, model, cfg, q_reqs, prompts, what, *QUANT_LOGPROB_TOL[name])
         runs[what[6:]] = launches["decode_variants"]
     return runs
+
+
+# Phase 13's traffic: a chat system prompt shared across users, PREFIX_LEN
+# tokens from numpy.random.RandomState(1), then per request a tail of
+# log-uniform length in TAIL_RANGE from the same generator; wave A, then
+# wave B on the same engine, WAVE requests each. Requests 0-3 of a wave are
+# greedy, 4-7 sampled (SAMPLED, seed = the request's index in the phase).
+PREFIX_LEN = 1024
+TAIL_RANGE = (64, 1024)
+WAVE = 8
+SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
+# The chunk kernel call of phase 13 (c): one layer's chunk of CHUNK queries
+# at q_off CHUNK_Q_OFF over CHUNK_Q_OFF + CHUNK cached rows.
+CHUNK, CHUNK_Q_OFF = 512, 1024
+ATEN_FWD = "pytorch_flash::flash_fwd_kernel"   # aten flash's forward kernel, by name
+DRAW_MARGIN = 1e-4
+
+
+def prefix_prompts(cfg):
+    rng = np.random.RandomState(1)
+    head = rng.randint(0, cfg.vocab_size, size=PREFIX_LEN).tolist()
+    lens = np.exp(rng.uniform(*np.log(TAIL_RANGE), size=2 * WAVE)).astype(int)
+    return [head + rng.randint(0, cfg.vocab_size, size=n).tolist() for n in lens]
+
+
+def step_ms(step_s, flags, want):
+    """(mean ms, count) of the decode steps whose flag is `want`; (None, 0)
+    when there is none (the kernels line stays strict JSON)."""
+    picked = [t for t, f in zip(step_s, flags) if f == want]
+    return (1e3 * float(np.mean(picked)), len(picked)) if picked else (None, 0)
+
+
+def check_draws(torch, draw, what):
+    """The first sampled decode step's logits rows, copied to the CPU: the
+    port's sampler there must draw the card's tokens. The random bits are
+    equal bit for bit; a token is held to the card's wherever the top-two
+    gap of (adjusted logits + Gumbel noise) exceeds DRAW_MARGIN (log and exp
+    may differ in the last bit between the two devices)."""
+    from fa2_triton_tpu_torch.runtime import sampling
+
+    temps, top_ks, top_ps, seeds, steps = draw["samp"]
+    rows = [s for s in draw["live"] if temps[s] > 0]
+    if not rows:
+        raise AssertionError(f"{what}: the first sampled step has no live sampled row")
+    V = draw["logits"].shape[-1]
+    seeds_t, steps_t = torch.from_numpy(seeds[rows]), torch.from_numpy(steps[rows])
+    bits_card = sampling.random_bits(seeds_t.cuda(), steps_t.cuda(), V).cpu()
+    bits_cpu = sampling.random_bits(seeds_t, steps_t, V)
+    if not torch.equal(bits_card, bits_cpu):
+        raise AssertionError(f"{what}: the card's random bits differ from the CPU's")
+    logits = draw["logits"][rows]
+    samp = [a[rows] for a in draw["samp"]]
+    cpu = sampling.sample_tokens(logits, *samp)
+    noisy = sampling.adjust_logits(logits, *samp[:3]) + sampling._gumbel(seeds_t, steps_t, V)
+    top2 = noisy.topk(2, dim=-1).values
+    gap = torch.where(torch.isinf(top2[:, 1]), torch.full_like(top2[:, 0], float("inf")),
+                      top2[:, 0] - top2[:, 1])
+    card = draw["tokens"][rows]
+    held = gap > DRAW_MARGIN
+    print(f"[{what}] first sampled decode step: {len(rows)} live sampled rows, random bits equal "
+          f"to the CPU's bit for bit ({len(rows)} x {V}); CPU draws {cpu.tolist()}, card "
+          f"{card.tolist()}; top-two gaps {[f'{g:.3g}' for g in gap.tolist()]}, "
+          f"{int(held.sum())} above {DRAW_MARGIN} held equal")
+    if not torch.equal(cpu[held], card[held]):
+        raise AssertionError(f"{what}: the card's sampled tokens differ from the CPU sampler's")
+    # The token choice alone on the step's rows (all 8): the sampler against
+    # the greedy path a step takes when no live slot samples.
+    x = draw["logits"].cuda()
+    ms = {"sampler_ms": cuda_ms(torch, lambda: sampling.sample_tokens_with_logprobs(
+              x, *draw["samp"])),
+          "greedy_ms": cuda_ms(torch, lambda: sampling.greedy_tokens_with_logprobs(x))}
+    print(f"[{what}] token choice on [{x.shape[0]}, {V}] logits: sampler {ms['sampler_ms']:.3f} "
+          f"ms, greedy {ms['greedy_ms']:.3f} ms (CUDA events, host launches included)")
+    return {"rows": len(rows), "held": int(held.sum()), "bits_equal": True, **ms}
+
+
+def chunk_kernel(torch):
+    """Phase 13 (c): B1 (`flash_fwd_mma_kernel`) on one layer's chunk call,
+    CHUNK queries at q_off CHUNK_Q_OFF over CHUNK_Q_OFF + CHUNK cached rows
+    (lens (total, total), causal), 32 / 8 heads, D 128, against its plain
+    twin: fp32 within FP32_TOL, bf16 under the FA rule; the kernel's and
+    the library's (aten flash, causal: bottom-right aligned like the chunk)
+    device time by the profiler, at this size under their calls' host
+    time (CUDA events, beside them), the plain twin's ms and the bound."""
+    from fa2_triton_tpu_torch.ops import flash_fwd
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    Hq, Hkv, D, Sk = 32, 8, 128, CHUNK_Q_OFF + CHUNK
+    scale = D ** -0.5
+    q32 = torch.randn((1, CHUNK, Hq, D), generator=gen, device=dev) * 0.5
+    k32 = torch.randn((1, Sk, Hkv, D), generator=gen, device=dev) * 0.5
+    v32 = torch.randn((1, Sk, Hkv, D), generator=gen, device=dev) * 0.5
+    lens = torch.tensor([[Sk, Sk]], dtype=torch.int32, device=dev)
+    kw = dict(causal=True, softmax_scale=scale)
+    call = dict(kw, static_skip=False, varlen=True)
+    bhsd = lambda x: x.transpose(1, 2)
+    o_ref, _ = flash_fwd.flash_attn_forward_plain(bhsd(q32), bhsd(k32), bhsd(v32), lens,
+                                                  CHUNK_Q_OFF, **kw)
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = (bhsd(x.to(dt)) for x in (q32, k32, v32))
+        n0 = flash_fwd.LAUNCHES
+        o, lse = flash_fwd.flash_attn_forward(q, k, v, lens, CHUNK_Q_OFF, **call)
+        torch.cuda.synchronize()
+        if flash_fwd.LAUNCHES != n0 + 1:
+            raise AssertionError("chunk call: not one launch of flash_fwd.cu")
+        o_pl, lse_pl = flash_fwd.flash_attn_forward_plain(q, k, v, lens, CHUNK_Q_OFF, **kw)
+        lse_err = check_lse(torch, lse, lse_pl, f"chunk {dt}")
+        err = max_abs(torch, o, o_ref)
+        if dt == torch.float32:
+            bound, rule = FP32_TOL, f"<= {FP32_TOL}"
+        else:
+            pl_err = max_abs(torch, o_pl, o_ref)
+            bound = OUT_ERROR_MUL * pl_err + OUT_ERROR_BIAS
+            rule = f"<= 2 x plain bf16 err {pl_err:.3e} + 5e-5"
+        print(f"[chunk] flash_fwd C {CHUNK} at q_off {CHUNK_Q_OFF} over {Sk} rows, Hq {Hq} Hkv "
+              f"{Hkv} D {D} {str(dt)[6:]}: max abs err {err:.3e} ({rule}), lse err {lse_err:.3e}")
+        if not err <= bound:
+            raise AssertionError(f"chunk {dt}: err {err:.3e} > {bound:.3e}")
+    run = lambda: flash_fwd.flash_attn_forward(q, k, v, lens, CHUNK_Q_OFF, **call)  # noqa: E731
+    ms = kernel_ms(torch, run, ["flash_fwd_mma_kernel"], iters=10)["flash_fwd_mma_kernel"]
+    call_ms = cuda_ms(torch, run)
+    pms = cuda_ms(torch, lambda: flash_fwd.flash_attn_forward_plain(q, k, v, lens, CHUNK_Q_OFF,
+                                                                   **kw))
+    lib_fwd, lib_out, _ = library_attention(torch, q32[0].to(q.dtype), k32[0].to(q.dtype),
+                                            v32[0].to(q.dtype), [CHUNK], [Sk], True, scale)
+    lib_err = check_library(torch, "chunk", lib_out[0], bhsd(o_ref)[0], pl_err)
+    pairs = CHUNK * CHUNK_Q_OFF + CHUNK * (CHUNK + 1) // 2
+    nbytes = 2 * CHUNK * Hq * D * 2 + 2 * Sk * Hkv * D * 2 + CHUNK * Hq * 4
+    out = {"max_abs_err": err, "ms": ms, "call_ms": call_ms, "plain_ms": pms,
+           # aten's call is one launch of its flash forward kernel here; the
+           # profiler averages over the launches it records (it may miss one).
+           "library_ms": kernel_ms(torch, lib_fwd, [ATEN_FWD], iters=10)[ATEN_FWD],
+           "library_call_ms": cuda_ms(torch, lib_fwd),
+           **roofline(2 * D * 2 * pairs * Hq, nbytes)}
+    print(f"[chunk] bf16: kernel {ms:.4f} ms of device time (the call {call_ms:.4f} ms), plain "
+          f"{pms:.3f} ms, library (aten flash, causal) {out['library_ms']:.4f} ms of device time "
+          f"(the call {out['library_call_ms']:.4f} ms; err {lib_err:.3e}), bound "
+          f"{out['bound_ms']:.4f} ms ({out['bound_by']}): {100 * out['bound_ms'] / ms:.1f} % of "
+          f"the bound")
+    return out
+
+
+def phase_chunked(torch, card, model, cfg, prompts):
+    """Phase 13: (a) phase 3's requests with prefill_chunk 512, contiguous;
+    (b) the shared-prefix waves, paged at page 128 with the prefix cache and
+    chunks of 512, greedy and sampled requests; (c) the chunk kernel call.
+    Returns the launches of (a) and (b) and (c)'s numbers."""
+    reqs, stats, launches, step_s, info = serve(torch, model, cfg, prompts, card, "serve chunked")
+    mixed = sum(info["mixed"])
+    print(f"[serve chunked] {mixed} of {len(step_s)} decode steps ran while a slot was mid-prefill; "
+          f"{len(info['chunk_s'])} chunk dispatches, {1e3 * np.mean(info['chunk_s']):.2f} ms each; "
+          f"greedy decode steps {step_ms(step_s, info['sampled'], False)} (ms, count) [{card}]")
+    if not mixed:
+        raise AssertionError("serve chunked: no decode step ran beside a mid-prefill slot")
+    check_logprobs(torch, model, cfg, reqs, prompts, "serve chunked", LOGPROB_MEAN_TOL,
+                   LOGPROB_MAX_TOL)
+
+    from fa2_triton_tpu_torch.runtime import SamplingParams
+
+    wave_prompts = prefix_prompts(cfg)
+    samplings = [SamplingParams(seed=i, **SAMPLED) if i % WAVE >= 4 else None
+                 for i in range(2 * WAVE)]
+    p_reqs, p_stats, p_launches, p_step_s, p_info = serve(
+        torch, model, cfg, wave_prompts, card, "serve prefix", samplings, [WAVE, WAVE])
+    (g_ms, g_n), (s_ms, s_n) = (step_ms(p_step_s, p_info["sampled"], f) for f in (False, True))
+    print(f"[serve prefix] prefix_cached_tokens wave A {p_info['cached'][0]}, wave B "
+          f"{p_info['cached'][1]} (want {WAVE} x {PREFIX_LEN}); decode steps greedy-only "
+          f"{g_ms} ms ({g_n}), sampled {s_ms} ms ({s_n}); "
+          f"{len(p_info['chunk_s'])} chunk dispatches, {1e3 * np.mean(p_info['chunk_s']):.2f} ms "
+          f"each [{card}]")
+    if p_info["cached"][1] != WAVE * PREFIX_LEN:
+        raise AssertionError(f"serve prefix: wave B reused {p_info['cached'][1]} cached tokens, "
+                             f"not {WAVE * PREFIX_LEN}")
+    if p_info["draw"] is None:
+        raise AssertionError("serve prefix: no decode step sampled")
+    draws = check_draws(torch, p_info["draw"], "serve prefix")
+    check_logprobs(torch, model, cfg, p_reqs[WAVE:], wave_prompts[WAVE:], "serve prefix wave B",
+                   LOGPROB_MEAN_TOL, LOGPROB_MAX_TOL)
+    chunk = chunk_kernel(torch)
+    return {"chunked": launches, "prefix": p_launches, "chunk": chunk, "draws": draws,
+            "steps": {"greedy_ms": step_ms(step_s, info["sampled"], False)[0],
+                      "prefix_greedy_ms": g_ms, "prefix_sampled_ms": s_ms,
+                      "chunk_ms": 1e3 * float(np.mean(info["chunk_s"] + p_info["chunk_s"]))},
+            "prefix_cached_tokens": p_info["cached"]}
 
 
 def check_grad(torch, name, g, ref, plain, what):
@@ -2965,6 +3203,8 @@ def main() -> int:
         phase_check(torch, model, cfg, reqs, prompts)
         torch.cuda.empty_cache()
         served = phase_serve_modes(torch, card, model, cfg, reqs, prompts)
+        torch.cuda.empty_cache()
+        chunked = phase_chunked(torch, card, model, cfg, prompts)
     del model, reqs  # the served model and its cache make way for training
     gc.collect()
     torch.cuda.empty_cache()
@@ -3000,10 +3240,15 @@ def main() -> int:
          "replaces": "fa2_triton_tpu/ops/flash_fwd.py:56",
          "also_replaces": "fa2_triton_tpu/ops/flash_fwd.py:454",
          "launches": launches["flash_fwd"], "launches_train": train_launches["flash_fwd"],
-         "launches_bias_path": bias_launches["flash_fwd"], **kernels["flash_fwd"]},
+         "launches_bias_path": bias_launches["flash_fwd"],
+         "launches_chunked": chunked["chunked"]["flash_fwd"],
+         "launches_prefix": chunked["prefix"]["flash_fwd"], **kernels["flash_fwd"],
+         "chunk_call": chunked["chunk"],
+         "serve_chunked": {k: chunked[k] for k in ("steps", "draws", "prefix_cached_tokens")}},
         {"name": "decode", "route": "cuda", "source": "fa2_triton_tpu_torch/csrc/decode.cuh",
          "replaces": "fa2_triton_tpu/ops/decode.py:158",
-         "launches": launches["decode"], **kernels["decode"], "build": decode_build},
+         "launches": launches["decode"], "launches_chunked": chunked["chunked"]["decode"],
+         **kernels["decode"], "build": decode_build},
         {"name": "decode_quant", "route": "cuda", "source": "fa2_triton_tpu_torch/csrc/decode.cuh",
          "replaces": "fa2_triton_tpu/ops/decode.py:74",
          "launches": sum(n for run in served.values() for v, n in run.items() if "contiguous" in v),
@@ -3014,7 +3259,7 @@ def main() -> int:
          "also_replaces": "fa2_triton_tpu/ops/decode.py:280",
          "launches": sum(n for run in served.values() for v, n in run.items() if "paged" in v),
          "launches_by_run": {r: v for r, v in served.items() if r.startswith("paged")},
-         **kernels["paged_decode"]},
+         "launches_prefix": chunked["prefix"]["decode"], **kernels["paged_decode"]},
         {"name": "flash_bwd_dq", "route": "cuda", "source": "fa2_triton_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "fa2_triton_tpu/ops/flash_bwd.py:159",
          "also_replaces": "fa2_triton_tpu/ops/flash_bwd.py:602 (B12), fa2_triton_tpu/ops/flash_bwd.py:376 (B2)",

@@ -23,10 +23,18 @@
     its four serve modes, Mistral-7B-v0.3 widths, random bf16 weights from
     seed 0), with the mean and median ms per decode step (host clock to the
     device's end), and the host us per decode call at a tiny cache
-    (`decode_host_us`).
+    (`decode_host_us`);
+  * with `--only chunk`: one prefill chunk of `chip_smoke.py`'s phase 13
+    (512 queries at cache length 1024) through `chunk_prefill_step` over
+    the contiguous cache and `paged_chunk_prefill_step` over a page pool
+    of 128 rows, at Mistral-7B-v0.3 widths, full depth, in turns: ms per
+    dispatch (host clock to the device's end), and the device time and
+    count of the kernels of one dispatch (torch.profiler, summed); then the
+    token choice on one decode step's [8, 32768] fp32 logits (rows 4-7
+    sampled), sampler against greedy, the same ways.
 
     python fa2_triton_tpu_torch/examples/kernel_times.py [--dropout P] [--root DIR]
-        [--only decode|dbias|serve]
+        [--only decode|dbias|serve|chunk]
 
 Times come from torch.profiler (device time per launch, averaged over
 --iters calls after a warm-up), the S 4096 forwards' from CUDA events over
@@ -38,7 +46,8 @@ then only for versions that take it. The decode shape, the pools and the
 served traffic come from the `chip_smoke.py` beside this checkout's
 package, whichever package is timed. `--only decode` times the decode
 variants alone, `--only dbias` the bias path's backward kernels (its shape
-from `chip_smoke.py` too), `--only serve` the serve modes. Run it by its
+from `chip_smoke.py` too), `--only serve` the serve modes, `--only chunk`
+the chunk dispatch and the sampler. Run it by its
 path, not with -m, so that the package is imported from the root. Needs a
 CUDA device.
 """
@@ -72,7 +81,8 @@ def parse_args(argv=None):
     ap.add_argument("--root", default=REPO,
                     help="checkout whose package is timed (default: this one)")
     ap.add_argument("--iters", type=int, default=10)
-    ap.add_argument("--only", choices=("decode", "dbias", "serve"), help="time only these")
+    ap.add_argument("--only", choices=("decode", "dbias", "serve", "chunk"),
+                    help="time only these")
     return ap.parse_args(argv)
 
 
@@ -246,6 +256,83 @@ def serve_times(torch):
     return out
 
 
+def busy(torch, fn):
+    """(host ms to the device's end, device ms of every kernel, kernel
+    launches) of one call of `fn`, after a warm-up call."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if (getattr(e, "self_device_time_total", None) or
+                  getattr(e, "self_cuda_time_total", 0)) > 0]
+    us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+             for e in events)
+    return wall, us / 1e3, sum(e.count for e in events)
+
+
+def chunk_times(torch, iters):
+    """`--only chunk` (see the module docstring)."""
+    import time
+
+    from fa2_triton_tpu_torch.examples.train import preset_config
+    from fa2_triton_tpu_torch.models import init_params, llama
+    from fa2_triton_tpu_torch.runtime import (
+        KVCacheConfig, PagedCacheConfig, PagedKVCache, init_cache, sampling,
+    )
+
+    smoke = smoke_module()
+    dev = torch.device("cuda")
+    cfg = preset_config("mistral-7b-v0.3", torch.bfloat16)
+    model = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    C, cache_len = smoke.CHUNK, smoke.CHUNK_Q_OFF
+    kw = dict(n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd, n_slots=8,
+              max_seq=4096, compute_dtype=cfg.dtype)
+    kcfg, pcfg = KVCacheConfig(**kw), PagedCacheConfig(page_size=128, n_pages=257, **kw)
+    caches, pool = init_cache(kcfg, device=dev), PagedKVCache(pcfg, device=dev)
+    pool.ensure_capacity(0, cache_len + C)
+    tok = torch.randint(0, cfg.vocab_size, (1, C), generator=torch.Generator().manual_seed(1))
+    tok = tok.to(dev)
+    runs = {
+        "chunk_contiguous": lambda: llama.chunk_prefill_step(model, tok, C, cache_len, caches,
+                                                             kcfg, 0),
+        "chunk_paged": lambda: llama.paged_chunk_prefill_step(
+            model, tok, C, cache_len, pool.pools, pool.tables_device(), 0, pcfg),
+    }
+    logits = torch.randn((8, cfg.vocab_size), generator=torch.Generator().manual_seed(2)) * 3
+    logits = logits.to(dev)
+    samp = ([0.0] * 4 + [0.8] * 4, [0] * 4 + [50] * 4, [1.0] * 4 + [0.95] * 4,
+            list(range(8)), [5] * 8)
+    picks = {"choice_sampler": lambda: sampling.sample_tokens_with_logprobs(logits, *samp),
+             "choice_greedy": lambda: sampling.greedy_tokens_with_logprobs(logits)}
+    out = {}
+    with torch.inference_mode():
+        for group in (runs, picks):
+            names = list(group)
+            ms = {n: [] for n in names}
+            for r in range(iters):
+                for n in (names if r % 2 == 0 else names[::-1]):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    group[n]()
+                    torch.cuda.synchronize()
+                    ms[n].append((time.perf_counter() - t0) * 1e3)
+            for n in names:
+                wall, dev_ms, launches = busy(torch, group[n])
+                out[n] = {"ms": ms[n], "median_ms": float(np.median(ms[n])),
+                          "profiled_call_ms": wall, "device_ms": dev_ms, "launches": launches}
+    return out
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     root = os.path.abspath(args.root)
@@ -266,6 +353,7 @@ def main(argv=None) -> int:
     if args.only:
         out.update(decode_times(torch, args.iters) if args.only == "decode" else
                    dbias_times(torch, args.iters, drop) if args.only == "dbias" else
+                   chunk_times(torch, args.iters) if args.only == "chunk" else
                    serve_times(torch))
         print(json.dumps(out))
         return 0

@@ -8,9 +8,12 @@ norms are fp32), so converting a JAX parameter tree is a copy
 
 Ported: `forward` (differentiable; `cfg.remat` checkpoints each layer),
 `loss_fn`, `prefill_forward`, `decode_step` (contiguous cache, stored in
-the compute dtype or int8 / fp8) and `paged_decode_step` (page pool and
-block tables). Not yet ported: `chunk_prefill_step`, `forward_with_cache`,
-and MoE layers (a "router" layer raises).
+the compute dtype or int8 / fp8), `paged_decode_step` (page pool and block
+tables) and `chunk_prefill_step` (one prompt chunk against a slot's cached
+prefix; `paged_chunk_prefill_step` is its page-pool form). Not yet ported:
+the cached forward of speculative decoding (`forward_with_cache`,
+`make_cached_attention_fn`, `init_kv_cache`, and `flash_attn_with_kv_cache`
+under them), and MoE layers (a "router" layer raises).
 
 Layout convention: activations [batch, seq, dim]; attention tensors BSHD.
 """
@@ -25,7 +28,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from fa2_triton_tpu_torch.ops import flash_attn_func
+from fa2_triton_tpu_torch.ops import flash_attn_func, flash_fwd
+from fa2_triton_tpu_torch.ops.attention import pad_head_dim, pad_last
 from fa2_triton_tpu_torch.ops.decode import decode_attention, paged_decode_attention
 from fa2_triton_tpu_torch.ops.quant import qmatmul as _mm
 from fa2_triton_tpu_torch.utils import resolve_device
@@ -415,3 +419,133 @@ def paged_decode_step(
             softmax_scale=cfg.scale, window_left=cfg.window_for(li), softcap=cfg.attn_softcap)
 
     return _decode_layers(model, tokens, lens, write_and_attend), pools
+
+
+def _cache_rows(store: dict, total: int, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The first `total` rows of a one-slot cache view [1, Hkv, S, D] (and
+    its scales [1, Hkv, 1, S]) as k, v in `dtype`: dequantized (value x
+    scale in fp32, then cast, as the JAX package does) when the store is
+    quantized, else views."""
+    k, v = store["k"][:, :, :total], store["v"][:, :, :total]
+    if "k_scale" in store:
+        k = (k.float() * store["k_scale"][..., :total].transpose(2, 3)).to(dtype)
+        v = (v.float() * store["v_scale"][..., :total].transpose(2, 3)).to(dtype)
+    return k, v
+
+
+def _chunk_layers(model: LlamaModel, tokens: torch.Tensor, chunk_len: int, cache_len: int,
+                  write_and_view: Callable) -> torch.Tensor:
+    """The layer loop of one prefill chunk: `write_and_view(li, k, v)`
+    stores layer `li`'s k/v of the chunk's `chunk_len` true tokens at
+    `cache_len` and returns the k/v [1, Hkv, total, D] of the slot's first
+    total = cache_len + chunk_len rows. The chunk's queries (row i at
+    position cache_len + i) attend to them causally through `flash_fwd`
+    (lens (total, total), q_off cache_len); padded rows past chunk_len are
+    dead. Returns the logits [1, V] of the last true token."""
+    cfg = model.cfg
+    dev = tokens.device
+    C = tokens.shape[1]
+    total = cache_len + chunk_len
+    x = model.embed[tokens]
+    positions = (cache_len + torch.arange(C, device=dev))[None]
+    cos, sin = rope_cos_sin(positions, cfg.hd, cfg.rope_theta, cfg.rope_factors)
+    cs, sn = cos[:, :, None, :], sin[:, :, None, :]
+    lens = torch.full((1, 2), total, dtype=torch.int32, device=dev)
+    Dp = pad_head_dim(cfg.hd, dev)
+    for li, layer in enumerate(model.layers):
+        h = rms_norm(x, layer.attn_norm, cfg.norm_eps)
+        q, k, v = _qkv(layer, h, cfg)
+        q, k = apply_rope(q, cs, sn), apply_rope(k, cs, sn)
+        kc, vc = write_and_view(li, k[:, :chunk_len], v[:, :chunk_len])
+        o, _ = flash_fwd.flash_attn_forward(
+            pad_last(q, Dp).transpose(1, 2), pad_last(kc, Dp), pad_last(vc, Dp), lens, cache_len,
+            causal=True, softmax_scale=cfg.scale, window=_window_args(cfg, li),
+            softcap=cfg.attn_softcap, seqlen_q_real=C, seqlen_k_real=total, static_skip=False,
+            varlen=True)
+        x = _attn_out(layer, x, o.transpose(1, 2)[..., :cfg.hd], cfg)
+        x = _mlp_block(layer, x, cfg)
+    x = rms_norm(x[:, chunk_len - 1], model.final_norm, cfg.norm_eps)
+    return _logits(x, model, cfg)
+
+
+def _check_chunk(tokens: torch.Tensor, chunk_len: int, cache_len: int, capacity: int) -> None:
+    if tokens.shape[0] != 1 or not 0 < chunk_len <= tokens.shape[1] or cache_len < 0:
+        raise ValueError(f"a chunk is tokens [1, C] with 0 < chunk_len <= C, got "
+                         f"{tuple(tokens.shape)}, chunk_len {chunk_len}, cache_len {cache_len}")
+    if cache_len + chunk_len > capacity:
+        raise ValueError(f"chunk rows {cache_len}..{cache_len + chunk_len} pass the cache's "
+                         f"{capacity} rows")
+
+
+def chunk_prefill_step(
+    model: LlamaModel,
+    tokens: torch.Tensor,       # [1, C] int — one right-padded prompt chunk
+    chunk_len: int,             # true tokens in the chunk
+    cache_len: int,             # tokens already in the slot's cache
+    caches,                     # runtime KV cache: list of layer dicts (BHSD)
+    kv_cfg,                     # runtime.kv_cache.KVCacheConfig
+    slot: int = 0,
+) -> torch.Tensor:
+    """One bounded prefill chunk of `slot` over the contiguous serving cache
+    (`fa2_triton_tpu/models/llama.py:chunk_prefill_step`): the chunk's
+    queries attend to the cached prefix and the chunk itself, and the
+    chunk's `chunk_len` true rows are written at `cache_len`, IN PLACE
+    (quantized when the cache is; attention then reads the dequantized rows,
+    the chunk's own included, as JAX does). Only true rows are written: JAX
+    writes the whole padded chunk, and where cache_len + C passes the cache
+    XLA clamps the write's start, moving the chunk over earlier rows
+    (ROADMAP.md queue C). A chunk whose true rows pass the cache raises.
+    Returns the logits [1, V] of the chunk's last true token."""
+    from fa2_triton_tpu_torch.runtime.kv_cache import write_kv
+
+    _check_chunk(tokens, chunk_len, cache_len, kv_cfg.max_seq_padded)
+    total = cache_len + chunk_len
+    offset = torch.tensor([cache_len], dtype=torch.int32)
+
+    def write_and_view(li, k, v):
+        view = {name: t[slot:slot + 1] for name, t in caches[li].items()}
+        write_kv(view, k, v, offset, kv_cfg)
+        return _cache_rows(view, total, kv_cfg.compute_dtype)
+
+    return _chunk_layers(model, tokens, chunk_len, cache_len, write_and_view)
+
+
+def paged_chunk_prefill_step(
+    model: LlamaModel,
+    tokens: torch.Tensor,       # [1, C] int — one right-padded prompt chunk
+    chunk_len: int,
+    cache_len: int,
+    pools,                      # per-layer page-pool dicts (shared pages)
+    tables: torch.Tensor,       # [n_slots, max_pages] int32 block tables (device)
+    slot: int,
+    pcfg,                       # runtime.paged_cache.PagedCacheConfig
+) -> torch.Tensor:
+    """`chunk_prefill_step` over the page pool: the chunk's true rows are
+    scattered in place through the slot's table (`write_tokens_paged`; the
+    caller has allocated their pages, and rows below cache_len, shared
+    prefix pages included, are never written), then the slot's first
+    ceil(total / page) pages are gathered into a contiguous view for the
+    attention kernel. Returns the logits [1, V] of the last true token."""
+    from fa2_triton_tpu_torch.runtime.paged_cache import write_tokens_paged
+
+    _check_chunk(tokens, chunk_len, cache_len, pcfg.max_seq)
+    total = cache_len + chunk_len
+    n = -(-total // pcfg.page_size)
+    trow = tables[slot:slot + 1]
+    pages = trow[0, :n].long()
+    # Made on the device: a host tensor would be copied, and the host would
+    # wait for the device, in every layer.
+    position = torch.full((1,), cache_len, dtype=torch.int32, device=tables.device)
+    Hkv, D = pcfg.n_kv_heads, pcfg.head_dim
+
+    def write_and_view(li, k, v):
+        pool = pools[li]
+        write_tokens_paged(pool, trow, k, v, position, pcfg)
+        view = {name: pool[name][pages].transpose(0, 1).reshape(1, Hkv, -1, D)
+                for name in ("k", "v")}
+        for name in ("k_scale", "v_scale"):
+            if name in pool:   # [n, Hkv, 1, page] -> [1, Hkv, 1, n * page]
+                view[name] = pool[name][pages].permute(1, 2, 0, 3).reshape(1, Hkv, 1, -1)
+        return _cache_rows(view, total, pcfg.compute_dtype)
+
+    return _chunk_layers(model, tokens, chunk_len, cache_len, write_and_view)

@@ -13,14 +13,20 @@ scales). The head dim is not padded (JAX pads it to 128 with zeros, which
 leave the scales unchanged), so pools, scales and allocator state equal
 JAX's, first D columns, bit for bit.
 
-Not ported yet (ROADMAP A.1(ii)): the prefix cache — `match_prefix`,
-`attach`, `register_prefix` and the LRU of released registered pages. The
-refcounts are kept so that it slots in.
+Automatic prefix caching: full pages are content-addressed by a chain hash
+over their token ids (`_chunk_hash`, blake2b) and shared by refcount. A
+shared page is never written, because a slot writes only at positions past
+its attached prefix. A registered page whose last reference goes stays
+resident on an LRU (`_cached_free`, counted in `free_pages`) until the
+allocator needs it, so a later request with the same prompt prefix attaches
+it (`match_prefix`, `attach`) instead of recomputing its k/v.
 """
 from __future__ import annotations
 
+import hashlib
+from collections import OrderedDict
 from dataclasses import dataclass
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -78,13 +84,19 @@ class PagedKVCache:
         # _slot_pages[i - _slot_freed[slot]].
         self._slot_freed: List[int] = [0] * cfg.n_slots
         self._tables_dev: Optional[torch.Tensor] = None
+        # Prefix-cache state: per-page refcounts; chain hash -> page of each
+        # registered full page and back; the LRU of ref-0 registered pages,
+        # whose contents are still valid.
         self._refs = np.zeros((cfg.n_pages,), np.int32)
+        self._hash_to_page: Dict[bytes, int] = {}
+        self._page_hash: Dict[int, bytes] = {}
+        self._cached_free: "OrderedDict[int, None]" = OrderedDict()
 
     # ------------------------- host allocation ---------------------------
 
     @property
     def free_pages(self) -> int:
-        return len(self._free)
+        return len(self._free) + len(self._cached_free)
 
     def tables_device(self) -> torch.Tensor:
         if self._tables_dev is None:
@@ -94,12 +106,23 @@ class PagedKVCache:
     def _alloc_page(self) -> int:
         if self._free:
             return self._free.pop()
+        # Evict the least recently released registered page: nothing
+        # references it, so it can be repurposed.
+        if self._cached_free:
+            page, _ = self._cached_free.popitem(last=False)
+            del self._hash_to_page[self._page_hash.pop(page)]
+            return page
         raise MemoryError("KV page pool exhausted")
 
     def _unref(self, page: int) -> None:
+        """Drop one reference: a page nobody references returns to the free
+        list, or to the LRU if it is registered."""
         self._refs[page] -= 1
         if self._refs[page] == 0:
-            self._free.append(page)
+            if page in self._page_hash:
+                self._cached_free[page] = None
+            else:
+                self._free.append(page)
 
     def ensure_capacity(self, slot: int, n_tokens: int) -> None:
         """Allocate pages so `slot` can hold n_tokens; raises MemoryError if
@@ -117,8 +140,7 @@ class PagedKVCache:
             self._tables_dev = None
 
     def release(self, slot: int) -> None:
-        """Drop the slot's references; pages nobody references return to
-        the free list."""
+        """Drop the slot's references (`_unref` of each page, last first)."""
         for page in reversed(self._slot_pages[slot]):
             self._unref(page)
         self._slot_pages[slot] = []
@@ -145,6 +167,58 @@ class PagedKVCache:
         self._slot_pages[slot] = self._slot_pages[slot][drop:]
         self._slot_freed[slot] = n_logical_pages
         self._tables_dev = None
+
+    # ------------------------- prefix caching ----------------------------
+
+    @staticmethod
+    def _chunk_hash(prev: bytes, tokens: Sequence[int]) -> bytes:
+        return hashlib.blake2b(prev + np.asarray(tokens, np.int32).tobytes(),
+                               digest_size=16).digest()
+
+    def match_prefix(self, tokens: Sequence[int]) -> Tuple[int, List[int]]:
+        """Longest registered full-page prefix of `tokens` -> (n_tokens,
+        pages). Capped at len(tokens) - 1 tokens, so that at least one token
+        is left to prefill (its logits pick the first generated token)."""
+        P = self.cfg.page_size
+        pages: List[int] = []
+        h = b""
+        for i in range((len(tokens) - 1) // P):
+            h = self._chunk_hash(h, tokens[i * P:(i + 1) * P])
+            page = self._hash_to_page.get(h)
+            if page is None:
+                break
+            pages.append(page)
+        return len(pages) * P, pages
+
+    def attach(self, slot: int, pages: Sequence[int]) -> None:
+        """Point an empty slot's table at shared prefix pages (one reference
+        each; a page on the LRU leaves it). The slot must write only at
+        positions >= len(pages) * page_size."""
+        if self._slot_pages[slot] or self._slot_freed[slot]:
+            raise ValueError(f"attach needs an empty slot; slot {slot} holds pages")
+        for i, page in enumerate(pages):
+            self._tables[slot, i] = page
+            self._refs[page] += 1
+            self._cached_free.pop(page, None)
+        self._slot_pages[slot] = list(pages)
+        self._tables_dev = None
+
+    def register_prefix(self, slot: int, tokens: Sequence[int]) -> None:
+        """Publish the slot's full pages, which hold the k/v of `tokens`
+        from position 0, into the prefix cache (the first page registered
+        under a hash keeps it). Pages released behind a window are hashed
+        past but not published."""
+        P = self.cfg.page_size
+        freed = self._slot_freed[slot]
+        h = b""
+        for i in range(len(tokens) // P):
+            h = self._chunk_hash(h, tokens[i * P:(i + 1) * P])
+            if i < freed:
+                continue
+            page = self._slot_pages[slot][i - freed]
+            if h not in self._hash_to_page and page not in self._page_hash:
+                self._hash_to_page[h] = page
+                self._page_hash[page] = h
 
     # ------------------------- device writes -----------------------------
 

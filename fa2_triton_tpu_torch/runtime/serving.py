@@ -4,9 +4,8 @@ A slot-based scheduler: new requests are prefilled into free KV-cache slots
 (same-bucket prompts batched N in {2, 4} per prefill), while ONE batched
 decode step advances every slot each iteration. Inactive slots step
 harmlessly: their write lands on their own stale row (paged: on the reserved
-page 0) and their output is ignored. Greedy decoding; tokens/s metrics.
-Prefill runs the `flash_fwd` kernel, decode the `decode` kernel (on CUDA
-tensors).
+page 0) and their output is ignored. Prefill runs the `flash_fwd` kernel,
+decode the `decode` kernel (on CUDA tensors).
 
 The KV cache is per slot (`runtime/kv_cache.py`) or, with `paged=True`, a
 shared page pool (`runtime/paged_cache.py`) of `n_pages` pages of
@@ -18,13 +17,24 @@ all-layer sliding window go back to the pool; a finished request returns
 its pages. `qdtype` (torch.int8 or torch.float8_e4m3fn) stores either cache
 quantized.
 
-The host keeps a mirror of every slot's length (`lens_np`), so scheduling
-never reads the device; the only per-step device read is the new tokens and
-their log-probs.
+`prefill_chunk` (a multiple of 128): a longer prompt claims its slot at
+once and is prefilled one chunk of that many tokens per engine step
+(`models/llama.py:chunk_prefill_step`), interleaved with the batched decode,
+so it does not stall the slots already generating. `prefix_cache=True`
+(paged only): finished and prefilled prompts leave their full pages
+registered by content, and a request whose prompt starts with registered
+pages attaches them and prefills only the rest (a suffix prefill, the same
+chunk step over the cached prefix), one admission at a time. Requests take
+`SamplingParams` (temperature / top-k / top-p / seed, `runtime/sampling.py`,
+JAX's threefry stream); a decode step whose live slots are all greedy runs
+no sampling op.
 
-Not ported yet (each raises NotImplementedError when set): `mesh` (ROADMAP
-A.7), `prefill_chunk` and `prefix_cache` (A.1(ii)), and sampling with
-temperature > 0 (A.1(ii)).
+The host keeps a mirror of every slot's length (`lens_np`) and sampling
+parameters, so scheduling never reads the device; the only per-step device
+read is the new tokens and their log-probs.
+
+Not ported yet: `mesh` (tensor-parallel serving, ROADMAP A.7) raises
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -36,14 +46,15 @@ import numpy as np
 import torch
 
 from fa2_triton_tpu_torch.models.llama import (
-    LlamaConfig, LlamaModel, decode_step, paged_decode_step, prefill_forward,
+    LlamaConfig, LlamaModel, chunk_prefill_step, decode_step, paged_chunk_prefill_step,
+    paged_decode_step, prefill_forward,
 )
 from fa2_triton_tpu_torch.runtime.kv_cache import KVCacheConfig, init_cache, write_kv
 from fa2_triton_tpu_torch.runtime.paged_cache import (
     PagedCacheConfig, PagedKVCache, write_tokens_paged,
 )
 from fa2_triton_tpu_torch.runtime.sampling import (
-    GREEDY, SamplingParams, greedy_tokens_with_logprobs,
+    GREEDY, SamplingParams, greedy_tokens_with_logprobs, sample_tokens_with_logprobs,
 )
 from fa2_triton_tpu_torch.utils import next_power_of_2, round_up_to_multiple
 
@@ -63,6 +74,8 @@ class Request:
     # Per-request stop tokens (checked in addition to the engine eos_id);
     # the stop token is kept in out_tokens.
     stop_ids: Optional[frozenset] = None
+    # Token i is drawn from fold_in(PRNGKey(seed), i), so a rerun or a
+    # preempted request's resume reproduces it.
     sampling: SamplingParams = GREEDY
 
 
@@ -71,7 +84,11 @@ class EngineStats:
     prefill_tokens: int = 0
     decode_tokens: int = 0
     decode_steps: int = 0
-    prefill_dispatches: int = 0   # prefill_forward calls (single or batched)
+    # Prefill dispatches: prefill_forward calls (single or batched), prompt
+    # chunks and prefix-hit suffixes; each runs flash_fwd once per layer.
+    prefill_dispatches: int = 0
+    # Prompt tokens whose k/v came from the prefix cache (never recomputed).
+    prefix_cached_tokens: int = 0
     wall_s: float = 0.0
 
     @property
@@ -100,18 +117,22 @@ class Engine:
         prefix_cache: bool = False,
         page_size: Optional[int] = None,
     ):
-        for name, value, off, item in (("mesh", mesh, None, "A.7"),
-                                       ("prefill_chunk", prefill_chunk, None, "A.1(ii)"),
-                                       ("prefix_cache", prefix_cache, False, "A.1(ii)")):
-            if value != off:
-                raise NotImplementedError(
-                    f"Engine({name}=...) is not ported yet; see ROADMAP.md queue A ({item})")
+        if mesh is not None:
+            raise NotImplementedError(
+                "Engine(mesh=...) is not ported yet; see ROADMAP.md queue A (A.7)")
         if params.cfg != cfg:
             raise ValueError("cfg differs from the model's own config")
+        if prefix_cache and not paged:
+            raise ValueError("prefix_cache requires paged=True")
+        if prefill_chunk is not None and (prefill_chunk <= 0 or prefill_chunk % 128):
+            raise ValueError(f"prefill_chunk must be a positive multiple of 128, "
+                             f"got {prefill_chunk}")
         self.params = params
         self.cfg = cfg
         self.eos_id = eos_id
         self.paged = paged
+        self.prefix_cache = prefix_cache
+        self.prefill_chunk = prefill_chunk
         self.device = params.embed.device
         with torch.inference_mode():
             if paged:
@@ -141,21 +162,67 @@ class Engine:
         # Pages behind the window are dead only when every layer is windowed.
         self._window = cfg.sliding_window if all(
             cfg.window_for(li) >= 0 for li in range(cfg.n_layers)) else -1
-        # Host-side lens mirror: scheduling reads host memory, and the device
-        # copy is rebuilt per step (one small H2D copy).
+        # Host-side mirrors: scheduling reads host memory, and the device
+        # copies are rebuilt per step (small H2D copies). Sampling
+        # parameters stay with a slot after its request ends; only live
+        # slots decide whether a step samples.
         self.lens_np = np.zeros((n_slots,), np.int32)
+        self.temp_np = np.zeros((n_slots,), np.float32)
+        self.topk_np = np.zeros((n_slots,), np.int32)
+        self.topp_np = np.ones((n_slots,), np.float32)
+        self.seed_np = np.zeros((n_slots,), np.int64)   # uint32 values
         self.slot_req: List[Optional[Request]] = [None] * n_slots
         self.queue: List[Request] = []
+        # Slots whose prompt is mid-prefill -> the next prompt offset.
+        self._prefilling: Dict[int, int] = {}
         self.stats = EngineStats()
+
+    # ---------------- token choice ---------------------------------------
+
+    @staticmethod
+    def _samp(reqs: List[Request]):
+        """Sampling arguments of one row per request; each row's step is
+        the number of tokens its request has generated (nonzero when a
+        preempted request re-prefills its partial generation)."""
+        return (np.array([r.sampling.temperature for r in reqs], np.float32),
+                np.array([r.sampling.top_k for r in reqs], np.int64),
+                np.array([r.sampling.top_p for r in reqs], np.float32),
+                np.array([r.sampling.seed & 0xFFFFFFFF for r in reqs], np.int64),
+                np.array([len(r.out_tokens) for r in reqs], np.int64))
+
+    def _samp_batch(self):
+        """Per-slot sampling arguments of the batched decode step."""
+        steps = np.array([len(r.out_tokens) if r is not None else 0 for r in self.slot_req],
+                         np.int64)
+        return self.temp_np, self.topk_np, self.topp_np, self.seed_np, steps
+
+    def _set_slot_sampling(self, slot: int, req: Request):
+        sp = req.sampling
+        self.temp_np[slot] = sp.temperature
+        self.topk_np[slot] = sp.top_k
+        self.topp_np[slot] = sp.top_p
+        self.seed_np[slot] = sp.seed & 0xFFFFFFFF
+
+    @staticmethod
+    def _select(logits: torch.Tensor, samp, greedy: bool):
+        """Tokens and raw-model log-probs of logits [N, V]: argmax when
+        every row that counts is greedy (no sort, no random bits), else the
+        sampler on every row."""
+        if greedy:
+            return greedy_tokens_with_logprobs(logits)
+        return sample_tokens_with_logprobs(logits, *samp)
 
     # ---------------- device work ----------------------------------------
 
-    def _prefill(self, tokens: np.ndarray, true_len: List[int], slots: List[int]):
-        """Prefill N prompts [N, s_pad] in one dispatch, write their k/v into
-        the slots' cache rows (the whole padded prompt: per-slot lengths keep
-        the padded tail invisible), and pick each next token."""
+    def _prefill(self, tokens: np.ndarray, group):
+        """Prefill N prompts [N, s_pad] in one dispatch into the slots of
+        `group` ((slot, req) pairs), write their k/v into the slots' cache
+        rows (the whole padded prompt: per-slot lengths keep the padded tail
+        invisible), and pick each next token."""
+        slots = [s for s, _ in group]
+        reqs = [r for _, r in group]
         tok = torch.from_numpy(tokens).to(self.device)
-        tl = torch.tensor(true_len, dtype=torch.int32, device=self.device)
+        tl = torch.tensor([len(r.prompt) for r in reqs], dtype=torch.int32, device=self.device)
         logits, kvs = prefill_forward(self.params, tok, tl)
         if self.paged:
             # One scatter per layer through the N slots' table rows.
@@ -171,9 +238,30 @@ class Engine:
                     write_kv(view, k[i:i + 1], v[i:i + 1], zero, self.kv_cfg)
         rows = logits[torch.arange(len(slots), device=self.device), (tl - 1).long()]
         self.stats.prefill_dispatches += 1
-        return greedy_tokens_with_logprobs(rows)
+        return self._select(rows, self._samp(reqs),
+                            all(r.sampling.temperature <= 0.0 for r in reqs))
 
-    def _decode(self):
+    def _chunk(self, slot: int, req: Request, chunk: List[int], width: int, cache_len: int):
+        """One chunk or prompt-suffix prefill of `slot`: `chunk`'s tokens,
+        right-padded to `width`, go in at `cache_len` over the slot's cached
+        rows. Returns the next token and its log-prob (host values)."""
+        tokens = np.zeros((1, width), np.int64)
+        tokens[0, :len(chunk)] = chunk
+        tok = torch.from_numpy(tokens).to(self.device)
+        if self.paged:
+            logits = paged_chunk_prefill_step(self.params, tok, len(chunk), cache_len,
+                                              self.pcache.pools, self.pcache.tables_device(),
+                                              slot, self.kv_cfg)
+        else:
+            logits = chunk_prefill_step(self.params, tok, len(chunk), cache_len, self.caches,
+                                        self.kv_cfg, slot)
+        self.stats.prefill_dispatches += 1
+        toks, lps = self._select(logits, self._samp([req]), req.sampling.temperature <= 0.0)
+        return int(toks[0]), float(lps[0])
+
+    def _decode(self, active: List[int]):
+        """The batched decode step over every slot, then each slot's token:
+        by argmax when every live slot in `active` is greedy."""
         lens = torch.from_numpy(self.lens_np).to(self.device)
         if self.paged:
             logits, _ = paged_decode_step(self.params, self.last_tokens, self.pcache.pools,
@@ -181,29 +269,46 @@ class Engine:
         else:
             logits, self.caches = decode_step(self.params, self.last_tokens, self.caches, lens,
                                               self.kv_cfg)
-        return greedy_tokens_with_logprobs(logits)
+        return self._select(logits, self._samp_batch(),
+                            all(self.temp_np[s] <= 0.0 for s in active))
 
     # ---------------- scheduling -----------------------------------------
 
     def submit(self, prompt: List[int], max_new_tokens: int,
                sampling: Optional[SamplingParams] = None, stop_ids=None) -> Request:
-        sampling = sampling or GREEDY
-        if sampling.temperature > 0.0:
-            raise NotImplementedError(
-                "temperature > 0 sampling is not ported (see ROADMAP.md queue A, A.1(ii))")
         req = Request(rid=len(self.queue), prompt=list(prompt),
-                      max_new_tokens=max_new_tokens, sampling=sampling,
+                      max_new_tokens=max_new_tokens, sampling=sampling or GREEDY,
                       stop_ids=frozenset(stop_ids) if stop_ids else None)
         self.queue.append(req)
         return req
 
     def _finish_admission(self, slot: int, req: Request, next_tok: int, next_lp: float):
+        """The prompt's k/v are all in: publish its full pages (prefix
+        cache), and the slot starts decoding from its first token."""
+        if self.prefix_cache:
+            self.pcache.register_prefix(slot, req.prompt)
         self.lens_np[slot] = len(req.prompt)
-        self.last_tokens[slot] = next_tok
+        self.last_tokens[slot] = int(next_tok)
         req.out_tokens.append(int(next_tok))
         req.out_logprobs.append(float(next_lp))
         self.slot_req[slot] = req
+        self._set_slot_sampling(slot, req)
         self._maybe_finish(slot)
+
+    def _chunked(self, req: Request) -> bool:
+        return self.prefill_chunk is not None and len(req.prompt) > self.prefill_chunk
+
+    def _reserve(self, slot: int, req: Request, n_tokens: int) -> bool:
+        """Pages for `n_tokens` rows of `slot`, or, when the pool is short,
+        none at all (the slot releases what it took; ROADMAP queue C) and
+        the request goes back to the head of the queue."""
+        try:
+            self.pcache.ensure_capacity(slot, n_tokens)
+            return True
+        except MemoryError:
+            self.pcache.release(slot)
+            self.queue.insert(0, req)
+            return False
 
     def _admit_batch(self, group):
         """One prefill dispatch for N same-bucket (slot, req) pairs."""
@@ -211,33 +316,32 @@ class Engine:
         tokens = np.zeros((len(group), s_pad), np.int64)
         for i, (_, req) in enumerate(group):
             tokens[i, :len(req.prompt)] = req.prompt
-        toks, lps = self._prefill(tokens, [len(r.prompt) for _, r in group],
-                                  [s for s, _ in group])
+        toks, lps = self._prefill(tokens, group)
         toks_np, lps_np = toks.cpu().numpy(), lps.cpu().numpy()
         for i, (slot, req) in enumerate(group):
             self.stats.prefill_tokens += len(req.prompt)
             self._finish_admission(slot, req, toks_np[i], lps_np[i])
 
     def _admit(self):
-        # Same-bucket admissions are grouped into ONE batched prefill
-        # dispatch (N in {2, 4}); odd ones out take the single-slot path.
+        """Fill free slots from the queue. Same-bucket prompts are grouped
+        into ONE batched prefill dispatch (N in {2, 4}); chunked prompts,
+        prefix-cache admissions and odd ones out take `_admit_one`.
+        Prefix-cache mode admits one request at a time, so that a request
+        can hit the pages registered by the one admitted just before it."""
         batchable: List = []
         for slot, occupant in enumerate(self.slot_req):
             if occupant is not None or not self.queue:
                 continue
             req = self.queue.pop(0)
+            if self.prefix_cache or self._chunked(req):
+                if not self._admit_one(slot, req):
+                    break
+                continue
             s_pad = _bucket(len(req.prompt))
             if s_pad > self._max_seq_padded:
                 raise ValueError(f"prompt of {len(req.prompt)} tokens exceeds max_seq")
-            if self.paged:
-                try:
-                    self.pcache.ensure_capacity(slot, s_pad)
-                except MemoryError:
-                    # Wait for pages; the slot keeps none of a partial
-                    # reservation (ROADMAP queue C).
-                    self.pcache.release(slot)
-                    self.queue.insert(0, req)
-                    break
+            if self.paged and not self._reserve(slot, req, s_pad):
+                break
             # Reserve the slot now so this loop doesn't re-offer it; the
             # flush below fills in the real state.
             self.slot_req[slot] = req
@@ -249,14 +353,80 @@ class Engine:
             while group:
                 n = 4 if len(group) >= 4 else (2 if len(group) >= 2 else 1)
                 head, group = group[:n], group[n:]
-                if n == 1:
-                    self._admit_one(*head[0])
-                else:
-                    self._admit_batch(head)
+                self._admit_batch(head)
 
-    def _admit_one(self, slot: int, req: Request):
-        """Admit one request into `slot` (a single-prompt prefill)."""
-        self._admit_batch([(slot, req)])
+    def _admit_one(self, slot: int, req: Request) -> bool:
+        """Admit one request into the empty `slot`: claim it for a chunked
+        prefill, or prefill it now (only the suffix past a prefix-cache
+        hit). False, with the request back at the head of the queue, when
+        the page pool is short."""
+        if self._chunked(req):
+            if len(req.prompt) > self._max_seq_padded:
+                raise ValueError(f"prompt of {len(req.prompt)} tokens exceeds max_seq")
+            start = 0
+            if self.prefix_cache:
+                start, shared = self.pcache.match_prefix(req.prompt)
+                if start:
+                    self.pcache.attach(slot, shared)
+                    self.stats.prefix_cached_tokens += start
+            self.slot_req[slot] = req
+            self._set_slot_sampling(slot, req)
+            self._prefilling[slot] = start
+            # The batched decode writes every slot's new k/v at its length,
+            # so a mid-prefill slot parks its write on its last row, which
+            # no decode reads (a request ends at lens + 1 == the padded
+            # max_seq) and a final chunk covering it rewrites first. Paged,
+            # that row's page is not allocated until then: the write goes to
+            # the reserved page 0.
+            self.lens_np[slot] = self._max_seq_padded - 1
+            return True
+        s_pad = _bucket(len(req.prompt))
+        if s_pad > self._max_seq_padded:
+            raise ValueError(f"prompt of {len(req.prompt)} tokens exceeds max_seq")
+        n_cached, shared = self.pcache.match_prefix(req.prompt) if self.prefix_cache else (0, [])
+        if not n_cached:
+            if self.paged and not self._reserve(slot, req, s_pad):
+                return False
+            self.slot_req[slot] = req
+            self._admit_batch([(slot, req)])
+            return True
+        # Prefix hit: attach the shared pages and prefill only the suffix,
+        # whose queries attend over the cached prefix. The pages reserved
+        # cover the padded suffix, as JAX reserves them.
+        suffix = req.prompt[n_cached:]
+        width = max(128, next_power_of_2(len(suffix)))
+        if n_cached + width > self._max_seq_padded:
+            width = round_up_to_multiple(len(suffix), 128)
+        page = self.kv_cfg.page_size
+        self.pcache.attach(slot, shared)
+        if not self._reserve(slot, req, -(-(n_cached + width) // page) * page):
+            return False
+        next_tok, next_lp = self._chunk(slot, req, suffix, width, n_cached)
+        self.stats.prefix_cached_tokens += n_cached
+        self.stats.prefill_tokens += len(suffix)
+        self._finish_admission(slot, req, next_tok, next_lp)
+        return True
+
+    def _step_chunk_prefills(self):
+        """Advance every mid-prefill slot by ONE chunk; a prompt's final
+        chunk gives its first token."""
+        C = self.prefill_chunk
+        for slot in list(self._prefilling):
+            req = self.slot_req[slot]
+            pos = self._prefilling[slot]
+            chunk = req.prompt[pos:pos + C]
+            if self.paged:
+                decoding = [v for v, r in enumerate(self.slot_req)
+                            if r is not None and v not in self._prefilling]
+                self._ensure_or_preempt(slot, pos + len(chunk), decoding)
+            next_tok, next_lp = self._chunk(slot, req, chunk, C, pos)
+            pos += len(chunk)
+            self.stats.prefill_tokens += len(chunk)
+            if pos >= len(req.prompt):
+                del self._prefilling[slot]
+                self._finish_admission(slot, req, next_tok, next_lp)
+            else:
+                self._prefilling[slot] = pos
 
     def _maybe_finish(self, slot: int):
         req = self.slot_req[slot]
@@ -271,6 +441,13 @@ class Engine:
             req.done = True
             self.slot_req[slot] = None
             if self.paged:
+                if self.prefix_cache:
+                    # Publish the generated tokens' full pages too, so that a
+                    # follow-up turn (prompt + generation + more) reuses them.
+                    # The last token was never fed back: its k/v were never
+                    # written.
+                    new = req.out_tokens[req.folded:]
+                    self.pcache.register_prefix(slot, list(req.prompt) + new[:-1])
                 self.pcache.release(slot)
 
     def _preempt(self, slot: int):
@@ -284,11 +461,23 @@ class Engine:
         self.pcache.release(slot)
         self.queue.insert(0, req)
 
+    def _ensure_or_preempt(self, slot: int, n_tokens: int, candidates: List[int]):
+        """Pages for `n_tokens` rows of `slot`, preempting the live slot of
+        `candidates` that holds the most pages while the pool is dry."""
+        while True:
+            try:
+                self.pcache.ensure_capacity(slot, n_tokens)
+                return
+            except MemoryError:
+                victims = [v for v in candidates if v != slot and self.slot_req[v] is not None]
+                if not victims:
+                    raise
+                self._preempt(max(victims, key=lambda x: len(self.pcache._slot_pages[x])))
+
     def _make_room(self, active: List[int]):
         """Paged mode, before a decode step: release the pages behind an
         all-layer window (decode never reads them again), then give every
-        active slot room for its next token, preempting the slot that holds
-        the most pages while the pool is dry."""
+        active slot room for its next token."""
         if self._window >= 0:
             page = self.kv_cfg.page_size
             for s in active:
@@ -296,32 +485,26 @@ class Engine:
                 if behind > 0:
                     self.pcache.release_prefix(s, behind // page)
         for s in active:
-            if self.slot_req[s] is None:  # preempted earlier this step
-                continue
-            while True:
-                try:
-                    self.pcache.ensure_capacity(s, int(self.lens_np[s]) + 1)
-                    break
-                except MemoryError:
-                    victims = [v for v in active if v != s and self.slot_req[v] is not None]
-                    if not victims:
-                        raise
-                    self._preempt(max(victims, key=lambda x: len(self.pcache._slot_pages[x])))
+            if self.slot_req[s] is not None:   # not preempted earlier this step
+                self._ensure_or_preempt(s, int(self.lens_np[s]) + 1, active)
 
     @torch.inference_mode()
     def step(self) -> bool:
-        """One engine iteration: admit waiting requests, then decode all
-        active slots by one token."""
+        """One engine iteration: admit waiting requests, advance mid-prefill
+        slots by one chunk, then decode all active slots by one token."""
         self._admit()
-        active = [s for s, r in enumerate(self.slot_req) if r is not None]
+        if self._prefilling:
+            self._step_chunk_prefills()
+        active = [s for s, r in enumerate(self.slot_req)
+                  if r is not None and s not in self._prefilling]
         if not active:
-            return False
+            return bool(self._prefilling)
         if self.paged:
             self._make_room(active)
             active = [s for s in active if self.slot_req[s] is not None]
             if not active:
                 return bool(self.queue)
-        next_tokens, next_lps = self._decode()
+        next_tokens, next_lps = self._decode(active)
         # The ONLY per-step device read: the new tokens and their logprobs.
         next_np = next_tokens.cpu().numpy()
         lps_np = next_lps.cpu().numpy()

@@ -910,6 +910,65 @@ def test_paged_engine_on_cuda_matches_engine_on_cpu(dev):
 
 
 
+@pytest.mark.parametrize("kw", [dict(prefill_chunk=128),
+                                dict(prefill_chunk=128, paged=True, page_size=128,
+                                     prefix_cache=True)], ids=["chunked", "chunked-paged-prefix"])
+def test_chunked_sampled_engine_on_cuda_matches_engine_on_cpu(dev, kw):
+    """Chunked prefill (with the prefix cache when paged: the third prompt
+    repeats the first's 256-token head) and a sampled request beside greedy
+    ones: the card's tokens equal the CPU's, every chunk launches flash_fwd
+    once per layer, and the prefix cache reuses the same pages."""
+    from fa2_triton_tpu_torch.models import LlamaConfig, init_params
+    from fa2_triton_tpu_torch.runtime import Engine, SamplingParams
+
+    cfg = LlamaConfig(vocab_size=256, dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                      hidden_dim=512, dtype=torch.float32)
+    cpu = init_params(torch.Generator().manual_seed(0), cfg)
+    gpu = init_params(torch.Generator().manual_seed(0), cfg).to(dev)
+    head = [(5 * j + 1) % 256 for j in range(256)]
+    prompts = [head + [7, 9], [(3 * j) % 256 for j in range(40)],
+               head + [(11 * j) % 256 for j in range(90)]]
+    samplings = [None, SamplingParams(temperature=0.8, top_k=20, top_p=0.95, seed=2**31 + 1), None]
+    outs = []
+    for model in (cpu, gpu):
+        flash_fwd.reset_launches()
+        eng = Engine(model, cfg, n_slots=2, max_seq=512, **kw)
+        reqs = [eng.submit(p, 6, sampling=sp) for p, sp in zip(prompts, samplings)]
+        eng.run()
+        outs.append((reqs, eng.stats))
+        if model is gpu:
+            assert flash_fwd.LAUNCHES == cfg.n_layers * eng.stats.prefill_dispatches
+    (a, sa), (b, sb) = outs
+    cached = 256 if kw.get("prefix_cache") else 0
+    assert sb.prefix_cached_tokens == sa.prefix_cached_tokens == cached
+    for x, y in zip(a, b):
+        assert x.out_tokens == y.out_tokens
+        torch.testing.assert_close(torch.tensor(y.out_logprobs), torch.tensor(x.out_logprobs),
+                                   rtol=0, atol=1e-3)
+
+
+def test_sampler_on_cuda_matches_cpu(dev):
+    """The threefry bits on the card equal the CPU's bit for bit; the drawn
+    tokens equal wherever the top-two gap of (adjusted logits + Gumbel
+    noise) exceeds 1e-4."""
+    from fa2_triton_tpu_torch.runtime import sampling
+
+    B, V = 8, 32768
+    seeds = torch.tensor([0, 1, 7, 123456, 2**31 - 1, 2**31, 2**32 - 1, 99])
+    steps = torch.tensor([0, 1, 2, 17, 40000, 3, 2**31 - 1, 5])
+    assert torch.equal(sampling.random_bits(seeds.to(dev), steps.to(dev), V).cpu(),
+                       sampling.random_bits(seeds, steps, V))
+    logits = torch.randn(B, V, generator=torch.Generator().manual_seed(1)) * 3
+    samp = ([0.0, 0.8, 1.0, 0.7, 5.0, 1.0, 0.3, 2.0], [0, 50, 0, 0, 1, 20, 0, 0],
+            [1.0, 0.95, 0.9, 1.0, 1.0, 0.5, 1.0, 0.99], seeds, steps)
+    cpu = sampling.sample_tokens(logits, *samp)
+    card = sampling.sample_tokens(logits.to(dev), *samp).cpu()
+    noisy = sampling.adjust_logits(logits, *samp[:3]) + sampling._gumbel(seeds, steps, V)
+    top2 = noisy.topk(2, dim=-1).values
+    held = torch.isinf(top2[:, 1]) | (top2[:, 0] - top2[:, 1] > 1e-4)
+    assert int(held.sum()) >= B - 1
+    assert torch.equal(cpu[held], card[held])
+
 # ----------------------------- split-KV decode (B5, B6) -----------------------------
 # The kernel cuts each (slot, KV head) into chunks of decode.CHUNK logical rows
 # on a grid sized from shapes alone; the last block of a slot's live chunks

@@ -20,7 +20,7 @@ from fa2_triton_tpu.runtime import Engine as JaxEngine
 torch = pytest.importorskip("torch")
 from fa2_triton_tpu_torch.models import llama as tl  # noqa: E402
 from fa2_triton_tpu_torch.models.convert import llama_from_jax_params  # noqa: E402
-from fa2_triton_tpu_torch.runtime import Engine, SamplingParams  # noqa: E402
+from fa2_triton_tpu_torch.runtime import Engine  # noqa: E402
 
 LP_TOL = 1e-4
 J_CFG = jl.LlamaConfig(vocab_size=128, dim=128, n_layers=2, n_heads=4, n_kv_heads=2,
@@ -108,23 +108,18 @@ def test_eos_and_stop_ids(setup):
     assert r_stop.out_tokens == out[:out.index(out[1]) + 1]
 
 
-@pytest.mark.parametrize("kw", [dict(prefill_chunk=128), dict(prefix_cache=True), dict(mesh=object())])
+@pytest.mark.parametrize("kw", [dict(mesh=object())])
 def test_unported_engine_options_raise(setup, kw):
     _, tm, _ = setup
     with pytest.raises(NotImplementedError):
         Engine(tm, T_CFG, n_slots=2, max_seq=512, **kw)
 
 
-def test_sampling_temperature_raises(setup):
-    _, tm, prompts = setup
-    eng = Engine(tm, T_CFG, n_slots=2, max_seq=512)
-    with pytest.raises(NotImplementedError, match="temperature"):
-        eng.submit(prompts[0], 3, sampling=SamplingParams(temperature=0.7, seed=1))
-
-
 def test_greedy_selection_matches_jax():
     """First-max argmax (ties included) and the chosen token's raw-model
-    logprob, as `jnp.argmax` / `jax.nn.log_softmax` give them."""
+    logprob, as `jnp.argmax` / `jax.nn.log_softmax` give them; with
+    temperature 0.5, JAX's draws (tests/test_torch_sampling.py holds the
+    sampler to JAX's on a wider grid)."""
     from fa2_triton_tpu.runtime import sampling as js
     from fa2_triton_tpu_torch.runtime import sampling as ts
 
@@ -132,10 +127,20 @@ def test_greedy_selection_matches_jax():
     logits[2, 7] = logits[2, 31] = logits[2].max() + 1.0   # a tie: the first index wins
     j_tok, j_lp = js.greedy_tokens_with_logprobs(jnp.asarray(logits))
     for fn in (ts.greedy_tokens_with_logprobs,
-               lambda x: ts.sample_tokens_with_logprobs(x, torch.zeros(4), None, None, None, None)):
+               lambda x: ts.sample_tokens_with_logprobs(x, torch.zeros(4), torch.zeros(4),
+                                                        torch.ones(4), torch.arange(4),
+                                                        torch.arange(4))):
         t_tok, t_lp = fn(torch.from_numpy(logits))
         assert t_tok.tolist() == np.asarray(j_tok).tolist() and int(t_tok[2]) == 7
         np.testing.assert_allclose(t_lp.numpy(), np.asarray(j_lp), rtol=0, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="temperature"):
-        ts.sample_tokens_with_logprobs(torch.from_numpy(logits), torch.full((4,), 0.5),
-                                       None, None, None, None)
+    samp = (np.full(4, 0.5, np.float32), np.zeros(4, np.int32), np.ones(4, np.float32),
+            np.arange(4, dtype=np.uint32) + 2**31, np.arange(4, dtype=np.int32))
+    j_tok, j_lp = js.sample_tokens_with_logprobs(jnp.asarray(logits), *map(jnp.asarray, samp))
+    x = torch.from_numpy(logits)
+    t_tok, t_lp = ts.sample_tokens_with_logprobs(x, *samp[:3], samp[3].astype(np.int64), samp[4])
+    noisy = ts.adjust_logits(x, *samp[:3]) + ts._gumbel(torch.from_numpy(samp[3].astype(np.int64)),
+                                                         torch.from_numpy(samp[4]), 50)
+    top2 = noisy.topk(2, dim=-1).values
+    assert float((top2[:, 0] - top2[:, 1]).min()) > 1e-4
+    assert t_tok.tolist() == np.asarray(j_tok).tolist()
+    np.testing.assert_allclose(t_lp.numpy(), np.asarray(j_lp), rtol=0, atol=1e-6)
