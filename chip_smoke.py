@@ -128,6 +128,31 @@ the CUDA toolkit. Phases (any failure raises, and the script exits nonzero):
    call (C 512 at q_off 1024 over 1536 rows) against its plain twin under
    the FA rule, timed beside aten flash and its bound. Prints ms per
    greedy-only and per sampled decode step and per chunk dispatch.
+14. (Run right after phase 13, on its model, but (d).) Speculative
+   decoding on the cached forward (`runtime/speculative.py`: B1 at width 1
+   and gamma + 1 over the cache through `flash_attn_with_kv_cache`) and the
+   GPT-2 family: (a) fp32, a 2-layer target and a 1-layer draft at
+   Mistral-7B-v0.3 widths: the cache attention against its plain twin at
+   widths 1 and 5 over 1000 rows (fp32 1e-4, bf16 the FA rule), greedy
+   speculative equal to `greedy_reference` at gamma 1 and 4, the perfect
+   draft accepting everything in ceil((n - 1) / 5) verify passes, an EOS
+   inside a round cutting it; (b) the full-depth bf16 model as the target
+   with a 2-layer draft (seed 1) and as its own draft, gamma 4, 64 tokens
+   after each of 4 of phase 3's prompts, the counts reset before each run:
+   B1 once a layer a model step and nothing else, each stream equal to
+   `greedy_reference`'s up to any divergence, which must sit where the
+   reference's top-two logit gap is under 0.1; acceptance, tokens per
+   target call, ms per emitted token against the reference's, B1 launches
+   a round, a width-1 and a width-5 target step's ms, and the verify
+   call's B1 device time beside aten's, the plain twin's and the bound;
+   (c) speculative sampling (temperature 0.8, top-k 50, top-p 0.95, seed
+   7): two runs equal and in the vocab, round 0's keys, uniforms and bits
+   equal on the card and the CPU, the perfect draft's sampled acceptance
+   at least 0.9; (d) (after the served model is freed) GPT-2 small, bf16:
+   3 AdamW steps at 8 x 1024 (finite, falling losses, the routes' launches
+   once a layer a step), 2-layer gradients against fp32 under the FA
+   contract, a cached greedy decode (512, then 63 width-1 steps) against
+   the full forward's log-probs, and position 1024 raising.
 
 Every kernel is also timed against PyTorch's own call for the same function
 (`library_ms`, where one exists) and its bound on the H100 (`bound_ms`: the
@@ -457,7 +482,7 @@ def phase_kernels(torch):
         [1] * slots, list(DECODE_LENS), False, scale)
     lib_err = check_library(torch, "decode", lib_out[0], o_ref, pl_err)
     nbytes = 2 * slots * Hq * D * q.element_size() + live
-    extra = {"library_ms": library_device_ms(torch, lib_fwd),
+    extra = {"library_ms": library_mean_ms(torch, lib_fwd),
              "library_call_ms": cuda_ms(torch, lib_fwd),
              **roofline(4 * D * Hq * sum(DECODE_LENS), nbytes)}
     print(f"[kernels] decode bf16: library (aten varlen flash, one query per slot) "
@@ -475,27 +500,25 @@ def decode_kernel_ms(torch, fn) -> float:
     return kernel_ms(torch, fn, ["decode_kernel"], iters=10)["decode_kernel"]
 
 
-def library_device_ms(torch, fn, iters: int = 10) -> float:
-    """Device time per call of a library yardstick: every kernel it
-    launches, summed (torch.profiler), so that it stands beside the decode
-    kernel's own device time; its CUDA-event call time is the host's too."""
+def library_mean_ms(torch, fn, iters: int = 10) -> float:
+    """Device time per call of a library yardstick whose kernels are not
+    known by name (aten may split a call of few rows over the keys: a
+    split-KV kernel and a combine), tolerant of the profiler dropping
+    launches late in this long process (`profiled`): each kernel's mean
+    per launch recorded, times its launches per call (its count over the
+    calls, rounded, at least 1), summed."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    hits = [(e.key, e.count, getattr(e, "self_device_time_total", None) or e.self_cuda_time_total)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    hits = [h for h in hits if h[2] > 0]
-    if sum(n for _, n, _ in hits) < iters:
-        raise AssertionError(f"the profiler recorded {hits} in {iters} library calls")
-    ms = sum(us for _, _, us in hits) / iters / 1e3
-    print(f"[profiler] library: {ms:.4f} ms of device time per call over {iters} calls, "
-          f"kernels (name, launches): {[(k[:80], n) for k, n, _ in hits]}")
+    def hits(events):
+        return [(e.key, e.count, _device_us(e)) for e in events
+                if e.device_type == DeviceType.CUDA and e.count and _device_us(e) > 0]
+
+    found = hits(profiled(torch, fn, iters, lambda ev: bool(hits(ev))))
+    if not found:
+        raise AssertionError(f"the profiler recorded no kernel in {iters} library calls")
+    ms = sum(us / n * max(1, round(n / iters)) for _, n, us in found) / 1e3
+    print(f"[profiler] library: {ms:.4f} ms of device time per call, kernels (name, launches "
+          f"recorded in {iters} calls): {[(k[:80], n) for k, n, _ in found]}")
     return ms
 
 
@@ -561,7 +584,7 @@ def decode_variants(torch, q32, k32, v32, kv_lens, scale):
     lib_fwd, _, _ = library_attention(
         torch, q, *(tight(torch, x.transpose(1, 2), lens) for x in stored["bf16"][:2]),
         [1] * slots, lens, False, scale)
-    lib_ms, lib_call_ms = library_device_ms(torch, lib_fwd), cuda_ms(torch, lib_fwd)
+    lib_ms, lib_call_ms = library_mean_ms(torch, lib_fwd), cuda_ms(torch, lib_fwd)
     flops = 4 * D * Hq * sum(lens)
     qo_bytes = 2 * slots * Hq * D * q.element_size()
     no_lib = ("none: no PyTorch call reads an int8/fp8 cache with per-token scales or a paged pool")
@@ -1064,6 +1087,635 @@ def phase_chunked(torch, card, model, cfg, prompts):
             "prefix_cached_tokens": p_info["cached"]}
 
 
+# Phase 14: speculative decoding on the cached forward (B1 at width 1 and
+# gamma + 1 over the cache) and the GPT-2 family. (a) runs 2- and 1-layer
+# fp32 models at Mistral-7B-v0.3 widths, where greedy equality is exact;
+# (b) and (c) phase 3's full-depth bf16 model as the target, with a 2-layer
+# draft at the same widths (seed 1) and the target as its own draft.
+SPEC_GAMMA = 4
+SPEC_WIDTHS = (1, SPEC_GAMMA + 1)
+SPEC_KV = 1000                   # (a)'s kernel check: not a multiple of the 64-row tile
+SPEC_EXACT_NEW = 32
+SPEC_PROMPTS = 4                 # the first of phase 3's prompts
+SPEC_NEW = 64
+SPEC_MAX_SEQ = 4096
+SPEC_SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95, seed=7)
+# The perfect draft's sampled acceptance: p (the verify pass, gamma + 1
+# rows) and q (width-1 steps) come from other GEMM shapes in bf16, so p != q
+# in the last bits and a few proposals may be rejected.
+SPEC_PERFECT_SAMPLED_MIN = 0.9
+# The verify call of (b) timed alone (as phase 13 (c) times the chunk's):
+# gamma + 1 queries over SPEC_VERIFY_KV cached rows, and the width-1 step.
+SPEC_VERIFY_KV = 2048
+# (b)'s bf16 near ties: a divergence from greedy_reference passes where the
+# reference prefers its own token by at most SPEC_TIE_MARGIN x the largest
+# logit difference measured between a verify pass and the width-1 step at
+# the same positions: 2 since both tokens' logits move, x 2 since the
+# measured passes sit at other positions than the speculative run's.
+SPEC_TIE_MARGIN = 4.0
+# GPT-2 small (GPT2Config's defaults): training at B x S attention
+# positions (tokens of S + 1), AdamW steps on one repeated batch, and a
+# cached greedy decode of GPT2_DECODE tokens after a GPT2_PREFILL prompt.
+GPT2_BATCH, GPT2_SEQ, GPT2_STEPS = 8, 1024, 3
+GPT2_PREFILL, GPT2_DECODE = 512, 64
+
+
+def spec_counts():
+    """Every kernel counter of the forward and the decode, as one dict."""
+    from fa2_triton_tpu_torch.ops import decode, flash_fwd
+
+    return {"flash_fwd": flash_fwd.LAUNCHES, **flash_fwd.SCHEDULE_LAUNCHES,
+            "decode": decode.LAUNCHES}
+
+
+def reset_counts():
+    from fa2_triton_tpu_torch.ops import decode, flash_bwd, flash_fwd
+
+    flash_fwd.reset_launches()
+    flash_bwd.reset_launches()
+    decode.reset_launches()
+
+
+def expect_spec_launches(what, st, tcfg, dcfg):
+    """A generate call launches B1 once a layer for each model step (the
+    two prefills, each verify pass, each draft step and backfill) and no
+    other kernel."""
+    want = tcfg.n_layers * (1 + st.target_calls) + dcfg.n_layers * (1 + st.draft_calls)
+    got = spec_counts()
+    if got != {**dict.fromkeys(got, 0), "flash_fwd": want}:
+        raise AssertionError(f"{what}: launches {got}, want flash_fwd {want} and nothing else")
+    return want
+
+
+def kv_cache_check(torch, S, kv_len, Hq=32, Hkv=8, D=128, say=True):
+    """`flash_attn_with_kv_cache` (one B1 launch) against its plain twin, S
+    rows over kv_len cached rows (rows past kv_len NaN: never read), Hq / Hkv
+    heads of D (by default Mistral-7B-v0.3's attention widths): fp32 within
+    FP32_TOL, bf16 under the FA rule. Returns {dtype: max abs err}."""
+    from fa2_triton_tpu_torch.ops import flash_fwd
+    from fa2_triton_tpu_torch.ops.attention import flash_attn_with_kv_cache
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(14 + S)
+    q32 = torch.randn((1, S, Hq, D), generator=gen, device=dev) * 0.5
+    k32, v32 = (torch.randn((1, Hkv, kv_len + 37, D), generator=gen, device=dev) * 0.5
+                for _ in range(2))
+    for x in (k32, v32):
+        x[:, :, kv_len:] = float("nan")
+    lens = torch.tensor([[kv_len, kv_len]], dtype=torch.int32, device=dev)
+
+    def plain(q, k, v):
+        return flash_fwd.flash_attn_forward_plain(
+            q.transpose(1, 2), k[:, :, :kv_len], v[:, :, :kv_len], lens, kv_len - S, causal=True,
+            softmax_scale=D ** -0.5)[0].transpose(1, 2)
+
+    ref, errs = plain(q32, k32, v32), {}
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = (x.to(dt) for x in (q32, k32, v32))
+        n0 = flash_fwd.LAUNCHES
+        out = flash_attn_with_kv_cache(q, k, v, kv_len)
+        torch.cuda.synchronize()
+        if flash_fwd.LAUNCHES != n0 + 1:
+            raise AssertionError("flash_attn_with_kv_cache: not one launch of flash_fwd.cu")
+        err = errs[str(dt)[6:]] = max_abs(torch, out, ref)
+        if dt == torch.float32:
+            bound, rule = FP32_TOL, f"<= {FP32_TOL}"
+        else:
+            pl_err = max_abs(torch, plain(q, k, v), ref)
+            bound = OUT_ERROR_MUL * pl_err + OUT_ERROR_BIAS
+            rule = f"<= 2 x plain bf16 err {pl_err:.3e} + 5e-5"
+        if say:
+            print(f"[spec] flash_attn_with_kv_cache width {S} over {kv_len} rows, {Hq} / {Hkv} "
+                  f"heads, D {D} {str(dt)[6:]}: max abs err {err:.3e} ({rule})")
+        if not err <= bound:
+            raise AssertionError(f"flash_attn_with_kv_cache width {S} over {kv_len} rows, {Hq} / "
+                                 f"{Hkv} heads, D {D}, {dt}: err {err:.3e} ({rule})")
+    return errs
+
+
+def mid_round_eos(ref, gamma):
+    """The first token of `ref` that first occurs strictly inside a perfect
+    draft's round (round r >= 1 emits ref[(r - 1) (gamma + 1) + 1 ...
+    r (gamma + 1)]), neither its first nor its last token: (index, token),
+    or None."""
+    for i in range(1, len(ref)):
+        if ref.index(ref[i]) == i and i % (gamma + 1) not in (0, 1):
+            return i, ref[i]
+    return None
+
+
+def spec_exact(torch):
+    """Phase 14 (a): fp32, a 2-layer target and a 1-layer draft at
+    Mistral-7B-v0.3 widths: the cache attention's kernel at widths 1 and
+    gamma + 1; greedy speculative == greedy_reference at gamma 1 and 4; the
+    perfect draft accepts everything in ceil((n - 1) / (gamma + 1)) verify
+    passes; an EOS inside a round cuts it there."""
+    from fa2_triton_tpu_torch.examples.train import preset_config
+    from fa2_triton_tpu_torch.models import init_params
+    from fa2_triton_tpu_torch.runtime import SpeculativeDecoder
+    from fa2_triton_tpu_torch.runtime.speculative import greedy_reference
+
+    errs = {f"width_{w}": kv_cache_check(torch, w, SPEC_KV) for w in SPEC_WIDTHS}
+    tcfg = preset_config("mistral-7b-v0.3", torch.float32, n_layers=2)
+    dcfg = preset_config("mistral-7b-v0.3", torch.float32, n_layers=1)
+    target = init_params(torch.Generator(device="cuda").manual_seed(0), tcfg)
+    draft = init_params(torch.Generator(device="cuda").manual_seed(1), dcfg)
+    prompt, n = served_prompts(tcfg)[0], SPEC_EXACT_NEW
+    ref = greedy_reference(target, tcfg, prompt, n, max_seq=SPEC_MAX_SEQ)
+    runs = {}
+    for name, d, c, gamma in (("gamma 1", draft, dcfg, 1), ("gamma 4", draft, dcfg, SPEC_GAMMA),
+                              ("perfect", target, tcfg, SPEC_GAMMA)):
+        reset_counts()
+        out, st = SpeculativeDecoder(target, tcfg, d, c, gamma=gamma,
+                                     max_seq=SPEC_MAX_SEQ).generate(prompt, n)
+        launches = expect_spec_launches(f"(a) {name}", st, tcfg, c)
+        runs[name] = {"acceptance": st.acceptance_rate, "target_calls": st.target_calls,
+                      "launches": launches}
+        if out != ref:
+            raise AssertionError(f"(a) {name}: the fp32 speculative stream differs from "
+                                 f"greedy_reference")
+    st_perfect = runs["perfect"]
+    if st_perfect["acceptance"] != 1.0 or st_perfect["target_calls"] != -(-(n - 1) // (SPEC_GAMMA + 1)):
+        raise AssertionError(f"(a) the perfect draft: {st_perfect}")
+    eos = mid_round_eos(ref, SPEC_GAMMA)
+    if eos is None:
+        raise AssertionError(f"(a) no token of {ref} first occurs inside a round")
+    i, tok = eos
+    out, st = SpeculativeDecoder(target, tcfg, target, tcfg, gamma=SPEC_GAMMA, max_seq=SPEC_MAX_SEQ,
+                                 eos_id=tok).generate(prompt, n)
+    if out != ref[:i + 1] or st.rounds != -(-i // (SPEC_GAMMA + 1)):
+        raise AssertionError(f"(a) EOS {tok} at token {i}: got {len(out)} tokens in {st.rounds} rounds")
+    print(f"[spec] (a) fp32, Mistral-7B-v0.3 widths, target 2 layers (seed 0), draft 1 layer "
+          f"(seed 1), prompt {len(prompt)}, {n} new tokens: greedy speculative == "
+          f"greedy_reference at gamma 1 and 4 and with the perfect draft; {runs}; EOS {tok} at "
+          f"token {i} cuts round {st.rounds} after {i + 1} tokens")
+    del target, draft
+    return {"kv_cache_err": errs, "runs": runs, "eos_token_index": i}
+
+
+def timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def reference_rows(torch, model, cfg, prompt, n):
+    """`greedy_reference` (timed, host clock to the device's end) and the
+    logits each of its tokens was chosen from: a spy on the model step it
+    calls keeps the last row of every step. Returns (tokens, seconds, rows
+    [n, vocab])."""
+    from fa2_triton_tpu_torch.runtime import speculative
+
+    rows, step = [], speculative.forward_with_cache
+
+    def spy(*args, **kw):
+        logits, caches = step(*args, **kw)
+        rows.append(logits[0, -1].float().clone())
+        return logits, caches
+
+    speculative.forward_with_cache = spy
+    try:
+        ref, wall = timed(torch, lambda: speculative.greedy_reference(
+            model, cfg, prompt, n, max_seq=SPEC_MAX_SEQ))
+    finally:
+        speculative.forward_with_cache = step
+    return ref, wall, torch.stack(rows)
+
+
+def prefilled(torch, model, cfg, tokens):
+    """A fresh SPEC_MAX_SEQ cache of `model` holding the rows of `tokens`
+    (a list), and the cached attention to go on with."""
+    from fa2_triton_tpu_torch.models import llama
+
+    caches = llama.init_kv_cache(cfg, 1, SPEC_MAX_SEQ)
+    attn = llama.make_cached_attention_fn(cfg)
+    llama.forward_with_cache(model, torch.tensor([tokens], device="cuda"), cfg, caches, 0, attn)
+    return caches, attn
+
+
+def verify_drift(torch, model, cfg, prompt, ref, rows):
+    """The largest logit difference between a verify pass and the width-1
+    step at the same positions: `ref` fed again after `prompt` in passes of
+    gamma + 1 tokens, each pass's logits against `rows`, the logits of
+    `greedy_reference`'s steps (rows[t + 1] comes from the step that fed
+    ref[t])."""
+    from fa2_triton_tpu_torch.models import llama
+
+    caches, attn = prefilled(torch, model, cfg, prompt)
+    w, drift = SPEC_GAMMA + 1, 0.0
+    for i in range(0, len(ref) - 1, w):
+        m = min(w, len(ref) - 1 - i)
+        logits, _ = llama.forward_with_cache(model, torch.tensor([ref[i:i + w]], device="cuda"),
+                                             cfg, caches, len(prompt) + i, attn)
+        drift = max(drift, float((logits[0, :m].float() - rows[i + 1:i + 1 + m]).abs().max()))
+    return drift
+
+
+def tie_checked(torch, model, cfg, prompt, out, ref, rows, tie, what):
+    """`out` against greedy_reference's `ref` and its logits `rows`: every
+    divergence must be a bf16 near tie, where the reference prefers its own
+    token to `out`'s by at most `tie`; the reference then restarts from
+    `out` through that token, and the rest of the stream is compared again.
+    Returns the divergences as [{"token", "gap"}]."""
+    ties, done = [], 0
+    while done < len(out):
+        j = next((j for j, (a, b) in enumerate(zip(out[done:], ref)) if a != b), None)
+        if j is None:
+            if len(out) - done != len(ref):
+                raise AssertionError(f"{what}: {len(out)} tokens, want {done + len(ref)}")
+            break
+        gap = float(rows[j, ref[j]] - rows[j, out[done + j]])
+        ties.append({"token": done + j, "gap": gap})
+        if not gap <= tie:
+            raise AssertionError(f"{what}: diverges from greedy_reference at token {done + j}, "
+                                 f"where it prefers its token by {gap:.4f} (> {tie:.4f})")
+        done += j + 1
+        if done < len(out):
+            ref, _, rows = reference_rows(torch, model, cfg, prompt + out[:done], len(out) - done)
+    return ties
+
+
+def step_widths_ms(torch, model, cfg, caches, kv, tokens, iters=10):
+    """ms of one full-depth target step (host clock to the device's end)
+    at each of SPEC_WIDTHS over the first kv rows of `caches` (filled), fed
+    the first tokens of `tokens` [1, n], in turns after a warm-up round:
+    {width: [ms]}."""
+    from fa2_triton_tpu_torch.models import llama
+
+    attn = llama.make_cached_attention_fn(cfg)
+    ms = {w: [] for w in SPEC_WIDTHS}
+    for r in range(iters + 1):
+        for w in (SPEC_WIDTHS if r % 2 else SPEC_WIDTHS[::-1]):
+            _, s = timed(torch, lambda: llama.forward_with_cache(model, tokens[:, :w], cfg, caches,
+                                                                 kv, attn))
+            if r:
+                ms[w].append(1e3 * s)
+    return ms
+
+
+def verify_call(torch, kv=SPEC_VERIFY_KV, iters=10):
+    """B1 (`flash_fwd_mma_kernel`) on one layer's verify call, gamma + 1
+    queries over kv cached rows, and on the width-1 step's, bf16, 32 / 8
+    heads, D 128, against the fp32 truth under the FA rule: device time by
+    the profiler, the call by CUDA events, aten flash (causal, bottom-right
+    aligned like the cache call) on the same rows, the plain twin, and the
+    bound; each timed over `iters` calls."""
+    from fa2_triton_tpu_torch.ops import flash_fwd
+    from fa2_triton_tpu_torch.ops.attention import flash_attn_with_kv_cache
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(15)
+    Hq, Hkv, D = 32, 8, 128
+    k32, v32 = (torch.randn((1, Hkv, SPEC_MAX_SEQ, D), generator=gen, device=dev) * 0.5
+                for _ in range(2))
+    k, v = k32.bfloat16(), v32.bfloat16()
+    lens = torch.tensor([[kv, kv]], dtype=torch.int32, device=dev)
+    out = {}
+    for S in SPEC_WIDTHS:
+        q32 = torch.randn((1, S, Hq, D), generator=gen, device=dev) * 0.5
+        q = q32.bfloat16()
+
+        def plain(q, k, v, S=S):
+            return flash_fwd.flash_attn_forward_plain(
+                q.transpose(1, 2), k[:, :, :kv], v[:, :, :kv], lens, kv - S, causal=True,
+                softmax_scale=D ** -0.5)[0].transpose(1, 2)
+
+        run = lambda: flash_attn_with_kv_cache(q, k, v, kv)   # noqa: E731
+        truth = plain(q32, k32, v32)
+        pl_err = max_abs(torch, plain(q, k, v), truth)
+        err = max_abs(torch, run(), truth)
+        if not err <= OUT_ERROR_MUL * pl_err + OUT_ERROR_BIAS:
+            raise AssertionError(f"verify call width {S}: err {err:.3e}, plain bf16 {pl_err:.3e}")
+        ms = kernel_ms(torch, run, ["flash_fwd_mma_kernel"], iters)["flash_fwd_mma_kernel"]
+        lib_fwd, lib_out, _ = library_attention(
+            torch, q[0], k[0, :, :kv].transpose(0, 1).contiguous(),
+            v[0, :, :kv].transpose(0, 1).contiguous(), [S], [kv], True, D ** -0.5)
+        lib_err = check_library(torch, f"verify call width {S}", lib_out[0], truth[0], pl_err)
+        pairs = S * kv - S * (S - 1) // 2
+        nbytes = 2 * S * Hq * D * 2 + 2 * kv * Hkv * D * 2 + S * Hq * 4
+        out[f"width_{S}"] = e = {
+            "max_abs_err": err, "ms": ms, "call_ms": cuda_ms(torch, run, iters),
+            "plain_ms": cuda_ms(torch, lambda: plain(q, k, v), iters),
+            "library_ms": library_mean_ms(torch, lib_fwd, iters),
+            "library_call_ms": cuda_ms(torch, lib_fwd, iters),
+            **roofline(2 * D * 2 * pairs * Hq, nbytes)}
+        print(f"[spec] verify call B1 width {S} over {kv} rows bf16: max abs err {err:.3e} (<= 2 x "
+              f"plain bf16 err {pl_err:.3e} + 5e-5); kernel {ms:.4f} ms of device time (the call "
+              f"{e['call_ms']:.4f} ms), plain {e['plain_ms']:.3f} ms, library (aten flash, causal) "
+              f"{e['library_ms']:.4f} ms of device time (the call {e['library_call_ms']:.4f}; err "
+              f"{lib_err:.3e}), bound {e['bound_ms']:.5f} ms ({e['bound_by']}): "
+              f"{100 * e['bound_ms'] / ms:.2f} % of the bound")
+    return out
+
+
+def spec_full(torch, card, model, cfg, prompts):
+    """Phase 14 (b): full depth, bf16, gamma 4, SPEC_NEW tokens after each
+    of SPEC_PROMPTS of phase 3's prompts, with the 2-layer draft and the
+    perfect draft, the counts reset just before each generate: every step
+    through B1 and nothing else; each stream equal to greedy_reference's
+    but at bf16 near ties (`tie_checked`), the tie bound SPEC_TIE_MARGIN x
+    the largest logit difference measured between a verify pass and the
+    width-1 step at the same positions (`verify_drift`)."""
+    from fa2_triton_tpu_torch.examples.train import preset_config
+    from fa2_triton_tpu_torch.models import init_params
+    from fa2_triton_tpu_torch.runtime import SpeculativeDecoder
+
+    dcfg = preset_config("mistral-7b-v0.3", torch.bfloat16, n_layers=2)
+    draft = init_params(torch.Generator(device="cuda").manual_seed(1), dcfg)
+    drafts = {"2-layer draft": (draft, dcfg), "perfect draft": (model, cfg)}
+    res = {name: {"launches": 0, "rounds": 0, "proposed": 0, "accepted": 0, "emitted": 0,
+                  "target_calls": 0, "wall_s": 0.0, "divergences": []} for name in drafts}
+    prompts = prompts[:SPEC_PROMPTS]
+    refs, ref_tokens, ref_s, drift = [], 0, 0.0, 0.0
+    for prompt in prompts:
+        ref, wall, rows = reference_rows(torch, model, cfg, prompt, SPEC_NEW)
+        refs.append((ref, rows))
+        ref_tokens, ref_s = ref_tokens + len(ref), ref_s + wall
+        drift = max(drift, verify_drift(torch, model, cfg, prompt, ref, rows))
+    tie = SPEC_TIE_MARGIN * drift
+    for p, (prompt, (ref, rows)) in enumerate(zip(prompts, refs)):
+        for name, (d, c) in drafts.items():
+            dec = SpeculativeDecoder(model, cfg, d, c, gamma=SPEC_GAMMA, max_seq=SPEC_MAX_SEQ)
+            reset_counts()
+            (out, st), wall = timed(torch, lambda: dec.generate(prompt, SPEC_NEW))
+            r = res[name]
+            r["launches"] += expect_spec_launches(f"(b) {name}", st, cfg, c)
+            r["wall_s"] += wall
+            for key in ("rounds", "proposed", "accepted", "emitted", "target_calls"):
+                r[key] += getattr(st, key)
+            r["divergences"] += [{"prompt": p, **t} for t in tie_checked(
+                torch, model, cfg, prompt, out, ref, rows, tie, f"(b) {name}, prompt {p}")]
+    caches, _ = prefilled(torch, model, cfg, prompts[0])
+    steps = {w: float(np.median(v)) for w, v in step_widths_ms(
+        torch, model, cfg, caches, len(prompts[0]), torch.tensor([prompts[0]], device="cuda")).items()}
+    del caches
+    out = {"prompts": [len(p) for p in prompts], "new_tokens": SPEC_NEW,
+           "gamma": SPEC_GAMMA, "reference_ms_per_token": 1e3 * ref_s / ref_tokens,
+           "verify_drift": drift, "tie_bound": tie,
+           "target_step_ms": {f"width_{w}": ms for w, ms in steps.items()}}
+    print(f"[spec] (b) the largest logit difference between a verify pass and the width-1 step at "
+          f"the same positions: {drift:.4f}; a divergence passes as a near tie up to {tie:.4f}")
+    for name, r in res.items():
+        r["acceptance"] = r["accepted"] / r["proposed"]
+        r["tokens_per_target_call"] = r["emitted"] / r["target_calls"]
+        r["ms_per_token"] = 1e3 * r["wall_s"] / r["emitted"]
+        r["b1_launches_per_round"] = r["launches"] / r["rounds"]
+        out[name] = r
+        print(f"[spec] (b) {name}, full depth bf16, gamma {SPEC_GAMMA}, prompts {out['prompts']}, "
+              f"{SPEC_NEW} new tokens each: acceptance {r['acceptance']:.3f}, "
+              f"{r['tokens_per_target_call']:.2f} tokens per target call, {r['ms_per_token']:.2f} "
+              f"ms per emitted token against greedy_reference's "
+              f"{out['reference_ms_per_token']:.2f}; B1 launches {r['launches']} "
+              f"({r['b1_launches_per_round']:.1f} a round); divergences from greedy_reference "
+              f"(prompt, token, the reference's preference for its own token): "
+              f"{r['divergences']} [{card}]")
+    print(f"[spec] (b) one full-depth target step after prompt 0 ({len(prompts[0])} tokens): width 1 "
+          f"{steps[1]:.2f} ms, width {SPEC_GAMMA + 1} (a verify pass) {steps[SPEC_GAMMA + 1]:.2f} ms "
+          f"(host clock to the device's end, medians) [{card}]")
+    out["verify_call"] = verify_call(torch)
+    return out, draft, dcfg
+
+
+def spec_sampled(torch, card, model, cfg, draft, dcfg, prompt):
+    """Phase 14 (c): speculative sampling (SPEC_SAMPLED) on the full-depth
+    target with the 2-layer draft: two runs give equal tokens in the vocab;
+    round 0's draft keys, accept uniforms and resample key on the card
+    equal the CPU's bit for bit; the perfect draft's sampled acceptance."""
+    from fa2_triton_tpu_torch.runtime import SamplingParams, SpeculativeDecoder
+    from fa2_triton_tpu_torch.runtime import sampling
+
+    sp = SamplingParams(**SPEC_SAMPLED)
+    dec = SpeculativeDecoder(model, cfg, draft, dcfg, gamma=SPEC_GAMMA, max_seq=SPEC_MAX_SEQ)
+    reset_counts()
+    a, st = dec.generate(prompt, SPEC_NEW, sampling=sp)
+    launches = expect_spec_launches("(c)", st, cfg, dcfg)
+    b, _ = dec.generate(prompt, SPEC_NEW, sampling=sp)
+    if a != b or len(a) != SPEC_NEW or not all(0 <= t < cfg.vocab_size for t in a):
+        raise AssertionError("(c) two sampled runs differ, or a token is out of the vocab")
+
+    def round0(dev):
+        base = sampling.prng_key(sp.seed, device=dev)
+        root = sampling.fold_in(base, 1)
+        u_key, r_key = sampling.split(sampling.fold_in(base, 2))
+        return torch.cat([torch.stack([sampling.fold_in(root, i) for i in range(SPEC_GAMMA)]).flatten(),
+                          sampling.uniform(u_key, (SPEC_GAMMA,)).view(torch.int32).long(),
+                          r_key, sampling.bits(r_key, (cfg.vocab_size,))]).cpu()
+
+    if not torch.equal(round0(torch.device("cuda")), round0(torch.device("cpu"))):
+        raise AssertionError("(c) round 0's keys, uniforms or bits differ between the card and the CPU")
+    perfect = SpeculativeDecoder(model, cfg, model, cfg, gamma=SPEC_GAMMA, max_seq=SPEC_MAX_SEQ)
+    _, pst = perfect.generate(prompt, SPEC_NEW, sampling=sp)
+    print(f"[spec] (c) sampled {SPEC_SAMPLED}, prompt {len(prompt)}, {SPEC_NEW} tokens: two runs "
+          f"equal, all in the vocab; acceptance 2-layer draft {st.acceptance_rate:.3f} "
+          f"({st.rounds} rounds, {launches} B1 launches), perfect draft {pst.acceptance_rate:.3f} "
+          f"(>= {SPEC_PERFECT_SAMPLED_MIN}); round 0's draft keys, accept uniforms, resample key "
+          f"and its bits equal on the card and the CPU, bit for bit [{card}]")
+    if not pst.acceptance_rate >= SPEC_PERFECT_SAMPLED_MIN:
+        raise AssertionError(f"(c) the perfect draft accepts {pst.acceptance_rate:.3f} sampled")
+    return {"acceptance": st.acceptance_rate, "perfect_acceptance": pst.acceptance_rate,
+            "launches": launches, "rounds": st.rounds, "keys_equal": True}
+
+
+def phase_speculative(torch, card, model, cfg, prompts):
+    """Phase 14 (a)-(c) (see the module docstring); (d) is `phase_gpt2`."""
+    exact = spec_exact(torch)
+    torch.cuda.empty_cache()
+    full, draft, dcfg = spec_full(torch, card, model, cfg, prompts)
+    sampled = spec_sampled(torch, card, model, cfg, draft, dcfg, prompts[0])
+    return {"exact": exact, "full": full, "sampled": sampled}
+
+
+def gpt2_attention_times(torch, card):
+    """GPT-2 small's attention kernels at the training shape (B GPT2_BATCH x
+    S GPT2_SEQ, 12 / 12 heads, D 64, bf16, causal) through the routes the
+    trainer takes (the tri-square forward and backward): device time per
+    launch by the profiler beside the plain twins', aten flash's (forward;
+    its backward after its own forward; every kernel of a call, summed) and
+    the bounds."""
+    from fa2_triton_tpu_torch.ops import flash_bwd, flash_fwd
+
+    B, S, H, D = GPT2_BATCH, GPT2_SEQ, 12, 64
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    q, k, v, do = ((torch.randn((B, S, H, D), generator=gen, device="cuda") * sd).bfloat16()
+                   for sd in (0.5, 0.5, 0.5, 1.0))
+    t = lambda x: x.transpose(1, 2)   # noqa: E731
+    lens = torch.tensor([[S, S]] * B, dtype=torch.int32, device="cuda")
+    kw = dict(causal=True, softmax_scale=D ** -0.5)
+    o, lse = flash_fwd.flash_attn_forward(t(q), t(k), t(v), lens, static_skip=True, **kw)
+    fwd = lambda: flash_fwd.flash_attn_forward(t(q), t(k), t(v), lens, static_skip=True, **kw)  # noqa: E731
+    bwd = lambda: flash_bwd.flash_attn_backward(t(q), t(k), t(v), t(do), o, lse, lens,  # noqa: E731
+                                                static_skip=True, **kw)
+    lib_fwd, _, lib_bwd = library_attention(torch, q.reshape(B * S, H, D), k.reshape(B * S, H, D),
+                                            v.reshape(B * S, H, D), [S] * B, [S] * B, True, D ** -0.5)
+    pairs = B * causal_pairs([S])
+    out = {
+        "forward": {"ms": kernel_ms(torch, fwd, ["flash_fwd_mma_kernel"])["flash_fwd_mma_kernel"],
+                    "call_ms": cuda_ms(torch, fwd),
+                    "plain_ms": cuda_ms(torch, lambda: flash_fwd.flash_attn_forward_plain(
+                        t(q), t(k), t(v), lens, **kw), iters=3),
+                    "library_ms": library_mean_ms(torch, lib_fwd),
+                    **attn_bound("fwd", pairs, B * S, H, H, D, 2)},
+        # The tri-square backward's call: delta prologue, main kernel, dq reduction.
+        "backward": {"ms": sum(kernel_ms(torch, bwd, ["fused_delta", "bwd_tri_mma_kernel",
+                                                      "tri_dq_reduce"]).values()),
+                     "call_ms": cuda_ms(torch, bwd),
+                     "plain_ms": cuda_ms(torch, lambda: flash_bwd.flash_attn_backward_plain(
+                         t(q), t(k), t(v), t(do), o, lse, lens, **kw), iters=3),
+                     "library_ms": library_mean_ms(torch, lib_bwd(do.reshape(B * S, H, D))),
+                     **fused_bound(pairs, B * S, B * S, H, H, D)}}
+    for name, e in out.items():
+        print(f"[gpt2] (d) attention {name} at {B} x {S}, 12 heads, D 64 bf16 (the tri-square): "
+              f"kernels {e['ms']:.4f} ms of device time (the call {e['call_ms']:.4f} ms), plain "
+              f"{e['plain_ms']:.3f} ms, library (aten "
+              f"flash, causal) {e['library_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
+              f"({e['bound_by']}): {100 * e['bound_ms'] / e['ms']:.1f} % of the bound [{card}]")
+    return out
+
+
+def phase_gpt2(torch, card):
+    """Phase 14 (d): GPT-2 small (`GPT2Config()`, bf16, random weights from
+    seed 0): `loss_fn` + backward at GPT2_BATCH x GPT2_SEQ and GPT2_STEPS
+    AdamW steps on one repeated batch, the counts reset just before (finite,
+    falling losses; the routes' launches once a layer a step); 2-layer
+    gradients through the kernels against an fp32 run of the same weights
+    with the plain attention, under the FA contract; the cache attention
+    at GPT-2's 12 / 12 heads, D 64 against its plain twin over every cache
+    length of the decode that follows (`kv_cache_check`, fp32 and bf16); a
+    cached greedy decode (GPT2_PREFILL, then GPT2_DECODE width-1 steps)
+    whose log-probs match the full forward's at the same positions within
+    phase 4's bf16 bounds; a position at max_seq_len raises; then
+    `gpt2_attention_times`."""
+    from fa2_triton_tpu_torch.examples.train import make_optimizer, optimizer_step
+    from fa2_triton_tpu_torch.models import GPT2Config, gpt2
+    from fa2_triton_tpu_torch.ops import flash_attn_reference, flash_bwd, flash_fwd
+
+    cfg = GPT2Config()
+    H, D = cfg.n_heads, cfg.hd
+    routes = {"forward": flash_fwd.forward_route(GPT2_SEQ, GPT2_SEQ, D, 2, causal=True,
+                                                 static_skip=True),
+              "backward": flash_bwd.backward_route(GPT2_SEQ, GPT2_SEQ, D, 2, causal=True,
+                                                   static_skip=True, group=1)}
+    model = gpt2.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    rng = np.random.RandomState(0)
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, (GPT2_BATCH, GPT2_SEQ + 1))).cuda()
+    opt = make_optimizer(model, 3e-4)
+    gpt2.loss_fn(model, tokens).backward()          # warm-up, gradients dropped
+    model.zero_grad(set_to_none=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, step_ms = [], []
+    for _ in range(GPT2_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = gpt2.loss_fn(model, tokens)
+        loss.backward()
+        optimizer_step(model, opt, 3e-4, 1.0)
+        losses.append(loss.item())
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    launches = bwd_launches(flash_fwd, flash_bwd)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[gpt2] (d) GPT-2 small ({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params, "
+          f"bf16, head dim {D}), {GPT2_STEPS} AdamW steps of {GPT2_BATCH} x {GPT2_SEQ} on one repeated "
+          f"batch: losses {[round(x, 4) for x in losses]}, ms per step "
+          f"{[round(x, 1) for x in step_ms]}, peak {peak:.2f} GiB; routes {routes}; launches "
+          f"{launches} [{card}]")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"(d) GPT-2 losses not finite or not falling: {losses}")
+    n = cfg.n_layers * GPT2_STEPS
+    want_fwd = {"tri_square": "flash_fwd", "strip": "causal_strip", "generic": "flash_fwd"}
+    want_bwd = {"tri_square": "bwd_tri_square", "worklist": "bwd_worklist",
+                "generic": "flash_bwd_dq"}
+    if (launches[want_fwd[routes["forward"]]] != n or launches[want_bwd[routes["backward"]]] != n):
+        raise AssertionError(f"(d) GPT-2 launches {launches}: want {n} of the routes {routes}")
+    del opt
+
+    # 2-layer gradients against fp32 with the plain attention.
+    c2 = dataclasses.replace(cfg, n_layers=2)
+    m2 = gpt2.init_params(torch.Generator(device="cuda").manual_seed(1), c2)
+    m32 = gpt2.GPT2Model(dataclasses.replace(c2, dtype=torch.float32), device="cuda")
+    m32.load_state_dict(m2.state_dict())
+    real_attn = gpt2.flash_attn_func
+
+    def grads_of(m, plain):
+        gpt2.flash_attn_func = ((lambda q, k, v, causal: flash_attn_reference(q, k, v, causal=causal))
+                                if plain else real_attn)
+        try:
+            m.zero_grad(set_to_none=True)
+            loss = gpt2.loss_fn(m, tokens)
+            loss.backward()
+        finally:
+            gpt2.flash_attn_func = real_attn
+        return loss.item(), {k: p.grad.detach().clone() for k, p in m.named_parameters()}
+
+    (lk, gk), (lp, gp), (l32, g32) = grads_of(m2, False), grads_of(m2, True), grads_of(m32, True)
+    worst, worst_name = 0.0, None
+    for name in g32:
+        err, yard = check_grad(torch, name, gk[name], g32[name], gp[name], "(d) GPT-2 2-layer grads")
+        ratio = err / (GRAD_ERROR_MUL * yard + GRAD_ERROR_BIAS)
+        if ratio >= worst:
+            worst, worst_name = ratio, name
+    print(f"[gpt2] (d) 2 layers, bf16, {GPT2_BATCH} x {GPT2_SEQ}: loss kernels {lk:.5f}, plain {lp:.5f}, "
+          f"fp32 {l32:.5f}; all {len(g32)} parameter gradients within the FA contract vs fp32 "
+          f"(worst {worst_name}: {worst:.2f} of the bound)")
+    del m2, m32, gk, gp, g32
+
+    # The cache attention at GPT-2's shape against its plain twin, over every
+    # cache length the decode below reaches: the prefill, then width 1.
+    cases = [(GPT2_PREFILL, GPT2_PREFILL)] + [
+        (1, n) for n in range(GPT2_PREFILL + 1, GPT2_PREFILL + GPT2_DECODE)]
+    cache_errs = [kv_cache_check(torch, S, n, H, H, D, say=False) for S, n in cases]
+    cache_err = {dt: max(e[dt] for e in cache_errs) for dt in cache_errs[0]}
+    print(f"[gpt2] (d) flash_attn_with_kv_cache at {H} / {H} heads, D {D}: width {GPT2_PREFILL} over "
+          f"{GPT2_PREFILL} rows and width 1 over {GPT2_PREFILL + 1}-{GPT2_PREFILL + GPT2_DECODE - 1}: "
+          f"max abs err fp32 {cache_err['float32']:.3e} (<= {FP32_TOL}), bf16 "
+          f"{cache_err['bfloat16']:.3e} (each call <= 2 x its plain bf16 err + 5e-5)")
+
+    # Cached greedy decode against the full forward.
+    with torch.inference_mode():
+        prompt = tokens[:1, :GPT2_PREFILL]
+        caches = gpt2.init_kv_cache(cfg, 1, GPT2_PREFILL + GPT2_DECODE)
+        reset_counts()
+        logits, _ = gpt2.forward_with_cache(model, prompt, cfg, caches, 0)
+        rows, toks = [logits[0, -1]], [logits[0, -1].argmax().view(1, 1)]
+        t0 = time.perf_counter()
+        for t in range(GPT2_DECODE - 1):
+            logits, _ = gpt2.forward_with_cache(model, toks[-1], cfg, caches, GPT2_PREFILL + t)
+            rows.append(logits[0, -1])
+            toks.append(logits[0, -1].argmax().view(1, 1))
+        torch.cuda.synchronize()
+        decode_ms = 1e3 * (time.perf_counter() - t0) / (GPT2_DECODE - 1)
+        cached_launches = spec_counts()
+        toks = torch.cat(toks, dim=1)
+        full = gpt2.forward(model, torch.cat([prompt, toks[:, :-1]], dim=1))[0, GPT2_PREFILL - 1:]
+        lp_cached = torch.log_softmax(torch.stack(rows), -1).gather(-1, toks[0, :, None])[:, 0]
+        lp_full = torch.log_softmax(full, -1).gather(-1, toks[0, :, None])[:, 0]
+        err = (lp_cached - lp_full).abs()
+        if cached_launches != {**dict.fromkeys(cached_launches, 0),
+                               "flash_fwd": cfg.n_layers * GPT2_DECODE}:
+            raise AssertionError(f"(d) cached decode launches {cached_launches}")
+        print(f"[gpt2] (d) cached greedy decode, prefill {GPT2_PREFILL} then {GPT2_DECODE - 1} width-1 "
+              f"steps: {decode_ms:.2f} ms a step; the chosen tokens' log-probs vs the full forward at "
+              f"the same positions: mean abs err {float(err.mean()):.4f} (tol {LOGPROB_MEAN_TOL}), "
+              f"max {float(err.max()):.4f} (tol {LOGPROB_MAX_TOL}); launches {cached_launches} [{card}]")
+        if not (torch.isfinite(lp_cached).all() and float(err.mean()) <= LOGPROB_MEAN_TOL
+                and float(err.max()) <= LOGPROB_MAX_TOL):
+            raise AssertionError("(d) GPT-2's cached decode disagrees with its full forward")
+        try:
+            gpt2.forward_with_cache(model, toks[:, :1], cfg, gpt2.init_kv_cache(cfg, 1, 1032),
+                                    cfg.max_seq_len)
+        except ValueError as e:
+            print(f"[gpt2] (d) position {cfg.max_seq_len}: ValueError ({e})")
+        else:
+            raise AssertionError(f"(d) GPT-2 position {cfg.max_seq_len} did not raise")
+    return {"routes": routes, "losses": losses, "step_ms": step_ms, "peak_gib": peak,
+            "launches": launches, "grads_worst": worst, "cache_err": cache_err,
+            "decode_ms": decode_ms,
+            "cached_launches": cached_launches["flash_fwd"],
+            "attention": gpt2_attention_times(torch, card)}
+
+
 def check_grad(torch, name, g, ref, plain, what):
     """The FA gradient contract for one gradient against the fp32 truth
     `ref`, with the low-precision plain twin's error as the yardstick."""
@@ -1084,28 +1736,47 @@ def check_fp32_grad(torch, name, g, plain, what):
     return err
 
 
+def profiled(torch, fn, iters, ok, attempts=3):
+    """torch.profiler's key averages over `iters` calls of `fn` (after one
+    more), recorded again, up to `attempts` windows, until `ok(events)`:
+    late in this long process the profiler can drop every launch of a
+    window (phase 14 (d)'s GPT-2 forward, 0 of 5, where CUDA events timed
+    every call). Returns the last window's events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        if ok(events):
+            break
+        print(f"[profiler] window {attempt + 1} of {attempts} recorded too few launches")
+    return events
+
+
+def _device_us(e):
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
 def kernel_ms(torch, fn, names, iters=5):
     """Device time per launch of each named kernel (kernel names contain
     `names`; each launches once per call of `fn`), from torch.profiler over
     `iters` calls: the mean over the launches it recorded, printed with
     their count. In this long process it can miss a launch that ran (the
     packed forward with dropout: 4 of 5, while CUDA events time every call
-    at one launch); `acc_events` does not bring it back."""
-    from torch.profiler import ProfilerActivity, profile
+    at one launch); `acc_events` does not bring it back. A window with no
+    launch of some name is recorded again (`profiled`)."""
+    def counts(events):
+        return {name: sum(e.count for e in events if name in e.key) for name in names}
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
+    events = profiled(torch, fn, iters, lambda ev: all(counts(ev).values()))
     out = {}
-    for name in names:
-        hits = [e for e in events if name in e.key]
-        us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-                 for e in hits)
-        n = sum(e.count for e in hits)
+    for name, n in counts(events).items():
+        us = sum(_device_us(e) for e in events if name in e.key)
         if not (us > 0 and 0 < n <= iters):
             raise AssertionError(f"the profiler recorded {n} launches of {name} in {iters} calls, "
                                  f"{us:.1f} us of device time")
@@ -3205,7 +3876,12 @@ def main() -> int:
         served = phase_serve_modes(torch, card, model, cfg, reqs, prompts)
         torch.cuda.empty_cache()
         chunked = phase_chunked(torch, card, model, cfg, prompts)
+        torch.cuda.empty_cache()
+        spec = phase_speculative(torch, card, model, cfg, prompts)
     del model, reqs  # the served model and its cache make way for training
+    gc.collect()
+    torch.cuda.empty_cache()
+    gpt2_run = phase_gpt2(torch, card)
     gc.collect()
     torch.cuda.empty_cache()
     kernels.update(phase_bwd_kernels(torch))
@@ -3244,7 +3920,18 @@ def main() -> int:
          "launches_chunked": chunked["chunked"]["flash_fwd"],
          "launches_prefix": chunked["prefix"]["flash_fwd"], **kernels["flash_fwd"],
          "chunk_call": chunked["chunk"],
-         "serve_chunked": {k: chunked[k] for k in ("steps", "draws", "prefix_cached_tokens")}},
+         "serve_chunked": {k: chunked[k] for k in ("steps", "draws", "prefix_cached_tokens")},
+         "launches_speculative": sum(spec["full"][d]["launches"]
+                                     for d in ("2-layer draft", "perfect draft")),
+         "launches_speculative_sampled": spec["sampled"]["launches"],
+         "launches_gpt2_train": gpt2_run["launches"]["flash_fwd"],
+         "launches_gpt2_cached": gpt2_run["cached_launches"],
+         "spec_verify_call": spec["full"]["verify_call"],
+         "speculative": {"exact": spec["exact"], "sampled": spec["sampled"],
+                         **{k: v for k, v in spec["full"].items() if k != "verify_call"}},
+         "gpt2": {k: gpt2_run[k] for k in ("routes", "losses", "step_ms", "peak_gib",
+                                           "grads_worst", "cache_err", "decode_ms")},
+         "gpt2_forward_d64": gpt2_run["attention"]["forward"]},
         {"name": "decode", "route": "cuda", "source": "fa2_triton_tpu_torch/csrc/decode.cuh",
          "replaces": "fa2_triton_tpu/ops/decode.py:158",
          "launches": launches["decode"], "launches_chunked": chunked["chunked"]["decode"],
@@ -3329,7 +4016,9 @@ def main() -> int:
             ("flash_bwd_tri_square", "flash_bwd_tri.cu", "flash_bwd.py:845",
              "fa2_triton_tpu/ops/flash_bwd.py:985 (flash_attn_backward_tri_square)",
              train_runs["2 x 2048"]["bwd_tri_square"],
-             {"launches_flash_attn_backward": bwd_runs["tri_square"]["bwd_tri_square"]}),
+             {"launches_flash_attn_backward": bwd_runs["tri_square"]["bwd_tri_square"],
+              "launches_gpt2_train": gpt2_run["launches"]["bwd_tri_square"],
+              "gpt2_d64": gpt2_run["attention"]["backward"]}),
             ("flash_bwd_causal_diag", "flash_bwd_tri.cu", "flash_bwd.py:1060",
              "the diag_stride / leaf_subs mode of fa2_triton_tpu/ops/flash_bwd.py:845, driven by "
              "_causal_split_backward l.1278", bwd_runs["split"]["bwd_causal_diag"], {}),

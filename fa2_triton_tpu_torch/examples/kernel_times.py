@@ -31,10 +31,19 @@
     dispatch (host clock to the device's end), and the device time and
     count of the kernels of one dispatch (torch.profiler, summed); then the
     token choice on one decode step's [8, 32768] fp32 logits (rows 4-7
-    sampled), sampler against greedy, the same ways.
+    sampled), sampler against greedy, the same ways;
+  * with `--only spec`: the cached attention of speculative decoding
+    (`flash_attn_with_kv_cache`, B1) at widths 1 and gamma + 1
+    (`chip_smoke.py`'s SPEC_WIDTHS) over 1024, 2048 and 4096 cached rows,
+    bf16, B 1: its device time, aten flash's (causal, bottom-right aligned;
+    every kernel of its call, summed) and the bound; then one full-depth
+    Mistral-7B-v0.3 target step (`forward_with_cache`, random bf16 weights
+    from seed 0) at the same widths after those cache lengths, in turns: ms
+    per step (host clock to the device's end), and one step's device time
+    and launches.
 
     python fa2_triton_tpu_torch/examples/kernel_times.py [--dropout P] [--root DIR]
-        [--only decode|dbias|serve|chunk]
+        [--only decode|dbias|serve|chunk|spec]
 
 Times come from torch.profiler (device time per launch, averaged over
 --iters calls after a warm-up), the S 4096 forwards' from CUDA events over
@@ -47,7 +56,7 @@ served traffic come from the `chip_smoke.py` beside this checkout's
 package, whichever package is timed. `--only decode` times the decode
 variants alone, `--only dbias` the bias path's backward kernels (its shape
 from `chip_smoke.py` too), `--only serve` the serve modes, `--only chunk`
-the chunk dispatch and the sampler. Run it by its
+the chunk dispatch and the sampler, `--only spec` the speculative steps. Run it by its
 path, not with -m, so that the package is imported from the root. Needs a
 CUDA device.
 """
@@ -81,7 +90,7 @@ def parse_args(argv=None):
     ap.add_argument("--root", default=REPO,
                     help="checkout whose package is timed (default: this one)")
     ap.add_argument("--iters", type=int, default=10)
-    ap.add_argument("--only", choices=("decode", "dbias", "serve", "chunk"),
+    ap.add_argument("--only", choices=("decode", "dbias", "serve", "chunk", "spec"),
                     help="time only these")
     return ap.parse_args(argv)
 
@@ -181,7 +190,7 @@ def decode_times(torch, iters):
         torch, q, *(smoke.tight(torch, x.transpose(1, 2), lens_list) for x in stored["bf16"][:2]),
         [1] * slots, lens_list, False, D ** -0.5)
     with contextlib.redirect_stdout(sys.stderr):   # its kernel list
-        out = {"decode_aten": smoke.library_device_ms(torch, lib_fwd, iters)}
+        out = {"decode_aten": smoke.library_mean_ms(torch, lib_fwd, iters)}
     out["decode_aten_call_ms"] = events_ms(torch, lib_fwd, iters)
     for name, c in stored.items():
         runs = {f"decode_contiguous {name}":
@@ -333,6 +342,40 @@ def chunk_times(torch, iters):
     return out
 
 
+SPEC_KV = (1024, 2048, 4096)
+
+
+def spec_times(torch, iters):
+    """`--only spec` (see the module docstring): `chip_smoke.verify_call`
+    and `chip_smoke.step_widths_ms` over SPEC_KV (their lines go to
+    stderr)."""
+    from fa2_triton_tpu_torch.examples.train import preset_config
+    from fa2_triton_tpu_torch.models import init_params, llama
+
+    smoke = smoke_module()
+    dev = torch.device("cuda")
+    out = {}
+    with torch.inference_mode(), contextlib.redirect_stdout(sys.stderr):
+        for kv in SPEC_KV:
+            for name, e in smoke.verify_call(torch, kv, iters).items():
+                out[f"b1 {name} kv {kv}"] = e
+        cfg = preset_config("mistral-7b-v0.3", torch.bfloat16)
+        model = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+        top = smoke.SPEC_MAX_SEQ - smoke.SPEC_WIDTHS[-1]
+        toks = torch.randint(0, cfg.vocab_size, (1, top), generator=torch.Generator().manual_seed(1))
+        caches, attn = smoke.prefilled(torch, model, cfg, toks[0].tolist())   # the rows read below
+        toks = toks.to(dev)
+        for kv in (SPEC_KV[0], SPEC_KV[1], top):
+            ms = smoke.step_widths_ms(torch, model, cfg, caches, kv, toks, iters)
+            for S, v in ms.items():
+                wall, dev_ms, launches = busy(torch, lambda S=S, kv=kv: llama.forward_with_cache(
+                    model, toks[:, :S], cfg, caches, kv, attn))
+                out[f"target step width {S} after {kv}"] = {
+                    "ms": v, "median_ms": float(np.median(v)), "profiled_call_ms": wall,
+                    "device_ms": dev_ms, "launches": launches}
+    return out
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     root = os.path.abspath(args.root)
@@ -354,6 +397,7 @@ def main(argv=None) -> int:
         out.update(decode_times(torch, args.iters) if args.only == "decode" else
                    dbias_times(torch, args.iters, drop) if args.only == "dbias" else
                    chunk_times(torch, args.iters) if args.only == "chunk" else
+                   spec_times(torch, args.iters) if args.only == "spec" else
                    serve_times(torch))
         print(json.dumps(out))
         return 0

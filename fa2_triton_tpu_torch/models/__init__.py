@@ -1,4 +1,5 @@
-from fa2_triton_tpu_torch.models import convert
+from fa2_triton_tpu_torch.models import convert, gpt2
+from fa2_triton_tpu_torch.models.gpt2 import GPT2Config
 from fa2_triton_tpu_torch.models.llama import (
     LlamaConfig,
     LlamaModel,
@@ -12,5 +13,5 @@ from fa2_triton_tpu_torch.models.llama import (
 
 __all__ = [
     "LlamaConfig", "LlamaModel", "init_params", "forward", "prefill_forward",
-    "decode_step", "paged_decode_step", "loss_fn", "convert",
+    "decode_step", "paged_decode_step", "loss_fn", "convert", "gpt2", "GPT2Config",
 ]

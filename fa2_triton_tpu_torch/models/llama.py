@@ -9,16 +9,18 @@ norms are fp32), so converting a JAX parameter tree is a copy
 Ported: `forward` (differentiable; `cfg.remat` checkpoints each layer),
 `loss_fn`, `prefill_forward`, `decode_step` (contiguous cache, stored in
 the compute dtype or int8 / fp8), `paged_decode_step` (page pool and block
-tables) and `chunk_prefill_step` (one prompt chunk against a slot's cached
-prefix; `paged_chunk_prefill_step` is its page-pool form). Not yet ported:
-the cached forward of speculative decoding (`forward_with_cache`,
-`make_cached_attention_fn`, `init_kv_cache`, and `flash_attn_with_kv_cache`
-under them), and MoE layers (a "router" layer raises).
+tables), `chunk_prefill_step` (one prompt chunk against a slot's cached
+prefix; `paged_chunk_prefill_step` is its page-pool form) and the cached
+forward of speculative decoding (`forward_with_cache` over `init_kv_cache`'s
+BHSD caches through `make_cached_attention_fn`, that is
+`ops/attention.py:flash_attn_with_kv_cache`). Not yet ported: MoE layers
+(a "router" layer raises).
 
 Layout convention: activations [batch, seq, dim]; attention tensors BSHD.
 """
 from __future__ import annotations
 
+import inspect
 import math
 from dataclasses import dataclass
 from typing import Any, Callable, List, Optional, Tuple
@@ -29,7 +31,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from fa2_triton_tpu_torch.ops import flash_attn_func, flash_fwd
-from fa2_triton_tpu_torch.ops.attention import pad_head_dim, pad_last
+from fa2_triton_tpu_torch.ops.attention import flash_attn_with_kv_cache, pad_head_dim, pad_last
 from fa2_triton_tpu_torch.ops.decode import decode_attention, paged_decode_attention
 from fa2_triton_tpu_torch.ops.quant import qmatmul as _mm
 from fa2_triton_tpu_torch.utils import resolve_device
@@ -315,6 +317,85 @@ def loss_fn(model: LlamaModel, tokens: torch.Tensor,
     logits = forward(model, tokens[:, :-1], attention_fn)
     targets = tokens[:, 1:]
     return F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1))
+
+
+def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
+                  device=None) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Per layer (k, v) zeros [batch, Hkv, max_len, hd] in cfg.dtype: the
+    cache of `forward_with_cache`, BHSD like the serving cache
+    (`runtime/kv_cache.py`), so the kernel reads its rows as they lie (JAX's
+    is BSHD). `device` defaults to the GPU (`resolve_device`)."""
+    device = resolve_device(device)
+    shape = (batch, cfg.n_kv_heads, max_len, cfg.hd)
+    return [(torch.zeros(shape, dtype=cfg.dtype, device=device),
+             torch.zeros(shape, dtype=cfg.dtype, device=device)) for _ in range(cfg.n_layers)]
+
+
+def make_cached_attention_fn(cfg: LlamaConfig) -> Callable:
+    """Config-driven KV-cache attention for `forward_with_cache`: the bare
+    (q, k_cache, v_cache, kv_len) wrapper for plain models, the per-layer
+    form (an `li` keyword: window, softcap, scale) for the others, as JAX
+    `models/llama.py:make_cached_attention_fn` chooses."""
+    if cfg.sliding_window < 0 and cfg.attn_softcap == 0.0 and cfg.attn_scale is None:
+        def attn(q, ck, cv, kv_len):
+            return flash_attn_with_kv_cache(q, ck, cv, kv_len)
+        return attn
+
+    def attn(q, ck, cv, kv_len, li=0):
+        return flash_attn_with_kv_cache(q, ck, cv, kv_len, softmax_scale=cfg.scale,
+                                        window_left=cfg.window_for(li),
+                                        softcap=cfg.attn_softcap)
+    return attn
+
+
+def write_cache_rows(cache: Tuple[torch.Tensor, torch.Tensor], k: torch.Tensor, v: torch.Tensor,
+                     cache_len: int) -> None:
+    """Write a step's k / v [B, S, Hkv, D] into a BHSD cache at rows
+    cache_len..cache_len + S, in place (a functional update would copy the
+    cache once a layer a step); rows past the cache's end raise, where JAX's
+    `dynamic_update_slice` clamps the start and writes over earlier rows."""
+    ck, cv = cache
+    S = k.shape[1]
+    if not 0 <= cache_len <= cache_len + S <= ck.shape[2]:
+        raise ValueError(f"step rows {cache_len}..{cache_len + S} pass the cache's "
+                         f"{ck.shape[2]} rows")
+    ck[:, :, cache_len:cache_len + S] = k.transpose(1, 2)
+    cv[:, :, cache_len:cache_len + S] = v.transpose(1, 2)
+
+
+def forward_with_cache(
+    model: LlamaModel,
+    tokens: torch.Tensor,          # [B, S_step] int
+    cfg: LlamaConfig,
+    caches,                        # init_kv_cache's list of (k, v), BHSD
+    cache_len: int,                # host int: tokens already in the cache
+    cached_attention_fn: Callable,  # (q, k_cache, v_cache, kv_len[, li]) -> out
+):
+    """One prefill or decode step over the cache (port of JAX
+    `models/llama.py:forward_with_cache`): row i of the step at position
+    cache_len + i; each layer writes its S_step k / v rows in place at
+    cache_len (`write_cache_rows`) and attends over the first cache_len +
+    S_step rows. A `cached_attention_fn` taking an `li` keyword is
+    specialised per layer (`make_cached_attention_fn`). Returns (logits
+    [B, S_step, V] fp32, caches)."""
+    cache_len = int(cache_len)
+    B, S = tokens.shape
+    x = model.embed[tokens]
+    positions = (cache_len + torch.arange(S, device=tokens.device)).expand(B, S)
+    cos, sin = rope_cos_sin(positions, cfg.hd, cfg.rope_theta, cfg.rope_factors)
+    cs, sn = cos[:, :, None, :], sin[:, :, None, :]
+    per_layer = "li" in inspect.signature(cached_attention_fn).parameters
+    for li, (layer, cache) in enumerate(zip(model.layers, caches)):
+        h = rms_norm(x, layer.attn_norm, cfg.norm_eps)
+        q, k, v = _qkv(layer, h, cfg)
+        q, k = apply_rope(q, cs, sn), apply_rope(k, cs, sn)
+        write_cache_rows(cache, k, v, cache_len)
+        kw = {"li": li} if per_layer else {}
+        attn = cached_attention_fn(q, cache[0], cache[1], cache_len + S, **kw)
+        x = _attn_out(layer, x, attn, cfg)
+        x = _mlp_block(layer, x, cfg)
+    x = rms_norm(x, model.final_norm, cfg.norm_eps)
+    return _logits(x, model, cfg), caches
 
 
 def prefill_forward(

@@ -1,4 +1,5 @@
-"""Public flash-attention API: `flash_attn_func`, differentiable.
+"""Public flash-attention API: `flash_attn_func`, differentiable, and the
+KV-cache entry point `flash_attn_with_kv_cache` (inference only).
 
 Port of `fa2_triton_tpu/ops/attention.py:flash_attn_func`, BSHD in and out.
 The TPU layout rules of the JAX version (the 128-lane head-dim pad, padding
@@ -197,3 +198,46 @@ def flash_attn_func(
     if return_lse:
         return out, lse
     return out
+
+
+def flash_attn_with_kv_cache(
+    q: torch.Tensor,          # [B, S_step, Hq, D] — the step's queries
+    k_cache: torch.Tensor,    # [B, Hkv, S_max, D] — the cache, the step's rows written
+    v_cache: torch.Tensor,
+    kv_len: int,              # host int: valid rows (cached + this step's)
+    softmax_scale: Optional[float] = None,
+    window_left: int = -1,    # sliding-window prefix (-1: full causal)
+    softcap: float = 0.0,
+) -> torch.Tensor:
+    """Attention of a prefill or decode step over a KV cache (port of
+    `fa2_triton_tpu/ops/attention.py:flash_attn_with_kv_cache`).
+
+    Query row i sits at global position kv_len - S_step + i and attends
+    causally to the cache rows < kv_len. The caches are BHSD, the port's
+    cache layout (`runtime/kv_cache.py`; JAX's are BSHD), and only their
+    first kv_len rows are handed on, as a view: one `flash_fwd` call (B1 on
+    CUDA tensors, its plain twin on CPU ones) with lens (kv_len, kv_len),
+    q_off kv_len - S_step, the queries as a transposed view. `kv_len` is a
+    host int, so a step reads no device value. JAX's `block_q` / `block_kv`
+    choose TPU tiles and are not taken (TypeError; ROADMAP.md queue A.3).
+    Returns [B, S_step, Hq, D] in q's dtype."""
+    if isinstance(kv_len, torch.Tensor):
+        raise TypeError("kv_len is a host int: a tensor would be read from the device per call")
+    B, S, Hq, D = q.shape
+    kv_len = int(kv_len)
+    if k_cache.dim() != 4 or k_cache.shape[0] != B or k_cache.shape[3] != D \
+            or v_cache.shape != k_cache.shape:
+        raise ValueError(f"caches must be [B, Hkv, S_max, D] for q {tuple(q.shape)}, got "
+                         f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)}")
+    if not 0 < S <= kv_len <= k_cache.shape[2]:
+        raise ValueError(f"need 0 < S_step {S} <= kv_len {kv_len} <= S_max {k_cache.shape[2]}")
+    scale = float(softmax_scale) if softmax_scale is not None else default_softmax_scale(D)
+    lens = torch.full((B, 2), kv_len, dtype=torch.int32, device=q.device)
+    Dp = pad_head_dim(D, q.device)
+    o, _ = flash_attn_forward(
+        pad_last(q, Dp).transpose(1, 2), pad_last(k_cache[:, :, :kv_len], Dp),
+        pad_last(v_cache[:, :, :kv_len], Dp), lens, kv_len - S, causal=True,
+        softmax_scale=scale, window=(window_left, 0) if window_left >= 0 else (-1, -1),
+        softcap=float(softcap), seqlen_q_real=S, seqlen_k_real=kv_len, static_skip=False,
+        varlen=True)
+    return o.transpose(1, 2)[..., :D]

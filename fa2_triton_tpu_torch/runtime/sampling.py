@@ -16,13 +16,21 @@ Gumbel noise) is wider than that. So a request reproduces itself, and a
 preempted request that re-prefills its partial generation resumes the same
 stream (its step counter is the number of tokens it has generated).
 
+Speculative sampling (`runtime/speculative.py`) keys its draws on any key,
+not only (seed, step): `prng_key`, `fold_in`, `split`, `bits`, `uniform`,
+`gumbel` and `categorical` are `jax.random`'s on int64 key tensors [..., 2],
+bit for bit up to the floats (`uniform`'s mantissa trick is exact;
+`gumbel`'s logs are each library's own).
+
 temperature == 0 is greedy (first-max argmax, as `jnp.argmax`). The log-prob
 returned with a token is always its log-prob under the raw model
 distribution.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
+from typing import Tuple
 
 import torch
 
@@ -61,7 +69,8 @@ def _on(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
 
 def _threefry2x32(k0, k1, x0, x1):
     """Threefry-2x32 with 20 rounds (JAX's `threefry2x32_p`) on int64
-    tensors holding uint32 words; the four operands broadcast."""
+    tensors holding uint32 words; the four operands broadcast, and the
+    counter words may be ints."""
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
     x0 = (x0 + ks[0]) & _M32
     x1 = (x1 + ks[1]) & _M32
@@ -75,29 +84,96 @@ def _threefry2x32(k0, k1, x0, x1):
     return x0, x1
 
 
-def random_bits(seeds: torch.Tensor, steps: torch.Tensor, n: int) -> torch.Tensor:
-    """[B, n] int64 holding `jax.random.bits(fold_in(PRNGKey(seeds[b]),
-    steps[b]), (n,))` as uint32 words. PRNGKey(s) is the key (0, s),
-    fold_in(key, i) is threefry(key, (0, i)), and element j is
+# ---------------------------------------------------------------------------
+# JAX's key algebra (`jax.random` with `jax_threefry_partitionable`, the
+# default) on int64 key tensors [..., 2] holding the two uint32 words. The
+# leading dims of a key are a batch of keys; an int `data` or `seed` never
+# leaves the host, so these build no tensor from a host value.
+
+
+def prng_key(seed, device=None) -> torch.Tensor:
+    """`jax.random.PRNGKey(seed)`: the words (0, seed mod 2**32), [2] for an
+    int seed (on `device`), [..., 2] for an int tensor of seeds."""
+    if isinstance(seed, torch.Tensor):
+        s = seed.to(torch.int64) & _M32
+        return torch.stack([torch.zeros_like(s), s], dim=-1)
+    return torch.tensor([0, int(seed) & _M32], dtype=torch.int64, device=device)
+
+
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """`jax.random.fold_in(key, data)`: both words of threefry(key, (0,
+    data)); `data` an int or an int tensor broadcasting with key[..., 0]."""
+    d = data.to(torch.int64) & _M32 if isinstance(data, torch.Tensor) else int(data) & _M32
+    return torch.stack(_threefry2x32(key[..., 0], key[..., 1], 0, d), dim=-1)
+
+
+def _counter_words(key: torch.Tensor, shape) -> Tuple[torch.Tensor, torch.Tensor]:
+    """threefry(key, (0, j)) for j the flat index of `shape` (JAX's
+    `iota_2x32_shape`; the high word is 0 below 2**32 elements): two
+    [*key.shape[:-1], *shape] tensors of words."""
+    shape = tuple(shape)
+    iota = torch.arange(math.prod(shape), dtype=torch.int64, device=key.device)
+    y0, y1 = _threefry2x32(key[..., 0, None], key[..., 1, None], 0, iota)
+    out = (*key.shape[:-1], *shape)
+    return y0.reshape(out), y1.reshape(out)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """`jax.random.split(key, num)`: [..., num, 2], key j being both words
+    of threefry(key, (0, j)), not XORed."""
+    return torch.stack(_counter_words(key, (num,)), dim=-1)
+
+
+def bits(key: torch.Tensor, shape) -> torch.Tensor:
+    """`jax.random.bits(key, shape)` (uint32 words in int64): element j is
     threefry(key, (0, j)) with its two words XORed."""
-    seeds = seeds.to(torch.int64)[:, None] & _M32
-    steps = steps.to(torch.int64)[:, None] & _M32
-    zero = torch.zeros_like(seeds)
-    k0, k1 = _threefry2x32(zero, seeds, zero, steps)
-    iota = torch.arange(n, dtype=torch.int64, device=seeds.device)[None]
-    y0, y1 = _threefry2x32(k0, k1, torch.zeros_like(iota), iota)
+    y0, y1 = _counter_words(key, shape)
     return y0 ^ y1
 
 
+def uniform(key: torch.Tensor, shape, minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+    """`jax.random.uniform(key, shape, float32, minval, maxval)`: the top 23
+    bits as a mantissa in [1, 2), minus 1, then scaled, shifted and clamped
+    below by minval in fp32."""
+    b = bits(key, shape)
+    floats = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.full((), minval, dtype=torch.float32, device=b.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=b.device)
+    return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+def gumbel(key: torch.Tensor, shape) -> torch.Tensor:
+    """`jax.random.gumbel(key, shape)` (mode "low"): -log(-log(u)) with u
+    `uniform(minval=tiny)` of the same bits."""
+    return -torch.log(-torch.log(uniform(key, shape, minval=torch.finfo(torch.float32).tiny)))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """`jax.random.categorical(key, logits)` over the last dim: the argmax
+    of logits + Gumbel noise (first max on ties, as `jnp.argmax`). A key
+    [2] draws every row of logits from one stream of noise over their flat
+    shape, as JAX does; a batch of keys [..., 2] leads logits' dims, one
+    key a row (the Engine's per-request keys)."""
+    noise = gumbel(key, logits.shape[key.dim() - 1:])
+    return torch.argmax(noise + logits, dim=-1)
+
+
+def softmax(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.softmax` over the last dim: exp(x - max) / sum."""
+    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def random_bits(seeds: torch.Tensor, steps: torch.Tensor, n: int) -> torch.Tensor:
+    """[B, n] int64 holding `jax.random.bits(fold_in(PRNGKey(seeds[b]),
+    steps[b]), (n,))` as uint32 words."""
+    return bits(fold_in(prng_key(seeds), steps), (n,))
+
+
 def _gumbel(seeds: torch.Tensor, steps: torch.Tensor, n: int) -> torch.Tensor:
-    """[B, n] fp32 Gumbel noise: `jax.random.gumbel` (mode "low") on each
-    row's key, -log(-log(u)) with u `jax.random.uniform(minval=tiny)` of
-    the same bits."""
-    bits = random_bits(seeds, steps, n)
-    floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    tiny = torch.tensor(torch.finfo(torch.float32).tiny, dtype=torch.float32, device=bits.device)
-    u = torch.maximum(tiny, floats * (1.0 - tiny) + tiny)
-    return -torch.log(-torch.log(u))
+    """[B, n] fp32 Gumbel noise of each row's key fold_in(PRNGKey(seeds[b]),
+    steps[b])."""
+    return gumbel(fold_in(prng_key(seeds), steps), (n,))
 
 
 def adjust_logits(logits: torch.Tensor, temps, top_ks, top_ps) -> torch.Tensor:
@@ -117,9 +193,7 @@ def adjust_logits(logits: torch.Tensor, temps, top_ks, top_ps) -> torch.Tensor:
     desc = torch.sort(scaled, dim=-1, descending=True).values
     kth = torch.where(top_ks > 0, desc.gather(-1, (top_ks - 1).clamp(0, V - 1)), neg_inf)
     scaled = torch.where(scaled >= kth, scaled, neg_inf)
-    # jax.nn.softmax: exp(x - max) / sum.
-    e = torch.exp(scaled - scaled.amax(dim=-1, keepdim=True))
-    probs = e / e.sum(dim=-1, keepdim=True)
+    probs = softmax(scaled)
     sp = torch.sort(probs, dim=-1, descending=True).values
     csum = torch.cumsum(sp, dim=-1)
     thresh = torch.minimum(top_ps, csum[:, -1:])

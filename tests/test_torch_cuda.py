@@ -1694,3 +1694,148 @@ def test_flash_attn_func_routes_causal_backward(dev, S, Hkv, route):
     plains = flash_bwd.flash_attn_backward_plain(q, k, v, t(do32.to(torch.bfloat16)),
                                                  t(out.detach()), lse.detach(), lens, **kw)
     _check_grads([t(x.grad) for x in leaves], refs, plains, torch.bfloat16)
+
+# ----------------------------- speculative decoding and GPT-2 -----------------------------
+# `flash_attn_with_kv_cache` is one B1 launch with the rows at a global
+# offset (lens (kv_len, kv_len), q_off kv_len - S_step) over the cache's
+# first kv_len rows, BHSD.
+
+KV_CACHE_CASES = {   # name: (S_step, kv_len, Hkv, window_left, softcap)
+    "decode": (1, 77, 2, -1, 0.0),
+    "decode gqa 4": (1, 1000, 1, -1, 0.0),
+    "verify": (5, 130, 2, -1, 0.0),
+    "verify gqa 4 window": (5, 2049, 1, 100, 0.0),
+    "wide softcap": (8, 300, 2, -1, 4.0),
+    "wide window softcap": (8, 8, 4, 3, 4.0),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("case", list(KV_CACHE_CASES))
+def test_flash_attn_with_kv_cache_kernel_matches_plain(dev, dtype, D, case):
+    from fa2_triton_tpu_torch.ops.attention import flash_attn_with_kv_cache
+
+    S, kv_len, Hkv, window, softcap = KV_CACHE_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(D + S + kv_len)
+    B, Hq, S_max = 2, 4, 2176
+    q32 = torch.randn(B, S, Hq, D, generator=g, device=dev) * 0.5
+    k32, v32 = (torch.randn(B, Hkv, S_max, D, generator=g, device=dev) * 0.5 for _ in range(2))
+    k32[:, :, kv_len:] = float("nan")        # rows past kv_len are never read
+    v32[:, :, kv_len:] = float("nan")
+    lens = torch.full((B, 2), kv_len, dtype=torch.int32, device=dev)
+    kw = dict(causal=True, softmax_scale=D ** -0.5, softcap=softcap,
+              window=(window, 0) if window >= 0 else (-1, -1))
+
+    def plain(q, k, v):
+        o, _ = flash_fwd.flash_attn_forward_plain(q.transpose(1, 2), k[:, :, :kv_len],
+                                                  v[:, :, :kv_len], lens, kv_len - S, **kw)
+        return o.transpose(1, 2)
+
+    ref = plain(q32, k32, v32)
+    q, k, v = (x.to(dtype) for x in (q32, k32, v32))
+    n0 = flash_fwd.LAUNCHES
+    out = flash_attn_with_kv_cache(q, k, v, kv_len, window_left=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert flash_fwd.LAUNCHES == n0 + 1
+    assert out.shape == (B, S, Hq, D) and out.dtype == dtype and torch.isfinite(out).all()
+    _check(out, ref, plain(q, k, v), dtype)
+
+
+def _tiny_gpt2(dev, dtype, seed=0):
+    from fa2_triton_tpu_torch.models import GPT2Config, gpt2
+
+    cfg = GPT2Config(vocab_size=512, dim=256, n_layers=2, n_heads=4, hidden_dim=512,
+                     max_seq_len=520, dtype=dtype)
+    return gpt2.init_params(torch.Generator(device=dev).manual_seed(seed), cfg), cfg
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpt2_head_dim_64_matches_plain(dev, dtype, monkeypatch):
+    """A 2-layer GPT-2 at head dim 64, B 2 x S 512 (the tri-square forward
+    and backward, as GPT-2 small's 1024 takes): loss and every parameter
+    gradient through the kernels against an fp32 run of the same weights
+    with the plain attention (`flash_attn_reference`); fp32 within 1e-4 x
+    (1 + max |grad|), bf16 under the FA gradient contract against the bf16
+    plain run's error (as `chip_smoke.py` phase 7 holds the LLaMA layers)."""
+    import dataclasses
+
+    from fa2_triton_tpu_torch.models import gpt2
+    from fa2_triton_tpu_torch.ops import flash_attn_reference
+
+    toks = torch.randint(0, 512, (2, 513), generator=torch.Generator().manual_seed(1)).to(dev)
+    model, cfg = _tiny_gpt2(dev, dtype)
+    m32 = gpt2.GPT2Model(dataclasses.replace(cfg, dtype=torch.float32), device=dev)
+    m32.load_state_dict(model.state_dict())
+
+    def run(m, kernels):
+        m.zero_grad(set_to_none=True)
+        with monkeypatch.context() as patch:
+            if not kernels:
+                patch.setattr(gpt2, "flash_attn_func", lambda q, k, v, causal: flash_attn_reference(
+                    q, k, v, causal=causal))
+            loss = gpt2.loss_fn(m, toks)
+            loss.backward()
+        return loss.item(), {n: p.grad.float() for n, p in m.named_parameters()}
+
+    flash_fwd.reset_launches()
+    flash_bwd.reset_launches()
+    loss, grads = run(model, True)
+    torch.cuda.synchronize()
+    assert flash_fwd.LAUNCHES == 2 and flash_bwd.SCHEDULE_LAUNCHES["tri_square"] == 2
+    truth, truth_g = run(m32, False)
+    if dtype == torch.float32:
+        assert abs(loss - truth) <= 1e-4
+        for n, g in grads.items():
+            assert (g - truth_g[n]).abs().max() <= 1e-4 * (1 + truth_g[n].abs().max()), n
+        return
+    yard_loss, yard_g = run(model, False)
+    assert abs(loss - truth) <= 3 * abs(yard_loss - truth) + 1e-3
+    for n, g in grads.items():
+        err = (g - truth_g[n]).abs().max()
+        yard = (yard_g[n] - truth_g[n]).abs().max()
+        assert err <= 3 * yard + 1e-5, (n, float(err), float(yard))
+
+
+def test_gpt2_cached_decode_matches_the_full_forward(dev):
+    from fa2_triton_tpu_torch.models import gpt2
+
+    model, cfg = _tiny_gpt2(dev, torch.float32)
+    toks = torch.randint(0, 512, (2, 300), generator=torch.Generator().manual_seed(2)).to(dev)
+    caches = gpt2.init_kv_cache(cfg, 2, 320)
+    full = gpt2.forward(model, toks).detach()
+    flash_fwd.reset_launches()
+    with torch.no_grad():
+        logits, _ = gpt2.forward_with_cache(model, toks[:, :290], cfg, caches, 0)
+        torch.testing.assert_close(logits, full[:, :290], rtol=0, atol=1e-4)
+        for t in range(290, 300):
+            logits, _ = gpt2.forward_with_cache(model, toks[:, t:t + 1], cfg, caches, t)
+            torch.testing.assert_close(logits[:, 0], full[:, t], rtol=0, atol=1e-4)
+    assert flash_fwd.LAUNCHES == cfg.n_layers * 11
+
+
+@pytest.mark.parametrize("gamma", [1, 4])
+def test_greedy_speculative_equals_greedy_reference(dev, gamma):
+    """fp32 (the bf16 verify pass and width-1 step may round a near tie
+    apart): the speculative stream is the target's greedy decode, with a
+    1-layer draft and with the target as its own draft."""
+    from fa2_triton_tpu_torch.models import LlamaConfig, init_params
+    from fa2_triton_tpu_torch.runtime import SpeculativeDecoder
+    from fa2_triton_tpu_torch.runtime.speculative import greedy_reference
+
+    kw = dict(vocab_size=256, dim=256, n_heads=4, n_kv_heads=1, hidden_dim=512,
+              dtype=torch.float32)
+    tcfg, dcfg = LlamaConfig(n_layers=2, **kw), LlamaConfig(n_layers=1, **kw)
+    target = init_params(torch.Generator(device=dev).manual_seed(0), tcfg)
+    draft = init_params(torch.Generator(device=dev).manual_seed(1), dcfg)
+    prompt = [(7 * j + 3) % 256 for j in range(150)]
+    ref = greedy_reference(target, tcfg, prompt, 40, max_seq=256)
+    for d, c in ((draft, dcfg), (target, tcfg)):
+        flash_fwd.reset_launches()
+        out, st = SpeculativeDecoder(target, tcfg, d, c, gamma=gamma, max_seq=256).generate(
+            prompt, 40)
+        assert out == ref
+        assert flash_fwd.LAUNCHES == (tcfg.n_layers * (1 + st.target_calls)
+                                      + c.n_layers * (1 + st.draft_calls))
+        if d is target:
+            assert st.acceptance_rate == 1.0

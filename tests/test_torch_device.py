@@ -8,21 +8,31 @@ import pytest
 torch = pytest.importorskip("torch")
 from fa2_triton_tpu_torch import FlashSelfAttention  # noqa: E402
 from fa2_triton_tpu_torch.layers import flash_self_attention_from_flax  # noqa: E402
-from fa2_triton_tpu_torch.models import LlamaConfig, init_params  # noqa: E402
+from fa2_triton_tpu_torch.models import GPT2Config, LlamaConfig, gpt2, init_params  # noqa: E402
 from fa2_triton_tpu_torch.models.convert import (  # noqa: E402
-    llama_from_jax_params, llama_to_jax_params)
-from fa2_triton_tpu_torch.models.llama import LlamaLayer, LlamaModel  # noqa: E402
+    gpt2_from_jax_params, gpt2_to_jax_params, llama_from_jax_params, llama_to_jax_params)
+from fa2_triton_tpu_torch.models.llama import LlamaLayer, LlamaModel, init_kv_cache  # noqa: E402
 from fa2_triton_tpu_torch.runtime.kv_cache import KVCacheConfig, init_cache  # noqa: E402
 from fa2_triton_tpu_torch.runtime.paged_cache import PagedCacheConfig, PagedKVCache  # noqa: E402
 from fa2_triton_tpu_torch.utils import resolve_device  # noqa: E402
 
 CFG = LlamaConfig(vocab_size=32, dim=32, n_layers=1, n_heads=2, n_kv_heads=1, hidden_dim=32,
                   dtype=torch.float32)
+GCFG = GPT2Config(vocab_size=32, dim=32, n_layers=1, n_heads=2, hidden_dim=32, max_seq_len=16,
+                  dtype=torch.float32, tie_embeddings=False)
 
 
 def _jax_tree():
     # init_params takes its device from the generator: a CPU one here.
     return llama_to_jax_params(init_params(torch.Generator().manual_seed(0), CFG))
+
+
+def _gpt2_tree():
+    return gpt2_to_jax_params(gpt2.init_params(torch.Generator().manual_seed(0), GCFG))
+
+
+def _cache_tensors(caches):
+    return [t for kv in caches for t in kv]
 
 
 def _flax_params():
@@ -45,6 +55,12 @@ BUILDERS = {
     "flash_self_attention_from_flax": (
         lambda **kw: flash_self_attention_from_flax(_flax_params(), 32, num_heads=2, **kw),
         lambda m: list(m.parameters())),
+    "GPT2Model": (lambda **kw: gpt2.GPT2Model(GCFG, **kw), lambda m: list(m.parameters())),
+    "GPT2Layer": (lambda **kw: gpt2.GPT2Layer(GCFG, **kw), lambda m: list(m.parameters())),
+    "gpt2_from_jax_params": (lambda **kw: gpt2_from_jax_params(_gpt2_tree(), GCFG, **kw),
+                             lambda m: list(m.parameters())),
+    "llama.init_kv_cache": (lambda **kw: init_kv_cache(CFG, 1, 16, **kw), _cache_tensors),
+    "gpt2.init_kv_cache": (lambda **kw: gpt2.init_kv_cache(GCFG, 1, 16, **kw), _cache_tensors),
     "init_cache": (lambda **kw: init_cache(KVCacheConfig(n_layers=1, n_kv_heads=1, head_dim=8,
                                                          max_seq=128, n_slots=1), **kw),
                    lambda c: [t for layer in c for t in layer.values()]),

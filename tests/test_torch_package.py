@@ -37,6 +37,13 @@ def test_port_never_imports_jax():
         "                            causal=True, block_q=128, block_kv=128).sum().backward()\n"
         "import fa2_triton_tpu_torch.layers, fa2_triton_tpu_torch.utils.rng\n"
         "import fa2_triton_tpu_torch.utils.mask_probes, fa2_triton_tpu_torch.examples.kernel_times\n"
+        "from fa2_triton_tpu_torch.models import GPT2Config, gpt2\n"
+        "from fa2_triton_tpu_torch.runtime import SpeculativeDecoder\n"
+        "g = GPT2Config(vocab_size=64, dim=64, n_layers=1, n_heads=1, hidden_dim=64,\n"
+        "               max_seq_len=16, dtype=__import__('torch').float32)\n"
+        "gm = gpt2.init_params(__import__('torch').Generator().manual_seed(0), g)\n"
+        "gpt2.loss_fn(gm, __import__('torch').ones(1, 9, dtype=__import__('torch').long)).backward()\n"
+        "SpeculativeDecoder(m, cfg, m, cfg, gamma=2, max_seq=64).generate([1, 2], 4)\n"
         "from fa2_triton_tpu_torch import FlashSelfAttention, flash_attn_func\n"
         "layer = FlashSelfAttention(64, 2, num_kv_heads=1, causal=True, use_rope=True,\n"
         "                           dropout_p=0.1, dropout_rng=__import__('torch').default_generator,\n"
