@@ -153,6 +153,30 @@ the CUDA toolkit. Phases (any failure raises, and the script exits nonzero):
    once a layer a step), 2-layer gradients against fp32 under the FA
    contract, a cached greedy decode (512, then 63 width-1 steps) against
    the full forward's log-probs, and position 1024 raising.
+15. The rest of the model zoo on the kernels above (no kernel of its own):
+   (e) (run on phase 3's model, after phase 14) `quantize_model_params`
+   with int8 and with fp8 weights: the weight bytes against bf16, layer 0's
+   `w_gate` through `qmatmul` against x @ (values x scales) in fp32, 8 of
+   phase 3's requests served paged, and the served tokens held against the
+   quantized model's own `forward` (teacher-forced: each token forward's
+   argmax or within ZOO_TIE_GAP of it, log-probs within ZOO_LOGPROB_MEAN_TOL
+   on average); then, after the served model is freed: (b) one
+   Mixtral-8x7B-v0.1 layer at T 4094: `moe_mlp` at capacity T against an
+   fp32 evaluation of the same routing under the FA output rule (the dense
+   block the yardstick), the slots at the default and a small capacity
+   equal to JAX's rule rebuilt index by index, every token whose choices all
+   dropped equal to its residual, the router's gradient finite; (a)
+   `examples/train.py --config mixtral-8x7b-v0.1 --layers 5` at 2 x 2048,
+   remat, 3 steps on one repeated batch: every warm-up gradient finite, the
+   routers' nonzero, drops per layer, falling losses, the forward / dq /
+   dk/dv launches; (c) Mixtral at 16 layers serving 8 of phase 3's prompts
+   paged, held against `forward` by the share of equal tokens and the mean
+   log-prob error (a bf16 router swaps near-tied experts between the two
+   paths), then the same at 2 layers in fp32 held token by token as in
+   (e); (d) LoRA (rank 8 on wq / wk /
+   wv / wo, alpha 16) on the full-depth Mistral-7B-v0.3 model, 3 AdamW
+   steps on the adapters at 2 x 2048, remat: falling losses, the base bit
+   for bit unchanged, the launches; the merged model serving 2 prompts.
 
 Every kernel is also timed against PyTorch's own call for the same function
 (`library_ms`, where one exists) and its bound on the H100 (`bound_ms`: the
@@ -160,7 +184,9 @@ larger of its operations over the tensor-core peak of its inputs' type —
 bf16, or int8/fp8 for the quantized decode — and its bytes over the HBM
 rate). The last line of stdout is a JSON object {"ok": true, "device":
 {...}}; the line before it lists each kernel's (eighteen, and six dropout
-entries) launches, error, times and bound. Without a CUDA device, or without the package beside this
+entries) launches, error, times and bound; phase 15's launches sit in the
+forward, dq, dk/dv, decode and paged decode entries (`launches_moe_train`,
+`launches_moe_serve`, `launches_lora`, `launches_wquant`). Without a CUDA device, or without the package beside this
 script, it exits nonzero.
 """
 from __future__ import annotations
@@ -195,7 +221,12 @@ SERVE_MODES = {"serve": {}, "serve paged bf16": {"paged": True},
                # Phase 13: chunked prefill, then the prefix cache with it.
                "serve chunked": {"prefill_chunk": 512},
                "serve prefix": {"paged": True, "page_size": 128, "prefix_cache": True,
-                                "prefill_chunk": 512}}
+                                "prefill_chunk": 512},
+               # Phase 15: Mixtral, the LoRA-merged model and the weight-quantized
+               # models (the weights quantized, the cache bf16).
+               "serve moe": {"paged": True}, "serve moe fp32": {"paged": True},
+               "serve lora": {},
+               "serve wquant int8": {"paged": True}, "serve wquant fp8": {"paged": True}}
 ATTN_SEQ = (128, 1024, 2048)
 DECODE_LENS = (1, 17, 300, 1024, 2048, 3000, 4000, 4096)
 FP32_TOL = 1e-4                  # fp32 kernel vs fp32 plain, max abs
@@ -1716,6 +1747,403 @@ def phase_gpt2(torch, card):
             "attention": gpt2_attention_times(torch, card)}
 
 
+# Phase 15: the rest of the model zoo. Mixtral-8x7B-v0.1's published widths
+# (the trainer's preset names its source), cut in depth: MOE_TRAIN_LAYERS of
+# 32 for training (7.52 B parameters; at 8 bytes each, bf16 weights,
+# gradients and both AdamW moments, ~60 GB) and MOE_SERVE_LAYERS for serving
+# (23.5 B parameters, 47 GB in bf16; all 32 layers are 93 GB).
+MOE_TRAIN_LAYERS = 5
+MOE_SERVE_LAYERS = 16
+MOE_TRAIN_ARGV = ["--config", "mixtral-8x7b-v0.1", "--layers", str(MOE_TRAIN_LAYERS),
+                  "--steps", "3", "--batch", "2", "--seq", str(TRAIN_SEQ), "--remat",
+                  "--repeat-batch", "--lr", "3e-4", "--grad-clip", "1.0"]
+# (b): one Mixtral layer on the training batch's 2 x 2047 tokens; a small
+# capacity drops most second choices and some tokens outright.
+MOE_BLOCK_T = 2 * BWD_SEQ
+MOE_SMALL_CAPACITY = 256
+# (c) and (e) serve the first ZOO_REQUESTS of phase 3's prompts, (d) the first
+# LORA_REQUESTS.
+ZOO_REQUESTS = 8
+LORA_REQUESTS = 2
+LORA_RANK, LORA_ALPHA, LORA_STEPS = 8, 16.0, 3
+# Adam moves each adapter entry by about the LR a step; B starts at 0, so the
+# first steps' W + (alpha / r) A B must move W by more than bf16's half ulp
+# (~3e-5 at |W| ~ 1/64) for the merged weights, and the loss, to change.
+LORA_LR = 2e-3
+# Tokens served by the Engine against `forward` on the same model, fed the
+# served tokens (teacher forcing): a served token may differ from forward's
+# argmax only where forward prefers its argmax by at most ZOO_TIE_GAP (a
+# near tie: bf16 decode and prefill round apart from the full forward, and
+# an MoE router fed slightly different inputs may swap a near-tied second
+# expert), and the served log-probs must lie within ZOO_LOGPROB_MEAN_TOL of
+# forward's on average.
+ZOO_TIE_GAP = 0.25
+ZOO_LOGPROB_MEAN_TOL = LOGPROB_MEAN_TOL
+# Mixtral in bf16 cannot be held token by token: the router reads fp32
+# logits of a bf16 rms_norm output, and where the served path and forward
+# round that input apart, a near-tied second expert swaps, which moves the
+# token's residual by a whole expert's share. (On an NVIDIA H100 80GB HBM3 at
+# 700 W, 24 of 256 served tokens differed from forward's argmax, 6 at gaps
+# 0.30-0.58 where a dense model's differ at <= 0.0625, and the mean log-prob
+# error was 0.0338.) So bf16 is held by share and mean, at ~2x those
+# measurements: a wrong expert, weight or cache row moves nearly every
+# token. The exact check is fp32 at MOE_EXACT_LAYERS layers, where the two
+# paths round ~1e-6 apart and a swap needs a router tie that close: every
+# token forward's argmax or within FP32_TIE_GAP of it, log-probs within
+# FP32_TOL on average.
+MOE_AGREE_MIN = 0.8
+MOE_LOGPROB_MEAN_TOL = 0.07
+MOE_EXACT_LAYERS = 2
+FP32_TIE_GAP = 1e-3
+# (e): one layer's qmatmul against x @ (values x scales) in fp32: the result
+# is rounded to bf16 (at most 2^-8 of its value: bf16 keeps 8 significant
+# bits), plus fp32 sums of 4096 products in another order (1e-5 of the sum
+# of |products|). Measured on an NVIDIA H100 80GB HBM3 at 700 W: 0.961 (int8)
+# and 0.965 (fp8) of this bound, set by the rounding, which no kernel change
+# can loosen.
+QMM_REL, QMM_SUM_TOL = 2.0 ** -8, 1e-5
+
+
+def forward_greedy_check(torch, model, cfg, reqs, prompts, what, tie=ZOO_TIE_GAP,
+                         mean_tol=ZOO_LOGPROB_MEAN_TOL, agree_min=None):
+    """Each served request fed again (prompt + its tokens but the last)
+    through `llama.forward` on the same model (the flash forward kernel; the
+    dense block on MoE layers): every served token must be forward's argmax
+    at its position or within `tie` of it (`tie` None: at least `agree_min`
+    of them its argmax), and the served log-probs within `mean_tol` of
+    forward's on average. Returns the counts, the gaps of the tokens that
+    differ and the log-prob errors."""
+    from fa2_triton_tpu_torch.models import llama
+
+    gaps, errs = [], []
+    for r, p in zip(reqs, prompts):
+        toks = torch.tensor([p + r.out_tokens[:-1]], device="cuda")
+        logits = llama.forward(model, toks)[0, len(p) - 1:].float()
+        out = torch.tensor(r.out_tokens, device="cuda")[:, None]
+        gap = (logits.max(-1).values - logits.gather(-1, out)[:, 0]).cpu().numpy()
+        lp = torch.log_softmax(logits, -1).gather(-1, out)[:, 0].cpu().numpy()
+        gaps += [float(g) for g in gap if g > 0]
+        errs.append(np.abs(lp - np.array(r.out_logprobs)))
+        del logits
+    err = np.concatenate(errs)
+    agree = 1.0 - len(gaps) / err.size
+    res = {"tokens": int(err.size), "differ": len(gaps), "gaps": sorted(gaps), "agree": agree,
+           "lp_mean": float(err.mean()), "lp_max": float(err.max())}
+    rule = f"tie bound {tie}" if tie is not None else f"at least {agree_min} equal"
+    print(f"[{what}] served tokens vs `forward` on the same model, teacher-forced "
+          f"({len(reqs)} requests, {err.size} tokens): {len(gaps)} differ from its argmax "
+          f"({agree:.3f} equal), at top-two gaps {[round(g, 4) for g in sorted(gaps)]} ({rule}); "
+          f"log-probs: mean abs err {err.mean():.3e} (tol {mean_tol}), max {err.max():.3e}")
+    if ((tie is not None and gaps and max(gaps) > tie)
+            or (tie is None and not agree >= agree_min) or not err.mean() <= mean_tol):
+        raise AssertionError(f"{what}: the served tokens disagree with forward's greedy tokens")
+    return res
+
+
+def moe_drops(torch, model, tokens):
+    """moe_mlp's drops at the default capacity, layer by layer, on `tokens`:
+    a no-grad `moe.forward` whose MLP counts the (token, choice) entries
+    past capacity and the tokens all of whose choices are."""
+    from fa2_triton_tpu_torch.models import moe
+
+    cfg, T = model.cfg, tokens.numel()
+    entries, whole = [], []
+
+    def counting(layer, x, c):
+        h = moe.rms_norm(x, layer.mlp_norm, c.norm_eps).reshape(T, -1)
+        keep = moe._slots(moe._route(h, layer.router, c)[1], c.n_experts, moe._capacity(c, T))[2]
+        entries.append(int((~keep).sum()))
+        whole.append(int((~keep.view(c.top_k, T).any(0)).sum()))
+        return moe.moe_mlp(layer, x, c)
+
+    with torch.no_grad():
+        moe.forward(model, tokens, mlp_fn=counting)
+    return {"capacity": moe._capacity(cfg, T), "entries": cfg.top_k * T,
+            "dropped": entries, "tokens_dropped": whole}
+
+
+def moe_train(torch, card):
+    """(a) `examples/train.py --config mixtral-8x7b-v0.1 --layers 5`: every
+    gradient of the warm-up (step 0's), the routers' included, finite and
+    the routers' nonzero; drops per layer on the batch; finite, falling
+    losses; the generic forward twice (remat) and the dq + dk/dv pair once
+    a layer a step."""
+    from fa2_triton_tpu_torch.ops import flash_bwd, flash_fwd
+
+    drops = {}
+
+    def on_grads(model, tokens):
+        bad = [n for n, p in model.named_parameters()
+               if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+        if bad or not all(float(layer.router.grad.abs().max()) > 0 for layer in model.layers):
+            raise AssertionError(f"(a) gradients missing, not finite or zero at the router: {bad}")
+        drops.update(moe_drops(torch, model, tokens[:, :-1]))
+
+    def reset():
+        flash_fwd.LAUNCHES = 0
+        flash_bwd.reset_launches()
+
+    args, res = run_trainer(torch, card, MOE_TRAIN_ARGV, reset, "moe train", on_grads)
+    launches = {"flash_fwd": flash_fwd.LAUNCHES, **flash_bwd.LAUNCHES}
+    L, steps = res["config"].n_layers, args.steps
+    free = (torch.cuda.get_device_properties(0).total_memory - res["peak_bytes"]) / 2**30
+    print(f"[moe train] {res['config'].n_experts} experts, top-{res['config'].top_k}, capacity "
+          f"{drops['capacity']} of {drops['entries']} (token, choice) entries a layer; dropped a "
+          f"layer (step 0's weights): {drops['dropped']}, tokens with every choice dropped "
+          f"{drops['tokens_dropped']}; {free:.2f} GiB of the card left at the peak; launches "
+          f"{launches} [{card}]")
+    want = {"flash_fwd": 2 * L * steps, "flash_bwd_dq": L * steps, "flash_bwd_dkdv": L * steps,
+            "flash_bwd_dbias": 0}
+    if launches != want:
+        raise AssertionError(f"(a) training launches {launches} != {want}")
+    return {"launches": launches, "losses": res["losses"], "step_s": res["step_s"],
+            "tokens_per_s": res["tokens_per_s"], "peak_gib": res["peak_bytes"] / 2**30,
+            "free_gib": free, **drops}
+
+
+def moe_truth(torch, layer, x, cfg):
+    """The fp32 evaluation of one MoE block on the block's own routing (the
+    same rms_norm output in x's dtype, so the same experts and weights):
+    each expert's SwiGLU in fp32 on the tokens routed to it, weighted and
+    summed in fp32, plus x."""
+    import torch.nn.functional as F
+
+    from fa2_triton_tpu_torch.models import moe
+
+    T, D = x.shape[0] * x.shape[1], x.shape[-1]
+    h = moe.rms_norm(x, layer.mlp_norm, cfg.norm_eps).reshape(T, D)
+    weights, idx, _ = moe._route(h, layer.router, cfg)
+    out = torch.zeros(T, D, dtype=torch.float32, device=x.device)
+    for e in range(cfg.n_experts):
+        t, j = (idx == e).nonzero(as_tuple=True)
+        hf = h[t].float()
+        y = (F.silu(hf @ layer.we_gate[e].float()) * (hf @ layer.we_up[e].float())) \
+            @ layer.we_down[e].float()
+        out.index_add_(0, t, weights[t, j, None] * y)
+    return x.float() + out.view(x.shape)
+
+
+def plain_slots(idx, n_experts, capacity):
+    """JAX's rule index by index (`_dispatch_tensors`): the choices flattened
+    j-major, each entry's position the count of earlier entries of its
+    expert, kept below capacity."""
+    flat = idx.t().reshape(-1).cpu().numpy()
+    seen = np.zeros(n_experts, np.int64)
+    pos = np.empty(flat.size, np.int64)
+    for i, e in enumerate(flat):
+        pos[i] = seen[e]
+        seen[e] += 1
+    return pos, pos < capacity
+
+
+def moe_block(torch, card):
+    """(b) One Mixtral layer, bf16, T = MOE_BLOCK_T: `moe_mlp` at capacity T
+    against the fp32 evaluation under the FA output rule, the dense block
+    its yardstick; the slots at the default and a small capacity equal to
+    `plain_slots` bit for bit, and each token whose choices all dropped
+    keeps its residual bit for bit; the router's gradient finite and
+    nonzero; the block's times."""
+    from fa2_triton_tpu_torch.examples.train import preset_config
+    from fa2_triton_tpu_torch.models import moe
+
+    cfg = preset_config("mixtral-8x7b-v0.1", torch.bfloat16, n_layers=1)
+    layer = moe.init_params(torch.Generator(device="cuda").manual_seed(0), cfg).layers[0]
+    T, D, E, k = MOE_BLOCK_T, cfg.dim, cfg.n_experts, cfg.top_k
+    x = torch.randn(2, BWD_SEQ, D, generator=torch.Generator(device="cuda").manual_seed(1),
+                    device="cuda").to(torch.bfloat16)
+    res = {}
+    with torch.no_grad():
+        truth = moe_truth(torch, layer, x, cfg)
+        sparse, _ = moe.moe_mlp(layer, x, cfg, capacity=T)
+        dense, _ = moe.moe_mlp_dense(layer, x, cfg)
+        err, yard = max_abs(torch, sparse, truth), max_abs(torch, dense, truth)
+        del truth
+        print(f"[moe block] Mixtral-8x7B-v0.1 layer, bf16, T {T}: moe_mlp at capacity T vs the fp32 "
+              f"evaluation {err:.3e}, the dense block's {yard:.3e} (FA rule: <= {OUT_ERROR_MUL} x "
+              f"+ {OUT_ERROR_BIAS})")
+        if not err <= OUT_ERROR_MUL * yard + OUT_ERROR_BIAS:
+            raise AssertionError("(b) moe_mlp at capacity T breaks the FA rule")
+        idx = moe._route(moe.rms_norm(x, layer.mlp_norm, cfg.norm_eps).reshape(T, D),
+                         layer.router, cfg)[1]
+        for C in (moe._capacity(cfg, T), MOE_SMALL_CAPACITY):
+            _, pos, keep = moe._slots(idx, E, C)
+            ref_pos, ref_keep = plain_slots(idx, E, C)
+            if not (np.array_equal(pos.cpu().numpy(), ref_pos)
+                    and np.array_equal(keep.cpu().numpy(), ref_keep)):
+                raise AssertionError(f"(b) slots at capacity {C} differ from JAX's rule")
+            out = moe.moe_mlp(layer, x, cfg, capacity=C)[0].view(T, D)
+            gone = ~keep.view(k, T).any(0)
+            if not torch.equal(out[gone], x.view(T, D)[gone]):
+                raise AssertionError(f"(b) a token dropped at capacity {C} is not its residual")
+            res[C] = {"dropped": int((~keep).sum()), "tokens_dropped": int(gone.sum())}
+        sparse_ms = cuda_ms(torch, lambda: moe.moe_mlp(layer, x, cfg))
+        dense_ms = cuda_ms(torch, lambda: moe.moe_mlp_dense(layer, x, cfg))
+    out, aux = moe.moe_mlp(layer, x, cfg)
+    (out.float().square().mean() + aux).backward()
+    g = layer.router.grad
+    if not (torch.isfinite(g).all() and g.abs().max() > 0):
+        raise AssertionError("(b) the router's gradient is not finite and nonzero")
+    print(f"[moe block] slots equal to JAX's rule rebuilt index by index at capacity "
+          f"{list(res)} of {k * T} entries; drops {res} (every fully dropped token equal to its "
+          f"residual); router gradient finite, max {float(g.abs().max()):.3e}; moe_mlp "
+          f"{sparse_ms:.3f} ms, moe_mlp_dense {dense_ms:.3f} ms [{card}]")
+    return {"max_abs_err": err, "dense_err": yard, "drops": res, "ms": sparse_ms,
+            "dense_ms": dense_ms}
+
+
+def moe_serve(torch, card):
+    """(c) Mixtral at MOE_SERVE_LAYERS layers served by the paged Engine:
+    ZOO_REQUESTS of phase 3's prompts, NEW_TOKENS greedy each, then
+    `forward_greedy_check` by share and mean (bf16); then the same requests
+    at MOE_EXACT_LAYERS layers in fp32, held token by token."""
+    from fa2_triton_tpu_torch.examples.train import preset_config
+    from fa2_triton_tpu_torch.models import init_params
+
+    cfg = preset_config("mixtral-8x7b-v0.1", torch.bfloat16, n_layers=MOE_SERVE_LAYERS)
+    t0 = time.perf_counter()
+    model = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    print(f"[serve moe] Mixtral-8x7B-v0.1 widths, {cfg.n_layers} of 32 layers, "
+          f"{sum(p.numel() for p in model.parameters()) / 1e9:.2f} B params bf16, random (seed 0), "
+          f"init {time.perf_counter() - t0:.1f} s")
+    prompts = served_prompts(cfg)[:ZOO_REQUESTS]
+    with torch.inference_mode():
+        reqs, _, launches, step_s = serve(torch, model, cfg, prompts, card, "serve moe")[:4]
+        check = forward_greedy_check(torch, model, cfg, reqs, prompts, "serve moe", tie=None,
+                                     mean_tol=MOE_LOGPROB_MEAN_TOL, agree_min=MOE_AGREE_MIN)
+    del model, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    c32 = preset_config("mixtral-8x7b-v0.1", torch.float32, n_layers=MOE_EXACT_LAYERS)
+    m32 = init_params(torch.Generator(device="cuda").manual_seed(0), c32)
+    with torch.inference_mode():
+        reqs, _, launches32 = serve(torch, m32, c32, prompts, card, "serve moe fp32")[:3]
+        exact = forward_greedy_check(torch, m32, c32, reqs, prompts, "serve moe fp32",
+                                     tie=FP32_TIE_GAP, mean_tol=FP32_TOL)
+    return {"launches": {k: launches[k] + launches32[k] for k in ("flash_fwd", "decode")},
+            "decode_step_ms": 1e3 * float(np.mean(step_s)), **check,
+            "fp32": {k: exact[k] for k in ("differ", "gaps", "lp_mean", "lp_max")}}
+
+
+def lora_train(torch, card):
+    """(d) LoRA at Mistral-7B-v0.3 widths, full depth: rank LORA_RANK
+    adapters on `lora.DEFAULT_TARGETS`, alpha LORA_ALPHA, LORA_STEPS AdamW
+    + clip steps on the adapters alone at 2 x TRAIN_SEQ, remat, on one
+    repeated batch (counts reset after a warm-up): finite, falling losses,
+    the base bit for bit as it was; then the merged model serves
+    LORA_REQUESTS prompts (contiguous), held by `forward_greedy_check`."""
+    from fa2_triton_tpu_torch.examples.train import make_optimizer, optimizer_step, preset_config
+    from fa2_triton_tpu_torch.models import init_params, llama, lora
+    from fa2_triton_tpu_torch.ops import flash_bwd, flash_fwd
+
+    cfg = preset_config("mistral-7b-v0.3", torch.bfloat16, remat=True)
+    base = init_params(torch.Generator(device="cuda").manual_seed(0), cfg).requires_grad_(False)
+    before = {n: p.clone() for n, p in base.named_parameters()}
+    adapters = lora.init_lora(torch.Generator(device="cuda").manual_seed(1), base, rank=LORA_RANK)
+    opt = make_optimizer(adapters, LORA_LR)
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (2, TRAIN_SEQ))).cuda()
+
+    def loss_of():
+        return lora.lora_loss_fn(base, adapters, tokens, llama.loss_fn, LORA_ALPHA)
+
+    loss_of().backward()                    # warm-up, gradients dropped
+    adapters.zero_grad(set_to_none=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, step_s = [], []
+    for _ in range(LORA_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = loss_of()
+        loss.backward()
+        optimizer_step(adapters, opt, LORA_LR, 1.0)
+        losses.append(loss.item())
+        step_s.append(time.perf_counter() - t0)
+    launches = bwd_launches(flash_fwd, flash_bwd)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    same = all(torch.equal(p, before[n]) for n, p in base.named_parameters())
+    n_adapt = sum(p.numel() for p in adapters.parameters())
+    print(f"[lora] Mistral-7B-v0.3 widths, 32 layers, rank {LORA_RANK} on {lora.DEFAULT_TARGETS} "
+          f"({n_adapt / 1e6:.2f} M adapter params), alpha {LORA_ALPHA}, AdamW(lr {LORA_LR}) + clip "
+          f"1.0, {LORA_STEPS} steps of 2 x {TRAIN_SEQ}, remat, one repeated batch: losses "
+          f"{[round(x, 4) for x in losses]}; step s {[round(x, 3) for x in step_s]}, "
+          f"{tokens[:, 1:].numel() / np.median(step_s):.0f} tokens/s (median step), peak "
+          f"{peak:.2f} GiB; base bit for bit unchanged: {same}; launches {launches} [{card}]")
+    L = cfg.n_layers
+    want = {"flash_fwd": 2 * L * LORA_STEPS, "flash_bwd_dq": L * LORA_STEPS,
+            "flash_bwd_dkdv": L * LORA_STEPS}
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0] and same
+            and all(launches[key] == n for key, n in want.items())):
+        raise AssertionError(f"(d) LoRA: losses {losses}, base unchanged {same}, launches "
+                             f"{launches} (want {want})")
+    del before, opt
+    merged = lora.merged_model(base, adapters, LORA_ALPHA)
+    prompts = served_prompts(cfg)[:LORA_REQUESTS]
+    with torch.inference_mode():
+        reqs, _, serve_launches = serve(torch, merged, cfg, prompts, card, "serve lora")[:3]
+        check = forward_greedy_check(torch, merged, cfg, reqs, prompts, "serve lora")
+    return {"launches": launches, "serve_launches": serve_launches, "losses": losses,
+            "step_s": step_s, "peak_gib": peak, **check}
+
+
+def wquant_serve(torch, card, model, cfg, prompts):
+    """(e) Phase 3's model quantized (`quantize_model_params`, int8 and fp8
+    weights): weight bytes against bf16; layer 0's `w_gate` qmatmul on 1024
+    rows against x @ (values x scales) in fp32 within QMM_REL of each entry
+    + QMM_SUM_TOL of its sum of |products|, timed beside the bf16 matmul;
+    ZOO_REQUESTS of phase 3's requests served paged, held by
+    `forward_greedy_check`."""
+    from fa2_triton_tpu_torch.models import quantize_model_params
+    from fa2_triton_tpu_torch.ops.quant import qmatmul
+
+    bf16_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    x = torch.randn(1024, cfg.dim, generator=torch.Generator(device="cuda").manual_seed(2),
+                    device="cuda").to(torch.bfloat16)
+    runs = {}
+    for qname, short in (("int8", "int8"), ("float8_e4m3fn", "fp8")):
+        qm = quantize_model_params(model, getattr(torch, qname))
+        q_bytes = sum(t.numel() * t.element_size()
+                      for t in itertools.chain(qm.parameters(), qm.buffers()))
+        w = qm.layers[0].w_gate
+        wf = w["qvalues"].float() * w["qscale"]
+        ref = x.float() @ wf
+        err = (qmatmul(x, w).float() - ref).abs()
+        bound = QMM_REL * ref.abs() + QMM_SUM_TOL * (x.float().abs() @ wf.abs())
+        worst = float((err / bound).max())
+        del wf, ref, err, bound
+        q_ms = cuda_ms(torch, lambda: qmatmul(x, w))
+        b_ms = cuda_ms(torch, lambda: x @ model.layers[0].w_gate)
+        print(f"[wquant {short}] weights {q_bytes / 1e9:.3f} GB against bf16 {bf16_bytes / 1e9:.3f} "
+              f"GB; layer 0 w_gate qmatmul on 1024 x {cfg.dim}: worst error {worst:.3f} of its "
+              f"bound, {q_ms:.3f} ms (bf16 matmul {b_ms:.3f} ms) [{card}]")
+        if not worst <= 1.0:
+            raise AssertionError(f"(e) {short} qmatmul off x @ (values x scales)")
+        reqs, _, launches, step_s = serve(torch, qm, cfg, prompts[:ZOO_REQUESTS], card,
+                                          f"serve wquant {short}")[:4]
+        check = forward_greedy_check(torch, qm, cfg, reqs, prompts[:ZOO_REQUESTS],
+                                     f"serve wquant {short}")
+        runs[short] = {"launches": launches, "weight_gb": q_bytes / 1e9, "qmatmul_err": worst,
+                       "qmatmul_ms": q_ms, "bf16_matmul_ms": b_ms,
+                       "decode_step_ms": 1e3 * float(np.mean(step_s)), **check}
+        del qm, w
+        torch.cuda.empty_cache()
+    runs["bf16_weight_gb"] = bf16_bytes / 1e9
+    return runs
+
+
+def phase_zoo(torch, card):
+    """Phase 15 (a)-(d), after the served model is freed ((e) runs on it
+    before): each part's results by name."""
+    out = {}
+    for name, part in (("moe_block", moe_block), ("moe_train", moe_train),
+                       ("moe_serve", moe_serve), ("lora", lora_train)):
+        out[name] = part(torch, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def check_grad(torch, name, g, ref, plain, what):
     """The FA gradient contract for one gradient against the fp32 truth
     `ref`, with the low-precision plain twin's error as the yardstick."""
@@ -1976,14 +2404,15 @@ def phase_train_grads(torch):
           f"launches {launches}")
 
 
-def run_trainer(torch, card: str, argv, reset, tag: str):
+def run_trainer(torch, card: str, argv, reset, tag: str, on_grads=None):
     """Full-depth training steps through `examples/train.py` with the launch
-    counts reset (`reset`) after its warm-up: every loss finite and the last
-    below the first. Returns (the parsed args, train.run's result)."""
+    counts reset (`reset`) after its warm-up (`on_grads` sees its
+    gradients): every loss finite and the last below the first. Returns (the
+    parsed args, train.run's result)."""
     from fa2_triton_tpu_torch.examples import train
 
     args = train.parse_args(argv)
-    res = train.run(args, on_warm=reset)
+    res = train.run(args, on_warm=reset, on_grads=on_grads)
     cfg, losses = res["config"], res["losses"]
     print(f"[{tag}] {args.config} widths, {cfg.n_layers} layers, {res['n_params'] / 1e9:.2f} B "
           f"params bf16, remat, AdamW(lr {args.lr}, wd 0.01) + clip {args.grad_clip}, {args.steps} "
@@ -3878,9 +4307,12 @@ def main() -> int:
         chunked = phase_chunked(torch, card, model, cfg, prompts)
         torch.cuda.empty_cache()
         spec = phase_speculative(torch, card, model, cfg, prompts)
+        torch.cuda.empty_cache()
+        wquant = wquant_serve(torch, card, model, cfg, prompts)
     del model, reqs  # the served model and its cache make way for training
     gc.collect()
     torch.cuda.empty_cache()
+    zoo = phase_zoo(torch, card)
     gpt2_run = phase_gpt2(torch, card)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3931,10 +4363,26 @@ def main() -> int:
                          **{k: v for k, v in spec["full"].items() if k != "verify_call"}},
          "gpt2": {k: gpt2_run[k] for k in ("routes", "losses", "step_ms", "peak_gib",
                                            "grads_worst", "cache_err", "decode_ms")},
-         "gpt2_forward_d64": gpt2_run["attention"]["forward"]},
+         "gpt2_forward_d64": gpt2_run["attention"]["forward"],
+         "launches_moe_train": zoo["moe_train"]["launches"]["flash_fwd"],
+         "launches_moe_serve": zoo["moe_serve"]["launches"]["flash_fwd"],
+         "launches_lora": zoo["lora"]["launches"]["flash_fwd"]
+         + zoo["lora"]["serve_launches"]["flash_fwd"],
+         "launches_wquant": sum(wquant[q]["launches"]["flash_fwd"] for q in ("int8", "fp8")),
+         "model_zoo": {
+             "moe_train": {k: zoo["moe_train"][k] for k in (
+                 "losses", "step_s", "tokens_per_s", "peak_gib", "free_gib", "capacity",
+                 "dropped", "tokens_dropped")},
+             "moe_block": zoo["moe_block"],
+             "moe_serve": {k: v for k, v in zoo["moe_serve"].items() if k != "launches"},
+             "lora": {k: zoo["lora"][k] for k in ("losses", "step_s", "peak_gib", "differ",
+                                                  "lp_mean")},
+             "wquant": {q: {k: v for k, v in r.items() if k != "launches"} if isinstance(r, dict)
+                        else r for q, r in wquant.items()}}},
         {"name": "decode", "route": "cuda", "source": "fa2_triton_tpu_torch/csrc/decode.cuh",
          "replaces": "fa2_triton_tpu/ops/decode.py:158",
          "launches": launches["decode"], "launches_chunked": chunked["chunked"]["decode"],
+         "launches_lora": zoo["lora"]["serve_launches"]["decode"],
          **kernels["decode"], "build": decode_build},
         {"name": "decode_quant", "route": "cuda", "source": "fa2_triton_tpu_torch/csrc/decode.cuh",
          "replaces": "fa2_triton_tpu/ops/decode.py:74",
@@ -3946,15 +4394,22 @@ def main() -> int:
          "also_replaces": "fa2_triton_tpu/ops/decode.py:280",
          "launches": sum(n for run in served.values() for v, n in run.items() if "paged" in v),
          "launches_by_run": {r: v for r, v in served.items() if r.startswith("paged")},
-         "launches_prefix": chunked["prefix"]["decode"], **kernels["paged_decode"]},
+         "launches_prefix": chunked["prefix"]["decode"],
+         "launches_moe_serve": zoo["moe_serve"]["launches"]["decode"],
+         "launches_wquant": sum(wquant[q]["launches"]["decode"] for q in ("int8", "fp8")),
+         **kernels["paged_decode"]},
         {"name": "flash_bwd_dq", "route": "cuda", "source": "fa2_triton_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "fa2_triton_tpu/ops/flash_bwd.py:159",
          "also_replaces": "fa2_triton_tpu/ops/flash_bwd.py:602 (B12), fa2_triton_tpu/ops/flash_bwd.py:376 (B2)",
-         "launches": train_launches["flash_bwd_dq"], **kernels["flash_bwd_dq"]},
+         "launches": train_launches["flash_bwd_dq"],
+         "launches_moe_train": zoo["moe_train"]["launches"]["flash_bwd_dq"],
+         "launches_lora": zoo["lora"]["launches"]["flash_bwd_dq"], **kernels["flash_bwd_dq"]},
         {"name": "flash_bwd_dkdv", "route": "cuda", "source": "fa2_triton_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "fa2_triton_tpu/ops/flash_bwd.py:263",
          "also_replaces": "fa2_triton_tpu/ops/flash_bwd.py:602 (B12), fa2_triton_tpu/ops/flash_bwd.py:376 (B2)",
-         "launches": train_launches["flash_bwd_dkdv"], **kernels["flash_bwd_dkdv"]},
+         "launches": train_launches["flash_bwd_dkdv"],
+         "launches_moe_train": zoo["moe_train"]["launches"]["flash_bwd_dkdv"],
+         "launches_lora": zoo["lora"]["launches"]["flash_bwd_dkdv"], **kernels["flash_bwd_dkdv"]},
         {"name": "flash_bwd_dbias", "route": "cuda", "source": "fa2_triton_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "fa2_triton_tpu/ops/flash_bwd.py:1357",
          "launches": bias_launches["flash_bwd_dbias"], **kernels["flash_bwd_dbias"],

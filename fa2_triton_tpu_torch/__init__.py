@@ -14,7 +14,10 @@ behind `flash_attn_func`'s autograd, `loss_fn`, remat and
 (`ops/varlen.py`, forward and backward kernels), and attention dropout in
 every attention kernel (the JAX package's counter-hash stream,
 `utils/rng.py`, bit for bit) with the `FlashSelfAttention` module
-(`layers.py`). This package never imports JAX.
+(`layers.py`), chunked prefill, the prefix cache, sampling and speculative
+decoding, and the model zoo (`models/`: LLaMA, GPT-2, the Mixtral-style
+MoE family, LoRA, weight-only int8 / fp8 models, the Hugging Face
+loaders). This package never imports JAX.
 """
 
 from fa2_triton_tpu_torch.ops import (

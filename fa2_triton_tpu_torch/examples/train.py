@@ -4,6 +4,8 @@
         --steps 4 --batch 2 --seq 2048 --remat
     python -m fa2_triton_tpu_torch.examples.train --config qwen1.5-7b \\
         --steps 3 --batch 1 --seq 8192 --remat
+    python -m fa2_triton_tpu_torch.examples.train --config mixtral-8x7b-v0.1 \\
+        --layers 5 --steps 3 --batch 2 --seq 2048 --remat
 
 One process on one device: the first CUDA device, or the CPU with an
 explicit `--device cpu` (the kernels' plain twins; tiny sizes only). There
@@ -20,8 +22,11 @@ Two faults of the JAX script (ROADMAP.md queue C) are not copied: the
 warm-up is one forward and backward on the first batch whose gradients are
 dropped, with no optimizer step, so it leaves the state as it was; and
 there is no stacked multi-step dispatch, so nothing recompiles. The JAX
-script's mesh, MoE, corpus and checkpoint options raise with a pointer to
-ROADMAP.md.
+script's mesh, corpus and checkpoint options raise with a pointer to
+ROADMAP.md. `--moe E` trains the Mixtral-style MoE family
+(`models/moe.py`: E experts, top-2, capacity factor 1.25) through
+`moe.loss_fn`, as the JAX script does (`init_params` builds the MoE layers
+of an `MoEConfig`); so does the `mixtral-8x7b-v0.1` preset.
 """
 from __future__ import annotations
 
@@ -33,7 +38,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from fa2_triton_tpu_torch.models import LlamaConfig, init_params, loss_fn
+from fa2_triton_tpu_torch.models import LlamaConfig, init_params, loss_fn, moe
 
 # Published widths, from
 # https://huggingface.co/mistralai/Mistral-7B-v0.3/blob/main/config.json:
@@ -48,6 +53,16 @@ from fa2_triton_tpu_torch.models import LlamaConfig, init_params, loss_fn
 # use_sliding_window false, and q/k/v projection biases. 7.72 B parameters,
 # 15.4 GB in bf16. Its MHA takes the causal backward schedules of
 # ops/flash_bwd.py: the tri-square at seq 2048, the work list at seq 8192.
+#
+# Mixtral-8x7B-v0.1, from
+# https://huggingface.co/mistralai/Mixtral-8x7B-v0.1/blob/main/config.json:
+# vocab 32000, hidden 4096, 32 layers, 32 heads, 8 KV heads, head_dim 128,
+# intermediate 14336, 8 local experts, 2 per token, rope_theta 1e6,
+# rms_norm_eps 1e-5, max_position_embeddings 32768, no sliding window,
+# untied lm_head, router_aux_loss_coef 0.02. 46.7 B parameters (each layer
+# 1.451 B: experts 1.409 B, attention 0.042 B; embedding and head 0.262 B).
+# Mixtral routes without dropping tokens; the port's training block keeps
+# the JAX package's capacity factor 1.25 (models/moe.py).
 PRESETS = {
     "mistral-7b-v0.3": dict(
         vocab_size=32768, dim=4096, n_layers=32, n_heads=32, n_kv_heads=8,
@@ -57,23 +72,35 @@ PRESETS = {
         vocab_size=151936, dim=4096, n_layers=32, n_heads=32, n_kv_heads=32,
         hidden_dim=11008, head_dim=128, rope_theta=1e6, norm_eps=1e-6,
         max_seq_len=32768, sliding_window=-1, qkv_bias=True),
+    "mixtral-8x7b-v0.1": dict(
+        vocab_size=32000, dim=4096, n_layers=32, n_heads=32, n_kv_heads=8,
+        hidden_dim=14336, head_dim=128, rope_theta=1e6, norm_eps=1e-5,
+        max_seq_len=32768, sliding_window=-1, n_experts=8, top_k=2,
+        router_aux_coef=0.02),
 }
 
 NOT_PORTED = {
     "dp": "data parallelism (ROADMAP.md queue A.7)",
     "tp": "tensor parallelism (ROADMAP.md queue A.7)",
     "fsdp": "FSDP / ZeRO-3 (ROADMAP.md queue A.7)",
-    "moe": "MoE layers (ROADMAP.md queue A.5)",
     "data": "the token corpus loader utils/data.py (ROADMAP.md queue A.6)",
     "ckpt_dir": "checkpointing through ResilientTrainer (ROADMAP.md queue A.6)",
     "save_every": "checkpointing through ResilientTrainer (ROADMAP.md queue A.6)",
 }
 # Values of those flags that mean "off", as in the JAX script.
-_OFF = {"dp": 1, "tp": 1, "moe": 0}
+_OFF = {"dp": 1, "tp": 1}
 
 
 def preset_config(name: str, dtype=torch.bfloat16, **overrides) -> LlamaConfig:
-    return LlamaConfig(**{**PRESETS[name], "dtype": dtype, **overrides})
+    """The preset's config (an `MoEConfig` where it has experts)."""
+    kw = {**PRESETS[name], "dtype": dtype, **overrides}
+    return (moe.MoEConfig if "n_experts" in kw else LlamaConfig)(**kw)
+
+
+def model_loss(cfg: LlamaConfig):
+    """The loss a config trains on: `moe.loss_fn` (with the router's aux
+    loss) for an MoE config, else `loss_fn`."""
+    return moe.loss_fn if isinstance(cfg, moe.MoEConfig) else loss_fn
 
 
 def lr_at(step: int, peak: float, steps: int, warmup: int) -> float:
@@ -111,9 +138,9 @@ def optimizer_step(model, opt: torch.optim.Optimizer, lr: float, grad_clip: floa
 
 def train_step(model, opt: torch.optim.Optimizer, tokens: torch.Tensor, lr: float,
                grad_clip: float) -> torch.Tensor:
-    """One step: loss, backward, `optimizer_step`. Returns the loss
-    (detached, on the device)."""
-    loss = loss_fn(model, tokens)
+    """One step: loss (`model_loss`), backward, `optimizer_step`. Returns
+    the loss (detached, on the device)."""
+    loss = model_loss(model.cfg)(model, tokens)
     loss.backward()
     optimizer_step(model, opt, lr, grad_clip)
     return loss.detach()
@@ -138,7 +165,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--remat", action="store_true", help="per-layer gradient checkpointing")
     ap.add_argument("--repeat-batch", action="store_true",
                     help="train on the first batch every step (the loss must fall)")
-    for flag in ("--dp", "--tp", "--moe"):
+    ap.add_argument("--moe", type=int, default=0, metavar="E",
+                    help="MoE layers of E experts, top-2 (0 = dense; overrides a preset's count)")
+    for flag in ("--dp", "--tp"):
         ap.add_argument(flag, type=int, default=None, help="not ported: raises")
     ap.add_argument("--fsdp", action="store_true", default=None, help="not ported: raises")
     ap.add_argument("--data", default=None, help="not ported: raises")
@@ -161,17 +190,24 @@ def build_config(args) -> LlamaConfig:
         over = {"remat": args.remat, "max_seq_len": max(args.seq, PRESETS[args.config]["max_seq_len"])}
         if args.layers is not None:
             over["n_layers"] = args.layers
+        if args.moe:
+            over["n_experts"] = args.moe
         return preset_config(args.config, dtype, **over)
     dim = args.dim or 512
-    return LlamaConfig(vocab_size=32000, dim=dim, n_layers=args.layers or 4, n_heads=8,
-                       n_kv_heads=2, hidden_dim=int(dim * 2.75) // 128 * 128,
-                       max_seq_len=args.seq, dtype=dtype, remat=args.remat)
+    extra = dict(n_experts=args.moe) if args.moe else {}
+    return (moe.MoEConfig if args.moe else LlamaConfig)(
+        vocab_size=32000, dim=dim, n_layers=args.layers or 4, n_heads=8, n_kv_heads=2,
+        hidden_dim=int(dim * 2.75) // 128 * 128, max_seq_len=args.seq, dtype=dtype,
+        remat=args.remat, **extra)
 
 
-def run(args, on_warm: Optional[Callable[[], None]] = None) -> Dict:
+def run(args, on_warm: Optional[Callable[[], None]] = None,
+        on_grads: Optional[Callable[[torch.nn.Module, torch.Tensor], None]] = None) -> Dict:
     """Build, warm up (no state change), then take `args.steps` timed steps.
-    `on_warm` is called between the warm-up and the first step. Returns
-    losses, per-step seconds, tokens/s, peak device memory and the config."""
+    `on_grads(model, tokens)` is called after the warm-up's backward on the
+    first batch, before its gradients are dropped (they are step 0's), and
+    `on_warm` between the warm-up and the first step. Returns losses,
+    per-step seconds, tokens/s, peak device memory and the config."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but torch.cuda.is_available() is False; "
@@ -194,7 +230,9 @@ def run(args, on_warm: Optional[Callable[[], None]] = None) -> Dict:
     first = batch()
     # Warm-up: kernel build, cuBLAS and allocator set-up. Gradients are
     # dropped and the optimizer does not step, so the state is untouched.
-    loss_fn(model, first).backward()
+    model_loss(cfg)(model, first).backward()
+    if on_grads is not None:
+        on_grads(model, first)
     model.zero_grad(set_to_none=True)
     sync()
     if on_warm is not None:

@@ -13,13 +13,17 @@ tables), `chunk_prefill_step` (one prompt chunk against a slot's cached
 prefix; `paged_chunk_prefill_step` is its page-pool form) and the cached
 forward of speculative decoding (`forward_with_cache` over `init_kv_cache`'s
 BHSD caches through `make_cached_attention_fn`, that is
-`ops/attention.py:flash_attn_with_kv_cache`). Not yet ported: MoE layers
-(a "router" layer raises).
+`ops/attention.py:flash_attn_with_kv_cache`). A Mixtral-style MoE layer
+(`models/moe.py`: an fp32 `router` and experts `we_gate` / `we_up` /
+`we_down` in place of the dense MLP) takes every one of these paths through
+`_mlp_block`'s dense all-experts block, as in JAX. `quantize_model_params`
+makes a weight-only int8 / fp8 model that every path and the Engine take.
 
 Layout convention: activations [batch, seq, dim]; attention tensors BSHD.
 """
 from __future__ import annotations
 
+import copy
 import inspect
 import math
 from dataclasses import dataclass
@@ -33,7 +37,7 @@ from torch.utils.checkpoint import checkpoint
 from fa2_triton_tpu_torch.ops import flash_attn_func, flash_fwd
 from fa2_triton_tpu_torch.ops.attention import flash_attn_with_kv_cache, pad_head_dim, pad_last
 from fa2_triton_tpu_torch.ops.decode import decode_attention, paged_decode_attention
-from fa2_triton_tpu_torch.ops.quant import qmatmul as _mm
+from fa2_triton_tpu_torch.ops.quant import QuantizedWeight, qmatmul as _mm, quantize_weight
 from fa2_triton_tpu_torch.utils import resolve_device
 
 
@@ -96,8 +100,11 @@ def _param(*shape, dtype, device, fill=None):
 class LlamaLayer(nn.Module):
     """One decoder layer's parameters, named as in the JAX layer dict.
     Optional JAX keys (bq/bk/bv, q_norm/k_norm, post_attn_norm/post_mlp_norm)
-    are attributes set to None when absent. `device` defaults to the GPU
-    (`resolve_device`)."""
+    are attributes set to None when absent. A config with `n_experts`
+    (`models/moe.py:MoEConfig`) gives an MoE layer: `router` [dim, E] fp32
+    and `we_gate` / `we_up` [E, dim, hidden], `we_down` [E, hidden, dim] in
+    place of `w_gate` / `w_up` / `w_down` (then None); a dense layer's
+    `router` is None. `device` defaults to the GPU (`resolve_device`)."""
 
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
@@ -110,9 +117,19 @@ class LlamaLayer(nn.Module):
         self.wv = _param(d, cfg.n_kv_heads * hd, dtype=dt, device=device)
         self.wo = _param(cfg.n_heads * hd, d, dtype=dt, device=device)
         self.mlp_norm = _param(d, dtype=f32, device=device, fill=1.0)
-        self.w_gate = _param(d, cfg.hidden_dim, dtype=dt, device=device)
-        self.w_up = _param(d, cfg.hidden_dim, dtype=dt, device=device)
-        self.w_down = _param(cfg.hidden_dim, d, dtype=dt, device=device)
+        n_experts, h = getattr(cfg, "n_experts", 0), cfg.hidden_dim
+        if n_experts:
+            # The router stays fp32: a bf16 near tie would flip the choice.
+            self.router = _param(d, n_experts, dtype=f32, device=device)
+            self.we_gate = _param(n_experts, d, h, dtype=dt, device=device)
+            self.we_up = _param(n_experts, d, h, dtype=dt, device=device)
+            self.we_down = _param(n_experts, h, d, dtype=dt, device=device)
+            self.w_gate = self.w_up = self.w_down = None
+        else:
+            self.w_gate = _param(d, h, dtype=dt, device=device)
+            self.w_up = _param(d, h, dtype=dt, device=device)
+            self.w_down = _param(h, d, dtype=dt, device=device)
+            self.router = None
         if cfg.qkv_bias:
             self.bq = _param(cfg.n_heads * hd, dtype=f32, device=device, fill=0.0)
             self.bk = _param(cfg.n_kv_heads * hd, dtype=f32, device=device, fill=0.0)
@@ -143,10 +160,11 @@ class LlamaModel(nn.Module):
 
 @torch.no_grad()
 def init_params(generator: torch.Generator, cfg: LlamaConfig, device=None) -> LlamaModel:
-    """Random model: matmul weights and the embedding N(0, 1/fan_in) (drawn
-    in fp32 on the generator's device, then cast), norms 1, biases 0 — the
-    JAX `init_params` distribution. Torch and JAX draw different numbers
-    from the same seed; parity tests convert a JAX tree instead."""
+    """Random model: matmul weights (the MoE router and experts too) and the
+    embedding N(0, 1/fan_in) (drawn in fp32 on the generator's device, then
+    cast), norms 1, biases 0 — the JAX `init_params` distribution. Torch and
+    JAX draw different numbers from the same seed; parity tests convert a
+    JAX tree instead."""
     device = generator.device if device is None else device
     model = LlamaModel(cfg, device=device)
 
@@ -154,14 +172,12 @@ def init_params(generator: torch.Generator, cfg: LlamaConfig, device=None) -> Ll
         x = torch.randn(p.shape, generator=generator, dtype=torch.float32, device=device)
         p.copy_(x.div_(math.sqrt(fan_in)))
 
+    fan_in = {"wo": cfg.n_heads * cfg.hd, "w_down": cfg.hidden_dim, "we_down": cfg.hidden_dim}
     for layer in model.layers:
-        fill(layer.wq, cfg.dim)
-        fill(layer.wk, cfg.dim)
-        fill(layer.wv, cfg.dim)
-        fill(layer.wo, cfg.n_heads * cfg.hd)
-        fill(layer.w_gate, cfg.dim)
-        fill(layer.w_up, cfg.dim)
-        fill(layer.w_down, cfg.hidden_dim)
+        for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+                     "router", "we_gate", "we_up", "we_down"):
+            if getattr(layer, name, None) is not None:
+                fill(getattr(layer, name), fan_in.get(name, cfg.dim))
     fill(model.embed, cfg.dim)
     fill(model.lm_head, cfg.dim)
     return model
@@ -237,6 +253,14 @@ _ACTS = {
 
 
 def _mlp_block(layer: LlamaLayer, x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    if layer.router is not None:
+        # MoE layer: every path here (forward, prefill, decode, chunks, the
+        # cached forward, the Engine) takes the dense all-experts block, as
+        # JAX does: capacity routing would make a token's output depend on
+        # what else shares its batch.
+        from fa2_triton_tpu_torch.models.moe import moe_mlp_dense
+
+        return moe_mlp_dense(layer, x, cfg)[0]
     h = rms_norm(x, layer.mlp_norm, cfg.norm_eps)
     gated = _ACTS[cfg.hidden_act](_mm(h, layer.w_gate)) * _mm(h, layer.w_up)
     out = _mm(gated, layer.w_down)
@@ -630,3 +654,46 @@ def paged_chunk_prefill_step(
         return _cache_rows(view, total, pcfg.compute_dtype)
 
     return _chunk_layers(model, tokens, chunk_len, cache_len, write_and_view)
+
+
+QUANTIZABLE_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "lm_head")
+
+
+def shallow_copy(model: LlamaModel) -> LlamaModel:
+    """A new `LlamaModel` (and new layers) holding the same parameter
+    tensors as `model`: replacing a weight of the copy leaves `model` as it
+    was, and nothing is copied on the device."""
+    def one(m: nn.Module) -> nn.Module:
+        out = copy.copy(m)
+        for d in ("_parameters", "_buffers", "_modules"):
+            out.__dict__[d] = type(m.__dict__[d])(m.__dict__[d])
+        return out
+
+    out = one(model)
+    out.layers = nn.ModuleList(one(layer) for layer in model.layers)
+    return out
+
+
+def replace_weight(module: nn.Module, name: str, value) -> None:
+    """Set `module.name` to `value` (a module, a tensor or a Parameter) in
+    place of the parameter of that name."""
+    module._parameters.pop(name, None)
+    setattr(module, name, value)
+
+
+@torch.no_grad()
+def quantize_model_params(model: LlamaModel, qdtype=torch.int8) -> LlamaModel:
+    """Weight-only quantization (JAX `models/llama.py:quantize_model_params`):
+    a new model in which every weight named in QUANTIZABLE_KEYS is a
+    `QuantizedWeight` (int8 or float8_e4m3fn values, per-output-channel fp32
+    scales, `ops/quant.py:quantize_weight`), which every path multiplies
+    through `qmatmul`. The embedding, norms, biases and the MoE router and
+    experts are shared with `model`, unquantized."""
+    out = shallow_copy(model)
+    for layer in out.layers:
+        for key in QUANTIZABLE_KEYS[:-1]:
+            if getattr(layer, key) is not None:
+                replace_weight(layer, key,
+                               QuantizedWeight(**quantize_weight(getattr(layer, key), qdtype)))
+    replace_weight(out, "lm_head", QuantizedWeight(**quantize_weight(model.lm_head, qdtype)))
+    return out

@@ -8,13 +8,16 @@ division, round-half-to-even and clip, and fp8 by a plain cast.
 
 A quantized weight is a dict {"qvalues": int8 or float8_e4m3fn [in, out],
 "qscale": fp32 [1, out]} with per-output-channel scales, so the dequant
-folds into the matmul epilogue: x @ (wq * s) == (x @ wq) * s.
+folds into the matmul epilogue: x @ (wq * s) == (x @ wq) * s. Inside a
+model it is a `QuantizedWeight` module holding the two as buffers, which
+reads like the dict (`w["qvalues"]`).
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+from torch import nn
 
 INT8_MAX = 127.0
 FP8_MAX = 448.0  # float8_e4m3fn
@@ -58,8 +61,24 @@ def quantize_weight(w: torch.Tensor, qdtype=torch.int8) -> dict:
     return {"qvalues": vals, "qscale": scale}
 
 
+class QuantizedWeight(nn.Module):
+    """`quantize_weight`'s pair as module buffers, so a quantized model is
+    an `nn.Module` (it moves with `.to()`, and `state_dict` holds it);
+    `w["qvalues"]` / `w["qscale"]` read it as the dict is read."""
+
+    def __init__(self, qvalues: torch.Tensor, qscale: torch.Tensor):
+        super().__init__()
+        self.register_buffer("qvalues", qvalues)
+        self.register_buffer("qscale", qscale)
+
+    def __getitem__(self, key: str) -> torch.Tensor:
+        if key not in ("qvalues", "qscale"):
+            raise KeyError(key)
+        return getattr(self, key)
+
+
 def is_quantized_weight(w) -> bool:
-    return isinstance(w, dict) and "qvalues" in w
+    return isinstance(w, QuantizedWeight) or (isinstance(w, dict) and "qvalues" in w)
 
 
 def qmatmul(x: torch.Tensor, w) -> torch.Tensor:

@@ -1839,3 +1839,156 @@ def test_greedy_speculative_equals_greedy_reference(dev, gamma):
                                       + c.n_layers * (1 + st.draft_calls))
         if d is target:
             assert st.acceptance_rate == 1.0
+
+
+def _plain_attention(cfg):
+    from fa2_triton_tpu_torch.ops import flash_attn_reference
+
+    return lambda q, k, v: flash_attn_reference(q, k, v, causal=True, softmax_scale=cfg.scale)
+
+
+def _moe_truth(layer, x, cfg):
+    """An fp32 evaluation of an MoE block on the block's own routing (the
+    same rms_norm output in x's dtype, so the same experts): each expert's
+    SwiGLU on fp32 weights, the renormalized weights in fp32."""
+    import torch.nn.functional as F
+
+    from fa2_triton_tpu_torch.models import llama, moe
+
+    T, D = x.shape[0] * x.shape[1], x.shape[-1]
+    h = llama.rms_norm(x, layer.mlp_norm, cfg.norm_eps).reshape(T, D)
+    weights, idx, _ = moe._route(h, layer.router, cfg)
+    out = torch.zeros(T, D, dtype=torch.float32, device=x.device)
+    for e in range(cfg.n_experts):
+        t, j = (idx == e).nonzero(as_tuple=True)
+        hf = h[t].float()
+        y = (F.silu(hf @ layer.we_gate[e].float()) * (hf @ layer.we_up[e].float())) \
+            @ layer.we_down[e].float()
+        out.index_add_(0, t, weights[t, j, None] * y)
+    return x.float() + out.view(x.shape)
+
+
+def test_moe_block_on_cuda_matches_its_fp32_evaluation(dev):
+    """One bf16 MoE block (dim 512, 8 experts of 1024, T 1024): `moe_mlp`
+    at capacity T and the dense block under the FA output rule against the
+    fp32 evaluation of the same routing; at capacity T // 16 the tokens
+    whose choices all missed a slot keep their residual bit for bit; the
+    router and the experts get finite gradients."""
+    from fa2_triton_tpu_torch.models import moe
+
+    cfg = moe.MoEConfig(vocab_size=64, dim=512, n_layers=1, n_heads=8, n_kv_heads=2,
+                        hidden_dim=1024, dtype=torch.bfloat16)
+    layer = moe.init_params(torch.Generator(device=dev).manual_seed(0), cfg).layers[0]
+    x = torch.randn(2, 512, 512, generator=torch.Generator(device=dev).manual_seed(1),
+                    device=dev).to(torch.bfloat16)
+    T = 1024
+    with torch.no_grad():
+        truth = _moe_truth(layer, x, cfg)
+        sparse, _ = moe.moe_mlp(layer, x, cfg, capacity=T)
+        dense, _ = moe.moe_mlp_dense(layer, x, cfg)
+        _check(sparse, truth, dense, torch.bfloat16)
+        small, _ = moe.moe_mlp(layer, x, cfg, capacity=T // 16)
+        _, idx, _ = moe._route(moe.rms_norm(x, layer.mlp_norm, cfg.norm_eps).reshape(T, -1),
+                               layer.router, cfg)
+        none = ~moe._slots(idx, cfg.n_experts, T // 16)[2].view(2, T).any(dim=0)
+    assert none.any()
+    assert torch.equal(small.view(T, -1)[none], x.view(T, -1)[none])
+    out, aux = moe.moe_mlp(layer, x, cfg)
+    (out.float().square().mean() + aux).backward()
+    for name in ("router", "we_gate", "we_up", "we_down"):
+        g = getattr(layer, name).grad
+        assert torch.isfinite(g).all() and g.abs().max() > 0, name
+
+
+def test_moe_training_on_cuda_matches_plain_attention(dev):
+    """fp32 MoE model (2 layers, 4 / 2 heads of 64, 4 experts): `moe.loss_fn`
+    and every gradient, the router's included, through the forward and the
+    dq + dk/dv kernels against the same with the plain attention: 1e-4 x
+    (1 + max |grad|) (fp32 sums in another order; routing on equal fp32
+    logits)."""
+    from fa2_triton_tpu_torch.models import moe
+
+    cfg = moe.MoEConfig(vocab_size=256, dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                        hidden_dim=512, n_experts=4, dtype=torch.float32, remat=True)
+    model = moe.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    toks = torch.randint(0, 256, (2, 257), generator=torch.Generator().manual_seed(1)).to(dev)
+
+    def run(attention_fn):
+        model.zero_grad(set_to_none=True)
+        loss = moe.loss_fn(model, toks, attention_fn)
+        loss.backward()
+        return loss.item(), {n: p.grad.clone() for n, p in model.named_parameters()}
+
+    flash_fwd.reset_launches()
+    flash_bwd.reset_launches()
+    loss, grads = run(None)
+    torch.cuda.synchronize()
+    # S 256, group 2: the tri-square backward (flash_bwd.backward_route).
+    assert flash_fwd.LAUNCHES == 4 and flash_bwd.SCHEDULE_LAUNCHES["tri_square"] == 2
+    truth, truth_g = run(_plain_attention(cfg))
+    assert abs(loss - truth) <= 1e-4
+    for n, g in grads.items():
+        assert (g - truth_g[n]).abs().max() <= 1e-4 * (1 + truth_g[n].abs().max()), n
+
+
+@pytest.mark.parametrize("qdtype", [torch.int8, torch.float8_e4m3fn])
+def test_quantized_model_on_cuda_matches_plain_attention(dev, qdtype):
+    """A weight-only quantized fp32 model: the forward through the kernels
+    against the plain attention within 1e-4, and the paged Engine equal to
+    its own greedy forward."""
+    from fa2_triton_tpu_torch.models import llama
+    from fa2_triton_tpu_torch.runtime import Engine
+
+    cfg = llama.LlamaConfig(vocab_size=256, dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                            hidden_dim=512, dtype=torch.float32)
+    qm = llama.quantize_model_params(
+        llama.init_params(torch.Generator(device=dev).manual_seed(0), cfg), qdtype)
+    toks = torch.randint(0, 256, (2, 200), generator=torch.Generator().manual_seed(1)).to(dev)
+    with torch.no_grad():
+        flash_fwd.reset_launches()
+        got = llama.forward(qm, toks)
+        assert flash_fwd.LAUNCHES == cfg.n_layers
+        torch.testing.assert_close(got, llama.forward(qm, toks, _plain_attention(cfg)),
+                                   rtol=0, atol=1e-4)
+        prompt = toks[0, :150].tolist()
+        engine = Engine(qm, cfg, n_slots=2, max_seq=256, paged=True, page_size=128)
+        req = engine.submit(prompt, 6)
+        engine.run()
+        full = llama.forward(qm, torch.tensor([prompt + req.out_tokens[:-1]], device=dev))
+        top2 = full[0, len(prompt) - 1:].topk(2, dim=-1).values
+        assert float((top2[:, 0] - top2[:, 1]).min()) > 1e-3
+        assert req.out_tokens == full[0, len(prompt) - 1:].argmax(-1).tolist()
+
+
+def test_lora_merged_training_on_cuda_matches_plain_attention(dev):
+    """LoRA on an fp32 model with remat: `lora_loss_fn` and the adapter
+    gradients through the kernels against the plain attention within 1e-4
+    x (1 + max |grad|); the frozen base gets no gradient."""
+    from fa2_triton_tpu_torch.models import llama, lora
+
+    cfg = llama.LlamaConfig(vocab_size=256, dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                            hidden_dim=512, dtype=torch.float32, remat=True)
+    model = llama.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    model.requires_grad_(False)
+    adapters = lora.init_lora(torch.Generator(device=dev).manual_seed(1), model, rank=8)
+    with torch.no_grad():
+        for p in adapters.parameters():
+            p.add_(0.01)
+    toks = torch.randint(0, 256, (2, 257), generator=torch.Generator().manual_seed(1)).to(dev)
+
+    def run(attention_fn):
+        adapters.zero_grad(set_to_none=True)
+        loss = lora.lora_loss_fn(model, adapters, toks,
+                                 lambda m, t: llama.loss_fn(m, t, attention_fn))
+        loss.backward()
+        return loss.item(), {n: p.grad.clone() for n, p in adapters.named_parameters()}
+
+    flash_bwd.reset_launches()
+    loss, grads = run(None)
+    torch.cuda.synchronize()
+    assert flash_bwd.SCHEDULE_LAUNCHES["tri_square"] == cfg.n_layers
+    truth, truth_g = run(_plain_attention(cfg))
+    assert abs(loss - truth) <= 1e-4
+    for n, g in grads.items():
+        assert (g - truth_g[n]).abs().max() <= 1e-4 * (1 + truth_g[n].abs().max()), n
+    assert all(p.grad is None for p in model.parameters())

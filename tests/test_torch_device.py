@@ -8,7 +8,8 @@ import pytest
 torch = pytest.importorskip("torch")
 from fa2_triton_tpu_torch import FlashSelfAttention  # noqa: E402
 from fa2_triton_tpu_torch.layers import flash_self_attention_from_flax  # noqa: E402
-from fa2_triton_tpu_torch.models import GPT2Config, LlamaConfig, gpt2, init_params  # noqa: E402
+from fa2_triton_tpu_torch.models import (  # noqa: E402
+    GPT2Config, LlamaConfig, MoEConfig, gpt2, init_params, lora)
 from fa2_triton_tpu_torch.models.convert import (  # noqa: E402
     gpt2_from_jax_params, gpt2_to_jax_params, llama_from_jax_params, llama_to_jax_params)
 from fa2_triton_tpu_torch.models.llama import LlamaLayer, LlamaModel, init_kv_cache  # noqa: E402
@@ -18,13 +19,20 @@ from fa2_triton_tpu_torch.utils import resolve_device  # noqa: E402
 
 CFG = LlamaConfig(vocab_size=32, dim=32, n_layers=1, n_heads=2, n_kv_heads=1, hidden_dim=32,
                   dtype=torch.float32)
+MCFG = MoEConfig(vocab_size=32, dim=32, n_layers=1, n_heads=2, n_kv_heads=1, hidden_dim=32,
+                 dtype=torch.float32, n_experts=4)
 GCFG = GPT2Config(vocab_size=32, dim=32, n_layers=1, n_heads=2, hidden_dim=32, max_seq_len=16,
                   dtype=torch.float32, tie_embeddings=False)
 
 
-def _jax_tree():
+def _jax_tree(cfg=CFG):
     # init_params takes its device from the generator: a CPU one here.
-    return llama_to_jax_params(init_params(torch.Generator().manual_seed(0), CFG))
+    return llama_to_jax_params(init_params(torch.Generator().manual_seed(0), cfg))
+
+
+def _lora_tree():
+    model = init_params(torch.Generator().manual_seed(0), CFG)
+    return lora.lora_to_jax(lora.init_lora(torch.Generator().manual_seed(1), model, rank=2))
 
 
 def _gpt2_tree():
@@ -49,6 +57,12 @@ BUILDERS = {
     "llama_from_jax_params": (lambda **kw: llama_from_jax_params(_jax_tree(), CFG, **kw),
                               lambda m: list(m.parameters())),
     "LlamaModel": (lambda **kw: LlamaModel(CFG, **kw), lambda m: list(m.parameters())),
+    "LlamaModel (MoE)": (lambda **kw: LlamaModel(MCFG, **kw), lambda m: list(m.parameters())),
+    "llama_from_jax_params (MoE)": (
+        lambda **kw: llama_from_jax_params(_jax_tree(MCFG), MCFG, **kw),
+        lambda m: list(m.parameters())),
+    "lora.lora_from_jax": (lambda **kw: lora.lora_from_jax(_lora_tree(), **kw),
+                           lambda m: list(m.parameters())),
     "LlamaLayer": (lambda **kw: LlamaLayer(CFG, **kw), lambda m: list(m.parameters())),
     "FlashSelfAttention": (lambda **kw: FlashSelfAttention(32, 2, causal=True, **kw),
                            lambda m: list(m.parameters())),

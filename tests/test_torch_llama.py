@@ -119,10 +119,13 @@ def test_qkv_bias_and_qk_norm_keys_convert(models):
 
 
 def test_moe_layers_raise(models):
+    """MoE layers are ported (tests/test_torch_moe.py), under an MoEConfig:
+    a router tree with a plain LlamaConfig, or a tree that routes in some
+    layers only, raises."""
     jp, _ = models
     tree = jax.tree.map(np.asarray, jp)
     tree["layers"][0]["router"] = np.zeros((128, 4), np.float32)
-    with pytest.raises(NotImplementedError, match="MoE"):
+    with pytest.raises(ValueError, match="MoEConfig"):
         llama_from_jax_params(tree, T_CFG, device="cpu")
 
 

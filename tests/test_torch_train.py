@@ -120,7 +120,7 @@ def test_trainer_runs_on_the_cpu_and_the_loss_falls():
     assert res["tokens_per_step"] == 2 * 16
 
 
-@pytest.mark.parametrize("argv", [["--dp", "2"], ["--tp", "2"], ["--fsdp"], ["--moe", "4"],
+@pytest.mark.parametrize("argv", [["--dp", "2"], ["--tp", "2"], ["--fsdp"], ["--save-every", "5"],
                                   ["--data", "corpus.bin"], ["--ckpt-dir", "ckpt"]])
 def test_trainer_flags_not_ported_raise(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
