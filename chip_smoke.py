@@ -177,6 +177,29 @@ the CUDA toolkit. Phases (any failure raises, and the script exits nonzero):
    wv / wo, alpha 16) on the full-depth Mistral-7B-v0.3 model, 3 AdamW
    steps on the adapters at 2 x 2048, remat: falling losses, the base bit
    for bit unchanged, the launches; the merged model serving 2 prompts.
+16. The runtime and training extras (no kernel of their own; run last):
+   at Mistral-7B-v0.3 widths cut to 4 layers (1.14 B parameters; a
+   checkpoint of the bf16 weights and both AdamW moments is ~6.8 GB), on a
+   corpus of 64 windows of 2048 tokens written by `utils/data.py:
+   encode_corpus` from numpy.random.RandomState(0): (a) `examples/train.py
+   --data ... --ckpt-dir <tmp> --save-every 2` for 4 steps at 2 x 2048,
+   remat, then a fresh run to `--steps 6` from the same directory, which
+   must resume at step 4 with steps 4-5 equal bit for bit to an
+   uninterrupted 6-step run's (launch counts reset after its warm-up:
+   layers x 2 steps dq / dk/dv, twice that of the forward); the
+   checkpoint's bytes, its save (host copy) and write seconds, the restore
+   seconds; (b) on the state restored from step 6, a step whose loss is
+   multiplied by NaN must be skipped (`steps_skipped` 1) with every
+   parameter, AdamW moment and step count bit for bit unchanged; (c)
+   `examples/eval.py` on that checkpoint must give the cross-entropy of
+   `loss_fn` on the restored model over the same windows, exactly
+   (forward launches layers x batches, no backward); (d) `devices_healthy()`
+   (a subprocess) True, `profile_trace` around one step writes a non-empty
+   trace, `device_time` of one `flash_attn_func` call at 2 x 2048 within
+   0.5-2x of `cuda_ms`, and the trainer's roofline line; (e)
+   `runtime/serving_demo.py --requests 8 --new-tokens 16` prints its JSON
+   line with tokens/s > 0. The checkpoint and corpus live in a temporary
+   directory under `build/`, removed at the end of the phase.
 
 Every kernel is also timed against PyTorch's own call for the same function
 (`library_ms`, where one exists) and its bound on the H100 (`bound_ms`: the
@@ -186,7 +209,10 @@ rate). The last line of stdout is a JSON object {"ok": true, "device":
 {...}}; the line before it lists each kernel's (eighteen, and six dropout
 entries) launches, error, times and bound; phase 15's launches sit in the
 forward, dq, dk/dv, decode and paged decode entries (`launches_moe_train`,
-`launches_moe_serve`, `launches_lora`, `launches_wquant`). Without a CUDA device, or without the package beside this
+`launches_moe_serve`, `launches_lora`, `launches_wquant`); phase 16's in the
+forward, dq and dk/dv entries (`launches_resume`, `launches_eval`) and the
+forward and decode entries (`launches_demo`), with its measurements under
+the forward entry's `runtime_extras`. Without a CUDA device, or without the package beside this
 script, it exits nonzero.
 """
 from __future__ import annotations
@@ -4268,6 +4294,264 @@ def phase_causal_bwd(torch, card: str, mma=None):
     return runs, entries
 
 
+# Phase 16: the runtime and training extras at Mistral-7B-v0.3 widths, cut
+# to EXTRAS_LAYERS layers (full width, 1.14 B parameters: each checkpoint of
+# the bf16 weights and both AdamW moments is ~6.8 GB; at 32 layers it would
+# be 43.5 GB). The corpus: EXTRAS_WINDOWS windows of TRAIN_SEQ tokens from
+# numpy.random.RandomState(0), written by encode_corpus; the trainer reads
+# windows of TRAIN_SEQ - 1 tokens plus their target, 32 steps an epoch.
+EXTRAS_LAYERS, EXTRAS_WINDOWS = 4, 64
+EXTRAS_ARGV = ["--config", "mistral-7b-v0.3", "--layers", str(EXTRAS_LAYERS), "--batch", "2",
+               "--seq", str(TRAIN_SEQ), "--remat"]
+EXTRAS_FIRST, EXTRAS_STEPS, EXTRAS_SAVE_EVERY = 4, 6, 2
+EXTRAS_EVAL_BATCHES = 2
+# device_time of one flash_attn_func call against cuda_ms of the same call.
+DEVICE_TIME_RATIO = (0.5, 2.0)
+
+
+def train_counts():
+    from fa2_triton_tpu_torch.ops import flash_bwd, flash_fwd
+
+    return {"flash_fwd": flash_fwd.LAUNCHES, **flash_bwd.LAUNCHES}
+
+
+def extras_resume(torch, card, work, corpus):
+    """(a) 4 steps with checkpoints every 2, then a fresh trainer resumed from
+    the same directory to 6, against an uninterrupted 6-step run: losses bit
+    for bit, launches of the resumed steps."""
+    from fa2_triton_tpu_torch.examples import train
+
+    ckpt = os.path.join(work, "ckpt")
+    base = EXTRAS_ARGV + ["--data", corpus]
+    ck = ["--ckpt-dir", ckpt, "--save-every", str(EXTRAS_SAVE_EVERY)]
+    first = train.run(train.parse_args(base + ck + ["--steps", str(EXTRAS_FIRST)]))
+    saved = sorted(os.listdir(ckpt))
+    if saved != ["2.pt", "4.pt"]:
+        raise AssertionError(f"checkpoints after {EXTRAS_FIRST} steps: {saved}")
+    ckpt_bytes = os.path.getsize(os.path.join(ckpt, f"{EXTRAS_FIRST}.pt"))
+    os.remove(os.path.join(ckpt, "2.pt"))        # disk room: the resume reads step 4
+    gc.collect()
+    torch.cuda.empty_cache()
+    resumed = train.run(train.parse_args(base + ck + ["--steps", str(EXTRAS_STEPS)]),
+                        on_warm=reset_counts)
+    launches = train_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    whole = train.run(train.parse_args(base + ["--steps", str(EXTRAS_STEPS)]))
+    gc.collect()
+    torch.cuda.empty_cache()
+    rep = resumed["report"]
+    print(f"[extras] (a) {train.PRESETS['mistral-7b-v0.3']['n_layers']}-layer Mistral-7B-v0.3 "
+          f"widths cut to {EXTRAS_LAYERS} layers, {whole['n_params'] / 1e9:.3f} B params, 2 x "
+          f"{TRAIN_SEQ} corpus windows: steps 0-{EXTRAS_FIRST - 1} {first['losses']}, resumed at "
+          f"step {resumed['start']}: {resumed['losses']}; uninterrupted {whole['losses']}")
+    print(f"[extras] (a) checkpoint of step {EXTRAS_FIRST}: {ckpt_bytes} bytes "
+          f"({ckpt_bytes / 1e9:.3f} GB); save calls (host copy) "
+          f"{[round(x, 3) for x in first['report'].save_s]} s, writes to disk "
+          f"{[round(x, 3) for x in first['report'].write_s]} s; the resumed run's restore "
+          f"{rep.restore_s:.3f} s, its save {[round(x, 3) for x in rep.save_s]} s, write "
+          f"{[round(x, 3) for x in rep.write_s]} s; step s of the uninterrupted run "
+          f"{[round(x, 4) for x in whole['step_s']]}, {whole['tokens_per_s']:.0f} tokens/s "
+          f"(median step), peak memory {whole['peak_bytes'] / 2**30:.2f} GiB [{card}]")
+    if resumed["start"] != EXTRAS_FIRST or rep.resumed_from != EXTRAS_FIRST:
+        raise AssertionError(f"resumed at {resumed['start']}, want {EXTRAS_FIRST}")
+    if first["losses"] + resumed["losses"] != whole["losses"]:
+        raise AssertionError("the resumed run's losses differ from the uninterrupted run's: "
+                             f"{first['losses'] + resumed['losses']} vs {whole['losses']}")
+    if not np.isfinite(whole["losses"]).all():
+        raise AssertionError(f"non-finite losses {whole['losses']}")
+    L, steps = EXTRAS_LAYERS, EXTRAS_STEPS - EXTRAS_FIRST
+    want = {"flash_fwd": 2 * L * steps, "flash_bwd_dq": L * steps, "flash_bwd_dkdv": L * steps,
+            "flash_bwd_dbias": 0}
+    if launches != want:
+        raise AssertionError(f"resumed launches {launches} != {want}")
+    return ckpt, {
+        "launches": launches, "losses": whole["losses"], "resumed_at": resumed["start"],
+        "checkpoint_bytes": ckpt_bytes, "save_s": first["report"].save_s + rep.save_s,
+        "write_s": first["report"].write_s + rep.write_s, "restore_s": rep.restore_s,
+        "step_s": whole["step_s"], "peak_gib": whole["peak_bytes"] / 2**30,
+        "n_params": whole["n_params"],
+        "tokens_per_step": whole["tokens_per_step"]}
+
+
+def extras_guard_eval(torch, card, ckpt, corpus):
+    """(b) a step whose loss is multiplied by NaN, on the state restored from
+    the newest checkpoint, leaves it bit for bit; (c) examples/eval.py on that
+    checkpoint against loss_fn on the same state and windows. Returns the
+    restored state (for (d)) and the results."""
+    from fa2_triton_tpu_torch.examples import eval as evalmod
+    from fa2_triton_tpu_torch.examples import train
+    from fa2_triton_tpu_torch.models import init_params, loss_fn
+    from fa2_triton_tpu_torch.utils.data import TokenLoader, open_corpus
+    from fa2_triton_tpu_torch.utils.resilience import ResilientTrainer
+
+    args = train.parse_args(EXTRAS_ARGV + ["--data", corpus, "--steps", str(EXTRAS_STEPS)])
+    cfg = train.build_config(args)
+    model = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    state = {"model": model, "opt": train.make_optimizer(model, args.lr), "step": 0}
+
+    def lr_fn(step):
+        return train.lr_at(step, args.lr, args.steps, args.warmup)
+
+    def nan_loss(m, tokens):
+        return loss_fn(m, tokens) * float("nan")
+
+    guard = ResilientTrainer(*train.step_fns(cfg, lr_fn, args.grad_clip, loss=nan_loss), ckpt,
+                             save_every=10 ** 9)
+    state, start = guard.restore_or_init(state)
+    if start != EXTRAS_STEPS or state["step"] != EXTRAS_STEPS:
+        raise AssertionError(f"restored step {start} / {state['step']}, want {EXTRAS_STEPS}")
+    corpus_data = open_corpus(corpus, cfg.vocab_size)
+    tokens = torch.from_numpy(next(TokenLoader(corpus_data, 2, TRAIN_SEQ - 1).stream(start))).cuda()
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    moments = [{k: v.clone() for k, v in state["opt"].state[p].items()}
+               for p in model.parameters()]
+    loss, ok = guard.step(state, tokens, start)
+    guard.close()
+    changed = [n for n, p in model.named_parameters() if not torch.equal(p, params[n])]
+    changed += [f"{i}.{k}" for i, (p, m) in enumerate(zip(model.parameters(), moments))
+                for k, v in m.items() if not torch.equal(state["opt"].state[p][k], v)]
+    print(f"[extras] (b) a step with the loss x NaN on the restored step {start}: loss {loss}, "
+          f"ok {ok}, steps_skipped {guard.report.steps_skipped}; {len(params)} parameters and "
+          f"their exp_avg / exp_avg_sq / step, changed: {changed or 'none'}; step count "
+          f"{state['step']}")
+    if ok or guard.report.steps_skipped != 1 or changed or state["step"] != EXTRAS_STEPS:
+        raise AssertionError("the non-finite step was not skipped cleanly")
+    del params, moments
+    torch.cuda.empty_cache()
+
+    reset_counts()
+    ev = evalmod.main(["--config", "mistral-7b-v0.3", "--layers", str(EXTRAS_LAYERS),
+                       "--data", corpus, "--ckpt-dir", ckpt, "--batches",
+                       str(EXTRAS_EVAL_BATCHES), "--batch", "2", "--seq", str(TRAIN_SEQ)])
+    launches = train_counts()
+    gc.collect()
+    torch.cuda.empty_cache()
+    loader = TokenLoader(corpus_data, 2, TRAIN_SEQ, seed=0)
+    with torch.no_grad():
+        direct = [float(loss_fn(model, torch.from_numpy(b).cuda().long()))
+                  for b in itertools.islice(loader, EXTRAS_EVAL_BATCHES)]
+    mean = sum(direct) / len(direct)
+    print(f"[extras] (c) examples/eval.py on the step-{ev['step']} checkpoint: cross-entropy "
+          f"{ev['nll']!r} over {ev['batches']} batches of 2 x {TRAIN_SEQ}; loss_fn on the "
+          f"restored model over the same windows {mean!r}; launches {launches}")
+    want = {"flash_fwd": EXTRAS_LAYERS * EXTRAS_EVAL_BATCHES, "flash_bwd_dq": 0,
+            "flash_bwd_dkdv": 0, "flash_bwd_dbias": 0}
+    if ev["step"] != EXTRAS_STEPS or ev["nll"] != mean or launches != want:
+        raise AssertionError(f"eval: step {ev['step']}, {ev['nll']!r} vs loss_fn {mean!r}, "
+                             f"launches {launches} (want {want})")
+    return state, cfg, args, {"nll": ev["nll"], "launches": launches}
+
+
+def extras_probes(torch, card, work, state, cfg, args, resume):
+    """(d) the device probe, a profiler trace of one step, device_time
+    against CUDA events, and the trainer's roofline line."""
+    from fa2_triton_tpu_torch.examples import train
+    from fa2_triton_tpu_torch.ops.attention import flash_attn_func
+    from fa2_triton_tpu_torch.utils.benchmarking import device_time
+    from fa2_triton_tpu_torch.utils.profiling import detect_chip, profile_trace, roofline
+    from fa2_triton_tpu_torch.utils.resilience import ResilientTrainer, devices_healthy
+
+    t0 = time.perf_counter()
+    healthy = devices_healthy()
+    probe_s = time.perf_counter() - t0
+    if not healthy:
+        raise AssertionError("devices_healthy() is False")
+    step_fn = ResilientTrainer(*train.step_fns(
+        cfg, lambda s: train.lr_at(s, args.lr, args.steps, args.warmup), args.grad_clip), None)
+    tokens = torch.from_numpy(next(train.host_batches(args, cfg.vocab_size, 0))).cuda()
+    logdir = os.path.join(work, "trace")
+    with profile_trace(logdir):
+        loss, ok = step_fn.step(state, tokens, state["step"])
+        torch.cuda.synchronize()
+    traces = [os.path.join(logdir, f) for f in os.listdir(logdir)]
+    sizes = [os.path.getsize(f) for f in traces]
+    with open(traces[0]) as f:
+        text = f.read()
+    kernels = [n for n in ("flash_fwd_mma_kernel", "dq_mma_kernel", "dkdv_mma_kernel")
+               if n in text]
+    print(f"[extras] (d) devices_healthy() True in {probe_s:.2f} s (a subprocess); "
+          f"profile_trace of one step (loss {loss:.4f}, ok {ok}): {len(traces)} file of "
+          f"{sizes} bytes, naming {kernels}")
+    if not ok or len(traces) != 1 or not sizes[0]:
+        raise AssertionError("profile_trace wrote no trace")
+    del step_fn, tokens
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    q32, k32, v32, _, _ = attn_inputs(torch, gen, "cuda", TRAIN_SEQ)
+    q, k, v = (x.to(torch.bfloat16) for x in (q32, k32, v32))
+
+    def call(q, k, v):
+        return flash_attn_func(q, k, v, causal=True)
+
+    dt_ms = device_time(call, q, k, v) * 1e3
+    ev_ms = cuda_ms(torch, lambda: call(q, k, v), iters=20)
+    ratio = dt_ms / ev_ms
+    print(f"[extras] (d) flash_attn_func B 2 x S {TRAIN_SEQ}, 32 / 8 heads, D 128, bf16, causal: "
+          f"device_time {dt_ms:.4f} ms, cuda_ms {ev_ms:.4f} ms (ratio {ratio:.3f}) [{card}]")
+    if not DEVICE_TIME_RATIO[0] <= ratio <= DEVICE_TIME_RATIO[1]:
+        raise AssertionError(f"device_time / cuda_ms {ratio:.3f} outside {DEVICE_TIME_RATIO}")
+    med = float(np.median(resume["step_s"]))
+    report = roofline(time_s=med, flops=6 * resume["n_params"] * resume["tokens_per_step"],
+                      bytes_moved=2 * resume["n_params"] * 2)
+    print(f"[extras] (d) the trainer's roofline line ({EXTRAS_LAYERS} layers, median step "
+          f"{med:.4f} s): per-step {report.summary()} (detect_chip {detect_chip()!r}) [{card}]")
+    return {"probe_s": probe_s, "trace_bytes": sizes[0], "trace_kernels": kernels,
+            "device_time_ms": dt_ms, "cuda_ms": ev_ms, "roofline": report.summary()}
+
+
+def extras_demo(torch, card):
+    """(e) the serving demo: 8 requests of 16 new tokens, its JSON line."""
+    from fa2_triton_tpu_torch.ops import decode, flash_fwd
+    from fa2_triton_tpu_torch.runtime import serving_demo
+
+    reset_counts()
+    res = serving_demo.main(["--requests", "8", "--new-tokens", "16"])
+    launches = {"flash_fwd": flash_fwd.LAUNCHES, "decode": decode.LAUNCHES}
+    stats = res["stats"]
+    print(f"[extras] (e) serving_demo --requests 8 --new-tokens 16: {res['value']} tokens/s "
+          f"({stats.decode_tokens} decode tokens in {stats.wall_s:.3f} s, {stats.decode_steps} "
+          f"steps, {stats.prefill_dispatches} prefill dispatches); launches with its warm-up "
+          f"{launches} [{card}]")
+    if not res["value"] > 0 or not all(launches.values()):
+        raise AssertionError(f"serving demo: {res['value']} tokens/s, launches {launches}")
+    return {"tokens_per_s": res["value"], "launches": launches,
+            "decode_steps": stats.decode_steps}
+
+
+def phase_extras(torch, card: str):
+    """Phase 16: corpus training with checkpoints and a resume, the guarded
+    step, eval, the probes and timers, and the serving demo."""
+    import shutil
+    import tempfile
+
+    from fa2_triton_tpu_torch.examples import train
+    from fa2_triton_tpu_torch.utils.data import encode_corpus
+
+    t0 = time.perf_counter()
+    root = os.path.join(HERE, "build")
+    os.makedirs(root, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="phase16-", dir=root)
+    try:
+        corpus = os.path.join(work, "corpus.bin")
+        vocab = train.PRESETS["mistral-7b-v0.3"]["vocab_size"]
+        encode_corpus(np.random.RandomState(0).randint(
+            0, vocab, size=EXTRAS_WINDOWS * TRAIN_SEQ + 1), corpus, vocab)
+        ckpt, resume = extras_resume(torch, card, work, corpus)
+        state, cfg, args, ev = extras_guard_eval(torch, card, ckpt, corpus)
+        probes = extras_probes(torch, card, work, state, cfg, args, resume)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    demo = extras_demo(torch, card)
+    seconds = time.perf_counter() - t0
+    print(f"[extras] phase 16: {seconds:.1f} s")
+    return {"resume": resume, "eval": ev, "probes": probes, "demo": demo, "seconds": seconds}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4340,6 +4624,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     bwd_runs, bwd_kernels = phase_causal_bwd(torch, card, mma)
+    gc.collect()
+    torch.cuda.empty_cache()
+    extras = phase_extras(torch, card)
 
     if any(name == "jax" or name.startswith(("jax.", "fa2_triton_tpu.")) for name in sys.modules):
         raise RuntimeError("the port imported jax or the JAX package")
@@ -4369,6 +4656,13 @@ def main() -> int:
          "launches_lora": zoo["lora"]["launches"]["flash_fwd"]
          + zoo["lora"]["serve_launches"]["flash_fwd"],
          "launches_wquant": sum(wquant[q]["launches"]["flash_fwd"] for q in ("int8", "fp8")),
+         "launches_resume": extras["resume"]["launches"]["flash_fwd"],
+         "launches_eval": extras["eval"]["launches"]["flash_fwd"],
+         "launches_demo": extras["demo"]["launches"]["flash_fwd"],
+         "runtime_extras": {
+             "resume": {k: v for k, v in extras["resume"].items() if k != "launches"},
+             "eval_nll": extras["eval"]["nll"], "probes": extras["probes"],
+             "demo_tokens_per_s": extras["demo"]["tokens_per_s"], "seconds": extras["seconds"]},
          "model_zoo": {
              "moe_train": {k: zoo["moe_train"][k] for k in (
                  "losses", "step_s", "tokens_per_s", "peak_gib", "free_gib", "capacity",
@@ -4383,6 +4677,7 @@ def main() -> int:
          "replaces": "fa2_triton_tpu/ops/decode.py:158",
          "launches": launches["decode"], "launches_chunked": chunked["chunked"]["decode"],
          "launches_lora": zoo["lora"]["serve_launches"]["decode"],
+         "launches_demo": extras["demo"]["launches"]["decode"],
          **kernels["decode"], "build": decode_build},
         {"name": "decode_quant", "route": "cuda", "source": "fa2_triton_tpu_torch/csrc/decode.cuh",
          "replaces": "fa2_triton_tpu/ops/decode.py:74",
@@ -4403,13 +4698,17 @@ def main() -> int:
          "also_replaces": "fa2_triton_tpu/ops/flash_bwd.py:602 (B12), fa2_triton_tpu/ops/flash_bwd.py:376 (B2)",
          "launches": train_launches["flash_bwd_dq"],
          "launches_moe_train": zoo["moe_train"]["launches"]["flash_bwd_dq"],
-         "launches_lora": zoo["lora"]["launches"]["flash_bwd_dq"], **kernels["flash_bwd_dq"]},
+         "launches_lora": zoo["lora"]["launches"]["flash_bwd_dq"],
+         "launches_resume": extras["resume"]["launches"]["flash_bwd_dq"],
+         "launches_eval": extras["eval"]["launches"]["flash_bwd_dq"], **kernels["flash_bwd_dq"]},
         {"name": "flash_bwd_dkdv", "route": "cuda", "source": "fa2_triton_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "fa2_triton_tpu/ops/flash_bwd.py:263",
          "also_replaces": "fa2_triton_tpu/ops/flash_bwd.py:602 (B12), fa2_triton_tpu/ops/flash_bwd.py:376 (B2)",
          "launches": train_launches["flash_bwd_dkdv"],
          "launches_moe_train": zoo["moe_train"]["launches"]["flash_bwd_dkdv"],
-         "launches_lora": zoo["lora"]["launches"]["flash_bwd_dkdv"], **kernels["flash_bwd_dkdv"]},
+         "launches_lora": zoo["lora"]["launches"]["flash_bwd_dkdv"],
+         "launches_resume": extras["resume"]["launches"]["flash_bwd_dkdv"],
+         "launches_eval": extras["eval"]["launches"]["flash_bwd_dkdv"], **kernels["flash_bwd_dkdv"]},
         {"name": "flash_bwd_dbias", "route": "cuda", "source": "fa2_triton_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "fa2_triton_tpu/ops/flash_bwd.py:1357",
          "launches": bias_launches["flash_bwd_dbias"], **kernels["flash_bwd_dbias"],

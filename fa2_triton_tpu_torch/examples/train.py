@@ -2,6 +2,9 @@
 
     python -m fa2_triton_tpu_torch.examples.train --config mistral-7b-v0.3 \\
         --steps 4 --batch 2 --seq 2048 --remat
+    python -m fa2_triton_tpu_torch.examples.train --config mistral-7b-v0.3 \\
+        --layers 4 --steps 6 --batch 2 --seq 2048 --remat \\
+        --data corpus.bin --ckpt-dir ckpt --save-every 2
     python -m fa2_triton_tpu_torch.examples.train --config qwen1.5-7b \\
         --steps 3 --batch 1 --seq 8192 --remat
     python -m fa2_triton_tpu_torch.examples.train --config mixtral-8x7b-v0.1 \\
@@ -18,27 +21,48 @@ with a constant LR or a linear warm-up then cosine decay to lr/10 over
 no full-size temporaries; moments in the parameters' dtype, as optax keeps
 them).
 
+Every step is `utils/resilience.py`'s guarded step: a step whose loss or
+any gradient is not finite is skipped, leaving the parameters, the AdamW
+moments and the step count as they were, and counted. `--data FILE` trains
+on a flat token corpus (`utils/data.py`: windows of `--seq - 1` tokens plus
+their target, shuffled per epoch from seed 0), else on random tokens.
+`--ckpt-dir DIR` saves the model, the optimizer and the step count every
+`--save-every` steps (5 by default) and at the end, and resumes from the
+newest checkpoint in DIR. `--steps` is the run's whole length (and the LR
+schedule's), so a resumed run takes steps `start .. --steps - 1`: the LR
+schedule continues at the restored step, random tokens come from
+`RandomState(start)` as in the JAX script, and a corpus continues at the
+window an uninterrupted run would take at that step (the JAX script starts
+its corpus again at window 0: ROADMAP.md queue C). Checkpointing is off
+unless `--ckpt-dir` is given, where the JAX script saves to
+/tmp/fa2_train_ckpt every 5 steps by default: at Mistral-7B-v0.3's full
+depth each save writes the bf16 weights and both AdamW moments, 43.5 GB.
+
 Two faults of the JAX script (ROADMAP.md queue C) are not copied: the
 warm-up is one forward and backward on the first batch whose gradients are
 dropped, with no optimizer step, so it leaves the state as it was; and
 there is no stacked multi-step dispatch, so nothing recompiles. The JAX
-script's mesh, corpus and checkpoint options raise with a pointer to
-ROADMAP.md. `--moe E` trains the Mixtral-style MoE family
-(`models/moe.py`: E experts, top-2, capacity factor 1.25) through
-`moe.loss_fn`, as the JAX script does (`init_params` builds the MoE layers
-of an `MoEConfig`); so does the `mixtral-8x7b-v0.1` preset.
+script's mesh options raise with a pointer to ROADMAP.md. `--moe E` trains
+the Mixtral-style MoE family (`models/moe.py`: E experts, top-2, capacity
+factor 1.25) through `moe.loss_fn`, as the JAX script does (`init_params`
+builds the MoE layers of an `MoEConfig`); so does the `mixtral-8x7b-v0.1`
+preset.
 """
 from __future__ import annotations
 
 import argparse
+import itertools
 import math
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from fa2_triton_tpu_torch.models import LlamaConfig, init_params, loss_fn, moe
+from fa2_triton_tpu_torch.utils.data import TokenLoader, open_corpus, prefetch_to_device
+from fa2_triton_tpu_torch.utils.profiling import roofline
+from fa2_triton_tpu_torch.utils.resilience import ResilientTrainer, devices_healthy
 
 # Published widths, from
 # https://huggingface.co/mistralai/Mistral-7B-v0.3/blob/main/config.json:
@@ -83,12 +107,11 @@ NOT_PORTED = {
     "dp": "data parallelism (ROADMAP.md queue A.7)",
     "tp": "tensor parallelism (ROADMAP.md queue A.7)",
     "fsdp": "FSDP / ZeRO-3 (ROADMAP.md queue A.7)",
-    "data": "the token corpus loader utils/data.py (ROADMAP.md queue A.6)",
-    "ckpt_dir": "checkpointing through ResilientTrainer (ROADMAP.md queue A.6)",
-    "save_every": "checkpointing through ResilientTrainer (ROADMAP.md queue A.6)",
 }
 # Values of those flags that mean "off", as in the JAX script.
 _OFF = {"dp": 1, "tp": 1}
+# Checkpoint period with --ckpt-dir, the JAX script's default.
+SAVE_EVERY = 5
 
 
 def preset_config(name: str, dtype=torch.bfloat16, **overrides) -> LlamaConfig:
@@ -136,14 +159,46 @@ def optimizer_step(model, opt: torch.optim.Optimizer, lr: float, grad_clip: floa
     opt.zero_grad(set_to_none=True)
 
 
-def train_step(model, opt: torch.optim.Optimizer, tokens: torch.Tensor, lr: float,
-               grad_clip: float) -> torch.Tensor:
-    """One step: loss (`model_loss`), backward, `optimizer_step`. Returns
-    the loss (detached, on the device)."""
-    loss = model_loss(model.cfg)(model, tokens)
-    loss.backward()
-    optimizer_step(model, opt, lr, grad_clip)
-    return loss.detach()
+def step_fns(cfg: LlamaConfig, lr_fn: Callable[[int], float], grad_clip: float,
+             loss: Optional[Callable] = None) -> Tuple[Callable, Callable]:
+    """`(grad_fn, apply_fn)` of one training step on a state `{"model",
+    "opt", "step"}`, for `utils/resilience.py`'s guarded step: `grad_fn`
+    returns the loss (`loss`, by default `model_loss(cfg)`) and the
+    gradients of the trainable parameters without touching the state;
+    `apply_fn` takes `optimizer_step` at `lr_fn(state["step"])`, the
+    number of steps applied so far, and counts the step."""
+    loss = loss or model_loss(cfg)
+
+    def params(model):
+        return [p for p in model.parameters() if p.requires_grad]
+
+    def grad_fn(state, tokens):
+        model = state["model"]
+        value = loss(model, tokens.long())
+        return value, torch.autograd.grad(value, params(model), allow_unused=True)
+
+    def apply_fn(state, grads):
+        model = state["model"]
+        for p, g in zip(params(model), grads):
+            p.grad = g
+        optimizer_step(model, state["opt"], lr_fn(state["step"]), grad_clip)
+        state["step"] += 1
+
+    return grad_fn, apply_fn
+
+
+def host_batches(args, vocab_size: int, start: int) -> Iterator[np.ndarray]:
+    """The [batch, seq] int32 token batches of steps `start .. --steps - 1`:
+    the corpus's windows of seq - 1 tokens plus their target from the
+    window an uninterrupted run takes at step `start`, or random tokens from
+    `RandomState(start)`."""
+    n = max(args.steps - start, 0)
+    if args.data:
+        loader = TokenLoader(open_corpus(args.data, vocab_size), args.batch, args.seq - 1, seed=0)
+        return itertools.islice(loader.stream(start), n)
+    rng = np.random.RandomState(start)
+    return (rng.randint(0, vocab_size, size=(args.batch, args.seq)).astype(np.int32)
+            for _ in range(n))
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -170,14 +225,23 @@ def parse_args(argv=None) -> argparse.Namespace:
     for flag in ("--dp", "--tp"):
         ap.add_argument(flag, type=int, default=None, help="not ported: raises")
     ap.add_argument("--fsdp", action="store_true", default=None, help="not ported: raises")
-    ap.add_argument("--data", default=None, help="not ported: raises")
-    ap.add_argument("--ckpt-dir", default=None, help="not ported: raises")
-    ap.add_argument("--save-every", type=int, default=None, help="not ported: raises")
+    ap.add_argument("--data", default=None, metavar="FILE",
+                    help="flat binary token corpus (utils/data.py); random tokens when omitted")
+    ap.add_argument("--ckpt-dir", default=None, metavar="DIR",
+                    help="checkpoint here and resume from the newest checkpoint (off if omitted)")
+    ap.add_argument("--save-every", type=int, default=None, metavar="STEPS",
+                    help=f"checkpoint period with --ckpt-dir (default {SAVE_EVERY})")
     args = ap.parse_args(argv)
     for key, what in NOT_PORTED.items():
         val = getattr(args, key)
         if val is not None and val != _OFF.get(key):
             raise NotImplementedError(f"--{key.replace('_', '-')}: {what} is not ported yet")
+    if args.save_every is not None and args.ckpt_dir is None:
+        raise ValueError("--save-every needs --ckpt-dir")
+    if args.save_every is None:
+        args.save_every = SAVE_EVERY
+    if args.save_every < 1:
+        raise ValueError(f"--save-every must be at least 1, got {args.save_every}")
     return args
 
 
@@ -203,70 +267,92 @@ def build_config(args) -> LlamaConfig:
 
 def run(args, on_warm: Optional[Callable[[], None]] = None,
         on_grads: Optional[Callable[[torch.nn.Module, torch.Tensor], None]] = None) -> Dict:
-    """Build, warm up (no state change), then take `args.steps` timed steps.
-    `on_grads(model, tokens)` is called after the warm-up's backward on the
-    first batch, before its gradients are dropped (they are step 0's), and
+    """Build, resume from `--ckpt-dir`'s newest checkpoint if there is one,
+    warm up (no state change), then take the guarded steps up to
+    `args.steps`, checkpointing with `--ckpt-dir`. `on_grads(model,
+    tokens)` is called after the warm-up's backward on the first batch,
+    before its gradients are dropped (they are the first step's), and
     `on_warm` between the warm-up and the first step. Returns losses,
-    per-step seconds, tokens/s, peak device memory and the config."""
+    per-step seconds, tokens/s, peak device memory, the config, the step
+    it started from and the trainer's report (skips, save and restore
+    seconds)."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but torch.cuda.is_available() is False; "
                            "pass --device cpu to run the plain path on the CPU")
     cfg = build_config(args)
     if device.type == "cuda":
+        if not devices_healthy([device]):
+            raise RuntimeError(f"device probe failed on {device}")
         torch.cuda.reset_peak_memory_stats(device)
     model = init_params(torch.Generator(device=device).manual_seed(0), cfg)
     n_params = sum(p.numel() for p in model.parameters())
-    opt = make_optimizer(model, args.lr)
-    rng = np.random.RandomState(0)
-
-    def batch() -> torch.Tensor:
-        return torch.from_numpy(rng.randint(0, cfg.vocab_size, size=(args.batch, args.seq))).to(device)
+    state = {"model": model, "opt": make_optimizer(model, args.lr), "step": 0}
+    trainer = ResilientTrainer(
+        *step_fns(cfg, lambda step: lr_at(step, args.lr, args.steps, args.warmup), args.grad_clip),
+        args.ckpt_dir, save_every=args.save_every)
+    state, start = trainer.restore_or_init(state)
+    batches = prefetch_to_device(host_batches(args, cfg.vocab_size, start), size=2, device=device)
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    first = batch()
-    # Warm-up: kernel build, cuBLAS and allocator set-up. Gradients are
-    # dropped and the optimizer does not step, so the state is untouched.
-    model_loss(cfg)(model, first).backward()
-    if on_grads is not None:
-        on_grads(model, first)
-    model.zero_grad(set_to_none=True)
-    sync()
-    if on_warm is not None:
-        on_warm()
     losses: List[float] = []
     step_s: List[float] = []
-    for step in range(args.steps):
-        tokens = first if (args.repeat_batch or step == 0) else batch()
-        t0 = time.perf_counter()
-        loss = train_step(model, opt, tokens, lr_at(step, args.lr, args.steps, args.warmup),
-                          args.grad_clip)
-        sync()
-        step_s.append(time.perf_counter() - t0)
-        losses.append(float(loss))
+    try:
+        first = next(batches, None)
+        if first is not None:
+            # Warm-up: kernel build, cuBLAS and allocator set-up. Gradients
+            # are dropped and the optimizer does not step, so the state is
+            # untouched.
+            model_loss(cfg)(model, first.long()).backward()
+            if on_grads is not None:
+                on_grads(model, first.long())
+            model.zero_grad(set_to_none=True)
+            sync()
+            if on_warm is not None:
+                on_warm()
+        for step in range(start, args.steps):
+            tokens = first if (args.repeat_batch or step == start) else next(batches)
+            t0 = time.perf_counter()
+            loss, _ = trainer.step(state, tokens, step)
+            sync()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(loss)
+        if args.steps > start:
+            trainer.finish(state, args.steps)
+    finally:
+        trainer.close()
     tokens_per_step = args.batch * (args.seq - 1)
     med = float(np.median(step_s)) if step_s else float("nan")
     return {
         "config": cfg, "n_params": n_params, "losses": losses, "step_s": step_s,
         "tokens_per_step": tokens_per_step, "tokens_per_s": tokens_per_step / med,
         "peak_bytes": torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None,
+        "start": start, "report": trainer.report,
     }
 
 
 def main(argv=None) -> Dict:
     args = parse_args(argv)
     res = run(args)
-    cfg = res["config"]
-    where = torch.cuda.get_device_name(args.device) if args.device.startswith("cuda") else "cpu"
+    cfg, report = res["config"], res["report"]
+    on_gpu = args.device.startswith("cuda")
+    where = torch.cuda.get_device_name(args.device) if on_gpu else "cpu"
     peak = f"{res['peak_bytes'] / 2**30:.2f} GiB" if res["peak_bytes"] is not None else "n/a"
+    med = np.median(res["step_s"]) if res["step_s"] else float("nan")
+    # ~6 x params x tokens FLOPs for a decoder's forward and backward, and
+    # the bf16 weights read twice, as the JAX script counts.
+    summary = (roofline(time_s=med, flops=6 * res["n_params"] * res["tokens_per_step"],
+                        bytes_moved=2 * res["n_params"] * 2).summary()
+               if on_gpu and res["step_s"] else "no roofline (not measured on a GPU)")
+    resumed = f"resumed from step {res['start']}, " if report.resumed_from is not None else ""
     print(f"{args.config or 'llama'}: {cfg.n_layers} layers, dim {cfg.dim}, "
-          f"{res['n_params'] / 1e9:.3f} B params, {args.steps} steps of {args.batch} x {args.seq} "
-          f"on {where}: losses {[round(x, 4) for x in res['losses']]}, "
-          f"median step {np.median(res['step_s']):.3f} s, {res['tokens_per_s']:.0f} tokens/s, "
-          f"peak memory {peak}")
+          f"{res['n_params'] / 1e9:.3f} B params, {resumed}{len(res['losses'])} steps of "
+          f"{args.batch} x {args.seq} on {where}: losses {[round(x, 4) for x in res['losses']]}, "
+          f"skipped {report.steps_skipped}, median step {med:.3f} s, "
+          f"{res['tokens_per_s']:.0f} tokens/s, peak memory {peak}; per-step {summary}")
     return res
 
 

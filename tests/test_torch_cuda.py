@@ -1992,3 +1992,64 @@ def test_lora_merged_training_on_cuda_matches_plain_attention(dev):
     for n, g in grads.items():
         assert (g - truth_g[n]).abs().max() <= 1e-4 * (1 + truth_g[n].abs().max()), n
     assert all(p.grad is None for p in model.parameters())
+
+
+# ---------------- runtime and training extras (utils/) ----------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("bad", [None, float("nan"), float("inf"), float("-inf")])
+def test_tree_allfinite_on_the_card_equals_the_cpu(dev, dtype, bad):
+    from fa2_triton_tpu_torch.utils.resilience import tree_allfinite
+
+    gen = torch.Generator().manual_seed(0)
+    leaves = [torch.randn(n, generator=gen).to(dtype) for n in (1, 7, 4099, 1 << 20)]
+    leaves[1][3] = torch.finfo(dtype).max
+    if bad is not None:
+        leaves[3][12345] = bad
+    tree = {"a": leaves[:2], "b": (leaves[2], {"c": leaves[3]}), "n": torch.arange(3)}
+    on_card = {"a": [x.to(dev) for x in leaves[:2]], "b": (leaves[2].to(dev), {"c": leaves[3].to(dev)}),
+               "n": torch.arange(3, device=dev)}
+    got = tree_allfinite(on_card)
+    assert got.device.type == "cuda" and bool(got) == bool(tree_allfinite(tree)) == (bad is None)
+
+
+def test_guarded_step_skips_a_nan_step_on_the_card(dev):
+    from fa2_triton_tpu_torch.examples import train
+    from fa2_triton_tpu_torch.models import init_params, llama
+    from fa2_triton_tpu_torch.utils.resilience import make_guarded_step
+
+    cfg = llama.LlamaConfig(vocab_size=256, dim=256, n_layers=2, n_heads=2, n_kv_heads=1,
+                            hidden_dim=512, max_seq_len=256, dtype=torch.bfloat16)
+    model = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    state = {"model": model, "opt": train.make_optimizer(model, 1e-3), "step": 0}
+    good = make_guarded_step(*train.step_fns(cfg, lambda s: 1e-3, 1.0))
+    bad = make_guarded_step(*train.step_fns(
+        cfg, lambda s: 1e-3, 1.0, loss=lambda m, t: llama.loss_fn(m, t) * float("nan")))
+    tokens = torch.randint(0, 256, (2, 129), generator=torch.Generator(device=dev).manual_seed(1),
+                           device=dev)
+    state, _, ok = good(state, tokens)
+    assert ok
+    before = [t.clone() for p in model.parameters() for t in [p, *state["opt"].state[p].values()]]
+    state, _, ok = bad(state, tokens)
+    after = [t for p in model.parameters() for t in [p, *state["opt"].state[p].values()]]
+    assert not ok and state["step"] == 1
+    assert all(torch.equal(a, b) for a, b in zip(after, before, strict=True))
+
+
+def test_prefetch_to_device_defaults_to_the_card(dev):
+    import numpy as np
+
+    from fa2_triton_tpu_torch.utils.data import prefetch_to_device
+
+    host = [np.full((2, 5), i, np.int32) for i in range(5)]
+    got = list(prefetch_to_device(iter(host)))
+    assert all(t.is_cuda and t.dtype == torch.int32 for t in got)
+    assert all(np.array_equal(t.cpu().numpy(), h) for t, h in zip(got, host, strict=True))
+
+
+def test_device_time_of_a_card_call_is_positive(dev):
+    from fa2_triton_tpu_torch.utils.benchmarking import device_time
+
+    x = torch.randn(1024, 1024, device=dev)
+    t = device_time(torch.matmul, x, x)
+    assert 0 < t < 1.0

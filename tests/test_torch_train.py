@@ -120,8 +120,29 @@ def test_trainer_runs_on_the_cpu_and_the_loss_falls():
     assert res["tokens_per_step"] == 2 * 16
 
 
-@pytest.mark.parametrize("argv", [["--dp", "2"], ["--tp", "2"], ["--fsdp"], ["--save-every", "5"],
-                                  ["--data", "corpus.bin"], ["--ckpt-dir", "ckpt"]])
+@pytest.mark.parametrize("argv", [["--dp", "2"], ["--tp", "2"], ["--fsdp"]])
 def test_trainer_flags_not_ported_raise(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ttrain.parse_args(argv)
+
+
+@pytest.mark.parametrize("flags", [["--data"], ["--ckpt-dir"], ["--ckpt-dir", "--save-every"]])
+def test_corpus_and_checkpoint_flags_run_a_cpu_step(tmp_path, flags):
+    from fa2_triton_tpu_torch.utils.data import encode_corpus
+
+    corpus, ckpt = str(tmp_path / "corpus.bin"), str(tmp_path / "ckpt")
+    encode_corpus(np.random.RandomState(0).randint(0, 32000, size=1 + 4 * 16), corpus, 32000)
+    value = {"--data": corpus, "--ckpt-dir": ckpt, "--save-every": "1"}
+    res = ttrain.run(ttrain.parse_args(
+        ["--device", "cpu", "--steps", "2", "--batch", "2", "--seq", "17", "--dim", "64",
+         "--layers", "1"] + [x for f in flags for x in (f, value[f])]))
+    assert len(res["losses"]) == 2 and np.isfinite(res["losses"]).all()
+    assert res["report"].steps_run == 2 and res["report"].steps_skipped == 0
+    saved = sorted(p.name for p in tmp_path.glob("ckpt/*.pt"))
+    assert saved == ({"--ckpt-dir": ["2.pt"], "--save-every": ["1.pt", "2.pt"]}[flags[-1]]
+                     if "--ckpt-dir" in flags else [])
+
+
+def test_save_every_without_a_checkpoint_directory_raises():
+    with pytest.raises(ValueError, match="--save-every needs --ckpt-dir"):
+        ttrain.parse_args(["--save-every", "5"])
