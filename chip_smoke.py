@@ -200,6 +200,19 @@ the CUDA toolkit. Phases (any failure raises, and the script exits nonzero):
    `runtime/serving_demo.py --requests 8 --new-tokens 16` prints its JSON
    line with tokens/s > 0. The checkpoint and corpus live in a temporary
    directory under `build/`, removed at the end of the phase.
+17. The card's tuning table (`ops/tables/tuning_h100.json`; phases 1-16
+   run with FA2_DISABLE_TUNING_TABLE=1, the prior's routes, which they
+   assert): `detect_chip()`, the table's path and entries; (a) for every
+   (head dim, bucket, GQA group) of the table, `flash_attn_func` forward
+   + backward in bf16 at B 1, 4 / (4 / group) heads, length bucket - 1,
+   once with the table and once without it where the routes differ, the
+   launch counts showing each route, each run held against the fp32 plain
+   twins under the FA rules; (b) one tune-on-miss (FA2_TUNE_ON_MISS=1 into
+   a temporary FA2_TUNING_DIR under `build/`) on a key the table lacks, the
+   persisted winner one of its candidates; (c) fp16 `flash_attn_func`: the
+   fp32 kernels by default, the tensor-core kernels with
+   fp16_compute_dtype=bfloat16, by the profiler's kernel names. Prints its
+   time; its summary sits under the forward entry's `routing`.
 
 Every kernel is also timed against PyTorch's own call for the same function
 (`library_ms`, where one exists) and its bound on the H100 (`bound_ms`: the
@@ -4552,6 +4565,233 @@ def phase_extras(torch, card: str):
     return {"resume": resume, "eval": ev, "probes": probes, "demo": demo, "seconds": seconds}
 
 
+ROUTING_HEADS = 4                # phase 17: B 1, 4 query heads, 4 / group kv heads
+MISS_KEY = ("fwd_route", 128, 256)  # phase 17's tune-on-miss: a key the shipped table lacks
+
+
+def routing_launches(flash_fwd, flash_bwd):
+    return ({n: c for n, c in flash_fwd.SCHEDULE_LAUNCHES.items() if c}, flash_fwd.LAUNCHES,
+            {n: c for n, c in flash_bwd.SCHEDULE_LAUNCHES.items() if c},
+            {n: c for n, c in flash_bwd.LAUNCHES.items() if c})
+
+
+def route_launches(f_route, b_route, S, D, group):
+    """The launch counts of one flash_attn_func forward + backward at S x S
+    that took these routes (routing_launches' form)."""
+    from fa2_triton_tpu_torch.ops import flash_bwd, flash_fwd
+
+    fwd = ({"causal_diag": 1, "rect_merge": 1} if f_route == "split" else
+           {"causal_strip": 1} if f_route == "strip" else {})
+    pair = {"flash_bwd_dq": 1, "flash_bwd_dkdv": 1}
+    if b_route in ("strip", "generic"):
+        bwd = {}
+    elif b_route == "split":
+        Sq_p, _, Dp = flash_fwd.jax_padded_shape(S, S, D, 2)
+        n = -(-Sq_p // flash_bwd.bwd_split_leaf_t(Dp, group))
+        bwd, pair = {"causal_diag": 1, "rect": len(flash_fwd.causal_split_rects(n))}, {}
+    else:
+        bwd, pair = {b_route: 1}, {}
+    return fwd, int(f_route in ("tri_square", "generic")), bwd, pair
+
+
+def routed_call(torch, x32, do32, table: bool):
+    """flash_attn_func forward + backward in bf16, with the tuning table or
+    without it (FA2_DISABLE_TUNING_TABLE=1); (out, lse, grads, launches)."""
+    from fa2_triton_tpu_torch.ops import flash_bwd, flash_fwd
+    from fa2_triton_tpu_torch.ops.attention import flash_attn_func
+
+    if table:
+        os.environ.pop("FA2_DISABLE_TUNING_TABLE", None)
+    else:
+        os.environ["FA2_DISABLE_TUNING_TABLE"] = "1"
+    try:
+        leaves = [t.to(torch.bfloat16).requires_grad_() for t in x32]
+        flash_fwd.reset_launches()
+        flash_bwd.reset_launches()
+        out, lse = flash_attn_func(*leaves, causal=True, return_lse=True)
+        out.backward(do32.to(torch.bfloat16))
+        torch.cuda.synchronize()
+        return out.detach(), lse.detach(), [x.grad for x in leaves], routing_launches(
+            flash_fwd, flash_bwd)
+    finally:
+        os.environ.pop("FA2_DISABLE_TUNING_TABLE", None)
+
+
+def routing_shape(torch, table, chip, D, bucket, group, dev="cuda"):
+    """(a) one (head dim, bucket, group) of the table: the table's routes
+    and the prior's, each run through flash_attn_func with its launches
+    checked and held against the fp32 plain twins (bf16 FA rules)."""
+    from fa2_triton_tpu_torch.ops import flash_bwd, flash_fwd
+
+    S, dev = bucket - 1, torch.device(dev)
+    routes = {}
+    for which, c in (("table", chip), ("prior", None)):
+        routes[which] = (flash_fwd.forward_route(S, S, D, 2, causal=True, static_skip=True,
+                                                 chip=c),
+                         flash_bwd.backward_route(S, S, D, 2, causal=True, static_skip=True,
+                                                  group=group, chip=c))
+    want = (table.get(f"fwd_route:1:{D}:{bucket}", [routes["prior"][0]])[0],
+            table.get(f"bwd_route+g{group}:1:{D}:{bucket}", [routes["prior"][1]])[0])
+    if routes["table"] != want:
+        raise AssertionError(f"routing D {D} bucket {bucket} g{group}: the table names {want}, "
+                             f"the routes are {routes['table']}")
+    g = torch.Generator(device=dev).manual_seed(bucket + D + group)
+    Hq, Hkv = ROUTING_HEADS, ROUTING_HEADS // group
+    x32 = [torch.randn(1, S, h, D, generator=g, device=dev) * 0.5 for h in (Hq, Hkv, Hkv)]
+    do32 = torch.randn(1, S, Hq, D, generator=g, device=dev)
+    t = lambda x: x.transpose(1, 2)  # noqa: E731
+    lens = torch.tensor([[S, S]], dtype=torch.int32, device=dev)
+    kw = dict(causal=True, softmax_scale=D ** -0.5)
+    o32, lse32 = flash_fwd.flash_attn_forward_plain(*(t(x) for x in x32), lens, **kw)
+    refs = flash_bwd.flash_attn_backward_plain(*(t(x) for x in x32), t(do32), o32, lse32, lens,
+                                               **kw)
+    xb = [t(x.to(torch.bfloat16)) for x in x32]
+    o_pl, lse_pl = flash_fwd.flash_attn_forward_plain(*xb, lens, **kw)
+    plains = flash_bwd.flash_attn_backward_plain(*xb, t(do32.to(torch.bfloat16)), o_pl, lse_pl,
+                                                 lens, **kw)
+    row = {"routes": {w: list(r) for w, r in routes.items()}, "errs": {}}
+    for which in ("table", "prior"):
+        out, lse, grads, got = routed_call(torch, x32, do32, which == "table")
+        expected = route_launches(*routes[which], S, D, group)
+        if got != expected:
+            raise AssertionError(f"routing D {D} bucket {bucket} g{group} {which} "
+                                 f"{routes[which]}: launches {got} != {expected}")
+        err, yard = max_abs(torch, t(out), o32), max_abs(torch, o_pl, o32)
+        if not err <= OUT_ERROR_MUL * yard + OUT_ERROR_BIAS:
+            raise AssertionError(f"routing D {D} bucket {bucket} g{group} {which}: out err "
+                                 f"{err:.3e} > 2 x {yard:.3e} + 5e-5")
+        check_lse(torch, lse, lse_pl, f"routing D {D} bucket {bucket} {which}")
+        gerrs = [check_grad(torch, n, t(gr), r, p, f"routing D {D} bucket {bucket} {which}")[0]
+                 for n, gr, r, p in zip(BWD_NAMES, grads, refs, plains)]
+        row["errs"][which] = [err] + gerrs
+        del out, lse, grads
+    del o32, refs, plains, o_pl
+    torch.cuda.empty_cache()
+    return row
+
+
+def routing_tune_on_miss(torch, card):
+    """(b) FA2_TUNE_ON_MISS=1 into a temporary FA2_TUNING_DIR: a call at a
+    key the shipped table lacks sweeps it once and persists its winner,
+    which must be a candidate of the key and either the prior's route or
+    faster than it by more than the spread."""
+    import shutil
+    import tempfile
+
+    from fa2_triton_tpu_torch.ops import autotune, microsweep
+    from fa2_triton_tpu_torch.ops.attention import flash_attn_func
+
+    kind, D, bucket = MISS_KEY
+    root = os.path.join(HERE, "build")
+    os.makedirs(root, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="phase17-", dir=root)
+    saved = os.environ.get("FA2_TUNING_DIR")
+    os.environ.update(FA2_TUNING_DIR=work, FA2_TUNE_ON_MISS="1")
+    autotune._load_table.cache_clear()
+    try:
+        t0 = time.perf_counter()
+        S = bucket - 1
+        q = torch.randn(max(1, 4096 // bucket), S, 32, D, device="cuda", dtype=torch.bfloat16)
+        flash_attn_func(q, q, q, causal=True)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        path = os.path.join(work, f"tuning_{autotune.detect_chip()}.json")
+        persisted = json.loads(open(path).read())
+        key = autotune._key(kind, True, D, bucket)
+        winner = persisted.get(key)
+        cands = [c[0] for c in microsweep.candidates(kind, True, D, bucket)]
+        prior = microsweep.prior_route(kind, D, bucket)
+        print(f"[routing] (b) tune-on-miss {key}: persisted {winner} in {seconds:.1f} s "
+              f"(candidates {cands}, prior {prior}), table {persisted} [{card}]")
+        if winner is None or len(winner) != 1 or winner[0] not in cands:
+            raise AssertionError(f"tune-on-miss persisted {winner} for {key}, not one of {cands}")
+        return {"key": key, "winner": winner[0], "prior": prior, "candidates": cands,
+                "seconds": seconds}
+    finally:
+        os.environ.pop("FA2_TUNE_ON_MISS", None)
+        if saved is None:
+            os.environ.pop("FA2_TUNING_DIR", None)
+        else:
+            os.environ["FA2_TUNING_DIR"] = saved
+        autotune._load_table.cache_clear()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def routing_fp16(torch, card):
+    """(c) fp16 through flash_attn_func: by default the fp32 kernels (no
+    tensor-core kernel in the profile), with fp16_compute_dtype=bfloat16
+    the tensor-core ones; the fp16 output against the fp32 plain twin under
+    the FA rule, the yardstick the plain twin on the inputs as each call
+    computes them (fp16, or fp16 cast to bf16)."""
+    from fa2_triton_tpu_torch.ops import flash_fwd
+    from fa2_triton_tpu_torch.ops.attention import flash_attn_func
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(17)
+    S, D = 2047, 128
+    x32 = [torch.randn(2, S, h, D, generator=g, device=dev) * 0.5 for h in (32, 8, 8)]
+    t = lambda x: x.transpose(1, 2)  # noqa: E731
+    lens = torch.tensor([[S, S]] * 2, dtype=torch.int32, device=dev)
+    kw = dict(causal=True, softmax_scale=D ** -0.5)
+    o32, _ = flash_fwd.flash_attn_forward_plain(*(t(x) for x in x32), lens, **kw)
+    res = {}
+    for compute in (None, torch.bfloat16):
+        x16 = [x.half() for x in x32]
+        o_pl, _ = flash_fwd.flash_attn_forward_plain(
+            *(t(x if compute is None else x.to(compute)) for x in x16), lens, **kw)
+        yard = max_abs(torch, o_pl, o32)
+        fn = lambda: flash_attn_func(*x16, causal=True, fp16_compute_dtype=compute)  # noqa
+        events = profiled(torch, fn, 1, lambda ev: any(_device_us(e) for e in ev))
+        names = sorted({e.key for e in events if "flash_fwd" in e.key})
+        mma = any("flash_fwd_mma_kernel" in n for n in names)
+        out = fn()
+        err = max_abs(torch, t(out), o32)
+        ms = cuda_ms(torch, fn, iters=5)
+        what = "default (fp32)" if compute is None else "fp16_compute_dtype=bfloat16"
+        print(f"[routing] (c) fp16 flash_attn_func B 2 x S {S}, 32 / 8 heads, {what}: kernels "
+              f"{names}, err vs fp32 {err:.3e} (plain twin {yard:.3e}), {ms:.3f} ms [{card}]")
+        if out.dtype != torch.float16 or mma != (compute is not None):
+            raise AssertionError(f"fp16 {what}: dtype {out.dtype}, kernels {names}")
+        if not err <= OUT_ERROR_MUL * yard + OUT_ERROR_BIAS:
+            raise AssertionError(f"fp16 {what}: err {err:.3e} > 2 x {yard:.3e} + 5e-5")
+        res["fp32" if compute is None else "bf16"] = {"kernels": names, "err": err, "ms": ms}
+    return res
+
+
+def phase_routing(torch, card):
+    """Phase 17: the card's tuning table. (a) every (head dim, bucket,
+    group) of the shipped table through flash_attn_func with the table and
+    without it; (b) one tune-on-miss; (c) fp16's kernels."""
+    from fa2_triton_tpu_torch.ops import autotune
+
+    t0 = time.perf_counter()
+    os.environ.pop("FA2_DISABLE_TUNING_TABLE", None)   # set for phases 1-16
+    chip = autotune.detect_chip()
+    path = autotune.table_paths(chip)[0]
+    table = json.loads(path.read_text())
+    print(f"[routing] detect_chip() {chip!r}, table {os.path.relpath(path, HERE)}: "
+          f"{len(table)} entries {json.dumps(table, sort_keys=True)} [{card}]")
+    shapes = sorted({(int(k.split(":")[2]), int(k.split(":")[3]),
+                      int(k.split(":")[0].partition("+g")[2] or 1)) for k in table})
+    rows, changed = {}, 0
+    for D, bucket, group in shapes:
+        row = routing_shape(torch, table, chip, D, bucket, group)
+        rows[f"D {D} bucket {bucket} g{group}"] = row
+        changed += row["routes"]["table"] != row["routes"]["prior"]
+        print(f"[routing] (a) D {D} bucket {bucket} g{group} (B 1 x S {bucket - 1}, "
+              f"{ROUTING_HEADS} / {ROUTING_HEADS // group} heads): table {row['routes']['table']}"
+              f", prior {row['routes']['prior']}; errs (out, dq, dk, dv) table "
+              f"{['%.2e' % e for e in row['errs']['table']]}, prior "
+              f"{['%.2e' % e for e in row['errs']['prior']]}")
+    miss = routing_tune_on_miss(torch, card)
+    fp16 = routing_fp16(torch, card)
+    seconds = time.perf_counter() - t0
+    print(f"[routing] phase 17: {len(shapes)} shapes, {changed} routed off the prior by the "
+          f"table, {seconds:.1f} s [{card}]")
+    return {"chip": chip, "entries": len(table), "shapes": rows, "changed_shapes": changed,
+            "tune_on_miss": miss, "fp16": fp16, "seconds": seconds}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4569,6 +4809,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
           "torch.backends.cudnn.allow_tf32 = False")
+    # Phases 1-16 assert the prior's routes (JAX's gates); phase 17 runs the
+    # card's tuning table against them.
+    os.environ["FA2_DISABLE_TUNING_TABLE"] = "1"
+    print("phases 1-16: FA2_DISABLE_TUNING_TABLE=1 (the prior's routes); phase 17: the table")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -4627,6 +4871,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     extras = phase_extras(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    routing = phase_routing(torch, card)
 
     if any(name == "jax" or name.startswith(("jax.", "fa2_triton_tpu.")) for name in sys.modules):
         raise RuntimeError("the port imported jax or the JAX package")
@@ -4663,6 +4910,7 @@ def main() -> int:
              "resume": {k: v for k, v in extras["resume"].items() if k != "launches"},
              "eval_nll": extras["eval"]["nll"], "probes": extras["probes"],
              "demo_tokens_per_s": extras["demo"]["tokens_per_s"], "seconds": extras["seconds"]},
+         "routing": routing,
          "model_zoo": {
              "moe_train": {k: zoo["moe_train"][k] for k in (
                  "losses", "step_s", "tokens_per_s", "peak_gib", "free_gib", "capacity",

@@ -40,10 +40,18 @@
     Mistral-7B-v0.3 target step (`forward_with_cache`, random bf16 weights
     from seed 0) at the same widths after those cache lengths, in turns: ms
     per step (host clock to the device's end), and one step's device time
-    and launches.
+    and launches;
+  * with `--only routes`: the full-depth trainers whose routes the card's
+    tuning table (`ops/tables/tuning_<chip>.json`) changes, `chip_smoke.py`'s
+    Mistral-7B-v0.3 1 x 4096 (the forward: split -> strip on the H100) and
+    Qwen1.5-7B 1 x 8192 (the backward: work list -> the dq + dk/dv pair),
+    each with FA2_DISABLE_TUNING_TABLE=1 (the prior's routes) and without
+    it, in turns prior, table, table, prior: seconds per step (host clock
+    to the device's end), tokens/s of the median step, peak memory and the
+    launches by route.
 
     python fa2_triton_tpu_torch/examples/kernel_times.py [--dropout P] [--root DIR]
-        [--only decode|dbias|serve|chunk|spec]
+        [--only decode|dbias|serve|chunk|spec|routes]
 
 Times come from torch.profiler (device time per launch, averaged over
 --iters calls after a warm-up), the S 4096 forwards' from CUDA events over
@@ -56,7 +64,11 @@ served traffic come from the `chip_smoke.py` beside this checkout's
 package, whichever package is timed. `--only decode` times the decode
 variants alone, `--only dbias` the bias path's backward kernels (its shape
 from `chip_smoke.py` too), `--only serve` the serve modes, `--only chunk`
-the chunk dispatch and the sampler, `--only spec` the speculative steps. Run it by its
+the chunk dispatch and the sampler, `--only spec` the speculative steps,
+`--only routes` the trainers with and without the tuning table. The
+default run's split forward is timed with FA2_DISABLE_TUNING_TABLE=1 (the
+prior routes it to the split; a checkout without a table ignores the
+variable). Run it by its
 path, not with -m, so that the package is imported from the root. Needs a
 CUDA device.
 """
@@ -90,7 +102,7 @@ def parse_args(argv=None):
     ap.add_argument("--root", default=REPO,
                     help="checkout whose package is timed (default: this one)")
     ap.add_argument("--iters", type=int, default=10)
-    ap.add_argument("--only", choices=("decode", "dbias", "serve", "chunk", "spec"),
+    ap.add_argument("--only", choices=("decode", "dbias", "serve", "chunk", "spec", "routes"),
                     help="time only these")
     return ap.parse_args(argv)
 
@@ -376,6 +388,44 @@ def spec_times(torch, iters):
     return out
 
 
+def route_trainer_times(torch):
+    """`--only routes` (see the module docstring), through
+    `chip_smoke.run_trainer` (its lines go to stderr)."""
+    import gc
+    import subprocess
+
+    from fa2_triton_tpu_torch.ops import flash_bwd, flash_fwd
+
+    smoke = smoke_module()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+
+    def reset():
+        flash_fwd.reset_launches()
+        flash_bwd.reset_launches()
+
+    out = {}
+    for name, argv in (("mistral-7b-v0.3 1 x 4096", smoke.LONG_TRAIN_ARGV),
+                       ("qwen1.5-7b 1 x 8192", smoke.qwen_train_argv(1, 8192))):
+        for which in ("prior", "table", "table", "prior"):
+            if which == "prior":
+                os.environ["FA2_DISABLE_TUNING_TABLE"] = "1"
+            try:
+                with contextlib.redirect_stdout(sys.stderr):
+                    _, res = smoke.run_trainer(torch, card, argv, reset, f"routes {name} {which}")
+            finally:
+                os.environ.pop("FA2_DISABLE_TUNING_TABLE", None)
+            out.setdefault(f"{name} {which}", []).append({
+                "step_s": res["step_s"], "tokens_per_s": res["tokens_per_s"],
+                "peak_gib": res["peak_bytes"] / 2**30,
+                "launches": smoke.bwd_launches(flash_fwd, flash_bwd)})
+            del res
+            gc.collect()
+            torch.cuda.empty_cache()
+    out["card"] = card
+    return out
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     root = os.path.abspath(args.root)
@@ -398,6 +448,7 @@ def main(argv=None) -> int:
                    dbias_times(torch, args.iters, drop) if args.only == "dbias" else
                    chunk_times(torch, args.iters) if args.only == "chunk" else
                    spec_times(torch, args.iters) if args.only == "spec" else
+                   route_trainer_times(torch) if args.only == "routes" else
                    serve_times(torch))
         print(json.dumps(out))
         return 0
@@ -421,9 +472,11 @@ def main(argv=None) -> int:
     q1 = bf(torch.randn((1, S1, Hq, D), generator=g3, device=dev) * 0.5)
     k1, v1 = (bf(torch.randn((1, S1, Hkv, D), generator=g3, device=dev) * 0.5) for _ in range(2))
     lens1 = torch.tensor([[S1, S1]], dtype=torch.int32, device=dev)
+    os.environ["FA2_DISABLE_TUNING_TABLE"] = "1"   # the prior's route at S 4096: the split
     for name, skip in (("split_fwd_1x4096", True), ("generic_fwd_1x4096", False)):
         out[f"{name}_ms"] = events_ms(torch, lambda: flash_fwd.flash_attn_forward(
             q1, k1, v1, lens1, static_skip=skip, **kw), args.iters)
+    os.environ.pop("FA2_DISABLE_TUNING_TABLE")
     del q1, k1, v1
 
     docs = doc_lengths()

@@ -3,9 +3,16 @@ KV-cache entry point `flash_attn_with_kv_cache` (inference only).
 
 Port of `fa2_triton_tpu/ops/attention.py:flash_attn_func`, BSHD in and out.
 The TPU layout rules of the JAX version (the 128-lane head-dim pad, padding
-sequences to tuned blocks, the fp16 -> fp32 upcast because Mosaic has no
-fp16) do not carry over: the CUDA kernels mask their own ragged edges and
-compute fp16/bf16 natively, so q/k/v reach them as transposed views, uncopied.
+sequences to tuned blocks) do not carry over: the CUDA kernels mask their
+own ragged edges, so q/k/v reach them as transposed views, uncopied. The
+blocks JAX pads to still decide the causal route (`block_sizes`, else
+`ops/tuning.py:choose_block_sizes`). fp16 follows JAX's contract
+(`fa2_triton_tpu/ops/attention.py:182-196`): fp16 inputs compute in fp32
+by default (the FMA kernels, at fp32 speed) or in bf16 if asked
+(`fp16_compute_dtype=torch.bfloat16`, the tensor-core kernels), and the
+output comes back in fp16. The kernels' fp16 instantiations stay reachable
+through `ops/flash_fwd.flash_attn_forward` / `ops/flash_bwd.
+flash_attn_backward`.
 A head dim the kernels are not built for (any D <= 256 but 64, 128, 256) is
 zero-padded to the next one they are, which is exact: the scale comes from
 the true D, zero columns add nothing to q.k, and the padded output columns
@@ -39,6 +46,7 @@ import torch.nn.functional as F
 
 from fa2_triton_tpu_torch.ops.flash_bwd import flash_attn_backward
 from fa2_triton_tpu_torch.ops.flash_fwd import HEAD_DIMS, MAX_HEAD_DIM, flash_attn_forward
+from fa2_triton_tpu_torch.ops.tuning import BlockSizes
 from fa2_triton_tpu_torch.utils import default_softmax_scale
 
 _INT32_MAX = 2**31 - 1
@@ -85,6 +93,19 @@ def pad_head_dim(D: int, device: torch.device) -> int:
     return next(d for d in HEAD_DIMS if d >= D)
 
 
+def fp16_compute(dtype: torch.dtype, fp16_compute_dtype: Optional[torch.dtype]) -> torch.dtype:
+    """The dtype the kernels compute in for inputs of `dtype`: JAX's fp16
+    rule (fp32 by default, bf16 if asked; any other choice raises
+    ValueError), every other dtype itself."""
+    if dtype != torch.float16:
+        return dtype
+    cd = torch.float32 if fp16_compute_dtype is None else fp16_compute_dtype
+    if cd not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"fp16_compute_dtype must be torch.float32 (precise) or "
+                         f"torch.bfloat16 (fast), got {fp16_compute_dtype}")
+    return cd
+
+
 def pad_last(x: torch.Tensor, Dp: int) -> torch.Tensor:
     """x zero-padded on its last dim to Dp (x itself when it is Dp wide)."""
     return x if x.shape[-1] == Dp else F.pad(x, (0, Dp - x.shape[-1]))
@@ -95,9 +116,10 @@ class _AttnCore(torch.autograd.Function):
     static config are not differentiated."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, lens, causal, scale, window, softcap, dropout_p, seed, varlen):
+    def forward(ctx, q, k, v, bias, lens, causal, scale, window, softcap, dropout_p, seed, varlen,
+                blocks):
         cfg = dict(causal=causal, softmax_scale=scale, window=window, softcap=softcap,
-                   dropout_p=dropout_p, dropout_seed=seed)
+                   dropout_p=dropout_p, dropout_seed=seed, block_sizes=blocks)
         # JAX attention.py:258-271: the shift is static (Sk - Sq, or 0 under
         # a shared padding mask), so the causal schedules may route.
         o, lse = flash_attn_forward(q, k, v, lens, 0, 0, bias, static_skip=True, varlen=varlen,
@@ -117,7 +139,7 @@ class _AttnCore(torch.autograd.Function):
                                     compute_dbias=want_dbias, static_skip=True,
                                     varlen=ctx.varlen, **ctx.cfg)
         dbias = grads[3] if want_dbias else None
-        return (grads[0], grads[1], grads[2], dbias) + (None,) * 8
+        return (grads[0], grads[1], grads[2], dbias) + (None,) * 9
 
 
 def flash_attn_func(
@@ -132,8 +154,10 @@ def flash_attn_func(
     dropout_seed: Optional[int] = None,
     window_size: Tuple[int, int] = (-1, -1),
     softcap: float = 0.0,
+    block_sizes: Optional[BlockSizes] = None,
     return_lse: bool = False,
     dropout_rng: Optional[torch.Generator] = None,
+    fp16_compute_dtype: Optional[torch.dtype] = None,
 ):
     """FlashAttention-2, differentiable through `_AttnCore`.
 
@@ -156,16 +180,30 @@ def flash_attn_func(
         softmax_scale: defaults to 1/sqrt(head_dim).
         window_size: (left, right) sliding window, -1 = infinite.
         softcap: if > 0, scores are softcap * tanh(scores / softcap).
+        block_sizes: JAX's block override (`ops/tuning.py:BlockSizes`). The
+            CUDA tiles are compile-time, so on the card it decides only the
+            padded shape the causal route is chosen at, as JAX's does.
         return_lse: also return the logsumexp [batch, num_heads_q, seqlen_q]
             in log-base-2 units, fp32.
         dropout_rng: alternatively, a CPU torch.Generator from which the
             seed is drawn (no device sync).
+        fp16_compute_dtype: for float16 inputs only, the dtype the kernels
+            compute in: torch.float32 by default (precise; the FMA kernels,
+            at fp32 speed) or torch.bfloat16 (the tensor-core kernels, at
+            bf16 precision). An fp16 bias is widened to fp32; the output
+            comes back in fp16. bf16 inputs are the fast path.
 
     Returns:
         output [batch, seqlen_q, num_heads_q, head_dim] (and lse if requested),
         differentiable in q, k, v, the bias and the lse.
     """
     seed = resolve_dropout_seed(dropout_p, dropout_seed, dropout_rng)
+    out_dtype = q.dtype
+    cd = fp16_compute(q.dtype, fp16_compute_dtype)
+    if cd != q.dtype:
+        q, k, v = (x.to(cd) for x in (q, k, v))
+        if attention_bias is not None and attention_bias.dtype == torch.float16:
+            attention_bias = attention_bias.float()
     B, Sq, Hq, D = q.shape
     Bk, Sk, Hkv, Dk = k.shape
     if D != Dk or v.shape != k.shape or Bk != B:
@@ -193,8 +231,8 @@ def flash_attn_func(
     o, lse = _AttnCore.apply(
         *(pad_last(x, Dp).transpose(1, 2) for x in (q, k, v)), bias, lens,
         causal, scale, tuple(window_size), float(softcap), float(dropout_p), seed,
-        attention_mask is not None)
-    out = o.transpose(1, 2)[..., :D]
+        attention_mask is not None, block_sizes)
+    out = o.transpose(1, 2)[..., :D].to(out_dtype)
     if return_lse:
         return out, lse
     return out
@@ -206,6 +244,8 @@ def flash_attn_with_kv_cache(
     v_cache: torch.Tensor,
     kv_len: int,              # host int: valid rows (cached + this step's)
     softmax_scale: Optional[float] = None,
+    block_q: int = 128,
+    block_kv: int = 512,
     window_left: int = -1,    # sliding-window prefix (-1: full causal)
     softcap: float = 0.0,
 ) -> torch.Tensor:
@@ -218,11 +258,14 @@ def flash_attn_with_kv_cache(
     first kv_len rows are handed on, as a view: one `flash_fwd` call (B1 on
     CUDA tensors, its plain twin on CPU ones) with lens (kv_len, kv_len),
     q_off kv_len - S_step, the queries as a transposed view. `kv_len` is a
-    host int, so a step reads no device value. JAX's `block_q` / `block_kv`
-    choose TPU tiles and are not taken (TypeError; ROADMAP.md queue A.3).
+    host int, so a step reads no device value. `block_q` / `block_kv` are
+    JAX's TPU tiles (positive, else ValueError); the CUDA tiles are
+    compile-time, so, as in JAX, the result does not depend on them.
     Returns [B, S_step, Hq, D] in q's dtype."""
     if isinstance(kv_len, torch.Tensor):
         raise TypeError("kv_len is a host int: a tensor would be read from the device per call")
+    if block_q <= 0 or block_kv <= 0:
+        raise ValueError(f"block_q / block_kv must be positive, got {block_q} / {block_kv}")
     B, S, Hq, D = q.shape
     kv_len = int(kv_len)
     if k_cache.dim() != 4 or k_cache.shape[0] != B or k_cache.shape[3] != D \

@@ -282,11 +282,17 @@ def decode_attention(
     v_scale: Optional[torch.Tensor] = None,
     *,
     softmax_scale: Optional[float] = None,
+    block_kv: int = 4096,
     window_left: int = -1,
     softcap: float = 0.0,
 ) -> torch.Tensor:
     """Returns attention output [B, Hq, D]. `window_left >= 0` attends only
-    to the last window_left + 1 positions."""
+    to the last window_left + 1 positions. `block_kv` is JAX's TPU block
+    (positive, else ValueError); the kernel's chunk (`CHUNK`, `csrc/
+    decode.cuh`) and tiles are compile-time, so, as in JAX, the result does
+    not depend on it."""
+    if block_kv <= 0:
+        raise ValueError(f"block_kv must be positive, got {block_kv}")
     B, Hkv, S_max = k_cache.shape[0], k_cache.shape[1], k_cache.shape[2]
     _check_scales(k_cache, k_scale, v_scale, (B, Hkv, 1, S_max))
     kw = dict(softmax_scale=softmax_scale, window_left=window_left, softcap=softcap)

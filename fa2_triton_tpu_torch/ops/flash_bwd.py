@@ -20,10 +20,13 @@ the kernels regenerate the forward's keep mask from the same seed and
 counter; p stays undropped, dp becomes keep ? dp / (1 - p) : 0 inside
 ds = p (dp - delta), and dv's operand becomes keep ? p / (1 - p) : 0.
 
-Causal routing (`flash_attn_backward` with `causal` and `static_skip`) is
-the JAX package's (`flash_bwd.py:2189-2285`), with its gates copied
-verbatim and evaluated at the shape the JAX API pads to
-(`flash_fwd.jax_padded_shape`) and the real lengths (`backward_route`):
+Causal routing (`flash_attn_backward` with `causal` and `static_skip`,
+`backward_route`): the card's tuning table first (`bwd_route` entries per
+GQA group, read as the forward's `fwd_route` ones are:
+`flash_fwd.table_route`), else the prior, which is the JAX package's
+dispatch (`flash_bwd.py:2189-2285`), with its gates copied verbatim and
+evaluated at the shape the JAX API pads to (`flash_fwd.jax_padded_shape`)
+and the real lengths:
 the short tri-square range (B13, `csrc/flash_bwd_tri.cu`), the split
 schedule when forced (B13 diag, the same kernel on diagonal leaves, then
 B13 rect: `csrc/flash_bwd.cu` on each rectangle in its region mode, the
@@ -60,9 +63,12 @@ import numpy as np
 import torch
 
 from fa2_triton_tpu_torch.ops import _build
+from fa2_triton_tpu_torch.ops.autotune import detect_chip
 from fa2_triton_tpu_torch.ops.flash_fwd import (
-    TILE_ROWS, _check_cuda_args, _env_disables, _masks, _reals, bias_view, causal_split_ok,
-    causal_split_rects, dropout_c_args, dropout_mask, jax_padded_shape, tri_square_ok)
+    TILE_ROWS, _check_cuda_args, _killed, _masks, _reals, bias_view, causal_split_ok,
+    causal_split_rects, dropout_c_args, dropout_mask, jax_padded_shape, reads_table,
+    table_route, tri_square_ok)
+from fa2_triton_tpu_torch.ops.tuning import BlockSizes
 from fa2_triton_tpu_torch.utils import LOG2E
 
 # Kernel launches since the last reset, per kernel (the smoke test reads
@@ -313,8 +319,9 @@ def _generic_backward(q, k, v, do, o, lse, lens, q_off, kv_off, bias, *, dlse, *
 # Causal routing and its gates: `fa2_triton_tpu/ops/flash_bwd.py` l.827-843,
 # 1240-1275 and 1957-1983 (and the tri-square gate inline at l.2196-2203),
 # copied verbatim (pure Python), including the v5e-derived VMEM budgets and
-# the strict `<` of the strip's, so that the same call takes the same
-# schedule in both packages.
+# the strict `<` of the strip's, so that with no tuning table the same call
+# takes the same schedule in both packages (the card's table:
+# `flash_fwd.table_route`).
 
 
 def bwd_causal_strip_ok(causal, static_skip, window, bias, varlen,
@@ -468,49 +475,97 @@ def build_causal_bwd_worklist(
     return np.asarray(steps, np.int32)
 
 
+def backward_gates(Sq: int, Sk: int, head_dim: int, dtype_bytes: int, *, causal: bool,
+                   group: int = 1, static_skip: bool = False,
+                   window: Tuple[int, int] = (-1, -1), softcap: float = 0.0,
+                   varlen: bool = False, seqlen_q_real: Optional[int] = None,
+                   seqlen_k_real: Optional[int] = None, split_leaf: Optional[int] = None,
+                   block_sizes: Optional[BlockSizes] = None,
+                   chip: Optional[str] = None) -> dict:
+    """{route: its prior gate passes}, in JAX's order (flash_bwd.py:
+    2189-2285), at the shape the JAX API pads to (`jax_padded_shape`) and
+    the real lengths (default Sq, Sk), for a call with no bias; "generic"
+    (the dq + dk/dv pair) always passes. The split's gate is read at
+    `split_leaf`, default `bwd_split_leaf_t` (JAX takes the split only with
+    an explicit leaf; `backward_route` keeps that). Kill switches are not
+    applied here."""
+    Sq_p, Sk_p, Dp = jax_padded_shape(Sq, Sk, head_dim, dtype_bytes, block_sizes, chip)
+    sq_real = seqlen_q_real if seqlen_q_real is not None else Sq
+    sk_real = seqlen_k_real if seqlen_k_real is not None else Sk
+    window = tuple(window)
+    leaf = split_leaf if split_leaf is not None else bwd_split_leaf_t(Dp, group, dtype_bytes)
+    return {
+        "tri_square": tri_square_bwd_ok(causal, static_skip, window, softcap, Sq_p, Sk_p,
+                                        sq_real, sk_real, Dp, group, dtype_bytes),
+        "split": leaf > 0 and causal_split_bwd_ok(
+            causal, static_skip, window, None, varlen, softcap, Sq_p, Sk_p, sq_real, sk_real,
+            Dp, group, leaf_t=leaf, dtype_bytes=dtype_bytes),
+        "strip": bwd_causal_strip_ok(causal, static_skip, window, None, varlen, softcap, Sq_p,
+                                     Sk_p, sq_real, sk_real, head_dim=Dp,
+                                     dtype_bytes=dtype_bytes),
+        "worklist": causal_wl_bwd_config(causal, static_skip, window, varlen, softcap, Sq_p,
+                                         Sk_p, sq_real, sk_real, Dp, group,
+                                         dtype_bytes) is not None,
+        "generic": True,
+    }
+
+
 def backward_route(Sq: int, Sk: int, head_dim: int, dtype_bytes: int, *, causal: bool,
                    group: int = 1, static_skip: bool = False,
                    window: Tuple[int, int] = (-1, -1), bias=None, softcap: float = 0.0,
                    varlen: bool = False, seqlen_q_real: Optional[int] = None,
                    seqlen_k_real: Optional[int] = None, fused: Optional[bool] = None,
                    causal_split: Optional[bool] = None,
-                   split_leaf: Optional[int] = None) -> str:
+                   split_leaf: Optional[int] = None, route: Optional[str] = None,
+                   block_sizes: Optional[BlockSizes] = None,
+                   chip: Optional[str] = None) -> str:
     """The schedule `flash_attn_backward` takes: "tri_square", "split",
-    "strip", "worklist" or "generic" (the fused and two-pass routes). JAX's
-    order and gates (flash_bwd.py:2189-2285), at the shape the JAX API pads
-    to (`jax_padded_shape`) and the real lengths (default Sq, Sk);
-    `dtype_bytes` is the element size the kernels compute in and `group`
-    Hq / Hkv. With a bias, or `fused=False`, every schedule is skipped. The
-    kill switches FA2_DISABLE_SPLIT / _STRIP / _WL are read at call time. A
-    split forced on (`causal_split=True`) whose gate fails raises
-    ValueError; forced off it is skipped."""
+    "strip", "worklist" or "generic" (the fused and two-pass routes);
+    `head_dim` is the kernels' (64, 128 or 256), `dtype_bytes` the element
+    size they compute in and `group` Hq / Hkv. With a bias, or
+    `fused=False`, every schedule is skipped.
+
+    `route` forces one by name (its gate must pass, and its kill switch be
+    unset, else ValueError). Otherwise, where `flash_fwd.reads_table`
+    holds, no split is forced and no kill switch (FA2_DISABLE_SPLIT /
+    _STRIP / _WL) is set, `chip`'s `bwd_route` entry (variant
+    `g<group>`) at (head_dim, max(Sq, Sk)) decides when its prior gate
+    passes (`table_route`). Else the prior, JAX's dispatch: the kill
+    switches are read at call time, and a split forced on
+    (`causal_split=True`) whose gate fails raises ValueError; forced off
+    it is skipped."""
     if bias is not None or fused is False:
+        if route not in (None, "generic"):
+            raise ValueError(f"{route} forced on a call with a bias or fused=False")
         return "generic"
-    Sq_p, Sk_p, Dp = jax_padded_shape(Sq, Sk, head_dim, dtype_bytes)
-    sq_real = seqlen_q_real if seqlen_q_real is not None else Sq
-    sk_real = seqlen_k_real if seqlen_k_real is not None else Sk
-    window = tuple(window)
-    if tri_square_bwd_ok(causal, static_skip, window, softcap, Sq_p, Sk_p, sq_real, sk_real, Dp,
-                         group, dtype_bytes):
+    ok = backward_gates(Sq, Sk, head_dim, dtype_bytes, causal=causal, group=group,
+                        static_skip=static_skip, window=window, softcap=softcap, varlen=varlen,
+                        seqlen_q_real=seqlen_q_real, seqlen_k_real=seqlen_k_real,
+                        split_leaf=split_leaf, block_sizes=block_sizes, chip=chip)
+    if route is not None:
+        if route not in ok:
+            raise ValueError(f"unknown backward route {route!r}; one of {tuple(ok)}")
+        if not ok[route] or _killed(route):
+            raise ValueError(f"{route} forced but its preconditions are not met (Sq {Sq}, Sk "
+                             f"{Sk}, head_dim {head_dim}, group {group})")
+        return route
+    if (reads_table(causal, static_skip, window, None, softcap, varlen, dtype_bytes)
+            and causal_split is None and split_leaf is None):
+        taken = table_route("bwd_route", ok, head_dim, max(Sq, Sk), chip, variant=f"g{group}")
+        if taken is not None:
+            return taken
+    if ok["tri_square"]:
         return "tri_square"
-    ok_split = (causal_split_bwd_ok(causal, static_skip, window, None, varlen, softcap, Sq_p, Sk_p,
-                                    sq_real, sk_real, Dp, group, leaf_t=split_leaf,
-                                    dtype_bytes=dtype_bytes)
-                and not _env_disables("FA2_DISABLE_SPLIT"))
+    ok_split = split_leaf is not None and ok["split"] and not _killed("split")
     if causal_split if causal_split is not None else ok_split:
         if not ok_split:
             raise ValueError(f"causal_split forced but its preconditions are not met (Sq {Sq}, "
                              f"Sk {Sk}, head_dim {head_dim}, group {group}, split_leaf "
                              f"{split_leaf})")
         return "split"
-    if (bwd_causal_strip_ok(causal, static_skip, window, None, varlen, softcap, Sq_p, Sk_p,
-                            sq_real, sk_real, head_dim=Dp, dtype_bytes=dtype_bytes)
-            and not _env_disables("FA2_DISABLE_STRIP")):
-        return "strip"
-    if (causal_wl_bwd_config(causal, static_skip, window, varlen, softcap, Sq_p, Sk_p, sq_real,
-                             sk_real, Dp, group, dtype_bytes) is not None
-            and not _env_disables("FA2_DISABLE_WL")):
-        return "worklist"
+    for name in ("strip", "worklist"):
+        if ok[name] and not _killed(name):
+            return name
     return "generic"
 
 
@@ -961,7 +1016,7 @@ def flash_attn_backward_rect_plain(q, k_p, v, do, lse, delta, lens, q_off=0, kv_
 
 def _causal_split_backward(q, k, v, do, o, lse, lens, q_off=0, kv_off=0, *, softmax_scale,
                            dropout_p=0.0, dropout_seed=0, seqlen_q_real=None, seqlen_k_real=None,
-                           dlse=None, leaf_t=None):
+                           dlse=None, leaf_t=None, block_sizes=None, chip=None):
     """The split causal backward (JAX l.1278): the prescaled k and the
     global delta once, one diag launch over the T x T leaves, then one rect
     per `causal_split_rects(n)` entry, added in: gradients are additive over
@@ -973,7 +1028,7 @@ def _causal_split_backward(q, k, v, do, o, lse, lens, q_off=0, kv_off=0, *, soft
     out."""
     Sq, D, nbytes = q.shape[2], q.shape[3], q.element_size()
     group = q.shape[1] // k.shape[1]
-    Sq_p, _, Dp = jax_padded_shape(Sq, k.shape[2], D, nbytes)
+    Sq_p, _, Dp = jax_padded_shape(Sq, k.shape[2], D, nbytes, block_sizes, chip)
     T = leaf_t if leaf_t is not None else bwd_split_leaf_t(Dp, group, nbytes)
     n = -(-Sq_p // T)
     kw = dict(softmax_scale=softmax_scale, dropout_p=dropout_p, dropout_seed=dropout_seed,
@@ -1199,29 +1254,34 @@ def flash_attn_backward(
     fused: Optional[bool] = None,          # False: skip every schedule (JAX's two-pass)
     causal_split: Optional[bool] = None,   # force the split on / off (None: the gates decide)
     split_leaf: Optional[int] = None,      # the split's leaf length (default bwd_split_leaf_t)
+    route: Optional[str] = None,           # force a schedule by name
+    block_sizes: Optional[BlockSizes] = None,   # JAX's blocks: the padded shape the gates read
 ):
     """Returns (dq, dk, dv) in the input dtypes, plus dbias
     [bias.shape[0], bias.shape[1], Sq, Sk] in the bias dtype when
     `compute_dbias`. Bitwise repeatable (no atomics). The schedule is
-    `backward_route`'s."""
+    `backward_route`'s, on the chip of q's device (its tuning table)."""
     if compute_dbias and bias is None:
         raise ValueError("compute_dbias needs a bias")
     dropout_c_args(dropout_p, dropout_seed)
     B, Hq, Sq, D = q.shape
+    chip = detect_chip(q.device)
     route = backward_route(
         Sq, k.shape[2], D, q.element_size(), causal=causal, group=Hq // k.shape[1],
         static_skip=static_skip, window=window, bias=bias, softcap=softcap, varlen=varlen,
         seqlen_q_real=seqlen_q_real, seqlen_k_real=seqlen_k_real, fused=fused,
-        causal_split=causal_split, split_leaf=split_leaf)
+        causal_split=causal_split, split_leaf=split_leaf, route=route, block_sizes=block_sizes,
+        chip=chip)
     sched = dict(softmax_scale=softmax_scale, dropout_p=dropout_p, dropout_seed=dropout_seed,
                  seqlen_q_real=seqlen_q_real, seqlen_k_real=seqlen_k_real, dlse=dlse)
     if route == "tri_square":
         return flash_attn_backward_tri_square(q, k, v, do, o, lse, lens, q_off, kv_off, **sched)
     if route == "split":
         return _causal_split_backward(q, k, v, do, o, lse, lens, q_off, kv_off,
-                                      leaf_t=split_leaf, **sched)
+                                      leaf_t=split_leaf, block_sizes=block_sizes, chip=chip,
+                                      **sched)
     if route == "worklist":
-        Sq_p, Sk_p, Dp = jax_padded_shape(Sq, k.shape[2], D, q.element_size())
+        Sq_p, Sk_p, Dp = jax_padded_shape(Sq, k.shape[2], D, q.element_size(), block_sizes, chip)
         sq_real, sk_real = _reals(q, k, seqlen_q_real, seqlen_k_real)
         sub, block_kv = causal_wl_bwd_config(causal, static_skip, tuple(window), varlen, softcap,
                                              Sq_p, Sk_p, sq_real, sk_real, Dp, Hq // k.shape[1],

@@ -22,11 +22,16 @@ counter_hash(seed, ((b * Hq + h) * seqlen_q_real + row) * seqlen_k_real +
 col) >= dropout_threshold(p). The softmax sum and lse stay undropped; only
 the P V product sees the mask, and o is scaled by 1 / (1 - p).
 
-Causal routing (`flash_attn_forward` with `causal` and `static_skip`) is
-the JAX package's (`fa2_triton_tpu/ops/flash_fwd.py:1267-1328`), with its
-gates copied verbatim and evaluated at the shape the JAX API pads to (head
-dim to 128 lanes, lengths to its blocks: `jax_padded_shape`) and the real
-lengths: the short tri-square range
+Causal routing (`flash_attn_forward` with `causal` and `static_skip`):
+the card's tuning table first (`fwd_route` entries of
+`ops/tables/tuning_<chip>.json`, swept by `ops/microsweep.py`; read only
+for 16-bit causal calls with no bias, window, softcap, varlen, forced
+route or kill switch, and only where the named route's gate passes), else
+the prior, which is the JAX package's routing
+(`fa2_triton_tpu/ops/flash_fwd.py:1267-1328`), with its gates copied
+verbatim and evaluated at the shape the JAX API pads to (head dim to 128
+lanes, lengths to its blocks, `ops/tuning.py`: `jax_padded_shape`) and the
+real lengths: the short tri-square range
 (B9, here the generic kernel), the split schedule (B9 diag leaves, then B11
 rectangles merged in place into the running (o, lse): B1 merge) and the
 whole-strip causal forward (B10: the generic kernel's causal call, counted
@@ -50,6 +55,8 @@ from typing import List, Optional, Tuple
 import torch
 
 from fa2_triton_tpu_torch.ops import _build
+from fa2_triton_tpu_torch.ops.autotune import detect_chip, lookup
+from fa2_triton_tpu_torch.ops.tuning import BlockSizes, choose_block_sizes
 from fa2_triton_tpu_torch.utils import LOG2E, dropout_keep_mask, dropout_threshold
 
 # Launches of csrc/flash_fwd.cu since the last reset (the smoke test reads
@@ -290,7 +297,9 @@ def _flash_fwd_launch(q, k, v, lens, q_off, kv_off, bias, *, causal, softmax_sca
 # ---------------------------------------------------------------------------
 # Causal routing and its gates: `fa2_triton_tpu/ops/flash_fwd.py` l.830-966,
 # copied verbatim (pure Python), including the v5e-derived VMEM budgets, so
-# that the same call takes the same schedule in both packages.
+# that with no tuning table the same call takes the same schedule in both
+# packages. On the card the table may name another route whose gate passes
+# (`table_route`).
 
 
 def causal_strip_ok(causal, static_skip, window, bias, varlen, Sq, Sk,
@@ -371,60 +380,85 @@ def _round_up(x: int, m: int) -> int:
 
 # The JAX API's padding (`fa2_triton_tpu/ops/attention.py:207-222`): the head
 # dim to a multiple of 128 lanes, and each sequence to the larger of its
-# forward and backward blocks from `choose_block_sizes`
-# (`fa2_triton_tpu/ops/tuning.py:36-50, 110-190, 255-268`, its v5e static
-# prior, copied verbatim for the only calls the gates can pass: causal, with
-# no bias and no window; the persisted tuning table is queue A item 3's).
+# forward and backward blocks (`ops/tuning.py:choose_block_sizes`, the port's
+# copy of JAX's prior, or the caller's `BlockSizes`).
 
 
-def _waste_aware(seqlen: int, candidates, max_waste_frac: float = 0.125) -> int:
-    sp = _round_up(max(seqlen, 1), 128)
-    for cand in candidates:
-        c = min(cand, sp)
-        padded = _round_up(sp, c)
-        if padded - seqlen <= max(seqlen, 1) * max_waste_frac:
-            return c
-    return min(candidates[-1], sp)
-
-
-def _compatible(b_fwd: int, b_bwd: int) -> int:
-    lo, hi = min(b_fwd, b_bwd), max(b_fwd, b_bwd)
-    return b_bwd if hi % lo == 0 else b_fwd
-
-
-def _divisor_block(block: int, cap: int) -> int:
-    if block <= cap:
-        return block
-    c = (cap // 128) * 128
-    while c > 128 and block % c != 0:
-        c -= 128
-    return c
-
-
-def jax_padded_shape(Sq: int, Sk: int, head_dim: int, dtype_bytes: int) -> Tuple[int, int, int]:
+def jax_padded_shape(Sq: int, Sk: int, head_dim: int, dtype_bytes: int,
+                     block_sizes: Optional[BlockSizes] = None,
+                     chip: Optional[str] = None) -> Tuple[int, int, int]:
     """(Sq, Sk, head_dim) as the JAX API pads a causal call with no bias and
-    no window before it routes; `dtype_bytes` is the computing dtype's."""
+    no window before it routes; `dtype_bytes` is the computing dtype's. The
+    blocks are `block_sizes`, else `choose_block_sizes` on `chip`."""
     Dp = _round_up(head_dim, 128)
-    cands = (1024, 512, 256, 128)
-    bq, bkv = (_waste_aware(Sq, cands), _waste_aware(Sk, cands)) if Dp <= 256 else (128, 256)
-    if dtype_bytes >= 4:
-        bq, bkv = min(bq, 512), min(bkv, 512)
-    bq = min(bq, _round_up(max(Sq, 1), 128))
-    bkv = min(bkv, _round_up(max(Sk, 1), 128))
-    if Dp <= 128:
-        bq_b, bkv_b = (512, 512) if dtype_bytes >= 4 else (1024, 1024)
-        bq_b = min(bq_b, _round_up(max(Sq, 1), 128))
-        bkv_b = min(bkv_b, _round_up(max(Sk, 1), 128))
-        bq_b, bkv_b = _compatible(bq, bq_b), _compatible(bkv, bkv_b)
-    else:
-        bq_b, bkv_b = _divisor_block(bq, 256), _divisor_block(bkv, 256)
-    return _round_up(Sq, max(bq, bq_b)), _round_up(Sk, max(bkv, bkv_b)), Dp
+    b = block_sizes or choose_block_sizes(Sq, Sk, Dp, dtype_bits=8 * dtype_bytes, causal=True,
+                                          chip=chip)
+    return (_round_up(Sq, max(b.block_q, b.block_q_bwd)),
+            _round_up(Sk, max(b.block_kv, b.block_kv_bwd)), Dp)
+
+
+# The prior's kill switches, by route (JAX's, read at call time); a set one
+# also keeps the tuning table from being read.
+KILL_SWITCHES = {"split": "FA2_DISABLE_SPLIT", "strip": "FA2_DISABLE_STRIP",
+                 "worklist": "FA2_DISABLE_WL"}
 
 
 def _env_disables(name: str) -> bool:
-    """JAX's kill switches (FA2_DISABLE_SPLIT / FA2_DISABLE_STRIP), read
-    at call time."""
     return os.environ.get(name, "0").lower() in ("1", "true", "yes")
+
+
+def _killed(route: str) -> bool:
+    return route in KILL_SWITCHES and _env_disables(KILL_SWITCHES[route])
+
+
+def table_route(kind: str, gates: dict, head_dim: int, seqlen: int, chip: Optional[str],
+                variant: str = "") -> Optional[str]:
+    """The route the chip's tuning table names for this call
+    (`autotune.lookup(kind, True, head_dim, seqlen, chip, variant)`: one of
+    `gates`' keys), or None: no chip, a 'cpu' or 'unknown' one, a kill
+    switch set, no entry, or an entry whose prior gate fails here
+    (`gates[route]` False; "generic" always passes). The caller checks that
+    the call may read the table at all."""
+    if chip in (None, "cpu", "unknown") or any(map(_env_disables, KILL_SWITCHES.values())):
+        return None
+    entry = lookup(kind, True, head_dim, seqlen, chip=chip, variant=variant)
+    route = entry[0] if entry else None
+    return route if gates.get(route, False) else None
+
+
+def forward_gates(Sq: int, Sk: int, head_dim: int, dtype_bytes: int, *, causal: bool,
+                  static_skip: bool = False, window: Tuple[int, int] = (-1, -1), bias=None,
+                  softcap: float = 0.0, varlen: bool = False,
+                  seqlen_q_real: Optional[int] = None, seqlen_k_real: Optional[int] = None,
+                  split_leaf: Optional[int] = None, block_sizes: Optional[BlockSizes] = None,
+                  chip: Optional[str] = None) -> dict:
+    """{route: its prior gate passes}, in JAX's order (flash_fwd.py:
+    1267-1328), at the shape the JAX API pads to (`jax_padded_shape`) and
+    the real lengths (default Sq, Sk); "generic" always passes. The kill
+    switches are not applied here."""
+    Sq_p, Sk_p, Dp = jax_padded_shape(Sq, Sk, head_dim, dtype_bytes, block_sizes, chip)
+    sq_real = seqlen_q_real if seqlen_q_real is not None else Sq
+    sk_real = seqlen_k_real if seqlen_k_real is not None else Sk
+    window = tuple(window)
+    return {
+        "tri_square": tri_square_ok(causal, static_skip, window, bias, Sq_p, Sk_p, sq_real,
+                                    sk_real, head_dim=Dp, softcap=softcap,
+                                    dtype_bytes=dtype_bytes),
+        "split": causal_split_ok(causal, static_skip, window, bias, varlen, softcap, Sq_p, Sk_p,
+                                 sq_real, sk_real, Dp, leaf_t=split_leaf,
+                                 dtype_bytes=dtype_bytes),
+        "strip": causal_strip_ok(causal, static_skip, window, bias, varlen, Sq_p, Sk_p, sq_real,
+                                 sk_real, head_dim=Dp, softcap=softcap, dtype_bytes=dtype_bytes),
+        "generic": True,
+    }
+
+
+def reads_table(causal, static_skip, window, bias, softcap, varlen, dtype_bytes) -> bool:
+    """Whether a call may take its route from the tuning table: causal, a
+    16-bit compute dtype, a static shift, no bias, window, softcap or
+    varlen (the caller also checks that no route is forced)."""
+    return (causal and static_skip and dtype_bytes == 2 and bias is None
+            and tuple(window) == (-1, -1) and softcap == 0.0 and not varlen)
 
 
 def forward_route(Sq: int, Sk: int, head_dim: int, dtype_bytes: int, *, causal: bool,
@@ -432,36 +466,41 @@ def forward_route(Sq: int, Sk: int, head_dim: int, dtype_bytes: int, *, causal: 
                   softcap: float = 0.0, varlen: bool = False,
                   seqlen_q_real: Optional[int] = None, seqlen_k_real: Optional[int] = None,
                   tri_square: Optional[bool] = None, causal_strip: Optional[bool] = None,
-                  causal_split: Optional[bool] = None, split_leaf: Optional[int] = None) -> str:
+                  causal_split: Optional[bool] = None, split_leaf: Optional[int] = None,
+                  route: Optional[str] = None, block_sizes: Optional[BlockSizes] = None,
+                  chip: Optional[str] = None) -> str:
     """The schedule `flash_attn_forward` takes: "tri_square", "split",
-    "strip" or "generic". JAX's order and gates (flash_fwd.py:1267-1328),
-    at the shape the JAX API pads to (`jax_padded_shape`) and the real
-    lengths (default Sq, Sk); `dtype_bytes` is the element size the kernels
-    compute in. A route forced on (True) whose gate fails raises
-    ValueError; forced off (False) it is skipped."""
-    Sq_p, Sk_p, Dp = jax_padded_shape(Sq, Sk, head_dim, dtype_bytes)
-    sq_real = seqlen_q_real if seqlen_q_real is not None else Sq
-    sk_real = seqlen_k_real if seqlen_k_real is not None else Sk
-    window = tuple(window)
-    gates = (
-        ("tri_square", tri_square, tri_square_ok(
-            causal, static_skip, window, bias, Sq_p, Sk_p, sq_real, sk_real, head_dim=Dp,
-            softcap=softcap, dtype_bytes=dtype_bytes)),
-        ("split", causal_split, causal_split_ok(
-            causal, static_skip, window, bias, varlen, softcap, Sq_p, Sk_p, sq_real, sk_real,
-            Dp, leaf_t=split_leaf, dtype_bytes=dtype_bytes)
-         and not _env_disables("FA2_DISABLE_SPLIT")),
-        ("strip", causal_strip, causal_strip_ok(
-            causal, static_skip, window, bias, varlen, Sq_p, Sk_p, sq_real, sk_real,
-            head_dim=Dp, softcap=softcap, dtype_bytes=dtype_bytes)
-         and not _env_disables("FA2_DISABLE_STRIP")),
-    )
-    for route, forced, ok in gates:
-        if forced if forced is not None else ok:
-            if not ok:
-                raise ValueError(f"{route} forced but its preconditions are not met (Sq {Sq}, Sk "
+    "strip" or "generic"; `head_dim` is the kernels' (64, 128 or 256) and
+    `dtype_bytes` the element size they compute in.
+
+    `route` forces one by name. Otherwise, where `reads_table` holds, no
+    flag is forced and no kill switch (FA2_DISABLE_SPLIT / _STRIP / _WL)
+    is set, `chip`'s `fwd_route` entry at (head_dim, max(Sq, Sk)) decides
+    when its prior gate passes (`table_route`). Else the prior: JAX's order
+    and gates (`forward_gates`) with its kill switches. A route forced on
+    (`route`, or a flag True) whose gate fails, or whose kill switch is set,
+    raises ValueError; a flag False skips it."""
+    ok = forward_gates(Sq, Sk, head_dim, dtype_bytes, causal=causal, static_skip=static_skip,
+                       window=window, bias=bias, softcap=softcap, varlen=varlen,
+                       seqlen_q_real=seqlen_q_real, seqlen_k_real=seqlen_k_real,
+                       split_leaf=split_leaf, block_sizes=block_sizes, chip=chip)
+    flags = {"tri_square": tri_square, "split": causal_split, "strip": causal_strip}
+    if route is not None:
+        if route not in ok:
+            raise ValueError(f"unknown forward route {route!r}; one of {tuple(ok)}")
+        flags = {r: r == route for r in flags}
+    elif (reads_table(causal, static_skip, window, bias, softcap, varlen, dtype_bytes)
+          and split_leaf is None and all(f is None for f in flags.values())):
+        taken = table_route("fwd_route", ok, head_dim, max(Sq, Sk), chip)
+        if taken is not None:
+            return taken
+    for name, forced in flags.items():
+        gate = ok[name] and not _killed(name)
+        if forced if forced is not None else gate:
+            if not gate:
+                raise ValueError(f"{name} forced but its preconditions are not met (Sq {Sq}, Sk "
                                  f"{Sk}, head_dim {head_dim}, {dtype_bytes}-byte dtype)")
-            return route
+            return name
     return "generic"
 
 
@@ -488,20 +527,26 @@ def flash_attn_forward(
     causal_strip: Optional[bool] = None,
     causal_split: Optional[bool] = None,
     split_leaf: Optional[int] = None,    # the split's leaf length (default split_leaf_t)
+    route: Optional[str] = None,         # force a schedule by name (beats the flags)
+    block_sizes: Optional[BlockSizes] = None,   # JAX's blocks: the padded shape the gates read
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (o [B, Hq, Sq, D] in q's dtype, lse [B, Hq, Sq] fp32, log2).
 
     `o` is a BHSD view of BSHD-contiguous memory, so `o.transpose(1, 2)` is
-    the contiguous BSHD output. The schedule is `forward_route`'s."""
+    the contiguous BSHD output. The schedule is `forward_route`'s, on the
+    chip of q's device (its tuning table)."""
+    chip = detect_chip(q.device)
     route = forward_route(
         q.shape[2], k.shape[2], q.shape[3], q.element_size(), causal=causal,
         static_skip=static_skip, window=window, bias=bias, softcap=softcap, varlen=varlen,
         seqlen_q_real=seqlen_q_real, seqlen_k_real=seqlen_k_real, tri_square=tri_square,
-        causal_strip=causal_strip, causal_split=causal_split, split_leaf=split_leaf)
+        causal_strip=causal_strip, causal_split=causal_split, split_leaf=split_leaf,
+        route=route, block_sizes=block_sizes, chip=chip)
     sched = dict(softmax_scale=softmax_scale, dropout_p=dropout_p, dropout_seed=dropout_seed,
                  seqlen_q_real=seqlen_q_real, seqlen_k_real=seqlen_k_real)
     if route == "split":
-        return _causal_split_forward(q, k, v, lens, q_off, kv_off, leaf_t=split_leaf, **sched)
+        return _causal_split_forward(q, k, v, lens, q_off, kv_off, leaf_t=split_leaf,
+                                     block_sizes=block_sizes, chip=chip, **sched)
     if route == "strip":
         return flash_attn_forward_causal_strip(q, k, v, lens, q_off, kv_off, **sched)
     if route == "tri_square":
@@ -725,7 +770,8 @@ def flash_attn_forward_rect_plain(q, k, v, lens, q_off=0, kv_off=0, *, row0, col
 
 
 def _causal_split_forward(q, k, v, lens, q_off=0, kv_off=0, *, softmax_scale, dropout_p=0.0,
-                          dropout_seed=0, seqlen_q_real=None, seqlen_k_real=None, leaf_t=None):
+                          dropout_seed=0, seqlen_q_real=None, seqlen_k_real=None, leaf_t=None,
+                          block_sizes=None, chip=None):
     """The split causal schedule (JAX l.1165): one diag launch over the
     T x T leaves, then one merged rect launch per `causal_split_rects(n)`
     entry, in that order. T defaults to `split_leaf_t` at the padded head
@@ -733,7 +779,7 @@ def _causal_split_forward(q, k, v, lens, q_off=0, kv_off=0, *, softmax_scale, dr
     and a rectangle whose rows all lie past the tensors' (JAX's padding
     rows) is left out. The last leaf may be short here."""
     Sq, D, nbytes = q.shape[2], q.shape[3], q.element_size()
-    Sq_p, _, Dp = jax_padded_shape(Sq, k.shape[2], D, nbytes)
+    Sq_p, _, Dp = jax_padded_shape(Sq, k.shape[2], D, nbytes, block_sizes, chip)
     T = leaf_t if leaf_t is not None else split_leaf_t(Dp, nbytes)
     n = -(-Sq_p // T)
     kw = dict(softmax_scale=softmax_scale, dropout_p=dropout_p, dropout_seed=dropout_seed,

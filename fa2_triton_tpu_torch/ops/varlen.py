@@ -42,13 +42,11 @@ packed row / column is kept iff hash(hash(hash(seed, h), row), col) >=
 dropout_threshold(p), with `flash_attn_func`'s seed contract; block-sparse
 attention packs B x S into T and uses the same stream.
 
-fp16 runs at 16 bits on the card: the tensor-core kernels (forward, dq,
-dk/dv) take fp16 q / k / v as they are and round P and dS to fp16 before
-their products, as they do bf16. JAX's `flash_attn_varlen_func` and
-`flash_attn_blocksparse_func` upcast fp16 to fp32 first
-(`fa2_triton_tpu/ops/varlen.py:751-752, 832-833`), so an fp16 call here
-meets the FA tolerance against the fp32 truth, not JAX's fp16 result bit
-for bit (ROADMAP.md queue C; the dense path likewise, `ops/attention.py`).
+fp16 follows JAX (`fa2_triton_tpu/ops/varlen.py:751-752, 832-833`):
+`flash_attn_varlen_func` and `flash_attn_blocksparse_func` compute fp16
+inputs in fp32 (the FMA kernels) and return fp16. The tensor-core kernels'
+fp16 instantiations stay reachable through `flash_attn_varlen_forward` /
+`flash_attn_varlen_backward`.
 
 CPU tensors take the `*_plain` twins (per segment, dense fp32, never a
 T x T matrix); CUDA tensors always launch the kernels or raise.
@@ -654,6 +652,12 @@ class _VarlenCore(torch.autograd.Function):
         return dq, dk, dv, None
 
 
+def _upcast_fp16(*xs):
+    """fp16 tensors widened to fp32 (JAX's packed entry points compute fp16
+    in fp32); others as they are."""
+    return tuple(x.float() if x.dtype == torch.float16 else x for x in xs)
+
+
 def flash_attn_varlen_func(
     q: torch.Tensor,               # [T, Hq, D] or [1, T, Hq, D] packed tokens
     k: torch.Tensor,               # [T, Hkv, D]
@@ -700,10 +704,12 @@ def flash_attn_varlen_func(
                          "use pack_padded_batch")
     meta = (starts, seqlens, seqlens, bool(causal), scale, block_q, block_kv, float(dropout_p),
             seed, None)
+    out_dtype = q.dtype
+    q, k, v = _upcast_fp16(q, k, v)
     D = q.shape[-1]
     Dp = pad_head_dim(D, q.device)
     o, lse = _VarlenCore.apply(*(pad_last(x, Dp).transpose(1, 2) for x in (q, k, v)), meta)
-    out = o.transpose(1, 2)[..., :D]
+    out = o.transpose(1, 2)[..., :D].to(out_dtype)
     if squeeze:
         out, lse = out[0], lse[0]
     if return_lse:
@@ -752,7 +758,8 @@ def flash_attn_blocksparse_func(
         mm[:m.shape[0], :m.shape[1]] = m
         m = mm
     scale = float(softmax_scale) if softmax_scale is not None else default_softmax_scale(D)
-
+    out_dtype = q.dtype
+    q, k, v = _upcast_fp16(q, k, v)
     Dp = pad_head_dim(D, q.device)
 
     def pack(x):
@@ -766,7 +773,7 @@ def flash_attn_blocksparse_func(
     meta = (starts, lens, lens, bool(causal), scale, block_q, block_kv, float(dropout_p), seed,
             encode_block_mask(m))
     o, lse = _VarlenCore.apply(pack(q), pack(k), pack(v), meta)
-    out = o.transpose(1, 2).reshape(B, S_pad, Hq, Dp)[:, :S, :, :D]
+    out = o.transpose(1, 2).reshape(B, S_pad, Hq, Dp)[:, :S, :, :D].to(out_dtype)
     if return_lse:
         return out, lse.reshape(Hq, B, S_pad)[:, :, :S].transpose(0, 1)
     return out

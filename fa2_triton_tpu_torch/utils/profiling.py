@@ -3,7 +3,7 @@
 
 `profile_trace` records a `torch.profiler` trace (open the JSON file in
 Perfetto or chrome://tracing); `roofline` situates a measured time against
-the card's ceilings.
+the card's ceilings. `detect_chip` lives in `ops/autotune.py`, as in JAX.
 """
 from __future__ import annotations
 
@@ -17,27 +17,14 @@ from typing import Optional
 
 import torch
 
+from fa2_triton_tpu_torch.ops.autotune import detect_chip
+
 # Per-card ceilings: dense bf16 tensor-core FLOP/s, HBM bytes/s, and the
 # shared memory one thread block may take. H100 SXM, from NVIDIA's data
 # sheet (the peaks `chip_smoke.py` scores kernels against).
 CHIP_SPECS = {
     "h100": {"bf16_flops": 989e12, "hbm_bw": 3.35e12, "smem_bytes": 227 << 10},
 }
-
-
-def detect_chip() -> str:
-    """Normalized name of CUDA device 0: 'h100' for the SXM part
-    ('NVIDIA H100 80GB HBM3'), 'h100-pcie', 'h100-nvl', else the name in
-    lower case with '-' for spaces; 'cpu' without a CUDA device."""
-    if not torch.cuda.is_available():
-        return "cpu"
-    name = torch.cuda.get_device_name(0).lower().replace("nvidia ", "").strip()
-    if name.startswith("h100"):
-        for part in ("pcie", "nvl"):
-            if part in name:
-                return f"h100-{part}"
-        return "h100"
-    return name.replace(" ", "-")
 
 
 def chip_spec(chip: Optional[str] = None) -> dict:

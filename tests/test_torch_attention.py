@@ -144,3 +144,103 @@ def test_head_dims_off_the_kernel_widths_match_jax(D):
     for name, x, g in zip(("dq", "dk", "dv"), leaves, j_grads):
         assert x.grad.shape == x.shape
         np.testing.assert_allclose(x.grad.numpy(), np.asarray(g), rtol=0, atol=TOL, err_msg=name)
+
+
+def _ulp16(x) -> float:
+    """One fp16 ulp at the largest magnitude of x."""
+    return float(np.spacing(np.float16(np.abs(np.asarray(x, np.float32)).max())))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_fp16_computes_in_fp32_as_jax_does(causal):
+    """fp16 inputs: output and q / k / v gradients against JAX's fp16
+    call, within one fp16 ulp of each one's magnitude (both compute in
+    fp32 and round once to fp16); a bias in fp16 too."""
+    import jax
+
+    q, k, v, mask = _inputs(70, 64, seed=11 + causal)
+    q, k, v = (x.astype(np.float16) for x in (q, k, v))
+    bias = np.random.RandomState(5).normal(0, 1, (1, 4, 70, 70)).astype(np.float16)
+    do = np.random.RandomState(6).normal(0, 1, q.shape).astype(np.float16)
+
+    def jloss(q, k, v):
+        out = jfa.flash_attn_func(q, k, v, attention_mask=jnp.asarray(mask),
+                                  attention_bias=jnp.asarray(bias), causal=causal)
+        return jnp.sum(out.astype(jnp.float32) * jnp.asarray(do, jnp.float32)), out
+
+    (_, j_out), j_grads = jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True)(
+        *(jnp.asarray(x) for x in (q, k, v)))
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = flash_attn_func(*leaves, attention_mask=torch.from_numpy(mask),
+                          attention_bias=torch.from_numpy(bias), causal=causal)
+    out.backward(torch.from_numpy(do))
+    assert out.dtype == torch.float16 and j_out.dtype == jnp.float16
+    j_out = np.asarray(j_out, np.float32)
+    np.testing.assert_allclose(out.detach().float().numpy(), j_out, rtol=0, atol=_ulp16(j_out))
+    for name, x, g in zip(("dq", "dk", "dv"), leaves, j_grads):
+        assert x.grad.dtype == torch.float16
+        g = np.asarray(g, np.float32)
+        np.testing.assert_allclose(x.grad.float().numpy(), g, rtol=0, atol=_ulp16(g),
+                                   err_msg=name)
+
+
+def test_fp16_compute_dtype_bf16_meets_the_fa_rule_against_jax():
+    """fp16_compute_dtype=bfloat16 in both packages, each against the fp32
+    truth of the same fp16 inputs: the port's error at most the FA rule's
+    multiple of JAX's (tests/utils.py:compare_results_fa), output and
+    gradients."""
+    import jax
+
+    from fa2_triton_tpu.ops.reference import flash_attn_reference
+    from tests.utils import compare_results_fa
+
+    q, k, v, _ = _inputs(96, 64, seed=21)
+    q, k, v = (x.astype(np.float16) for x in (q, k, v))
+    do = np.random.RandomState(22).normal(0, 1, q.shape).astype(np.float16)
+
+    def grads(fn, *xs):
+        def loss(*xs):
+            out = fn(*xs)
+            return jnp.sum(out.astype(jnp.float32) * jnp.asarray(do, jnp.float32)), out
+        (_, out), g = jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True)(*xs)
+        return out, g
+
+    j16 = [jnp.asarray(x) for x in (q, k, v)]
+    j_out, j_g = grads(lambda *x: jfa.flash_attn_func(
+        *x, causal=True, fp16_compute_dtype=jnp.bfloat16), *j16)
+    r_out, r_g = grads(lambda *x: flash_attn_reference(*x, causal=True),
+                       *(x.astype(jnp.float32) for x in j16))
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = flash_attn_func(*leaves, causal=True, fp16_compute_dtype=torch.bfloat16)
+    out.backward(torch.from_numpy(do))
+    assert out.dtype == torch.float16
+    as_j = lambda t: jnp.asarray(t.detach().float().numpy())  # noqa: E731
+    compare_results_fa(as_j(out), r_out, j_out.astype(jnp.float32),
+                       grads=(tuple(as_j(x.grad) for x in leaves), tuple(r_g),
+                              tuple(g.astype(jnp.float32) for g in j_g)))
+
+
+def test_fp16_compute_dtype_is_checked():
+    q = torch.zeros(1, 8, 2, 64, dtype=torch.float16)
+    for bad in (torch.float16, torch.float64, "bfloat16"):
+        with pytest.raises(ValueError, match="fp16_compute_dtype"):
+            flash_attn_func(q, q, q, fp16_compute_dtype=bad)
+    b = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16)
+    assert flash_attn_func(b, b, b, fp16_compute_dtype=torch.float64).dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("blocks", [(128, 128, 128, 128), (512, 1024, 256, 512)])
+def test_block_sizes_leave_the_result_as_jax_leaves_it(blocks):
+    """A BlockSizes moves only the padded shape (and so the route): the
+    output equals JAX's under the same blocks, at its default tolerance."""
+    from fa2_triton_tpu.ops.tuning import BlockSizes as JBlockSizes
+    from fa2_triton_tpu_torch.ops import BlockSizes
+
+    q, k, v, mask = _inputs(200, 64, seed=31)
+    j_out = jfa.flash_attn_func(*(jnp.asarray(x) for x in (q, k, v)),
+                                attention_mask=jnp.asarray(mask), causal=True,
+                                block_sizes=JBlockSizes(*blocks))
+    t_out = flash_attn_func(*(torch.from_numpy(x) for x in (q, k, v)),
+                            attention_mask=torch.from_numpy(mask), causal=True,
+                            block_sizes=BlockSizes(*blocks))
+    np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out), rtol=0, atol=TOL)

@@ -172,10 +172,11 @@ def test_routes_match_jax(monkeypatch):
 
 
 def test_fp16_routes_on_its_own_width():
-    """fp16: the port's kernels compute in fp16 (2 bytes), JAX upcasts to
-    fp32 (attention.py:182-195), so at S 1600 / D 128 the port takes the
-    tri-square (generic) kernel where JAX takes the split. Both compute the
-    same function; the gates are the same, fed each package's dtype size."""
+    """fp16 at the ops level: the port's launchers compute fp16 at 16 bits
+    (2 bytes), while both packages' `flash_attn_func` upcast fp16 to fp32
+    (JAX attention.py:182-195), so at S 1600 / D 128 a direct fp16 launch
+    takes the tri-square (generic) kernel where the public call takes the
+    split. The gates are the same, fed the computing dtype's size."""
     g = _flags({})
     assert flash_fwd.forward_route(1600, 1600, 128, 2, **g) == "tri_square"
     assert _jax_route(1600, 1600, 128, 4, **g) == "split"

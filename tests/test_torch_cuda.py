@@ -23,6 +23,13 @@ pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
+def prior_routes(monkeypatch):
+    """The prior's routes (JAX's gates), the card's tuning table off: for
+    the tests that assert those routes' launches."""
+    monkeypatch.setenv("FA2_DISABLE_TUNING_TABLE", "1")
+
+
+@pytest.fixture
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (and nvcc to build the kernels)")
@@ -1472,7 +1479,7 @@ def test_split_calls_equal_the_generic_kernel_bit_for_bit(dev, dtype, D, call, d
 
 @pytest.mark.parametrize("D,S,route", [(64, 2560, "strip"), (128, 4095, "split"),
                                        (256, 2048, "split")])
-def test_flash_attn_func_routes_long_causal_calls(dev, D, S, route):
+def test_flash_attn_func_routes_long_causal_calls(dev, prior_routes, D, S, route):
     """The public call, bf16, B 1, 4 / 2 heads: D 64 at S 2560 takes the
     strip, D 128 at S 4095 and D 256 at S 2048 (split_leaf_t 1024) the split;
     the launches follow, the generic forward launches none, and output and
@@ -1666,7 +1673,7 @@ def test_causal_bwd_kernels_refuse_a_partition_of_other_tiles(dev, monkeypatch, 
 
 @pytest.mark.parametrize("S,Hkv,route", [(250, 4, "tri_square"), (500, 1, "tri_square"),
                                          (4200, 4, "worklist")])
-def test_flash_attn_func_routes_causal_backward(dev, S, Hkv, route):
+def test_flash_attn_func_routes_causal_backward(dev, prior_routes, S, Hkv, route):
     """The public call, bf16, B 1, D 128: MHA 4 / 4 heads at S 250 (padded
     256) and GQA 4 / 1 at S 500 (padded 512) take the tri-square backward,
     MHA at S 4200 (padded 5120, past the TPU's single strip) the work list; each launches its kernel
@@ -1751,7 +1758,7 @@ def _tiny_gpt2(dev, dtype, seed=0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_gpt2_head_dim_64_matches_plain(dev, dtype, monkeypatch):
+def test_gpt2_head_dim_64_matches_plain(dev, prior_routes, dtype, monkeypatch):
     """A 2-layer GPT-2 at head dim 64, B 2 x S 512 (the tri-square forward
     and backward, as GPT-2 small's 1024 takes): loss and every parameter
     gradient through the kernels against an fp32 run of the same weights
@@ -1900,7 +1907,7 @@ def test_moe_block_on_cuda_matches_its_fp32_evaluation(dev):
         assert torch.isfinite(g).all() and g.abs().max() > 0, name
 
 
-def test_moe_training_on_cuda_matches_plain_attention(dev):
+def test_moe_training_on_cuda_matches_plain_attention(dev, prior_routes):
     """fp32 MoE model (2 layers, 4 / 2 heads of 64, 4 experts): `moe.loss_fn`
     and every gradient, the router's included, through the forward and the
     dq + dk/dv kernels against the same with the plain attention: 1e-4 x
@@ -1960,7 +1967,7 @@ def test_quantized_model_on_cuda_matches_plain_attention(dev, qdtype):
         assert req.out_tokens == full[0, len(prompt) - 1:].argmax(-1).tolist()
 
 
-def test_lora_merged_training_on_cuda_matches_plain_attention(dev):
+def test_lora_merged_training_on_cuda_matches_plain_attention(dev, prior_routes):
     """LoRA on an fp32 model with remat: `lora_loss_fn` and the adapter
     gradients through the kernels against the plain attention within 1e-4
     x (1 + max |grad|); the frozen base gets no gradient."""
@@ -2053,3 +2060,194 @@ def test_device_time_of_a_card_call_is_positive(dev):
     x = torch.randn(1024, 1024, device=dev)
     t = device_time(torch.matmul, x, x)
     assert 0 < t < 1.0
+
+
+# ------------- the tuning table's routes (ops/tables/tuning_h100.json) -------------
+
+def _fwd_launched(route):
+    """flash_fwd's launch deltas of one forward that took `route`."""
+    if route == "split":
+        return {"causal_diag": 1, "rect_merge": 1}, 0
+    return ({"causal_strip": 1} if route == "strip" else {}), 1 - (route == "strip")
+
+
+def _bwd_launched(route, S, D, group):
+    """flash_bwd's schedule and pair deltas of one backward at S x S that
+    took `route` (the split: one diag launch, one region backward per
+    rectangle of its default leaf)."""
+    if route in ("strip", "generic"):
+        return {}, {"flash_bwd_dq": 1, "flash_bwd_dkdv": 1, "flash_bwd_dbias": 0}
+    if route == "split":
+        Sq_p, _, Dp = flash_fwd.jax_padded_shape(S, S, D, 2)
+        leaf = flash_bwd.bwd_split_leaf_t(Dp, group)
+        return ({"causal_diag": 1, "rect": len(flash_fwd.causal_split_rects(-(-Sq_p // leaf)))},
+                {n: 0 for n in flash_bwd.LAUNCHES})
+    return {route: 1}, {n: 0 for n in flash_bwd.LAUNCHES}
+
+
+def _public_run(dev, S, Hq, Hkv, D, x32, do32, prior, monkeypatch):
+    """flash_attn_func fwd + bwd in bf16 with the table (or without it:
+    `prior`), returning (out, lse, grads, flash_fwd deltas, flash_bwd
+    deltas)."""
+    with monkeypatch.context() as m:
+        if prior:
+            m.setenv("FA2_DISABLE_TUNING_TABLE", "1")
+        leaves = [t.to(torch.bfloat16).requires_grad_() for t in x32]
+        f0, fl0 = dict(flash_fwd.SCHEDULE_LAUNCHES), flash_fwd.LAUNCHES
+        b0, bl0 = dict(flash_bwd.SCHEDULE_LAUNCHES), dict(flash_bwd.LAUNCHES)
+        out, lse = flash_attn_func(*leaves, causal=True, return_lse=True)
+        out.backward(do32.to(torch.bfloat16))
+        torch.cuda.synchronize()
+    fwd = ({n: c - f0[n] for n, c in flash_fwd.SCHEDULE_LAUNCHES.items() if c != f0[n]},
+           flash_fwd.LAUNCHES - fl0)
+    bwd = ({n: c - b0[n] for n, c in flash_bwd.SCHEDULE_LAUNCHES.items() if c != b0[n]},
+           {n: c - bl0[n] for n, c in flash_bwd.LAUNCHES.items()})
+    return out, lse, [x.grad for x in leaves], fwd, bwd
+
+
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_table_routes_and_their_priors_match_plain(dev, D, group, monkeypatch):
+    """For every bucket of the shipped table at this head dim and group:
+    `flash_attn_func` (bf16, B 1, 4 / 4 // group heads, length bucket - 1)
+    with the table takes its `fwd_route` / `bwd_route` entries and without
+    it (FA2_DISABLE_TUNING_TABLE=1) the prior's routes, the launch counters
+    show each route, and both runs meet the FA rules against the fp32 plain
+    twins."""
+    import json
+
+    from fa2_triton_tpu_torch.ops import autotune
+
+    chip = autotune.detect_chip(dev)
+    monkeypatch.delenv("FA2_DISABLE_TUNING_TABLE", raising=False)
+    autotune._load_table.cache_clear()
+    table = json.loads(autotune.table_paths(chip)[0].read_text())
+    Hq, Hkv = 4, 4 // group
+    t = lambda x: x.transpose(1, 2)  # noqa: E731
+    kw = dict(causal=True, softmax_scale=D ** -0.5)
+    for bucket in sorted({int(k.split(":")[3]) for k in table}):
+        S = bucket - 1
+        want = {"fwd": table.get(f"fwd_route:1:{D}:{bucket}", [None])[0],
+                "bwd": table.get(f"bwd_route+g{group}:1:{D}:{bucket}", [None])[0]}
+        routes = {"table": (flash_fwd.forward_route(S, S, D, 2, static_skip=True, chip=chip,
+                                                    causal=True),
+                            flash_bwd.backward_route(S, S, D, 2, group=group, static_skip=True,
+                                                     chip=chip, causal=True)),
+                  "prior": (flash_fwd.forward_route(S, S, D, 2, static_skip=True, causal=True),
+                            flash_bwd.backward_route(S, S, D, 2, group=group, static_skip=True,
+                                                     causal=True))}
+        assert routes["table"] == (want["fwd"] or routes["prior"][0],
+                                   want["bwd"] or routes["prior"][1]), (bucket, routes)
+        g = torch.Generator(device=dev).manual_seed(bucket + D + group)
+        x32 = [torch.randn(1, S, h, D, generator=g, device=dev) * 0.5 for h in (Hq, Hkv, Hkv)]
+        do32 = torch.randn(1, S, Hq, D, generator=g, device=dev)
+        lens = torch.tensor([[S, S]], dtype=torch.int32, device=dev)
+        o32, lse32 = flash_fwd.flash_attn_forward_plain(*(t(x) for x in x32), lens, **kw)
+        refs = flash_bwd.flash_attn_backward_plain(*(t(x) for x in x32), t(do32), o32, lse32,
+                                                   lens, **kw)
+        xb = [t(x.to(torch.bfloat16)) for x in x32]
+        o_pl, lse_pl = flash_fwd.flash_attn_forward_plain(*xb, lens, **kw)
+        plains = flash_bwd.flash_attn_backward_plain(*xb, t(do32.to(torch.bfloat16)), o_pl,
+                                                     lse_pl, lens, **kw)
+        for which in ("table", "prior"):
+            if which == "prior" and routes["prior"] == routes["table"]:
+                continue
+            out, lse, grads, fwd, bwd = _public_run(dev, S, Hq, Hkv, D, x32, do32,
+                                                    which == "prior", monkeypatch)
+            f_route, b_route = routes[which]
+            assert fwd == _fwd_launched(f_route), (bucket, which, f_route, fwd)
+            assert bwd == _bwd_launched(b_route, S, D, group), (bucket, which, b_route, bwd)
+            _check(t(out), o32, o_pl, torch.bfloat16)
+            assert (lse - lse_pl).abs().max().item() <= 1e-4
+            _check_grads([t(x) for x in grads], refs, plains, torch.bfloat16)
+        del o32, refs, plains
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("compute", [None, torch.bfloat16])
+def test_fp16_flash_attn_func_picks_its_kernels(dev, compute):
+    """fp16 through flash_attn_func computes in fp32 by default (the FMA
+    kernels: no tensor-core instantiation in the profile) and with
+    fp16_compute_dtype=bfloat16 on the bf16 tensor-core kernels; the output
+    and gradients come back in fp16 and meet the FA rules against the fp32
+    plain twins."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    S, D = 300, 128
+    x32 = [torch.randn(2, S, h, D, generator=g, device=dev) * 0.5 for h in (8, 2, 2)]
+    do32 = torch.randn(2, S, 8, D, generator=g, device=dev)
+    leaves = [x.half().requires_grad_() for x in x32]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out, lse = flash_attn_func(*leaves, causal=True, return_lse=True,
+                                   fp16_compute_dtype=compute)
+        out.backward(do32.half())
+        torch.cuda.synchronize()
+    names = " ".join(e.key for e in prof.key_averages())
+    mma = ("flash_fwd_mma_kernel" in names, "dq_mma_kernel" in names)
+    assert mma == ((False, False) if compute is None else (True, True)), names
+    if compute is not None:
+        assert "bfloat16" in names, names
+    assert out.dtype == torch.float16 and all(x.grad.dtype == torch.float16 for x in leaves)
+    t = lambda x: x.transpose(1, 2)  # noqa: E731
+    lens = torch.tensor([[S, S]] * 2, dtype=torch.int32, device=dev)
+    kw = dict(causal=True, softmax_scale=D ** -0.5)
+    o32, lse32 = flash_fwd.flash_attn_forward_plain(*(t(x) for x in x32), lens, **kw)
+    refs = flash_bwd.flash_attn_backward_plain(*(t(x) for x in x32), t(do32), o32, lse32, lens,
+                                               **kw)
+    xl = [t(x.half().to(compute or torch.float16)) for x in x32]   # as the call computes
+    o_pl, lse_pl = flash_fwd.flash_attn_forward_plain(*xl, lens, **kw)
+    plains = flash_bwd.flash_attn_backward_plain(*xl, t(do32.to(xl[0].dtype)), o_pl, lse_pl,
+                                                 lens, **kw)
+    _check(t(out), o32, o_pl, torch.float16)
+    _check_grads([t(x.grad) for x in leaves], refs, plains, torch.float16)
+
+
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_fp16_instantiations_at_the_ops_level(dev, D):
+    """The 16-bit fp16 kernels stay reachable below the public API: the
+    forward, the dq + dk/dv pair, the tri-square backward and the packed
+    forward / backward on fp16 tensors, each against its fp32 plain twin
+    under the FA rules."""
+    from fa2_triton_tpu_torch.ops import varlen
+
+    g = torch.Generator(device=dev).manual_seed(D)
+    S = 256
+    x32 = [(torch.randn(1, S, h, D, generator=g, device=dev) * 0.5).transpose(1, 2)
+           for h in (4, 4, 4)]
+    do32 = torch.randn(1, S, 4, D, generator=g, device=dev).transpose(1, 2)
+    lens = torch.tensor([[S, S]], dtype=torch.int32, device=dev)
+    kw = dict(causal=True, softmax_scale=D ** -0.5)
+    x16, do16 = [x.half() for x in x32], do32.half()
+    o32, lse32 = flash_fwd.flash_attn_forward_plain(*x32, lens, **kw)
+    o_pl, lse_pl = flash_fwd.flash_attn_forward_plain(*x16, lens, **kw)
+    o, lse = flash_fwd.flash_attn_forward(*x16, lens, route="generic", static_skip=True, **kw)
+    assert o.dtype == torch.float16
+    _check(o, o32, o_pl, torch.float16)
+    refs = flash_bwd.flash_attn_backward_plain(*x32, do32, o32, lse32, lens, **kw)
+    plains = flash_bwd.flash_attn_backward_plain(*x16, do16, o_pl, lse_pl, lens, **kw)
+    for route in ("generic", "tri_square"):
+        grads = flash_bwd.flash_attn_backward(*x16, do16, o, lse, lens, route=route,
+                                              static_skip=True, **kw)
+        assert all(x.dtype == torch.float16 for x in grads)
+        _check_grads(grads, refs, plains, torch.float16)
+    bq, bkv = VARLEN_BLOCKS[D]
+    _varlen_check(dev, torch.float16, [0, 256], (200, 100), (200, 100), 512, 4, 2, D, seed=D,
+                  causal=True, softmax_scale=D ** -0.5, block_q=bq, block_kv=bkv)
+    assert varlen.LAUNCHES["varlen_fwd"] > 0
+
+
+def test_baselines_run_on_the_card(dev):
+    """The yardsticks of other_implementations on CUDA tensors, bf16,
+    causal, GQA 2: each against the fp32 dense baseline within the FA
+    rule's yardstick (the bf16 dense baseline's own error)."""
+    from fa2_triton_tpu_torch.other_implementations import (
+        dense_attention, flex_attention, sdpa_flash_attention)
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    x32 = [torch.randn(2, 512, h, 64, generator=g, device=dev) * 0.5 for h in (8, 4, 4)]
+    ref = dense_attention(*x32, causal=True)
+    xb = [x.bfloat16() for x in x32]
+    yard = (dense_attention(*xb, causal=True).float() - ref).abs().max().item()
+    for fn in (sdpa_flash_attention, flex_attention):
+        out = fn(*xb, causal=True)
+        assert out.shape == ref.shape and out.dtype == torch.bfloat16
+        assert (out.float() - ref).abs().max().item() <= 2 * yard + 5e-5, fn.__name__

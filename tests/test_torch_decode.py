@@ -226,3 +226,18 @@ def test_split_kv_scratch_is_reused_per_stream(monkeypatch, first):
     assert tdec._scratch(dev, 1, 1, 1)[0] is grown[0]
     other = tdec._scratch(dev, 2, *first)
     assert other[0] is not grown[0] and set(tdec._SCRATCH) == {(None, 1), (None, 2)}
+
+
+@pytest.mark.parametrize("block_kv", [128, 4096])
+def test_decode_block_kv_matches_jax(block_kv):
+    """JAX's block_kv (the TPU's kv block) is taken; the result is JAX's
+    at either value, and a non-positive block raises."""
+    q, k, v = _inputs(seed=21)
+    j = jdec.decode_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              jnp.asarray(KV_LENS), block_kv=block_kv, window_left=40)
+    t = tdec.decode_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                              torch.from_numpy(KV_LENS), block_kv=block_kv, window_left=40)
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=0, atol=TOL)
+    with pytest.raises(ValueError, match="block_kv"):
+        tdec.decode_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                              torch.from_numpy(KV_LENS), block_kv=0)

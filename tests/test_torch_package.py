@@ -50,6 +50,13 @@ def test_port_never_imports_jax():
         "                           device='cpu')\n"
         "layer(__import__('torch').ones(1, 8, 64)).sum().backward()\n"
         "flash_attn_func(x[None], x[None], x[None], dropout_p=0.2, dropout_seed=-3).sum().backward()\n"
+        "import fa2_triton_tpu_torch.ops.tuning, fa2_triton_tpu_torch.ops.autotune\n"
+        "from fa2_triton_tpu_torch.ops import microsweep\n"
+        "assert microsweep.candidates('bwd_route', True, 128, 8192, 'g1')\n"
+        "from fa2_triton_tpu_torch.other_implementations import dense_attention, flex_attention\n"
+        "from fa2_triton_tpu_torch.other_implementations import sdpa_flash_attention\n"
+        "y = x[None, :64].detach()\n"
+        "for f in (dense_attention, sdpa_flash_attention, flex_attention): f(y, y, y, causal=True)\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith(('jax.', 'jaxlib', 'fa2_triton_tpu.')))\n"
         "assert not bad, bad\n"
         "print('ok')\n"

@@ -230,11 +230,30 @@ def test_flash_attn_with_kv_cache_refuses():
     q, kc = torch.zeros(1, 2, 4, 64), torch.zeros(1, 2, 16, 64)
     with pytest.raises(TypeError):
         flash_attn_with_kv_cache(q, kc, kc, torch.tensor(4))       # a device read per call
-    with pytest.raises(TypeError):
-        flash_attn_with_kv_cache(q, kc, kc, 4, block_q=128)        # TPU tiles: queue A.3
+    with pytest.raises(ValueError, match="block_q / block_kv"):
+        flash_attn_with_kv_cache(q, kc, kc, 4, block_q=0)          # JAX's tiles: positive
     for kv_len in (1, 17):
         with pytest.raises(ValueError):
             flash_attn_with_kv_cache(q, kc, kc, kv_len)
+
+
+@pytest.mark.parametrize("block_q,block_kv", [(128, 512), (256, 128)])
+def test_flash_attn_with_kv_cache_takes_jax_blocks(block_q, block_kv):
+    """JAX's block_q / block_kv (its TPU tiles) are taken, and at either
+    value the result is JAX's under the same blocks."""
+    S, kv_len, Hkv = KV_CASES["verify window"][:3]
+    rng = np.random.RandomState(block_q + block_kv)
+    B, Hq, D, S_max = 2, 4, 32, 160
+    q = rng.normal(0, 0.5, (B, S, Hq, D)).astype(np.float32)
+    k, v = (rng.normal(0, 0.5, (B, S_max, Hkv, D)).astype(np.float32) for _ in range(2))
+    want = j_kv_attn(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.int32(kv_len),
+                     block_q=block_q, block_kv=block_kv)
+    got = flash_attn_with_kv_cache(torch.from_numpy(q), torch.from_numpy(k).transpose(1, 2),
+                                   torch.from_numpy(v).transpose(1, 2), kv_len, block_q=block_q,
+                                   block_kv=block_kv)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+    assert flash_attn_with_kv_cache(q=torch.from_numpy(q), k_cache=torch.from_numpy(k).transpose(
+        1, 2), v_cache=torch.from_numpy(v).transpose(1, 2), kv_len=kv_len).shape == got.shape
 
 
 def test_forward_with_cache_matches_jax(models, jax_decoder, jax_runs):

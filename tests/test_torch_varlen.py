@@ -173,6 +173,43 @@ def test_varlen_launchers_with_q_len_ne_kv_len_match_jax(causal):
         _close(tg.numpy(), np.asarray(jg), GRAD_TOL, name)
 
 
+def _ulp16(x) -> float:
+    """One fp16 ulp at the largest finite magnitude of x."""
+    x = np.abs(np.asarray(x, np.float32))
+    return float(np.spacing(np.float16(x[np.isfinite(x)].max())))
+
+
+@pytest.mark.parametrize("entry", ["varlen", "blocksparse"])
+def test_fp16_packed_computes_in_fp32_as_jax_does(entry):
+    """fp16 q / k / v through both packed entry points, as JAX's: computed
+    in fp32 and returned in fp16. Output and gradients within one fp16 ulp
+    of their magnitude, the fp32 lse within OUT_TOL."""
+    if entry == "varlen":
+        lens, cu = (300, 129), [0, 384, 640]
+        q, k, v, do, dl = _packed_inputs(640, 4, 2, 64, seed=41)
+        kw = dict(seqlens=lens, causal=True, block_q=128, block_kv=128, return_lse=True)
+        jfn = lambda a, b, c: jfa.flash_attn_varlen_func(a, b, c, cu, **kw)  # noqa: E731
+        tfn = lambda a, b, c: varlen.flash_attn_varlen_func(a, b, c, cu, **kw)  # noqa: E731
+    else:
+        mask = np.tril(np.ones((2, 2), bool))
+        q, k, v, do, dl = _bs_inputs(2, 256, 4, 2, 64, seed=42)
+        kw = dict(causal=True, block_q=128, block_kv=128, return_lse=True)
+        jfn = lambda a, b, c: jfa.flash_attn_blocksparse_func(a, b, c, mask, **kw)  # noqa: E731
+        tfn = lambda a, b, c: varlen.flash_attn_blocksparse_func(a, b, c, mask, **kw)  # noqa
+    q, k, v, do = (x.astype(np.float16) for x in (q, k, v, do))
+    j_out, j_lse, j_grads = _jax_fwd_bwd(jfn, q, k, v, do, dl)
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out, lse = tfn(*leaves)
+    assert out.dtype == torch.float16 and lse.dtype == torch.float32
+    torch.autograd.backward((out, lse), (torch.from_numpy(do),
+                                         torch.from_numpy(dl) * torch.isfinite(lse)))
+    _close(out.detach().float().numpy(), j_out, _ulp16(j_out), "o")
+    _close(lse.detach().numpy(), j_lse, OUT_TOL, "lse")
+    for name, x, jg in zip(("dq", "dk", "dv"), leaves, j_grads):
+        assert x.grad.dtype == torch.float16
+        _close(x.grad.float().numpy(), jg, _ulp16(jg), name)
+
+
 # ---------------------- flash_attn_blocksparse_func -----------------------
 
 def _bs_inputs(B, S, Hq, Hkv, D, seed):
