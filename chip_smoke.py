@@ -213,6 +213,26 @@ the CUDA toolkit. Phases (any failure raises, and the script exits nonzero):
    fp32 kernels by default, the tensor-core kernels with
    fp16_compute_dtype=bfloat16, by the profiler's kernel names. Prints its
    time; its summary sits under the forward entry's `routing`.
+18. The parallel layer (`parallel/`), ranks spawned (`spawn`) on this one
+   card over gloo, every CUDA tensor staged through host memory: (a) ring
+   attention at Mistral-7B-v0.3 attention widths (32 / 8 heads, D 128,
+   bf16), B 1 x S 8192 over seq 4, zigzag (chunks of 1024): forward +
+   backward, with dropout (p 0.1, a fixed seed), and with `return_lse` and
+   a `dlse`; and a non-causal contiguous ring; (b) Ulysses (seq 4) and TP
+   attention (data 2 x model 2, B 2); rank 0 holds every case's out, lse
+   and gradients to `flash_attn_reference` on one card, a kv head at a
+   time, under the FA rules (the fp32 truth, the bf16 reference computed in
+   bf16 as the yardstick, the ring's dropout mask); (c) phase 3's prompts
+   through a TP-2 Engine and a data-2 `DataParallelEngine` (4 slots a
+   replica) at Mistral-7B-v0.3 widths, cut to 8 of 32 layers
+   (CHIP_SMOKE_PAR_LAYERS), contiguous, paged and int8 KV, held to the single-device
+   Engine's tokens (a divergence only at a near tie, within 4x the measured
+   log-prob drift). Each rank's launches (reset just before each case; a
+   case whose forward or backward kernels never ran fails), wall times, its
+   kernels' device time (torch.profiler) and host staging (ms an op) are
+   printed; a failed rank fails the run. The
+   launches, summed over the ranks, sit in each kernel's
+   `launches_parallel`, the rest under the forward entry's `parallel`.
 
 Every kernel is also timed against PyTorch's own call for the same function
 (`library_ms`, where one exists) and its bound on the H100 (`bound_ms`: the
@@ -576,16 +596,23 @@ def library_mean_ms(torch, fn, iters: int = 10) -> float:
     split-KV kernel and a combine), tolerant of the profiler dropping
     launches late in this long process (`profiled`): each kernel's mean
     per launch recorded, times its launches per call (its count over the
-    calls, rounded, at least 1), summed."""
+    calls, rounded, at least 1), summed. Where five windows record no
+    kernel at all, the call's CUDA-event time (`cuda_ms`) instead."""
     from torch.autograd import DeviceType
 
     def hits(events):
         return [(e.key, e.count, _device_us(e)) for e in events
                 if e.device_type == DeviceType.CUDA and e.count and _device_us(e) > 0]
 
-    found = hits(profiled(torch, fn, iters, lambda ev: bool(hits(ev))))
+    windows = 5
+    found = hits(profiled(torch, fn, iters, lambda ev: bool(hits(ev)), attempts=windows))
     if not found:
-        raise AssertionError(f"the profiler recorded no kernel in {iters} library calls")
+        # Every window dropped every launch (PERF.md §7): the yardstick is
+        # then the whole call's CUDA-event time, host included, and says so.
+        ms = cuda_ms(torch, fn, iters=iters)
+        print(f"[profiler] library: no kernel recorded in {windows} windows of {iters} calls; "
+              f"the call's CUDA-event time {ms:.4f} ms stands in")
+        return ms
     ms = sum(us / n * max(1, round(n / iters)) for _, n, us in found) / 1e3
     print(f"[profiler] library: {ms:.4f} ms of device time per call, kernels (name, launches "
           f"recorded in {iters} calls): {[(k[:80], n) for k, n, _ in found]}")
@@ -4792,6 +4819,403 @@ def phase_routing(torch, card):
             "tune_on_miss": miss, "fp16": fp16, "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the parallel layer (`parallel/`), ranks spawned on this one card.
+
+PAR_RANKS = 4                    # (a) / (b): seq 4, or data 2 x model 2
+PAR_SEQ = 8192                   # zigzag chunks of PAR_SEQ / (2 x 4) = 1024
+PAR_DROPOUT = (0.1, 20231018)    # p, seed
+# (c)'s depth: 8 of Mistral's 32 layers. At 32 the TP-2 Engine took 26-31 s
+# a mode on an H100 (4480 all-reduces staged through the host, 7.9 GB of
+# them) and the phase 163 s; the aim is about 90 s.
+PAR_LAYERS = int(os.environ.get("CHIP_SMOKE_PAR_LAYERS", "8"))
+PAR_TIE = 4.0                    # a divergence passes within 4x the measured drift
+PAR_CASES = (
+    ("ring causal zigzag", "ring", {"causal": True}),
+    ("ring causal zigzag dropout", "ring", {"causal": True, "dropout": True}),
+    ("ring causal zigzag lse", "ring", {"causal": True, "lse": True}),
+    ("ring non-causal contiguous", "ring", {"causal": False}),
+    ("ulysses causal", "ulysses", {"causal": True}),
+    ("tp attention causal", "tp", {"causal": True}),
+)
+# (c)'s Engine options per mode (qdtype by torch dtype name).
+PAR_SERVE_MODES = {"contiguous": {}, "paged": {"paged": True}, "int8": {"qdtype": "int8"}}
+
+
+def no_jax_here():
+    if any(n == "jax" or n.startswith(("jax.", "fa2_triton_tpu.")) for n in sys.modules):
+        raise RuntimeError("a rank imported jax or the JAX package")
+
+
+def par_inputs(torch, kind):
+    """(q, k, v, do, dlse) in fp32 at Mistral-7B-v0.3 attention widths, the
+    same on every rank (one seed on the card): B 1 (2 for TP attention, whose
+    data axis cuts it) x PAR_SEQ, 32 / 8 heads, D 128."""
+    B, S, Hq, Hkv, D = (2 if kind == "tp" else 1), PAR_SEQ, 32, 8, 128
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    q = torch.randn((B, S, Hq, D), generator=gen, device="cuda") * 0.5
+    k = torch.randn((B, S, Hkv, D), generator=gen, device="cuda") * 0.5
+    v = torch.randn((B, S, Hkv, D), generator=gen, device="cuda") * 0.5
+    do = torch.randn((B, S, Hq, D), generator=gen, device="cuda")
+    dlse = torch.randn((B, Hq, S), generator=gen, device="cuda")
+    return q, k, v, do, dlse
+
+
+def par_keep(torch, B, heads, S, p, seed, Hq, rows=2048):
+    """The dropout keep mask [B, len(heads), S, S] of the single-device
+    stream, built a block of rows at a time (`utils/rng.py`)."""
+    from fa2_triton_tpu_torch.utils.rng import counter_hash_uint32, dropout_counters
+    from fa2_triton_tpu_torch.utils import dropout_threshold
+
+    dev = heads.device
+    cols = torch.arange(S, device=dev).view(1, 1, 1, -1)
+    b = torch.arange(B, device=dev).view(-1, 1, 1, 1)
+    h = heads.view(1, -1, 1, 1)
+    out = []
+    for r0 in range(0, S, rows):
+        r = torch.arange(r0, min(S, r0 + rows), device=dev).view(1, 1, -1, 1)
+        out.append(counter_hash_uint32(seed, dropout_counters(b, h, r, cols, Hq, S, S))
+                   >= dropout_threshold(p))
+    return torch.cat(out, dim=2)
+
+
+def par_check(torch, name, kind, kw, o, lse, grads, x32):
+    """Rank 0's check of one case: the gathered out (and lse) and the
+    gradients against `flash_attn_reference` on one card, a kv head and its
+    q heads at a time, under the FA rules (tests/utils.py:
+    compare_results_fa): the fp32 truth (upcast) and the bf16 reference
+    computed in bf16 (upcast=False) as the yardstick, fed the ring's
+    dropout mask. Returns the errors and yardsticks."""
+    from fa2_triton_tpu_torch.ops.reference import flash_attn_reference
+
+    q32, k32, v32, do32, dlse32 = x32
+    B, S, Hq, D = q32.shape
+    Hkv = k32.shape[2]
+    g = Hq // Hkv
+    p, seed = PAR_DROPOUT if kw.get("dropout") else (0.0, 0)
+    worst = {n: [0.0, 0.0] for n in ("out", "lse", "dq", "dk", "dv")}
+    dv_sum = 0.0
+    for j in range(Hkv):
+        hs = slice(j * g, (j + 1) * g)
+        mask = (par_keep(torch, B, torch.arange(j * g, (j + 1) * g, device="cuda"), S, p, seed, Hq)
+                if p else None)
+        runs = {}
+        for tag, dt, upcast in (("ref", torch.float32, True), ("yard", torch.bfloat16, False)):
+            xs = [t[:, :, hs if i == 0 else slice(j, j + 1)].to(dt).requires_grad_()
+                  for i, t in enumerate((q32, k32, v32))]
+            out, l = flash_attn_reference(*xs, causal=kw["causal"], dropout_p=p, dropout_mask=mask,
+                                          upcast=upcast, return_lse=True)
+            loss = (out.float() * do32[:, :, hs]).sum()
+            if kw.get("lse"):
+                loss = loss + (l.float() * dlse32[:, hs]).sum()
+            loss.backward()
+            runs[tag] = (out.detach(), l.detach(), [t.grad for t in xs])
+            del out, l, loss, xs
+        (o_r, l_r, g_r), (o_y, l_y, g_y) = runs["ref"], runs["yard"]
+        pairs = [("out", o[:, :, hs], o_r, o_y)]
+        if lse is not None:
+            pairs.append(("lse", lse[:, hs], l_r, l_y))
+        for n, got, r, y in zip(("dq", "dk", "dv"), (grads[0][:, :, hs], grads[1][:, :, j:j + 1],
+                                                       grads[2][:, :, j:j + 1]), g_r, g_y):
+            pairs.append((n, got, r, y))
+            if n == "dv":
+                dv_sum += float((got.float() - r.float()).abs().sum())
+        for n, got, r, y in pairs:
+            worst[n][0] = max(worst[n][0], max_abs(torch, got, r))
+            worst[n][1] = max(worst[n][1], max_abs(torch, y, r))
+        del runs, pairs, mask
+        torch.cuda.empty_cache()
+    for n, (err, yard) in worst.items():
+        if n == "lse" and lse is None:
+            continue
+        mul, bias = ((OUT_ERROR_MUL, OUT_ERROR_BIAS) if n in ("out", "lse")
+                     else (GRAD_ERROR_MUL, GRAD_ERROR_BIAS))
+        ok = err <= mul * yard + bias or (n == "dv" and dv_sum < DV_SUM_WAIVER)
+        print(f"[parallel] {name} {n}: max abs err {err:.3e} vs fp32, bf16 reference "
+              f"{yard:.3e}: {'ok' if ok else 'FAILS'} (<= {mul:g} x + {bias:g})", flush=True)
+        if not ok:
+            raise AssertionError(f"{name} {n}: err {err:.3e} > {mul:g} x {yard:.3e} + {bias:g}")
+    return {n: {"err": e, "yardstick": y} for n, (e, y) in worst.items()
+            if not (n == "lse" and lse is None)}
+
+
+# The kernels the parallel cases reach, by profiler name (a substring).
+PAR_KERNELS = ("flash_fwd", "dq_mma_kernel", "dkdv_mma_kernel", "dq_kernel", "dkdv_kernel",
+               "bwd_tri", "tri_dq_reduce", "bwd_wl", "wl_mma_reduce", "fused_delta")
+
+
+def par_profiled(torch, fn):
+    """fn() under torch.profiler; returns (its result, the device ms of the
+    port's attention kernels it launched on this rank)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    us = sum(_device_us(e) for e in prof.key_averages()
+             if any(k in e.key for k in PAR_KERNELS))
+    return out, us / 1e3
+
+
+def parallel_attention_rank(rank, world):
+    """(a) ring and (b) Ulysses / TP attention on one rank of PAR_RANKS: each
+    case forward + backward in bf16 on the same global inputs, the ranks
+    lined up by a barrier first, its kernel launches counted (reset just
+    before), its wall times, its kernels' device time (torch.profiler) and
+    its host staging; rank 0 checks every case (`par_check`)."""
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from fa2_triton_tpu_torch.ops import flash_bwd, flash_fwd
+    from fa2_triton_tpu_torch.parallel import (
+        collectives as coll, make_mesh, make_ring_attention, make_tp_attention,
+        make_ulysses_attention,
+    )
+
+    seq_mesh, dm_mesh = make_mesh(seq=world), make_mesh(data=2, model=world // 2)
+    par_profiled(torch, lambda: None)   # the profiler's start-up (~13 s), outside the cases
+    out = []
+    for name, kind, kw in PAR_CASES:
+        x32 = par_inputs(torch, kind)
+        x = [t.to(torch.bfloat16).requires_grad_() for t in x32[:3]]
+        drop = dict(zip(("dropout_p", "dropout_seed"), PAR_DROPOUT)) if kw.get("dropout") else {}
+        if kind == "ring":
+            fn = make_ring_attention(seq_mesh, causal=kw["causal"], return_lse=True, **drop)
+        elif kind == "ulysses":
+            fn = make_ulysses_attention(seq_mesh, causal=kw["causal"])
+        else:
+            fn = make_tp_attention(dm_mesh, causal=kw["causal"])
+        dist.barrier()
+        reset_counts()
+        coll.reset_staging()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, fwd_dev = par_profiled(torch, lambda: fn(*x))
+        o, lse = res if kind == "ring" else (res, None)
+        t1 = time.perf_counter()
+        loss = (o.float() * x32[3]).sum()
+        if kw.get("lse"):
+            loss = loss + (lse * x32[4]).sum()
+        _, bwd_dev = par_profiled(torch, loss.backward)
+        t2 = time.perf_counter()
+        launches = {n: c for n, c in bwd_launches(flash_fwd, flash_bwd).items() if c}
+        fwd = sum(c for n, c in launches.items() if not n.startswith(("bwd_", "flash_bwd")))
+        bwd = sum(c for n, c in launches.items() if n.startswith(("bwd_", "flash_bwd")))
+        if not (fwd and bwd):
+            raise AssertionError(f"rank {rank} {name}: launches {launches}, a kernel of the "
+                                 f"forward or the backward never ran")
+        rec = {"case": name, "fwd_ms": 1e3 * (t1 - t0), "bwd_ms": 1e3 * (t2 - t1),
+               "fwd_kernel_ms": fwd_dev, "bwd_kernel_ms": bwd_dev,
+               "launches": launches, "staging": dict(coll.STAGING)}
+        if rank == 0:
+            rec["check"] = par_check(torch, name, kind, kw, o.detach(),
+                                     lse.detach() if lse is not None else None,
+                                     [t.grad for t in x], x32)
+        out.append(rec)
+        del x32, x, res, o, lse, loss, fn
+        torch.cuda.empty_cache()
+    no_jax_here()
+    return out
+
+
+def par_config(torch):
+    from fa2_triton_tpu_torch.examples.train import preset_config
+
+    return preset_config("mistral-7b-v0.3", torch.bfloat16, n_layers=PAR_LAYERS)
+
+
+def par_engine_kw(torch, mode):
+    return {k: getattr(torch, v) if k == "qdtype" else v for k, v in PAR_SERVE_MODES[mode].items()}
+
+
+def par_served(torch, engine, prompts):
+    """Serve phase 3's prompts through `engine` with the counts reset just
+    before; returns the tokens, log-probs, launches and times."""
+    from fa2_triton_tpu_torch.ops import decode, flash_fwd
+    from fa2_triton_tpu_torch.parallel import collectives as coll
+
+    reqs = [engine.submit(p, NEW_TOKENS) for p in prompts]
+    reset_counts()
+    coll.reset_staging()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not all(r.done and len(r.out_tokens) == NEW_TOKENS for r in reqs):
+        raise AssertionError("not every request finished with its tokens")
+    return {"tokens": [list(r.out_tokens) for r in reqs],
+            "logprobs": [list(r.out_logprobs) for r in reqs],
+            "launches": {"flash_fwd": flash_fwd.LAUNCHES, "decode": decode.LAUNCHES,
+                         "decode_variants": dict(decode.VARIANT_LAUNCHES)},
+            "staging": dict(coll.STAGING), "wall_s": wall, "decode_steps": stats.decode_steps,
+            "prefill_dispatches": stats.prefill_dispatches,
+            "replica_of": dict(getattr(engine, "replica_of", {}))}
+
+
+def parallel_serve_rank(rank, world, kind):
+    """(c) on one rank: the seeded model at PAR_LAYERS, then phase 3's
+    prompts through a TP Engine (kind "tp": model axis of `world`) or a
+    `DataParallelEngine` (kind "dp": data axis of `world`, 4 slots a
+    replica) for each of PAR_SERVE_MODES."""
+    import torch
+
+    from fa2_triton_tpu_torch.models import init_params
+    from fa2_triton_tpu_torch.parallel import make_mesh
+    from fa2_triton_tpu_torch.runtime import DataParallelEngine, Engine
+
+    with torch.inference_mode():
+        cfg = par_config(torch)
+        model = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+        mesh = make_mesh(model=world) if kind == "tp" else make_mesh(data=world)
+        prompts = served_prompts(cfg)
+        out = {}
+        for mode in PAR_SERVE_MODES:
+            kw = par_engine_kw(torch, mode)
+            if kind == "tp":
+                engine = Engine(model, cfg, n_slots=8, max_seq=4096, mesh=mesh, **kw)
+            else:
+                engine = DataParallelEngine(model, cfg, mesh, n_slots=4, max_seq=4096, **kw)
+            out[mode] = par_served(torch, engine, prompts)
+            launches = out[mode]["launches"]
+            if not (launches["flash_fwd"] and launches["decode"]):
+                raise AssertionError(f"rank {rank} {kind} {mode}: launches {launches}")
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    no_jax_here()
+    return out
+
+
+def par_hold_tokens(what, got, ref):
+    """`got`'s greedy tokens against the single-device Engine's `ref`, the
+    rule of phase 14 (b) on log-probs: the log-probs of the tokens both
+    chose on a shared prefix give the drift between the two; a request may
+    diverge only where its two chosen tokens' log-probs sit within PAR_TIE x
+    that drift of each other (a near tie both engines see), and is not
+    compared past it. Returns the counts."""
+    drift, divergences, equal = 0.0, [], 0
+    for i, (tg, lg, tr, lr) in enumerate(zip(got["tokens"], got["logprobs"], ref["tokens"],
+                                             ref["logprobs"])):
+        n = next((j for j, (a, b) in enumerate(zip(tg, tr)) if a != b), len(tr))
+        drift = max([drift] + [abs(a - b) for a, b in zip(lg[:n], lr[:n])])
+        if n == len(tr):
+            equal += 1
+        else:
+            divergences.append((i, n, abs(lg[n] - lr[n])))
+    bound = PAR_TIE * max(drift, 1e-3)
+    bad = [d for d in divergences if d[2] > bound]
+    print(f"[parallel] {what}: {equal} of {len(ref['tokens'])} requests equal to the single-device "
+          f"Engine's tokens; log-prob drift on shared prefixes {drift:.3e}; divergences "
+          f"(request, token, log-prob gap) {[(i, n, round(g, 4)) for i, n, g in divergences]} "
+          f"(bound {bound:.3e})", flush=True)
+    if bad or drift > 0.1:
+        raise AssertionError(f"{what}: divergences {bad} past the tie bound {bound:.3e}, or drift "
+                             f"{drift:.3e} > 0.1")
+    return {"equal": equal, "drift": drift, "divergences": len(divergences)}
+
+
+def par_rank_lines(tag, ranks, card):
+    for r, res in enumerate(ranks):
+        st = res["staging"]
+        hop = 1e3 * (st["copy_s"] + st["comm_s"]) / st["ops"] if st["ops"] else 0.0
+        print(f"[parallel] {tag} rank {r}: launches {res['launches']}; host staging {st['ops']} "
+              f"ops, {st['bytes'] / 1e6:.1f} MB to the host, copies {1e3 * st['copy_s']:.1f} ms, "
+              f"gloo {1e3 * st['comm_s']:.1f} ms, {hop:.3f} ms an op [{card}]", flush=True)
+
+
+def phase_parallel(torch, card):
+    """Phase 18 (the parallel layer): (a) ring and (b) Ulysses / TP
+    attention on PAR_RANKS ranks sharing this card over gloo, every case
+    held to one card's references by rank 0; (c) phase 3's prompts through
+    a TP-2 Engine and a data-2 `DataParallelEngine`, contiguous, paged and
+    int8 KV, held to the single-device Engine's tokens. Returns the
+    launches per kernel summed over the ranks and the measurements."""
+    from fa2_triton_tpu_torch.models import init_params
+    from fa2_triton_tpu_torch.parallel import spawn_ranks
+    from fa2_triton_tpu_torch.runtime import Engine
+
+    t_phase = time.perf_counter()
+    print(f"[parallel] transport: gloo, {PAR_RANKS} ranks on one card; CUDA tensors staged "
+          f"through host memory (NCCL refuses two ranks on one device) [{card}]", flush=True)
+    t0 = time.perf_counter()
+    att = spawn_ranks(parallel_attention_rank, PAR_RANKS, timeout_s=600)
+    att_s = time.perf_counter() - t0
+    totals, cases = {}, {}
+    for i, (name, kind, kw) in enumerate(PAR_CASES):
+        per_rank = [r[i] for r in att]
+        for r, rec in enumerate(per_rank):
+            print(f"[parallel] {name} rank {r}: forward {rec['fwd_ms']:.1f} ms, backward "
+                  f"{rec['bwd_ms']:.1f} ms (wall, {PAR_RANKS} ranks sharing the card); its "
+                  f"kernels' device time {rec['fwd_kernel_ms']:.3f} + {rec['bwd_kernel_ms']:.3f} "
+                  f"ms (torch.profiler)", flush=True)
+        par_rank_lines(name, per_rank, card)
+        drop = "dropout" if kw.get("dropout") else ""
+        for rec in per_rank:
+            for n, c in rec["launches"].items():
+                totals[(n, drop)] = totals.get((n, drop), 0) + c
+        st = [rec["staging"] for rec in per_rank]
+        cases[name] = {"check": per_rank[0]["check"],
+                       "fwd_ms": [rec["fwd_ms"] for rec in per_rank],
+                       "bwd_ms": [rec["bwd_ms"] for rec in per_rank],
+                       "fwd_kernel_ms": [rec["fwd_kernel_ms"] for rec in per_rank],
+                       "bwd_kernel_ms": [rec["bwd_kernel_ms"] for rec in per_rank],
+                       "launches": [rec["launches"] for rec in per_rank],
+                       "staging_ms_per_op": [1e3 * (s["copy_s"] + s["comm_s"]) / s["ops"]
+                                             if s["ops"] else 0.0 for s in st]}
+    print(f"[parallel] (a) + (b): {att_s:.1f} s with the ranks' start", flush=True)
+
+    with torch.inference_mode():
+        cfg = par_config(torch)
+        model = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+        prompts = served_prompts(cfg)
+        refs = {}
+        for mode in PAR_SERVE_MODES:
+            refs[mode] = par_served(torch, Engine(model, cfg, n_slots=8, max_seq=4096,
+                                                  **par_engine_kw(torch, mode)), prompts)
+            print(f"[parallel] single-device {mode}: {refs[mode]['wall_s']:.2f} s, "
+                  f"{refs[mode]['decode_steps']} decode steps", flush=True)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    serving = {}
+    for kind in ("tp", "dp"):
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(parallel_serve_rank, 2, (kind,), timeout_s=900)
+        spent = time.perf_counter() - t0
+        for mode in PAR_SERVE_MODES:
+            what = f"{kind} {mode} ({PAR_LAYERS} layers)"
+            for r, res in enumerate(ranks):
+                rec = res[mode]
+                print(f"[parallel] {what} rank {r}: {rec['wall_s']:.2f} s, {rec['decode_steps']} "
+                      f"decode steps, {rec['prefill_dispatches']} prefill dispatches", flush=True)
+            par_rank_lines(what, [res[mode] for res in ranks], card)
+            got = ranks[0][mode]
+            if kind == "dp":
+                if any(res[mode]["tokens"] != got["tokens"] for res in ranks):
+                    raise AssertionError(f"{what}: the ranks disagree on the served tokens")
+                print(f"[parallel] {what}: replica of each request {got['replica_of']}", flush=True)
+            held = par_hold_tokens(what, got, refs[mode])
+            for res in ranks:
+                for n in ("flash_fwd", "decode"):
+                    key = (n if not (n == "decode" and mode != "contiguous") else
+                           "paged_decode" if mode == "paged" else "decode_quant", "")
+                    totals[key] = totals.get(key, 0) + res[mode]["launches"][n]
+            serving[what] = {**held, "wall_s": [res[mode]["wall_s"] for res in ranks],
+                             "single_device_wall_s": refs[mode]["wall_s"],
+                             "staging_ms_per_op": [
+                                 1e3 * (res[mode]["staging"]["copy_s"]
+                                        + res[mode]["staging"]["comm_s"])
+                                 / max(1, res[mode]["staging"]["ops"]) for res in ranks]}
+        print(f"[parallel] (c) {kind}: {spent:.1f} s with the ranks' start, peak "
+              f"{[round(res['peak_gib'], 1) for res in ranks]} GiB a rank", flush=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"[parallel] phase 18: {seconds:.1f} s [{card}]", flush=True)
+    return {"launches": totals, "cases": cases, "serving": serving, "seconds": seconds}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4874,6 +5298,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     routing = phase_routing(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    parallel = phase_parallel(torch, card)
 
     if any(name == "jax" or name.startswith(("jax.", "fa2_triton_tpu.")) for name in sys.modules):
         raise RuntimeError("the port imported jax or the JAX package")
@@ -5036,6 +5463,26 @@ def main() -> int:
             "name": name, "route": "cuda", "source": f"fa2_triton_tpu_torch/csrc/{source}",
             "replaces": f"fa2_triton_tpu/ops/{replaces}", "also_replaces": also,
             "launches": launches, **extra, **bwd_kernels[name]})
+    # Phase 18's launches, summed over its ranks, under the entries of the
+    # kernels they ran.
+    par_entry = {"flash_fwd": "flash_fwd", "causal_strip": "flash_fwd_causal_strip",
+                 "causal_diag": "flash_fwd_causal_diag", "rect": "flash_fwd_rect",
+                 "rect_merge": "flash_fwd_rect_merge", "flash_bwd_dq": "flash_bwd_dq",
+                 "flash_bwd_dkdv": "flash_bwd_dkdv", "bwd_tri_square": "flash_bwd_tri_square",
+                 "bwd_causal_diag": "flash_bwd_causal_diag", "bwd_rect": "flash_bwd_rect",
+                 "bwd_worklist": "flash_bwd_worklist", "decode": "decode",
+                 "paged_decode": "paged_decode", "decode_quant": "decode_quant"}
+    by_name = {e["name"]: e for e in table["kernels"]}
+    for e in table["kernels"]:
+        e["launches_parallel"] = 0
+    for (counter, drop), n in parallel["launches"].items():
+        name = par_entry[counter]
+        if drop and f"{name}_dropout" in by_name:
+            name = f"{name}_dropout"
+        elif drop and name.startswith("flash_bwd_d") and f"flash_bwd_dropout_{name[10:]}" in by_name:
+            name = f"flash_bwd_dropout_{name[10:]}"
+        by_name[name]["launches_parallel"] += n
+    by_name["flash_fwd"]["parallel"] = {k: parallel[k] for k in ("cases", "serving", "seconds")}
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps(table))

@@ -17,7 +17,9 @@ every attention kernel (the JAX package's counter-hash stream,
 (`layers.py`), chunked prefill, the prefix cache, sampling and speculative
 decoding, and the model zoo (`models/`: LLaMA, GPT-2, the Mixtral-style
 MoE family, LoRA, weight-only int8 / fp8 models, the Hugging Face
-loaders). This package never imports JAX.
+loaders), and the parallel layer over `torch.distributed` (`parallel/`:
+meshes and spec tables, TP / ring / Ulysses attention, the Engine's TP mode
+and `DataParallelEngine`). This package never imports JAX.
 """
 
 from fa2_triton_tpu_torch.ops import (

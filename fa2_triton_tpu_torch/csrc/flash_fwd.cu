@@ -402,7 +402,7 @@ FwdParams call_params(int Hq, int Hkv, int Sq, int Sk, const void* q, const void
                        long long q_sh, long long q_ss, long long k_sb, long long k_sh,
                        long long k_ss, long long v_sb, long long v_sh, long long v_ss,
                        long long o_sb, long long o_sh, long long o_ss, int q_off, int kv_off,
-                       float softmax_scale, int dropout, unsigned int drop_seed,
+                       float softmax_scale, int q_prescaled, int dropout, unsigned int drop_seed,
                        unsigned int drop_threshold, float drop_scale, int Sq_real, int Sk_real) {
   FwdParams p;
   p.q = q; p.k = k; p.v = v; p.o = o; p.lse = lse; p.lens = lens;
@@ -414,7 +414,9 @@ FwdParams call_params(int Hq, int Hkv, int Sq, int Sk, const void* q, const void
   p.bias_sb = p.bias_sh = p.bias_sq = p.bias_sk = 0;
   p.Hq = Hq; p.Hkv = Hkv; p.Sq = Sq; p.Sk = Sk;
   p.q_off = q_off; p.kv_off = kv_off; p.causal = 0; p.wl = -1; p.wr = -1;
-  p.scale_log2 = softmax_scale * LOG2E;
+  // q_prescaled: the caller multiplied q by scale * log2(e) already (ring
+  // attention hoists it out of its loop), so the scores take no factor.
+  p.scale_log2 = q_prescaled ? 1.f : softmax_scale * LOG2E;
   p.softcap = 0.f;
   p.drop.on = dropout; p.drop.seed = drop_seed; p.drop.threshold = drop_threshold;
   p.drop.scale = drop_scale;
@@ -441,13 +443,13 @@ extern "C" int fa2_flash_fwd(
     const void* bias, int bias_dtype,
     long long bias_sb, long long bias_sh, long long bias_sq, long long bias_sk,
     int q_off, int kv_off, int causal, int wl, int wr,
-    float softmax_scale, float softcap,
+    float softmax_scale, float softcap, int q_prescaled,
     int dropout, unsigned int drop_seed, unsigned int drop_threshold, float drop_scale,
     int Sq_real, int Sk_real, int tile_rows, void* stream) {
   fa2::FwdParams p = fa2::call_params(
       Hq, Hkv, Sq, Sk, q, k, v, o, lse, lens, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,
-      v_ss, o_sb, o_sh, o_ss, q_off, kv_off, softmax_scale, dropout, drop_seed, drop_threshold,
-      drop_scale, Sq_real, Sk_real);
+      v_ss, o_sb, o_sh, o_ss, q_off, kv_off, softmax_scale, q_prescaled, dropout, drop_seed,
+      drop_threshold, drop_scale, Sq_real, Sk_real);
   p.bias = bias; p.bias_dtype = bias_dtype;
   p.bias_sb = bias_sb; p.bias_sh = bias_sh; p.bias_sq = bias_sq; p.bias_sk = bias_sk;
   p.causal = causal; p.wl = wl; p.wr = wr;
@@ -465,14 +467,14 @@ extern "C" int fa2_flash_fwd_causal(
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss,
-    int q_off, int kv_off, float softmax_scale,
+    int q_off, int kv_off, float softmax_scale, int q_prescaled,
     int dropout, unsigned int drop_seed, unsigned int drop_threshold, float drop_scale,
     int Sq_real, int Sk_real, void* stream) {
   if (leaf <= 0 || leaf % fa2::TM != 0) return (int)cudaErrorInvalidValue;
   fa2::FwdParams p = fa2::call_params(
       Hq, Hkv, Sq, Sk, q, k, v, o, lse, lens, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,
-      v_ss, o_sb, o_sh, o_ss, q_off, kv_off, softmax_scale, dropout, drop_seed, drop_threshold,
-      drop_scale, Sq_real, Sk_real);
+      v_ss, o_sb, o_sh, o_ss, q_off, kv_off, softmax_scale, q_prescaled, dropout, drop_seed,
+      drop_threshold, drop_scale, Sq_real, Sk_real);
   p.causal = 1;
   p.leaf = leaf;
   return fa2::launch_dtype(p, dtype, false, B, D, stream);
@@ -490,7 +492,7 @@ extern "C" int fa2_flash_fwd_rect(
     long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss,
-    int q_off, int kv_off, float softmax_scale,
+    int q_off, int kv_off, float softmax_scale, int q_prescaled,
     int dropout, unsigned int drop_seed, unsigned int drop_threshold, float drop_scale,
     int Sq_real, int Sk_real, int lse_rows, int row0, int row_end, int col0, int col_end,
     int out_row0, void* stream) {
@@ -508,8 +510,8 @@ extern "C" int fa2_flash_fwd_rect(
       static_cast<const char*>(k) + col0 * k_ss * es,
       static_cast<const char*>(v) + col0 * v_ss * es, static_cast<char*>(o) + out * o_ss * es,
       lse + out, lens, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
-      q_off + row0, kv_off + col0, softmax_scale, dropout, drop_seed, drop_threshold, drop_scale,
-      Sq_real, Sk_real);
+      q_off + row0, kv_off + col0, softmax_scale, q_prescaled, dropout, drop_seed, drop_threshold,
+      drop_scale, Sq_real, Sk_real);
   p.lse_rows = lse_rows;
   return fa2::launch_dtype(p, dtype, merge != 0, B, D, stream);
 }

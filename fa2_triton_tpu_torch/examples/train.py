@@ -104,9 +104,9 @@ PRESETS = {
 }
 
 NOT_PORTED = {
-    "dp": "data parallelism (ROADMAP.md queue A.7)",
-    "tp": "tensor parallelism (ROADMAP.md queue A.7)",
-    "fsdp": "FSDP / ZeRO-3 (ROADMAP.md queue A.7)",
+    "dp": "data parallelism (ROADMAP.md queue A.7(ii))",
+    "tp": "tensor parallelism (ROADMAP.md queue A.7(ii))",
+    "fsdp": "FSDP / ZeRO-3 (ROADMAP.md queue A.7(ii))",
 }
 # Values of those flags that mean "off", as in the JAX script.
 _OFF = {"dp": 1, "tp": 1}

@@ -13,7 +13,12 @@ tables), `chunk_prefill_step` (one prompt chunk against a slot's cached
 prefix; `paged_chunk_prefill_step` is its page-pool form) and the cached
 forward of speculative decoding (`forward_with_cache` over `init_kv_cache`'s
 BHSD caches through `make_cached_attention_fn`, that is
-`ops/attention.py:flash_attn_with_kv_cache`). A Mixtral-style MoE layer
+`ops/attention.py:flash_attn_with_kv_cache`). The serving paths take a
+`tp_group` (JAX's `psum_axis`): the model is then one rank's head shard
+(`parallel/mesh.py:shard_params`, local head counts in its config), and
+the row-parallel products of `wo` and `w_down` are summed over the group
+(`parallel/collectives.py:all_reduce`) before any post-norm; MoE experts
+stay replicated and take no sum (JAX l.244-250). A Mixtral-style MoE layer
 (`models/moe.py`: an fp32 `router` and experts `we_gate` / `we_up` /
 `we_down` in place of the dense MLP) takes every one of these paths through
 `_mlp_block`'s dense all-experts block, as in JAX. `quantize_model_params`
@@ -236,10 +241,22 @@ def _qkv(layer: LlamaLayer, h: torch.Tensor, cfg: LlamaConfig):
     return q, k, v.reshape(B, S, cfg.n_kv_heads, cfg.hd)
 
 
-def _attn_out(layer: LlamaLayer, x, attn, cfg: LlamaConfig):
-    """Output projection, optional post-norm, residual add."""
+def _reduce(x: torch.Tensor, tp_group) -> torch.Tensor:
+    """A row-parallel partial product summed over the TP group (JAX
+    `_psum`; Megatron: wo / w_down shard their input dim); x itself
+    without a group."""
+    if tp_group is None:
+        return x
+    from fa2_triton_tpu_torch.parallel.collectives import all_reduce
+
+    return all_reduce(x, tp_group)
+
+
+def _attn_out(layer: LlamaLayer, x, attn, cfg: LlamaConfig, tp_group=None):
+    """Output projection (summed over `tp_group`), optional post-norm,
+    residual add."""
     B, S = attn.shape[:2]
-    out = _mm(attn.reshape(B, S, cfg.n_heads * cfg.hd), layer.wo)
+    out = _reduce(_mm(attn.reshape(B, S, cfg.n_heads * cfg.hd), layer.wo), tp_group)
     if layer.post_attn_norm is not None:
         out = rms_norm(out, layer.post_attn_norm, cfg.norm_eps)
     return x + out
@@ -252,7 +269,8 @@ _ACTS = {
 }
 
 
-def _mlp_block(layer: LlamaLayer, x: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+def _mlp_block(layer: LlamaLayer, x: torch.Tensor, cfg: LlamaConfig,
+               tp_group=None) -> torch.Tensor:
     if layer.router is not None:
         # MoE layer: every path here (forward, prefill, decode, chunks, the
         # cached forward, the Engine) takes the dense all-experts block, as
@@ -263,7 +281,7 @@ def _mlp_block(layer: LlamaLayer, x: torch.Tensor, cfg: LlamaConfig) -> torch.Te
         return moe_mlp_dense(layer, x, cfg)[0]
     h = rms_norm(x, layer.mlp_norm, cfg.norm_eps)
     gated = _ACTS[cfg.hidden_act](_mm(h, layer.w_gate)) * _mm(h, layer.w_up)
-    out = _mm(gated, layer.w_down)
+    out = _reduce(_mm(gated, layer.w_down), tp_group)
     if layer.post_mlp_norm is not None:
         out = rms_norm(out, layer.post_mlp_norm, cfg.norm_eps)
     return x + out
@@ -426,10 +444,12 @@ def prefill_forward(
     model: LlamaModel,
     tokens: torch.Tensor,       # [B, S_pad] int, right-padded
     true_len: torch.Tensor,     # [B] int
+    tp_group=None,
 ) -> Tuple[torch.Tensor, List[Tuple[torch.Tensor, torch.Tensor]]]:
     """Prompt prefill: causal self-attention over the padded prompt with a
     padding mask. Returns (logits [B, S_pad, V] fp32, per-layer (k, v) in
-    BSHD) for the cache fill."""
+    BSHD) for the cache fill. Under TP (`tp_group`) the k / v are this
+    rank's heads, as its cache shard holds them."""
     cfg = model.cfg
     B, S = tokens.shape
     x = model.embed[tokens]
@@ -447,14 +467,14 @@ def prefill_forward(
             q, k, v, attention_mask=mask, causal=True, softmax_scale=cfg.scale,
             softcap=cfg.attn_softcap, window_size=_window_args(cfg, li),
         )
-        x = _attn_out(layer, x, attn, cfg)
-        x = _mlp_block(layer, x, cfg)
+        x = _attn_out(layer, x, attn, cfg, tp_group)
+        x = _mlp_block(layer, x, cfg, tp_group)
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
     return _logits(x, model, cfg), kvs
 
 
 def _decode_layers(model: LlamaModel, tokens: torch.Tensor, lens: torch.Tensor,
-                   write_and_attend: Callable) -> torch.Tensor:
+                   write_and_attend: Callable, tp_group=None) -> torch.Tensor:
     """The layer loop of one batched decode step: `write_and_attend(li, q,
     k, v)` stores the new k/v of layer `li` and returns its attention
     output [B, Hq, D]. Returns logits [B, V]."""
@@ -467,8 +487,8 @@ def _decode_layers(model: LlamaModel, tokens: torch.Tensor, lens: torch.Tensor,
         q, k, v = _qkv(layer, h, cfg)
         q, k = apply_rope(q, cs, sn), apply_rope(k, cs, sn)
         attn = write_and_attend(li, q[:, 0].contiguous(), k, v)
-        x = _attn_out(layer, x, attn[:, None], cfg)
-        x = _mlp_block(layer, x, cfg)
+        x = _attn_out(layer, x, attn[:, None], cfg, tp_group)
+        x = _mlp_block(layer, x, cfg, tp_group)
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
     return _logits(x[:, 0], model, cfg)
 
@@ -479,6 +499,7 @@ def decode_step(
     caches,                     # runtime KV cache: list of layer dicts (BHSD)
     lens: torch.Tensor,         # [B] int32 — tokens already in each slot
     kv_cfg,                     # runtime.kv_cache.KVCacheConfig
+    tp_group=None,
 ):
     """One batched decode step over the serving KV cache. Writes each slot's
     new k/v at `lens` IN PLACE (quantized when the cache is; saves a full
@@ -496,7 +517,7 @@ def decode_step(
             q, cache["k"], cache["v"], kv_lens, cache.get("k_scale"), cache.get("v_scale"),
             softmax_scale=cfg.scale, window_left=cfg.window_for(li), softcap=cfg.attn_softcap)
 
-    return _decode_layers(model, tokens, lens, write_and_attend), caches
+    return _decode_layers(model, tokens, lens, write_and_attend, tp_group), caches
 
 
 def paged_decode_step(
@@ -506,6 +527,7 @@ def paged_decode_step(
     tables: torch.Tensor,       # [n_slots, max_pages] int32 block tables
     lens: torch.Tensor,         # [B] int32 — tokens already in each slot
     pcfg,                       # runtime.paged_cache.PagedCacheConfig
+    tp_group=None,
 ):
     """One batched decode step over the paged KV cache
     (`fa2_triton_tpu/models/llama.py:paged_decode_step`): scatters each
@@ -523,7 +545,7 @@ def paged_decode_step(
             q, pool["k"], pool["v"], tables, kv_lens, pool.get("k_scale"), pool.get("v_scale"),
             softmax_scale=cfg.scale, window_left=cfg.window_for(li), softcap=cfg.attn_softcap)
 
-    return _decode_layers(model, tokens, lens, write_and_attend), pools
+    return _decode_layers(model, tokens, lens, write_and_attend, tp_group), pools
 
 
 def _cache_rows(store: dict, total: int, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -539,7 +561,7 @@ def _cache_rows(store: dict, total: int, dtype) -> Tuple[torch.Tensor, torch.Ten
 
 
 def _chunk_layers(model: LlamaModel, tokens: torch.Tensor, chunk_len: int, cache_len: int,
-                  write_and_view: Callable) -> torch.Tensor:
+                  write_and_view: Callable, tp_group=None) -> torch.Tensor:
     """The layer loop of one prefill chunk: `write_and_view(li, k, v)`
     stores layer `li`'s k/v of the chunk's `chunk_len` true tokens at
     `cache_len` and returns the k/v [1, Hkv, total, D] of the slot's first
@@ -567,8 +589,8 @@ def _chunk_layers(model: LlamaModel, tokens: torch.Tensor, chunk_len: int, cache
             causal=True, softmax_scale=cfg.scale, window=_window_args(cfg, li),
             softcap=cfg.attn_softcap, seqlen_q_real=C, seqlen_k_real=total, static_skip=False,
             varlen=True)
-        x = _attn_out(layer, x, o.transpose(1, 2)[..., :cfg.hd], cfg)
-        x = _mlp_block(layer, x, cfg)
+        x = _attn_out(layer, x, o.transpose(1, 2)[..., :cfg.hd], cfg, tp_group)
+        x = _mlp_block(layer, x, cfg, tp_group)
     x = rms_norm(x[:, chunk_len - 1], model.final_norm, cfg.norm_eps)
     return _logits(x, model, cfg)
 
@@ -590,6 +612,7 @@ def chunk_prefill_step(
     caches,                     # runtime KV cache: list of layer dicts (BHSD)
     kv_cfg,                     # runtime.kv_cache.KVCacheConfig
     slot: int = 0,
+    tp_group=None,
 ) -> torch.Tensor:
     """One bounded prefill chunk of `slot` over the contiguous serving cache
     (`fa2_triton_tpu/models/llama.py:chunk_prefill_step`): the chunk's
@@ -612,7 +635,7 @@ def chunk_prefill_step(
         write_kv(view, k, v, offset, kv_cfg)
         return _cache_rows(view, total, kv_cfg.compute_dtype)
 
-    return _chunk_layers(model, tokens, chunk_len, cache_len, write_and_view)
+    return _chunk_layers(model, tokens, chunk_len, cache_len, write_and_view, tp_group)
 
 
 def paged_chunk_prefill_step(
@@ -624,6 +647,7 @@ def paged_chunk_prefill_step(
     tables: torch.Tensor,       # [n_slots, max_pages] int32 block tables (device)
     slot: int,
     pcfg,                       # runtime.paged_cache.PagedCacheConfig
+    tp_group=None,
 ) -> torch.Tensor:
     """`chunk_prefill_step` over the page pool: the chunk's true rows are
     scattered in place through the slot's table (`write_tokens_paged`; the
@@ -653,7 +677,7 @@ def paged_chunk_prefill_step(
                 view[name] = pool[name][pages].permute(1, 2, 0, 3).reshape(1, Hkv, 1, -1)
         return _cache_rows(view, total, pcfg.compute_dtype)
 
-    return _chunk_layers(model, tokens, chunk_len, cache_len, write_and_view)
+    return _chunk_layers(model, tokens, chunk_len, cache_len, write_and_view, tp_group)
 
 
 QUANTIZABLE_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "lm_head")

@@ -139,12 +139,12 @@ def moe_mlp_dense(layer: LlamaLayer, x: torch.Tensor, cfg: MoEConfig
 
 def make_ep_mlp(*args, **kwargs):
     raise NotImplementedError("expert parallelism over a mesh is not ported yet "
-                              "(ROADMAP.md queue A.7)")
+                              "(ROADMAP.md queue A.7(ii))")
 
 
 def moe_param_pspecs(*args, **kwargs):
     raise NotImplementedError("expert-parallel sharding specs are not ported yet "
-                              "(ROADMAP.md queue A.7)")
+                              "(ROADMAP.md queue A.7(ii))")
 
 
 def forward(

@@ -82,11 +82,11 @@ MAX_HEAD_DIM = HEAD_DIMS[-1]
 _P, _I, _L, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_uint
 # argtypes of each C entry point. The split's two share a head: (dtype,
 # leaf or merge, B, Hq, Hkv, Sq, Sk, D, 6 pointers, 12 strides, q_off, kv_off,
-# scale, 4 dropout args, Sq_real, Sk_real).
-_SCHED_HEAD = [_I] * 8 + [_P] * 6 + [_L] * 12 + [_I, _I, _F, _I, _U, _U, _F, _I, _I]
+# scale, q_prescaled, 4 dropout args, Sq_real, Sk_real).
+_SCHED_HEAD = [_I] * 8 + [_P] * 6 + [_L] * 12 + [_I, _I, _F, _I, _I, _U, _U, _F, _I, _I]
 _ARGTYPES = {
     "fa2_flash_fwd": ([_I] * 7 + [_P] * 6 + [_L] * 12 + [_P, _I] + [_L] * 4 + [_I] * 5 + [_F, _F]
-                      + [_I, _U, _U, _F, _I, _I, _I, _P]),
+                      + [_I, _I, _U, _U, _F, _I, _I, _I, _P]),
     "fa2_flash_fwd_causal": _SCHED_HEAD + [_P],
     "fa2_flash_fwd_rect": _SCHED_HEAD + [_I] * 6 + [_P],
 }
@@ -168,6 +168,7 @@ def flash_attn_forward_plain(
     window: Tuple[int, int] = (-1, -1), softcap: float = 0.0,
     dropout_p: float = 0.0, dropout_seed: int = 0,
     seqlen_q_real: Optional[int] = None, seqlen_k_real: Optional[int] = None,
+    q_prescaled: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch, computed in fp32.
 
@@ -175,19 +176,25 @@ def flash_attn_forward_plain(
     broadcastable to [B, Hq, Sq, Sk] (added after the softcap). Returns o
     like q and lse [B, Hq, Sq] fp32 in log2 units (-inf and o = 0 on dead
     rows). Dropout's mask comes from `utils/rng.py` (`dropout_mask`), with
-    the real lengths defaulting to the call's Sq, Sk."""
+    the real lengths defaulting to the call's Sq, Sk. `q_prescaled`: q
+    already carries softmax_scale * log2(e), so q k^T is the base-2 score
+    (no softcap or bias then, `check_prescaled`)."""
+    check_prescaled(q_prescaled, softcap, bias)
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     g = Hq // Hkv
     kf = k.float().repeat_interleave(g, dim=1)
     vf = v.float().repeat_interleave(g, dim=1)
-    s = torch.matmul(q.float(), kf.transpose(-1, -2)) * softmax_scale
+    s = torch.matmul(q.float(), kf.transpose(-1, -2))
+    if not q_prescaled:
+        s = s * softmax_scale
     if softcap > 0.0:
         s = softcap * torch.tanh(s / softcap)
     if bias is not None:
         s = s + bias.float()
     keep = _masks(lens, q_off, kv_off, Sq, Sk, causal, window, q.device)
-    s2 = torch.where(keep, s * LOG2E, torch.tensor(float("-inf"), device=q.device))
+    s2 = torch.where(keep, s if q_prescaled else s * LOG2E,
+                     torch.tensor(float("-inf"), device=q.device))
     m = s2.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp2(s2 - m)
@@ -201,6 +208,14 @@ def flash_attn_forward_plain(
     o = torch.matmul(p, vf) / denom
     lse = torch.where(l > 0, m + torch.log2(l), torch.tensor(float("-inf"), device=q.device))
     return o.to(q.dtype), lse[..., 0]
+
+
+def check_prescaled(q_prescaled: bool, softcap: float, bias) -> None:
+    """A q pre-scaled by softmax_scale * log2(e) (JAX's `q_prescaled`, the
+    ring's hoisted fold) takes no softcap or bias: both act on the natural
+    scores, which such a call never forms."""
+    if q_prescaled and (softcap > 0.0 or bias is not None):
+        raise ValueError("q_prescaled takes no softcap or attention bias")
 
 
 def _check_cuda_args(q, k, v, lens=None, vec=4):
@@ -244,30 +259,30 @@ def _vec(q) -> int:
 
 
 def _generic_forward(q, k, v, lens, q_off, kv_off, bias, *, causal, softmax_scale, window,
-                     softcap, dropout_p, dropout_seed, seqlen_q_real, seqlen_k_real):
+                     softcap, dropout_p, dropout_seed, seqlen_q_real, seqlen_k_real,
+                     q_prescaled=False):
     """csrc/flash_fwd.cu (B1, B9) on CUDA tensors, its plain twin on CPU
     ones."""
     global LAUNCHES
     dropout_c_args(dropout_p, dropout_seed)   # raises on a p outside [0, 1)
+    kw = dict(causal=causal, softmax_scale=softmax_scale, window=window, softcap=softcap,
+              dropout_p=dropout_p, dropout_seed=dropout_seed, seqlen_q_real=seqlen_q_real,
+              seqlen_k_real=seqlen_k_real, q_prescaled=q_prescaled)
     if q.device.type == "cpu":
-        return flash_attn_forward_plain(
-            q, k, v, lens, q_off, kv_off, bias, causal=causal,
-            softmax_scale=softmax_scale, window=window, softcap=softcap, dropout_p=dropout_p,
-            dropout_seed=dropout_seed, seqlen_q_real=seqlen_q_real, seqlen_k_real=seqlen_k_real)
-    out = _flash_fwd_launch(q, k, v, lens, q_off, kv_off, bias, causal=causal,
-                            softmax_scale=softmax_scale, window=window, softcap=softcap,
-                            dropout_p=dropout_p, dropout_seed=dropout_seed,
-                            seqlen_q_real=seqlen_q_real, seqlen_k_real=seqlen_k_real)
+        return flash_attn_forward_plain(q, k, v, lens, q_off, kv_off, bias, **kw)
+    out = _flash_fwd_launch(q, k, v, lens, q_off, kv_off, bias, **kw)
     if out[1].numel():
         LAUNCHES += 1
     return out
 
 
 def _flash_fwd_launch(q, k, v, lens, q_off, kv_off, bias, *, causal, softmax_scale, window,
-                      softcap, dropout_p, dropout_seed, seqlen_q_real, seqlen_k_real):
+                      softcap, dropout_p, dropout_seed, seqlen_q_real, seqlen_k_real,
+                      q_prescaled=False):
     """One launch of csrc/flash_fwd.cu (none for an empty output): the
     tensor-core kernel for 16-bit inputs, the FMA kernel for fp32."""
     drop = dropout_c_args(dropout_p, dropout_seed)
+    check_prescaled(q_prescaled, softcap, bias)
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd takes CPU or CUDA tensors, got {q.device}")
     _check_cuda_args(q, k, v, lens, vec=_vec(q))
@@ -286,7 +301,7 @@ def _flash_fwd_launch(q, k, v, lens, q_off, kv_off, bias, *, causal, softmax_sca
         _build.DTYPE_CODES[bv.dtype] if bv is not None else 0,
         *(bv.stride() if bv is not None else (0, 0, 0, 0)),
         int(q_off), int(kv_off), int(bool(causal)), int(window[0]), int(window[1]),
-        float(softmax_scale), float(softcap), *drop,
+        float(softmax_scale), float(softcap), int(bool(q_prescaled)), *drop,
         int(seqlen_q_real or Sq), int(seqlen_k_real or Sk), TILE_ROWS,
         _build.stream_ptr(q.device),
     )
@@ -529,12 +544,15 @@ def flash_attn_forward(
     split_leaf: Optional[int] = None,    # the split's leaf length (default split_leaf_t)
     route: Optional[str] = None,         # force a schedule by name (beats the flags)
     block_sizes: Optional[BlockSizes] = None,   # JAX's blocks: the padded shape the gates read
+    q_prescaled: bool = False,   # q already times softmax_scale * log2(e) (JAX l.1243)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (o [B, Hq, Sq, D] in q's dtype, lse [B, Hq, Sq] fp32, log2).
 
     `o` is a BHSD view of BSHD-contiguous memory, so `o.transpose(1, 2)` is
     the contiguous BSHD output. The schedule is `forward_route`'s, on the
-    chip of q's device (its tuning table)."""
+    chip of q's device (its tuning table). With `q_prescaled` every route's
+    kernel takes the scores as q k^T, unscaled (no softcap or bias)."""
+    check_prescaled(q_prescaled, softcap, bias)
     chip = detect_chip(q.device)
     route = forward_route(
         q.shape[2], k.shape[2], q.shape[3], q.element_size(), causal=causal,
@@ -543,7 +561,8 @@ def flash_attn_forward(
         causal_strip=causal_strip, causal_split=causal_split, split_leaf=split_leaf,
         route=route, block_sizes=block_sizes, chip=chip)
     sched = dict(softmax_scale=softmax_scale, dropout_p=dropout_p, dropout_seed=dropout_seed,
-                 seqlen_q_real=seqlen_q_real, seqlen_k_real=seqlen_k_real)
+                 seqlen_q_real=seqlen_q_real, seqlen_k_real=seqlen_k_real,
+                 q_prescaled=q_prescaled)
     if route == "split":
         return _causal_split_forward(q, k, v, lens, q_off, kv_off, leaf_t=split_leaf,
                                      block_sizes=block_sizes, chip=chip, **sched)
@@ -579,7 +598,8 @@ def _reals(q, k, seqlen_q_real, seqlen_k_real):
 
 
 def _schedule_launch(kernel: str, q, k, v, lens, q_off, kv_off, o, lse, *, softmax_scale,
-                     dropout_p, dropout_seed, seqlen_q_real, seqlen_k_real, tail: List[int]):
+                     dropout_p, dropout_seed, seqlen_q_real, seqlen_k_real, tail: List[int],
+                     q_prescaled=False):
     """Launch a split call of csrc/flash_fwd.cu, the diag through
     `fa2_flash_fwd_causal` ("causal_diag": tail = [leaf]) or a rectangle
     through `fa2_flash_fwd_rect` ("rect", "rect_merge": tail = [lse_rows,
@@ -599,7 +619,7 @@ def _schedule_launch(kernel: str, q, k, v, lens, q_off, kv_off, o, lse, *, softm
             _build.DTYPE_CODES[q.dtype], mode, B, Hq, Hkv, Sq, Sk, D,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), lens.data_ptr(),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-            int(q_off), int(kv_off), float(softmax_scale),
+            int(q_off), int(kv_off), float(softmax_scale), int(bool(q_prescaled)),
             *dropout_c_args(dropout_p, dropout_seed), int(sq_real), int(sk_real),
             *(tail if rect else []), _build.stream_ptr(q.device))
         _build.check(status, f"flash_fwd {kernel} launch")
@@ -616,7 +636,7 @@ def _new_out(q, rows):
 
 def flash_attn_forward_tri_square(q, k, v, lens, q_off=0, kv_off=0, *, softmax_scale,
                                   dropout_p=0.0, dropout_seed=0, seqlen_q_real=None,
-                                  seqlen_k_real=None):
+                                  seqlen_k_real=None, q_prescaled=False):
     """B9, the short causal forward (JAX l.585), with its precondition
     (l.602) on the shift sk_real - sq_real, a multiple of the row tile
     (TILE_ROWS in place of the TPU's sub-tile; the port does not pad, so the
@@ -629,12 +649,12 @@ def flash_attn_forward_tri_square(q, k, v, lens, q_off=0, kv_off=0, *, softmax_s
     return _generic_forward(q, k, v, lens, q_off, kv_off, None, causal=True, window=(-1, -1),
                             softcap=0.0, softmax_scale=softmax_scale, dropout_p=dropout_p,
                             dropout_seed=dropout_seed, seqlen_q_real=seqlen_q_real,
-                            seqlen_k_real=seqlen_k_real)
+                            seqlen_k_real=seqlen_k_real, q_prescaled=q_prescaled)
 
 
 def flash_attn_forward_causal_strip(q, k, v, lens, q_off=0, kv_off=0, *, softmax_scale,
                                     dropout_p=0.0, dropout_seed=0, seqlen_q_real=None,
-                                    seqlen_k_real=None):
+                                    seqlen_k_real=None, q_prescaled=False):
     """B10, the whole-strip causal forward (JAX l.779): csrc/flash_fwd.cu's
     kernel, causal, counted under SCHEDULE_LAUNCHES["causal_strip"]. It is
     the generic kernel's causal call, so their o and lse are equal bit for
@@ -650,7 +670,7 @@ def flash_attn_forward_causal_strip(q, k, v, lens, q_off=0, kv_off=0, *, softmax
                          f"last row's diagonal inside the keys; got shift {shift}, Sq "
                          f"{q.shape[2]}, Sk {k.shape[2]}")
     kw = dict(softmax_scale=softmax_scale, dropout_p=dropout_p, dropout_seed=dropout_seed,
-              seqlen_q_real=seqlen_q_real, seqlen_k_real=seqlen_k_real)
+              seqlen_q_real=seqlen_q_real, seqlen_k_real=seqlen_k_real, q_prescaled=q_prescaled)
     if q.device.type == "cpu":
         return flash_attn_forward_plain(q, k, v, lens, q_off, kv_off, causal=True, **kw)
     out = _flash_fwd_launch(q, k, v, lens, q_off, kv_off, None, causal=True, window=(-1, -1),
@@ -662,7 +682,7 @@ def flash_attn_forward_causal_strip(q, k, v, lens, q_off=0, kv_off=0, *, softmax
 
 def flash_attn_forward_causal_diag(q, k, v, lens, q_off=0, kv_off=0, *, T, softmax_scale,
                                    dropout_p=0.0, dropout_seed=0, seqlen_q_real=None,
-                                   seqlen_k_real=None):
+                                   seqlen_k_real=None, q_prescaled=False):
     """B9 diag (JAX l.969): every diagonal T x T causal leaf in one launch,
     csrc/flash_fwd.cu's kernel called causal with a leaf length (the longest
     tiles of every leaf first). Local row r attends
@@ -676,7 +696,7 @@ def flash_attn_forward_causal_diag(q, k, v, lens, q_off=0, kv_off=0, *, T, softm
         raise ValueError(f"causal_diag needs Sq == Sk and T a multiple of {TILE_ROWS}; got Sq "
                          f"{Sq}, Sk {k.shape[2]}, T {T}")
     kw = dict(softmax_scale=softmax_scale, dropout_p=dropout_p, dropout_seed=dropout_seed,
-              seqlen_q_real=seqlen_q_real, seqlen_k_real=seqlen_k_real)
+              seqlen_q_real=seqlen_q_real, seqlen_k_real=seqlen_k_real, q_prescaled=q_prescaled)
     if q.device.type == "cpu":
         return flash_attn_forward_causal_diag_plain(q, k, v, lens, q_off, kv_off, T=T, **kw)
     return _schedule_launch("causal_diag", q, k, v, lens, q_off, kv_off, *_new_out(q, Sq),
@@ -685,7 +705,7 @@ def flash_attn_forward_causal_diag(q, k, v, lens, q_off=0, kv_off=0, *, T, softm
 
 def flash_attn_forward_causal_diag_plain(q, k, v, lens, q_off=0, kv_off=0, *, T, softmax_scale,
                                          dropout_p=0.0, dropout_seed=0, seqlen_q_real=None,
-                                         seqlen_k_real=None):
+                                         seqlen_k_real=None, q_prescaled=False):
     """The diag kernel's plain twin: `flash_attn_forward_plain`, causal, on
     each leaf's rows and columns at their global offsets (the leaf mask)."""
     sq_real, sk_real = _reals(q, k, seqlen_q_real, seqlen_k_real)
@@ -697,13 +717,14 @@ def flash_attn_forward_causal_diag_plain(q, k, v, lens, q_off=0, kv_off=0, *, T,
         o[:, :, leaf], lse[:, :, leaf] = flash_attn_forward_plain(
             q[:, :, leaf], k[:, :, leaf], v[:, :, leaf], lens, q_off + l0, kv_off + l0,
             causal=True, softmax_scale=softmax_scale, dropout_p=dropout_p,
-            dropout_seed=dropout_seed, seqlen_q_real=sq_real, seqlen_k_real=sk_real)
+            dropout_seed=dropout_seed, seqlen_q_real=sq_real, seqlen_k_real=sk_real,
+            q_prescaled=q_prescaled)
     return o, lse
 
 
 def flash_attn_forward_rect(q, k, v, lens, q_off=0, kv_off=0, *, row0, col0, nrows, ncols,
                             softmax_scale, dropout_p=0.0, dropout_seed=0, seqlen_q_real=None,
-                            seqlen_k_real=None, merge_prev=None):
+                            seqlen_k_real=None, merge_prev=None, q_prescaled=False):
     """B11 (JAX l.1041): non-causal attention of q rows [row0, row0 + nrows)
     against K/V columns [col0, col0 + ncols) of the full tensors, cut to
     their lengths, with global offsets for validity and dropout
@@ -728,7 +749,7 @@ def flash_attn_forward_rect(q, k, v, lens, q_off=0, kv_off=0, *, row0, col0, nro
             raise ValueError("merge_prev must be (o like q, lse [B, Hq, Sq] fp32) on q's device")
     sq_real, sk_real = _reals(q, k, seqlen_q_real, seqlen_k_real)
     kw = dict(softmax_scale=softmax_scale, dropout_p=dropout_p, dropout_seed=dropout_seed,
-              seqlen_q_real=sq_real, seqlen_k_real=sk_real)
+              seqlen_q_real=sq_real, seqlen_k_real=sk_real, q_prescaled=q_prescaled)
     if q.device.type == "cpu":
         return flash_attn_forward_rect_plain(q, k, v, lens, q_off, kv_off, row0=row0, col0=col0,
                                              nrows=nrows, ncols=ncols, merge_prev=merge_prev, **kw)
@@ -746,7 +767,8 @@ def flash_attn_forward_rect(q, k, v, lens, q_off=0, kv_off=0, *, row0, col0, nro
 
 def flash_attn_forward_rect_plain(q, k, v, lens, q_off=0, kv_off=0, *, row0, col0, nrows, ncols,
                                   softmax_scale, dropout_p=0.0, dropout_seed=0,
-                                  seqlen_q_real=None, seqlen_k_real=None, merge_prev=None):
+                                  seqlen_q_real=None, seqlen_k_real=None, merge_prev=None,
+                                  q_prescaled=False):
     """The rect kernel's plain twin: `flash_attn_forward_plain`, not causal,
     on the region at its global offsets; with `merge_prev`,
     `merge_softmax_partials` of the previous rows and the region's fp32
@@ -759,7 +781,7 @@ def flash_attn_forward_rect_plain(q, k, v, lens, q_off=0, kv_off=0, *, row0, col
         q[:, :, rows].float(), k[:, :, cols].float(), v[:, :, cols].float(), lens,
         q_off + row0, kv_off + col0, causal=False, softmax_scale=softmax_scale,
         dropout_p=dropout_p, dropout_seed=dropout_seed, seqlen_q_real=sq_real,
-        seqlen_k_real=sk_real)
+        seqlen_k_real=sk_real, q_prescaled=q_prescaled)
     if merge_prev is None:
         return o.to(q.dtype), lse
     o_prev, lse_prev = merge_prev
@@ -771,7 +793,7 @@ def flash_attn_forward_rect_plain(q, k, v, lens, q_off=0, kv_off=0, *, row0, col
 
 def _causal_split_forward(q, k, v, lens, q_off=0, kv_off=0, *, softmax_scale, dropout_p=0.0,
                           dropout_seed=0, seqlen_q_real=None, seqlen_k_real=None, leaf_t=None,
-                          block_sizes=None, chip=None):
+                          block_sizes=None, chip=None, q_prescaled=False):
     """The split causal schedule (JAX l.1165): one diag launch over the
     T x T leaves, then one merged rect launch per `causal_split_rects(n)`
     entry, in that order. T defaults to `split_leaf_t` at the padded head
@@ -783,7 +805,7 @@ def _causal_split_forward(q, k, v, lens, q_off=0, kv_off=0, *, softmax_scale, dr
     T = leaf_t if leaf_t is not None else split_leaf_t(Dp, nbytes)
     n = -(-Sq_p // T)
     kw = dict(softmax_scale=softmax_scale, dropout_p=dropout_p, dropout_seed=dropout_seed,
-              seqlen_q_real=seqlen_q_real, seqlen_k_real=seqlen_k_real)
+              seqlen_q_real=seqlen_q_real, seqlen_k_real=seqlen_k_real, q_prescaled=q_prescaled)
     o, lse = flash_attn_forward_causal_diag(q, k, v, lens, q_off, kv_off, T=T, **kw)
     for r0, c0, nr, nc in causal_split_rects(n):
         if r0 * T >= Sq:

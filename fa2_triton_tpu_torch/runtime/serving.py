@@ -33,8 +33,17 @@ The host keeps a mirror of every slot's length (`lens_np`) and sampling
 parameters, so scheduling never reads the device; the only per-step device
 read is the new tokens and their log-probs.
 
-Not ported yet: `mesh` (tensor-parallel serving, ROADMAP A.7) raises
-NotImplementedError.
+`mesh` (a `parallel/mesh.py:make_mesh` DeviceMesh with only a `model`
+axis above 1) serves tensor-parallel, one rank a head shard (JAX
+l.110-229): every rank builds the Engine on the same full model and keeps
+its piece (`shard_params` with `serving_param_pspecs`: heads and MLP
+hidden cut, lm_head replicated), its caches hold its kv heads (int8 / fp8
+scales with them), and the row-parallel products are summed over the
+model group (`models/llama.py`'s `tp_group`), so every rank computes the
+same replicated logits. The host scheduler runs the same on every rank and
+so agrees on tokens, sampling streams, pages and the prefix cache.
+`DataParallelEngine` (JAX l.934-1011) serves one TP replica per `data`
+slice from a shared queue.
 """
 from __future__ import annotations
 
@@ -44,10 +53,17 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from fa2_triton_tpu_torch.models.llama import (
     LlamaConfig, LlamaModel, chunk_prefill_step, decode_step, paged_chunk_prefill_step,
     paged_decode_step, prefill_forward,
+)
+from fa2_triton_tpu_torch.parallel.collectives import all_gather_ints
+from fa2_triton_tpu_torch.parallel.mesh import (
+    AXIS_DATA, AXIS_MODEL, axis_group, axis_rank, axis_size, axis_sizes, serving_param_pspecs,
+    shard_params,
 )
 from fa2_triton_tpu_torch.runtime.kv_cache import KVCacheConfig, init_cache, write_kv
 from fa2_triton_tpu_torch.runtime.paged_cache import (
@@ -117,11 +133,24 @@ class Engine:
         prefix_cache: bool = False,
         page_size: Optional[int] = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Engine(mesh=...) is not ported yet; see ROADMAP.md queue A (A.7)")
         if params.cfg != cfg:
             raise ValueError("cfg differs from the model's own config")
+        # Tensor parallelism over the mesh's `model` axis: this rank keeps
+        # its head shard of the weights and caches.
+        if mesh is not None and not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a DeviceMesh (parallel/mesh.py:make_mesh), got "
+                            f"{type(mesh).__name__}")
+        self.mesh = mesh
+        self.tp = axis_size(mesh, AXIS_MODEL)
+        self.tp_group = None
+        if mesh is not None:
+            extra = {a: n for a, n in axis_sizes(mesh).items() if a != AXIS_MODEL and n > 1}
+            if extra:
+                raise ValueError(f"a serving mesh has only the model axis, got {extra}")
+            if self.tp > 1:
+                params = shard_params(params, mesh, serving_param_pspecs(params))
+                self.tp_group = axis_group(mesh, AXIS_MODEL)
+        self.cfg_local = params.cfg
         if prefix_cache and not paged:
             raise ValueError("prefix_cache requires paged=True")
         if prefill_chunk is not None and (prefill_chunk <= 0 or prefill_chunk % 128):
@@ -141,7 +170,7 @@ class Engine:
                     raise ValueError(f"page_size must be a multiple of 128, got {page}")
                 max_seq_p = round_up_to_multiple(max_seq, page)
                 self.kv_cfg = PagedCacheConfig(
-                    n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+                    n_layers=cfg.n_layers, n_kv_heads=self.cfg_local.n_kv_heads, head_dim=cfg.hd,
                     page_size=page,
                     # Default pool: the fully committed equivalent (+1 reserved
                     # page); size it down to overcommit slots against live tokens.
@@ -153,7 +182,7 @@ class Engine:
                 self._max_seq_padded = max_seq_p
             else:
                 self.kv_cfg = KVCacheConfig(
-                    n_layers=cfg.n_layers, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+                    n_layers=cfg.n_layers, n_kv_heads=self.cfg_local.n_kv_heads, head_dim=cfg.hd,
                     max_seq=max_seq, n_slots=n_slots, qdtype=qdtype, compute_dtype=cfg.dtype,
                 )
                 self.caches = init_cache(self.kv_cfg, device=self.device)
@@ -223,7 +252,7 @@ class Engine:
         reqs = [r for _, r in group]
         tok = torch.from_numpy(tokens).to(self.device)
         tl = torch.tensor([len(r.prompt) for r in reqs], dtype=torch.int32, device=self.device)
-        logits, kvs = prefill_forward(self.params, tok, tl)
+        logits, kvs = prefill_forward(self.params, tok, tl, self.tp_group)
         if self.paged:
             # One scatter per layer through the N slots' table rows.
             trows = self.pcache.tables_device()[torch.tensor(slots, device=self.device)]
@@ -251,10 +280,10 @@ class Engine:
         if self.paged:
             logits = paged_chunk_prefill_step(self.params, tok, len(chunk), cache_len,
                                               self.pcache.pools, self.pcache.tables_device(),
-                                              slot, self.kv_cfg)
+                                              slot, self.kv_cfg, self.tp_group)
         else:
             logits = chunk_prefill_step(self.params, tok, len(chunk), cache_len, self.caches,
-                                        self.kv_cfg, slot)
+                                        self.kv_cfg, slot, self.tp_group)
         self.stats.prefill_dispatches += 1
         toks, lps = self._select(logits, self._samp([req]), req.sampling.temperature <= 0.0)
         return int(toks[0]), float(lps[0])
@@ -265,10 +294,11 @@ class Engine:
         lens = torch.from_numpy(self.lens_np).to(self.device)
         if self.paged:
             logits, _ = paged_decode_step(self.params, self.last_tokens, self.pcache.pools,
-                                          self.pcache.tables_device(), lens, self.kv_cfg)
+                                          self.pcache.tables_device(), lens, self.kv_cfg,
+                                          self.tp_group)
         else:
             logits, self.caches = decode_step(self.params, self.last_tokens, self.caches, lens,
-                                              self.kv_cfg)
+                                              self.kv_cfg, self.tp_group)
         return self._select(logits, self._samp_batch(),
                             all(self.temp_np[s] <= 0.0 for s in active))
 
@@ -533,3 +563,119 @@ class Engine:
             torch.cuda.synchronize(self.device)
         self.stats.wall_s = time.perf_counter() - t0
         return self.stats
+
+
+class DataParallelEngine:
+    """Serving across the mesh's `data` axis (JAX l.934-1011): one TP
+    `Engine` a data slice (its own slots, caches and `model` group) fed
+    from a SHARED request queue by free capacity.
+
+    Every rank runs this object the same way, and each steps only its own
+    replica's engine (`engine`). The shared queue's dispatch needs every
+    replica's free capacity, so each step first gathers the replicas'
+    (free, busy) counts over the data group; a request goes to the replica
+    JAX's `max(free)` picks (ties to the highest index), recorded in
+    `replica_of`. `run` returns when no replica is busy, and then gives every
+    rank every request's tokens and log-probs (each gathered from the
+    replica that served it)."""
+
+    def __init__(self, params: LlamaModel, cfg: LlamaConfig, mesh, n_slots: int = 8,
+                 max_seq: int = 2048, **engine_kw):
+        extra = {a: n for a, n in axis_sizes(mesh).items()
+                 if a not in (AXIS_DATA, AXIS_MODEL) and n > 1}
+        if extra:
+            raise ValueError(f"a serving mesh has only data / model axes, got {extra}")
+        self.n_replicas = axis_size(mesh, AXIS_DATA)
+        self.replica = axis_rank(mesh, AXIS_DATA)
+        self.data_group = axis_group(mesh, AXIS_DATA) if self.n_replicas > 1 else None
+        sub = mesh[AXIS_MODEL] if axis_size(mesh, AXIS_MODEL) > 1 else None
+        self.engine = Engine(params, cfg, n_slots=n_slots, max_seq=max_seq, mesh=sub, **engine_kw)
+        self.queue: List[Request] = []
+        self.requests: List[Request] = []
+        self.replica_of: Dict[int, int] = {}
+        self._rid = 0
+
+    def submit(self, prompt: List[int], max_new_tokens: int,
+               sampling: Optional[SamplingParams] = None, stop_ids=None) -> Request:
+        req = Request(rid=self._rid, prompt=list(prompt), max_new_tokens=max_new_tokens,
+                      sampling=sampling or GREEDY,
+                      stop_ids=frozenset(stop_ids) if stop_ids else None)
+        self._rid += 1
+        self.queue.append(req)
+        self.requests.append(req)
+        return req
+
+    def _counts(self) -> List[List[int]]:
+        """Every replica's [free capacity, busy] (JAX's free: empty slots
+        less its queue), in replica order."""
+        e = self.engine
+        mine = [sum(r is None for r in e.slot_req) - len(e.queue),
+                int(bool(e.queue) or any(r is not None for r in e.slot_req))]
+        if self.data_group is None:
+            return [mine]
+        return all_gather_ints(mine, self.data_group)
+
+    def _dispatch(self, counts: List[List[int]]):
+        """Feed the shared queue to the replica with the most free
+        capacity, as JAX's `max((free, i))` picks it."""
+        free = [c[0] for c in counts]
+        while self.queue:
+            best_free, best = max((f, i) for i, f in enumerate(free))
+            if best_free <= 0:
+                return
+            req = self.queue.pop(0)
+            self.replica_of[req.rid] = best
+            free[best] -= 1
+            if best == self.replica:
+                self.engine.queue.append(req)
+
+    def step(self) -> bool:
+        """Dispatch, then step this rank's replica; True if any replica
+        progressed."""
+        self._dispatch(self._counts())
+        progressed = int(self.engine.step())
+        if self.data_group is None:
+            return bool(progressed)
+        return any(p[0] for p in all_gather_ints([progressed], self.data_group))
+
+    def run(self, requests: Optional[List[Request]] = None) -> EngineStats:
+        if requests:
+            self.queue.extend(requests)
+            self.requests.extend(requests)
+        t0 = time.perf_counter()
+        while self.queue or any(c[1] for c in self._counts()):
+            if not self.step() and not self.queue:
+                break
+        wall = time.perf_counter() - t0
+        self._share_results()
+        agg = EngineStats(wall_s=wall)
+        for st in self._all_stats():
+            agg.prefill_tokens += st[0]
+            agg.decode_tokens += st[1]
+            agg.prefix_cached_tokens += st[2]
+            agg.prefill_dispatches += st[3]
+            agg.decode_steps = max(agg.decode_steps, st[4])
+        return agg
+
+    def _all_stats(self) -> List[List[int]]:
+        s = self.engine.stats
+        mine = [s.prefill_tokens, s.decode_tokens, s.prefix_cached_tokens, s.prefill_dispatches,
+                s.decode_steps]
+        if self.data_group is None:
+            return [mine]
+        return all_gather_ints(mine, self.data_group)
+
+    def _share_results(self):
+        """Every request's tokens, log-probs and done flag on every rank,
+        from the replica that served it."""
+        if self.data_group is None:
+            return
+        mine = {r.rid: (r.out_tokens, r.out_logprobs, r.done) for r in self.requests
+                if self.replica_of.get(r.rid) == self.replica}
+        parts: List[Any] = [None] * self.n_replicas
+        dist.all_gather_object(parts, mine, group=self.data_group)
+        served = {rid: res for part in parts for rid, res in part.items()}
+        for r in self.requests:
+            if r.rid in served:
+                r.out_tokens, r.out_logprobs, r.done = (list(served[r.rid][0]),
+                                                        list(served[r.rid][1]), served[r.rid][2])

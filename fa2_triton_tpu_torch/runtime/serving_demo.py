@@ -11,10 +11,15 @@ Usage:
   python -m fa2_triton_tpu_torch.runtime.serving_demo --dim 1024 --layers 8
   python -m fa2_triton_tpu_torch.runtime.serving_demo --paged --prefix-cache \\
       --shared-prefix 512
+  python -m fa2_triton_tpu_torch.runtime.serving_demo --tp 2          # 2 TP ranks
 
 One device: the first CUDA device (bf16 weights), or the CPU with
-`--device cpu` (fp32, the kernels' plain twins; tiny sizes only). `--tp`
-above 1 raises: tensor parallelism is ROADMAP.md queue A.7.
+`--device cpu` (fp32, the kernels' plain twins; tiny sizes only). `--tp N`
+(JAX l.42, l.65-71) spawns N ranks that serve one tensor-parallel Engine
+(`Engine(mesh=make_mesh(model=N))`): over NCCL, one GPU a rank, when the
+machine has N GPUs; else over gloo, the ranks sharing the GPU (or the CPU)
+and every collective staged through host memory (`parallel/collectives.py`).
+Rank 0's result is printed.
 """
 from __future__ import annotations
 
@@ -46,7 +51,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--prompt-len", type=int, default=256)
     ap.add_argument("--new-tokens", type=int, default=128)
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel degree: not ported, above 1 raises")
+                    help="tensor-parallel degree: ranks spawned, one Engine shard each")
     ap.add_argument("--paged", action="store_true",
                     help="paged KV cache (shared page pool)")
     ap.add_argument("--prefix-cache", action="store_true",
@@ -58,18 +63,53 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="KV page size (paged mode); only full pages are "
                          "prefix-shareable, so keep <= --shared-prefix")
     args = ap.parse_args(argv)
-    if args.tp > 1:
-        raise NotImplementedError("--tp: tensor-parallel serving (ROADMAP.md queue A.7) "
-                                  "is not ported yet")
+    if args.tp < 1:
+        raise ValueError(f"--tp must be >= 1, got {args.tp}")
     return args
+
+
+def tp_backend(args) -> str:
+    """NCCL when every rank has a GPU of its own, else gloo."""
+    if args.device == "cuda" and torch.cuda.device_count() >= args.tp:
+        return "nccl"
+    return "gloo"
+
+
+def _tp_rank(rank: int, world: int, args):
+    """One rank of `--tp`: the demo on an Engine sharded over a model axis
+    of `world` ranks; rank 0 returns the result, the others None."""
+    from fa2_triton_tpu_torch.parallel.mesh import make_mesh
+
+    torch.set_num_threads(max(1, torch.get_num_threads() // world))
+    if tp_backend(args) == "nccl":
+        torch.cuda.set_device(rank)
+    out = serve(args, make_mesh(model=world), quiet=rank != 0)
+    return out if rank == 0 else None
 
 
 def main(argv=None) -> Dict:
     args = parse_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but torch.cuda.is_available() is False; "
                            "pass --device cpu to run the plain path on the CPU")
+    if args.tp > 1:
+        from fa2_triton_tpu_torch.parallel.launch import spawn_ranks
+
+        line, stats = spawn_ranks(_tp_rank, args.tp, (args,), backend=tp_backend(args),
+                                  timeout_s=3600)[0]
+    else:
+        line, stats = serve(args)
+    print(json.dumps(line))
+    return {**line, "stats": stats}
+
+
+def serve(args, mesh=None, quiet: bool = False):
+    """Build the model and the Engine (sharded over `mesh`'s model axis),
+    warm up, drain the requests; returns (the JSON line, the stats), the
+    line None when `quiet`."""
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
     cfg = LlamaConfig(
         vocab_size=32000, dim=args.dim, n_layers=args.layers,
         n_heads=args.heads, n_kv_heads=args.kv_heads,
@@ -82,7 +122,9 @@ def main(argv=None) -> Dict:
                  qdtype=QDTYPES[args.qdtype],
                  paged=args.paged or args.prefix_cache,
                  prefix_cache=args.prefix_cache,
-                 page_size=args.page_size or (128 if args.prefix_cache else None))
+                 page_size=args.page_size or (128 if args.prefix_cache else None),
+                 mesh=mesh)
+    del model   # a TP rank keeps only its shard (eng.params)
 
     rng = np.random.RandomState(0)
     shared = rng.randint(0, cfg.vocab_size, size=args.shared_prefix).tolist()
@@ -106,6 +148,8 @@ def main(argv=None) -> Dict:
     eng.stats = EngineStats()
 
     stats = eng.run()
+    if quiet:
+        return None, stats
     print(
         f"prefill {stats.prefill_tokens} tok "
         f"(+{stats.prefix_cached_tokens} from prefix cache), "
@@ -114,15 +158,15 @@ def main(argv=None) -> Dict:
         file=sys.stderr,
     )
     line = {
-        "metric": "serving_decode_tokens_per_s" + (f"_{args.qdtype}" if args.qdtype else ""),
+        "metric": ("serving_decode_tokens_per_s" + (f"_{args.qdtype}" if args.qdtype else "")
+                   + (f"_tp{args.tp}" if args.tp > 1 else "")),
         "value": round(stats.decode_tokens_per_s, 1),
         "unit": "tokens/s",
         "vs_baseline": 1.0,
         # Where it ran: a CPU run's rate is the host's, not a card's.
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
     }
-    print(json.dumps(line))
-    return {**line, "stats": stats}
+    return line, stats
 
 
 if __name__ == "__main__":

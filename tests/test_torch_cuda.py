@@ -2251,3 +2251,148 @@ def test_baselines_run_on_the_card(dev):
         out = fn(*xb, causal=True)
         assert out.shape == ref.shape and out.dtype == torch.bfloat16
         assert (out.float() - ref).abs().max().item() <= 2 * yard + 5e-5, fn.__name__
+
+
+# Ring attention's diagonal chunk pairs (parallel/ring.py): a causal call on
+# one chunk at global offsets q_off = kv_off = 2 x C with the real lengths of
+# a 4-chunk sequence, q pre-scaled by softmax_scale x log2(e), each route
+# forced where its prior gate passes at that shape (the gates are pure
+# Python, so the cases are listed at import: none is skipped).
+RING_CHUNKS = (1024, 2048, 4096)
+
+
+def _ring_fwd_cases():
+    out = []
+    for dtype, nbytes in ((torch.float32, 4), (torch.bfloat16, 2)):
+        for route in ("tri_square", "strip", "split", "generic"):
+            C = next((c for c in RING_CHUNKS if flash_fwd.forward_gates(
+                c, c, 128, nbytes, causal=True, static_skip=True, seqlen_q_real=4 * c,
+                seqlen_k_real=4 * c)[route]), None)
+            if C is not None:
+                out.append((dtype, route, C))
+    return out
+
+
+def _ring_bwd_cases():
+    out = []
+    for dtype, nbytes in ((torch.float32, 4), (torch.bfloat16, 2)):
+        for group in (1, 4):
+            for route in ("tri_square", "split", "strip", "worklist", "generic"):
+                C = next((c for c in RING_CHUNKS + (8192,) if flash_bwd.backward_gates(
+                    c, c, 128, nbytes, causal=True, group=group, static_skip=True,
+                    seqlen_q_real=4 * c, seqlen_k_real=4 * c)[route]), None)
+                if C is not None:
+                    out.append((dtype, route, C, group))
+    return out
+
+
+def _ring_pair_inputs(dev, C, Hq, Hkv, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x32 = [(torch.randn(1, C, h, 128, generator=g, device=dev) * 0.5).transpose(1, 2)
+           for h in (Hq, Hkv, Hkv)]
+    do32 = torch.randn(1, C, Hq, 128, generator=g, device=dev).transpose(1, 2)
+    dl32 = torch.randn(1, Hq, C, generator=g, device=dev) * 0.1
+    lens = torch.tensor([[4 * C, 4 * C]], dtype=torch.int32, device=dev)
+    return x32, do32, dl32, lens
+
+
+@pytest.mark.parametrize("dtype,route,C", _ring_fwd_cases())
+def test_ring_diag_pair_forward_routes_match_plain(dev, dtype, route, C):
+    """The forward of a ring's diagonal pair on each route, q_prescaled,
+    against the plain twin at the same offsets and real lengths (fp32 with
+    dropout, p 0.1: the single-device counter stream at global positions;
+    bf16 without), and the route's launch."""
+    x32, _, _, lens = _ring_pair_inputs(dev, C, 4, 1, C + len(route))
+    scale = 128 ** -0.5
+    q32 = x32[0] * (scale * 1.4426950408889634)
+    drop = dict(dropout_p=0.1, dropout_seed=77) if dtype == torch.float32 else {}
+    kw = dict(causal=True, softmax_scale=scale, seqlen_q_real=4 * C, seqlen_k_real=4 * C,
+              q_prescaled=True, **drop)
+    x = [q32.to(dtype)] + [t.to(dtype) for t in x32[1:]]
+    flash_fwd.reset_launches()
+    o, lse = flash_fwd.flash_attn_forward(*x, lens, 2 * C, 2 * C, static_skip=True, route=route,
+                                          **kw)
+    torch.cuda.synchronize()
+    launched = {"flash_fwd": flash_fwd.LAUNCHES, **flash_fwd.SCHEDULE_LAUNCHES}
+    want = ({"causal_diag": 1, "rect_merge": 1} if route == "split" else
+            {"causal_strip": 1} if route == "strip" else {"flash_fwd": 1})
+    assert {n: c for n, c in launched.items() if c} == want
+    o32, lse32 = flash_fwd.flash_attn_forward_plain(q32, *x32[1:], lens, 2 * C, 2 * C, **kw)
+    o_pl, _ = flash_fwd.flash_attn_forward_plain(*x, lens, 2 * C, 2 * C, **kw)
+    _check(o, o32, o_pl, dtype)
+    if dtype == torch.float32:
+        assert (lse - lse32).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("dtype,route,C,group", _ring_bwd_cases())
+def test_ring_diag_pair_backward_routes_match_plain(dev, dtype, route, C, group):
+    """The backward of a ring's diagonal pair on each route with a dlse,
+    against the plain twin at the same offsets and real lengths (fp32 with
+    dropout, p 0.1; bf16 without), and the route's launch."""
+    Hq = 4
+    x32, do32, dl32, lens = _ring_pair_inputs(dev, C, Hq, Hq // group, C + group)
+    drop = dict(dropout_p=0.1, dropout_seed=91) if dtype == torch.float32 else {}
+    kw = dict(causal=True, softmax_scale=128 ** -0.5, seqlen_q_real=4 * C, seqlen_k_real=4 * C,
+              **drop)
+    o32, lse32 = flash_fwd.flash_attn_forward_plain(*x32, lens, 2 * C, 2 * C, **kw)
+    x, do, o = [t.to(dtype) for t in x32], do32.to(dtype), o32.to(dtype)
+    flash_bwd.reset_launches()
+    grads = flash_bwd.flash_attn_backward(*x, do, o, lse32, lens, 2 * C, 2 * C, dlse=dl32,
+                                          static_skip=True, route=route, **kw)
+    torch.cuda.synchronize()
+    sched = {n: c for n, c in flash_bwd.SCHEDULE_LAUNCHES.items() if c}
+    pair = {n: c for n, c in flash_bwd.LAUNCHES.items() if c}
+    if route in ("generic", "strip"):
+        assert not sched and pair == {"flash_bwd_dq": 1, "flash_bwd_dkdv": 1}
+    elif route == "split":
+        assert set(sched) == {"causal_diag", "rect"} and not pair
+    else:
+        assert sched == {route: 1} and not pair
+    refs = flash_bwd.flash_attn_backward_plain(*x32, do32, o32, lse32, lens, 2 * C, 2 * C,
+                                               dlse=dl32, **kw)
+    plains = flash_bwd.flash_attn_backward_plain(*x, do, o, lse32, lens, 2 * C, 2 * C, dlse=dl32,
+                                                 **kw)
+    _check_grads(grads, refs, plains, dtype)
+
+
+def test_parallel_attention_on_cuda_ranks(dev):
+    """Ring (causal zigzag, with dropout and lse), Ulysses and TP attention
+    on 4 ranks that share this card over gloo (CUDA tensors staged through
+    the host), bf16, against flash_attn_func on one card under the FA
+    rules (fp32 flash_attn_func the truth, the bf16 plain reference the
+    yardstick)."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).parent))
+    import torch_parallel_ranks as tpr
+    from fa2_triton_tpu_torch.ops.reference import flash_attn_reference
+    from fa2_triton_tpu_torch.parallel import spawn_ranks
+
+    shape = (1, 2048, 8, 4, 128)
+    cases = [dict(kind="ring", mesh={"seq": 4}, shape=shape, seed=5, dtype="bfloat16", lse=True,
+                  kw=dict(causal=True, dropout_p=0.1, dropout_seed=9)),
+             dict(kind="ulysses", mesh={"seq": 4}, shape=shape, seed=6, dtype="bfloat16",
+                  kw=dict(causal=True)),
+             dict(kind="tp", mesh={"data": 2, "model": 2}, shape=(2,) + shape[1:], seed=7,
+                  dtype="bfloat16", kw=dict(causal=True))]
+    got = spawn_ranks(tpr.attention_cases_rank, 4, (cases, "cuda"), timeout_s=600)[0]
+    for case, res in zip(cases, got):
+        q, k, v, do, dlse = tpr.attention_inputs(*case["shape"], case["seed"], dev)
+        kw = case["kw"]
+        p = kw.get("dropout_p", 0.0)
+        B = case["shape"][0]
+        mask = (flash_fwd.dropout_mask(B, 8, 2048, 2048, 0, 0, p, kw["dropout_seed"], 2048, 2048,
+                                       dev) if p else None)
+        runs = []
+        for dt, upcast in ((torch.float32, True), (torch.bfloat16, False)):
+            x = [t.detach().clone().to(dt).requires_grad_() for t in (q, k, v)]
+            o, lse = flash_attn_reference(*x, causal=True, dropout_p=p, dropout_mask=mask,
+                                          upcast=upcast, return_lse=True)
+            loss = (o.float() * do).sum() + ((lse.float() * dlse).sum() if case.get("lse") else 0)
+            loss.backward()
+            runs.append((o, [t.grad for t in x]))
+        (o32, g32), (o16, g16) = runs
+        _check(torch.from_numpy(res["out"]).to(dev), o32, o16, torch.bfloat16)
+        _check_grads([torch.from_numpy(res[n]).to(dev) for n in ("dq", "dk", "dv")], g32, g16,
+                     torch.bfloat16)

@@ -198,5 +198,7 @@ def test_serving_demo_prints_its_json_line_on_the_cpu(capsys, extra):
 
 
 def test_serving_demo_tp_raises():
-    with pytest.raises(NotImplementedError, match="A.7"):
-        serving_demo.main(["--device", "cpu", "--tp", "2"])
+    """`--tp N` is ported (N ranks, tests/test_torch_serving_tp.py runs
+    `--tp 2`); a degree below 1 raises."""
+    with pytest.raises(ValueError, match="--tp"):
+        serving_demo.main(["--device", "cpu", "--tp", "0"])

@@ -57,6 +57,14 @@ def test_port_never_imports_jax():
         "from fa2_triton_tpu_torch.other_implementations import sdpa_flash_attention\n"
         "y = x[None, :64].detach()\n"
         "for f in (dense_attention, sdpa_flash_attention, flex_attention): f(y, y, y, causal=True)\n"
+        "import fa2_triton_tpu_torch.parallel.collectives, fa2_triton_tpu_torch.parallel.launch\n"
+        "from fa2_triton_tpu_torch.parallel import make_ring_attention, make_ulysses_attention\n"
+        "from fa2_triton_tpu_torch.parallel import make_tp_attention, fsdp_param_pspecs, shard_params\n"
+        "from fa2_triton_tpu_torch.parallel.ring import zigzag_permute, zigzag_unpermute\n"
+        "from fa2_triton_tpu_torch.runtime import DataParallelEngine\n"
+        "assert zigzag_unpermute(zigzag_permute(x, 2, dim=0), 2, dim=0).equal(x)\n"
+        "fsdp_param_pspecs(m, {'data': 2}, min_size=64)\n"
+        "shard_params(m, {'data': 2}, fsdp_param_pspecs(m, {'data': 2}, min_size=64), {'data': 1})\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith(('jax.', 'jaxlib', 'fa2_triton_tpu.')))\n"
         "assert not bad, bad\n"
         "print('ok')\n"

@@ -110,8 +110,10 @@ def test_eos_and_stop_ids(setup):
 
 @pytest.mark.parametrize("kw", [dict(mesh=object())])
 def test_unported_engine_options_raise(setup, kw):
+    """`mesh` is ported (tensor-parallel serving, tests/test_torch_serving_tp.py);
+    what it takes is a DeviceMesh, and anything else raises."""
     _, tm, _ = setup
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Engine(tm, T_CFG, n_slots=2, max_seq=512, **kw)
 
 
