@@ -233,6 +233,34 @@ the CUDA toolkit. Phases (any failure raises, and the script exits nonzero):
    printed; a failed rank fails the run. The
    launches, summed over the ranks, sit in each kernel's
    `launches_parallel`, the rest under the forward entry's `parallel`.
+19. Parallel training, ranks spawned on this one card over gloo as in
+   phase 18 (cuts printed first): (a) `examples/train.py` (a rank's
+   `run_rank`) at Mistral-7B-v0.3 widths cut to 4 of 32 layers
+   (CHIP_SMOKE_PAR_TRAIN_LAYERS), bf16, 2 x 2048 globally (1 row a data
+   rank), remat, over data 2 x model 2 without and with FSDP, 2 steps
+   each: step 0's loss and every gradient before clipping (the warm-up's,
+   each rank's pieces written under `build/` and joined here) held to the
+   single-rank step under the FA rules (the fp32 truth with the plain
+   attention, the bf16 single-rank step as the yardstick), step 1's loss
+   finite and equal on every rank, FSDP's cut in each rank's parameter
+   bytes (and AdamW moments twice those); per rank the bytes, step
+   walls, launches (reset after the warm-up), the kernels' device ms per
+   launch (torch.profiler) and host staging ms an op; (b) at the same
+   widths, `make_llama_pipeline_forward` (pipe 2, 2 microbatches) and
+   `make_llama_3d_forward` (pipe 2 x model 2) on B 4 x S 1024, logits and
+   the gradients of loss_fn's cross-entropy held likewise; (c)
+   Mixtral-8x7B-v0.1 at 2 layers, `moe_param_pspecs` over model 2 (4
+   experts a rank), one `moe.loss_fn` step with `make_ep_mlp` and TP
+   attention on 1 x 2048, loss and gradients held likewise, the one-rank
+   steps taking the EP step's expert choices (a near tie flips between
+   precisions), which may differ from the fp32 step's own on at most 3 x
+   the tokens the bf16 one-rank step's own choices do, + 8; each EP rank's
+   kernels' device ms (torch.profiler); (d)
+   `parallel/dryrun.py:dryrun_multichip(4)` on the card. A case whose
+   forward or backward kernels never ran fails; the launches, summed over
+   the ranks, sit in `launches_parallel_train` of every entry (the
+   forward, dq and dk/dv ones nonzero), the rest under the forward entry's
+   `parallel_train`.
 
 Every kernel is also timed against PyTorch's own call for the same function
 (`library_ms`, where one exists) and its bound on the H100 (`bound_ms`: the
@@ -5216,6 +5244,571 @@ def phase_parallel(torch, card):
     return {"launches": totals, "cases": cases, "serving": serving, "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: parallel training (`parallel/fsdp.py`, `parallel/pipeline.py`,
+# `models/moe.py:make_ep_mlp`, `examples/train.py --dp / --tp / --fsdp`),
+# ranks spawned on this one card over gloo, CUDA tensors staged through
+# host memory.
+
+PT_RANKS = 4                     # (a) data 2 x model 2; (b) pipe 2 x model 2
+# (a) / (b)'s depth: 4 of Mistral's 32 layers (1.141 B parameters); cut it
+# before any width.
+PT_LAYERS = int(os.environ.get("CHIP_SMOKE_PAR_TRAIN_LAYERS", "4"))
+PT_ARGV = ["--config", "mistral-7b-v0.3", "--layers", str(PT_LAYERS), "--batch", "2", "--seq",
+           str(TRAIN_SEQ), "--steps", "2", "--remat"]
+PT_MODES = (("dp 2 x tp 2", ["--dp", "2", "--tp", "2"]),
+            ("dp 2 x tp 2 fsdp", ["--dp", "2", "--tp", "2", "--fsdp"]))
+PP_TOKENS = (4, 1024)            # (b): B x S, 2 microbatches
+PP_M = 2
+PP_CASES = ("pipeline pipe 2", "3d pipe 2 x model 2")
+EP_LAYERS = 2                    # (c): Mixtral-8x7B-v0.1 at 2 of 32 layers, model 2
+EP_TOKENS = (1, TRAIN_SEQ)
+# (c)'s routing rule: the EP step's tokens whose expert choices differ from
+# the fp32 one-rank step's own at most 3 x the bf16 one-rank step's + 8.
+EP_FLIP_MUL, EP_FLIP_BIAS = 3, 8
+# Kernel names (profiler substrings) of the training path, most specific first.
+PT_KERNELS = ("flash_fwd_mma_kernel", "dq_mma_kernel", "dkdv_mma_kernel", "bwd_tri_mma_kernel",
+              "flash_fwd_kernel", "dq_kernel", "dkdv_kernel")
+
+
+def pt_kernel_ms(events) -> dict:
+    """{kernel: [launches recorded, device ms per launch]} of the training
+    kernels among torch.profiler's key averages."""
+    out = {}
+    for e in events:
+        name = next((k for k in PT_KERNELS if k in e.key), None)
+        if name is None:
+            continue
+        n, us = out.get(name, (0, 0.0))
+        out[name] = (n + e.count, us + _device_us(e))
+    return {k: [n, us / n / 1e3] for k, (n, us) in out.items() if n}
+
+
+def pt_profiled(torch, fn):
+    """fn() under torch.profiler (CUDA activity); returns (its result, the
+    training kernels' launches and device ms per launch on this rank)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, pt_kernel_ms(prof.key_averages())
+
+
+def pt_launches(what, rank):
+    """The forward / backward launch counts since the last reset; fails
+    where the forward or the backward kernels never ran."""
+    from fa2_triton_tpu_torch.ops import flash_bwd, flash_fwd
+
+    launches = {n: c for n, c in bwd_launches(flash_fwd, flash_bwd).items() if c}
+    fwd = sum(c for n, c in launches.items() if not n.startswith(("bwd_", "flash_bwd")))
+    bwd = sum(c for n, c in launches.items() if n.startswith(("bwd_", "flash_bwd")))
+    if not (fwd and bwd):
+        raise AssertionError(f"rank {rank} {what}: launches {launches}, a kernel of the forward "
+                             f"or the backward never ran")
+    return launches
+
+
+def pt_keep(spec, coords) -> bool:
+    """Whether this rank saves its piece of a leaf: a piece the ranks along
+    a cutting axis hold apart, or the one copy at coordinate 0 of every axis
+    that does not cut it."""
+    return all(coords.get(a, 0) == 0 for a in coords if a not in spec)
+
+
+def pt_save_grads(work, tag, par, tokens):
+    """`on_grads` of the trainer on a rank: its gradient pieces (before
+    clipping), with their specs and its coordinates, to `work`."""
+    import torch
+    import torch.distributed as dist
+
+    grads = {n: p.grad.detach().to("cpu") for n, p in zip(par.names, par.params)
+             if p.grad is not None and pt_keep(par.specs.get(n, ()), par.coords)}
+    torch.save({"coords": dict(par.coords), "specs": par.specs, "grads": grads},
+               os.path.join(work, f"{tag}-r{dist.get_rank()}.pt"))
+
+
+def pt_model(torch, cfg):
+    from fa2_triton_tpu_torch.models import init_params
+
+    return init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+
+
+def pt_tokens(cfg, shape, seed):
+    return np.random.RandomState(seed).randint(0, cfg.vocab_size, size=shape)
+
+
+def pt_pipeline_case(torch, rank, case, work):
+    """(b) on one rank: the case's forward over `make_mesh(pipe=2, model=2)`
+    on PP_TOKENS (seed 19) and loss_fn's cross-entropy of its logits, forward
+    and backward with the counts reset just before; rank 0 saves the logits,
+    and the pieces of every gradient go to `work`."""
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from fa2_triton_tpu_torch.examples.train import preset_config
+    from fa2_triton_tpu_torch.parallel import collectives as coll
+    from fa2_triton_tpu_torch.parallel import make_mesh
+    from fa2_triton_tpu_torch.parallel import pipeline as pl
+    from fa2_triton_tpu_torch.parallel.mesh import AXIS_MODEL, AXIS_PIPE, shard_tensor
+
+    cfg = preset_config("mistral-7b-v0.3", torch.bfloat16, n_layers=PT_LAYERS)
+    model = pt_model(torch, cfg)
+    tokens = torch.from_numpy(pt_tokens(cfg, PP_TOKENS, 19)).cuda()
+    mesh = make_mesh(pipe=2, model=2)
+    three_d = case.startswith("3d")
+    if three_d:
+        fwd = pl.make_llama_3d_forward(mesh, cfg, PP_M)
+    else:
+        fwd = pl.make_llama_pipeline_forward(mesh, cfg, PP_M)
+    pp = pl.pipeline_params_from_llama(model, mesh, tp=three_d)
+    dist.barrier()
+    reset_counts()
+    coll.reset_staging()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+
+    def step():
+        logits = fwd(pp, tokens[:, :-1])
+        loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), tokens[:, 1:].reshape(-1))
+        loss.backward()
+        return logits.detach(), float(loss)
+
+    (logits, loss), kms = pt_profiled(torch, step)
+    wall = time.perf_counter() - t0
+    launches = pt_launches(case, rank)
+    p_rank, m_rank = mesh.get_local_rank(AXIS_PIPE), mesh.get_local_rank(AXIS_MODEL)
+    specs = pl._stacked_3d_specs({n: None for n in ("wq", "wk", "wv", "wo", "w_gate", "w_up",
+                                                   "w_down", "attn_norm", "mlp_norm")})
+    per = cfg.n_layers // 2
+    grads, pieces = {}, {}
+    for name, p in model.named_parameters():
+        if p.grad is None:
+            continue
+        parts = name.split(".")
+        if parts[0] != "layers":
+            if rank == 0:
+                grads[name] = p.grad.to("cpu")
+            continue
+        if int(parts[1]) // per != p_rank:
+            continue
+        spec = specs[parts[2]][1:] if three_d else ()
+        if AXIS_MODEL in spec:
+            grads[name] = shard_tensor(p.grad, spec, mesh).to("cpu")
+            pieces[name] = (spec.index(AXIS_MODEL), m_rank)
+        elif m_rank == 0:
+            grads[name] = p.grad.to("cpu")
+    torch.save({"loss": loss, "logits": logits.to("cpu") if rank == 0 else None, "grads": grads,
+                "pieces": pieces}, os.path.join(work, f"{case}-r{rank}.pt"))
+    out = {"wall_s": wall, "launches": launches, "kernel_ms": kms,
+           "staging": dict(coll.STAGING), "loss": loss}
+    del model, pp, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def par_train_rank(rank, world, work):
+    """(a) and (b) on one rank of PT_RANKS: the trainer in each of PT_MODES
+    (`examples/train.py:run_rank`, the gradients of its warm-up, which are
+    step 0's before clipping, saved by `pt_save_grads`; the counts reset
+    after the warm-up; the whole run under torch.profiler), then each
+    pipeline case."""
+    import functools
+
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from fa2_triton_tpu_torch.examples import train
+
+    pt_profiled(torch, lambda: None)    # the profiler's start-up, outside the cases
+    out = {"train": [], "pipelines": []}
+    for tag, extra in PT_MODES:
+        args = train.parse_args(PT_ARGV + extra)
+        dist.barrier()
+        t0 = time.perf_counter()
+        res, kms = pt_profiled(torch, lambda: train.run_rank(
+            args, on_warm=reset_counts, on_grads=functools.partial(pt_save_grads, work, tag)))
+        wall = time.perf_counter() - t0
+        out["train"].append({"tag": tag, "losses": res["losses"], "wall_s": wall,
+                             "launches": pt_launches(tag, rank), "kernel_ms": kms,
+                             "transport": res["transport"], **res["rank"]})
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+    for case in PP_CASES:
+        out["pipelines"].append(pt_pipeline_case(torch, rank, case, work))
+    no_jax_here()
+    return out
+
+
+def moe_recording_route(moe, log):
+    """`moe._route` that also appends each call's expert choices [T, k]
+    (on the host) to `log`."""
+    orig = moe._route
+
+    def route(h2d, router, cfg):
+        out = orig(h2d, router, cfg)
+        log.append(out[1].detach().to("cpu"))
+        return out
+
+    return route
+
+
+def moe_forced_route(torch, choices, own):
+    """`moe._route` that takes the expert choices of each call from
+    `choices` (in call order) and weighs them by this run's own router
+    probabilities, renormalized: the same routing evaluated at this run's
+    precision (as phase 15 (b) holds the block). Each call's own top-k
+    choices [T, k] (on the host) are appended to `own`."""
+    it = iter(choices)
+
+    def route(h2d, router, cfg):
+        probs = torch.softmax(h2d.float() @ router, dim=-1)
+        idx = next(it).to(probs.device)
+        own.append(torch.topk(probs, idx.shape[1], dim=-1).indices.to("cpu"))
+        w = probs.gather(1, idx)
+        return w / w.sum(dim=-1, keepdim=True), idx, probs
+
+    return route
+
+
+def par_ep_rank(rank, world, work):
+    """(c) on one rank of 2: Mixtral-8x7B-v0.1 at EP_LAYERS layers, cut by
+    `moe_param_pspecs` over `make_mesh(model=2)` (4 experts a rank, half
+    the heads), one `moe.loss_fn` forward and backward with `make_ep_mlp`
+    and TP attention on EP_TOKENS (seed 20) under torch.profiler, the
+    counts reset just before; the gradient pieces, and the routing of every
+    layer (rank 0), go to `work`."""
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from fa2_triton_tpu_torch.examples.train import preset_config
+    from fa2_triton_tpu_torch.models import moe
+    from fa2_triton_tpu_torch.parallel import collectives as coll
+    from fa2_triton_tpu_torch.parallel import make_mesh
+    from fa2_triton_tpu_torch.parallel.mesh import AXIS_MODEL, axis_group, shard_params
+
+    cfg = preset_config("mixtral-8x7b-v0.1", torch.bfloat16, n_layers=EP_LAYERS)
+    mesh = make_mesh(model=world)
+    full = pt_model(torch, cfg)
+    specs = moe.moe_param_pspecs(full)
+    local = shard_params(full, mesh, specs)
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokens = torch.from_numpy(pt_tokens(cfg, EP_TOKENS, 20)).cuda()
+    mlp = moe.make_ep_mlp(mesh)
+    params = [p for p in local.parameters()]
+    names = [n for n, _ in local.named_parameters()]
+    choices = []
+    plain_route, moe._route = moe._route, moe_recording_route(moe, choices)
+    dist.barrier()
+    reset_counts()
+    coll.reset_staging()
+    torch.cuda.synchronize()
+
+    def step():
+        loss = moe.loss_fn(local, tokens, mlp_fn=mlp, tp_group=axis_group(mesh, AXIS_MODEL))
+        return loss, torch.autograd.grad(loss, params)
+
+    pt_profiled(torch, lambda: None)    # the profiler's start-up, outside the step
+    t0 = time.perf_counter()
+    try:
+        (loss, grads), kms = pt_profiled(torch, step)
+    finally:
+        moe._route = plain_route
+    wall = time.perf_counter() - t0
+    launches = pt_launches("ep", rank)
+    coords = {AXIS_MODEL: rank}
+    torch.save({"coords": coords, "specs": specs, "choices": choices,
+                "grads": {n: g.to("cpu") for n, g in zip(names, grads)
+                          if pt_keep(specs.get(n, ()), coords)}},
+               os.path.join(work, f"ep-r{rank}.pt"))
+    out = {"loss": float(loss.detach()), "wall_s": wall, "launches": launches, "kernel_ms": kms,
+           "staging": dict(coll.STAGING), "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "param_bytes": sum(p.numel() * p.element_size() for p in params)}
+    no_jax_here()
+    return out
+
+
+def pt_whole(torch, files, name):
+    """A leaf from the ranks' saved pieces (`pt_keep`): along each axis that
+    cuts it, the pieces of the ranks that differ only there, in order."""
+    have = [f for f in files if name in f["grads"]]
+    spec = have[0]["specs"].get(name, ())
+    axes = [a for a in ("data", "model") if a in spec and any(f["coords"].get(a, 0) for f in have)]
+    if not axes:
+        return have[0]["grads"][name]
+
+    def along(pool, axis_i):
+        if axis_i == len(axes):
+            return pool[0]["grads"][name]
+        a = axes[axis_i]
+        parts = [along([f for f in pool if f["coords"][a] == i], axis_i + 1)
+                 for i in range(1 + max(f["coords"][a] for f in pool))]
+        return torch.cat(parts, dim=spec.index(a))
+
+    return along(have, 0)
+
+
+def pt_reference(torch, cfg, tokens, loss_fn, choices=None, owns=None):
+    """The single-rank step's (loss, {name: gradient}) twice: the bf16 model
+    through the kernels, and the fp32 truth (the same weights upcast, the
+    plain attention in fp32). With `choices` (an MoE model's expert choices
+    of each layer) both take that routing (`moe_forced_route`; `owns`, two
+    lists, get each run's own top-k choices of each layer)."""
+    from fa2_triton_tpu_torch.models import LlamaModel, moe
+    from fa2_triton_tpu_torch.ops import flash_attn_reference
+
+    def plain(q, k, v):
+        return flash_attn_reference(q, k, v, causal=True, softmax_scale=cfg.scale)
+
+    def run(model, attention_fn, i):
+        plain_route = moe._route
+        if choices is not None:
+            moe._route = moe_forced_route(torch, choices, owns[i])
+        try:
+            loss = loss_fn(model, tokens, attention_fn)
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+        finally:
+            moe._route = plain_route
+        return float(loss), dict(zip([n for n, _ in model.named_parameters()], grads))
+
+    model = pt_model(torch, cfg)
+    bf16 = run(model, None, 0)
+    m32 = LlamaModel(dataclasses.replace(cfg, dtype=torch.float32), device="cuda")
+    m32.load_state_dict(model.state_dict())
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    fp32 = run(m32, plain, 1)
+    del m32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return bf16, fp32
+
+
+def pt_hold(torch, what, loss, grads, bf16, fp32):
+    """The FA rules: the loss, and every gradient against the fp32 truth
+    within 3x the bf16 single-rank step's error + 1e-5. Returns the worst
+    leaf's share of its bound and the loss errors."""
+    (loss16, g16), (loss32, g32) = bf16, fp32
+    if set(grads) != set(g32):
+        raise AssertionError(f"{what}: gradients of {sorted(set(g32) ^ set(grads))[:4]} missing")
+    loss_err, loss_yard = abs(loss - loss32), abs(loss16 - loss32)
+    if not loss_err <= OUT_ERROR_MUL * loss_yard + OUT_ERROR_BIAS:
+        raise AssertionError(f"{what}: loss {loss} vs fp32 {loss32}: err {loss_err:.3e} > "
+                             f"{OUT_ERROR_MUL} x the bf16 step's {loss_yard:.3e} + {OUT_ERROR_BIAS}")
+    worst, worst_name = 0.0, None
+    for name, g in grads.items():
+        err, yard = check_grad(torch, name, g.cuda(), g32[name], g16[name], what)
+        ratio = err / (GRAD_ERROR_MUL * yard + GRAD_ERROR_BIAS)
+        if ratio >= worst:
+            worst, worst_name = ratio, name
+    print(f"[parallel train] {what}: loss {loss:.5f} (bf16 one rank {loss16:.5f}, fp32 {loss32:.5f}); "
+          f"all {len(grads)} gradients within the FA rule vs fp32 (worst {worst_name}: "
+          f"{worst:.2f} of the bound)", flush=True)
+    return {"loss": loss, "loss_err": loss_err, "loss_yardstick": loss_yard,
+            "worst_grad": worst_name, "worst_share": worst}
+
+
+def pt_rank_line(what, r, card):
+    st = r["staging"]
+    hop = 1e3 * (st["copy_s"] + st["comm_s"]) / st["ops"] if st["ops"] else 0.0
+    kms = ", ".join(f"{k} {n} x {ms:.3f} ms" for k, (n, ms) in sorted(r["kernel_ms"].items())) \
+        or "not profiled"
+    extra = (f"parameters {r['param_bytes'] / 1e9:.3f} GB, AdamW moments "
+             f"{r['moment_bytes'] / 1e9:.3f} GB, step s {[round(x, 2) for x in r['step_s']]}, "
+             if "moment_bytes" in r else "")
+    print(f"[parallel train] {what} rank {r.get('rank', '?')}: {extra}wall {r['wall_s']:.1f} s; "
+          f"launches {r['launches']}; kernels (torch.profiler, launches x device ms each) {kms}; "
+          f"host staging {st['ops']} ops, {st['bytes'] / 1e6:.1f} MB to the host, "
+          f"{hop:.3f} ms an op [{card}]", flush=True)
+
+
+def phase_parallel_train(torch, card):
+    """Phase 19: (a) the trainer at Mistral-7B-v0.3 widths (PT_LAYERS layers,
+    bf16, 2 x 2048, remat) over data 2 x model 2, without and with FSDP, 2
+    steps each: step 0's loss and every gradient (before clipping) held to
+    the single-rank step under the FA rules, step 1's loss finite, the FSDP
+    cut in each rank's bytes; (b) the GPipe and 3-D pipelines at the same
+    widths, logits and gradients held likewise; (c) expert parallelism at
+    Mixtral-8x7B-v0.1 widths, held likewise on its own routing, whose
+    choices may differ from the fp32 step's own on at most EP_FLIP_MUL x
+    the bf16 one-rank step's flips + EP_FLIP_BIAS tokens; (d)
+    `dryrun_multichip(4)` on the card.
+    Returns the launches summed over the ranks and the measurements."""
+    import shutil
+
+    from fa2_triton_tpu_torch.examples.train import model_loss, preset_config
+    from fa2_triton_tpu_torch.models import llama, moe
+    from fa2_triton_tpu_torch.parallel import spawn_ranks
+    from fa2_triton_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t_phase = time.perf_counter()
+    work = os.path.join(HERE, "build", f"phase19-{os.getpid()}")
+    os.makedirs(work, exist_ok=True)
+    print(f"[parallel train] transport: gloo, {PT_RANKS} ranks on one card; CUDA tensors staged "
+          f"through host memory (NCCL refuses two ranks on one device). Cuts: Mistral-7B-v0.3 at "
+          f"{PT_LAYERS} of 32 layers, Mixtral-8x7B-v0.1 at {EP_LAYERS} of 32 [{card}]", flush=True)
+    totals, out = {}, {}
+    try:
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(par_train_rank, PT_RANKS, (work,), timeout_s=900)
+        out["ab_world_s"] = time.perf_counter() - t0
+        print(f"[parallel train] (a) + (b) ranks: {out['ab_world_s']:.1f} s with their start",
+              flush=True)
+
+        def count(launches):
+            for n, c in launches.items():
+                totals[n] = totals.get(n, 0) + c
+
+        # (a) the trainer against one rank.
+        cfg = preset_config("mistral-7b-v0.3", torch.bfloat16, n_layers=PT_LAYERS, remat=True)
+        tokens = torch.from_numpy(pt_tokens(cfg, (2, TRAIN_SEQ), 0)).cuda()
+        bf16, fp32 = pt_reference(torch, cfg, tokens, llama.loss_fn)
+        out["train"] = {}
+        for i, (tag, _) in enumerate(PT_MODES):
+            per_rank = [r["train"][i] for r in ranks]
+            for r in per_rank:
+                pt_rank_line(f"(a) {tag}", r, card)
+                count(r["launches"])
+            losses = per_rank[0]["losses"]
+            if any(r["losses"] != losses for r in per_rank):
+                raise AssertionError(f"(a) {tag}: the ranks' losses differ")
+            if not np.isfinite(losses).all():
+                raise AssertionError(f"(a) {tag}: losses {losses}")
+            files = [torch.load(os.path.join(work, f"{tag}-r{r}.pt"), mmap=True)
+                     for r in range(PT_RANKS)]
+            grads = {n: pt_whole(torch, files, n) for n in bf16[1]}
+            held = pt_hold(torch, f"(a) {tag} step 0", losses[0], grads, bf16, fp32)
+            del files, grads
+            gc.collect()
+            if "fsdp" in tag:
+                ref = [r["param_bytes"] for r in out["train"]["dp 2 x tp 2"]["ranks"]]
+                cut = [r["param_bytes"] / b for r, b in zip(per_rank, ref)]
+                if not all(0.45 < c < 0.6 for c in cut):
+                    raise AssertionError(f"(a) {tag}: parameter bytes {cut} of the TP-only run's")
+                if any(r["moment_bytes"] != 2 * r["param_bytes"] for r in per_rank):
+                    raise AssertionError(f"(a) {tag}: AdamW moments are not 2 x the parameters")
+                print(f"[parallel train] (a) {tag}: each rank's parameters "
+                      f"{[round(c, 3) for c in cut]} of the TP-only run's, AdamW moments 2 x its "
+                      f"parameters", flush=True)
+            out["train"][tag] = {**held, "losses": losses, "ranks": [
+                {k: r[k] for k in ("rank", "coords", "param_bytes", "moment_bytes", "step_s",
+                                   "wall_s", "staging_ms_per_op", "kernel_ms", "launches",
+                                   "peak_bytes")} for r in per_rank]}
+        del bf16, fp32
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) the pipelines against one rank.
+        cfg_b = preset_config("mistral-7b-v0.3", torch.bfloat16, n_layers=PT_LAYERS)
+        tokens_b = torch.from_numpy(pt_tokens(cfg_b, PP_TOKENS, 19)).cuda()
+        with torch.no_grad():
+            m = pt_model(torch, cfg_b)
+            logits16 = llama.forward(m, tokens_b[:, :-1])
+            m32 = llama.LlamaModel(dataclasses.replace(cfg_b, dtype=torch.float32), device="cuda")
+            m32.load_state_dict(m.state_dict())
+            del m
+            from fa2_triton_tpu_torch.ops import flash_attn_reference
+
+            logits32 = llama.forward(m32, tokens_b[:, :-1], lambda q, k, v: flash_attn_reference(
+                q, k, v, causal=True, softmax_scale=cfg_b.scale))
+            del m32
+        bf16, fp32 = pt_reference(torch, cfg_b, tokens_b, llama.loss_fn)
+        out["pipelines"] = {}
+        for i, case in enumerate(PP_CASES):
+            per_rank = [r["pipelines"][i] for r in ranks]
+            for r, rec in enumerate(per_rank):
+                pt_rank_line(f"(b) {case}", {**rec, "rank": r}, card)
+                count(rec["launches"])
+            files = [torch.load(os.path.join(work, f"{case}-r{r}.pt"), mmap=True)
+                     for r in range(PT_RANKS)]
+            logits = files[0]["logits"].cuda()
+            err, yard = max_abs(torch, logits, logits32), max_abs(torch, logits16, logits32)
+            if not err <= OUT_ERROR_MUL * yard + OUT_ERROR_BIAS:
+                raise AssertionError(f"(b) {case} logits: err {err:.3e} > {OUT_ERROR_MUL} x "
+                                     f"{yard:.3e} + {OUT_ERROR_BIAS}")
+            print(f"[parallel train] (b) {case}: logits max abs err {err:.3e} vs fp32, bf16 one "
+                  f"rank {yard:.3e}: ok", flush=True)
+            grads = {}
+            for f in files:
+                for n, g in f["grads"].items():
+                    if n in f["pieces"]:
+                        grads.setdefault(n, {})[f["pieces"][n][1]] = (f["pieces"][n][0], g)
+                    else:
+                        grads[n] = g
+            grads = {n: (torch.cat([g[k][1] for k in sorted(g)], dim=g[0][0])
+                         if isinstance(g, dict) else g) for n, g in grads.items()}
+            held = pt_hold(torch, f"(b) {case}", files[0]["loss"], grads, bf16, fp32)
+            out["pipelines"][case] = {**held, "logits_err": err, "logits_yardstick": yard,
+                                      "ranks": per_rank}
+            del files, grads, logits
+            gc.collect()
+        del bf16, fp32, logits16, logits32
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) expert parallelism against one rank.
+        t0 = time.perf_counter()
+        ep = spawn_ranks(par_ep_rank, 2, (work,), timeout_s=600)
+        out["ep_world_s"] = time.perf_counter() - t0
+        cfg_c = preset_config("mixtral-8x7b-v0.1", torch.bfloat16, n_layers=EP_LAYERS)
+        for r, rec in enumerate(ep):
+            pt_rank_line("(c) ep model 2", {**rec, "rank": r}, card)
+            count(rec["launches"])
+        files = [torch.load(os.path.join(work, f"ep-r{r}.pt"), mmap=True) for r in range(2)]
+        tokens_c = torch.from_numpy(pt_tokens(cfg_c, EP_TOKENS, 20)).cuda()
+        # The routing of the EP step (a flip of a near tie, or a drop moved
+        # by one, is no rounding error): the one-rank steps take it. Its
+        # choices are held to the fp32 step's own: they may differ on no
+        # more tokens than EP_FLIP_MUL x those on which the bf16 one-rank
+        # step's own choices differ from the fp32 step's, + EP_FLIP_BIAS.
+        owns = [[], []]
+        ep_choices = files[0]["choices"]
+        bf16, fp32 = pt_reference(torch, cfg_c, tokens_c, model_loss(cfg_c), ep_choices, owns)
+
+        def flips(a, b):
+            return sum(int((x != y).any(dim=-1).sum()) for x, y in zip(a, b))
+
+        ep_flips, yard_flips = flips(ep_choices, owns[1]), flips(owns[0], owns[1])
+        n_routed = EP_LAYERS * (EP_TOKENS[1] - 1)
+        print(f"[parallel train] (c) routing: the EP step's expert choices differ from the fp32 "
+              f"one-rank step's own on {ep_flips} of {n_routed} tokens, the bf16 one-rank step's "
+              f"own on {yard_flips} (from the EP step's on {flips(ep_choices, owns[0])}); both "
+              f"one-rank steps take the EP step's", flush=True)
+        if not ep_flips <= EP_FLIP_MUL * yard_flips + EP_FLIP_BIAS:
+            raise AssertionError(f"(c) routing: the EP step flips {ep_flips} tokens against the "
+                                 f"fp32 step, more than {EP_FLIP_MUL} x the bf16 one-rank step's "
+                                 f"{yard_flips} + {EP_FLIP_BIAS}")
+        grads = {n: pt_whole(torch, files, n) for n in bf16[1]}
+        out["ep"] = {**pt_hold(torch, "(c) ep model 2 (Mixtral-8x7B-v0.1)", ep[0]["loss"], grads,
+                               bf16, fp32),
+                     "wall_s": [r["wall_s"] for r in ep], "peak_gib": [r["peak_gib"] for r in ep],
+                     "world_s": out["ep_world_s"], "route_flips_ep_vs_fp32": ep_flips,
+                     "route_flips_bf16_vs_fp32": yard_flips,
+                     "kernel_ms": [r["kernel_ms"] for r in ep]}
+        del files, grads, bf16, fp32
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) the dry run on the card.
+        t0 = time.perf_counter()
+        dry = dryrun_multichip(4, device="cuda")
+        out["dryrun"] = {**dry, "seconds": time.perf_counter() - t0}
+        print(f"[parallel train] (d) {dry['line']} ({out['dryrun']['seconds']:.1f} s with the "
+              f"ranks' start) [{card}]", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[parallel train] phase 19: {out['seconds']:.1f} s [{card}]", flush=True)
+    return {"launches": totals, **out}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -5301,6 +5894,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     parallel = phase_parallel(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    parallel_train = phase_parallel_train(torch, card)
 
     if any(name == "jax" or name.startswith(("jax.", "fa2_triton_tpu.")) for name in sys.modules):
         raise RuntimeError("the port imported jax or the JAX package")
@@ -5475,6 +6071,7 @@ def main() -> int:
     by_name = {e["name"]: e for e in table["kernels"]}
     for e in table["kernels"]:
         e["launches_parallel"] = 0
+        e["launches_parallel_train"] = 0
     for (counter, drop), n in parallel["launches"].items():
         name = par_entry[counter]
         if drop and f"{name}_dropout" in by_name:
@@ -5483,6 +6080,13 @@ def main() -> int:
             name = f"flash_bwd_dropout_{name[10:]}"
         by_name[name]["launches_parallel"] += n
     by_name["flash_fwd"]["parallel"] = {k: parallel[k] for k in ("cases", "serving", "seconds")}
+    # Phase 19's launches, summed over its ranks and cases.
+    for counter, n in parallel_train["launches"].items():
+        by_name[par_entry[counter]]["launches_parallel_train"] += n
+    by_name["flash_fwd"]["parallel_train"] = {
+        k: parallel_train[k] for k in ("train", "pipelines", "ep", "seconds", "ab_world_s")}
+    by_name["flash_fwd"]["parallel_train"]["dryrun"] = {
+        k: v for k, v in parallel_train["dryrun"].items() if k != "line"}
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps(table))

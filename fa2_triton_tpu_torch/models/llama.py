@@ -7,8 +7,12 @@ norms are fp32), so converting a JAX parameter tree is a copy
 (`models/convert.py:llama_from_jax_params`).
 
 Ported: `forward` (differentiable; `cfg.remat` checkpoints each layer),
-`loss_fn`, `prefill_forward`, `decode_step` (contiguous cache, stored in
-the compute dtype or int8 / fp8), `paged_decode_step` (page pool and block
+`loss_fn` (both over a TP group too, as JAX trains under `param_pspecs`:
+Megatron's f on the normed input of every column-parallel product, g on
+every row-parallel one, and the vocab-parallel logits gathered before the
+loss; and over FSDP's gathered weights through `gather_fn`),
+`prefill_forward`, `decode_step` (contiguous cache, stored in the compute
+dtype or int8 / fp8), `paged_decode_step` (page pool and block
 tables), `chunk_prefill_step` (one prompt chunk against a slot's cached
 prefix; `paged_chunk_prefill_step` is its page-pool form) and the cached
 forward of speculative decoding (`forward_with_cache` over `init_kv_cache`'s
@@ -241,6 +245,17 @@ def _qkv(layer: LlamaLayer, h: torch.Tensor, cfg: LlamaConfig):
     return q, k, v.reshape(B, S, cfg.n_kv_heads, cfg.hd)
 
 
+def _copy(x: torch.Tensor, tp_group) -> torch.Tensor:
+    """A replicated input of column-parallel products (Megatron's f: the
+    identity forward, its cotangent summed over the TP group backward); x
+    itself without a group."""
+    if tp_group is None:
+        return x
+    from fa2_triton_tpu_torch.parallel.collectives import copy_to_group
+
+    return copy_to_group(x, tp_group)
+
+
 def _reduce(x: torch.Tensor, tp_group) -> torch.Tensor:
     """A row-parallel partial product summed over the TP group (JAX
     `_psum`; Megatron: wo / w_down shard their input dim); x itself
@@ -279,7 +294,7 @@ def _mlp_block(layer: LlamaLayer, x: torch.Tensor, cfg: LlamaConfig,
         from fa2_triton_tpu_torch.models.moe import moe_mlp_dense
 
         return moe_mlp_dense(layer, x, cfg)[0]
-    h = rms_norm(x, layer.mlp_norm, cfg.norm_eps)
+    h = _copy(rms_norm(x, layer.mlp_norm, cfg.norm_eps), tp_group)
     gated = _ACTS[cfg.hidden_act](_mm(h, layer.w_gate)) * _mm(h, layer.w_up)
     out = _reduce(_mm(gated, layer.w_down), tp_group)
     if layer.post_mlp_norm is not None:
@@ -293,6 +308,21 @@ def _logits(x: torch.Tensor, model: LlamaModel, cfg: LlamaConfig) -> torch.Tenso
     if cfg.logit_softcap > 0.0:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return logits
+
+
+def _head_logits(x: torch.Tensor, model: LlamaModel, cfg: LlamaConfig, tp_group=None):
+    """`_logits` of the training forward: with a vocab-parallel lm_head
+    (`parallel/mesh.py:param_pspecs` cuts its vocab over the TP group) each
+    rank projects f(x) onto its vocab piece, and the pieces are gathered
+    along the vocab, so every rank holds the whole logits (the backward
+    keeps each rank's piece of their cotangent). A replicated head
+    (`moe_param_pspecs`) takes no collective."""
+    if tp_group is None or model.lm_head.shape[-1] == cfg.vocab_size:
+        return _logits(x, model, cfg)
+    from fa2_triton_tpu_torch.parallel.collectives import gather
+
+    logits = _logits(_copy(x, tp_group), model, cfg)
+    return gather(logits, (None,) * (logits.dim() - 1) + ("model",), {"model": tp_group})
 
 
 def _window_args(cfg: LlamaConfig, li: int):
@@ -311,17 +341,22 @@ def make_attention_fn(cfg: LlamaConfig, li: int = 0) -> Callable:
 
 
 def attention_block(layer: LlamaLayer, x, cfg: LlamaConfig, cos, sin,
-                    attention_fn: Callable) -> torch.Tensor:
-    """Pre-norm self-attention sublayer with residual (no cache)."""
-    h = rms_norm(x, layer.attn_norm, cfg.norm_eps)
+                    attention_fn: Callable, tp_group=None) -> torch.Tensor:
+    """Pre-norm self-attention sublayer with residual (no cache); over a TP
+    group the layer holds its heads and `cfg` their local counts."""
+    h = _copy(rms_norm(x, layer.attn_norm, cfg.norm_eps), tp_group)
     q, k, v = _qkv(layer, h, cfg)
     cs, sn = cos[:, :, None, :], sin[:, :, None, :]
     q, k = apply_rope(q, cs, sn), apply_rope(k, cs, sn)
-    return _attn_out(layer, x, attention_fn(q, k, v), cfg)
+    return _attn_out(layer, x, attention_fn(q, k, v), cfg, tp_group)
 
 
-def _layer(layer: LlamaLayer, x, cfg: LlamaConfig, cos, sin, attention_fn: Callable):
-    return _mlp_block(layer, attention_block(layer, x, cfg, cos, sin, attention_fn), cfg)
+def _layer(layer: LlamaLayer, x, cfg: LlamaConfig, cos, sin, attention_fn: Callable,
+           tp_group=None, gather_fn=None):
+    if gather_fn is not None:
+        layer = gather_fn(layer)
+    x = attention_block(layer, x, cfg, cos, sin, attention_fn, tp_group)
+    return _mlp_block(layer, x, cfg, tp_group)
 
 
 def forward(
@@ -329,34 +364,50 @@ def forward(
     tokens: torch.Tensor,                 # [B, S] int
     attention_fn: Optional[Callable] = None,
     positions: Optional[torch.Tensor] = None,
+    tp_group=None,
+    gather_fn: Optional[Callable[[nn.Module], nn.Module]] = None,
 ) -> torch.Tensor:
     """Full causal forward -> logits [B, S, vocab] (fp32), differentiable.
 
     `attention_fn(q, k, v)` (BSHD) overrides the config-driven per-layer
     attention for every layer. With `cfg.remat` and grad enabled, each layer
     keeps only its input and is recomputed in the backward (the JAX
-    `jax.checkpoint` per layer, `fa2_triton_tpu/models/llama.py:343-344`)."""
+    `jax.checkpoint` per layer, `fa2_triton_tpu/models/llama.py:343-344`).
+
+    With `tp_group` the model is one TP rank's shard (`parallel/mesh.py:
+    shard_params` under `param_pspecs`, the local head counts in its
+    config): each column-parallel product takes f of its normed input, each
+    row-parallel one is summed over the group (g), and the logits of a
+    vocab-parallel lm_head are gathered, so every rank returns the whole
+    logits. `gather_fn(module)` returns the module to compute with in place
+    of a stored one (FSDP's gathered weights, `parallel/fsdp.py`): it is
+    applied to the model once, and to each layer inside its body, so that
+    remat gathers the layer again in the backward."""
     cfg = model.cfg
+    top = gather_fn(model) if gather_fn is not None else model
     B, S = tokens.shape
-    x = model.embed[tokens]
+    x = top.embed[tokens]
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
     cos, sin = rope_cos_sin(positions, cfg.hd, cfg.rope_theta, cfg.rope_factors)
     for li, layer in enumerate(model.layers):
         fn = attention_fn if attention_fn is not None else make_attention_fn(cfg, li)
+        args = (layer, x, cfg, cos, sin, fn, tp_group, gather_fn)
         if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(_layer, layer, x, cfg, cos, sin, fn, use_reentrant=False)
+            x = checkpoint(_layer, *args, use_reentrant=False)
         else:
-            x = _layer(layer, x, cfg, cos, sin, fn)
-    x = rms_norm(x, model.final_norm, cfg.norm_eps)
-    return _logits(x, model, cfg)
+            x = _layer(*args)
+    x = rms_norm(x, top.final_norm, cfg.norm_eps)
+    return _head_logits(x, top, cfg, tp_group)
 
 
 def loss_fn(model: LlamaModel, tokens: torch.Tensor,
-            attention_fn: Optional[Callable] = None) -> torch.Tensor:
+            attention_fn: Optional[Callable] = None, tp_group=None,
+            gather_fn: Optional[Callable[[nn.Module], nn.Module]] = None) -> torch.Tensor:
     """Next-token cross-entropy on fp32 logits, mean over positions
-    (`fa2_triton_tpu/models/llama.py:loss_fn`)."""
-    logits = forward(model, tokens[:, :-1], attention_fn)
+    (`fa2_triton_tpu/models/llama.py:loss_fn`); `tp_group` and `gather_fn`
+    as in `forward`."""
+    logits = forward(model, tokens[:, :-1], attention_fn, tp_group=tp_group, gather_fn=gather_fn)
     targets = tokens[:, 1:]
     return F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1))
 

@@ -8,10 +8,17 @@ each, and this module is their only way to talk:
   to the next rank and receives the previous rank's (`batch_isend_irecv`);
   the started form returns a handle, so a caller can compute while the hop
   is in flight (ring attention's KV prefetch, JAX `parallel/ring.py:236-241`).
+  `ring_pass` is one differentiable hop: its backward sends the cotangent
+  one hop the other way (JAX's transpose of `ppermute`; the pipeline's).
 * `all_to_all`: JAX's tiled `lax.all_to_all` along a split and a concat dim.
 * `all_reduce` (a sum), `broadcast`, `all_gather` along a dim.
 * `shard` / `gather`: a replicated tensor's piece on this rank, and back,
   per a spec of axis names (`parallel/mesh.py`).
+* Training's conjugates: `copy_to_group` (Megatron's f: the identity
+  forward, a sum over the group backward), the partner of `all_reduce`
+  (Megatron's g); `reduce_scatter`; `fsdp_gather` (all-gather forward,
+  reduce-scatter backward: the weight gradients of data ranks that each
+  saw their own batch are summed, and each rank keeps its piece).
 
 The group's backend picks the transport, explicitly (`transport`):
 "nccl" sends device tensors direct; "gloo" sends CPU tensors; "host" is a
@@ -19,8 +26,9 @@ gloo group holding CUDA tensors, which gloo cannot send or all-to-all, so
 each op copies them to host memory, runs there and copies the result back.
 The copies and the exchange are timed apart in `STAGING` (ranks that share
 one GPU take this transport: NCCL refuses two ranks on one device). The
-differentiable forms (`all_to_all`, `all_reduce`, `shard`, `gather`) are
-`torch.autograd.Function`s with the transposed collective as backward.
+differentiable forms (`all_to_all`, `all_reduce`, `shard`, `gather`,
+`ring_pass`, `copy_to_group`, `fsdp_gather`) are `torch.autograd.Function`s
+with the transposed collective as backward.
 """
 from __future__ import annotations
 
@@ -113,11 +121,11 @@ class ShiftHandle:
         return _to_device(self._received, self._device)
 
 
-def ring_shift_start(tensors: Sequence[torch.Tensor], group) -> ShiftHandle:
+def ring_shift_start(tensors: Sequence[torch.Tensor], group, step: int = 1) -> ShiftHandle:
     """Start one hop of the ring over `group`: rank r's `tensors` go to rank
-    (r + 1) % n, and the handle's `wait()` returns what rank (r - 1) % n
-    sent (JAX's `ppermute` with perm [(i, (i + 1) % n)]). A group of one
-    returns the tensors themselves."""
+    (r + step) % n, and the handle's `wait()` returns what rank (r - step)
+    % n sent (JAX's `ppermute` with perm [(i, (i + 1) % n)] at step 1). A
+    group of one returns the tensors themselves."""
     n = group_size(group)
     tensors = [t.contiguous() for t in tensors]
     if n == 1:
@@ -127,8 +135,8 @@ def ring_shift_start(tensors: Sequence[torch.Tensor], group) -> ShiftHandle:
     send = _to_host(tensors) if host else tensors
     recv = [torch.empty_like(t) for t in send]
     r = group_rank(group)
-    nxt = dist.get_global_rank(group, (r + 1) % n)
-    prv = dist.get_global_rank(group, (r - 1) % n)
+    nxt = dist.get_global_rank(group, (r + step) % n)
+    prv = dist.get_global_rank(group, (r - step) % n)
     ops = [dist.P2POp(dist.isend, t, nxt, group) for t in send]
     ops += [dist.P2POp(dist.irecv, t, prv, group) for t in recv]
     t0 = time.perf_counter()
@@ -136,9 +144,34 @@ def ring_shift_start(tensors: Sequence[torch.Tensor], group) -> ShiftHandle:
     return ShiftHandle(reqs, recv, device, host, t0)
 
 
-def ring_shift(tensors: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
+def ring_shift(tensors: Sequence[torch.Tensor], group, step: int = 1) -> List[torch.Tensor]:
     """One hop of the ring, waited for (`ring_shift_start`)."""
-    return ring_shift_start(tensors, group).wait()
+    return ring_shift_start(tensors, group, step).wait()
+
+
+class _RingPass(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, step):
+        ctx.args = (group, step)
+        return ring_shift([x], group, step)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        group, step = ctx.args
+        return ring_shift([g], group, -step)[0], None, None
+
+
+def ring_pass(x: torch.Tensor, group, step: int = 1) -> torch.Tensor:
+    """One hop of the ring as a differentiable op: x goes to rank (r + step)
+    % n, and the result is what rank (r - step) % n sent. The backward sends
+    the cotangent back the way the value came (JAX's transpose of
+    `ppermute`), so every rank must run it: each rank must use the result
+    of every hop whose gradient any rank needs (the pipeline selects with
+    `torch.where`, never with a branch on the rank). x itself in a group of
+    one."""
+    if group_size(group) == 1:
+        return x
+    return _RingPass.apply(x, group, step)
 
 
 def _all_to_all_raw(x: torch.Tensor, group, split_dim: int, concat_dim: int) -> torch.Tensor:
@@ -211,6 +244,48 @@ def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     every rank gets the same bits. Differentiable: the backward is the
     identity (Megatron's row-parallel reduce)."""
     return _AllReduce.apply(x, group)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce_raw(g.contiguous(), ctx.group), None
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's f: x itself forward, the sum of the cotangents over the
+    group backward. It marks a replicated tensor that each rank feeds into
+    its own shard of a computation (the normed input of the column-parallel
+    wq / wk / wv, w_gate / w_up and lm_head; the tokens and routing weights
+    of expert parallelism; a stage's replicated input): the replicated
+    tensor's gradient is the sum of the shards' parts. x itself without a
+    group or in a group of one."""
+    if group is None or group_size(group) == 1:
+        return x
+    return _CopyToGroup.apply(x, group)
+
+
+def reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The sum of x over the group's ranks, cut along `dim` into n equal
+    pieces, of which rank r keeps piece r (not differentiable)."""
+    n = group_size(group)
+    if n == 1:
+        return x
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} does not split into {n}")
+
+    def op(ts):
+        parts = [c.contiguous() for c in ts[0].chunk(n, dim=dim)]
+        out = torch.empty_like(parts[0])
+        dist.reduce_scatter(out, parts, op=dist.ReduceOp.SUM, group=group)
+        return [out]
+
+    return _Staged(group, x)(op, [x.contiguous()])[0]
 
 
 def broadcast(x: torch.Tensor, group, src: int = 0) -> torch.Tensor:
@@ -301,6 +376,18 @@ class _Gather(torch.autograd.Function):
         return g.contiguous(), None
 
 
+class _FsdpGather(_Gather):
+    """Forward: `_Gather`'s. Backward: the cotangent reduce-scattered,
+    because each rank's cotangent is its own part of the gradient (its own
+    batch), not a replica of one."""
+
+    @staticmethod
+    def backward(ctx, g):
+        for dim, group in ctx.dims:
+            g = reduce_scatter(g, group, dim)
+        return g, None
+
+
 def _spec_dims(spec, groups) -> tuple:
     """((dim, group), ...) of the dims a spec shards over groups of more
     than one rank; `groups` maps an axis name to its group."""
@@ -318,5 +405,15 @@ def shard(x: torch.Tensor, spec, groups) -> torch.Tensor:
 
 def gather(x: torch.Tensor, spec, groups) -> torch.Tensor:
     """The inverse of `shard`: every rank gets the whole tensor.
-    Differentiable."""
+    Differentiable: the backward keeps this rank's piece of a cotangent that
+    every rank holds whole (a replicated loss)."""
     return _Gather.apply(x, _spec_dims(spec, groups))
+
+
+def fsdp_gather(x: torch.Tensor, spec, groups) -> torch.Tensor:
+    """FSDP's gather of a weight's pieces: forward as `gather`, backward a
+    reduce-scatter, so each rank's piece gets the sum over the group of the
+    whole weight's gradients (each data rank's own batch). The sum is not
+    divided: the mean over the data ranks is the loss's business."""
+    dims = _spec_dims(spec, groups)
+    return _FsdpGather.apply(x, dims) if dims else x

@@ -190,26 +190,34 @@ def serving_param_pspecs(model) -> Dict[str, Spec]:
 
 
 def fsdp_param_pspecs(model, mesh: Optional[MeshLike] = None, axis: str = AXIS_DATA,
-                      min_size: int = 2 ** 14) -> Dict[str, Spec]:
+                      min_size: int = 2 ** 14,
+                      base: Optional[Mapping[str, Spec]] = None) -> Dict[str, Spec]:
     """ZeRO-3 / FSDP specs (JAX l.136-176): every leaf of at least
     `min_size` elements shards one dim over `axis`, the largest whose
     extent the axis divides (any, without a mesh), skipping a dim TP
     already shards; smaller leaves, and leaves no dim of which divides, stay
     as they are. With a `model` axis above 1 the weights keep their TP
-    spec first (ZeRO-3 over the TP shards)."""
+    spec first (ZeRO-3 over the TP shards): `param_pspecs`' table, or the
+    specs `base` names (an MoE model's `models/moe.py:moe_param_pspecs`)."""
     n = axis_size(mesh, axis) if mesh is not None else None
     tp = axis_size(mesh, AXIS_MODEL)
     tp_table = dict(_TP_TABLE, lm_head=(None, AXIS_MODEL)) if tp > 1 else {}
     out = {}
     for name, leaf in named_leaves(model).items():
-        base = _spec_from_path(tuple(name.split(".")), tp_table) if tp > 1 else ()
-        spec = base
+        if tp == 1:
+            tp_spec = ()
+        elif base is not None:
+            tp_spec = tuple(base.get(name, ()))
+        else:
+            tp_spec = _spec_from_path(tuple(name.split(".")), tp_table)
+        spec = tp_spec
         if leaf.dim() >= 1 and leaf.numel() >= min_size:
             for d in sorted(range(leaf.dim()), key=lambda d: -leaf.shape[d]):
-                if len(base) > d and base[d] is not None:
+                if len(tp_spec) > d and tp_spec[d] is not None:
                     continue   # already TP-sharded
                 if n is None or leaf.shape[d] % n == 0:
-                    spec = tuple(base[i] if i < len(base) else None for i in range(leaf.dim()))
+                    spec = tuple(tp_spec[i] if i < len(tp_spec) else None
+                                 for i in range(leaf.dim()))
                     spec = spec[:d] + (axis,) + spec[d + 1:]
                     break
         out[name] = spec

@@ -8,7 +8,12 @@
   in a subprocess bounded by a timeout;
 * **auto-resume**: `ResilientTrainer` checkpoints periodically
   (`utils/checkpoint.py`) and restores the newest state on restart, so a
-  crash costs at most `save_every` steps.
+  crash costs at most `save_every` steps;
+* **over a mesh**: with a process `group` the verdict is the group's (a
+  count of not-finite ranks, summed), so every rank skips the same steps
+  and none waits in a collective that a skipping peer never joins; and
+  `global_grad_norm` / `clip_grads_` clip by the norm of the whole sharded
+  gradient, not a shard's.
 
 Torch state is mutable, and that changes the design. JAX computes the new
 state and selects the old or the new one with `jnp.where`; its async save
@@ -90,19 +95,69 @@ def guarded_update(state: Any, grads: Any, ok: bool, apply_fn: Callable) -> bool
     return ok
 
 
-def make_guarded_step(grad_fn: Callable, apply_fn: Callable) -> Callable:
+def make_guarded_step(grad_fn: Callable, apply_fn: Callable, group=None) -> Callable:
     """`guarded(state, batch) -> (state, loss, ok)`: the step, taken only
     when the loss and every gradient are finite; `state` is updated in
-    place and returned, `loss` is detached, `ok` a Python bool."""
+    place and returned, `loss` is detached, `ok` a Python bool. With a
+    process `group` (every rank of a mesh) `ok` holds only where every
+    rank's loss and gradients are finite: each rank's flag is summed over
+    the group (`parallel/collectives.py:all_reduce`), so all skip together."""
 
     def guarded(state, batch):
         loss, grads = grad_fn(state, batch)
         loss = loss.detach()
-        ok = bool(tree_allfinite([loss, grads]))
+        bad = (~tree_allfinite([loss, grads])).float().reshape(1)
+        if group is not None:
+            from fa2_triton_tpu_torch.parallel.collectives import all_reduce
+
+            bad = all_reduce(bad.to(loss.device), group)
+        ok = not bool(bad.item())
         guarded_update(state, grads, ok, apply_fn)
         return state, loss, ok
 
     return guarded
+
+
+@torch.no_grad()
+def global_grad_norm(grads, cut_by, groups) -> torch.Tensor:
+    """The 2-norm of a whole gradient of which this rank holds pieces: the
+    squares of each leaf's piece, summed with those of the leaves cut over
+    the same axes (`cut_by[i]`: the names of the axes whose ranks hold
+    different pieces of leaf i, () for a leaf every rank holds whole), each
+    sum all-reduced over its axes' groups (`groups`: name -> group), and a
+    whole leaf counted once. Every rank gets the same fp32 0-dim tensor.
+    None gradients count as 0."""
+    from fa2_triton_tpu_torch.parallel.collectives import all_reduce
+
+    sums: Dict[Tuple[str, ...], torch.Tensor] = {}
+    device = None
+    for g, axes in zip(grads, cut_by):
+        if g is None:
+            continue
+        device = device or g.device
+        sq = torch.linalg.vector_norm(g, dtype=torch.float32).double().square().to(device)
+        key = tuple(sorted(axes))
+        sums[key] = sums[key] + sq if key in sums else sq
+    total = torch.zeros((), dtype=torch.float64, device=device)
+    # Every rank holds the same leaves, so the same keys in the same order.
+    for key in sorted(sums):
+        part = sums[key]
+        for axis in key:
+            part = all_reduce(part, groups[axis])
+        total = total + part
+    return total.sqrt().float()
+
+
+@torch.no_grad()
+def clip_grads_(grads, max_norm: float, norm: torch.Tensor) -> torch.Tensor:
+    """Scale `grads` in place so their norm `norm` is at most `max_norm`
+    (`torch.nn.utils.clip_grad_norm_`'s rule: by min(1, max_norm / (norm +
+    1e-6))); returns `norm`."""
+    coef = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
+    for g in grads:
+        if g is not None:
+            g.mul_(coef.to(g.device))
+    return norm
 
 
 def make_guarded_multi_step(grad_fn: Callable, apply_fn: Callable) -> Callable:
@@ -200,12 +255,14 @@ class ResilientTrainer:
     The guarded step (`make_guarded_step(grad_fn, apply_fn)`) skips
     non-finite steps; with a `ckpt_dir` the trainer saves every
     `save_every` steps and `restore_or_init` resumes from the newest
-    checkpoint. Without one (`ckpt_dir=None`) it only guards.
+    checkpoint. Without one (`ckpt_dir=None`) it only guards. On a rank of a
+    mesh, `group` (the world) makes the guard's verdict every rank's, and
+    `ckpt_dir` is the rank's own directory (`examples/train.py`).
     """
 
     def __init__(self, grad_fn: Callable, apply_fn: Callable, ckpt_dir: Optional[str],
-                 save_every: int = 100, max_to_keep: int = 3):
-        self._guarded = make_guarded_step(grad_fn, apply_fn)
+                 save_every: int = 100, max_to_keep: int = 3, group=None):
+        self._guarded = make_guarded_step(grad_fn, apply_fn, group)
         self._ckpt = (CheckpointManager(ckpt_dir, max_to_keep=max_to_keep)
                       if ckpt_dir is not None else None)
         self._save_every = save_every

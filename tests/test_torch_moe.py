@@ -225,7 +225,7 @@ def test_trainer_moe_runs_on_the_cpu_and_the_loss_falls():
     assert np.isfinite(res["losses"]).all() and res["losses"][-1] < res["losses"][0]
 
 
-def test_mixtral_preset_and_ep_not_ported():
+def test_mixtral_preset_and_ep_not_ported(setup):
     cfg = ttrain.build_config(ttrain.parse_args(["--config", "mixtral-8x7b-v0.1", "--layers", "5",
                                                   "--remat"]))
     assert isinstance(cfg, tm.MoEConfig)
@@ -233,6 +233,13 @@ def test_mixtral_preset_and_ep_not_ported():
     assert (cfg.dim, cfg.hidden_dim, cfg.n_heads, cfg.n_kv_heads, cfg.vocab_size) == (
         4096, 14336, 32, 8, 32000)
     assert cfg.n_layers == 5 and cfg.remat
-    for fn in (tm.make_ep_mlp, tm.moe_param_pspecs):
-        with pytest.raises(NotImplementedError, match="A.7"):
-            fn()
+    # Expert parallelism's table (not ported before the parallel trainer):
+    # JAX's moe_param_pspecs, leaf by leaf, on this file's model.
+    jp, model = setup[0], setup[1]
+    want = {}
+    for path, spec in jax.tree_util.tree_flatten_with_path(jm.moe_param_pspecs(jp))[0]:
+        want[".".join(str(k.key) if hasattr(k, "key") else str(k.idx) for k in path)] = tuple(spec)
+    got = tm.moe_param_pspecs(model)
+    assert got == want
+    assert got["layers.0.we_gate"] == ("model", None, None) and got["layers.0.router"] == (None, None)
+    assert got["lm_head"] == () and got["layers.0.wo"] == ("model", None)

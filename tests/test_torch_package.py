@@ -65,6 +65,13 @@ def test_port_never_imports_jax():
         "assert zigzag_unpermute(zigzag_permute(x, 2, dim=0), 2, dim=0).equal(x)\n"
         "fsdp_param_pspecs(m, {'data': 2}, min_size=64)\n"
         "shard_params(m, {'data': 2}, fsdp_param_pspecs(m, {'data': 2}, min_size=64), {'data': 1})\n"
+        "import fa2_triton_tpu_torch.parallel.pipeline, fa2_triton_tpu_torch.parallel.fsdp\n"
+        "import fa2_triton_tpu_torch.parallel.dryrun\n"
+        "from fa2_triton_tpu_torch.parallel.pipeline import make_pipeline, pipeline_params_from_llama\n"
+        "from fa2_triton_tpu_torch.parallel.fsdp import FSDP, train_specs\n"
+        "pp = pipeline_params_from_llama(m)\n"
+        "assert pp['stacked']['wq'].shape[0] == cfg.n_layers\n"
+        "from fa2_triton_tpu_torch.models.moe import make_ep_mlp, moe_param_pspecs\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith(('jax.', 'jaxlib', 'fa2_triton_tpu.')))\n"
         "assert not bad, bad\n"
         "print('ok')\n"

@@ -120,10 +120,23 @@ def test_trainer_runs_on_the_cpu_and_the_loss_falls():
     assert res["tokens_per_step"] == 2 * 16
 
 
-@pytest.mark.parametrize("argv", [["--dp", "2"], ["--tp", "2"], ["--fsdp"]])
-def test_trainer_flags_not_ported_raise(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ttrain.parse_args(argv)
+@pytest.mark.parametrize("argv,mesh", [(["--dp", "2"], (2, 1, False)),
+                                       (["--tp", "2"], (1, 2, False)),
+                                       (["--fsdp", "--dp", "4"], (4, 1, True))])
+def test_trainer_flags_not_ported_raise(argv, mesh):
+    """The mesh flags (which raised before the parallel trainer was ported)
+    parse to the mesh sizes and FSDP on; the mesh record names them."""
+    args = ttrain.parse_args(argv)
+    assert (args.dp, args.tp, args.fsdp) == mesh
+    assert ttrain.mesh_record(args) == {"data": mesh[0], "model": mesh[1], "fsdp": mesh[2]}
+    assert ttrain.build_config(args).n_heads % args.tp == 0
+
+
+def test_trainer_tp_not_dividing_the_heads_raises():
+    with pytest.raises(ValueError, match="does not divide"):
+        ttrain.build_config(ttrain.parse_args(["--tp", "3"]))
+    with pytest.raises(ValueError, match="does not split"):
+        ttrain.parse_args(["--dp", "3", "--batch", "8"])
 
 
 @pytest.mark.parametrize("flags", [["--data"], ["--ckpt-dir"], ["--ckpt-dir", "--save-every"]])
