@@ -11,11 +11,12 @@ the CUDA toolkit. Phases (any failure raises, and the script exits nonzero):
    16-bit instantiation of the tensor-core kernels (the forward and the dq
    + dk/dv pair, with and without bias / softcap; dbias; the tri-square / diag and
    work-list backward; the packed forward, dq and dk/dv; bf16 and fp16,
-   D 64 / 128 / 256, with and without dropout): ptxas
-   registers and spills, and the HMMA instructions in its SASS (cuobjdump
-   -sass of the built library); it fails where one has no tensor-core
-   instruction, a bf16 D 128 one of the trainers' spills, or any packed
-   forward spills.
+   D 64 / 128 / 256, the forward and the pair at D 384 / 512 too, with
+   and without dropout): ptxas registers and spills, and the HMMA
+   instructions in its SASS (cuobjdump -sass of the built library); it
+   fails where one has no tensor-core instruction, a bf16 D 128 one of the
+   trainers' spills, any one at D 384 / 512 spills, or any packed forward
+   spills.
 2. Hold each kernel against its plain PyTorch twin at the serving slice's
    shapes, in bf16 and fp32, and time both with CUDA events. The decode
    kernel also runs over int8 and fp8 caches (B5 quant) and over shuffled
@@ -25,7 +26,7 @@ the CUDA toolkit. Phases (any failure raises, and the script exits nonzero):
    (torch.profiler; at ~0.03 ms a call's CUDA-event time is the host's,
    printed beside it), with its split-KV grid: chunks per (slot, KV head)
    and the blocks whose chunk holds a live row. Before it, right after the
-   build, a line sums up the 216 decode instantiations' ptxas registers
+   build, a line sums up the 360 decode instantiations' ptxas registers
    and spills and the HMMA of the 16-bit ones; any spill fails.
 3. Serve 16 requests through `runtime.serving.Engine` at the published
    widths of Mistral-7B-v0.3 (random bf16 weights from a seed), with the
@@ -261,6 +262,32 @@ the CUDA toolkit. Phases (any failure raises, and the script exits nonzero):
    the ranks, sit in `launches_parallel_train` of every entry (the
    forward, dq and dk/dv ones nonzero), the rest under the forward entry's
    `parallel_train`.
+20. Head dims 384 and 512: (a) at each, B 1 x S 1024, 8 query / 2 KV
+   heads, each kernel against its plain twin under the FA rules: the
+   forward on every route forced by name (tri-square at S 256, the split
+   with its merge, the strip, the generic kernel), with dropout, a bias,
+   softcap and a window; fp32, and fp16 at the ops level and through
+   `flash_attn_func` (fp32 and bf16 compute); the dq + dk/dv pair on the
+   generic route (and the strip's where its gate passes) with dropout and
+   with a bias that needs no gradient or softcap, and in fp32; decode over
+   bf16 / fp16 / fp32 / int8 / fp8 caches and paged bf16 / int8 pools
+   (equal to contiguous bit for bit); every family launched at each D; (b)
+   times at B 2 x S 2048 causal (D 512 and 384) and decode over 8 slots x
+   4096 rows (D 512): kernel device ms (torch.profiler), the calls by CUDA
+   events, plain ms, bounds and SDPA's memory-efficient backend (its flash
+   backend stops at 256); (c) Mistral-7B-v0.3's widths with the attention cut into 8
+   / 2 heads of 512 (`preset_config(..., n_heads=8, n_kv_heads=2,
+   head_dim=512)`), full depth: 8 of phase 3's prompts served contiguous
+   bf16 and paged int8 with phase 3's log-prob check, the 2-layer
+   gradients against fp32 (phase 7 (i)'s check), 3 trainer steps at 2 x
+   2048; (d) Phi-3-mini-4k-instruct's
+   widths (head_dim 96, caches 128 wide), phase 3's 16 requests contiguous
+   bf16 and paged int8 with the same check. Each entry of the kernels line
+   names the head dims its kernel is built for (`head_dims`); the
+   forward, dq, dk/dv and decode entries carry the launches at each D
+   (`launches_wide_384` / `_512`), of (c) and (d) (`launches_wide_serve`,
+   `launches_phi3_serve`, `launches_wide_train`), the rest under the
+   forward entry's `wide`.
 
 Every kernel is also timed against PyTorch's own call for the same function
 (`library_ms`, where one exists) and its bound on the H100 (`bound_ms`: the
@@ -2450,15 +2477,16 @@ def phase_bias(torch):
                       "pair_bias_ms": [split["dq_mma_kernel"], split["dkdv_mma_kernel"]], **extra}
 
 
-def phase_train_grads(torch):
-    """Mistral-7B-v0.3 widths, 2 layers, bf16: every parameter gradient of
-    loss_fn through the kernels and through the plain attention (the fp32
-    oracle, output in bf16), both held to an fp32 plain run."""
+def phase_train_grads(torch, what="train", **overrides):
+    """Mistral-7B-v0.3 widths (its heads as `overrides` cut them), 2
+    layers, bf16: every parameter gradient of loss_fn through the kernels
+    and through the plain attention (the fp32 oracle, output in bf16), both
+    held to an fp32 plain run."""
     from fa2_triton_tpu_torch.examples.train import preset_config
     from fa2_triton_tpu_torch.models import LlamaModel, init_params, loss_fn
     from fa2_triton_tpu_torch.ops import flash_attn_reference, flash_bwd, flash_fwd
 
-    cfg = preset_config("mistral-7b-v0.3", torch.bfloat16, n_layers=2)
+    cfg = preset_config("mistral-7b-v0.3", torch.bfloat16, n_layers=2, **overrides)
     model = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
     tokens = torch.from_numpy(np.random.RandomState(0).randint(
         0, cfg.vocab_size, size=(2, TRAIN_SEQ))).cuda()
@@ -2492,7 +2520,8 @@ def phase_train_grads(torch):
         ratio = err / (GRAD_ERROR_MUL * yard + GRAD_ERROR_BIAS)
         if ratio >= worst:
             worst, worst_name = ratio, name
-    print(f"[train] Mistral-7B-v0.3 widths, 2 layers, bf16, batch 2 x {TRAIN_SEQ}: loss kernels "
+    print(f"[{what}] Mistral-7B-v0.3 widths, {cfg.n_heads} / {cfg.n_kv_heads} heads of "
+          f"{cfg.hd}, 2 layers, bf16, batch 2 x {TRAIN_SEQ}: loss kernels "
           f"{loss_k:.5f}, plain {loss_p:.5f}, fp32 {loss_32:.5f}; all {len(g_32)} parameter "
           f"gradients within the FA contract vs fp32 (worst {worst_name}: {worst:.2f} of the bound); "
           f"launches {launches}")
@@ -3943,11 +3972,12 @@ def mma_build_report() -> dict:
     """Registers, spills and tensor-core instructions of every 16-bit
     instantiation of the two fused backward kernels, the forward, the dq
     + dk/dv pair and dbias (bf16 / fp16 x D 64 / 128 / 256 x dropout, and for the
-    forward and the pair with and without bias / softcap, for the forward
-    also the split's merge; the packed forward, dq and dk/dv); fails where
-    one has no HMMA, or a bf16 D 128 one of the trainers' (the Qwen and
-    Mistral shapes': no bias, no softcap; the merge included) or any one of
-    NO_SPILL_KERNELS spills.
+    forward and the pair with and without bias / softcap and at D 384 / 512
+    too, for the forward also the split's merge; the packed forward, dq
+    and dk/dv); fails where one has no HMMA, or a bf16 D 128 one of the
+    trainers' (the Qwen and Mistral shapes': no bias, no softcap; the merge
+    included), any one at D 384 / 512 or any one of NO_SPILL_KERNELS
+    spills.
     Returns {kernel: {instance: numbers}}."""
     from fa2_triton_tpu_torch.ops import _build
 
@@ -3957,7 +3987,8 @@ def mma_build_report() -> dict:
     for kernel in MMA_KERNELS:
         flags = (FWD_FLAGS if kernel == "flash_fwd_mma_kernel" else
                  ((False, False), (True, False)) if kernel in MMA_EXTRA else ((False, False),))
-        for dt, D, drop, (extra, merge) in itertools.product(("bf16", "fp16"), (64, 128, 256),
+        dims = (64, 128, 256) + (WIDE_DIMS if kernel in MMA_EXTRA else ())
+        for dt, D, drop, (extra, merge) in itertools.product(("bf16", "fp16"), dims,
                                                              (False, True), flags):
             inst = (kernel, dt, D, drop, extra, merge)
             if inst not in table or inst not in hmma:
@@ -3970,8 +4001,8 @@ def mma_build_report() -> dict:
                   f"loads {ld} B, {n} HMMA in the SASS")
             if n == 0:
                 raise AssertionError(f"{inst}: no tensor-core instruction")
-            if (st or ld) and (kernel in NO_SPILL_KERNELS or (dt == "bf16" and D == 128
-                                                               and not extra)):
+            if (st or ld) and (kernel in NO_SPILL_KERNELS or D > 256
+                               or (dt == "bf16" and D == 128 and not extra)):
                 raise AssertionError(f"{inst}: spills {st} / {ld} bytes")
             out[kernel][f"{dt} D{D}{' drop' if drop else ''}{' extra' if extra else ''}"
                         f"{' merge' if merge else ''}"] = {
@@ -3981,11 +4012,11 @@ def mma_build_report() -> dict:
 
 def decode_build_report() -> dict:
     """Registers and spills of every `decode_kernel` instantiation (T x
-    cache x layout x D x G: 216) from nvcc -Xptxas -v's report, and the HMMA
-    count of the 16-bit ones in the SASS; fails on any spill, on a count
-    other than 216 or on a 16-bit instantiation without tensor-core
-    instructions. Returns the summary."""
-    from fa2_triton_tpu_torch.ops import _build
+    cache x layout x D x G: 3 x 3 x 2 x 5 x 4 = 360) from nvcc -Xptxas -v's
+    report, and the HMMA count of the 16-bit ones in the SASS; fails on any
+    spill, on another count or on a 16-bit instantiation without
+    tensor-core instructions. Returns the summary."""
+    from fa2_triton_tpu_torch.ops import _build, decode
 
     regs, spills, cur, prop = {}, {}, None, None
     for line in (_build.ptxas_report or "").splitlines():
@@ -4022,7 +4053,8 @@ def decode_build_report() -> dict:
           f"{len(spilled)} spill; {len(sixteen)} 16-bit, each with HMMA in the SASS "
           f"({len(no_mma)} without); bf16 contiguous D 128 G 4: {regs.get(bf16)} registers, "
           f"{hmma.get(bf16)} HMMA")
-    if len(regs) != 216 or spilled or no_mma or not sixteen:
+    want = 3 * 3 * 2 * len(decode.HEAD_DIMS) * len(decode.GROUPS)
+    if len(regs) != want or spilled or no_mma or not sixteen:
         raise AssertionError(f"decode build: {len(regs)} instantiations, spills {spilled}, "
                              f"16-bit without HMMA {no_mma[:4]}")
     return summary
@@ -5809,6 +5841,465 @@ def phase_parallel_train(torch, card):
     return {"launches": totals, **out}
 
 
+# ---------------------------------------------------------------------------
+# Phase 20 (head dims 384 and 512): the forward, the dq + dk/dv pair and
+# decode at D 384 / 512, each against its plain twin; their times at the
+# model's shapes; Mistral-7B-v0.3's widths with the attention cut into heads
+# of 512 (8 query heads, 2 KV heads: wq / wk / wv / wo keep the preset's
+# shapes and the attention FLOPs per token, since Hq x D = 4096), served and
+# trained; and Phi-3-mini-4k-instruct's widths (head_dim 96), whose decode
+# runs only because the caches are allocated at the kernels' head dim 128.
+
+WIDE_DIMS = (384, 512)
+WIDE_HEADS = (8, 2)              # Hq, Hkv of (a) / (b): Mistral's 4096 / 1024 in heads of 512
+WIDE_CHECK_SEQ = 1024            # (a): split and strip gates pass at bf16 S 1024, tri-square at 256
+WIDE_TIME_B, WIDE_TIME_SEQ = 2, 2048
+WIDE_DECODE_SLOTS, WIDE_DECODE_ROWS = 8, 4096
+WIDE_REQUESTS = 8                # (c) serves the first 8 of phase 3's prompts
+WIDE_TRAIN_STEPS = 3
+# Phi-3-mini-4k-instruct (huggingface.co/microsoft/Phi-3-mini-4k-instruct,
+# config.json): hidden 3072, 32 layers, 32 heads (MHA), intermediate 8192,
+# vocab 32064, rope_theta 1e4, rms_norm_eps 1e-5, 4096 positions; its
+# sliding_window 2047 as JAX's loader takes it (window 2046 keys back).
+PHI3_WIDTHS = dict(vocab_size=32064, dim=3072, n_layers=32, n_heads=32, n_kv_heads=32,
+                   hidden_dim=8192, head_dim=96, rope_theta=1e4, norm_eps=1e-5, max_seq_len=4096,
+                   sliding_window=2046)
+SERVE_MODES.update({"serve wide": {}, "serve wide paged int8": {"paged": True, "qdtype": "int8"},
+                    "serve phi3": {}, "serve phi3 paged int8": {"paged": True, "qdtype": "int8"}})
+
+
+def wide_counts():
+    from fa2_triton_tpu_torch.ops import decode, flash_bwd, flash_fwd
+
+    return {"flash_fwd": flash_fwd.LAUNCHES + sum(flash_fwd.SCHEDULE_LAUNCHES.values()),
+            "flash_bwd_dq": flash_bwd.LAUNCHES["flash_bwd_dq"],
+            "flash_bwd_dkdv": flash_bwd.LAUNCHES["flash_bwd_dkdv"], "decode": decode.LAUNCHES}
+
+
+def wide_reset():
+    from fa2_triton_tpu_torch.ops import decode, flash_bwd, flash_fwd
+
+    flash_fwd.reset_launches()
+    flash_bwd.reset_launches()
+    decode.reset_launches()
+
+
+def fa_check(torch, what, got, ref32, plain, fp32=False):
+    """The FA contract of one output: fp32 within FP32_TOL of the fp32
+    plain twin, 16-bit within 2 x the 16-bit plain twin's error + 5e-5."""
+    err = max_abs(torch, got, ref32)
+    bound = FP32_TOL if fp32 else OUT_ERROR_MUL * max_abs(torch, plain, ref32) + OUT_ERROR_BIAS
+    if not (torch.isfinite(got).all() and err <= bound):
+        raise AssertionError(f"{what}: max abs err {err:.3e} > {bound:.3e}")
+    return err
+
+
+def wide_forward_checks(torch, D, x32, lens, worst):
+    """(a)'s forward at head dim D: every route forced by name (tri-square
+    at S 256, the split with its merge, the strip and the generic kernel at
+    S 1024), dropout, a bias, softcap and a window, in bf16; fp32 and fp16
+    (the tensor-core kernel, and through flash_attn_func the fp32 and bf16
+    compute of JAX's fp16 rule)."""
+    from fa2_triton_tpu_torch.ops import flash_attn_func, flash_fwd
+
+    t = lambda x: x.transpose(1, 2)
+    q32, k32, v32 = x32
+    S = q32.shape[1]
+    kw = dict(causal=True, softmax_scale=D ** -0.5)
+    bias32 = (torch.randn(1, q32.shape[2], S, S, generator=torch.Generator(device="cuda")
+                          .manual_seed(D), device="cuda") * 0.5)
+    cases = {"route tri_square S 256": dict(route="tri_square", static_skip=True, rows=256),
+             "route split": dict(route="split", static_skip=True),
+             "route strip": dict(route="strip", static_skip=True),
+             "route generic": dict(route="generic", static_skip=True),
+             "dropout": dict(dropout_p=0.1, dropout_seed=D),
+             "bias": dict(bias=True), "softcap": dict(softcap=5.0),
+             "window": dict(window=(300, 0))}
+    want = {"route tri_square S 256": "flash_fwd", "route split": "causal_diag",
+            "route strip": "causal_strip"}
+    for name, c in cases.items():
+        c = dict(c)
+        rows = c.pop("rows", S)
+        bias = bias32[:, :, :rows, :rows] if c.pop("bias", False) else None
+        args32 = [t(x[:, :rows]) for x in (q32, k32, v32)]
+        lens_c = torch.tensor([[rows, rows]] * q32.shape[0], dtype=torch.int32, device="cuda")
+        plain_kw = {k: v for k, v in c.items() if k not in ("route", "static_skip")}
+        ref = flash_fwd.flash_attn_forward_plain(*args32, lens_c, 0, 0, bias, **kw, **plain_kw)[0]
+        xb = [a.to(torch.bfloat16) for a in args32]
+        bb = None if bias is None else bias.to(torch.bfloat16)
+        plain = flash_fwd.flash_attn_forward_plain(*xb, lens_c, 0, 0, bb, **kw, **plain_kw)[0]
+        before = {"flash_fwd": flash_fwd.LAUNCHES, **flash_fwd.SCHEDULE_LAUNCHES}
+        o, _ = flash_fwd.flash_attn_forward(*xb, lens_c, 0, 0, bb, **kw, **c)
+        torch.cuda.synchronize()
+        after = {"flash_fwd": flash_fwd.LAUNCHES, **flash_fwd.SCHEDULE_LAUNCHES}
+        delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        expect = ({"causal_diag": 1, "rect_merge": 1} if name == "route split"
+                  else {want.get(name, "flash_fwd"): 1})
+        if delta != expect:
+            raise AssertionError(f"D {D} forward {name}: launches {delta}, not {expect}")
+        worst["forward"] = max(worst["forward"], fa_check(torch, f"D {D} forward {name}", o, ref,
+                                                          plain))
+    ref = flash_fwd.flash_attn_forward_plain(*(t(x) for x in x32), lens, **kw)[0]
+    o = flash_fwd.flash_attn_forward(*(t(x) for x in x32), lens, **kw)[0]
+    fa_check(torch, f"D {D} forward fp32", o, ref, None, fp32=True)
+    xh = [t(x.half()) for x in x32]
+    o = flash_fwd.flash_attn_forward(*xh, lens, **kw)[0]
+    fa_check(torch, f"D {D} forward fp16 (tensor cores)", o, ref,
+             flash_fwd.flash_attn_forward_plain(*xh, lens, **kw)[0])
+    for compute in (None, torch.bfloat16):
+        o = flash_attn_func(*(x.half() for x in x32), causal=True, fp16_compute_dtype=compute)
+        xc = [t(x.half().to(compute or torch.float32)) for x in x32]
+        fa_check(torch, f"D {D} flash_attn_func fp16 computing in {compute or torch.float32}",
+                 t(o), ref, flash_fwd.flash_attn_forward_plain(*xc, lens, **kw)[0].half(),
+                 fp32=False)
+
+
+def wide_backward_checks(torch, D, x32, do32, lens, worst):
+    """(a)'s backward at head dim D: the pair (dq_mma_kernel + dkdv_mma_kernel)
+    on the generic route and, where its gate passes (D 384), the strip's,
+    with dropout and with EXTRA (a bias that needs no gradient, softcap), in
+    bf16, and the FMA pair in fp32, each against the fp32 plain backward
+    (the FA gradient contract)."""
+    from fa2_triton_tpu_torch.ops import flash_bwd, flash_fwd
+
+    t = lambda x: x.transpose(1, 2)
+    S, Hq = x32[0].shape[1], x32[0].shape[2]
+    kw = dict(causal=True, softmax_scale=D ** -0.5)
+    bias32 = torch.randn(1, Hq, S, S, generator=torch.Generator(device="cuda").manual_seed(D + 1),
+                         device="cuda") * 0.5
+    strip_ok = flash_bwd.backward_route(S, S, D, 2, causal=True, group=Hq // x32[1].shape[2],
+                                        static_skip=True) == "strip"
+    cases = {"generic": {}, "dropout": dict(dropout_p=0.1, dropout_seed=D + 3),
+             "bias": dict(bias=True), "softcap": dict(softcap=5.0)}
+    if strip_ok:
+        cases["route strip"] = dict(static_skip=True, route="strip")
+        cases["route strip dropout"] = dict(static_skip=True, route="strip", dropout_p=0.1,
+                                            dropout_seed=D + 5)
+    for name, c in list(cases.items()) + [("fp32", dict(fp32=True))]:
+        c = dict(c)
+        fp32 = c.pop("fp32", False)
+        bias = bias32 if c.pop("bias", False) else None
+        plain_kw = {k: v for k, v in c.items() if k not in ("route", "static_skip")}
+        a32 = [t(x) for x in x32]
+        o32, lse32 = flash_fwd.flash_attn_forward_plain(*a32, lens, 0, 0, bias, **kw, **plain_kw)
+        refs = flash_bwd.flash_attn_backward_plain(*a32, t(do32), o32, lse32, lens, 0, 0, bias,
+                                                   **kw, **plain_kw)
+        dt = torch.float32 if fp32 else torch.bfloat16
+        xb, dob = [a.to(dt) for a in a32], t(do32.to(dt))
+        bb = None if bias is None else bias.to(dt)
+        o, lse = flash_fwd.flash_attn_forward(*xb, lens, 0, 0, bb, **kw, **plain_kw)
+        before = dict(flash_bwd.LAUNCHES)
+        grads = flash_bwd.flash_attn_backward(*xb, dob, o, lse, lens, 0, 0, bb, **kw, **c)
+        torch.cuda.synchronize()
+        delta = {k: flash_bwd.LAUNCHES[k] - before[k] for k in before}
+        if delta != {"flash_bwd_dq": 1, "flash_bwd_dkdv": 1, "flash_bwd_dbias": 0}:
+            raise AssertionError(f"D {D} backward {name}: launches {delta}")
+        o_pl, lse_pl = flash_fwd.flash_attn_forward_plain(*xb, lens, 0, 0, bb, **kw, **plain_kw)
+        plains = flash_bwd.flash_attn_backward_plain(*xb, dob, o_pl, lse_pl, lens, 0, 0, bb, **kw,
+                                                     **plain_kw)
+        for gname, g, r, pl in zip(("dq", "dk", "dv"), grads, refs, plains):
+            if fp32:
+                check_fp32_grad(torch, gname, g, r, f"D {D} backward fp32")
+            else:
+                err, _ = check_grad(torch, gname, g, r, pl, f"D {D} backward {name}")
+                worst["backward"] = max(worst["backward"], err)
+    return strip_ok
+
+
+def wide_decode_checks(torch, D, worst):
+    """(a)'s decode at head dim D: 8 slots, Hq 8 / Hkv 2, 2048 cache rows at
+    phase 2's lengths up to 2048: contiguous bf16, fp16, fp32, int8 and fp8
+    caches and paged bf16 and int8 (page 128) against the plain twins at
+    matched bit-width; paged equal to contiguous bit for bit."""
+    from fa2_triton_tpu_torch.ops import decode
+    from fa2_triton_tpu_torch.ops.quant import quantize_tensor
+
+    gen = torch.Generator(device="cuda").manual_seed(D + 7)
+    lens = [n for n in DECODE_LENS if n <= 2048]
+    B, (Hq, Hkv), S = len(lens), WIDE_HEADS, 2048
+    q32 = torch.randn(B, Hq, D, generator=gen, device="cuda") * 0.5
+    k32, v32 = (torch.randn(B, Hkv, S, D, generator=gen, device="cuda") * 0.5 for _ in range(2))
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    for dt in (torch.float32, torch.float16, torch.bfloat16):
+        ref = decode.decode_attention_plain(q32, k32, v32, kv_lens)
+        xs = [x.to(dt) for x in (q32, k32, v32)]
+        o = decode.decode_attention(*xs, kv_lens)
+        err = fa_check(torch, f"D {D} decode {dt}", o, ref,
+                       decode.decode_attention_plain(*xs, kv_lens), fp32=dt == torch.float32)
+        if dt == torch.bfloat16:
+            worst["decode"] = max(worst["decode"], err)
+            pools, tables = page_pool(torch, (xs[1], xs[2], None, None), lens, 128, seed=D,
+                                      fill=float("nan"))
+            op = decode.paged_decode_attention(xs[0], pools[0], pools[1], tables, kv_lens)
+            if not torch.equal(op, o):
+                raise AssertionError(f"D {D} paged bf16 decode differs from contiguous")
+    q = q32.to(torch.bfloat16)
+    for name, qd in (("int8", torch.int8), ("fp8", torch.float8_e4m3fn)):
+        (kq, ks), (vq, vs) = (quantize_tensor(x, qd) for x in (k32, v32))
+        scales = [s.transpose(-1, -2).contiguous() for s in (ks, vs)]
+        ref = decode.decode_attention_plain(q32, kq, vq, kv_lens, *scales)
+        o = decode.decode_attention(q, kq, vq, kv_lens, *scales)
+        err = fa_check(torch, f"D {D} decode {name} cache", o, ref,
+                       decode.decode_attention_plain(q, kq, vq, kv_lens, *scales))
+        worst["decode"] = max(worst["decode"], err)
+        if name == "int8":
+            pools, tables = page_pool(torch, (kq, vq, *scales), lens, 128, seed=D + 1, fill=0.0)
+            op = decode.paged_decode_attention(q, pools[0], pools[1], tables, kv_lens, *pools[2:])
+            if not torch.equal(op, o):
+                raise AssertionError(f"D {D} paged int8 decode differs from contiguous")
+
+
+def wide_kernel_checks(torch):
+    """(a): each kernel at D 384 and 512 against its plain twin; the launch
+    count of every family at each D must be positive."""
+    dev = torch.device("cuda")
+    Hq, Hkv = WIDE_HEADS
+    worst = {"forward": 0.0, "backward": 0.0, "decode": 0.0}
+    launches, strip = {}, {}
+    for D in WIDE_DIMS:
+        gen = torch.Generator(device=dev).manual_seed(D)
+        S = WIDE_CHECK_SEQ
+        x32 = [torch.randn(1, S, h, D, generator=gen, device=dev) * 0.5 for h in (Hq, Hkv, Hkv)]
+        do32 = torch.randn(1, S, Hq, D, generator=gen, device=dev)
+        lens = torch.tensor([[S, S]], dtype=torch.int32, device=dev)
+        totals = dict.fromkeys(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv", "decode"), 0)
+
+        def tally(fn, *args):
+            wide_reset()
+            out = fn(*args)
+            for k, n in wide_counts().items():
+                totals[k] += n
+            return out
+        tally(wide_forward_checks, torch, D, x32, lens, worst)
+        strip[D] = tally(wide_backward_checks, torch, D, x32, do32, lens, worst)
+        tally(wide_decode_checks, torch, D, worst)
+        if not all(totals.values()):
+            raise AssertionError(f"D {D}: a kernel family never launched: {totals}")
+        launches[D] = totals
+        del x32, do32
+        torch.cuda.empty_cache()
+    print(f"[wide kernels] D {list(WIDE_DIMS)}: every forward route (tri-square, split + merge, "
+          f"strip, generic), dropout, bias, softcap, window; bf16 / fp16 / fp32; the pair with "
+          f"dropout and EXTRA (strip route at D {[d for d in strip if strip[d]]}); decode "
+          f"bf16 / fp16 / fp32 / int8 / fp8, paged bf16 / int8 == contiguous: within the FA "
+          f"contract (worst bf16 errors {({k: float(f'{v:.3e}') for k, v in worst.items()})}); "
+          f"launches {launches}")
+    return launches, worst
+
+
+def library_sdpa(torch, q, k, v, causal, scale):
+    """One PyTorch call for the attention of BHSD q / k / v (GQA by
+    repeating k / v) on SDPA's memory-efficient backend, which takes head
+    dims past 256 (its flash backend stops there). Returns (backend name,
+    call), or (None, the reason it refused)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    g = q.shape[1] // k.shape[1]
+    kr, vr = (x.repeat_interleave(g, 1) for x in (k, v))
+
+    def call():
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            return F.scaled_dot_product_attention(q, kr, vr, is_causal=causal, scale=scale)
+    try:
+        call()
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        return None, f"EFFICIENT_ATTENTION: {str(e).splitlines()[0][:120]}"
+    return "EFFICIENT_ATTENTION", call
+
+
+def wide_times(torch, card):
+    """(b): the forward and the pair at B 2 x S 2048, causal, Hq 8 / Hkv 2,
+    D 512 and 384, and decode over 8 slots x 4096 rows at D 512 (2 KV
+    heads, G 4), bf16: kernel device time (profiler), the plain twin's and
+    the library's (SDPA's memory-efficient backend), and each bound."""
+    from fa2_triton_tpu_torch.ops import decode, flash_bwd, flash_fwd
+
+    dev = torch.device("cuda")
+    Hq, Hkv = WIDE_HEADS
+    B, S = WIDE_TIME_B, WIDE_TIME_SEQ
+    out = {}
+    for D in (512, 384):
+        gen = torch.Generator(device=dev).manual_seed(D + 11)
+        q, k, v = ((torch.randn(B, S, h, D, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+                   .transpose(1, 2) for h in (Hq, Hkv, Hkv))
+        do = torch.randn(B, S, Hq, D, generator=gen, device=dev).to(torch.bfloat16).transpose(1, 2)
+        lens = torch.tensor([[S, S]] * B, dtype=torch.int32, device=dev)
+        kw = dict(causal=True, softmax_scale=D ** -0.5)
+        route = flash_fwd.forward_route(S, S, D, 2, causal=True, static_skip=True)
+        fwd = lambda: flash_fwd.flash_attn_forward(q, k, v, lens, static_skip=True, **kw)
+        o, lse = fwd()
+        bwd = lambda: flash_bwd.flash_attn_backward(q, k, v, do, o, lse, lens, static_skip=True,
+                                                    **kw)
+        name = "flash_fwd_mma_kernel"
+        ms = {"fwd": kernel_ms(torch, fwd, [name])[name]}
+        ms.update(kernel_ms(torch, bwd, ["dq_mma_kernel", "dkdv_mma_kernel"]))
+        # The calls by CUDA events, host work included (delta, layouts).
+        ms.update(fwd_call=cuda_ms(torch, fwd, iters=5), bwd_call=cuda_ms(torch, bwd, iters=5))
+        plain_f = cuda_ms(torch, lambda: flash_fwd.flash_attn_forward_plain(q, k, v, lens, **kw),
+                          iters=3, warmup=1)
+        plain_b = cuda_ms(torch, lambda: flash_bwd.flash_attn_backward_plain(q, k, v, do, o, lse,
+                                                                             lens, **kw),
+                          iters=3, warmup=1)
+        pairs = B * causal_pairs([S])
+        bounds = {"fwd": attn_bound("fwd", pairs, B * S, Hq, Hkv, D, 2),
+                  "dq_mma_kernel": attn_bound("dq", pairs, B * S, Hq, Hkv, D, 2),
+                  "dkdv_mma_kernel": attn_bound("dkdv", pairs, B * S, Hq, Hkv, D, 2)}
+        backend, lib = library_sdpa(torch, q, k, v, True, D ** -0.5)
+        lib_f = lib_fb = None
+        if backend is not None:
+            lib_f = cuda_ms(torch, lib, iters=5)
+            qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+            _, lib_g = library_sdpa(torch, qg, kg, vg, True, D ** -0.5)
+            lib_fb = cuda_ms(torch, lambda: lib_g().backward(do), iters=3)
+        entry = {"route": route, "ms": ms, "plain_fwd_ms": plain_f, "plain_bwd_ms": plain_b,
+                 "bounds": bounds, "library": backend or lib, "library_fwd_ms": lib_f,
+                 "library_fwd_bwd_ms": lib_fb}
+        out[D] = entry
+        print(f"[wide times] B {B} x S {S} causal, Hq {Hq} / Hkv {Hkv}, D {D}, bf16 [{card}]: "
+              f"forward ({route}) {ms['fwd']:.3f} ms, bound {bounds['fwd']['bound_ms']:.3f} ms "
+              f"({100 * bounds['fwd']['bound_ms'] / ms['fwd']:.1f} %); dq "
+              f"{ms['dq_mma_kernel']:.3f} ms, bound {bounds['dq_mma_kernel']['bound_ms']:.3f} "
+              f"ms; dk/dv {ms['dkdv_mma_kernel']:.3f} ms, bound "
+              f"{bounds['dkdv_mma_kernel']['bound_ms']:.3f} ms; the calls (CUDA events, 5 "
+              f"runs) {ms['fwd_call']:.3f} / {ms['bwd_call']:.3f} ms; plain {plain_f:.3f} / "
+              f"{plain_b:.3f} ms; library "
+              + (f"SDPA {backend}: forward {lib_f:.3f} ms, forward + backward {lib_fb:.3f} ms"
+                 if backend else f"none: {lib}"))
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    D = 512
+    gen = torch.Generator(device=dev).manual_seed(5)
+    slots, rows = WIDE_DECODE_SLOTS, WIDE_DECODE_ROWS
+    q = (torch.randn(slots, Hq, D, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+    kc, vc = ((torch.randn(slots, Hkv, rows, D, generator=gen, device=dev) * 0.5)
+              .to(torch.bfloat16) for _ in range(2))
+    kv_lens = torch.full((slots,), rows, dtype=torch.int32, device=dev)
+    run = lambda: decode.decode_attention(q, kc, vc, kv_lens)
+    dms = decode_kernel_ms(torch, run)
+    plain = cuda_ms(torch, lambda: decode.decode_attention_plain(q, kc, vc, kv_lens), iters=3)
+    nbytes = 2 * slots * rows * Hkv * D * 2 + 2 * slots * Hq * D * 2
+    dbound = roofline(4 * D * Hq * slots * rows, nbytes)
+    backend, lib = library_sdpa(torch, q[:, :, None], kc, vc, False, D ** -0.5)
+    lib_ms = library_mean_ms(torch, lib) if backend else None
+    out["decode"] = {"ms": dms, "plain_ms": plain, **dbound, "library": backend or lib,
+                     "library_ms": lib_ms}
+    print(f"[wide times] decode {slots} slots x {rows} rows, Hq {Hq} / Hkv {Hkv}, D {D}, bf16 "
+          f"[{card}]: kernel {dms:.4f} ms, bound {dbound['bound_ms']:.4f} ms "
+          f"({dbound['bound_by']}, {100 * dbound['bound_ms'] / dms:.1f} %), plain {plain:.3f} ms, "
+          f"library " + (f"SDPA {backend} {lib_ms:.4f} ms" if backend else f"none: {lib}"))
+    return out
+
+
+def wide_model(torch, card):
+    """(c): Mistral-7B-v0.3's widths, heads cut to 8 x 512 / 2 x 512, full
+    depth, random weights (seed 0): 8 of phase 3's prompts served through a
+    contiguous bf16 and a paged int8 cache (phase 3's log-prob check), the
+    2-layer gradients against fp32, then WIDE_TRAIN_STEPS trainer steps at
+    2 x 2048."""
+    from fa2_triton_tpu_torch.examples import train
+    from fa2_triton_tpu_torch.models import init_params
+    from fa2_triton_tpu_torch.ops import flash_bwd, flash_fwd
+
+    over = dict(n_heads=8, n_kv_heads=2, head_dim=512)
+    cfg = train.preset_config("mistral-7b-v0.3", torch.bfloat16, **over)
+    res = {}
+    with torch.inference_mode():
+        model = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+        prompts = served_prompts(cfg)[:WIDE_REQUESTS]
+        for what, tol in (("serve wide", (LOGPROB_MEAN_TOL, LOGPROB_MAX_TOL)),
+                          ("serve wide paged int8", QUANT_LOGPROB_TOL["int8"])):
+            reqs, stats, launches = serve(torch, model, cfg, prompts, card, what)[:3]
+            errs = check_logprobs(torch, model, cfg, reqs, prompts, what, *tol)
+            res[what] = {"launches": launches, "decode_tokens_per_s": stats.decode_tokens_per_s,
+                         "logprob_err_max": float(max(e.max() for e in errs))}
+        del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_grads(torch, what="wide train", **over)
+    gc.collect()
+    torch.cuda.empty_cache()
+    argv = ["--config", "mistral-7b-v0.3", "--steps", str(WIDE_TRAIN_STEPS), "--batch", "2",
+            "--seq", str(TRAIN_SEQ), "--remat", "--repeat-batch", "--lr", "3e-4",
+            "--grad-clip", "1.0"]
+
+    def reset():
+        flash_fwd.reset_launches()
+        flash_bwd.reset_launches()
+
+    preset = train.build_config
+    # The preset's widths with the attention cut into heads of 512: the
+    # trainer's own config, its heads replaced (no flag of the trainer
+    # names a head count).
+    train.build_config = lambda args: dataclasses.replace(preset(args), **over)
+    try:
+        args, run = run_trainer(torch, card, argv, reset, "wide train")
+    finally:
+        train.build_config = preset
+    L = run["config"].n_layers
+    launches = {"flash_fwd": flash_fwd.LAUNCHES + sum(flash_fwd.SCHEDULE_LAUNCHES.values()),
+                **flash_bwd.LAUNCHES}
+    want = {"flash_fwd": 2 * L * args.steps, "flash_bwd_dq": L * args.steps,
+            "flash_bwd_dkdv": L * args.steps, "flash_bwd_dbias": 0}
+    if run["config"].hd != 512 or launches != want:
+        raise AssertionError(f"wide training: head_dim {run['config'].hd}, launches {launches} "
+                             f"!= {want}")
+    res["train"] = {"layers": L, "losses": run["losses"], "step_s": run["step_s"],
+                    "tokens_per_s": run["tokens_per_s"], "peak_gib": run["peak_bytes"] / 2**30,
+                    "launches": launches}
+    return res
+
+
+def phi3_serve(torch, card):
+    """(d): Phi-3-mini-4k-instruct's widths (head_dim 96), random weights
+    (seed 0), phase 3's 16 requests through a contiguous bf16 and a paged
+    int8 cache, each held to phase 3's log-prob check: the caches are 128
+    wide, the decode kernel's head dim."""
+    from fa2_triton_tpu_torch.models import LlamaConfig, init_params
+    from fa2_triton_tpu_torch.ops.attention import kernel_head_dim
+
+    cfg = LlamaConfig(dtype=torch.bfloat16, **PHI3_WIDTHS)
+    res = {}
+    with torch.inference_mode():
+        model = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"[phi3] Phi-3-mini-4k-instruct widths, {n_params / 1e9:.2f} B params bf16, random "
+              f"(seed 0), head_dim {cfg.hd}: the caches are {kernel_head_dim(cfg.hd)} wide, the "
+              f"decode kernel's head dim")
+        prompts = served_prompts(cfg)
+        for what, tol in (("serve phi3", (LOGPROB_MEAN_TOL, LOGPROB_MAX_TOL)),
+                          ("serve phi3 paged int8", QUANT_LOGPROB_TOL["int8"])):
+            reqs, stats, launches = serve(torch, model, cfg, prompts, card, what)[:3]
+            errs = check_logprobs(torch, model, cfg, reqs, prompts, what, *tol)
+            res[what] = {"launches": launches, "decode_tokens_per_s": stats.decode_tokens_per_s,
+                         "logprob_err_max": float(max(e.max() for e in errs))}
+        del model
+    return res
+
+
+def phase_wide(torch, card):
+    """Phase 20: head dims 384 and 512 ((a)-(d) above)."""
+    t0 = time.perf_counter()
+    os.environ["FA2_DISABLE_TUNING_TABLE"] = "1"   # the prior's routes, as phases 1-16
+    try:
+        with torch.inference_mode():
+            launches, worst = wide_kernel_checks(torch)
+        times = wide_times(torch, card)   # the library's backward records a graph
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = wide_model(torch, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phi3 = phi3_serve(torch, card)
+    finally:
+        os.environ.pop("FA2_DISABLE_TUNING_TABLE", None)
+    seconds = time.perf_counter() - t0
+    print(f"[wide] phase 20 in {seconds:.1f} s")
+    return {"launches": launches, "worst": worst, "times": times, "model": model, "phi3": phi3,
+            "seconds": seconds}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -5897,6 +6388,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     parallel_train = phase_parallel_train(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    wide = phase_wide(torch, card)
 
     if any(name == "jax" or name.startswith(("jax.", "fa2_triton_tpu.")) for name in sys.modules):
         raise RuntimeError("the port imported jax or the JAX package")
@@ -6087,6 +6581,37 @@ def main() -> int:
         k: parallel_train[k] for k in ("train", "pipelines", "ep", "seconds", "ab_world_s")}
     by_name["flash_fwd"]["parallel_train"]["dryrun"] = {
         k: v for k, v in parallel_train["dryrun"].items() if k != "line"}
+    # Phase 20: the head dims each kernel is built for, and its launches at
+    # D 384 / 512 ((a)'s checks, (c)'s serving and training, (d)'s serving).
+    wide_entries = {"flash_fwd": "flash_fwd", "flash_bwd_dq": "flash_bwd_dq",
+                    "flash_bwd_dkdv": "flash_bwd_dkdv", "decode": "decode"}
+    wide_built = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv", "decode", "decode_quant",
+                  "paged_decode", "flash_fwd_dropout", "flash_bwd_dropout_dq",
+                  "flash_bwd_dropout_dkdv", "flash_fwd_causal_strip", "flash_fwd_causal_diag",
+                  "flash_fwd_rect", "flash_fwd_rect_merge", "flash_bwd_rect")
+    for e in table["kernels"]:
+        e["head_dims"] = [64, 128, 256] + (list(WIDE_DIMS) if e["name"] in wide_built else [])
+    for name, counter in wide_entries.items():
+        for D in WIDE_DIMS:
+            by_name[name][f"launches_wide_{D}"] = wide["launches"][D][counter]
+    serve_wide, serve_phi3 = wide["model"]["serve wide"], wide["phi3"]["serve phi3"]
+    by_name["flash_fwd"]["launches_wide_serve"] = serve_wide["launches"]["flash_fwd"]
+    by_name["flash_fwd"]["launches_phi3_serve"] = serve_phi3["launches"]["flash_fwd"]
+    by_name["decode"]["launches_wide_serve"] = serve_wide["launches"]["decode"]
+    by_name["decode"]["launches_phi3_serve"] = serve_phi3["launches"]["decode"]
+    for name, what in (("paged_decode", "serve wide paged int8"),):
+        by_name[name]["launches_wide_serve"] = wide["model"][what]["launches"]["decode"]
+        by_name[name]["launches_phi3_serve"] = wide["phi3"]["serve phi3 paged int8"]["launches"][
+            "decode"]
+    for name, counter in (("flash_fwd", "flash_fwd"), ("flash_bwd_dq", "flash_bwd_dq"),
+                          ("flash_bwd_dkdv", "flash_bwd_dkdv")):
+        by_name[name]["launches_wide_train"] = wide["model"]["train"]["launches"][counter]
+    by_name["flash_fwd"]["wide"] = {
+        "times": {str(k): v for k, v in wide["times"].items()}, "worst_err": wide["worst"],
+        "model": {k: {n: x for n, x in v.items() if n != "launches"}
+                  for k, v in wide["model"].items()},
+        "phi3": {k: {n: x for n, x in v.items() if n != "launches"}
+                 for k, v in wide["phi3"].items()}, "seconds": wide["seconds"]}
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps(table))

@@ -52,21 +52,26 @@
 
 namespace fa2 {
 
-// The fused kernels' (and the dense dk/dv kernel's) kv rows of a block:
-// what ops/flash_bwd.py:fused_kv_tile counts the partitions in.
+// The fused kernels' (and, up to D 256, the dense dk/dv kernel's) tiles: q
+// rows of a streamed tile and kv rows of a block, what ops/flash_bwd.py
+// counts the partitions in (FUSED_BQ, fused_kv_tile).
 template <int D>
 struct FusedKv {
+  static constexpr int BQ = 64;  // q rows of a streamed tile (ops/flash_bwd.py FUSED_BQ)
   static constexpr int BKV = D <= 128 ? 128 : 64;
 };
 
-// BKV_, NW_ and DS_ default to the fused kernels' and the dense dk/dv
+// BKV_, NW_, DS_ and BQ_ default to the fused kernels' and the dense dk/dv
 // kernel's layout; varlen.cu's dk/dv kernel takes 64 kv rows (4 warps at D
-// <= 128) and keeps no dS^T (DS_ false: no shared memory for it).
-template <int D_, int BKV_ = FusedKv<D_>::BKV, int NW_ = THREADS / 32, bool DS_ = true>
+// <= 128) and keeps no dS^T (DS_ false: no shared memory for it), and the
+// dense dk/dv kernel past D 256 takes 32 kv rows and 32-row q tiles
+// (DkdvMmaCfg).
+template <int D_, int BKV_ = FusedKv<D_>::BKV, int NW_ = THREADS / 32, bool DS_ = true,
+          int BQ_ = FusedKv<D_>::BQ>
 struct MmaCfg {
   static constexpr int D = D_;
   static constexpr int BKV = BKV_;                 // kv rows of a block's tile
-  static constexpr int BQ = 64;                    // q rows of a streamed tile
+  static constexpr int BQ = BQ_;                   // q rows of a streamed tile
   static constexpr int NW = NW_;                   // warps of a block
   static constexpr int KW = BKV / 16;              // warps along the kv rows
   static constexpr int WD = NW / KW;               // warps along D for dK / dV
@@ -85,6 +90,19 @@ struct MmaCfg {
   static_assert(KW * WD == NW && NT_KV % 2 == 0 && NT_Q % 2 == 0 && QH % 16 == 0 &&
                 DQ % QP == 0, "warp layout");
 };
+
+// The dense dk/dv kernel's layout (flash_bwd.cu dkdv_mma_kernel): the fused
+// kernels' up to D 256. Past it (384, 512) a 64-row kv tile with 64-row q
+// tiles needs 311-410 KB of shared memory, above the 227 KB of a block, and
+// a warp's dK and dV over half of D would take 192-256 registers; so 32 kv
+// rows and 32-row q tiles, no dS^T (150,528 and 199,680 B), and 8 warps as
+// 2 along the kv rows x 4 along D: a warp holds dK and dV of 16 kv rows x
+// D / 4 columns (96-128 registers, as at D 256), and the 4 warps of a kv
+// row group each recompute its S^T and dP^T (4x their tensor work; dk/dv
+// then does 2.5x the products of one S^T, dP^T per row).
+template <int D>
+using DkdvMmaCfg = typename std::conditional<D <= 256, MmaCfg<D>,
+                                             MmaCfg<D, 32, THREADS / 32, false, 32>>::type;
 
 // Buffer b of the double-buffered tiles starts b tiles past its base (plain
 // pointers, not arrays: an array indexed by the run-time buffer would live in
@@ -391,18 +409,27 @@ __device__ __forceinline__ void mma_zero_kv(float (&dk)[C::NT_KV][4], float (&dv
 // warp 16 q rows (the forward's shape). Q and dO are staged once and read by
 // ldmatrix per k-step (held in registers they would leave no room beside dQ,
 // S and dP at D 128); K / V tiles of BKV rows arrive double-buffered by
-// cp.async, zero past the valid keys.
+// cp.async, zero past the valid keys. Past D 256 (384, 512) dQ alone would
+// take 192-256 registers a thread, so 8 warps share the tile, two per 16
+// rows, each holding half of dQ's columns and each computing the rows'
+// whole S and dP (the forward's pairs: S and dP cost twice their tensor
+// work); the K / V tiles shrink to 32 rows (16 at D 512) so that Q, dO and
+// the two K / V buffers fit the 227 KB of a block (200,704 and 199,680 B).
 
 template <int D_>
 struct DqMmaCfg {
   static constexpr int D = D_;
-  static constexpr int BQ = TM;                   // q rows of a block, 16 per warp
-  static constexpr int NW = BQ / 16;              // 4 warps
-  static constexpr int BKV = D <= 128 ? 64 : 32;  // kv rows of a streamed K / V tile
+  static constexpr int BQ = TM;                   // q rows of a block, 16 per row group
+  static constexpr int RG = BQ / 16;              // row groups: warp w owns rows 16 (w % RG)
+  static constexpr int WD = D <= 256 ? 1 : 2;     // warps of a row group, along dQ's columns
+  static constexpr int NW = RG * WD;              // 4 warps (8 past D 256)
+  static constexpr int BKV = D <= 128 ? 64 : D <= 384 ? 32 : 16;  // kv rows of a K / V tile
   static constexpr int P = D + 8;                 // shared row pitch, elements
   static constexpr int NT_S = BKV / 8;            // n-tiles of a warp's S and dP
-  static constexpr int NT_D = D / 8;              // n-tiles of a warp's dQ
+  static constexpr int DQ = D / WD;               // dQ columns of a warp: DQ (w / RG) on
+  static constexpr int NT_D = DQ / 8;             // n-tiles of a warp's dQ
   static constexpr int SMEM_BYTES = (2 * BQ + 4 * BKV) * P * 2;  // Q, dO; K and V double-buffered
+  static_assert(NT_S % 2 == 0 && NT_D % 2 == 0, "n-tiles in pairs");
 };
 
 // The K / V loop over n tiles in kv_s (buffer j: K at 2 j BKV rows, V BKV
@@ -467,7 +494,8 @@ __device__ __forceinline__ void sdp_mma_tile(const T* Qw, const T* dOw, const T*
 template <class C, typename T, class Elem>
 __device__ __forceinline__ void dq_mma_tile(const T* Qs, const T* dOs, const T* Ks, const T* Vs,
                                             const Elem& elem, float (&dq)[C::NT_D][4]) {
-  const int lane = threadIdx.x % 32, w = threadIdx.x / 32, g = lane / 4, t = lane % 4;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int w = threadIdx.x / 32 % C::RG, od = threadIdx.x / 32 / C::RG * C::DQ;
   float sc[C::NT_S][4], dp[C::NT_S][4];
   sdp_mma_tile<C, T>(Qs + w * 16 * C::P, dOs + w * 16 * C::P, Ks, Vs, sc, dp);
 #pragma unroll
@@ -485,7 +513,7 @@ __device__ __forceinline__ void dq_mma_tile(const T* Qs, const T* dOs, const T* 
 #pragma unroll
     for (int np = 0; np < C::NT_D / 2; ++np) {
       uint32_t bk[4];
-      ldsm_x4_t(bk, Ks + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * C::P + np * 16 +
+      ldsm_x4_t(bk, Ks + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * C::P + od + np * 16 +
                         (lane / 16) * 8);
       mma16816<T>(dq[2 * np], a, bk[0], bk[1]);
       mma16816<T>(dq[2 * np + 1], a, bk[2], bk[3]);
@@ -495,26 +523,32 @@ __device__ __forceinline__ void dq_mma_tile(const T* Qs, const T* dOs, const T* 
 
 // dq = mul * acc in T for the tile's first `rows` rows of `out` (row 0 of
 // the tile, row stride ss): a warp's rows go through its own 16 rows of
-// `stage` (shared, pitch P; no other warp reads them), then out as 16-byte
-// stores.
+// `stage` (shared, pitch P; no other warp reads them; past D 256 each warp
+// of a row pair moves its own columns, after a barrier, since both read all
+// of the staged Q), then out as 16-byte stores.
 template <class C, typename T>
 __device__ __forceinline__ void dq_mma_store(const float (&dq)[C::NT_D][4], T* stage, T* out,
                                              long long ss, int rows, float mul) {
-  const int lane = threadIdx.x % 32, w = threadIdx.x / 32, g = lane / 4, t = lane % 4;
-  __syncwarp();
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int w = threadIdx.x / 32 % C::RG, od = threadIdx.x / 32 / C::RG * C::DQ;
+  if constexpr (C::WD > 1) {
+    __syncthreads();  // the row pair is done reading Q
+  } else {
+    __syncwarp();
+  }
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int r = w * 16 + g + 8 * hr;
 #pragma unroll
     for (int n = 0; n < C::NT_D; ++n) {
-      *reinterpret_cast<uint32_t*>(stage + r * C::P + n * 8 + 2 * t) =
+      *reinterpret_cast<uint32_t*>(stage + r * C::P + od + n * 8 + 2 * t) =
           pack2<T>(dq[n][2 * hr] * mul, dq[n][2 * hr + 1] * mul);
     }
   }
   __syncwarp();
-  constexpr int CH = C::D / 8;
+  constexpr int CH = C::DQ / 8;  // 16-byte chunks of a warp's part of a row
   for (int i = lane; i < 16 * CH; i += 32) {
-    const int r = w * 16 + i / CH, c = (i % CH) * 8;
+    const int r = w * 16 + i / CH, c = od + (i % CH) * 8;
     if (r < rows) {
       *reinterpret_cast<uint4*>(out + (long long)r * ss + c) =
           *reinterpret_cast<const uint4*>(stage + r * C::P + c);

@@ -9,7 +9,7 @@ namespace dec {
 
 cudaError_t run_dense(int dtype, const DecParams& p, int B, int n_chunks, int D, int G,
                       cudaStream_t s) {
-  return run<void>(dtype, p, B, n_chunks, D, G, s);
+  return run<void, false>(dtype, p, B, n_chunks, D, G, s);
 }
 
 }  // namespace dec
@@ -46,9 +46,15 @@ extern "C" int fa2_decode(
   const int G = Hq / Hkv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (cache_kind) {
-    case fa2::dec::kDense: return (int)fa2::dec::run_dense(dtype, p, B, n_chunks, D, G, s);
-    case fa2::dec::kInt8: return (int)fa2::dec::run_int8(dtype, p, B, n_chunks, D, G, s);
-    case fa2::dec::kFp8: return (int)fa2::dec::run_fp8(dtype, p, B, n_chunks, D, G, s);
+    case fa2::dec::kDense:
+      return (int)(D > 256 ? fa2::dec::run_dense_wide : fa2::dec::run_dense)(dtype, p, B, n_chunks,
+                                                                           D, G, s);
+    case fa2::dec::kInt8:
+      return (int)(D > 256 ? fa2::dec::run_int8_wide : fa2::dec::run_int8)(dtype, p, B, n_chunks,
+                                                                         D, G, s);
+    case fa2::dec::kFp8:
+      return (int)(D > 256 ? fa2::dec::run_fp8_wide : fa2::dec::run_fp8)(dtype, p, B, n_chunks, D,
+                                                                       G, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -50,9 +50,10 @@
 //     the counter counts the live chunks and is reset to 0 by that block)
 //     merges the partials in chunk order, so arrival order changes no bit;
 //     no accumulator is ever updated atomically;
-//   * a pipelined row stream: each of the 4 warps walks its own 16-row
-//     groups of the chunk (8 for fp32 caches) through a 3-stage ring in
-//     shared memory filled by 16-byte cp.async copies (4-byte for the
+//   * a pipelined row stream: each of the 4 warps (2 at D 384 / 512, whose
+//     four rings would need 301-399 KB of shared memory) walks its own
+//     16-row groups of the chunk (8 for fp32 caches) through a 3-stage ring
+//     in shared memory filled by 16-byte cp.async copies (4-byte for the
 //     scales), so two groups are in flight while one is computed. Rows
 //     outside [first, kv_len) are zero-filled without being read: no row
 //     past a length, no page released behind the window, no table entry
@@ -63,15 +64,17 @@
 //     and a row's index is that base + (s & 127), with no per-row division;
 //   * scores on the tensor cores for 16-bit q (bf16 / fp16): with the GQA
 //     group as the 8 columns of mma.sync m16n8k16, S^T = K Q^T takes K rows
-//     by ldmatrix and q from registers, and O^T = V^T P^T takes V by
-//     ldmatrix.trans and P^T by movmatrix.trans of the packed scores; the
-//     softmax's row max is three shuffles per head and 16 rows. 8-bit rows
-//     are first widened to the compute type in shared memory (exact, by
-//     bit operations). P is rounded to the compute type, as in the
-//     forwards; over a quantized cache p times the v scale goes in as two
-//     16-bit terms (hi + lo), so its rounding stays under the output's own.
-//     fp32 q keeps FMA: each lane holds D / 32 elements of q and a score is
-//     a warp sum.
+//     by ldmatrix and q from registers (from shared memory at D 384 / 512,
+//     where O^T alone takes 96-128 registers a thread), and O^T = V^T P^T
+//     takes V by ldmatrix.trans and P^T by movmatrix.trans of the packed
+//     scores; the softmax's row max is three shuffles per head and 16 rows.
+//     8-bit rows are first widened to the compute type in shared memory
+//     (exact, by bit operations). P is rounded to the compute type, as in
+//     the forwards; over a quantized cache p times the v scale goes in as
+//     two 16-bit terms (hi + lo), so its rounding stays under the output's
+//     own.
+//     fp32 q keeps FMA: each lane holds D / 32 elements of q (read from
+//     shared memory at D 384 / 512) and a score is a warp sum.
 // Paged and contiguous give the same chunks, groups, row-to-thread map and
 // order on the same rows, so they give the same output bit for bit; a pool
 // whose max_pages * page exceeds S_max only adds chunks with no live row.
@@ -88,8 +91,6 @@ constexpr int RUN = 128;                  // rows of a page run (the page-size m
 constexpr int CHUNK = 512;                // logical rows per block (ops/decode.py mirrors it)
 constexpr int RUNS = CHUNK / RUN;         // page runs of a chunk
 static_assert(CHUNK % RUN == 0, "each page run of a chunk lies in one page");
-constexpr int NW = 4;                     // warps of a block
-constexpr int NT = NW * 32;
 constexpr int NS = 3;                     // ring stages of a warp
 constexpr int HP = 8;                     // query heads of a group, padded (mma N)
 
@@ -115,26 +116,34 @@ struct DecParams {
 template <typename C>
 constexpr bool kQuant = std::is_same<C, int8_t>::value || std::is_same<C, __nv_fp8_e4m3>::value;
 
-// Shared-memory plan of one instantiation. Each warp owns NS stages of GR
-// rows of K then V (row pitch RP elements of C; the 16-bit ring is padded by
-// 8 elements so ldmatrix's 8 row addresses fall in distinct bank groups),
-// the rows' scales when quantized, and, for 8-bit rows on the tensor cores,
-// one stage widened to T (pitch WP). After the row loop the same memory
-// holds the warps' states for the block's merge (RED_P: padded pitch).
+// Shared-memory plan of one instantiation. Each of the NW warps owns NS
+// stages of GR rows of K then V (row pitch RP elements of C; the 16-bit ring
+// is padded by 8 elements so ldmatrix's 8 row addresses fall in distinct
+// bank groups), the rows' scales when quantized, and, for 8-bit rows on the
+// tensor cores, one stage widened to T (pitch WP). Past D 256 (QS) the
+// group's q follows the rings: [HP][D + 8] of T for the tensor cores, [HP][D]
+// fp32 times scale * log2 e for FMA. After the row loop the rings hold the
+// warps' states for the block's merge (RED_P: padded pitch).
 template <typename T, typename C, int D>
 struct Cfg {
   static constexpr bool MMA = !std::is_same<T, float>::value;
   static constexpr bool QUANT = kQuant<C>;
   static constexpr bool WIDEN = MMA && QUANT;
+  static constexpr bool QS = D > 256;                  // q in shared memory
+  static constexpr int NW = D > 256 ? 2 : 4;           // warps of a block
+  static constexpr int NT = NW * 32;
   static constexpr int GR = (MMA || sizeof(C) < 4) ? 16 : 8;
   static constexpr int RP = (MMA && !QUANT) ? D + 8 : D;
   static constexpr int WP = D + 8;
   static constexpr int STAGE = 2 * GR * RP * (int)sizeof(C);
   static constexpr int SCALES = QUANT ? 2 * GR * 4 : 0;
   static constexpr int WARP_BYTES = NS * (STAGE + SCALES) + (WIDEN ? 2 * GR * WP * 2 : 0);
+  static constexpr int QP = D + 8;                     // the staged q's row pitch (MMA)
+  static constexpr int Q_BYTES = QS ? (MMA ? HP * QP * 2 : HP * D * 4) : 0;
   static constexpr int RED_P = D + 4;
   static constexpr int RED_BYTES = NW * HP * (RED_P + 2) * 4;
-  static constexpr int SMEM = NW * WARP_BYTES > RED_BYTES ? NW * WARP_BYTES : RED_BYTES;
+  static constexpr int LOOP_BYTES = NW * WARP_BYTES + Q_BYTES;
+  static constexpr int SMEM = LOOP_BYTES > RED_BYTES ? LOOP_BYTES : RED_BYTES;
   static_assert(STAGE % 16 == 0 && SCALES % 16 == 0, "16-byte aligned regions");
   static_assert(RUN % GR == 0, "a group lies in one page run");
 };
@@ -253,13 +262,13 @@ __device__ __forceinline__ void widen_stage(const unsigned char* src, T* dst) {
 // Lane (4 i + t) holds heads 2 t, 2 t + 1 of the group: their running max
 // (warp-uniform over i), a partial sum over its own rows (reduced across i at
 // the end), and O^T's accumulators acc[md] = rows d = 16 md + i (+ 8) of
-// those two heads. qb holds Q^T's B fragments (head i, d pairs 2 t (+ 8)).
-template <class Cf, typename T, int D>
+// those two heads. qb(kk, b0, b1) gives Q^T's B fragments of k-step kk
+// (head i, d pairs 2 t (+ 8)).
+template <class Cf, typename T, int D, class QFrag>
 __device__ __forceinline__ void mma_group(const DecParams& p, const T* Ks, const T* Vs,
                                           const float* ksc, const float* vsc, int row0, int lo,
-                                          int hi, const uint32_t (&qb)[D / 16][2],
-                                          float (&m_run)[2], float (&l_run)[2],
-                                          float (&acc)[D / 16][4]) {
+                                          int hi, const QFrag& qb, float (&m_run)[2],
+                                          float (&l_run)[2], float (&acc)[D / 16][4]) {
   constexpr int P = Cf::WIDEN ? Cf::WP : Cf::RP;
   constexpr int MB = Cf::GR / 16;
   const int lane = threadIdx.x % 32, i4 = lane / 4;
@@ -272,7 +281,9 @@ __device__ __forceinline__ void mma_group(const DecParams& p, const T* Ks, const
     for (int kk = 0; kk < D / 16; ++kk) {
       uint32_t a[4];
       ldsm_x4(a, Ks + (mb * 16 + lane % 16) * P + kk * 16 + (lane / 16) * 8);
-      mma16816<T>(s[mb], a, qb[kk][0], qb[kk][1]);
+      uint32_t b0, b1;
+      qb(kk, b0, b1);
+      mma16816<T>(s[mb], a, b0, b1);
     }
   }
   // Element e of m-block mb: row mb * 16 + i4 + 8 (e / 2), head 2 t + e % 2.
@@ -339,16 +350,17 @@ __device__ __forceinline__ void mma_group(const DecParams& p, const T* Ks, const
 
 // ---- one group by FMA (fp32 q) ----------------------------------------------
 
-// Lane l holds elements [l EPL, (l + 1) EPL) of q (times scale * log2 e) and
-// of each head's accumulator; m and l are warp-uniform. A softmax step takes
-// FMA_ROWS rows (2 at D 256, where 4 rows of K and V in registers spill).
-template <class Cf, typename C, int D, int G>
+// Lane l holds elements [l EPL, (l + 1) EPL) of q (times scale * log2 e;
+// q(g, e) reads them) and of each head's accumulator; m and l are
+// warp-uniform. A softmax step takes FMA_ROWS rows (2 at D 256, where 4
+// rows of K and V in registers spill; 1 past it).
+template <class Cf, typename C, int D, int G, class QElem>
 __device__ __forceinline__ void fma_group(const DecParams& p, const C* Ks, const C* Vs,
                                           const float* ksc, const float* vsc, int row0, int lo,
-                                          int hi, const float (&q)[G][D / 32], float (&m)[G],
-                                          float (&l)[G], float (&acc)[G][D / 32]) {
+                                          int hi, const QElem& q, float (&m)[G], float (&l)[G],
+                                          float (&acc)[G][D / 32]) {
   constexpr int EPL = D / 32;
-  constexpr int FMA_ROWS = D >= 256 ? 2 : 4;
+  constexpr int FMA_ROWS = D > 256 ? 1 : D == 256 ? 2 : 4;
   const int lane = threadIdx.x % 32;
 #pragma unroll 1
   for (int r0 = 0; r0 < Cf::GR; r0 += FMA_ROWS) {
@@ -366,7 +378,7 @@ __device__ __forceinline__ void fma_group(const DecParams& p, const C* Ks, const
       for (int r = 0; r < FMA_ROWS; ++r) {
         float d = 0.f;
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) d = fmaf(q[g][e], kr[r][e], d);
+        for (int e = 0; e < EPL; ++e) d = fmaf(q(g, e), kr[r][e], d);
         sc[r] = warp_sum(d);
         if constexpr (Cf::QUANT) sc[r] *= ksc[r0 + r];
       }
@@ -406,8 +418,9 @@ __device__ __forceinline__ void fma_group(const DecParams& p, const C* Ks, const
 // T: type of q and o; C: cache element type (T, int8_t or __nv_fp8_e4m3).
 // Block (chunk c, KV head hk, slot b).
 template <typename T, typename C, bool PAGED, int D, int G>
-__global__ void __launch_bounds__(NT) decode_kernel(const DecParams p) {
+__global__ void __launch_bounds__(Cfg<T, C, D>::NT) decode_kernel(const DecParams p) {
   using Cf = Cfg<T, C, D>;
+  constexpr int NW = Cf::NW, NT = Cf::NT;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ long long run_base[RUNS];
   __shared__ int last;
@@ -442,6 +455,22 @@ __global__ void __launch_bounds__(NT) decode_kernel(const DecParams p) {
       run_base[threadIdx.x] = ((long long)b * p.Hkv + hk) * p.rows + (long long)r * RUN;
     }
   }
+  // Past D 256 the group's q goes to shared memory once, for every warp:
+  // rows h >= G of the tensor cores' [HP][QP] are zero; FMA's [G][D] is
+  // scaled by scale * log2 e.
+  T* q_mma = reinterpret_cast<T*>(smem + Cf::NW * Cf::WARP_BYTES);
+  float* q_fma = reinterpret_cast<float*>(smem + Cf::NW * Cf::WARP_BYTES);
+  if constexpr (Cf::QS) {
+    const T* qg = static_cast<const T*>(p.q) + ((long long)b * p.Hq + hk * G) * D;
+    for (int i = threadIdx.x; i < HP * D; i += NT) {
+      const int h = i / D, d = i % D;
+      if constexpr (Cf::MMA) {
+        q_mma[h * Cf::QP + d] = h < G ? qg[i] : from_f<T>(0.f);
+      } else if (h < G) {
+        q_fma[i] = to_f(qg[i]) * p.scale_log2;
+      }
+    }
+  }
   __syncthreads();
 
   // The warp's groups: j = j_lo + warp, + NW, ... up to j_hi, each GR rows
@@ -449,19 +478,23 @@ __global__ void __launch_bounds__(NT) decode_kernel(const DecParams p) {
   unsigned char* wbase = smem + warp * Cf::WARP_BYTES;
   const int j_lo = (lo - c0) / Cf::GR, j_hi = (hi - 1 - c0) / Cf::GR;
 
-  // Per-warp state: the tensor-core layout (MMA) or the FMA layout.
+  // Per-warp state: the tensor-core layout (MMA) or the FMA layout; q in
+  // registers up to D 256, else read from shared memory where it is used.
   constexpr int EPL = D / 32;
-  uint32_t qb[Cf::MMA ? D / 16 : 1][2];
-  float qf[Cf::MMA ? 1 : G][Cf::MMA ? 1 : EPL];
+  constexpr bool QR = !Cf::QS;
+  uint32_t qb[Cf::MMA && QR ? D / 16 : 1][2];
+  float qf[!Cf::MMA && QR ? G : 1][!Cf::MMA && QR ? EPL : 1];
   float m2[2], l2[2], acc2[Cf::MMA ? D / 16 : 1][4];
   float mG[Cf::MMA ? 1 : G], lG[Cf::MMA ? 1 : G], accG[Cf::MMA ? 1 : G][Cf::MMA ? 1 : EPL];
   if constexpr (Cf::MMA) {
     const int h = lane / 4, t = lane % 4;
     const T* qrow = static_cast<const T*>(p.q) + ((long long)b * p.Hq + hk * G + h) * D;
+    if constexpr (QR) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      qb[kk][0] = h < G ? *reinterpret_cast<const uint32_t*>(qrow + kk * 16 + 2 * t) : 0u;
-      qb[kk][1] = h < G ? *reinterpret_cast<const uint32_t*>(qrow + kk * 16 + 2 * t + 8) : 0u;
+      for (int kk = 0; kk < D / 16; ++kk) {
+        qb[kk][0] = h < G ? *reinterpret_cast<const uint32_t*>(qrow + kk * 16 + 2 * t) : 0u;
+        qb[kk][1] = h < G ? *reinterpret_cast<const uint32_t*>(qrow + kk * 16 + 2 * t + 8) : 0u;
+      }
     }
 #pragma unroll
     for (int h2 = 0; h2 < 2; ++h2) {
@@ -475,11 +508,13 @@ __global__ void __launch_bounds__(NT) decode_kernel(const DecParams p) {
   } else {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      load_vec<T, EPL>(static_cast<const T*>(p.q) + ((long long)b * p.Hq + hk * G + g) * D +
-                           lane * EPL,
-                       qf[g]);
+      if constexpr (QR) {
+        load_vec<T, EPL>(static_cast<const T*>(p.q) + ((long long)b * p.Hq + hk * G + g) * D +
+                             lane * EPL,
+                         qf[g]);
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) qf[g][e] *= p.scale_log2;
+        for (int e = 0; e < EPL; ++e) qf[g][e] *= p.scale_log2;
+      }
       mG[g] = MASK_LOG2;
       lG[g] = 0.f;
 #pragma unroll
@@ -521,10 +556,27 @@ __global__ void __launch_bounds__(NT) decode_kernel(const DecParams p) {
         Ks = reinterpret_cast<const T*>(Kst);
         Vs = Ks + Cf::GR * Cf::RP;
       }
-      mma_group<Cf, T, D>(p, Ks, Vs, ksc, vsc, row0, lo, hi, qb, m2, l2, acc2);
+      auto q_frag = [&](int kk, uint32_t& b0, uint32_t& b1) {
+        if constexpr (QR) {
+          b0 = qb[kk][0];
+          b1 = qb[kk][1];
+        } else {
+          const T* qr = q_mma + (lane / 4) * Cf::QP + kk * 16 + 2 * (lane % 4);
+          b0 = *reinterpret_cast<const uint32_t*>(qr);
+          b1 = *reinterpret_cast<const uint32_t*>(qr + 8);
+        }
+      };
+      mma_group<Cf, T, D>(p, Ks, Vs, ksc, vsc, row0, lo, hi, q_frag, m2, l2, acc2);
     } else {
-      fma_group<Cf, C, D, G>(p, Kst, Kst + Cf::GR * Cf::RP, ksc, vsc, row0, lo, hi, qf, mG, lG,
-                             accG);
+      auto q_elem = [&](int g, int e) {
+        if constexpr (QR) {
+          return qf[g][e];
+        } else {
+          return q_fma[g * D + lane * EPL + e];
+        }
+      };
+      fma_group<Cf, C, D, G>(p, Kst, Kst + Cf::GR * Cf::RP, ksc, vsc, row0, lo, hi, q_elem, mG,
+                             lG, accG);
     }
     __syncwarp();
   }
@@ -636,7 +688,7 @@ cudaError_t launch(const DecParams& p, int B, int n_chunks, cudaStream_t stream)
     if (dev < 64) smem_set |= 1ull << dev;
   }
   dim3 grid(n_chunks, p.Hkv, B);
-  decode_kernel<T, C, PAGED, D, G><<<grid, NT, Cf::SMEM, stream>>>(p);
+  decode_kernel<T, C, PAGED, D, G><<<grid, Cf::NT, Cf::SMEM, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -651,13 +703,23 @@ cudaError_t launch_g(const DecParams& p, int B, int n_chunks, int G, cudaStream_
   }
 }
 
-template <typename T, typename C, bool PAGED>
+// The head dims of one translation unit: 64 / 128 / 256, or (WIDE) 384 / 512,
+// each set compiled apart so that the two build in parallel.
+template <typename T, typename C, bool PAGED, bool WIDE>
 cudaError_t launch_dg(const DecParams& p, int B, int n_chunks, int D, int G, cudaStream_t stream) {
-  switch (D) {
-    case 64: return launch_g<T, C, PAGED, 64>(p, B, n_chunks, G, stream);
-    case 128: return launch_g<T, C, PAGED, 128>(p, B, n_chunks, G, stream);
-    case 256: return launch_g<T, C, PAGED, 256>(p, B, n_chunks, G, stream);
-    default: return cudaErrorInvalidValue;
+  if constexpr (WIDE) {
+    switch (D) {
+      case 384: return launch_g<T, C, PAGED, 384>(p, B, n_chunks, G, stream);
+      case 512: return launch_g<T, C, PAGED, 512>(p, B, n_chunks, G, stream);
+      default: return cudaErrorInvalidValue;
+    }
+  } else {
+    switch (D) {
+      case 64: return launch_g<T, C, PAGED, 64>(p, B, n_chunks, G, stream);
+      case 128: return launch_g<T, C, PAGED, 128>(p, B, n_chunks, G, stream);
+      case 256: return launch_g<T, C, PAGED, 256>(p, B, n_chunks, G, stream);
+      default: return cudaErrorInvalidValue;
+    }
   }
 }
 
@@ -665,33 +727,42 @@ cudaError_t launch_dg(const DecParams& p, int B, int n_chunks, int D, int G, cud
 template <typename Q, typename T>
 using cache_t = typename std::conditional<std::is_void<Q>::value, T, Q>::type;
 
-// Every (compute dtype, layout, D, G) of one cache kind Q (void = dense).
-template <typename Q>
+// Every (compute dtype, layout, D, G) of one cache kind Q (void = dense) and
+// one set of head dims.
+template <typename Q, bool WIDE>
 cudaError_t run(int dtype, const DecParams& p, int B, int n_chunks, int D, int G, cudaStream_t s) {
   const bool paged = p.tables != nullptr;
   switch (dtype) {
     case kF32:
-      return paged ? launch_dg<float, cache_t<Q, float>, true>(p, B, n_chunks, D, G, s)
-                   : launch_dg<float, cache_t<Q, float>, false>(p, B, n_chunks, D, G, s);
+      return paged ? launch_dg<float, cache_t<Q, float>, true, WIDE>(p, B, n_chunks, D, G, s)
+                   : launch_dg<float, cache_t<Q, float>, false, WIDE>(p, B, n_chunks, D, G, s);
     case kF16:
-      return paged ? launch_dg<__half, cache_t<Q, __half>, true>(p, B, n_chunks, D, G, s)
-                   : launch_dg<__half, cache_t<Q, __half>, false>(p, B, n_chunks, D, G, s);
+      return paged ? launch_dg<__half, cache_t<Q, __half>, true, WIDE>(p, B, n_chunks, D, G, s)
+                   : launch_dg<__half, cache_t<Q, __half>, false, WIDE>(p, B, n_chunks, D, G, s);
     case kBF16: {
       using C = cache_t<Q, __nv_bfloat16>;
-      return paged ? launch_dg<__nv_bfloat16, C, true>(p, B, n_chunks, D, G, s)
-                   : launch_dg<__nv_bfloat16, C, false>(p, B, n_chunks, D, G, s);
+      return paged ? launch_dg<__nv_bfloat16, C, true, WIDE>(p, B, n_chunks, D, G, s)
+                   : launch_dg<__nv_bfloat16, C, false, WIDE>(p, B, n_chunks, D, G, s);
     }
     default: return cudaErrorInvalidValue;
   }
 }
 
-// One per translation unit: decode.cu, decode_int8.cu, decode_fp8.cu.
+// One per translation unit: decode.cu, decode_int8.cu, decode_fp8.cu (D 64 /
+// 128 / 256) and decode_wide.cu, decode_int8_wide.cu, decode_fp8_wide.cu
+// (D 384 / 512).
 cudaError_t run_dense(int dtype, const DecParams& p, int B, int n_chunks, int D, int G,
                       cudaStream_t s);
 cudaError_t run_int8(int dtype, const DecParams& p, int B, int n_chunks, int D, int G,
                      cudaStream_t s);
 cudaError_t run_fp8(int dtype, const DecParams& p, int B, int n_chunks, int D, int G,
                     cudaStream_t s);
+cudaError_t run_dense_wide(int dtype, const DecParams& p, int B, int n_chunks, int D, int G,
+                           cudaStream_t s);
+cudaError_t run_int8_wide(int dtype, const DecParams& p, int B, int n_chunks, int D, int G,
+                          cudaStream_t s);
+cudaError_t run_fp8_wide(int dtype, const DecParams& p, int B, int n_chunks, int D, int G,
+                         cudaStream_t s);
 
 }  // namespace dec
 }  // namespace fa2

@@ -7,7 +7,7 @@ namespace dec {
 
 cudaError_t run_fp8(int dtype, const DecParams& p, int B, int n_chunks, int D, int G,
                     cudaStream_t s) {
-  return run<__nv_fp8_e4m3>(dtype, p, B, n_chunks, D, G, s);
+  return run<__nv_fp8_e4m3, false>(dtype, p, B, n_chunks, D, G, s);
 }
 
 }  // namespace dec

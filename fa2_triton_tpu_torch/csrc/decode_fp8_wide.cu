@@ -1,0 +1,15 @@
+// Decode attention over an fp8 (e4m3) KV cache at head dims 384 and 512 (B5
+// quant, B6 quant), compiled apart from decode_fp8.cu's head dims. The
+// kernel and its design are in decode.cuh.
+#include "decode.cuh"
+
+namespace fa2 {
+namespace dec {
+
+cudaError_t run_fp8_wide(int dtype, const DecParams& p, int B, int n_chunks, int D, int G,
+                         cudaStream_t s) {
+  return run<__nv_fp8_e4m3, true>(dtype, p, B, n_chunks, D, G, s);
+}
+
+}  // namespace dec
+}  // namespace fa2

@@ -7,7 +7,7 @@ namespace dec {
 
 cudaError_t run_int8(int dtype, const DecParams& p, int B, int n_chunks, int D, int G,
                      cudaStream_t s) {
-  return run<int8_t>(dtype, p, B, n_chunks, D, G, s);
+  return run<int8_t, false>(dtype, p, B, n_chunks, D, G, s);
 }
 
 }  // namespace dec

@@ -72,10 +72,13 @@
 //     cp.async; S = Q K^T and dP = dO V^T, ds per accumulator element, ds
 //     repacked into A fragments in registers, dQ += dS K with K by
 //     ldmatrix.trans; dQ stays in registers and goes out once, as 16-byte
-//     stores.
+//     stores. At D 384 / 512, 8 warps (two per 16 rows, each on half of
+//     dQ) and K / V tiles of 32 / 16 rows (bwd_mma.cuh DqMmaCfg).
 //   * dkdv_mma_kernel has the fused kernels' shape without dQ: 8 warps own
 //     MmaCfg::BKV kv rows and stream the group's q tiles through
-//     bwd_mma.cuh's mma_q_step (S^T, dP^T, dV += P^T dO, dK += dS^T Q).
+//     bwd_mma.cuh's mma_q_step (S^T, dP^T, dV += P^T dO, dK += dS^T Q); at
+//     D 384 / 512, 32 kv rows and 32-row q tiles, 4 warps along D
+//     (DkdvMmaCfg).
 //   * dbias_mma_kernel owns dbias tiles of 64 q rows x 64 keys (32 at D
 //     256) for one (bias batch, bias head), 16 warps at D 64 / 128 (8 at D
 //     256) each on 16 rows x a quarter (half) of the keys (bwd_mma.cuh's
@@ -91,16 +94,16 @@
 // fp32 inputs (no TF32): fp32 FMAs on the CUDA cores from shared-memory
 // tiles (attn_tiles.cuh, shared with the forward and varlen kernels), each
 // thread holding a 4x2 score tile and 4 x (D/16) accumulator columns in
-// registers, shared rows padded by one float against bank conflicts, tiles
-// beyond the causal / window / length limits never loaded (dq_kernel,
-// dkdv_kernel, dbias_kernel).
+// registers (2x1 and 2 x (D/16) at D 384 / 512, FmaTile), shared rows
+// padded by one float against bank conflicts, tiles beyond the causal /
+// window / length limits never loaded (dq_kernel, dkdv_kernel,
+// dbias_kernel).
 #include <algorithm>
 #include <climits>
 
 #include "bwd_mma.cuh"
 
 namespace fa2 {
-namespace {
 
 struct BwdParams {
   const void* q;
@@ -137,6 +140,11 @@ struct BwdParams {
   int Sq_real, Sk_real;  // the dropout counter's lengths
   int tile_rows;         // the q rows of a dq block the host counts in
 };
+
+// The launch at head dim 384 or 512 (flash_bwd_wide.cu).
+int launch_bwd_wide(const BwdParams& p, int dtype, int which, int D, void* stream);
+
+namespace {
 
 // The dropout factor of element (local row r, local column c) of (b, h): 1
 // without dropout, 1 / (1 - p) where kept, 0 where dropped.
@@ -191,13 +199,14 @@ __device__ __forceinline__ void stage_q_side(const BwdParams& p, const DqSmem& s
                    p.lse + row0, p.delta + row0, q0, q_valid, p.s_mul);
 }
 
-// dq: one block per (64-row q tile, q head, batch row); loops over the KV
+// dq: one block per (M-row q tile, q head, batch row); loops over the KV
 // tiles up to the causal / window / length edge.
 template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(THREADS) dq_kernel(const BwdParams p) {
+  using F = FmaTile<D>;
   extern __shared__ float smem[];
   const DqSmem s = dq_smem<D>(smem);
-  const int q0 = blockIdx.x * TM, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * F::M, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (p.Hq / p.Hkv);
   const int q_len = p.lens[2 * b], kv_len = p.lens[2 * b + 1];
   const int q_valid = min(p.Sq, q_len - p.q_off);
@@ -206,11 +215,11 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(const BwdParams p) {
   const T* vp = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
 
   stage_q_side<T, D>(p, s, b, h, q0, q_valid);
-  const KeyRange kr = key_range(p, q0, TM, q_len, kv_len);
+  const KeyRange kr = key_range(p, q0, F::M, q_len, kv_len);
 
-  float acc[4][D / 16];
+  FmaAcc<D> acc;
   zero_acc<D>(acc);
-  for (int k0 = (kr.lo / TN) * TN; k0 < kr.hi; k0 += TN) {
+  for (int k0 = (kr.lo / F::N) * F::N; k0 < kr.hi; k0 += F::N) {
     auto ds_of = [&](int r, int c, float s2, float dp) {
       const bool keep = keep_at(q0 + r, k0 + c, p.Sq, p.Sk, p.q_off, p.kv_off, q_len, kv_len,
                                 p.causal, p.wl, p.wr);
@@ -222,30 +231,31 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(const BwdParams p) {
     dq_kv_step<T, D>(s, kp, p.k_ss, vp, p.v_ss, k0, kv_valid, ds_of, acc);
   }
   store_tile<T, D>(acc, static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh + q0 * p.dq_ss,
-                   p.dq_ss, min(TM, p.Sq - q0), p.dq_mul);
+                   p.dq_ss, min(F::M, p.Sq - q0), p.dq_mul);
 }
 
-// dk/dv: one block per (64-row KV tile, KV head, batch row); loops over the
+// dk/dv: one block per (M-row KV tile, KV head, batch row); loops over the
 // group's q heads and, for each, the q tiles that can see this KV tile.
 template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(THREADS) dkdv_kernel(const BwdParams p) {
+  using F = FmaTile<D>;
   extern __shared__ float smem[];
   const DkdvSmem s = dkdv_smem<D>(smem);
-  const int k0 = blockIdx.x * TM, hk = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * F::M, hk = blockIdx.y, b = blockIdx.z;
   const int group = p.Hq / p.Hkv;
   const int q_len = p.lens[2 * b], kv_len = p.lens[2 * b + 1];
   const int shift = kv_len - q_len;
   const int q_valid = min(p.Sq, q_len - p.q_off);
   const int kv_valid = min(p.Sk, kv_len - p.kv_off);
 
-  stage<T, D>(s.Ks, static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh, p.k_ss, k0, TM,
+  stage<T, D>(s.Ks, static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh, p.k_ss, k0, F::M,
               kv_valid, p.s_mul);
-  stage<T, D>(s.Vs, static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh, p.v_ss, k0, TM,
+  stage<T, D>(s.Vs, static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh, p.v_ss, k0, F::M,
               kv_valid, 1.f);
 
   // Local q rows [r_lo, r_hi) that can see a live column of this tile.
   const int col_lo = p.kv_off + k0;
-  const int col_hi = p.kv_off + min(k0 + TM, kv_valid) - 1;  // inclusive
+  const int col_hi = p.kv_off + min(k0 + F::M, kv_valid) - 1;  // inclusive
   int r_lo = 0, r_hi = q_valid;
   if (p.causal) {
     r_lo = max(0, col_lo - shift - p.q_off);
@@ -255,7 +265,7 @@ __global__ void __launch_bounds__(THREADS) dkdv_kernel(const BwdParams p) {
   if (p.wl >= 0) r_hi = min(r_hi, col_hi - shift + p.wl - p.q_off + 1);
   if (col_hi < col_lo) r_hi = 0;
 
-  float dk_acc[4][D / 16], dv_acc[4][D / 16];
+  FmaAcc<D> dk_acc, dv_acc;
   zero_acc<D>(dk_acc);
   zero_acc<D>(dv_acc);
   for (int g = 0; g < group; ++g) {
@@ -263,7 +273,7 @@ __global__ void __launch_bounds__(THREADS) dkdv_kernel(const BwdParams p) {
     const long long row0 = ((long long)b * p.Hq + h) * p.Sq;
     const T* qp = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
     const T* dop = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
-    for (int r0 = (r_lo / TN) * TN; r0 < r_hi; r0 += TN) {
+    for (int r0 = (r_lo / F::N) * F::N; r0 < r_hi; r0 += F::N) {
       auto pds_of = [&](int kr, int qr, float s2, float dp, float& pr, float& ds) {
         const bool keep = keep_at(r0 + qr, k0 + kr, p.Sq, p.Sk, p.q_off, p.kv_off, q_len,
                                   kv_len, p.causal, p.wl, p.wr);
@@ -278,7 +288,7 @@ __global__ void __launch_bounds__(THREADS) dkdv_kernel(const BwdParams p) {
     }
   }
 
-  const int rows = min(TM, p.Sk - k0);
+  const int rows = min(F::M, p.Sk - k0);
   store_tile<T, D>(dk_acc, static_cast<T*>(p.dk) + b * p.dk_sb + hk * p.dk_sh + k0 * p.dk_ss,
                    p.dk_ss, rows, p.scale);
   store_tile<T, D>(dv_acc, static_cast<T*>(p.dv) + b * p.dv_sb + hk * p.dv_sh + k0 * p.dv_ss,
@@ -392,7 +402,7 @@ __global__ void __launch_bounds__(DqMmaCfg<D>::NW * 32) dq_mma_kernel(const BwdP
   const int hk = h / (p.Hq / p.Hkv);
   const int q_len = p.lens[2 * b], kv_len = p.lens[2 * b + 1];
   const int q_valid = min(p.Sq, q_len - p.q_off);
-  const int lane = threadIdx.x % 32, w = threadIdx.x / 32, g = lane / 4;
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32 % C::RG, g = lane / 4;
 
   const T* kp = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const T* vp = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
@@ -442,14 +452,14 @@ __global__ void __launch_bounds__(DqMmaCfg<D>::NW * 32) dq_mma_kernel(const BwdP
                      p.dq_ss, p.Sq - q0, p.dq_mul);
 }
 
-// dk/dv, 16-bit inputs: one block of 8 warps per (MmaCfg::BKV kv rows, kv
-// head, batch row) walks every q tile of every q head of the GQA group that
-// can see them (dkdv_kernel's rows), with bwd_mma.cuh's tiles: dK and dV
-// stay in registers, q / dO / lse / delta tiles are double-buffered, and no
-// dS^T is kept (the dq kernel computes dQ).
+// dk/dv, 16-bit inputs: one block of 8 warps per (DkdvMmaCfg::BKV kv rows,
+// kv head, batch row) walks every q tile of every q head of the GQA group
+// that can see them (dkdv_kernel's rows), with bwd_mma.cuh's tiles: dK and
+// dV stay in registers, q / dO / lse / delta tiles are double-buffered, and
+// no dS^T is used (the dq kernel computes dQ).
 template <typename T, int D, bool DROP, bool EXTRA>
 __global__ void __launch_bounds__(THREADS, 1) dkdv_mma_kernel(const BwdParams p) {
-  using C = MmaCfg<D>;
+  using C = DkdvMmaCfg<D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const MmaSmem<T> s = mma_smem<C, T>(smem_raw);
   const int hk = blockIdx.x % p.Hkv, b = blockIdx.x / p.Hkv, k0 = blockIdx.y * C::BKV;
@@ -926,13 +936,15 @@ cudaError_t launch_fma(const BwdParams& p, int which, cudaStream_t stream) {
     e = cudaFuncSetAttribute(dq_kernel<float, D, DROP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
-    dq_kernel<float, D, DROP><<<dim3((p.Sq + TM - 1) / TM, p.Hq, p.B), THREADS, smem, stream>>>(p);
+    constexpr int M = FmaTile<D>::M;
+    dq_kernel<float, D, DROP><<<dim3((p.Sq + M - 1) / M, p.Hq, p.B), THREADS, smem, stream>>>(p);
   } else {
     e = cudaFuncSetAttribute(dkdv_kernel<float, D, DROP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
+    constexpr int M = FmaTile<D>::M;
     dkdv_kernel<float, D, DROP>
-        <<<dim3((p.Sk + TM - 1) / TM, p.Hkv, p.B), THREADS, smem, stream>>>(p);
+        <<<dim3((p.Sk + M - 1) / M, p.Hkv, p.B), THREADS, smem, stream>>>(p);
   }
   return cudaGetLastError();
 }
@@ -986,7 +998,7 @@ cudaError_t launch_mma(const BwdParams& p, int which, cudaStream_t stream) {
     dq_mma_kernel<T, D, DROP, EXTRA><<<dim3(p.Hq * p.B, (p.Sq + C::BQ - 1) / C::BQ), C::NW * 32,
                                        C::SMEM_BYTES, stream>>>(p);
   } else {
-    using C = MmaCfg<D>;
+    using C = DkdvMmaCfg<D>;
     e = cudaFuncSetAttribute(dkdv_mma_kernel<T, D, DROP, EXTRA>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
     if (e != cudaSuccess) return e;
@@ -997,18 +1009,27 @@ cudaError_t launch_mma(const BwdParams& p, int which, cudaStream_t stream) {
 }
 
 // fp32 inputs take the FMA dq, dk/dv and dbias kernels; bf16 / fp16 the
-// tensor-core ones (no path back to the FMA ones).
+// tensor-core ones (no path back to the FMA ones). dbias is built up to D
+// 256 only (ops/flash_bwd.py refuses it past, ROADMAP.md queue A).
 template <typename T, int D, bool DROP>
 cudaError_t launch_kernel(const BwdParams& p, int which, cudaStream_t stream) {
-  // The host counts q tiles (TILE_ROWS) in the dq kernels' rows (TM, DqMmaCfg::BQ).
+  // The host counts q tiles (TILE_ROWS) in TM rows: the rows of DqMmaCfg::BQ,
+  // a multiple of the FMA kernels' FmaTile::M.
   if (p.tile_rows != TM || (which != kDq && which != kDkDv && which != kDbias)) {
     return cudaErrorInvalidValue;
   }
+  if constexpr (D > 256) {
+    if (which == kDbias) return cudaErrorInvalidValue;
+  }
   if constexpr (std::is_same<T, float>::value) {
-    return which == kDbias ? launch_dbias<D, DROP>(p, stream)
-                           : launch_fma<D, DROP>(p, which, stream);
+    if constexpr (D <= 256) {
+      if (which == kDbias) return launch_dbias<D, DROP>(p, stream);
+    }
+    return launch_fma<D, DROP>(p, which, stream);
   } else {
-    if (which == kDbias) return launch_dbias_mma<T, D, DROP>(p, stream);
+    if constexpr (D <= 256) {
+      if (which == kDbias) return launch_dbias_mma<T, D, DROP>(p, stream);
+    }
     return p.bias != nullptr || p.softcap > 0.f ? launch_mma<T, D, DROP, true>(p, which, stream)
                                                 : launch_mma<T, D, DROP, false>(p, which, stream);
   }
@@ -1020,18 +1041,47 @@ cudaError_t launch(const BwdParams& p, int which, cudaStream_t stream) {
                    : launch_kernel<T, D, false>(p, which, stream);
 }
 
+// The head dims of this translation unit: 64 / 128 / 256 here, 384 / 512 in
+// flash_bwd_wide.cu (this file with FA2_WIDE defined), so that the two sets
+// of instantiations build in parallel.
 template <typename T>
 cudaError_t launch_d(const BwdParams& p, int which, int D, cudaStream_t stream) {
   switch (D) {
+#ifdef FA2_WIDE
+    case 384: return launch<T, 384>(p, which, stream);
+    case 512: return launch<T, 512>(p, which, stream);
+#else
     case 64: return launch<T, 64>(p, which, stream);
     case 128: return launch<T, 128>(p, which, stream);
     case 256: return launch<T, 256>(p, which, stream);
+#endif
     default: return cudaErrorInvalidValue;
   }
 }
 
+int launch_dtype(const BwdParams& p, int dtype, int which, int D, void* stream) {
+#ifndef FA2_WIDE
+  if (D > 256) return launch_bwd_wide(p, dtype, which, D, stream);
+#endif
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kF32: return (int)launch_d<float>(p, which, D, st);
+    case kF16: return (int)launch_d<__half>(p, which, D, st);
+    case kBF16: return (int)launch_d<__nv_bfloat16>(p, which, D, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
+
+#ifdef FA2_WIDE
+int launch_bwd_wide(const BwdParams& p, int dtype, int which, int D, void* stream) {
+  return launch_dtype(p, dtype, which, D, stream);
+}
+#endif
 }  // namespace fa2
+
+#ifndef FA2_WIDE
 
 // One entry for the three kernels (`which`: 0 dq, 1 dk/dv, 2 dbias).
 // `strides` holds, in elements: q, k, v, do, dq, dk, dv (batch, head, row
@@ -1079,11 +1129,6 @@ extern "C" int fa2_flash_bwd(
   p.drop.scale = drop_scale;
   p.Sq_real = Sq_real; p.Sk_real = Sk_real;
   p.tile_rows = tile_rows;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case fa2::kF32: return (int)fa2::launch_d<float>(p, which, D, st);
-    case fa2::kF16: return (int)fa2::launch_d<__half>(p, which, D, st);
-    case fa2::kBF16: return (int)fa2::launch_d<__nv_bfloat16>(p, which, D, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return fa2::launch_dtype(p, dtype, which, D, stream);
 }
+#endif  // FA2_WIDE

@@ -52,7 +52,10 @@
 // step and the store in fwd_mma.cuh, shared with varlen.cu's packed forward).
 //   * 4 warps, each owning 16 q rows for the whole kv loop, so a row's
 //     softmax state (m, l) stays in one warp's registers: row max and row sum
-//     are quad shuffles, with no shared memory and no barrier.
+//     are quad shuffles, with no shared memory and no barrier. At D 384 /
+//     512, 8 warps: two per 16 rows, each computing the rows' S and softmax
+//     and holding half of O (fwd_mma.cuh), in 199,680 B of shared memory at
+//     D 512 (one block an SM).
 //   * q, k and v stay 16-bit in shared memory (rows padded by 8 elements, so
 //     the 8 row addresses of every ldmatrix fall in distinct bank groups).
 //     Q's A fragments are loaded once and kept in registers at D 64 / 128
@@ -88,13 +91,13 @@
 // flash_fwd_kernel, fp32 inputs: fp32 FMAs on the CUDA cores from shared
 // memory tiles (attn_tiles.cuh, shared with the backward and varlen
 // kernels), no TF32: q staged once with scale*log2(e) folded in, 32-row K/V
-// tiles, a 4x2 score tile and a 4x(D/16) output tile per thread; KV tiles
-// beyond the causal limit or kv_len are never loaded.
+// tiles, a 4x2 score tile and a 4x(D/16) output tile per thread (at D 384 /
+// 512: 32-row q tiles, 16-row K/V tiles, 2x1 and 2x(D/16); FmaTile); KV
+// tiles beyond the causal limit or kv_len are never loaded.
 #include "attn_tiles.cuh"
 #include "fwd_mma.cuh"
 
 namespace fa2 {
-namespace {
 
 struct FwdParams {
   const void* q;
@@ -121,6 +124,11 @@ struct FwdParams {
   int lse_rows;          // rows of lse per (b, h): Sq, or the full tensor's in a merge
 };
 
+// The launch at head dim 384 or 512 (flash_fwd_wide.cu).
+int launch_fwd_wide(const FwdParams& p, int dtype, bool merge, int B, int D, void* stream);
+
+namespace {
+
 // Blocks in x: one per 64-row q tile, per leaf position with a leaf (the
 // last leaf may be short: its missing tiles exit at once).
 dim3 fwd_grid(const FwdParams& p, int bq, int B) {
@@ -145,12 +153,13 @@ __device__ __forceinline__ int tile_row0(const FwdParams& p, int bq) {
 // running (o, lse), which hold the previous partial on entry.
 template <typename T, int D>
 __device__ __forceinline__ void fwd_store_merge(const FwdSmem& s, float m_run, float l_run,
-                                                const float (&acc)[4][D / 16], float* lse, T* op,
+                                                const FmaAcc<D>& acc, float* lse, T* op,
                                                 long long o_ss, int rows, float out_scale) {
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16, srow = tid / 4;
-  float* w = s.Ss;  // [TM][4]: this partial's 1 / l, then w1, w2 and 1 / (w1 + w2)
+  using F = FmaTile<D>;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16, srow = tid / F::TPR;
+  float* w = s.Ss;  // [M][4]: this partial's 1 / l, then w1, w2 and 1 / (w1 + w2)
   __syncthreads();  // every thread is done with the last tile's Ss
-  if ((tid % 4) == 0) {
+  if ((tid % F::TPR) == 0) {
     const float lse_new = l_run > 0.f ? m_run + log2f(l_run) : neg_inf();
     const float lse_p = srow < rows ? lse[srow] : neg_inf();
     const float m_t = fmaxf(lse_p, lse_new);
@@ -164,7 +173,7 @@ __device__ __forceinline__ void fwd_store_merge(const FwdSmem& s, float m_run, f
   }
   __syncthreads();
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < F::RI; ++i) {
     const int r = ty + 16 * i;
     if (r >= rows) continue;
     const float l_inv = w[r * 4 + 0], w1 = w[r * 4 + 1], w2 = w[r * 4 + 2], inv = w[r * 4 + 3];
@@ -176,13 +185,14 @@ __device__ __forceinline__ void fwd_store_merge(const FwdSmem& s, float m_run, f
   }
 }
 
-// One block per (64-row q tile, q head, batch row); the tile math is
+// One block per (M-row q tile, q head, batch row); the tile math is
 // attn_tiles.cuh's forward.
 template <typename T, int D, bool DROP, bool MERGE>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FwdParams p) {
+  using F = FmaTile<D>;
   extern __shared__ float smem[];
   const FwdSmem s = fwd_smem<D>(smem);
-  const int q0 = tile_row0(p, TM), h = blockIdx.y, b = blockIdx.z;
+  const int q0 = tile_row0(p, F::M), h = blockIdx.y, b = blockIdx.z;
   if (q0 >= p.Sq) return;
   const int hk = h / (p.Hq / p.Hkv);
   const int q_len = p.lens[2 * b], kv_len = p.lens[2 * b + 1];
@@ -190,13 +200,13 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FwdParams p) {
   const T* qp = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* kp = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const T* vp = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  stage<T, D>(s.Qs, qp, p.q_ss, q0, TM, p.Sq, p.scale_log2);
+  stage<T, D>(s.Qs, qp, p.q_ss, q0, F::M, p.Sq, p.scale_log2);
 
-  const KeyRange kr = key_range(p, q0, TM, q_len, kv_len, p.leaf);
+  const KeyRange kr = key_range(p, q0, F::M, q_len, kv_len, p.leaf);
   float m_run = MASK_LOG2, l_run = 0.f;
-  float acc[4][D / 16];
+  FmaAcc<D> acc;
   zero_acc<D>(acc);
-  for (int k0 = (kr.lo / TN) * TN; k0 < kr.hi; k0 += TN) {
+  for (int k0 = (kr.lo / F::N) * F::N; k0 < kr.hi; k0 += F::N) {
     auto score = [&](int r, int c, float x) {
       const bool keep = keep_at(q0 + r, k0 + c, p.Sq, p.Sk, p.q_off, p.kv_off, q_len, kv_len,
                                 p.causal, p.wl, p.wr);
@@ -231,7 +241,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FwdParams p) {
   }
   float* lse = p.lse + ((long long)b * p.Hq + h) * p.lse_rows + q0;
   T* op = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh + q0 * p.o_ss;
-  const int rows = min(TM, p.Sq - q0);
+  const int rows = min(F::M, p.Sq - q0);
   const float out_scale = DROP ? p.drop.scale : 1.f;
   if constexpr (MERGE) {
     fwd_store_merge<T, D>(s, m_run, l_run, acc, lse, op, p.o_ss, rows, out_scale);
@@ -331,12 +341,13 @@ __global__ void __launch_bounds__(FwdMmaCfg<D>::NW * 32) flash_fwd_mma_kernel(co
 
 template <typename T, int D, bool DROP, bool MERGE>
 cudaError_t launch_fma(const FwdParams& p, int B, cudaStream_t stream) {
+  // The host counts q tiles in TM rows; the kernel's M divides them.
   if (p.tile_rows != TM) return cudaErrorInvalidValue;
   const int smem = fwd_smem_floats<D>() * (int)sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<T, D, DROP, MERGE>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  flash_fwd_kernel<T, D, DROP, MERGE><<<fwd_grid(p, TM, B), THREADS, smem, stream>>>(p);
+  flash_fwd_kernel<T, D, DROP, MERGE><<<fwd_grid(p, FmaTile<D>::M, B), THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -374,17 +385,28 @@ cudaError_t launch(const FwdParams& p, bool merge, int B, cudaStream_t stream) {
                    : launch_kernel<T, D, false>(p, merge, B, stream);
 }
 
+// The head dims of this translation unit: 64 / 128 / 256 here, 384 / 512 in
+// flash_fwd_wide.cu (this file with FA2_WIDE defined), so that the two sets
+// of instantiations build in parallel.
 template <typename T>
 cudaError_t launch_d(const FwdParams& p, bool merge, int B, int D, cudaStream_t stream) {
   switch (D) {
+#ifdef FA2_WIDE
+    case 384: return launch<T, 384>(p, merge, B, stream);
+    case 512: return launch<T, 512>(p, merge, B, stream);
+#else
     case 64: return launch<T, 64>(p, merge, B, stream);
     case 128: return launch<T, 128>(p, merge, B, stream);
     case 256: return launch<T, 256>(p, merge, B, stream);
+#endif
     default: return cudaErrorInvalidValue;
   }
 }
 
 int launch_dtype(const FwdParams& p, int dtype, bool merge, int B, int D, void* stream) {
+#ifndef FA2_WIDE
+  if (D > 256) return launch_fwd_wide(p, dtype, merge, B, D, stream);
+#endif
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32: return (int)launch_d<float>(p, merge, B, D, s);
@@ -394,6 +416,7 @@ int launch_dtype(const FwdParams& p, int dtype, bool merge, int B, int D, void* 
   }
 }
 
+#ifndef FA2_WIDE
 // A call's params as the split schedule's entries make them (not causal, no
 // bias, window, softcap or leaf, the kernels' own tile rows, lse_rows = Sq);
 // each entry then sets what differs.
@@ -426,9 +449,18 @@ FwdParams call_params(int Hq, int Hkv, int Sq, int Sk, const void* q, const void
   p.lse_rows = Sq;
   return p;
 }
+#endif
 
 }  // namespace
+
+#ifdef FA2_WIDE
+int launch_fwd_wide(const FwdParams& p, int dtype, bool merge, int B, int D, void* stream) {
+  return launch_dtype(p, dtype, merge, B, D, stream);
+}
+#endif
 }  // namespace fa2
+
+#ifndef FA2_WIDE
 
 // tile_rows: the q rows of a block the host counts in (ops/flash_fwd.py
 // TILE_ROWS); the call fails unless it is the kernels' (64). 16-bit q / k / v
@@ -519,3 +551,4 @@ extern "C" int fa2_flash_fwd_rect(
 extern "C" const char* fa2_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
+#endif  // FA2_WIDE

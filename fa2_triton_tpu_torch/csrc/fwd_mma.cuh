@@ -8,11 +8,18 @@
 // A block of 4 warps owns a 64-row q tile, each warp 16 q rows for the
 // whole kv loop, so a row's softmax state (m, l) stays in one warp's
 // registers: row max and row sum are quad shuffles, with no shared memory
-// and no barrier. q, k and v stay 16-bit in shared memory (rows padded by 8
-// elements, so the 8 row addresses of every ldmatrix fall in distinct bank
-// groups). Q's A fragments are loaded once and kept in registers at D 64 /
-// 128 (reloaded from shared memory per kv tile at D 256, where O alone takes
-// 128 registers a thread). K / V tiles of BKV rows (64, 32 at D 256) arrive
+// and no barrier. Past D 256 (384, 512) O alone would take 192-256
+// registers a thread, so 8 warps share the tile: two per 16 rows, each
+// holding half of O's columns and each computing the rows' whole S and
+// softmax (the same instructions on the same operands, so the pair's m and
+// l agree bit for bit). S costs twice its tensor work there (a forward
+// 1.5x the products of one S per row); no shared memory or barrier joins
+// the pair until the store. q, k and v stay 16-bit in shared memory (rows
+// padded by 8 elements, so the 8 row addresses of every ldmatrix fall in
+// distinct bank groups). Q's A fragments are loaded once and kept in
+// registers at D 64 / 128 (reloaded from shared memory per kv tile from D
+// 256, where O alone takes 128 registers a thread). K / V tiles of BKV
+// rows (64, 32 from D 256) arrive
 // by 16-byte cp.async copies, double-buffered by the caller's loop; rows
 // past the valid keys and q rows past the live ones are zero-filled on load
 // (0 x NaN = NaN in an mma). Per tile:
@@ -37,12 +44,15 @@ namespace fa2 {
 template <int D_>
 struct FwdMmaCfg {
   static constexpr int D = D_;
-  static constexpr int BQ = TM;                   // q rows of a block, 16 per warp
-  static constexpr int NW = BQ / 16;              // 4 warps
+  static constexpr int BQ = TM;                   // q rows of a block, 16 per row group
+  static constexpr int RG = BQ / 16;              // row groups: warp w owns rows 16 (w % RG)
+  static constexpr int WD = D <= 256 ? 1 : 2;     // warps of a row group, along O's columns
+  static constexpr int NW = RG * WD;              // 4 warps (8 past D 256)
   static constexpr int BKV = D <= 128 ? 64 : 32;  // kv rows of a streamed K / V tile
   static constexpr int P = D + 8;                 // shared row pitch, elements
   static constexpr int NT_S = BKV / 8;            // n-tiles of a warp's S
-  static constexpr int NT_O = D / 8;              // n-tiles of a warp's O
+  static constexpr int DO = D / WD;               // O columns of a warp: DO (w / RG) on
+  static constexpr int NT_O = DO / 8;             // n-tiles of a warp's O
   static constexpr int KQ = D / 16;               // k-steps of Q K^T
   static constexpr bool Q_REGS = D <= 128;        // Q's A fragments held in registers
   static constexpr int SMEM_BYTES = (BQ + 4 * BKV) * P * 2;  // Q; K and V double-buffered
@@ -82,10 +92,10 @@ __device__ __forceinline__ void fwd_mma_init(float (&o)[C::NT_O][4], float (&m_r
 template <class C, typename T>
 __device__ __forceinline__ void fwd_mma_load_q(QFrags<C>& qf, const T* Qs) {
   if constexpr (C::Q_REGS) {
-    const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32, wr = threadIdx.x / 32 % C::RG;
 #pragma unroll
     for (int kk = 0; kk < C::KQ; ++kk) {
-      ldsm_x4(qf[kk], Qs + (w * 16 + lane % 16) * C::P + kk * 16 + (lane / 16) * 8);
+      ldsm_x4(qf[kk], Qs + (wr * 16 + lane % 16) * C::P + kk * 16 + (lane / 16) * 8);
     }
   }
 }
@@ -101,7 +111,8 @@ __device__ __forceinline__ void fwd_mma_tile(const QFrags<C>& qf, const T* Qs, c
                                              const Score& score, const Keep& keep,
                                              float (&o)[C::NT_O][4], float (&m_run)[2],
                                              float (&l_run)[2]) {
-  const int lane = threadIdx.x % 32, w = threadIdx.x / 32, g = lane / 4, t = lane % 4;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int w = threadIdx.x / 32 % C::RG, od = threadIdx.x / 32 / C::RG * C::DO;
 
   // S = Q K^T: the warp's 16 rows x BKV keys.
   float s[C::NT_S][4];
@@ -188,7 +199,7 @@ __device__ __forceinline__ void fwd_mma_tile(const QFrags<C>& qf, const T* Qs, c
 #pragma unroll
     for (int np = 0; np < C::NT_O / 2; ++np) {
       uint32_t bv[4];
-      ldsm_x4_t(bv, Vs + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * C::P + np * 16 +
+      ldsm_x4_t(bv, Vs + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * C::P + od + np * 16 +
                         (lane / 16) * 8);
       mma16816<T>(o[2 * np], a, bv[0], bv[1]);
       mma16816<T>(o[2 * np + 1], a, bv[2], bv[3]);
@@ -201,8 +212,10 @@ __device__ __forceinline__ void fwd_mma_tile(const QFrags<C>& qf, const T* Qs, c
 // with row stride o_ss); rows r >= `live` (free tiles gave them a sum) or
 // that kept nothing get o = 0 and lse = -inf. A warp's o rows go through its
 // own rows of `stage` (shared, pitch P: the staged Q, which no other warp
-// reads), then out as 16-byte stores. MERGE (the split's rectangle) first
-// reads the previous o and lse of those rows, then writes
+// reads; past D 256 each warp of a row pair moves its own columns, after a
+// barrier, since both read all of Q), then out as 16-byte stores. MERGE
+// (the split's rectangle) first reads the previous o and lse of those
+// rows, then writes
 //   m = max(lse_p, lse), w1 = 2^(lse_p - m), w2 = 2^(lse - m),
 //   o = (o_p w1 + o w2) / (w1 + w2), lse = m + log2(w1 + w2)
 // in their place (both dead: weights 0, o = 0, lse = -inf, no NaN).
@@ -211,13 +224,18 @@ __device__ __forceinline__ void fwd_mma_store(const float (&o)[C::NT_O][4],
                                               const float (&m_run)[2], const float (&l_run)[2],
                                               T* stage, T* op, long long o_ss, float* lse,
                                               int live, int rows, float out_scale) {
-  const int lane = threadIdx.x % 32, w = threadIdx.x / 32, g = lane / 4, t = lane % 4;
-  constexpr int CH = C::D / 8;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int w = threadIdx.x / 32 % C::RG, od = threadIdx.x / 32 / C::RG * C::DO;
+  constexpr int CH = C::DO / 8;  // 16-byte chunks of a warp's part of a row
   float lse_p[2] = {0.f, 0.f};  // the previous lse of rows g and g + 8 (MERGE)
-  __syncwarp();
+  if constexpr (C::WD > 1) {
+    __syncthreads();  // the row pair is done reading Q
+  } else {
+    __syncwarp();
+  }
   if constexpr (MERGE) {
     for (int i = lane; i < 16 * CH; i += 32) {
-      const int r = w * 16 + i / CH, c = (i % CH) * 8;
+      const int r = w * 16 + i / CH, c = od + (i % CH) * 8;
       if (r < rows) {
         *reinterpret_cast<uint4*>(stage + r * C::P + c) =
             *reinterpret_cast<const uint4*>(op + (long long)r * o_ss + c);
@@ -228,7 +246,13 @@ __device__ __forceinline__ void fwd_mma_store(const float (&o)[C::NT_O][4],
       const int r = w * 16 + g + 8 * hr;
       lse_p[hr] = r < rows ? lse[r] : neg_inf();
     }
-    __syncwarp();  // every lane has read its previous o and lse before any is written
+    // Every lane (past D 256: of both warps of the pair) has read its
+    // previous o and lse before any is written.
+    if constexpr (C::WD > 1) {
+      __syncthreads();
+    } else {
+      __syncwarp();
+    }
   }
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
@@ -248,7 +272,7 @@ __device__ __forceinline__ void fwd_mma_store(const float (&o)[C::NT_O][4],
     }
 #pragma unroll
     for (int n = 0; n < C::NT_O; ++n) {
-      T* dst = stage + r * C::P + n * 8 + 2 * t;
+      T* dst = stage + r * C::P + od + n * 8 + 2 * t;
       float o0 = o[n][2 * hr] * inv, o1 = o[n][2 * hr + 1] * inv;
       if constexpr (MERGE) {
         o0 = (to_f(dst[0]) * w1 + o0 * w2) * inv_t;
@@ -256,11 +280,11 @@ __device__ __forceinline__ void fwd_mma_store(const float (&o)[C::NT_O][4],
       }
       *reinterpret_cast<uint32_t*>(dst) = pack2<T>(o0, o1);
     }
-    if (t == 0 && r < rows) lse[r] = lse_r;
+    if (t == 0 && od == 0 && r < rows) lse[r] = lse_r;
   }
   __syncwarp();
   for (int i = lane; i < 16 * CH; i += 32) {
-    const int r = w * 16 + i / CH, c = (i % CH) * 8;
+    const int r = w * 16 + i / CH, c = od + (i % CH) * 8;
     if (r < rows) {
       *reinterpret_cast<uint4*>(op + (long long)r * o_ss + c) =
           *reinterpret_cast<const uint4*>(stage + r * C::P + c);

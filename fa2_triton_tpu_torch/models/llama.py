@@ -46,6 +46,7 @@ from torch.utils.checkpoint import checkpoint
 from fa2_triton_tpu_torch.ops import flash_attn_func, flash_fwd
 from fa2_triton_tpu_torch.ops.attention import flash_attn_with_kv_cache, pad_head_dim, pad_last
 from fa2_triton_tpu_torch.ops.decode import decode_attention, paged_decode_attention
+from fa2_triton_tpu_torch.ops.flash_fwd import MAX_HEAD_DIM
 from fa2_triton_tpu_torch.ops.quant import QuantizedWeight, qmatmul as _mm, quantize_weight
 from fa2_triton_tpu_torch.utils import resolve_device
 
@@ -554,8 +555,9 @@ def decode_step(
 ):
     """One batched decode step over the serving KV cache. Writes each slot's
     new k/v at `lens` IN PLACE (quantized when the cache is; saves a full
-    cache copy per layer per step) and attends over lens + 1 rows. Returns
-    (logits [B, V], caches)."""
+    cache copy per layer per step) and attends over lens + 1 rows, q
+    zero-padded to the cache's head dim and the output cut back (JAX's
+    `_pad`). Returns (logits [B, V], caches)."""
     from fa2_triton_tpu_torch.runtime.kv_cache import write_kv
 
     cfg = model.cfg
@@ -565,8 +567,9 @@ def decode_step(
         cache = caches[li]
         write_kv(cache, k, v, lens, kv_cfg)
         return decode_attention(
-            q, cache["k"], cache["v"], kv_lens, cache.get("k_scale"), cache.get("v_scale"),
-            softmax_scale=cfg.scale, window_left=cfg.window_for(li), softcap=cfg.attn_softcap)
+            pad_last(q, kv_cfg.head_dim_padded), cache["k"], cache["v"], kv_lens,
+            cache.get("k_scale"), cache.get("v_scale"), softmax_scale=cfg.scale,
+            window_left=cfg.window_for(li), softcap=cfg.attn_softcap)[..., :cfg.hd]
 
     return _decode_layers(model, tokens, lens, write_and_attend, tp_group), caches
 
@@ -583,7 +586,8 @@ def paged_decode_step(
     """One batched decode step over the paged KV cache
     (`fa2_triton_tpu/models/llama.py:paged_decode_step`): scatters each
     slot's new k/v through its table row at `lens`, IN PLACE, and attends
-    over lens + 1 rows. Returns (logits [B, V], pools)."""
+    over lens + 1 rows, q zero-padded to the pool's head dim and the output
+    cut back. Returns (logits [B, V], pools)."""
     from fa2_triton_tpu_torch.runtime.paged_cache import write_tokens_paged
 
     cfg = model.cfg
@@ -593,17 +597,19 @@ def paged_decode_step(
         pool = pools[li]
         write_tokens_paged(pool, tables, k, v, lens, pcfg)
         return paged_decode_attention(
-            q, pool["k"], pool["v"], tables, kv_lens, pool.get("k_scale"), pool.get("v_scale"),
-            softmax_scale=cfg.scale, window_left=cfg.window_for(li), softcap=cfg.attn_softcap)
+            pad_last(q, pcfg.head_dim_padded), pool["k"], pool["v"], tables, kv_lens,
+            pool.get("k_scale"), pool.get("v_scale"), softmax_scale=cfg.scale,
+            window_left=cfg.window_for(li), softcap=cfg.attn_softcap)[..., :cfg.hd]
 
     return _decode_layers(model, tokens, lens, write_and_attend, tp_group), pools
 
 
 def _cache_rows(store: dict, total: int, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The first `total` rows of a one-slot cache view [1, Hkv, S, D] (and
-    its scales [1, Hkv, 1, S]) as k, v in `dtype`: dequantized (value x
-    scale in fp32, then cast, as the JAX package does) when the store is
-    quantized, else views."""
+    """The first `total` rows of a one-slot cache view [1, Hkv, S, Dp] (and
+    its scales [1, Hkv, 1, S]) as k, v in `dtype`, at the cache's padded
+    head dim (the kernels' width): dequantized (value x scale in fp32, then
+    cast, as the JAX package does) when the store is quantized, else
+    views."""
     k, v = store["k"][:, :, :total], store["v"][:, :, :total]
     if "k_scale" in store:
         k = (k.float() * store["k_scale"][..., :total].transpose(2, 3)).to(dtype)
@@ -629,7 +635,7 @@ def _chunk_layers(model: LlamaModel, tokens: torch.Tensor, chunk_len: int, cache
     cos, sin = rope_cos_sin(positions, cfg.hd, cfg.rope_theta, cfg.rope_factors)
     cs, sn = cos[:, :, None, :], sin[:, :, None, :]
     lens = torch.full((1, 2), total, dtype=torch.int32, device=dev)
-    Dp = pad_head_dim(cfg.hd, dev)
+    Dp = pad_head_dim(cfg.hd, dev, MAX_HEAD_DIM)   # the caches' width
     for li, layer in enumerate(model.layers):
         h = rms_norm(x, layer.attn_norm, cfg.norm_eps)
         q, k, v = _qkv(layer, h, cfg)
@@ -716,7 +722,7 @@ def paged_chunk_prefill_step(
     # Made on the device: a host tensor would be copied, and the host would
     # wait for the device, in every layer.
     position = torch.full((1,), cache_len, dtype=torch.int32, device=tables.device)
-    Hkv, D = pcfg.n_kv_heads, pcfg.head_dim
+    Hkv, D = pcfg.n_kv_heads, pcfg.head_dim_padded
 
     def write_and_view(li, k, v):
         pool = pools[li]

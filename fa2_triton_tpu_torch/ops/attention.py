@@ -13,10 +13,11 @@ by default (the FMA kernels, at fp32 speed) or in bf16 if asked
 output comes back in fp16. The kernels' fp16 instantiations stay reachable
 through `ops/flash_fwd.flash_attn_forward` / `ops/flash_bwd.
 flash_attn_backward`.
-A head dim the kernels are not built for (any D <= 256 but 64, 128, 256) is
-zero-padded to the next one they are, which is exact: the scale comes from
-the true D, zero columns add nothing to q.k, and the padded output columns
-are sliced off (their gradients with them).
+A head dim the kernels are not built for (any D <= 512 but 64, 128, 256,
+384, 512) is zero-padded to the next one they are, which is exact: the
+scale comes from the true D, zero columns add nothing to q.k, and the
+padded output columns are sliced off (their gradients with them). Past 256
+that is JAX's round-up to 128 lanes (`fa2_triton_tpu/ops/attention.py`).
 
 `_AttnCore` is the counterpart of the JAX `jax.custom_vjp` core
 (`fa2_triton_tpu/ops/attention.py:57-116`): the forward saves
@@ -78,19 +79,23 @@ def resolve_dropout_seed(dropout_p: float, dropout_seed: Optional[int],
     return int(torch.randint(0, _INT32_MAX, (), generator=dropout_rng))
 
 
-def pad_head_dim(D: int, device: torch.device) -> int:
-    """The head dim the kernels compute at: D itself, or the next of
-    HEAD_DIMS (zero padding). CUDA tensors past MAX_HEAD_DIM raise."""
-    if D in HEAD_DIMS:
-        return D
-    if D > MAX_HEAD_DIM:
-        if device.type == "cuda":
-            raise ValueError(
-                f"head_dim {D} > {MAX_HEAD_DIM}: the dq and dk/dv tiles would need ~305-313 KB "
-                f"of shared memory at 384, above the H100's 227 KB; a new tiling is ROADMAP.md "
-                f"queue C 'Head dims'")
-        return D   # the plain twins take any D
-    return next(d for d in HEAD_DIMS if d >= D)
+def kernel_head_dim(D: int) -> int:
+    """The head dim the kernels compute a head dim D at, on any device: the
+    first of HEAD_DIMS >= D, or D itself past them (which only the plain
+    twins take). The serving caches are allocated this wide."""
+    return next((d for d in HEAD_DIMS if d >= D), D)
+
+
+def pad_head_dim(D: int, device: torch.device, max_dim: int) -> int:
+    """The head dim a kernel family computes D at (`kernel_head_dim`).
+    `max_dim` is the family's largest head dim: MAX_HEAD_DIM for the dense
+    forward, backward and decode, 256 for the packed (varlen) kernels. CUDA
+    tensors past it raise ValueError; CPU tensors take any D."""
+    if D > max_dim and device.type == "cuda":
+        raise ValueError(
+            f"head_dim {D} > {max_dim}: these kernels are built for head dims up to {max_dim} "
+            f"(ROADMAP.md queue A, 'Head dims')")
+    return kernel_head_dim(D)
 
 
 def fp16_compute(dtype: torch.dtype, fp16_compute_dtype: Optional[torch.dtype]) -> torch.dtype:
@@ -165,7 +170,8 @@ def flash_attn_func(
         q: [batch, seqlen_q, num_heads_q, head_dim].
         k, v: [batch, seqlen_k, num_heads_kv, head_dim]; num_heads_q must be
             a multiple of num_heads_kv (GQA/MQA). CUDA tensors take any
-            head_dim <= 256 (zero-padded to 64 / 128 / 256 for the kernels).
+            head_dim <= 512 (zero-padded to 64 / 128 / 256 / 384 / 512 for
+            the kernels).
         attention_mask: optional bool [batch, seqlen_q] right-padding mask
             (True = valid). Requires seqlen_q == seqlen_k; applied to both
             queries and keys.
@@ -227,7 +233,7 @@ def flash_attn_func(
                              f"to [{B}, {Hq}, {Sq}, {Sk}]")
         # Seq dims broadcast as a view; autograd of expand sums dbias back.
         bias = bias.expand(bias.shape[0], bias.shape[1], Sq, Sk)
-    Dp = pad_head_dim(D, q.device)
+    Dp = pad_head_dim(D, q.device, MAX_HEAD_DIM)
     o, lse = _AttnCore.apply(
         *(pad_last(x, Dp).transpose(1, 2) for x in (q, k, v)), bias, lens,
         causal, scale, tuple(window_size), float(softcap), float(dropout_p), seed,
@@ -276,7 +282,7 @@ def flash_attn_with_kv_cache(
         raise ValueError(f"need 0 < S_step {S} <= kv_len {kv_len} <= S_max {k_cache.shape[2]}")
     scale = float(softmax_scale) if softmax_scale is not None else default_softmax_scale(D)
     lens = torch.full((B, 2), kv_len, dtype=torch.int32, device=q.device)
-    Dp = pad_head_dim(D, q.device)
+    Dp = pad_head_dim(D, q.device, MAX_HEAD_DIM)
     o, _ = flash_attn_forward(
         pad_last(q, Dp).transpose(1, 2), pad_last(k_cache[:, :, :kv_len], Dp),
         pad_last(v_cache[:, :, :kv_len], Dp), lens, kv_len - S, causal=True,

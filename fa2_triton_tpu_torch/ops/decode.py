@@ -4,8 +4,9 @@ Port of `fa2_triton_tpu/ops/decode.py`: `decode_attention` over a contiguous
 KV cache (B5, `_decode_kernel` with and without quant) and
 `paged_decode_attention` over a shared page pool read through block tables
 (B6, `_decode_kernel_paged` / `_paged_noquant`), all on the one kernel
-template of `csrc/decode.cuh`. Layouts are the JAX ones without the 128-lane
-pad of D:
+template of `csrc/decode.cuh`. Layouts are the JAX ones; the kernel takes
+D in HEAD_DIMS, to which the serving caches pad the model's head dim as
+JAX pads it to 128 lanes (`runtime/kv_cache.py`):
 - q [B, Hq, D]; contiguous caches [B, Hkv, S_max, D], scales
   [B, Hkv, 1, S_max] fp32;
 - pools [n_pages, Hkv, page_size, D], tables [B, max_pages] int32 (position
@@ -41,7 +42,7 @@ from fa2_triton_tpu_torch.utils import LOG2E, default_softmax_scale
 LAUNCHES = 0
 VARIANT_LAUNCHES: Dict[str, int] = {}
 
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 128, 256, 384, 512)   # the serving caches are padded to one of them
 GROUPS = (1, 2, 4, 8)
 PAGE_MULTIPLE = 128  # the JAX package's page rule (decode.py:314)
 # Logical cache rows per block of the kernel's grid: a mirror of CHUNK in
@@ -233,7 +234,9 @@ def _launch(q, k_cache, v_cache, kv_lens, k_scale, v_scale, block_tables, *,
         raise TypeError(f"decode kernel takes fp32/fp16/bf16 q with caches of its dtype, int8 or "
                         f"float8_e4m3fn, got {q.dtype}/{k_cache.dtype}/{v_cache.dtype}")
     if D not in HEAD_DIMS:
-        raise ValueError(f"decode kernel takes head_dim in {HEAD_DIMS}, got {D}")
+        raise ValueError(f"decode kernel takes head_dim in {HEAD_DIMS}, got {D} (the serving "
+                         f"caches are allocated at one of them, `ops/attention.py:"
+                         f"kernel_head_dim`; past {HEAD_DIMS[-1]}: ROADMAP.md queue A)")
     if Hq % Hkv != 0 or Hq // Hkv not in GROUPS:
         raise ValueError(f"decode kernel takes Hq / Hkv in {GROUPS}, got {Hq} / {Hkv}")
     if kv_lens.shape != (B,) or kv_lens.dtype != torch.int32:

@@ -81,6 +81,15 @@ _KERNEL_IDS = {"flash_bwd_dq": 0, "flash_bwd_dkdv": 1, "flash_bwd_dbias": 2}
 # csrc/flash_bwd_wl.cu (B14, with its dq reduction when there are strips).
 SCHEDULE_LAUNCHES = dict.fromkeys(("tri_square", "causal_diag", "rect", "worklist"), 0)
 
+# The largest head dim of csrc/flash_bwd_tri.cu and csrc/flash_bwd_wl.cu (the
+# tri-square, the split's diag leaves, the work list) and of the dbias
+# kernels. Past it the backward routes to the dq + dk/dv pair, which is
+# built to MAX_HEAD_DIM (512): the result is JAX's, only the schedule
+# differs; a forced schedule and dbias on CUDA raise (ROADMAP.md queue A).
+SCHEDULE_MAX_HEAD_DIM = 256
+DBIAS_MAX_HEAD_DIM = 256
+_WIDE_DECLINED = ("tri_square", "split", "worklist")
+
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 # The fused kernels' argtypes share a tail: the lens and strides pointers,
 # then (q_off, kv_off, [causal, wl, wr,] scale, k_mul, 4 dropout args,
@@ -488,24 +497,27 @@ def backward_gates(Sq: int, Sk: int, head_dim: int, dtype_bytes: int, *, causal:
     (the dq + dk/dv pair) always passes. The split's gate is read at
     `split_leaf`, default `bwd_split_leaf_t` (JAX takes the split only with
     an explicit leaf; `backward_route` keeps that). Kill switches are not
-    applied here."""
+    applied here. Past SCHEDULE_MAX_HEAD_DIM the tri-square, split and work
+    list gates are False whatever JAX's say: their kernels stop at 256."""
     Sq_p, Sk_p, Dp = jax_padded_shape(Sq, Sk, head_dim, dtype_bytes, block_sizes, chip)
     sq_real = seqlen_q_real if seqlen_q_real is not None else Sq
     sk_real = seqlen_k_real if seqlen_k_real is not None else Sk
     window = tuple(window)
     leaf = split_leaf if split_leaf is not None else bwd_split_leaf_t(Dp, group, dtype_bytes)
+    wide = head_dim > SCHEDULE_MAX_HEAD_DIM
     return {
-        "tri_square": tri_square_bwd_ok(causal, static_skip, window, softcap, Sq_p, Sk_p,
-                                        sq_real, sk_real, Dp, group, dtype_bytes),
-        "split": leaf > 0 and causal_split_bwd_ok(
+        "tri_square": not wide and tri_square_bwd_ok(causal, static_skip, window, softcap, Sq_p,
+                                                     Sk_p, sq_real, sk_real, Dp, group,
+                                                     dtype_bytes),
+        "split": not wide and leaf > 0 and causal_split_bwd_ok(
             causal, static_skip, window, None, varlen, softcap, Sq_p, Sk_p, sq_real, sk_real,
             Dp, group, leaf_t=leaf, dtype_bytes=dtype_bytes),
         "strip": bwd_causal_strip_ok(causal, static_skip, window, None, varlen, softcap, Sq_p,
                                      Sk_p, sq_real, sk_real, head_dim=Dp,
                                      dtype_bytes=dtype_bytes),
-        "worklist": causal_wl_bwd_config(causal, static_skip, window, varlen, softcap, Sq_p,
-                                         Sk_p, sq_real, sk_real, Dp, group,
-                                         dtype_bytes) is not None,
+        "worklist": not wide and causal_wl_bwd_config(
+            causal, static_skip, window, varlen, softcap, Sq_p, Sk_p, sq_real, sk_real, Dp, group,
+            dtype_bytes) is not None,
         "generic": True,
     }
 
@@ -521,7 +533,7 @@ def backward_route(Sq: int, Sk: int, head_dim: int, dtype_bytes: int, *, causal:
                    chip: Optional[str] = None) -> str:
     """The schedule `flash_attn_backward` takes: "tri_square", "split",
     "strip", "worklist" or "generic" (the fused and two-pass routes);
-    `head_dim` is the kernels' (64, 128 or 256), `dtype_bytes` the element
+    `head_dim` is the kernels' (64 to 512), `dtype_bytes` the element
     size they compute in and `group` Hq / Hkv. With a bias, or
     `fused=False`, every schedule is skipped.
 
@@ -533,7 +545,11 @@ def backward_route(Sq: int, Sk: int, head_dim: int, dtype_bytes: int, *, causal:
     passes (`table_route`). Else the prior, JAX's dispatch: the kill
     switches are read at call time, and a split forced on
     (`causal_split=True`) whose gate fails raises ValueError; forced off
-    it is skipped."""
+    it is skipped. Past SCHEDULE_MAX_HEAD_DIM the tri-square, split and
+    work list are declined (`backward_gates`), so those head dims take the
+    strip or the pair where JAX may take a fused schedule: the same
+    gradients, another schedule (ROADMAP.md queue C); forcing one of them
+    there raises ValueError."""
     if bias is not None or fused is False:
         if route not in (None, "generic"):
             raise ValueError(f"{route} forced on a call with a bias or fused=False")
@@ -542,6 +558,11 @@ def backward_route(Sq: int, Sk: int, head_dim: int, dtype_bytes: int, *, causal:
                         static_skip=static_skip, window=window, softcap=softcap, varlen=varlen,
                         seqlen_q_real=seqlen_q_real, seqlen_k_real=seqlen_k_real,
                         split_leaf=split_leaf, block_sizes=block_sizes, chip=chip)
+    if head_dim > SCHEDULE_MAX_HEAD_DIM and (route in _WIDE_DECLINED
+                                             or (route is None and causal_split)):
+        raise ValueError(
+            f"{route or 'split'} forced at head_dim {head_dim}: the fused backward schedules are "
+            f"built for head dims up to {SCHEDULE_MAX_HEAD_DIM} (ROADMAP.md queue A, 'Head dims')")
     if route is not None:
         if route not in ok:
             raise ValueError(f"unknown backward route {route!r}; one of {tuple(ok)}")
@@ -824,6 +845,13 @@ def _prescale_k(k, softmax_scale):
     return (k.float() * (softmax_scale * LOG2E)).to(k.dtype)
 
 
+def _check_schedule_head_dim(D: int) -> None:
+    """Raise on CUDA tensors of a head dim the fused kernels lack."""
+    if D > SCHEDULE_MAX_HEAD_DIM:
+        raise ValueError(f"the fused backward kernels are built for head dims up to "
+                         f"{SCHEDULE_MAX_HEAD_DIM}, got {D} (ROADMAP.md queue A, 'Head dims')")
+
+
 def _tri_launch(kernel, q, k, v, do, o, lse, delta, lens, q_off, kv_off, *, leaf, softmax_scale,
                 dropout_p, dropout_seed, seqlen_q_real, seqlen_k_real):
     """Launch csrc/flash_bwd_tri.cu: "tri_square" (o given: k folded and
@@ -834,6 +862,7 @@ def _tri_launch(kernel, q, k, v, do, o, lse, delta, lens, q_off, kv_off, *, leaf
     Returns (dq, dk, dv) in the input dtypes."""
     _check_bwd_args(q, k, v, do, lens, lse, o)
     B, Hq, Sq, D = q.shape
+    _check_schedule_head_dim(D)
     Hkv, Sk = k.shape[1], k.shape[2]
     sq_real, sk_real = _reals(q, k, seqlen_q_real, seqlen_k_real)
     mma = q.element_size() == 2
@@ -1117,6 +1146,7 @@ def flash_attn_backward_fused_wl(q, k, v, do, o, lse, lens, q_off=0, kv_off=0, *
                                                   schedule=key, causal=causal, window=window,
                                                   dlse=dlse, **kw)
     _check_bwd_args(q, k, v, do, lens, lse, o)
+    _check_schedule_head_dim(D)
     mma = q.element_size() == 2
     do = _mma_layout(do)
     dq, dk, dv = _new_grads(q, k, zero=True)
@@ -1265,6 +1295,10 @@ def flash_attn_backward(
         raise ValueError("compute_dbias needs a bias")
     dropout_c_args(dropout_p, dropout_seed)
     B, Hq, Sq, D = q.shape
+    if compute_dbias and D > DBIAS_MAX_HEAD_DIM and q.device.type == "cuda":
+        raise ValueError(f"compute_dbias at head_dim {D}: the dbias kernels are built for head "
+                         f"dims up to {DBIAS_MAX_HEAD_DIM} (ROADMAP.md queue A, 'Head dims'); a "
+                         f"bias that needs no gradient works")
     chip = detect_chip(q.device)
     route = backward_route(
         Sq, k.shape[2], D, q.element_size(), causal=causal, group=Hq // k.shape[1],

@@ -73,10 +73,12 @@ SCHEDULE_LAUNCHES = dict.fromkeys(("causal_strip", "causal_diag", "rect", "rect_
 # preconditions; a diag leaf is a whole number of tiles.
 TILE_ROWS = 64
 
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 128, 256, 384, 512)
 # The attention entry points zero-pad other head dims up to the next of
-# HEAD_DIMS; past the last, the dq and dk/dv tiles need more shared memory
-# than a Hopper block has (ROADMAP.md queue C, "Head dims").
+# HEAD_DIMS (past 256 that is JAX's round-up to 128 lanes); past the last,
+# CUDA tensors raise (ROADMAP.md queue A, "Head dims"). The packed (varlen)
+# kernels, dbias and the fused backward schedules stop at 256
+# (`ops/varlen.py`, `ops/flash_bwd.py`).
 MAX_HEAD_DIM = HEAD_DIMS[-1]
 
 _P, _I, _L, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_uint
@@ -238,7 +240,7 @@ def _check_cuda_args(q, k, v, lens=None, vec=4):
     if D not in HEAD_DIMS:
         raise ValueError(f"the attention kernels take head_dim in {HEAD_DIMS} (the entry points "
                          f"zero-pad any head_dim <= {MAX_HEAD_DIM} to one of them; larger ones "
-                         f"wait for a new tiling, ROADMAP.md queue C 'Head dims'), got {D}")
+                         f"wait for a new tiling, ROADMAP.md queue A 'Head dims'), got {D}")
     if lens is not None and (lens.shape != (B, 2) or lens.dtype != torch.int32
                              or not lens.is_contiguous()):
         raise ValueError("lens must be a contiguous int32 [B, 2] tensor")
@@ -485,7 +487,7 @@ def forward_route(Sq: int, Sk: int, head_dim: int, dtype_bytes: int, *, causal: 
                   route: Optional[str] = None, block_sizes: Optional[BlockSizes] = None,
                   chip: Optional[str] = None) -> str:
     """The schedule `flash_attn_forward` takes: "tri_square", "split",
-    "strip" or "generic"; `head_dim` is the kernels' (64, 128 or 256) and
+    "strip" or "generic"; `head_dim` is the kernels' (64 to 512) and
     `dtype_bytes` the element size they compute in.
 
     `route` forces one by name. Otherwise, where `reads_table` holds, no

@@ -20,8 +20,7 @@ asks for `device="cpu"`, and each rank runs, at JAX's tiny shapes (fp32):
 4. an expert-parallel MoE step over `model` 2 (`models/moe.py:
    make_ep_mlp`), its loss against one device's;
 5. TP serving over `model` max(tp, 2): the Engine's greedy tokens equal to
-   one device's (head_dim 64, where JAX's config has 16: the decode kernel
-   takes 64, 128 and 256); and with 4 ranks or more a (data, model 2)
+   one device's; and with 4 ranks or more a (data, model 2)
    `DataParallelEngine`'s, with work on every replica;
 6. an FSDP / ZeRO-3 step over `data` min(n, 4) (`model` the rest), whose
    parameters stay 1 / dp a rank.
@@ -139,11 +138,10 @@ def dryrun_rank(rank: int, world: int, device=None) -> Dict:
         moe_ref = float(moe.loss_fn(moe_model, moe_tokens))
     assert abs(float(moe_l) - moe_ref) < 1e-4, (float(moe_l), moe_ref)
 
-    # 5. TP serving (and data-parallel serving) against one device. JAX's
-    # config but for head_dim 64 (its 16 = dim / heads): the decode kernel
-    # is built for head dims 64, 128 and 256.
+    # 5. TP serving (and data-parallel serving) against one device, at JAX's
+    # config (head_dim 16 = dim / heads; the caches hold it padded to 64).
     cfg_serve = LlamaConfig(vocab_size=256, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
-                            hidden_dim=128, max_seq_len=128, head_dim=64, dtype=torch.float32)
+                            hidden_dim=128, max_seq_len=128, dtype=torch.float32)
     params_serve = init_params(gen.manual_seed(3), cfg_serve)
     prompts = [[1, 2, 3, 4, 5], [7, 8, 9]]
     m_serve = max(tp, 2)
@@ -195,7 +193,8 @@ def dryrun_rank(rank: int, world: int, device=None) -> Dict:
         print(line, flush=True)
     dist.barrier()
     return {"line": line, "train_loss": loss, "ring_err": ring_err, "pp_err": pp_err,
-            "moe_loss": float(moe_l), "moe_ref": moe_ref, "fsdp_loss": loss_f}
+            "moe_loss": float(moe_l), "moe_ref": moe_ref, "fsdp_loss": loss_f,
+            "serve_head_dim": cfg_serve.hd}
 
 
 def dryrun_multichip(n_devices: int, device=None, timeout_s: float = 600.0) -> Dict:

@@ -9,9 +9,10 @@ through the slot's table and never a page past a slot's length.
 Page allocation is host control logic (a free list, per-slot tables and
 per-page refcounts, mirrored to a device tensor when they change); token
 writes are in-place device scatters of values (and, with `qdtype`, of their
-scales). The head dim is not padded (JAX pads it to 128 with zeros, which
-leave the scales unchanged), so pools, scales and allocator state equal
-JAX's, first D columns, bit for bit.
+scales). The head dim is zero-padded to the kernels' width
+(`head_dim_padded`, `ops/attention.py:kernel_head_dim`; JAX pads it to 128
+lanes), and zeros leave the scales unchanged, so pools, scales and
+allocator state equal JAX's, first head_dim columns, bit for bit.
 
 Automatic prefix caching: full pages are content-addressed by a chain hash
 over their token ids (`_chunk_hash`, blake2b) and shared by refcount. A
@@ -31,6 +32,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from fa2_triton_tpu_torch.ops.attention import kernel_head_dim, pad_last
 from fa2_triton_tpu_torch.ops.quant import QDTYPES, quantize_tensor
 from fa2_triton_tpu_torch.utils import resolve_device
 
@@ -53,6 +55,10 @@ class PagedCacheConfig:
                              f"got {self.qdtype}")
 
     @property
+    def head_dim_padded(self) -> int:
+        return kernel_head_dim(self.head_dim)
+
+    @property
     def max_pages_per_slot(self) -> int:
         return -(-self.max_seq // self.page_size)
 
@@ -63,7 +69,7 @@ class PagedKVCache:
     def __init__(self, cfg: PagedCacheConfig, device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        shape = (cfg.n_pages, cfg.n_kv_heads, cfg.page_size, cfg.head_dim)
+        shape = (cfg.n_pages, cfg.n_kv_heads, cfg.page_size, cfg.head_dim_padded)
         sshape = (cfg.n_pages, cfg.n_kv_heads, 1, cfg.page_size)
         vdtype = cfg.qdtype if cfg.qdtype is not None else cfg.compute_dtype
         self.pools: List[dict] = []
@@ -256,16 +262,18 @@ def write_tokens_paged(
     cfg: PagedCacheConfig,
 ) -> dict:
     """Scatter S_step new tokens per slot into the shared page pool, in
-    place (quantizing if configured); returns the pool dict. Token (b, i)
-    lands at page tables[b, (positions[b] + i) // page_size], row
-    (positions[b] + i) % page_size."""
-    B, S_step, Hkv, D = new_k.shape
+    place (quantizing if configured), zero-padded to the pool's head dim
+    (JAX l.259); returns the pool dict. Token (b, i) lands at page
+    tables[b, (positions[b] + i) // page_size], row (positions[b] + i) %
+    page_size."""
+    B, S_step, Hkv = new_k.shape[:3]
+    D = cfg.head_dim_padded
     dev = pool["k"].device
     pos = positions.to(device=dev, dtype=torch.long)[:, None] + torch.arange(S_step, device=dev)
     pages = torch.gather(tables.to(dev).long(), 1, pos // cfg.page_size).reshape(-1)   # [B * S]
     offs = (pos % cfg.page_size).reshape(-1)
     for name, x in (("k", new_k), ("v", new_v)):
-        tok = x.to(cfg.compute_dtype).reshape(B * S_step, Hkv, D)   # token-major [N, Hkv, D]
+        tok = pad_last(x.to(cfg.compute_dtype), D).reshape(B * S_step, Hkv, D)   # [N, Hkv, D]
         if cfg.qdtype is not None:
             tok, scale = quantize_tensor(tok, cfg.qdtype)           # + [N, Hkv, 1]
             # The two index tensors are split by a slice, so the indexed

@@ -80,7 +80,9 @@ def test_chunk_prefill_step_matches_jax(models, case):
     assert not t_caches[0]["k"][0].float().any()      # slot 0 untouched
     for jc, tc in zip(j_caches, t_caches):
         for name in ("k", "v"):
-            t, j = tc[name][1, :, :cache_len], np.asarray(jc[name])[0, :, :cache_len, :16]
+            # D 16 padded with zeros: to the kernels' 64 here, to 128 in JAX.
+            assert tc[name].shape[-1] == 64 and not tc[name][..., 16:].float().any()
+            t, j = tc[name][1, :, :cache_len, :16], np.asarray(jc[name])[0, :, :cache_len, :16]
             if case == "int8":
                 # ROADMAP.md queue C "int8 rounding": a k/v whose fp32 value
                 # sits on a rounding boundary may store one step apart.

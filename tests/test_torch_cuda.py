@@ -21,6 +21,11 @@ from fa2_triton_tpu_torch.ops.attention import flash_attn_func  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
+# The head dims past 256 that the dense forward, the dq + dk/dv pair and
+# decode are built for (their 8-warp / 2-warp tilings); the packed kernels,
+# dbias and the fused backward schedules stop at 256.
+WIDE = [384, 512]
+
 
 @pytest.fixture
 def prior_routes(monkeypatch):
@@ -62,7 +67,7 @@ FWD_CASES = [
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128, 256] + WIDE)
 @pytest.mark.parametrize("case", range(len(FWD_CASES)))
 def test_flash_fwd_kernel_matches_plain(dev, dtype, D, case):
     c = FWD_CASES[case]
@@ -98,7 +103,7 @@ def test_flash_fwd_kernel_matches_plain(dev, dtype, D, case):
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128, 256] + WIDE)
 @pytest.mark.parametrize("route", ["generic", "strip"])
 def test_flash_fwd_kernel_ignores_nan_padding(dev, dtype, D, route):
     """Rows past q_len / kv_len may hold NaN (padding), and the tensor cores
@@ -143,7 +148,7 @@ def test_flash_fwd_kernel_is_bitwise_repeatable(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128, 256] + WIDE)
 @pytest.mark.parametrize("G", [1, 2, 4, 8])
 @pytest.mark.parametrize("kw", [dict(), dict(window_left=50), dict(softcap=3.0)])
 def test_decode_kernel_matches_plain(dev, dtype, D, G, kw):
@@ -176,9 +181,28 @@ def test_decode_kernel_ignores_nan_past_kv_len(dev):
 
 
 def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(dev):
-    q = torch.zeros(1, 8, 2, 384, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim 384.*queue C"):
+    # Head dims: past 512 every entry point; past 256 dbias, the packed
+    # kernels and a forced fused backward schedule (ROADMAP.md queue A).
+    from fa2_triton_tpu_torch.ops import varlen
+
+    q = torch.zeros(1, 8, 2, 640, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 640.*queue A"):
         flash_attn_func(q, q, q, causal=True)
+    qw = torch.zeros(1, 2, 8, 384, device=dev, dtype=torch.bfloat16)
+    lens8 = torch.tensor([[8, 8]], dtype=torch.int32, device=dev)
+    bias = torch.zeros(1, 2, 8, 8, device=dev)
+    with pytest.raises(ValueError, match="compute_dbias at head_dim 384.*queue A"):
+        flash_bwd.flash_attn_backward(qw, qw, qw, qw, qw, torch.zeros(1, 2, 8, device=dev), lens8,
+                                      0, 0, bias, causal=True, softmax_scale=0.05,
+                                      compute_dbias=True)
+    xp = torch.zeros(128, 2, 384, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 384 > 256.*queue A"):
+        varlen.flash_attn_varlen_func(xp, xp, xp, [0, 128], block_q=128, block_kv=128)
+    for route in ("tri_square", "worklist", "split"):
+        with pytest.raises(ValueError, match="queue A"):
+            flash_bwd.flash_attn_backward(qw, qw, qw, qw, qw, torch.zeros(1, 2, 8, device=dev),
+                                          lens8, causal=True, softmax_scale=0.05,
+                                          static_skip=True, route=route)
     q = torch.zeros(1, 8, 2, 64, device=dev, dtype=torch.float64)
     with pytest.raises(TypeError):
         flash_attn_func(q, q, q, causal=True)
@@ -287,7 +311,7 @@ def _bwd_inputs(dev, c, D, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128, 256] + WIDE)
 @pytest.mark.parametrize("case", range(len(BWD_CASES)))
 def test_flash_bwd_kernels_match_plain(dev, dtype, D, case):
     c = BWD_CASES[case]
@@ -433,7 +457,7 @@ def test_dbias_kernel_ignores_nan_padding(dev, dtype, D):
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128, 256] + WIDE)
 def test_bwd_kernels_ignore_nan_padding(dev, dtype, D):
     """Rows past q_len and columns past kv_len may hold NaN (padding): the
     kernels zero-fill them on load, so the gradients equal those of
@@ -761,7 +785,7 @@ def test_varlen_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="multiples of 64"):
         varlen.flash_attn_varlen_func(x, x, x, [0, 256], block_q=32, block_kv=32)
     x = torch.zeros(256, 2, 320, device=dev)
-    with pytest.raises(ValueError, match="head_dim 320.*queue C"):
+    with pytest.raises(ValueError, match="head_dim 320.*queue A"):
         varlen.flash_attn_varlen_func(x, x, x, [0, 256], block_q=128, block_kv=128)
     with pytest.raises(ValueError, match="dropout_seed or dropout_rng"):
         varlen.flash_attn_varlen_func(x[..., :64], x[..., :64], x[..., :64], [0, 256],
@@ -814,7 +838,7 @@ def _to_pool(caches, lens, page, seed, fill=float("nan")):
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
 @pytest.mark.parametrize("qdtype", list(QDTYPE_IDS), ids=list(QDTYPE_IDS.values()))
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128, 256] + WIDE)
 @pytest.mark.parametrize("G", [1, 4, 8])
 @pytest.mark.parametrize("page", [128, 512])
 @pytest.mark.parametrize("kw", [dict(), dict(window_left=300, softcap=3.0)])
@@ -1319,7 +1343,8 @@ def test_blocksparse_dropout_kernels_match_plain(dev, dtype):
 def test_head_dims_off_the_kernel_widths_are_padded(dev, D):
     """flash_attn_func, flash_attn_varlen_func and flash_attn_blocksparse_func
     take any head_dim <= 256 on CUDA (zero-padded to 64 / 128 / 256 for the
-    kernels): outputs and gradients match the same calls on the CPU, fp32."""
+    kernels): outputs and gradients match the same calls on the CPU, fp32.
+    (Past 256: test_wide_head_dims_off_the_kernel_widths_are_padded.)"""
     from fa2_triton_tpu_torch.ops import varlen
 
     rng = torch.Generator().manual_seed(D)
@@ -1386,7 +1411,7 @@ SCHEDULE_LAUNCH_DELTAS = {
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128, 256] + WIDE)
 @pytest.mark.parametrize("case", list(SCHEDULE_CASES))
 @pytest.mark.parametrize("dropout_p", [0.0, 0.2])
 def test_schedule_kernels_match_plain(dev, dtype, D, case, dropout_p):
@@ -1396,6 +1421,12 @@ def test_schedule_kernels_match_plain(dev, dtype, D, case, dropout_p):
     none of csrc/flash_fwd.cu. The merge starts from the diag kernel's
     (o, lse), copied to each side."""
     Sq, Sk, lens, call = SCHEDULE_CASES[case]
+    want = SCHEDULE_LAUNCH_DELTAS[case]
+    if case == "split" and D > 256:
+        # JAX's gate refuses S 300 past D 256 (its blocks pad q and kv to
+        # different lengths there): the split runs at S 512, four leaves.
+        Sq = Sk = 512
+        lens, want = [[512, 512], [423, 423]], {"causal_diag": 1, "rect_merge": 3}
     g = torch.Generator(device=dev).manual_seed(D + len(case))
     x32 = [(torch.randn(2, s, h, D, generator=g, device=dev) * 0.5).transpose(1, 2)
            for s, h in ((Sq, 4), (Sk, 2), (Sk, 2))]
@@ -1413,7 +1444,7 @@ def test_schedule_kernels_match_plain(dev, dtype, D, case, dropout_p):
     o, lse = call(flash_fwd, *x, lens.to(dev), prev, **kw)
     torch.cuda.synchronize()
     delta = {n: c - before[n] for n, c in flash_fwd.SCHEDULE_LAUNCHES.items() if c != before[n]}
-    assert delta == SCHEDULE_LAUNCH_DELTAS[case] and flash_fwd.LAUNCHES == fwd0, delta
+    assert delta == want and flash_fwd.LAUNCHES == fwd0, delta
     assert o.shape == plain[0].shape and o.dtype == dtype
     _check(o.cpu(), ref[0], plain[0], dtype)
     lse, lse_pl = lse.cpu(), plain[1]
@@ -1423,7 +1454,7 @@ def test_schedule_kernels_match_plain(dev, dtype, D, case, dropout_p):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128, 256] + WIDE)
 @pytest.mark.parametrize("Sq,Sk", [(300, 300), (172, 300), (700, 700)])
 @pytest.mark.parametrize("dropout_p", [0.0, 0.2])
 def test_strip_equals_the_generic_kernel_bit_for_bit(dev, dtype, D, Sq, Sk, dropout_p):
@@ -1455,7 +1486,7 @@ SPLIT_AS_GENERIC = {
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128, 256] + WIDE)
 @pytest.mark.parametrize("call", list(SPLIT_AS_GENERIC))
 @pytest.mark.parametrize("dropout_p", [0.0, 0.2])
 def test_split_calls_equal_the_generic_kernel_bit_for_bit(dev, dtype, D, call, dropout_p):
@@ -1509,7 +1540,8 @@ def test_flash_attn_func_routes_long_causal_calls(dev, prior_routes, D, S, route
     o_pl, lse_pl = flash_fwd.flash_attn_forward_plain(q, k, v, lens, **kw)
     _check(t(out), o32, o_pl, torch.bfloat16)
     assert (lse - lse_pl).abs().max().item() <= 1e-4
-    refs = flash_bwd.flash_attn_backward_plain(*(t(x) for x in x32), t(do32), o32, lse32, lens, **kw)
+    refs = flash_bwd.flash_attn_backward_plain(*(t(x) for x in x32), t(do32), o32, lse32, lens,
+                                               **kw)
     plains = flash_bwd.flash_attn_backward_plain(q, k, v, t(do32.to(torch.bfloat16)),
                                                  t(out.detach()), lse.detach(), lens, **kw)
     _check_grads([t(x.grad) for x in leaves], refs, plains, torch.bfloat16)
@@ -1696,7 +1728,8 @@ def test_flash_attn_func_routes_causal_backward(dev, prior_routes, S, Hkv, route
     lens = torch.tensor([[S, S]], dtype=torch.int32, device=dev)
     kw = dict(causal=True, softmax_scale=D ** -0.5)
     o32, lse32 = flash_fwd.flash_attn_forward_plain(*(t(x) for x in x32), lens, **kw)
-    refs = flash_bwd.flash_attn_backward_plain(*(t(x) for x in x32), t(do32), o32, lse32, lens, **kw)
+    refs = flash_bwd.flash_attn_backward_plain(*(t(x) for x in x32), t(do32), o32, lse32, lens,
+                                               **kw)
     q, k, v = (t(x.detach()) for x in leaves)
     plains = flash_bwd.flash_attn_backward_plain(q, k, v, t(do32.to(torch.bfloat16)),
                                                  t(out.detach()), lse.detach(), lens, **kw)
@@ -1718,7 +1751,7 @@ KV_CACHE_CASES = {   # name: (S_step, kv_len, Hkv, window_left, softcap)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128] + WIDE)
 @pytest.mark.parametrize("case", list(KV_CACHE_CASES))
 def test_flash_attn_with_kv_cache_kernel_matches_plain(dev, dtype, D, case):
     from fa2_triton_tpu_torch.ops.attention import flash_attn_with_kv_cache
@@ -2396,3 +2429,139 @@ def test_parallel_attention_on_cuda_ranks(dev):
         _check(torch.from_numpy(res["out"]).to(dev), o32, o16, torch.bfloat16)
         _check_grads([torch.from_numpy(res[n]).to(dev) for n in ("dq", "dk", "dv")], g32, g16,
                      torch.bfloat16)
+
+
+# ------------------------------ head dims 384 and 512 ------------------------------
+# The forward (8 warps, two per 16 q rows, each on half of O's columns), the
+# dq kernel (the same pairs, K / V tiles of 32 / 16 rows), the dk/dv kernel
+# (32 kv rows x 32-row q tiles, 4 warps along D), the FMA kernels (32 x 16
+# tiles) and decode (2 warps, q in shared memory).
+
+WIDE_EXTRA = {   # name: (flash_fwd / flash_bwd keywords, whether a bias rides along)
+    "bias": (dict(), True),
+    "dropout": (dict(dropout_p=0.17, dropout_seed=-5), False),
+    "dropout bias window": (dict(dropout_p=0.1, dropout_seed=9, window=(40, 0)), True),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("D", WIDE)
+@pytest.mark.parametrize("case", list(WIDE_EXTRA))
+def test_wide_head_dims_bias_and_dropout_match_plain(dev, dtype, D, case):
+    """The EXTRA and DROP instantiations past D 256: forward, dq and dk/dv
+    with a bias that needs no gradient (dbias stops at D 256) or dropout,
+    against the plain twins (FA rules), one launch each and no dbias
+    (softcap: FWD_CASES / BWD_CASES at every D)."""
+    extra, with_bias = WIDE_EXTRA[case]
+    (q32, k32, v32, do32), lens, q_off, kw = _bwd_inputs(dev, dict(), D, D + len(case))
+    kw.update(extra)
+    b32 = None
+    if with_bias:
+        b32 = torch.randn(1, 8, q32.shape[2], k32.shape[2],
+                          generator=torch.Generator(device=dev).manual_seed(D), device=dev)
+    o32, lse32 = flash_fwd.flash_attn_forward_plain(q32, k32, v32, lens, q_off, 0, b32, **kw)
+    refs = flash_bwd.flash_attn_backward_plain(q32, k32, v32, do32, o32, lse32, lens, q_off, 0, b32,
+                                               **kw)
+    q, k, v, do = (x.to(dtype) for x in (q32, k32, v32, do32))
+    bias = None if b32 is None else b32.to(dtype)
+    fwd0, bwd0 = flash_fwd.LAUNCHES, dict(flash_bwd.LAUNCHES)
+    o, lse = flash_fwd.flash_attn_forward(q, k, v, lens, q_off, 0, bias, **kw)
+    grads = flash_bwd.flash_attn_backward(q, k, v, do, o, lse, lens, q_off, 0, bias, **kw)
+    launched = (flash_fwd.LAUNCHES - fwd0,
+                *(flash_bwd.LAUNCHES[n] - bwd0[n] for n in sorted(bwd0)))
+    assert launched == (1, 0, 1, 1), launched     # fwd, dbias, dq, dk/dv
+    o_pl, lse_pl = flash_fwd.flash_attn_forward_plain(q, k, v, lens, q_off, 0, bias, **kw)
+    plains = flash_bwd.flash_attn_backward_plain(q, k, v, do, o, lse, lens, q_off, 0, bias, **kw)
+    torch.cuda.synchronize()
+    _check(o, o32, o_pl, dtype)
+    assert torch.equal(torch.isinf(lse), torch.isinf(lse_pl))
+    fin = torch.isfinite(lse_pl)
+    assert (lse[fin] - lse_pl[fin]).abs().max().item() <= 1e-4
+    _check_grads(grads, refs, plains, dtype)
+
+
+@pytest.mark.parametrize("D", [300, 448])
+def test_wide_head_dims_off_the_kernel_widths_are_padded(dev, D):
+    """flash_attn_func at a head dim past 256 but off the kernels' widths
+    (padded to 384 / 512, JAX's round-up to 128) matches the same call on
+    the CPU, fp32, forward and gradients, with dropout."""
+    rng = torch.Generator().manual_seed(D)
+    x = [torch.randn(2, 130, h, D, generator=rng) * 0.5 for h in (4, 2, 2)]
+    results = []
+    for device in ("cpu", dev):
+        leaves = [t.detach().to(device).requires_grad_() for t in x]
+        out = flash_attn_func(*leaves, causal=True, dropout_p=0.1, dropout_seed=D)
+        out.float().square().sum().backward()
+        assert out.shape[-1] == D
+        results.append([out.detach().cpu()] + [t.grad.cpu() for t in leaves])
+    for a, b in zip(*results):
+        torch.testing.assert_close(b, a, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("D", WIDE)
+def test_wide_head_dims_take_the_pair_where_jax_takes_a_fused_schedule(dev, prior_routes, D):
+    """Causal bf16 S 256: JAX's gates send the backward to the tri-square,
+    which stops at D 256, so the port runs the dq + dk/dv pair (the same
+    gradients, another schedule; the forward's tri-square is the generic
+    kernel there too); the FA rules against the fp32 plain twins."""
+    g = torch.Generator(device=dev).manual_seed(D)
+    S = 256
+    x32 = [torch.randn(2, S, h, D, generator=g, device=dev) * 0.5 for h in (8, 2, 2)]
+    do32 = torch.randn(2, S, 8, D, generator=g, device=dev)
+    assert flash_bwd.backward_route(S, S, D, 2, causal=True, group=4, static_skip=True) == "generic"
+    leaves = [x.to(torch.bfloat16).requires_grad_() for x in x32]
+    flash_fwd.reset_launches()
+    flash_bwd.reset_launches()
+    out = flash_attn_func(*leaves, causal=True)
+    out.backward(do32.to(torch.bfloat16))
+    torch.cuda.synchronize()
+    assert flash_fwd.LAUNCHES == 1 and not any(flash_fwd.SCHEDULE_LAUNCHES.values())
+    assert flash_bwd.LAUNCHES["flash_bwd_dq"] == 1 and flash_bwd.LAUNCHES["flash_bwd_dkdv"] == 1
+    assert not any(flash_bwd.SCHEDULE_LAUNCHES.values())
+    t = lambda x: x.transpose(1, 2)
+    lens = torch.tensor([[S, S]] * 2, dtype=torch.int32, device=dev)
+    kw = dict(causal=True, softmax_scale=D ** -0.5)
+    o32, lse32 = flash_fwd.flash_attn_forward_plain(*(t(x) for x in x32), lens, **kw)
+    refs = flash_bwd.flash_attn_backward_plain(*(t(x) for x in x32), t(do32), o32, lse32, lens,
+                                               **kw)
+    xl = [t(x.detach()) for x in leaves]
+    o_pl, lse_pl = flash_fwd.flash_attn_forward_plain(*xl, lens, **kw)
+    plains = flash_bwd.flash_attn_backward_plain(*xl, t(do32.to(torch.bfloat16)), o_pl, lse_pl,
+                                                 lens, **kw)
+    _check(t(out.detach()), o32, o_pl, torch.bfloat16)
+    _check_grads([t(x.grad) for x in leaves], refs, plains, torch.bfloat16)
+
+
+@pytest.mark.parametrize("head_dim", [16, 96, 384])
+@pytest.mark.parametrize("mode", [dict(), dict(paged=True, qdtype="int8")])
+def test_engine_at_any_head_dim_on_cuda_matches_the_cpu(dev, head_dim, mode):
+    """The serving caches are allocated at the kernels' head dim (16 -> 64,
+    96 -> 128, 384), so decode runs on the card at a model head dim the
+    kernel is not built for (Phi-3-mini's 96): greedy tokens equal the CPU
+    Engine's, log-probs within 1e-3, the stored rows' padding zero."""
+    from fa2_triton_tpu_torch.models import LlamaConfig, init_params
+    from fa2_triton_tpu_torch.runtime import Engine
+
+    cfg = LlamaConfig(vocab_size=256, dim=128, n_layers=2, n_heads=4, n_kv_heads=2,
+                      hidden_dim=256, head_dim=head_dim, dtype=torch.float32)
+    cpu = init_params(torch.Generator().manual_seed(0), cfg)
+    gpu = init_params(torch.Generator().manual_seed(0), cfg).to(dev)
+    prompts = [[(7 * i + 3 * j) % 256 for j in range(n)] for i, n in enumerate((5, 40, 130))]
+    kw = dict(mode)
+    if kw.get("qdtype"):
+        kw["qdtype"] = torch.int8
+    outs = []
+    for model in (cpu, gpu):
+        decode.reset_launches()
+        eng = Engine(model, cfg, n_slots=2, max_seq=512, **kw)
+        reqs = [eng.submit(p, 6) for p in prompts]
+        eng.run()
+        outs.append(reqs)
+        cache = eng.pcache.pools[0] if kw.get("paged") else eng.caches[0]
+        assert cache["k"].shape[-1] == {16: 64, 96: 128, 384: 384}[head_dim]
+        assert not cache["k"][..., head_dim:].float().any()
+    assert decode.LAUNCHES > 0
+    for a, b in zip(*outs):
+        assert a.out_tokens == b.out_tokens
+        torch.testing.assert_close(torch.tensor(b.out_logprobs), torch.tensor(a.out_logprobs),
+                                   rtol=0, atol=1e-3)

@@ -195,20 +195,26 @@ def test_paged_cache_state_matches_jax_bitwise(qname):
     for tp, jp in zip(tc.pools, jc.pools):
         assert set(tp) == set(jp)
         for name in tp:
-            j = np.asarray(jp[name])
+            j, t = np.asarray(jp[name]), tp[name]
             if name in ("k", "v"):
+                # Both pad D 48 with zeros: JAX to 128 lanes, the port to the
+                # kernels' 64.
+                assert t.shape[-1] == tc.cfg.head_dim_padded == 64
                 assert not np.asarray(jp[name])[..., 48:].astype(np.float32).any()
-                j = j[..., :48]
-            np.testing.assert_array_equal(_bits(tp[name]), _bits(j))
+                assert not t[..., 48:].float().any()
+                j, t = j[..., :48], t[..., :48]
+            np.testing.assert_array_equal(_bits(t), _bits(j))
     # `attention` reads layer 1 through the tables (slot 2's released
     # entries included); JAX takes q padded to its 128-lane D, so the
     # softmax scale of D = 48 is given.
     q = np.random.RandomState(4).normal(0, 1, (3, 4, 48)).astype(np.float32)
     lens = np.array([305, 400, 305], np.int32)
-    t = tc.attention(1, torch.from_numpy(q), torch.from_numpy(lens), softmax_scale=48 ** -0.5)
+    t = tc.attention(1, torch.from_numpy(np.pad(q, ((0, 0), (0, 0), (0, 16)))),
+                     torch.from_numpy(lens), softmax_scale=48 ** -0.5)
     j = jc.attention(1, jnp.pad(jnp.asarray(q), ((0, 0), (0, 0), (0, 80))), jnp.asarray(lens),
                      softmax_scale=48 ** -0.5)
-    np.testing.assert_allclose(t.numpy(), np.asarray(j)[..., :48], rtol=0, atol=PAGED_TOL)
+    np.testing.assert_allclose(t.numpy()[..., :48], np.asarray(j)[..., :48], rtol=0,
+                               atol=PAGED_TOL)
 
 
 def test_paged_cache_exhaustion_raises():
@@ -239,9 +245,13 @@ def test_write_kv_quantized_matches_jax_bitwise(qname):
         jc = jkv.write_kv(jc, jnp.asarray(k), jnp.asarray(v), jnp.asarray(offs, jnp.int32), jcfg)
         tkv.write_kv(tc, torch.from_numpy(k), torch.from_numpy(v), torch.tensor(offs), tcfg)
     for name in ("k", "v", "k_scale", "v_scale"):
-        j = np.asarray(jc[name])
-        np.testing.assert_array_equal(_bits(tc[name]),
-                                      _bits(j[..., :48] if name in ("k", "v") else j))
+        j, t = np.asarray(jc[name]), tc[name]
+        if name in ("k", "v"):
+            # Padded to the kernels' 64 (JAX: 128) with zeros, which leave the
+            # scales as they are.
+            assert t.shape[-1] == 64 and not t[..., 48:].float().any()
+            j, t = j[..., :48], t[..., :48]
+        np.testing.assert_array_equal(_bits(t), _bits(j))
 
 
 # ---------------------------------------------------------------- engine --
@@ -308,9 +318,10 @@ def test_engine_modes_match_jax(models, monkeypatch, kw):
         # bitwise, scales (amax of fp32 k/v) to fp32 noise.
         for jc, tc in zip(j_engine.caches, engine.caches):
             assert tc["k"].dtype == tq and set(tc) == set(jc)
+            assert tc["k"].shape[-1] == 64 and not tc["k"][..., 32:].float().any()
             for s, n in enumerate(engine.lens_np):
                 for name in ("k", "v"):
-                    np.testing.assert_array_equal(_bits(tc[name][s, :, :n]),
+                    np.testing.assert_array_equal(_bits(tc[name][s, :, :n, :32]),
                                                   _bits(np.asarray(jc[name])[s, :, :n, :32]))
                     np.testing.assert_allclose(tc[name + "_scale"][s, ..., :n].numpy(),
                                                np.asarray(jc[name + "_scale"])[s, ..., :n],
@@ -410,3 +421,38 @@ def test_failed_admission_keeps_no_pages(models):
     t_reqs = _serve(engine, prompts, (10, 10))
     assert [r.out_tokens for r in t_reqs] == [r.out_tokens for r in j_reqs]
     assert engine.pcache.free_pages == 3 and engine.pcache._slot_pages == [[], []]
+
+
+@pytest.mark.parametrize("head_dim", [96, 16])
+def test_paged_int8_engine_at_head_dims_off_the_kernel_widths_matches_jax(monkeypatch, head_dim):
+    """A paged int8 Engine at a model head dim the decode kernel is not
+    built for (Phi-3-mini's 96, JAX's serving dryrun's 16): the pool is
+    128 / 64 wide (JAX's 128), written zero-padded, and its stored int8
+    values and scales equal JAX's first head_dim columns (the int8 rule of
+    ROADMAP.md queue C "int8 rounding": a k / v whose fp32 value sits on a
+    rounding boundary may store one step apart, on at most 1e-3 of the
+    values) before tokens and log-probs are held to JAX's (equal tokens,
+    1e-4, the top-1 margins above 10x that)."""
+    jcfg = dataclasses.replace(J_CFG, head_dim=head_dim)
+    tcfg = dataclasses.replace(T_CFG, head_dim=head_dim)
+    jp = jl.init_params(jax.random.PRNGKey(head_dim), jcfg)
+    tm = llama_from_jax_params(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
+    rng = np.random.RandomState(head_dim)
+    prompts = [rng.randint(0, 128, size=n).tolist() for n in (9, 11, 140)]
+    kw = dict(n_slots=2, max_seq=512, paged=True, page_size=128)
+    j_engine = JaxEngine(jp, jcfg, qdtype=jnp.int8, **kw)
+    j_reqs = _serve(j_engine, prompts, NEW)
+    engine = Engine(tm, tcfg, qdtype=torch.int8, **kw)
+    margins = _Margins(engine, monkeypatch)
+    t_reqs = _serve(engine, prompts, NEW)
+    assert engine.kv_cfg.head_dim_padded == {96: 128, 16: 64}[head_dim]
+    for tp, jp_ in zip(engine.pcache.pools, j_engine.pcache.pools):
+        for name in ("k", "v"):
+            assert tp[name].shape[-1] == engine.kv_cfg.head_dim_padded
+            assert not tp[name][..., head_dim:].any()
+            d = np.abs(tp[name][..., :head_dim].numpy().astype(np.int32)
+                       - np.asarray(jp_[name])[..., :head_dim].astype(np.int32))
+            assert d.max() <= 1 and (d > 0).mean() <= 1e-3, ((d > 0).sum(), d.size)
+            np.testing.assert_allclose(tp[name + "_scale"].numpy(),
+                                       np.asarray(jp_[name + "_scale"]), rtol=1e-5, atol=0)
+    _check_engines(j_reqs, t_reqs, margins)

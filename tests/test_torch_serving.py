@@ -146,3 +146,43 @@ def test_greedy_selection_matches_jax():
     assert float((top2[:, 0] - top2[:, 1]).min()) > 1e-4
     assert t_tok.tolist() == np.asarray(j_tok).tolist()
     np.testing.assert_allclose(t_lp.numpy(), np.asarray(j_lp), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("head_dim", [96, 16])
+def test_engine_at_head_dims_off_the_kernel_widths_matches_jax(head_dim):
+    """A model head dim the decode kernel is not built for (Phi-3-mini's
+    96; JAX's serving dryrun's 16): the caches are allocated at the kernels'
+    head dim (128 and 64; JAX's at 128 lanes), the new k / v rows written
+    zero-padded and q padded for decode, the output cut back. Greedy tokens
+    equal JAX's, log-probs within 1e-4, every step's top-1 margin above 10x
+    that; the stored rows' first head_dim columns equal JAX's within 1e-5
+    (fp32 k / v projections, XLA's and PyTorch's matmuls summing in another
+    order: ~1e-6 apart) and the padding is zero."""
+    jcfg = jl.LlamaConfig(vocab_size=128, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
+                          hidden_dim=128, head_dim=head_dim, max_seq_len=256, dtype=jnp.float32)
+    tcfg = tl.LlamaConfig(vocab_size=128, dim=64, n_layers=2, n_heads=4, n_kv_heads=2,
+                          hidden_dim=128, head_dim=head_dim, max_seq_len=256, dtype=torch.float32)
+    jp = jl.init_params(jax.random.PRNGKey(head_dim), jcfg)
+    tm = llama_from_jax_params(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
+    rng = np.random.RandomState(head_dim)
+    prompts = [rng.randint(0, 128, size=n).tolist() for n in (9, 11, 60)]
+    j_engine = JaxEngine(jp, jcfg, n_slots=2, max_seq=256)
+    j_reqs, _ = _serve(j_engine, prompts)
+    engine = Engine(tm, tcfg, n_slots=2, max_seq=256)
+    t_reqs, _ = _serve(engine, prompts)
+    assert engine.kv_cfg.head_dim_padded == {96: 128, 16: 64}[head_dim]
+    for p, jr, tr in zip(prompts, j_reqs, t_reqs):
+        with torch.no_grad():
+            logits = tl.forward(tm, torch.tensor([p + tr.out_tokens[:-1]]))[0, len(p) - 1:]
+        top2 = logits.topk(2, dim=-1).values
+        assert float((top2[:, 0] - top2[:, 1]).min()) > 10 * LP_TOL
+        assert tr.out_tokens == jr.out_tokens
+        np.testing.assert_allclose(tr.out_logprobs, jr.out_logprobs, rtol=0, atol=LP_TOL)
+    for jc, tc in zip(j_engine.caches, engine.caches):
+        for name in ("k", "v"):
+            assert tc[name].shape[-1] == engine.kv_cfg.head_dim_padded
+            assert not tc[name][..., head_dim:].any()
+            for s, n in enumerate(engine.lens_np):
+                np.testing.assert_allclose(tc[name][s, :, :n, :head_dim].numpy(),
+                                           np.asarray(jc[name])[s, :, :n, :head_dim], rtol=0,
+                                           atol=1e-5)

@@ -15,8 +15,9 @@
   parallelism): 2 steps whose losses are the single-rank `--moe 4` run's
   within 1e-5, since the routing's capacity, slots and aux loss are the
   whole batch's on every data rank;
-* `dryrun_multichip(4)` prints JAX's `dryrun_multichip OK:` line, and
-  without a device named it takes the card, so with none it raises.
+* `dryrun_multichip(4)` prints JAX's `dryrun_multichip OK:` line, serving
+  at JAX's head_dim 16, and without a device named it takes the card, so
+  with none it raises.
 """
 import math
 import os
@@ -100,6 +101,7 @@ def test_dryrun_multichip_prints_its_ok_line(capfd):
     assert "dryrun_multichip OK:" in capfd.readouterr().out
     assert res["ring_err"] < 2e-4 and res["pp_err"] < 1e-3
     assert abs(res["moe_loss"] - res["moe_ref"]) < 1e-4
+    assert res["serve_head_dim"] == 16    # JAX's serving config; the caches pad it to 64
 
 
 def test_dryrun_multichip_without_a_device_takes_the_card(monkeypatch):
