@@ -11,7 +11,7 @@ the CUDA toolkit. Phases (any failure raises, and the script exits nonzero):
    16-bit instantiation of the tensor-core kernels (the forward and the dq
    + dk/dv pair, with and without bias / softcap; dbias; the tri-square / diag and
    work-list backward; the packed forward, dq and dk/dv; bf16 and fp16,
-   D 64 / 128 / 256, the forward and the pair at D 384 / 512 too, with
+   D 64 / 128 / 256, all but the packed kernels at D 384 / 512 too, with
    and without dropout): ptxas registers and spills, and the HMMA
    instructions in its SASS (cuobjdump -sass of the built library); it
    fails where one has no tensor-core instruction, a bf16 D 128 one of the
@@ -288,6 +288,25 @@ the CUDA toolkit. Phases (any failure raises, and the script exits nonzero):
    (`launches_wide_384` / `_512`), of (c) and (d) (`launches_wide_serve`,
    `launches_phi3_serve`, `launches_wide_train`), the rest under the
    forward entry's `wide`.
+21. The fused causal backward schedules and dbias at head dims 384 and
+   512: (a) at each D, through JAX's routes, each against its plain twin
+   under the FA rules: the tri-square (bf16 at S 512 MHA and S 256 GQA 2,
+   fp32 at S 256), the split forced with leaves of 512 at S 1024 (diag +
+   rect), the work list (bf16 at D 512 / S 2048 and D 384 / S 4096, one
+   direct fp32 call) and dbias ([1, 8, S, S] and [2, 1, S, S] biases, bf16
+   / fp16 / fp32), with and without dropout; every family launched at each
+   D; (b) at 8 / 8 heads of 512, bf16, causal: the work list at B 2 x S
+   2048 and the tri-square at 8 x 512, each against the dq + dk/dv pair on
+   the same call (CUDA events, the profiler's split), the plain backward
+   and SDPA's memory-efficient backward; the split's diag and rect at B 2
+   x S 2048 (leaves of 1024); dbias at B 2 x S 2048 with a [1, 8, S, S]
+   bias; each with its bound; (c) Qwen1.5-7B's widths cut into 8 / 8 heads
+   of 512 (`preset_config("qwen1.5-7b", n_heads=8, n_kv_heads=8,
+   head_dim=512)`): the 2-layer gradients against fp32, and 3 trainer steps
+   at 2 x 2048 (the work list) and 8 x 512 (the tri-square) at the
+   preset's full depth, the launches held to the route. The B4, B13, B13 diag, B13 rect and B14
+   entries of the kernels line carry (a)'s launches (`launches_wide_384` /
+   `_512`), (c)'s (`launches_wide_train`) and (b)'s numbers (`wide_512`).
 
 Every kernel is also timed against PyTorch's own call for the same function
 (`library_ms`, where one exists) and its bound on the H100 (`bound_ms`: the
@@ -2311,21 +2330,31 @@ def _device_us(e):
     return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
 
-def kernel_ms(torch, fn, names, iters=5):
+def kernel_ms(torch, fn, names, iters=5, stand_in=True):
     """Device time per launch of each named kernel (kernel names contain
     `names`; each launches once per call of `fn`), from torch.profiler over
     `iters` calls: the mean over the launches it recorded, printed with
     their count. In this long process it can miss a launch that ran (the
     packed forward with dropout: 4 of 5, while CUDA events time every call
     at one launch); `acc_events` does not bring it back. A window with no
-    launch of some name is recorded again (`profiled`)."""
+    launch of some name is recorded again (`profiled`), up to 5 windows.
+    Where all of them miss a name (the packed forward, 0 of 5 in 3
+    windows, once), the whole call's CUDA-event time stands in for that
+    kernel's, an upper bound of it, and the line says so; `stand_in=False`
+    raises instead."""
     def counts(events):
         return {name: sum(e.count for e in events if name in e.key) for name in names}
 
-    events = profiled(torch, fn, iters, lambda ev: all(counts(ev).values()))
+    windows = 5
+    events = profiled(torch, fn, iters, lambda ev: all(counts(ev).values()), attempts=windows)
     out = {}
     for name, n in counts(events).items():
         us = sum(_device_us(e) for e in events if name in e.key)
+        if n == 0 and stand_in:
+            out[name] = cuda_ms(torch, fn, iters=iters)
+            print(f"[profiler] {name}: no launch recorded in {windows} windows of {iters} calls; "
+                  f"the whole call's CUDA-event time {out[name]:.3f} ms stands in (an upper bound)")
+            continue
         if not (us > 0 and 0 < n <= iters):
             raise AssertionError(f"the profiler recorded {n} launches of {name} in {iters} calls, "
                                  f"{us:.1f} us of device time")
@@ -2477,16 +2506,17 @@ def phase_bias(torch):
                       "pair_bias_ms": [split["dq_mma_kernel"], split["dkdv_mma_kernel"]], **extra}
 
 
-def phase_train_grads(torch, what="train", **overrides):
-    """Mistral-7B-v0.3 widths (its heads as `overrides` cut them), 2
-    layers, bf16: every parameter gradient of loss_fn through the kernels
-    and through the plain attention (the fp32 oracle, output in bf16), both
-    held to an fp32 plain run."""
+def phase_train_grads(torch, what="train", preset="mistral-7b-v0.3", want=None, **overrides):
+    """`preset`'s widths (Mistral-7B-v0.3's; its heads as `overrides` cut
+    them), 2 layers, bf16: every parameter gradient of loss_fn through the
+    kernels and through the plain attention (the fp32 oracle, output in
+    bf16), both held to an fp32 plain run. `want`: the launches, the
+    backward schedules' as "bwd_<name>" (default the dq + dk/dv pair's)."""
     from fa2_triton_tpu_torch.examples.train import preset_config
     from fa2_triton_tpu_torch.models import LlamaModel, init_params, loss_fn
     from fa2_triton_tpu_torch.ops import flash_attn_reference, flash_bwd, flash_fwd
 
-    cfg = preset_config("mistral-7b-v0.3", torch.bfloat16, n_layers=2, **overrides)
+    cfg = preset_config(preset, torch.bfloat16, n_layers=2, **overrides)
     model = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
     tokens = torch.from_numpy(np.random.RandomState(0).randint(
         0, cfg.vocab_size, size=(2, TRAIN_SEQ))).cuda()
@@ -2505,9 +2535,11 @@ def phase_train_grads(torch, what="train", **overrides):
     flash_fwd.LAUNCHES = 0
     flash_bwd.reset_launches()
     loss_k, g_k = grads_of(model)
-    launches = {"flash_fwd": flash_fwd.LAUNCHES, **flash_bwd.LAUNCHES}
-    if launches != {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkdv": 2, "flash_bwd_dbias": 0}:
-        raise AssertionError(f"2-layer loss_fn backward launches {launches}")
+    launches = {"flash_fwd": flash_fwd.LAUNCHES, **flash_bwd.LAUNCHES,
+                **{f"bwd_{n}": c for n, c in flash_bwd.SCHEDULE_LAUNCHES.items() if c}}
+    want = want or {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkdv": 2, "flash_bwd_dbias": 0}
+    if launches != want:
+        raise AssertionError(f"2-layer loss_fn backward launches {launches} != {want}")
     loss_p, g_p = grads_of(model, plain_attn)
     m32 = LlamaModel(dataclasses.replace(cfg, dtype=torch.float32), device="cuda")
     m32.load_state_dict(model.state_dict())
@@ -2520,7 +2552,7 @@ def phase_train_grads(torch, what="train", **overrides):
         ratio = err / (GRAD_ERROR_MUL * yard + GRAD_ERROR_BIAS)
         if ratio >= worst:
             worst, worst_name = ratio, name
-    print(f"[{what}] Mistral-7B-v0.3 widths, {cfg.n_heads} / {cfg.n_kv_heads} heads of "
+    print(f"[{what}] {preset} widths, {cfg.n_heads} / {cfg.n_kv_heads} heads of "
           f"{cfg.hd}, 2 layers, bf16, batch 2 x {TRAIN_SEQ}: loss kernels "
           f"{loss_k:.5f}, plain {loss_p:.5f}, fp32 {loss_32:.5f}; all {len(g_32)} parameter "
           f"gradients within the FA contract vs fp32 (worst {worst_name}: {worst:.2f} of the bound); "
@@ -3775,7 +3807,7 @@ def profiler_split(torch, fn, names):
     every launch of a call (0 of 3 of the tri-square's, once), so phase 12's
     kernel times are CUDA events over whole calls and this split is extra."""
     try:
-        return kernel_ms(torch, fn, names, iters=3)
+        return kernel_ms(torch, fn, names, iters=3, stand_in=False)
     except AssertionError as e:
         print(f"[causal bwd] no profiler split: {e}")
         return None
@@ -3947,37 +3979,47 @@ def ptxas_table(report: str) -> dict:
             if mma_instance(n)}
 
 
-def hmma_counts(lib_path) -> dict:
-    """{instance: HMMA instructions} of the 16-bit tensor-core kernels in
-    the SASS of the built library (cuobjdump -sass)."""
+@functools.lru_cache(maxsize=1)
+def sass_hmma(lib_path) -> dict:
+    """{mangled kernel name: HMMA instructions} in the SASS of the built
+    library: one cuobjdump -sass for the tensor-core and the decode reports
+    (two took some 100 s more of the smoke's build)."""
     from fa2_triton_tpu_torch.ops import _build
 
     tool = _build.find_cuobjdump()
     if tool is None:
         raise AssertionError("no cuobjdump beside nvcc or in Triton's package")
+    t0 = time.perf_counter()
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
                           check=True).stdout
     counts, cur = {}, None
     for line in sass.splitlines():
-        if m := re.search(r"Function : (\S+)", line):
-            cur = mma_instance(m[1])
-            if cur:
-                counts[cur] = 0
-        elif cur and "HMMA" in line:
+        if "Function : " in line:
+            cur = line.split("Function : ", 1)[1].split()[0]
+            counts[cur] = 0
+        elif cur is not None and "HMMA" in line:
             counts[cur] += 1
+    print(f"[build] cuobjdump -sass and its HMMA count: {time.perf_counter() - t0:.1f} s, "
+          f"{len(counts)} kernels")
     return counts
+
+
+def hmma_counts(lib_path) -> dict:
+    """{instance: HMMA instructions} of the 16-bit tensor-core kernels in
+    the SASS of the built library."""
+    return {inst: n for name, n in sass_hmma(lib_path).items() if (inst := mma_instance(name))}
 
 
 def mma_build_report() -> dict:
     """Registers, spills and tensor-core instructions of every 16-bit
     instantiation of the two fused backward kernels, the forward, the dq
-    + dk/dv pair and dbias (bf16 / fp16 x D 64 / 128 / 256 x dropout, and for the
-    forward and the pair with and without bias / softcap and at D 384 / 512
-    too, for the forward also the split's merge; the packed forward, dq
-    and dk/dv); fails where one has no HMMA, or a bf16 D 128 one of the
-    trainers' (the Qwen and Mistral shapes': no bias, no softcap; the merge
-    included), any one at D 384 / 512 or any one of NO_SPILL_KERNELS
-    spills.
+    + dk/dv pair and dbias (bf16 / fp16 x D 64 / 128 / 256 x dropout, and at
+    D 384 / 512 too but for the packed kernels; for the forward and the pair
+    with and without bias / softcap, for the forward also the split's merge;
+    the packed forward, dq and dk/dv); fails where one has no HMMA, or a
+    bf16 D 128 one of the trainers' (the Qwen and Mistral shapes': no bias,
+    no softcap; the merge included), any one at D 384 / 512 or any one of
+    NO_SPILL_KERNELS spills.
     Returns {kernel: {instance: numbers}}."""
     from fa2_triton_tpu_torch.ops import _build
 
@@ -3987,7 +4029,7 @@ def mma_build_report() -> dict:
     for kernel in MMA_KERNELS:
         flags = (FWD_FLAGS if kernel == "flash_fwd_mma_kernel" else
                  ((False, False), (True, False)) if kernel in MMA_EXTRA else ((False, False),))
-        dims = (64, 128, 256) + (WIDE_DIMS if kernel in MMA_EXTRA else ())
+        dims = (64, 128, 256) + (() if kernel.startswith("varlen") else WIDE_DIMS)
         for dt, D, drop, (extra, merge) in itertools.product(("bf16", "fp16"), dims,
                                                              (False, True), flags):
             inst = (kernel, dt, D, drop, extra, merge)
@@ -4028,16 +4070,7 @@ def decode_build_report() -> dict:
             spills[prop] = int(m[1]) + int(m[2])
         elif (m := re.search(r"Used (\d+) registers", line)) and cur:
             regs[cur] = int(m[1])
-    sass = subprocess.run([_build.find_cuobjdump(), "-sass", str(_build.build())],
-                          capture_output=True, text=True, check=True).stdout
-    hmma, fn = {}, None
-    for line in sass.splitlines():
-        if m := re.search(r"Function : (\S+)", line):
-            fn = m[1] if "decode_kernel" in m[1] else None
-            if fn:
-                hmma[fn] = 0
-        elif fn and "HMMA" in line:
-            hmma[fn] += 1
+    hmma = {n: c for n, c in sass_hmma(_build.build()).items() if "decode_kernel" in n}
     sixteen = [n for n in regs if "decode_kernelIf" not in n]   # q bf16 / fp16
     spilled = {n: b for n, b in spills.items() if b}
     no_mma = [n for n in sixteen if not hmma.get(n)]
@@ -4828,7 +4861,8 @@ def routing_fp16(torch, card):
             *(t(x if compute is None else x.to(compute)) for x in x16), lens, **kw)
         yard = max_abs(torch, o_pl, o32)
         fn = lambda: flash_attn_func(*x16, causal=True, fp16_compute_dtype=compute)  # noqa
-        events = profiled(torch, fn, 1, lambda ev: any(_device_us(e) for e in ev))
+        events = profiled(torch, fn, 1, lambda ev: any(
+            "flash_fwd" in e.key and _device_us(e) for e in ev), attempts=5)
         names = sorted({e.key for e in events if "flash_fwd" in e.key})
         mma = any("flash_fwd_mma_kernel" in n for n in names)
         out = fn()
@@ -6300,8 +6334,391 @@ def phase_wide(torch, card):
             "seconds": seconds}
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 21 (the fused causal backward schedules and dbias at head dims 384
+# and 512): B13 tri-square and diag, B14 work list and B4 dbias on their
+# tilings past D 256 (csrc/bwd_mma.cuh FusedKv: 32 kv rows, 32-row q tiles,
+# 4 warps along D; dbias with one buffer of a step's tiles; FmaTile's 32 x
+# 16 tiles for fp32), each against its plain twin and reached by JAX's
+# routes; their times at Qwen1.5-7B's widths cut into heads of 512 (8 / 8
+# heads: Hq x D = 4096, so wq / wk / wv / wo keep the preset's shapes); that
+# model's 2-layer gradients against fp32, and its trainer at 2 x 2048 (the
+# work list) and 8 x 512 (the tri-square).
+
+SCHED_WIDE_H = 8                 # query heads of (a) and (b)
+SCHED_WIDE_LEAF = 512            # (a): the split forced with leaves of 512 at S 1024
+SCHED_WIDE_WL_SEQ = {384: 4096, 512: 2048}   # (a): shapes where JAX's gate takes the work list
+SCHED_WIDE_B, SCHED_WIDE_SEQ = 2, 2048        # (b): the work list against the pair, and dbias
+SCHED_WIDE_TRI = (8, 512)                     # (b): the tri-square, B x S
+QWEN_WIDE = dict(n_heads=8, n_kv_heads=8, head_dim=512)
+QWEN_WIDE_SHAPES = ((2, 2048, "worklist"), (8, 512, "tri_square"))   # (c): batch, seq, route
+SCHED_WIDE_KERNELS = ("tri_square", "causal_diag", "rect", "worklist", "flash_bwd_dbias")
+
+
+def sched_wide_case(torch, what, D, B, S, Hkv, dtype, call, want, dropout_p=0.0, bias_shape=None):
+    """One backward call at head dim D through the kernels, `call(x, do, o,
+    lse, lens, bias, **kw)` -> grads (+ dbias with a bias), on B x S, 8 / Hkv
+    heads, causal, from the fp32 plain forward's o and lse: its launches
+    exactly `want` (flash_bwd's counts, the schedules' as "bwd_<name>"),
+    and each gradient against the fp32 plain twin: fp32 within
+    FP32_GRAD_RTOL x (1 + max |grad|), 16-bit the FA gradient contract.
+    Returns (the largest error, the launches)."""
+    from fa2_triton_tpu_torch.ops import flash_bwd as fb, flash_fwd as ff
+
+    gen = torch.Generator(device="cuda").manual_seed(D + S + Hkv)
+    t = lambda x: x.transpose(1, 2)
+    x32 = [t(torch.randn(B, S, h, D, generator=gen, device="cuda") * 0.5)
+           for h in (SCHED_WIDE_H, Hkv, Hkv)]
+    do32 = t(torch.randn(B, S, SCHED_WIDE_H, D, generator=gen, device="cuda"))
+    lens = torch.tensor([[S, S]] * B, dtype=torch.int32, device="cuda")
+    b32 = (None if bias_shape is None else
+           torch.randn(*bias_shape, generator=gen, device="cuda") * 0.5)
+    kw = dict(causal=True, softmax_scale=D ** -0.5, dropout_p=dropout_p, dropout_seed=DROPOUT_SEED)
+    extra = dict(compute_dbias=True) if b32 is not None else {}
+    o32, lse32 = ff.flash_attn_forward_plain(*x32, lens, 0, 0, b32, **kw)
+    refs = fb.flash_attn_backward_plain(*x32, do32, o32, lse32, lens, 0, 0, b32, **kw, **extra)
+    x, do, o = [a.to(dtype) for a in x32], do32.to(dtype), o32.to(dtype)
+    bias = None if b32 is None else b32.to(dtype)
+    ff.reset_launches()
+    fb.reset_launches()
+    grads = call(x, do, o, lse32, lens, bias, **kw, **extra)
+    torch.cuda.synchronize()
+    counts = {**fb.LAUNCHES, **{f"bwd_{n}": c for n, c in fb.SCHEDULE_LAUNCHES.items()}}
+    got = {n: c for n, c in counts.items() if c}
+    if got != want:
+        raise AssertionError(f"D {D} {what}: launches {got} != {want}")
+    names = BWD_NAMES + (("dbias",) if bias is not None else ())
+    label = f"D {D} {what} {str(dtype)[6:]}"
+    if dtype == torch.float32:
+        errs = [check_fp32_grad(torch, n, g, r, label) for n, g, r in zip(names, grads, refs)]
+    else:
+        plains = fb.flash_attn_backward_plain(*x, do, o, lse32, lens, 0, 0, bias, **kw, **extra)
+        errs = [check_grad(torch, n, g, r, pl, label)[0]
+                for n, g, r, pl in zip(names, grads, refs, plains)]
+    return max(errs), got
+
+
+def sched_wide_checks(torch):
+    """(a): at D 384 and 512, the tri-square (bf16 at S 512 MHA and S 256
+    GQA 2, fp32 at S 256), the split forced with leaves of 512 at S 1024
+    (diag + rect), the work list (bf16 MHA where JAX's gate takes it, and one
+    direct fp32 call) and dbias ([1, 8, S, S] and [2, 1, S, S] biases, bf16
+    / fp16 / fp32), with and without dropout (dbias with it), each against
+    its plain twin. Fails unless every family launched at each D."""
+    from fa2_triton_tpu_torch.ops import flash_bwd as fb
+
+    def routed(x, do, o, lse, lens, bias, **kw):
+        return fb.flash_attn_backward(*x, do, o, lse, lens, 0, 0, bias, static_skip=True, **kw)
+
+    def split(x, do, o, lse, lens, bias, **kw):
+        return fb.flash_attn_backward(*x, do, o, lse, lens, static_skip=True, causal_split=True,
+                                      split_leaf=SCHED_WIDE_LEAF, **kw)
+
+    def direct_wl(x, do, o, lse, lens, bias, **kw):
+        return fb.flash_attn_backward_fused_wl(*x, do, o, lse, lens, sub=256, block_kv=512, **kw)
+
+    p = DROPOUT_P
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    tri, pair_db = {"bwd_tri_square": 1}, {"flash_bwd_dq": 1, "flash_bwd_dkdv": 1,
+                                           "flash_bwd_dbias": 1}
+    launches, worst = {}, {}
+    for D in WIDE_DIMS:
+        S_wl = SCHED_WIDE_WL_SEQ[D]
+        cases = [("tri_square S 512", 1, 512, 8, bf16, routed, tri, 0.0, None),
+                 ("tri_square S 512 dropout", 1, 512, 8, bf16, routed, tri, p, None),
+                 ("tri_square S 256 GQA 2", 2, 256, 4, bf16, routed, tri, 0.0, None),
+                 ("tri_square S 256 GQA 2 dropout", 2, 256, 4, bf16, routed, tri, p, None),
+                 ("tri_square S 256", 1, 256, 8, f32, routed, tri, 0.0, None),
+                 ("tri_square S 256 dropout", 1, 256, 8, f32, routed, tri, p, None),
+                 ("split S 1024", 1, 1024, 8, bf16, split,
+                  {"bwd_causal_diag": 1, "bwd_rect": 1}, 0.0, None),
+                 ("split S 1024 dropout", 1, 1024, 8, bf16, split,
+                  {"bwd_causal_diag": 1, "bwd_rect": 1}, p, None),
+                 (f"worklist S {S_wl}", 1, S_wl, 8, bf16, routed, {"bwd_worklist": 1}, 0.0, None),
+                 (f"worklist S {S_wl} dropout", 1, S_wl, 8, bf16, routed, {"bwd_worklist": 1}, p,
+                  None),
+                 ("worklist S 1024 sub 256 strips of 512 (direct)", 1, 1024, 8, f32, direct_wl,
+                  {"bwd_worklist": 1}, p, None)]
+        for dt in (bf16, f16, f32):
+            for shape in ((1, SCHED_WIDE_H, 512, 512), (2, 1, 512, 512)):
+                cases.append((f"dbias {list(shape)} dropout", 2, 512, 2, dt, routed, pair_db, p,
+                              shape))
+        totals = dict.fromkeys(("bwd_tri_square", "bwd_causal_diag", "bwd_rect", "bwd_worklist",
+                                "flash_bwd_dbias"), 0)
+        for what, B, S, Hkv, dt, call, want, drop, bias_shape in cases:
+            err, got = sched_wide_case(torch, what, D, B, S, Hkv, dt, call, want, drop, bias_shape)
+            for n, c in got.items():
+                if n in totals:
+                    totals[n] += c
+            if dt != f32:
+                family = what.split(" ")[0]
+                worst[family] = max(worst.get(family, 0.0), err)
+            gc.collect()
+            torch.cuda.empty_cache()
+        if not all(totals.values()):
+            raise AssertionError(f"D {D}: a kernel family never launched: {totals}")
+        launches[D] = totals
+    print(f"[wide schedules] D {list(WIDE_DIMS)}: tri-square (bf16 S 512 MHA, S 256 GQA 2, fp32 S "
+          f"256), split (leaves {SCHED_WIDE_LEAF}, diag + rect), work list (bf16 at S "
+          f"{SCHED_WIDE_WL_SEQ}, fp32 direct), dbias (bf16 / fp16 / fp32, two bias shapes), with "
+          f"and without dropout, each through JAX's route: within the FA contract (worst 16-bit "
+          f"errors {({k: float(f'{v:.3e}') for k, v in worst.items()})}); launches {launches}")
+    return launches, worst
+
+
+def sdpa_backward_ms(torch, x, truth, plain_errs, what):
+    """SDPA's memory-efficient backend (the one that takes D > 256) on the
+    same bf16 BHSD q / k / v / do, causal: its gradients checked against the
+    fp32 truth (check_library), then the CUDA-event ms of its backward alone
+    (autograd.grad over a kept graph). Returns (ms, None) or (None, the
+    reason it refused)."""
+    q, k, v, do = (a.detach() for a in x[:4])
+    qg, kg, vg = (a.requires_grad_() for a in (q.clone(), k.clone(), v.clone()))
+    backend, lib = library_sdpa(torch, qg, kg, vg, True, q.shape[-1] ** -0.5)
+    if backend is None:
+        return None, lib
+    out = lib()
+    grads = torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True)
+    for n, g, r in zip(BWD_NAMES, grads, truth):
+        check_library(torch, f"{what} SDPA {n}", g, r, plain_errs[n])
+    ms = cuda_ms(torch, lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True),
+                 iters=3)
+    return ms, None
+
+
+def sched_wide_time(torch, card, what, B, S, kernel, names, route):
+    """(b): `route` (the work list or the tri-square) at B x S, 8 / 8 heads of
+    512, causal, bf16, against the dq + dk/dv pair in the same call (CUDA
+    events, in turns, whole calls), the profiler's split of its kernels,
+    the plain backward, SDPA's backward and the bound (5 products)."""
+    from fa2_triton_tpu_torch.ops import flash_bwd as fb, flash_fwd as ff
+
+    D, H = 512, SCHED_WIDE_H
+    gen = torch.Generator(device="cuda").manual_seed(S + 21)
+    t = lambda x: x.transpose(1, 2)
+    x32 = [t(torch.randn(B, S, H, D, generator=gen, device="cuda") * 0.5) for _ in range(3)]
+    do32 = t(torch.randn(B, S, H, D, generator=gen, device="cuda"))
+    lens = torch.tensor([[S, S]] * B, dtype=torch.int32, device="cuda")
+    kw = dict(causal=True, softmax_scale=D ** -0.5)
+    o32, lse32 = ff.flash_attn_forward_plain(*x32, lens, **kw)
+    truth = fb.flash_attn_backward_plain(*x32, do32, o32, lse32, lens, **kw)
+    xb, dob = [a.to(torch.bfloat16) for a in x32], do32.to(torch.bfloat16)
+    o, lse = ff.flash_attn_forward(*xb, lens, **kw)
+    def plain():
+        return fb.flash_attn_backward_plain(*xb, dob, o, lse, lens, **kw)
+
+    def fused():
+        return fb.flash_attn_backward(*xb, dob, o, lse, lens, static_skip=True, **kw)
+
+    def pair():
+        return fb.flash_attn_backward(*xb, dob, o, lse, lens, **kw)
+
+    plain_errs = {n: max_abs(torch, g, r) for n, g, r in zip(BWD_NAMES, plain(), truth)}
+    fb.reset_launches()
+    fused()
+    if fb.SCHEDULE_LAUNCHES[route] != 1 or any(fb.LAUNCHES.values()):
+        raise AssertionError(f"{what}: not one {route} launch: {fb.SCHEDULE_LAUNCHES}")
+    runs = turns(torch, {"pair": pair, "fused": fused}, ("pair", "fused", "fused", "pair"),
+                 iters=3)
+    per = profiler_split(torch, fused, names)
+    pms = cuda_ms(torch, plain, iters=2, warmup=1)
+    lib_ms, lib_why = sdpa_backward_ms(torch, (*xb, dob), truth, plain_errs, what)
+    bound = fused_bound(B * causal_pairs([S]), B * S, B * S, Hq=H, Hkv=H, D=D)
+    print(f"[wide schedules] {what} B {B} x S {S}, {H} / {H} heads of {D}, causal, bf16 [{card}]: "
+          f"call (CUDA events) {' / '.join(f'{v:.3f}' for v in runs['fused'])} ms"
+          + (f" (profiler: " + ", ".join(f"{n} {per[n]:.3f}" for n in names) + " ms)" if per
+             else "")
+          + f", the dq + dk/dv pair {' / '.join(f'{v:.3f}' for v in runs['pair'])} ms (fused / "
+          f"pair {fused_over_pair(runs['fused'], runs['pair']):.3f}), plain {pms:.3f} ms, library "
+          + (f"SDPA EFFICIENT_ATTENTION backward {lib_ms:.3f} ms" if lib_ms else f"none: {lib_why}")
+          + f", bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}): "
+          f"{100 * bound['bound_ms'] / min(runs['fused']):.1f} % of the bound")
+    res = {"kernel": kernel, "ms": min(runs["fused"]), "ms_runs": runs["fused"], "profiler_ms": per,
+           "pair_ms_runs": runs["pair"], "fused_over_pair": fused_over_pair(runs["fused"],
+                                                                            runs["pair"]),
+           "plain_ms": pms, "library_ms": lib_ms, "library": "SDPA EFFICIENT_ATTENTION backward"
+           if lib_ms else lib_why, **bound}
+    del x32, do32, truth, xb, dob, o, lse
+    return res
+
+
+
+def sched_wide_split_time(torch, card):
+    """(b): the split's two launches alone at B 2 x S 2048, 8 / 8 heads of
+    512, leaves of 1024, bf16, from the prescaled k and the global delta (as
+    the split hands them over): the diag over both leaves and the rect (rows
+    1024-2047 x columns 0-1023), each by CUDA events beside its plain twin
+    and its bound (5 products)."""
+    from fa2_triton_tpu_torch.ops import flash_bwd as fb, flash_fwd as ff
+
+    B, S, D, H, T = SCHED_WIDE_B, SCHED_WIDE_SEQ, 512, SCHED_WIDE_H, SCHED_WIDE_SEQ // 2
+    gen = torch.Generator(device="cuda").manual_seed(2122)
+    t = lambda x: x.transpose(1, 2)
+    q, k, v, do = (t((torch.randn(B, S, H, D, generator=gen, device="cuda") * 0.5)
+                     .to(torch.bfloat16)) for _ in range(4))
+    lens = torch.tensor([[S, S]] * B, dtype=torch.int32, device="cuda")
+    scale = D ** -0.5
+    o, lse = ff.flash_attn_forward(q, k, v, lens, causal=True, softmax_scale=scale)
+    args = (q, fb._prescale_k(k, scale), v, do, lse, fb.compute_delta(o, do, lse), lens)
+    region = dict(row0=T, col0=0, nrows=T, ncols=T)
+    runs = {"causal_diag": (lambda: fb.flash_attn_backward_causal_diag(*args, T=T,
+                                                                       softmax_scale=scale),
+                            lambda: fb.flash_attn_backward_causal_diag_plain(*args, T=T,
+                                                                             softmax_scale=scale),
+                            fused_bound(B * causal_pairs([T] * (S // T)), B * S, B * S, Hq=H,
+                                        Hkv=H, D=D)),
+            "rect": (lambda: fb.flash_attn_backward_rect(*args, **region, softmax_scale=scale),
+                     lambda: fb.flash_attn_backward_rect_plain(*args, **region,
+                                                               softmax_scale=scale),
+                     fused_bound(B * T * T, B * T, B * T, Hq=H, Hkv=H, D=D))}
+    why = ("no PyTorch call takes the global lse and delta: the split's launches compute "
+           "their share of the whole causal gradient")
+    out = {}
+    for name, (kern, plain, bound) in runs.items():
+        fb.reset_launches()
+        kern()
+        torch.cuda.synchronize()
+        if {n: c for n, c in fb.SCHEDULE_LAUNCHES.items() if c} != {name: 1}:
+            raise AssertionError(f"wide {name}: launches {fb.SCHEDULE_LAUNCHES}")
+        ms = cuda_ms(torch, kern, iters=3)
+        pms = cuda_ms(torch, plain, iters=2, warmup=1)
+        print(f"[wide schedules] {name} (leaves {T}) B {B} x S {S}, {H} / {H} heads of {D}, bf16 "
+              f"[{card}]: {ms:.3f} ms (CUDA events, whole calls), plain {pms:.3f} ms, bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}): "
+              f"{100 * bound['bound_ms'] / ms:.1f} % of the bound; library none: {why}")
+        out[name] = {"ms": ms, "plain_ms": pms, "library_ms": None, "library": why, **bound}
+    del q, k, v, do, o, lse, args
+    return out
+
+
+def sched_wide_dbias_time(torch, card):
+    """(b): dbias at B 2 x S 2048, 8 / 8 heads of 512, causal, bf16, a [1, 8,
+    S, S] bias: the kernel's device time (profiler), the plain backward's
+    (CUDA events), and the bound (dbias_bound)."""
+    from fa2_triton_tpu_torch.ops import flash_bwd as fb, flash_fwd as ff
+
+    B, S, D, H = SCHED_WIDE_B, SCHED_WIDE_SEQ, 512, SCHED_WIDE_H
+    gen = torch.Generator(device="cuda").manual_seed(2121)
+    t = lambda x: x.transpose(1, 2)
+    xb = [t((torch.randn(B, S, H, D, generator=gen, device="cuda") * 0.5).to(torch.bfloat16))
+          for _ in range(4)]
+    bias = (torch.randn(1, H, S, S, generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+    lens = torch.tensor([[S, S]] * B, dtype=torch.int32, device="cuda")
+    kw = dict(causal=True, softmax_scale=D ** -0.5)
+    o, lse = ff.flash_attn_forward(*xb[:3], lens, 0, 0, bias, **kw)
+    def run():
+        return fb.flash_attn_backward(*xb, o, lse, lens, 0, 0, bias, compute_dbias=True, **kw)
+
+    ms = kernel_ms(torch, run, ["dbias_mma_kernel"])["dbias_mma_kernel"]
+    pms = cuda_ms(torch, lambda: fb.flash_attn_backward_plain(*xb, o, lse, lens, 0, 0, bias,
+                                                              compute_dbias=True, **kw),
+                  iters=2, warmup=1)
+    bound = dbias_bound(B, H, H, S, D)
+    why = ("no PyTorch call computes dbias alone: SDPA's backward returns a bias gradient only "
+           "with dq, dk and dv")
+    print(f"[wide schedules] dbias_mma_kernel B {B} x S {S}, {H} / {H} heads of {D}, causal, "
+          f"[1, {H}, S, S] bf16 bias [{card}]: {ms:.3f} ms (profiler), plain backward with dbias "
+          f"{pms:.3f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}): "
+          f"{100 * bound['bound_ms'] / ms:.1f} % of the bound; library none: {why}")
+    del xb, bias, o, lse
+    return {"ms": ms, "plain_ms": pms, "library_ms": None, "library": why, **bound}
+
+
+def qwen_wide_train(torch, card):
+    """(c): Qwen1.5-7B's widths, heads cut to 8 x 512 / 8 x 512, random
+    weights (seed 0): the 2-layer gradients against fp32 (2 x 2048: the work
+    list), then QWEN_STEPS trainer steps at 2 x 2048 (the work list) and 8 x
+    512 (the tri-square) at the preset's depth, launch counts reset after
+    each warm-up and held to the route. Returns the runs by shape."""
+    from fa2_triton_tpu_torch.examples import train
+    from fa2_triton_tpu_torch.ops import flash_bwd as fb, flash_fwd as ff
+
+    phase_train_grads(torch, what="wide qwen train", preset="qwen1.5-7b",
+                      want={"flash_fwd": 2, "flash_bwd_dq": 0, "flash_bwd_dkdv": 0,
+                            "flash_bwd_dbias": 0, "bwd_worklist": 2}, **QWEN_WIDE)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def reset():
+        ff.reset_launches()
+        fb.reset_launches()
+
+    preset = train.build_config
+    # The preset's widths with the attention cut into heads of 512: the
+    # trainer's own config, its heads replaced (no flag of the trainer
+    # names a head count).
+    train.build_config = lambda args: dataclasses.replace(preset(args), **QWEN_WIDE)
+    runs = {}
+    try:
+        for batch, seq, route in QWEN_WIDE_SHAPES:
+            gc.collect()
+            torch.cuda.empty_cache()
+            args, res = run_trainer(torch, card, qwen_train_argv(batch, seq), reset,
+                                    f"wide qwen train {batch} x {seq}")
+            got = bwd_launches(ff, fb)
+            L, steps = res["config"].n_layers, args.steps
+            fwd_route = ff.forward_route(seq - 1, seq - 1, 512, 2, causal=True, static_skip=True)
+            want = dict.fromkeys(got, 0)
+            want["causal_strip" if fwd_route == "strip" else "flash_fwd"] = 2 * L * steps
+            want[f"bwd_{route}"] = L * steps
+            print(f"[wide qwen train] {batch} x {seq} launches: {got}")
+            if res["config"].hd != 512 or got != want:
+                raise AssertionError(f"wide qwen {batch} x {seq}: head_dim {res['config'].hd}, "
+                                     f"launches {got} != {want}")
+            runs[f"{batch} x {seq}"] = {
+                "route": route, "layers": L, "losses": res["losses"], "step_s": res["step_s"],
+                "tokens_per_s": res["tokens_per_s"], "peak_gib": res["peak_bytes"] / 2**30,
+                "launches": {n: c for n, c in got.items() if c}}
+    finally:
+        train.build_config = preset
+    return runs
+
+
+def phase_wide_schedules(torch, card):
+    """Phase 21 ((a)-(c) above)."""
+    t0 = time.perf_counter()
+    os.environ["FA2_DISABLE_TUNING_TABLE"] = "1"   # the prior's routes (no table key past 256)
+    try:
+        with torch.inference_mode():
+            launches, worst = sched_wide_checks(torch)
+        times = {"worklist": sched_wide_time(torch, card, "worklist", SCHED_WIDE_B, SCHED_WIDE_SEQ,
+                                             "bwd_wl_mma_kernel",
+                                             ("bwd_wl_mma_kernel", "wl_mma_reduce"), "worklist")}
+        gc.collect()
+        torch.cuda.empty_cache()
+        times["tri_square"] = sched_wide_time(
+            torch, card, "tri_square", *SCHED_WIDE_TRI, "bwd_tri_mma_kernel",
+            ("fused_delta", "bwd_tri_mma_kernel", "tri_dq_reduce"), "tri_square")
+        gc.collect()
+        torch.cuda.empty_cache()
+        with torch.inference_mode():
+            times["dbias"] = sched_wide_dbias_time(torch, card)
+            gc.collect()
+            torch.cuda.empty_cache()
+            times.update(sched_wide_split_time(torch, card))
+        gc.collect()
+        torch.cuda.empty_cache()
+        train = qwen_wide_train(torch, card)
+    finally:
+        os.environ.pop("FA2_DISABLE_TUNING_TABLE", None)
+    seconds = time.perf_counter() - t0
+    print(f"[wide schedules] phase 21 in {seconds:.1f} s")
+    return {"launches": launches, "worst": worst, "times": times, "train": train,
+            "seconds": seconds}
+
+
 def main() -> int:
     t_start = time.perf_counter()
+    t_lap = [t_start]
+
+    def lap(what):
+        """Prints the seconds since the last lap and since the start, so a
+        later phase can choose which earlier one to cut."""
+        now = time.perf_counter()
+        print(f"[time] {what}: {now - t_lap[0]:.1f} s, {now - t_start:.1f} s in all", flush=True)
+        t_lap[0] = now
+
     import torch
 
     if not torch.cuda.is_available():
@@ -6331,66 +6748,93 @@ def main() -> int:
     phase_build()
     mma = mma_build_report()
     decode_build = decode_build_report()
+    lap('build')
     with torch.inference_mode():
         kernels = phase_kernels(torch)
         kernels["flash_fwd"]["build"] = mma["flash_fwd_mma_kernel"]
+        lap('phase 1 (kernels)')
         torch.cuda.empty_cache()
         model, cfg, reqs, prompts, launches = phase_serve(torch, card)
         phase_check(torch, model, cfg, reqs, prompts)
+        lap('phases 2-3 (serve, check)')
         torch.cuda.empty_cache()
         served = phase_serve_modes(torch, card, model, cfg, reqs, prompts)
+        lap('phase 4 (serve modes)')
         torch.cuda.empty_cache()
         chunked = phase_chunked(torch, card, model, cfg, prompts)
+        lap('phase 13 (chunked, prefix)')
         torch.cuda.empty_cache()
         spec = phase_speculative(torch, card, model, cfg, prompts)
+        lap('phase 14 (speculative)')
         torch.cuda.empty_cache()
         wquant = wquant_serve(torch, card, model, cfg, prompts)
+        lap('phase 15 (e) (weight-quantized serving)')
     del model, reqs  # the served model and its cache make way for training
     gc.collect()
     torch.cuda.empty_cache()
     zoo = phase_zoo(torch, card)
+    lap('phase 15 (model zoo)')
     gpt2_run = phase_gpt2(torch, card)
+    lap('phase 14 (d) (GPT-2)')
     gc.collect()
     torch.cuda.empty_cache()
     kernels.update(phase_bwd_kernels(torch))
+    lap('phase 5 (backward kernels)')
     torch.cuda.empty_cache()
     bias_launches, kernels["flash_bwd_dbias"] = phase_bias(torch)
+    lap('phase 6 (bias)')
     torch.cuda.empty_cache()
     phase_train_grads(torch)
+    lap('phase 7 (gradients)')
     gc.collect()
     torch.cuda.empty_cache()
     train_launches = phase_train(torch, card)
+    lap('phase 7 (trainer)')
     gc.collect()
     torch.cuda.empty_cache()
     varlen_launches, varlen_kernels = phase_varlen(torch, card)
+    lap('phase 8 (varlen)')
     for name in VARLEN_KERNEL_NAMES:
         varlen_kernels[name]["build"] = mma[VARLEN_KERNEL_NAMES[name]]
     torch.cuda.empty_cache()
     bs_launches, bs_kernels = phase_blocksparse(torch)
+    lap('phase 9 (block-sparse)')
     gc.collect()
     torch.cuda.empty_cache()
     dropout_runs, dropout_kernels = phase_dropout(torch, card)
+    lap('phase 10 (dropout)')
     gc.collect()
     torch.cuda.empty_cache()
     sched_runs, sched_kernels = phase_schedules(torch, card)
+    lap('phase 11 (forward schedules)')
     gc.collect()
     torch.cuda.empty_cache()
     bwd_runs, bwd_kernels = phase_causal_bwd(torch, card, mma)
+    lap('phase 12 (backward schedules)')
     gc.collect()
     torch.cuda.empty_cache()
     extras = phase_extras(torch, card)
+    lap('phase 16 (extras)')
     gc.collect()
     torch.cuda.empty_cache()
     routing = phase_routing(torch, card)
+    lap('phase 17 (routing)')
     gc.collect()
     torch.cuda.empty_cache()
     parallel = phase_parallel(torch, card)
+    lap('phase 18 (parallel)')
     gc.collect()
     torch.cuda.empty_cache()
     parallel_train = phase_parallel_train(torch, card)
+    lap('phase 19 (parallel training)')
     gc.collect()
     torch.cuda.empty_cache()
     wide = phase_wide(torch, card)
+    lap('phase 20 (wide)')
+    gc.collect()
+    torch.cuda.empty_cache()
+    sched_wide = phase_wide_schedules(torch, card)
+    lap('phase 21 (wide schedules)')
 
     if any(name == "jax" or name.startswith(("jax.", "fa2_triton_tpu.")) for name in sys.modules):
         raise RuntimeError("the port imported jax or the JAX package")
@@ -6588,7 +7032,8 @@ def main() -> int:
     wide_built = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv", "decode", "decode_quant",
                   "paged_decode", "flash_fwd_dropout", "flash_bwd_dropout_dq",
                   "flash_bwd_dropout_dkdv", "flash_fwd_causal_strip", "flash_fwd_causal_diag",
-                  "flash_fwd_rect", "flash_fwd_rect_merge", "flash_bwd_rect")
+                  "flash_fwd_rect", "flash_fwd_rect_merge", "flash_bwd_rect", "flash_bwd_dbias",
+                  "flash_bwd_tri_square", "flash_bwd_causal_diag", "flash_bwd_worklist")
     for e in table["kernels"]:
         e["head_dims"] = [64, 128, 256] + (list(WIDE_DIMS) if e["name"] in wide_built else [])
     for name, counter in wide_entries.items():
@@ -6612,6 +7057,25 @@ def main() -> int:
                   for k, v in wide["model"].items()},
         "phi3": {k: {n: x for n, x in v.items() if n != "launches"}
                  for k, v in wide["phi3"].items()}, "seconds": wide["seconds"]}
+    # Phase 21: the fused schedules' and dbias's launches at D 384 / 512 ((a)),
+    # their times at 8 / 8 heads of 512 ((b)) and the Qwen-width trainer's
+    # launches ((c)).
+    for name, counter in (("flash_bwd_tri_square", "bwd_tri_square"),
+                          ("flash_bwd_causal_diag", "bwd_causal_diag"),
+                          ("flash_bwd_rect", "bwd_rect"), ("flash_bwd_worklist", "bwd_worklist"),
+                          ("flash_bwd_dbias", "flash_bwd_dbias")):
+        for D in WIDE_DIMS:
+            by_name[name][f"launches_wide_{D}"] = sched_wide["launches"][D][counter]
+        by_name[name]["launches_wide_train"] = sum(
+            r["launches"].get(counter, 0) for r in sched_wide["train"].values())
+    for name, key in (("flash_bwd_worklist", "worklist"), ("flash_bwd_tri_square", "tri_square"),
+                      ("flash_bwd_dbias", "dbias"), ("flash_bwd_causal_diag", "causal_diag"),
+                      ("flash_bwd_rect", "rect")):
+        by_name[name]["wide_512"] = sched_wide["times"][key]
+    by_name["flash_bwd_tri_square"]["wide_schedules"] = {
+        "worst_err": sched_wide["worst"], "train": {
+            k: {n: x for n, x in v.items() if n != "launches"}
+            for k, v in sched_wide["train"].items()}, "seconds": sched_wide["seconds"]}
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps(table))

@@ -7,8 +7,9 @@
 // l.845, _bwd_fused_wl_kernel l.1849) recompute each (q tile, kv tile) pair
 // once and feed all three gradients from it: s, dp, then dv += p^T do,
 // dk += ds^T q and dq += ds k (5 products where the dq and dk/dv pair of
-// flash_bwd.cu needs 7). On the GPU a block owns a set of 64-row kv tiles of
-// one (batch row, kv head): dk / dv accumulate in registers over the q rows
+// flash_bwd.cu needs 7). On the GPU a block owns a set of kv tiles of one
+// (batch row, kv head) (FmaTile<D>::M rows for fp32: 64, 32 past D 256):
+// dk / dv accumulate in registers over the q rows
 // of the whole GQA group, as in flash_bwd.cu's dk/dv kernel, and each q
 // tile's ds k is added into an fp32 dq accumulator in device memory that
 // no other block writes. Every element of that accumulator (and of the work
@@ -104,17 +105,18 @@ __device__ __forceinline__ float* dq_head(const FusedBwdParams& p, float* base, 
   return base + ((long long)b * p.Hq + h) * p.Sq * D;
 }
 
-// Stage a 64-row K tile: k * k_mul rounded to T (the TPU kernels' fold,
-// l.911-912), or k as given when it comes prescaled.
+// Stage an FmaTile<D>::M-row K tile: k * k_mul rounded to T (the TPU
+// kernels' fold, l.911-912), or k as given when it comes prescaled.
 template <typename T, int D>
 __device__ __forceinline__ void stage_k(const FusedBwdParams& p, float* dst, const T* kp, int k0,
                                         int valid) {
+  constexpr int M = FmaTile<D>::M;
   if (p.k_mul == 0.f) {
-    stage<T, D>(dst, kp, p.k_ss, k0, TM, valid, 1.f);
+    stage<T, D>(dst, kp, p.k_ss, k0, M, valid, 1.f);
     return;
   }
   constexpr int D4 = D / 4;
-  for (int i = threadIdx.x; i < TM * D4; i += THREADS) {
+  for (int i = threadIdx.x; i < M * D4; i += THREADS) {
     const int r = i / D4, d = (i % D4) * 4;
     float x[4] = {0.f, 0.f, 0.f, 0.f};
     if (k0 + r < valid) load_vec<T, 4>(kp + (long long)(k0 + r) * p.k_ss + d, x);
@@ -141,14 +143,15 @@ __device__ __forceinline__ void delta_rows(const FusedBwdParams& p, int b, int h
   }
 }
 
-// The dq accumulator in the q-tile mapping: thread (tx, ty) owns rows ty and
-// ty + 16 of a 32-row tile and columns tx + 16 j. Zero, add ds k, and write
-// acc / log2e in T, for local rows r < rows.
+// The dq accumulator in the q-tile mapping: thread (tx, ty) owns rows
+// ty + 16 i (i < RJ) of an N-row tile (FmaTile<D>: 32 rows, 16 past D 256)
+// and columns tx + 16 j. Zero, add ds k, and write acc / log2e in T, for
+// local rows r < rows.
 template <int D>
 __device__ __forceinline__ void dq_tile_zero(float* acc, int rows) {
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
+  for (int i = 0; i < FmaTile<D>::RJ; ++i) {
     const int r = ty + 16 * i;
     if (r >= rows) continue;
 #pragma unroll
@@ -156,32 +159,35 @@ __device__ __forceinline__ void dq_tile_zero(float* acc, int rows) {
   }
 }
 
-// acc[r][d] += sum_c dS^T[c][r] * K[c][d] over the 64 kv rows c: dSs is the
-// dk/dv tile's [64][TN + 1] ds^T, Ks its [64][D + 1] prescaled k.
+// acc[r][d] += sum_c dS^T[c][r] * K[c][d] over the M kv rows c: dSs is the
+// dk/dv tile's [M][N + 1] ds^T, Ks its [M][D + 1] prescaled k.
 template <int D>
 __device__ __forceinline__ void dq_tile_add(const float* dSs, const float* Ks, float* acc,
                                             int rows) {
+  constexpr int M = FmaTile<D>::M, N = FmaTile<D>::N, RJ = FmaTile<D>::RJ;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   constexpr int JC = 4;
 #pragma unroll
   for (int j0 = 0; j0 < D / 16; j0 += JC) {
-    float a[2][JC];
+    float a[RJ][JC];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < RJ; ++i)
 #pragma unroll
       for (int jj = 0; jj < JC; ++jj) a[i][jj] = 0.f;
 #pragma unroll 4
-    for (int c = 0; c < TM; ++c) {
-      const float s0 = dSs[c * (TN + 1) + ty], s1 = dSs[c * (TN + 1) + ty + 16];
+    for (int c = 0; c < M; ++c) {
+      float sv[RJ];
+#pragma unroll
+      for (int i = 0; i < RJ; ++i) sv[i] = dSs[c * (N + 1) + ty + 16 * i];
 #pragma unroll
       for (int jj = 0; jj < JC; ++jj) {
         const float kk = Ks[c * (D + 1) + tx + 16 * (j0 + jj)];
-        a[0][jj] = fmaf(s0, kk, a[0][jj]);
-        a[1][jj] = fmaf(s1, kk, a[1][jj]);
+#pragma unroll
+        for (int i = 0; i < RJ; ++i) a[i][jj] = fmaf(sv[i], kk, a[i][jj]);
       }
     }
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < RJ; ++i) {
       const int r = ty + 16 * i;
       if (r >= rows) continue;
 #pragma unroll
@@ -194,7 +200,7 @@ template <typename T, int D>
 __device__ __forceinline__ void dq_tile_write(const float* acc, T* out, long long ss, int rows) {
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
+  for (int i = 0; i < FmaTile<D>::RJ; ++i) {
     const int r = ty + 16 * i;
     if (r >= rows) continue;
 #pragma unroll
@@ -222,8 +228,8 @@ __device__ __forceinline__ void kv_tile_rows(const FusedBwdParams& p, int k0, in
   if (col_hi < col_lo) r_hi = 0;
 }
 
-// The q rows [ra, rb) of head h (ra a multiple of TN) against the 64-row kv
-// tile at k0, whose K (prescaled) and V are staged: dk_acc += ds^T q,
+// The q rows [ra, rb) of head h (ra a multiple of N) against the M-row kv
+// tile at k0 (FmaTile<D>), whose K (prescaled) and V are staged: dk_acc += ds^T q,
 // dv_acc += p^T do, and dq += ds k into the head's fp32 accumulator `dqh`.
 // A q tile for which is_free(r0) holds keeps every element (below the
 // diagonal, inside the window and the lengths) and skips the mask test.
@@ -231,13 +237,13 @@ template <typename T, int D, bool DROP, typename FreeFn>
 __device__ __forceinline__ void fused_rows(const FusedBwdParams& p, const DkdvSmem& s, int b,
                                            int h, int k0, int ra, int rb, int q_len, int kv_len,
                                            int q_valid, FreeFn is_free, float* dqh,
-                                           float (&dk_acc)[4][D / 16],
-                                           float (&dv_acc)[4][D / 16]) {
+                                           FmaAcc<D>& dk_acc, FmaAcc<D>& dv_acc) {
+  constexpr int N = FmaTile<D>::N;
   const long long row0 = ((long long)b * p.Hq + h) * p.Sq;
   const T* qp = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* dop = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
   const float* delta = (p.o != nullptr ? p.delta_buf : p.delta) + row0;
-  for (int r0 = ra; r0 < rb; r0 += TN) {
+  for (int r0 = ra; r0 < rb; r0 += N) {
     if (is_free(r0)) {
       auto pds = [&](int kr, int qr, float s2, float dp, float& pr, float& ds) {
         grad_plain(s2, dp, s.lse_s[qr], s.delta_s[qr], true,
@@ -255,7 +261,7 @@ __device__ __forceinline__ void fused_rows(const FusedBwdParams& p, const DkdvSm
       dkdv_q_step<T, D>(s, qp, p.q_ss, dop, p.do_ss, p.lse + row0, delta, r0, q_valid, pds,
                         dk_acc, dv_acc);
     }
-    dq_tile_add<D>(s.dSs, s.Ks, dqh + (long long)r0 * D, min(TN, p.Sq - r0));
+    dq_tile_add<D>(s.dSs, s.Ks, dqh + (long long)r0 * D, min(N, p.Sq - r0));
   }
 }
 

@@ -10,10 +10,11 @@
 // and attn_tiles.cuh's FMA tiles.
 //
 // A block of 8 warps owns a kv tile of BKV rows (128 at D 64 / 128, 64 at
-// D 256) and streams q tiles of BQ = 64 rows through shared memory. At D
-// 128 / 256 a warp's dK and dV take 128 of its 255 registers, so S^T / dP^T
-// go in passes of QH = 16 q columns (32 at D 64) and dQ in passes of QP = 32
-// columns: ptxas then spills nothing at D 128 / 256 (with passes of 32 / 64
+// D 256, 32 at D 384 / 512) and streams q tiles of BQ rows (64; 32 past D
+// 256) through shared memory. At D 128 / 256 a warp's dK and dV take 128 of
+// its 255 registers, so S^T / dP^T go in passes of QH = 16 q columns (32 at
+// D 64) and dQ in passes of QP = 32 columns: ptxas then spills nothing at
+// D 128 / 256 (with passes of 32 / 64
 // it spilled 20-48 bytes; the work list at D 64 spilled 16-32 bytes with
 // one 64-column pass). All
 // operands stay 16-bit in shared memory, rows padded by 8 elements (16
@@ -44,7 +45,17 @@
 //                                      owns each element.
 // dK and dV of the block's kv rows stay in registers over every q row the
 // block walks (a warp owns 16 kv rows and D / WD columns; at D 256 two warps
-// share the kv rows, each recomputing S^T / dP^T, and split D).
+// share the kv rows, each recomputing S^T / dP^T, and split D; past D 256
+// four do, and dQ goes to D / 4 columns a warp).
+//
+// Past D 256 (384, 512) a 64-row kv tile with 64-row q tiles would need
+// 311,296 / 409,600 B of shared memory, above the 227 KB of a block, and a
+// warp's dK and dV over half of D 192-256 registers. So 32 kv rows, 32-row
+// q tiles and dS^T kept (153,600 / 202,752 B, one block an SM), 8 warps as 2
+// along the kv rows x 4 along D: a warp holds dK and dV of 16 kv rows x D /
+// 4 columns (96-128 registers, as at D 256), and the 4 warps of a kv row
+// group each recompute its S^T and dP^T (4x their tensor work: a q step does
+// 2 x 4 + 3 = 11 products' worth of mma where one pass would do 5).
 #pragma once
 
 #include "bwd_fused.cuh"
@@ -52,20 +63,19 @@
 
 namespace fa2 {
 
-// The fused kernels' (and, up to D 256, the dense dk/dv kernel's) tiles: q
-// rows of a streamed tile and kv rows of a block, what ops/flash_bwd.py
-// counts the partitions in (FUSED_BQ, fused_kv_tile).
+// The fused kernels' and the dense dk/dv kernel's tiles: q rows of a
+// streamed tile and kv rows of a block, what ops/flash_bwd.py counts the
+// partitions in (fused_q_tile, fused_kv_tile).
 template <int D>
 struct FusedKv {
-  static constexpr int BQ = 64;  // q rows of a streamed tile (ops/flash_bwd.py FUSED_BQ)
-  static constexpr int BKV = D <= 128 ? 128 : 64;
+  static constexpr int BQ = D <= 256 ? 64 : 32;
+  static constexpr int BKV = D <= 128 ? 128 : D <= 256 ? 64 : 32;
 };
 
-// BKV_, NW_, DS_ and BQ_ default to the fused kernels' and the dense dk/dv
-// kernel's layout; varlen.cu's dk/dv kernel takes 64 kv rows (4 warps at D
-// <= 128) and keeps no dS^T (DS_ false: no shared memory for it), and the
-// dense dk/dv kernel past D 256 takes 32 kv rows and 32-row q tiles
-// (DkdvMmaCfg).
+// BKV_, NW_, DS_ and BQ_ default to the fused kernels' layout; varlen.cu's
+// dk/dv kernel takes 64 kv rows (4 warps at D <= 128) and keeps no dS^T
+// (DS_ false: no shared memory for it), and so does the dense dk/dv kernel
+// past D 256 (DkdvMmaCfg).
 template <int D_, int BKV_ = FusedKv<D_>::BKV, int NW_ = THREADS / 32, bool DS_ = true,
           int BQ_ = FusedKv<D_>::BQ>
 struct MmaCfg {
@@ -92,17 +102,10 @@ struct MmaCfg {
 };
 
 // The dense dk/dv kernel's layout (flash_bwd.cu dkdv_mma_kernel): the fused
-// kernels' up to D 256. Past it (384, 512) a 64-row kv tile with 64-row q
-// tiles needs 311-410 KB of shared memory, above the 227 KB of a block, and
-// a warp's dK and dV over half of D would take 192-256 registers; so 32 kv
-// rows and 32-row q tiles, no dS^T (150,528 and 199,680 B), and 8 warps as
-// 2 along the kv rows x 4 along D: a warp holds dK and dV of 16 kv rows x
-// D / 4 columns (96-128 registers, as at D 256), and the 4 warps of a kv
-// row group each recompute its S^T and dP^T (4x their tensor work; dk/dv
-// then does 2.5x the products of one S^T, dP^T per row).
+// kernels', without dS^T past D 256 (150,528 and 199,680 B; dk/dv there
+// does 2.5x the products of one S^T, dP^T per row).
 template <int D>
-using DkdvMmaCfg = typename std::conditional<D <= 256, MmaCfg<D>,
-                                             MmaCfg<D, 32, THREADS / 32, false, 32>>::type;
+using DkdvMmaCfg = MmaCfg<D, FusedKv<D>::BKV, THREADS / 32, D <= 256>;
 
 // Buffer b of the double-buffered tiles starts b tiles past its base (plain
 // pointers, not arrays: an array indexed by the run-time buffer would live in

@@ -80,12 +80,13 @@
 //     D 384 / 512, 32 kv rows and 32-row q tiles, 4 warps along D
 //     (DkdvMmaCfg).
 //   * dbias_mma_kernel owns dbias tiles of 64 q rows x 64 keys (32 at D
-//     256) for one (bias batch, bias head), 16 warps at D 64 / 128 (8 at D
-//     256) each on 16 rows x a quarter (half) of the keys (bwd_mma.cuh's
+//     256 and past) for one (bias batch, bias head), 16 warps at D 64 / 128
+//     (8 past) each on 16 rows x a quarter (half) of the keys (bwd_mma.cuh's
 //     sdp_mma_tile, the dq kernels' S / dP half):
 //     persistent blocks walk their tiles' reduced (b, h) steps as one
-//     cp.async stream, double-buffered, the next step's tiles (and the next
-//     tile's bias) landing during this step's products; ds_pre is summed
+//     cp.async stream, double-buffered up to D 256, the next step's tiles
+//     (and the next tile's bias) landing during this step's products (past
+//     D 256 one buffer, DbiasMmaCfg::NBUF); ds_pre is summed
 //     unrounded in fp32 registers; the bias tile comes in, and the dbias
 //     tile goes out, as 16-byte chunks through shared memory.
 //   * The scale goes on the fp32 score accumulator (s_mul), not into a
@@ -94,7 +95,8 @@
 // fp32 inputs (no TF32): fp32 FMAs on the CUDA cores from shared-memory
 // tiles (attn_tiles.cuh, shared with the forward and varlen kernels), each
 // thread holding a 4x2 score tile and 4 x (D/16) accumulator columns in
-// registers (2x1 and 2 x (D/16) at D 384 / 512, FmaTile), shared rows
+// registers (2x1 and 2 x (D/16) at D 384 / 512, FmaTile; dbias the score
+// tile only), shared rows
 // padded by one float against bank conflicts, tiles beyond the causal /
 // window / length limits never loaded (dq_kernel, dkdv_kernel,
 // dbias_kernel).
@@ -295,44 +297,49 @@ __global__ void __launch_bounds__(THREADS) dkdv_kernel(const BwdParams p) {
                    p.dv_ss, rows, 1.f);
 }
 
-// dbias, fp32 inputs: one block per (64 x 32 bias tile, bias batch x head
-// index). Loops over the batch rows and q heads that the bias broadcasts to
-// (all of them on a broadcast dim, its own index otherwise) and sums ds_pre
-// in registers. Shared memory is the dq kernel's layout (its ds tile
-// unused).
+// dbias, fp32 inputs: one block per (M x N bias tile, bias batch x head
+// index; FmaTile<D>: 64 x 32, 32 x 16 past D 256). Loops over the batch
+// rows and q heads that the bias broadcasts to (all of them on a broadcast
+// dim, its own index otherwise) and sums ds_pre in registers. Shared memory
+// is the dq kernel's layout (its ds tile unused).
 template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(THREADS) dbias_kernel(const BwdParams p) {
+  using F = FmaTile<D>;
   extern __shared__ float smem[];
   const DqSmem s = dq_smem<D>(smem);
 
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int q0 = blockIdx.x * TM, k0 = blockIdx.y * TN;
+  const int q0 = blockIdx.x * F::M, k0 = blockIdx.y * F::N;
   const int bb = blockIdx.z / p.Hb, hb = blockIdx.z % p.Hb;
   const int b_lo = p.Bb == 1 ? 0 : bb, b_hi = p.Bb == 1 ? p.B : bb + 1;
   const int h_lo = p.Hb == 1 ? 0 : hb, h_hi = p.Hb == 1 ? p.Hq : hb + 1;
 
-  float acc[4][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
+  FmaScores<D> acc;
+#pragma unroll
+  for (int i = 0; i < F::RI; ++i)
+#pragma unroll
+    for (int j = 0; j < F::RJ; ++j) acc[i][j] = 0.f;
   for (int b = b_lo; b < b_hi; ++b) {
     const int q_len = p.lens[2 * b], kv_len = p.lens[2 * b + 1];
-    const KeyRange kr = key_range(p, q0, TM, q_len, kv_len);
-    if (k0 >= kr.hi || k0 + TN <= kr.lo) continue;  // no live element for this row
+    const KeyRange kr = key_range(p, q0, F::M, q_len, kv_len);
+    if (k0 >= kr.hi || k0 + F::N <= kr.lo) continue;  // no live element for this row
     const int q_valid = min(p.Sq, q_len - p.q_off);
     const int kv_valid = min(p.Sk, kv_len - p.kv_off);
     for (int h = h_lo; h < h_hi; ++h) {
       const int hk = h / (p.Hq / p.Hkv);
       __syncthreads();  // previous (b, h) fully consumed
       stage_q_side<T, D>(p, s, b, h, q0, q_valid);
-      stage<T, D>(s.Ks, static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh, p.k_ss, k0, TN,
+      stage<T, D>(s.Ks, static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh, p.k_ss, k0, F::N,
                   kv_valid, 1.f);
-      stage<T, D>(s.Vs, static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh, p.v_ss, k0, TN,
+      stage<T, D>(s.Vs, static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh, p.v_ss, k0, F::N,
                   kv_valid, 1.f);
       __syncthreads();
-      float sc[4][2], dp[4][2];
+      FmaScores<D> sc, dp;
       dot_tile2<D>(s.Qs, s.Ks, s.dOs, s.Vs, sc, dp);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < F::RI; ++i) {
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
+        for (int j = 0; j < F::RJ; ++j) {
           const int r = ty + 16 * i, c = tx + 16 * j;
           const bool keep = keep_at(q0 + r, k0 + c, p.Sq, p.Sk, p.q_off, p.kv_off, q_len,
                                     kv_len, p.causal, p.wl, p.wr);
@@ -347,10 +354,10 @@ __global__ void __launch_bounds__(THREADS) dbias_kernel(const BwdParams p) {
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < F::RI; ++i) {
     const int r = q0 + ty + 16 * i;
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
+    for (int j = 0; j < F::RJ; ++j) {
       const int c = k0 + tx + 16 * j;
       if (r < p.Sq && c < p.Sk) {
         store_any(p.dbias, p.bias_dtype,
@@ -525,8 +532,9 @@ __global__ void __launch_bounds__(THREADS, 1) dkdv_mma_kernel(const BwdParams p)
 
 // ---- dbias, 16-bit inputs ---------------------------------------------------
 //
-// A block owns a dbias tile of BQ = 64 q rows x BKV keys (64, 32 at D 256);
-// warp w computes rows 16 (w % 4) and keys WK (w / 4) of it (sdp_mma_tile).
+// A block owns a dbias tile of BQ = 64 q rows x BKV keys (64, 32 at D 256
+// and past); warp w computes rows 16 (w % 4) and keys WK (w / 4) of it
+// (sdp_mma_tile).
 // The step is short (two 64 x 64 x D products), so what bounds it on the
 // H100 is issue and latency, not the tensor cores: 16 warps at D <= 128 (4
 // per SM sub-partition), the chunks a thread copies fixed at compile time, the
@@ -539,17 +547,23 @@ __global__ void __launch_bounds__(THREADS, 1) dkdv_mma_kernel(const BwdParams p)
 // address mod 16), so rows of any alignment move as 16-byte copies (S 2047
 // rows are 4094 bytes); a chunk past the row's ends is never touched, and
 // its bytes in shared memory are never read as values of kept elements.
+// Past D 256 (384, 512) two buffers of a step's tiles would take 320,512 /
+// 418,816 B, above the 227 KB of a block: the step's tiles have one buffer
+// (NBUF; 169,984 / 219,136 B), so the next step's copies wait for this
+// step's products and no longer overlap them.
 template <int D_>
 struct DbiasMmaCfg {
   static constexpr int D = D_;
   static constexpr int BQ = 64;                   // q rows of a tile
   static constexpr int BKV = D <= 128 ? 64 : 32;  // keys of a tile
   static constexpr int NW = D <= 128 ? 16 : 8;    // warps: 4 along the rows x NW / 4 along the keys
+  static constexpr int NBUF = D <= 256 ? 2 : 1;   // buffers of a step's Q, dO, K and V
   static constexpr int WK = BKV / (NW / 4);       // keys of a warp
   static constexpr int NT = WK / 8;               // its n-tiles
   static constexpr int P = D + 8;                 // operand row pitch, elements
   static constexpr int BT = BKV * 4 + 16;         // bias / dbias row pitch, bytes: fp32 + a shift
-  static constexpr int SMEM_BYTES = 2 * (2 * BQ + 2 * BKV) * P * 2 + 2 * BQ * BT + 4 * BQ * 4;
+  static constexpr int SMEM_BYTES =
+      NBUF * (2 * BQ + 2 * BKV) * P * 2 + 2 * BQ * BT + 4 * BQ * 4;
   static_assert(NT % 2 == 0, "sdp_mma_tile takes n-tiles in pairs");
 };
 
@@ -724,16 +738,29 @@ __device__ __forceinline__ void db_store(const BwdParams& p, const DbTile& d,
 // (a column and rows RS apart), so a copy costs one 64-bit add, not a row
 // address of its own; at a run-time trip count cp_rows' loop compiled to
 // over a thousand instructions a step.
+// Where a row's chunks do not divide the block's threads (D 384: 48 chunks,
+// 256 threads), chunk k NT + tid of the tile goes to thread tid, its row and
+// column a division by a constant.
 template <class C, int ROWS, typename T>
 __device__ __forceinline__ void db_rows(T* dst, const T* src, long long ss, int row0, int valid) {
-  constexpr int CH = C::D / 8, NT = C::NW * 32, RS = NT / CH, K = ROWS * CH / NT;
-  static_assert(NT % CH == 0 && ROWS * CH % NT == 0, "chunks per thread");
-  const int r = threadIdx.x / CH, c = (threadIdx.x % CH) * 8;
-  const T* from = src + (long long)(row0 + r) * ss + c;
+  constexpr int CH = C::D / 8, NT = C::NW * 32, K = ROWS * CH / NT;
+  static_assert(ROWS * CH % NT == 0, "chunks per thread");
+  if constexpr (NT % CH == 0) {
+    constexpr int RS = NT / CH;
+    const int r = threadIdx.x / CH, c = (threadIdx.x % CH) * 8;
+    const T* from = src + (long long)(row0 + r) * ss + c;
 #pragma unroll
-  for (int k = 0; k < K; ++k, from += RS * ss) {
-    const bool ok = row0 + r + k * RS < valid;
-    cp_async16(dst + (r + k * RS) * C::P + c, ok ? from : src, ok);
+    for (int k = 0; k < K; ++k, from += RS * ss) {
+      const bool ok = row0 + r + k * RS < valid;
+      cp_async16(dst + (r + k * RS) * C::P + c, ok ? from : src, ok);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int i = k * NT + threadIdx.x, r = i / CH, c = (i % CH) * 8;
+      const bool ok = row0 + r < valid;
+      cp_async16(dst + r * C::P + c, ok ? src + (long long)(row0 + r) * ss + c : src, ok);
+    }
   }
 }
 
@@ -754,7 +781,8 @@ __device__ __forceinline__ void with_dtype(int dtype, const F& f) {
 // order (b outer, h inner; a batch row that keeps nothing of the tile is
 // skipped) as one stream: each step waits for its own copies, then issues
 // the next step's Q / dO / K / V / lse / delta (and the next tile's bias),
-// which land while this step's S = Q K^T and dP = dO V^T run on mma.sync.
+// which land while this step's S = Q K^T and dP = dO V^T run on mma.sync
+// (with one buffer, NBUF 1, it issues them after its products).
 // The bias of a tile is read into registers once, at its first step; the
 // mask is a column span per row (keep_span). ds_pre (grad_elem, unrounded)
 // is summed in fp32 in the accumulator layout, in the fixed step order: no
@@ -764,11 +792,11 @@ template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(DbiasMmaCfg<D>::NW * 32, 1) dbias_mma_kernel(const BwdParams p) {
   using C = DbiasMmaCfg<D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Qb = reinterpret_cast<T*>(smem_raw);  // [2][BQ][P]
-  T* dOb = Qb + 2 * C::BQ * C::P;          // [2][BQ][P]
-  T* Kb = dOb + 2 * C::BQ * C::P;          // [2][BKV][P]
-  T* Vb = Kb + 2 * C::BKV * C::P;          // [2][BKV][P]
-  unsigned char* bias_in = reinterpret_cast<unsigned char*>(Vb + 2 * C::BKV * C::P);  // [BQ][BT]
+  T* Qb = reinterpret_cast<T*>(smem_raw);  // [NBUF][BQ][P]
+  T* dOb = Qb + C::NBUF * C::BQ * C::P;    // [NBUF][BQ][P]
+  T* Kb = dOb + C::NBUF * C::BQ * C::P;    // [NBUF][BKV][P]
+  T* Vb = Kb + C::NBUF * C::BKV * C::P;    // [NBUF][BKV][P]
+  unsigned char* bias_in = reinterpret_cast<unsigned char*>(Vb + C::NBUF * C::BKV * C::P);  // [BQ][BT]
   unsigned char* out_s = bias_in + C::BQ * C::BT;                                      // [BQ][BT]
   float* lse_s = reinterpret_cast<float*>(out_s + C::BQ * C::BT);                      // [2][BQ]
   float* delta_s = lse_s + 2 * C::BQ;                                                  // [2][BQ]
@@ -837,7 +865,7 @@ __global__ void __launch_bounds__(DbiasMmaCfg<D>::NW * 32, 1) dbias_mma_kernel(c
     while (cur.t == t) {
       const DbStep nxt = db_next<C>(p, grid, cur, d);
       cp_async_wait<0>();
-      __syncthreads();  // cur's copies have landed; every warp is done with buffer buf ^ 1
+      __syncthreads();  // cur's copies have landed; every warp is done with the other buffer
       if (first) {
         const char* base = db_bias_base(p, d);
         const long long pitch = p.bias_sq * dtype_bytes(p.bias_dtype);
@@ -856,12 +884,15 @@ __global__ void __launch_bounds__(DbiasMmaCfg<D>::NW * 32, 1) dbias_mma_kernel(c
         });
         if (nxt.t != t) __syncthreads();  // read before the next tile's bias lands
       }
-      if (nxt.t == t) {
-        issue(nxt, d, buf ^ 1, false);
-      } else if (nxt.t < grid.n_tiles) {
-        issue(nxt, db_tile<C>(p, grid, nxt.t), buf ^ 1, true);
-      }
-      cp_async_commit();
+      auto issue_next = [&](int into) {
+        if (nxt.t == t) {
+          issue(nxt, d, into, false);
+        } else if (nxt.t < grid.n_tiles) {
+          issue(nxt, db_tile<C>(p, grid, nxt.t), into, true);
+        }
+        cp_async_commit();
+      };
+      if constexpr (C::NBUF == 2) issue_next(buf ^ 1);
       if (first) flush(t);
       first = false;
 
@@ -900,8 +931,13 @@ __global__ void __launch_bounds__(DbiasMmaCfg<D>::NW * 32, 1) dbias_mma_kernel(c
       } else {
         elems();
       }
+      if constexpr (C::NBUF == 1) {
+        __syncthreads();  // every warp is done with the step's tiles
+        issue_next(0);
+      } else {
+        buf ^= 1;
+      }
       cur = nxt;
-      buf ^= 1;
     }
     // The dbias tile into out_s, at dbias's shifts, once the flush above has
     // read the previous one out.
@@ -956,7 +992,8 @@ cudaError_t launch_dbias(const BwdParams& p, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(dbias_kernel<float, D, DROP>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((p.Sq + TM - 1) / TM, (p.Sk + TN - 1) / TN, p.Bb * p.Hb);
+  using F = FmaTile<D>;
+  const dim3 grid((p.Sq + F::M - 1) / F::M, (p.Sk + F::N - 1) / F::N, p.Bb * p.Hb);
   dbias_kernel<float, D, DROP><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
@@ -1009,8 +1046,7 @@ cudaError_t launch_mma(const BwdParams& p, int which, cudaStream_t stream) {
 }
 
 // fp32 inputs take the FMA dq, dk/dv and dbias kernels; bf16 / fp16 the
-// tensor-core ones (no path back to the FMA ones). dbias is built up to D
-// 256 only (ops/flash_bwd.py refuses it past, ROADMAP.md queue A).
+// tensor-core ones (no path back to the FMA ones).
 template <typename T, int D, bool DROP>
 cudaError_t launch_kernel(const BwdParams& p, int which, cudaStream_t stream) {
   // The host counts q tiles (TILE_ROWS) in TM rows: the rows of DqMmaCfg::BQ,
@@ -1018,18 +1054,11 @@ cudaError_t launch_kernel(const BwdParams& p, int which, cudaStream_t stream) {
   if (p.tile_rows != TM || (which != kDq && which != kDkDv && which != kDbias)) {
     return cudaErrorInvalidValue;
   }
-  if constexpr (D > 256) {
-    if (which == kDbias) return cudaErrorInvalidValue;
-  }
   if constexpr (std::is_same<T, float>::value) {
-    if constexpr (D <= 256) {
-      if (which == kDbias) return launch_dbias<D, DROP>(p, stream);
-    }
+    if (which == kDbias) return launch_dbias<D, DROP>(p, stream);
     return launch_fma<D, DROP>(p, which, stream);
   } else {
-    if constexpr (D <= 256) {
-      if (which == kDbias) return launch_dbias_mma<T, D, DROP>(p, stream);
-    }
+    if (which == kDbias) return launch_dbias_mma<T, D, DROP>(p, stream);
     return p.bias != nullptr || p.softcap > 0.f ? launch_mma<T, D, DROP, true>(p, which, stream)
                                                 : launch_mma<T, D, DROP, false>(p, which, stream);
   }

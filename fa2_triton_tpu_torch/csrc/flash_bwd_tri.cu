@@ -33,13 +33,24 @@
 // fp32 inputs keep the FMA kernel (bwd_tri_kernel: one block per
 // (leaf, batch row, kv head) over the whole sequence, attn_tiles.cuh's
 // tiles), so the fp32 contract (1e-4 against the plain twin) needs no TF32.
+//
+// Head dims 384 and 512 compile in flash_bwd_tri_wide.cu (this file with
+// FA2_WIDE defined), beside 64 / 128 / 256 here, so that the two build in
+// parallel. There the 16-bit tiles are bwd_mma.cuh's FusedKv past D 256
+// (32 kv rows, 32-row q tiles, 4 warps along D: 153,600 / 202,752 B of
+// shared memory) and the FMA kernel takes FmaTile's 32 x 16 tiles.
 #include "bwd_mma.cuh"
 
 namespace fa2 {
+
+// The launch at head dim 384 or 512 (flash_bwd_tri_wide.cu).
+int launch_tri_wide(const FusedBwdParams& p, int dtype, int D, void* stream);
+
 namespace {
 
 template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(THREADS) bwd_tri_kernel(const FusedBwdParams p) {
+  constexpr int M = FmaTile<D>::M, N = FmaTile<D>::N;
   extern __shared__ float smem[];
   const DkdvSmem s = dkdv_smem<D>(smem);
   const int hk = blockIdx.y, b = blockIdx.z;
@@ -59,35 +70,35 @@ __global__ void __launch_bounds__(THREADS) bwd_tri_kernel(const FusedBwdParams p
   for (int g = 0; g < group; ++g) {
     const int h = hk * group + g;
     float* dqh = dq_head<D>(p, p.dq_acc, b, h);
-    for (int r0 = R0; r0 < R1; r0 += TN) dq_tile_zero<D>(dqh + (long long)r0 * D, R1 - r0);
+    for (int r0 = R0; r0 < R1; r0 += N) dq_tile_zero<D>(dqh + (long long)r0 * D, R1 - r0);
     if (p.o != nullptr) delta_rows<T, D>(p, b, h, R0, R1);
   }
 
   const T* kp = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const T* vp = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  for (int k0 = C0; k0 < C1; k0 += TM) {
+  for (int k0 = C0; k0 < C1; k0 += M) {
     __syncthreads();  // the delta rows / the previous tile's K fully consumed
     stage_k<T, D>(p, s.Ks, kp, k0, kv_valid);
-    stage<T, D>(s.Vs, vp, p.v_ss, k0, TM, kv_valid, 1.f);
+    stage<T, D>(s.Vs, vp, p.v_ss, k0, M, kv_valid, 1.f);
     int r_lo, r_hi;
-    kv_tile_rows(p, k0, min(k0 + TM, kv_valid), shift, q_valid, r_lo, r_hi);
+    kv_tile_rows(p, k0, min(k0 + M, kv_valid), shift, q_valid, r_lo, r_hi);
     r_lo = max(r_lo, R0);
     r_hi = min(r_hi, R1);
     // A q tile at r0 keeps all of this kv tile when the tile's last column
     // is at or below the diagonal of its first row, inside the lengths.
     auto is_free = [&](int r0) {
-      return r0 + TN <= q_valid && k0 + TM <= kv_valid &&
-             p.kv_off + k0 + TM - 1 <= p.q_off + r0 + shift;
+      return r0 + N <= q_valid && k0 + M <= kv_valid &&
+             p.kv_off + k0 + M - 1 <= p.q_off + r0 + shift;
     };
-    float dk_acc[4][D / 16], dv_acc[4][D / 16];
+    FmaAcc<D> dk_acc, dv_acc;
     zero_acc<D>(dk_acc);
     zero_acc<D>(dv_acc);
     for (int g = 0; g < group; ++g) {
       const int h = hk * group + g;
-      fused_rows<T, D, DROP>(p, s, b, h, k0, (r_lo / TN) * TN, r_hi, q_len, kv_len, q_valid,
+      fused_rows<T, D, DROP>(p, s, b, h, k0, (r_lo / N) * N, r_hi, q_len, kv_len, q_valid,
                              is_free, dq_head<D>(p, p.dq_acc, b, h), dk_acc, dv_acc);
     }
-    const int rows = min(TM, p.Sk - k0);
+    const int rows = min(M, p.Sk - k0);
     store_tile<T, D>(dk_acc, static_cast<T*>(p.dk) + b * p.dk_sb + hk * p.dk_sh + k0 * p.dk_ss,
                      p.dk_ss, rows, p.scale);
     store_tile<T, D>(dv_acc, static_cast<T*>(p.dv) + b * p.dv_sb + hk * p.dv_sh + k0 * p.dv_ss,
@@ -99,7 +110,7 @@ __global__ void __launch_bounds__(THREADS) bwd_tri_kernel(const FusedBwdParams p
     const int h = hk * group + g;
     const float* dqh = dq_head<D>(p, p.dq_acc, b, h);
     T* out = static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
-    for (int r0 = R0; r0 < R1; r0 += TN) {
+    for (int r0 = R0; r0 < R1; r0 += N) {
       dq_tile_write<T, D>(dqh + (long long)r0 * D, out + r0 * p.dq_ss, p.dq_ss, R1 - r0);
     }
   }
@@ -131,7 +142,10 @@ __device__ __forceinline__ void leaf_bounds(const FusedBwdParams& p, int li, int
 }
 
 // delta = rowsum(o * do) - adj of every row (b, h, r): r < the row's
-// q_valid, else 0. One warp per row, a fixed shuffle order.
+// q_valid, else 0. One warp per row, a fixed shuffle order; lane l reads
+// elements [l D / 32, (l + 1) D / 32) as one vector load, or as 8-byte ones
+// where its span is longer than 8 bytes and not a whole number of 16 (D 384
+// in 16 bits: 24).
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) fused_delta_kernel(const FusedBwdParams p) {
   const int lane = threadIdx.x % 32;
@@ -147,11 +161,16 @@ __global__ void __launch_bounds__(THREADS) fused_delta_kernel(const FusedBwdPara
       const T* dop =
           static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh + (long long)r * p.do_ss;
       constexpr int PER = D / 32;
-      float x[PER], y[PER];
-      load_vec<T, PER>(op + lane * PER, x);
-      load_vec<T, PER>(dop + lane * PER, y);
+      constexpr int BYTES = PER * (int)sizeof(T);
+      constexpr int V = BYTES % 16 == 0 || BYTES <= 8 ? PER : 8 / (int)sizeof(T);
 #pragma unroll
-      for (int i = 0; i < PER; ++i) acc = fmaf(x[i], y[i], acc);
+      for (int c = 0; c < PER; c += V) {
+        float x[V], y[V];
+        load_vec<T, V>(op + lane * PER + c, x);
+        load_vec<T, V>(dop + lane * PER + c, y);
+#pragma unroll
+        for (int i = 0; i < V; ++i) acc = fmaf(x[i], y[i], acc);
+      }
       acc = warp_sum(acc);
       acc -= p.delta != nullptr ? p.delta[row] : 0.f;
     }
@@ -305,19 +324,51 @@ cudaError_t launch_kernel(const FusedBwdParams& p, cudaStream_t stream) {
   }
 }
 
+template <typename T, int D>
+cudaError_t launch(const FusedBwdParams& p, cudaStream_t stream) {
+  return p.drop.on ? launch_kernel<T, D, true>(p, stream) : launch_kernel<T, D, false>(p, stream);
+}
+
+// The head dims of this translation unit: 64 / 128 / 256 here, 384 / 512 in
+// flash_bwd_tri_wide.cu.
 template <typename T>
 cudaError_t launch_d(const FusedBwdParams& p, int D, cudaStream_t stream) {
-  const bool drop = p.drop.on;
   switch (D) {
-    case 64: return drop ? launch_kernel<T, 64, true>(p, stream) : launch_kernel<T, 64, false>(p, stream);
-    case 128: return drop ? launch_kernel<T, 128, true>(p, stream) : launch_kernel<T, 128, false>(p, stream);
-    case 256: return drop ? launch_kernel<T, 256, true>(p, stream) : launch_kernel<T, 256, false>(p, stream);
+#ifdef FA2_WIDE
+    case 384: return launch<T, 384>(p, stream);
+    case 512: return launch<T, 512>(p, stream);
+#else
+    case 64: return launch<T, 64>(p, stream);
+    case 128: return launch<T, 128>(p, stream);
+    case 256: return launch<T, 256>(p, stream);
+#endif
     default: return cudaErrorInvalidValue;
   }
 }
 
+int launch_dtype(const FusedBwdParams& p, int dtype, int D, void* stream) {
+#ifndef FA2_WIDE
+  if (D > 256) return launch_tri_wide(p, dtype, D, stream);
+#endif
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kF32: return (int)launch_d<float>(p, D, st);
+    case kF16: return (int)launch_d<__half>(p, D, st);
+    case kBF16: return (int)launch_d<__nv_bfloat16>(p, D, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
+
+#ifdef FA2_WIDE
+int launch_tri_wide(const FusedBwdParams& p, int dtype, int D, void* stream) {
+  return launch_dtype(p, dtype, D, stream);
+}
+#endif
 }  // namespace fa2
+
+#ifndef FA2_WIDE
 
 // leaf = 0: the tri-square (B13); leaf = T > 0, a multiple of 64 with Sq ==
 // Sk: the diag leaves (B13 diag). k_mul = scale * log2e folds k in the
@@ -354,11 +405,6 @@ extern "C" int fa2_flash_bwd_tri(
   p.Sq_real = Sq_real; p.Sk_real = Sk_real;
   p.leaf = leaf;
   p.part = part; p.nparts = nparts; p.tile_q = tile_q; p.tile_kv = tile_kv;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case fa2::kF32: return (int)fa2::launch_d<float>(p, D, st);
-    case fa2::kF16: return (int)fa2::launch_d<__half>(p, D, st);
-    case fa2::kBF16: return (int)fa2::launch_d<__nv_bfloat16>(p, D, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return fa2::launch_dtype(p, dtype, D, stream);
 }
+#endif  // FA2_WIDE

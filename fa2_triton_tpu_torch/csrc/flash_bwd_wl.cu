@@ -37,18 +37,28 @@
 // fp32 inputs keep the FMA kernel (bwd_wl_kernel: one block per
 // strip walking its steps in table order, fp32 dk / dv strip accumulators
 // zeroed and written at WL_INIT_KV / WL_WRITE_KV, attn_tiles.cuh's tiles).
+//
+// Head dims 384 and 512 compile in flash_bwd_wl_wide.cu (this file with
+// FA2_WIDE defined), beside 64 / 128 / 256 here, so that the two build in
+// parallel: the 16-bit tiles of bwd_mma.cuh's FusedKv past D 256 (32 kv
+// rows, 32-row q tiles), FmaTile's 32 x 16 tiles for fp32.
 #include "bwd_mma.cuh"
 
 namespace fa2 {
+
+// The launch at head dim 384 or 512 (flash_bwd_wl_wide.cu).
+int launch_wl_wide(const FusedBwdParams& p, int dtype, int parts, int D, void* stream);
+
 namespace {
 
-// The fp32 dk or dv accumulator of a 64-row kv tile (rows < `rows`) in the
-// acc_tile mapping (rows ty + 16 i, columns tx + 16 j): zero, load, store.
+// The fp32 dk or dv accumulator of an FmaTile<D>::M-row kv tile (rows <
+// `rows`) in the acc_tile mapping (rows ty + 16 i, columns tx + 16 j):
+// zero, load, store.
 template <int D>
 __device__ __forceinline__ void kv_acc_zero(float* acc, int rows) {
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < FmaTile<D>::RI; ++i) {
     const int r = ty + 16 * i;
     if (r >= rows) continue;
 #pragma unroll
@@ -57,10 +67,10 @@ __device__ __forceinline__ void kv_acc_zero(float* acc, int rows) {
 }
 
 template <int D>
-__device__ __forceinline__ void kv_acc_load(const float* acc, int rows, float (&x)[4][D / 16]) {
+__device__ __forceinline__ void kv_acc_load(const float* acc, int rows, FmaAcc<D>& x) {
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < FmaTile<D>::RI; ++i) {
     const int r = ty + 16 * i;
 #pragma unroll
     for (int j = 0; j < D / 16; ++j) x[i][j] = r < rows ? acc[r * D + tx + 16 * j] : 0.f;
@@ -68,10 +78,10 @@ __device__ __forceinline__ void kv_acc_load(const float* acc, int rows, float (&
 }
 
 template <int D>
-__device__ __forceinline__ void kv_acc_store(float* acc, int rows, const float (&x)[4][D / 16]) {
+__device__ __forceinline__ void kv_acc_store(float* acc, int rows, const FmaAcc<D>& x) {
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < FmaTile<D>::RI; ++i) {
     const int r = ty + 16 * i;
     if (r >= rows) continue;
 #pragma unroll
@@ -81,6 +91,7 @@ __device__ __forceinline__ void kv_acc_store(float* acc, int rows, const float (
 
 template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(THREADS) bwd_wl_kernel(const FusedBwdParams p) {
+  constexpr int M = FmaTile<D>::M, N = FmaTile<D>::N;
   extern __shared__ float smem[];
   const DkdvSmem s = dkdv_smem<D>(smem);
   const int part = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
@@ -101,7 +112,7 @@ __global__ void __launch_bounds__(THREADS) bwd_wl_kernel(const FusedBwdParams p)
     if (p.o != nullptr) delta_rows<T, D>(p, b, h, 0, p.Sq);
     if (p.dq_whole) {
       float* dqh = dq_head<D>(p, dq_base, b, h);
-      for (int r0 = 0; r0 < p.Sq; r0 += TN) dq_tile_zero<D>(dqh + (long long)r0 * D, p.Sq - r0);
+      for (int r0 = 0; r0 < p.Sq; r0 += N) dq_tile_zero<D>(dqh + (long long)r0 * D, p.Sq - r0);
     }
   }
 
@@ -113,38 +124,38 @@ __global__ void __launch_bounds__(THREADS) bwd_wl_kernel(const FusedBwdParams p)
     const int c_lo = strip * p.strip_cols, c_hi = min(c_lo + p.strip_cols, p.Sk);
     const int ra = iq * p.sub, rb = min(ra + p.sub, p.Sq);
     if (flags & WL_INIT_KV) {
-      for (int k0 = c_lo; k0 < c_hi; k0 += TM) {
+      for (int k0 = c_lo; k0 < c_hi; k0 += M) {
         kv_acc_zero<D>(dkh + (long long)k0 * D, c_hi - k0);
         kv_acc_zero<D>(dvh + (long long)k0 * D, c_hi - k0);
       }
     }
     if (!p.dq_whole && (flags & WL_INIT_DQ)) {
-      for (int r0 = ra; r0 < rb; r0 += TN) dq_tile_zero<D>(dqh + (long long)r0 * D, rb - r0);
+      for (int r0 = ra; r0 < rb; r0 += N) dq_tile_zero<D>(dqh + (long long)r0 * D, rb - r0);
     }
     const bool masked = (flags & (WL_MASK_GEN | WL_MASK_TRI)) != 0;
     const int wb = min((ws + 1) * p.sub, p.Sk);
-    for (int k0 = ws * p.sub; k0 < wb; k0 += TM) {
+    for (int k0 = ws * p.sub; k0 < wb; k0 += M) {
       __syncthreads();  // the delta rows / the previous tile's K fully consumed
       stage_k<T, D>(p, s.Ks, kp, k0, kv_valid);
-      stage<T, D>(s.Vs, vp, p.v_ss, k0, TM, kv_valid, 1.f);
+      stage<T, D>(s.Vs, vp, p.v_ss, k0, M, kv_valid, 1.f);
       int r_lo, r_hi;
-      kv_tile_rows(p, k0, min(k0 + TM, kv_valid), shift, q_valid, r_lo, r_hi);
+      kv_tile_rows(p, k0, min(k0 + M, kv_valid), shift, q_valid, r_lo, r_hi);
       r_lo = max(r_lo, ra);
       r_hi = min(r_hi, rb);
-      auto is_free = [&](int r0) { return !masked && r0 + TN <= q_valid && k0 + TM <= kv_valid; };
-      const int rows = min(TM, p.Sk - k0);
-      float dk_acc[4][D / 16], dv_acc[4][D / 16];
+      auto is_free = [&](int r0) { return !masked && r0 + N <= q_valid && k0 + M <= kv_valid; };
+      const int rows = min(M, p.Sk - k0);
+      FmaAcc<D> dk_acc, dv_acc;
       kv_acc_load<D>(dkh + (long long)k0 * D, rows, dk_acc);
       kv_acc_load<D>(dvh + (long long)k0 * D, rows, dv_acc);
-      fused_rows<T, D, DROP>(p, s, b, h, k0, (r_lo / TN) * TN, r_hi, q_len, kv_len, q_valid,
+      fused_rows<T, D, DROP>(p, s, b, h, k0, (r_lo / N) * N, r_hi, q_len, kv_len, q_valid,
                              is_free, dqh, dk_acc, dv_acc);
       kv_acc_store<D>(dkh + (long long)k0 * D, rows, dk_acc);
       kv_acc_store<D>(dvh + (long long)k0 * D, rows, dv_acc);
     }
     if (flags & WL_WRITE_KV) {
-      for (int k0 = c_lo; k0 < c_hi; k0 += TM) {
-        float x[4][D / 16];
-        const int rows = min(TM, c_hi - k0);
+      for (int k0 = c_lo; k0 < c_hi; k0 += M) {
+        FmaAcc<D> x;
+        const int rows = min(M, c_hi - k0);
         kv_acc_load<D>(dkh + (long long)k0 * D, rows, x);
         store_tile<T, D>(x, static_cast<T*>(p.dk) + b * p.dk_sb + hk * p.dk_sh + k0 * p.dk_ss,
                          p.dk_ss, rows, p.scale);
@@ -155,7 +166,7 @@ __global__ void __launch_bounds__(THREADS) bwd_wl_kernel(const FusedBwdParams p)
     }
     if (!p.dq_whole && (flags & WL_WRITE_DQ)) {
       T* out = static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
-      for (int r0 = ra; r0 < rb; r0 += TN) {
+      for (int r0 = ra; r0 < rb; r0 += N) {
         dq_tile_write<T, D>(dqh + (long long)r0 * D, out + r0 * p.dq_ss, p.dq_ss, rb - r0);
       }
     }
@@ -397,19 +408,52 @@ cudaError_t launch_kernel(const FusedBwdParams& p, int parts, cudaStream_t strea
   }
 }
 
+template <typename T, int D>
+cudaError_t launch(const FusedBwdParams& p, int parts, cudaStream_t stream) {
+  return p.drop.on ? launch_kernel<T, D, true>(p, parts, stream)
+                   : launch_kernel<T, D, false>(p, parts, stream);
+}
+
+// The head dims of this translation unit: 64 / 128 / 256 here, 384 / 512 in
+// flash_bwd_wl_wide.cu.
 template <typename T>
 cudaError_t launch_d(const FusedBwdParams& p, int parts, int D, cudaStream_t stream) {
-  const bool drop = p.drop.on;
   switch (D) {
-    case 64: return drop ? launch_kernel<T, 64, true>(p, parts, stream) : launch_kernel<T, 64, false>(p, parts, stream);
-    case 128: return drop ? launch_kernel<T, 128, true>(p, parts, stream) : launch_kernel<T, 128, false>(p, parts, stream);
-    case 256: return drop ? launch_kernel<T, 256, true>(p, parts, stream) : launch_kernel<T, 256, false>(p, parts, stream);
+#ifdef FA2_WIDE
+    case 384: return launch<T, 384>(p, parts, stream);
+    case 512: return launch<T, 512>(p, parts, stream);
+#else
+    case 64: return launch<T, 64>(p, parts, stream);
+    case 128: return launch<T, 128>(p, parts, stream);
+    case 256: return launch<T, 256>(p, parts, stream);
+#endif
     default: return cudaErrorInvalidValue;
   }
 }
 
+int launch_dtype(const FusedBwdParams& p, int dtype, int parts, int D, void* stream) {
+#ifndef FA2_WIDE
+  if (D > 256) return launch_wl_wide(p, dtype, parts, D, stream);
+#endif
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kF32: return (int)launch_d<float>(p, parts, D, st);
+    case kF16: return (int)launch_d<__half>(p, parts, D, st);
+    case kBF16: return (int)launch_d<__nv_bfloat16>(p, parts, D, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
+
+#ifdef FA2_WIDE
+int launch_wl_wide(const FusedBwdParams& p, int dtype, int parts, int D, void* stream) {
+  return launch_dtype(p, dtype, parts, D, stream);
+}
+#endif
 }  // namespace fa2
+
+#ifndef FA2_WIDE
 
 // The table (device int32 [nsteps][8]) and `starts` (device int32
 // [parts + 1], the first step of each strip, strip-major) come from
@@ -456,11 +500,6 @@ extern "C" int fa2_flash_bwd_wl(
   p.table = table; p.starts = starts; p.sub = sub; p.strip_cols = strip_cols;
   p.dq_whole = dq_whole;
   p.part = part; p.nparts = nparts; p.tile_q = tile_q; p.tile_kv = tile_kv;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case fa2::kF32: return (int)fa2::launch_d<float>(p, parts, D, st);
-    case fa2::kF16: return (int)fa2::launch_d<__half>(p, parts, D, st);
-    case fa2::kBF16: return (int)fa2::launch_d<__nv_bfloat16>(p, parts, D, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return fa2::launch_dtype(p, dtype, parts, D, stream);
 }
+#endif  // FA2_WIDE

@@ -66,8 +66,8 @@ from fa2_triton_tpu_torch.ops import _build
 from fa2_triton_tpu_torch.ops.autotune import detect_chip
 from fa2_triton_tpu_torch.ops.flash_fwd import (
     TILE_ROWS, _check_cuda_args, _killed, _masks, _reals, bias_view, causal_split_ok,
-    causal_split_rects, dropout_c_args, dropout_mask, jax_padded_shape, reads_table,
-    table_route, tri_square_ok)
+    causal_split_rects, check_head_dim, dropout_c_args, dropout_mask, jax_padded_shape,
+    reads_table, table_route, tri_square_ok)
 from fa2_triton_tpu_torch.ops.tuning import BlockSizes
 from fa2_triton_tpu_torch.utils import LOG2E
 
@@ -80,15 +80,6 @@ _KERNEL_IDS = {"flash_bwd_dq": 0, "flash_bwd_dkdv": 1, "flash_bwd_dbias": 2}
 # (B13 rect: its dq and dk/dv kernels, counted here only) and
 # csrc/flash_bwd_wl.cu (B14, with its dq reduction when there are strips).
 SCHEDULE_LAUNCHES = dict.fromkeys(("tri_square", "causal_diag", "rect", "worklist"), 0)
-
-# The largest head dim of csrc/flash_bwd_tri.cu and csrc/flash_bwd_wl.cu (the
-# tri-square, the split's diag leaves, the work list) and of the dbias
-# kernels. Past it the backward routes to the dq + dk/dv pair, which is
-# built to MAX_HEAD_DIM (512): the result is JAX's, only the schedule
-# differs; a forced schedule and dbias on CUDA raise (ROADMAP.md queue A).
-SCHEDULE_MAX_HEAD_DIM = 256
-DBIAS_MAX_HEAD_DIM = 256
-_WIDE_DECLINED = ("tri_square", "split", "worklist")
 
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 # The fused kernels' argtypes share a tail: the lens and strides pointers,
@@ -497,25 +488,22 @@ def backward_gates(Sq: int, Sk: int, head_dim: int, dtype_bytes: int, *, causal:
     (the dq + dk/dv pair) always passes. The split's gate is read at
     `split_leaf`, default `bwd_split_leaf_t` (JAX takes the split only with
     an explicit leaf; `backward_route` keeps that). Kill switches are not
-    applied here. Past SCHEDULE_MAX_HEAD_DIM the tri-square, split and work
-    list gates are False whatever JAX's say: their kernels stop at 256."""
+    applied here."""
     Sq_p, Sk_p, Dp = jax_padded_shape(Sq, Sk, head_dim, dtype_bytes, block_sizes, chip)
     sq_real = seqlen_q_real if seqlen_q_real is not None else Sq
     sk_real = seqlen_k_real if seqlen_k_real is not None else Sk
     window = tuple(window)
     leaf = split_leaf if split_leaf is not None else bwd_split_leaf_t(Dp, group, dtype_bytes)
-    wide = head_dim > SCHEDULE_MAX_HEAD_DIM
     return {
-        "tri_square": not wide and tri_square_bwd_ok(causal, static_skip, window, softcap, Sq_p,
-                                                     Sk_p, sq_real, sk_real, Dp, group,
-                                                     dtype_bytes),
-        "split": not wide and leaf > 0 and causal_split_bwd_ok(
+        "tri_square": tri_square_bwd_ok(causal, static_skip, window, softcap, Sq_p, Sk_p, sq_real,
+                                        sk_real, Dp, group, dtype_bytes),
+        "split": leaf > 0 and causal_split_bwd_ok(
             causal, static_skip, window, None, varlen, softcap, Sq_p, Sk_p, sq_real, sk_real,
             Dp, group, leaf_t=leaf, dtype_bytes=dtype_bytes),
         "strip": bwd_causal_strip_ok(causal, static_skip, window, None, varlen, softcap, Sq_p,
                                      Sk_p, sq_real, sk_real, head_dim=Dp,
                                      dtype_bytes=dtype_bytes),
-        "worklist": not wide and causal_wl_bwd_config(
+        "worklist": causal_wl_bwd_config(
             causal, static_skip, window, varlen, softcap, Sq_p, Sk_p, sq_real, sk_real, Dp, group,
             dtype_bytes) is not None,
         "generic": True,
@@ -545,11 +533,7 @@ def backward_route(Sq: int, Sk: int, head_dim: int, dtype_bytes: int, *, causal:
     passes (`table_route`). Else the prior, JAX's dispatch: the kill
     switches are read at call time, and a split forced on
     (`causal_split=True`) whose gate fails raises ValueError; forced off
-    it is skipped. Past SCHEDULE_MAX_HEAD_DIM the tri-square, split and
-    work list are declined (`backward_gates`), so those head dims take the
-    strip or the pair where JAX may take a fused schedule: the same
-    gradients, another schedule (ROADMAP.md queue C); forcing one of them
-    there raises ValueError."""
+    it is skipped."""
     if bias is not None or fused is False:
         if route not in (None, "generic"):
             raise ValueError(f"{route} forced on a call with a bias or fused=False")
@@ -558,11 +542,6 @@ def backward_route(Sq: int, Sk: int, head_dim: int, dtype_bytes: int, *, causal:
                         static_skip=static_skip, window=window, softcap=softcap, varlen=varlen,
                         seqlen_q_real=seqlen_q_real, seqlen_k_real=seqlen_k_real,
                         split_leaf=split_leaf, block_sizes=block_sizes, chip=chip)
-    if head_dim > SCHEDULE_MAX_HEAD_DIM and (route in _WIDE_DECLINED
-                                             or (route is None and causal_split)):
-        raise ValueError(
-            f"{route or 'split'} forced at head_dim {head_dim}: the fused backward schedules are "
-            f"built for head dims up to {SCHEDULE_MAX_HEAD_DIM} (ROADMAP.md queue A, 'Head dims')")
     if route is not None:
         if route not in ok:
             raise ValueError(f"unknown backward route {route!r}; one of {tuple(ok)}")
@@ -598,14 +577,19 @@ def backward_route(Sq: int, Sk: int, head_dim: int, dtype_bytes: int, *, causal:
 # H100's, so a twin walks what the card's kernel walks.
 
 H100_SMS = 132          # streaming multiprocessors of the H100 SXM
-FUSED_BQ = 64           # q rows of a streamed tile (bwd_mma.cuh MmaCfg::BQ; the
-                        # kernels refuse a partition built for other tiles)
 BALANCE = 1.25          # the largest block's work over the mean, at most
 
 
+# The kernels refuse a partition built for other tiles than theirs.
+def fused_q_tile(head_dim: int) -> int:
+    """q rows of a 16-bit fused block's streamed tile (bwd_mma.cuh
+    FusedKv::BQ)."""
+    return 64 if head_dim <= 256 else 32
+
+
 def fused_kv_tile(head_dim: int) -> int:
-    """kv rows of a 16-bit fused block's tile (bwd_mma.cuh MmaCfg::BKV)."""
-    return 128 if head_dim <= 128 else 64
+    """kv rows of a 16-bit fused block's tile (bwd_mma.cuh FusedKv::BKV)."""
+    return 128 if head_dim <= 128 else 64 if head_dim <= 256 else 32
 
 
 def sm_count(device) -> int:
@@ -615,11 +599,11 @@ def sm_count(device) -> int:
     return H100_SMS
 
 
-def _q_tiles(r_lo: int, r_hi: int) -> int:
-    """FUSED_BQ-row q tiles the kernels walk for rows [r_lo, r_hi)."""
+def _q_tiles(r_lo: int, r_hi: int, bq: int) -> int:
+    """bq-row q tiles the kernels walk for rows [r_lo, r_hi)."""
     if r_hi <= r_lo:
         return 0
-    return -(-(r_hi - r_lo // FUSED_BQ * FUSED_BQ) // FUSED_BQ)
+    return -(-(r_hi - r_lo // bq * bq) // bq)
 
 
 def _tile_rows(k0, c_lim, shift, q_valid, causal=True, window=(-1, -1)):
@@ -682,7 +666,7 @@ def tri_partition(Sq, Sk, shift, leaf, group, B, Hkv, head_dim, sms):
     pairs over the GQA group at the static shift; P is `_pick`'s choice.
     Returns (P, starts int32 [leaves * P + 1], tiles int32, work per
     block)."""
-    bkv = fused_kv_tile(head_dim)
+    bkv, bq = fused_kv_tile(head_dim), fused_q_tile(head_dim)
     spans = ([(0, Sq, Sk)] if leaf == 0 else
              [(l0, min(l0 + leaf, Sq), min(l0 + leaf, Sk)) for l0 in range(0, Sq, leaf)])
     leaves = []
@@ -691,7 +675,7 @@ def tri_partition(Sq, Sk, shift, leaf, group, B, Hkv, head_dim, sms):
         work = []
         for k0 in tiles:
             r_lo, r_hi = _tile_rows(k0, min(k0 + bkv, C1), shift, Sq)
-            work.append(group * _q_tiles(max(r_lo, R0), min(r_hi, R1)))
+            work.append(group * _q_tiles(max(r_lo, R0), min(r_hi, R1), bq))
         n = len(tiles)
         items = [sorted({t, n - 1 - t}) for t in range((n + 1) // 2)]
         leaves.append((tiles, items, [sum(work[i] for i in it) for it in items]))
@@ -733,7 +717,7 @@ def wl_partition(schedule, Sq, Sk, B, Hkv, head_dim, sms):
     steps hold q-row block iq, work per chunk)."""
     table, _ = _worklist(*schedule)
     nq, sub, nws, nsub_strip, _, shift, window, causal = schedule[:8]
-    bkv = fused_kv_tile(head_dim)
+    bkv, bq = fused_kv_tile(head_dim), fused_q_tile(head_dim)
     strips = -(-nws // nsub_strip)
     rows = {}  # strip -> [[first step, end step, work, (g, iq)], ...]
     for i, (g, iq, ws, _, strip, *_) in enumerate(table.tolist()):
@@ -741,7 +725,7 @@ def wl_partition(schedule, Sq, Sk, B, Hkv, head_dim, sms):
         work = 0
         for k0 in range(ws * sub, w_end, bkv):
             r_lo, r_hi = _tile_rows(k0, min(k0 + bkv, w_end), shift, Sq, causal, window)
-            work += _q_tiles(max(iq * sub, r_lo), min((iq + 1) * sub, Sq, r_hi))
+            work += _q_tiles(max(iq * sub, r_lo), min((iq + 1) * sub, Sq, r_hi), bq)
         runs = rows.setdefault(strip, [])
         if runs and runs[-1][3] == (g, iq):
             runs[-1][1] = i + 1
@@ -845,13 +829,6 @@ def _prescale_k(k, softmax_scale):
     return (k.float() * (softmax_scale * LOG2E)).to(k.dtype)
 
 
-def _check_schedule_head_dim(D: int) -> None:
-    """Raise on CUDA tensors of a head dim the fused kernels lack."""
-    if D > SCHEDULE_MAX_HEAD_DIM:
-        raise ValueError(f"the fused backward kernels are built for head dims up to "
-                         f"{SCHEDULE_MAX_HEAD_DIM}, got {D} (ROADMAP.md queue A, 'Head dims')")
-
-
 def _tri_launch(kernel, q, k, v, do, o, lse, delta, lens, q_off, kv_off, *, leaf, softmax_scale,
                 dropout_p, dropout_seed, seqlen_q_real, seqlen_k_real):
     """Launch csrc/flash_bwd_tri.cu: "tri_square" (o given: k folded and
@@ -862,7 +839,6 @@ def _tri_launch(kernel, q, k, v, do, o, lse, delta, lens, q_off, kv_off, *, leaf
     Returns (dq, dk, dv) in the input dtypes."""
     _check_bwd_args(q, k, v, do, lens, lse, o)
     B, Hq, Sq, D = q.shape
-    _check_schedule_head_dim(D)
     Hkv, Sk = k.shape[1], k.shape[2]
     sq_real, sk_real = _reals(q, k, seqlen_q_real, seqlen_k_real)
     mma = q.element_size() == 2
@@ -891,7 +867,7 @@ def _tri_launch(kernel, q, k, v, do, o, lse, delta, lens, q_off, kv_off, *, leaf
         lens.data_ptr(), ctypes.cast(strides, ctypes.c_void_p), int(q_off), int(kv_off),
         float(softmax_scale), float(softmax_scale * LOG2E) if o is not None else 0.0,
         *dropout_c_args(dropout_p, dropout_seed), int(sq_real), int(sk_real), ptr(part),
-        int(nparts), FUSED_BQ, fused_kv_tile(D), _build.stream_ptr(q.device))
+        int(nparts), fused_q_tile(D), fused_kv_tile(D), _build.stream_ptr(q.device))
     _build.check(status, f"flash_bwd {kernel} launch")
     SCHEDULE_LAUNCHES[kernel] += 1
     return dq, dk, dv
@@ -1146,7 +1122,6 @@ def flash_attn_backward_fused_wl(q, k, v, do, o, lse, lens, q_off=0, kv_off=0, *
                                                   schedule=key, causal=causal, window=window,
                                                   dlse=dlse, **kw)
     _check_bwd_args(q, k, v, do, lens, lse, o)
-    _check_schedule_head_dim(D)
     mma = q.element_size() == 2
     do = _mma_layout(do)
     dq, dk, dv = _new_grads(q, k, zero=True)
@@ -1186,7 +1161,7 @@ def flash_attn_backward_fused_wl(q, k, v, do, o, lse, lens, q_off=0, kv_off=0, *
         lens.data_ptr(), ctypes.cast(strides, ctypes.c_void_p), int(q_off), int(kv_off),
         int(bool(causal)), window[0], window[1], float(softmax_scale), float(k_mul),
         *dropout_c_args(dropout_p, dropout_seed), int(sq_real), int(sk_real), ptr(part),
-        int(nparts), FUSED_BQ, fused_kv_tile(D), _build.stream_ptr(q.device))
+        int(nparts), fused_q_tile(D), fused_kv_tile(D), _build.stream_ptr(q.device))
     _build.check(status, "flash_bwd worklist launch")
     SCHEDULE_LAUNCHES["worklist"] += 1
     return dq, dk, dv
@@ -1294,11 +1269,9 @@ def flash_attn_backward(
     if compute_dbias and bias is None:
         raise ValueError("compute_dbias needs a bias")
     dropout_c_args(dropout_p, dropout_seed)
+    if q.device.type == "cuda":   # before routing: a head dim past MAX_HEAD_DIM raises on every route
+        check_head_dim(q.shape[3])
     B, Hq, Sq, D = q.shape
-    if compute_dbias and D > DBIAS_MAX_HEAD_DIM and q.device.type == "cuda":
-        raise ValueError(f"compute_dbias at head_dim {D}: the dbias kernels are built for head "
-                         f"dims up to {DBIAS_MAX_HEAD_DIM} (ROADMAP.md queue A, 'Head dims'); a "
-                         f"bias that needs no gradient works")
     chip = detect_chip(q.device)
     route = backward_route(
         Sq, k.shape[2], D, q.element_size(), causal=causal, group=Hq // k.shape[1],

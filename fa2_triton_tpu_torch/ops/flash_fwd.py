@@ -77,8 +77,7 @@ HEAD_DIMS = (64, 128, 256, 384, 512)
 # The attention entry points zero-pad other head dims up to the next of
 # HEAD_DIMS (past 256 that is JAX's round-up to 128 lanes); past the last,
 # CUDA tensors raise (ROADMAP.md queue A, "Head dims"). The packed (varlen)
-# kernels, dbias and the fused backward schedules stop at 256
-# (`ops/varlen.py`, `ops/flash_bwd.py`).
+# kernels stop at 256 (`ops/varlen.py`).
 MAX_HEAD_DIM = HEAD_DIMS[-1]
 
 _P, _I, _L, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_uint
@@ -220,6 +219,14 @@ def check_prescaled(q_prescaled: bool, softcap: float, bias) -> None:
         raise ValueError("q_prescaled takes no softcap or attention bias")
 
 
+def check_head_dim(D: int):
+    """Raise unless the attention kernels are built for head dim D."""
+    if D not in HEAD_DIMS:
+        raise ValueError(f"the attention kernels take head_dim in {HEAD_DIMS} (the entry points "
+                         f"zero-pad any head_dim <= {MAX_HEAD_DIM} to one of them; larger ones "
+                         f"wait for a new tiling, ROADMAP.md queue A 'Head dims'), got {D}")
+
+
 def _check_cuda_args(q, k, v, lens=None, vec=4):
     """Raise on BHSD q / k / v (and [B, 2] lens, when given) that the
     attention kernels do not take: `vec`-element vector loads (4 for the
@@ -237,10 +244,7 @@ def _check_cuda_args(q, k, v, lens=None, vec=4):
         raise ValueError(f"bad k/v shapes {tuple(k.shape)} / {tuple(v.shape)} for q {tuple(q.shape)}")
     if Hq % k.shape[1] != 0:
         raise ValueError("num_heads_q must be a multiple of num_heads_kv")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"the attention kernels take head_dim in {HEAD_DIMS} (the entry points "
-                         f"zero-pad any head_dim <= {MAX_HEAD_DIM} to one of them; larger ones "
-                         f"wait for a new tiling, ROADMAP.md queue A 'Head dims'), got {D}")
+    check_head_dim(D)
     if lens is not None and (lens.shape != (B, 2) or lens.dtype != torch.int32
                              or not lens.is_contiguous()):
         raise ValueError("lens must be a contiguous int32 [B, 2] tensor")

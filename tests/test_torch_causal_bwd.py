@@ -97,7 +97,7 @@ def _flags(f):
                      softcap=0.0), **f)
 
 
-@pytest.mark.parametrize("head_dim", [64, 128, 256])
+@pytest.mark.parametrize("head_dim", [64, 128, 256, 384, 512])
 def test_gates_match_jax(head_dim):
     """The strip, split, work-list and tri-square gates and the split leaf
     on a grid of shapes (shifted, long, the boundary Sk * D == 4096 * 128),
@@ -165,11 +165,14 @@ def test_worklist_table_matches_jax_bit_for_bit():
 
 # (Sq, Sk, shift, leaf, group, B, Hkv, head_dim): the Qwen trainer's 2 x 2047,
 # the forced split's leaves of 2048 at S 4096, GQA, ragged last tiles and
-# leaves, D 256's 64-row tiles, a small card-test shape.
+# leaves, D 256's 64-row tiles, a small card-test shape; past D 256 the
+# 32-row tiles: Qwen's widths in heads of 512 at 8 x 511 (the tri-square),
+# the split's leaves of 512 at S 1024, GQA 2 at D 384.
 TRI_SHAPES = [(2047, 2047, 0, 0, 1, 2, 32, 128), (4096, 4096, 0, 2048, 1, 1, 32, 128),
               (512, 512, 0, 0, 4, 2, 2, 128), (1000, 1000, 0, 384, 4, 2, 2, 64),
               (2047, 2047, 0, 0, 1, 1, 8, 256), (300, 300, 0, 0, 1, 2, 8, 128),
-              (1024, 1536, 512, 0, 2, 1, 4, 64)]
+              (1024, 1536, 512, 0, 2, 1, 4, 64), (511, 511, 0, 0, 1, 8, 8, 512),
+              (1024, 1024, 0, 512, 1, 1, 8, 512), (256, 256, 0, 0, 2, 2, 4, 384)]
 
 
 def _wl_schedule(S, sub, block_kv, group=1, window=(-1, -1)):
@@ -198,17 +201,25 @@ def test_tri_partition_holds_every_kv_tile_once(shape):
     assert len(work) == len(spans) * P and sum(work) > 0
 
 
-@pytest.mark.parametrize("schedule", [_wl_schedule(8191, 512, 2048), _wl_schedule(512, 128, None),
-                                      _wl_schedule(1000, 128, 256),
-                                      _wl_schedule(512, 64, 128, window=(200, -1)),
-                                      _wl_schedule(512, 128, None, group=2)])
-def test_wl_partition_holds_every_step_once(schedule):
+# (schedule, head_dim): past D 256 the work list's strips at Qwen's widths
+# cut into heads of 512 (2 x 2047: sub 512, strips of 512) and at D 384, 1 x
+# 4095 (sub 512, strips of 512), the kernels' 32-row tiles.
+WL_PARTITIONS = [(_wl_schedule(8191, 512, 2048), 128), (_wl_schedule(512, 128, None), 128),
+                 (_wl_schedule(1000, 128, 256), 128),
+                 (_wl_schedule(512, 64, 128, window=(200, -1)), 128),
+                 (_wl_schedule(512, 128, None, group=2), 128), (_wl_schedule(2047, 512, 512), 512),
+                 (_wl_schedule(4095, 512, 512), 384)]
+
+
+@pytest.mark.parametrize("schedule,head_dim", WL_PARTITIONS,
+                         ids=[f"schedule{i}" for i in range(len(WL_PARTITIONS))])
+def test_wl_partition_holds_every_step_once(schedule, head_dim):
     """B14's chunks: contiguous step ranges that cover the table once, each
     inside one strip, cut only between rows (a row's steps stay together);
     `firsts` gives each strip's chunks and `cover` its q-row blocks."""
     table, _ = flash_bwd._worklist(*schedule)
     S = schedule[0] * schedule[1]
-    starts, firsts, cover, work = flash_bwd.wl_partition(schedule, S, S, 1, 2, 128,
+    starts, firsts, cover, work = flash_bwd.wl_partition(schedule, S, S, 1, 2, head_dim,
                                                          flash_bwd.H100_SMS)
     assert starts[0] == 0 and starts[-1] == len(table) and np.all(np.diff(starts) > 0)
     rows = [tuple(r) for r in table[:, [4, 0, 1]].tolist()]   # (strip, g, iq)
@@ -244,18 +255,24 @@ def test_partitions_fill_the_card_at_the_qwen_shapes():
     assert max(np.diff(starts)) < 58 / 2
 
 
-@pytest.mark.parametrize("head_dim", [64, 128, 256])
+@pytest.mark.parametrize("head_dim", [64, 128, 256, 384, 512])
 def test_partition_tiles_match_the_kernels(head_dim):
-    """The partitions count in the 16-bit kernels' tiles: FUSED_BQ and
-    fused_kv_tile are MmaCfg's BQ and BKV in csrc/bwd_mma.cuh, and both
-    entry points take them as arguments (they refuse a partition built for
-    other tiles)."""
+    """The partitions count in the 16-bit kernels' tiles: fused_q_tile and
+    fused_kv_tile are FusedKv's BQ and BKV in csrc/bwd_mma.cuh (MmaCfg's
+    defaults), read off its two conditional expressions at this head dim,
+    and both entry points take them as arguments (they refuse a partition
+    built for other tiles)."""
     csrc = pathlib.Path(flash_bwd.__file__).resolve().parent.parent / "csrc"
     cfg = (csrc / "bwd_mma.cuh").read_text()
-    lim, small_d, large_d = map(int, re.search(
-        r"int BKV = D <= (\d+) \? (\d+) : (\d+);", cfg).groups())
-    assert flash_bwd.fused_kv_tile(head_dim) == (small_d if head_dim <= lim else large_d)
-    assert flash_bwd.FUSED_BQ == int(re.search(r"int BQ = (\d+);", cfg)[1])
+    fused = cfg[cfg.index("struct FusedKv {"):]
+    lim, small, large = map(int, re.search(
+        r"int BQ = D <= (\d+) \? (\d+) : (\d+);", fused).groups())
+    assert flash_bwd.fused_q_tile(head_dim) == (small if head_dim <= lim else large)
+    lim1, first, lim2, second, third = map(int, re.search(
+        r"int BKV = D <= (\d+) \? (\d+) : D <= (\d+) \? (\d+) : (\d+);", fused).groups())
+    assert flash_bwd.fused_kv_tile(head_dim) == (
+        first if head_dim <= lim1 else second if head_dim <= lim2 else third)
+    assert "int BKV_ = FusedKv<D_>::BKV" in cfg and "int BQ_ = FusedKv<D_>::BQ>" in cfg
     for name in ("flash_bwd_tri.cu", "flash_bwd_wl.cu"):
         src = (csrc / name).read_text()
         assert "int nparts, int tile_q, int tile_kv," in src
@@ -353,11 +370,12 @@ def jax_recorders(monkeypatch):
 def test_routes_match_jax(jax_recorders):
     """`backward_route` (what `flash_attn_backward` takes) equals the route
     of JAX's real dispatch at the shape JAX's API pads to, for every length,
-    head dim, dtype size, GQA group and flag; then with the kill switches
-    and a forced split (a failing one raises in both)."""
+    head dim (64 to 512), dtype size, GQA group and flag; then with the kill
+    switches and a forced split (a failing one raises in both), at D 128 and
+    past D 256."""
     seen = set()
-    for (Sq, Sk), d, nbytes, group, f in itertools.product(LENGTHS, (64, 128, 256), (2, 4),
-                                                           (1, 4), GATE_FLAGS):
+    for (Sq, Sk), d, nbytes, group, f in itertools.product(LENGTHS, (64, 128, 256, 384, 512),
+                                                           (2, 4), (1, 4), GATE_FLAGS):
         g = _flags(f)
         route = _port_route(Sq, Sk, d, nbytes, group, **g)
         assert route == _jax_route(Sq, Sk, d, nbytes, group, **g), (Sq, Sk, d, nbytes, group, f)
@@ -389,9 +407,32 @@ def test_routes_match_jax(jax_recorders):
         assert _port_route(S, S, 128, 2, group, **g) == _jax_route(S, S, 128, 2, group, **g), \
             (S, group, extra)
     assert _port_route(4095, 4095, 128, 2, 1, **dict(plain, causal_split=True)) == "raises"
+    # Past D 256 (Qwen1.5-7B's widths in heads of 512 among them): JAX's
+    # tri-square at S <= 512 (group 1, and group 2 at S 256, fp32 too), its
+    # work list at 1 x 2047 (D 512) and 1 x 4095 (D 384), the split forced
+    # with leaves of 512 at S 1024 (and its kill switch), a failing forced
+    # split raising.
+    wide = {(255, 512, 2, 1): "tri_square", (511, 384, 2, 1): "tri_square",
+            (256, 512, 2, 2): "tri_square", (256, 384, 4, 1): "tri_square",
+            (2047, 512, 2, 1): "worklist", (4095, 384, 2, 1): "worklist",
+            (2047, 384, 2, 4): "generic"}
+    for (S, d, nbytes, group), want in wide.items():
+        assert _port_route(S, S, d, nbytes, group, **plain) == want == _jax_route(
+            S, S, d, nbytes, group, **plain), (S, d, nbytes, group)
+    for extra, want in ((dict(causal_split=True, split_leaf=512), "split"),
+                        (dict(causal_split=True, split_leaf=100), "raises")):
+        g = dict(plain, **extra)
+        assert _port_route(1024, 1024, 512, 2, 1, **g) == want == _jax_route(
+            1024, 1024, 512, 2, 1, **g), extra
+    jax_recorders.setenv("FA2_DISABLE_WL", "1")
+    assert _port_route(2047, 2047, 512, 2, 1, **plain) == _jax_route(2047, 2047, 512, 2, 1,
+                                                                     **plain) != "worklist"
+    jax_recorders.delenv("FA2_DISABLE_WL")
     jax_recorders.setenv("FA2_DISABLE_SPLIT", "1")
     g = dict(plain, split_leaf=1024)
     assert _port_route(4095, 4095, 128, 2, 1, **g) == _jax_route(4095, 4095, 128, 2, 1, **g)
+    g = dict(plain, split_leaf=512)
+    assert _port_route(1024, 1024, 512, 2, 1, **g) == _jax_route(1024, 1024, 512, 2, 1, **g)
     # A bias, or fused=False, skips every schedule (JAX l.2189).
     assert flash_bwd.backward_route(2047, 2047, 128, 2, causal=True, static_skip=True,
                                     bias="bias") == "generic"

@@ -21,9 +21,9 @@ from fa2_triton_tpu_torch.ops.attention import flash_attn_func  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
-# The head dims past 256 that the dense forward, the dq + dk/dv pair and
-# decode are built for (their 8-warp / 2-warp tilings); the packed kernels,
-# dbias and the fused backward schedules stop at 256.
+# The head dims past 256 that the dense forward, the dq + dk/dv pair, dbias,
+# the fused backward schedules and decode are built for (their own tilings
+# there); the packed kernels stop at 256.
 WIDE = [384, 512]
 
 
@@ -181,17 +181,17 @@ def test_decode_kernel_ignores_nan_past_kv_len(dev):
 
 
 def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(dev):
-    # Head dims: past 512 every entry point; past 256 dbias, the packed
-    # kernels and a forced fused backward schedule (ROADMAP.md queue A).
+    # Head dims: past 512 every entry point (dbias and the forced fused
+    # backward schedules too); past 256 the packed kernels (ROADMAP.md queue A).
     from fa2_triton_tpu_torch.ops import varlen
 
     q = torch.zeros(1, 8, 2, 640, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim 640.*queue A"):
         flash_attn_func(q, q, q, causal=True)
-    qw = torch.zeros(1, 2, 8, 384, device=dev, dtype=torch.bfloat16)
+    qw = torch.zeros(1, 2, 8, 640, device=dev, dtype=torch.bfloat16)
     lens8 = torch.tensor([[8, 8]], dtype=torch.int32, device=dev)
     bias = torch.zeros(1, 2, 8, 8, device=dev)
-    with pytest.raises(ValueError, match="compute_dbias at head_dim 384.*queue A"):
+    with pytest.raises(ValueError, match="head_dim in .*queue A.*got 640"):
         flash_bwd.flash_attn_backward(qw, qw, qw, qw, qw, torch.zeros(1, 2, 8, device=dev), lens8,
                                       0, 0, bias, causal=True, softmax_scale=0.05,
                                       compute_dbias=True)
@@ -199,7 +199,7 @@ def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="head_dim 384 > 256.*queue A"):
         varlen.flash_attn_varlen_func(xp, xp, xp, [0, 128], block_q=128, block_kv=128)
     for route in ("tri_square", "worklist", "split"):
-        with pytest.raises(ValueError, match="queue A"):
+        with pytest.raises(ValueError, match="queue A.*got 640"):
             flash_bwd.flash_attn_backward(qw, qw, qw, qw, qw, torch.zeros(1, 2, 8, device=dev),
                                           lens8, causal=True, softmax_scale=0.05,
                                           static_skip=True, route=route)
@@ -335,10 +335,11 @@ def test_flash_bwd_kernels_match_plain(dev, dtype, D, case):
 
 BIAS_SHAPES = [(1, 1, 200, 200), (2, 1, 200, 200), (1, 8, 200, 200), (2, 8, 200, 200),
                (2, 1, 1, 200)]
-# fp32 takes the FMA dbias kernel, fp16 / bf16 the tensor-core one (its
-# tiles: 64 keys at D 64 / 128, 32 at D 256).
-BIAS_DTYPE_DIMS = [(torch.float32, 64)] + [(dt, D) for dt in (torch.float16, torch.bfloat16)
-                                           for D in (64, 128, 256)]
+# fp32 takes the FMA dbias kernel (its 32 x 16 tiles past D 256), fp16 /
+# bf16 the tensor-core one (its tiles: 64 keys at D 64 / 128, 32 past, with
+# one buffer of the step's tiles past D 256).
+BIAS_DTYPE_DIMS = [(torch.float32, D) for D in [64] + WIDE] + [
+    (dt, D) for dt in (torch.float16, torch.bfloat16) for D in [64, 128, 256] + WIDE]
 
 
 @pytest.mark.parametrize("dtype,D", BIAS_DTYPE_DIMS)
@@ -389,7 +390,7 @@ def _live(lens, q_off, kv_off, Sq, Sk, kw, bias_batch, dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128, 256] + WIDE)
 @pytest.mark.parametrize("case", range(len(DBIAS_CASES)))
 def test_dbias_kernel_cases_match_plain(dev, dtype, D, case):
     """The tensor-core dbias kernel under GQA, masks, softcap and offsets
@@ -426,7 +427,7 @@ def test_dbias_kernel_cases_match_plain(dev, dtype, D, case):
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128, 256] + WIDE)
 def test_dbias_kernel_ignores_nan_padding(dev, dtype, D):
     """NaN in the rows past q_len / kv_len of q, k, v and do, and in every
     bias element that no batch row keeps: all four gradients (dbias of a
@@ -1626,7 +1627,7 @@ def _sched_bwd_run(case, dev, dtype, D, dropout_p):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128, 256] + WIDE)
 @pytest.mark.parametrize("case", list(SCHED_BWD_CASES))
 @pytest.mark.parametrize("dropout_p", [0.0, 0.2])
 def test_causal_bwd_schedule_kernels_match_plain(dev, dtype, D, case, dropout_p):
@@ -1679,15 +1680,16 @@ def test_causal_bwd_schedule_kernels_ignore_nan_padding(dev):
 
 
 
+@pytest.mark.parametrize("D", [128, 512])
 @pytest.mark.parametrize("tile", ["q", "kv"])
-def test_causal_bwd_kernels_refuse_a_partition_of_other_tiles(dev, monkeypatch, tile):
+def test_causal_bwd_kernels_refuse_a_partition_of_other_tiles(dev, monkeypatch, tile, D):
     """The 16-bit tri-square and work list take the tile rows the host
     partition was built for and raise when they are not the kernels' own
-    (MmaCfg's BQ / BKV), rather than skip or repeat tiles. Each runs once
+    (FusedKv's BQ / BKV), rather than skip or repeat tiles. Each runs once
     with the host's tiles first, which also caches its partition."""
-    x32, do32, dl32, lens = _sched_bwd_inputs(dev, 128, 8, 5)
+    x32, do32, dl32, lens = _sched_bwd_inputs(dev, D, 8, 5)
     x = [t.to(torch.bfloat16) for t in x32] + [do32.to(torch.bfloat16)]
-    kw = dict(softmax_scale=128 ** -0.5)
+    kw = dict(softmax_scale=D ** -0.5)
     o, lse = flash_fwd.flash_attn_forward(*x[:3], lens, causal=True, **kw)
     runs = (lambda: flash_bwd.flash_attn_backward_tri_square(*x, o, lse, lens, **kw),
             lambda: flash_bwd.flash_attn_backward_fused_wl(*x, o, lse, lens, sub=64,
@@ -1695,10 +1697,8 @@ def test_causal_bwd_kernels_refuse_a_partition_of_other_tiles(dev, monkeypatch, 
     for run in runs:
         run()
     torch.cuda.synchronize()
-    if tile == "q":
-        monkeypatch.setattr(flash_bwd, "FUSED_BQ", flash_bwd.FUSED_BQ // 2)
-    else:
-        monkeypatch.setattr(flash_bwd, "fused_kv_tile", lambda head_dim: 64)
+    real = getattr(flash_bwd, f"fused_{tile}_tile")
+    monkeypatch.setattr(flash_bwd, f"fused_{tile}_tile", lambda head_dim: 2 * real(head_dim))
     for run in runs:
         with pytest.raises(RuntimeError, match="launch"):
             run()
@@ -2499,25 +2499,27 @@ def test_wide_head_dims_off_the_kernel_widths_are_padded(dev, D):
 
 
 @pytest.mark.parametrize("D", WIDE)
-def test_wide_head_dims_take_the_pair_where_jax_takes_a_fused_schedule(dev, prior_routes, D):
-    """Causal bf16 S 256: JAX's gates send the backward to the tri-square,
-    which stops at D 256, so the port runs the dq + dk/dv pair (the same
-    gradients, another schedule; the forward's tri-square is the generic
-    kernel there too); the FA rules against the fp32 plain twins."""
-    g = torch.Generator(device=dev).manual_seed(D)
-    S = 256
-    x32 = [torch.randn(2, S, h, D, generator=g, device=dev) * 0.5 for h in (8, 2, 2)]
+@pytest.mark.parametrize("S,Hkv,route", [(256, 4, "tri_square"), (2047, 8, "worklist")])
+def test_wide_head_dims_take_jax_fused_schedule(dev, prior_routes, D, S, Hkv, route):
+    """The public call, bf16, B 2 x 8 query heads: at S 256 with GQA 2 JAX's
+    gates send the backward to the tri-square, at 2047 with MHA to the work
+    list, and past D 256 the card now takes that fused schedule too (one
+    launch of it, none of the dq + dk/dv pair; the forward's route is the
+    generic kernel or its strip); the FA rules against the fp32 plain twins."""
+    g = torch.Generator(device=dev).manual_seed(D + S)
+    x32 = [torch.randn(2, S, h, D, generator=g, device=dev) * 0.5 for h in (8, Hkv, Hkv)]
     do32 = torch.randn(2, S, 8, D, generator=g, device=dev)
-    assert flash_bwd.backward_route(S, S, D, 2, causal=True, group=4, static_skip=True) == "generic"
+    assert flash_bwd.backward_route(S, S, D, 2, causal=True, group=8 // Hkv,
+                                    static_skip=True) == route
     leaves = [x.to(torch.bfloat16).requires_grad_() for x in x32]
     flash_fwd.reset_launches()
     flash_bwd.reset_launches()
     out = flash_attn_func(*leaves, causal=True)
     out.backward(do32.to(torch.bfloat16))
     torch.cuda.synchronize()
-    assert flash_fwd.LAUNCHES == 1 and not any(flash_fwd.SCHEDULE_LAUNCHES.values())
-    assert flash_bwd.LAUNCHES["flash_bwd_dq"] == 1 and flash_bwd.LAUNCHES["flash_bwd_dkdv"] == 1
-    assert not any(flash_bwd.SCHEDULE_LAUNCHES.values())
+    assert flash_fwd.LAUNCHES + sum(flash_fwd.SCHEDULE_LAUNCHES.values()) == 1
+    assert not any(flash_bwd.LAUNCHES.values())
+    assert {n: c for n, c in flash_bwd.SCHEDULE_LAUNCHES.items() if c} == {route: 1}
     t = lambda x: x.transpose(1, 2)
     lens = torch.tensor([[S, S]] * 2, dtype=torch.int32, device=dev)
     kw = dict(causal=True, softmax_scale=D ** -0.5)
@@ -2530,6 +2532,59 @@ def test_wide_head_dims_take_the_pair_where_jax_takes_a_fused_schedule(dev, prio
                                                  lens, **kw)
     _check(t(out.detach()), o32, o_pl, torch.bfloat16)
     _check_grads([t(x.grad) for x in leaves], refs, plains, torch.bfloat16)
+
+
+@pytest.mark.parametrize("D", WIDE)
+def test_wide_fused_schedules_and_dbias_are_bitwise_repeatable(dev, D):
+    """5 runs each of the tri-square, the diag leaves, the work list (two
+    strips) and dbias past D 256, bf16 with dropout: identical gradients (no
+    atomics; fixed partitions and summation orders)."""
+    drop = dict(softmax_scale=D ** -0.5, dropout_p=0.1, dropout_seed=D)
+    x32, do32, dl32, lens = _sched_bwd_inputs(dev, D, 8, D, S=1000)   # MHA: the strips' dq
+    x = [t.to(torch.bfloat16) for t in x32] + [do32.to(torch.bfloat16)]
+    o, lse = flash_fwd.flash_attn_forward(*x[:3], lens, causal=True, **drop)
+    bias = torch.randn(1, 8, 1000, 1000, device=dev).to(torch.bfloat16)
+    ob, lseb = flash_fwd.flash_attn_forward(*x[:3], lens, 0, 0, bias, causal=True, **drop)
+    calls = {"tri_square": lambda: _tri(flash_bwd, *x, o, lse, lens, dl32, **drop),
+             "diag": lambda: _diag(flash_bwd, *x, o, lse, lens, dl32, T=256, **drop),
+             "worklist": lambda: flash_bwd.flash_attn_backward_fused_wl(
+                 *x, o, lse, lens, dlse=dl32, sub=256, block_kv=512, **drop),
+             "dbias": lambda: flash_bwd.flash_attn_backward(
+                 *x, ob, lseb, lens, 0, 0, bias, causal=True, compute_dbias=True, **drop)}
+    for name, call in calls.items():
+        runs = [call() for _ in range(5)]
+        torch.cuda.synchronize()
+        for run in runs[1:]:
+            for a, b in zip(run, runs[0]):
+                assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("D", WIDE)
+@pytest.mark.parametrize("bias_b", [1, 2])
+def test_wide_dbias_with_dropout_matches_plain(dev, dtype, D, bias_b):
+    """dbias past D 256 with dropout, a [1, 8, S, S] and a [2, 1, S, S] bias
+    (summed over the batch, and over the q heads of a GQA 4 call): one dbias
+    launch, the FA gradient contract against the fp32 plain twin (fp32
+    within 1e-4 x (1 + max |grad|))."""
+    (q32, k32, v32, do32), lens, _, kw = _bwd_inputs(dev, dict(), D, D + bias_b)
+    kw.update(dropout_p=0.1, dropout_seed=D + bias_b)
+    shape = (1, 8, 200, 200) if bias_b == 1 else (2, 1, 200, 200)
+    b32 = torch.randn(*shape, generator=torch.Generator(device=dev).manual_seed(D), device=dev)
+    o32, lse32 = flash_fwd.flash_attn_forward_plain(q32, k32, v32, lens, 0, 0, b32, **kw)
+    refs = flash_bwd.flash_attn_backward_plain(q32, k32, v32, do32, o32, lse32, lens, 0, 0, b32,
+                                               compute_dbias=True, **kw)
+    q, k, v, do, bias = (x.to(dtype) for x in (q32, k32, v32, do32, b32))
+    o, lse = flash_fwd.flash_attn_forward(q, k, v, lens, 0, 0, bias, **kw)
+    before = flash_bwd.LAUNCHES["flash_bwd_dbias"]
+    grads = flash_bwd.flash_attn_backward(q, k, v, do, o, lse, lens, 0, 0, bias,
+                                          compute_dbias=True, **kw)
+    assert flash_bwd.LAUNCHES["flash_bwd_dbias"] == before + 1
+    plains = flash_bwd.flash_attn_backward_plain(q, k, v, do, o, lse, lens, 0, 0, bias,
+                                                 compute_dbias=True, **kw)
+    torch.cuda.synchronize()
+    assert grads[3].shape == shape and torch.isfinite(grads[3]).all()
+    _check_grads(grads, refs, plains, dtype)
 
 
 @pytest.mark.parametrize("head_dim", [16, 96, 384])

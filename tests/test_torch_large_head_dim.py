@@ -13,9 +13,9 @@ mode, on the same numpy-seeded inputs:
   0.1, the counter-hash mask bitwise on both sides) and a D 300 case;
 * `pad_head_dim` / `kernel_head_dim`: the mapping, and the per-family
   limit (CUDA tensors past it raise, CPU tensors take any D);
-* the routes: `backward_route` never takes the tri-square, split or work
-  list past D 256 (their kernels stop there), and forcing one raises;
-  `forward_route` equals JAX's gates;
+* the routes: `backward_route` equals the route of JAX's real dispatch
+  (the tri-square, the split and the work list among them: their kernels
+  are built for D 384 / 512), and `forward_route` JAX's gates;
 * a 2-layer model at head_dim 384 (dim 64, 2 / 1 heads): the JAX Engine and
   the port's serve the same prompts, contiguous and paged (greedy tokens
   equal, log-probs within 1e-4), and `loss_fn` and its gradients match
@@ -30,7 +30,9 @@ import pytest
 
 import fa2_triton_tpu as jfa
 from fa2_triton_tpu.models import llama as jl
+from fa2_triton_tpu.ops import flash_bwd as jb
 from fa2_triton_tpu.ops import flash_fwd as jf
+from fa2_triton_tpu.ops import tuning as jtuning
 from fa2_triton_tpu.ops.tuning import choose_block_sizes
 from fa2_triton_tpu.runtime import Engine as JaxEngine
 from fa2_triton_tpu.utils import round_up_to_multiple
@@ -130,31 +132,75 @@ SHAPES = [(256, 256), (1000, 1000), (1024, 1024), (2047, 2047), (2048, 2048), (4
           (8191, 8191), (1024, 2048)]
 
 
-@pytest.mark.parametrize("D", [384, 512])
-def test_routes_past_256(D, monkeypatch):
-    """The forward takes JAX's route at every shape (its kernel is built for
-    D 384 / 512, so every forward schedule is open); the backward never the
-    tri-square, the split or the work list, whose kernels stop at 256, and
-    forcing one of them (by name or `causal_split`) raises ValueError."""
+class _Routed(Exception):
+    pass
+
+
+def _jax_backward_route(Sq, Sk, head_dim, nbytes, group, **kw):
+    """The schedule of JAX's real `flash_attn_backward` dispatch for a plain
+    causal static-shift call, on zero-stride stand-ins of the arrays its API
+    pads to, its schedule entry points stubbed to record the route (the
+    `_recording` fixture); "raises" for a forced split whose gate fails."""
+    Dp = round_up_to_multiple(head_dim, 128)
+    b = choose_block_sizes(Sq, Sk, Dp, dtype_bits=8 * nbytes, causal=True)
+    Sp = round_up_to_multiple(Sq, max(b.block_q, b.block_q_bwd))
+    Skp = round_up_to_multiple(Sk, max(b.block_kv, b.block_kv_bwd))
+    dt = jnp.bfloat16 if nbytes == 2 else jnp.float32
+    q, k = (np.broadcast_to(np.zeros((), dt), (1, h, s, Dp)) for h, s in ((group, Sp), (1, Skp)))
+    try:
+        jb.flash_attn_backward(q, k, k, q, q, None, None, None, None, causal=True,
+                               softmax_scale=0.1, seqlen_q_real=Sq, seqlen_k_real=Sk,
+                               static_skip=True, **kw)
+    except _Routed as r:
+        return r.args[0]
+    except AssertionError:
+        return "raises"
+    raise AssertionError("JAX's dispatch reached no recorder")
+
+
+@pytest.fixture
+def _recording(monkeypatch):
     monkeypatch.setenv("FA2_DISABLE_TUNING_TABLE", "1")
-    seen = set()
+
+    def recorder(route):
+        def record(*args, **kwargs):
+            raise _Routed(route)
+        return record
+    for name, route in (("flash_attn_backward_tri_square", "tri_square"),
+                        ("_causal_split_backward", "split"),
+                        ("flash_attn_backward_causal_strip", "strip"),
+                        ("flash_attn_backward_fused_wl", "worklist")):
+        monkeypatch.setattr(jb, name, recorder(route))
+    monkeypatch.setattr(jtuning, "choose_fused_bwd", recorder("generic"))
+
+
+@pytest.mark.parametrize("D", [384, 512])
+def test_routes_past_256(D, _recording):
+    """Every kernel is built for D 384 / 512, so both directions take JAX's
+    route at every shape: the forward's gates, and the backward's real
+    dispatch (MHA and GQA 4, bf16 and fp32, with no leaf, a leaf alone and
+    the split forced), which reaches the tri-square, the split and the work
+    list here; a forced split whose gate fails raises in both."""
+    seen, bwd_seen = set(), set()
     for (Sq, Sk), nbytes in itertools.product(SHAPES, (2, 4)):
         fwd = flash_fwd.forward_route(Sq, Sk, D, nbytes, causal=True, static_skip=True)
         assert fwd == _jax_forward_route(Sq, Sk, D, nbytes), (Sq, Sk, nbytes)
         seen.add(fwd)
-        for group in (1, 4):
-            for leaf in (None, 512, 1024):
+        for group, leaf, split in itertools.product((1, 4), (None, 512, 1024), (None, True)):
+            kw = dict(split_leaf=leaf, causal_split=split)
+            try:
                 route = flash_bwd.backward_route(Sq, Sk, D, nbytes, causal=True, group=group,
-                                                 static_skip=True, split_leaf=leaf)
-                assert route in ("strip", "generic"), (Sq, Sk, nbytes, group, leaf, route)
+                                                 static_skip=True, **kw)
+            except ValueError:
+                route = "raises"
+            assert route == _jax_backward_route(Sq, Sk, D, nbytes, group, **kw), (
+                Sq, Sk, nbytes, group, kw)
+            bwd_seen.add(route)
     assert "tri_square" in seen and "generic" in seen   # S 256 and the long shapes
-    for route in ("tri_square", "split", "worklist"):
-        with pytest.raises(ValueError, match="ROADMAP.md"):
-            flash_bwd.backward_route(256, 256, D, 2, causal=True, static_skip=True, route=route)
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        flash_bwd.backward_route(4096, 4096, D, 2, causal=True, static_skip=True,
-                                 causal_split=True, split_leaf=1024)
-    assert flash_bwd.backward_route(256, 256, 256, 2, causal=True, static_skip=True) == "tri_square"
+    assert {"tri_square", "split", "worklist", "raises"} <= bwd_seen, bwd_seen
+    for S, route in ((256, "tri_square"), (2048, "worklist")):
+        assert flash_bwd.backward_route(S, S, D, 2, causal=True, static_skip=True,
+                                        route=route) == route
 
 
 # --------------------------- the model at head_dim 384 ---------------------------
