@@ -7,16 +7,16 @@ Run from the root of a checkout on a machine with an NVIDIA Hopper card and
 the CUDA toolkit. Phases (any failure raises, and the script exits nonzero):
 
 1. Build the CUDA kernels from `fa2_triton_tpu_torch/csrc/` with nvcc for
-   sm_90a (ptxas register / shared-memory report printed). Then a line per
-   16-bit instantiation of the tensor-core kernels (the forward and the dq
-   + dk/dv pair, with and without bias / softcap; dbias; the tri-square / diag and
-   work-list backward; the packed forward, dq and dk/dv; bf16 and fp16,
-   D 64 / 128 / 256, all but the packed kernels at D 384 / 512 too, with
-   and without dropout): ptxas registers and spills, and the HMMA
-   instructions in its SASS (cuobjdump -sass of the built library); it
-   fails where one has no tensor-core instruction, a bf16 D 128 one of the
-   trainers' spills, any one at D 384 / 512 spills, or any packed forward
-   spills.
+   sm_90a (ptxas register / shared-memory report printed), and start
+   cuobjdump -sass of the built library in the background. Before phase 8
+   (while the card ran phases 1-7, the dump was read), a line per 16-bit
+   instantiation of the tensor-core kernels (the forward and the dq + dk/dv
+   pair, with and without bias / softcap; dbias; the tri-square / diag and
+   work-list backward; the packed forward, dq and dk/dv; bf16 and fp16, D
+   64 / 128 / 256 / 384 / 512, with and without dropout): ptxas registers
+   and spills, and the HMMA instructions in its SASS; it fails where one
+   has no tensor-core instruction, a bf16 D 128 one of the trainers'
+   spills, any one at D 384 / 512 spills, or any packed forward spills.
 2. Hold each kernel against its plain PyTorch twin at the serving slice's
    shapes, in bf16 and fp32, and time both with CUDA events. The decode
    kernel also runs over int8 and fp8 caches (B5 quant) and over shuffled
@@ -307,6 +307,24 @@ the CUDA toolkit. Phases (any failure raises, and the script exits nonzero):
    preset's full depth, the launches held to the route. The B4, B13, B13 diag, B13 rect and B14
    entries of the kernels line carry (a)'s launches (`launches_wide_384` /
    `_512`), (c)'s (`launches_wide_train`) and (b)'s numbers (`wide_512`).
+22. The packed kernels (B7, B8) at head dims 384 and 512, 8 query / 2 KV
+   heads, causal: (a) at each D, through the launchers, the forward, dq
+   and dk/dv against their plain twins in bf16, fp16 and fp32 (FA rules;
+   fp32 within 1e-4), on ragged documents with NaN in the packed gaps,
+   with dropout, and block-sparse with a filtered row and kv block, one
+   launch of each a call, dead positions exactly 0; (b) phase 8's
+   documents (T 14592) at Mistral-7B-v0.3's attention widths in heads of
+   384 and of 512, and phase 9's block-sparse 2 x 4096 at 512, through
+   `flash_attn_varlen_func` / `flash_attn_blocksparse_func` forward +
+   backward with the launch counts reset just before (one launch of each
+   kernel), checked against the fp32 / bf16 plain twins, then each
+   kernel's device ms, the calls', the plain twins' and the library's
+   (SDPA's memory-efficient kernel with cu_seqlens; flex_attention, or the
+   reason it refuses, for block-sparse), and its bound. The B7 / B8
+   entries carry the head dims, (b)'s launches (`launches_wide_384` /
+   `_512`, `launches_wide_blocksparse_512`), (a)'s (`launches_wide_checks`)
+   and (b)'s numbers (`wide_384`, `wide_512`, `wide_blocksparse_512`; the
+   dropout entries (b)'s documents at D 512 with dropout, `wide_512`).
 
 Every kernel is also timed against PyTorch's own call for the same function
 (`library_ms`, where one exists) and its bound on the H100 (`bound_ms`: the
@@ -334,6 +352,7 @@ import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -2692,11 +2711,11 @@ def time_packed_kernels(torch, inputs, do, seg, keep_block, **drop):
     return t
 
 
-def varlen_entries(t, errs, lib, pairs, tokens):
+def varlen_entries(t, errs, lib, pairs, tokens, Hq=32, Hkv=8, D=128):
     """The kernels-line entries of the three varlen kernels, each with its
     share of the bound and its time over the library's (the whole backward
-    for dq and dk/dv)."""
-    b = lambda kernel: attn_bound(kernel, pairs, tokens, 32, 8, 128, 2)
+    for dq and dk/dv; None where the library has no time)."""
+    b = lambda kernel: attn_bound(kernel, pairs, tokens, Hq, Hkv, D, 2)
     out = {
         "varlen_fwd": {"max_abs_err": errs["o"], "plain_ms": t["plain fwd"],
                        "library_ms": lib["fwd"], **b("fwd")},
@@ -2709,7 +2728,7 @@ def varlen_entries(t, errs, lib, pairs, tokens):
         e["ms"] = ms = t[VARLEN_KERNEL_NAMES[name]]
         e["kernel"] = VARLEN_KERNEL_NAMES[name]
         e["bound_share"] = e["bound_ms"] / ms
-        e["over_library"] = ms / e["library_ms"]
+        e["over_library"] = ms / e["library_ms"] if e["library_ms"] else None
     return out
 
 
@@ -3979,19 +3998,45 @@ def ptxas_table(report: str) -> dict:
             if mma_instance(n)}
 
 
+# The background cuobjdump -sass of the built library: (process, its
+# output file, start time), started by start_sass.
+_SASS_RUN = {}
+
+
+def start_sass(lib_path) -> None:
+    """Start cuobjdump -sass on the built library in the background, its
+    output to a file beside the library, so that the card runs phases 1-7
+    while it reads (some 90 s on the H100's host when run in line after
+    the build)."""
+    from fa2_triton_tpu_torch.ops import _build
+
+    lib_path = Path(lib_path)
+    if lib_path in _SASS_RUN:
+        return
+    tool = _build.find_cuobjdump()
+    if tool is None:
+        raise AssertionError("no cuobjdump beside nvcc or in Triton's package")
+    out = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.sass")
+    with open(out, "w") as fh:
+        proc = subprocess.Popen([tool, "-sass", str(lib_path)], stdout=fh,
+                                stderr=subprocess.DEVNULL)
+    _SASS_RUN[lib_path] = (proc, out, time.perf_counter())
+
+
 @functools.lru_cache(maxsize=1)
 def sass_hmma(lib_path) -> dict:
     """{mangled kernel name: HMMA instructions} in the SASS of the built
     library: one cuobjdump -sass for the tensor-core and the decode reports
-    (two took some 100 s more of the smoke's build)."""
-    from fa2_triton_tpu_torch.ops import _build
-
-    tool = _build.find_cuobjdump()
-    if tool is None:
-        raise AssertionError("no cuobjdump beside nvcc or in Triton's package")
-    t0 = time.perf_counter()
-    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
-                          check=True).stdout
+    (two took some 100 s more of the smoke's build), started by start_sass
+    (here if it was not) and waited for."""
+    lib_path = Path(lib_path)
+    start_sass(lib_path)
+    proc, out, t0 = _SASS_RUN.pop(lib_path)
+    t_wait = time.perf_counter()
+    if proc.wait() != 0:
+        raise AssertionError(f"cuobjdump -sass failed ({proc.returncode})")
+    sass = out.read_text()
+    out.unlink()
     counts, cur = {}, None
     for line in sass.splitlines():
         if "Function : " in line:
@@ -3999,8 +4044,8 @@ def sass_hmma(lib_path) -> dict:
             counts[cur] = 0
         elif cur is not None and "HMMA" in line:
             counts[cur] += 1
-    print(f"[build] cuobjdump -sass and its HMMA count: {time.perf_counter() - t0:.1f} s, "
-          f"{len(counts)} kernels")
+    print(f"[build] cuobjdump -sass and its HMMA count: {time.perf_counter() - t0:.1f} s since "
+          f"its start, {time.perf_counter() - t_wait:.1f} s waited for, {len(counts)} kernels")
     return counts
 
 
@@ -4013,8 +4058,8 @@ def hmma_counts(lib_path) -> dict:
 def mma_build_report() -> dict:
     """Registers, spills and tensor-core instructions of every 16-bit
     instantiation of the two fused backward kernels, the forward, the dq
-    + dk/dv pair and dbias (bf16 / fp16 x D 64 / 128 / 256 x dropout, and at
-    D 384 / 512 too but for the packed kernels; for the forward and the pair
+    + dk/dv pair, dbias and the packed kernels (bf16 / fp16 x D 64 / 128 /
+    256 / 384 / 512 x dropout; for the forward and the pair
     with and without bias / softcap, for the forward also the split's merge;
     the packed forward, dq and dk/dv); fails where one has no HMMA, or a
     bf16 D 128 one of the trainers' (the Qwen and Mistral shapes': no bias,
@@ -4029,7 +4074,7 @@ def mma_build_report() -> dict:
     for kernel in MMA_KERNELS:
         flags = (FWD_FLAGS if kernel == "flash_fwd_mma_kernel" else
                  ((False, False), (True, False)) if kernel in MMA_EXTRA else ((False, False),))
-        dims = (64, 128, 256) + (() if kernel.startswith("varlen") else WIDE_DIMS)
+        dims = (64, 128, 256) + WIDE_DIMS
         for dt, D, drop, (extra, merge) in itertools.product(("bf16", "fp16"), dims,
                                                              (False, True), flags):
             inst = (kernel, dt, D, drop, extra, merge)
@@ -6708,6 +6753,330 @@ def phase_wide_schedules(torch, card):
             "seconds": seconds}
 
 
+# Phase 22: the packed kernels (B7, B8) at head dims 384 and 512.
+WIDE_PACKED_LENS = (300, 1, 128, 77)        # (a): ragged, length 1, a block multiple
+# (a)'s blocks: rectangular both ways, so that the 32-row halves of a 64-row
+# host tile (the 16-bit dk/dv blocks, the fp32 blocks) sit at both ends of
+# a user block.
+WIDE_PACKED_BLOCKS = {384: (128, 64), 512: (64, 128)}
+# (a)'s block mask over one 512-token segment (blocks of 128): q block 2
+# keeps no kv block and no q block keeps kv block 1.
+WIDE_PACKED_MASK = np.array([[1, 0, 0, 0], [1, 0, 0, 0], [0, 0, 0, 0], [1, 0, 1, 1]], bool)
+
+
+def packed_starts(lens, align):
+    """(segment starts, T) of documents of `lens` packed back to back at
+    starts aligned to `align` (`pack_padded_batch`'s layout)."""
+    starts = [0]
+    for n in lens:
+        starts.append(starts[-1] + -(-max(n, 1) // align) * align)
+    return starts[:-1], starts[-1]
+
+
+def wide_packed_case(torch, what, D, dtype, lens, blocks, keep_block=None, seed=0, **drop):
+    """(a): one forward + backward through the launchers at head dim D, 8 /
+    2 heads, causal, with NaN in the gaps of the packed stream: one launch
+    of each kernel, o / lse / gradients against the fp32 plain twin (fp32
+    within FP32_TOL and FP32_GRAD_RTOL, 16-bit the FA rules against the
+    16-bit plain twin's error), dead positions exactly 0. Returns the
+    largest error."""
+    from fa2_triton_tpu_torch.ops import varlen
+
+    dev = torch.device("cuda")
+    Hq, Hkv = WIDE_HEADS
+    starts, T = packed_starts(lens, max(blocks))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x32 = [(torch.randn(1, T, h, D, generator=gen, device=dev) * sd).transpose(1, 2)
+           for h, sd in ((Hq, 0.5), (Hkv, 0.5), (Hkv, 0.5), (Hq, 1.0))]
+    live = torch.zeros(T, dtype=torch.bool, device=dev)
+    for s0, n in zip(starts, lens):
+        live[s0:s0 + n] = True
+    kw = dict(causal=True, softmax_scale=D ** -0.5, block_q=blocks[0], block_kv=blocks[1],
+              keep_block=keep_block, **drop)
+    args = (starts, lens, lens)
+    o32, lse32 = varlen.flash_attn_varlen_forward_plain(*x32[:3], *args, **kw)
+    refs = varlen.flash_attn_varlen_backward_plain(*x32, o32, lse32, *args, **kw)
+    x = [a.to(dtype) for a in x32]
+    for a in x:
+        a[:, :, ~live] = float("nan")
+    varlen.reset_launches()
+    o, lse = varlen.flash_attn_varlen_forward(*x[:3], *args, **kw)
+    grads = varlen.flash_attn_varlen_backward(*x[:3], x[3], o, lse, *args, **kw)
+    torch.cuda.synchronize()
+    if varlen.LAUNCHES != {"varlen_fwd": 1, "varlen_dq": 1, "varlen_dkdv": 1}:
+        raise AssertionError(f"D {D} {what}: launches {varlen.LAUNCHES}")
+    label = f"wide packed D {D} {what} {str(dtype)[6:]}"
+    fp32 = dtype == torch.float32
+    if fp32:
+        o_pl, lse_pl = o32, lse32
+        errs = [check_fp32_grad(torch, n, g, r, label) for n, g, r in zip(BWD_NAMES, grads, refs)]
+    else:
+        o_pl, lse_pl = varlen.flash_attn_varlen_forward_plain(*x[:3], *args, **kw)
+        plains = varlen.flash_attn_varlen_backward_plain(*x[:3], x[3], o_pl, lse_pl, *args, **kw)
+        errs = [check_grad(torch, n, g, r, pl, label)[0]
+                for n, g, r, pl in zip(BWD_NAMES, grads, refs, plains)]
+    errs.append(fa_check(torch, f"{label} o", o, o32, o_pl, fp32=fp32))
+    check_lse(torch, lse, lse_pl, label)
+    dead_o = o[:, :, ~live].any() or not torch.all(lse[:, :, ~live] == float("-inf"))
+    if dead_o or any(g[:, :, ~live].any() or not torch.isfinite(g).all() for g in grads):
+        raise AssertionError(f"{label}: a dead position holds a nonzero value, or NaN leaked")
+    return max(errs)
+
+
+def wide_packed_checks(torch):
+    """(a): at D 384 and 512, in bf16, fp16 and fp32, the packed kernels on
+    WIDE_PACKED_LENS (causal), with dropout, and block-sparse over two
+    segments with WIDE_PACKED_MASK, each against its plain twin. Returns
+    {D: launches} and the worst 16-bit error."""
+    from fa2_triton_tpu_torch.ops import varlen
+
+    keep = varlen._mask_keep_fn(varlen.encode_block_mask(WIDE_PACKED_MASK))
+    worst, launches = 0.0, {}
+    for D in WIDE_DIMS:
+        runs = 0
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
+            cases = (("varlen", WIDE_PACKED_LENS, WIDE_PACKED_BLOCKS[D], None, {}),
+                     ("varlen dropout", WIDE_PACKED_LENS, WIDE_PACKED_BLOCKS[D], None,
+                      dict(dropout_p=DROPOUT_P, dropout_seed=DROPOUT_SEED + D)),
+                     ("blocksparse", (512, 400), (128, 128), keep, {}))
+            for i, (what, lens, blocks, kb, drop) in enumerate(cases):
+                err = wide_packed_case(torch, what, D, dtype, lens, blocks, kb, seed=D + i, **drop)
+                if dtype != torch.float32:
+                    worst = max(worst, err)
+                runs += 1
+        launches[D] = dict.fromkeys(VARLEN_KERNEL_NAMES, runs)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[wide packed] D {list(WIDE_DIMS)}: forward, dq and dk/dv (bf16 / fp16 / fp32; "
+          f"varlen {WIDE_PACKED_LENS} at blocks {WIDE_PACKED_BLOCKS}, with dropout p "
+          f"{DROPOUT_P}, block-sparse with a filtered row and kv block; NaN in the gaps): one "
+          f"launch each a call, within the FA contract (worst 16-bit error {worst:.3e}), dead "
+          f"positions exactly 0")
+    return launches, worst
+
+
+def library_efficient(torch, q, k, v, lens, scale, dropout_p=0.0):
+    """SDPA's memory-efficient kernel (`aten._efficient_attention_forward`
+    / `_backward`, the only PyTorch attention that takes D 512) with
+    `cu_seqlens`, causal, on tight-packed bf16 rows [1, sum(lens), H, D], k
+    and v already expanded to q's heads: the yardstick, called nowhere in the
+    port. With `dropout_p` it draws its own Philox mask (a timing yardstick
+    only). Returns (forward call, its output, backward call given do), or
+    (None, the reason it refused, None)."""
+    cu = torch.tensor(np.cumsum([0, *lens]), dtype=torch.int32, device=q.device)
+    n = max(lens)
+
+    def fwd():
+        return torch.ops.aten._efficient_attention_forward(q, k, v, None, cu, cu, n, n, dropout_p,
+                                                           1, True, scale=scale)
+    try:
+        out = fwd()
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        return None, f"_efficient_attention_forward: {str(e).splitlines()[0][:160]}", None
+
+    def bwd(do):
+        o, lse, seed, offset = out[:4]
+        return lambda: torch.ops.aten._efficient_attention_backward(
+            do, q, k, v, None, o, cu, cu, n, n, lse, dropout_p, seed, offset, 1, False,
+            scale=scale)
+    return fwd, out[0], bwd
+
+
+def flex_blocksparse(torch, x, mask_mod, S, blk, D, truth, errs):
+    """flex_attention (compiled) with the block mask, the block-sparse
+    yardstick: its output and gradients held against the fp32 truth like
+    check_library, then (forward ms, backward ms, how), or (None, None, the
+    reason it refused)."""
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    B = x[0].shape[0]
+    try:
+        block_mask = create_block_mask(mask_mod, None, None, S, S, device="cuda", BLOCK_SIZE=blk)
+        flex = torch.compile(flex_attention, dynamic=False)
+        qh, kh, vh = (a.detach().transpose(1, 2).contiguous().requires_grad_() for a in x[:3])
+        doh = x[3].transpose(1, 2).contiguous()
+        t0 = time.perf_counter()
+        out = flex(qh, kh, vh, block_mask=block_mask, scale=D ** -0.5, enable_gqa=True)
+        grads = torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True)
+        torch.cuda.synchronize()
+    except Exception as e:   # a refusal of the compiler or the kernel: the reason is the result
+        return None, None, f"flex_attention: {type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    compile_s = time.perf_counter() - t0
+    flat = lambda a: a.transpose(1, 2).reshape(1, B * S, a.shape[1], D).transpose(1, 2)
+    check_library(torch, "wide blocksparse fwd", flat(out), truth[0], errs["o plain"])
+    for name, g, r in zip(BWD_NAMES, grads, truth[1]):
+        check_library(torch, f"wide blocksparse {name}", flat(g), r, errs[name + " plain"])
+    with torch.no_grad():
+        fms = cuda_ms(torch, lambda: flex(qh, kh, vh, block_mask=block_mask, scale=D ** -0.5,
+                                          enable_gqa=True), iters=5)
+    bms = cuda_ms(torch, lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True),
+                  iters=5)
+    return fms, bms, f"flex_attention with the block mask, compiled in {compile_s:.1f} s"
+
+
+def wide_packed_dropout_times(torch, card, inputs, do, seg, tight_rows, pairs, tokens):
+    """(b)'s documents at D 512 with dropout (p DROPOUT_P; (a) checks the
+    kernels' masks): each kernel's device ms, the calls', the plain twins'
+    and SDPA's memory-efficient kernel with its own dropout. Returns
+    {kernel: numbers}."""
+    Hq, Hkv = WIDE_HEADS
+    t = time_packed_kernels(torch, inputs, do, seg, None, dropout_p=DROPOUT_P,
+                            dropout_seed=DROPOUT_SEED)
+    tq, tk, tv, tdo = tight_rows
+    fwd, _, lib_bwd = library_efficient(torch, tq, tk, tv, seg[1], tq.shape[-1] ** -0.5,
+                                        dropout_p=DROPOUT_P)
+    lib = ({"fwd": cuda_ms(torch, fwd), "bwd": cuda_ms(torch, lib_bwd(tdo), iters=5)}
+           if fwd is not None else {"fwd": None, "bwd": None})
+    out = {}
+    for name, kernel, plain, lib_ms in (("varlen_fwd", "fwd", t["plain fwd"], lib["fwd"]),
+                                        ("varlen_dq", "dq", t["plain bwd"], lib["bwd"]),
+                                        ("varlen_dkdv", "dkdv", t["plain bwd"], lib["bwd"])):
+        out[name] = {"ms": t[VARLEN_KERNEL_NAMES[name]], "plain_ms": plain, "library_ms": lib_ms,
+                     **attn_bound(kernel, pairs, tokens, Hq, Hkv, 512, 2)}
+    print(f"[wide varlen D 512] with dropout p {DROPOUT_P} [{card}]: " + ", ".join(
+        f"{VARLEN_KERNEL_NAMES[n]} {e['ms']:.3f} ms" for n, e in out.items())
+        + f"; whole calls forward {t['fwd call']:.3f} ms, backward {t['bwd call']:.3f} ms; plain "
+          f"forward {t['plain fwd']:.3f} ms, backward {t['plain bwd']:.3f} ms; library "
+        + (f"(SDPA memory-efficient, its own dropout) forward {lib['fwd']:.3f} ms, backward "
+           f"{lib['bwd']:.3f} ms" if lib["fwd"] is not None else "none: it refused"))
+    return out
+
+
+def wide_packed_run(torch, card, D, kind):
+    """(b) at head dim D, 8 / 2 heads, bf16, causal, blocks of 128: `kind`
+    "varlen" (phase 8's documents through `flash_attn_varlen_func`) or
+    "blocksparse" (phase 9's B 2 x S 4096 band + sink through
+    `flash_attn_blocksparse_func`). The public forward + backward with the
+    launch counts reset just before and read just after (one launch of each
+    kernel), checked against the fp32 / bf16 plain twins, then timed: each
+    kernel's device ms (profiler), the calls', the plain twins' and the
+    library's (SDPA's memory-efficient kernel with cu_seqlens; flex_attention
+    for block-sparse), and its bound. Returns (launches, entries)."""
+    from fa2_triton_tpu_torch.ops import varlen
+
+    dev = torch.device("cuda")
+    Hq, Hkv = WIDE_HEADS
+    blk = VARLEN_BLOCK
+    gen = torch.Generator(device=dev).manual_seed(D + (22 if kind == "varlen" else 23))
+    bf = lambda a: a.to(torch.bfloat16)
+    if kind == "varlen":
+        lens = varlen_docs()
+        starts, T = packed_starts(lens, blk)
+        keep, mask = None, None
+        seg = (starts, lens)
+        pairs, tokens = causal_pairs(lens), sum(lens)
+    else:
+        B, S = BS_BATCH, BS_SEQ
+        T, mask = B * S, blocksparse_mask()
+        keep = varlen._mask_keep_fn(varlen.encode_block_mask(mask))
+        seg = ([b * S for b in range(B)], [S] * B)
+        pairs = B * sum(blk * blk if j < i else blk * (blk + 1) // 2
+                        for i in range(mask.shape[0]) for j in range(i + 1) if mask[i, j])
+        tokens = T
+    live = torch.zeros(T, dtype=torch.bool, device=dev)
+    for s0, n in zip(*seg):
+        live[s0:s0 + n] = True
+    packed32 = [torch.randn(1, T, h, D, generator=gen, device=dev) * sd
+                for h, sd in ((Hq, 0.5), (Hkv, 0.5), (Hkv, 0.5), (Hq, 1.0))]
+    leaves = [bf(a).requires_grad_() for a in packed32[:3]]
+    do = bf(packed32[3])
+    what = f"wide {kind} D {D}"
+
+    varlen.reset_launches()
+    if kind == "varlen":
+        out, lse = varlen.flash_attn_varlen_func(*leaves, starts + [T], seqlens=lens, causal=True,
+                                                 block_q=blk, block_kv=blk, return_lse=True)
+        out.backward(do)
+    else:
+        split = lambda a: a.view(B, S, *a.shape[2:])
+        out, lse = varlen.flash_attn_blocksparse_func(*(split(a) for a in leaves), mask,
+                                                      causal=True, block_q=blk, block_kv=blk,
+                                                      return_lse=True)
+        out.backward(split(do))
+        out = out.reshape(1, T, Hq, D)
+        lse = lse.transpose(0, 1).reshape(1, Hq, T)
+    torch.cuda.synchronize()
+    launches = dict(varlen.LAUNCHES)
+    print(f"[{what}] {len(seg[1])} segments, {tokens} tokens in T = {T}, {Hq} / {Hkv} heads of "
+          f"{D}, bf16, causal, blocks of {blk}; public forward + backward: launches {launches}")
+    if launches != {"varlen_fwd": 1, "varlen_dq": 1, "varlen_dkdv": 1}:
+        raise AssertionError(f"{what}: the path did not launch each packed kernel once")
+    inputs = [a.detach() for a in leaves]
+    errs, o32, refs = check_packed_path(torch, what, inputs, [a.grad for a in leaves], out, lse,
+                                        packed32[3], packed32[:3], seg, keep, live)
+    del out, lse, leaves
+    t = time_packed_kernels(torch, inputs, do, seg, keep)
+
+    scale = D ** -0.5
+    if kind == "varlen":
+        rows = lambda a: a[0][live][None]                      # [1, sum(lens), H, D]
+        g = Hq // Hkv
+        tq, tdo = rows(inputs[0]), rows(do)
+        tk, tv = (rows(a).repeat_interleave(g, 2).contiguous() for a in inputs[1:])
+        fwd, lib_out, lib_bwd = library_efficient(torch, tq, tk, tv, lens, scale)
+        if fwd is None:
+            lib, how = {"fwd": None, "bwd": None}, lib_out
+        else:
+            live_rows = lambda a: a.transpose(1, 2)[0][live]  # [1, H, T, D] -> [sum, H, D]
+            check_library(torch, f"{what} library fwd", lib_out[0], live_rows(o32),
+                          errs["o plain"])
+            run = lib_bwd(tdo)
+            dq_l, dk_l, dv_l = run()[:3]
+            for name, gr, r in (("dq", dq_l[0], refs[0]),
+                                ("dk", dk_l[0].view(-1, Hkv, g, D).sum(2), refs[1]),
+                                ("dv", dv_l[0].view(-1, Hkv, g, D).sum(2), refs[2])):
+                check_library(torch, f"{what} library {name}", gr, live_rows(r),
+                              errs[name + " plain"])
+            lib = {"fwd": cuda_ms(torch, fwd), "bwd": cuda_ms(torch, run, iters=5)}
+            how = "SDPA memory-efficient (aten._efficient_attention_forward / _backward, cu_seqlens)"
+        if D == 512:
+            drop = wide_packed_dropout_times(torch, card, inputs, do, seg, (tq, tk, tv, tdo),
+                                             pairs, tokens)
+        del tq, tk, tv, tdo
+    else:
+        def mask_mod(b, h, qi, ki):
+            return (ki <= qi) & ((qi // blk - ki // blk <= BS_BAND) | (ki < blk))
+        split = lambda a: a.view(B, S, *a.shape[2:])
+        fms, bms, how = flex_blocksparse(torch, [split(a) for a in (*inputs, do)], mask_mod, S,
+                                         blk, D, (o32, refs), errs)
+        lib = {"fwd": fms, "bwd": bms}
+    del o32, refs
+    out = varlen_entries(t, errs, lib, pairs, tokens, Hq, Hkv, D)
+    for name, e in out.items():
+        e["library"] = how if lib["fwd"] is not None else f"none: {how}"
+        if kind == "varlen" and D == 512:
+            e["dropout"] = drop[name]
+    print(f"[{what}] bf16 kernels (profiler) [{card}]: " + ", ".join(
+        f"{e['kernel']} {e['ms']:.3f} ms (bound {e['bound_ms']:.4f} ms, {e['bound_by']}: "
+        f"{100 * e['bound_share']:.1f} % of it)" for e in out.values())
+        + f"; whole calls (CUDA events): forward {t['fwd call']:.3f} ms, backward "
+          f"{t['bwd call']:.3f} ms; plain forward {t['plain fwd']:.3f} ms, backward "
+          f"{t['plain bwd']:.3f} ms; library "
+        + (f"({how}) forward {lib['fwd']:.3f} ms, backward {lib['bwd']:.3f} ms"
+           if lib["fwd"] is not None else f"none: {how}"))
+    return launches, out
+
+
+def phase_wide_packed(torch, card):
+    """Phase 22 ((a), (b) above)."""
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        checks, worst = wide_packed_checks(torch)
+    launches, times = {}, {}
+    for D in WIDE_DIMS:
+        launches[D], times[D] = wide_packed_run(torch, card, D, "varlen")
+        gc.collect()
+        torch.cuda.empty_cache()
+    bs_launches, times["blocksparse"] = wide_packed_run(torch, card, 512, "blocksparse")
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    print(f"[wide packed] phase 22 in {seconds:.1f} s")
+    return {"checks": checks, "launches": launches, "launches_blocksparse_512": bs_launches,
+            "worst": worst, "times": times, "seconds": seconds}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     t_lap = [t_start]
@@ -6746,12 +7115,11 @@ def main() -> int:
     print(card)
 
     phase_build()
-    mma = mma_build_report()
-    decode_build = decode_build_report()
+    from fa2_triton_tpu_torch.ops import _build
+    start_sass(_build.build())   # read by the reports before phase 8, while the card works
     lap('build')
     with torch.inference_mode():
         kernels = phase_kernels(torch)
-        kernels["flash_fwd"]["build"] = mma["flash_fwd_mma_kernel"]
         lap('phase 1 (kernels)')
         torch.cuda.empty_cache()
         model, cfg, reqs, prompts, launches = phase_serve(torch, card)
@@ -6790,6 +7158,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_launches = phase_train(torch, card)
     lap('phase 7 (trainer)')
+    mma = mma_build_report()
+    decode_build = decode_build_report()
+    kernels["flash_fwd"]["build"] = mma["flash_fwd_mma_kernel"]
+    lap('build reports (cuobjdump since the build)')
     gc.collect()
     torch.cuda.empty_cache()
     varlen_launches, varlen_kernels = phase_varlen(torch, card)
@@ -6835,6 +7207,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     sched_wide = phase_wide_schedules(torch, card)
     lap('phase 21 (wide schedules)')
+    gc.collect()
+    torch.cuda.empty_cache()
+    wide_packed = phase_wide_packed(torch, card)
+    lap('phase 22 (wide packed)')
 
     if any(name == "jax" or name.startswith(("jax.", "fa2_triton_tpu.")) for name in sys.modules):
         raise RuntimeError("the port imported jax or the JAX package")
@@ -7033,7 +7409,8 @@ def main() -> int:
                   "paged_decode", "flash_fwd_dropout", "flash_bwd_dropout_dq",
                   "flash_bwd_dropout_dkdv", "flash_fwd_causal_strip", "flash_fwd_causal_diag",
                   "flash_fwd_rect", "flash_fwd_rect_merge", "flash_bwd_rect", "flash_bwd_dbias",
-                  "flash_bwd_tri_square", "flash_bwd_causal_diag", "flash_bwd_worklist")
+                  "flash_bwd_tri_square", "flash_bwd_causal_diag", "flash_bwd_worklist",
+                  *VARLEN_KERNEL_NAMES, *(f"{n}_dropout" for n in VARLEN_KERNEL_NAMES))
     for e in table["kernels"]:
         e["head_dims"] = [64, 128, 256] + (list(WIDE_DIMS) if e["name"] in wide_built else [])
     for name, counter in wide_entries.items():
@@ -7072,6 +7449,20 @@ def main() -> int:
                       ("flash_bwd_dbias", "dbias"), ("flash_bwd_causal_diag", "causal_diag"),
                       ("flash_bwd_rect", "rect")):
         by_name[name]["wide_512"] = sched_wide["times"][key]
+    # Phase 22: the packed kernels' launches at D 384 / 512 (the public
+    # varlen path at (b)'s timed configuration; block-sparse at 512; (a)'s
+    # checks) and (b)'s numbers.
+    for name in VARLEN_KERNEL_NAMES:
+        by_name[f"{name}_dropout"]["wide_512"] = wide_packed["times"][512][name].pop("dropout")
+        for D in WIDE_DIMS:
+            by_name[name][f"launches_wide_{D}"] = wide_packed["launches"][D][name]
+            by_name[name][f"wide_{D}"] = wide_packed["times"][D][name]
+        by_name[name]["launches_wide_blocksparse_512"] = wide_packed["launches_blocksparse_512"][
+            name]
+        by_name[name]["launches_wide_checks"] = sum(c[name] for c in wide_packed["checks"].values())
+        by_name[name]["wide_blocksparse_512"] = wide_packed["times"]["blocksparse"][name]
+    by_name["varlen_fwd"]["wide_packed"] = {"worst_err": wide_packed["worst"],
+                                            "seconds": wide_packed["seconds"]}
     by_name["flash_bwd_tri_square"]["wide_schedules"] = {
         "worst_err": sched_wide["worst"], "train": {
             k: {n: x for n, x in v.items() if n != "launches"}

@@ -61,7 +61,10 @@
 //     per (64-row q tile, q head), each warp 16 q rows, on fwd_mma.cuh's
 //     tile step (Q staged once, in registers at D <= 128) or bwd_mma.cuh's
 //     dq tiles (Q and dO staged once); K / V tiles of 64 rows, 32 at D 256,
-//     double-buffered by cp.async. The block walks the (entry, kv tile)
+//     double-buffered by cp.async. At D 384 / 512 the dense kernels' pairs:
+//     8 warps, two per 16 q rows (warp w owns rows 16 (w % 4), half of O or
+//     dQ), K / V tiles of 32 rows (16 for dq at D 512); a row's dropout
+//     hash, lse and delta follow its row group, not the warp index. The block walks the (entry, kv tile)
 //     pairs of its user q block as one flat loop, so the next tile's copies
 //     always overlap this one's products: a cursor per stream (the copies
 //     run one tile ahead of the products) steps over entries whose key
@@ -73,7 +76,11 @@
 //     pairs of its user kv block the same way. 64 kv rows (4 warps at D <=
 //     128, 8 at D 256, two splitting D), not the dense kernel's 128: the
 //     user blocks are multiples of 64, so a 64-row tile never straddles two
-//     of them (two documents), whatever block_kv the caller picked.
+//     of them (two documents), whatever block_kv the caller picked. At D
+//     384 / 512 the dense dk/dv tile (bwd_mma.cuh DkdvMmaCfg: 32 kv rows,
+//     32-row q tiles, 8 warps, 4 along D; 64 kv rows would need 256 fp32
+//     accumulators a thread): each 64-row host tile is two blocks, which
+//     read the same slot of the tile order and write 32 kv rows each.
 //   * The scale rides on the fp32 score accumulator (never folded into a
 //     rounded q or k), dq and dk take it once at the store; an element is
 //     kept by row < q_len, col < kv_len and the causal rule, and masked
@@ -90,12 +97,16 @@
 // fp32 inputs (no TF32): the fp32 CUDA-core tile math of flash_fwd.cu's and
 // flash_bwd.cu's FMA kernels (attn_tiles.cuh), which, like them, loads no
 // tile past kv_len, q_len or the causal edge; the work list keeps filtered
-// and causally dead blocks out of the loops altogether.
+// and causally dead blocks out of the loops altogether. One block per
+// FmaTile::M rows (64, 32 past D 256: two blocks a host tile), streamed
+// tiles of FmaTile::N rows.
+//
+// Head dims 384 / 512 compile in varlen_wide.cu (this file with FA2_WIDE
+// defined), beside 64 / 128 / 256 here, so that the two build in parallel.
 #include "bwd_mma.cuh"
 #include "fwd_mma.cuh"
 
 namespace fa2 {
-namespace {
 
 struct VarlenParams {
   const void* q;
@@ -119,6 +130,11 @@ struct VarlenParams {
   Dropout drop;
 };
 
+// The launch at head dim 384 or 512 (varlen_wide.cu).
+int launch_varlen_wide(const VarlenParams& p, int dtype, int which, int D, void* stream);
+
+namespace {
+
 // The dropout factor of the element of q head stream `seed_h` (= hash(seed,
 // h)) at packed row / column: 1 without dropout, 1 / (1 - p) where kept, 0
 // where dropped.
@@ -132,9 +148,9 @@ __device__ __forceinline__ float packed_drop_at(const VarlenParams& p, uint32_t 
   }
 }
 
-// The segment a 64-row output tile at packed row t0 belongs to, from the
-// first entry of its user block (every entry of a block shares it): the
-// block's entries [e_lo, e_hi), the tile's first row in segment
+// The segment an output tile of `rows` rows at packed row t0 belongs to,
+// from the first entry of its user block (every entry of a block shares
+// it): the block's entries [e_lo, e_hi), the tile's first row in segment
 // coordinates, the segment's length along the tile's axis (q_len for a q
 // tile, kv_len for a kv tile) and the tile's live rows.
 struct TileSeg {
@@ -142,7 +158,7 @@ struct TileSeg {
 };
 
 __device__ __forceinline__ TileSeg tile_seg(const VarlenParams& p, int t0, int block, int lo_col,
-                                            int len_col) {
+                                            int len_col, int rows) {
   TileSeg t;
   const int ub = t0 / block;
   t.e_lo = p.rowptr[ub];
@@ -150,23 +166,24 @@ __device__ __forceinline__ TileSeg tile_seg(const VarlenParams& p, int t0, int b
   const int* w = p.work + 8 * t.e_lo;
   t.first = (t.e_lo < t.e_hi ? w[lo_col] : 0) + t0 - ub * block;
   t.len = t.e_lo < t.e_hi ? w[len_col] : 0;
-  t.live = max(0, min(TM, t.len - t.first));
+  t.live = max(0, min(rows, t.len - t.first));
   return t;
 }
 
 template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(THREADS) varlen_fwd_kernel(const VarlenParams p) {
+  using F = FmaTile<D>;
   extern __shared__ float smem[];
   const FwdSmem s = fwd_smem<D>(smem);
-  const int q0 = blockIdx.x * TM, h = blockIdx.y, hk = h / (p.Hq / p.Hkv);
-  const TileSeg t = tile_seg(p, q0, p.block_q, 2, 4);
+  const int q0 = blockIdx.x * F::M, h = blockIdx.y, hk = h / (p.Hq / p.Hkv);
+  const TileSeg t = tile_seg(p, q0, p.block_q, 2, 4, F::M);
   const int qlen = t.len;
   const uint32_t seed_h = counter_hash_u32(p.drop.seed, (uint32_t)h);
 
-  stage<T, D>(s.Qs, static_cast<const T*>(p.q) + h * p.q_sh, p.q_ss, q0, TM, q0 + t.live,
+  stage<T, D>(s.Qs, static_cast<const T*>(p.q) + h * p.q_sh, p.q_ss, q0, F::M, q0 + t.live,
               p.scale_log2);
   float m_run = MASK_LOG2, l_run = 0.f;
-  float acc[4][D / 16];
+  FmaAcc<D> acc;
   zero_acc<D>(acc);
   for (int e = t.live > 0 ? t.e_lo : t.e_hi; e < t.e_hi; ++e) {
     const int* w = p.work + 8 * e;
@@ -177,7 +194,7 @@ __global__ void __launch_bounds__(THREADS) varlen_fwd_kernel(const VarlenParams 
     if (p.causal) hi = min(hi, t.first + t.live - 1 + shift + 1 - kv_lo);
     const T* kp = static_cast<const T*>(p.k) + hk * p.k_sh + kb0 * p.k_ss;
     const T* vp = static_cast<const T*>(p.v) + hk * p.v_sh + kb0 * p.v_ss;
-    for (int k0 = 0; k0 < hi; k0 += TN) {
+    for (int k0 = 0; k0 < hi; k0 += F::N) {
       auto score = [&](int r, int c, float x) {
         const int row = t.first + r, col = kv_lo + k0 + c;
         const bool keep = r < t.live && col < kvlen && (!p.causal || col <= row + shift);
@@ -190,16 +207,17 @@ __global__ void __launch_bounds__(THREADS) varlen_fwd_kernel(const VarlenParams 
     }
   }
   fwd_store<T, D>(s, m_run, l_run, acc, p.lse + (long long)h * p.T + q0,
-                  static_cast<T*>(p.o) + h * p.o_sh + q0 * p.o_ss, p.o_ss, TM,
+                  static_cast<T*>(p.o) + h * p.o_sh + q0 * p.o_ss, p.o_ss, F::M,
                   DROP ? p.drop.scale : 1.f);
 }
 
 template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(THREADS) varlen_dq_kernel(const VarlenParams p) {
+  using F = FmaTile<D>;
   extern __shared__ float smem[];
   const DqSmem s = dq_smem<D>(smem);
-  const int q0 = blockIdx.x * TM, h = blockIdx.y, hk = h / (p.Hq / p.Hkv);
-  const TileSeg t = tile_seg(p, q0, p.block_q, 2, 4);
+  const int q0 = blockIdx.x * F::M, h = blockIdx.y, hk = h / (p.Hq / p.Hkv);
+  const TileSeg t = tile_seg(p, q0, p.block_q, 2, 4, F::M);
   const int qlen = t.len;
   const long long row0 = (long long)h * p.T;
   const uint32_t seed_h = counter_hash_u32(p.drop.seed, (uint32_t)h);
@@ -207,7 +225,7 @@ __global__ void __launch_bounds__(THREADS) varlen_dq_kernel(const VarlenParams p
   dq_stage_q<T, D>(s, static_cast<const T*>(p.q) + h * p.q_sh, p.q_ss,
                    static_cast<const T*>(p.dout) + h * p.do_sh, p.do_ss, p.lse + row0,
                    p.delta + row0, q0, q0 + t.live, p.scale_log2);
-  float acc[4][D / 16];
+  FmaAcc<D> acc;
   zero_acc<D>(acc);
   for (int e = t.live > 0 ? t.e_lo : t.e_hi; e < t.e_hi; ++e) {
     const int* w = p.work + 8 * e;
@@ -218,7 +236,7 @@ __global__ void __launch_bounds__(THREADS) varlen_dq_kernel(const VarlenParams p
     if (p.causal) hi = min(hi, t.first + t.live - 1 + shift + 1 - kv_lo);
     const T* kp = static_cast<const T*>(p.k) + hk * p.k_sh + kb0 * p.k_ss;
     const T* vp = static_cast<const T*>(p.v) + hk * p.v_sh + kb0 * p.v_ss;
-    for (int k0 = 0; k0 < hi; k0 += TN) {
+    for (int k0 = 0; k0 < hi; k0 += F::N) {
       auto ds_of = [&](int r, int c, float s2, float dp) {
         const int row = t.first + r, col = kv_lo + k0 + c;
         const bool keep = r < t.live && col < kvlen && (!p.causal || col <= row + shift);
@@ -230,22 +248,24 @@ __global__ void __launch_bounds__(THREADS) varlen_dq_kernel(const VarlenParams p
       dq_kv_step<T, D>(s, kp, p.k_ss, vp, p.v_ss, k0, kv_valid, ds_of, acc);
     }
   }
-  store_tile<T, D>(acc, static_cast<T*>(p.dq) + h * p.dq_sh + q0 * p.dq_ss, p.dq_ss, TM,
+  store_tile<T, D>(acc, static_cast<T*>(p.dq) + h * p.dq_sh + q0 * p.dq_ss, p.dq_ss, F::M,
                    p.scale);
 }
 
 template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(THREADS) varlen_dkdv_kernel(const VarlenParams p) {
+  using F = FmaTile<D>;
   extern __shared__ float smem[];
   const DkdvSmem s = dkdv_smem<D>(smem);
-  const int k0 = blockIdx.x * TM, hk = blockIdx.y, group = p.Hq / p.Hkv;
-  const TileSeg t = tile_seg(p, k0, p.block_kv, 3, 5);
+  const int k0 = blockIdx.x * F::M, hk = blockIdx.y, group = p.Hq / p.Hkv;
+  const TileSeg t = tile_seg(p, k0, p.block_kv, 3, 5, F::M);
   const int kvlen = t.len;
 
-  stage<T, D>(s.Ks, static_cast<const T*>(p.k) + hk * p.k_sh, p.k_ss, k0, TM, k0 + t.live,
+  stage<T, D>(s.Ks, static_cast<const T*>(p.k) + hk * p.k_sh, p.k_ss, k0, F::M, k0 + t.live,
               p.scale_log2);
-  stage<T, D>(s.Vs, static_cast<const T*>(p.v) + hk * p.v_sh, p.v_ss, k0, TM, k0 + t.live, 1.f);
-  float dk_acc[4][D / 16], dv_acc[4][D / 16];
+  stage<T, D>(s.Vs, static_cast<const T*>(p.v) + hk * p.v_sh, p.v_ss, k0, F::M, k0 + t.live,
+              1.f);
+  FmaAcc<D> dk_acc, dv_acc;
   zero_acc<D>(dk_acc);
   zero_acc<D>(dv_acc);
   for (int e = t.live > 0 ? t.e_lo : t.e_hi; e < t.e_hi; ++e) {
@@ -261,7 +281,7 @@ __global__ void __launch_bounds__(THREADS) varlen_dkdv_kernel(const VarlenParams
     const T* dop = static_cast<const T*>(p.dout) + h * p.do_sh + qb0 * p.do_ss;
     const float* lse = p.lse + (long long)h * p.T + qb0;
     const float* delta = p.delta + (long long)h * p.T + qb0;
-    for (int r0 = (r_lo / TN) * TN; r0 < r_hi; r0 += TN) {
+    for (int r0 = (r_lo / F::N) * F::N; r0 < r_hi; r0 += F::N) {
       auto pds_of = [&](int kr, int qr, float s2, float dp, float& pr, float& ds) {
         const int row = q_lo + r0 + qr, col = t.first + kr;
         const bool keep = kr < t.live && row < qlen && (!p.causal || col <= row + shift);
@@ -272,9 +292,10 @@ __global__ void __launch_bounds__(THREADS) varlen_dkdv_kernel(const VarlenParams
                         dv_acc);
     }
   }
-  store_tile<T, D>(dk_acc, static_cast<T*>(p.dk) + hk * p.dk_sh + k0 * p.dk_ss, p.dk_ss, TM,
+  store_tile<T, D>(dk_acc, static_cast<T*>(p.dk) + hk * p.dk_sh + k0 * p.dk_ss, p.dk_ss, F::M,
                    p.scale);
-  store_tile<T, D>(dv_acc, static_cast<T*>(p.dv) + hk * p.dv_sh + k0 * p.dv_ss, p.dv_ss, TM, 1.f);
+  store_tile<T, D>(dv_acc, static_cast<T*>(p.dv) + hk * p.dv_sh + k0 * p.dv_ss, p.dv_ss, F::M,
+                   1.f);
 }
 
 // A cursor over the flat (entry, tile) loop of a 16-bit backward block: the
@@ -321,11 +342,11 @@ __device__ __forceinline__ int q_tile_count(const VarlenParams& p, const TileSeg
   return hi > 0 ? (hi + bkv - 1) / bkv : 0;
 }
 
-// The forward, 16-bit inputs: one block of 4 warps per (64-row q tile
-// p.order[y], q head x) on fwd_mma.cuh's tile step. Q is staged once (its
-// A fragments in registers at D <= 128); entry e covers the keys [0, hi) of
-// its kv block (q_tile_count), and its tiles of BKV keys and those of the
-// next entries form one double-buffered loop. An element is kept by row <
+// The forward, 16-bit inputs: one block of 4 warps (8 past D 256, two per
+// 16 rows) per (64-row q tile p.order[y], q head x) on fwd_mma.cuh's tile
+// step. Q is staged once (its A fragments in registers at D <= 128); entry
+// e covers the keys [0, hi) of its kv block (q_tile_count), and its tiles of
+// BKV keys and those of the next entries form one double-buffered loop. An element is kept by row <
 // live, col < kv_len and (causal) col <= row + shift; with dropout at its
 // GLOBAL packed row / column (the row's hash taken once per thread), and o
 // scaled by 1 / (1 - p) at the store. A tile with no live row, or whose
@@ -339,7 +360,7 @@ __global__ void __launch_bounds__(FwdMmaCfg<D>::NW * 32)
   T* Qs = reinterpret_cast<T*>(smem_raw);  // [BQ][P]
   T* kv_s = Qs + C::BQ * C::P;             // buffer j: K at 2 j BKV rows, V BKV rows on
   const int h = blockIdx.x, q0 = p.order[blockIdx.y] * C::BQ, hk = h / (p.Hq / p.Hkv);
-  const TileSeg t = tile_seg(p, q0, p.block_q, 2, 4);
+  const TileSeg t = tile_seg(p, q0, p.block_q, 2, 4, C::BQ);
   const int qlen = t.len;
 
   auto count = [&](int e) { return q_tile_count(p, t, qlen, e, C::BKV); };
@@ -349,12 +370,12 @@ __global__ void __launch_bounds__(FwdMmaCfg<D>::NW * 32)
   float o[C::NT_O][4], m_run[2], l_run[2];
   fwd_mma_init<C>(o, m_run, l_run);
   QFrags<C> qf;
-  // hash(hash(seed, h), row) of the thread's rows g and g + 8: the packed
-  // stream's first two hashes, constant over the kv loop.
+  // hash(hash(seed, h), row) of the thread's rows g and g + 8 of its row
+  // group: the packed stream's first two hashes, constant over the kv loop.
   uint32_t row_h[2] = {0u, 0u};
   if constexpr (DROP) {
     const uint32_t seed_h = counter_hash_u32(p.drop.seed, (uint32_t)h);
-    const int r = threadIdx.x / 32 * 16 + threadIdx.x % 32 / 4;
+    const int r = threadIdx.x / 32 % C::RG * 16 + threadIdx.x % 32 / 4;
     row_h[0] = counter_hash_u32(seed_h, (uint32_t)(q0 + r));
     row_h[1] = counter_hash_u32(seed_h, (uint32_t)(q0 + r + 8));
   }
@@ -405,10 +426,11 @@ __global__ void __launch_bounds__(FwdMmaCfg<D>::NW * 32)
                              DROP ? p.drop.scale : 1.f);
 }
 
-// dq, 16-bit inputs: one block of 4 warps per (64-row q tile p.order[y], q
-// head x) on bwd_mma.cuh's dq tiles. Entry e covers the keys [0, hi) of its
-// kv block (q_tile_count, the forward's); its tiles of BKV keys and those
-// of the next entries form one double-buffered loop.
+// dq, 16-bit inputs: one block of 4 warps (8 past D 256, two per 16 rows)
+// per (64-row q tile p.order[y], q head x) on bwd_mma.cuh's dq tiles. Entry
+// e covers the keys [0, hi) of its kv block (q_tile_count, the forward's);
+// its tiles of BKV keys and those of the next entries form one
+// double-buffered loop.
 template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(DqMmaCfg<D>::NW * 32) varlen_mma_dq_kernel(const VarlenParams p) {
   using C = DqMmaCfg<D>;
@@ -418,17 +440,17 @@ __global__ void __launch_bounds__(DqMmaCfg<D>::NW * 32) varlen_mma_dq_kernel(con
   T* dOs = Qs + C::BQ * C::P;              // [BQ][P]
   T* kv_s = dOs + C::BQ * C::P;            // buffer j: K at 2 j BKV rows, V BKV rows on
   const int h = blockIdx.x, q0 = p.order[blockIdx.y] * C::BQ, hk = h / (p.Hq / p.Hkv);
-  const TileSeg t = tile_seg(p, q0, p.block_q, 2, 4);
+  const TileSeg t = tile_seg(p, q0, p.block_q, 2, 4, C::BQ);
   const int qlen = t.len;
   const uint32_t seed_h = counter_hash_u32(p.drop.seed, (uint32_t)h);
-  const int lane = threadIdx.x % 32, w = threadIdx.x / 32, g = lane / 4;
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32 % C::RG, g = lane / 4;
 
   auto count = [&](int e) { return q_tile_count(p, t, qlen, e, C::BKV); };
   int n_tiles = 0;
   for (int e = t.live > 0 ? t.e_lo : t.e_hi; e < t.e_hi; ++e) n_tiles += count(e);
 
-  // lse and delta of rows g and g + 8 of the warp's 16; dead rows get lse =
-  // -inf, so every element of theirs gives p = ds = 0.
+  // lse and delta of rows g and g + 8 of the warp's row group; dead rows get
+  // lse = -inf, so every element of theirs gives p = ds = 0.
   float lse[2], delta[2];
   const long long row0 = (long long)h * p.T + q0;
 #pragma unroll
@@ -484,25 +506,31 @@ __global__ void __launch_bounds__(DqMmaCfg<D>::NW * 32) varlen_mma_dq_kernel(con
                      p.dq_ss, C::BQ, p.scale);
 }
 
-// The 16-bit dk/dv kernel's tiles: 64 kv rows, 4 warps at D <= 128 (each 16
-// kv rows, all of D), 8 at D 256 (two per 16 rows, each half of D); no dS^T.
+// The 16-bit dk/dv kernel's tiles: 64 kv rows and 64-row q tiles, 4 warps
+// at D <= 128 (each 16 kv rows, all of D), 8 at D 256 (two per 16 rows,
+// each half of D); past D 256 the dense kernel's 32 kv rows and 32-row q
+// tiles (DkdvMmaCfg: 8 warps, 4 along D). No dS^T.
 template <int D>
-using VarlenKvCfg = MmaCfg<D, 64, (D <= 128 ? 4 : 8), false>;
+using VarlenKvCfg =
+    std::conditional_t<(D <= 256), MmaCfg<D, 64, (D <= 128 ? 4 : 8), false>, DkdvMmaCfg<D>>;
 
-// dk/dv, 16-bit inputs: one block per (64-row kv tile p.order[y], kv head
-// x). Entry e (a q block of group member w[7]) covers its q rows [r_lo,
-// r_hi): from the first that sees the tile's first live column to q_len;
-// its 64-row q tiles from r_lo rounded down and those of the next entries
-// form one double-buffered loop through mma_q_step.
+// dk/dv, 16-bit inputs: one block per (BKV kv rows, kv head x): the half
+// y % H of the 64-row kv tile p.order[y / H], H = 64 / BKV (2 past D 256,
+// else 1). Entry e (a q block of group member w[7]) covers its q rows [r_lo,
+// r_hi): from the first that sees the block's first live column to q_len;
+// its q tiles of BQ rows from r_lo rounded down and those of the next
+// entries form one double-buffered loop through mma_q_step.
 template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(VarlenKvCfg<D>::NW * 32, 1)
     varlen_mma_dkdv_kernel(const VarlenParams p) {
   using C = VarlenKvCfg<D>;
-  static_assert(C::BKV == TM && C::BQ == TM, "the host's 64-row tiles");
+  constexpr int H = TM / C::BKV;  // blocks of a host tile
+  static_assert(TM % C::BKV == 0 && TM % C::BQ == 0, "tiles nested in the host's 64-row tiles");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const MmaSmem<T> s = mma_smem<C, T>(smem_raw);
-  const int hk = blockIdx.x, k0 = p.order[blockIdx.y] * C::BKV, group = p.Hq / p.Hkv;
-  const TileSeg t = tile_seg(p, k0, p.block_kv, 3, 5);
+  const int hk = blockIdx.x, group = p.Hq / p.Hkv;
+  const int k0 = p.order[blockIdx.y / H] * TM + (int)(blockIdx.y % H) * C::BKV;
+  const TileSeg t = tile_seg(p, k0, p.block_kv, 3, 5, C::BKV);
   const int kvlen = t.len;
 
   // The q rows of entry e: [ra, r_hi) in q tiles of BQ (returned: their
@@ -584,23 +612,24 @@ cudaError_t launch_kernel(K kernel, int smem_bytes, dim3 grid, int threads, cons
   return cudaGetLastError();
 }
 
-// fp32 takes the FMA kernels (grid x the tile, y the head), bf16 / fp16 the
-// tensor-core ones (no path back to the FMA ones; grid x the head, y the
-// tile in p.order).
+// fp32 takes the FMA kernels (grid x the FmaTile::M-row tile, y the head),
+// bf16 / fp16 the tensor-core ones (no path back to the FMA ones; grid x the
+// head, y the 64-row tile in p.order, dk/dv's y its BKV-row parts).
 template <typename T, int D, bool DROP>
 cudaError_t launch_kernels(const VarlenParams& p, int which, cudaStream_t stream) {
   const int tiles = p.T / TM;
   const int f = (int)sizeof(float);
   if (which != kFwd && which != kDq && which != kDkDv) return cudaErrorInvalidValue;
   if constexpr (std::is_same<T, float>::value) {
+    const int blocks = p.T / FmaTile<D>::M;
     if (which == kFwd) {
       return launch_kernel(varlen_fwd_kernel<T, D, DROP>, fwd_smem_floats<D>() * f,
-                           dim3(tiles, p.Hq), THREADS, p, stream);
+                           dim3(blocks, p.Hq), THREADS, p, stream);
     }
     return which == kDq ? launch_kernel(varlen_dq_kernel<T, D, DROP>, dq_smem_floats<D>() * f,
-                                        dim3(tiles, p.Hq), THREADS, p, stream)
+                                        dim3(blocks, p.Hq), THREADS, p, stream)
                         : launch_kernel(varlen_dkdv_kernel<T, D, DROP>,
-                                        dkdv_smem_floats<D>() * f, dim3(tiles, p.Hkv), THREADS,
+                                        dkdv_smem_floats<D>() * f, dim3(blocks, p.Hkv), THREADS,
                                         p, stream);
   } else {
     if (p.order == nullptr) return cudaErrorInvalidValue;
@@ -614,7 +643,8 @@ cudaError_t launch_kernels(const VarlenParams& p, int which, cudaStream_t stream
     return which == kDq ? launch_kernel(varlen_mma_dq_kernel<T, D, DROP>, QC::SMEM_BYTES,
                                         dim3(p.Hq, tiles), QC::NW * 32, p, stream)
                         : launch_kernel(varlen_mma_dkdv_kernel<T, D, DROP>, KC::SMEM_BYTES,
-                                        dim3(p.Hkv, tiles), KC::NW * 32, p, stream);
+                                        dim3(p.Hkv, tiles * (TM / KC::BKV)), KC::NW * 32, p,
+                                        stream);
   }
 }
 
@@ -624,25 +654,54 @@ cudaError_t launch(const VarlenParams& p, int which, cudaStream_t stream) {
                    : launch_kernels<T, D, false>(p, which, stream);
 }
 
+// The head dims of this translation unit: 64 / 128 / 256 here, 384 / 512 in
+// varlen_wide.cu.
 template <typename T>
 cudaError_t launch_d(const VarlenParams& p, int which, int D, cudaStream_t stream) {
   switch (D) {
+#ifdef FA2_WIDE
+    case 384: return launch<T, 384>(p, which, stream);
+    case 512: return launch<T, 512>(p, which, stream);
+#else
     case 64: return launch<T, 64>(p, which, stream);
     case 128: return launch<T, 128>(p, which, stream);
     case 256: return launch<T, 256>(p, which, stream);
+#endif
     default: return cudaErrorInvalidValue;
   }
 }
 
+int launch_dtype(const VarlenParams& p, int dtype, int which, int D, void* stream) {
+#ifndef FA2_WIDE
+  if (D > 256) return launch_varlen_wide(p, dtype, which, D, stream);
+#endif
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kF32: return (int)launch_d<float>(p, which, D, st);
+    case kF16: return (int)launch_d<__half>(p, which, D, st);
+    case kBF16: return (int)launch_d<__nv_bfloat16>(p, which, D, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
+
+#ifdef FA2_WIDE
+int launch_varlen_wide(const VarlenParams& p, int dtype, int which, int D, void* stream) {
+  return launch_dtype(p, dtype, which, D, stream);
+}
+#endif
 }  // namespace fa2
+
+#ifndef FA2_WIDE
 
 // One entry for the three kernels (`which`: 0 forward, 1 dq, 2 dk/dv; the
 // forward reads q, k, v and writes o, lse; the backward kernels read q, k,
 // v, do, lse, delta and write dq or dk / dv). `work` / `rowptr` are the
 // q-major table for 0 and 1, the kv-major one for 2; `order` the T / 64
 // tiles of 64 rows, heaviest first (read by the 16-bit kernels, which fail
-// the launch without it; may be null for fp32). `strides` holds, in
+// the launch without it; may be null for fp32). D: 64, 128, 256, 384 or
+// 512. `strides` holds, in
 // elements, the head and row strides of q, k, v, do, o, dq, dk, dv (16
 // values; the batch dim is 1). T must be a multiple of 64, block_q and
 // block_kv multiples of 64 that divide T. 16-bit q / k / v / do / o: rows,
@@ -673,11 +732,6 @@ extern "C" int fa2_varlen(
   if (T % fa2::TM || block_q % fa2::TM || block_kv % fa2::TM || T % block_q || T % block_kv) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case fa2::kF32: return (int)fa2::launch_d<float>(p, which, D, st);
-    case fa2::kF16: return (int)fa2::launch_d<__half>(p, which, D, st);
-    case fa2::kBF16: return (int)fa2::launch_d<__nv_bfloat16>(p, which, D, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return fa2::launch_dtype(p, dtype, which, D, stream);
 }
+#endif  // FA2_WIDE

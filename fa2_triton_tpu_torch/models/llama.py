@@ -46,7 +46,6 @@ from torch.utils.checkpoint import checkpoint
 from fa2_triton_tpu_torch.ops import flash_attn_func, flash_fwd
 from fa2_triton_tpu_torch.ops.attention import flash_attn_with_kv_cache, pad_head_dim, pad_last
 from fa2_triton_tpu_torch.ops.decode import decode_attention, paged_decode_attention
-from fa2_triton_tpu_torch.ops.flash_fwd import MAX_HEAD_DIM
 from fa2_triton_tpu_torch.ops.quant import QuantizedWeight, qmatmul as _mm, quantize_weight
 from fa2_triton_tpu_torch.utils import resolve_device
 
@@ -635,7 +634,7 @@ def _chunk_layers(model: LlamaModel, tokens: torch.Tensor, chunk_len: int, cache
     cos, sin = rope_cos_sin(positions, cfg.hd, cfg.rope_theta, cfg.rope_factors)
     cs, sn = cos[:, :, None, :], sin[:, :, None, :]
     lens = torch.full((1, 2), total, dtype=torch.int32, device=dev)
-    Dp = pad_head_dim(cfg.hd, dev, MAX_HEAD_DIM)   # the caches' width
+    Dp = pad_head_dim(cfg.hd, dev)   # the caches' width
     for li, layer in enumerate(model.layers):
         h = rms_norm(x, layer.attn_norm, cfg.norm_eps)
         q, k, v = _qkv(layer, h, cfg)

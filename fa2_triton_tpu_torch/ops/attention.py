@@ -86,15 +86,15 @@ def kernel_head_dim(D: int) -> int:
     return next((d for d in HEAD_DIMS if d >= D), D)
 
 
-def pad_head_dim(D: int, device: torch.device, max_dim: int) -> int:
-    """The head dim a kernel family computes D at (`kernel_head_dim`).
-    `max_dim` is the family's largest head dim: MAX_HEAD_DIM for the dense
-    forward, backward and decode, 256 for the packed (varlen) kernels. CUDA
-    tensors past it raise ValueError; CPU tensors take any D."""
-    if D > max_dim and device.type == "cuda":
+def pad_head_dim(D: int, device: torch.device) -> int:
+    """The head dim the kernels compute D at (`kernel_head_dim`). Every
+    kernel family (the dense forward, backward, decode and the packed
+    kernels) is built up to MAX_HEAD_DIM: CUDA tensors past it raise
+    ValueError; CPU tensors take any D."""
+    if D > MAX_HEAD_DIM and device.type == "cuda":
         raise ValueError(
-            f"head_dim {D} > {max_dim}: these kernels are built for head dims up to {max_dim} "
-            f"(ROADMAP.md queue A, 'Head dims')")
+            f"head_dim {D} > {MAX_HEAD_DIM}: these kernels are built for head dims up to "
+            f"{MAX_HEAD_DIM} (ROADMAP.md queue A, 'Head dims')")
     return kernel_head_dim(D)
 
 
@@ -233,7 +233,7 @@ def flash_attn_func(
                              f"to [{B}, {Hq}, {Sq}, {Sk}]")
         # Seq dims broadcast as a view; autograd of expand sums dbias back.
         bias = bias.expand(bias.shape[0], bias.shape[1], Sq, Sk)
-    Dp = pad_head_dim(D, q.device, MAX_HEAD_DIM)
+    Dp = pad_head_dim(D, q.device)
     o, lse = _AttnCore.apply(
         *(pad_last(x, Dp).transpose(1, 2) for x in (q, k, v)), bias, lens,
         causal, scale, tuple(window_size), float(softcap), float(dropout_p), seed,
@@ -282,7 +282,7 @@ def flash_attn_with_kv_cache(
         raise ValueError(f"need 0 < S_step {S} <= kv_len {kv_len} <= S_max {k_cache.shape[2]}")
     scale = float(softmax_scale) if softmax_scale is not None else default_softmax_scale(D)
     lens = torch.full((B, 2), kv_len, dtype=torch.int32, device=q.device)
-    Dp = pad_head_dim(D, q.device, MAX_HEAD_DIM)
+    Dp = pad_head_dim(D, q.device)
     o, _ = flash_attn_forward(
         pad_last(q, Dp).transpose(1, 2), pad_last(k_cache[:, :, :kv_len], Dp),
         pad_last(v_cache[:, :, :kv_len], Dp), lens, kv_len - S, causal=True,

@@ -76,8 +76,8 @@ TILE_ROWS = 64
 HEAD_DIMS = (64, 128, 256, 384, 512)
 # The attention entry points zero-pad other head dims up to the next of
 # HEAD_DIMS (past 256 that is JAX's round-up to 128 lanes); past the last,
-# CUDA tensors raise (ROADMAP.md queue A, "Head dims"). The packed (varlen)
-# kernels stop at 256 (`ops/varlen.py`).
+# CUDA tensors raise (ROADMAP.md queue A, "Head dims"). Every kernel family,
+# the packed (varlen) kernels included, is built for all of them.
 MAX_HEAD_DIM = HEAD_DIMS[-1]
 
 _P, _I, _L, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_uint

@@ -70,11 +70,11 @@ from fa2_triton_tpu_torch.utils import (
 F_INIT, F_FINAL, F_MASKED = 1, 2, 4
 
 # The CUDA kernels' output tiles (csrc/varlen.cu): 64 rows, each nested in
-# one user block.
+# one user block (past head dim 256 a 16-bit dk/dv block and an fp32 block
+# own half of one). csrc/varlen.cu is built for the dense kernels' head dims
+# (flash_fwd.HEAD_DIMS, 384 / 512 in varlen_wide.cu); `pad_head_dim` holds
+# the limit of every family.
 TILE_ROWS = 64
-# The largest head dim csrc/varlen.cu is built for: past it CUDA tensors
-# raise (ROADMAP.md queue A, "Head dims"); the dense kernels go to 512.
-PACKED_MAX_HEAD_DIM = 256
 
 # Kernel launches since the last reset, per kernel (the smoke test reads
 # these to show the packed path went through the kernels).
@@ -421,7 +421,7 @@ def _check_cuda_layout(q, k, v, block_q, block_kv):
     """Raise on what the kernels do not take; 16-bit q / k / v need 16-byte
     rows (the tensor-core kernels' cp.async copies)."""
     _check_cuda_args(q, k, v, vec=_vec(q))
-    pad_head_dim(q.shape[3], q.device, PACKED_MAX_HEAD_DIM)   # raises past it
+    pad_head_dim(q.shape[3], q.device)   # raises past the kernels' head dims
     if q.shape[0] != 1 or k.shape[2] != q.shape[2]:
         raise ValueError(f"packed q / k / v must be [1, H, T, D] with one T, got "
                          f"{tuple(q.shape)} / {tuple(k.shape)}")
@@ -687,7 +687,7 @@ def flash_attn_varlen_func(
     [1, Hq, T] ([Hq, T] for 3-D q). Dropout takes `flash_attn_func`'s seed
     contract (exactly one of `dropout_seed` / `dropout_rng` when
     `dropout_p > 0`) and the packed stream of the module docstring. CUDA
-    tensors take any head_dim <= 256 (zero-padded for the kernels)."""
+    tensors take any head_dim <= 512 (zero-padded for the kernels)."""
     seed = resolve_dropout_seed(dropout_p, dropout_seed, dropout_rng)
     squeeze = q.dim() == 3
     if squeeze:
@@ -711,7 +711,7 @@ def flash_attn_varlen_func(
     out_dtype = q.dtype
     q, k, v = _upcast_fp16(q, k, v)
     D = q.shape[-1]
-    Dp = pad_head_dim(D, q.device, PACKED_MAX_HEAD_DIM)
+    Dp = pad_head_dim(D, q.device)
     o, lse = _VarlenCore.apply(*(pad_last(x, Dp).transpose(1, 2) for x in (q, k, v)), meta)
     out = o.transpose(1, 2)[..., :D].to(out_dtype)
     if squeeze:
@@ -764,7 +764,7 @@ def flash_attn_blocksparse_func(
     scale = float(softmax_scale) if softmax_scale is not None else default_softmax_scale(D)
     out_dtype = q.dtype
     q, k, v = _upcast_fp16(q, k, v)
-    Dp = pad_head_dim(D, q.device, PACKED_MAX_HEAD_DIM)
+    Dp = pad_head_dim(D, q.device)
 
     def pack(x):
         # [B, S, H, D] -> [1, H, B*S_pad, Dp], a view when S_pad == S and Dp == D

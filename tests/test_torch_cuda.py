@@ -22,8 +22,8 @@ from fa2_triton_tpu_torch.ops.attention import flash_attn_func  # noqa: E402
 pytestmark = pytest.mark.cuda
 
 # The head dims past 256 that the dense forward, the dq + dk/dv pair, dbias,
-# the fused backward schedules and decode are built for (their own tilings
-# there); the packed kernels stop at 256.
+# the fused backward schedules, decode and the packed kernels are built for
+# (their own tilings there).
 WIDE = [384, 512]
 
 
@@ -181,8 +181,8 @@ def test_decode_kernel_ignores_nan_past_kv_len(dev):
 
 
 def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(dev):
-    # Head dims: past 512 every entry point (dbias and the forced fused
-    # backward schedules too); past 256 the packed kernels (ROADMAP.md queue A).
+    # Head dims: past 512 every entry point (dbias, the forced fused backward
+    # schedules and the packed kernels too; ROADMAP.md queue A).
     from fa2_triton_tpu_torch.ops import varlen
 
     q = torch.zeros(1, 8, 2, 640, device=dev, dtype=torch.bfloat16)
@@ -195,8 +195,8 @@ def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         flash_bwd.flash_attn_backward(qw, qw, qw, qw, qw, torch.zeros(1, 2, 8, device=dev), lens8,
                                       0, 0, bias, causal=True, softmax_scale=0.05,
                                       compute_dbias=True)
-    xp = torch.zeros(128, 2, 384, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim 384 > 256.*queue A"):
+    xp = torch.zeros(128, 2, 640, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 640 > 512.*queue A"):
         varlen.flash_attn_varlen_func(xp, xp, xp, [0, 128], block_q=128, block_kv=128)
     for route in ("tri_square", "worklist", "split"):
         with pytest.raises(ValueError, match="queue A.*got 640"):
@@ -622,12 +622,14 @@ def _varlen_check(dev, dtype, starts, qlens, kvlens, T, Hq, Hkv, D, seed, **kw):
     return o, lse, grads
 
 
-# Rectangular blocks both ways: the 64-row tiles nest in either.
-VARLEN_BLOCKS = {64: (64, 128), 128: (128, 128), 256: (128, 64)}
+# Rectangular blocks both ways: the 64-row tiles nest in either (and past D
+# 256 the 32-row halves of a 64-row tile, the 16-bit dk/dv blocks and the
+# fp32 blocks, sit at both ends of a user block).
+VARLEN_BLOCKS = {64: (64, 128), 128: (128, 128), 256: (128, 64), 384: (128, 64), 512: (64, 128)}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128, 256] + WIDE)
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("G", [1, 4, 8])
 def test_varlen_kernels_match_plain(dev, dtype, D, causal, G):
@@ -639,12 +641,13 @@ def test_varlen_kernels_match_plain(dev, dtype, D, causal, G):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("D", [128] + WIDE)
 @pytest.mark.parametrize("causal", [False, True])
-def test_varlen_kernels_with_q_len_ne_kv_len(dev, dtype, causal):
+def test_varlen_kernels_with_q_len_ne_kv_len(dev, dtype, D, causal):
     """Bottom-right causal alignment on each segment's own shift, negative
     (first rows see nothing) and positive."""
     starts, T = [0, 512, 768], 1280
-    _varlen_check(dev, dtype, starts, (300, 1, 200), (200, 64, 449), T, 4, 2, 128, seed=5,
+    _varlen_check(dev, dtype, starts, (300, 1, 200), (200, 64, 449), T, 4, 2, D, seed=5,
                   causal=causal, softmax_scale=0.1, block_q=128, block_kv=256)
 
 
@@ -683,8 +686,9 @@ BLOCKSPARSE_CASES = [
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("D", [128] + WIDE)
 @pytest.mark.parametrize("case", range(len(BLOCKSPARSE_CASES)))
-def test_blocksparse_kernels_match_plain(dev, dtype, case):
+def test_blocksparse_kernels_match_plain(dev, dtype, D, case):
     import numpy as np
     from fa2_triton_tpu_torch.ops import varlen
 
@@ -693,7 +697,7 @@ def test_blocksparse_kernels_match_plain(dev, dtype, case):
         mask = np.random.RandomState(0).rand(4, 4) < 0.6
     keep = varlen._mask_keep_fn(varlen.encode_block_mask(mask))
     starts, T = [0, 512], 1024
-    _varlen_check(dev, dtype, starts, (512, 400), (512, 400), T, 8, 2, 128, seed=case,
+    _varlen_check(dev, dtype, starts, (512, 400), (512, 400), T, 8, 2, D, seed=case,
                   causal=causal, softmax_scale=0.09, block_q=bq, block_kv=bkv, keep_block=keep)
 
 
@@ -706,7 +710,7 @@ def _varlen_run(q, k, v, do, starts, lens, **kw):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128, 256] + WIDE)
 def test_varlen_kernels_ignore_nan_in_the_gaps(dev, dtype, D):
     """The gaps of the packed stream may hold NaN: every output equals that
     of zero gaps bit for bit, and dead positions are exactly 0."""
@@ -728,12 +732,14 @@ def test_varlen_kernels_ignore_nan_in_the_gaps(dev, dtype, D):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [128] + WIDE)
 @pytest.mark.parametrize("dropout_p", [0.0, 0.1])
-def test_varlen_kernels_are_bitwise_repeatable(dev, dtype, dropout_p):
-    """Five runs of the forward (o, lse) and backward give equal bits."""
+def test_varlen_kernels_are_bitwise_repeatable(dev, dtype, D, dropout_p):
+    """Five runs of the forward (o, lse) and backward give equal bits (past
+    D 256 each 32-row dk/dv block writes its own rows: still no atomics)."""
     lens = (300, 1, 128, 77)
     starts, T = _varlen_layout(lens, (128, 128))
-    q, k, v, do = (x.to(dtype) for x in _varlen_inputs(dev, T, 8, 1, 128, 4))
+    q, k, v, do = (x.to(dtype) for x in _varlen_inputs(dev, T, 8, 1, D, 4))
     kw = dict(causal=True, softmax_scale=0.088, block_q=128, block_kv=128,
               **(dict(dropout_p=dropout_p, dropout_seed=41) if dropout_p else {}))
     runs = [_varlen_run(q, k, v, do, starts, lens, **kw) for _ in range(5)]
@@ -785,8 +791,8 @@ def test_varlen_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     x = torch.zeros(256, 2, 64, device=dev)
     with pytest.raises(ValueError, match="multiples of 64"):
         varlen.flash_attn_varlen_func(x, x, x, [0, 256], block_q=32, block_kv=32)
-    x = torch.zeros(256, 2, 320, device=dev)
-    with pytest.raises(ValueError, match="head_dim 320.*queue A"):
+    x = torch.zeros(256, 2, 640, device=dev)
+    with pytest.raises(ValueError, match="head_dim 640.*queue A"):
         varlen.flash_attn_varlen_func(x, x, x, [0, 256], block_q=128, block_kv=128)
     with pytest.raises(ValueError, match="dropout_seed or dropout_rng"):
         varlen.flash_attn_varlen_func(x[..., :64], x[..., :64], x[..., :64], [0, 256],
@@ -1300,7 +1306,7 @@ def test_dropout_on_cuda_launches_the_kernels(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128, 256] + WIDE)
 @pytest.mark.parametrize("G", [1, 4])
 def test_varlen_dropout_kernels_match_plain(dev, dtype, D, G):
     lens = (300, 1, 128, 77)
@@ -1312,12 +1318,13 @@ def test_varlen_dropout_kernels_match_plain(dev, dtype, D, G):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128, 256] + WIDE)
 @pytest.mark.parametrize("G", [1, 4])
 def test_varlen_forward_drops_what_the_fma_kernel_drops(dev, dtype, D, G):
     """At p 0.1 the 16-bit forward (tensor cores) drops the same elements
     as the fp32 one (FMA tiles): the mask probe reads both bit for bit, and
-    both equal the rng mask."""
+    both equal the rng mask (past D 256 a row's hash follows its row group
+    of 16, two warps each)."""
     from fa2_triton_tpu_torch.utils import mask_probes
 
     seed = 1234 + D + G
@@ -1330,22 +1337,23 @@ def test_varlen_forward_drops_what_the_fma_kernel_drops(dev, dtype, D, G):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
-def test_blocksparse_dropout_kernels_match_plain(dev, dtype):
+@pytest.mark.parametrize("D", [128] + WIDE)
+def test_blocksparse_dropout_kernels_match_plain(dev, dtype, D):
     import numpy as np
     from fa2_triton_tpu_torch.ops import varlen
 
     keep = varlen._mask_keep_fn(varlen.encode_block_mask(np.random.RandomState(0).rand(4, 4) < 0.6))
-    _varlen_check(dev, dtype, [0, 512], (512, 400), (512, 400), 1024, 8, 2, 128, seed=9,
+    _varlen_check(dev, dtype, [0, 512], (512, 400), (512, 400), 1024, 8, 2, D, seed=9,
                   causal=True, softmax_scale=0.09, block_q=128, block_kv=128, keep_block=keep,
                   dropout_p=0.3, dropout_seed=-1)
 
 
-@pytest.mark.parametrize("D", [32, 96, 160])
+@pytest.mark.parametrize("D", [32, 96, 160, 300, 448])
 def test_head_dims_off_the_kernel_widths_are_padded(dev, D):
     """flash_attn_func, flash_attn_varlen_func and flash_attn_blocksparse_func
-    take any head_dim <= 256 on CUDA (zero-padded to 64 / 128 / 256 for the
-    kernels): outputs and gradients match the same calls on the CPU, fp32.
-    (Past 256: test_wide_head_dims_off_the_kernel_widths_are_padded.)"""
+    take any head_dim <= 512 on CUDA (zero-padded to 64 / 128 / 256 / 384 /
+    512 for the kernels): outputs and gradients match the same calls on the
+    CPU, fp32."""
     from fa2_triton_tpu_torch.ops import varlen
 
     rng = torch.Generator().manual_seed(D)
