@@ -5973,23 +5973,28 @@ def fa_check(torch, what, got, ref32, plain, fp32=False):
     return err
 
 
-def wide_forward_checks(torch, D, x32, lens, worst):
+def wide_forward_checks(torch, D, x32, lens, worst, split_leaf=None):
     """(a)'s forward at head dim D: every route forced by name (tri-square
     at S 256, the split with its merge, the strip and the generic kernel at
     S 1024), dropout, a bias, softcap and a window, in bf16; fp32 and fp16
     (the tensor-core kernel, and through flash_attn_func the fp32 and bf16
-    compute of JAX's fp16 rule)."""
+    compute of JAX's fp16 rule). `split_leaf`: the split's leaves where its
+    default leaf is 0 (past D 512); where JAX's gate refuses the strip (D
+    1024: K and V strips at S 1024 do not fit its VMEM budget), its own
+    entry point (`flash_attn_forward_causal_strip`, the same launch)."""
     from fa2_triton_tpu_torch.ops import flash_attn_func, flash_fwd
 
     t = lambda x: x.transpose(1, 2)
     q32, k32, v32 = x32
     S = q32.shape[1]
     kw = dict(causal=True, softmax_scale=D ** -0.5)
+    strip_gate = flash_fwd.forward_gates(S, S, D, 2, causal=True, static_skip=True)["strip"]
     bias32 = (torch.randn(1, q32.shape[2], S, S, generator=torch.Generator(device="cuda")
                           .manual_seed(D), device="cuda") * 0.5)
     cases = {"route tri_square S 256": dict(route="tri_square", static_skip=True, rows=256),
-             "route split": dict(route="split", static_skip=True),
-             "route strip": dict(route="strip", static_skip=True),
+             "route split": dict(route="split", static_skip=True, split_leaf=split_leaf),
+             "route strip": (dict(route="strip", static_skip=True) if strip_gate
+                             else dict(strip_call=True)),
              "route generic": dict(route="generic", static_skip=True),
              "dropout": dict(dropout_p=0.1, dropout_seed=D),
              "bias": dict(bias=True), "softcap": dict(softcap=5.0),
@@ -6002,13 +6007,18 @@ def wide_forward_checks(torch, D, x32, lens, worst):
         bias = bias32[:, :, :rows, :rows] if c.pop("bias", False) else None
         args32 = [t(x[:, :rows]) for x in (q32, k32, v32)]
         lens_c = torch.tensor([[rows, rows]] * q32.shape[0], dtype=torch.int32, device="cuda")
-        plain_kw = {k: v for k, v in c.items() if k not in ("route", "static_skip")}
+        strip_call = c.pop("strip_call", False)
+        plain_kw = {k: v for k, v in c.items() if k not in ("route", "static_skip", "split_leaf")}
         ref = flash_fwd.flash_attn_forward_plain(*args32, lens_c, 0, 0, bias, **kw, **plain_kw)[0]
         xb = [a.to(torch.bfloat16) for a in args32]
         bb = None if bias is None else bias.to(torch.bfloat16)
         plain = flash_fwd.flash_attn_forward_plain(*xb, lens_c, 0, 0, bb, **kw, **plain_kw)[0]
         before = {"flash_fwd": flash_fwd.LAUNCHES, **flash_fwd.SCHEDULE_LAUNCHES}
-        o, _ = flash_fwd.flash_attn_forward(*xb, lens_c, 0, 0, bb, **kw, **c)
+        if strip_call:
+            o, _ = flash_fwd.flash_attn_forward_causal_strip(*xb, lens_c,
+                                                             softmax_scale=kw["softmax_scale"])
+        else:
+            o, _ = flash_fwd.flash_attn_forward(*xb, lens_c, 0, 0, bb, **kw, **c)
         torch.cuda.synchronize()
         after = {"flash_fwd": flash_fwd.LAUNCHES, **flash_fwd.SCHEDULE_LAUNCHES}
         delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
@@ -6085,7 +6095,7 @@ def wide_backward_checks(torch, D, x32, do32, lens, worst):
     return strip_ok
 
 
-def wide_decode_checks(torch, D, worst):
+def wide_decode_checks(torch, D, worst, heads=WIDE_HEADS):
     """(a)'s decode at head dim D: 8 slots, Hq 8 / Hkv 2, 2048 cache rows at
     phase 2's lengths up to 2048: contiguous bf16, fp16, fp32, int8 and fp8
     caches and paged bf16 and int8 (page 128) against the plain twins at
@@ -6095,7 +6105,7 @@ def wide_decode_checks(torch, D, worst):
 
     gen = torch.Generator(device="cuda").manual_seed(D + 7)
     lens = [n for n in DECODE_LENS if n <= 2048]
-    B, (Hq, Hkv), S = len(lens), WIDE_HEADS, 2048
+    B, (Hq, Hkv), S = len(lens), heads, 2048
     q32 = torch.randn(B, Hq, D, generator=gen, device="cuda") * 0.5
     k32, v32 = (torch.randn(B, Hkv, S, D, generator=gen, device="cuda") * 0.5 for _ in range(2))
     kv_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
@@ -6128,14 +6138,15 @@ def wide_decode_checks(torch, D, worst):
                 raise AssertionError(f"D {D} paged int8 decode differs from contiguous")
 
 
-def wide_kernel_checks(torch):
-    """(a): each kernel at D 384 and 512 against its plain twin; the launch
-    count of every family at each D must be positive."""
+def wide_kernel_checks(torch, dims=WIDE_DIMS, heads=WIDE_HEADS, split_leaf=None, tag="wide"):
+    """(a): each kernel at D 384 and 512 (or `dims`, at `heads`) against its
+    plain twin; the launch count of every family at each D must be
+    positive."""
     dev = torch.device("cuda")
-    Hq, Hkv = WIDE_HEADS
+    Hq, Hkv = heads
     worst = {"forward": 0.0, "backward": 0.0, "decode": 0.0}
     launches, strip = {}, {}
-    for D in WIDE_DIMS:
+    for D in dims:
         gen = torch.Generator(device=dev).manual_seed(D)
         S = WIDE_CHECK_SEQ
         x32 = [torch.randn(1, S, h, D, generator=gen, device=dev) * 0.5 for h in (Hq, Hkv, Hkv)]
@@ -6149,15 +6160,15 @@ def wide_kernel_checks(torch):
             for k, n in wide_counts().items():
                 totals[k] += n
             return out
-        tally(wide_forward_checks, torch, D, x32, lens, worst)
+        tally(wide_forward_checks, torch, D, x32, lens, worst, split_leaf)
         strip[D] = tally(wide_backward_checks, torch, D, x32, do32, lens, worst)
-        tally(wide_decode_checks, torch, D, worst)
+        tally(wide_decode_checks, torch, D, worst, heads)
         if not all(totals.values()):
             raise AssertionError(f"D {D}: a kernel family never launched: {totals}")
         launches[D] = totals
         del x32, do32
         torch.cuda.empty_cache()
-    print(f"[wide kernels] D {list(WIDE_DIMS)}: every forward route (tri-square, split + merge, "
+    print(f"[{tag} kernels] D {list(dims)}: every forward route (tri-square, split + merge, "
           f"strip, generic), dropout, bias, softcap, window; bf16 / fp16 / fp32; the pair with "
           f"dropout and EXTRA (strip route at D {[d for d in strip if strip[d]]}); decode "
           f"bf16 / fp16 / fp32 / int8 / fp8, paged bf16 / int8 == contiguous: within the FA "
@@ -6188,18 +6199,27 @@ def library_sdpa(torch, q, k, v, causal, scale):
     return "EFFICIENT_ATTENTION", call
 
 
-def wide_times(torch, card):
+# The profiler names of the forward, dq, dk/dv and decode kernels up to D
+# 512, and past it (csrc/flash_fwd_any.cu, flash_bwd_any.cu, decode_any.cuh).
+WIDE_NAMES = ("flash_fwd_mma_kernel", "dq_mma_kernel", "dkdv_mma_kernel", "decode_kernel")
+WIDER_NAMES = ("fwd_any_mma_kernel", "dq_any_mma_kernel", "dkdv_any_mma_kernel",
+               "decode_any_kernel")
+
+
+def wide_times(torch, card, dims=(512, 384), heads=WIDE_HEADS, names=WIDE_NAMES, tag="wide"):
     """(b): the forward and the pair at B 2 x S 2048, causal, Hq 8 / Hkv 2,
     D 512 and 384, and decode over 8 slots x 4096 rows at D 512 (2 KV
-    heads, G 4), bf16: kernel device time (profiler), the plain twin's and
-    the library's (SDPA's memory-efficient backend), and each bound."""
+    heads, G 4), bf16 (or `dims`, decode at the first, at `heads`, the
+    kernels named `names`): kernel device time (profiler), the plain twin's
+    and the library's (SDPA's memory-efficient backend), and each bound."""
     from fa2_triton_tpu_torch.ops import decode, flash_bwd, flash_fwd
 
     dev = torch.device("cuda")
-    Hq, Hkv = WIDE_HEADS
+    Hq, Hkv = heads
     B, S = WIDE_TIME_B, WIDE_TIME_SEQ
+    fwd_name, dq_name, dkdv_name, decode_name = names
     out = {}
-    for D in (512, 384):
+    for D in dims:
         gen = torch.Generator(device=dev).manual_seed(D + 11)
         q, k, v = ((torch.randn(B, S, h, D, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
                    .transpose(1, 2) for h in (Hq, Hkv, Hkv))
@@ -6211,9 +6231,8 @@ def wide_times(torch, card):
         o, lse = fwd()
         bwd = lambda: flash_bwd.flash_attn_backward(q, k, v, do, o, lse, lens, static_skip=True,
                                                     **kw)
-        name = "flash_fwd_mma_kernel"
-        ms = {"fwd": kernel_ms(torch, fwd, [name])[name]}
-        ms.update(kernel_ms(torch, bwd, ["dq_mma_kernel", "dkdv_mma_kernel"]))
+        ms = {"fwd": kernel_ms(torch, fwd, [fwd_name])[fwd_name]}
+        ms.update(kernel_ms(torch, bwd, [dq_name, dkdv_name]))
         # The calls by CUDA events, host work included (delta, layouts).
         ms.update(fwd_call=cuda_ms(torch, fwd, iters=5), bwd_call=cuda_ms(torch, bwd, iters=5))
         plain_f = cuda_ms(torch, lambda: flash_fwd.flash_attn_forward_plain(q, k, v, lens, **kw),
@@ -6223,8 +6242,8 @@ def wide_times(torch, card):
                           iters=3, warmup=1)
         pairs = B * causal_pairs([S])
         bounds = {"fwd": attn_bound("fwd", pairs, B * S, Hq, Hkv, D, 2),
-                  "dq_mma_kernel": attn_bound("dq", pairs, B * S, Hq, Hkv, D, 2),
-                  "dkdv_mma_kernel": attn_bound("dkdv", pairs, B * S, Hq, Hkv, D, 2)}
+                  dq_name: attn_bound("dq", pairs, B * S, Hq, Hkv, D, 2),
+                  dkdv_name: attn_bound("dkdv", pairs, B * S, Hq, Hkv, D, 2)}
         backend, lib = library_sdpa(torch, q, k, v, True, D ** -0.5)
         lib_f = lib_fb = None
         if backend is not None:
@@ -6236,19 +6255,19 @@ def wide_times(torch, card):
                  "bounds": bounds, "library": backend or lib, "library_fwd_ms": lib_f,
                  "library_fwd_bwd_ms": lib_fb}
         out[D] = entry
-        print(f"[wide times] B {B} x S {S} causal, Hq {Hq} / Hkv {Hkv}, D {D}, bf16 [{card}]: "
+        print(f"[{tag} times] B {B} x S {S} causal, Hq {Hq} / Hkv {Hkv}, D {D}, bf16 [{card}]: "
               f"forward ({route}) {ms['fwd']:.3f} ms, bound {bounds['fwd']['bound_ms']:.3f} ms "
               f"({100 * bounds['fwd']['bound_ms'] / ms['fwd']:.1f} %); dq "
-              f"{ms['dq_mma_kernel']:.3f} ms, bound {bounds['dq_mma_kernel']['bound_ms']:.3f} "
-              f"ms; dk/dv {ms['dkdv_mma_kernel']:.3f} ms, bound "
-              f"{bounds['dkdv_mma_kernel']['bound_ms']:.3f} ms; the calls (CUDA events, 5 "
+              f"{ms[dq_name]:.3f} ms, bound {bounds[dq_name]['bound_ms']:.3f} "
+              f"ms; dk/dv {ms[dkdv_name]:.3f} ms, bound "
+              f"{bounds[dkdv_name]['bound_ms']:.3f} ms; the calls (CUDA events, 5 "
               f"runs) {ms['fwd_call']:.3f} / {ms['bwd_call']:.3f} ms; plain {plain_f:.3f} / "
               f"{plain_b:.3f} ms; library "
               + (f"SDPA {backend}: forward {lib_f:.3f} ms, forward + backward {lib_fb:.3f} ms"
                  if backend else f"none: {lib}"))
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
-    D = 512
+    D = dims[0]
     gen = torch.Generator(device=dev).manual_seed(5)
     slots, rows = WIDE_DECODE_SLOTS, WIDE_DECODE_ROWS
     q = (torch.randn(slots, Hq, D, generator=gen, device=dev) * 0.5).to(torch.bfloat16)
@@ -6256,7 +6275,7 @@ def wide_times(torch, card):
               .to(torch.bfloat16) for _ in range(2))
     kv_lens = torch.full((slots,), rows, dtype=torch.int32, device=dev)
     run = lambda: decode.decode_attention(q, kc, vc, kv_lens)
-    dms = decode_kernel_ms(torch, run)
+    dms = kernel_ms(torch, run, [decode_name], iters=10)[decode_name]
     plain = cuda_ms(torch, lambda: decode.decode_attention_plain(q, kc, vc, kv_lens), iters=3)
     nbytes = 2 * slots * rows * Hkv * D * 2 + 2 * slots * Hq * D * 2
     dbound = roofline(4 * D * Hq * slots * rows, nbytes)
@@ -6264,31 +6283,32 @@ def wide_times(torch, card):
     lib_ms = library_mean_ms(torch, lib) if backend else None
     out["decode"] = {"ms": dms, "plain_ms": plain, **dbound, "library": backend or lib,
                      "library_ms": lib_ms}
-    print(f"[wide times] decode {slots} slots x {rows} rows, Hq {Hq} / Hkv {Hkv}, D {D}, bf16 "
+    print(f"[{tag} times] decode {slots} slots x {rows} rows, Hq {Hq} / Hkv {Hkv}, D {D}, bf16 "
           f"[{card}]: kernel {dms:.4f} ms, bound {dbound['bound_ms']:.4f} ms "
           f"({dbound['bound_by']}, {100 * dbound['bound_ms'] / dms:.1f} %), plain {plain:.3f} ms, "
           f"library " + (f"SDPA {backend} {lib_ms:.4f} ms" if backend else f"none: {lib}"))
     return out
 
 
-def wide_model(torch, card):
-    """(c): Mistral-7B-v0.3's widths, heads cut to 8 x 512 / 2 x 512, full
-    depth, random weights (seed 0): 8 of phase 3's prompts served through a
-    contiguous bf16 and a paged int8 cache (phase 3's log-prob check), the
-    2-layer gradients against fp32, then WIDE_TRAIN_STEPS trainer steps at
-    2 x 2048."""
+def wide_model(torch, card, over=None, tag="wide"):
+    """(c): Mistral-7B-v0.3's widths, heads cut to 8 x 512 / 2 x 512 (or
+    `over`), full depth, random weights (seed 0): 8 of phase 3's prompts
+    served through a contiguous bf16 and a paged int8 cache (phase 3's
+    log-prob check), the 2-layer gradients against fp32, then
+    WIDE_TRAIN_STEPS trainer steps at 2 x 2048 (the forward's and the
+    pair's launches held to the layers and steps)."""
     from fa2_triton_tpu_torch.examples import train
     from fa2_triton_tpu_torch.models import init_params
     from fa2_triton_tpu_torch.ops import flash_bwd, flash_fwd
 
-    over = dict(n_heads=8, n_kv_heads=2, head_dim=512)
+    over = over or dict(n_heads=8, n_kv_heads=2, head_dim=512)
     cfg = train.preset_config("mistral-7b-v0.3", torch.bfloat16, **over)
     res = {}
     with torch.inference_mode():
         model = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
         prompts = served_prompts(cfg)[:WIDE_REQUESTS]
-        for what, tol in (("serve wide", (LOGPROB_MEAN_TOL, LOGPROB_MAX_TOL)),
-                          ("serve wide paged int8", QUANT_LOGPROB_TOL["int8"])):
+        for what, tol in ((f"serve {tag}", (LOGPROB_MEAN_TOL, LOGPROB_MAX_TOL)),
+                          (f"serve {tag} paged int8", QUANT_LOGPROB_TOL["int8"])):
             reqs, stats, launches = serve(torch, model, cfg, prompts, card, what)[:3]
             errs = check_logprobs(torch, model, cfg, reqs, prompts, what, *tol)
             res[what] = {"launches": launches, "decode_tokens_per_s": stats.decode_tokens_per_s,
@@ -6296,7 +6316,7 @@ def wide_model(torch, card):
         del model
     gc.collect()
     torch.cuda.empty_cache()
-    phase_train_grads(torch, what="wide train", **over)
+    phase_train_grads(torch, what=f"{tag} train", **over)
     gc.collect()
     torch.cuda.empty_cache()
     argv = ["--config", "mistral-7b-v0.3", "--steps", str(WIDE_TRAIN_STEPS), "--batch", "2",
@@ -6308,12 +6328,12 @@ def wide_model(torch, card):
         flash_bwd.reset_launches()
 
     preset = train.build_config
-    # The preset's widths with the attention cut into heads of 512: the
-    # trainer's own config, its heads replaced (no flag of the trainer
-    # names a head count).
+    # The preset's widths with the attention cut into heads of 512 (or
+    # `over`'s): the trainer's own config, its heads replaced (no flag of the
+    # trainer names a head count).
     train.build_config = lambda args: dataclasses.replace(preset(args), **over)
     try:
-        args, run = run_trainer(torch, card, argv, reset, "wide train")
+        args, run = run_trainer(torch, card, argv, reset, f"{tag} train")
     finally:
         train.build_config = preset
     L = run["config"].n_layers
@@ -6321,8 +6341,8 @@ def wide_model(torch, card):
                 **flash_bwd.LAUNCHES}
     want = {"flash_fwd": 2 * L * args.steps, "flash_bwd_dq": L * args.steps,
             "flash_bwd_dkdv": L * args.steps, "flash_bwd_dbias": 0}
-    if run["config"].hd != 512 or launches != want:
-        raise AssertionError(f"wide training: head_dim {run['config'].hd}, launches {launches} "
+    if run["config"].hd != over["head_dim"] or launches != want:
+        raise AssertionError(f"{tag} training: head_dim {run['config'].hd}, launches {launches} "
                              f"!= {want}")
     res["train"] = {"layers": L, "losses": run["losses"], "step_s": run["step_s"],
                     "tokens_per_s": run["tokens_per_s"], "peak_gib": run["peak_bytes"] / 2**30,
@@ -7077,6 +7097,145 @@ def phase_wide_packed(torch, card):
             "worst": worst, "times": times, "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# Phase 23 (head dims past 512): the forward on every route, the dq + dk/dv
+# pair and decode at any multiple of 128, on csrc/any_tiles.cuh's column
+# split (flash_fwd_any.cu, flash_bwd_any.cu, decode_any.cuh):
+# (a) each family at D 640 and 1024 against its plain twin (phase 20's
+#     checks: every forward route, the split with leaves of 512, dropout,
+#     bias, softcap, window; the pair with dropout and EXTRA, fp32 FMA;
+#     decode bf16 / fp16 / fp32 / int8 / fp8, paged bf16 / int8 equal to
+#     contiguous), launches counted; the column chunks' lse equal bit for
+#     bit, and 5-run bitwise repeats (`wider_repeats`);
+# (b) the times at B 2 x S 2048, causal, bf16, 4 / 1 heads of 1024, and
+#     decode over 8 slots x 4096 rows: kernel (profiler), bound, plain and
+#     library (SDPA's memory-efficient backend, or why it refused);
+# (c) Mistral-7B-v0.3's widths with the attention cut into 4 / 1 heads of
+#     1024 (Hq x D = 4096 and Hkv x D = 1024, the preset's, so wq / wk / wv
+#     / wo keep their shapes and a token's attention FLOPs and KV bytes),
+#     full depth, random weights: served contiguous bf16 and paged int8
+#     (phase 3's log-prob check), the 2-layer gradients against fp32, and
+#     trainer steps at 2 x 2048 (forward generic, backward the pair);
+# and the build report of every instantiation past 512 (`any_build_report`):
+# 0 spills, HMMA in every 16-bit one.
+
+WIDER_DIMS = (640, 1024)
+WIDER_HEADS = (4, 1)
+WIDER_SPLIT_LEAF = 512           # (a): the split's default leaf is 0 past D 512
+WIDER_OVER = dict(n_heads=4, n_kv_heads=1, head_dim=1024)
+SERVE_MODES.update({"serve wider": {}, "serve wider paged int8": {"paged": True,
+                                                                  "qdtype": "int8"}})
+# The instantiations past D 512: the forward (bf16 / fp16 x dropout x (plain,
+# bias / softcap, merge)), dq and dk/dv (x dropout x EXTRA), their fp32 FMA
+# kernels, and decode (3 q dtypes x 3 caches x 2 layouts x 4 groups).
+ANY_KERNELS = {"fwd_any_mma_kernel": 12, "dq_any_mma_kernel": 8, "dkdv_any_mma_kernel": 8,
+               "fwd_any_fma_kernel": 4, "dq_any_fma_kernel": 2, "dkdv_any_fma_kernel": 2,
+               "decode_any_kernel": 72}
+
+
+def any_build_report() -> dict:
+    """Registers and spills of every instantiation past D 512 from nvcc
+    -Xptxas -v's report, and the HMMA count of the tensor-core ones in the
+    SASS; fails on any spill, on another count, or on a tensor-core kernel
+    without HMMA. Returns {kernel: summary}."""
+    from fa2_triton_tpu_torch.ops import _build
+
+    regs, spills, cur, prop = {}, {}, None, None
+    for line in (_build.ptxas_report or "").splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            cur = m[1] if "_any_" in m[1] else None
+        elif m := re.search(r"Function properties for (\S+)", line):
+            prop = m[1] if "_any_" in m[1] else None
+        elif (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)) and prop:
+            spills[prop] = int(m[1]) + int(m[2])
+        elif (m := re.search(r"Used (\d+) registers", line)) and cur:
+            regs[cur] = int(m[1])
+    hmma = sass_hmma(_build.build())
+    out = {}
+    for kernel, want in ANY_KERNELS.items():
+        names = [n for n in regs if re.search(r"\d" + kernel + "I", n)]
+        spilled = {n: spills[n] for n in names if spills.get(n)}
+        no_mma = [n for n in names if "_mma_" in kernel and not hmma.get(n)]
+        out[kernel] = {"instantiations": len(names),
+                       "registers": [min((regs[n] for n in names), default=0),
+                                     max((regs[n] for n in names), default=0)],
+                       "spilled": len(spilled),
+                       "hmma_min": min((hmma.get(n, 0) for n in names), default=0)}
+        print(f"[any build] {kernel}: {len(names)} instantiations, "
+              f"{out[kernel]['registers'][0]}-{out[kernel]['registers'][1]} registers, "
+              f"{len(spilled)} spill" + (f", at least {out[kernel]['hmma_min']} HMMA in the SASS"
+                                         if "_mma_" in kernel else ""))
+        if len(names) != want or spilled or no_mma:
+            raise AssertionError(f"{kernel}: {len(names)} instantiations (not {want}), spills "
+                                 f"{spilled}, without HMMA {no_mma[:2]}")
+    return out
+
+
+def wider_repeats(torch):
+    """(a): at D 1024, bf16, 4 / 1 heads, S 1024: every column chunk of the
+    forward computes the call's lse bit for bit (`chunk_lse`), and 5 runs
+    each of the forward with dropout, the forced split (its merges read the
+    previous lse from a copy while the chunks write the new one), the pair
+    with dropout and decode give identical outputs."""
+    from fa2_triton_tpu_torch.ops import decode, flash_bwd, flash_fwd
+
+    D, S, (Hq, Hkv) = WIDER_OVER["head_dim"], WIDE_CHECK_SEQ, WIDER_HEADS
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v, do = ((torch.randn(1, h, S, D, generator=gen, device="cuda") * 0.5)
+                   .to(torch.bfloat16) for h in (Hq, Hkv, Hkv, Hq))
+    lens = torch.tensor([[S, S]], dtype=torch.int32, device="cuda")
+    kw = dict(causal=True, softmax_scale=D ** -0.5)
+    drop = dict(dropout_p=0.1, dropout_seed=D)
+    _, lse = flash_fwd.flash_attn_forward(q, k, v, lens, **kw, **drop)
+    _, per_chunk = flash_fwd._flash_fwd_launch(q, k, v, lens, 0, 0, None, window=(-1, -1),
+                                               softcap=0.0, seqlen_q_real=None,
+                                               seqlen_k_real=None, chunk_lse=True, **kw, **drop)
+    if not all(torch.equal(c.view(torch.int32), lse.view(torch.int32)) for c in per_chunk):
+        raise AssertionError(f"D {D}: the column chunks' lse differ")
+    o, lse = flash_fwd.flash_attn_forward(q, k, v, lens, **kw, **drop)
+    qd = q[0, :, -1].contiguous()[None].expand(8, Hq, D).contiguous()
+    kc, vc = (x.expand(8, Hkv, S, D).contiguous() for x in (k, v))
+    kv_lens = torch.tensor([1, 100, 511, 512, 513, 700, 1000, 1024], dtype=torch.int32,
+                           device="cuda")
+    runs = {"forward dropout": lambda: flash_fwd.flash_attn_forward(q, k, v, lens, **kw, **drop),
+            "forced split": lambda: flash_fwd.flash_attn_forward(
+                q, k, v, lens, static_skip=True, route="split", split_leaf=WIDER_SPLIT_LEAF,
+                **kw),
+            "pair dropout": lambda: flash_bwd.flash_attn_backward(q, k, v, do, o, lse, lens, **kw,
+                                                                  **drop),
+            "decode": lambda: (decode.decode_attention(qd, kc, vc, kv_lens),)}
+    for name, run in runs.items():
+        first = run()
+        for _ in range(4):
+            if not all(torch.equal(a, b) for a, b in zip(run(), first)):
+                raise AssertionError(f"D {D} {name}: 5 runs differ")
+    print(f"[wider kernels] D {D}: the {per_chunk.shape[0]} column chunks' lse equal bit for bit; "
+          f"5 runs each of {', '.join(runs)} identical")
+
+
+def phase_wider(torch, card):
+    """Phase 23: head dims past 512 ((a)-(c) above)."""
+    t0 = time.perf_counter()
+    build = any_build_report()
+    os.environ["FA2_DISABLE_TUNING_TABLE"] = "1"   # the prior's routes, as phases 1-16
+    try:
+        with torch.inference_mode():
+            launches, worst = wide_kernel_checks(torch, WIDER_DIMS, WIDER_HEADS,
+                                                 WIDER_SPLIT_LEAF, tag="wider")
+            wider_repeats(torch)
+        times = wide_times(torch, card, (WIDER_OVER["head_dim"],), WIDER_HEADS, WIDER_NAMES,
+                           tag="wider")
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = wide_model(torch, card, WIDER_OVER, tag="wider")
+    finally:
+        os.environ.pop("FA2_DISABLE_TUNING_TABLE", None)
+    seconds = time.perf_counter() - t0
+    print(f"[wider] phase 23 in {seconds:.1f} s")
+    return {"build": build, "launches": launches, "worst": worst, "times": times,
+            "model": model, "seconds": seconds}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     t_lap = [t_start]
@@ -7211,6 +7370,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     wide_packed = phase_wide_packed(torch, card)
     lap('phase 22 (wide packed)')
+    gc.collect()
+    torch.cuda.empty_cache()
+    wider = phase_wider(torch, card)
+    lap('phase 23 (wider)')
 
     if any(name == "jax" or name.startswith(("jax.", "fa2_triton_tpu.")) for name in sys.modules):
         raise RuntimeError("the port imported jax or the JAX package")
@@ -7467,6 +7630,42 @@ def main() -> int:
         "worst_err": sched_wide["worst"], "train": {
             k: {n: x for n, x in v.items() if n != "launches"}
             for k, v in sched_wide["train"].items()}, "seconds": sched_wide["seconds"]}
+    # Phase 23: past D 512 the ported families take any multiple of 128; their
+    # launches at D 640 / 1024 ((a)), in (c)'s serving and training, and (b)'s
+    # numbers at D 1024.
+    wider_built = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv", "decode", "decode_quant",
+                   "paged_decode", "flash_fwd_dropout", "flash_bwd_dropout_dq",
+                   "flash_bwd_dropout_dkdv", "flash_fwd_causal_strip", "flash_fwd_causal_diag",
+                   "flash_fwd_rect", "flash_fwd_rect_merge", "flash_bwd_rect")
+    for e in table["kernels"]:
+        if e["name"] in wider_built:
+            e["head_dims"] = e["head_dims"] + ["any multiple of 128 past 512"]
+    for name, counter in wide_entries.items():
+        for D in WIDER_DIMS:
+            by_name[name][f"launches_wider_{D}"] = wider["launches"][D][counter]
+    serve_wider = wider["model"]["serve wider"]
+    for name, counter in (("flash_fwd", "flash_fwd"), ("decode", "decode")):
+        by_name[name]["launches_wider_serve"] = serve_wider["launches"][counter]
+    by_name["paged_decode"]["launches_wider_serve"] = wider["model"]["serve wider paged int8"][
+        "launches"]["decode"]
+    for name, counter in (("flash_fwd", "flash_fwd"), ("flash_bwd_dq", "flash_bwd_dq"),
+                          ("flash_bwd_dkdv", "flash_bwd_dkdv")):
+        by_name[name]["launches_wider_train"] = wider["model"]["train"]["launches"][counter]
+    t1024 = wider["times"][WIDER_OVER["head_dim"]]
+    for name, key, plain, lib in (("flash_fwd", "fwd", "plain_fwd_ms", "library_fwd_ms"),
+                                  ("flash_bwd_dq", "dq_any_mma_kernel", "plain_bwd_ms",
+                                   "library_fwd_bwd_ms"),
+                                  ("flash_bwd_dkdv", "dkdv_any_mma_kernel", "plain_bwd_ms",
+                                   "library_fwd_bwd_ms")):
+        by_name[name]["wider_1024"] = {"ms": t1024["ms"][key], "plain_ms": t1024[plain],
+                                       "library_ms": t1024[lib], "library": t1024["library"],
+                                       **t1024["bounds"][key]}
+    by_name["decode"]["wider_1024"] = wider["times"]["decode"]
+    by_name["flash_fwd"]["wider"] = {
+        "build": wider["build"], "worst_err": wider["worst"], "route": t1024["route"],
+        "calls_ms": {k: t1024["ms"][k] for k in ("fwd_call", "bwd_call")},
+        "model": {k: {n: x for n, x in v.items() if n != "launches"}
+                  for k, v in wider["model"].items()}, "seconds": wider["seconds"]}
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps(table))

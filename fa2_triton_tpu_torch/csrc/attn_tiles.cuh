@@ -233,29 +233,16 @@ __device__ __forceinline__ FwdSmem fwd_smem(float* smem) {
   return s;
 }
 
-// One KV tile: stage K/V rows [k0, k0 + N) of kp / vp (zero at or past
-// kv_valid), score them against the staged q tile, pass each raw score x
-// (log2 units) of local row r, column c through score(r, c, x) (which
-// returns -inf to drop it), and fold the tile into (m_run, l_run, acc).
-// TPR neighbouring lanes own one softmax row, CPT columns each (4 x 8 at
-// 64 x 32 tiles): m_run and l_run are the running max and sum of row
-// tid / TPR. Dropout: l sums the
-// undropped p, and only the P V product sees drop(r, c, p) (p, or 0 where
-// the element is dropped); fwd_store applies 1 / (1 - p_drop).
-template <typename T, int D, typename ScoreFn, typename DropFn>
-__device__ __forceinline__ void fwd_kv_step(const FwdSmem& s, const T* kp, long long k_ss,
-                                            const T* vp, long long v_ss, int k0, int kv_valid,
-                                            ScoreFn score, DropFn drop, float& m_run,
-                                            float& l_run, FmaAcc<D>& acc) {
+// The rest of a KV tile once its raw scores sc (log2 units) are formed:
+// score(r, c, x) of each element into s.Ss, the rows' online softmax, and
+// acc += P V with V staged in s.Vs (pitch D). Shared by fwd_kv_step and
+// flash_fwd_any.cu's FMA forward, which forms sc over slices of D.
+template <int D, typename ScoreFn, typename DropFn>
+__device__ __forceinline__ void fwd_fold(const FwdSmem& s, const FmaScores<D>& sc, ScoreFn score,
+                                         DropFn drop, float& m_run, float& l_run,
+                                         FmaAcc<D>& acc) {
   using F = FmaTile<D>;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  __syncthreads();  // q staged / previous tile fully consumed
-  stage<T, D>(s.Ks, kp, k_ss, k0, F::N, kv_valid, 1.f);
-  stage<T, D, D>(s.Vs, vp, v_ss, k0, F::N, kv_valid, 1.f);
-  __syncthreads();
-
-  FmaScores<D> sc;
-  dot_tile<D>(s.Qs, s.Ks, sc);
 #pragma unroll
   for (int i = 0; i < F::RI; ++i)
 #pragma unroll
@@ -297,6 +284,31 @@ __device__ __forceinline__ void fwd_kv_step(const FwdSmem& s, const T* kp, long 
     for (int j = 0; j < D / 16; ++j) acc[i][j] *= al;
   }
   acc_tile<D, D>(s.Ss, s.Vs, acc);
+}
+
+// One KV tile: stage K/V rows [k0, k0 + N) of kp / vp (zero at or past
+// kv_valid), score them against the staged q tile, pass each raw score x
+// (log2 units) of local row r, column c through score(r, c, x) (which
+// returns -inf to drop it), and fold the tile into (m_run, l_run, acc).
+// TPR neighbouring lanes own one softmax row, CPT columns each (4 x 8 at
+// 64 x 32 tiles): m_run and l_run are the running max and sum of row
+// tid / TPR. Dropout: l sums the
+// undropped p, and only the P V product sees drop(r, c, p) (p, or 0 where
+// the element is dropped); fwd_store applies 1 / (1 - p_drop).
+template <typename T, int D, typename ScoreFn, typename DropFn>
+__device__ __forceinline__ void fwd_kv_step(const FwdSmem& s, const T* kp, long long k_ss,
+                                            const T* vp, long long v_ss, int k0, int kv_valid,
+                                            ScoreFn score, DropFn drop, float& m_run,
+                                            float& l_run, FmaAcc<D>& acc) {
+  using F = FmaTile<D>;
+  __syncthreads();  // q staged / previous tile fully consumed
+  stage<T, D>(s.Ks, kp, k_ss, k0, F::N, kv_valid, 1.f);
+  stage<T, D, D>(s.Vs, vp, v_ss, k0, F::N, kv_valid, 1.f);
+  __syncthreads();
+
+  FmaScores<D> sc;
+  dot_tile<D>(s.Qs, s.Ks, sc);
+  fwd_fold<D>(s, sc, score, drop, m_run, l_run, acc);
 }
 
 // Write the tile's base-2 lse (lse[r] for local rows r < rows) and

@@ -103,6 +103,7 @@
 #include <algorithm>
 #include <climits>
 
+#include "any_tiles.cuh"
 #include "bwd_mma.cuh"
 
 namespace fa2 {
@@ -141,10 +142,13 @@ struct BwdParams {
   Dropout drop;
   int Sq_real, Sk_real;  // the dropout counter's lengths
   int tile_rows;         // the q rows of a dq block the host counts in
+  int D, n_dc;           // the head dim, and its column chunks past 512 (flash_bwd_any.cu)
 };
 
-// The launch at head dim 384 or 512 (flash_bwd_wide.cu).
+// The launch at head dim 384 or 512 (flash_bwd_wide.cu) and past 512, dq and
+// dk/dv only (flash_bwd_any.cu).
 int launch_bwd_wide(const BwdParams& p, int dtype, int which, int D, void* stream);
+int launch_bwd_any(const BwdParams& p, int dtype, int which, void* stream);
 
 namespace {
 
@@ -1070,9 +1074,11 @@ cudaError_t launch(const BwdParams& p, int which, cudaStream_t stream) {
                    : launch_kernel<T, D, false>(p, which, stream);
 }
 
+#ifndef FA2_ANY
 // The head dims of this translation unit: 64 / 128 / 256 here, 384 / 512 in
 // flash_bwd_wide.cu (this file with FA2_WIDE defined), so that the two sets
-// of instantiations build in parallel.
+// of instantiations build in parallel; past 512 flash_bwd_any.cu (this file
+// with FA2_ANY defined, and its own kernels).
 template <typename T>
 cudaError_t launch_d(const BwdParams& p, int which, int D, cudaStream_t stream) {
   switch (D) {
@@ -1090,6 +1096,7 @@ cudaError_t launch_d(const BwdParams& p, int which, int D, cudaStream_t stream) 
 
 int launch_dtype(const BwdParams& p, int dtype, int which, int D, void* stream) {
 #ifndef FA2_WIDE
+  if (D > 512) return launch_bwd_any(p, dtype, which, stream);
   if (D > 256) return launch_bwd_wide(p, dtype, which, D, stream);
 #endif
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1100,6 +1107,7 @@ int launch_dtype(const BwdParams& p, int dtype, int which, int D, void* stream) 
     default: return (int)cudaErrorInvalidValue;
   }
 }
+#endif  // FA2_ANY
 
 }  // namespace
 
@@ -1110,7 +1118,7 @@ int launch_bwd_wide(const BwdParams& p, int dtype, int which, int D, void* strea
 #endif
 }  // namespace fa2
 
-#ifndef FA2_WIDE
+#if !defined(FA2_WIDE) && !defined(FA2_ANY)
 
 // One entry for the three kernels (`which`: 0 dq, 1 dk/dv, 2 dbias).
 // `strides` holds, in elements: q, k, v, do, dq, dk, dv (batch, head, row
@@ -1119,7 +1127,9 @@ int launch_bwd_wide(const BwdParams& p, int dtype, int which, int D, void* strea
 // given; no bias, no softcap). `tile_rows`: the q rows of a dq block the
 // host counts in (ops/flash_fwd.py TILE_ROWS); the call fails unless it is
 // the kernels' (64). 16-bit q / k / v / do: rows, strides and base pointers
-// 16-byte aligned.
+// 16-byte aligned. col_chunks: the column chunks of head dim D
+// (ops/flash_fwd.py col_chunks; 1 up to 512, and past 512 only dq and dk/dv
+// are built); the call fails on another count.
 extern "C" int fa2_flash_bwd(
     int which, int dtype, int B, int Hq, int Hkv, int Sq, int Sk, int D,
     const void* q, const void* k, const void* v, const void* dout,
@@ -1130,8 +1140,9 @@ extern "C" int fa2_flash_bwd(
     int q_off, int kv_off, int causal, int wl, int wr,
     float softmax_scale, float softcap,
     int dropout, unsigned int drop_seed, unsigned int drop_threshold, float drop_scale,
-    int Sq_real, int Sk_real, int k_prescaled, int tile_rows, void* stream) {
-  if (k_prescaled && (bias != nullptr || softcap > 0.f || which == 2)) {
+    int Sq_real, int Sk_real, int col_chunks, int k_prescaled, int tile_rows, void* stream) {
+  if ((k_prescaled && (bias != nullptr || softcap > 0.f || which == 2)) ||
+      col_chunks != (D > 512 ? fa2::any::col_chunks(D) : 1) || (D > 512 && D % 128 != 0)) {
     return (int)cudaErrorInvalidValue;
   }
   fa2::BwdParams p;
@@ -1158,6 +1169,7 @@ extern "C" int fa2_flash_bwd(
   p.drop.scale = drop_scale;
   p.Sq_real = Sq_real; p.Sk_real = Sk_real;
   p.tile_rows = tile_rows;
+  p.D = D; p.n_dc = col_chunks;
   return fa2::launch_dtype(p, dtype, which, D, stream);
 }
-#endif  // FA2_WIDE
+#endif  // !FA2_WIDE && !FA2_ANY

@@ -94,6 +94,10 @@
 // tiles, a 4x2 score tile and a 4x(D/16) output tile per thread (at D 384 /
 // 512: 32-row q tiles, 16-row K/V tiles, 2x1 and 2x(D/16); FmaTile); KV
 // tiles beyond the causal limit or kv_len are never loaded.
+//
+// Past head dim 512 the entry points below launch flash_fwd_any.cu's kernels
+// (any multiple of 128, the output columns split over blocks).
+#include "any_tiles.cuh"
 #include "attn_tiles.cuh"
 #include "fwd_mma.cuh"
 
@@ -122,10 +126,20 @@ struct FwdParams {
   int tile_rows;         // the q rows of a block the host counts in
   int leaf;              // the diag's leaf length T (a multiple of 64), 0 = none
   int lse_rows;          // rows of lse per (b, h): Sq, or the full tensor's in a merge
+  // Past D 512 (flash_fwd_any.cu): the head dim, the column chunks of a q
+  // tile, a merge's previous lse (read-only: the chunks of a row tile must
+  // not see one another's new lse) and each chunk's lse offset (0: chunk 0
+  // writes the lse; else every chunk writes its own, for a check that they
+  // agree).
+  int D, n_dc;
+  const float* lse_prev;
+  long long lse_cs;
 };
 
-// The launch at head dim 384 or 512 (flash_fwd_wide.cu).
+// The launch at head dim 384 or 512 (flash_fwd_wide.cu) and past 512
+// (flash_fwd_any.cu).
 int launch_fwd_wide(const FwdParams& p, int dtype, bool merge, int B, int D, void* stream);
+int launch_fwd_any(const FwdParams& p, int dtype, bool merge, int B, void* stream);
 
 namespace {
 
@@ -136,14 +150,15 @@ dim3 fwd_grid(const FwdParams& p, int bq, int B) {
   return dim3(x, p.Hq, B);
 }
 
-// The first local row of block x's q tile: in order when not causal; when
-// causal the longest tiles first, by position inside the leaf (one leaf of
-// gridDim.x tiles without one), descending, the leaves interleaved.
-__device__ __forceinline__ int tile_row0(const FwdParams& p, int bq) {
-  const int x = blockIdx.x;
+// The first local row of q tile x of nx (block x of the grid's x by
+// default): in order when not causal; when causal the longest tiles first,
+// by position inside the leaf (one leaf of nx tiles without one),
+// descending, the leaves interleaved.
+__device__ __forceinline__ int tile_row0(const FwdParams& p, int bq, int x = blockIdx.x,
+                                         int nx = gridDim.x) {
   if (!p.causal) return x * bq;
-  const int per_leaf = p.leaf > 0 ? p.leaf / bq : (int)gridDim.x;
-  const int n_leaves = gridDim.x / per_leaf;
+  const int per_leaf = p.leaf > 0 ? p.leaf / bq : nx;
+  const int n_leaves = nx / per_leaf;
   return ((x % n_leaves) * per_leaf + per_leaf - 1 - x / n_leaves) * bq;
 }
 
@@ -385,9 +400,11 @@ cudaError_t launch(const FwdParams& p, bool merge, int B, cudaStream_t stream) {
                    : launch_kernel<T, D, false>(p, merge, B, stream);
 }
 
+#ifndef FA2_ANY
 // The head dims of this translation unit: 64 / 128 / 256 here, 384 / 512 in
 // flash_fwd_wide.cu (this file with FA2_WIDE defined), so that the two sets
-// of instantiations build in parallel.
+// of instantiations build in parallel; past 512 flash_fwd_any.cu (this file
+// with FA2_ANY defined, and its own kernels).
 template <typename T>
 cudaError_t launch_d(const FwdParams& p, bool merge, int B, int D, cudaStream_t stream) {
   switch (D) {
@@ -405,6 +422,7 @@ cudaError_t launch_d(const FwdParams& p, bool merge, int B, int D, cudaStream_t 
 
 int launch_dtype(const FwdParams& p, int dtype, bool merge, int B, int D, void* stream) {
 #ifndef FA2_WIDE
+  if (D > 512) return launch_fwd_any(p, dtype, merge, B, stream);
   if (D > 256) return launch_fwd_wide(p, dtype, merge, B, D, stream);
 #endif
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -416,11 +434,13 @@ int launch_dtype(const FwdParams& p, int dtype, bool merge, int B, int D, void* 
   }
 }
 
-#ifndef FA2_WIDE
+#endif  // FA2_ANY
+
+#if !defined(FA2_WIDE) && !defined(FA2_ANY)
 // A call's params as the split schedule's entries make them (not causal, no
 // bias, window, softcap or leaf, the kernels' own tile rows, lse_rows = Sq);
 // each entry then sets what differs.
-FwdParams call_params(int Hq, int Hkv, int Sq, int Sk, const void* q, const void* k,
+FwdParams call_params(int D, int col_chunks, int Hq, int Hkv, int Sq, int Sk, const void* q, const void* k,
                        const void* v, void* o, float* lse, const int* lens, long long q_sb,
                        long long q_sh, long long q_ss, long long k_sb, long long k_sh,
                        long long k_ss, long long v_sb, long long v_sh, long long v_ss,
@@ -447,7 +467,16 @@ FwdParams call_params(int Hq, int Hkv, int Sq, int Sk, const void* q, const void
   p.tile_rows = TM;
   p.leaf = 0;
   p.lse_rows = Sq;
+  p.D = D; p.n_dc = col_chunks;
+  p.lse_prev = nullptr; p.lse_cs = 0;
   return p;
+}
+
+// The column chunks the kernels split head dim D over (flash_fwd_any.cu past
+// 512, else 1), and whether they take D.
+bool chunks_ok(int D, int col_chunks) {
+  if (D > 512) return D % 128 == 0 && col_chunks == any::col_chunks(D);
+  return col_chunks == 1;
 }
 #endif
 
@@ -460,11 +489,15 @@ int launch_fwd_wide(const FwdParams& p, int dtype, bool merge, int B, int D, voi
 #endif
 }  // namespace fa2
 
-#ifndef FA2_WIDE
+#if !defined(FA2_WIDE) && !defined(FA2_ANY)
 
 // tile_rows: the q rows of a block the host counts in (ops/flash_fwd.py
 // TILE_ROWS); the call fails unless it is the kernels' (64). 16-bit q / k / v
-// / o: rows, strides and base pointers 16-byte aligned.
+// / o: rows, strides and base pointers 16-byte aligned. col_chunks: the
+// column chunks of head dim D (ops/flash_fwd.py col_chunks: 1 up to 512); the
+// call fails on another count. lse_chunk_stride: 0, or (past D 512) each
+// chunk writes its lse at lse + chunk * lse_chunk_stride, so that a check
+// can hold the chunks' lse to one another.
 extern "C" int fa2_flash_fwd(
     int dtype, int B, int Hq, int Hkv, int Sq, int Sk, int D,
     const void* q, const void* k, const void* v, void* o, float* lse, const int* lens,
@@ -477,9 +510,11 @@ extern "C" int fa2_flash_fwd(
     int q_off, int kv_off, int causal, int wl, int wr,
     float softmax_scale, float softcap, int q_prescaled,
     int dropout, unsigned int drop_seed, unsigned int drop_threshold, float drop_scale,
-    int Sq_real, int Sk_real, int tile_rows, void* stream) {
+    int Sq_real, int Sk_real, int tile_rows, long long lse_chunk_stride, int col_chunks,
+    void* stream) {
+  if (!fa2::chunks_ok(D, col_chunks)) return (int)cudaErrorInvalidValue;
   fa2::FwdParams p = fa2::call_params(
-      Hq, Hkv, Sq, Sk, q, k, v, o, lse, lens, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,
+      D, col_chunks, Hq, Hkv, Sq, Sk, q, k, v, o, lse, lens, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,
       v_ss, o_sb, o_sh, o_ss, q_off, kv_off, softmax_scale, q_prescaled, dropout, drop_seed,
       drop_threshold, drop_scale, Sq_real, Sk_real);
   p.bias = bias; p.bias_dtype = bias_dtype;
@@ -487,6 +522,7 @@ extern "C" int fa2_flash_fwd(
   p.causal = causal; p.wl = wl; p.wr = wr;
   p.softcap = softcap;
   p.tile_rows = tile_rows;
+  p.lse_cs = lse_chunk_stride;
   return fa2::launch_dtype(p, dtype, false, B, D, stream);
 }
 
@@ -501,10 +537,12 @@ extern "C" int fa2_flash_fwd_causal(
     long long o_sb, long long o_sh, long long o_ss,
     int q_off, int kv_off, float softmax_scale, int q_prescaled,
     int dropout, unsigned int drop_seed, unsigned int drop_threshold, float drop_scale,
-    int Sq_real, int Sk_real, void* stream) {
-  if (leaf <= 0 || leaf % fa2::TM != 0) return (int)cudaErrorInvalidValue;
+    int Sq_real, int Sk_real, int col_chunks, void* stream) {
+  if (leaf <= 0 || leaf % fa2::TM != 0 || !fa2::chunks_ok(D, col_chunks)) {
+    return (int)cudaErrorInvalidValue;
+  }
   fa2::FwdParams p = fa2::call_params(
-      Hq, Hkv, Sq, Sk, q, k, v, o, lse, lens, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,
+      D, col_chunks, Hq, Hkv, Sq, Sk, q, k, v, o, lse, lens, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,
       v_ss, o_sb, o_sh, o_ss, q_off, kv_off, softmax_scale, q_prescaled, dropout, drop_seed,
       drop_threshold, drop_scale, Sq_real, Sk_real);
   p.causal = 1;
@@ -516,7 +554,9 @@ extern "C" int fa2_flash_fwd_causal(
 // row_end) against K / V columns [col0, col_end) of the whole tensors, not
 // causal. Its o / lse row of local row r is r - out_row0 (lse_rows rows of
 // lse per (b, h)): region-sized with out_row0 = row0, the full-size running
-// (o, lse) with out_row0 = 0 in a merge.
+// (o, lse) with out_row0 = 0 in a merge. lse_prev: null, or (a merge past D
+// 512, where it is required) a copy of the running lse, which the merge
+// reads while its column chunks write the new one into lse.
 extern "C" int fa2_flash_fwd_rect(
     int dtype, int merge, int B, int Hq, int Hkv, int Sq, int Sk, int D,
     const void* q, const void* k, const void* v, void* o, float* lse, const int* lens,
@@ -527,9 +567,10 @@ extern "C" int fa2_flash_fwd_rect(
     int q_off, int kv_off, float softmax_scale, int q_prescaled,
     int dropout, unsigned int drop_seed, unsigned int drop_threshold, float drop_scale,
     int Sq_real, int Sk_real, int lse_rows, int row0, int row_end, int col0, int col_end,
-    int out_row0, void* stream) {
+    int out_row0, const float* lse_prev, int col_chunks, void* stream) {
   if (!(0 <= row0 && row0 < row_end && row_end <= Sq && 0 <= col0 && col0 < col_end &&
-        col_end <= Sk && 0 <= out_row0 && out_row0 <= row0)) {
+        col_end <= Sk && 0 <= out_row0 && out_row0 <= row0) || !fa2::chunks_ok(D, col_chunks) ||
+      (merge && D > 512 && lse_prev == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   // The region as a call of its own: pointers moved to its first row and
@@ -538,17 +579,18 @@ extern "C" int fa2_flash_fwd_rect(
   const long long es = dtype == fa2::kF32 ? 4 : 2;
   const long long out = row0 - out_row0;
   fa2::FwdParams p = fa2::call_params(
-      Hq, Hkv, row_end - row0, col_end - col0, static_cast<const char*>(q) + row0 * q_ss * es,
+      D, col_chunks, Hq, Hkv, row_end - row0, col_end - col0, static_cast<const char*>(q) + row0 * q_ss * es,
       static_cast<const char*>(k) + col0 * k_ss * es,
       static_cast<const char*>(v) + col0 * v_ss * es, static_cast<char*>(o) + out * o_ss * es,
       lse + out, lens, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
       q_off + row0, kv_off + col0, softmax_scale, q_prescaled, dropout, drop_seed, drop_threshold,
       drop_scale, Sq_real, Sk_real);
   p.lse_rows = lse_rows;
+  p.lse_prev = lse_prev ? lse_prev + out : nullptr;
   return fa2::launch_dtype(p, dtype, merge != 0, B, D, stream);
 }
 
 extern "C" const char* fa2_error_string(int status) {
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }
-#endif  // FA2_WIDE
+#endif  // !FA2_WIDE && !FA2_ANY

@@ -100,45 +100,17 @@ __device__ __forceinline__ void fwd_mma_load_q(QFrags<C>& qf, const T* Qs) {
   }
 }
 
-// One K / V tile against the warp's 16 q rows. score(r, c, x) returns the
-// score in log2 units of tile row r (0..63) and tile column c after the
-// caller's epilogue (-inf where the element is masked), called only when
-// !free_tile; keep(r, c, hr) is the dropout rule (DROP only; hr = r's half,
-// 0 for row g, 1 for g + 8).
-template <class C, typename T, bool DROP, class Score, class Keep>
-__device__ __forceinline__ void fwd_mma_tile(const QFrags<C>& qf, const T* Qs, const T* Ks,
-                                             const T* Vs, float scale_log2, bool free_tile,
-                                             const Score& score, const Keep& keep,
-                                             float (&o)[C::NT_O][4], float (&m_run)[2],
-                                             float (&l_run)[2]) {
+// The score epilogue and the online softmax of one tile's S (the warp's 16
+// rows x NT_S * 8 keys, raw accumulators): s leaves as P (dropped elements 0
+// with DROP; l sums the undropped p), m_run / l_run move on, and O is
+// rescaled. score / keep as fwd_mma_tile's.
+template <class C, bool DROP, class Score, class Keep>
+__device__ __forceinline__ void fwd_mma_softmax(float (&s)[C::NT_S][4], float scale_log2,
+                                                bool free_tile, const Score& score,
+                                                const Keep& keep, float (&o)[C::NT_O][4],
+                                                float (&m_run)[2], float (&l_run)[2]) {
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int w = threadIdx.x / 32 % C::RG, od = threadIdx.x / 32 / C::RG * C::DO;
-
-  // S = Q K^T: the warp's 16 rows x BKV keys.
-  float s[C::NT_S][4];
-#pragma unroll
-  for (int n = 0; n < C::NT_S; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < C::KQ; ++kk) {
-    uint32_t a[4];
-    if constexpr (C::Q_REGS) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) a[j] = qf[kk][j];
-    } else {
-      ldsm_x4(a, Qs + (w * 16 + lane % 16) * C::P + kk * 16 + (lane / 16) * 8);
-    }
-#pragma unroll
-    for (int np = 0; np < C::NT_S / 2; ++np) {
-      uint32_t bk[4];
-      ldsm_x4(bk, Ks + (np * 16 + lane % 8 + (lane / 16) * 8) * C::P + kk * 16 +
-                      ((lane / 8) % 2) * 8);
-      mma16816<T>(s[2 * np], a, bk[0], bk[1]);
-      mma16816<T>(s[2 * np + 1], a, bk[2], bk[3]);
-    }
-  }
-
+  const int w = threadIdx.x / 32 % C::RG;
   // The score epilogue at each element's (row r, column c) of the tile
   // (accumulator element e: row g + 8 (e / 2), column 2 t + e % 2).
   float mx[2] = {MASK_LOG2, MASK_LOG2};
@@ -187,6 +159,48 @@ __device__ __forceinline__ void fwd_mma_tile(const QFrags<C>& qf, const T* Qs, c
   for (int n = 0; n < C::NT_O; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e / 2];
+}
+
+// One K / V tile against the warp's 16 q rows. score(r, c, x) returns the
+// score in log2 units of tile row r (0..63) and tile column c after the
+// caller's epilogue (-inf where the element is masked), called only when
+// !free_tile; keep(r, c, hr) is the dropout rule (DROP only; hr = r's half,
+// 0 for row g, 1 for g + 8).
+template <class C, typename T, bool DROP, class Score, class Keep>
+__device__ __forceinline__ void fwd_mma_tile(const QFrags<C>& qf, const T* Qs, const T* Ks,
+                                             const T* Vs, float scale_log2, bool free_tile,
+                                             const Score& score, const Keep& keep,
+                                             float (&o)[C::NT_O][4], float (&m_run)[2],
+                                             float (&l_run)[2]) {
+  const int lane = threadIdx.x % 32;
+  const int w = threadIdx.x / 32 % C::RG, od = threadIdx.x / 32 / C::RG * C::DO;
+
+  // S = Q K^T: the warp's 16 rows x BKV keys.
+  float s[C::NT_S][4];
+#pragma unroll
+  for (int n = 0; n < C::NT_S; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < C::KQ; ++kk) {
+    uint32_t a[4];
+    if constexpr (C::Q_REGS) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) a[j] = qf[kk][j];
+    } else {
+      ldsm_x4(a, Qs + (w * 16 + lane % 16) * C::P + kk * 16 + (lane / 16) * 8);
+    }
+#pragma unroll
+    for (int np = 0; np < C::NT_S / 2; ++np) {
+      uint32_t bk[4];
+      ldsm_x4(bk, Ks + (np * 16 + lane % 8 + (lane / 16) * 8) * C::P + kk * 16 +
+                      ((lane / 8) % 2) * 8);
+      mma16816<T>(s[2 * np], a, bk[0], bk[1]);
+      mma16816<T>(s[2 * np + 1], a, bk[2], bk[3]);
+    }
+  }
+
+  fwd_mma_softmax<C, DROP>(s, scale_log2, free_tile, score, keep, o, m_run, l_run);
 
   // O += P V: P rounded to T and repacked from S's accumulators into A
   // fragments, V by ldmatrix.trans.

@@ -14,10 +14,11 @@ output comes back in fp16. The kernels' fp16 instantiations stay reachable
 through `ops/flash_fwd.flash_attn_forward` / `ops/flash_bwd.
 flash_attn_backward`.
 A head dim the kernels are not built for (any D <= 512 but 64, 128, 256,
-384, 512) is zero-padded to the next one they are, which is exact: the
-scale comes from the true D, zero columns add nothing to q.k, and the
-padded output columns are sliced off (their gradients with them). Past 256
-that is JAX's round-up to 128 lanes (`fa2_triton_tpu/ops/attention.py`).
+384, 512, and past 512 any D that is not a multiple of 128) is zero-padded
+to the next one they are, which is exact: the scale comes from the true D,
+zero columns add nothing to q.k, and the padded output columns are sliced
+off (their gradients with them). Past 256 that is JAX's round-up to 128
+lanes (`fa2_triton_tpu/ops/attention.py`).
 
 `_AttnCore` is the counterpart of the JAX `jax.custom_vjp` core
 (`fa2_triton_tpu/ops/attention.py:57-116`): the forward saves
@@ -46,7 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from fa2_triton_tpu_torch.ops.flash_bwd import flash_attn_backward
-from fa2_triton_tpu_torch.ops.flash_fwd import HEAD_DIMS, MAX_HEAD_DIM, flash_attn_forward
+from fa2_triton_tpu_torch.ops.flash_fwd import HEAD_DIMS, check_ported, flash_attn_forward
 from fa2_triton_tpu_torch.ops.tuning import BlockSizes
 from fa2_triton_tpu_torch.utils import default_softmax_scale
 
@@ -81,21 +82,22 @@ def resolve_dropout_seed(dropout_p: float, dropout_seed: Optional[int],
 
 def kernel_head_dim(D: int) -> int:
     """The head dim the kernels compute a head dim D at, on any device: the
-    first of HEAD_DIMS >= D, or D itself past them (which only the plain
-    twins take). The serving caches are allocated this wide."""
-    return next((d for d in HEAD_DIMS if d >= D), D)
+    first of HEAD_DIMS >= D, past them the next multiple of 128 (JAX's
+    `head_dim_padded`: 513 -> 640, 1000 -> 1024). The serving caches are
+    allocated this wide."""
+    return next((d for d in HEAD_DIMS if d >= D), -(-D // 128) * 128)
 
 
-def pad_head_dim(D: int, device: torch.device) -> int:
-    """The head dim the kernels compute D at (`kernel_head_dim`). Every
-    kernel family (the dense forward, backward, decode and the packed
-    kernels) is built up to MAX_HEAD_DIM: CUDA tensors past it raise
-    ValueError; CPU tensors take any D."""
-    if D > MAX_HEAD_DIM and device.type == "cuda":
-        raise ValueError(
-            f"head_dim {D} > {MAX_HEAD_DIM}: these kernels are built for head dims up to "
-            f"{MAX_HEAD_DIM} (ROADMAP.md queue A, 'Head dims')")
-    return kernel_head_dim(D)
+def pad_head_dim(D: int, device: torch.device, family: Optional[str] = None) -> int:
+    """The head dim the kernels compute D at (`kernel_head_dim`). The dense
+    forward, the dq + dk/dv pair and decode take every such width; `family`
+    names a kernel family built only up to MAX_HEAD_DIM (the packed
+    kernels), whose CUDA tensors raise ValueError past it
+    (`flash_fwd.check_ported`). CPU tensors take any D."""
+    Dp = kernel_head_dim(D)
+    if family is not None and device.type == "cuda":
+        check_ported(D, family)
+    return Dp
 
 
 def fp16_compute(dtype: torch.dtype, fp16_compute_dtype: Optional[torch.dtype]) -> torch.dtype:
@@ -169,9 +171,10 @@ def flash_attn_func(
     Args:
         q: [batch, seqlen_q, num_heads_q, head_dim].
         k, v: [batch, seqlen_k, num_heads_kv, head_dim]; num_heads_q must be
-            a multiple of num_heads_kv (GQA/MQA). CUDA tensors take any
-            head_dim <= 512 (zero-padded to 64 / 128 / 256 / 384 / 512 for
-            the kernels).
+            a multiple of num_heads_kv (GQA/MQA). Any head_dim
+            (zero-padded to 64 / 128 / 256 / 384 / 512, past 512 to a
+            multiple of 128, for the kernels; a bias gradient past 512
+            raises, ROADMAP.md queue A item 1(c)).
         attention_mask: optional bool [batch, seqlen_q] right-padding mask
             (True = valid). Requires seqlen_q == seqlen_k; applied to both
             queries and keys.

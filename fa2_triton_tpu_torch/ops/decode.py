@@ -4,9 +4,10 @@ Port of `fa2_triton_tpu/ops/decode.py`: `decode_attention` over a contiguous
 KV cache (B5, `_decode_kernel` with and without quant) and
 `paged_decode_attention` over a shared page pool read through block tables
 (B6, `_decode_kernel_paged` / `_paged_noquant`), all on the one kernel
-template of `csrc/decode.cuh`. Layouts are the JAX ones; the kernel takes
-D in HEAD_DIMS, to which the serving caches pad the model's head dim as
-JAX pads it to 128 lanes (`runtime/kv_cache.py`):
+template of `csrc/decode.cuh`, and past head dim 512 on
+`csrc/decode_any.cuh`'s. Layouts are the JAX ones; the kernels take D in
+HEAD_DIMS or any multiple of 128 past them, to which the serving caches pad
+the model's head dim as JAX pads it to 128 lanes (`runtime/kv_cache.py`):
 - q [B, Hq, D]; contiguous caches [B, Hkv, S_max, D], scales
   [B, Hkv, 1, S_max] fp32;
 - pools [n_pages, Hkv, page_size, D], tables [B, max_pages] int32 (position
@@ -42,12 +43,14 @@ from fa2_triton_tpu_torch.utils import LOG2E, default_softmax_scale
 LAUNCHES = 0
 VARIANT_LAUNCHES: Dict[str, int] = {}
 
-HEAD_DIMS = (64, 128, 256, 384, 512)   # the serving caches are padded to one of them
+HEAD_DIMS = (64, 128, 256, 384, 512)   # decode.cuh's; past 512 any multiple of 128
 GROUPS = (1, 2, 4, 8)
 PAGE_MULTIPLE = 128  # the JAX package's page rule (decode.py:314)
 # Logical cache rows per block of the kernel's grid: a mirror of CHUNK in
-# csrc/decode.cuh (the C entry point refuses a grid of another chunk count).
+# csrc/decode.cuh, and past head dim 512 of ANY_CHUNK in csrc/decode_any.cuh
+# (the C entry point refuses a grid of another chunk count).
 CHUNK = 512
+ANY_CHUNK = 256
 
 # Cache kinds of the C entry point (`enum CacheKind` in csrc/decode.cuh).
 _CACHE_KINDS = {torch.int8: 1, torch.float8_e4m3fn: 2}
@@ -82,11 +85,17 @@ def _entry():
     return _c_fn
 
 
-def chunk_count(cap: int) -> int:
-    """Blocks of the kernel's grid per (slot, KV head): chunks of CHUNK
-    logical rows covering cap = S_max (contiguous) or max_pages * page_size
-    (paged). From shapes alone; at least 1."""
-    return max(1, -(-cap // CHUNK))
+def chunk_rows(head_dim: int = 0) -> int:
+    """Logical rows of a block's chunk at head dim `head_dim`: CHUNK, and
+    ANY_CHUNK past 512."""
+    return ANY_CHUNK if head_dim > HEAD_DIMS[-1] else CHUNK
+
+
+def chunk_count(cap: int, head_dim: int = 0) -> int:
+    """Blocks of the kernel's grid per (slot, KV head): chunks of
+    `chunk_rows(head_dim)` logical rows covering cap = S_max (contiguous)
+    or max_pages * page_size (paged). From shapes alone; at least 1."""
+    return max(1, -(-cap // chunk_rows(head_dim)))
 
 
 def partials_shape(B: int, Hkv: int, n_chunks: int, G: int, D: int) -> Tuple[int, ...]:
@@ -95,13 +104,14 @@ def partials_shape(B: int, Hkv: int, n_chunks: int, G: int, D: int) -> Tuple[int
     return (B, Hkv, n_chunks, G, D + 2)
 
 
-def live_chunks(kv_len: int, cap: int, window_left: int = -1) -> int:
+def live_chunks(kv_len: int, cap: int, window_left: int = -1, head_dim: int = 0) -> int:
     """How many chunks of one slot hold a row of [first, kv_len), the
     kernel's rule: its working blocks per KV head. For reports on the host
     (the wrapper never calls it)."""
     kv_len = min(max(kv_len, 0), cap)
     first = max(0, kv_len - 1 - window_left) if window_left >= 0 else 0
-    return (kv_len - 1) // CHUNK - first // CHUNK + 1 if kv_len > first else 0
+    chunk = chunk_rows(head_dim)
+    return (kv_len - 1) // chunk - first // chunk + 1 if kv_len > first else 0
 
 
 def _scratch(device: torch.device, stream: int, n_part: int,
@@ -233,10 +243,10 @@ def _launch(q, k_cache, v_cache, kv_lens, k_scale, v_scale, block_tables, *,
             or k_cache.dtype not in (q.dtype, *QDTYPES):
         raise TypeError(f"decode kernel takes fp32/fp16/bf16 q with caches of its dtype, int8 or "
                         f"float8_e4m3fn, got {q.dtype}/{k_cache.dtype}/{v_cache.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"decode kernel takes head_dim in {HEAD_DIMS}, got {D} (the serving "
-                         f"caches are allocated at one of them, `ops/attention.py:"
-                         f"kernel_head_dim`; past {HEAD_DIMS[-1]}: ROADMAP.md queue A)")
+    if D not in HEAD_DIMS and not (D > HEAD_DIMS[-1] and D % 128 == 0):
+        raise ValueError(f"decode kernel takes head_dim in {HEAD_DIMS} or a multiple of 128 past "
+                         f"them, got {D} (the serving caches are allocated at one of them, "
+                         f"`ops/attention.py:kernel_head_dim`)")
     if Hq % Hkv != 0 or Hq // Hkv not in GROUPS:
         raise ValueError(f"decode kernel takes Hq / Hkv in {GROUPS}, got {Hq} / {Hkv}")
     if kv_lens.shape != (B,) or kv_lens.dtype != torch.int32:
@@ -255,7 +265,7 @@ def _launch(q, k_cache, v_cache, kv_lens, k_scale, v_scale, block_tables, *,
         return o
     scale = softmax_scale if softmax_scale is not None else default_softmax_scale(D)
     max_pages = block_tables.shape[1] if paged else 0
-    n_chunks = chunk_count(max_pages * rows if paged else rows)
+    n_chunks = chunk_count(max_pages * rows if paged else rows, D)
     stream = _build.stream_ptr(q.device)
     part = counters = None
     if n_chunks > 1:

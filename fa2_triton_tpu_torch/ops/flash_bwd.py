@@ -6,7 +6,10 @@ Port of `fa2_triton_tpu/ops/flash_bwd.py:flash_attn_backward` as
 (`_bwd_causal_strip_kernel`, the seq-2048 causal training backward), B2
 (`_bwd_fused_kernel`), B3 (`_dq_kernel`, `_dkdv_kernel`) and B4
 (`_dbias_kernel`) compute one function; on the GPU it is three deterministic
-kernels in `csrc/flash_bwd.cu`: dq, dk/dv and dbias. Tensors are BHSD views
+kernels in `csrc/flash_bwd.cu`: dq, dk/dv and dbias (past head dim 512 dq
+and dk/dv in `csrc/flash_bwd_any.cu`, any multiple of 128, their output
+columns split over blocks; dbias and the fused schedules raise there,
+`flash_fwd.check_ported`). Tensors are BHSD views
 with any strides (the head dim contiguous), as the forward takes them; the
 gradients come back as BHSD views of BSHD-contiguous memory, so the public
 API transposes them back without a copy.
@@ -65,9 +68,9 @@ import torch
 from fa2_triton_tpu_torch.ops import _build
 from fa2_triton_tpu_torch.ops.autotune import detect_chip
 from fa2_triton_tpu_torch.ops.flash_fwd import (
-    TILE_ROWS, _check_cuda_args, _killed, _masks, _reals, bias_view, causal_split_ok,
-    causal_split_rects, check_head_dim, dropout_c_args, dropout_mask, jax_padded_shape,
-    reads_table, table_route, tri_square_ok)
+    MAX_HEAD_DIM, TILE_ROWS, _check_cuda_args, _killed, _masks, _reals, bias_view,
+    causal_split_ok, causal_split_rects, check_head_dim, check_ported, col_chunks, dropout_c_args,
+    dropout_mask, jax_padded_shape, reads_table, table_route, tri_square_ok)
 from fa2_triton_tpu_torch.ops.tuning import BlockSizes
 from fa2_triton_tpu_torch.utils import LOG2E
 
@@ -89,7 +92,7 @@ _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 _DROP_TAIL = [_I, _U, _U, _F, _I, _I, _P, _I, _I, _I, _P]
 _ARGTYPES = {
     "fa2_flash_bwd": ([_I] * 8 + [_P] * 6 + [_P, _I, _I, _I] + [_P] * 4 + [_P, _P] + [_I] * 5
-                      + [_F, _F] + [_I, _U, _U, _F, _I, _I, _I, _I, _P]),
+                      + [_F, _F] + [_I, _U, _U, _F, _I, _I, _I, _I, _I, _P]),
     "fa2_flash_bwd_tri": [_I] * 8 + [_P] * 12 + [_P, _P] + [_I, _I, _F, _F] + _DROP_TAIL,
     "fa2_flash_bwd_wl": ([_I] * 7 + [_P] * 14 + [_P, _P, _I, _I, _I, _I] + [_P, _P]
                          + [_I] * 5 + [_F, _F] + _DROP_TAIL),
@@ -292,8 +295,8 @@ def _pair_backward(q, k, v, do, lse, delta, lens, q_off, kv_off, bias, *, causal
         lens.data_ptr(), ctypes.cast(strides, ctypes.c_void_p),
         int(q_off), int(kv_off), int(bool(causal)), int(window[0]), int(window[1]),
         float(softmax_scale), float(softcap), *dropout_c_args(dropout_p, dropout_seed),
-        int(seqlen_q_real or Sq), int(seqlen_k_real or Sk), int(k_prescaled), TILE_ROWS,
-        _build.stream_ptr(q.device),
+        int(seqlen_q_real or Sq), int(seqlen_k_real or Sk), col_chunks(D), int(k_prescaled),
+        TILE_ROWS, _build.stream_ptr(q.device),
     )
     names = ("flash_bwd_dq", "flash_bwd_dkdv") + (("flash_bwd_dbias",) if dbias is not None else ())
     for name in names:
@@ -510,6 +513,11 @@ def backward_gates(Sq: int, Sk: int, head_dim: int, dtype_bytes: int, *, causal:
     }
 
 
+# The fused schedules' routes, and how a raise past MAX_HEAD_DIM names them.
+FUSED_ROUTES = ("tri_square", "split", "worklist")
+FUSED = "the fused backward schedules (tri_square, split, worklist) are"
+
+
 def backward_route(Sq: int, Sk: int, head_dim: int, dtype_bytes: int, *, causal: bool,
                    group: int = 1, static_skip: bool = False,
                    window: Tuple[int, int] = (-1, -1), bias=None, softcap: float = 0.0,
@@ -521,9 +529,9 @@ def backward_route(Sq: int, Sk: int, head_dim: int, dtype_bytes: int, *, causal:
                    chip: Optional[str] = None) -> str:
     """The schedule `flash_attn_backward` takes: "tri_square", "split",
     "strip", "worklist" or "generic" (the fused and two-pass routes);
-    `head_dim` is the kernels' (64 to 512), `dtype_bytes` the element
-    size they compute in and `group` Hq / Hkv. With a bias, or
-    `fused=False`, every schedule is skipped.
+    `head_dim` is the kernels' (one of HEAD_DIMS or a multiple of 128 past
+    them), `dtype_bytes` the element size they compute in and `group` Hq /
+    Hkv. With a bias, or `fused=False`, every schedule is skipped.
 
     `route` forces one by name (its gate must pass, and its kill switch be
     unset, else ValueError). Otherwise, where `flash_fwd.reads_table`
@@ -533,7 +541,13 @@ def backward_route(Sq: int, Sk: int, head_dim: int, dtype_bytes: int, *, causal:
     passes (`table_route`). Else the prior, JAX's dispatch: the kill
     switches are read at call time, and a split forced on
     (`causal_split=True`) whose gate fails raises ValueError; forced off
-    it is skipped."""
+    it is skipped.
+
+    Past MAX_HEAD_DIM the fused schedules (csrc/flash_bwd_tri.cu,
+    flash_bwd_wl.cu) are not built yet: their gates read False, so the
+    call takes the dq + dk/dv pair where JAX would take one of them, and
+    forcing one (`route`, `causal_split=True`) raises ValueError
+    (`flash_fwd.check_ported`)."""
     if bias is not None or fused is False:
         if route not in (None, "generic"):
             raise ValueError(f"{route} forced on a call with a bias or fused=False")
@@ -542,6 +556,10 @@ def backward_route(Sq: int, Sk: int, head_dim: int, dtype_bytes: int, *, causal:
                         static_skip=static_skip, window=window, softcap=softcap, varlen=varlen,
                         seqlen_q_real=seqlen_q_real, seqlen_k_real=seqlen_k_real,
                         split_leaf=split_leaf, block_sizes=block_sizes, chip=chip)
+    if head_dim > MAX_HEAD_DIM:
+        if route in FUSED_ROUTES or causal_split:
+            check_ported(head_dim, FUSED)
+        ok.update(dict.fromkeys(FUSED_ROUTES, False))
     if route is not None:
         if route not in ok:
             raise ValueError(f"unknown backward route {route!r}; one of {tuple(ok)}")
@@ -1269,8 +1287,10 @@ def flash_attn_backward(
     if compute_dbias and bias is None:
         raise ValueError("compute_dbias needs a bias")
     dropout_c_args(dropout_p, dropout_seed)
-    if q.device.type == "cuda":   # before routing: a head dim past MAX_HEAD_DIM raises on every route
+    if q.device.type == "cuda":   # before routing: a head dim the kernels lack raises on every route
         check_head_dim(q.shape[3])
+        if compute_dbias:
+            check_ported(q.shape[3], "the bias gradient (dbias) is")
     B, Hq, Sq, D = q.shape
     chip = detect_chip(q.device)
     route = backward_route(

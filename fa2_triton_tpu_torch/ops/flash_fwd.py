@@ -5,7 +5,9 @@ prefill and the training forward reach it: the TPU's `_fwd_kernel` (B1, with
 its additive bias), `_fwd_tri_square_kernel` (B9) and
 `_fwd_causal_strip_kernel` (B10), and the split schedule's B9 diag, B11
 rectangle and B1 merge, all become `csrc/flash_fwd.cu`: 16-bit inputs run
-its tensor-core kernel (`mma.sync` tiles), fp32 inputs its FMA kernel.
+its tensor-core kernel (`mma.sync` tiles), fp32 inputs its FMA kernel;
+past head dim 512 `csrc/flash_fwd_any.cu`'s, at any multiple of 128, the
+output columns split into `col_chunks(D)` chunks over blocks.
 Tensors are
 BHSD views with any strides (the head dim contiguous), so the BSHD public API
 hands them over without a copy. Per batch row, `lens[b] = (q_len, kv_len)`
@@ -75,10 +77,15 @@ TILE_ROWS = 64
 
 HEAD_DIMS = (64, 128, 256, 384, 512)
 # The attention entry points zero-pad other head dims up to the next of
-# HEAD_DIMS (past 256 that is JAX's round-up to 128 lanes); past the last,
-# CUDA tensors raise (ROADMAP.md queue A, "Head dims"). Every kernel family,
-# the packed (varlen) kernels included, is built for all of them.
+# HEAD_DIMS, and past the last to a multiple of 128 (JAX's round-up to 128
+# lanes, from D 257 on). Every kernel family is built for HEAD_DIMS; past
+# MAX_HEAD_DIM the forward, the dq + dk/dv pair and decode take any multiple
+# of 128 (csrc/any_tiles.cuh: the output columns split into COL_CHUNK-wide
+# chunks over blocks), and the families not built there yet (dbias, the
+# fused backward schedules, the packed kernels) raise on CUDA tensors
+# (`check_ported`; ROADMAP.md queue A item 1(c)).
 MAX_HEAD_DIM = HEAD_DIMS[-1]
+COL_CHUNK = 256   # csrc/any_tiles.cuh any::DC
 
 _P, _I, _L, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_uint
 # argtypes of each C entry point. The split's two share a head: (dtype,
@@ -87,9 +94,9 @@ _P, _I, _L, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_
 _SCHED_HEAD = [_I] * 8 + [_P] * 6 + [_L] * 12 + [_I, _I, _F, _I, _I, _U, _U, _F, _I, _I]
 _ARGTYPES = {
     "fa2_flash_fwd": ([_I] * 7 + [_P] * 6 + [_L] * 12 + [_P, _I] + [_L] * 4 + [_I] * 5 + [_F, _F]
-                      + [_I, _I, _U, _U, _F, _I, _I, _I, _P]),
-    "fa2_flash_fwd_causal": _SCHED_HEAD + [_P],
-    "fa2_flash_fwd_rect": _SCHED_HEAD + [_I] * 6 + [_P],
+                      + [_I, _I, _U, _U, _F, _I, _I, _I, _L, _I, _P]),
+    "fa2_flash_fwd_causal": _SCHED_HEAD + [_I, _P],
+    "fa2_flash_fwd_rect": _SCHED_HEAD + [_I] * 6 + [_P, _I, _P],
 }
 _c_fns = {}
 
@@ -220,11 +227,27 @@ def check_prescaled(q_prescaled: bool, softcap: float, bias) -> None:
 
 
 def check_head_dim(D: int):
-    """Raise unless the attention kernels are built for head dim D."""
-    if D not in HEAD_DIMS:
-        raise ValueError(f"the attention kernels take head_dim in {HEAD_DIMS} (the entry points "
-                         f"zero-pad any head_dim <= {MAX_HEAD_DIM} to one of them; larger ones "
-                         f"wait for a new tiling, ROADMAP.md queue A 'Head dims'), got {D}")
+    """Raise unless the attention kernels are built for head dim D: one of
+    HEAD_DIMS, or a multiple of 128 past them."""
+    if D not in HEAD_DIMS and not (D > MAX_HEAD_DIM and D % 128 == 0):
+        raise ValueError(f"the attention kernels take head_dim in {HEAD_DIMS} or a multiple of 128 "
+                         f"past {MAX_HEAD_DIM} (the entry points zero-pad any head_dim to one of "
+                         f"them), got {D}")
+
+
+def check_ported(D: int, family: str):
+    """Raise ValueError past MAX_HEAD_DIM for a kernel family not built
+    there yet (ROADMAP.md queue A item 1(c))."""
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {D} > {MAX_HEAD_DIM}: {family} not built past "
+                         f"{MAX_HEAD_DIM} yet (ROADMAP.md queue A item 1(c))")
+
+
+def col_chunks(D: int) -> int:
+    """The column chunks the kernels split head dim D over: 1 up to
+    MAX_HEAD_DIM, then ceil(D / COL_CHUNK) (the C entry points refuse
+    another count)."""
+    return 1 if D <= MAX_HEAD_DIM else -(-D // COL_CHUNK)
 
 
 def _check_cuda_args(q, k, v, lens=None, vec=4):
@@ -284,9 +307,11 @@ def _generic_forward(q, k, v, lens, q_off, kv_off, bias, *, causal, softmax_scal
 
 def _flash_fwd_launch(q, k, v, lens, q_off, kv_off, bias, *, causal, softmax_scale, window,
                       softcap, dropout_p, dropout_seed, seqlen_q_real, seqlen_k_real,
-                      q_prescaled=False):
+                      q_prescaled=False, chunk_lse=False):
     """One launch of csrc/flash_fwd.cu (none for an empty output): the
-    tensor-core kernel for 16-bit inputs, the FMA kernel for fp32."""
+    tensor-core kernel for 16-bit inputs, the FMA kernel for fp32.
+    `chunk_lse` (a check past D 512): lse comes back [col_chunks(D), B, Hq,
+    Sq], each column chunk's own, which the kernels compute alike."""
     drop = dropout_c_args(dropout_p, dropout_seed)
     check_prescaled(q_prescaled, softcap, bias)
     if q.device.type != "cuda":
@@ -296,6 +321,12 @@ def _flash_fwd_launch(q, k, v, lens, q_off, kv_off, bias, *, causal, softmax_sca
     Hkv, Sk = k.shape[1], k.shape[2]
     bv = bias_view(bias, q, Sk) if bias is not None else None
     o, lse = _new_out(q, Sq)
+    lse_chunk_stride = 0
+    if chunk_lse:
+        if D <= MAX_HEAD_DIM:
+            raise ValueError("chunk_lse is a check of the column chunks past head dim 512")
+        lse = torch.empty((col_chunks(D), B, Hq, Sq), dtype=torch.float32, device=q.device)
+        lse_chunk_stride = B * Hq * Sq
     if B == 0 or Sq == 0 or Hq == 0:
         return o, lse
     status = _entry()(
@@ -308,8 +339,8 @@ def _flash_fwd_launch(q, k, v, lens, q_off, kv_off, bias, *, causal, softmax_sca
         *(bv.stride() if bv is not None else (0, 0, 0, 0)),
         int(q_off), int(kv_off), int(bool(causal)), int(window[0]), int(window[1]),
         float(softmax_scale), float(softcap), int(bool(q_prescaled)), *drop,
-        int(seqlen_q_real or Sq), int(seqlen_k_real or Sk), TILE_ROWS,
-        _build.stream_ptr(q.device),
+        int(seqlen_q_real or Sq), int(seqlen_k_real or Sk), TILE_ROWS, lse_chunk_stride,
+        col_chunks(D), _build.stream_ptr(q.device),
     )
     _build.check(status, "flash_fwd launch")
     return o, lse
@@ -491,8 +522,9 @@ def forward_route(Sq: int, Sk: int, head_dim: int, dtype_bytes: int, *, causal: 
                   route: Optional[str] = None, block_sizes: Optional[BlockSizes] = None,
                   chip: Optional[str] = None) -> str:
     """The schedule `flash_attn_forward` takes: "tri_square", "split",
-    "strip" or "generic"; `head_dim` is the kernels' (64 to 512) and
-    `dtype_bytes` the element size they compute in.
+    "strip" or "generic"; `head_dim` is the kernels' (HEAD_DIMS, or a
+    multiple of 128 past them) and `dtype_bytes` the element size they
+    compute in.
 
     `route` forces one by name. Otherwise, where `reads_table` holds, no
     flag is forced and no kill switch (FA2_DISABLE_SPLIT / _STRIP / _WL)
@@ -611,7 +643,8 @@ def _schedule_launch(kernel: str, q, k, v, lens, q_off, kv_off, o, lse, *, softm
     through `fa2_flash_fwd_rect` ("rect", "rect_merge": tail = [lse_rows,
     row0, row_end, col0, col_end, out_row0]), writing o / lse, and count
     it. 16-bit q / k / v (and a merge's o) need 16-byte rows, as
-    `_flash_fwd_launch`'s."""
+    `_flash_fwd_launch`'s. A merge past D 512 reads the previous lse from a
+    copy: its column chunks write the new one while others still read."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd takes CPU or CUDA tensors, got {q.device}")
     _check_cuda_args(q, k, v, lens, vec=_vec(q))
@@ -620,6 +653,7 @@ def _schedule_launch(kernel: str, q, k, v, lens, q_off, kv_off, o, lse, *, softm
     sq_real, sk_real = _reals(q, k, seqlen_q_real, seqlen_k_real)
     rect = kernel.startswith("rect")
     mode = int(kernel == "rect_merge") if rect else tail[0]
+    prev = lse.clone() if kernel == "rect_merge" and D > MAX_HEAD_DIM else None
     if B and Hq and Sq:
         status = _entry("fa2_flash_fwd_rect" if rect else "fa2_flash_fwd_causal")(
             _build.DTYPE_CODES[q.dtype], mode, B, Hq, Hkv, Sq, Sk, D,
@@ -627,7 +661,8 @@ def _schedule_launch(kernel: str, q, k, v, lens, q_off, kv_off, o, lse, *, softm
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
             int(q_off), int(kv_off), float(softmax_scale), int(bool(q_prescaled)),
             *dropout_c_args(dropout_p, dropout_seed), int(sq_real), int(sk_real),
-            *(tail if rect else []), _build.stream_ptr(q.device))
+            *((*tail, prev.data_ptr() if prev is not None else None) if rect else ()),
+            col_chunks(D), _build.stream_ptr(q.device))
         _build.check(status, f"flash_fwd {kernel} launch")
         SCHEDULE_LAUNCHES[kernel] += 1
     return o, lse

@@ -71,10 +71,11 @@ F_INIT, F_FINAL, F_MASKED = 1, 2, 4
 
 # The CUDA kernels' output tiles (csrc/varlen.cu): 64 rows, each nested in
 # one user block (past head dim 256 a 16-bit dk/dv block and an fp32 block
-# own half of one). csrc/varlen.cu is built for the dense kernels' head dims
-# (flash_fwd.HEAD_DIMS, 384 / 512 in varlen_wide.cu); `pad_head_dim` holds
-# the limit of every family.
+# own half of one). csrc/varlen.cu is built for the dense kernels' tiled head
+# dims (flash_fwd.HEAD_DIMS, 384 / 512 in varlen_wide.cu) and not past them
+# yet: `pad_head_dim(..., family=PACKED)` raises there on CUDA tensors.
 TILE_ROWS = 64
+PACKED = "the packed (varlen / block-sparse) kernels are"
 
 # Kernel launches since the last reset, per kernel (the smoke test reads
 # these to show the packed path went through the kernels).
@@ -421,7 +422,7 @@ def _check_cuda_layout(q, k, v, block_q, block_kv):
     """Raise on what the kernels do not take; 16-bit q / k / v need 16-byte
     rows (the tensor-core kernels' cp.async copies)."""
     _check_cuda_args(q, k, v, vec=_vec(q))
-    pad_head_dim(q.shape[3], q.device)   # raises past the kernels' head dims
+    pad_head_dim(q.shape[3], q.device, PACKED)   # raises past the kernels' head dims
     if q.shape[0] != 1 or k.shape[2] != q.shape[2]:
         raise ValueError(f"packed q / k / v must be [1, H, T, D] with one T, got "
                          f"{tuple(q.shape)} / {tuple(k.shape)}")
@@ -711,7 +712,7 @@ def flash_attn_varlen_func(
     out_dtype = q.dtype
     q, k, v = _upcast_fp16(q, k, v)
     D = q.shape[-1]
-    Dp = pad_head_dim(D, q.device)
+    Dp = pad_head_dim(D, q.device, PACKED)
     o, lse = _VarlenCore.apply(*(pad_last(x, Dp).transpose(1, 2) for x in (q, k, v)), meta)
     out = o.transpose(1, 2)[..., :D].to(out_dtype)
     if squeeze:
@@ -764,7 +765,7 @@ def flash_attn_blocksparse_func(
     scale = float(softmax_scale) if softmax_scale is not None else default_softmax_scale(D)
     out_dtype = q.dtype
     q, k, v = _upcast_fp16(q, k, v)
-    Dp = pad_head_dim(D, q.device)
+    Dp = pad_head_dim(D, q.device, PACKED)
 
     def pack(x):
         # [B, S, H, D] -> [1, H, B*S_pad, Dp], a view when S_pad == S and Dp == D

@@ -73,11 +73,11 @@ def test_every_entry_point_has_a_wrapper_with_its_argtypes(monkeypatch):
 
 def test_the_parse_sees_each_kind():
     """The parser reads the forward's signature as its declaration says: the
-    tile rows and the stream close it, the strides are long long, the
-    dropout seed and threshold unsigned."""
+    column chunks and the stream close it, the strides (and the lse's chunk
+    stride) are long long, the dropout seed and threshold unsigned."""
     fwd = _c_signatures()["fa2_flash_fwd"]
     assert fwd[-2:] == [ctypes.c_int, ctypes.c_void_p]
-    assert fwd.count(ctypes.c_longlong) == 16 and fwd.count(ctypes.c_uint) == 2
+    assert fwd.count(ctypes.c_longlong) == 17 and fwd.count(ctypes.c_uint) == 2
     assert fwd.count(ctypes.c_float) == 3
 
 

@@ -25,6 +25,10 @@ pytestmark = pytest.mark.cuda
 # the fused backward schedules, decode and the packed kernels are built for
 # (their own tilings there).
 WIDE = [384, 512]
+# Head dims past 512 (any multiple of 128: the forward, the dq + dk/dv pair
+# and decode split the output columns over blocks; D 640 ends in a chunk
+# half as wide, 1152 in one of 128).
+WIDER = [640, 1024, 1152]
 
 
 @pytest.fixture
@@ -67,7 +71,7 @@ FWD_CASES = [
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128, 256] + WIDE)
+@pytest.mark.parametrize("D", [64, 128, 256] + WIDE + WIDER)
 @pytest.mark.parametrize("case", range(len(FWD_CASES)))
 def test_flash_fwd_kernel_matches_plain(dev, dtype, D, case):
     c = FWD_CASES[case]
@@ -103,7 +107,7 @@ def test_flash_fwd_kernel_matches_plain(dev, dtype, D, case):
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128, 256] + WIDE)
+@pytest.mark.parametrize("D", [64, 128, 256] + WIDE + WIDER)
 @pytest.mark.parametrize("route", ["generic", "strip"])
 def test_flash_fwd_kernel_ignores_nan_padding(dev, dtype, D, route):
     """Rows past q_len / kv_len may hold NaN (padding), and the tensor cores
@@ -148,7 +152,7 @@ def test_flash_fwd_kernel_is_bitwise_repeatable(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128, 256] + WIDE)
+@pytest.mark.parametrize("D", [64, 128, 256] + WIDE + WIDER)
 @pytest.mark.parametrize("G", [1, 2, 4, 8])
 @pytest.mark.parametrize("kw", [dict(), dict(window_left=50), dict(softcap=3.0)])
 def test_decode_kernel_matches_plain(dev, dtype, D, G, kw):
@@ -181,25 +185,26 @@ def test_decode_kernel_ignores_nan_past_kv_len(dev):
 
 
 def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(dev):
-    # Head dims: past 512 every entry point (dbias, the forced fused backward
-    # schedules and the packed kernels too; ROADMAP.md queue A).
+    # Head dims: past 512 `flash_attn_func` computes (the forward and the dq
+    # + dk/dv pair take any multiple of 128); dbias, the forced fused
+    # backward schedules and the packed kernels raise (ROADMAP.md queue A
+    # item 1(c)).
     from fa2_triton_tpu_torch.ops import varlen
 
     q = torch.zeros(1, 8, 2, 640, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim 640.*queue A"):
-        flash_attn_func(q, q, q, causal=True)
+    assert flash_attn_func(q, q, q, causal=True).shape == q.shape
     qw = torch.zeros(1, 2, 8, 640, device=dev, dtype=torch.bfloat16)
     lens8 = torch.tensor([[8, 8]], dtype=torch.int32, device=dev)
     bias = torch.zeros(1, 2, 8, 8, device=dev)
-    with pytest.raises(ValueError, match="head_dim in .*queue A.*got 640"):
+    with pytest.raises(ValueError, match=r"head_dim 640 > 512.*dbias.*queue A item 1\(c\)"):
         flash_bwd.flash_attn_backward(qw, qw, qw, qw, qw, torch.zeros(1, 2, 8, device=dev), lens8,
                                       0, 0, bias, causal=True, softmax_scale=0.05,
                                       compute_dbias=True)
     xp = torch.zeros(128, 2, 640, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim 640 > 512.*queue A"):
+    with pytest.raises(ValueError, match=r"head_dim 640 > 512.*queue A item 1\(c\)"):
         varlen.flash_attn_varlen_func(xp, xp, xp, [0, 128], block_q=128, block_kv=128)
     for route in ("tri_square", "worklist", "split"):
-        with pytest.raises(ValueError, match="queue A.*got 640"):
+        with pytest.raises(ValueError, match=r"head_dim 640 > 512.*queue A item 1\(c\)"):
             flash_bwd.flash_attn_backward(qw, qw, qw, qw, qw, torch.zeros(1, 2, 8, device=dev),
                                           lens8, causal=True, softmax_scale=0.05,
                                           static_skip=True, route=route)
@@ -311,7 +316,7 @@ def _bwd_inputs(dev, c, D, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128, 256] + WIDE)
+@pytest.mark.parametrize("D", [64, 128, 256] + WIDE + WIDER)
 @pytest.mark.parametrize("case", range(len(BWD_CASES)))
 def test_flash_bwd_kernels_match_plain(dev, dtype, D, case):
     c = BWD_CASES[case]
@@ -458,7 +463,7 @@ def test_dbias_kernel_ignores_nan_padding(dev, dtype, D):
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128, 256] + WIDE)
+@pytest.mark.parametrize("D", [64, 128, 256] + WIDE + WIDER)
 def test_bwd_kernels_ignore_nan_padding(dev, dtype, D):
     """Rows past q_len and columns past kv_len may hold NaN (padding): the
     kernels zero-fill them on load, so the gradients equal those of
@@ -845,7 +850,7 @@ def _to_pool(caches, lens, page, seed, fill=float("nan")):
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
 @pytest.mark.parametrize("qdtype", list(QDTYPE_IDS), ids=list(QDTYPE_IDS.values()))
-@pytest.mark.parametrize("D", [64, 128, 256] + WIDE)
+@pytest.mark.parametrize("D", [64, 128, 256] + WIDE + WIDER)
 @pytest.mark.parametrize("G", [1, 4, 8])
 @pytest.mark.parametrize("page", [128, 512])
 @pytest.mark.parametrize("kw", [dict(), dict(window_left=300, softcap=3.0)])
@@ -1189,15 +1194,17 @@ DROPOUT_CASES = [
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128, 256] + WIDER)
 @pytest.mark.parametrize("G", [1, 4])
 @pytest.mark.parametrize("case", range(len(DROPOUT_CASES)))
 def test_dropout_kernels_match_plain(dev, dtype, D, G, case):
     """Forward, dq, dk/dv (and dbias) with dropout against the plain twins
     fed the same seed (FA rules); the chunk case sits at q_off 40 with real
-    lengths past the call, so the counter uses seqlen_*_real."""
+    lengths past the call, so the counter uses seqlen_*_real. Past D 512 the
+    bias case takes no gradient (dbias is not built there yet)."""
     c = dict(DROPOUT_CASES[case])
     with_bias = c.pop("bias", False)
+    with_dbias = with_bias and D <= flash_fwd.MAX_HEAD_DIM
     (q32, k32, v32, do32), lens, q_off, kw = _bwd_inputs(dev, dict(c, hkv=8 // G), D,
                                                          case * 13 + D + G)
     kw.update(dropout_p=0.17, dropout_seed=(case - 2) * 1000 + D + G)
@@ -1207,7 +1214,7 @@ def test_dropout_kernels_match_plain(dev, dtype, D, G, case):
     if with_bias:
         b32 = torch.randn(1, 8, q32.shape[2], k32.shape[2],
                           generator=torch.Generator(device=dev).manual_seed(D), device=dev)
-    dbias = dict(compute_dbias=with_bias)
+    dbias = dict(compute_dbias=with_dbias)
     o32, lse32 = flash_fwd.flash_attn_forward_plain(q32, k32, v32, lens, q_off, 0, b32, **kw)
     refs = flash_bwd.flash_attn_backward_plain(q32, k32, v32, do32, o32, lse32, lens, q_off, 0, b32,
                                                **dbias, **kw)
@@ -1218,7 +1225,7 @@ def test_dropout_kernels_match_plain(dev, dtype, D, G, case):
     grads = flash_bwd.flash_attn_backward(q, k, v, do, o, lse, lens, q_off, 0, bias, **dbias, **kw)
     launched = (flash_fwd.LAUNCHES - fwd0,
                 *(flash_bwd.LAUNCHES[n] - bwd0[n] for n in sorted(bwd0)))
-    assert launched == (1, int(with_bias), 1, 1), launched     # fwd, dbias, dq, dk/dv
+    assert launched == (1, int(with_dbias), 1, 1), launched     # fwd, dbias, dq, dk/dv
     o_pl, lse_pl = flash_fwd.flash_attn_forward_plain(q, k, v, lens, q_off, 0, bias, **kw)
     plains = flash_bwd.flash_attn_backward_plain(q, k, v, do, o, lse, lens, q_off, 0, bias,
                                                  **dbias, **kw)
@@ -1420,7 +1427,7 @@ SCHEDULE_LAUNCH_DELTAS = {
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128, 256] + WIDE)
+@pytest.mark.parametrize("D", [64, 128, 256] + WIDE + WIDER)
 @pytest.mark.parametrize("case", list(SCHEDULE_CASES))
 @pytest.mark.parametrize("dropout_p", [0.0, 0.2])
 def test_schedule_kernels_match_plain(dev, dtype, D, case, dropout_p):
@@ -1463,7 +1470,7 @@ def test_schedule_kernels_match_plain(dev, dtype, D, case, dropout_p):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128, 256] + WIDE)
+@pytest.mark.parametrize("D", [64, 128, 256] + WIDE + WIDER)
 @pytest.mark.parametrize("Sq,Sk", [(300, 300), (172, 300), (700, 700)])
 @pytest.mark.parametrize("dropout_p", [0.0, 0.2])
 def test_strip_equals_the_generic_kernel_bit_for_bit(dev, dtype, D, Sq, Sk, dropout_p):
@@ -1495,7 +1502,7 @@ SPLIT_AS_GENERIC = {
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128, 256] + WIDE)
+@pytest.mark.parametrize("D", [64, 128, 256] + WIDE + WIDER)
 @pytest.mark.parametrize("call", list(SPLIT_AS_GENERIC))
 @pytest.mark.parametrize("dropout_p", [0.0, 0.2])
 def test_split_calls_equal_the_generic_kernel_bit_for_bit(dev, dtype, D, call, dropout_p):
@@ -1759,7 +1766,7 @@ KV_CACHE_CASES = {   # name: (S_step, kv_len, Hkv, window_left, softcap)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128] + WIDE)
+@pytest.mark.parametrize("D", [64, 128] + WIDE + WIDER)
 @pytest.mark.parametrize("case", list(KV_CACHE_CASES))
 def test_flash_attn_with_kv_cache_kernel_matches_plain(dev, dtype, D, case):
     from fa2_triton_tpu_torch.ops.attention import flash_attn_with_kv_cache
@@ -2453,11 +2460,12 @@ WIDE_EXTRA = {   # name: (flash_fwd / flash_bwd keywords, whether a bias rides a
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16, torch.bfloat16])
-@pytest.mark.parametrize("D", WIDE)
+@pytest.mark.parametrize("D", WIDE + WIDER)
 @pytest.mark.parametrize("case", list(WIDE_EXTRA))
 def test_wide_head_dims_bias_and_dropout_match_plain(dev, dtype, D, case):
     """The EXTRA and DROP instantiations past D 256: forward, dq and dk/dv
-    with a bias that needs no gradient (dbias stops at D 256) or dropout,
+    with a bias that needs no gradient (dbias stopped at D 256 then; past
+    512 it is not built yet) or dropout,
     against the plain twins (FA rules), one launch each and no dbias
     (softcap: FWD_CASES / BWD_CASES at every D)."""
     extra, with_bias = WIDE_EXTRA[case]
@@ -2488,11 +2496,11 @@ def test_wide_head_dims_bias_and_dropout_match_plain(dev, dtype, D, case):
     _check_grads(grads, refs, plains, dtype)
 
 
-@pytest.mark.parametrize("D", [300, 448])
+@pytest.mark.parametrize("D", [300, 448, 600, 1000])
 def test_wide_head_dims_off_the_kernel_widths_are_padded(dev, D):
     """flash_attn_func at a head dim past 256 but off the kernels' widths
-    (padded to 384 / 512, JAX's round-up to 128) matches the same call on
-    the CPU, fp32, forward and gradients, with dropout."""
+    (padded to 384 / 512 / 640 / 1024, JAX's round-up to 128) matches the
+    same call on the CPU, fp32, forward and gradients, with dropout."""
     rng = torch.Generator().manual_seed(D)
     x = [torch.randn(2, 130, h, D, generator=rng) * 0.5 for h in (4, 2, 2)]
     results = []
@@ -2595,7 +2603,7 @@ def test_wide_dbias_with_dropout_matches_plain(dev, dtype, D, bias_b):
     _check_grads(grads, refs, plains, dtype)
 
 
-@pytest.mark.parametrize("head_dim", [16, 96, 384])
+@pytest.mark.parametrize("head_dim", [16, 96, 384, 600])
 @pytest.mark.parametrize("mode", [dict(), dict(paged=True, qdtype="int8")])
 def test_engine_at_any_head_dim_on_cuda_matches_the_cpu(dev, head_dim, mode):
     """The serving caches are allocated at the kernels' head dim (16 -> 64,
@@ -2621,10 +2629,107 @@ def test_engine_at_any_head_dim_on_cuda_matches_the_cpu(dev, head_dim, mode):
         eng.run()
         outs.append(reqs)
         cache = eng.pcache.pools[0] if kw.get("paged") else eng.caches[0]
-        assert cache["k"].shape[-1] == {16: 64, 96: 128, 384: 384}[head_dim]
+        assert cache["k"].shape[-1] == {16: 64, 96: 128, 384: 384, 600: 640}[head_dim]
         assert not cache["k"][..., head_dim:].float().any()
     assert decode.LAUNCHES > 0
     for a, b in zip(*outs):
         assert a.out_tokens == b.out_tokens
         torch.testing.assert_close(torch.tensor(b.out_logprobs), torch.tensor(a.out_logprobs),
                                    rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("D", WIDER)
+def test_wider_kernels_are_bitwise_repeatable_and_their_chunks_agree(dev, D):
+    """Past D 512, bf16: every column chunk of a q tile computes the same
+    lse bit for bit (each writes its own, `chunk_lse`), equal to the call's;
+    5 runs each of the forward with dropout, the forced split (its merges
+    read the previous lse from a copy while the chunks write the new one),
+    the dq + dk/dv pair with a bias and dropout, and split-KV decode give
+    identical outputs (no atomics; fixed orders)."""
+    (q, k, v, do), lens, _, kw = _bwd_inputs(dev, dict(sq=333, sk=333, lens=(333, 256)), D, D)
+    q, k, v, do = (x.to(torch.bfloat16) for x in (q, k, v, do))
+    drop = dict(dropout_p=0.1, dropout_seed=D)
+    o, lse = flash_fwd.flash_attn_forward(q, k, v, lens, **kw, **drop)
+    _, per_chunk = flash_fwd._flash_fwd_launch(q, k, v, lens, 0, 0, None, seqlen_q_real=None,
+                                               seqlen_k_real=None, chunk_lse=True, **kw, **drop)
+    assert per_chunk.shape[0] == flash_fwd.col_chunks(D) == -(-D // 256)
+    for c in range(per_chunk.shape[0]):
+        assert torch.equal(per_chunk[c].view(torch.int32), lse.view(torch.int32)), c
+
+    def fwd():
+        return flash_fwd.flash_attn_forward(q, k, v, lens, **kw, **drop)
+
+    bias = torch.randn(1, 8, 333, 333, device=dev, dtype=torch.bfloat16)
+
+    def bwd():
+        o, lse = flash_fwd.flash_attn_forward(q, k, v, lens, 0, 0, bias, **kw, **drop)
+        return flash_bwd.flash_attn_backward(q, k, v, do, o, lse, lens, 0, 0, bias, **kw, **drop)
+
+    xs = [(torch.randn(1, 512, h, D, device=dev) * 0.5).to(torch.bfloat16).transpose(1, 2)
+          for h in (4, 2, 2)]
+    lens_s = torch.tensor([[512, 512]], dtype=torch.int32, device=dev)
+
+    def split():
+        return flash_fwd.flash_attn_forward(*xs, lens_s, causal=True, softmax_scale=D ** -0.5,
+                                            static_skip=True, tri_square=False, causal_split=True,
+                                            split_leaf=128)
+
+    qd = (torch.randn(3, 8, D, device=dev) * 0.5).to(torch.bfloat16)
+    kc, vc = ((torch.randn(3, 2, 1500, D, device=dev) * 0.5).to(torch.bfloat16) for _ in range(2))
+    kv_lens = torch.tensor([1, 700, 1500], dtype=torch.int32, device=dev)
+
+    def dec():
+        return (decode.decode_attention(qd, kc, vc, kv_lens),)
+
+    for run in (fwd, split, bwd, dec):
+        outs = [run() for _ in range(5)]
+        torch.cuda.synchronize()
+        for out in outs[1:]:
+            for a, b in zip(out, outs[0]):
+                assert torch.equal(a, b), run.__name__
+    o_s, lse_s = split()
+    o_p, lse_p = flash_fwd.flash_attn_forward_plain(*xs, lens_s, causal=True,
+                                                    softmax_scale=D ** -0.5)
+    t32 = [x.float() for x in xs]
+    o32, _ = flash_fwd.flash_attn_forward_plain(*t32, lens_s, causal=True, softmax_scale=D ** -0.5)
+    _check(o_s, o32, o_p, torch.bfloat16)
+    assert (lse_s - lse_p).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("D", [640, 1024])
+@pytest.mark.parametrize("S,Hkv,jax_route", [(256, 8, "tri_square"), (1024, 8, "worklist"),
+                                             (2048, 2, "generic")])
+def test_wider_head_dims_take_the_pair(dev, prior_routes, D, S, Hkv, jax_route):
+    """The public call, bf16, B 2 x 8 query heads: past D 512 the backward
+    takes the dq + dk/dv pair, also where JAX's gates send it to a fused
+    schedule (the tri-square at S 256, the work list at S 1024, MHA; not
+    built past 512 yet), one launch each and no schedule; the forward one
+    launch of its route; the FA rules against the fp32 plain twins."""
+    g = torch.Generator(device=dev).manual_seed(D + S)
+    x32 = [torch.randn(2, S, h, D, generator=g, device=dev) * 0.5 for h in (8, Hkv, Hkv)]
+    do32 = torch.randn(2, S, 8, D, generator=g, device=dev)
+    gates = flash_bwd.backward_gates(S, S, D, 2, causal=True, group=8 // Hkv, static_skip=True)
+    assert jax_route == "generic" or gates[jax_route]
+    assert flash_bwd.backward_route(S, S, D, 2, causal=True, group=8 // Hkv,
+                                    static_skip=True) in ("generic", "strip")
+    leaves = [x.to(torch.bfloat16).requires_grad_() for x in x32]
+    flash_fwd.reset_launches()
+    flash_bwd.reset_launches()
+    out = flash_attn_func(*leaves, causal=True)
+    out.backward(do32.to(torch.bfloat16))
+    torch.cuda.synchronize()
+    assert flash_fwd.LAUNCHES + sum(flash_fwd.SCHEDULE_LAUNCHES.values()) == 1
+    assert flash_bwd.LAUNCHES == {"flash_bwd_dq": 1, "flash_bwd_dkdv": 1, "flash_bwd_dbias": 0}
+    assert not any(flash_bwd.SCHEDULE_LAUNCHES.values())
+    t = lambda x: x.transpose(1, 2)
+    lens = torch.tensor([[S, S]] * 2, dtype=torch.int32, device=dev)
+    kw = dict(causal=True, softmax_scale=D ** -0.5)
+    o32, lse32 = flash_fwd.flash_attn_forward_plain(*(t(x) for x in x32), lens, **kw)
+    refs = flash_bwd.flash_attn_backward_plain(*(t(x) for x in x32), t(do32), o32, lse32, lens,
+                                               **kw)
+    xl = [t(x.detach()) for x in leaves]
+    o_pl, lse_pl = flash_fwd.flash_attn_forward_plain(*xl, lens, **kw)
+    plains = flash_bwd.flash_attn_backward_plain(*xl, t(do32.to(torch.bfloat16)), o_pl, lse_pl,
+                                                 lens, **kw)
+    _check(t(out.detach()), o32, o_pl, torch.bfloat16)
+    _check_grads([t(x.grad) for x in leaves], refs, plains, torch.bfloat16)

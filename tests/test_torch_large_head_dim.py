@@ -11,9 +11,9 @@ mode, on the same numpy-seeded inputs:
   pads on the JAX side), causal and not, fp32, B 1, Hq 4 / Hkv 2: out within
   2e-5 and dq / dk / dv within 1e-4, JAX's own bounds; a dropout case (p
   0.1, the counter-hash mask bitwise on both sides) and a D 300 case;
-* `pad_head_dim` / `kernel_head_dim`: the mapping, and the limit every
-  family shares, the packed kernels' too (CUDA tensors past it raise, CPU
-  tensors take any D);
+* `pad_head_dim` / `kernel_head_dim`: the mapping, JAX's round-up to 128
+  past 512 too, and the packed kernels' limit (CUDA tensors past 512
+  raise, CPU tensors take any D);
 * the routes: `backward_route` equals the route of JAX's real dispatch
   (the tri-square, the split and the work list among them: their kernels
   are built for D 384 / 512), and `forward_route` JAX's gates;
@@ -41,7 +41,7 @@ from fa2_triton_tpu.utils import round_up_to_multiple
 torch = pytest.importorskip("torch")
 from fa2_triton_tpu_torch.models import llama as tl  # noqa: E402
 from fa2_triton_tpu_torch.models.convert import llama_from_jax_params  # noqa: E402
-from fa2_triton_tpu_torch.ops import flash_bwd, flash_fwd  # noqa: E402
+from fa2_triton_tpu_torch.ops import flash_bwd, flash_fwd, varlen  # noqa: E402
 from fa2_triton_tpu_torch.ops.attention import (  # noqa: E402
     flash_attn_func, kernel_head_dim, pad_head_dim)
 from fa2_triton_tpu_torch.runtime import Engine  # noqa: E402
@@ -95,20 +95,23 @@ def test_dropout_and_a_padded_head_dim_match_jax(D, kw):
 
 def test_pad_head_dim_maps_to_the_kernels_widths_and_holds_each_familys_limit():
     want = {1: 64, 16: 64, 64: 64, 65: 128, 96: 128, 128: 128, 200: 256, 256: 256, 257: 384,
-            300: 384, 384: 384, 385: 512, 448: 512, 512: 512, 513: 513, 640: 640}
+            300: 384, 384: 384, 385: 512, 448: 512, 512: 512, 513: 640, 640: 640}
     for D, Dp in want.items():
         assert kernel_head_dim(D) == Dp, D
         assert pad_head_dim(D, torch.device("cpu")) == Dp
-        if 256 < D <= 512:   # JAX's rule: the next multiple of 128
+        if D > 256:   # JAX's rule: the next multiple of 128
             assert Dp == round_up_to_multiple(D, 128)
     cuda = torch.device("cuda")   # a device object only: no tensor, no card needed
     assert flash_fwd.HEAD_DIMS[-1] == flash_fwd.MAX_HEAD_DIM == 512
     assert pad_head_dim(448, cuda) == 512
+    # Past 512 the dense kernels take D 640; the packed kernels stop at 512
+    # (they stopped at 256 before): on the card D 300 pads to 384, D 200 to
+    # 256, and D 640 raises.
+    assert pad_head_dim(640, cuda) == 640
     with pytest.raises(ValueError, match="head_dim 640 > 512.*ROADMAP.md"):
-        pad_head_dim(640, cuda)
-    # The packed kernels hold the same limit (they stopped at 256 before):
-    # on the card D 300 pads to 384, D 200 to 256, and D 640 raises.
-    assert pad_head_dim(300, cuda) == 384 and pad_head_dim(200, cuda) == 256
+        pad_head_dim(640, cuda, varlen.PACKED)
+    assert pad_head_dim(300, cuda, varlen.PACKED) == 384
+    assert pad_head_dim(200, cuda, varlen.PACKED) == 256
 
 
 def _jax_forward_route(Sq, Sk, head_dim, nbytes):
